@@ -1,0 +1,73 @@
+"""Guards of the port: it imports no JAX, and a device asked for is the
+device used (no silent CPU fallback)."""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rednose_tpu_torch.models.kinematic import KinematicKalman
+from rednose_tpu_torch.ops import live_scan
+from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
+import torch_parity  # noqa: F401  (one torch thread)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import rednose_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    rednose_tpu_torch.__path__, "rednose_tpu_torch.")]
+for name in names:
+  importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "rednose_tpu.")))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+  out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+  assert out.returncode == 0, out.stderr
+  assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+
+
+@pytest.mark.parametrize("make", [
+    lambda: LiveKalmanBank(batch=8, device="cuda"),
+    lambda: KinematicKalman(device="cuda"),
+])
+def test_cuda_request_never_runs_on_cpu(make):
+  if torch.cuda.is_available():
+    obj = make()
+    tensor = obj._x if hasattr(obj, "_x") else obj.filter.x
+    assert tensor.is_cuda
+  else:
+    with pytest.raises(RuntimeError, match="cuda"):
+      make()
+
+
+def test_live_wrappers_refuse_non_cuda_devices():
+  """The wrappers run the plain version for CPU tensors only; anything
+  else must be a contiguous float32 CUDA tensor or is refused."""
+  m = dict(device="meta")
+  x, P = torch.empty((23, 8), **m), torch.empty((22, 22, 8), **m)
+  zs, dts = torch.empty((2, 3, 8), **m), torch.empty(2, **m)
+  q, R = torch.empty(22, **m), torch.empty((3, 3), **m)
+  with pytest.raises(ValueError, match="CUDA"):
+    live_scan.live_bank_scan(x, P, zs, dts, q, R)
+  with pytest.raises(ValueError, match="CUDA"):
+    live_scan.live_bank_scan_mixed(
+        x, P, zs, dts, torch.zeros(2, dtype=torch.int32, **m),
+        (12,), torch.empty((1, 3, 3), **m), q)
+  before = (live_scan.live_bank_scan.launches,
+            live_scan.live_bank_scan_mixed.launches)
+  bank = LiveKalmanBank(batch=4, device="cpu")
+  bank.run(np.full(2, 0.01), np.zeros((2, 4, 3)))
+  bank.observe(0.05, 12, np.zeros(3))
+  assert (live_scan.live_bank_scan.launches,
+          live_scan.live_bank_scan_mixed.launches) == before
