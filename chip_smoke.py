@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root, one H100
 
-Builds the port's CUDA kernels from csrc/ (rednose_tpu_torch/_build.py),
-then:
+Builds the port's CUDA kernels from the repository (rednose_tpu_torch/
+_build.py): csrc/*.cu, and, in parallel, one emitted source per generic
+kernel variant the run uses (ops/entry_slab.py around
+csrc/generic_scan.cuh, one nvcc each). Then:
   1. main path, with every kernel's launch count set to 0 first:
      KinematicKalman(device="cuda") on a 100-observation stream (P shrinks,
      a late observation rewinds and replays, a too-old one returns None);
@@ -13,16 +15,30 @@ then:
      steps of the gyro / accel / camera rotation / position schedule, run
      over T = 1024 ECEF_POS steps, 8 observe calls with one late; all
      finite, P exactly symmetric, no diverged lane, every position within
-     8 sigma + 5 m of the truth. Every kernel must have launched at least
-     once.
+     8 sigma + 5 m of the truth. Then the generic bank (KalmanBank):
+     CarKalman at B = 8192, T = 1024 yaw-rate steps with the per-step
+     speed / steering stream; LocKalman at B = 8192, T = 512 GNSS epochs
+     of 4 pseudoranges + 4 rates, then 8 observe calls with one late; the
+     unmodified live spec at B = 8192, run_mixed T = 512 over the 4-kind
+     cycle and run T = 512 ECEF_POS with the gate on; all finite, P exactly
+     symmetric, no diverged lane. Every kernel must have launched.
   2. each kernel against its plain torch version on the card (kinematic at
-     B = 16384, T = 4096; live at B = 8192, T = 64, from the main path's
-     final bank state), the difference in standard deviations of the plain
-     result (utils/compare.py), and both timed with CUDA events.
-Prints the card's name and power limit, a JSON line of the kernels, and
-last `{"ok": true, "device": {...}}`. Any failure raises (non-zero exit).
-It needs a CUDA card and the repository; without either it exits non-zero
-and prints no result. It imports nothing of JAX.
+     B = 16384, T = 4096; the others at B = 8192, T = 64 from the main
+     path's converged states with consistent data), the difference in
+     standard deviations of the plain result (utils/compare.py), both
+     timed with CUDA events. loc (kernel 5) is held in double, the float64
+     build of its body against the float64 plain version, and planted
+     faults must fail that limit; its float32 agreement is printed; on the
+     main path's loc data its share of lanes over 100 m off is held
+     against the plain version's. As a cross-check, the generic live
+     kernels against the hand ones on the same inputs: kernel 4 (ECEF_POS,
+     gate on) against kernel 2, kernel 6 against kernel 3 with its gate
+     off.
+Prints the build times and ptxas lines, the card's name and power limit,
+a JSON line of the kernels, and last `{"ok": true, "device": {...}}`. Any
+failure raises (non-zero exit). It needs a CUDA card and the repository;
+without either it exits non-zero and prints no result. It imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -38,11 +54,41 @@ SEED = 0
 KIN_B, KIN_T = 16384, 4096
 LIVE_B, LIVE_T = 8192, 1024
 CMP_T = 64
+# generic bank (bench.py's car_params_stream, generic_epoch, generic_entry
+# and generic_mixed shapes)
+GEN_B = 8192
+CAR_T, LOC_T, GEN_LIVE_T = 1024, 512, 512
+PS_KEYS = ("u", "steer_angle_deg")
 # kernel vs plain version, in standard deviations of the plain result
 # (utils/compare.py): both float32, differing in rounding only (FMA
 # contraction and rsqrtf in the kernel, torch's separate elementwise ops)
 KIN_TOL = 1e-3
 LIVE_TOL = 1e-3
+# the generic kernels against their plain versions, which take dense
+# jacfwd Jacobians where the kernels run the structural, zero-folded
+# taps: the same math in another rounding order
+GEN_TOL = 1e-3
+# the generic live kernels against the hand ones: the hand kernels take
+# closed-form Jacobians (live_lane.py), the generic ones the autodiff taps
+# of the model as written, so every entry of H is the same value rounded
+# another way (e.g. GM / r^3 against pow(r2, 1.5))
+CROSS_TOL = 1e-2
+# loc in float32 at ECEF scale: one ulp of a position is 0.5 m and of a
+# range 2 m, against a converged position sigma under 1 m and a range
+# sigma of 2 m, so any two float32 programs part by about a sigma per lane
+# and gate a borderline satellite apart; their agreement is printed, not
+# held. Kernel 5 is held on loc in double instead: the float64 build of
+# the same emitted body against the float64 plain version, every lane
+# within LOC64_TOL sigmas (a gate decision taken apart would move its
+# lane by a good part of a sigma). Planted faults must fail that limit.
+# On the main path's data from the 1e8 m^2 prior, the float32 kernel's
+# share of lanes over LOC_FAR_M off may be at most LOC_SHARE_RATIO times
+# the float32 plain version's plus LOC_SHARE_SLACK, and the double
+# kernel's within LOC64_SHARE_DIFF of the float64 plain version's.
+LOC64_TOL = 1e-6
+LOC_FAR_M = 100.0
+LOC_SHARE_RATIO, LOC_SHARE_SLACK = 1.25, 0.01
+LOC64_SHARE_DIFF = 0.002
 
 
 def log(msg):
@@ -63,11 +109,11 @@ def card_line():
   return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-  """Mean device time of fn() over reps calls after one warm-up call."""
+def timed_run(fn, reps):
+  """(mean CUDA-event ms over reps calls after one warm-up call, output)."""
   import torch
 
-  fn()
+  out = fn()
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
@@ -76,7 +122,7 @@ def cuda_ms(fn, reps):
     fn()
   end.record()
   torch.cuda.synchronize()
-  return start.elapsed_time(end) / reps
+  return start.elapsed_time(end) / reps, out
 
 
 def kinematic_inputs(torch, dev, gen):
@@ -199,17 +245,15 @@ def compare(name, source, replaces, kernel, plain, args, kw, err, tol, reps,
   """Run the kernel and its plain version on the same inputs; the kernel
   passes when their difference, in standard deviations of the plain
   result (utils/compare.py), is at most tol."""
-  out_k = kernel(*args, **kw)
-  out_p = plain(*args, **kw)
+  ms, out_k = timed_run(lambda: kernel(*args, **kw), reps)
+  plain_ms, out_p = timed_run(lambda: plain(*args, **kw), 1)
   flat = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
   e = err(out_k, out_p)
   row = dict(
       name=name, route="cuda", source=source, replaces=replaces,
       max_abs_err=max(float((a - b).abs().max())
                       for a, b in zip(flat(out_k), flat(out_p))),
-      sigma_err=e, ok=e <= tol,
-      ms=cuda_ms(lambda: kernel(*args, **kw), reps),
-      plain_ms=cuda_ms(lambda: plain(*args, **kw), 1), shape=shape)
+      sigma_err=e, ok=e <= tol, ms=ms, plain_ms=plain_ms, shape=shape)
   log(f"{name} [{shape}]: kernel {row['ms']:.4f} ms, plain "
       f"{row['plain_ms']:.4f} ms; max |kernel - plain| "
       f"{row['max_abs_err']:.4g} = {e:.4g} sigma (tolerance {tol}) -> "
@@ -287,6 +331,428 @@ def compare_kernels(torch, dev, gen, live_states):
   require(not bad, f"kernels agree with their plain versions: {bad}")
   return rows
 
+# ------------------------------------------------------------ generic bank
+
+def generic_models():
+  from rednose_tpu_torch.models.car import CarKalman
+  from rednose_tpu_torch.models.live import LiveKalman, build_live_spec
+  from rednose_tpu_torch.models.loc import LocKalman
+
+  return CarKalman, LocKalman, LiveKalman, build_live_spec()
+
+
+def loc_slots():
+  from rednose_tpu_torch.models.live import ObservationKind as K
+
+  return (K.PSEUDORANGE_GPS,) * 4 + (K.PSEUDORANGE_RATE_GPS,) * 4
+
+
+def generic_sources(live_spec):
+  """The emitted source of every generic kernel variant the main path
+  launches, for the calls the facades make (ops/generic_scan.KernelCall)."""
+  from rednose_tpu_torch.models.car import ObservationKind as CK
+  from rednose_tpu_torch.models.live import ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  CarKalman, LocKalman, LiveKalman, _ = generic_models()
+  car, loc = CarKalman.build_spec(), LocKalman.build_spec()
+
+  def source(model, spec, mode, kinds, **kw):
+    return gs.KernelCall(
+        spec, mode, kinds, Q=model.Q,
+        R_list=[model.obs_noise[k] for k in kinds],
+        structure=sparsity.structure_for(spec, model.initial_x), **kw
+    ).source()
+
+  return {
+      "car run (kernel 4)": source(CarKalman, car, "single", (CK.YAW_RATE,),
+                                   ps_keys=PS_KEYS),
+      "loc run_epochs (kernel 5)": loc_epoch_call().source(),
+      "loc observe (kernel 4)": source(LocKalman, loc, "single",
+                                       (K.PSEUDORANGE_GPS,)),
+      "live run, gate on (kernel 4)": source(
+          LiveKalman, live_spec, "single", (K.ECEF_POS,), gate=True),
+      "live run_mixed (kernel 6)": source(LiveKalman, live_spec, "mixed",
+                                          mixed_kinds()),
+  }
+
+
+def loc_epoch_call(Q=None, R_list=None):
+  """Kernel 5's call on loc as KalmanBank(LocKalman).run_epochs makes it,
+  or with another Q or per-slot R (the planted faults of compare_generic:
+  run-time values, so the same build)."""
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  LocKalman = generic_models()[1]
+  loc = LocKalman.build_spec()
+  return gs.KernelCall(
+      loc, "epoch", loc_slots(), Q=LocKalman.Q if Q is None else Q,
+      R_list=(R_list if R_list is not None
+              else [LocKalman.obs_noise[k] for k in loc_slots()]),
+      structure=sparsity.structure_for(loc, LocKalman.initial_x))
+
+
+def mixed_kinds():
+  from rednose_tpu_torch.models.live import ObservationKind as K
+
+  return (K.PHONE_GYRO, K.PHONE_ACCEL, K.CAMERA_ODO_ROTATION, K.ECEF_POS)
+
+
+def car_data(torch, dev, T, seed):
+  """bench.py car_params_stream: yaw-rate noise, forward speed in [18, 24]
+  m/s and a sinusoidal steering input, dt = 0.05 s."""
+  rng = np.random.RandomState(seed)
+  xs = np.tile(generic_models()[0].initial_x, (GEN_B, 1)) \
+      + 0.05 * rng.randn(GEN_B, 5)
+  zs = torch.as_tensor(0.05 * rng.randn(T, GEN_B, 1), dtype=torch.float32,
+                       device=dev)
+  pss = np.stack([18.0 + 6.0 * rng.rand(T),
+                  25.0 * np.sin(np.linspace(0, 20, T))], axis=1)
+  return xs, zs, pss
+
+
+def loc_data(torch, dev, gen, T, K):
+  """bench.py generic_epoch: per-lane satellites on ~2e7 m shells moving at
+  ~3 km/s, pseudoranges from the receiver at LocKalman.initial_x (at rest,
+  clock 0) and zero range rates: zs (T, K, B, 1), eas (T, K, B, 6)."""
+  LocKalman = generic_models()[1]
+  pos = torch.as_tensor(LocKalman.initial_x[:3], dtype=torch.float32,
+                        device=dev)
+  sat = pos + 2.0e7 * torch.randn((T, K, GEN_B, 3), generator=gen,
+                                  device=dev)
+  vel = 3e3 * torch.randn((T, K, GEN_B, 3), generator=gen, device=dev)
+  rho = torch.linalg.vector_norm(sat - pos, dim=-1)
+  is_rho = (torch.arange(K, device=dev) < K // 2)[None, :, None]
+  zs = torch.where(is_rho, rho, torch.zeros_like(rho))[..., None]
+  return zs, torch.cat([sat, vel], dim=-1)
+
+
+def loc_consistent_data(torch, dev, gen, T, K):
+  """Satellites as in loc_data, with measurements consistent with the
+  receiver at rest at LocKalman.initial_x with a zero clock: ranges and
+  range rates -u.v_sat (computed in float64), plus noise at R's scale."""
+  LocKalman = generic_models()[1]
+  f64 = dict(dtype=torch.float64, device=dev)
+  pos = torch.as_tensor(LocKalman.initial_x[:3], **f64)
+  sat = pos + 2.0e7 * torch.randn((T, K, GEN_B, 3), generator=gen, **f64)
+  vel = 3e3 * torch.randn((T, K, GEN_B, 3), generator=gen, **f64)
+  d = pos - sat
+  rho = torch.linalg.vector_norm(d, dim=-1)
+  rate = -(d / rho[..., None] * vel).sum(dim=-1)
+  is_rho = (torch.arange(K, device=dev) < K // 2)[None, :, None]
+  noise = torch.randn(rho.shape, generator=gen, **f64)
+  zs = torch.where(is_rho, rho + 2.0 * noise, rate + 0.05 * noise)
+  return zs[..., None], torch.cat([sat, vel], dim=-1)
+
+
+def generic_main_path(torch, dev, gen):
+  """Phase 1, generic bank: KalmanBank as a user calls it."""
+  from rednose_tpu_torch.models.car import ObservationKind as CK
+  from rednose_tpu_torch.models.live import ObservationKind as K
+  from rednose_tpu_torch.runtime.generic_bank import KalmanBank
+
+  CarKalman, LocKalman, LiveKalman, live_spec = generic_models()
+
+  def healthy(name, bank):
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(bank._x).all()
+                 and torch.isfinite(bank._P).all()), f"{name} finite")
+    require(torch.equal(bank._P, bank._P.transpose(0, 1)),
+            f"{name} P symmetric")
+    require(int(bank.diverged().sum()) == 0, f"{name}: no diverged lane")
+
+  def timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+  xs, zs, pss = car_data(torch, dev, CAR_T, SEED)
+  car = KalmanBank(CarKalman, batch=GEN_B, x0=xs, device=dev)
+  ms = timed(lambda: car.run(np.full(CAR_T, 0.05), zs, CK.YAW_RATE,
+                             pss=pss, ps_keys=PS_KEYS))
+  healthy("car bank", car)
+  log(f"car bank B={GEN_B}: run T={CAR_T} with the speed / steering "
+      f"stream {ms:.3f} ms (host clock, first call); mean steer ratio "
+      f"{float(car._x[0].mean()):.4f}, stiffness "
+      f"{float(car._x[1].mean()):.4f}")
+
+  slots = loc_slots()
+  zs, eas = loc_data(torch, dev, gen, LOC_T, len(slots))
+  loc = KalmanBank(LocKalman, batch=GEN_B, device=dev)
+  ms = timed(lambda: loc.run_epochs(np.full(LOC_T, 0.1), zs, slots,
+                                    eas=eas))
+  healthy("loc bank", loc)
+  loc_run = (zs, eas, loc._x)     # new tensors every call: a snapshot
+  truth_t = torch.as_tensor(LocKalman.initial_x[:3], device=dev)[:, None]
+  err = (loc._x[0:3] - truth_t).norm(dim=0)
+  log(f"loc bank after run_epochs: position error median "
+      f"{float(err.median()):.4g} m, share of lanes over 100 m "
+      f"{float((err > 100.0).double().mean()):.6f}")
+  rng = np.random.RandomState(SEED + 1)
+  t_base = loc.t
+  truth = LocKalman.initial_x[:3]
+  sats = [truth + 2.0e7 * rng.randn(GEN_B, 3) for _ in range(8)]
+  t0 = time.perf_counter()
+  for i, sat in zip((1, 2, 3, 5, 6, 4, 7, 8), sats):  # the 4th is late
+    z = np.linalg.norm(sat - truth, axis=1)[:, None]
+    require(loc.observe(t_base + 0.1 * i, K.PSEUDORANGE_GPS, z, ea=sat)
+            is not None, f"loc observe {i} applied")
+  torch.cuda.synchronize()
+  ms_obs = (time.perf_counter() - t0) * 1e3
+  require(abs(loc.t - (t_base + 0.8)) < 1e-9, "loc bank time after observe")
+  require(loc.observe(t_base - 5.0, K.PSEUDORANGE_GPS, z, ea=sat) is None,
+          "a too-old loc observation is dropped")
+  healthy("loc bank after observe", loc)
+  err = (loc._x[0:3] - truth_t).norm(dim=0)
+  log(f"loc bank B={GEN_B}: run_epochs T={LOC_T} x {len(slots)} slots "
+      f"{ms:.3f} ms (host clock, first call), then 8 observe calls "
+      f"{ms_obs:.3f} ms (host clock, 12 launches with the replay); "
+      f"position error median {float(err.median()):.4g} m, share of lanes "
+      f"over 100 m {float((err > 100.0).double().mean()):.6f}, max "
+      f"{float(err.max()):.4g} m")
+
+  live = KalmanBank(spec=live_spec, x0=LiveKalman.initial_x,
+                    P_diag=LiveKalman.initial_P_diag, Q=LiveKalman.Q,
+                    obs_noise=LiveKalman.obs_noise, batch=GEN_B, device=dev)
+  # run_mixed first, for a bank at rest (see main_path)
+  kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, GEN_LIVE_T)
+  ms_m = timed(lambda: live.run_mixed(np.full(GEN_LIVE_T, 0.01), kind_idx,
+                                      zs_m, kinds))
+  healthy("generic live bank after run_mixed", live)
+  after_mixed = (live._x, live._P)
+  pos = torch.as_tensor(LiveKalman.initial_x[0:3], dtype=torch.float32,
+                        device=dev)
+  zs = pos + 5.0 * torch.randn((GEN_LIVE_T, GEN_B, 3), generator=gen,
+                               device=dev)
+  ms = timed(lambda: live.run(np.full(GEN_LIVE_T, 0.01), zs, K.ECEF_POS,
+                              gate=True))
+  healthy("generic live bank", live)
+  # with the gate on, a lane whose attitude went astray in the 4-kind
+  # cycle can reject every later fix (the hand kernels do the same):
+  # counted, not required
+  sd = torch.diagonal(live._P, dim1=0, dim2=1)[:, 0:3].sqrt()
+  perr = (live._x[0:3] - pos[:, None]).abs().T
+  off = int((~(perr < 8.0 * sd + 5.0).all(dim=1)).sum())
+  log(f"generic live bank B={GEN_B}: run_mixed T={GEN_LIVE_T} "
+      f"{ms_m:.3f} ms, run T={GEN_LIVE_T} gate on {ms:.3f} ms (host clock, "
+      f"first calls); position sigma {float(sd.mean()):.4g} m, {off} lanes "
+      f"beyond 8 sigma + 5 m")
+  return {"car": (car._x, car._P), "live": (live._x, live._P),
+          "live_mixed": after_mixed, "loc_run": loc_run}
+
+
+def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
+  """Phase 2, generic bank: kernels 4, 5, 6 against their plain versions
+  and the generic live kernels against the hand ones."""
+  from rednose_tpu_torch.models.car import ObservationKind as CK
+  from rednose_tpu_torch.models.live import ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs, live_scan, sparsity
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  CarKalman, LocKalman, LiveKalman, live_spec = generic_models()
+  f32 = dict(dtype=torch.float32, device=dev)
+  dts = torch.full((CMP_T,), 0.01, **f32)
+  rows, checks = [], []
+
+  def lane_errs(a, b, spec):
+    return torch.maximum(*lane_sigma_errs(spec, *a, *b))
+
+  def run(name, source, replaces, spec, kernel, plain, args, kw, shape,
+          tol=GEN_TOL):
+    """Kernel against plain on the same inputs, both timed; passes when
+    every lane is within tol sigmas. Returns (row, kernel out, plain out)."""
+    ms, out_k = timed_run(lambda: kernel(*args, **kw), kernel_reps)
+    plain_ms, out_p = timed_run(lambda: plain(*args, **kw), 1)
+    ex, ep = lane_sigma_errs(spec, *out_k, *out_p)
+    e = torch.maximum(ex, ep)
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(out_k, out_p)),
+               ms=ms, plain_ms=plain_ms, shape=shape)
+    ok = float(e.max()) <= tol
+    log(f"{name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"max |kernel - plain| {row['max_abs_err']:.4g}, "
+        f"{float(e.max()):.4g} sigma (state {float(ex.max()):.4g}, cov "
+        f"{float(ep.max()):.4g}; median lane {float(e.median()):.4g}; "
+        f"tolerance {tol}) -> {'ok' if ok else 'FAIL'}")
+    checks.append((name + " " + shape, ok))
+    return row, out_k, out_p
+
+  # kernel 4 on the car: the params stream, from the converged bank
+  car = CarKalman.build_spec()
+  x, P = states["car"]
+  _, zs, pss = car_data(torch, dev, CMP_T, SEED + 2)
+  run("generic_bank_scan", "", "", car, gs.generic_bank_scan,
+      gs.generic_bank_scan_reference,
+      (x, P, zs.permute(0, 2, 1).contiguous(),
+       torch.full((CMP_T,), 0.05, **f32)),
+      dict(spec=car, kind=CK.YAW_RATE, Q=CarKalman.Q,
+           R=CarKalman.obs_noise[CK.YAW_RATE], ps_keys=PS_KEYS,
+           pss=torch.as_tensor(pss, **f32),
+           structure=sparsity.structure_for(car, CarKalman.initial_x)),
+      f"car B={GEN_B} T={CMP_T} speed / steering stream")
+
+  # kernel 4 on the live spec, ECEF_POS with the gate forced on
+  x, P = states["live"]
+  zs = (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
+        + 5.0 * torch.randn((CMP_T, 3, GEN_B), generator=gen,
+                            device=dev)).contiguous()
+  R = LiveKalman.obs_noise[K.ECEF_POS]
+  st = sparsity.structure_for(live_spec, LiveKalman.initial_x)
+  row4, out4, _ = run(
+      "generic_bank_scan", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:199", live_spec, gs.generic_bank_scan,
+      gs.generic_bank_scan_reference, (x, P, zs, dts),
+      dict(spec=live_spec, kind=K.ECEF_POS, Q=LiveKalman.Q, R=R, gate=True,
+           structure=st), f"live spec B={GEN_B} T={CMP_T} gate on")
+  rows.append(row4)
+  ms, out2 = timed_run(lambda: live_scan.live_bank_scan(
+      x, P, zs, dts, hand_q, torch.as_tensor(R, **f32), gate=True),
+      kernel_reps)
+  ex, ep = lane_sigma_errs(live_spec, *out4, *out2)
+  e = float(torch.maximum(ex, ep).max())
+  log(f"cross-check generic kernel 4 vs hand kernel 2 (ECEF_POS, gate on): "
+      f"{e:.4g} sigma (tolerance {CROSS_TOL}); hand kernel {ms:.4f} ms, "
+      f"generic {row4['ms']:.4f} ms -> {'ok' if e <= CROSS_TOL else 'FAIL'}")
+  checks.append(("generic kernel 4 vs hand kernel 2", e <= CROSS_TOL))
+
+  # kernel 6 on the live spec, from the state after run_mixed
+  x, P = states["live_mixed"]
+  kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, CMP_T)
+  zs_m = zs_m.permute(0, 2, 1).contiguous()
+  ki = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
+  R_list = [LiveKalman.obs_noise[k] for k in kinds]
+  row6, out6, _ = run(
+      "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:250", live_spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      (x, P, zs_m, dts, ki),
+      dict(spec=live_spec, kinds=kinds, Q=LiveKalman.Q, R_list=R_list,
+           structure=st), f"live spec B={GEN_B} T={CMP_T}, 4 kinds")
+  rows.append(row6)
+  ms, out3 = timed_run(lambda: live_scan.live_bank_scan_mixed(
+      x, P, zs_m, dts, ki, kinds, torch.stack(
+          [torch.as_tensor(r, **f32) for r in R_list]), hand_q,
+      gate=False), kernel_reps)
+  ex, ep = lane_sigma_errs(live_spec, *out6, *out3)
+  e = float(torch.maximum(ex, ep).max())
+  log(f"cross-check generic kernel 6 vs hand kernel 3 (gate off): "
+      f"{e:.4g} sigma (tolerance {CROSS_TOL}); hand kernel {ms:.4f} ms, "
+      f"generic {row6['ms']:.4f} ms -> {'ok' if e <= CROSS_TOL else 'FAIL'}")
+  checks.append(("generic kernel 6 vs hand kernel 3", e <= CROSS_TOL))
+
+  # kernel 5 on loc, held in double: the float64 build of the same
+  # emitted body against the float64 plain version, from a bank converged
+  # by the plain version on consistent epochs, over new consistent epochs
+  # (the main path's zero range rates disagree with the ~3 km/s
+  # satellites and leave many lanes unconverged)
+  loc = LocKalman.build_spec()
+  slots = loc_slots()
+  kw = dict(spec=loc, slot_kinds=slots, Q=LocKalman.Q,
+            R_list=[LocKalman.obs_noise[k] for k in slots],
+            structure=sparsity.structure_for(loc, LocKalman.initial_x))
+  f64 = dict(dtype=torch.float64, device=dev)
+
+  def bank_minor(zs, eas, dtype=torch.float64):
+    return (zs.transpose(-1, -2).to(dtype).contiguous(),
+            eas.transpose(-1, -2).to(dtype).contiguous())
+
+  def loc_bank(dtype):
+    return (torch.as_tensor(LocKalman.initial_x, dtype=dtype, device=dev)[
+        :, None].repeat(1, GEN_B),
+            torch.as_tensor(np.diag(LocKalman.initial_P_diag), dtype=dtype,
+                            device=dev)[:, :, None].repeat(1, 1, GEN_B))
+
+  zs, eas = bank_minor(*loc_consistent_data(torch, dev, gen, CMP_T,
+                                            len(slots)))
+  dts64 = torch.full((CMP_T,), 0.1, **f64)
+  x, P = gs.generic_bank_scan_epoch_reference(*loc_bank(torch.float64), zs,
+                                              dts64, eas=eas, **kw)
+  zs, eas = bank_minor(*loc_consistent_data(torch, dev, gen, CMP_T,
+                                            len(slots)))
+  row5, _, ref64 = run(
+      "generic_bank_scan_epoch", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:635", loc, gs.generic_bank_scan_epoch,
+      gs.generic_bank_scan_epoch_reference, (x, P, zs, dts64),
+      dict(eas=eas, **kw),
+      f"loc B={GEN_B} T={CMP_T} epochs of 4 + 4 slots, float64",
+      tol=LOC64_TOL)
+  rows.append(row5)
+  # the limit catches planted faults: a Q term or a slot's update dropped
+  # (the term scaled by 1e-9, the slot's R by 1e12, so the build is the
+  # same); each must leave some lane beyond LOC64_TOL
+  Q, Rs = LocKalman.Q, kw["R_list"]
+  faults = {}
+  for i in np.flatnonzero(np.diag(Q)):
+    Qf = Q.copy()
+    Qf[i, i] *= 1e-9
+    faults[f"Q[{i},{i}] dropped"] = loc_epoch_call(Q=Qf)
+  for k in range(len(slots)):
+    faults[f"slot {k} left out"] = loc_epoch_call(
+        R_list=[R * (1e12 if j == k else 1.0) for j, R in enumerate(Rs)])
+  miss = {name: float(lane_errs(gs.generic_bank_scan_epoch(
+      x, P, zs, dts64, eas=eas, call=c), ref64, loc).max())
+          for name, c in faults.items()}
+  least = min(miss, key=miss.get)
+  ok = miss[least] > LOC64_TOL
+  log(f"generic_bank_scan_epoch planted faults [loc, float64]: "
+      f"{len(miss)} faults, the least visible ({least}) at "
+      f"{miss[least]:.4g} sigma, must exceed {LOC64_TOL} -> "
+      f"{'ok' if ok else 'FAIL'}")
+  checks.append(("loc planted faults beyond the limit", ok))
+
+  # the same comparison in float32, the main path's dtype: printed, not
+  # held (see LOC64_TOL)
+  args32 = (x.float(), P.float(), zs.float(), dts64.float())
+  kw32 = dict(eas=eas.float(), **kw)
+  ms, out_k = timed_run(lambda: gs.generic_bank_scan_epoch(*args32, **kw32),
+                        kernel_reps)
+  plain_ms, out_p = timed_run(
+      lambda: gs.generic_bank_scan_epoch_reference(*args32, **kw32), 1)
+  e = lane_errs(out_k, out_p, loc)
+  ek, ep = (float(lane_errs(o, ref64, loc).median()) for o in (out_k, out_p))
+  log(f"generic_bank_scan_epoch [loc B={GEN_B} T={CMP_T}, float32]: kernel "
+      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; kernel vs plain median lane "
+      f"{float(e.median()):.4g} sigma, max {float(e.max()):.4g}; against "
+      f"float64: kernel median {ek:.4g}, plain median {ep:.4g}")
+
+  # the main path's loc steps again: the float32 kernel may lose at most
+  # LOC_SHARE_RATIO times (+ LOC_SHARE_SLACK) the float32 plain version's
+  # share of lanes over LOC_FAR_M off; the double kernel, the float64
+  # plain version's to LOC64_SHARE_DIFF
+  zs, eas, x_k32 = states["loc_run"]
+  zs, eas = bank_minor(zs, eas, torch.float32)
+  dts32 = torch.full((LOC_T,), 0.1, **f32)
+  x_p32, _ = gs.generic_bank_scan_epoch_reference(
+      *loc_bank(torch.float32), zs, dts32, eas=eas, **kw)
+  x_p64, _ = gs.generic_bank_scan_epoch_reference(
+      *loc_bank(torch.float64), zs.double(), dts32.double(), eas=eas.double(),
+      **kw)
+  x_k64, _ = gs.generic_bank_scan_epoch(
+      *loc_bank(torch.float64), zs.double(), dts32.double(), eas=eas.double(),
+      **kw)
+  truth = torch.as_tensor(LocKalman.initial_x[:3], **f64)[:, None]
+  far = {name: float(((x[0:3].double() - truth).norm(dim=0)
+                      > LOC_FAR_M).double().mean())
+         for name, x in (("kernel f32", x_k32), ("plain f32", x_p32),
+                         ("kernel f64", x_k64), ("plain f64", x_p64))}
+  ok = (far["kernel f32"] <= LOC_SHARE_RATIO * far["plain f32"]
+        + LOC_SHARE_SLACK
+        and abs(far["kernel f64"] - far["plain f64"]) <= LOC64_SHARE_DIFF)
+  log(f"loc main-path data [B={GEN_B}, T={LOC_T} epochs from the prior]: "
+      f"share of lanes over {LOC_FAR_M:g} m: "
+      + ", ".join(f"{k} {v:.6f}" for k, v in far.items())
+      + f" (float32 kernel at most {LOC_SHARE_RATIO} x plain + "
+      f"{LOC_SHARE_SLACK}; float64 within {LOC64_SHARE_DIFF}) -> "
+      f"{'ok' if ok else 'FAIL'}")
+  checks.append(("loc main-path lanes over 100 m", ok))
+
+  bad = [name for name, ok in checks if not ok]
+  require(not bad, f"generic kernels agree with their plain versions and "
+                   f"the hand kernels: {bad}")
+  return rows
+
 
 def main():
   import torch
@@ -295,34 +761,63 @@ def main():
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
           file=sys.stderr)
     return 1
+  from concurrent.futures import ThreadPoolExecutor
+
   from rednose_tpu_torch import _build
-  from rednose_tpu_torch.ops import kinematic_scan, live_scan
+  from rednose_tpu_torch.ops import generic_scan, kinematic_scan, live_scan
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   card = card_line()
   log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+  # every nvcc at once: csrc/*.cu in a thread, one per emitted variant
   t0 = time.perf_counter()
-  lib = _build.build()
-  log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib.name}")
+  with ThreadPoolExecutor(1) as pool:
+    static = pool.submit(_build.build)
+    sources = generic_sources(generic_models()[3])
+    # the comparison phase's own variant: kernel 5 on loc in double
+    cmp_sources = {"loc run_epochs, float64 (kernel 5)":
+              loc_epoch_call().source(torch.float64)}
+    t_emit = time.perf_counter() - t0
+    _build.build_generated_many([*sources.values(), *cmp_sources.values()])
+    lib = static.result()
+  log(f"kernels built in {time.perf_counter() - t0:.1f} s (emitting the "
+      f"{len(sources) + len(cmp_sources)} generic variants took "
+      f"{t_emit:.1f} s): {lib.name}")
   for line in _build.ptxas_report().splitlines():
     if "registers" in line or "spill" in line or "Compiling" in line:
       log(f"  ptxas: {line.strip()}")
+  for name, src in (sources | cmp_sources).items():
+    for line in _build.generated_ptxas(src).splitlines():
+      if "registers" in line or "spill" in line or "nvcc" in line:
+        log(f"  ptxas, {name}: {line.strip()}")
 
   dev = torch.device("cuda", 0)
   gen = torch.Generator(device=dev)
   gen.manual_seed(SEED)
   wrappers = (kinematic_scan.kinematic_bank_scan, live_scan.live_bank_scan,
-              live_scan.live_bank_scan_mixed)
+              live_scan.live_bank_scan_mixed, generic_scan.generic_bank_scan,
+              generic_scan.generic_bank_scan_epoch,
+              generic_scan.generic_bank_scan_mixed)
   for w in wrappers:
     w.launches = 0
+  # the generic phases draw from a generator of their own, so the kinematic
+  # and live phases see the same data whether or not the generic ones run
+  gen2 = torch.Generator(device=dev)
+  gen2.manual_seed(SEED + 1)
   live_states = main_path(torch, dev, gen)
+  generic_states = generic_main_path(torch, dev, gen2)
   launches = {w.__name__: w.launches for w in wrappers}
   log(f"main-path launches: {launches}")
   require(all(n > 0 for n in launches.values()),
           f"every kernel launched on the main path: {launches}")
+  require(_build.generated_launcher.cache_info().currsize
+          == len(set(sources.values())),
+          "the main path loaded exactly the prebuilt generic variants")
 
   rows = compare_kernels(torch, dev, gen, live_states)
+  rows += compare_generic(torch, dev, gen2, generic_states,
+                          live_states["live_bank_scan"][2])
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}
       | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],

@@ -1,7 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All `csrc/*.cu` sources are compiled by nvcc, at first use, into one shared
-library with a plain C interface:
+Two entry points. `library()`: all `csrc/*.cu` sources, compiled by nvcc
+at first use into one shared library with a plain C interface.
+`generated_launcher(source)`: one source emitted per spec variant by
+ops/entry_slab.py around the template csrc/generic_scan.cuh (the generic
+kernels 4-6), each in a directory of its own (see below). Both use the
+same flags:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
        -Xcompiler -fPIC -Xptxas -v
@@ -26,6 +30,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -55,7 +61,9 @@ SIGNATURES = {
 
 
 def _sources():
-  return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+  # the generic kernels' template is compiled with each emitted source
+  return sorted(CSRC.glob("*.cu")) + sorted(
+      s for s in CSRC.glob("*.cuh") if s.name != TEMPLATE.name)
 
 
 def _nvcc() -> str:
@@ -114,6 +122,85 @@ def library() -> ctypes.CDLL:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
   return lib
+
+
+# --------------------------------------------------- generated kernel sources
+# The generic kernels (ops/generic_scan.py) compile a source emitted per
+# spec variant by ops/entry_slab.py around the template
+# csrc/generic_scan.cuh. Each source goes with a copy of the template into
+# its own directory build/rednose_tpu_torch/gen/gen_<hash>/, keyed by a
+# hash of the source text, the template and the flags, and is compiled with
+# the same nvcc flags into libgen.so (ptxas report beside it).
+
+GEN_DIR = BUILD_DIR / "gen"
+TEMPLATE = CSRC / "generic_scan.cuh"
+# xs, Ps, zs, eas, dts, kind_idx, pss, prm, Q, R, T, B, stream
+GEN_ARGTYPES = (_P,) * 10 + (_I, _I, _P)
+
+
+def generated_dir(source: str) -> pathlib.Path:
+  h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+  h.update(TEMPLATE.read_bytes())
+  h.update(source.encode())
+  return GEN_DIR / f"gen_{h.hexdigest()[:16]}"
+
+
+def _nvcc_generated(d: pathlib.Path, tmp: pathlib.Path):
+  """One nvcc of d/gen.cu into tmp: (return code, output, wall seconds)."""
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [_nvcc(), *NVCC_FLAGS, "-I", str(d), "-o", str(tmp), str(d / "gen.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def build_generated_many(sources) -> list:
+  """Compile every source not built yet, all nvcc processes at once (one
+  each); returns the libraries' paths in order. Raises if one fails. Each
+  ptxas report ends with the wall time of its nvcc (run beside the
+  others)."""
+  jobs, libs = {}, []
+  for src in sources:
+    d = generated_dir(src)
+    lib = d / "libgen.so"
+    libs.append(lib)
+    if lib.exists() or lib in jobs:
+      continue
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "gen.cu").write_text(src)
+    shutil.copyfile(TEMPLATE, d / TEMPLATE.name)
+    jobs[lib] = d / f"libgen.{os.getpid()}.tmp.so"
+  failed = []
+  with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+    runs = {lib: pool.submit(_nvcc_generated, lib.parent, tmp)
+            for lib, tmp in jobs.items()}
+    for lib, run in runs.items():
+      code, out, secs = run.result()
+      if code != 0:
+        failed.append(f"{lib.parent.name}: nvcc failed ({code}):\n{out}")
+        continue
+      lib.with_suffix(".ptxas.txt").write_text(
+          f"{out}nvcc wall time {secs:.1f} s\n")
+      os.replace(jobs[lib], lib)
+  if failed:
+    raise RuntimeError("\n".join(failed))
+  return libs
+
+
+@functools.lru_cache(maxsize=None)
+def generated_launcher(source: str):
+  """Build if needed, load, and return the C entry rn_generic_scan_launch
+  of one emitted source."""
+  lib = ctypes.CDLL(str(build_generated_many([source])[0]))
+  fn = lib.rn_generic_scan_launch
+  fn.argtypes = list(GEN_ARGTYPES)
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def generated_ptxas(source: str) -> str:
+  """The ptxas -v output of one emitted source's build."""
+  return (generated_dir(source) / "libgen.ptxas.txt").read_text()
 
 
 def check(code: int, name: str):

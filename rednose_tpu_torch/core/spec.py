@@ -119,21 +119,26 @@ class FilterSpec:
   def is_msckf(self) -> bool:
     return self.n_augment > 0
 
+  # The Jacobians are cast to x's dtype: under jacfwd, a python float
+  # times a 0-d tensor (x[i] * 1.2e5) can come out float64 for a float32 x.
+
   def F(self, params, x, dt):
     """State-transition Jacobian d f_err / d dx at dx=0 (ESKF), else d f / d x
     (the autodiff form of ekf_sym.py:76-80)."""
     if self.f_err is not None:
       zeros = torch.zeros(self.dim_err, dtype=x.dtype, device=x.device)
-      return jacfwd(lambda dx: self.f_err(params, x, dx, dt))(zeros)
-    return jacfwd(lambda xx: self.f(params, xx, dt))(x)
+      F = jacfwd(lambda dx: self.f_err(params, x, dx, dt))(zeros)
+    else:
+      F = jacfwd(lambda xx: self.f(params, xx, dt))(x)
+    return F.to(x.dtype)
 
   def H(self, kind: int, params, x, ea):
     """Observation Jacobian H = dh/dx (ekf_sym.py:85)."""
-    return jacfwd(lambda xx: self.obs[kind].h(params, xx, ea))(x)
+    return jacfwd(lambda xx: self.obs[kind].h(params, xx, ea))(x).to(x.dtype)
 
   def He(self, kind: int, params, x, ea):
     """Feature-position Jacobian He = dh/dea (ekf_sym.py:86-87)."""
-    return jacfwd(lambda e: self.obs[kind].h(params, x, e))(ea)
+    return jacfwd(lambda e: self.obs[kind].h(params, x, e))(ea).to(x.dtype)
 
   def H_mod_at(self, params, x):
     if self.H_mod is None:

@@ -1,0 +1,203 @@
+// Kernels 4, 5 and 6: fused T-step scans of a bank of ANY filter spec,
+// around a step body emitted per spec by rednose_tpu_torch/ops/entry_slab.py.
+//
+// Kernel 4 (emitted mode "single") replaces the Pallas TPU kernel
+// rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan):
+// T x (predict + the update of one kind). Kernel 5 (mode "epoch") replaces
+// pallas_bank.py:_epoch_kernel (generic_bank_scan_epoch): T x (predict +
+// K slot updates, inline). Kernel 6 (mode "mixed") replaces
+// pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without its MSCKF
+// camera-frame branch: T x (predict + the update of the streamed kind, a
+// switch that is uniform across the bank, so no warp diverges).
+// Wrappers and plain versions: rednose_tpu_torch/ops/generic_scan.py and
+// rednose_tpu_torch/ops/lane_bank.py.
+//
+// An emitted source defines REDNOSE_SCALAR (float, or double for a float64
+// bank and the host tests) and includes this file twice. The first include
+// (the prelude) defines scalar_t as that type, GEN_HD / GEN_INLINE and the
+// g_* math overloads the emitted code calls. The emitted code then defines, in namespace rn_gen,
+// the constants DX, DE, NP, NPS, NZROWS, NEAROWS, ps_idx(i) and
+// gen_step(x, P, ld, z, ea, dt, ki, p, Q, R): one predict and the step's
+// updates of one filter. The second include (REDNOSE_GENERIC_SCAN_LOOPS)
+// adds the scan loop, the __global__ kernel and its C entry point under
+// nvcc, or a host loop over the bank under a host compiler: the same
+// emitted text runs in both.
+//
+// Layout, bank-minor: xs (DX, B), Ps (DE, DE, B), zs (T, NZROWS, B), eas
+// (T, NEAROWS, B), dts (T,), kind_idx (T,) int32, pss (T, NPS); the
+// params vector prm (NP,), Q (DE, DE) and the packed per-unit R are
+// run-time inputs, so a new value never needs a new build.
+//
+// Design (kernel 2's, csrc/live_scan.cu): one thread per filter and the T
+// loop inside the kernel, so the state never leaves the card during a
+// scan. x is a thread-local array that the emitted code indexes with
+// constants, so it lives in registers. P stays in global memory,
+// updated in place, read and written at constant offsets; across a warp
+// every access is one coalesced 128-byte line. dts, kind_idx and the pss
+// row are read once per step. The emitted body is straight-line scalar
+// code; what does not fit in registers, nvcc spills to local memory (the
+// ptxas report kept beside each build says how much). Bound: the L2
+// traffic of P (at B = 8192 a 22 x 22 bank is 15.9 MB, resident in the
+// 50 MB L2) and local-memory traffic of the spills. Making it fast is
+// later work.
+//
+// Numerics: IEEE, no fast-math, in float or double as the bank's dtype
+// says (the wrappers pick the variant). P stays bitwise symmetric: each symmetric
+// entry is computed once and written to (i, j) and (j, i). g_rsqrt is
+// rsqrtf on the card (~2 ulp) and 1/sqrt elsewhere; the gate compare is
+// false for a NaN distance, so NaN does not gate.
+
+#ifndef REDNOSE_GENERIC_SCAN_LOOPS
+#ifndef REDNOSE_GENERIC_SCAN_PRELUDE
+#define REDNOSE_GENERIC_SCAN_PRELUDE
+
+#include <math.h>
+#include <stddef.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define GEN_HD __host__ __device__
+#define GEN_INLINE __forceinline__
+#else
+#define GEN_HD
+#define GEN_INLINE inline
+#endif
+
+#ifndef REDNOSE_SCALAR
+#define REDNOSE_SCALAR float
+#endif
+typedef REDNOSE_SCALAR scalar_t;
+
+#define GEN_UNARY(name, ff, fd)                                    \
+  GEN_HD GEN_INLINE float name(float a) { return ff(a); }          \
+  GEN_HD GEN_INLINE double name(double a) { return fd(a); }
+GEN_UNARY(g_sqrt, sqrtf, sqrt)
+GEN_UNARY(g_sin, sinf, sin)
+GEN_UNARY(g_cos, cosf, cos)
+GEN_UNARY(g_tan, tanf, tan)
+GEN_UNARY(g_tanh, tanhf, tanh)
+GEN_UNARY(g_sinh, sinhf, sinh)
+GEN_UNARY(g_cosh, coshf, cosh)
+GEN_UNARY(g_asin, asinf, asin)
+GEN_UNARY(g_acos, acosf, acos)
+GEN_UNARY(g_atan, atanf, atan)
+GEN_UNARY(g_asinh, asinhf, asinh)
+GEN_UNARY(g_atanh, atanhf, atanh)
+GEN_UNARY(g_exp, expf, exp)
+GEN_UNARY(g_expm1, expm1f, expm1)
+GEN_UNARY(g_log, logf, log)
+GEN_UNARY(g_log1p, log1pf, log1p)
+GEN_UNARY(g_abs, fabsf, fabs)
+GEN_UNARY(g_erf, erff, erf)
+GEN_UNARY(g_floor, floorf, floor)
+GEN_UNARY(g_ceil, ceilf, ceil)
+#undef GEN_UNARY
+
+GEN_HD GEN_INLINE float g_rsqrt(float a) {
+#ifdef __CUDA_ARCH__
+  return rsqrtf(a);
+#else
+  return 1.0f / sqrtf(a);
+#endif
+}
+GEN_HD GEN_INLINE double g_rsqrt(double a) { return 1.0 / sqrt(a); }
+GEN_HD GEN_INLINE float g_pow(float a, float b) { return powf(a, b); }
+GEN_HD GEN_INLINE double g_pow(double a, double b) { return pow(a, b); }
+GEN_HD GEN_INLINE float g_atan2(float a, float b) { return atan2f(a, b); }
+GEN_HD GEN_INLINE double g_atan2(double a, double b) { return atan2(a, b); }
+template <typename S>
+GEN_HD GEN_INLINE S g_sign(S a) { return (S)((a > 0) - (a < 0)); }
+// NaN-propagating, as torch.clamp / maximum / minimum
+template <typename S>
+GEN_HD GEN_INLINE S g_max(S a, S b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+template <typename S>
+GEN_HD GEN_INLINE S g_min(S a, S b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
+#endif  // REDNOSE_GENERIC_SCAN_PRELUDE
+#else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
+
+namespace rn_gen {
+
+// One filter b through all T steps.
+GEN_HD GEN_INLINE void scan_filter(
+    int b, int B, int T, scalar_t* xs, scalar_t* Ps, const scalar_t* zs,
+    const scalar_t* eas, const scalar_t* dts, const int* kind_idx,
+    const scalar_t* pss, const scalar_t* prm, const scalar_t* Q,
+    const scalar_t* R) {
+  scalar_t x[DX];
+  for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+  scalar_t* P = Ps + b;
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  for (int t = 0; t < T; ++t) {
+    for (int i = 0; i < NPS; ++i) p[ps_idx(i)] = pss[(size_t)t * NPS + i];
+    const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
+    const scalar_t* ea =
+        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+    gen_step(x, P, (size_t)B, z, ea, dts[t], kind_idx ? kind_idx[t] : 0, p,
+             Q, R);
+  }
+  for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+}
+
+}  // namespace rn_gen
+
+#ifdef __CUDACC__
+
+__global__ void rn_generic_scan_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    const scalar_t* __restrict__ zs, const scalar_t* __restrict__ eas,
+    const scalar_t* __restrict__ dts, const int* __restrict__ kind_idx,
+    const scalar_t* __restrict__ pss, const scalar_t* __restrict__ prm,
+    const scalar_t* __restrict__ Q, const scalar_t* __restrict__ R, int T,
+    int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B)
+    rn_gen::scan_filter(b, B, T, xs, Ps, zs, eas, dts, kind_idx, pss, prm, Q,
+                        R);
+}
+
+// 32 threads a block, as kernel 2: at B = 8192 that is 256 blocks, so all
+// 132 SMs hold filters
+extern "C" int rn_generic_scan_launch(void* xs, void* Ps, const void* zs,
+                                      const void* eas, const void* dts,
+                                      const void* kind_idx, const void* pss,
+                                      const void* prm, const void* Q,
+                                      const void* R, int T, int B,
+                                      void* stream) {
+  const int threads = 32;
+  const int blocks = (B + threads - 1) / threads;
+  rn_generic_scan_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+      static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+      static_cast<const scalar_t*>(dts), static_cast<const int*>(kind_idx),
+      static_cast<const scalar_t*>(pss), static_cast<const scalar_t*>(prm),
+      static_cast<const scalar_t*>(Q), static_cast<const scalar_t*>(R), T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#else
+
+// The host build of the same emitted body (tests): a loop over the bank.
+extern "C" int rn_generic_scan_host(void* xs, void* Ps, const void* zs,
+                                    const void* eas, const void* dts,
+                                    const void* kind_idx, const void* pss,
+                                    const void* prm, const void* Q,
+                                    const void* R, int T, int B) {
+  for (int b = 0; b < B; ++b)
+    rn_gen::scan_filter(
+        b, B, T, static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+        static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+        static_cast<const scalar_t*>(dts), static_cast<const int*>(kind_idx),
+        static_cast<const scalar_t*>(pss), static_cast<const scalar_t*>(prm),
+        static_cast<const scalar_t*>(Q), static_cast<const scalar_t*>(R));
+  return 0;
+}
+
+#endif  // __CUDACC__
+#endif  // REDNOSE_GENERIC_SCAN_LOOPS

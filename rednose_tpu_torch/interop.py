@@ -1,9 +1,9 @@
 """Carry state between the JAX package and the port.
 
-Numpy in, tensor out (and back). The JAX kernels keep their banks folded
-as (..., 8, B/8) for the TPU's sublanes, with filter b at (b // (B/8),
-b % (B/8)); a C-order reshape to (..., B) keeps that filter order exactly,
-which is the port's bank-minor layout.
+Numpy in, tensor out (and back). The JAX kernels keep their banks and
+streams folded as (..., 8, B/8) for the TPU's sublanes, with filter b at
+(b // (B/8), b % (B/8)); a C-order reshape to (..., B) keeps that filter
+order exactly, which is the port's bank-minor layout.
 """
 
 from __future__ import annotations
@@ -32,22 +32,41 @@ def kinematic_state_to_jax(state):
   return s.reshape(5 * SUBLANES, s.shape[1] // SUBLANES)
 
 
-def live_state_from_jax(x_packed, P_packed, dtype=torch.float32,
-                        device="cpu"):
-  """pallas_live packed x (23, 8, B/8), P (22, 22, 8, B/8) ->
-  live_scan x (23, B), P (22, 22, B)."""
-  x_packed, P_packed = np.asarray(x_packed), np.asarray(P_packed)
-  return (_tensor(x_packed.reshape(x_packed.shape[0], -1), dtype, device),
-          _tensor(P_packed.reshape(P_packed.shape[:2] + (-1,)), dtype,
-                  device))
+def bank_from_jax(x_packed, P_packed, dtype=torch.float32, device="cpu"):
+  """A folded bank of the JAX kernels (pallas_live / pallas_bank: x
+  (dx, 8, B/8), P (de, de, 8, B/8)) -> the port's x (dx, B), P (de, de, B)."""
+  return (stream_from_jax(x_packed, dtype, device),
+          stream_from_jax(P_packed, dtype, device))
 
 
-def live_state_to_jax(x, P):
-  """live_scan x (23, B), P (22, 22, B) -> pallas_live packed numpy."""
-  x, P = x.detach().cpu().numpy(), P.detach().cpu().numpy()
-  bsub = x.shape[1] // SUBLANES
-  return (x.reshape(x.shape[0], SUBLANES, bsub),
-          P.reshape(P.shape[:2] + (SUBLANES, bsub)))
+def bank_to_jax(x, P):
+  """The port's x (dx, B), P (de, de, B) -> the JAX kernels' folded numpy
+  x (dx, 8, B/8), P (de, de, 8, B/8)."""
+  return stream_to_jax(x), stream_to_jax(P)
+
+
+def stream_from_jax(packed, dtype=torch.float32, device="cpu"):
+  """Any folded JAX array (..., 8, B/8) -> (..., B): measurement streams
+  (T, dz, 8, B/8), epoch streams (T, K, d, 8, B/8), eas likewise."""
+  packed = np.asarray(packed)
+  return _tensor(packed.reshape(packed.shape[:-2] + (-1,)), dtype, device)
+
+
+def stream_to_jax(t):
+  """(..., B) -> the folded numpy (..., 8, B/8)."""
+  a = t.detach().cpu().numpy()
+  return a.reshape(a.shape[:-1] + (SUBLANES, a.shape[-1] // SUBLANES))
+
+
+# the live kernels' banks fold the same way
+live_state_from_jax = bank_from_jax
+live_state_to_jax = bank_to_jax
+
+
+def params_from_jax(params, dtype=torch.float32, device="cpu"):
+  """A spec params dict of the JAX package (floats or jnp scalars) -> the
+  port's params, 0-d tensors (the form the bank scans pass to a spec)."""
+  return {k: _tensor(v, dtype, device) for k, v in params.items()}
 
 
 def bank_state_from_jax(state, dtype=torch.float32, device="cpu"):

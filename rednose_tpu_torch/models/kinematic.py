@@ -6,6 +6,8 @@ examples/kinematic_kf.py:36-81), with torch model functions.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -42,7 +44,10 @@ def _h_position(params, x, ea):
   return x[0:1]
 
 
+@functools.cache
 def build_kinematic_spec() -> FilterSpec:
+  """The kinematic spec, one object per process: the generic kernels' emitted
+  sources and detected structures are cached per spec object."""
   return FilterSpec(
       name='kinematic',
       dim_x=2,
@@ -64,10 +69,6 @@ class KinematicKalman(KalmanFilter):
   Q = np.diag([0.1**2, 2.0**2])
   obs_noise = {ObservationKind.POSITION: np.atleast_2d(0.1**2)}
 
-  _spec_cache = None
-
   @classmethod
   def build_spec(cls) -> FilterSpec:
-    if cls._spec_cache is None:
-      cls._spec_cache = build_kinematic_spec()
-    return cls._spec_cache
+    return build_kinematic_spec()

@@ -14,6 +14,8 @@ smoother slice of the port.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -249,7 +251,10 @@ def _h_imu_frame(params, x, ea):
   return x[S.IMU_OFFSET]
 
 
+@functools.cache
 def build_live_spec() -> FilterSpec:
+  """The live spec, one object per process: the generic kernels' emitted
+  sources and detected structures are cached per spec object."""
   K = ObservationKind
   obs = {
       K.ODOMETRIC_SPEED: ObservationModel(K.ODOMETRIC_SPEED, _h_odo_speed, 1),
@@ -322,13 +327,9 @@ class LiveKalman(KalmanFilter):
       ObservationKind.ECEF_POS: np.diag([5**2] * 3),
   }
 
-  _spec_cache = None
-
   @classmethod
   def build_spec(cls) -> FilterSpec:
-    if cls._spec_cache is None:
-      cls._spec_cache = build_live_spec()
-    return cls._spec_cache
+    return build_live_spec()
 
   def rts_smooth(self, estimates, parallel=False):
     return self.filter.rts_smooth(estimates, norm_quats=True,

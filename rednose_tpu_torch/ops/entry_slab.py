@@ -1,0 +1,570 @@
+"""Spec-to-CUDA emitter: the whole predict / update body of ANY FilterSpec
+as C source, the port's counterpart of the reference's sympy-to-C codegen
+(rednose/helpers/ekf_sym.py:76-89).
+
+Port of rednose_tpu/ops/entry_slab.py (entry_predict_slab,
+entry_update_slab) with the same algebra and term order, but where the
+JAX version emits slab ops for Mosaic, this module builds one scalar
+expression DAG per step phase through the structural interpreter
+(ops/structural.py) and prints it as a `__host__ __device__` C++ function
+over a `scalar_t` typedef. A variant's source is every phase function plus
+a `gen_step` dispatcher; csrc/generic_scan.cuh wraps it in the scan loop
+and the `__global__` kernel (ops/generic_scan.py builds and launches it).
+
+Predict (entry_predict_slab): x_new = f(x, dt) and the Jacobian taps of
+G = F - I over structure.g_cols through one shared DAG; compact
+M = G P rows, N = M G^T, V = M + N / 2, P' = P + (V + V^T) (symmetric by
+construction), then P' += dt Q on Q's structural nonzero pattern.
+
+Update (entry_update_slab): the composed-H taps of h(err(x, v), ea) over
+structure.cols_for(kind); HP rows; S = HP H^T + R as an upper triangle
+shared by the mirror pair; S^-1 by the closed-form adjugate (dz <= 3);
+K^T = S^-1 HP; the zero-gain Mahalanobis gate; the factored Joseph
+W = K (S K^T / 2 - HP) with P' = P + (W + W^T); error injection through
+err and quaternion renormalization. An all-zero H row is a zero row here
+(the JAX emitter raises a TypeError on it), and R's upper triangle is read
+(the wrappers refuse an asymmetric R).
+
+Run-time inputs of the emitted functions, all leaves of the DAG: x (in
+registers), P (global memory, bank-minor: element (i, j) of this filter at
+P[(i * DE + j) * ld]), dt, the params vector p, Q, z, ea and R. So the
+source depends only on the spec, the kinds, the structure, the param
+names, the streamed keys, the gate flags and Q's pattern, never on values.
+
+P is read at the upper-triangle location of each symmetric pair (the
+kernels keep P bitwise symmetric). A phase writes P in place: before the
+store of a location, its old value is loaded if a later expression still
+reads it; the nominal state is written back after every expression of
+the phase.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from rednose_tpu_torch.core.spec import FilterSpec
+from rednose_tpu_torch.ops import structural
+from rednose_tpu_torch.ops.structural import Expr, ExprDAG
+
+
+# ------------------------------------------------------------ entry algebra
+
+def _ent_mul(d, e, row):
+  """entry * row, folding structural / +-1 entries; row is a list."""
+  if e is None or row is None:
+    return None
+  return [d.mul(e, r) for r in row]
+
+
+def _row_add(d, a, b):
+  return [d.add(u, v) for u, v in zip(a, b)]
+
+
+def _tree_sum(d, terms, add=None):
+  """Balanced pairwise sum (entry_slab._tree_sum) of rows or scalars; None
+  when every term is None."""
+  add = add or d.add
+  terms = [t for t in terms if t is not None]
+  if not terms:
+    return None
+  while len(terms) > 1:
+    nxt = [add(terms[i], terms[i + 1]) for i in range(0, len(terms) - 1, 2)]
+    if len(terms) % 2:
+      nxt.append(terms[-1])
+    terms = nxt
+  return terms[0]
+
+
+def _lsum(d, terms):
+  """Left fold: python's sum() over slabs, as the JAX algebra writes it."""
+  acc = None
+  for t in terms:
+    acc = d.add(acc, t)
+  return acc
+
+
+def _inv_entries(d, s, n):
+  """Closed-form adjugate inverse on a nested list of entries
+  (entry_slab._inv_entries)."""
+  if n == 1:
+    return [[d.div(1.0, s[0][0])]]
+  if n == 2:
+    det = d.sub(d.mul(s[0][0], s[1][1]), d.mul(s[0][1], s[1][0]))
+    return [[d.div(s[1][1], det), d.div(d.neg(s[0][1]), det)],
+            [d.div(d.neg(s[1][0]), det), d.div(s[0][0], det)]]
+  if n == 3:
+    def m2(a, b, c, e):
+      return d.sub(d.mul(a, b), d.mul(c, e))
+    c = [[m2(s[1][1], s[2][2], s[1][2], s[2][1]),
+          m2(s[0][2], s[2][1], s[0][1], s[2][2]),
+          m2(s[0][1], s[1][2], s[0][2], s[1][1])],
+         [m2(s[1][2], s[2][0], s[1][0], s[2][2]),
+          m2(s[0][0], s[2][2], s[0][2], s[2][0]),
+          m2(s[0][2], s[1][0], s[0][0], s[1][2])],
+         [m2(s[1][0], s[2][1], s[1][1], s[2][0]),
+          m2(s[0][1], s[2][0], s[0][0], s[2][1]),
+          m2(s[0][0], s[1][1], s[0][1], s[1][0])]]
+    det = d.add(d.add(d.mul(s[0][0], c[0][0]), d.mul(s[0][1], c[1][0])),
+                d.mul(s[0][2], c[2][0]))
+    return [[d.div(c[i][j], det) for j in range(3)] for i in range(3)]
+  raise NotImplementedError(
+      f"the emitter inverts S in closed form for dz <= 3 only, got dz={n}")
+
+
+def _normalize(d, x, idxs):
+  x = list(x)
+  for idx in idxs:
+    q = x[idx:idx + 4]
+    ss = d.add(d.add(d.add(d.mul(q[0], q[0]), d.mul(q[1], q[1])),
+                     d.mul(q[2], q[2])), d.mul(q[3], q[3]))
+    inv = d.unary("rsqrt", ss)
+    x[idx:idx + 4] = [d.mul(qi, inv) for qi in q]
+  return x
+
+
+class Phase:
+  """One emitted function: its DAG, the new P entries (upper triangle, by
+  location) and the new nominal state."""
+
+  def __init__(self):
+    self.dag = ExprDAG()
+    self.p_out = {}
+    self.x_out = []
+
+  def P(self, i, j):
+    return self.dag.load("P", (min(i, j), max(i, j)))
+
+  def inputs(self, name, shape):
+    return structural.load_array(self.dag, name, shape)
+
+
+def _param_inputs(ph, pnames):
+  return [_scalar(ph.dag.load("p", (i,))) for i in range(len(pnames))]
+
+
+def _scalar(e):
+  out = structural.obj_array(())
+  out[()] = e
+  return out
+
+
+def predict_phase(spec: FilterSpec, structure, pnames, q_pattern) -> Phase:
+  """entry_predict_slab as a DAG (see the module docstring)."""
+  if spec.dim_main_err != spec.dim_err:
+    raise NotImplementedError("MSCKF block specs come with the MSCKF slice")
+  ph = Phase()
+  d = ph.dag
+  de, dx = spec.dim_err, spec.dim_x
+  x = ph.inputs("x", (dx,))
+  dt = _scalar(d.load("dt"))
+  prm = _param_inputs(ph, pnames)
+  np_ = len(pnames)
+
+  def f(xx, dtt, *pv):
+    return spec.f(dict(zip(pnames, pv)), xx, dtt)
+
+  shapes = [(dx,), ()] + [()] * np_
+  x_new = structural.run_primal(d, f, shapes, [x, dt] + prm)
+
+  if spec.f_err is not None:
+    def fe(xx, dtt, *rest):
+      return spec.f_err(dict(zip(pnames, rest[:-1])), xx, rest[-1], dtt)
+  else:
+    if de != dx:
+      raise ValueError("additive spec with dim_err != dim_x")
+
+    def fe(xx, dtt, *rest):
+      return spec.f(dict(zip(pnames, rest[:-1])), xx + rest[-1], dtt)
+
+  g_cols = structure.g_cols
+  _, taps = structural.run_entry_taps(d, fe, shapes, [x, dt] + prm, de,
+                                      g_cols)
+  G = {}
+  for k in g_cols:
+    col = list(taps[k])
+    e = col[k]
+    if e is None:
+      col[k] = -1.0
+    elif structural._is_const(e):
+      col[k] = e - 1.0 if e != 1.0 else None
+    else:
+      col[k] = d.sub(e, 1.0)
+    G[k] = col
+
+  P_rows = {k: [ph.P(k, j) for j in range(de)] for k in g_cols}
+  m_rows = [_tree_sum(d, [_ent_mul(d, G[k][i], P_rows[k]) for k in g_cols],
+                      add=lambda a, b: _row_add(d, a, b))
+            for i in range(de)]
+  nz = [i for i in range(de) if m_rows[i] is not None]
+  V = [None] * de
+  if nz:
+    M_cols = {k: [m_rows[i][k] for i in nz] for k in g_cols}
+    n_cols = []
+    for j in nz:
+      acc = _tree_sum(d, [_ent_mul(d, G[k][j], M_cols[k]) for k in g_cols],
+                      add=lambda a, b: _row_add(d, a, b))
+      n_cols.append(acc if acc is not None else [None] * len(nz))
+    for p, i in enumerate(nz):
+      row = list(m_rows[i])
+      for q, c in enumerate(nz):
+        row[c] = d.add(row[c], d.mul(0.5, n_cols[q][p]))
+      V[i] = row
+  qset = set(q_pattern)
+  for i in range(de):
+    for j in range(i, de):
+      vij = V[i][j] if V[i] is not None else None
+      vji = V[j][i] if V[j] is not None else None
+      out = d.add(ph.P(i, j), d.add(vij, vji))
+      if (i, j) in qset:
+        out = d.add(out, d.mul(d.load("dt"), d.load("Q", (i, j))))
+      ph.p_out[(i, j)] = out
+  ph.x_out = _normalize(d, list(x_new), spec.quaternion_idxs)
+  return ph
+
+
+def update_phase(spec: FilterSpec, kind: int, structure, pnames,
+                 gate: bool) -> Phase:
+  """entry_update_slab as a DAG (see the module docstring)."""
+  om = spec.obs[kind]
+  if om.is_feature:
+    raise NotImplementedError(
+        "MSCKF feature kinds come with the port's MSCKF slice")
+  ph = Phase()
+  d = ph.dag
+  dz, de, dx = om.dz, spec.dim_err, spec.dim_x
+  x = ph.inputs("x", (dx,))
+  ea_len = max(om.ea_len, 1)
+  ea = (ph.inputs("ea", (om.ea_len,)) if om.ea_len
+        else structural.obj_array((1,)))
+  prm = _param_inputs(ph, pnames)
+  cols = structure.cols_for(kind)
+
+  def fh(xx, ee, *rest):
+    params = dict(zip(pnames, rest[:-1]))
+    return om.h(params, spec.err(params, xx, rest[-1]), ee)
+
+  shapes = [(dx,), (ea_len,)] + [()] * len(pnames)
+  h, taps = structural.run_entry_taps(d, fh, shapes, [x, ea] + prm, de, cols)
+  z = ph.inputs("z", (dz,))
+  y = [d.sub(z[r], h[r]) for r in range(dz)]
+
+  P_rows = {c: [ph.P(c, j) for j in range(de)] for c in cols}
+  hp_rows = [_tree_sum(d, [_ent_mul(d, taps[c][r], P_rows[c]) for c in cols],
+                       add=lambda a, b: _row_add(d, a, b))
+             for r in range(dz)]
+
+  def hp(r, c):
+    return hp_rows[r][c] if hp_rows[r] is not None else None
+
+  s = [[None] * dz for _ in range(dz)]
+  for r in range(dz):
+    for q in range(r, dz):
+      acc = _tree_sum(d, [d.mul(taps[c][q], hp(r, c)) for c in cols])
+      acc = d.add(acc, d.load("R", (r, q)))
+      s[r][q] = acc
+      s[q][r] = acc
+  siv = _inv_entries(d, s, dz)
+
+  kt = [None] * dz
+  for i in range(dz):
+    terms = [[d.mul(siv[i][j], e) for e in hp_rows[j]]
+             for j in range(dz) if hp_rows[j] is not None]
+    kt[i] = _lsum_rows(d, terms)
+  if gate:
+    dist = _lsum(d, [d.mul(d.mul(y[i], siv[i][j]), y[j])
+                     for i in range(dz) for j in range(dz)])
+    rej = d.binop("gt", dist, float(om.maha_thresh))
+    kt = [None if row is None else [d.where(rej, None, e) for e in row]
+          for row in kt]
+  dxe = [_lsum(d, [d.mul(kt[i][c], y[i]) for i in range(dz)
+                   if kt[i] is not None]) for c in range(de)]
+
+  t_rows = []
+  for i in range(dz):
+    sk = _lsum_rows(d, [[d.mul(s[i][j], e) for e in kt[j]]
+                        for j in range(dz) if kt[j] is not None])
+    t_rows.append([d.sub(None if sk is None else d.mul(0.5, sk[c]),
+                         hp(i, c)) for c in range(de)])
+  for a in range(de):
+    for b in range(a, de):
+      wab = _lsum(d, [d.mul(kt[i][a], t_rows[i][b]) for i in range(dz)
+                      if kt[i] is not None])
+      wba = _lsum(d, [d.mul(kt[i][b], t_rows[i][a]) for i in range(dz)
+                      if kt[i] is not None])
+      ph.p_out[(a, b)] = d.add(ph.P(a, b), d.add(wab, wba))
+
+  dx_arr = structural.obj_array((de,))
+  for c in range(de):
+    dx_arr[c] = dxe[c]
+
+  def fe(xx, dd, *pv):
+    return spec.err(dict(zip(pnames, pv)), xx, dd)
+
+  x_new = structural.run_primal(d, fe, [(dx,), (de,)] + [()] * len(pnames),
+                                [x, dx_arr] + prm)
+  ph.x_out = _normalize(d, list(x_new), spec.quaternion_idxs)
+  return ph
+
+
+def _lsum_rows(d, rows):
+  acc = None
+  for r in rows:
+    acc = r if acc is None else _row_add(d, acc, r)
+  return acc
+
+
+# --------------------------------------------------------------- C printing
+
+_FUNCS = {
+    "sqrt": "g_sqrt", "rsqrt": "g_rsqrt", "sin": "g_sin", "cos": "g_cos",
+    "tan": "g_tan", "tanh": "g_tanh", "sinh": "g_sinh", "cosh": "g_cosh",
+    "asin": "g_asin", "acos": "g_acos", "atan": "g_atan",
+    "asinh": "g_asinh", "atanh": "g_atanh", "exp": "g_exp",
+    "expm1": "g_expm1", "log": "g_log", "log1p": "g_log1p",
+    "abs": "g_abs", "sign": "g_sign", "erf": "g_erf", "floor": "g_floor",
+    "ceil": "g_ceil", "pow": "g_pow", "max": "g_max", "min": "g_min",
+    "atan2": "g_atan2",
+}
+_INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", "gt": ">",
+          "lt": "<", "ge": ">=", "le": "<=", "eq": "==", "ne": "!=",
+          "and": "&&", "or": "||"}
+
+
+def _lit(v):
+  if isinstance(v, bool):
+    return "true" if v else "false"
+  v = float(v)
+  if math.isnan(v):
+    return "((scalar_t)NAN)"
+  if math.isinf(v):
+    return "((scalar_t)INFINITY)" if v > 0 else "(-(scalar_t)INFINITY)"
+  return f"((scalar_t){v!r})"
+
+
+def _load_text(name, idx, dz):
+  if name == "x":
+    return f"x[{idx[0]}]"
+  if name == "P":
+    return f"GEN_P({idx[0]}, {idx[1]})"
+  if name == "dt":
+    return "dt"
+  if name == "p":
+    return f"p[{idx[0]}]"
+  if name == "Q":
+    return f"Q[{idx[0]} * DE + {idx[1]}]"
+  if name == "z":
+    return f"z[(size_t){idx[0]} * ld_in]"
+  if name == "ea":
+    return f"ea[(size_t){idx[0]} * ld_in]"
+  if name == "R":
+    return f"R[{idx[0] * dz + idx[1]}]"
+  raise AssertionError(name)
+
+
+def _reachable(roots):
+  seen, stack = set(), [r for r in roots if isinstance(r, Expr)]
+  out = []
+  while stack:
+    e = stack.pop()
+    if e.id in seen:
+      continue
+    seen.add(e.id)
+    out.append(e)
+    stack.extend(a for a in e.args if isinstance(a, Expr))
+  return out
+
+
+def print_phase(ph: Phase, dz: int = 0) -> list:
+  """Statements of one phase: SSA definitions in dependency order, P
+  stores as soon as their value exists (after the old value is loaded if
+  anything still reads it), x stores last."""
+  lines, names = [], {}
+
+  def ref(v):
+    if v is None:
+      return "((scalar_t)0)"
+    if isinstance(v, Expr):
+      return names[v.id]
+    return _lit(v)
+
+  def define(e):
+    a = e.args
+    if e.op == "load":
+      text = _load_text(a[0], a[1], dz)
+    elif e.op in _INFIX:
+      text = f"{ref(a[0])} {_INFIX[e.op]} {ref(a[1])}"
+    elif e.op == "neg":
+      text = f"-{ref(a[0])}"
+    elif e.op == "not":
+      text = f"!{ref(a[0])}"
+    elif e.op == "where":
+      text = f"{ref(a[0])} ? {ref(a[1])} : {ref(a[2])}"
+    elif e.op == "cast":
+      text = f"(scalar_t)({ref(a[0])})"
+    elif e.op in _FUNCS:
+      text = f"{_FUNCS[e.op]}({', '.join(ref(v) for v in a)})"
+    else:
+      raise NotImplementedError(f"emitter: no C form for op {e.op!r}")
+    name = f"t{e.id}"
+    names[e.id] = name
+    ctype = "bool" if e.is_bool else "scalar_t"
+    lines.append(f"  const {ctype} {name} = {text};")
+
+  def emit(root):
+    if not isinstance(root, Expr) or root.id in names:
+      return
+    stack = [(root, False)]
+    while stack:
+      e, ready = stack.pop()
+      if e.id in names:
+        continue
+      if ready:
+        define(e)
+        continue
+      stack.append((e, True))
+      for a in reversed(e.args):
+        if isinstance(a, Expr) and a.id not in names:
+          stack.append((a, False))
+
+  roots = list(ph.p_out.values()) + list(ph.x_out)
+  p_loads = {e.args[1]: e for e in _reachable(roots)
+             if e.op == "load" and e.args[0] == "P"}
+  for (i, j), v in sorted(ph.p_out.items()):
+    old = p_loads.get((i, j))
+    if v is old:
+      continue  # unchanged entry
+    emit(v)
+    if old is not None:
+      emit(old)
+    val = ref(v)
+    lines.append(f"  GEN_P({i}, {j}) = {val};")
+    if i != j:
+      lines.append(f"  GEN_P({j}, {i}) = {val};")
+  changed = [(i, v) for i, v in enumerate(ph.x_out)
+             if not (isinstance(v, Expr) and v.op == "load"
+                     and v.args == ("x", (i,)))]
+  for _, v in changed:
+    emit(v)
+  for i, v in changed:
+    lines.append(f"  x[{i}] = {ref(v)};")
+  return lines
+
+
+# ----------------------------------------------------------- variant source
+
+MODES = ("single", "mixed", "epoch")
+
+
+def _unit_name(kind, gate):
+  return f"gen_update_k{kind}{'_g' if gate else ''}"
+
+
+def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
+                ps_keys=(), q_pattern=(), scalar="float") -> str:
+  """C++ source of one kernel variant.
+
+  mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over the
+  units by the streamed kind index) or 'epoch' (kernel 5: every unit in
+  order, one slot each). units: tuple of (kind, gate) pairs. pnames: the
+  names of the params vector, in order; ps_keys: the streamed ones.
+  q_pattern: the (i, j), i <= j, entries of Q that are nonzero. scalar:
+  the C type of every value, 'float' or 'double'."""
+  if mode not in MODES:
+    raise ValueError(f"mode {mode!r} not in {MODES}")
+  if scalar not in ("float", "double"):
+    raise ValueError(f"scalar {scalar!r} is not 'float' or 'double'")
+  kinds = [k for k, _ in units]
+  max_dz = max(spec.obs[k].dz for k in kinds)
+  max_ea = max(spec.obs[k].ea_len for k in kinds)
+  nzrows = max_dz * (len(units) if mode == "epoch" else 1)
+  nearows = max_ea * (len(units) if mode == "epoch" else 1)
+  r_off, off = [], 0
+  for k, _ in units:
+    r_off.append(off)
+    off += spec.obs[k].dz ** 2
+  ps_idx = [list(pnames).index(k) for k in ps_keys]
+
+  out = [
+      "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
+      f"// spec {spec.name!r}, mode {mode}, units (kind, gate) {list(units)},",
+      f"// params {list(pnames)}, streamed {list(ps_keys)}.",
+      f"#define REDNOSE_SCALAR {scalar}",
+      '#include "generic_scan.cuh"',
+      "",
+      "namespace rn_gen {",
+      "",
+      f"constexpr int DX = {spec.dim_x};",
+      f"constexpr int DE = {spec.dim_err};",
+      f"constexpr int NP = {len(pnames)};",
+      f"constexpr int NPS = {len(ps_keys)};",
+      "// index in p of the i-th streamed param",
+      "GEN_HD GEN_INLINE int ps_idx(int i) {",
+      f"  const int idx[{max(len(ps_idx), 1)}] = "
+      f"{{{', '.join(str(i) for i in ps_idx) or '0'}}};",
+      "  return idx[i];",
+      "}",
+      f"constexpr int NZROWS = {nzrows};",
+      f"constexpr int NEAROWS = {nearows};",
+      "",
+      "#define GEN_P(i, j) P[(size_t)((i) * DE + (j)) * ld]",
+      "",
+      "GEN_HD GEN_INLINE void gen_predict(scalar_t* x, scalar_t* P, "
+      "size_t ld, const scalar_t dt, const scalar_t* p, const scalar_t* Q) {",
+      "  (void)p; (void)Q;",
+  ]
+  out += print_phase(predict_phase(spec, structure, pnames, q_pattern))
+  out.append("}")
+  done = set()
+  for k, g in units:
+    if (k, g) in done:
+      continue
+    done.add((k, g))
+    dz = spec.obs[k].dz
+    out += [
+        "",
+        f"GEN_HD GEN_INLINE void {_unit_name(k, g)}(scalar_t* x, "
+        "scalar_t* P, size_t ld, const scalar_t* z, const scalar_t* ea, "
+        "size_t ld_in, const scalar_t* R, const scalar_t* p) {",
+        "  (void)ea; (void)p;",
+    ]
+    out += print_phase(update_phase(spec, k, structure, pnames, g), dz)
+    out.append("}")
+  out += [
+      "",
+      "GEN_HD GEN_INLINE void gen_step(scalar_t* x, scalar_t* P, size_t ld, "
+      "const scalar_t* z, const scalar_t* ea, const scalar_t dt, int ki, "
+      "const scalar_t* p, const scalar_t* Q, const scalar_t* R) {",
+      "  (void)ki; (void)ea;",
+      "  gen_predict(x, P, ld, dt, p, Q);",
+  ]
+
+  def call(u, zrow, earow):
+    k, g = units[u]
+    ea_arg = f"ea + (size_t){earow} * ld" if max_ea else "nullptr"
+    return (f"{_unit_name(k, g)}(x, P, ld, z + (size_t){zrow} * ld, "
+            f"{ea_arg}, ld, R + {r_off[u]}, p);")
+
+  if mode == "single":
+    out.append("  " + call(0, 0, 0))
+  elif mode == "mixed":
+    out.append("  switch (ki) {")
+    for u in range(len(units)):
+      out.append(f"    case {u}: {call(u, 0, 0)} break;")
+    out += ["    default: break;", "  }"]
+  else:
+    for u in range(len(units)):
+      out.append("  " + call(u, u * max_dz, u * max_ea))
+  out += ["}", "", "}  // namespace rn_gen", "",
+          "#define REDNOSE_GENERIC_SCAN_LOOPS",
+          '#include "generic_scan.cuh"', ""]
+  return "\n".join(out)
+
+
+def q_pattern_of(Q) -> tuple:
+  """The (i, j), i <= j, nonzero entries of a symmetric Q (host array)."""
+  Q = np.asarray(Q, dtype=np.float64)
+  if not np.array_equal(Q, Q.T):
+    raise ValueError("process noise Q must be symmetric")
+  return tuple((int(i), int(j)) for i, j in zip(*np.nonzero(np.triu(Q))))

@@ -1,0 +1,323 @@
+"""Fused T-step scans of a bank of ANY filter spec (kernels 4, 5 and 6).
+
+`generic_bank_scan` replaces the Pallas TPU kernel
+rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan),
+`generic_bank_scan_epoch` replaces pallas_bank.py:_epoch_kernel
+(generic_bank_scan_epoch, flat form), and `generic_bank_scan_mixed`
+replaces pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without
+its MSCKF camera-frame branch. The CUDA source of each is emitted per spec
+variant by ops/entry_slab.py around csrc/generic_scan.cuh and built by
+nvcc at first use (rednose_tpu_torch/_build.py).
+
+Layout, bank-minor (no TPU sublane fold): x (dim_x, B), P (de, de, B),
+zs (T, dz, B) — (T, max_dz, B) for a mixed schedule, (T, K, max_dz, B)
+for epochs — eas likewise with the extra-args widths, dts (T,), kind_idx
+(T,) int32, pss (T, len(ps_keys)). Q, R and the params are run-time
+values: the emitted code depends only on the spec, the kinds, the
+structure, the param names, the streamed keys, the gate flags, Q's
+nonzero pattern and the scalar type, so a new value never triggers a
+build.
+
+A `KernelCall` is one checked description of a call: the variant and its
+run-time values. The wrappers take one (call=), or make one from their
+keyword arguments; KalmanBank keeps its calls, so the checks, the
+emission lookup and the copies of params, Q and R to the device run once
+per call it keeps.
+
+Every wrapper returns new (x, P) and never writes its inputs. For CPU
+tensors it runs the plain version (ops/lane_bank.py); for CUDA tensors
+(float32, or float64 for a variant built in double; contiguous) it copies
+x and P once and launches the kernel, which updates the copies in place,
+or it raises. `.launches` counts the kernel launches.
+
+Gating: `generic_bank_scan(gate=None)` gates as the kind's maha_test
+says and True / False force it (the JAX kernel's flag, which bench.py
+sets for the live ECEF_POS stream); in the mixed and epoch scans
+gate=True applies each kind's own maha_test and False gates nothing.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from rednose_tpu_torch import _build
+from rednose_tpu_torch.core.spec import FilterSpec
+from rednose_tpu_torch.ops import entry_slab, lane_bank, sparsity
+
+_SCALARS = {torch.float32: "float", torch.float64: "double"}
+
+
+def _host64(a):
+  if torch.is_tensor(a):
+    return a.detach().cpu().double().numpy()
+  return np.asarray(a, dtype=np.float64)
+
+
+def _symmetric_R(spec, kind, R):
+  dz = spec.obs[kind].dz
+  R = _host64(R).reshape(dz, dz)
+  if not np.array_equal(R, R.T):
+    raise ValueError(f"measurement noise R of kind {kind} must be symmetric")
+  return R
+
+
+@functools.lru_cache(maxsize=None)
+def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
+            scalar):
+  return entry_slab.emit_source(
+      spec, mode, units,
+      structure if structure is not None else sparsity.dense_structure(spec),
+      pnames, ps_keys, q_pattern, scalar)
+
+
+class KernelCall:
+  """One generic call, checked once: the spec, the mode ('single' /
+  'mixed' / 'epoch'), the kind, kind set or slot kinds, the gate, the
+  structure (None: the dense body) and the streamed param keys, with Q,
+  one R per kind or slot and the params. Refuses an unknown or MSCKF
+  feature kind, an asymmetric Q or R and a wrong number of R. The
+  emitted source and the device copies of the values are made at first
+  use and kept."""
+
+  def __init__(self, spec: FilterSpec, mode: str, kinds, *, Q, R_list,
+               params=None, gate: bool | None = None, structure=None,
+               ps_keys=()):
+    if not isinstance(spec, FilterSpec):
+      raise TypeError(f"not a FilterSpec: {spec!r}")
+    if mode not in entry_slab.MODES:
+      raise ValueError(f"mode {mode!r} not in {entry_slab.MODES}")
+    kinds = tuple(int(k) for k in kinds)
+    if mode == "single" and len(kinds) != 1:
+      raise ValueError(f"mode 'single' takes one kind, got {kinds}")
+    for k in kinds:
+      if k not in spec.obs:
+        raise ValueError(f"kind {k} not in spec {spec.name!r}")
+      if spec.obs[k].is_feature:
+        raise ValueError(
+            f"kind {k} is an MSCKF feature kind: its camera-frame update "
+            "comes with the port's MSCKF slice")
+    if len(R_list) != len(kinds):
+      raise ValueError(f"{len(R_list)} R for {len(kinds)} kinds / slots")
+    self.spec, self.mode, self.kinds = spec, mode, kinds
+    self.params = dict(spec.default_params if params is None else params)
+    self.gate = True if gate is None and mode != "single" else gate
+    self.structure = structure
+    self.ps_keys = tuple(ps_keys)
+    self.Q = _host64(Q)
+    self._q_pattern = entry_slab.q_pattern_of(self.Q)
+    self.R_list = [_symmetric_R(spec, k, R) for k, R in zip(kinds, R_list)]
+    self._pnames = tuple(sorted(set(self.params) | set(self.ps_keys)))
+    self._values = {}
+
+  def source(self, dtype=torch.float32) -> str:
+    """The emitted CUDA source of this variant for a bank of dtype;
+    _build.build_generated_many compiles several at once."""
+    if dtype not in _SCALARS:
+      raise ValueError(f"the generic kernels take float32 or float64, not "
+                       f"{dtype}")
+    spec, mode = self.spec, self.mode
+    if mode == "single":
+      k = self.kinds[0]
+      units = ((k, spec.obs[k].maha_test if self.gate is None
+                else bool(self.gate)),)
+    else:
+      units = tuple((k, bool(self.gate) and spec.obs[k].maha_test)
+                    for k in self.kinds)
+    return _source(spec, mode, units, self.structure, self._pnames,
+                   self.ps_keys, self._q_pattern, _SCALARS[dtype])
+
+  def values(self, dtype, device):
+    """The run-time inputs on the device: the params vector (in the
+    source's order), Q (de * de) and every unit's R packed (dz * dz each,
+    unit by unit). Refuses non-scalar params."""
+    key = (dtype, torch.device(device))
+    if key not in self._values:
+      vals = []
+      for k in self._pnames:
+        v = _host64(self.params.get(k, 0.0))
+        if v.ndim:
+          raise ValueError(f"param {k!r} is not a scalar; the generic "
+                           "kernels take scalar params")
+        vals.append(float(v))
+      self._values[key] = tuple(
+          torch.as_tensor(np.asarray(a, dtype=np.float64).ravel(),
+                          dtype=dtype, device=device)
+          for a in (vals or [0.0], self.Q,
+                    np.concatenate([R.ravel() for R in self.R_list])))
+    return self._values[key]
+
+
+def _call_for(call, mode, spec, kinds, **kw):
+  if call is None:
+    return KernelCall(spec, mode, kinds, **kw)
+  if call.mode != mode:
+    raise ValueError(f"a {call.mode!r} call given to the {mode!r} scan")
+  return call
+
+
+def _plain(call, x, P, zs, dts, eas, pss, kind_idx=None):
+  """The plain torch version of the call (ops/lane_bank.py) in the
+  wrappers' layout, on any device; the structure is not used."""
+  spec, params = call.spec, call.params
+  Q = torch.as_tensor(call.Q, dtype=x.dtype, device=x.device)
+  Rs = [torch.as_tensor(R, dtype=x.dtype, device=x.device)
+        for R in call.R_list]
+  lane = lambda a: None if a is None else a.transpose(-1, -2)  # noqa: E731
+  kw = dict(eas=lane(eas), ps_keys=call.ps_keys, pss=pss, gate=call.gate)
+  if call.mode == "single":
+    xo, Po = lane_bank.lane_bank_scan(spec, call.kinds[0], params, x.T, P, Q,
+                                      dts, lane(zs), Rs[0], **kw)
+  elif call.mode == "mixed":
+    xo, Po = lane_bank.lane_mixed_bank_scan(
+        spec, call.kinds, params, x.T, P, Q, dts, kind_idx, lane(zs), Rs,
+        **kw)
+  else:
+    xo, Po = lane_bank.lane_epoch_bank_scan(
+        spec, call.kinds, params, x.T, P, Q, dts, lane(zs), Rs, **kw)
+  return xo.T.contiguous(), Po.contiguous()
+
+
+def _launch(wrapper, call, x, P, zs, dts, eas, pss, kind_idx=None):
+  """Check the CUDA arguments, build / load the variant, launch it and
+  count the launch on the wrapper."""
+  spec, kinds = call.spec, call.kinds
+  T, B = dts.shape[0], x.shape[-1]
+  max_dz = max(spec.obs[k].dz for k in kinds)
+  max_ea = max(spec.obs[k].ea_len for k in kinds)
+  dtype = x.dtype if x.dtype in _SCALARS else torch.float32
+  _build.check_tensor("x", x, (spec.dim_x, B), dtype)
+  _build.check_tensor("P", P, (spec.dim_err, spec.dim_err, B), dtype)
+  lead = (T, len(kinds)) if call.mode == "epoch" else (T,)
+  _build.check_tensor("zs", zs, lead + (max_dz, B), dtype)
+  _build.check_tensor("dts", dts, (T,), dtype)
+  if (eas is None) != (max_ea == 0):
+    raise ValueError(f"kinds {kinds}: pass eas iff a kind takes extra args")
+  if eas is not None:
+    _build.check_tensor("eas", eas, lead + (max_ea, B), dtype)
+  if (pss is None) != (len(call.ps_keys) == 0):
+    raise ValueError("pass pss (T, len(ps_keys)) iff ps_keys is non-empty")
+  if pss is not None:
+    _build.check_tensor("pss", pss, (T, len(call.ps_keys)), dtype)
+  if kind_idx is not None:
+    _build.check_tensor("kind_idx", kind_idx, (T,), torch.int32)
+    if T and not 0 <= int(kind_idx.min()) <= int(kind_idx.max()) < len(kinds):
+      raise ValueError(f"kind_idx outside [0, {len(kinds)})")
+  prm, Qd, R = call.values(dtype, x.device)
+  x, P = x.clone(), P.clone()
+  if T == 0:
+    return x, P
+  fn = _build.generated_launcher(call.source(dtype))
+  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  code = fn(x.data_ptr(), P.data_ptr(), zs.data_ptr(), ptr(eas),
+            dts.data_ptr(), ptr(kind_idx), ptr(pss), prm.data_ptr(),
+            Qd.data_ptr(), R.data_ptr(), T, B,
+            torch.cuda.current_stream(x.device).cuda_stream)
+  _build.check(code, wrapper.__name__)
+  wrapper.launches += 1
+  return x, P
+
+
+def generic_bank_scan_reference(x, P, zs, dts, *, spec: FilterSpec,
+                                kind: int, Q, R, params=None,
+                                gate: bool | None = None, structure=None,
+                                eas=None, pss=None, ps_keys=()):
+  """Plain torch version of kernel 4 (lane_bank.lane_bank_scan) in the
+  wrapper's layout, on any device; `structure` is not used."""
+  return _plain(KernelCall(spec, "single", (kind,), Q=Q, R_list=(R,),
+                           params=params, gate=gate, structure=structure,
+                           ps_keys=ps_keys), x, P, zs, dts, eas, pss)
+
+
+def generic_bank_scan(x, P, zs, dts, *, spec: FilterSpec | None = None,
+                      kind: int | None = None, Q=None, R=None, params=None,
+                      gate: bool | None = None, structure=None, eas=None,
+                      pss=None, ps_keys=(), call: KernelCall | None = None):
+  """T fused predict + update steps of one kind over a B-wide bank.
+
+  x (dim_x, B), P (de, de, B), zs (T, dz, B), dts (T,), Q (de, de), R
+  (dz, dz); eas (T, ea_len, B) for extra-args kinds; params a mapping of
+  scalars (default spec.default_params) with ps_keys / pss overlaying
+  per-step values. `structure` (ops/sparsity) selects the emitted body;
+  None emits the dense one. Or call= a 'single' KernelCall in place of
+  spec, kind, Q, R, params, gate, structure and ps_keys. Returns the new
+  (x, P)."""
+  call = _call_for(call, "single", spec, (kind,), Q=Q, R_list=(R,),
+                   params=params, gate=gate, structure=structure,
+                   ps_keys=ps_keys)
+  if x.device.type == "cpu":
+    return _plain(call, x, P, zs, dts, eas, pss)
+  return _launch(generic_bank_scan, call, x, P, zs, dts, eas, pss)
+
+
+generic_bank_scan.launches = 0
+
+
+def generic_bank_scan_mixed_reference(x, P, zs, dts, kind_idx, *,
+                                      spec: FilterSpec, kinds, Q, R_list,
+                                      params=None, gate: bool = True,
+                                      structure=None, eas=None, pss=None,
+                                      ps_keys=()):
+  """Plain torch version of kernel 6 (lane_bank.lane_mixed_bank_scan) in
+  the wrapper's layout, on any device; `structure` is not used."""
+  return _plain(KernelCall(spec, "mixed", kinds, Q=Q, R_list=R_list,
+                           params=params, gate=gate, structure=structure,
+                           ps_keys=ps_keys), x, P, zs, dts, eas, pss,
+                kind_idx)
+
+
+def generic_bank_scan_mixed(x, P, zs, dts, kind_idx, *,
+                            spec: FilterSpec | None = None, kinds=(), Q=None,
+                            R_list=(), params=None, gate: bool = True,
+                            structure=None, eas=None, pss=None, ps_keys=(),
+                            call: KernelCall | None = None):
+  """T steps of a heterogeneous schedule: one predict, then the update of
+  kinds[kind_idx[t]] (the same kind for the whole bank at a step).
+
+  zs (T, max_dz, B) and eas (T, max_ea_len, B) rows padded; kind_idx (T,)
+  int32; R_list per kind, aligned with kinds. Or call= a 'mixed'
+  KernelCall. Returns the new (x, P)."""
+  call = _call_for(call, "mixed", spec, kinds, Q=Q, R_list=R_list,
+                   params=params, gate=gate, structure=structure,
+                   ps_keys=ps_keys)
+  if x.device.type == "cpu":
+    return _plain(call, x, P, zs, dts, eas, pss, kind_idx)
+  return _launch(generic_bank_scan_mixed, call, x, P, zs, dts, eas, pss,
+                 kind_idx)
+
+
+generic_bank_scan_mixed.launches = 0
+
+
+def generic_bank_scan_epoch_reference(x, P, zs, dts, *, spec: FilterSpec,
+                                      slot_kinds, Q, R_list, params=None,
+                                      gate: bool = True, structure=None,
+                                      eas=None, pss=None, ps_keys=()):
+  """Plain torch version of kernel 5 (lane_bank.lane_epoch_bank_scan) in
+  the wrapper's layout, on any device; `structure` is not used."""
+  return _plain(KernelCall(spec, "epoch", slot_kinds, Q=Q, R_list=R_list,
+                           params=params, gate=gate, structure=structure,
+                           ps_keys=ps_keys), x, P, zs, dts, eas, pss)
+
+
+def generic_bank_scan_epoch(x, P, zs, dts, *, spec: FilterSpec | None = None,
+                            slot_kinds=(), Q=None, R_list=(), params=None,
+                            gate: bool = True, structure=None, eas=None,
+                            pss=None, ps_keys=(),
+                            call: KernelCall | None = None):
+  """T epochs, each one predict then the K slot updates in order (the
+  reference's predict_and_update_batch, ekf_sym.py:484-531), all K inline.
+
+  zs (T, K, max_dz, B), eas (T, K, max_ea_len, B); R_list per slot. Or
+  call= an 'epoch' KernelCall. Returns the new (x, P)."""
+  call = _call_for(call, "epoch", spec, slot_kinds, Q=Q, R_list=R_list,
+                   params=params, gate=gate, structure=structure,
+                   ps_keys=ps_keys)
+  if x.device.type == "cpu":
+    return _plain(call, x, P, zs, dts, eas, pss)
+  return _launch(generic_bank_scan_epoch, call, x, P, zs, dts, eas, pss)
+
+
+generic_bank_scan_epoch.launches = 0

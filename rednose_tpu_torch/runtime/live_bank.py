@@ -6,11 +6,13 @@ Port of rednose_tpu/runtime/live_bank.py:
     bank.run(dts, zs)                          # ECEF_POS stream
     bank.run_mixed(dts, kind_idx, zs, kinds)   # heterogeneous schedule
     bank.observe(t, kind, z)                   # one timestamped observation
+    bank.run_epochs(dts, zs, slot_kinds)       # predict + K updates a step
     bank.x, bank.P                             # (B, 23), (B, 22, 22)
 
 On a CUDA device `run` launches kernel 2 (ops/live_scan.live_bank_scan),
 and `run_mixed` and `observe` launch kernel 3
-(ops/live_scan.live_bank_scan_mixed; observe with T = 1). On the CPU the
+(ops/live_scan.live_bank_scan_mixed; observe with T = 1); `run_epochs`
+launches the generic epoch kernel 5 on the live spec. On the CPU the
 same wrappers run their plain torch versions. The kernels carry Q as its
 diagonal: an off-diagonal Q raises on CUDA (the full-Q bank path comes
 with the generic lane bank, ROADMAP) and takes the plain full-Q slab path
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from rednose_tpu_torch.models.live import LiveKalman, ObservationKind
-from rednose_tpu_torch.ops import live_lane, live_scan
+from rednose_tpu_torch.ops import live_lane, live_scan, sparsity
 from rednose_tpu_torch.runtime.bank_facade import BankFacadeBase
 from rednose_tpu_torch.runtime.rewind import BankRewindRing
 from rednose_tpu_torch.utils.device import resolve_device
@@ -76,9 +78,25 @@ class LiveKalmanBank(BankFacadeBase):
     self._ring = BankRewindRing(ckpt_every=ckpt_every, ckpt_keep=ckpt_keep,
                                 ckpt_bytes=ckpt_bytes)
 
-  def _tensor(self, a, dtype=None):
-    return torch.as_tensor(np.array(a), dtype=dtype or self.dtype,
-                           device=self.device)
+  # spec / structure / params / _default_R power the shared run_epochs,
+  # which runs the generic epoch kernel (kernel 5) on the live spec
+  params: dict = {}
+
+  @property
+  def spec(self):
+    return LiveKalman.build_spec()
+
+  @property
+  def structure(self):
+    return sparsity.structure_for(self.spec, LiveKalman.initial_x)
+
+  def _default_R(self, kind):
+    R = LiveKalman.obs_noise.get(int(kind))
+    if R is None:
+      raise ValueError(
+          f"kind {kind} carries per-measurement noise in the reference "
+          "(no obs_noise default, live_kf.py:325-337); pass R_by_slot")
+    return R
 
   def _zs(self, zs):
     """(T, B, 3) measurements -> the kernels' (T, 3, B) on the device."""

@@ -41,3 +41,15 @@ def live_sigma_err(x, P, x_ref, P_ref):
   dx = vmap(lambda n, t: _inv_err(None, n, t))(x_ref.T, x.T).T  # (22, B)
   sd = torch.diagonal(P_ref, dim1=0, dim2=1).T.abs().sqrt()
   return float((dx.abs() / sd).max()), _cov_err(P, P_ref)
+
+
+def lane_sigma_errs(spec, x, P, x_ref, P_ref):
+  """Per-lane (state, cov) errors, each (B,), of two banks of any spec, x
+  (dim_x, B) and P (de, de, B), in sigmas of the reference; the state
+  difference is the error state spec.inv_err(x_ref, x)."""
+  x, P, x_ref, P_ref = x.double(), P.double(), x_ref.double(), P_ref.double()
+  dx = vmap(lambda n, t: spec.inv_err({}, n, t))(x_ref.T, x.T).T
+  sd = torch.diagonal(P_ref, dim1=0, dim2=1).T.abs().sqrt()   # (de, B)
+  ex = (dx.abs() / sd).amax(dim=0)
+  ep = ((P - P_ref).abs() / (sd[:, None] * sd[None, :])).amax(dim=(0, 1))
+  return ex, ep

@@ -1,0 +1,156 @@
+"""Card-only tests of the generic kernels 4-6 (ops/generic_scan.py): each
+kernel against its plain version (ops/lane_bank.py) on a small bank of
+the car model, float32 on the card (kernel 4 in float64 too), and the
+wrappers' refusal of what the kernels do not take. They skip without a
+CUDA card; on the card:
+`python -m pytest tests/test_torch_generic_scan.py -m cuda --noconftest`.
+This file imports nothing of JAX (the card's machine has none)."""
+
+import numpy as np
+import pytest
+import torch
+
+from rednose_tpu_torch.models.car import CarKalman, ObservationKind as CK
+from rednose_tpu_torch.ops import generic_scan, sparsity
+from rednose_tpu_torch.runtime.generic_bank import KalmanBank
+from torch_parity import cuda_device  # noqa: F401
+
+B, T = 256, 16
+PS_KEYS = ("u", "steer_angle_deg")
+# two float32 programs of a well-conditioned 5-state filter: the kernel
+# contracts products into FMAs and sums in another order
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _inputs(dev, K=None):
+  rng = np.random.RandomState(0)
+  x = np.tile(CarKalman.initial_x, (B, 1)) + 0.05 * rng.randn(B, 5)
+  P = np.tile(np.diag(CarKalman.initial_P_diag)[:, :, None], (1, 1, B))
+  zs = 0.05 * rng.randn(*((T, K, 1, B) if K else (T, 1, B)))
+  pss = np.stack([18.0 + 6.0 * rng.rand(T),
+                  25.0 * np.sin(np.linspace(0, 20, T))], axis=1)
+
+  def f32(a):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                           device=dev)
+
+  return (f32(x.T), f32(P), f32(zs), f32(np.full(T, 0.05))), f32(pss)
+
+
+def _both(fn, args, kw, pss):
+  out = fn(*args, pss=pss, **kw)
+  torch.cuda.synchronize()
+  ref = fn(*[a.cpu() for a in args], pss=pss.cpu(), **kw)
+  return out, ref
+
+
+def _check(out, ref):
+  for a, b in zip(out, ref):
+    assert a.is_cuda and torch.isfinite(a).all()
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=RTOL,
+                               atol=ATOL)
+  assert torch.equal(out[1], out[1].transpose(0, 1))
+
+
+@pytest.mark.cuda
+def test_kernel4_matches_plain(cuda_device):
+  spec = CarKalman.build_spec()
+  args, pss = _inputs(cuda_device)
+  n = generic_scan.generic_bank_scan.launches
+  out, ref = _both(generic_scan.generic_bank_scan, args, dict(
+      spec=spec, kind=CK.YAW_RATE, Q=CarKalman.Q,
+      R=CarKalman.obs_noise[CK.YAW_RATE], gate=True, ps_keys=PS_KEYS,
+      structure=sparsity.structure_for(spec, CarKalman.initial_x)), pss)
+  assert generic_scan.generic_bank_scan.launches == n + 1
+  _check(out, ref)
+
+
+@pytest.mark.cuda
+def test_kernel6_matches_plain(cuda_device):
+  spec = CarKalman.build_spec()
+  args, pss = _inputs(cuda_device)
+  kinds = (CK.YAW_RATE, CK.LATERAL_SLIP)
+  ki = torch.as_tensor(np.arange(T) % 2, dtype=torch.int32,
+                       device=cuda_device)
+  out = generic_scan.generic_bank_scan_mixed(
+      *args, ki, spec=spec, kinds=kinds, Q=CarKalman.Q,
+      R_list=[CarKalman.obs_noise[k] for k in kinds], ps_keys=PS_KEYS,
+      pss=pss, structure=sparsity.structure_for(spec, CarKalman.initial_x))
+  ref = generic_scan.generic_bank_scan_mixed(
+      *[a.cpu() for a in args], ki.cpu(), spec=spec, kinds=kinds,
+      Q=CarKalman.Q, R_list=[CarKalman.obs_noise[k] for k in kinds],
+      ps_keys=PS_KEYS, pss=pss.cpu())
+  _check(out, ref)
+
+
+@pytest.mark.cuda
+def test_kernel5_matches_plain(cuda_device):
+  spec = CarKalman.build_spec()
+  slots = (CK.YAW_RATE, CK.LATERAL_SLIP)
+  args, pss = _inputs(cuda_device, K=2)
+  out, ref = _both(generic_scan.generic_bank_scan_epoch, args, dict(
+      spec=spec, slot_kinds=slots, Q=CarKalman.Q,
+      R_list=[CarKalman.obs_noise[k] for k in slots], ps_keys=PS_KEYS,
+      structure=sparsity.structure_for(spec, CarKalman.initial_x)), pss)
+  _check(out, ref)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+  spec = CarKalman.build_spec()
+  (x, P, zs, dts), pss = _inputs(cuda_device)
+  kw = dict(spec=spec, kind=CK.YAW_RATE, Q=CarKalman.Q,
+            R=CarKalman.obs_noise[CK.YAW_RATE], ps_keys=PS_KEYS, pss=pss)
+  n = generic_scan.generic_bank_scan.launches
+  with pytest.raises(ValueError, match="contiguous"):
+    generic_scan.generic_bank_scan(x.T.contiguous().T, P, zs, dts, **kw)
+  with pytest.raises(ValueError, match="float64 tensor, got .*float32"):
+    generic_scan.generic_bank_scan(x.double(), P, zs, dts, **kw)
+  with pytest.raises(ValueError, match="float32 tensor, got .*float16"):
+    generic_scan.generic_bank_scan(x.half(), P, zs, dts, **kw)
+  with pytest.raises(ValueError, match="shape"):
+    generic_scan.generic_bank_scan(x, P, zs[:, :, :-1].contiguous(), dts,
+                                   **kw)
+  # T = 0 launches nothing and counts nothing
+  out = generic_scan.generic_bank_scan(x, P, zs[:0], dts[:0], **kw | dict(
+      pss=pss[:0]))
+  assert torch.equal(out[0], x) and torch.equal(out[1], P)
+  assert generic_scan.generic_bank_scan.launches == n
+
+
+@pytest.mark.cuda
+def test_kernel4_in_double_matches_plain(cuda_device):
+  """A float64 bank runs the double build of the same body: it agrees
+  with the float64 plain version to rounding."""
+  spec = CarKalman.build_spec()
+  args, pss = _inputs(cuda_device)
+  args, pss = tuple(a.double() for a in args), pss.double()
+  n = generic_scan.generic_bank_scan.launches
+  out, ref = _both(generic_scan.generic_bank_scan, args, dict(
+      spec=spec, kind=CK.YAW_RATE, Q=CarKalman.Q,
+      R=CarKalman.obs_noise[CK.YAW_RATE], gate=True, ps_keys=PS_KEYS,
+      structure=sparsity.structure_for(spec, CarKalman.initial_x)), pss)
+  assert generic_scan.generic_bank_scan.launches == n + 1
+  for a, b in zip(out, ref):
+    assert a.dtype == torch.float64
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10,
+                               atol=1e-12)
+  assert torch.equal(out[1], out[1].transpose(0, 1))
+
+
+@pytest.mark.cuda
+def test_facade_launches_the_kernels(cuda_device):
+  bank = KalmanBank(CarKalman, batch=64, device=cuda_device)
+  counts = lambda: (generic_scan.generic_bank_scan.launches,  # noqa: E731
+                    generic_scan.generic_bank_scan_mixed.launches,
+                    generic_scan.generic_bank_scan_epoch.launches)
+  before = counts()
+  zs = np.zeros((4, 64, 1))
+  bank.run(np.full(4, 0.05), zs, CK.YAW_RATE)
+  bank.run_mixed(np.full(4, 0.05), np.arange(4) % 2, zs,
+                 (CK.YAW_RATE, CK.LATERAL_SLIP))
+  bank.run_epochs(np.full(4, 0.05), np.zeros((4, 2, 64, 1)),
+                  (CK.YAW_RATE, CK.LATERAL_SLIP))
+  bank.observe(bank.t + 0.05, CK.YAW_RATE, np.zeros(1))
+  assert tuple(a - b for a, b in zip(counts(), before)) == (2, 1, 1)
+  assert int(bank.diverged().sum()) == 0

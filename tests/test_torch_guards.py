@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from rednose_tpu_torch.models.car import CarKalman
 from rednose_tpu_torch.models.kinematic import KinematicKalman
-from rednose_tpu_torch.ops import live_scan
+from rednose_tpu_torch.ops import generic_scan, lane_bank, live_scan
+from rednose_tpu_torch.runtime.generic_bank import KalmanBank
 from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
 import torch_parity  # noqa: F401  (one torch thread)
 
@@ -34,12 +36,13 @@ def test_port_imports_no_jax():
   out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
-  assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+  assert int(out.stdout.split()[-1]) >= 28   # every module was imported
 
 
 @pytest.mark.parametrize("make", [
     lambda: LiveKalmanBank(batch=8, device="cuda"),
     lambda: KinematicKalman(device="cuda"),
+    lambda: KalmanBank(CarKalman, batch=8, device="cuda"),
 ])
 def test_cuda_request_never_runs_on_cpu(make):
   if torch.cuda.is_available():
@@ -71,3 +74,35 @@ def test_live_wrappers_refuse_non_cuda_devices():
   bank.observe(0.05, 12, np.zeros(3))
   assert (live_scan.live_bank_scan.launches,
           live_scan.live_bank_scan_mixed.launches) == before
+
+
+def test_generic_wrappers_never_run_the_plain_scans_off_the_cpu(
+    monkeypatch):
+  """For a tensor that is not on the CPU the generic wrappers check it and
+  launch or raise: the plain lane scans are never their fallback."""
+  def forbidden(*a, **k):
+    raise AssertionError("plain scan called for a non-CPU tensor")
+
+  for name in ("lane_bank_scan", "lane_mixed_bank_scan",
+               "lane_epoch_bank_scan"):
+    monkeypatch.setattr(lane_bank, name, forbidden)
+  for name in ("generic_bank_scan_reference",
+               "generic_bank_scan_mixed_reference",
+               "generic_bank_scan_epoch_reference"):
+    monkeypatch.setattr(generic_scan, name, forbidden)
+  spec = CarKalman.build_spec()
+  m = dict(device="meta")
+  x, P = torch.empty((5, 8), **m), torch.empty((5, 5, 8), **m)
+  zs, dts = torch.empty((2, 1, 8), **m), torch.empty(2, **m)
+  Rs = [CarKalman.obs_noise[1], CarKalman.obs_noise[2]]
+  with pytest.raises(ValueError, match="CUDA"):
+    generic_scan.generic_bank_scan(x, P, zs, dts, spec=spec, kind=1,
+                                   Q=CarKalman.Q, R=Rs[0])
+  with pytest.raises(ValueError, match="CUDA"):
+    generic_scan.generic_bank_scan_mixed(
+        x, P, zs, dts, torch.zeros(2, dtype=torch.int32, **m), spec=spec,
+        kinds=(1, 2), Q=CarKalman.Q, R_list=Rs)
+  with pytest.raises(ValueError, match="CUDA"):
+    generic_scan.generic_bank_scan_epoch(
+        x, P, torch.empty((2, 2, 1, 8), **m), dts, spec=spec,
+        slot_kinds=(1, 2), Q=CarKalman.Q, R_list=Rs)

@@ -36,3 +36,76 @@ def cuda_device():
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   return torch.device("cuda")
+
+
+# ------------------------------------------------ host builds of emitted code
+# The generic kernels' emitted source (ops/entry_slab.py) is plain C++ over a
+# scalar_t typedef: the tests compile the text nvcc builds for a float64
+# bank (scalar_t = double) with the host compiler and run it over a small
+# bank through the template's host loop (csrc/generic_scan.cuh), once per
+# source and session.
+
+_HOST_LIBS = {}
+_HOST_DIR = []
+
+
+def host_compiler():
+  import shutil
+  return shutil.which("g++") or shutil.which("c++")
+
+
+def host_launcher(source):
+  """rn_generic_scan_host of `source` built as double with the host C++
+  compiler (cached per source for the session)."""
+  import ctypes
+  import pathlib
+  import subprocess
+  import tempfile
+
+  if source in _HOST_LIBS:
+    return _HOST_LIBS[source]
+  if not _HOST_DIR:
+    _HOST_DIR.append(pathlib.Path(tempfile.mkdtemp(prefix="rn_gen_host_")))
+  csrc = pathlib.Path(__file__).resolve().parents[1] / \
+      "rednose_tpu_torch" / "csrc"
+  n = len(_HOST_LIBS)
+  src = _HOST_DIR[0] / f"gen{n}.cu"
+  lib = _HOST_DIR[0] / f"libgen{n}.so"
+  src.write_text(source)
+  proc = subprocess.run(
+      [host_compiler(), "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
+       "-I", str(csrc), "-o", str(lib), str(src)],
+      capture_output=True, text=True)
+  assert proc.returncode == 0, proc.stderr[-4000:]
+  fn = ctypes.CDLL(str(lib)).rn_generic_scan_host
+  fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+  fn.restype = ctypes.c_int
+  _HOST_LIBS[source] = fn
+  return fn
+
+
+def run_host(mode, spec, kinds, x, P, zs, dts, *, Q, R_list, params=None,
+             gate=None, structure=None, eas=None, pss=None, ps_keys=(),
+             kind_idx=None):
+  """The emitted variant of a generic wrapper call, built and run on the
+  host in float64: x (dim_x, B), P (de, de, B), zs / eas in the wrappers'
+  bank-minor layout, all CPU float64. Returns the new (x, P)."""
+  from rednose_tpu_torch.ops import generic_scan
+
+  call = generic_scan.KernelCall(
+      spec, mode, kinds, Q=Q, R_list=R_list, params=params, gate=gate,
+      structure=structure, ps_keys=ps_keys)
+  source = call.source(torch.float64)
+  prm, Qd, R_flat = call.values(torch.float64, "cpu")
+  c = lambda t, dt=torch.float64: None if t is None else \
+      torch.as_tensor(t, dtype=dt).contiguous()  # noqa: E731
+  x, P = c(x).clone(), c(P).clone()
+  zs, dts, eas, pss = c(zs), c(dts), c(eas), c(pss)
+  ki = c(kind_idx, torch.int32)
+  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  rc = host_launcher(source)(
+      x.data_ptr(), P.data_ptr(), zs.data_ptr(), ptr(eas), dts.data_ptr(),
+      ptr(ki), ptr(pss), prm.data_ptr(), Qd.data_ptr(), R_flat.data_ptr(),
+      int(dts.shape[0]), int(x.shape[1]))
+  assert rc == 0
+  return x, P
