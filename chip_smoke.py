@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root, one H100
 
@@ -7,33 +7,44 @@ Builds the port's CUDA kernels from the repository (rednose_tpu_torch/
 _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each). Then:
-  1. main path, with every kernel's launch count set to 0 first:
-     KinematicKalman(device="cuda") on a 100-observation stream (P shrinks,
-     a late observation rewinds and replays, a too-old one returns None);
-     the kinematic bank scan at B = 16384, T = 4096 with the gate on;
-     LiveKalmanBank(batch=8192, device="cuda"): run_mixed over T = 1024
-     steps of the gyro / accel / camera rotation / position schedule, run
-     over T = 1024 ECEF_POS steps, 8 observe calls with one late; all
-     finite, P exactly symmetric, no diverged lane, every position within
-     8 sigma + 5 m of the truth. Then the generic bank (KalmanBank):
-     CarKalman at B = 8192, T = 1024 yaw-rate steps with the per-step
-     speed / steering stream; LocKalman at B = 8192, T = 512 GNSS epochs
-     of 4 pseudoranges + 4 rates, then 8 observe calls with one late; the
-     unmodified live spec at B = 8192, run_mixed T = 512 over the 4-kind
-     cycle and run T = 512 ECEF_POS with the gate on; all finite, P exactly
-     symmetric, no diverged lane. Every kernel must have launched.
+  1. three main paths, each with every kernel's launch count set to 0
+     just before it and read just after it:
+     - kinematic and live: KinematicKalman(device="cuda") on a
+       100-observation stream (P shrinks, a late observation rewinds and
+       replays, a too-old one returns None); the kinematic bank scan at
+       B = 16384, T = 4096 with the gate on; LiveKalmanBank(batch=8192):
+       run_mixed over T = 1024 steps of the gyro / accel / camera rotation
+       / position schedule, run over T = 1024 ECEF_POS steps, 8 observe
+       calls with one late; all finite, P exactly symmetric, no diverged
+       lane, every position within 8 sigma + 5 m of the truth;
+     - the generic bank (KalmanBank): CarKalman at B = 8192, T = 1024
+       yaw-rate steps with the per-step speed / steering stream; LocKalman
+       at B = 8192, T = 512 GNSS epochs of 4 pseudoranges + 4 rates, then
+       8 observe calls with one late; the unmodified live spec at
+       B = 8192, run_mixed T = 512 over the 4-kind cycle and run T = 512
+       ECEF_POS with the gate on; all finite, P exactly symmetric, no
+       diverged lane;
+     - the MSCKF bank (MSCKFBank): msckf_vo at B = 4096, run_frames
+       T = 128; msckf_eskf at B = 4096, run_frames T = 64, then 8
+       observe_frame calls with one late and 2 position fixes; on camera
+       frames consistent with a per-lane truth; at most 1% of lanes lost
+       (beyond 10 sigma of their truth, or not finite), every non-finite
+       lane flagged by diverged() and re-seeded by reset_diverged(), every
+       other P exactly symmetric.
+     Every kernel of a path must have launched in it.
   2. each kernel against its plain torch version on the card (kinematic at
-     B = 16384, T = 4096; the others at B = 8192, T = 64 from the main
-     path's converged states with consistent data), the difference in
-     standard deviations of the plain result (utils/compare.py), both
-     timed with CUDA events. loc (kernel 5) is held in double, the float64
-     build of its body against the float64 plain version, and planted
-     faults must fail that limit; its float32 agreement is printed; on the
-     main path's loc data its share of lanes over 100 m off is held
-     against the plain version's. As a cross-check, the generic live
-     kernels against the hand ones on the same inputs: kernel 4 (ECEF_POS,
-     gate on) against kernel 2, kernel 6 against kernel 3 with its gate
-     off.
+     B = 16384, T = 4096; the others at B = 8192, T = 64, kernel 7 at
+     B = 4096, T = 16, from converged states or fresh banks with
+     consistent data), the difference in standard deviations of the plain
+     result (utils/compare.py), both timed with CUDA events, with the
+     least time the card could take (bound). loc (kernel 5) and both
+     MSCKF models (kernel 7) are also held in double, the float64 build of
+     the body against the float64 plain version, and planted faults must
+     fail that limit; loc's float32 agreement is printed; on the main
+     path's loc data its share of lanes over 100 m off is held against the
+     plain version's. As a cross-check, the generic live kernels against
+     the hand ones on the same inputs: kernel 4 (ECEF_POS, gate on)
+     against kernel 2, kernel 6 against kernel 3 with its gate off.
 Prints the build times and ptxas lines, the card's name and power limit,
 a JSON line of the kernels, and last `{"ok": true, "device": {...}}`. Any
 failure raises (non-zero exit). It needs a CUDA card and the repository;
@@ -44,6 +55,7 @@ of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +101,35 @@ LOC64_TOL = 1e-6
 LOC_FAR_M = 100.0
 LOC_SHARE_RATIO, LOC_SHARE_SLACK = 1.25, 0.01
 LOC64_SHARE_DIFF = 0.002
+# the MSCKF bank (bench.py's vo and vo_eskf entries): msckf_vo at
+# B = 4096, T = 128, Q = 1e-6 I, R = 0.02^2 I; msckf_eskf at B = 4096,
+# T = 64, the model's Q, R = 0.01^2 I; dt 0.05, the gate on, P0 = 0.1 I
+MSCKF_B, VO_T, ESKF_T = 4096, 128, 64
+MSCKF_DT, MSCKF_P0 = 0.05, 0.1
+MSCKF_KIND, MSCKF_POS = 16, 12   # MSCKF_TEST / MSCKF_FEATURE, POSITION
+# kernel 7 against its plain version at T = 16 on consistent data: float32
+# at GEN_TOL, the double build against the float64 plain version at
+# MSCKF64_TOL; each planted fault (run-time values, the same builds) must
+# leave some lane beyond MSCKF64_TOL. A main-path lane whose error state is
+# beyond MSCKF_FAR sigmas of its truth counts as lost; at most
+# MSCKF_LOST_SHARE of the lanes may be.
+MSCKF_CMP_T = 16
+MSCKF64_TOL = 1e-6
+MSCKF_FAR, MSCKF_LOST_SHARE = 10.0, 0.01
+# each lane's truth starts at MSCKF_TRUTH sigmas of P0 from its estimate:
+# from a whole sigma (0.32 rad of attitude), msckf_eskf's first feature
+# innovations reach tens of R's sigmas, the gate rejects them, and a lane
+# that never corrects drifts off its truth
+MSCKF_TRUTH = 0.3
+# the camera moves at MSCKF_V m/s (tests/test_msckf_vo.py's velocity): a
+# 0.15 s window then spans 17 cm at 6 m depth, where the bench's camera
+# at rest spans ~1.5 cm, He nearly spans H, and float32 parts from
+# float64 beyond GEN_TOL on some lanes whatever the program
+MSCKF_V = (1.0, 0.5, 0.2)
+# the least time the card could take (peak rates from NVIDIA's H100 SXM
+# data sheet): operations over the peak rate of their type, compulsory
+# bytes over the memory rate
+FP32_PEAK, FP64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 
 
 def log(msg):
@@ -123,6 +164,65 @@ def timed_run(fn, reps):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps, out
+
+
+def emitted_ops(source):
+  """Arithmetic operations of each function of an emitted source: every
+  SSA definition that is not a plain load of an input (x, P, dt, p, Q, z,
+  ea, R) is one operation (a product, a sum, a compare, a select, a
+  sqrt)."""
+  ops, name = {}, None
+  load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[)")
+  for line in source.splitlines():
+    m = re.match(r"GEN_HD GEN_(?:INLINE|PHASE) void (\w+)\(", line)
+    if m:
+      name = m.group(1)
+      ops[name] = 0
+    elif name and line.startswith("  const ") and not load.search(line):
+      ops[name] += 1
+  return ops
+
+
+def step_ops(source, kinds, mode="single"):
+  """Operations of one emitted step: the predict plus the update (or
+  camera frame) of each kind of an epoch, of the one kind of a single or
+  frame step, or on average over a mixed schedule that cycles through its
+  kinds evenly."""
+  ops = emitted_ops(source)
+
+  def unit(k):
+    return next(v for name, v in ops.items()
+                if re.fullmatch(rf"gen_(update|frame)_k{k}(_g)?", name))
+
+  units = sum(unit(k) for k in kinds)
+  return ops["gen_predict"] + (units / len(kinds) if mode == "mixed"
+                               else units)
+
+
+def io_bytes(items, itemsize):
+  """Compulsory bytes: every tensor or array of `items` (inputs read once,
+  outputs written once; nested lists and tuples walked) at its size, a
+  host array at the kernel's itemsize."""
+  import torch
+
+  n = 0
+  for a in items:
+    if torch.is_tensor(a):
+      n += a.numel() * a.element_size()
+    elif isinstance(a, np.ndarray):
+      n += a.size * itemsize
+    elif isinstance(a, (list, tuple)):
+      n += io_bytes(a, itemsize)
+  return n
+
+
+def bound(nbytes, ops, double=False):
+  """(bound_ms, bound_by): the larger of bytes over the memory rate and
+  operations over the peak rate of their type."""
+  t_bytes = nbytes / HBM_RATE
+  t_ops = ops / (FP64_PEAK if double else FP32_PEAK)
+  return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
 
 
 def kinematic_inputs(torch, dev, gen):
@@ -241,27 +341,59 @@ def main_path(torch, dev, gen):
 
 
 def compare(name, source, replaces, kernel, plain, args, kw, err, tol, reps,
-            shape):
+            shape, ops):
   """Run the kernel and its plain version on the same inputs; the kernel
   passes when their difference, in standard deviations of the plain
-  result (utils/compare.py), is at most tol."""
+  result (utils/compare.py), is at most tol. ops: the operations of the
+  call, for its bound."""
   ms, out_k = timed_run(lambda: kernel(*args, **kw), reps)
   plain_ms, out_p = timed_run(lambda: plain(*args, **kw), 1)
   flat = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
   e = err(out_k, out_p)
+  bound_ms, bound_by = bound(io_bytes([args, list(kw.values()),
+                                       flat(out_k)], 4), ops)
   row = dict(
       name=name, route="cuda", source=source, replaces=replaces,
       max_abs_err=max(float((a - b).abs().max())
                       for a, b in zip(flat(out_k), flat(out_p))),
-      sigma_err=e, ok=e <= tol, ms=ms, plain_ms=plain_ms, shape=shape)
+      sigma_err=e, ok=e <= tol, ms=ms, plain_ms=plain_ms, shape=shape,
+      bound_ms=bound_ms, bound_by=bound_by)
   log(f"{name} [{shape}]: kernel {row['ms']:.4f} ms, plain "
-      f"{row['plain_ms']:.4f} ms; max |kernel - plain| "
-      f"{row['max_abs_err']:.4g} = {e:.4g} sigma (tolerance {tol}) -> "
-      f"{'ok' if row['ok'] else 'FAIL'}")
+      f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}); "
+      f"max |kernel - plain| {row['max_abs_err']:.4g} = {e:.4g} sigma "
+      f"(tolerance {tol}) -> {'ok' if row['ok'] else 'FAIL'}")
   return row
 
 
-def compare_kernels(torch, dev, gen, live_states):
+def hand_kernel_ops(live_spec):
+  """Operations per filter-step of the hand kernels' functions, counted on
+  the emitted structural body of the same function (ops/entry_slab.py;
+  the hand kernels take closed-form Jacobians of the same algebra):
+  kernel 1 the kinematic spec's position update with the gate, kernel 2
+  the live spec's ECEF_POS update with the gate, kernel 3 the live
+  4-kind cycle (one update of each kind every 4 steps)."""
+  from rednose_tpu_torch.models.kinematic import KinematicKalman
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  kin = KinematicKalman.build_spec()
+  st = sparsity.structure_for(live_spec, LiveKalman.initial_x)
+  k1 = gs.KernelCall(kin, "single", (1,), Q=KinematicKalman.Q,
+                     R_list=(KinematicKalman.obs_noise[1],), gate=True,
+                     structure=sparsity.structure_for(
+                         kin, KinematicKalman.initial_x)).source()
+  k2 = gs.KernelCall(live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
+                     R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
+                     structure=st).source()
+  k3 = gs.KernelCall(live_spec, "mixed", mixed_kinds(), Q=LiveKalman.Q,
+                     R_list=[LiveKalman.obs_noise[k] for k in mixed_kinds()],
+                     structure=st).source()
+  return {"kinematic_bank_scan": step_ops(k1, (1,)),
+          "live_bank_scan": step_ops(k2, (K.ECEF_POS,)),
+          "live_bank_scan_mixed": step_ops(k3, mixed_kinds(), "mixed")}
+
+
+def compare_kernels(torch, dev, gen, live_states, live_spec):
   """Phase 2: each kernel against its plain version on the same inputs.
   The live kernels start from bank states of the main path whose attitude
   has converged and that fit the measurements that follow: kernel 2 from
@@ -284,12 +416,14 @@ def compare_kernels(torch, dev, gen, live_states):
   def live_err(a, ref):
     return max(live_sigma_err(*a, *ref))
 
+  ops = hand_kernel_ops(live_spec)
   rows = [compare(
       "kinematic_bank_scan", "rednose_tpu_torch/csrc/kinematic_scan.cu",
       "rednose_tpu/ops/pallas_step.py:69", kinematic_scan.kinematic_bank_scan,
       kinematic_scan.kinematic_scan_reference,
       kinematic_inputs(torch, dev, gen), dict(maha=True), kin_err, KIN_TOL,
-      10, f"B={KIN_B} T={KIN_T} gate on")]
+      10, f"B={KIN_B} T={KIN_T} gate on",
+      ops["kinematic_bank_scan"] * KIN_B * KIN_T)]
 
   x0, P0, q_diag = live_states["live_bank_scan"]
   dts = torch.full((CMP_T,), 0.01, device=dev)
@@ -304,7 +438,8 @@ def compare_kernels(torch, dev, gen, live_states):
       "rednose_tpu/ops/pallas_live.py:62", live_scan.live_bank_scan,
       live_scan.live_bank_scan_reference, (x0, P0, zs, dts, q_diag, R),
       dict(gate=True), live_err, LIVE_TOL, 5,
-      f"B={LIVE_B} T={CMP_T} gate on"))
+      f"B={LIVE_B} T={CMP_T} gate on",
+      ops["live_bank_scan"] * LIVE_B * CMP_T))
 
   x_m, P_m, q_diag = live_states["live_bank_scan_mixed"]
   kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, CMP_T)
@@ -325,11 +460,56 @@ def compare_kernels(torch, dev, gen, live_states):
       dict(gate=True, r_stream=r_stream,
            stream_kinds=(K.CAMERA_ODO_ROTATION,)),
       live_err, LIVE_TOL, 5,
-      f"B={LIVE_B} T={CMP_T} gate on, 4 kinds, 1 streamed"))
+      f"B={LIVE_B} T={CMP_T} gate on, 4 kinds, 1 streamed",
+      ops["live_bank_scan_mixed"] * LIVE_B * CMP_T))
 
   bad = [r["name"] for r in rows if not r["ok"]]
   require(not bad, f"kernels agree with their plain versions: {bad}")
   return rows
+
+def lane_errs(a, b, spec):
+  """Per-lane error of bank a against bank b, in sigmas of b."""
+  import torch
+
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  return torch.maximum(*lane_sigma_errs(spec, *a, *b))
+
+
+def kernel_vs_plain(name, source, replaces, spec, kernel, plain, args, kw,
+                    shape, ops, tol=GEN_TOL, *, checks, reps):
+  """A bank kernel against its plain version on the same inputs, both
+  timed (the kernel as the mean of reps calls); passes when every lane is
+  within tol sigmas (utils/compare.py), which is appended to checks. ops:
+  the operations of the call, for its bound. Returns (row, kernel out,
+  plain out)."""
+  import torch
+
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  ms, out_k = timed_run(lambda: kernel(*args, **kw), reps)
+  plain_ms, out_p = timed_run(lambda: plain(*args, **kw), 1)
+  ex, ep = lane_sigma_errs(spec, *out_k, *out_p)
+  e = torch.maximum(ex, ep)
+  double = out_k[0].dtype == torch.float64
+  bound_ms, bound_by = bound(
+      io_bytes([args, [v for k, v in kw.items() if k != "spec"], out_k],
+               out_k[0].element_size()), ops, double)
+  row = dict(name=name, route="cuda", source=source, replaces=replaces,
+             max_abs_err=max(float((a - b).abs().max())
+                             for a, b in zip(out_k, out_p)),
+             ms=ms, plain_ms=plain_ms, shape=shape, bound_ms=bound_ms,
+             bound_by=bound_by)
+  ok = float(e.max()) <= tol
+  log(f"{name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+      f"bound {bound_ms:.4g} ms ({bound_by}); "
+      f"max |kernel - plain| {row['max_abs_err']:.4g}, "
+      f"{float(e.max()):.4g} sigma (state {float(ex.max()):.4g}, cov "
+      f"{float(ep.max()):.4g}; median lane {float(e.median()):.4g}; "
+      f"tolerance {tol}) -> {'ok' if ok else 'FAIL'}")
+  checks.append((name + " " + shape, ok))
+  return row, out_k, out_p
+
 
 # ------------------------------------------------------------ generic bank
 
@@ -555,29 +735,14 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
   dts = torch.full((CMP_T,), 0.01, **f32)
   rows, checks = [], []
 
-  def lane_errs(a, b, spec):
-    return torch.maximum(*lane_sigma_errs(spec, *a, *b))
+  def call_ops(mode, spec, kinds, T, **kw):
+    """Operations of T steps of a bank of GEN_B filters of this call; a
+    mixed schedule cycles through its kinds evenly."""
+    source = gs.KernelCall(spec, mode, kinds, **kw).source()
+    return step_ops(source, kinds, mode) * T * GEN_B
 
-  def run(name, source, replaces, spec, kernel, plain, args, kw, shape,
-          tol=GEN_TOL):
-    """Kernel against plain on the same inputs, both timed; passes when
-    every lane is within tol sigmas. Returns (row, kernel out, plain out)."""
-    ms, out_k = timed_run(lambda: kernel(*args, **kw), kernel_reps)
-    plain_ms, out_p = timed_run(lambda: plain(*args, **kw), 1)
-    ex, ep = lane_sigma_errs(spec, *out_k, *out_p)
-    e = torch.maximum(ex, ep)
-    row = dict(name=name, route="cuda", source=source, replaces=replaces,
-               max_abs_err=max(float((a - b).abs().max())
-                               for a, b in zip(out_k, out_p)),
-               ms=ms, plain_ms=plain_ms, shape=shape)
-    ok = float(e.max()) <= tol
-    log(f"{name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-        f"max |kernel - plain| {row['max_abs_err']:.4g}, "
-        f"{float(e.max()):.4g} sigma (state {float(ex.max()):.4g}, cov "
-        f"{float(ep.max()):.4g}; median lane {float(e.median()):.4g}; "
-        f"tolerance {tol}) -> {'ok' if ok else 'FAIL'}")
-    checks.append((name + " " + shape, ok))
-    return row, out_k, out_p
+  def run(*a, **k):
+    return kernel_vs_plain(*a, checks=checks, reps=kernel_reps, **k)
 
   # kernel 4 on the car: the params stream, from the converged bank
   car = CarKalman.build_spec()
@@ -591,7 +756,10 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
            R=CarKalman.obs_noise[CK.YAW_RATE], ps_keys=PS_KEYS,
            pss=torch.as_tensor(pss, **f32),
            structure=sparsity.structure_for(car, CarKalman.initial_x)),
-      f"car B={GEN_B} T={CMP_T} speed / steering stream")
+      f"car B={GEN_B} T={CMP_T} speed / steering stream",
+      call_ops("single", car, (CK.YAW_RATE,), CMP_T, Q=CarKalman.Q,
+               R_list=(CarKalman.obs_noise[CK.YAW_RATE],), ps_keys=PS_KEYS,
+               structure=sparsity.structure_for(car, CarKalman.initial_x)))
 
   # kernel 4 on the live spec, ECEF_POS with the gate forced on
   x, P = states["live"]
@@ -605,7 +773,9 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
       "rednose_tpu/ops/pallas_bank.py:199", live_spec, gs.generic_bank_scan,
       gs.generic_bank_scan_reference, (x, P, zs, dts),
       dict(spec=live_spec, kind=K.ECEF_POS, Q=LiveKalman.Q, R=R, gate=True,
-           structure=st), f"live spec B={GEN_B} T={CMP_T} gate on")
+           structure=st), f"live spec B={GEN_B} T={CMP_T} gate on",
+      call_ops("single", live_spec, (K.ECEF_POS,), CMP_T, Q=LiveKalman.Q,
+               R_list=(R,), gate=True, structure=st))
   rows.append(row4)
   ms, out2 = timed_run(lambda: live_scan.live_bank_scan(
       x, P, zs, dts, hand_q, torch.as_tensor(R, **f32), gate=True),
@@ -629,7 +799,9 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
       gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
       (x, P, zs_m, dts, ki),
       dict(spec=live_spec, kinds=kinds, Q=LiveKalman.Q, R_list=R_list,
-           structure=st), f"live spec B={GEN_B} T={CMP_T}, 4 kinds")
+           structure=st), f"live spec B={GEN_B} T={CMP_T}, 4 kinds",
+      call_ops("mixed", live_spec, kinds, CMP_T, Q=LiveKalman.Q,
+               R_list=R_list, structure=st))
   rows.append(row6)
   ms, out3 = timed_run(lambda: live_scan.live_bank_scan_mixed(
       x, P, zs_m, dts, ki, kinds, torch.stack(
@@ -677,6 +849,8 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
       gs.generic_bank_scan_epoch_reference, (x, P, zs, dts64),
       dict(eas=eas, **kw),
       f"loc B={GEN_B} T={CMP_T} epochs of 4 + 4 slots, float64",
+      call_ops("epoch", loc, slots, CMP_T, Q=LocKalman.Q,
+               R_list=kw["R_list"], structure=kw["structure"]),
       tol=LOC64_TOL)
   rows.append(row5)
   # the limit catches planted faults: a Q term or a slot's update dropped
@@ -754,6 +928,272 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
   return rows
 
 
+# ------------------------------------------------------------ MSCKF bank
+
+def msckf_models():
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+  from rednose_tpu_torch.models.msckf_vo import MSCKFVisualOdometry
+
+  return MSCKFVisualOdometry, MSCKFEskf
+
+
+def msckf_setup(model):
+  """(spec, T, Q, R) of the model's bench.py entry: msckf_vo with
+  Q = 1e-6 I and R = 0.02^2 I (bench.py:449-486), msckf_eskf with the
+  model's Q and R = 0.01^2 I (bench.py:551-578)."""
+  spec = model.build_spec()
+  dz = spec.obs[MSCKF_KIND].dz
+  if model.name == "msckf_vo":
+    return spec, VO_T, 1e-6 * np.eye(spec.dim_err), 0.02**2 * np.eye(dz)
+  return spec, ESKF_T, model.Q, 0.01**2 * np.eye(dz)
+
+
+def msckf_call(model, Q=None, R=None):
+  """Kernel 7's call as MSCKFBank(model).run_frames makes it for the bench
+  entry, or with another Q or R of the same pattern (a planted fault:
+  run-time values, the same build)."""
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  spec, _, Q0, R0 = msckf_setup(model)
+  return gs.KernelCall(
+      spec, "frame", (MSCKF_KIND,), Q=Q0 if Q is None else Q,
+      R_list=(R0 if R is None else R,),
+      structure=sparsity.structure_for(spec, model.initial_x))
+
+
+def msckf_sources():
+  """The emitted sources the MSCKF path launches: kernel 7 for both models
+  and kernel 4 for msckf_eskf's position fixes (observe)."""
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  VO, ESKF = msckf_models()
+  eskf = ESKF.build_spec()
+  return {
+      "msckf_vo run_frames (kernel 7)": msckf_call(VO).source(),
+      "msckf_eskf run_frames (kernel 7)": msckf_call(ESKF).source(),
+      "msckf_eskf observe POSITION (kernel 4)": gs.KernelCall(
+          eskf, "single", (MSCKF_POS,), Q=msckf_setup(ESKF)[2],
+          R_list=(ESKF.obs_noise[MSCKF_POS],),
+          structure=sparsity.structure_for(eskf, ESKF.initial_x)).source(),
+  }
+
+
+def msckf_bank_x0(model, seed):
+  """(B, dim_x) per-lane states of the bench entry: x0 (msckf_vo: a small
+  main state and clones 0.3 m apart; msckf_eskf: the model's x0 with the
+  clones spread 0.5 m) plus 0.02 noise, quaternions renormalized."""
+  spec = model.build_spec()
+  rng = np.random.RandomState(seed)
+  if model.name == "msckf_vo":
+    x0 = np.concatenate([[0.1, -0.2, 0.05], MSCKF_V,
+                         0.3 * rng.randn(spec.n_augment * spec.dim_augment)])
+  else:
+    x0 = np.asarray(model.initial_x, np.float64).copy()
+    x0[7:10] = MSCKF_V
+    for a in range(spec.n_augment):
+      o = spec.dim_main + spec.dim_augment * a
+      x0[o:o + 3] += 0.5 * rng.randn(3)
+  xs = np.tile(x0, (MSCKF_B, 1)) + 0.02 * rng.randn(MSCKF_B, spec.dim_x)
+  for idx in spec.quaternion_idxs:
+    xs[:, idx:idx + 4] /= np.linalg.norm(xs[:, idx:idx + 4], axis=1,
+                                         keepdims=True)
+  return xs
+
+
+def msckf_frames(torch, dev, gen, model, xs, T, R):
+  """Consistent camera frames for a bank at xs (B, dim_x) with P = P0 I:
+  each lane's truth starts at err(x, MSCKF_TRUTH sqrt(P0) n), n standard
+  normal, then
+  per frame moves by the model's f, sees a landmark 6 m ahead of its
+  newest clone (z = h(truth, landmark) plus noise at R's sigma) and rolls
+  its window. Float64 on the card. Returns (zs (T, B, dz), eas (T, B, 3),
+  truths: the (B, dim_x) truth after each frame)."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.ops.quaternion import normalize_slices, quat_to_rot
+
+  spec = model.build_spec()
+  om = spec.obs[MSCKF_KIND]
+  f64 = dict(dtype=torch.float64, device=dev)
+  B = xs.shape[0]
+  x = torch.as_tensor(xs, **f64)
+  n = torch.randn((B, spec.dim_err), generator=gen, **f64)
+  x = vmap(lambda xx, dd: spec.err({}, xx, dd))(
+      x, MSCKF_TRUTH * MSCKF_P0 ** 0.5 * n)
+  norm = vmap(lambda xx: normalize_slices(xx, spec.quaternion_idxs))
+  x = norm(x)
+  d1, d3 = spec.dim_main, spec.dim_augment
+  newest = d1 + d3 * (spec.n_augment - 1)
+  sigma = float(np.sqrt(R[0, 0]))
+  zs, eas, truths = [], [], []
+  for _ in range(T):
+    x = norm(vmap(lambda xx: spec.f({}, xx, MSCKF_DT))(x))
+    ahead = torch.tensor([1.0, 0.5, 6.0], **f64) + 0.1 * torch.randn(
+        (B, 3), generator=gen, **f64)
+    if spec.quaternion_idxs:
+      rot = vmap(quat_to_rot)(x[:, newest + 3:newest + 7])
+      ahead = torch.einsum("bij,bj->bi", rot, ahead)
+    ea = x[:, newest:newest + 3] + ahead
+    z = vmap(lambda xx, ee: om.h({}, xx, ee))(x, ea)
+    zs.append(z + sigma * torch.randn(z.shape, generator=gen, **f64))
+    eas.append(ea)
+    x = torch.cat([x[:, :d1], x[:, d1 + d3:], x[:, :d3]], dim=1)
+    truths.append(x)
+  return torch.stack(zs), torch.stack(eas), truths
+
+
+def msckf_lost(torch, spec, bank_x, bank_P, truth):
+  """Share of lanes whose error state against the truth is beyond
+  MSCKF_FAR sigmas in some component, or not finite. bank_x (dim_x, B),
+  bank_P (de, de, B), truth (B, dim_x)."""
+  from torch.func import vmap
+
+  e = vmap(lambda n, t: spec.inv_err({}, n, t))(bank_x.T.double(), truth)
+  sd = torch.diagonal(bank_P.double(), dim1=0, dim2=1).sqrt()   # (B, de)
+  return float((~((e.abs() / sd) <= MSCKF_FAR).all(dim=1)).double().mean())
+
+
+def msckf_main_path(torch, dev, gen):
+  """Phase 1, MSCKF bank: MSCKFBank as a user calls it."""
+  from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
+
+  def healthy(name, bank, truth):
+    """The lanes lost (beyond MSCKF_FAR sigmas of their truth, or not
+    finite) are at most MSCKF_LOST_SHARE; a lane that went non-finite is
+    flagged by diverged() and reset_diverged() re-seeds exactly those;
+    every other P is exactly symmetric. Returns (lost share, lanes
+    reset)."""
+    torch.cuda.synchronize()
+    lost = msckf_lost(torch, bank.spec, bank._x, bank._P, truth)
+    require(lost <= MSCKF_LOST_SHARE,
+            f"{name}: {lost} of lanes lost (beyond {MSCKF_FAR} sigma of "
+            "their truth, or not finite)")
+    finite = (torch.isfinite(bank._x).all(dim=0)
+              & torch.isfinite(bank._P).all(dim=1).all(dim=0))
+    bad = bank.diverged()
+    require(bool((finite | bad).all()),
+            f"{name}: every non-finite lane is flagged diverged")
+    P = bank._P[:, :, ~bad]
+    require(torch.equal(P, P.transpose(0, 1)), f"{name} P symmetric")
+    reset = bank.reset_diverged()
+    require(reset == int(bad.sum()) and bool(torch.isfinite(bank._x).all()
+                                             and torch.isfinite(bank._P).all()),
+            f"{name}: reset_diverged re-seeds the diverged lanes")
+    return lost, reset
+
+  for model in msckf_models():
+    spec, T, Q, R = msckf_setup(model)
+    xs = msckf_bank_x0(model, SEED)
+    n_obs = 8 if model.name == "msckf_eskf" else 0
+    zs, eas, truths = msckf_frames(torch, dev, gen, model, xs, T + n_obs, R)
+    bank = MSCKFBank(model, batch=MSCKF_B, x0=xs,
+                     P_diag=np.full(spec.dim_err, MSCKF_P0), Q=Q, device=dev)
+    t0 = time.perf_counter()
+    bank.run_frames(np.full(T, MSCKF_DT), zs[:T], eas[:T], R=R)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    lost, reset = healthy(f"{model.name} bank", bank, truths[T - 1])
+    msg = (f"{model.name} bank B={MSCKF_B}: run_frames T={T} {ms:.3f} ms "
+           f"(host clock, first call); lanes lost {lost:.6f}, {reset} "
+           "diverged and reset")
+    if n_obs:
+      t_base = bank.t
+      t0 = time.perf_counter()
+      for i in (1, 2, 3, 5, 6, 4, 7, 8):  # the 4th frame arrives late
+        require(bank.observe_frame(t_base + MSCKF_DT * i, zs[T + i - 1].cpu(),
+                                   eas[T + i - 1].cpu(), R=R) is not None,
+                f"observe_frame {i} applied")
+      require(abs(bank.t - (t_base + 8 * MSCKF_DT)) < 1e-9,
+              "bank time after observe_frame")
+      require(bank.observe_frame(t_base - 5.0, zs[T].cpu(), eas[T].cpu(),
+                                 R=R) is None, "a too-old frame is dropped")
+      # two position fixes (kernel 4): the truth moves on by f
+      truth = truths[-1]
+      for k in (1, 2):
+        truth = torch.func.vmap(lambda xx: spec.f({}, xx, MSCKF_DT))(truth)
+        z = truth[:, 0:3] + torch.randn((MSCKF_B, 3), generator=gen,
+                                        dtype=torch.float64, device=dev)
+        require(bank.observe(bank.t + MSCKF_DT, MSCKF_POS, z.cpu())
+                is not None, f"position fix {k} applied")
+      torch.cuda.synchronize()
+      ms_obs = (time.perf_counter() - t0) * 1e3
+      lost, reset = healthy(f"{model.name} bank after observe", bank, truth)
+      msg += (f"; then 8 observe_frame (one late) and 2 observe "
+              f"{ms_obs:.3f} ms (host clock); lanes lost {lost:.6f}, "
+              f"{reset} diverged and reset")
+    log(msg)
+
+
+def compare_msckf(torch, dev, gen, reps=10):
+  """Phase 2, MSCKF bank: kernel 7 against its plain version at
+  B = MSCKF_B, T = MSCKF_CMP_T on consistent data from a fresh bank, for
+  both models: float32 within GEN_TOL sigma, the double build within
+  MSCKF64_TOL sigma of the float64 plain version, and planted faults (a
+  clone-block Q term, the isotropic R's diagonal, one landmark coordinate,
+  one dts entry; run-time values, no extra build) beyond MSCKF64_TOL."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  rows, checks = [], []
+  T = MSCKF_CMP_T
+  for model in msckf_models():
+    spec, _, Q, R = msckf_setup(model)
+    xs = msckf_bank_x0(model, SEED + 3)
+    zs, eas, _ = msckf_frames(torch, dev, gen, model, xs, T, R)
+    call = msckf_call(model)
+    ops = step_ops(call.source(), (MSCKF_KIND,)) * T * MSCKF_B
+    shape = f"{model.name} B={MSCKF_B} T={T} gate on"
+
+    def inputs(dtype, zs=zs, eas=eas, dts=np.full(T, MSCKF_DT)):
+      d = dict(dtype=dtype, device=dev)
+      return (torch.as_tensor(xs.T, **d).contiguous(),
+              (MSCKF_P0 * torch.eye(spec.dim_err, **d))[:, :, None].repeat(
+                  1, 1, MSCKF_B),
+              zs.transpose(1, 2).to(**d).contiguous(),
+              eas.transpose(1, 2).to(**d).contiguous(),
+              torch.as_tensor(dts, **d))
+
+    kw = dict(spec=spec, kind=MSCKF_KIND, Q=Q, R=R, structure=call.structure)
+    row, _, _ = kernel_vs_plain(
+        "vo_bank_scan", "rednose_tpu_torch/csrc/generic_scan.cuh",
+        "rednose_tpu/ops/pallas_bank.py:755", spec, gs.vo_bank_scan,
+        gs.vo_bank_scan_reference, inputs(torch.float32), kw, shape, ops,
+        checks=checks, reps=reps)
+    rows.append(row)
+    args64 = inputs(torch.float64)
+    _, _, ref64 = kernel_vs_plain(
+        "vo_bank_scan", "", "", spec, gs.vo_bank_scan,
+        gs.vo_bank_scan_reference, args64, kw, shape + ", float64", ops,
+        MSCKF64_TOL, checks=checks, reps=reps)
+    builds = _build.generated_launcher.cache_info().currsize
+    Qf = np.array(Q, dtype=np.float64)
+    Qf[-1, -1] += 1e-4
+    eas_f = eas.clone()
+    eas_f[T // 2, :, 2] += 0.01
+    dts_f = np.full(T, MSCKF_DT)
+    dts_f[T // 3] *= 1.01
+    faults = {
+        "clone-block Q term": (msckf_call(model, Q=Qf), args64),
+        "R diagonal x 1.01": (msckf_call(model, R=1.01 * R), args64),
+        "landmark depth + 1 cm": (call, inputs(torch.float64, eas=eas_f)),
+        "dts entry x 1.01": (call, inputs(torch.float64, dts=dts_f)),
+    }
+    miss = {name: float(lane_errs(gs.vo_bank_scan(*args, call=c), ref64,
+                                  spec).max())
+            for name, (c, args) in faults.items()}
+    least = min(miss, key=miss.get)
+    ok = (miss[least] > MSCKF64_TOL
+          and _build.generated_launcher.cache_info().currsize == builds)
+    log(f"vo_bank_scan planted faults [{model.name}, float64]: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in miss.items())
+        + f" sigma; the least visible must exceed {MSCKF64_TOL}, with no "
+        f"extra build -> {'ok' if ok else 'FAIL'}")
+    checks.append((f"{model.name} planted faults beyond the limit", ok))
+  bad = [name for name, ok in checks if not ok]
+  require(not bad, f"kernel 7 agrees with its plain version: {bad}")
+  return rows
+
+
 def main():
   import torch
 
@@ -774,10 +1214,14 @@ def main():
   t0 = time.perf_counter()
   with ThreadPoolExecutor(1) as pool:
     static = pool.submit(_build.build)
-    sources = generic_sources(generic_models()[3])
-    # the comparison phase's own variant: kernel 5 on loc in double
+    live_spec = generic_models()[3]
+    sources = generic_sources(live_spec) | msckf_sources()
+    # the comparison phase's own variants: kernels 5 and 7 in double
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
-              loc_epoch_call().source(torch.float64)}
+                   loc_epoch_call().source(torch.float64)}
+    for model in msckf_models():
+      cmp_sources[f"{model.name} run_frames, float64 (kernel 7)"] = \
+          msckf_call(model).source(torch.float64)
     t_emit = time.perf_counter() - t0
     _build.build_generated_many([*sources.values(), *cmp_sources.values()])
     lib = static.result()
@@ -788,40 +1232,56 @@ def main():
     if "registers" in line or "spill" in line or "Compiling" in line:
       log(f"  ptxas: {line.strip()}")
   for name, src in (sources | cmp_sources).items():
+    log(f"  emitted, {name}: {len(src.splitlines())} lines")
     for line in _build.generated_ptxas(src).splitlines():
       if "registers" in line or "spill" in line or "nvcc" in line:
         log(f"  ptxas, {name}: {line.strip()}")
 
   dev = torch.device("cuda", 0)
-  gen = torch.Generator(device=dev)
-  gen.manual_seed(SEED)
-  wrappers = (kinematic_scan.kinematic_bank_scan, live_scan.live_bank_scan,
-              live_scan.live_bank_scan_mixed, generic_scan.generic_bank_scan,
-              generic_scan.generic_bank_scan_epoch,
-              generic_scan.generic_bank_scan_mixed)
-  for w in wrappers:
-    w.launches = 0
-  # the generic phases draw from a generator of their own, so the kinematic
-  # and live phases see the same data whether or not the generic ones run
-  gen2 = torch.Generator(device=dev)
-  gen2.manual_seed(SEED + 1)
-  live_states = main_path(torch, dev, gen)
-  generic_states = generic_main_path(torch, dev, gen2)
-  launches = {w.__name__: w.launches for w in wrappers}
-  log(f"main-path launches: {launches}")
-  require(all(n > 0 for n in launches.values()),
-          f"every kernel launched on the main path: {launches}")
+  gens = []
+  for i in range(3):
+    # each path draws from a generator of its own, so a path sees the same
+    # data whether or not the others run
+    gens.append(torch.Generator(device=dev))
+    gens[-1].manual_seed(SEED + i)
+  k, g = kinematic_scan, generic_scan
+  paths = (
+      ("kinematic and live", lambda: main_path(torch, dev, gens[0]),
+       (k.kinematic_bank_scan, live_scan.live_bank_scan,
+        live_scan.live_bank_scan_mixed)),
+      ("generic bank", lambda: generic_main_path(torch, dev, gens[1]),
+       (g.generic_bank_scan, g.generic_bank_scan_epoch,
+        g.generic_bank_scan_mixed)),
+      ("MSCKF bank", lambda: msckf_main_path(torch, dev, gens[2]),
+       (g.vo_bank_scan, g.generic_bank_scan)),
+  )
+  wrappers = {w for _, _, ws in paths for w in ws}
+  launches, states = {w.__name__: 0 for w in wrappers}, []
+  for name, drive, expected in paths:
+    for w in wrappers:
+      w.launches = 0
+    states.append(drive())
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"{name} path launches: {counts}")
+    require(all(counts[w.__name__] > 0 for w in expected),
+            f"every kernel of the {name} path launched: {counts}")
+    for w in wrappers:
+      launches[w.__name__] += counts[w.__name__]
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
-          "the main path loaded exactly the prebuilt generic variants")
+          "the main paths loaded exactly the prebuilt generic variants")
 
-  rows = compare_kernels(torch, dev, gen, live_states)
-  rows += compare_generic(torch, dev, gen2, generic_states,
+  live_states, generic_states, _ = states
+  rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
+  rows += compare_generic(torch, dev, gens[1], generic_states,
                           live_states["live_bank_scan"][2])
+  rows += compare_msckf(torch, dev, gens[2])
+  # no one PyTorch call computes a fused T-step filter scan: library_ms null
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}
       | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"]} for r in rows]}))
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None} for r in rows]}))
   print(card_line())
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

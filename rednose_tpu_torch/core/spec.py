@@ -38,8 +38,8 @@ class ObservationModel:
   kind: int
   h: Callable  # h(params, x, ea) -> (dz,)
   dz: int
-  # >0 marks an MSCKF feature-track kind (its update waits for the MSCKF
-  # slice of the port; the field is kept so specs carry over unchanged)
+  # >0 marks an MSCKF feature-track kind whose update projects the
+  # feature-position error out (He = dh/dea, ekf_sym.py:86-87)
   ea_dim: int = 0
   # length of the extra-args vector h() expects (None -> ea_dim)
   ea_len: int | None = None
@@ -99,6 +99,12 @@ class FilterSpec:
 
   # default runtime-tunable params (the reference's global_vars)
   default_params: Any = dataclasses.field(default_factory=dict)
+
+  # named auxiliary functions shipped with the filter (gen_code's
+  # extra_routines, ekf_sym.py:109-113; EKFSym::get_extra_routine,
+  # ekf_sym.cc:221-223)
+  extra_routines: Mapping[str, Callable] = dataclasses.field(
+      default_factory=dict)
 
   def __post_init__(self):
     if self.dim_main is None:

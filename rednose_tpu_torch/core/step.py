@@ -5,10 +5,13 @@ reference's generated C (rednose/templates/ekf_c.c:8-33) and `update`
 follows ekf_c.c:38-121: innovation, ESKF H·H_mod, Mahalanobis gate by zero
 gain, closed-form small solve, Joseph-form covariance, error injection.
 
+An MSCKF feature kind projects its update onto the left null space of
+He = dh/dea (complete QR, ekf_c.c:66-77), and `augment` clones the pose
+into the sliding window (ekf_sym.py:365-391).
+
 Every function takes one filter (x (dim_x,), P (dim_err, dim_err)) and
 returns new tensors, so runtime/bank.py vmaps them over a bank axis
-unchanged. The MSCKF pieces (feature-kind nullspace projection and
-`augment`) wait for the MSCKF slice of the port.
+unchanged.
 """
 
 from __future__ import annotations
@@ -81,13 +84,19 @@ def update(spec: FilterSpec, kind: int, params, x, P, z, R, ea,
            normalize: bool = True):
   """One measurement update; returns (x, P, y) (ekf_c.c:38-121)."""
   om = spec.obs[kind]
-  if om.is_feature:
-    raise NotImplementedError(
-        "MSCKF feature-kind updates come with the port's MSCKF slice "
-        "(ROADMAP Queue 1 item 14)")
   h = om.h(params, x, ea)
   H = spec.H(kind, params, x, ea)
   y = z - h
+  if om.is_feature:
+    # MSCKF: project the feature-position error out (ekf_c.c:66-77) on an
+    # orthonormal basis A of the left null space of He; any basis gives
+    # the same update, so a complete QR replaces the reference's LU
+    He = spec.He(kind, params, x, ea)                   # (dz, ea_dim)
+    q_full, _ = torch.linalg.qr(He, mode="complete")
+    A = q_full[:, om.ea_dim:]                           # (dz, dz - ea_dim)
+    y = A.T @ y
+    H = A.T @ H
+    R = A.T @ R @ A
   if spec.is_eskf:
     H = H @ spec.H_mod_at(params, x)  # ekf_c.c:83-85
 
@@ -148,3 +157,21 @@ def maha_test(spec: FilterSpec, kind: int, params, x, P, z, R, ea,
   S = H @ P @ H.T + R
   maha_dist = y @ _solve(S, y)
   return maha_dist <= chi2_ppf(maha_thresh, om.dz)
+
+
+def augment(spec: FilterSpec, x, P):
+  """MSCKF augmentation: clone the current pose into the newest window
+  slot and drop the oldest (ekf_sym.py:365-391)."""
+  if not spec.is_msckf:
+    raise ValueError(f"spec {spec.name!r} has no clone window")
+  d1, d2 = spec.dim_main, spec.dim_main_err
+  d3, d4 = spec.dim_augment, spec.dim_augment_err
+  de = spec.dim_err
+  x_new = torch.cat([x[:d1], x[d1 + d3:], x[:d3]])
+  keep = torch.cat([torch.arange(d2), torch.arange(d2 + d4, de)]).to(
+      P.device)
+  P_reduced = P[keep][:, keep]
+  eye = torch.eye(de - d4, dtype=P.dtype, device=P.device)
+  # to_mult (ekf_sym.py:381-388): identity, then the first d4 rows again
+  to_mult = torch.cat([eye, eye[:d4]])
+  return x_new, _symmetrize(to_mult @ P_reduced @ to_mult.T)

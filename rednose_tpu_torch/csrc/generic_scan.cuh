@@ -1,4 +1,4 @@
-// Kernels 4, 5 and 6: fused T-step scans of a bank of ANY filter spec,
+// Kernels 4, 5, 6 and 7: fused T-step scans of a bank of ANY filter spec,
 // around a step body emitted per spec by rednose_tpu_torch/ops/entry_slab.py.
 //
 // Kernel 4 (emitted mode "single") replaces the Pallas TPU kernel
@@ -8,7 +8,12 @@
 // K slot updates, inline). Kernel 6 (mode "mixed") replaces
 // pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without its MSCKF
 // camera-frame branch: T x (predict + the update of the streamed kind, a
-// switch that is uniform across the bank, so no warp diverges).
+// switch that is uniform across the bank, so no warp diverges). Kernel 7
+// (mode "frame") replaces pallas_bank.py:_vo_kernel (vo_bank_scan, flat
+// form): T MSCKF camera frames, each a block predict, the feature kind's
+// update projected onto the left null space of He (Householder
+// reflectors, a dz' = 5 Cholesky, the gate) and a factored Joseph store
+// with the window augment folded in; eas carries the landmark positions.
 // Wrappers and plain versions: rednose_tpu_torch/ops/generic_scan.py and
 // rednose_tpu_torch/ops/lane_bank.py.
 //
@@ -37,9 +42,11 @@
 // row are read once per step. The emitted body is straight-line scalar
 // code; what does not fit in registers, nvcc spills to local memory (the
 // ptxas report kept beside each build says how much). Bound: the L2
-// traffic of P (at B = 8192 a 22 x 22 bank is 15.9 MB, resident in the
-// 50 MB L2) and local-memory traffic of the spills. Making it fast is
-// later work.
+// traffic of P (at B = 8192 a 22 x 22 bank is 15.9 MB, at B = 4096 a
+// 36 x 36 MSCKF bank 21.2 MB, resident in the 50 MB L2) and local-memory
+// traffic of the spills; kernel 7's augmented store reads nearly every
+// old P entry before it writes another, so its body holds most of P in
+// registers or local memory. Making it fast is later work.
 //
 // Numerics: IEEE, no fast-math, in float or double as the bank's dtype
 // says (the wrappers pick the variant). P stays bitwise symmetric: each symmetric
@@ -54,13 +61,19 @@
 #include <math.h>
 #include <stddef.h>
 
+// GEN_PHASE marks the phase functions of a camera-frame variant (the
+// predict and the frame unit): on the card each is a call of its own, so
+// ptxas allocates registers per phase (the msckf_eskf frame body then
+// builds in ~2/3 of the inlined time and runs no slower).
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define GEN_HD __host__ __device__
 #define GEN_INLINE __forceinline__
+#define GEN_PHASE __noinline__
 #else
 #define GEN_HD
 #define GEN_INLINE inline
+#define GEN_PHASE inline
 #endif
 
 #ifndef REDNOSE_SCALAR

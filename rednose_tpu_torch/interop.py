@@ -58,6 +58,25 @@ def stream_to_jax(t):
   return a.reshape(a.shape[:-1] + (SUBLANES, a.shape[-1] // SUBLANES))
 
 
+def lane_bank_from_jax(x, P, dtype=torch.float32, device="cpu"):
+  """A JAX lane bank (the lane paths of MSCKFBank / KalmanBank: x
+  (B, dim_x), P (de, de, B)) -> the port's x (dim_x, B), P (de, de, B)."""
+  return (_tensor(np.asarray(x).T, dtype, device),
+          _tensor(P, dtype, device))
+
+
+def model_constants_from_jax(model, dtype=torch.float32, device="cpu"):
+  """A JAX model class's constants (initial_x, initial_P_diag, Q,
+  obs_noise by kind) as tensors, so a test feeds both packages the same
+  model values."""
+  return dict(
+      initial_x=_tensor(model.initial_x, dtype, device),
+      initial_P_diag=_tensor(model.initial_P_diag, dtype, device),
+      Q=_tensor(model.Q, dtype, device),
+      obs_noise={int(k): _tensor(v, dtype, device)
+                 for k, v in model.obs_noise.items()})
+
+
 # the live kernels' banks fold the same way
 live_state_from_jax = bank_from_jax
 live_state_to_jax = bank_to_jax

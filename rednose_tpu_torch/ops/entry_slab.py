@@ -14,7 +14,8 @@ and the `__global__` kernel (ops/generic_scan.py builds and launches it).
 Predict (entry_predict_slab): x_new = f(x, dt) and the Jacobian taps of
 G = F - I over structure.g_cols through one shared DAG; compact
 M = G P rows, N = M G^T, V = M + N / 2, P' = P + (V + V^T) (symmetric by
-construction), then P' += dt Q on Q's structural nonzero pattern.
+construction), then P' += dt Q on Q's structural nonzero pattern. For an
+MSCKF spec G stays in the main block: the block predict of ekf_c.c:17-29.
 
 Update (entry_update_slab): the composed-H taps of h(err(x, v), ea) over
 structure.cols_for(kind); HP rows; S = HP H^T + R as an upper triangle
@@ -25,11 +26,16 @@ err and quaternion renormalization. An all-zero H row is a zero row here
 (the JAX emitter raises a TypeError on it), and R's upper triangle is read
 (the wrappers refuse an asymmetric R).
 
+Camera frame (frame_phase, kernel 7): the MSCKF feature kind's update
+projected onto the left null space of He, with the window augment folded
+into its covariance store.
+
 Run-time inputs of the emitted functions, all leaves of the DAG: x (in
 registers), P (global memory, bank-minor: element (i, j) of this filter at
 P[(i * DE + j) * ld]), dt, the params vector p, Q, z, ea and R. So the
 source depends only on the spec, the kinds, the structure, the param
-names, the streamed keys, the gate flags and Q's pattern, never on values.
+names, the streamed keys, the gate flags, Q's pattern and a camera frame's
+R pattern ("iso" or R's nonzero entries), never on values.
 
 P is read at the upper-triangle location of each symmetric pair (the
 kernels keep P bitwise symmetric). A phase writes P in place: before the
@@ -151,9 +157,14 @@ def _scalar(e):
 
 
 def predict_phase(spec: FilterSpec, structure, pnames, q_pattern) -> Phase:
-  """entry_predict_slab as a DAG (see the module docstring)."""
-  if spec.dim_main_err != spec.dim_err:
-    raise NotImplementedError("MSCKF block specs come with the MSCKF slice")
+  """entry_predict_slab as a DAG (see the module docstring). For an MSCKF
+  spec G is confined to the main block [0, dim_main_err): rows outside it
+  get no M row, so V + V^T updates the main block fully, the coupling
+  one-sided, and leaves the clone block as it is (ekf_c.c:17-29)."""
+  m = spec.dim_main_err
+  if any(k >= m for k in structure.g_cols):
+    raise ValueError(f"structure g_cols {structure.g_cols} leave the main "
+                     f"block [0, {m}) of spec {spec.name!r}")
   ph = Phase()
   d = ph.dag
   de, dx = spec.dim_err, spec.dim_x
@@ -196,7 +207,7 @@ def predict_phase(spec: FilterSpec, structure, pnames, q_pattern) -> Phase:
   P_rows = {k: [ph.P(k, j) for j in range(de)] for k in g_cols}
   m_rows = [_tree_sum(d, [_ent_mul(d, G[k][i], P_rows[k]) for k in g_cols],
                       add=lambda a, b: _row_add(d, a, b))
-            for i in range(de)]
+            for i in range(m)] + [None] * (de - m)
   nz = [i for i in range(de) if m_rows[i] is not None]
   V = [None] * de
   if nz:
@@ -229,8 +240,8 @@ def update_phase(spec: FilterSpec, kind: int, structure, pnames,
   """entry_update_slab as a DAG (see the module docstring)."""
   om = spec.obs[kind]
   if om.is_feature:
-    raise NotImplementedError(
-        "MSCKF feature kinds come with the port's MSCKF slice")
+    raise ValueError(f"kind {kind} is an MSCKF feature kind: its update is "
+                     "the frame unit (frame_phase)")
   ph = Phase()
   d = ph.dag
   dz, de, dx = om.dz, spec.dim_err, spec.dim_x
@@ -313,6 +324,207 @@ def _lsum_rows(d, rows):
   for r in rows:
     acc = r if acc is None else _row_add(d, acc, r)
   return acc
+
+
+# ------------------------------------------------------ MSCKF camera frame
+
+def _householder(d, he_cols, dz):
+  """Householder reflectors of the thin QR of He, given as its columns
+  (lists of dz entries): [(j, v entries, beta)], lane_bank._householder_qt
+  on entries. sign = where(c0 >= 0, 1, -1); beta = where(vtv > 0, 2 / vtv,
+  0), so a structurally rank-deficient column reflects by the identity."""
+  cols = [list(c) for c in he_cols]
+  refl = []
+  for j in range(len(cols)):
+    c = cols[j][j:]
+    sigma = _lsum(d, [d.mul(ci, ci) for ci in c])
+    norm = d.unary("sqrt", sigma)
+    sign = d.where(d.binop("ge", c[0], 0.0), 1.0, -1.0)
+    v0 = d.sub(c[0], d.neg(d.mul(sign, norm)))
+    v = [v0] + c[1:]
+    vtv = d.add(d.sub(sigma, d.mul(c[0], c[0])), d.mul(v0, v0))
+    beta = d.where(d.binop("gt", vtv, 0.0), d.div(2.0, vtv), None)
+    refl.append((j, v, beta))
+    for k in range(j + 1, len(cols)):
+      ck = cols[k]
+      w = _lsum(d, [d.mul(v[i], ck[j + i]) for i in range(dz - j)])
+      bw = d.mul(beta, w)
+      cols[k] = ck[:j] + [d.sub(ck[j + i], d.mul(bw, v[i]))
+                          for i in range(dz - j)]
+  return refl
+
+
+def _apply_qt(d, refl, M):
+  """Q^T M for M a list of dz rows (lists of n entries), by the
+  reflectors (lane_bank._apply_qt on entries)."""
+  M = [list(r) for r in M]
+  n = len(M[0])
+  for j, v, beta in refl:
+    for c in range(n):
+      w = _lsum(d, [d.mul(v[i], M[j + i][c]) for i in range(len(v))])
+      bw = d.mul(beta, w)
+      for i in range(len(v)):
+        M[j + i][c] = d.sub(M[j + i][c], d.mul(bw, v[i]))
+  return M
+
+
+def _cholesky(d, S, n):
+  """lane_bank.cholesky_lane on entries: column j of the lower factor from
+  the diagonal down. S(i, j) reads the symmetric S."""
+  cols = []
+  for j in range(n):
+    s = [S(i, j) for i in range(j, n)]
+    for k in range(j):
+      s = [d.sub(s[t], d.mul(cols[k][j - k + t], cols[k][j - k]))
+           for t in range(len(s))]
+    diag = d.unary("sqrt", s[0])
+    cols.append([diag] + [d.div(e, diag) for e in s[1:]])
+  return cols
+
+
+def _cho_solve(d, cols, rows):
+  """lane_bank.cho_solve_lane on entries: rows is the right-hand side as
+  n rows of entries."""
+  n, m = len(cols), len(rows[0])
+  Y = [None] * n
+  for i in range(n):
+    s = list(rows[i])
+    for k in range(i):
+      s = [d.sub(s[c], d.mul(cols[k][i - k], Y[k][c])) for c in range(m)]
+    Y[i] = [d.div(e, cols[i][0]) for e in s]
+  X = [None] * n
+  for i in reversed(range(n)):
+    s = list(Y[i])
+    for k in range(i + 1, n):
+      s = [d.sub(s[c], d.mul(cols[i][k - i], X[k][c])) for c in range(m)]
+    X[i] = [d.div(e, cols[i][0]) for e in s]
+  return X
+
+
+def frame_phase(spec: FilterSpec, kind: int, structure, pnames, gate: bool,
+                r_pattern) -> Phase:
+  """The MSCKF camera frame after the predict, as a DAG: the projected
+  feature update of `kind` and the window augment (JAX entry_slab.py
+  entry_feature_innovation_slab, entry_feature_apply_slab with
+  augment=True and joseph_sym_augment).
+
+  Innovation: the composed-H taps of h(err(x, v), ea) over
+  structure.cols_for(kind) and the He taps (ea_dim columns of
+  h(x, ea + w)); the Householder reflectors of He as entries; the
+  projected yp, H and HP rows and the upper triangle of S = HP H^T + R'.
+  R' = Q^T R Q: r_pattern "iso" adds R[0] on the diagonal (exact for
+  R = s^2 I), else the general product over R's nonzero (i, j), i <= j.
+  Apply: the Cholesky of S (dz' = dz - ea_dim) and K^T = S^-1 HP; the gate
+  (S^-1 yp) . yp > maha_thresh gives zero gain; dx; the factored Joseph
+  B = P + (W + W^T), W = K (S K^T / 2 - HP), stored with the window roll:
+  the new P is B with the oldest clone's rows and columns dropped and the
+  pose's duplicated into the newest slot, so almost every location reads
+  another's old value (print_phase loads each before its store); then
+  err(x, dx), quaternion renormalization and the roll of x."""
+  om = spec.obs[kind]
+  if not om.is_feature:
+    raise ValueError(f"kind {kind} is not an MSCKF feature kind")
+  ph = Phase()
+  d = ph.dag
+  dz, me, de, dx = om.dz, om.ea_dim, spec.dim_err, spec.dim_x
+  dzp = dz - me
+  x = ph.inputs("x", (dx,))
+  ea = ph.inputs("ea", (om.ea_len,))
+  prm = _param_inputs(ph, pnames)
+  cols = structure.cols_for(kind)
+  shapes = [(dx,), (om.ea_len,)] + [()] * len(pnames)
+
+  def fh(xx, ee, *rest):
+    params = dict(zip(pnames, rest[:-1]))
+    return om.h(params, spec.err(params, xx, rest[-1]), ee)
+
+  def fe(xx, ee, *rest):
+    return om.h(dict(zip(pnames, rest[:-1])), xx, ee + rest[-1])
+
+  h, taps = structural.run_entry_taps(d, fh, shapes, [x, ea] + prm, de, cols)
+  _, etaps = structural.run_entry_taps(d, fe, shapes, [x, ea] + prm,
+                                       om.ea_len, tuple(range(me)))
+  z = ph.inputs("z", (dz,))
+  y = [d.sub(z[r], h[r]) for r in range(dz)]
+
+  refl = _householder(d, [list(etaps[c]) for c in range(me)], dz)
+  yp = [r[0] for r in _apply_qt(d, refl, [[e] for e in y])[me:]]
+  Hp = _apply_qt(d, refl, [[taps[c][r] for c in cols]
+                           for r in range(dz)])[me:]        # dz' x nc
+
+  P_rows = {c: [ph.P(c, j) for j in range(de)] for c in cols}
+  HP = [_tree_sum(d, [_ent_mul(d, Hp[r][j], P_rows[c])
+                      for j, c in enumerate(cols)],
+                  add=lambda a, b: _row_add(d, a, b))
+        for r in range(dzp)]
+  s = [[None] * dzp for _ in range(dzp)]
+  if r_pattern != "iso":
+    rset = set(r_pattern)
+    Rm = [[d.load("R", (i, j)) if (min(i, j), max(i, j)) in rset else None
+           for j in range(dz)] for i in range(dz)]
+    T1 = _apply_qt(d, refl, Rm)
+    Rp = _apply_qt(d, refl, [list(r) for r in zip(*T1)])
+  for r in range(dzp):
+    for q in range(r, dzp):
+      acc = _tree_sum(d, [d.mul(HP[r][c], Hp[q][j])
+                          for j, c in enumerate(cols)])
+      if r_pattern == "iso":
+        if r == q:
+          acc = d.add(acc, d.load("R", (0, 0)))
+      else:
+        acc = d.add(acc, d.mul(0.5, d.add(Rp[me + r][me + q],
+                                          Rp[me + q][me + r])))
+      s[r][q] = acc
+
+  def S(i, j):
+    return s[min(i, j)][max(i, j)]
+
+  L = _cholesky(d, S, dzp)
+  kt = _cho_solve(d, L, HP)                                  # K^T rows
+  if gate:
+    sy = _cho_solve(d, L, [[e] for e in yp])
+    dist = _lsum(d, [d.mul(yp[i], sy[i][0]) for i in range(dzp)])
+    rej = d.binop("gt", dist, float(om.maha_thresh))
+    kt = [[d.where(rej, None, e) for e in row] for row in kt]
+  dxe = [_lsum(d, [d.mul(kt[i][c], yp[i]) for i in range(dzp)])
+         for c in range(de)]
+  t_rows = [[d.sub(d.mul(0.5, _lsum(d, [d.mul(S(i, j), kt[j][c])
+                                         for j in range(dzp)])), HP[i][c])
+             for c in range(de)] for i in range(dzp)]
+
+  def w(a, b):
+    return _lsum(d, [d.mul(kt[i][a], t_rows[i][b]) for i in range(dzp)])
+
+  d1, d2 = spec.dim_main, spec.dim_main_err
+  d3, d4 = spec.dim_augment, spec.dim_augment_err
+
+  def old(i):
+    """The updated P's row / column that the new row / column i is."""
+    if i < d2:
+      return i
+    return i + d4 if i < de - d4 else i - (de - d4)
+
+  updated = {}
+  for i in range(de):
+    for j in range(i, de):
+      a, b = sorted((old(i), old(j)))
+      if (a, b) not in updated:
+        updated[(a, b)] = d.add(ph.P(a, b), d.add(w(a, b), w(b, a)))
+      ph.p_out[(i, j)] = updated[(a, b)]
+
+  dx_arr = structural.obj_array((de,))
+  for c in range(de):
+    dx_arr[c] = dxe[c]
+
+  def fe_inj(xx, dd, *pv):
+    return spec.err(dict(zip(pnames, pv)), xx, dd)
+
+  x_new = structural.run_primal(d, fe_inj,
+                                [(dx,), (de,)] + [()] * len(pnames),
+                                [x, dx_arr] + prm)
+  x_new = _normalize(d, list(x_new), spec.quaternion_idxs)
+  ph.x_out = x_new[:d1] + x_new[d1 + d3:] + x_new[:d3]
+  return ph
 
 
 # --------------------------------------------------------------- C printing
@@ -454,25 +666,32 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
 
 # ----------------------------------------------------------- variant source
 
-MODES = ("single", "mixed", "epoch")
+MODES = ("single", "mixed", "epoch", "frame")
 
 
-def _unit_name(kind, gate):
-  return f"gen_update_k{kind}{'_g' if gate else ''}"
+def _unit_name(kind, gate, frame=False):
+  return f"gen_{'frame' if frame else 'update'}_k{kind}{'_g' if gate else ''}"
 
 
 def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
-                ps_keys=(), q_pattern=(), scalar="float") -> str:
+                ps_keys=(), q_pattern=(), scalar="float",
+                r_pattern=None) -> str:
   """C++ source of one kernel variant.
 
   mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over the
-  units by the streamed kind index) or 'epoch' (kernel 5: every unit in
-  order, one slot each). units: tuple of (kind, gate) pairs. pnames: the
-  names of the params vector, in order; ps_keys: the streamed ones.
-  q_pattern: the (i, j), i <= j, entries of Q that are nonzero. scalar:
-  the C type of every value, 'float' or 'double'."""
+  units by the streamed kind index), 'epoch' (kernel 5: every unit in
+  order, one slot each) or 'frame' (kernel 7: the MSCKF camera frame of
+  one feature kind, frame_phase). units: tuple of (kind, gate) pairs.
+  pnames: the names of the params vector, in order; ps_keys: the streamed
+  ones. q_pattern: the (i, j), i <= j, entries of Q that are nonzero.
+  scalar: the C type of every value, 'float' or 'double'. r_pattern (mode
+  'frame' only): "iso" for R = s^2 I, else R's nonzero (i, j), i <= j."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
+  if (mode == "frame") != (r_pattern is not None):
+    raise ValueError("pass r_pattern for mode 'frame' and only for it")
+  if mode == "frame" and len(units) != 1:
+    raise ValueError(f"mode 'frame' takes one unit, got {units}")
   if scalar not in ("float", "double"):
     raise ValueError(f"scalar {scalar!r} is not 'float' or 'double'")
   kinds = [k for k, _ in units]
@@ -485,11 +704,16 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     r_off.append(off)
     off += spec.obs[k].dz ** 2
   ps_idx = [list(pnames).index(k) for k in ps_keys]
+  # a camera frame's phases are calls of their own on the card (GEN_PHASE,
+  # csrc/generic_scan.cuh): its inlined msckf_eskf body took ~70 s of nvcc
+  inline = "GEN_PHASE" if mode == "frame" else "GEN_INLINE"
 
   out = [
       "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
       f"// spec {spec.name!r}, mode {mode}, units (kind, gate) {list(units)},",
-      f"// params {list(pnames)}, streamed {list(ps_keys)}.",
+      f"// params {list(pnames)}, streamed {list(ps_keys)}"
+      + (f", R {r_pattern if r_pattern == 'iso' else list(r_pattern)}."
+         if mode == "frame" else "."),
       f"#define REDNOSE_SCALAR {scalar}",
       '#include "generic_scan.cuh"',
       "",
@@ -510,7 +734,7 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       "",
       "#define GEN_P(i, j) P[(size_t)((i) * DE + (j)) * ld]",
       "",
-      "GEN_HD GEN_INLINE void gen_predict(scalar_t* x, scalar_t* P, "
+      f"GEN_HD {inline} void gen_predict(scalar_t* x, scalar_t* P, "
       "size_t ld, const scalar_t dt, const scalar_t* p, const scalar_t* Q) {",
       "  (void)p; (void)Q;",
   ]
@@ -522,14 +746,17 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       continue
     done.add((k, g))
     dz = spec.obs[k].dz
+    frame = mode == "frame"
     out += [
         "",
-        f"GEN_HD GEN_INLINE void {_unit_name(k, g)}(scalar_t* x, "
+        f"GEN_HD {inline} void {_unit_name(k, g, frame)}(scalar_t* x, "
         "scalar_t* P, size_t ld, const scalar_t* z, const scalar_t* ea, "
         "size_t ld_in, const scalar_t* R, const scalar_t* p) {",
-        "  (void)ea; (void)p;",
+        "  (void)ea; (void)p; (void)R;",
     ]
-    out += print_phase(update_phase(spec, k, structure, pnames, g), dz)
+    ph = (frame_phase(spec, k, structure, pnames, g, r_pattern) if frame
+          else update_phase(spec, k, structure, pnames, g))
+    out += print_phase(ph, dz)
     out.append("}")
   out += [
       "",
@@ -543,10 +770,10 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   def call(u, zrow, earow):
     k, g = units[u]
     ea_arg = f"ea + (size_t){earow} * ld" if max_ea else "nullptr"
-    return (f"{_unit_name(k, g)}(x, P, ld, z + (size_t){zrow} * ld, "
-            f"{ea_arg}, ld, R + {r_off[u]}, p);")
+    return (f"{_unit_name(k, g, mode == 'frame')}(x, P, ld, "
+            f"z + (size_t){zrow} * ld, {ea_arg}, ld, R + {r_off[u]}, p);")
 
-  if mode == "single":
+  if mode in ("single", "frame"):
     out.append("  " + call(0, 0, 0))
   elif mode == "mixed":
     out.append("  switch (ki) {")

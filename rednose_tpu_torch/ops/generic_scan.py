@@ -1,22 +1,26 @@
-"""Fused T-step scans of a bank of ANY filter spec (kernels 4, 5 and 6).
+"""Fused T-step scans of a bank of ANY filter spec (kernels 4, 5, 6, 7).
 
 `generic_bank_scan` replaces the Pallas TPU kernel
 rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan),
 `generic_bank_scan_epoch` replaces pallas_bank.py:_epoch_kernel
-(generic_bank_scan_epoch, flat form), and `generic_bank_scan_mixed`
-replaces pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without
-its MSCKF camera-frame branch. The CUDA source of each is emitted per spec
-variant by ops/entry_slab.py around csrc/generic_scan.cuh and built by
-nvcc at first use (rednose_tpu_torch/_build.py).
+(generic_bank_scan_epoch, flat form), `generic_bank_scan_mixed` replaces
+pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without its MSCKF
+camera-frame branch, and `vo_bank_scan` replaces pallas_bank.py:_vo_kernel
+(vo_bank_scan, flat form): T MSCKF camera frames, each a block predict,
+the feature kind's projected update and the window augment. The CUDA
+source of each is emitted per spec variant by ops/entry_slab.py around
+csrc/generic_scan.cuh and built by nvcc at first use
+(rednose_tpu_torch/_build.py).
 
 Layout, bank-minor (no TPU sublane fold): x (dim_x, B), P (de, de, B),
 zs (T, dz, B) — (T, max_dz, B) for a mixed schedule, (T, K, max_dz, B)
-for epochs — eas likewise with the extra-args widths, dts (T,), kind_idx
-(T,) int32, pss (T, len(ps_keys)). Q, R and the params are run-time
-values: the emitted code depends only on the spec, the kinds, the
-structure, the param names, the streamed keys, the gate flags, Q's
-nonzero pattern and the scalar type, so a new value never triggers a
-build.
+for epochs — eas likewise with the extra-args widths (a camera frame's
+landmark positions (T, ea_len, B)), dts (T,), kind_idx (T,) int32, pss
+(T, len(ps_keys)). Q, R and the params are run-time values: the emitted
+code depends only on the spec, the kinds, the structure, the param names,
+the streamed keys, the gate flags, Q's nonzero pattern, for a camera frame
+whether R is isotropic (else R's nonzero pattern), and the scalar type, so
+a new value of the same pattern never triggers a build.
 
 A `KernelCall` is one checked description of a call: the variant and its
 run-time values. The wrappers take one (call=), or make one from their
@@ -64,23 +68,34 @@ def _symmetric_R(spec, kind, R):
   return R
 
 
+def r_pattern_of(R) -> object:
+  """A camera frame's R variant key: "iso" for R = s^2 I, else the (i, j),
+  i <= j, nonzero entries of the symmetric R."""
+  R = np.asarray(R, dtype=np.float64)
+  if np.array_equal(R, R[0, 0] * np.eye(R.shape[0])):
+    return "iso"
+  return tuple((int(i), int(j)) for i, j in zip(*np.nonzero(np.triu(R))))
+
+
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
-            scalar):
+            r_pattern=None):
+  """The variant's source for float; the double one differs only in its
+  REDNOSE_SCALAR line, so each variant is emitted once."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
-      pnames, ps_keys, q_pattern, scalar)
+      pnames, ps_keys, q_pattern, "float", r_pattern)
 
 
 class KernelCall:
   """One generic call, checked once: the spec, the mode ('single' /
-  'mixed' / 'epoch'), the kind, kind set or slot kinds, the gate, the
-  structure (None: the dense body) and the streamed param keys, with Q,
-  one R per kind or slot and the params. Refuses an unknown or MSCKF
-  feature kind, an asymmetric Q or R and a wrong number of R. The
-  emitted source and the device copies of the values are made at first
-  use and kept."""
+  'mixed' / 'epoch' / 'frame'), the kind, kind set or slot kinds, the
+  gate, the structure (None: the dense body) and the streamed param keys,
+  with Q, one R per kind or slot and the params. Refuses an unknown kind,
+  an MSCKF feature kind outside mode 'frame' (and anything else in it), an
+  asymmetric Q or R and a wrong number of R. The emitted source and the
+  device copies of the values are made at first use and kept."""
 
   def __init__(self, spec: FilterSpec, mode: str, kinds, *, Q, R_list,
                params=None, gate: bool | None = None, structure=None,
@@ -90,25 +105,32 @@ class KernelCall:
     if mode not in entry_slab.MODES:
       raise ValueError(f"mode {mode!r} not in {entry_slab.MODES}")
     kinds = tuple(int(k) for k in kinds)
-    if mode == "single" and len(kinds) != 1:
-      raise ValueError(f"mode 'single' takes one kind, got {kinds}")
+    if mode in ("single", "frame") and len(kinds) != 1:
+      raise ValueError(f"mode {mode!r} takes one kind, got {kinds}")
     for k in kinds:
       if k not in spec.obs:
         raise ValueError(f"kind {k} not in spec {spec.name!r}")
-      if spec.obs[k].is_feature:
+      if spec.obs[k].is_feature and mode != "frame":
         raise ValueError(
-            f"kind {k} is an MSCKF feature kind: its camera-frame update "
-            "comes with the port's MSCKF slice")
+            f"kind {k} is an MSCKF feature kind: a camera frame runs in "
+            "mode 'frame' (vo_bank_scan); in a mixed schedule it comes with "
+            "the next slice (kernel 6's camera-frame branch)")
+      if mode == "frame" and not spec.obs[k].is_feature:
+        raise ValueError(f"mode 'frame' takes an MSCKF feature kind, not "
+                         f"kind {k}")
     if len(R_list) != len(kinds):
       raise ValueError(f"{len(R_list)} R for {len(kinds)} kinds / slots")
     self.spec, self.mode, self.kinds = spec, mode, kinds
     self.params = dict(spec.default_params if params is None else params)
-    self.gate = True if gate is None and mode != "single" else gate
+    self.gate = (True if gate is None and mode in ("mixed", "epoch")
+                 else gate)
     self.structure = structure
     self.ps_keys = tuple(ps_keys)
     self.Q = _host64(Q)
     self._q_pattern = entry_slab.q_pattern_of(self.Q)
     self.R_list = [_symmetric_R(spec, k, R) for k, R in zip(kinds, R_list)]
+    self._r_pattern = (r_pattern_of(self.R_list[0]) if mode == "frame"
+                       else None)
     self._pnames = tuple(sorted(set(self.params) | set(self.ps_keys)))
     self._values = {}
 
@@ -119,15 +141,17 @@ class KernelCall:
       raise ValueError(f"the generic kernels take float32 or float64, not "
                        f"{dtype}")
     spec, mode = self.spec, self.mode
-    if mode == "single":
+    if mode in ("single", "frame"):
       k = self.kinds[0]
       units = ((k, spec.obs[k].maha_test if self.gate is None
                 else bool(self.gate)),)
     else:
       units = tuple((k, bool(self.gate) and spec.obs[k].maha_test)
                     for k in self.kinds)
-    return _source(spec, mode, units, self.structure, self._pnames,
-                   self.ps_keys, self._q_pattern, _SCALARS[dtype])
+    src = _source(spec, mode, units, self.structure, self._pnames,
+                  self.ps_keys, self._q_pattern, self._r_pattern)
+    return src.replace("#define REDNOSE_SCALAR float",
+                       f"#define REDNOSE_SCALAR {_SCALARS[dtype]}", 1)
 
   def values(self, dtype, device):
     """The run-time inputs on the device: the params vector (in the
@@ -170,6 +194,10 @@ def _plain(call, x, P, zs, dts, eas, pss, kind_idx=None):
   if call.mode == "single":
     xo, Po = lane_bank.lane_bank_scan(spec, call.kinds[0], params, x.T, P, Q,
                                       dts, lane(zs), Rs[0], **kw)
+  elif call.mode == "frame":
+    xo, Po = lane_bank.lane_frame_bank_scan(
+        spec, call.kinds[0], params, x.T, P, Q, dts, lane(zs), lane(eas),
+        Rs[0], gate=call.gate)
   elif call.mode == "mixed":
     xo, Po = lane_bank.lane_mixed_bank_scan(
         spec, call.kinds, params, x.T, P, Q, dts, kind_idx, lane(zs), Rs,
@@ -321,3 +349,34 @@ def generic_bank_scan_epoch(x, P, zs, dts, *, spec: FilterSpec | None = None,
 
 
 generic_bank_scan_epoch.launches = 0
+
+
+def vo_bank_scan_reference(x, P, zs, eas, dts, *, spec: FilterSpec,
+                           kind: int, Q, R, params=None,
+                           gate: bool | None = None, structure=None):
+  """Plain torch version of kernel 7 (lane_bank.lane_frame_bank_scan) in
+  the wrapper's layout, on any device; `structure` is not used."""
+  return _plain(KernelCall(spec, "frame", (kind,), Q=Q, R_list=(R,),
+                           params=params, gate=gate, structure=structure),
+                x, P, zs, dts, eas, None)
+
+
+def vo_bank_scan(x, P, zs, eas, dts, *, spec: FilterSpec | None = None,
+                 kind: int | None = None, Q=None, R=None, params=None,
+                 gate: bool | None = None, structure=None,
+                 call: KernelCall | None = None):
+  """T MSCKF camera frames over a B-wide bank: each a block predict, the
+  projected update of feature kind `kind` and the window augment.
+
+  x (dim_x, B), P (de, de, B), zs (T, dz, B), eas (T, ea_len, B) landmark
+  positions, dts (T,), Q (de, de), R (dz, dz); gate None gates as the
+  kind's maha_test says, a bool forces it. Or call= a 'frame' KernelCall.
+  Returns the new (x, P)."""
+  call = _call_for(call, "frame", spec, (kind,), Q=Q, R_list=(R,),
+                   params=params, gate=gate, structure=structure)
+  if x.device.type == "cpu":
+    return _plain(call, x, P, zs, dts, eas, None)
+  return _launch(vo_bank_scan, call, x, P, zs, dts, eas, None)
+
+
+vo_bank_scan.launches = 0

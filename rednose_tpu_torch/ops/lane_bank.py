@@ -1,6 +1,6 @@
-"""Lane-major generic filter banks: the plain versions of kernels 4-6.
+"""Lane-major generic filter banks: the plain versions of kernels 4-7.
 
-Port of rednose_tpu/ops/lane_bank.py, non-MSCKF part. A bank of B filters
+Port of rednose_tpu/ops/lane_bank.py. A bank of B filters
 of ANY spec keeps its covariances as (d, d, B) with the bank axis last;
 each step vmaps the spec's own f / h / err over the bank and takes the
 Jacobians densely with torch.func.jacfwd. Semantics are core/step.py's:
@@ -10,12 +10,20 @@ covariance algebra is the one the kernels (and the JAX package's
 structured lane path) use: F = I + G with P' = P + (V + V^T), and the
 factored Joseph P' = P + (W + W^T), both exactly symmetric.
 
-`lane_bank_scan`, `lane_mixed_bank_scan` and `lane_epoch_bank_scan` are
-the plain torch versions of the generic CUDA kernels (ops/generic_scan.py):
-the wrappers run them for CPU tensors, and the tests and chip_smoke.py
-hold the kernels against them. Layout as in the JAX package: x (B, dim_x),
-P (de, de, B), zs (T, B, dz). The masked products, the Cholesky /
-Householder solves and augment_slab wait for the MSCKF slice.
+MSCKF specs (dim_main_err < dim_err) predict in the block form of
+ekf_c.c:17-29: G = F - I is confined to the main block, so V + V^T updates
+the main block fully, the coupling one-sided, and leaves the clone block
+as it is. A feature kind projects its update onto the left null space of
+He by Householder reflectors and solves the dz' = dz - ea_dim system by a
+lane Cholesky; `augment_slab` clones the pose into the window.
+
+`lane_bank_scan`, `lane_mixed_bank_scan`, `lane_epoch_bank_scan` and
+`lane_frame_bank_scan` are the plain torch versions of the generic CUDA
+kernels 4, 6, 5 and 7 (ops/generic_scan.py): the wrappers run them for CPU
+tensors, and the tests and chip_smoke.py hold the kernels against them.
+Layout as in the JAX package: x (B, dim_x), P (de, de, B), zs (T, B, dz).
+The blocked Cholesky of the JAX package serves only its smoother and
+comes with the port's smoother.
 
 Runtime params: a mapping of name -> float or 0-d tensor (the reference's
 global_vars, ekf_sym.py:129-132); with ps_keys / pss each step's params are
@@ -67,10 +75,84 @@ def _mm_t(A, B_):
   return torch.einsum('mkb,nkb->mnb', A, B_)
 
 
-def _no_msckf(spec):
-  if spec.dim_main_err != spec.dim_err:
-    raise NotImplementedError(
-        "MSCKF block specs come with the port's MSCKF slice")
+def cholesky_lane(A):
+  """Column-slab Cholesky of SPD (d, d, B) lane-major matrices: the list of
+  lower-factor columns cols[j] (d - j, B), from the diagonal down, that
+  cho_solve_lane takes (A = L L^T)."""
+  d = A.shape[0]
+  cols = []
+  for j in range(d):
+    s = A[j:, j]
+    for k in range(j):
+      s = s - cols[k][j - k:] * cols[k][j - k][None]
+    diag = torch.sqrt(s[0])
+    cols.append(torch.cat([diag[None], s[1:] / diag[None]]))
+  return cols
+
+
+def cho_solve_lane(cols, B_):
+  """Solve A X = B_ with A = L L^T from cholesky_lane; B_ (d, m, B)."""
+  d = len(cols)
+  Y = [None] * d
+  for i in range(d):
+    s = B_[i]
+    for k in range(i):
+      s = s - cols[k][i - k][None] * Y[k]
+    Y[i] = s / cols[i][0][None]
+  X = [None] * d
+  for i in reversed(range(d)):
+    s = Y[i]
+    for k in range(i + 1, d):
+      s = s - cols[i][k - i][None] * X[k]
+    X[i] = s / cols[i][0][None]
+  return torch.stack(X)
+
+
+def _householder_qt(He):
+  """Householder reflectors of the thin QR of He (dz, m, B): a list of
+  (j, v, beta, v elements) whose application in order left-multiplies by
+  Q^T (_apply_qt). A structurally rank-deficient column gets beta = 0 (the
+  identity) instead of the reference's nullspace-failure branch
+  (ekf_sym.py:588-591); the Mahalanobis gate backs it up."""
+  dz, m = He.shape[0], He.shape[1]
+  cols = [He[:, k] for k in range(m)]
+  refl = []
+  for j in range(m):
+    c = [cols[j][i] for i in range(j, dz)]
+    sigma = sum(ci * ci for ci in c)
+    norm = torch.sqrt(sigma)
+    sign = torch.where(c[0] >= 0, 1.0, -1.0).to(He.dtype)
+    v0 = c[0] + sign * norm
+    v = torch.stack([v0] + c[1:])
+    ve = [v0] + c[1:]
+    vtv = sigma - c[0] * c[0] + v0 * v0
+    beta = torch.where(vtv > 0, 2.0 / torch.where(vtv > 0, vtv, 1.0),
+                       0.0).to(He.dtype)
+    refl.append((j, v, beta, ve))
+    for k in range(j + 1, m):
+      ck = cols[k]
+      w = sum(ve[i] * ck[j + i] for i in range(dz - j))
+      tail = ck[j:] - (beta * w)[None] * v
+      cols[k] = torch.cat([ck[:j], tail]) if j else tail
+  return refl
+
+
+def _apply_qt(refl, M):
+  """Left-multiply M (dz, n, B) by Q^T through the reflectors."""
+  for j, v, beta, ve in refl:
+    sub = M[j:]
+    w = sum(ve[i][None] * sub[i] for i in range(sub.shape[0]))   # (n, B)
+    sub = sub - (beta[None] * w)[None] * v[:, None]
+    M = torch.cat([M[:j], sub]) if j else sub
+  return M
+
+
+def _solve_spd_lane(S, B_):
+  """S^-1 B_ for SPD lane-major S (d, d, B): the adjugate for d <= 3, the
+  column-slab Cholesky above it (a projected feature update has d = 5)."""
+  if S.shape[0] <= 3:
+    return _mm(_inv_small(S), B_)
+  return cho_solve_lane(cholesky_lane(S), B_)
 
 
 def _normalize(spec, x):
@@ -83,11 +165,14 @@ def lane_predict(spec: FilterSpec, params, x, P, Q, dt):
   """Bank predict: x (B, dim_x), P (de, de, B); x <- f(x, dt),
   P <- F P F^T + dt Q (ekf_c.c:8-33), assembled as the kernels do:
   F = I + G, M = G P, V = M + (M G^T) / 2, P' = P + (V + V^T) (exactly
-  symmetric; the JAX package's fpf_masked algebra, here dense)."""
-  _no_msckf(spec)
+  symmetric; the JAX package's fpf_masked algebra, here dense). For an
+  MSCKF spec G keeps only its main block (the clone states are static)."""
   x_new = vmap(lambda xx: spec.f(params, xx, dt))(x)
   F = vmap(lambda xx: spec.F(params, xx, dt), out_dims=2)(x)
-  G = F - torch.eye(spec.dim_err, dtype=F.dtype, device=F.device)[:, :, None]
+  m = spec.dim_main_err
+  G = torch.zeros_like(F)
+  G[:m, :m] = F[:m, :m] - torch.eye(m, dtype=F.dtype,
+                                    device=F.device)[:, :, None]
   M = _mm(G, P)
   V = M + 0.5 * _mm_t(M, G)
   P_new = P + (V + V.transpose(0, 1)) + (dt * Q)[:, :, None]
@@ -101,9 +186,6 @@ def lane_update(spec: FilterSpec, kind: int, params, x, P, z, R, ea=None,
   maha_test says (the reference); True / False force it on / off, as the
   generic kernels' flag does. Returns (x, P, y (B, dz))."""
   om = spec.obs[kind]
-  if om.is_feature:
-    raise NotImplementedError(
-        "MSCKF feature-kind updates come with the port's MSCKF slice")
   if (ea is None) != (om.ea_len == 0):
     raise ValueError(f"kind {kind} ea_len={om.ea_len}: pass ea (B, ea_len) "
                      "iff the kind takes extra args")
@@ -120,6 +202,8 @@ def lane_update(spec: FilterSpec, kind: int, params, x, P, z, R, ea=None,
     H = vmap(lambda xx, ee: spec.H(kind, params, xx, ee), out_dims=2)(x, ea)
   if spec.is_eskf:
     H = _mm(H, vmap(lambda xx: spec.H_mod_at(params, xx), out_dims=2)(x))
+  if om.is_feature:
+    return _feature_update(spec, om, params, x, P, z, R, ea, H, h, gate)
   y = z.T - h                                     # (dz, B)
   PHt = _mm_t(P, H)                               # (de, dz, B)
   S = _mm(H, PHt) + R
@@ -138,6 +222,62 @@ def lane_update(spec: FilterSpec, kind: int, params, x, P, z, R, ea=None,
   P_new = P + (W + W.transpose(0, 1))
   x_new = vmap(lambda xx, d: spec.err(params, xx, d))(x, dx.T)
   return _normalize(spec, x_new), P_new, y.T
+
+
+def _feature_update(spec, om, params, x, P, z, R, ea, H, h, gate):
+  """The MSCKF feature-kind update (lane_update's; JAX lane_bank.py:366-412):
+  per-lane He, the Householder projection onto null(He^T), then the
+  update at dz' = dz - ea_dim with the lane Cholesky. y is the projected
+  innovation (its basis differs from core/step's complete QR by a
+  rotation; x and P do not)."""
+  me, dzp, B = om.ea_dim, om.dz - om.ea_dim, x.shape[0]
+  He = vmap(lambda xx, ee: spec.He(om.kind, params, xx, ee),
+            out_dims=2)(x, ea)                           # (dz, ea_dim, B)
+  refl = _householder_qt(He)
+  y = _apply_qt(refl, (z.T - h)[:, None])[me:, 0]       # (dz', B)
+  H = _apply_qt(refl, H)[me:]                            # (dz', de, B)
+  T1 = _apply_qt(refl, R.expand(om.dz, om.dz, B))        # Q^T R
+  Rp = _apply_qt(refl, T1.transpose(0, 1))[me:, me:]     # Q^T R Q
+  HP = _mm_t(H, P)                                       # (dz', de, B)
+  S = _mm_t(HP, H) + 0.5 * (Rp + Rp.transpose(0, 1))
+  Kt = _solve_spd_lane(S, HP)                            # S^-1 H P = K^T
+  if gate:
+    sy = _solve_spd_lane(S, y[:, None])
+    dist = sum(y[i] * sy[i, 0] for i in range(dzp))
+    Kt = torch.where(dist[None, None, :] > om.maha_thresh,
+                     torch.zeros_like(Kt), Kt)
+  dx = sum(Kt[i] * y[i][None] for i in range(dzp))      # (de, B)
+  # factored Joseph P + (W + W^T), W = K (S K^T / 2 - HP)
+  W = _mm(Kt.transpose(0, 1), 0.5 * _mm(S, Kt) - HP)
+  P_new = P + (W + W.transpose(0, 1))
+  x_new = vmap(lambda xx, d: spec.err(params, xx, d))(x, dx.T)
+  return _normalize(spec, x_new), P_new, y.T
+
+
+def augment_slab(spec: FilterSpec, x, P):
+  """MSCKF augmentation on slab state x (dim_x, *b), P (de, de, *b): clone
+  the current pose into the newest window slot (core/step.augment,
+  ekf_sym.py:365-391), by slices and concatenation only."""
+  if not spec.is_msckf:
+    raise ValueError(f"spec {spec.name!r} has no clone window")
+  d1, d2 = spec.dim_main, spec.dim_main_err
+  d3, d4 = spec.dim_augment, spec.dim_augment_err
+  x_new = torch.cat([x[:d1], x[d1 + d3:], x[:d3]])
+  # drop the oldest clone's rows / columns (two contiguous ranges)
+  Pr = torch.cat([
+      torch.cat([P[:d2, :d2], P[:d2, d2 + d4:]], dim=1),
+      torch.cat([P[d2 + d4:, :d2], P[d2 + d4:, d2 + d4:]], dim=1),
+  ])
+  # to_mult: the first d4 rows / columns again in the newest slot
+  P_new = torch.cat([torch.cat([Pr, Pr[:, :d4]], dim=1),
+                     torch.cat([Pr[:d4], Pr[:d4, :d4]], dim=1)])
+  return x_new, 0.5 * (P_new + P_new.transpose(0, 1))
+
+
+def lane_augment(spec: FilterSpec, x, P):
+  """Banked MSCKF augmentation: x (B, dim_x), P (de, de, B)."""
+  x_new, P_new = augment_slab(spec, x.T, P)
+  return x_new.T, P_new
 
 
 def _step_params(params, ps_keys, ps_row):
@@ -213,6 +353,23 @@ def lane_epoch_bank_scan(spec: FilterSpec, slot_kinds, params, x, P, Q,
           spec, kind, p_t, x, P, zs[t, k][:, :om.dz], R_list[k],
           ea=eas[t, k][:, :om.ea_len] if om.ea_len else None,
           gate=gate and om.maha_test)
+  return x, P
+
+
+def lane_frame_bank_scan(spec: FilterSpec, kind: int, params, x, P, Q, dts,
+                         zs, eas, R, gate: bool | None = None):
+  """T MSCKF camera frames over a lane-major bank, each a block predict,
+  the projected update of feature kind `kind` and the window augment (the
+  twin of JAX msckf_bank._jit_frame_scan): x (B, dim_x), P (de, de, B),
+  dts (T,), zs (T, B, dz), eas (T, B, ea_len) landmark positions, R
+  (dz, dz); gate as in lane_update. Returns the final (x, P)."""
+  if not spec.obs[kind].is_feature:
+    raise ValueError(f"kind {kind} is not an MSCKF feature kind")
+  for t in range(dts.shape[0]):
+    x, P = lane_predict(spec, params, x, P, Q, dts[t])
+    x, P, _ = lane_update(spec, kind, params, x, P, zs[t], R, ea=eas[t],
+                          gate=gate)
+    x, P = lane_augment(spec, x, P)
   return x, P
 
 

@@ -54,12 +54,13 @@ class SpecStructure:
 
 def dense_structure(spec: FilterSpec) -> SpecStructure:
   """Every column nonzero: the structure of a spec whose pattern could not
-  be detected (the emitter then writes the dense body)."""
+  be detected (the emitter then writes the dense body). An MSCKF spec's G
+  stays in the main block, which is all its block predict propagates."""
   de = spec.dim_err
   every = tuple(range(de))
   return SpecStructure(f_rows=(every,) * de,
                        h_cols=tuple((k, every) for k in sorted(spec.obs)),
-                       g_cols=every)
+                       g_cols=tuple(range(spec.dim_main_err)))
 
 
 def _t64(a):
@@ -198,6 +199,15 @@ def detect_structure(spec: FilterSpec, x0, kinds=None, params=None,
         raise StructureError(
             f"F entries {ij} nonzero on held-out samples but zero on all "
             f"detection samples; pass more/better samples (x0, n_detect)")
+  # an MSCKF block predict propagates the main block only (ekf_c.c:17-29;
+  # JAX entry_slab.py:178-180)
+  outside = np.argwhere(g_mask)
+  outside = outside[(outside >= spec.dim_main_err).any(axis=1)]
+  if len(outside):
+    raise StructureError(
+        f"spec {spec.name!r}: G = F - I is nonzero outside the main block "
+        f"at {outside[:8].tolist()}; the clone states of an MSCKF spec "
+        "must be static")
   f_rows = tuple(tuple(int(k) for k in np.nonzero(f_mask[i])[0])
                  for i in range(de))
   g_cols = tuple(int(k) for k in np.nonzero(g_mask.any(axis=0))[0])
@@ -229,8 +239,9 @@ def detect_structure(spec: FilterSpec, x0, kinds=None, params=None,
               f"core/step semantics for this spec")
     h_cols.append((int(kind), cols))
 
-  # extra-args kinds: column support with randomly sampled extra args (the
-  # jvp identity is verified through the ea-free kinds above)
+  # extra-args kinds (the pseudorange family and MSCKF feature tracks):
+  # column support with randomly sampled extra args (the jvp identity is
+  # verified through the ea-free kinds above)
   frng = np.random.RandomState(seed + 0xFEA7)
   for kind, om in sorted(spec.obs.items()):
     if om.ea_len == 0:

@@ -1,8 +1,7 @@
 """Filter registry: name -> filter class.
 
 Port of rednose_tpu/registry.py (the reference's ekf_register / ekf_lookup,
-rednose/helpers/ekf_load.{h,cc}). The port ships the kinematic, live, car
-and loc filters so far; the MSCKF ones join with their slice.
+rednose/helpers/ekf_load.{h,cc}).
 """
 
 from __future__ import annotations
@@ -35,4 +34,11 @@ def registered_filters() -> dict[str, type]:
 
 def _ensure_builtins():
   # import for side effect: the shipped models self-register via @register
-  from rednose_tpu_torch.models import car, kinematic, live, loc  # noqa: F401
+  from rednose_tpu_torch.models import (  # noqa: F401
+      car,
+      kinematic,
+      live,
+      loc,
+      msckf_eskf,
+      msckf_vo,
+  )

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from rednose_tpu_torch.runtime.bank import BankState
+from rednose_tpu_torch.utils.device import resolve_device
 
 
 def _np(t):
@@ -66,7 +67,10 @@ def save_bank(path, state: BankState):
            epoch=np.asarray(state.epoch))
 
 
-def load_bank(path, dtype=torch.float32, device="cpu") -> BankState:
+def load_bank(path, dtype=torch.float32, device="cuda") -> BankState:
+  """A save_bank file on `device` (the card unless the caller asks for
+  the CPU; without CUDA, device="cuda" raises)."""
+  device = resolve_device(device)
   with np.load(path) as data:
     def tensor(key):
       return torch.as_tensor(data[key], dtype=dtype, device=device)

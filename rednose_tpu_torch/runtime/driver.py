@@ -7,7 +7,11 @@ core/step.py on tensors of the engine's device and dtype (float64 by
 default, matching the reference's double-precision goldens).
 
 Eager torch needs no power-of-two bucketing of the measurement count
-(the JAX engine pads n to spare its jit cache, driver.py:205-219).
+(the JAX engine pads n to spare its jit cache, driver.py:205-219). A
+checkpointed observation keeps its augment flag, and a checkpoint the
+clone window's augment times, so a rewind replays an MSCKF camera frame
+with its window augmentation (the JAX engine replays it without,
+driver.py:183-184, and keeps the replayed times twice).
 """
 
 from __future__ import annotations
@@ -100,6 +104,15 @@ class FilterEngine:
                         seg / torch.linalg.vector_norm(seg),
                         self.x[slice_end_ex:]])
 
+  def get_extra_routine(self, name):
+    """A spec-shipped auxiliary function (EKFSym::get_extra_routine,
+    ekf_sym.cc:221-223). The JAX package's ParamsRoutine, which passes the
+    engine's params, is not ported: no shipped spec has one."""
+    if name not in self.spec.extra_routines:
+      raise KeyError(f"no extra routine {name!r}; available: "
+                     f"{sorted(self.spec.extra_routines)}")
+    return self.spec.extra_routines[name]
+
   def set_global(self, name, val):
     """Runtime-tunable parameter update (ekf_sym.py:415-416)."""
     if not isinstance(self.params, collections.abc.Mapping):
@@ -115,11 +128,13 @@ class FilterEngine:
     (ekf_sym.py:418-438)."""
     t_restore, state, replay = self.ring.rewind(t)
     self.filter_time = t_restore
-    self.x, self.P = state
+    self.x, self.P, augment_times = state
+    self.augment_times = list(augment_times)
     return replay
 
   def checkpoint(self, obs):
-    self.ring.checkpoint(self.filter_time, (self.x, self.P), obs)
+    self.ring.checkpoint(self.filter_time,
+                         (self.x, self.P, tuple(self.augment_times)), obs)
 
   # ------------------------------------------------------------------- steps
 
@@ -134,10 +149,12 @@ class FilterEngine:
                                       self.Q, self._tensor(dt))
     self.filter_time = t
 
-  def predict_and_update_batch(self, t, kind, z, R, extra_args=None):
+  def predict_and_update_batch(self, t, kind, z, R, extra_args=None,
+                               augment=False):
     """Out-of-order-safe predict + batched update (ekf_sym.py:464-482):
     too-old observations are rejected (None), in-window late ones trigger
-    rewind + replay."""
+    rewind + replay. augment=True then clones the pose into the MSCKF
+    window (ekf_sym.py:525-526)."""
     if self.filter_time is not None and t < self.filter_time:
       if not self.ring.can_rewind(t, self.max_rewind_age):
         self.logger.error(
@@ -148,12 +165,13 @@ class FilterEngine:
     else:
       replay = []
 
-    ret = self._predict_and_update_batch(t, kind, z, R, extra_args)
+    ret = self._predict_and_update_batch(t, kind, z, R, extra_args, augment)
     for r in replay:
       self._predict_and_update_batch(*r)
     return ret
 
-  def _predict_and_update_batch(self, t, kind, z, R, extra_args):
+  def _predict_and_update_batch(self, t, kind, z, R, extra_args,
+                                augment=False):
     om = self.spec.obs[kind]
     z = np.asarray(z, dtype=np.float64).reshape(-1, om.dz)
     R = np.asarray(R, dtype=np.float64).reshape(-1, om.dz, om.dz)
@@ -177,9 +195,16 @@ class FilterEngine:
         self._tensor(dt), self._tensor(z), self._tensor(R), self._tensor(ea))
     self.x, self.P = x_post, P_post
     self.filter_time = t
-    self.checkpoint((t, kind, z, R, extra_args))
+    if augment:
+      self.augment()
+    self.checkpoint((t, kind, z, R, extra_args, augment))
     return Estimate((x_pred, x_post, P_pred, P_post, t, kind, y, z,
                      extra_args))
+
+  def augment(self):
+    """MSCKF pose-window augmentation (ekf_sym.py:365-391)."""
+    self.x, self.P = step_ops.augment(self.spec, self.x, self.P)
+    self.augment_times = self.augment_times[1:] + [self.filter_time]
 
   def maha_test(self, x, P, kind, z, R, extra_args=None, maha_thresh=0.95):
     """Standalone outlier test (ekf_sym.py:626-649)."""

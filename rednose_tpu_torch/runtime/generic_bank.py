@@ -47,6 +47,8 @@ class KalmanBank(BankFacadeBase):
   class (build_spec() plus initial_x / initial_P_diag / Q / obs_noise, like
   the shipped models) or spec= with x0 / P_diag / Q."""
 
+  _msckf = False  # MSCKF specs: runtime/msckf_bank.MSCKFBank
+
   def __init__(self, model=None, batch: int = 1024, *, spec=None, x0=None,
                P_diag=None, Q=None, obs_noise=None, dtype=torch.float32,
                device="cuda", structure="auto", t0: float = 0.0,
@@ -64,8 +66,12 @@ class KalmanBank(BankFacadeBase):
                    else obs_noise)
     if not isinstance(spec, FilterSpec):
       raise TypeError(f"not a FilterSpec: {spec!r}")
-    if spec.is_msckf:
-      raise ValueError("MSCKF block specs come with the port's MSCKF slice")
+    if spec.is_msckf != self._msckf:
+      raise ValueError(
+          f"spec {spec.name!r}: " + ("an MSCKF spec (clone window) runs in "
+                                     "runtime/msckf_bank.MSCKFBank"
+                                     if spec.is_msckf else
+                                     "MSCKFBank needs a clone-window spec"))
     if x0 is None or P_diag is None or Q is None:
       raise ValueError("spec= needs explicit x0, P_diag and Q")
     self.spec = spec

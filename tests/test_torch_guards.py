@@ -11,9 +11,13 @@ import torch
 
 from rednose_tpu_torch.models.car import CarKalman
 from rednose_tpu_torch.models.kinematic import KinematicKalman
+from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
 from rednose_tpu_torch.ops import generic_scan, lane_bank, live_scan
+from rednose_tpu_torch.runtime.bank import BankState
+from rednose_tpu_torch.runtime.checkpoint import load_bank, save_bank
 from rednose_tpu_torch.runtime.generic_bank import KalmanBank
 from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
+from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
 import torch_parity  # noqa: F401  (one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -43,6 +47,7 @@ def test_port_imports_no_jax():
     lambda: LiveKalmanBank(batch=8, device="cuda"),
     lambda: KinematicKalman(device="cuda"),
     lambda: KalmanBank(CarKalman, batch=8, device="cuda"),
+    lambda: MSCKFBank(MSCKFEskf, batch=8),
 ])
 def test_cuda_request_never_runs_on_cpu(make):
   if torch.cuda.is_available():
@@ -52,6 +57,22 @@ def test_cuda_request_never_runs_on_cpu(make):
   else:
     with pytest.raises(RuntimeError, match="cuda"):
       make()
+
+
+def test_load_bank_defaults_to_the_card(tmp_path):
+  """load_bank places the bank on the card unless the caller asks for the
+  CPU: without CUDA the default raises, device="cpu" loads on the host."""
+  path = tmp_path / "bank.npz"
+  save_bank(path, BankState(x=torch.ones((4, 3)), P=torch.ones((4, 2, 2)),
+                            t=torch.zeros(4), epoch=1.5))
+  if torch.cuda.is_available():
+    assert load_bank(path).x.is_cuda
+  else:
+    with pytest.raises(RuntimeError, match="cuda"):
+      load_bank(path)
+  st = load_bank(path, device="cpu")
+  assert st.x.device.type == "cpu" and st.epoch == 1.5
+  assert torch.equal(st.P, torch.ones((4, 2, 2)))
 
 
 def test_live_wrappers_refuse_non_cuda_devices():
@@ -84,11 +105,12 @@ def test_generic_wrappers_never_run_the_plain_scans_off_the_cpu(
     raise AssertionError("plain scan called for a non-CPU tensor")
 
   for name in ("lane_bank_scan", "lane_mixed_bank_scan",
-               "lane_epoch_bank_scan"):
+               "lane_epoch_bank_scan", "lane_frame_bank_scan"):
     monkeypatch.setattr(lane_bank, name, forbidden)
   for name in ("generic_bank_scan_reference",
                "generic_bank_scan_mixed_reference",
-               "generic_bank_scan_epoch_reference"):
+               "generic_bank_scan_epoch_reference",
+               "vo_bank_scan_reference"):
     monkeypatch.setattr(generic_scan, name, forbidden)
   spec = CarKalman.build_spec()
   m = dict(device="meta")
@@ -106,3 +128,9 @@ def test_generic_wrappers_never_run_the_plain_scans_off_the_cpu(
     generic_scan.generic_bank_scan_epoch(
         x, P, torch.empty((2, 2, 1, 8), **m), dts, spec=spec,
         slot_kinds=(1, 2), Q=CarKalman.Q, R_list=Rs)
+  vo = MSCKFEskf.build_spec()
+  with pytest.raises(ValueError, match="CUDA"):
+    generic_scan.vo_bank_scan(
+        torch.empty((41, 8), **m), torch.empty((36, 36, 8), **m),
+        torch.empty((2, 8, 8), **m), torch.empty((2, 3, 8), **m), dts,
+        spec=vo, kind=16, Q=MSCKFEskf.Q, R=MSCKFEskf.obs_noise[16])
