@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from the repository (rednose_tpu_torch/
 _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each). Then:
-  1. three main paths, each with every kernel's launch count set to 0
+  1. four main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (P shrinks, a late observation rewinds and
@@ -30,15 +30,25 @@ csrc/generic_scan.cuh, one nvcc each). Then:
        frames consistent with a per-lane truth; at most 1% of lanes lost
        (beyond 10 sigma of their truth, or not finite), every non-finite
        lane flagged by diverged() and re-seeded by reset_diverged(), every
-       other P exactly symmetric.
-     Every kernel of a path must have launched in it.
+       other P exactly symmetric;
+     - VIO: the track store at the reference's design point (6000 tracks x
+       3000 features, float64 on the card) over 32 frames of the JAX
+       bench's synthetic tracker, each harvest, merge and triangulation
+       checked; MSCKFBank.run_mixed at B = 4096 over 64 steps alternating
+       camera frame (its landmarks from the store's triangulations) and
+       position fix, for both MSCKF models, healthy as above; the
+       single-filter VisualOdometryPipeline on MSCKFEskf(device="cuda")
+       over the scenario of tests/test_vo_pipeline.py.
+     Every kernel of a path must have launched in it; the VIO path
+     launches kernel 6 (its camera-frame branch) and no other.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096; the others at B = 8192, T = 64, kernel 7 at
-     B = 4096, T = 16, from converged states or fresh banks with
-     consistent data), the difference in standard deviations of the plain
-     result (utils/compare.py), both timed with CUDA events, with the
-     least time the card could take (bound). loc (kernel 5) and both
-     MSCKF models (kernel 7) are also held in double, the float64 build of
+     B = 4096, T = 16, kernel 6 with camera frames at B = 4096, T = 16,
+     from converged states or fresh banks with consistent data), the
+     difference in standard deviations of the plain result
+     (utils/compare.py), both timed with CUDA events, with the least time
+     the card could take (bound). loc (kernel 5) and both MSCKF models
+     (kernels 7 and 6) are also held in double, the float64 build of
      the body against the float64 plain version, and planted faults must
      fail that limit; loc's float32 agreement is printed; on the main
      path's loc data its share of lanes over 100 m off is held against the
@@ -126,6 +136,20 @@ MSCKF_TRUTH = 0.3
 # at rest spans ~1.5 cm, He nearly spans H, and float32 parts from
 # float64 beyond GEN_TOL on some lanes whatever the program
 MSCKF_V = (1.0, 0.5, 0.2)
+# the VIO path: the JAX bench's synthetic tracker (bench.py:621-696) at the
+# reference's design point (feature_handler.c:23-26): a store of 6000
+# tracks x 3000 features a frame, K = 4, cohorts of 750 born and 750
+# harvested a frame, harvest capacity 768, 32 frames, float64 on the card;
+# every frame at least TRI_CONVERGED of the harvested tracks' triangulations
+# converge, each within TRI_TOL_M of its landmark (exact projections).
+# Then both MSCKF models' banks at B = MSCKF_B over VIO_T steps alternating
+# camera frame and position fix, each frame's landmarks from the store's
+# triangulations; kernel 6 with its camera-frame branch compared at
+# VIO_CMP_T on msckf_frames' data, as kernel 7
+STORE_TRACKS, STORE_FEATS, STORE_K = 6000, 3000, 4
+STORE_COHORT, STORE_M, STORE_FRAMES = 750, 768, 32
+TRI_CONVERGED, TRI_TOL_M = 0.99, 0.01
+VIO_T, VIO_CMP_T = 64, 16
 # the least time the card could take (peak rates from NVIDIA's H100 SXM
 # data sheet): operations over the peak rate of their type, compulsory
 # bytes over the memory rate
@@ -1000,14 +1024,19 @@ def msckf_bank_x0(model, seed):
   return xs
 
 
-def msckf_frames(torch, dev, gen, model, xs, T, R):
+def msckf_frames(torch, dev, gen, model, xs, T, R, frames=None,
+                 aheads=None):
   """Consistent camera frames for a bank at xs (B, dim_x) with P = P0 I:
   each lane's truth starts at err(x, MSCKF_TRUTH sqrt(P0) n), n standard
-  normal, then
-  per frame moves by the model's f, sees a landmark 6 m ahead of its
-  newest clone (z = h(truth, landmark) plus noise at R's sigma) and rolls
-  its window. Float64 on the card. Returns (zs (T, B, dz), eas (T, B, 3),
-  truths: the (B, dim_x) truth after each frame)."""
+  normal, then per step moves by the model's f. At a camera frame it sees
+  a landmark ahead of its newest clone (z = h(truth, landmark) plus noise
+  at R's sigma) and rolls its window: 6 m ahead with 0.1 m of spread, or
+  aheads[f] (B, 3) for the f-th frame, in the camera frame (rotated by the
+  clone's attitude where the model has one). frames (T,) bool: which
+  steps are camera frames (default all); the others are position fixes,
+  z[:, :3] = the truth's position plus unit noise (R = I), the rest of the
+  row 0. Float64 on the card. Returns (zs (T, B, dz), eas (T, B, 3), 0 on
+  fix steps, truths: the (B, dim_x) truth after each step)."""
   from torch.func import vmap
 
   from rednose_tpu_torch.ops.quaternion import normalize_slices, quat_to_rot
@@ -1026,10 +1055,21 @@ def msckf_frames(torch, dev, gen, model, xs, T, R):
   newest = d1 + d3 * (spec.n_augment - 1)
   sigma = float(np.sqrt(R[0, 0]))
   zs, eas, truths = [], [], []
-  for _ in range(T):
+  n_frames = 0
+  for t in range(T):
     x = norm(vmap(lambda xx: spec.f({}, xx, MSCKF_DT))(x))
-    ahead = torch.tensor([1.0, 0.5, 6.0], **f64) + 0.1 * torch.randn(
-        (B, 3), generator=gen, **f64)
+    if frames is not None and not frames[t]:
+      z = x[:, 0:3] + torch.randn((B, 3), generator=gen, **f64)
+      zs.append(torch.cat([z, torch.zeros((B, om.dz - 3), **f64)], dim=1))
+      eas.append(torch.zeros((B, 3), **f64))
+      truths.append(x)
+      continue
+    if aheads is None:
+      ahead = torch.tensor([1.0, 0.5, 6.0], **f64) + 0.1 * torch.randn(
+          (B, 3), generator=gen, **f64)
+    else:
+      ahead = aheads[n_frames]
+    n_frames += 1
     if spec.quaternion_idxs:
       rot = vmap(quat_to_rot)(x[:, newest + 3:newest + 7])
       ahead = torch.einsum("bij,bj->bi", rot, ahead)
@@ -1053,33 +1093,37 @@ def msckf_lost(torch, spec, bank_x, bank_P, truth):
   return float((~((e.abs() / sd) <= MSCKF_FAR).all(dim=1)).double().mean())
 
 
+def msckf_healthy(torch, name, bank, truth):
+  """The lanes lost (beyond MSCKF_FAR sigmas of their truth, or not
+  finite) are at most MSCKF_LOST_SHARE; a lane that went non-finite is
+  flagged by diverged() and reset_diverged() re-seeds exactly those;
+  every other P is exactly symmetric. Returns (lost share, lanes
+  reset)."""
+  torch.cuda.synchronize()
+  lost = msckf_lost(torch, bank.spec, bank._x, bank._P, truth)
+  require(lost <= MSCKF_LOST_SHARE,
+          f"{name}: {lost} of lanes lost (beyond {MSCKF_FAR} sigma of "
+          "their truth, or not finite)")
+  finite = (torch.isfinite(bank._x).all(dim=0)
+            & torch.isfinite(bank._P).all(dim=1).all(dim=0))
+  bad = bank.diverged()
+  require(bool((finite | bad).all()),
+          f"{name}: every non-finite lane is flagged diverged")
+  P = bank._P[:, :, ~bad]
+  require(torch.equal(P, P.transpose(0, 1)), f"{name} P symmetric")
+  reset = bank.reset_diverged()
+  require(reset == int(bad.sum()) and bool(torch.isfinite(bank._x).all()
+                                           and torch.isfinite(bank._P).all()),
+          f"{name}: reset_diverged re-seeds the diverged lanes")
+  return lost, reset
+
+
 def msckf_main_path(torch, dev, gen):
   """Phase 1, MSCKF bank: MSCKFBank as a user calls it."""
   from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
 
   def healthy(name, bank, truth):
-    """The lanes lost (beyond MSCKF_FAR sigmas of their truth, or not
-    finite) are at most MSCKF_LOST_SHARE; a lane that went non-finite is
-    flagged by diverged() and reset_diverged() re-seeds exactly those;
-    every other P is exactly symmetric. Returns (lost share, lanes
-    reset)."""
-    torch.cuda.synchronize()
-    lost = msckf_lost(torch, bank.spec, bank._x, bank._P, truth)
-    require(lost <= MSCKF_LOST_SHARE,
-            f"{name}: {lost} of lanes lost (beyond {MSCKF_FAR} sigma of "
-            "their truth, or not finite)")
-    finite = (torch.isfinite(bank._x).all(dim=0)
-              & torch.isfinite(bank._P).all(dim=1).all(dim=0))
-    bad = bank.diverged()
-    require(bool((finite | bad).all()),
-            f"{name}: every non-finite lane is flagged diverged")
-    P = bank._P[:, :, ~bad]
-    require(torch.equal(P, P.transpose(0, 1)), f"{name} P symmetric")
-    reset = bank.reset_diverged()
-    require(reset == int(bad.sum()) and bool(torch.isfinite(bank._x).all()
-                                             and torch.isfinite(bank._P).all()),
-            f"{name}: reset_diverged re-seeds the diverged lanes")
-    return lost, reset
+    return msckf_healthy(torch, name, bank, truth)
 
   for model in msckf_models():
     spec, T, Q, R = msckf_setup(model)
@@ -1194,6 +1238,315 @@ def compare_msckf(torch, dev, gen, reps=10):
   return rows
 
 
+# ------------------------------------------------------------------- VIO
+
+def cohort_tracker(K, n_tracks, cohort, T, seed=SEED):
+  """The synthetic tracker of the JAX package's bench.py (:653-696):
+  cohorts of `cohort` tracks at slots [1 + a * cohort, ...), each track
+  observed from the K poses of a shared camera path (exact pinhole
+  projections of its landmark), slot 0 reserved. At frame t block t % K
+  was completed the frame before (harvested at its start) and takes the
+  new cohort, block (t + 1) % K completes, the others grow. Returns
+  (tracks0 (n_tracks, K+1, 5) the steady-state store before frame 0, feats
+  (T, K * cohort, 5) the frames' feature rows, land (n_tracks, 3) the
+  landmarks, poses (K, 7)), numpy float64."""
+  rng = np.random.RandomState(seed)
+  poses = np.zeros((K, 7))
+  poses[:, 0] = 0.2 * np.arange(K)
+  poses[:, 1] = -0.1 * np.arange(K)
+  poses[:, 3] = 1.0  # identity attitude
+  land = np.array([1.0, 2.0, 10.0])[None] + np.concatenate(
+      [0.5 * rng.randn(n_tracks, 2), 1.0 + 0.2 * rng.randn(n_tracks, 1)],
+      axis=1)
+  rel = land[:, None, :] - poses[None, :, :3]
+  uv_table = rel[..., :2] / rel[..., 2:3]        # (n_tracks, K, 2)
+  tracks0 = np.zeros((n_tracks, K + 1, 5))
+  tracks0[0, 0, 0] = -1.0                        # reserved slot 0
+  for a in range(K):
+    slots = np.arange(1 + a * cohort, 1 + (a + 1) * cohort)
+    count = K - a
+    tracks0[slots, 0, 0] = count                 # H_COUNT
+    tracks0[slots, 0, 1] = slots                 # H_LAST_ID
+    if a == 0:
+      tracks0[slots, 0, 3:5] = 1.0               # complete and valid
+    for c in range(count):
+      tracks0[slots, 1 + c, 2:4] = uv_table[slots, c]
+  feats = np.full((T, K * cohort, 5), -1.0)
+  for t in range(T):
+    for a in range(K):
+      blk = (t + a) % K
+      slots = np.arange(1 + blk * cohort, 1 + (blk + 1) * cohort)
+      rows = slice(a * cohort, (a + 1) * cohort)
+      feats[t, rows, 1] = slots                  # next_id
+      feats[t, rows, 4] = slots                  # match
+      feats[t, rows, 2:4] = uv_table[slots, 0 if a == 0 else K - a]
+  return tracks0, feats, land, poses
+
+
+def vio_store_path(torch, dev):
+  """The VIO path's store at the reference design point, float64 on the
+  card: per frame harvest_complete -> reset_seen -> empty_slots ->
+  merge_features -> compute_pos_batch of the harvested tracks over the
+  tracker's camera path (bench.py:653-664). Every frame: exactly
+  STORE_COHORT tracks harvested, none dropped, STORE_FEATS live after the
+  merge, at least TRI_CONVERGED of the triangulations converged and those
+  within TRI_TOL_M of their landmark. Returns (positions (STORE_FRAMES,
+  STORE_COHORT, 3) of each frame's harvested tracks in slot order, a
+  track that did not converge at the bench's fallback (1, 2, 11), and the
+  tracker's poses)."""
+  from rednose_tpu_torch.msckf import feature_handler as fh
+  from rednose_tpu_torch.msckf.triangulation import compute_pos_batch
+
+  K, cohort, M = STORE_K, STORE_COHORT, STORE_M
+  tracks0, feats, land, poses = cohort_tracker(
+      K, STORE_TRACKS, cohort, STORE_FRAMES)
+  f64 = dict(dtype=torch.float64, device=dev)
+  tracks = torch.as_tensor(tracks0, **f64)
+  feats = torch.as_tensor(feats, **f64)
+  land = torch.as_tensor(land, **f64)
+  poses_m = torch.as_tensor(poses, **f64).expand(M, K, 7)
+  to_c = torch.eye(3, **f64)
+  fallback = torch.tensor([1.0, 2.0, 11.0], **f64)
+  positions, secs, worst, conv_min = [], [], 0.0, 1.0
+  torch.cuda.synchronize()
+  for t in range(STORE_FRAMES):
+    t0 = time.perf_counter()
+    idxs, uv, tracks = fh.harvest_complete(tracks, M)
+    tracks = fh.reset_seen(tracks)
+    empty = fh.empty_slots(tracks, STORE_FEATS)
+    tracks, dropped = fh.merge_features(tracks, feats[t], empty)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pos, ok = compute_pos_batch(to_c, poses_m, uv)
+    torch.cuda.synchronize()
+    secs.append((t1 - t0, time.perf_counter() - t1))
+    real = idxs < STORE_TRACKS
+    n_harvest = int(real.sum())
+    live = int((tracks[:, 0, fh.H_COUNT] > 0).sum())
+    require(n_harvest == cohort and int(dropped) == 0 and live == STORE_FEATS,
+            f"store frame {t}: {n_harvest} harvested, {int(dropped)} "
+            f"dropped, {live} live (want {cohort}, 0, {STORE_FEATS})")
+    idx = idxs[:cohort]
+    ok = ok[:cohort]
+    err = (pos[:cohort] - land[idx]).norm(dim=1)
+    conv = float(ok.double().mean())
+    far = float(err[ok].max()) if bool(ok.any()) else float("inf")
+    require(conv >= TRI_CONVERGED and far <= TRI_TOL_M,
+            f"store frame {t}: {conv} of triangulations converged, the "
+            f"worst converged {far} m off its landmark (want >= "
+            f"{TRI_CONVERGED} and <= {TRI_TOL_M} m)")
+    worst, conv_min = max(worst, far), min(conv_min, conv)
+    positions.append(torch.where(ok[:, None], pos[:cohort], fallback))
+  legs = np.array(secs[1:]) * 1e3          # (frames, [store, triangulate])
+  log(f"VIO store {STORE_TRACKS} tracks x {STORE_FEATS} features, K={K}, "
+      f"float64: {STORE_FRAMES} frames of harvest + merge + triangulation "
+      f"of {cohort} tracks, host clock per frame: first "
+      f"{sum(secs[0]) * 1e3:.3f} ms, mean of the others "
+      f"{legs.sum(axis=1).mean():.3f} ms (store legs {legs[:, 0].mean():.3f}"
+      f" ms, triangulation {legs[:, 1].mean():.3f} ms), max "
+      f"{legs.sum(axis=1).max():.3f} ms; least converged share "
+      f"{conv_min:.6f}, worst converged landmark error {worst:.4g} m")
+  return torch.stack(positions), poses
+
+
+def vio_frames_of(torch, store):
+  """The camera frames' landmarks for a bank of MSCKF_B lanes from the
+  store's triangulations: frame f's landmark for lane l is the position of
+  the store's frame-f track l mod STORE_COHORT, taken relative to the
+  tracker camera's last pose: (STORE_FRAMES, MSCKF_B, 3), in the camera
+  frame."""
+  positions, poses = store
+  last = torch.as_tensor(poses[-1, :3], dtype=positions.dtype,
+                         device=positions.device)
+  lanes = torch.arange(MSCKF_B, device=positions.device) % STORE_COHORT
+  return positions[:, lanes] - last
+
+
+def vio_kind_idx(T):
+  """kind_idx (T,) over (POSITION, feature): camera frame first, then
+  alternating with position fixes."""
+  return np.array([1 - t % 2 for t in range(T)], np.int32)
+
+
+def vio_call(model, Q=None, R_feat=None, R_pos=None):
+  """Kernel 6's call with the camera-frame branch as MSCKFBank(model).
+  run_mixed makes it for the VIO schedule (POSITION R = I, the feature R of
+  msckf_setup), or with another Q or R of the same pattern (a planted
+  fault: run-time values, the same build)."""
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  spec, _, Q0, R0 = msckf_setup(model)
+  return gs.KernelCall(
+      spec, "mixed", (MSCKF_POS, MSCKF_KIND), Q=Q0 if Q is None else Q,
+      R_list=(np.eye(3) if R_pos is None else R_pos,
+              R0 if R_feat is None else R_feat),
+      structure=sparsity.structure_for(spec, model.initial_x))
+
+
+def vio_sources():
+  """The emitted sources the VIO path launches: kernel 6 with the
+  camera-frame branch for both models."""
+  return {f"{model.name} run_mixed with frames (kernel 6)":
+          vio_call(model).source() for model in msckf_models()}
+
+
+def vio_main_path(torch, dev, gen):
+  """Phase 1, VIO: the track store at the design point, MSCKFBank.run_mixed
+  with camera frames (kernel 6's camera-frame branch) for both models on
+  the store's landmarks, and the single-filter pipeline."""
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+  from rednose_tpu_torch.msckf.pipeline import VisualOdometryPipeline
+  from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
+
+  aheads = vio_frames_of(torch, vio_store_path(torch, dev))
+  kinds, kind_idx = (MSCKF_POS, MSCKF_KIND), vio_kind_idx(VIO_T)
+  for model in msckf_models():
+    spec, _, Q, R = msckf_setup(model)
+    xs = msckf_bank_x0(model, SEED + 4)
+    zs, eas, truths = msckf_frames(torch, dev, gen, model, xs, VIO_T, R,
+                                   frames=kind_idx.astype(bool),
+                                   aheads=aheads)
+    bank = MSCKFBank(model, batch=MSCKF_B, x0=xs,
+                     P_diag=np.full(spec.dim_err, MSCKF_P0), Q=Q, device=dev)
+    t0 = time.perf_counter()
+    bank.run_mixed(np.full(VIO_T, MSCKF_DT), kind_idx, zs, kinds,
+                   R_by_kind={MSCKF_POS: np.eye(3), MSCKF_KIND: R}, eas=eas)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    lost, reset = msckf_healthy(torch, f"{model.name} VIO bank", bank,
+                                truths[-1])
+    log(f"{model.name} VIO bank B={MSCKF_B}: run_mixed T={VIO_T} "
+        f"({int(kind_idx.sum())} camera frames on the store's landmarks, "
+        f"{VIO_T - int(kind_idx.sum())} position fixes) {ms:.3f} ms (host "
+        f"clock, first call); lanes lost {lost:.6f}, {reset} diverged and "
+        "reset")
+
+  # the single-filter pipeline on the scenario of tests/test_vo_pipeline.py
+  rng = np.random.RandomState(SEED)
+  v0 = np.array([4.0, 0.0, 0.0])
+  x0 = MSCKFEskf.initial_x.copy()
+  x0[7:10] = v0
+  kf, blind = MSCKFEskf(device=dev), MSCKFEskf(device=dev)
+  for f in (kf, blind):
+    f.init_state(x0, covs_diag=MSCKFEskf.initial_P_diag, filter_time=0.0)
+  landmarks = np.column_stack([rng.uniform(-4, 30, 10),
+                               rng.uniform(-5, 5, 10),
+                               rng.uniform(10, 18, 10)])
+  pipe = VisualOdometryPipeline(kf, n_tracks=64, max_features=16)
+  ids = np.full(len(landmarks), -1, dtype=np.int64)
+  K = kf.spec.n_augment
+  t, updates = 0.0, 0
+  t0 = time.perf_counter()
+  for _ in range(3 * K):
+    t += 0.1
+    uvs = np.stack([(lm - v0 * t)[:2] / (lm - v0 * t)[2]
+                    + rng.normal(0, 0.002, 2) for lm in landmarks])
+    est, ids = pipe.process_frame(t, ids, uvs)
+    blind.observe_camera_frame(t, np.zeros((0, K, 2)))
+    if est is not None and len(est[7]):
+      updates += 1
+  secs = time.perf_counter() - t0
+  err = float(np.linalg.norm(kf.x[0:3] - v0 * t))
+  tr, tr_blind = float(np.trace(kf.P)), float(np.trace(blind.P))
+  require(updates >= 2 and np.isfinite(kf.x).all() and tr < tr_blind
+          and err < 0.2 and pipe.dropped_total == 0,
+          f"VIO pipeline: {updates} feature updates, trace(P) {tr} against "
+          f"the blind twin's {tr_blind}, position error {err} m, "
+          f"{pipe.dropped_total} detections dropped")
+  log(f"VIO pipeline (MSCKFEskf on {kf.filter.device}, 64 tracks): "
+      f"{3 * K} frames, {updates} feature updates, trace(P) {tr:.6g} "
+      f"(blind {tr_blind:.6g}), position error {err:.4g} m, "
+      f"{secs / (3 * K) * 1e3:.3f} ms a frame with its blind twin's "
+      "(host clock)")
+
+
+def compare_vio(torch, dev, gen, reps=10):
+  """Phase 2, VIO: kernel 6 with its camera-frame branch against its plain
+  version at B = MSCKF_B, T = VIO_CMP_T (camera frame / position fix
+  alternating) for both models, on msckf_frames' data (6 m ahead, the
+  camera moving at MSCKF_V) from a fresh bank: float32 within GEN_TOL
+  sigma, the double build within MSCKF64_TOL of the float64 plain version,
+  and planted faults (a clone-block Q term, the feature R's diagonal x
+  1.01, the position R's diagonal x 1.01, one landmark depth + 1 cm, one
+  dts entry x 1.01; run-time values, no extra build) beyond MSCKF64_TOL."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  rows, checks = [], []
+  T = VIO_CMP_T
+  kinds, kind_idx = (MSCKF_POS, MSCKF_KIND), vio_kind_idx(T)
+  for model in msckf_models():
+    spec, _, Q, R = msckf_setup(model)
+    xs = msckf_bank_x0(model, SEED + 5)
+    zs, eas, _ = msckf_frames(torch, dev, gen, model, xs, T, R,
+                              frames=kind_idx.astype(bool))
+    call = vio_call(model)
+    ops = step_ops(call.source(), kinds, "mixed") * T * MSCKF_B
+    shape = (f"{model.name} B={MSCKF_B} T={T}, {T // 2} camera frames + "
+             f"{T // 2} position fixes, gate on")
+
+    def inputs(dtype, eas=eas, dts=np.full(T, MSCKF_DT)):
+      d = dict(dtype=dtype, device=dev)
+      return (torch.as_tensor(xs.T, **d).contiguous(),
+              (MSCKF_P0 * torch.eye(spec.dim_err, **d))[:, :, None].repeat(
+                  1, 1, MSCKF_B),
+              zs.transpose(1, 2).to(**d).contiguous(),
+              torch.as_tensor(dts, **d),
+              torch.as_tensor(kind_idx, dtype=torch.int32, device=dev),
+              eas.transpose(1, 2).to(**d).contiguous())
+
+    kw = dict(spec=spec, kinds=kinds, Q=Q, R_list=call.R_list,
+              structure=call.structure)
+
+    def kernel(*a, **k):
+      return gs.generic_bank_scan_mixed(*a[:5], eas=a[5], **k)
+
+    def plain(*a, **k):
+      return gs.generic_bank_scan_mixed_reference(*a[:5], eas=a[5], **k)
+
+    row, _, _ = kernel_vs_plain(
+        "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
+        "rednose_tpu/ops/pallas_bank.py:250", spec, kernel, plain,
+        inputs(torch.float32), kw, shape, ops, checks=checks, reps=reps)
+    rows.append(row)
+    args64 = inputs(torch.float64)
+    _, _, ref64 = kernel_vs_plain(
+        "generic_bank_scan_mixed", "", "", spec, kernel, plain, args64, kw,
+        shape + ", float64", ops, MSCKF64_TOL, checks=checks, reps=reps)
+    builds = _build.generated_launcher.cache_info().currsize
+    Qf = np.array(Q, dtype=np.float64)
+    Qf[-1, -1] += 1e-4
+    eas_f = eas.clone()
+    eas_f[T // 2, :, 2] += 0.01          # step T // 2 is a camera frame
+    dts_f = np.full(T, MSCKF_DT)
+    dts_f[T // 3] *= 1.01
+    faults = {
+        "clone-block Q term": (vio_call(model, Q=Qf), args64),
+        "feature R diagonal x 1.01": (vio_call(model, R_feat=1.01 * R),
+                                      args64),
+        "position R diagonal x 1.01": (vio_call(model,
+                                                R_pos=1.01 * np.eye(3)),
+                                       args64),
+        "landmark depth + 1 cm": (call, inputs(torch.float64, eas=eas_f)),
+        "dts entry x 1.01": (call, inputs(torch.float64, dts=dts_f)),
+    }
+    miss = {name: float(lane_errs(kernel(*args, call=c), ref64, spec).max())
+            for name, (c, args) in faults.items()}
+    least = min(miss, key=miss.get)
+    ok = (miss[least] > MSCKF64_TOL
+          and _build.generated_launcher.cache_info().currsize == builds)
+    log(f"generic_bank_scan_mixed with frames, planted faults "
+        f"[{model.name}, float64]: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in miss.items())
+        + f" sigma; the least visible must exceed {MSCKF64_TOL}, with no "
+        f"extra build -> {'ok' if ok else 'FAIL'}")
+    checks.append((f"{model.name} VIO planted faults beyond the limit", ok))
+  bad = [name for name, ok in checks if not ok]
+  require(not bad, f"kernel 6 with frames agrees with its plain version: "
+                   f"{bad}")
+  return rows
+
+
 def main():
   import torch
 
@@ -1215,13 +1568,15 @@ def main():
   with ThreadPoolExecutor(1) as pool:
     static = pool.submit(_build.build)
     live_spec = generic_models()[3]
-    sources = generic_sources(live_spec) | msckf_sources()
+    sources = generic_sources(live_spec) | msckf_sources() | vio_sources()
     # the comparison phase's own variants: kernels 5 and 7 in double
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
                    loc_epoch_call().source(torch.float64)}
     for model in msckf_models():
       cmp_sources[f"{model.name} run_frames, float64 (kernel 7)"] = \
           msckf_call(model).source(torch.float64)
+      cmp_sources[f"{model.name} run_mixed with frames, float64 "
+                  "(kernel 6)"] = vio_call(model).source(torch.float64)
     t_emit = time.perf_counter() - t0
     _build.build_generated_many([*sources.values(), *cmp_sources.values()])
     lib = static.result()
@@ -1239,7 +1594,7 @@ def main():
 
   dev = torch.device("cuda", 0)
   gens = []
-  for i in range(3):
+  for i in range(4):
     # each path draws from a generator of its own, so a path sees the same
     # data whether or not the others run
     gens.append(torch.Generator(device=dev))
@@ -1254,6 +1609,9 @@ def main():
         g.generic_bank_scan_mixed)),
       ("MSCKF bank", lambda: msckf_main_path(torch, dev, gens[2]),
        (g.vo_bank_scan, g.generic_bank_scan)),
+      # the VIO path launches kernel 6 (camera-frame branch) and no other
+      ("VIO", lambda: vio_main_path(torch, dev, gens[3]),
+       (g.generic_bank_scan_mixed,)),
   )
   wrappers = {w for _, _, ws in paths for w in ws}
   launches, states = {w.__name__: 0 for w in wrappers}, []
@@ -1265,17 +1623,22 @@ def main():
     log(f"{name} path launches: {counts}")
     require(all(counts[w.__name__] > 0 for w in expected),
             f"every kernel of the {name} path launched: {counts}")
+    if name == "VIO":
+      require(all(counts[w.__name__] == 0 for w in wrappers
+                  if w not in expected),
+              f"the VIO path launched only its kernel: {counts}")
     for w in wrappers:
       launches[w.__name__] += counts[w.__name__]
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
 
-  live_states, generic_states, _ = states
+  live_states, generic_states, _, _ = states
   rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
   rows += compare_generic(torch, dev, gens[1], generic_states,
                           live_states["live_bank_scan"][2])
   rows += compare_msckf(torch, dev, gens[2])
+  rows += compare_vio(torch, dev, gens[3])
   # no one PyTorch call computes a fused T-step filter scan: library_ms null
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -6,14 +6,16 @@
 // T x (predict + the update of one kind). Kernel 5 (mode "epoch") replaces
 // pallas_bank.py:_epoch_kernel (generic_bank_scan_epoch): T x (predict +
 // K slot updates, inline). Kernel 6 (mode "mixed") replaces
-// pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without its MSCKF
-// camera-frame branch: T x (predict + the update of the streamed kind, a
-// switch that is uniform across the bank, so no warp diverges). Kernel 7
-// (mode "frame") replaces pallas_bank.py:_vo_kernel (vo_bank_scan, flat
-// form): T MSCKF camera frames, each a block predict, the feature kind's
-// update projected onto the left null space of He (Householder
-// reflectors, a dz' = 5 Cholesky, the gate) and a factored Joseph store
-// with the window augment folded in; eas carries the landmark positions.
+// pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed), its MSCKF
+// camera-frame branch included: T x (predict + the update of the streamed
+// kind, a switch that is uniform across the bank, so no warp diverges); a
+// feature kind's case is a camera frame. Kernel 7 (mode "frame") replaces
+// pallas_bank.py:_vo_kernel (vo_bank_scan, flat form): T MSCKF camera
+// frames. A camera frame, in either kernel, is a block predict, the
+// feature kind's update projected onto the left null space of He
+// (Householder reflectors, a dz' = 5 Cholesky, the gate) and a factored
+// Joseph store with the window augment folded in; eas carries the
+// landmark positions.
 // Wrappers and plain versions: rednose_tpu_torch/ops/generic_scan.py and
 // rednose_tpu_torch/ops/lane_bank.py.
 //
@@ -61,10 +63,10 @@
 #include <math.h>
 #include <stddef.h>
 
-// GEN_PHASE marks the phase functions of a camera-frame variant (the
-// predict and the frame unit): on the card each is a call of its own, so
-// ptxas allocates registers per phase (the msckf_eskf frame body then
-// builds in ~2/3 of the inlined time and runs no slower).
+// GEN_PHASE marks the phase functions of a variant with a camera frame
+// (the predict and each frame unit): on the card each is a call of its
+// own, so ptxas allocates registers per phase (the msckf_eskf frame body
+// then builds in ~2/3 of the inlined time and runs no slower).
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define GEN_HD __host__ __device__

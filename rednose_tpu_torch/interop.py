@@ -77,6 +77,18 @@ def model_constants_from_jax(model, dtype=torch.float32, device="cpu"):
                  for k, v in model.obs_noise.items()})
 
 
+def tracks_from_jax(tracks, dtype=torch.float64, device="cpu"):
+  """A JAX MSCKF track store (msckf/feature_handler.py, (n_tracks, K+1, 5))
+  -> the port's store, the same layout."""
+  return _tensor(tracks, dtype, device)
+
+
+def tracks_to_jax(tracks):
+  """The port's track store -> numpy (n_tracks, K+1, 5), which the JAX
+  store functions take as it is."""
+  return tracks.detach().cpu().numpy().copy()
+
+
 # the live kernels' banks fold the same way
 live_state_from_jax = bank_from_jax
 live_state_to_jax = bank_to_jax

@@ -673,25 +673,41 @@ def _unit_name(kind, gate, frame=False):
   return f"gen_{'frame' if frame else 'update'}_k{kind}{'_g' if gate else ''}"
 
 
+def _r_text(r_pattern):
+  return r_pattern if r_pattern == "iso" else list(r_pattern)
+
+
 def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                 ps_keys=(), q_pattern=(), scalar="float",
-                r_pattern=None) -> str:
+                r_patterns=None) -> str:
   """C++ source of one kernel variant.
 
   mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over the
   units by the streamed kind index), 'epoch' (kernel 5: every unit in
   order, one slot each) or 'frame' (kernel 7: the MSCKF camera frame of
-  one feature kind, frame_phase). units: tuple of (kind, gate) pairs.
+  one feature kind). units: tuple of (kind, gate) pairs. A unit of an
+  MSCKF feature kind is a camera frame (frame_phase: the projected update
+  and the window augment); mode 'frame' is one such unit, and mode 'mixed'
+  may hold them among its other units (kernel 6's camera-frame branch).
   pnames: the names of the params vector, in order; ps_keys: the streamed
   ones. q_pattern: the (i, j), i <= j, entries of Q that are nonzero.
-  scalar: the C type of every value, 'float' or 'double'. r_pattern (mode
-  'frame' only): "iso" for R = s^2 I, else R's nonzero (i, j), i <= j."""
+  scalar: the C type of every value, 'float' or 'double'. r_patterns:
+  aligned with units, for a feature unit "iso" (R = s^2 I) or R's nonzero
+  (i, j), i <= j, and None for any other unit; None for no feature unit."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
-  if (mode == "frame") != (r_pattern is not None):
-    raise ValueError("pass r_pattern for mode 'frame' and only for it")
-  if mode == "frame" and len(units) != 1:
-    raise ValueError(f"mode 'frame' takes one unit, got {units}")
+  r_patterns = (tuple(r_patterns) if r_patterns is not None
+                else (None,) * len(units))
+  feature = [spec.obs[k].is_feature for k, _ in units]
+  if len(r_patterns) != len(units) or any(
+      (rp is not None) != f for rp, f in zip(r_patterns, feature)):
+    raise ValueError("pass an R pattern for each feature unit and only "
+                     f"for it: units {units}, r_patterns {r_patterns}")
+  if mode == "frame" and (len(units) != 1 or not feature[0]):
+    raise ValueError(f"mode 'frame' takes one feature unit, got {units}")
+  if mode in ("single", "epoch") and any(feature):
+    raise ValueError(f"mode {mode!r} takes no MSCKF feature kind: a camera "
+                     "frame runs in mode 'frame' or 'mixed'")
   if scalar not in ("float", "double"):
     raise ValueError(f"scalar {scalar!r} is not 'float' or 'double'")
   kinds = [k for k, _ in units]
@@ -704,16 +720,24 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     r_off.append(off)
     off += spec.obs[k].dz ** 2
   ps_idx = [list(pnames).index(k) for k in ps_keys]
-  # a camera frame's phases are calls of their own on the card (GEN_PHASE,
-  # csrc/generic_scan.cuh): its inlined msckf_eskf body took ~70 s of nvcc
-  inline = "GEN_PHASE" if mode == "frame" else "GEN_INLINE"
+  # a camera frame's phases (the predict and each frame unit) are calls of
+  # their own on the card (GEN_PHASE, csrc/generic_scan.cuh): its inlined
+  # msckf_eskf body took ~70 s of nvcc; the other units stay inline
+  has_frame = any(feature)
+  inline = "GEN_PHASE" if has_frame else "GEN_INLINE"
+  if mode == "frame":
+    r_note = f", R {_r_text(r_patterns[0])}."
+  elif has_frame:
+    r_note = ", R " + "; ".join(
+        f"unit {u} {_r_text(rp)}" for u, rp in enumerate(r_patterns)
+        if rp is not None) + "."
+  else:
+    r_note = "."
 
   out = [
       "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
       f"// spec {spec.name!r}, mode {mode}, units (kind, gate) {list(units)},",
-      f"// params {list(pnames)}, streamed {list(ps_keys)}"
-      + (f", R {r_pattern if r_pattern == 'iso' else list(r_pattern)}."
-         if mode == "frame" else "."),
+      f"// params {list(pnames)}, streamed {list(ps_keys)}" + r_note,
       f"#define REDNOSE_SCALAR {scalar}",
       '#include "generic_scan.cuh"',
       "",
@@ -740,23 +764,28 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   ]
   out += print_phase(predict_phase(spec, structure, pnames, q_pattern))
   out.append("}")
-  done = set()
-  for k, g in units:
-    if (k, g) in done:
+  # one function per distinct (kind, gate, R pattern); a second R pattern
+  # of the same feature kind and gate gets a suffix
+  names, done = [], {}
+  for (k, g), f, rp in zip(units, feature, r_patterns):
+    if (k, g, rp) in done:
+      names.append(done[(k, g, rp)])
       continue
-    done.add((k, g))
-    dz = spec.obs[k].dz
-    frame = mode == "frame"
+    n = sum(1 for kk, gg, _ in done if (kk, gg) == (k, g))
+    name = _unit_name(k, g, f) + (f"_r{n}" if n else "")
+    done[(k, g, rp)] = name
+    names.append(name)
     out += [
         "",
-        f"GEN_HD {inline} void {_unit_name(k, g, frame)}(scalar_t* x, "
-        "scalar_t* P, size_t ld, const scalar_t* z, const scalar_t* ea, "
-        "size_t ld_in, const scalar_t* R, const scalar_t* p) {",
+        f"GEN_HD {'GEN_PHASE' if f else 'GEN_INLINE'} void {name}("
+        "scalar_t* x, scalar_t* P, size_t ld, const scalar_t* z, "
+        "const scalar_t* ea, size_t ld_in, const scalar_t* R, "
+        "const scalar_t* p) {",
         "  (void)ea; (void)p; (void)R;",
     ]
-    ph = (frame_phase(spec, k, structure, pnames, g, r_pattern) if frame
+    ph = (frame_phase(spec, k, structure, pnames, g, rp) if f
           else update_phase(spec, k, structure, pnames, g))
-    out += print_phase(ph, dz)
+    out += print_phase(ph, spec.obs[k].dz)
     out.append("}")
   out += [
       "",
@@ -768,10 +797,9 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   ]
 
   def call(u, zrow, earow):
-    k, g = units[u]
     ea_arg = f"ea + (size_t){earow} * ld" if max_ea else "nullptr"
-    return (f"{_unit_name(k, g, mode == 'frame')}(x, P, ld, "
-            f"z + (size_t){zrow} * ld, {ea_arg}, ld, R + {r_off[u]}, p);")
+    return (f"{names[u]}(x, P, ld, z + (size_t){zrow} * ld, {ea_arg}, ld, "
+            f"R + {r_off[u]}, p);")
 
   if mode in ("single", "frame"):
     out.append("  " + call(0, 0, 0))

@@ -4,10 +4,13 @@
 rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan),
 `generic_bank_scan_epoch` replaces pallas_bank.py:_epoch_kernel
 (generic_bank_scan_epoch, flat form), `generic_bank_scan_mixed` replaces
-pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) without its MSCKF
-camera-frame branch, and `vo_bank_scan` replaces pallas_bank.py:_vo_kernel
+pallas_bank.py:_mixed_kernel (generic_bank_scan_mixed) with its MSCKF
+camera-frame branch (`_feature_frame_branch`, flat form): a step of an
+MSCKF feature kind is a camera frame, so one kernel interleaves frames
+with other sensors. `vo_bank_scan` replaces pallas_bank.py:_vo_kernel
 (vo_bank_scan, flat form): T MSCKF camera frames, each a block predict,
-the feature kind's projected update and the window augment. The CUDA
+the feature kind's projected update and the window augment. A camera
+frame is the same emitted unit in both (entry_slab.frame_phase). The CUDA
 source of each is emitted per spec variant by ops/entry_slab.py around
 csrc/generic_scan.cuh and built by nvcc at first use
 (rednose_tpu_torch/_build.py).
@@ -18,9 +21,9 @@ for epochs — eas likewise with the extra-args widths (a camera frame's
 landmark positions (T, ea_len, B)), dts (T,), kind_idx (T,) int32, pss
 (T, len(ps_keys)). Q, R and the params are run-time values: the emitted
 code depends only on the spec, the kinds, the structure, the param names,
-the streamed keys, the gate flags, Q's nonzero pattern, for a camera frame
-whether R is isotropic (else R's nonzero pattern), and the scalar type, so
-a new value of the same pattern never triggers a build.
+the streamed keys, the gate flags, Q's nonzero pattern, for each camera-
+frame unit whether its R is isotropic (else R's nonzero pattern), and the
+scalar type, so a new value of the same pattern never triggers a build.
 
 A `KernelCall` is one checked description of a call: the variant and its
 run-time values. The wrappers take one (call=), or make one from their
@@ -79,23 +82,25 @@ def r_pattern_of(R) -> object:
 
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
-            r_pattern=None):
+            r_patterns=None):
   """The variant's source for float; the double one differs only in its
   REDNOSE_SCALAR line, so each variant is emitted once."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
-      pnames, ps_keys, q_pattern, "float", r_pattern)
+      pnames, ps_keys, q_pattern, "float", r_patterns)
 
 
 class KernelCall:
   """One generic call, checked once: the spec, the mode ('single' /
   'mixed' / 'epoch' / 'frame'), the kind, kind set or slot kinds, the
   gate, the structure (None: the dense body) and the streamed param keys,
-  with Q, one R per kind or slot and the params. Refuses an unknown kind,
-  an MSCKF feature kind outside mode 'frame' (and anything else in it), an
-  asymmetric Q or R and a wrong number of R. The emitted source and the
-  device copies of the values are made at first use and kept."""
+  with Q, one R per kind or slot and the params. An MSCKF feature kind is
+  a camera frame: mode 'frame' takes one, mode 'mixed' takes them among
+  other kinds, and 'single' and 'epoch' refuse them. Refuses an unknown
+  kind, anything but a feature kind in mode 'frame', an asymmetric Q or R
+  and a wrong number of R. The emitted source and the device copies of
+  the values are made at first use and kept."""
 
   def __init__(self, spec: FilterSpec, mode: str, kinds, *, Q, R_list,
                params=None, gate: bool | None = None, structure=None,
@@ -110,11 +115,12 @@ class KernelCall:
     for k in kinds:
       if k not in spec.obs:
         raise ValueError(f"kind {k} not in spec {spec.name!r}")
-      if spec.obs[k].is_feature and mode != "frame":
+      if spec.obs[k].is_feature and mode not in ("frame", "mixed"):
         raise ValueError(
             f"kind {k} is an MSCKF feature kind: a camera frame runs in "
-            "mode 'frame' (vo_bank_scan); in a mixed schedule it comes with "
-            "the next slice (kernel 6's camera-frame branch)")
+            "mode 'frame' (vo_bank_scan, MSCKFBank.run_frames) or in a "
+            "mixed schedule (generic_bank_scan_mixed, MSCKFBank.run_mixed), "
+            f"not in mode {mode!r}")
       if mode == "frame" and not spec.obs[k].is_feature:
         raise ValueError(f"mode 'frame' takes an MSCKF feature kind, not "
                          f"kind {k}")
@@ -129,8 +135,11 @@ class KernelCall:
     self.Q = _host64(Q)
     self._q_pattern = entry_slab.q_pattern_of(self.Q)
     self.R_list = [_symmetric_R(spec, k, R) for k, R in zip(kinds, R_list)]
-    self._r_pattern = (r_pattern_of(self.R_list[0]) if mode == "frame"
-                       else None)
+    # a camera-frame unit's R variant key, None for every other unit;
+    # None for a call without a camera frame
+    rps = tuple(r_pattern_of(R) if spec.obs[k].is_feature else None
+                for k, R in zip(kinds, self.R_list))
+    self._r_patterns = rps if any(rp is not None for rp in rps) else None
     self._pnames = tuple(sorted(set(self.params) | set(self.ps_keys)))
     self._values = {}
 
@@ -149,7 +158,7 @@ class KernelCall:
       units = tuple((k, bool(self.gate) and spec.obs[k].maha_test)
                     for k in self.kinds)
     src = _source(spec, mode, units, self.structure, self._pnames,
-                  self.ps_keys, self._q_pattern, self._r_pattern)
+                  self.ps_keys, self._q_pattern, self._r_patterns)
     return src.replace("#define REDNOSE_SCALAR float",
                        f"#define REDNOSE_SCALAR {_SCALARS[dtype]}", 1)
 
@@ -302,11 +311,14 @@ def generic_bank_scan_mixed(x, P, zs, dts, kind_idx, *,
                             structure=None, eas=None, pss=None, ps_keys=(),
                             call: KernelCall | None = None):
   """T steps of a heterogeneous schedule: one predict, then the update of
-  kinds[kind_idx[t]] (the same kind for the whole bank at a step).
+  kinds[kind_idx[t]] (the same kind for the whole bank at a step); a step
+  of an MSCKF feature kind is a camera frame, its projected update and the
+  window augment.
 
-  zs (T, max_dz, B) and eas (T, max_ea_len, B) rows padded; kind_idx (T,)
-  int32; R_list per kind, aligned with kinds. Or call= a 'mixed'
-  KernelCall. Returns the new (x, P)."""
+  zs (T, max_dz, B) and eas (T, max_ea_len, B) rows padded (a camera
+  frame's landmark positions in its ea rows); kind_idx (T,) int32; R_list
+  per kind, aligned with kinds. Or call= a 'mixed' KernelCall. Returns
+  the new (x, P)."""
   call = _call_for(call, "mixed", spec, kinds, Q=Q, R_list=R_list,
                    params=params, gate=gate, structure=structure,
                    ps_keys=ps_keys)

@@ -319,7 +319,9 @@ def lane_mixed_bank_scan(spec: FilterSpec, kinds, params, x, P, Q, dts,
   kinds[kind_idx[t]]. zs (T, B, max_dz) and eas (T, B, max_ea_len) rows are
   padded; each kind reads its own leading columns. R_list: per-kind
   (dz, dz), aligned with kinds. gate True applies each kind's own
-  maha_test (reference semantics); False gates nothing."""
+  maha_test (reference semantics); False gates nothing. A step of an
+  MSCKF feature kind is a camera frame: its projected update, then the
+  window augment (JAX lane_bank.py:600-614)."""
   kinds = tuple(int(k) for k in kinds)
   max_ea = max(spec.obs[k].ea_len for k in kinds)
   _check_streams(dts.shape[0], eas, max_ea > 0, ps_keys, pss)
@@ -331,6 +333,8 @@ def lane_mixed_bank_scan(spec: FilterSpec, kinds, params, x, P, Q, dts,
         spec, om.kind, p_t, x, P, zs[t][:, :om.dz], R_list[ki],
         ea=eas[t][:, :om.ea_len] if om.ea_len else None,
         gate=gate and om.maha_test)
+    if om.is_feature:
+      x, P = lane_augment(spec, x, P)
   return x, P
 
 

@@ -11,24 +11,29 @@ bank scale:
     bank.observe_frame(t, z, ea)           # one frame, out-of-order OK
     bank.observe(t, kind, z)               # non-feature kinds (no augment)
     bank.run(dts, zs, kind)                # bulk non-feature stream
+    bank.run_mixed(dts, kind_idx, zs, kinds, eas=eas)  # frames + sensors
     bank.x, bank.P                         # (B, dim_x), (B, de, de)
 
 On a CUDA device every path runs a kernel, where the JAX facade sends six
 of its paths to the lane code even on the TPU:
 - run_frames launches kernel 7 (generic_scan.vo_bank_scan) for any T, and
   observe_frame kernel 7 with T = 1 (a replayed frame augments again);
+- run_mixed launches kernel 6 (generic_scan.generic_bank_scan_mixed): a
+  schedule that interleaves camera frames with other sensors, the
+  reference's production flow (predict_and_observe per sensor,
+  predict_and_update_batch(augment=True) per camera frame,
+  ekf_sym.py:458-531); a feature step runs kernel 6's camera-frame
+  branch, the same emitted unit as kernel 7's;
 - observe and run of a non-feature kind launch kernel 4 with the block
-  predict, run_epochs of non-feature slots kernel 5, run_mixed of a
-  schedule without the feature kind kernel 6;
+  predict, run_epochs of non-feature slots kernel 5;
 - Q enters on its nonzero pattern, so a full Q needs no lane path, and a
   spec whose structure cannot be detected gets the dense body of the same
   emitter.
-A schedule that mixes camera frames with other kinds (run_mixed with the
-feature kind, kernel 6's camera-frame branch) comes with the next slice
-and raises here, as does a feature kind in an epoch slot. On the CPU the
-same wrappers run the plain lane scans. State, time, the out-of-order
-rewind ring, diverged / reset_diverged and save / load come from
-KalmanBank and BankFacadeBase.
+A feature kind in an epoch slot raises, as in the JAX package: a camera
+frame augments the window, an epoch slot does not. On the CPU the same
+wrappers run the plain lane scans. State, time, the out-of-order rewind
+ring, diverged / reset_diverged and save / load come from KalmanBank and
+BankFacadeBase.
 """
 
 from __future__ import annotations
@@ -134,13 +139,19 @@ class MSCKFBank(KalmanBank):
 
   def run_mixed(self, dts, kind_idx, zs, kinds, R_by_kind=None, eas=None,
                 pss=None, ps_keys=()):
-    """A heterogeneous schedule of NON-FEATURE kinds (kernel 6). Camera
-    frames in a mixed schedule (kernel 6's camera-frame branch) come with
-    the next slice: such a schedule raises."""
-    if any(self.spec.obs[int(k)].is_feature for k in kinds):
-      raise ValueError(
-          "run_mixed with camera frames (kernel 6's camera-frame branch) "
-          "comes with the next slice of the port; run the frames with "
-          "run_frames / observe_frame")
+    """T steps of a schedule that may interleave camera frames with other
+    sensors (kernel 6 on CUDA, the plain mixed scan on the CPU): kinds is
+    the kind set, kind_idx (T,) indexes into it; a step of the feature
+    kind is a camera frame (predict, projected feature update, window
+    augment), any other step a predict and its update. zs (T, B, max_dz)
+    rows padded to the largest dz; eas (T, B, ea_len) the frames' landmark
+    positions (read on feature steps only), required iff the schedule has
+    the feature kind. Per-kind R defaults to obs_noise; each kind gates on
+    its own maha_test. Advances bank time by sum(dts)."""
+    kinds = tuple(int(k) for k in kinds)
+    has_feature = any(self.spec.obs[k].is_feature for k in kinds)
+    if (eas is None) == has_feature:
+      raise ValueError("pass eas (T, B, ea_len) iff the schedule has the "
+                       f"feature kind {self.feature_kind}")
     return super().run_mixed(dts, kind_idx, zs, kinds, R_by_kind=R_by_kind,
                              eas=eas, pss=pss, ps_keys=ps_keys)

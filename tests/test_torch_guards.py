@@ -12,6 +12,7 @@ import torch
 from rednose_tpu_torch.models.car import CarKalman
 from rednose_tpu_torch.models.kinematic import KinematicKalman
 from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+from rednose_tpu_torch.msckf import feature_handler
 from rednose_tpu_torch.ops import generic_scan, lane_bank, live_scan
 from rednose_tpu_torch.runtime.bank import BankState
 from rednose_tpu_torch.runtime.checkpoint import load_bank, save_bank
@@ -40,7 +41,7 @@ def test_port_imports_no_jax():
   out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
-  assert int(out.stdout.split()[-1]) >= 28   # every module was imported
+  assert int(out.stdout.split()[-1]) >= 30   # every module was imported
 
 
 @pytest.mark.parametrize("make", [
@@ -57,6 +58,19 @@ def test_cuda_request_never_runs_on_cpu(make):
   else:
     with pytest.raises(RuntimeError, match="cuda"):
       make()
+
+
+def test_track_store_defaults_to_the_card():
+  """empty_tracks places the store on the card unless the caller asks for
+  the CPU."""
+  if torch.cuda.is_available():
+    assert feature_handler.empty_tracks(4, 8).is_cuda
+  else:
+    with pytest.raises(RuntimeError, match="cuda"):
+      feature_handler.empty_tracks(4, 8)
+  tracks = feature_handler.empty_tracks(4, 8, device="cpu")
+  assert tracks.device.type == "cpu" and tracks.dtype == torch.float64
+  assert tuple(tracks.shape) == (8, 5, 5)
 
 
 def test_load_bank_defaults_to_the_card(tmp_path):
@@ -129,8 +143,15 @@ def test_generic_wrappers_never_run_the_plain_scans_off_the_cpu(
         x, P, torch.empty((2, 2, 1, 8), **m), dts, spec=spec,
         slot_kinds=(1, 2), Q=CarKalman.Q, R_list=Rs)
   vo = MSCKFEskf.build_spec()
+  xv, Pv = torch.empty((41, 8), **m), torch.empty((36, 36, 8), **m)
+  zv, eav = torch.empty((2, 8, 8), **m), torch.empty((2, 3, 8), **m)
   with pytest.raises(ValueError, match="CUDA"):
     generic_scan.vo_bank_scan(
-        torch.empty((41, 8), **m), torch.empty((36, 36, 8), **m),
-        torch.empty((2, 8, 8), **m), torch.empty((2, 3, 8), **m), dts,
-        spec=vo, kind=16, Q=MSCKFEskf.Q, R=MSCKFEskf.obs_noise[16])
+        xv, Pv, zv, eav, dts, spec=vo, kind=16, Q=MSCKFEskf.Q,
+        R=MSCKFEskf.obs_noise[16])
+  # a mixed schedule with camera frames (kernel 6's camera-frame branch)
+  with pytest.raises(ValueError, match="CUDA"):
+    generic_scan.generic_bank_scan_mixed(
+        xv, Pv, zv, dts, torch.zeros(2, dtype=torch.int32, **m), spec=vo,
+        kinds=(12, 16), Q=MSCKFEskf.Q,
+        R_list=[MSCKFEskf.obs_noise[12], MSCKFEskf.obs_noise[16]], eas=eav)

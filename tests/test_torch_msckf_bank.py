@@ -1,8 +1,9 @@
 """MSCKFBank(device="cpu") against the JAX MSCKFBank(use_pallas=False),
 float64, B = 8: camera frames in bulk (run_frames) and one by one
 (observe_frame, out of order), position fixes (run / observe), save /
-load, and the surfaces this slice leaves to the next (a mixed schedule
-with camera frames, a feature kind in an epoch slot), which raise."""
+load, and the surfaces a feature kind does not take (an epoch slot, a
+single-kind observe or run), which raise. Camera frames in a mixed
+schedule: tests/test_torch_vio_bank.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,18 +113,13 @@ def test_late_frame_and_save_load(tmp_path):
   assert other.t == tb.t
 
 
-def test_next_slice_surfaces_raise():
-  """A mixed schedule with camera frames (kernel 6's camera-frame branch)
-  and a feature kind in an epoch slot raise and name what to use; a
-  schedule without the feature kind runs (kernel 6), as do epochs of
-  position fixes (kernel 5)."""
+def test_feature_kind_surfaces_raise():
+  """A feature kind in an epoch slot, or through observe / run, raises and
+  names what to use; a schedule without the feature kind runs (kernel 6),
+  as do epochs of position fixes (kernel 5)."""
   tm = tes.MSCKFEskf
   xs, eas, zs, zpos = _frames(jes.MSCKFEskf, 2, seed=2)
   bank = MSCKFBank(tm, batch=B, dtype=torch.float64, x0=xs, device="cpu")
-  zmix = np.zeros((2, B, 8))
-  with pytest.raises(ValueError, match="next slice"):
-    bank.run_mixed(np.full(2, 0.05), np.array([0, 1]), zmix, (POS, KIND),
-                   eas=eas)
   with pytest.raises(ValueError, match="feature kind"):
     bank.run_epochs(np.full(1, 0.05), np.zeros((1, 1, B, 8)), (KIND,),
                     eas=np.zeros((1, 1, B, 3)))

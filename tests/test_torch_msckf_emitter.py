@@ -166,15 +166,18 @@ def test_augmented_store_loads_before_it_stores():
 
 
 def test_frame_calls_and_variants():
-  """A feature kind runs in mode 'frame' only, and mode 'frame' only a
-  feature kind; a mixed schedule with it names the next slice. R's
-  isotropy is part of the variant, its value is not."""
+  """A feature kind runs in mode 'frame' or in a mixed schedule, never as
+  a single-kind or epoch update, and mode 'frame' takes only a feature
+  kind. R's isotropy is part of the variant, its value is not."""
   spec = tvo.MSCKFVisualOdometry.build_spec()
   Q = tvo.MSCKFVisualOdometry.Q
   R = tvo.MSCKFVisualOdometry.obs_noise[KIND]
-  with pytest.raises(ValueError, match="next slice"):
-    generic_scan.KernelCall(spec, "mixed", (12, KIND), Q=Q,
-                            R_list=(np.eye(3), R))
+  for mode in ("single", "epoch"):
+    with pytest.raises(ValueError, match="run_mixed"):
+      generic_scan.KernelCall(spec, mode, (KIND,), Q=Q, R_list=(R,))
+  mixed = generic_scan.KernelCall(spec, "mixed", (12, KIND), Q=Q,
+                                  R_list=(np.eye(3), R)).source()
+  assert "GEN_PHASE void gen_frame_k16_g(" in mixed
   with pytest.raises(ValueError, match="mode 'frame' takes an MSCKF"):
     generic_scan.KernelCall(spec, "frame", (12,), Q=Q, R_list=(np.eye(3),))
   with pytest.raises(ValueError, match="takes one kind"):

@@ -38,6 +38,38 @@ def cuda_device():
   return torch.device("cuda")
 
 
+def vio_schedule(model, T, B, seed):
+  """A VIO schedule for a bank of B filters of an MSCKF model of the port
+  (its own h, float64, no JAX): lanes around the model's x0 with a spread
+  clone window, and T steps alternating camera frame (kind_idx 1, first)
+  and position fix (kind_idx 0) over kinds (POSITION 12, feature 16).
+  Frame rows: z = h(lane, landmark) + noise in zs[t, :, :dz] and the
+  landmark, about 6 m ahead, in eas[t]; fix rows: the lane position +
+  noise in zs[t, :, :3]; the rest 0. Returns (xs (B, dim_x), zs
+  (T, B, dz), eas (T, B, 3), kind_idx (T,) int32)."""
+  spec = model.build_spec()
+  om = spec.obs[16]
+  rng = np.random.RandomState(seed)
+  xs = np.tile(model.initial_x, (B, 1)) + 0.02 * rng.randn(B, spec.dim_x)
+  for a in range(spec.n_augment):
+    o = spec.dim_main + spec.dim_augment * a
+    xs[:, o:o + 3] += 0.5 * rng.randn(3)[None]
+  for idx in spec.quaternion_idxs:
+    xs[:, idx:idx + 4] /= np.linalg.norm(xs[:, idx:idx + 4], axis=1,
+                                         keepdims=True)
+  kind_idx = np.array([1 - t % 2 for t in range(T)], np.int32)
+  h = torch.func.vmap(lambda x, e: om.h({}, x, e))
+  zs = np.zeros((T, B, om.dz))
+  eas = np.zeros((T, B, om.ea_len))
+  for t in range(T):
+    if kind_idx[t]:
+      eas[t] = np.array([1.0, 0.5, 6.0]) + 0.1 * rng.randn(B, 3)
+      zs[t] = h(t64(xs), t64(eas[t])).numpy() + 0.005 * rng.randn(B, om.dz)
+    else:
+      zs[t, :, :3] = xs[:, 0:3] + 0.1 * rng.randn(B, 3)
+  return xs, zs, eas, kind_idx
+
+
 # ------------------------------------------------ host builds of emitted code
 # The generic kernels' emitted source (ops/entry_slab.py) is plain C++ over a
 # scalar_t typedef: the tests compile the text nvcc builds for a float64
