@@ -55,6 +55,13 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      plain version's. As a cross-check, the generic live kernels against
      the hand ones on the same inputs: kernel 4 (ECEF_POS, gate on)
      against kernel 2, kernel 6 against kernel 3 with its gate off.
+     Kernels 3 and 4 keep P in shared memory (a tile of 32 filters, the
+     step split across warps): kernel 3's launch shape as the CUDA
+     runtime reads it and its raw-launch time at T = 64 and T = 1; for
+     each mode-"single" variant of the main paths the design it took
+     (tile or global), its warps, shared memory a block, blocks an SM and
+     its raw-launch time at T = 64 and T = 1 (every float32 variant must
+     be a tile), and msckf_eskf's POSITION tile against its plain version.
 Prints the build times and ptxas lines, the card's name and power limit,
 a JSON line of the kernels, and last `{"ok": true, "device": {...}}`. Any
 failure raises (non-zero exit). It needs a CUDA card and the repository;
@@ -188,6 +195,83 @@ def timed_run(fn, reps):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps, out
+
+
+def kernel3_launch(lib, x, P, zs, dts, kind_idx, kinds, R_by_kind, q_diag,
+                   gate=False, r_stream=None, stream_kinds=()):
+  """A launch of kernel 3 from `lib` (live_bank_scan_mixed_launch) on
+  copies of x and P made once, the arguments prepared once: no checks or
+  copies between launches, so a timing of repeated launches (a T = 1 step
+  among them) is the kernel's own. Returns the zero-argument launch, which
+  returns the copies it updates (after its first call, the scan's
+  result)."""
+  import torch
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import live_lane
+  from rednose_tpu_torch.utils.chi2 import chi2_ppf
+
+  dev = x.device
+  x, P = x.clone(), P.clone()
+  T, B = dts.shape[0], x.shape[-1]
+  if r_stream is None:
+    r_stream = torch.zeros((T, 3), dtype=torch.float32, device=dev)
+  kinds_t = torch.tensor(kinds, dtype=torch.int32, device=dev)
+  flags = torch.tensor([int(k in stream_kinds) for k in kinds],
+                       dtype=torch.int32, device=dev)
+  thresh = torch.tensor([chi2_ppf(0.95, live_lane.LANE_KINDS[k][0])
+                         for k in kinds], dtype=torch.float32, device=dev)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+
+  def launch():
+    _build.check(lib.live_bank_scan_mixed_launch(
+        x.data_ptr(), P.data_ptr(), zs.data_ptr(), dts.data_ptr(),
+        kind_idx.data_ptr(), kinds_t.data_ptr(), R_by_kind.data_ptr(),
+        flags.data_ptr(), thresh.data_ptr(), r_stream.data_ptr(),
+        q_diag.data_ptr(), T, B, int(gate), stream), "kernel 3")
+    return x, P
+
+  return launch
+
+
+def kernel3_info(lib):
+  """Kernel 3's launch shape as the CUDA runtime reads it
+  (live_bank_scan_mixed_info, csrc/live_scan.cu)."""
+  import ctypes
+
+  from rednose_tpu_torch import _build
+
+  out = (ctypes.c_int * 6)()
+  _build.check(lib.live_bank_scan_mixed_info(ctypes.addressof(out)),
+               "live_bank_scan_mixed_info")
+  return dict(zip(("warps", "threads", "smem_bytes", "blocks_per_sm",
+                   "registers", "local_bytes"), out))
+
+
+def generic_launch(source, call, x, P, zs, dts, eas=None, pss=None,
+                   kind_idx=None, fn=None):
+  """A launch of the build of an emitted `source` (rn_generic_scan_launch,
+  or fn, another build's) with call's values, on copies of x and P made
+  once, no checks between launches (see kernel3_launch). Returns the
+  zero-argument launch."""
+  import torch
+
+  from rednose_tpu_torch import _build
+
+  fn = fn or _build.generated_launcher(source)
+  prm, Q, R = call.values(x.dtype, x.device)
+  x, P = x.clone(), P.clone()
+  T, B = dts.shape[0], x.shape[-1]
+  stream = torch.cuda.current_stream(x.device).cuda_stream
+  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+  def launch():
+    _build.check(fn(x.data_ptr(), P.data_ptr(), zs.data_ptr(), ptr(eas),
+                    dts.data_ptr(), ptr(kind_idx), ptr(pss), prm.data_ptr(),
+                    Q.data_ptr(), R.data_ptr(), T, B, stream), "kernel 4")
+    return x, P
+
+  return launch
 
 
 def emitted_ops(source):
@@ -405,10 +489,10 @@ def hand_kernel_ops(live_spec):
   k1 = gs.KernelCall(kin, "single", (1,), Q=KinematicKalman.Q,
                      R_list=(KinematicKalman.obs_noise[1],), gate=True,
                      structure=sparsity.structure_for(
-                         kin, KinematicKalman.initial_x)).source()
+                         kin, KinematicKalman.initial_x)).counting_source()
   k2 = gs.KernelCall(live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
                      R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
-                     structure=st).source()
+                     structure=st).counting_source()
   k3 = gs.KernelCall(live_spec, "mixed", mixed_kinds(), Q=LiveKalman.Q,
                      R_list=[LiveKalman.obs_noise[k] for k in mixed_kinds()],
                      structure=st).source()
@@ -427,6 +511,7 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
   update; and where the data disagree with the state, many measurements
   sit at the gate, where a rounding difference flips the decision. Either
   way two float32 programs part by whole sigmas whatever their quality."""
+  from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
   from rednose_tpu_torch.ops import kinematic_scan, live_scan
   from rednose_tpu_torch.utils.compare import (
@@ -486,6 +571,21 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
       live_err, LIVE_TOL, 5,
       f"B={LIVE_B} T={CMP_T} gate on, 4 kinds, 1 streamed",
       ops["live_bank_scan_mixed"] * LIVE_B * CMP_T))
+  # the tile's load and store weigh most at T = 1 (an observe call): raw
+  # launches, so the wrapper's checks and copies are not in the time
+  lib = _build.library()
+  zs3 = zs_m.permute(0, 2, 1).contiguous()
+  ki3 = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
+  raw = {T: timed_run(kernel3_launch(
+      lib, x_m, P_m, zs3[:T], dts[:T], ki3[:T], kinds, R_by_kind, q_diag,
+      True, r_stream[:T], (K.CAMERA_ODO_ROTATION,)), 20 if T == 1 else 5)[0]
+         for T in (CMP_T, 1)}
+  info = kernel3_info(lib)
+  log(f"live_bank_scan_mixed design: a block of 32 filters x "
+      f"{info['warps']} warps, {info['smem_bytes']} B of shared memory a "
+      f"block, {info['blocks_per_sm']} blocks an SM, {info['registers']} "
+      f"registers, {info['local_bytes']} B local a thread; raw launches "
+      f"T={CMP_T} {raw[CMP_T]:.4f} ms, T=1 {raw[1]:.4f} ms")
 
   bad = [r["name"] for r in rows if not r["ok"]]
   require(not bad, f"kernels agree with their plain versions: {bad}")
@@ -551,9 +651,9 @@ def loc_slots():
   return (K.PSEUDORANGE_GPS,) * 4 + (K.PSEUDORANGE_RATE_GPS,) * 4
 
 
-def generic_sources(live_spec):
-  """The emitted source of every generic kernel variant the main path
-  launches, for the calls the facades make (ops/generic_scan.KernelCall)."""
+def generic_calls(live_spec):
+  """The call (ops/generic_scan.KernelCall) of every generic kernel
+  variant the main path launches, as the facades make them."""
   from rednose_tpu_torch.models.car import ObservationKind as CK
   from rednose_tpu_torch.models.live import ObservationKind as K
   from rednose_tpu_torch.ops import generic_scan as gs, sparsity
@@ -561,24 +661,29 @@ def generic_sources(live_spec):
   CarKalman, LocKalman, LiveKalman, _ = generic_models()
   car, loc = CarKalman.build_spec(), LocKalman.build_spec()
 
-  def source(model, spec, mode, kinds, **kw):
+  def call(model, spec, mode, kinds, **kw):
     return gs.KernelCall(
         spec, mode, kinds, Q=model.Q,
         R_list=[model.obs_noise[k] for k in kinds],
-        structure=sparsity.structure_for(spec, model.initial_x), **kw
-    ).source()
+        structure=sparsity.structure_for(spec, model.initial_x), **kw)
 
   return {
-      "car run (kernel 4)": source(CarKalman, car, "single", (CK.YAW_RATE,),
-                                   ps_keys=PS_KEYS),
-      "loc run_epochs (kernel 5)": loc_epoch_call().source(),
-      "loc observe (kernel 4)": source(LocKalman, loc, "single",
-                                       (K.PSEUDORANGE_GPS,)),
-      "live run, gate on (kernel 4)": source(
+      "car run (kernel 4)": call(CarKalman, car, "single", (CK.YAW_RATE,),
+                                 ps_keys=PS_KEYS),
+      "loc run_epochs (kernel 5)": loc_epoch_call(),
+      "loc observe (kernel 4)": call(LocKalman, loc, "single",
+                                     (K.PSEUDORANGE_GPS,)),
+      "live run, gate on (kernel 4)": call(
           LiveKalman, live_spec, "single", (K.ECEF_POS,), gate=True),
-      "live run_mixed (kernel 6)": source(LiveKalman, live_spec, "mixed",
-                                          mixed_kinds()),
+      "live run_mixed (kernel 6)": call(LiveKalman, live_spec, "mixed",
+                                        mixed_kinds()),
   }
+
+
+def generic_sources(live_spec):
+  """The emitted source of every generic kernel variant the main path
+  launches."""
+  return {name: c.source() for name, c in generic_calls(live_spec).items()}
 
 
 def loc_epoch_call(Q=None, R_list=None):
@@ -762,7 +867,7 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
   def call_ops(mode, spec, kinds, T, **kw):
     """Operations of T steps of a bank of GEN_B filters of this call; a
     mixed schedule cycles through its kinds evenly."""
-    source = gs.KernelCall(spec, mode, kinds, **kw).source()
+    source = gs.KernelCall(spec, mode, kinds, **kw).counting_source()
     return step_ops(source, kinds, mode) * T * GEN_B
 
   def run(*a, **k):
@@ -952,6 +1057,92 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
   return rows
 
 
+def single_variants(torch, dev, gen, live_spec, states, reps=20):
+  """Kernel 4's variants on the main paths (mode 'single'): the design each
+  took (tile or global), its warps, shared memory a block, blocks an SM,
+  registers and local bytes as the CUDA runtime reads them, and its time
+  (raw launches, CUDA events) at T = CMP_T and T = 1, from the main path's
+  car and live banks or a fresh bank (loc, msckf_eskf) with data of the
+  main path's kind. Every float32 variant the smoke builds must be a
+  tile."""
+  from rednose_tpu_torch import _build
+
+  CarKalman, LocKalman, _, _ = generic_models()
+  ESKF = msckf_models()[1]
+  f32 = dict(dtype=torch.float32, device=dev)
+  calls = generic_calls(live_spec)
+  calls["msckf_eskf observe POSITION (kernel 4)"] = msckf_position_call()
+  T = CMP_T
+
+  def fresh(model, xs):
+    return (torch.as_tensor(xs.T, **f32).contiguous(),
+            torch.as_tensor(np.diag(model.initial_P_diag), **f32)[
+                :, :, None].repeat(1, 1, xs.shape[0]))
+
+  _, zs, pss = car_data(torch, dev, T, SEED + 6)
+  x_loc, P_loc = fresh(LocKalman, np.tile(LocKalman.initial_x, (GEN_B, 1)))
+  truth = torch.as_tensor(LocKalman.initial_x[:3], **f32)[None, :, None]
+  sats = truth + 2.0e7 * torch.randn((T, 3, GEN_B), generator=gen, **f32)
+  x_live, P_live = states["live"]
+  xs = msckf_bank_x0(ESKF, SEED + 7)
+  x_es = torch.as_tensor(xs.T, **f32).contiguous()
+  P_es = MSCKF_P0 * torch.eye(36, **f32)[:, :, None].repeat(1, 1, MSCKF_B)
+  inputs = {
+      "car run (kernel 4)": (
+          *states["car"], zs.permute(0, 2, 1).contiguous(),
+          torch.full((T,), 0.05, **f32), None, torch.as_tensor(pss, **f32)),
+      "loc observe (kernel 4)": (
+          x_loc, P_loc, (sats - truth).norm(dim=1, keepdim=True), torch.full(
+              (T,), 0.1, **f32), sats, None),
+      "live run, gate on (kernel 4)": (
+          x_live, P_live, (x_live[None, 0:3] + 5.0 * torch.randn(
+              (T, 3, GEN_B), generator=gen, **f32)).contiguous(),
+          torch.full((T,), 0.01, **f32), None, None),
+      "msckf_eskf observe POSITION (kernel 4)": (
+          x_es, P_es, (x_es[None, 0:3] + torch.randn(
+              (T, 3, MSCKF_B), generator=gen, **f32)).contiguous(),
+          torch.full((T,), MSCKF_DT, **f32), None, None),
+  }
+  out = {}
+  for name, (x, P, zs, dts, eas, pss) in inputs.items():
+    call = calls[name]
+    src = call.source()
+    info = _build.generated_info(src)
+
+    def launch(n):
+      return generic_launch(src, call, x, P, zs[:n], dts[:n],
+                            None if eas is None else eas[:n],
+                            None if pss is None else pss[:n])
+
+    ms = {n: timed_run(launch(n), reps if n == 1 else 5)[0] for n in (T, 1)}
+    out[name] = dict(info, ms=ms[T], ms_T1=ms[1])
+    log(f"{name}: design {'tile' if info['design'] else 'global'}, "
+        f"{info['warps']} warps a block of {info['threads']} threads, "
+        f"{info['smem_bytes']} B of shared memory a block, "
+        f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
+        f"registers, {info['local_bytes']} B local a thread; raw launches "
+        f"B={x.shape[-1]} T={T} {ms[T]:.4f} ms, T=1 {ms[1]:.4f} ms")
+    require(info["design"] == 1, f"{name}: the float32 variant is a tile")
+  # msckf_eskf's POSITION tile (a 36 x 36 P, one block an SM) against its
+  # plain version, as compare_generic holds the car and live variants
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  name = "msckf_eskf observe POSITION (kernel 4)"
+  call, n, checks = calls[name], MSCKF_CMP_T, []
+  x, P, zs, dts = inputs[name][:4]
+  kernel_vs_plain(
+      "generic_bank_scan", "", "", call.spec, gs.generic_bank_scan,
+      gs.generic_bank_scan_reference, (x, P, zs[:n], dts[:n]),
+      dict(spec=call.spec, kind=MSCKF_POS, Q=call.Q, R=call.R_list[0],
+           structure=call.structure),
+      f"msckf_eskf POSITION B={MSCKF_B} T={n}",
+      step_ops(call.counting_source(), (MSCKF_POS,)) * n * MSCKF_B,
+      checks=checks, reps=5)
+  require(all(ok for _, ok in checks),
+          "msckf_eskf's POSITION tile agrees with its plain version")
+  return out
+
+
 # ------------------------------------------------------------ MSCKF bank
 
 def msckf_models():
@@ -985,20 +1176,27 @@ def msckf_call(model, Q=None, R=None):
       structure=sparsity.structure_for(spec, model.initial_x))
 
 
+def msckf_position_call():
+  """Kernel 4's call for msckf_eskf's position fixes (MSCKFBank.observe)."""
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  ESKF = msckf_models()[1]
+  eskf = ESKF.build_spec()
+  return gs.KernelCall(
+      eskf, "single", (MSCKF_POS,), Q=msckf_setup(ESKF)[2],
+      R_list=(ESKF.obs_noise[MSCKF_POS],),
+      structure=sparsity.structure_for(eskf, ESKF.initial_x))
+
+
 def msckf_sources():
   """The emitted sources the MSCKF path launches: kernel 7 for both models
   and kernel 4 for msckf_eskf's position fixes (observe)."""
-  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
-
   VO, ESKF = msckf_models()
-  eskf = ESKF.build_spec()
   return {
       "msckf_vo run_frames (kernel 7)": msckf_call(VO).source(),
       "msckf_eskf run_frames (kernel 7)": msckf_call(ESKF).source(),
-      "msckf_eskf observe POSITION (kernel 4)": gs.KernelCall(
-          eskf, "single", (MSCKF_POS,), Q=msckf_setup(ESKF)[2],
-          R_list=(ESKF.obs_noise[MSCKF_POS],),
-          structure=sparsity.structure_for(eskf, ESKF.initial_x)).source(),
+      "msckf_eskf observe POSITION (kernel 4)":
+          msckf_position_call().source(),
   }
 
 
@@ -1637,6 +1835,7 @@ def main():
   rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
   rows += compare_generic(torch, dev, gens[1], generic_states,
                           live_states["live_bank_scan"][2])
+  single_variants(torch, dev, gens[1], live_spec, generic_states)
   rows += compare_msckf(torch, dev, gens[2])
   rows += compare_vio(torch, dev, gens[3])
   # no one PyTorch call computes a fused T-step filter scan: library_ms null

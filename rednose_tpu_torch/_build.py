@@ -57,6 +57,9 @@ SIGNATURES = {
     # r_stream, q_diag, T, B, gate, stream
     "live_bank_scan_mixed_launch":
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # out (6 ints): warps, threads, shared memory bytes, blocks an SM
+    # holds, registers, local bytes of kernel 3
+    "live_bank_scan_mixed_info": (_P,),
 }
 
 
@@ -196,6 +199,18 @@ def generated_launcher(source: str):
   fn.argtypes = list(GEN_ARGTYPES)
   fn.restype = ctypes.c_int
   return fn
+
+
+def generated_info(source: str) -> dict:
+  """The launch shape of one emitted source's kernel, as the CUDA runtime
+  reads it (rn_generic_scan_info, csrc/generic_scan.cuh)."""
+  fn = ctypes.CDLL(str(build_generated_many([source])[0])).rn_generic_scan_info
+  fn.argtypes = [ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  out = (ctypes.c_int * 7)()
+  check(fn(ctypes.addressof(out)), "rn_generic_scan_info")
+  return dict(zip(("design", "warps", "threads", "smem_bytes",
+                   "blocks_per_sm", "registers", "local_bytes"), out))
 
 
 def generated_ptxas(source: str) -> str:

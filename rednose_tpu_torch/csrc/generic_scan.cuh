@@ -22,33 +22,51 @@
 // An emitted source defines REDNOSE_SCALAR (float, or double for a float64
 // bank and the host tests) and includes this file twice. The first include
 // (the prelude) defines scalar_t as that type, GEN_HD / GEN_INLINE and the
-// g_* math overloads the emitted code calls. The emitted code then defines, in namespace rn_gen,
-// the constants DX, DE, NP, NPS, NZROWS, NEAROWS, ps_idx(i) and
-// gen_step(x, P, ld, z, ea, dt, ki, p, Q, R): one predict and the step's
-// updates of one filter. The second include (REDNOSE_GENERIC_SCAN_LOOPS)
-// adds the scan loop, the __global__ kernel and its C entry point under
-// nvcc, or a host loop over the bank under a host compiler: the same
-// emitted text runs in both.
+// g_* math overloads the emitted code calls. The emitted code then defines,
+// in namespace rn_gen, the constants DX, DE, NP, NPS, NZROWS, NEAROWS and
+// ps_idx(i), and either gen_step(x, P, ld, z, ea, dt, ki, p, Q, R), one
+// predict and the step's updates of one filter (the global form), or, for
+// kernel 4 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES, NSCR, NVAL and
+// the role dispatchers gen_tile_*. The second include
+// (REDNOSE_GENERIC_SCAN_LOOPS) adds the scan loop, the __global__ kernel
+// and its C entry points under nvcc, or a host loop over the bank under a
+// host compiler: the same emitted text runs in both.
 //
 // Layout, bank-minor: xs (DX, B), Ps (DE, DE, B), zs (T, NZROWS, B), eas
 // (T, NEAROWS, B), dts (T,), kind_idx (T,) int32, pss (T, NPS); the
 // params vector prm (NP,), Q (DE, DE) and the packed per-unit R are
 // run-time inputs, so a new value never needs a new build.
 //
-// Design (kernel 2's, csrc/live_scan.cu): one thread per filter and the T
-// loop inside the kernel, so the state never leaves the card during a
-// scan. x is a thread-local array that the emitted code indexes with
-// constants, so it lives in registers. P stays in global memory,
-// updated in place, read and written at constant offsets; across a warp
-// every access is one coalesced 128-byte line. dts, kind_idx and the pss
-// row are read once per step. The emitted body is straight-line scalar
-// code; what does not fit in registers, nvcc spills to local memory (the
-// ptxas report kept beside each build says how much). Bound: the L2
-// traffic of P (at B = 8192 a 22 x 22 bank is 15.9 MB, at B = 4096 a
-// 36 x 36 MSCKF bank 21.2 MB, resident in the 50 MB L2) and local-memory
-// traffic of the spills; kernel 7's augmented store reads nearly every
-// old P entry before it writes another, so its body holds most of P in
-// registers or local memory. Making it fast is later work.
+// Kernel 4's tile form (mode "single" whenever 32 filters' P, x and update
+// scratch fit in a block's shared memory, which every float32 variant the
+// port ships does; ops/entry_slab.py decides when it emits the source and
+// names the design in its header): a block of 32 filters (lane = filter)
+// and NROLES warps (role = warp) keeps P, x and the scratch in shared
+// memory for the whole T loop, and splits each step's phases over the
+// warps between barriers (see the tile section below). At B = 8192 that is
+// NROLES x the warps in flight of one thread a filter, every P access a
+// shared-memory access. Bound: operations (the live ECEF_POS variant
+// 0.04977 ms at B = 8192, T = 64, 67 TFLOP/s), against which redundant
+// work across roles (shared subexpressions of the predict that more than
+// one role needs are computed by each) and the serial update sub-phase
+// count.
+//
+// The global form (modes "mixed", "epoch", "frame", and a "single" variant
+// whose tile does not fit: msckf_eskf's POSITION kind in double), kernel
+// 2's design (csrc/live_scan.cu): one thread per filter and the T loop
+// inside the kernel, so the state never leaves the card during a scan. x
+// is a thread-local array that the emitted code indexes with constants, so
+// it lives in registers. P stays in global memory, updated in place, read
+// and written at constant offsets; across a warp every access is one
+// coalesced 128-byte line. dts, kind_idx and the pss row are read once per
+// step. The emitted body is straight-line scalar code; what does not fit
+// in registers, nvcc spills to local memory (the ptxas report kept beside
+// each build says how much). Bound: the L2 traffic of P (at B = 8192 a
+// 22 x 22 bank is 15.9 MB, at B = 4096 a 36 x 36 MSCKF bank 21.2 MB,
+// resident in the 50 MB L2) and local-memory traffic of the spills; kernel
+// 7's augmented store reads nearly every old P entry before it writes
+// another, so its body holds most of P in registers or local memory.
+// Making it fast is later work.
 //
 // Numerics: IEEE, no fast-math, in float or double as the bank's dtype
 // says (the wrappers pick the variant). P stays bitwise symmetric: each symmetric
@@ -134,6 +152,163 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 
 #endif  // REDNOSE_GENERIC_SCAN_PRELUDE
 #else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
+#ifdef REDNOSE_GENERIC_SCAN_TILE
+
+// Kernel 4 in tile form (mode "single" when the tile fits): a block of 32
+// filters (lane = filter) and NROLES warps (role = warp). P, x and the
+// update's NSCR scratch values of its 32 filters stay in the block's
+// dynamic shared memory for the whole T loop, laid out [(value)][32] so a
+// warp's 32 lanes touch 32 consecutive words; they are loaded once,
+// coalesced, from the bank-minor arrays and stored once at the end. Each
+// step runs in phases between barriers: every role computes its share of
+// the predicted P (and role 0 the new x) into NVAL registers, barrier, every
+// role stores its share, barrier; role 0 computes the update's shared
+// values (gated gains, Joseph factor rows, dx) into the scratch, barrier;
+// every role computes its share of the updated P (role 0 the new x) from P
+// and the scratch, barrier, stores, barrier. A lane past the bank (the last
+// block of a ragged bank) computes on a copy of filter B - 1, reaches every
+// barrier and stores nothing. The emitted dispatchers gen_tile_* switch on
+// the role, which is uniform across a warp.
+
+namespace rn_gen {
+constexpr int TILE_LANES = 32;
+constexpr int TILE_VALS = DE * DE + DX + NSCR;
+}  // namespace rn_gen
+
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
+rn_generic_tile_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    const scalar_t* __restrict__ zs, const scalar_t* __restrict__ eas,
+    const scalar_t* __restrict__ dts, const scalar_t* __restrict__ pss,
+    const scalar_t* __restrict__ prm, const scalar_t* __restrict__ Q,
+    const scalar_t* __restrict__ R, int T, int B) {
+  using namespace rn_gen;
+  extern __shared__ __align__(16) unsigned char rn_tile[];
+  scalar_t* Pt = reinterpret_cast<scalar_t*>(rn_tile);
+  scalar_t* xt = Pt + DE * DE * TILE_LANES;
+  scalar_t* st = xt + DX * TILE_LANES;
+  const int lane = threadIdx.x, role = threadIdx.y;
+  const int b = blockIdx.x * TILE_LANES + lane;
+  const int bc = b < B ? b : B - 1;
+  for (int e = role; e < DE * DE; e += NROLES)
+    Pt[e * TILE_LANES + lane] = Ps[(size_t)e * B + bc];
+  for (int i = role; i < DX; i += NROLES)
+    xt[i * TILE_LANES + lane] = xs[(size_t)i * B + bc];
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  scalar_t* P = Pt + lane;
+  scalar_t* x = xt + lane;
+  scalar_t* s = st + lane;
+  const size_t ld = TILE_LANES;
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    for (int i = 0; i < NPS; ++i) p[ps_idx(i)] = pss[(size_t)t * NPS + i];
+    const scalar_t dt = dts[t];
+    const scalar_t* z = zs + (size_t)t * NZROWS * B + bc;
+    const scalar_t* ea =
+        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + bc : nullptr;
+    scalar_t v[NVAL];
+    gen_tile_predict(role, x, P, ld, dt, p, Q, v);
+    __syncthreads();
+    gen_tile_predict_store(role, x, P, ld, v);
+    __syncthreads();
+    if (role == 0) gen_tile_shared(x, P, ld, z, ea, (size_t)B, R, p, s);
+    __syncthreads();
+    gen_tile_update(role, x, P, ld, z, ea, (size_t)B, R, p, s, v);
+    __syncthreads();
+    gen_tile_update_store(role, x, P, ld, v);
+    __syncthreads();
+  }
+  if (b < B) {
+    for (int e = role; e < DE * DE; e += NROLES)
+      Ps[(size_t)e * B + b] = Pt[e * TILE_LANES + lane];
+    for (int i = role; i < DX; i += NROLES)
+      xs[(size_t)i * B + b] = xt[i * TILE_LANES + lane];
+  }
+}
+
+static const int rn_tile_smem =
+    (int)sizeof(scalar_t) * rn_gen::TILE_LANES * rn_gen::TILE_VALS;
+
+extern "C" int rn_generic_scan_launch(void* xs, void* Ps, const void* zs,
+                                      const void* eas, const void* dts,
+                                      const void* kind_idx, const void* pss,
+                                      const void* prm, const void* Q,
+                                      const void* R, int T, int B,
+                                      void* stream) {
+  (void)kind_idx;
+  cudaError_t e = cudaFuncSetAttribute(
+      rn_generic_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rn_tile_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + rn_gen::TILE_LANES - 1) / rn_gen::TILE_LANES;
+  rn_generic_tile_kernel<<<blocks, dim3(rn_gen::TILE_LANES, rn_gen::NROLES),
+                           rn_tile_smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+      static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+      static_cast<const scalar_t*>(dts), static_cast<const scalar_t*>(pss),
+      static_cast<const scalar_t*>(prm), static_cast<const scalar_t*>(Q),
+      static_cast<const scalar_t*>(R), T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape as the runtime reads it (rn_generic_scan_info below)
+#define RN_GEN_KERNEL rn_generic_tile_kernel
+#define RN_GEN_DESIGN 1
+#define RN_GEN_ROLES rn_gen::NROLES
+#define RN_GEN_SMEM rn_tile_smem
+
+#else
+
+// The host build of the tile form (tests): filter by filter, a copy of its
+// P, x and scratch (ld = 1), each phase in barrier order: every role
+// computes, then every role stores.
+extern "C" int rn_generic_scan_host(void* xs_, void* Ps_, const void* zs_,
+                                    const void* eas_, const void* dts_,
+                                    const void* kind_idx, const void* pss_,
+                                    const void* prm, const void* Q_,
+                                    const void* R_, int T, int B) {
+  using namespace rn_gen;
+  (void)kind_idx;
+  scalar_t* xs = static_cast<scalar_t*>(xs_);
+  scalar_t* Ps = static_cast<scalar_t*>(Ps_);
+  const scalar_t* zs = static_cast<const scalar_t*>(zs_);
+  const scalar_t* eas = static_cast<const scalar_t*>(eas_);
+  const scalar_t* dts = static_cast<const scalar_t*>(dts_);
+  const scalar_t* pss = static_cast<const scalar_t*>(pss_);
+  const scalar_t* Q = static_cast<const scalar_t*>(Q_);
+  const scalar_t* R = static_cast<const scalar_t*>(R_);
+  for (int b = 0; b < B; ++b) {
+    scalar_t x[DX], P[DE * DE], s[NSCR > 0 ? NSCR : 1];
+    scalar_t v[NROLES][NVAL];
+    for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+    for (int e = 0; e < DE * DE; ++e) P[e] = Ps[(size_t)e * B + b];
+    scalar_t p[NP > 0 ? NP : 1];
+    for (int i = 0; i < NP; ++i) p[i] = static_cast<const scalar_t*>(prm)[i];
+    for (int t = 0; t < T; ++t) {
+      for (int i = 0; i < NPS; ++i) p[ps_idx(i)] = pss[(size_t)t * NPS + i];
+      const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
+      const scalar_t* ea =
+          NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_predict(r, x, P, 1, dts[t], p, Q, v[r]);
+      for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
+      gen_tile_shared(x, P, 1, z, ea, (size_t)B, R, p, s);
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_update(r, x, P, 1, z, ea, (size_t)B, R, p, s, v[r]);
+      for (int r = 0; r < NROLES; ++r) gen_tile_update_store(r, x, P, 1, v[r]);
+    }
+    for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+    for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = P[e];
+  }
+  return 0;
+}
+
+#endif  // __CUDACC__
+#else   // REDNOSE_GENERIC_SCAN_TILE
+
 
 namespace rn_gen {
 
@@ -196,6 +371,11 @@ extern "C" int rn_generic_scan_launch(void* xs, void* Ps, const void* zs,
   return static_cast<int>(cudaGetLastError());
 }
 
+#define RN_GEN_KERNEL rn_generic_scan_kernel
+#define RN_GEN_DESIGN 0
+#define RN_GEN_ROLES 1
+#define RN_GEN_SMEM 0
+
 #else
 
 // The host build of the same emitted body (tests): a loop over the bank.
@@ -214,5 +394,37 @@ extern "C" int rn_generic_scan_host(void* xs, void* Ps, const void* zs,
   return 0;
 }
 
+#endif  // __CUDACC__
+#endif  // REDNOSE_GENERIC_SCAN_TILE
+
+#ifdef __CUDACC__
+// The variant's launch shape as the runtime reads it: out[0] the design (1
+// tile, 0 global), out[1] warps a block, out[2] threads a block, out[3]
+// dynamic shared memory bytes, out[4] blocks an SM holds at once, out[5]
+// registers a thread, out[6] local memory (stack) bytes a thread.
+extern "C" int rn_generic_scan_info(int* out) {
+  const int threads = 32 * RN_GEN_ROLES;
+  cudaError_t e = cudaSuccess;
+  if (RN_GEN_SMEM > 0)
+    e = cudaFuncSetAttribute(RN_GEN_KERNEL,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             RN_GEN_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, RN_GEN_KERNEL,
+                                                    threads, RN_GEN_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, RN_GEN_KERNEL);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = RN_GEN_DESIGN;
+  out[1] = RN_GEN_ROLES;
+  out[2] = threads;
+  out[3] = RN_GEN_SMEM;
+  out[4] = blocks;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
 #endif  // __CUDACC__
 #endif  // REDNOSE_GENERIC_SCAN_LOOPS

@@ -13,29 +13,46 @@
 // rednose_tpu_torch/ops/live_scan.py.
 //
 // Layout, bank-minor: x (23, B), P (22, 22, B), zs (T, 3, B). Element (i, j)
-// of filter b's covariance is P[(i * 22 + j) * B + b], so the 32 threads of
-// a warp touch 32 consecutive floats for every (i, j): each access is one
-// coalesced 128-byte line.
+// of filter b's covariance is P[(i * 22 + j) * B + b], so 32 consecutive
+// filters' values of every (i, j) are one coalesced 128-byte line.
 //
-// Design: one thread per filter, a loop over T inside the kernel (the TPU
-// grid's sequential time axis). x (23 floats) stays in registers. P does
-// not fit: 484 floats exceed the 255 registers a thread may hold. Of the
-// two places left, this kernel keeps P in global memory, updated in place,
-// rather than in a shared-memory tile (1,936 B per filter, at most ~117
-// filters per block in 227 KB): at B = 8192 the whole bank is 15.9 MB and
-// stays resident in the 50 MB L2 across all T steps, every P access is
-// coalesced, and no block-size limit follows from the tile. Bound: L2
-// traffic of P, about 1,000 float reads and writes per filter per step
-// (M rows, the TL/TR blocks, HP, the full Joseph downdate), ~33 MB of L2
-// traffic per step at B = 8192.
+// Kernel 2's design: one thread per filter, a loop over T inside the
+// kernel (the TPU grid's sequential time axis). x (23 floats) stays in
+// registers. P does not fit: 484 floats exceed the 255 registers a thread
+// may hold; kernel 2 keeps P in global memory, updated in place: at
+// B = 8192 the whole bank is 15.9 MB and stays resident in the 50 MB L2
+// across all T steps, every P access is coalesced. Bound: operations,
+// 0.04977 ms at B = 8192, T = 64; in practice the L2 latency of ~1,000 P
+// accesses a filter a step, which nothing hides with one warp an SM or
+// two. The temporaries M (9 x 22), N (9 x 9), HP, K and the Joseph factor
+// (3 x 22 each) are thread-local arrays with run-time indices, in local
+// memory. ptxas -v (CUDA 12.8, sm_90a): 200 registers, 1,384-byte stack.
 //
-// The temporaries M (9 x 22), N (9 x 9), HP, K and the Joseph factor
-// (3 x 22 each) are thread-local arrays with run-time indices, so they
-// live in the stack frame in local memory rather than in registers.
-// ptxas -v (CUDA 12.8, sm_90a): live_bank_scan_kernel 200 registers,
-// 1,384-byte stack frame; live_bank_scan_mixed_kernel 80 registers,
-// 2,344-byte stack frame; both 0 bytes of register spill stores/loads.
-// Keeping them out of local memory is later work.
+// Kernel 3's design (csrc/live_mixed.cuh, redesigned for the H100): a
+// block of 32 filters (lane = filter) and live_mixed::WARPS warps (role =
+// warp). P, x and 225 scratch values a filter stay in the block's shared
+// memory for the whole T loop, 93,696 B a block, laid out [(value)][32] so
+// a warp's 32 lanes touch 32 consecutive words (no bank conflict); they are
+// loaded once, coalesced, from the bank-minor arrays and stored once. A
+// step is five phases between barriers: the nominal predict of x and the
+// 27 coefficients of dt A (one warp); M = (dt A) P rows 0:9 into the
+// scratch (the warps split the columns); the P predict (the warps split
+// the 45 entries of the 9 x 9 block and the columns of the coupling and
+// the diagonal Q adds); the innovation of the step's kind (one warp, once
+// a filter: h, H, HP, S, S^-1, the gate, K and the Joseph factor into the
+// scratch, the error injection of x); the Joseph downdate (the warps split
+// the 253 upper-triangle entries). The update is a template on the kind,
+// so dz, the H blocks and their widths are constants, every loop unrolls
+// and HP, S^-1, K and Tm live in registers or the scratch, never on the
+// stack. The kind switch is uniform across the bank, so no warp diverges.
+// Bound: operations, 0.05562 ms at B = 8192, T = 64 (the live 4-kind
+// cycle, 67 TFLOP/s float32). The one-thread-a-filter kernel 3 it
+// replaces ran 9.0530 ms there (80 registers, a 2,344-byte stack for HP,
+// K and Tm with run-time indices, P through L2). ptxas -v (CUDA 12.8,
+// sm_90a, WARPS = 4): 168 registers, a 32-byte stack frame (sinf / cosf's
+// slow path), 0 bytes of spill stores / loads; the runtime fits 2 blocks
+// an SM. WARPS = 4 is the fastest of 1, 2, 4 and 8 (sweep_warps.py;
+// PERF.md has the times).
 //
 // Numerics (IEEE f32, no fast-math: the gyro and accel kinds call sinf /
 // cosf): P stays bitwise symmetric because every symmetric entry is
@@ -47,6 +64,10 @@
 // place and allocate nothing.
 
 #include <cuda_runtime.h>
+
+#include "live_mixed.cuh"
+
+namespace lm = live_mixed;
 
 namespace {
 
@@ -563,50 +584,77 @@ __global__ void live_bank_scan_kernel(
   store_x(xs, B, b, x);
 }
 
-// Kernel 3: T x (predict + update of kinds[kind_idx[t]]). kind_idx[t] is
-// the same for the whole bank, so the per-step switch never diverges
-// within a warp. Per kind: R_by_kind (n_kinds, 3, 3), stream_flags
-// (n_kinds,) -> R = diag(r_stream[t]) instead, gate_thresh (n_kinds,).
-__global__ void live_bank_scan_mixed_kernel(
+// Kernel 3: T x (predict + update of kinds[kind_idx[t]]) on a block of 32
+// filters (lane = filter) and live_mixed::WARPS warps (role = warp), P, x
+// and the scratch in the block's shared-memory tile for the whole T loop
+// (csrc/live_mixed.cuh). kind_idx[t] is the same for the whole bank, so the
+// kind switch never diverges. Per kind: R_by_kind (n_kinds, 3, 3),
+// stream_flags (n_kinds,) -> R = diag(r_stream[t]) instead, gate_thresh
+// (n_kinds,). A lane past the bank (b >= B, the last block of a ragged
+// bank) computes on a copy of filter B - 1, reaches every barrier, and
+// stores nothing.
+__global__ void __launch_bounds__(32 * lm::WARPS) live_bank_scan_mixed_kernel(
     float* __restrict__ xs, float* __restrict__ Pg,
     const float* __restrict__ zs, const float* __restrict__ dts,
     const int* __restrict__ kind_idx, const int* __restrict__ kinds,
     const float* __restrict__ R_by_kind, const int* __restrict__ stream_flags,
     const float* __restrict__ gate_thresh, const float* __restrict__ r_stream,
     const float* __restrict__ q_diag, int T, int B, int gate) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Cov P{Pg + b, B};
-  float x[DX];
-  load_x(xs, B, b, x);
-  HSet hs;
+  extern __shared__ float lm_tile[];
+  constexpr int W = lm::WARPS;
+  constexpr int NOMINAL_ROLE = W - 1;
+  const int lane = threadIdx.x, role = threadIdx.y;
+  const int b = blockIdx.x * 32 + lane;
+  const int bc = b < B ? b : B - 1;
+  float* Pt = lm_tile;
+  float* xt = Pt + lm::DE * lm::DE * 32;
+  float* st = xt + lm::DX * 32;
+  for (int e = role; e < lm::DE * lm::DE; e += W)
+    Pt[e * 32 + lane] = Pg[(size_t)e * B + bc];
+  for (int i = role; i < lm::DX; i += W)
+    xt[i * 32 + lane] = xs[(size_t)i * B + bc];
+  const lm::Lane<float> x{xt + lane, 32}, P{Pt + lane, 32}, sc{st + lane, 32};
+  __syncthreads();
+  if (T > 0 && role == NOMINAL_ROLE) lm::nominal(x, sc, __ldg(dts));
+  __syncthreads();
   for (int t = 0; t < T; ++t) {
-    live_predict(x, P, q_diag, __ldg(dts + t));
+    const float dt = __ldg(dts + t);
+    lm::predict_m<float, W>(role, P, sc, dt);
+    __syncthreads();
+    lm::predict_p<float, W>(role, P, sc, q_diag, dt);
+    __syncthreads();
     const int ki = __ldg(kind_idx + t);
-    float R[3][3];
-    if (__ldg(stream_flags + ki)) {
+    const int kind = __ldg(kinds + ki);
+    if (role == 0) {
+      float R[3][3], z[3];
+      lm::step_R(ki, t, R_by_kind, stream_flags, r_stream, R);
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          R[i][j] = i == j ? __ldg(r_stream + t * 3 + i) : 0.0f;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) R[i][j] = __ldg(R_by_kind + ki * 9 + i * 3 + j);
+      for (int r = 0; r < 3; ++r)
+        z[r] = __ldcs(zs + ((size_t)t * 3 + r) * B + bc);
+      lm::innovate_kind(kind, x, P, sc, z, R, gate != 0,
+                        __ldg(gate_thresh + ki));
     }
-    float z[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) z[r] = __ldcs(zs + ((size_t)t * 3 + r) * B + b);
-    build_h(__ldg(kinds + ki), x, hs);
-    live_update(x, P, hs, z, R, gate != 0, __ldg(gate_thresh + ki));
+    __syncthreads();
+    lm::joseph_dz<float, W>(lm::kind_dz(kind), role, P, sc);
+    // the next step's nominal predict writes x and the coefficients, which
+    // the Joseph phase does not read
+    if (role == NOMINAL_ROLE && t + 1 < T)
+      lm::nominal(x, sc, __ldg(dts + t + 1));
+    __syncthreads();
   }
-  store_x(xs, B, b, x);
+  if (b < B) {
+    for (int e = role; e < lm::DE * lm::DE; e += W)
+      Pg[(size_t)e * B + b] = Pt[e * 32 + lane];
+    for (int i = role; i < lm::DX; i += W)
+      xs[(size_t)i * B + b] = xt[i * 32 + lane];
+  }
 }
 
-// 32 threads a block: at B = 8192 that is 256 blocks, so all 132 SMs hold
-// filters (larger blocks would leave SMs idle at this bank width)
+// kernel 3's dynamic shared memory: 32 filters x (P, x, scratch), 93,696 B
+constexpr int LM_SMEM = (int)sizeof(float) * 32 * lm::TILE;
+
+// kernel 2: 32 threads a block; at B = 8192 that is 256 blocks, so all 132
+// SMs hold filters (larger blocks would leave SMs idle at this bank width)
 constexpr int THREADS = 32;
 
 }  // namespace
@@ -631,8 +679,12 @@ extern "C" int live_bank_scan_mixed_launch(
     const void* gate_thresh, const void* r_stream, const void* q_diag, int T,
     int B, int gate, void* stream) {
   // kind_idx is checked against the number of kinds by the wrapper
-  const int blocks = (B + THREADS - 1) / THREADS;
-  live_bank_scan_mixed_kernel<<<blocks, THREADS, 0,
+  cudaError_t e = cudaFuncSetAttribute(
+      live_bank_scan_mixed_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LM_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + 31) / 32;
+  live_bank_scan_mixed_kernel<<<blocks, dim3(32, lm::WARPS), LM_SMEM,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(x), static_cast<float*>(P),
       static_cast<const float*>(zs), static_cast<const float*>(dts),
@@ -643,4 +695,29 @@ extern "C" int live_bank_scan_mixed_launch(
       static_cast<const float*>(r_stream), static_cast<const float*>(q_diag),
       T, B, gate);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 3's launch shape as the runtime reads it: out[0] warps a block,
+// out[1] threads a block, out[2] dynamic shared memory bytes, out[3] blocks
+// an SM holds at once, out[4] registers a thread, out[5] local memory
+// (stack) bytes a thread.
+extern "C" int live_bank_scan_mixed_info(int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      live_bank_scan_mixed_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LM_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, live_bank_scan_mixed_kernel, 32 * lm::WARPS, LM_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, live_bank_scan_mixed_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = lm::WARPS;
+  out[1] = 32 * lm::WARPS;
+  out[2] = LM_SMEM;
+  out[3] = blocks;
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

@@ -42,6 +42,15 @@ kernels keep P bitwise symmetric). A phase writes P in place: before the
 store of a location, its old value is loaded if a later expression still
 reads it; the nominal state is written back after every expression of
 the phase.
+
+Mode "single" (kernel 4) prints the tile form instead when its tile fits
+a block (tile_bytes): each phase split over TILE_ROLES role bodies that
+compute their share of p_out (role 0 also x_out) into constant-indexed
+values, and store functions the template calls after a barrier, so no
+role stores an entry another role still reads; the update's shared values
+(Phase.shared: the gated gains, the Joseph factor rows, dx, and the gate
+decision in them) are printed once, into shared scratch (role_split,
+_tile_source). The other modes print the same text as before.
 """
 
 from __future__ import annotations
@@ -132,12 +141,16 @@ def _normalize(d, x, idxs):
 
 class Phase:
   """One emitted function: its DAG, the new P entries (upper triangle, by
-  location) and the new nominal state."""
+  location) and the new nominal state. An update's `shared` values (the
+  gated gain rows, the Joseph factor rows and dx) are what every entry of
+  p_out and x_out reads from its innovation: mode "single" prints them
+  once per filter, into shared scratch (emit_source)."""
 
   def __init__(self):
     self.dag = ExprDAG()
     self.p_out = {}
     self.x_out = []
+    self.shared = []
 
   def P(self, i, j):
     return self.dag.load("P", (min(i, j), max(i, j)))
@@ -305,6 +318,8 @@ def update_phase(spec: FilterSpec, kind: int, structure, pnames,
       wba = _lsum(d, [d.mul(kt[i][b], t_rows[i][a]) for i in range(dz)
                       if kt[i] is not None])
       ph.p_out[(a, b)] = d.add(ph.P(a, b), d.add(wab, wba))
+  ph.shared = ([e for row in kt if row is not None for e in row]
+               + [e for row in t_rows for e in row] + list(dxe))
 
   dx_arr = structural.obj_array((de,))
   for c in range(de):
@@ -575,6 +590,27 @@ def _load_text(name, idx, dz):
   raise AssertionError(name)
 
 
+def _c_text(e, ref, load):
+  """The C expression of one DAG node; ref names an operand, load gives a
+  leaf's text from its (array name, index)."""
+  a = e.args
+  if e.op == "load":
+    return load(a)
+  if e.op in _INFIX:
+    return f"{ref(a[0])} {_INFIX[e.op]} {ref(a[1])}"
+  if e.op == "neg":
+    return f"-{ref(a[0])}"
+  if e.op == "not":
+    return f"!{ref(a[0])}"
+  if e.op == "where":
+    return f"{ref(a[0])} ? {ref(a[1])} : {ref(a[2])}"
+  if e.op == "cast":
+    return f"(scalar_t)({ref(a[0])})"
+  if e.op in _FUNCS:
+    return f"{_FUNCS[e.op]}({', '.join(ref(v) for v in a)})"
+  raise NotImplementedError(f"emitter: no C form for op {e.op!r}")
+
+
 def _reachable(roots):
   seen, stack = set(), [r for r in roots if isinstance(r, Expr)]
   out = []
@@ -588,57 +624,55 @@ def _reachable(roots):
   return out
 
 
-def print_phase(ph: Phase, dz: int = 0) -> list:
-  """Statements of one phase: SSA definitions in dependency order, P
-  stores as soon as their value exists (after the old value is loaded if
-  anything still reads it), x stores last."""
-  lines, names = [], {}
+class _Printer:
+  """SSA statements of one emitted function: each node a `const`
+  definition after its operands. x reads as x[i], or in the tile form
+  (tile=True) through GEN_X; a node of `slots` (tile form) is read from
+  its scratch slot through GEN_S instead of computed."""
 
-  def ref(v):
+  def __init__(self, dz, tile=False, slots=None):
+    self.lines, self.names, self.dz = [], {}, dz
+    self.tile, self.slots = tile, slots or {}
+
+  def ref(self, v):
     if v is None:
       return "((scalar_t)0)"
     if isinstance(v, Expr):
-      return names[v.id]
+      return self.names[v.id]
     return _lit(v)
 
-  def define(e):
-    a = e.args
-    if e.op == "load":
-      text = _load_text(a[0], a[1], dz)
-    elif e.op in _INFIX:
-      text = f"{ref(a[0])} {_INFIX[e.op]} {ref(a[1])}"
-    elif e.op == "neg":
-      text = f"-{ref(a[0])}"
-    elif e.op == "not":
-      text = f"!{ref(a[0])}"
-    elif e.op == "where":
-      text = f"{ref(a[0])} ? {ref(a[1])} : {ref(a[2])}"
-    elif e.op == "cast":
-      text = f"(scalar_t)({ref(a[0])})"
-    elif e.op in _FUNCS:
-      text = f"{_FUNCS[e.op]}({', '.join(ref(v) for v in a)})"
-    else:
-      raise NotImplementedError(f"emitter: no C form for op {e.op!r}")
-    name = f"t{e.id}"
-    names[e.id] = name
-    ctype = "bool" if e.is_bool else "scalar_t"
-    lines.append(f"  const {ctype} {name} = {text};")
+  def _load(self, a):
+    if self.tile and a[0] == "x":
+      return f"GEN_X({a[1][0]})"
+    return _load_text(a[0], a[1], self.dz)
 
-  def emit(root):
-    if not isinstance(root, Expr) or root.id in names:
+  def emit(self, root):
+    if not isinstance(root, Expr) or root.id in self.names:
       return
     stack = [(root, False)]
     while stack:
       e, ready = stack.pop()
-      if e.id in names:
+      if e.id in self.names:
         continue
-      if ready:
-        define(e)
+      if ready or e.id in self.slots:
+        text = (f"GEN_S({self.slots[e.id]})" if e.id in self.slots
+                else _c_text(e, self.ref, self._load))
+        self.names[e.id] = f"t{e.id}"
+        ctype = "bool" if e.is_bool else "scalar_t"
+        self.lines.append(f"  const {ctype} t{e.id} = {text};")
         continue
       stack.append((e, True))
       for a in reversed(e.args):
-        if isinstance(a, Expr) and a.id not in names:
+        if isinstance(a, Expr) and a.id not in self.names:
           stack.append((a, False))
+
+
+def print_phase(ph: Phase, dz: int = 0) -> list:
+  """Statements of one phase: SSA definitions in dependency order, P
+  stores as soon as their value exists (after the old value is loaded if
+  anything still reads it), x stores last."""
+  pr = _Printer(dz)
+  lines, ref, emit = pr.lines, pr.ref, pr.emit
 
   roots = list(ph.p_out.values()) + list(ph.x_out)
   p_loads = {e.args[1]: e for e in _reachable(roots)
@@ -655,13 +689,181 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
     if i != j:
       lines.append(f"  GEN_P({j}, {i}) = {val};")
   changed = [(i, v) for i, v in enumerate(ph.x_out)
-             if not (isinstance(v, Expr) and v.op == "load"
-                     and v.args == ("x", (i,)))]
+             if not _unchanged(v, "x", (i,))]
   for _, v in changed:
     emit(v)
   for i, v in changed:
     lines.append(f"  x[{i}] = {ref(v)};")
   return lines
+
+
+# ------------------------------------------------- mode "single" as a tile
+# Kernel 4 keeps P, x and the update's shared values of TILE_LANES filters
+# in a block's shared memory for the whole T loop and splits each phase
+# over TILE_ROLES roles, one warp each (csrc/generic_scan.cuh,
+# REDNOSE_GENERIC_SCAN_TILE): role r computes its share of the phase's new
+# P entries (and role 0 the new x) into constant-indexed values, and after
+# the template's barrier stores them. The update's shared values (the
+# gated gain rows, the Joseph factor rows and dx, with the gate decision
+# they carry) are printed once, in a function of their own that one role
+# runs into the shared scratch before the other roles read them there. A
+# variant whose tile exceeds what a block may use keeps the global form.
+
+TILE_ROLES = 2           # W: measured among 1, 2, 4 and 8 (PERF.md)
+TILE_LANES = 32          # filters a block holds, one a lane
+TILE_SMEM_MAX = 232_448  # shared memory bytes a block may use on the H100
+_SCALAR_BYTES = {"float": 4, "double": 8}
+
+
+def shared_nodes(ph) -> list:
+  """The update's shared values that need computing (no constant, no
+  plain load), each once, in order: the scratch slots."""
+  seen, out = set(), []
+  for e in ph.shared:
+    if isinstance(e, Expr) and e.op != "load" and e.id not in seen:
+      seen.add(e.id)
+      out.append(e)
+  return out
+
+
+def tile_bytes(spec, upd, scalar) -> int:
+  """Shared memory of a block of the tile form: TILE_LANES filters x
+  (P, x, the update's scratch)."""
+  vals = spec.dim_err ** 2 + spec.dim_x + len(shared_nodes(upd))
+  return vals * TILE_LANES * _SCALAR_BYTES[scalar]
+
+
+def _needs(root, stop):
+  """Ids of the nodes (loads aside) that root needs, up to the stop ids."""
+  out, stack = set(), [root] if isinstance(root, Expr) else []
+  while stack:
+    e = stack.pop()
+    if e.id in out or e.id in stop or e.op == "load":
+      continue
+    out.add(e.id)
+    stack.extend(a for a in e.args if isinstance(a, Expr))
+  return out
+
+
+def _unchanged(v, name, idx):
+  return isinstance(v, Expr) and v.op == "load" and v.args == (name, idx)
+
+
+def role_split(ph, n_roles, stop=frozenset()) -> list:
+  """A phase's changed outputs split over n_roles roles, one list of
+  (array, index, value) each: role 0 takes the new x; each new P entry,
+  upper triangle in row-major order, goes to the role whose work (the
+  nodes it computes, up to the stop ids; a role computes a shared
+  subexpression once) ends least, ties to the lower role."""
+  roles = [[] for _ in range(n_roles)]
+  work = [set() for _ in range(n_roles)]
+  for i, v in enumerate(ph.x_out):
+    if not _unchanged(v, "x", (i,)):
+      roles[0].append(("x", i, v))
+      work[0] |= _needs(v, stop)
+  for ij, v in sorted(ph.p_out.items()):
+    if _unchanged(v, "P", ij):
+      continue
+    need = _needs(v, stop)
+    r = min(range(n_roles), key=lambda r: len(work[r] | need))
+    roles[r].append(("P", ij, v))
+    work[r] |= need
+  return roles
+
+
+def _function(name, params, lines):
+  args = ", ".join(params)
+  names = [p.split()[-1].lstrip("*") for p in params]
+  return ([f"GEN_HD GEN_INLINE void {name}({args}) {{",
+           "  " + " ".join(f"(void){n};" for n in names)]
+          + lines + ["}"])
+
+
+def _role_functions(name, params, roles, dz, slots):
+  """Role r's compute function name_r{r} (its values into v) and store
+  function name_r{r}_store (v into P and x, each P entry at (i, j) and
+  (j, i))."""
+  out = []
+  for r, outs in enumerate(roles):
+    pr = _Printer(dz, True, slots)
+    for _, _, v in outs:
+      pr.emit(v)
+    pr.lines += [f"  v[{k}] = {pr.ref(v)};" for k, (_, _, v) in
+                 enumerate(outs)]
+    out += ["", *_function(f"{name}_r{r}", params + ["scalar_t* v"],
+                           pr.lines)]
+    store = []
+    for k, (arr, idx, _) in enumerate(outs):
+      if arr == "x":
+        store.append(f"  GEN_X({idx}) = v[{k}];")
+      else:
+        i, j = idx
+        store.append(f"  GEN_P({i}, {j}) = v[{k}];")
+        if i != j:
+          store.append(f"  GEN_P({j}, {i}) = v[{k}];")
+    out += ["", *_function(
+        f"{name}_r{r}_store",
+        ["scalar_t* x", "scalar_t* P", "size_t ld", "const scalar_t* v"],
+        store)]
+  return out
+
+
+def _dispatch(name, params, fn, n_roles):
+  """name(int r, params): the switch over the roles' functions fn_r{r}."""
+  args = ", ".join(p.split()[-1].lstrip("*") for p in params)
+  lines = ["  switch (r) {"]
+  lines += [f"    case {r}: {fn(r)}({args}); break;" for r in range(n_roles)]
+  lines += ["    default: break;", "  }"]
+  return ["", f"GEN_HD GEN_INLINE void {name}(int r, {', '.join(params)}) {{",
+          *lines, "}"]
+
+
+def _tile_source(body, pred, upd, unit, dz) -> list:
+  """The lines after the header of a mode-'single' variant in tile form:
+  the role functions of the predict and the update, the update's shared
+  function and the dispatchers the template's tile loop calls."""
+  cuts = shared_nodes(upd)
+  slots = {e.id: k for k, e in enumerate(cuts)}
+  pred_roles = role_split(pred, TILE_ROLES)
+  upd_roles = role_split(upd, TILE_ROLES, frozenset(slots))
+  nval = max([len(o) for o in pred_roles + upd_roles] + [1])
+  out = [f"// design: tile, {TILE_ROLES} roles: a block of {TILE_LANES} "
+         f"filters x {TILE_ROLES} warps keeps P, x and {len(cuts)} scratch "
+         "values a filter in shared memory"] + body + [
+      "#define GEN_X(i) x[(size_t)(i) * ld]",
+      "#define GEN_S(k) s[(size_t)(k) * ld]",
+      f"constexpr int NROLES = {TILE_ROLES};",
+      f"constexpr int NSCR = {len(cuts)};",
+      f"constexpr int NVAL = {nval};",
+  ]
+  p_pred = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
+            "const scalar_t dt", "const scalar_t* p", "const scalar_t* Q"]
+  p_in = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
+          "const scalar_t* z", "const scalar_t* ea", "size_t ld_in",
+          "const scalar_t* R", "const scalar_t* p"]
+  p_upd = p_in + ["const scalar_t* s"]
+  p_store = ["scalar_t* x", "scalar_t* P", "size_t ld", "const scalar_t* v"]
+  out += _role_functions("gen_predict", p_pred, pred_roles, 0, {})
+  pr = _Printer(dz, True)
+  for e in cuts:
+    pr.emit(e)
+  pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
+  out += ["", f"// {unit}: the shared values, once a filter",
+          *_function("gen_tile_shared", p_in + ["scalar_t* s"], pr.lines)]
+  out += _role_functions(unit, p_upd, upd_roles, dz, slots)
+  out += _dispatch("gen_tile_predict", p_pred + ["scalar_t* v"],
+                   lambda r: f"gen_predict_r{r}", TILE_ROLES)
+  out += _dispatch("gen_tile_predict_store", p_store,
+                   lambda r: f"gen_predict_r{r}_store", TILE_ROLES)
+  out += _dispatch("gen_tile_update", p_upd + ["scalar_t* v"],
+                   lambda r: f"{unit}_r{r}", TILE_ROLES)
+  out += _dispatch("gen_tile_update_store", p_store,
+                   lambda r: f"{unit}_r{r}_store", TILE_ROLES)
+  out += ["", "}  // namespace rn_gen", "",
+          "#define REDNOSE_GENERIC_SCAN_TILE",
+          "#define REDNOSE_GENERIC_SCAN_LOOPS",
+          '#include "generic_scan.cuh"', ""]
+  return out
 
 
 # ----------------------------------------------------------- variant source
@@ -734,10 +936,12 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   else:
     r_note = "."
 
-  out = [
+  head = [
       "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
       f"// spec {spec.name!r}, mode {mode}, units (kind, gate) {list(units)},",
       f"// params {list(pnames)}, streamed {list(ps_keys)}" + r_note,
+  ]
+  body = [
       f"#define REDNOSE_SCALAR {scalar}",
       '#include "generic_scan.cuh"',
       "",
@@ -758,11 +962,26 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       "",
       "#define GEN_P(i, j) P[(size_t)((i) * DE + (j)) * ld]",
       "",
+  ]
+  pred = upd = None
+  if mode == "single":
+    pred = predict_phase(spec, structure, pnames, q_pattern)
+    upd = update_phase(spec, kinds[0], structure, pnames, units[0][1])
+    nbytes = tile_bytes(spec, upd, scalar)
+    if nbytes <= TILE_SMEM_MAX:
+      return "\n".join(head + _tile_source(
+          body, pred, upd, _unit_name(*units[0]), spec.obs[kinds[0]].dz))
+    head.append(
+        f"// design: global: the tile of {TILE_LANES} filters ({nbytes:,} B "
+        f"in {scalar}) exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
+        "one thread a filter and P in global memory")
+  out = head + body + [
       f"GEN_HD {inline} void gen_predict(scalar_t* x, scalar_t* P, "
       "size_t ld, const scalar_t dt, const scalar_t* p, const scalar_t* Q) {",
       "  (void)p; (void)Q;",
   ]
-  out += print_phase(predict_phase(spec, structure, pnames, q_pattern))
+  out += print_phase(pred if pred is not None
+                     else predict_phase(spec, structure, pnames, q_pattern))
   out.append("}")
   # one function per distinct (kind, gate, R pattern); a second R pattern
   # of the same feature kind and gate gets a suffix
@@ -783,7 +1002,8 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
         "const scalar_t* p) {",
         "  (void)ea; (void)p; (void)R;",
     ]
-    ph = (frame_phase(spec, k, structure, pnames, g, rp) if f
+    ph = (upd if upd is not None
+          else frame_phase(spec, k, structure, pnames, g, rp) if f
           else update_phase(spec, k, structure, pnames, g))
     out += print_phase(ph, spec.obs[k].dz)
     out.append("}")

@@ -82,13 +82,15 @@ def r_pattern_of(R) -> object:
 
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
-            r_patterns=None):
-  """The variant's source for float; the double one differs only in its
-  REDNOSE_SCALAR line, so each variant is emitted once."""
+            r_patterns=None, scalar="float"):
+  """The variant's source. Outside mode 'single' the double source differs
+  from the float one only in its REDNOSE_SCALAR line, so such a variant is
+  emitted once, for float; a 'single' variant is emitted per scalar type,
+  since whether its tile fits in a block depends on it."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
-      pnames, ps_keys, q_pattern, "float", r_patterns)
+      pnames, ps_keys, q_pattern, scalar, r_patterns)
 
 
 class KernelCall:
@@ -143,24 +145,39 @@ class KernelCall:
     self._pnames = tuple(sorted(set(self.params) | set(self.ps_keys)))
     self._values = {}
 
+  def _units(self):
+    spec = self.spec
+    if self.mode in ("single", "frame"):
+      k = self.kinds[0]
+      return ((k, spec.obs[k].maha_test if self.gate is None
+               else bool(self.gate)),)
+    return tuple((k, bool(self.gate) and spec.obs[k].maha_test)
+                 for k in self.kinds)
+
   def source(self, dtype=torch.float32) -> str:
     """The emitted CUDA source of this variant for a bank of dtype;
     _build.build_generated_many compiles several at once."""
     if dtype not in _SCALARS:
       raise ValueError(f"the generic kernels take float32 or float64, not "
                        f"{dtype}")
-    spec, mode = self.spec, self.mode
-    if mode in ("single", "frame"):
-      k = self.kinds[0]
-      units = ((k, spec.obs[k].maha_test if self.gate is None
-                else bool(self.gate)),)
-    else:
-      units = tuple((k, bool(self.gate) and spec.obs[k].maha_test)
-                    for k in self.kinds)
-    src = _source(spec, mode, units, self.structure, self._pnames,
-                  self.ps_keys, self._q_pattern, self._r_patterns)
-    return src.replace("#define REDNOSE_SCALAR float",
-                       f"#define REDNOSE_SCALAR {_SCALARS[dtype]}", 1)
+    args = (self.spec, self.mode, self._units(), self.structure,
+            self._pnames, self.ps_keys, self._q_pattern, self._r_patterns)
+    if self.mode == "single":
+      return _source(*args, scalar=_SCALARS[dtype])
+    return _source(*args).replace("#define REDNOSE_SCALAR float",
+                                  f"#define REDNOSE_SCALAR {_SCALARS[dtype]}",
+                                  1)
+
+  def counting_source(self) -> str:
+    """The variant's phases printed whole, one function each (gen_predict,
+    then the update or frame functions), for counting the operations of a
+    step: a 'single' call's tile form splits them into role functions that
+    recompute shared subexpressions, so it is printed as the epoch form of
+    its one unit, the same predict and update."""
+    if self.mode != "single":
+      return self.source()
+    return _source(self.spec, "epoch", self._units(), self.structure,
+                   self._pnames, self.ps_keys, self._q_pattern)
 
   def values(self, dtype, device):
     """The run-time inputs on the device: the params vector (in the

@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Measure kernels 3 and 4 at W = 1, 2, 4 and 8 warps a block on one card.
+
+    python3 sweep_warps.py [--parent DIR]   # from the repository root
+
+W is a constant of each source: `WARPS` in csrc/live_mixed.cuh (kernel 3,
+LiveKalmanBank.run_mixed) and `TILE_ROLES` in ops/entry_slab.py (kernel 4,
+mode "single"). This script builds each kernel at each W, all nvcc
+processes at once: kernel 3 from a copy of csrc/ with the constant
+replaced, kernel 4 by emitting the live spec's ECEF_POS variant (gate on)
+with the emitter's constant set. It also builds the global form of the
+same kernel-4 variant (one thread a filter, P in global memory: the
+design before the tile) and, given --parent (a checkout of an earlier
+commit of this repository), that commit's csrc/live_scan.cu, so the
+earlier kernel 3 runs in the same call; the same --parent also times
+kernels 5, 6 and 7 built with that commit's csrc/generic_scan.cuh and
+with this one's, in turns (template_ab). Inputs are chip_smoke.py's:
+kernel 3 from the live bank after run_mixed over T = 1024 steps of the
+4-kind schedule (B = 8192, gate on, the camera-rotation kind streaming its
+R), kernel 4 from the bank after the ECEF_POS run. For each build it
+prints the time (CUDA events, mean of 5 launches after a warm-up) at
+T = 64 and T = 1, the largest difference from the plain version in
+standard deviations (utils/compare.py), ptxas (registers, stack, spill
+bytes), the runtime's blocks per SM and, for kernel 4, the emitted lines
+and nvcc seconds, and writes them all to build/sweep_warps/sweep_warps.json.
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+import chip_smoke as cs
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SWEEP_DIR = ROOT / "build" / "sweep_warps"
+WS = (1, 2, 4, 8)
+REPS = 5
+
+
+def build_k3(name, csrc, warps=None):
+  """nvcc of csrc/live_scan.cu (WARPS replaced when given) into its own
+  directory: (library path, ptxas lines of kernel 3, nvcc seconds)."""
+  from rednose_tpu_torch import _build
+
+  d = SWEEP_DIR / name
+  shutil.rmtree(d, ignore_errors=True)
+  d.mkdir(parents=True)
+  for src in csrc.glob("*.cu*"):
+    shutil.copy(src, d / src.name)
+  if warps is not None:
+    hdr = d / "live_mixed.cuh"
+    text, n = re.subn(r"constexpr int WARPS = \d+;",
+                      f"constexpr int WARPS = {warps};", hdr.read_text())
+    if n != 1:
+      raise RuntimeError("live_mixed.cuh: no WARPS constant to replace")
+    hdr.write_text(text)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
+       str(d / "lib.so"), str(d / "live_scan.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  secs = time.perf_counter() - t0
+  if proc.returncode:
+    raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
+  return d / "lib.so", kernel_ptxas(proc.stdout, "live_bank_scan_mixed"), secs
+
+
+def kernel_ptxas(report, kernel):
+  """The ptxas -v lines of the entry function whose name holds `kernel`."""
+  lines, keep = [], False
+  for line in report.splitlines():
+    if "Compiling entry function" in line:
+      keep = kernel in line
+    elif keep and ("registers" in line or "spill" in line
+                   or "stack" in line):
+      lines.append(line.split("info    :")[-1].strip())
+  return lines
+
+
+def load_k3(lib_path):
+  from rednose_tpu_torch import _build
+
+  lib = ctypes.CDLL(str(lib_path))
+  for name in ("live_bank_scan_launch", "live_bank_scan_mixed_launch",
+               "live_bank_scan_mixed_info"):
+    if hasattr(lib, name):
+      getattr(lib, name).argtypes = list(_build.SIGNATURES[name])
+      getattr(lib, name).restype = ctypes.c_int
+  return lib
+
+
+def k3_info(lib):
+  """Kernel 3's launch shape, None for a build without the entry point."""
+  if not hasattr(lib, "live_bank_scan_mixed_info"):
+    return None
+  return cs.kernel3_info(lib)
+
+
+def k4_source(call_fn, roles=None, global_form=False):
+  """The kernel-4 source emitted with the emitter's constants set."""
+  from rednose_tpu_torch.ops import entry_slab, generic_scan as gs
+
+  saved = entry_slab.TILE_ROLES, entry_slab.TILE_SMEM_MAX
+  try:
+    if roles is not None:
+      entry_slab.TILE_ROLES = roles
+    if global_form:
+      entry_slab.TILE_SMEM_MAX = 0
+    gs._source.cache_clear()
+    return call_fn().source()
+  finally:
+    entry_slab.TILE_ROLES, entry_slab.TILE_SMEM_MAX = saved
+    gs._source.cache_clear()
+
+
+def build_with_template(name, source, template):
+  """nvcc of an emitted source beside the given template, in a directory
+  of its own: its rn_generic_scan_launch."""
+  from rednose_tpu_torch import _build
+
+  d = SWEEP_DIR / name
+  shutil.rmtree(d, ignore_errors=True)
+  d.mkdir(parents=True)
+  (d / "gen.cu").write_text(source)
+  shutil.copy(template, d / "generic_scan.cuh")
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
+       str(d / "libgen.so"), str(d / "gen.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  if proc.returncode:
+    raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
+  fn = ctypes.CDLL(str(d / "libgen.so")).rn_generic_scan_launch
+  fn.argtypes = list(_build.GEN_ARGTYPES)
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def template_ab(torch, dev, gen, states, parent_template):
+  """Kernels 5, 6 and 7 as chip_smoke.py compares them (loc epochs in
+  double, the live spec's 4-kind mixed schedule, msckf_eskf frames), each
+  emitted source built with this tree's template and with the parent's,
+  timed in turns (parent, this, this, parent; raw launches, mean of REPS
+  after a warm-up). Their emitted text is the same in both trees."""
+  from rednose_tpu_torch import _build
+
+  live_spec = cs.generic_models()[3]
+  LocKalman = cs.generic_models()[1]
+  ESKF = cs.msckf_models()[1]
+  f32 = dict(dtype=torch.float32, device=dev)
+  f64 = dict(dtype=torch.float64, device=dev)
+  cases = {}
+  call5 = cs.loc_epoch_call()
+  zs, eas = cs.loc_consistent_data(torch, dev, gen, cs.CMP_T,
+                                   len(cs.loc_slots()))
+  x = torch.as_tensor(LocKalman.initial_x, **f64)[:, None].repeat(
+      1, cs.GEN_B)
+  P = torch.as_tensor(np.diag(LocKalman.initial_P_diag), **f64)[
+      :, :, None].repeat(1, 1, cs.GEN_B)
+  cases["kernel 5, loc epochs, float64"] = (
+      call5, call5.source(torch.float64),
+      (x, P, zs.transpose(-1, -2).contiguous(),
+       torch.full((cs.CMP_T,), 0.1, **f64)),
+      dict(eas=eas.transpose(-1, -2).contiguous()))
+  call6 = cs.generic_calls(live_spec)["live run_mixed (kernel 6)"]
+  kinds, kind_idx, zs_m = cs.mixed_schedule(torch, dev, gen, cs.CMP_T)
+  x_m, P_m, _ = states["live_bank_scan_mixed"]
+  cases["kernel 6, live spec, 4 kinds"] = (
+      call6, call6.source(),
+      (x_m, P_m, zs_m.permute(0, 2, 1).contiguous(),
+       torch.full((cs.CMP_T,), 0.01, **f32)),
+      dict(kind_idx=torch.as_tensor(kind_idx, dtype=torch.int32,
+                                    device=dev)))
+  call7 = cs.msckf_call(ESKF)
+  spec, _, _, R = cs.msckf_setup(ESKF)
+  xs = cs.msckf_bank_x0(ESKF, cs.SEED + 3)
+  zs7, eas7, _ = cs.msckf_frames(torch, dev, gen, ESKF, xs,
+                                 cs.MSCKF_CMP_T, R)
+  cases["kernel 7, msckf_eskf frames"] = (
+      call7, call7.source(),
+      (torch.as_tensor(xs.T, **f32).contiguous(),
+       (cs.MSCKF_P0 * torch.eye(spec.dim_err, **f32))[:, :, None].repeat(
+           1, 1, cs.MSCKF_B),
+       zs7.transpose(1, 2).to(**f32).contiguous(),
+       torch.full((cs.MSCKF_CMP_T,), cs.MSCKF_DT, **f32)),
+      dict(eas=eas7.transpose(1, 2).to(**f32).contiguous()))
+  with ThreadPoolExecutor(2 * len(cases)) as pool:
+    fns = {(name, which): pool.submit(
+        build_with_template, f"ab_{i}_{which}", src,
+        parent_template if which == "parent" else _build.TEMPLATE)
+           for i, (name, (_, src, _, _)) in enumerate(cases.items())
+           for which in ("parent", "this")}
+    fns = {k: f.result() for k, f in fns.items()}
+  out = {}
+  for name, (call, src, args, kw) in cases.items():
+    times = {"parent": [], "this": []}
+    for which in ("parent", "this", "this", "parent"):
+      ms, _ = cs.timed_run(cs.generic_launch(src, call, *args, **kw,
+                                             fn=fns[(name, which)]), REPS)
+      times[which].append(ms)
+    out[name] = {k: sum(v) / len(v) for k, v in times.items()}
+    cs.log(f"template A/B, {name}: parent's template "
+           f"{times['parent']} ms, this tree's {times['this']} ms")
+  return out
+
+
+def main():
+  import torch
+
+  ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  ap.add_argument("--parent", type=pathlib.Path, default=None,
+                  help="a checkout of an earlier commit: its kernel 3 runs "
+                       "beside these")
+  args = ap.parse_args()
+  if not torch.cuda.is_available():
+    print("sweep_warps: no CUDA device", file=sys.stderr)
+    return 1
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs, live_scan, sparsity
+  from rednose_tpu_torch.utils.compare import live_sigma_err
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  card = cs.card_line()
+  cs.log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+  live_spec = cs.generic_models()[3]
+  R4 = LiveKalman.obs_noise[K.ECEF_POS]
+  st = sparsity.structure_for(live_spec, LiveKalman.initial_x)
+
+  def k4_call():
+    return gs.KernelCall(live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
+                         R_list=(R4,), gate=True, structure=st)
+
+  k4_src = {f"W={w}": k4_source(k4_call, roles=w) for w in WS}
+  k4_src["global"] = k4_source(k4_call, global_form=True)
+  csrc = ROOT / "rednose_tpu_torch" / "csrc"
+  jobs = {f"W={w}": (f"k3_w{w}", csrc, w) for w in WS}
+  if args.parent is not None:
+    jobs["parent"] = ("k3_parent", args.parent / "rednose_tpu_torch" / "csrc",
+                      None)
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(len(jobs) + 2) as pool:
+    static = pool.submit(_build.build)
+    k3_jobs = {k: pool.submit(build_k3, *v) for k, v in jobs.items()}
+    _build.build_generated_many(list(k4_src.values()))
+    static.result()
+    k3_builds = {k: j.result() for k, j in k3_jobs.items()}
+  cs.log(f"built in {time.perf_counter() - t0:.1f} s")
+
+  dev = torch.device("cuda", 0)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(cs.SEED)
+  states = cs.main_path(torch, dev, gen)
+  f32 = dict(dtype=torch.float32, device=dev)
+  results = {"card": card, "kernel 3": {}, "kernel 4": {}}
+
+  # kernel 3: chip_smoke's comparison inputs
+  x_m, P_m, q_diag = states["live_bank_scan_mixed"]
+  kinds, kind_idx, zs_m = cs.mixed_schedule(torch, dev, gen, cs.CMP_T)
+  R_by_kind = torch.stack([torch.as_tensor(LiveKalman.obs_noise[k], **f32)
+                           for k in kinds])
+  r_stream = (0.05 + 0.01 * torch.rand((cs.CMP_T, 3), generator=gen,
+                                       device=dev)) ** 2
+  zs3 = zs_m.permute(0, 2, 1).contiguous()
+  dts = torch.full((cs.CMP_T,), 0.01, **f32)
+  ki = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
+  stream_kinds = (K.CAMERA_ODO_ROTATION,)
+  ref3 = live_scan.live_bank_scan_mixed_reference(
+      x_m, P_m, zs3, dts, ki, kinds, R_by_kind, q_diag, gate=True,
+      r_stream=r_stream, stream_kinds=stream_kinds)
+  for name, (path, ptx, secs) in k3_builds.items():
+    lib = load_k3(path)
+
+    def launch(T, lib=lib):
+      return cs.kernel3_launch(lib, x_m, P_m, zs3[:T], dts[:T], ki[:T],
+                               kinds, R_by_kind, q_diag, True, r_stream[:T],
+                               stream_kinds)
+
+    out = launch(cs.CMP_T)()
+    ms, _ = cs.timed_run(launch(cs.CMP_T), REPS)
+    ms1, _ = cs.timed_run(launch(1), REPS)
+    err = max(live_sigma_err(*out, *ref3))
+    info = k3_info(lib)
+    row = dict(ms_T64=ms, ms_T1=ms1, sigma_err=err, ptxas=ptx,
+               nvcc_s=secs, info=info)
+    results["kernel 3"][name] = row
+    cs.log(f"kernel 3 {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
+           f"{err:.4g} sigma from plain; ptxas {ptx}; runtime {info}; "
+           f"nvcc {secs:.1f} s")
+
+  # kernel 4 on the live spec, ECEF_POS, gate on
+  x, P = states["live_bank_scan"][:2]
+  zs = (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
+        + 5.0 * torch.randn((cs.CMP_T, 3, cs.LIVE_B), generator=gen,
+                            device=dev)).contiguous()
+  call = k4_call()
+  ref4 = gs.generic_bank_scan_reference(x, P, zs, dts, spec=live_spec,
+                                        kind=K.ECEF_POS, Q=LiveKalman.Q,
+                                        R=R4, gate=True, structure=st)
+  for name, src in k4_src.items():
+    once = cs.generic_launch(src, call, x, P, zs, dts)
+    out = once()
+    ms, _ = cs.timed_run(cs.generic_launch(src, call, x, P, zs, dts), REPS)
+    ms1, _ = cs.timed_run(
+        cs.generic_launch(src, call, x, P, zs[:1], dts[:1]), REPS)
+    err = max(live_sigma_err(*out, *ref4))
+    report = _build.generated_ptxas(src)
+    ptx = kernel_ptxas(report, "rn_generic")
+    nvcc = [ln for ln in report.splitlines() if "nvcc wall" in ln]
+    info = _build.generated_info(src)
+    row = dict(ms_T64=ms, ms_T1=ms1, sigma_err=err, ptxas=ptx,
+               lines=len(src.splitlines()), nvcc=nvcc, info=info)
+    results["kernel 4"][name] = row
+    cs.log(f"kernel 4 {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
+           f"{err:.4g} sigma from plain; {row['lines']} lines; ptxas {ptx}; "
+           f"runtime {info}; {nvcc}")
+  if args.parent is not None:
+    results["template A/B"] = template_ab(
+        torch, dev, gen, states, args.parent / "rednose_tpu_torch" / "csrc" /
+        "generic_scan.cuh")
+  (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))
+  print(card)
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

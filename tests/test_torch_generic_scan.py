@@ -154,3 +154,95 @@ def test_facade_launches_the_kernels(cuda_device):
   bank.observe(bank.t + 0.05, CK.YAW_RATE, np.zeros(1))
   assert tuple(a - b for a, b in zip(counts(), before)) == (2, 1, 1)
   assert int(bank.diverged().sum()) == 0
+
+
+def _live_inputs(dev, T, B, seed):
+  """A live-spec bank near the model's x0 with a well-conditioned P and
+  ECEF_POS fixes 0.5 m around each lane's position, float32 on dev."""
+  from rednose_tpu_torch.models.live import LiveKalman
+
+  rng = np.random.RandomState(seed)
+  x = np.tile(LiveKalman.initial_x, (B, 1))
+  x[:, 0:3] += 10.0 * rng.randn(B, 3)
+  x[:, 3:] += 0.05 * rng.randn(B, 20)
+  x[:, 3:7] /= np.linalg.norm(x[:, 3:7], axis=1, keepdims=True)
+  A = 0.1 * rng.randn(B, 22, 22)
+  P = (A @ np.swapaxes(A, 1, 2) + 0.5 * np.eye(22)).transpose(1, 2, 0)
+  zs = x.T[None, 0:3] + 0.5 * rng.randn(T, 3, B)
+  f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                  dtype=torch.float32, device=dev)
+  return f32(x.T), f32(P), f32(zs), f32(np.full(T, 0.01))
+
+
+@pytest.mark.cuda
+def test_kernel4_tile_ragged_bank_and_short_scans(cuda_device):
+  """Kernel 4's tile form (the live spec's ECEF_POS variant, gate on) on a
+  bank that is not a multiple of 32 (B = 8192 + 5), at T = 4 and T = 1,
+  within 1e-3 sigma of the plain version (utils/compare.py); T = 0
+  launches and counts nothing."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.models.live import build_live_spec
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  spec = build_live_spec()
+  call = generic_scan.KernelCall(
+      spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
+      R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
+      structure=sparsity.structure_for(spec, LiveKalman.initial_x))
+  assert _build.generated_info(call.source())["design"] == 1
+  x, P, zs, dts = _live_inputs(cuda_device, 4, 8192 + 5, 1)
+  for n in (4, 1):
+    count = generic_scan.generic_bank_scan.launches
+    out = generic_scan.generic_bank_scan(x, P, zs[:n], dts[:n], call=call)
+    assert generic_scan.generic_bank_scan.launches == count + 1
+    ref = generic_scan.generic_bank_scan_reference(
+        x, P, zs[:n], dts[:n], spec=spec, kind=K.ECEF_POS, Q=LiveKalman.Q,
+        R=LiveKalman.obs_noise[K.ECEF_POS], gate=True)
+    ex, ep = lane_sigma_errs(spec, *out, *ref)
+    assert float(torch.maximum(ex, ep).max()) < 1e-3
+    assert torch.equal(out[1], out[1].transpose(0, 1))
+    assert not torch.equal(out[1][:, :, -1], P[:, :, -1])   # the last lane
+  count = generic_scan.generic_bank_scan.launches
+  out = generic_scan.generic_bank_scan(x, P, zs[:0], dts[:0], call=call)
+  assert torch.equal(out[0], x) and torch.equal(out[1], P)
+  assert generic_scan.generic_bank_scan.launches == count
+
+
+@pytest.mark.cuda
+def test_kernel4_global_form_when_the_tile_does_not_fit(cuda_device):
+  """msckf_eskf's POSITION variant in double: its tile (32 filters of a
+  36 x 36 P in double) exceeds what a block may use, so the source keeps
+  the global form (one thread a filter); on a ragged bank it agrees with
+  the float64 plain version to rounding. The float variant is a tile."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+
+  spec = MSCKFEskf.build_spec()
+  call = generic_scan.KernelCall(
+      spec, "single", (12,), Q=MSCKFEskf.Q, R_list=(MSCKFEskf.obs_noise[12],),
+      structure=sparsity.structure_for(spec, MSCKFEskf.initial_x))
+  assert "// design: global" in call.source(torch.float64)
+  assert _build.generated_info(call.source(torch.float64))["design"] == 0
+  assert _build.generated_info(call.source(torch.float32))["design"] == 1
+  rng = np.random.RandomState(2)
+  Bn, Tn = 4096 + 5, 2
+  x = np.tile(MSCKFEskf.initial_x, (Bn, 1)) + 0.02 * rng.randn(Bn, 41)
+  for idx in spec.quaternion_idxs:
+    x[:, idx:idx + 4] /= np.linalg.norm(x[:, idx:idx + 4], axis=1,
+                                        keepdims=True)
+  d64 = dict(dtype=torch.float64, device=cuda_device)
+  xt = torch.as_tensor(x.T.copy(), **d64)
+  Pt = (0.1 * torch.eye(36, **d64))[:, :, None].repeat(1, 1, Bn)
+  zs = torch.as_tensor(x.T[None, 0:3] + rng.randn(Tn, 3, Bn), **d64)
+  dts = torch.full((Tn,), 0.05, **d64)
+  count = generic_scan.generic_bank_scan.launches
+  out = generic_scan.generic_bank_scan(xt, Pt, zs, dts, call=call)
+  assert generic_scan.generic_bank_scan.launches == count + 1
+  ref = generic_scan.generic_bank_scan_reference(
+      xt, Pt, zs, dts, spec=spec, kind=12, Q=MSCKFEskf.Q,
+      R=MSCKFEskf.obs_noise[12])
+  for a, b in zip(out, ref):
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-10,
+                               atol=1e-12)
+  assert torch.equal(out[1], out[1].transpose(0, 1))

@@ -220,3 +220,43 @@ def test_kernels_match_plain(cuda_device):
     out_p = live_scan.live_bank_scan_mixed_reference(*args, gate=gate, **kw)
     assert max(live_sigma_err(*out_k, *out_p)) < 1e-3
     assert torch.equal(out_k[1], out_k[1].transpose(0, 1))
+
+
+@pytest.mark.cuda
+def test_kernel3_ragged_bank_and_short_scans(cuda_device):
+  """Kernel 3's tile of 32 filters on a bank that is not a multiple of 32
+  (B = 8192 + 5: the last block has 27 lanes past the bank, which reach
+  every barrier and store nothing), at T = 8 (all 6 mixed kinds, one
+  streamed) and T = 1, against the plain version; T = 0 launches and
+  counts nothing."""
+  dev = dict(dtype=torch.float32, device=cuda_device)
+  T, B = 8, 8192 + 5
+  x, P, dts, kind_idx, zs, R_by_kind, r_stream = _mixed_inputs(T, B, 9)
+  R_stack = np.zeros((len(MIXED_KINDS), 3, 3))
+  for i, k in enumerate(MIXED_KINDS):
+    dz = live_lane.LANE_KINDS[k][0]
+    R_stack[i, :dz, :dz] = R_by_kind[k]
+  x, P = torch.as_tensor(x, **dev), torch.as_tensor(P, **dev)
+  zs = torch.as_tensor(zs, **dev).permute(0, 2, 1).contiguous()
+  rest = (MIXED_KINDS, torch.as_tensor(R_stack, **dev),
+          torch.as_tensor(np.diag(LiveKalman.Q), **dev))
+  dts = torch.as_tensor(dts, **dev)
+  ki = torch.as_tensor(kind_idx, device=cuda_device)
+  r_stream = torch.as_tensor(r_stream, **dev)
+  for n in (T, 1):
+    args = (x, P, zs[:n], dts[:n], ki[:n]) + rest
+    kw = dict(gate=True, r_stream=r_stream[:n],
+              stream_kinds=(K.CAMERA_ODO_ROTATION,))
+    count = live_scan.live_bank_scan_mixed.launches
+    out_k = live_scan.live_bank_scan_mixed(*args, **kw)
+    assert live_scan.live_bank_scan_mixed.launches == count + 1
+    out_p = live_scan.live_bank_scan_mixed_reference(*args, **kw)
+    assert max(live_sigma_err(*out_k, *out_p)) < 1e-3
+    assert torch.equal(out_k[1], out_k[1].transpose(0, 1))
+    assert not torch.equal(out_k[1][:, :, -1], P[:, :, -1])  # the last lane
+  count = live_scan.live_bank_scan_mixed.launches
+  out = live_scan.live_bank_scan_mixed(
+      x, P, zs[:0], dts[:0], ki[:0], *rest, gate=True, r_stream=r_stream[:0],
+      stream_kinds=(K.CAMERA_ODO_ROTATION,))
+  assert torch.equal(out[0], x) and torch.equal(out[1], P)
+  assert live_scan.live_bank_scan_mixed.launches == count
