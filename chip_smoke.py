@@ -47,21 +47,28 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      from converged states or fresh banks with consistent data), the
      difference in standard deviations of the plain result
      (utils/compare.py), both timed with CUDA events, with the least time
-     the card could take (bound). loc (kernel 5) and both MSCKF models
-     (kernels 7 and 6) are also held in double, the float64 build of
-     the body against the float64 plain version, and planted faults must
-     fail that limit; loc's float32 agreement is printed; on the main
-     path's loc data its share of lanes over 100 m off is held against the
-     plain version's. As a cross-check, the generic live kernels against
-     the hand ones on the same inputs: kernel 4 (ECEF_POS, gate on)
-     against kernel 2, kernel 6 against kernel 3 with its gate off.
-     Kernels 3 and 4 keep P in shared memory (a tile of 32 filters, the
-     step split across warps): kernel 3's launch shape as the CUDA
-     runtime reads it and its raw-launch time at T = 64 and T = 1; for
-     each mode-"single" variant of the main paths the design it took
-     (tile or global), its warps, shared memory a block, blocks an SM and
-     its raw-launch time at T = 64 and T = 1 (every float32 variant must
-     be a tile), and msckf_eskf's POSITION tile against its plain version.
+     the card could take (bound). loc (kernel 5), the live spec's 4-kind
+     cycle (kernel 6, from the generic bank's state after run_mixed; in
+     float32 it is held from kernel 3's state, see LIVE64_TOL) and both
+     MSCKF models (kernels 7 and 6) are also held in double, the float64
+     build of the body against the float64 plain version, and planted
+     faults must fail that limit; loc's and the live spec's float32
+     agreement there is printed; on the main path's loc data its share of
+     lanes over 100 m off is held against the plain version's. As a
+     cross-check, the generic live kernels against the hand ones on the
+     same inputs: kernel 4 (ECEF_POS, gate on) against kernel 2, kernel 6
+     against kernel 3 with its gate off.
+     Kernels 2, 3, 4 and 6 keep P in shared memory (a tile of 32 filters,
+     the step split across warps): kernels 2 and 3's launch shapes as the
+     CUDA runtime reads them and their raw-launch times at T = 64 and
+     T = 1; for each mode-"single" and mode-"mixed" variant of the main
+     paths the design it took (tile or global), its warps, shared memory
+     a block, blocks an SM and its raw-launch time at T = 64 and T = 1
+     (every float32 single variant, and every float32 mixed variant
+     without a camera-frame unit, must be a tile), and msckf_eskf's
+     POSITION tile against its plain version; kernel 5's float32 bound on
+     loc and kernel 7's raw-launch time at T = 1 on msckf_eskf (an
+     observe_frame call).
 Prints the build times and ptxas lines, the card's name and power limit,
 a JSON line of the kernels, and last `{"ok": true, "device": {...}}`. Any
 failure raises (non-zero exit). It needs a CUDA card and the repository;
@@ -115,6 +122,18 @@ CROSS_TOL = 1e-2
 # the float32 plain version's plus LOC_SHARE_SLACK, and the double
 # kernel's within LOC64_SHARE_DIFF of the float64 plain version's.
 LOC64_TOL = 1e-6
+# the live spec's generic kernels at ECEF scale likewise: from the generic
+# bank's state after its run_mixed (T = 512 from the 10-rad attitude
+# prior, attitude sigma median ~0.5 rad) two float32 programs part beyond
+# GEN_TOL on some lanes whatever their quality (the one-thread-a-filter
+# kernel 6 by 0.223 sigma on one lane, a float32 ulp of an ECEF
+# coordinate, where kernel 3 agrees with the tile to 1.3e-3). Kernel 6 is
+# held in float32 at GEN_TOL from the state kernel 3 is held from (the
+# hand bank after run_mixed over T = 1024), and from the generic bank's
+# own state in double: the float64 build against the float64 plain
+# version, every lane within LIVE64_TOL sigmas; planted faults must fail
+# that limit.
+LIVE64_TOL = 1e-6
 LOC_FAR_M = 100.0
 LOC_SHARE_RATIO, LOC_SHARE_SLACK = 1.25, 0.01
 LOC64_SHARE_DIFF = 0.002
@@ -197,6 +216,28 @@ def timed_run(fn, reps):
   return start.elapsed_time(end) / reps, out
 
 
+def kernel2_launch(lib, x, P, zs, dts, q_diag, R, gate=False):
+  """A launch of kernel 2 from `lib` (live_bank_scan_launch) on copies of x
+  and P made once, as kernel3_launch. Returns the zero-argument launch."""
+  import torch
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import live_lane
+
+  x, P = x.clone(), P.clone()
+  T, B = dts.shape[0], x.shape[-1]
+  stream = torch.cuda.current_stream(x.device).cuda_stream
+
+  def launch():
+    _build.check(lib.live_bank_scan_launch(
+        x.data_ptr(), P.data_ptr(), zs.data_ptr(), dts.data_ptr(),
+        q_diag.data_ptr(), R.data_ptr(), T, B, int(gate),
+        live_lane.MAHA_THRESH_3D, stream), "kernel 2")
+    return x, P
+
+  return launch
+
+
 def kernel3_launch(lib, x, P, zs, dts, kind_idx, kinds, R_by_kind, q_diag,
                    gate=False, r_stream=None, stream_kinds=()):
   """A launch of kernel 3 from `lib` (live_bank_scan_mixed_launch) on
@@ -234,18 +275,27 @@ def kernel3_launch(lib, x, P, zs, dts, kind_idx, kinds, R_by_kind, q_diag,
   return launch
 
 
-def kernel3_info(lib):
-  """Kernel 3's launch shape as the CUDA runtime reads it
-  (live_bank_scan_mixed_info, csrc/live_scan.cu)."""
+def hand_kernel_info(lib, entry):
+  """The launch shape of kernel 2 (entry live_bank_scan_info) or kernel 3
+  (live_bank_scan_mixed_info) as the CUDA runtime reads it
+  (csrc/live_scan.cu)."""
   import ctypes
 
   from rednose_tpu_torch import _build
 
   out = (ctypes.c_int * 6)()
-  _build.check(lib.live_bank_scan_mixed_info(ctypes.addressof(out)),
-               "live_bank_scan_mixed_info")
+  _build.check(getattr(lib, entry)(ctypes.addressof(out)), entry)
   return dict(zip(("warps", "threads", "smem_bytes", "blocks_per_sm",
                    "registers", "local_bytes"), out))
+
+
+def tile_line(name, info, raw):
+  """The log line of a hand kernel's launch shape and raw-launch times."""
+  return (f"{name} design: a block of 32 filters x {info['warps']} warps, "
+          f"{info['smem_bytes']} B of shared memory a block, "
+          f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
+          f"registers, {info['local_bytes']} B local a thread; raw launches "
+          f"T={CMP_T} {raw[CMP_T]:.4f} ms, T=1 {raw[1]:.4f} ms")
 
 
 def generic_launch(source, call, x, P, zs, dts, eas=None, pss=None,
@@ -495,7 +545,7 @@ def hand_kernel_ops(live_spec):
                      structure=st).counting_source()
   k3 = gs.KernelCall(live_spec, "mixed", mixed_kinds(), Q=LiveKalman.Q,
                      R_list=[LiveKalman.obs_noise[k] for k in mixed_kinds()],
-                     structure=st).source()
+                     structure=st).counting_source()
   return {"kinematic_bank_scan": step_ops(k1, (1,)),
           "live_bank_scan": step_ops(k2, (K.ECEF_POS,)),
           "live_bank_scan_mixed": step_ops(k3, mixed_kinds(), "mixed")}
@@ -549,6 +599,14 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
       dict(gate=True), live_err, LIVE_TOL, 5,
       f"B={LIVE_B} T={CMP_T} gate on",
       ops["live_bank_scan"] * LIVE_B * CMP_T))
+  # the tiles' load and store weigh most at T = 1 (an observe call): raw
+  # launches, so the wrapper's checks and copies are not in the time
+  lib = _build.library()
+  raw = {T: timed_run(kernel2_launch(lib, x0, P0, zs[:T], dts[:T], q_diag, R,
+                                     True), 20 if T == 1 else 5)[0]
+         for T in (CMP_T, 1)}
+  log(tile_line("live_bank_scan", hand_kernel_info(lib, "live_bank_scan_info"),
+                raw))
 
   x_m, P_m, q_diag = live_states["live_bank_scan_mixed"]
   kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, CMP_T)
@@ -571,21 +629,14 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
       live_err, LIVE_TOL, 5,
       f"B={LIVE_B} T={CMP_T} gate on, 4 kinds, 1 streamed",
       ops["live_bank_scan_mixed"] * LIVE_B * CMP_T))
-  # the tile's load and store weigh most at T = 1 (an observe call): raw
-  # launches, so the wrapper's checks and copies are not in the time
-  lib = _build.library()
   zs3 = zs_m.permute(0, 2, 1).contiguous()
   ki3 = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
   raw = {T: timed_run(kernel3_launch(
       lib, x_m, P_m, zs3[:T], dts[:T], ki3[:T], kinds, R_by_kind, q_diag,
       True, r_stream[:T], (K.CAMERA_ODO_ROTATION,)), 20 if T == 1 else 5)[0]
          for T in (CMP_T, 1)}
-  info = kernel3_info(lib)
-  log(f"live_bank_scan_mixed design: a block of 32 filters x "
-      f"{info['warps']} warps, {info['smem_bytes']} B of shared memory a "
-      f"block, {info['blocks_per_sm']} blocks an SM, {info['registers']} "
-      f"registers, {info['local_bytes']} B local a thread; raw launches "
-      f"T={CMP_T} {raw[CMP_T]:.4f} ms, T=1 {raw[1]:.4f} ms")
+  log(tile_line("live_bank_scan_mixed",
+                hand_kernel_info(lib, "live_bank_scan_mixed_info"), raw))
 
   bad = [r["name"] for r in rows if not r["ok"]]
   require(not bad, f"kernels agree with their plain versions: {bad}")
@@ -675,8 +726,7 @@ def generic_calls(live_spec):
                                      (K.PSEUDORANGE_GPS,)),
       "live run, gate on (kernel 4)": call(
           LiveKalman, live_spec, "single", (K.ECEF_POS,), gate=True),
-      "live run_mixed (kernel 6)": call(LiveKalman, live_spec, "mixed",
-                                        mixed_kinds()),
+      "live run_mixed (kernel 6)": live_mixed_call(),
   }
 
 
@@ -699,6 +749,20 @@ def loc_epoch_call(Q=None, R_list=None):
       R_list=(R_list if R_list is not None
               else [LocKalman.obs_noise[k] for k in loc_slots()]),
       structure=sparsity.structure_for(loc, LocKalman.initial_x))
+
+
+def live_mixed_call(Q=None, R_list=None):
+  """Kernel 6's call on the live spec as KalmanBank.run_mixed makes it for
+  the 4-kind cycle, or with another Q or per-kind R (the planted faults
+  of compare_generic: run-time values, so the same build)."""
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  LiveKalman, live_spec = generic_models()[2:]
+  return gs.KernelCall(
+      live_spec, "mixed", mixed_kinds(), Q=LiveKalman.Q if Q is None else Q,
+      R_list=(R_list if R_list is not None
+              else [LiveKalman.obs_noise[k] for k in mixed_kinds()]),
+      structure=sparsity.structure_for(live_spec, LiveKalman.initial_x))
 
 
 def mixed_kinds():
@@ -851,9 +915,11 @@ def generic_main_path(torch, dev, gen):
           "live_mixed": after_mixed, "loc_run": loc_run}
 
 
-def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
+def compare_generic(torch, dev, gen, states, hand_states, kernel_reps=5):
   """Phase 2, generic bank: kernels 4, 5, 6 against their plain versions
-  and the generic live kernels against the hand ones."""
+  and the generic live kernels against the hand ones (hand_states: the
+  kinematic and live path's states, compare_kernels' inputs)."""
+  from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.car import ObservationKind as CK
   from rednose_tpu_torch.models.live import ObservationKind as K
   from rednose_tpu_torch.ops import generic_scan as gs, live_scan, sparsity
@@ -862,6 +928,7 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
   CarKalman, LocKalman, LiveKalman, live_spec = generic_models()
   f32 = dict(dtype=torch.float32, device=dev)
   dts = torch.full((CMP_T,), 0.01, **f32)
+  hand_q = hand_states["live_bank_scan"][2]
   rows, checks = [], []
 
   def call_ops(mode, spec, kinds, T, **kw):
@@ -916,21 +983,23 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
       f"generic {row4['ms']:.4f} ms -> {'ok' if e <= CROSS_TOL else 'FAIL'}")
   checks.append(("generic kernel 4 vs hand kernel 2", e <= CROSS_TOL))
 
-  # kernel 6 on the live spec, from the state after run_mixed
-  x, P = states["live_mixed"]
+  # kernel 6 on the live spec in float32, from the state kernel 3 is held
+  # from, and the same inputs through kernel 3 (see LIVE64_TOL)
+  x, P = hand_states["live_bank_scan_mixed"][:2]
   kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, CMP_T)
   zs_m = zs_m.permute(0, 2, 1).contiguous()
   ki = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
   R_list = [LiveKalman.obs_noise[k] for k in kinds]
+  kw6 = dict(spec=live_spec, kinds=kinds, Q=LiveKalman.Q, R_list=R_list,
+             structure=st)
+  ops6 = call_ops("mixed", live_spec, kinds, CMP_T, Q=LiveKalman.Q,
+                  R_list=R_list, structure=st)
   row6, out6, _ = run(
       "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
       "rednose_tpu/ops/pallas_bank.py:250", live_spec,
       gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
-      (x, P, zs_m, dts, ki),
-      dict(spec=live_spec, kinds=kinds, Q=LiveKalman.Q, R_list=R_list,
-           structure=st), f"live spec B={GEN_B} T={CMP_T}, 4 kinds",
-      call_ops("mixed", live_spec, kinds, CMP_T, Q=LiveKalman.Q,
-               R_list=R_list, structure=st))
+      (x, P, zs_m, dts, ki), kw6,
+      f"live spec B={GEN_B} T={CMP_T}, 4 kinds, from kernel 3's state", ops6)
   rows.append(row6)
   ms, out3 = timed_run(lambda: live_scan.live_bank_scan_mixed(
       x, P, zs_m, dts, ki, kinds, torch.stack(
@@ -942,6 +1011,48 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
       f"{e:.4g} sigma (tolerance {CROSS_TOL}); hand kernel {ms:.4f} ms, "
       f"generic {row6['ms']:.4f} ms -> {'ok' if e <= CROSS_TOL else 'FAIL'}")
   checks.append(("generic kernel 6 vs hand kernel 3", e <= CROSS_TOL))
+
+  # kernel 6 from the generic bank's own state after run_mixed, in double
+  # (the float64 build of the same emitted body), and planted faults (a
+  # unit left out: its R scaled by 1e12; a Q term dropped: scaled by 1e-9;
+  # run-time values, the same build) beyond LIVE64_TOL; its float32
+  # agreement there printed
+  x, P = states["live_mixed"]
+  args64 = (x.double(), P.double(), zs_m.double(), dts.double(), ki)
+  _, _, ref64 = run(
+      "generic_bank_scan_mixed", "", "", live_spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      args64, kw6, f"live spec B={GEN_B} T={CMP_T}, 4 kinds, from its own "
+      "state, float64", ops6, tol=LIVE64_TOL)
+  builds = _build.generated_launcher.cache_info().currsize
+  faults = {}
+  for u, k in enumerate(kinds):
+    faults[f"unit {u} (kind {int(k)}) left out"] = live_mixed_call(
+        R_list=[R * (1e12 if j == u else 1.0) for j, R in enumerate(R_list)])
+  for i in np.flatnonzero(np.diag(LiveKalman.Q)):
+    Qf = np.array(LiveKalman.Q, dtype=np.float64)
+    Qf[i, i] *= 1e-9
+    faults[f"Q[{i},{i}] dropped"] = live_mixed_call(Q=Qf)
+  miss = {name: float(lane_errs(gs.generic_bank_scan_mixed(
+      *args64, call=c), ref64, live_spec).max()) for name, c in faults.items()}
+  least = min(miss, key=miss.get)
+  ok = (miss[least] > LIVE64_TOL
+        and _build.generated_launcher.cache_info().currsize == builds)
+  log(f"generic_bank_scan_mixed planted faults [live spec, float64]: "
+      f"{len(miss)} faults, the least visible ({least}) at "
+      f"{miss[least]:.4g} sigma, must exceed {LIVE64_TOL}, with no extra "
+      f"build -> {'ok' if ok else 'FAIL'}")
+  checks.append(("live spec planted faults beyond the limit", ok))
+  out_k = gs.generic_bank_scan_mixed(x, P, zs_m, dts, ki, **kw6)
+  out_p = gs.generic_bank_scan_mixed_reference(x, P, zs_m, dts, ki, **kw6)
+  e = lane_errs(out_k, out_p, live_spec)
+  e64 = [lane_errs(o, ref64, live_spec) for o in (out_k, out_p)]
+  log(f"generic_bank_scan_mixed [live spec B={GEN_B} T={CMP_T}, from its own "
+      f"state, float32]: kernel vs plain max {float(e.max()):.4g} sigma "
+      f"(lane {int(e.argmax())}), median {float(e.median()):.4g}; against "
+      f"float64: kernel max {float(e64[0].max()):.4g} median "
+      f"{float(e64[0].median()):.4g}, plain max {float(e64[1].max()):.4g} "
+      f"median {float(e64[1].median()):.4g}")
 
   # kernel 5 on loc, held in double: the float64 build of the same
   # emitted body against the float64 plain version, from a bank converged
@@ -1015,10 +1126,15 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
       lambda: gs.generic_bank_scan_epoch_reference(*args32, **kw32), 1)
   e = lane_errs(out_k, out_p, loc)
   ek, ep = (float(lane_errs(o, ref64, loc).median()) for o in (out_k, out_p))
+  b32, by32 = bound(io_bytes([args32, [v for k, v in kw32.items()
+                                       if k != "spec"], out_k], 4),
+                    call_ops("epoch", loc, slots, CMP_T, Q=LocKalman.Q,
+                             R_list=kw["R_list"], structure=kw["structure"]))
   log(f"generic_bank_scan_epoch [loc B={GEN_B} T={CMP_T}, float32]: kernel "
-      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; kernel vs plain median lane "
-      f"{float(e.median()):.4g} sigma, max {float(e.max()):.4g}; against "
-      f"float64: kernel median {ek:.4g}, plain median {ep:.4g}")
+      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b32:.4g} ms ({by32}); "
+      f"kernel vs plain median lane {float(e.median()):.4g} sigma, max "
+      f"{float(e.max()):.4g}; against float64: kernel median {ek:.4g}, "
+      f"plain median {ep:.4g}")
 
   # the main path's loc steps again: the float32 kernel may lose at most
   # LOC_SHARE_RATIO times (+ LOC_SHARE_SLACK) the float32 plain version's
@@ -1057,13 +1173,16 @@ def compare_generic(torch, dev, gen, states, hand_q, kernel_reps=5):
   return rows
 
 
-def single_variants(torch, dev, gen, live_spec, states, reps=20):
-  """Kernel 4's variants on the main paths (mode 'single'): the design each
-  took (tile or global), its warps, shared memory a block, blocks an SM,
-  registers and local bytes as the CUDA runtime reads them, and its time
-  (raw launches, CUDA events) at T = CMP_T and T = 1, from the main path's
-  car and live banks or a fresh bank (loc, msckf_eskf) with data of the
-  main path's kind. Every float32 variant the smoke builds must be a
+def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
+  """Kernel 4's variants on the main paths (mode 'single') and kernel 6's
+  (mode 'mixed': the live spec's 4-kind cycle, and both MSCKF models' VIO
+  schedule with camera frames): the design each took (tile or global),
+  its warps, shared memory a block, blocks an SM, registers and local
+  bytes as the CUDA runtime reads them, and its time (raw launches, CUDA
+  events) at T = CMP_T and T = 1, from the main path's car, live and live
+  mixed banks or a fresh bank (loc, msckf_eskf, the VIO banks) with data
+  of the main path's kind. Every float32 single variant, and every float32
+  mixed variant without a camera-frame unit, the smoke builds must be a
   tile."""
   from rednose_tpu_torch import _build
 
@@ -1090,29 +1209,51 @@ def single_variants(torch, dev, gen, live_spec, states, reps=20):
   inputs = {
       "car run (kernel 4)": (
           *states["car"], zs.permute(0, 2, 1).contiguous(),
-          torch.full((T,), 0.05, **f32), None, torch.as_tensor(pss, **f32)),
+          torch.full((T,), 0.05, **f32), None, torch.as_tensor(pss, **f32),
+          None),
       "loc observe (kernel 4)": (
           x_loc, P_loc, (sats - truth).norm(dim=1, keepdim=True), torch.full(
-              (T,), 0.1, **f32), sats, None),
+              (T,), 0.1, **f32), sats, None, None),
       "live run, gate on (kernel 4)": (
           x_live, P_live, (x_live[None, 0:3] + 5.0 * torch.randn(
               (T, 3, GEN_B), generator=gen, **f32)).contiguous(),
-          torch.full((T,), 0.01, **f32), None, None),
+          torch.full((T,), 0.01, **f32), None, None, None),
       "msckf_eskf observe POSITION (kernel 4)": (
           x_es, P_es, (x_es[None, 0:3] + torch.randn(
               (T, 3, MSCKF_B), generator=gen, **f32)).contiguous(),
-          torch.full((T,), MSCKF_DT, **f32), None, None),
+          torch.full((T,), MSCKF_DT, **f32), None, None, None),
   }
+  _, kind_idx, zs_m = mixed_schedule(torch, dev, gen, T)
+  inputs["live run_mixed (kernel 6)"] = (
+      *states["live_mixed"], zs_m.permute(0, 2, 1).contiguous(),
+      torch.full((T,), 0.01, **f32), None, None,
+      torch.as_tensor(kind_idx, dtype=torch.int32, device=dev))
+  vio_ki = vio_kind_idx(T)
+  for model in msckf_models():
+    name = f"{model.name} run_mixed with frames (kernel 6)"
+    spec, _, _, R = msckf_setup(model)
+    xs = msckf_bank_x0(model, SEED + 8)
+    zs_v, eas_v, _ = msckf_frames(torch, dev, gen, model, xs, T, R,
+                                  frames=vio_ki.astype(bool))
+    calls[name] = vio_call(model)
+    inputs[name] = (
+        torch.as_tensor(xs.T, **f32).contiguous(),
+        (MSCKF_P0 * torch.eye(spec.dim_err, **f32))[:, :, None].repeat(
+            1, 1, MSCKF_B),
+        zs_v.transpose(1, 2).to(**f32).contiguous(),
+        torch.full((T,), MSCKF_DT, **f32), eas_v.transpose(1, 2).to(
+            **f32).contiguous(), None,
+        torch.as_tensor(vio_ki, dtype=torch.int32, device=dev))
   out = {}
-  for name, (x, P, zs, dts, eas, pss) in inputs.items():
+  for name, (x, P, zs, dts, eas, pss, ki) in inputs.items():
     call = calls[name]
     src = call.source()
     info = _build.generated_info(src)
 
     def launch(n):
-      return generic_launch(src, call, x, P, zs[:n], dts[:n],
-                            None if eas is None else eas[:n],
-                            None if pss is None else pss[:n])
+      cut = lambda a: None if a is None else a[:n]  # noqa: E731
+      return generic_launch(src, call, x, P, zs[:n], dts[:n], cut(eas),
+                            cut(pss), cut(ki))
 
     ms = {n: timed_run(launch(n), reps if n == 1 else 5)[0] for n in (T, 1)}
     out[name] = dict(info, ms=ms[T], ms_T1=ms[1])
@@ -1122,7 +1263,8 @@ def single_variants(torch, dev, gen, live_spec, states, reps=20):
         f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
         f"registers, {info['local_bytes']} B local a thread; raw launches "
         f"B={x.shape[-1]} T={T} {ms[T]:.4f} ms, T=1 {ms[1]:.4f} ms")
-    require(info["design"] == 1, f"{name}: the float32 variant is a tile")
+    if "with frames" not in name:
+      require(info["design"] == 1, f"{name}: the float32 variant is a tile")
   # msckf_eskf's POSITION tile (a 36 x 36 P, one block an SM) against its
   # plain version, as compare_generic holds the car and live variants
   from rednose_tpu_torch.ops import generic_scan as gs
@@ -1200,10 +1342,10 @@ def msckf_sources():
   }
 
 
-def msckf_bank_x0(model, seed):
-  """(B, dim_x) per-lane states of the bench entry: x0 (msckf_vo: a small
-  main state and clones 0.3 m apart; msckf_eskf: the model's x0 with the
-  clones spread 0.5 m) plus 0.02 noise, quaternions renormalized."""
+def msckf_bank_x0(model, seed, batch=MSCKF_B):
+  """(batch, dim_x) per-lane states of the bench entry: x0 (msckf_vo: a
+  small main state and clones 0.3 m apart; msckf_eskf: the model's x0 with
+  the clones spread 0.5 m) plus 0.02 noise, quaternions renormalized."""
   spec = model.build_spec()
   rng = np.random.RandomState(seed)
   if model.name == "msckf_vo":
@@ -1215,7 +1357,7 @@ def msckf_bank_x0(model, seed):
     for a in range(spec.n_augment):
       o = spec.dim_main + spec.dim_augment * a
       x0[o:o + 3] += 0.5 * rng.randn(3)
-  xs = np.tile(x0, (MSCKF_B, 1)) + 0.02 * rng.randn(MSCKF_B, spec.dim_x)
+  xs = np.tile(x0, (batch, 1)) + 0.02 * rng.randn(batch, spec.dim_x)
   for idx in spec.quaternion_idxs:
     xs[:, idx:idx + 4] /= np.linalg.norm(xs[:, idx:idx + 4], axis=1,
                                          keepdims=True)
@@ -1280,15 +1422,21 @@ def msckf_frames(torch, dev, gen, model, xs, T, R, frames=None,
   return torch.stack(zs), torch.stack(eas), truths
 
 
-def msckf_lost(torch, spec, bank_x, bank_P, truth):
-  """Share of lanes whose error state against the truth is beyond
+def msckf_lost_lanes(torch, spec, bank_x, bank_P, truth):
+  """(B,) bool: the lanes whose error state against the truth is beyond
   MSCKF_FAR sigmas in some component, or not finite. bank_x (dim_x, B),
   bank_P (de, de, B), truth (B, dim_x)."""
   from torch.func import vmap
 
   e = vmap(lambda n, t: spec.inv_err({}, n, t))(bank_x.T.double(), truth)
   sd = torch.diagonal(bank_P.double(), dim1=0, dim2=1).sqrt()   # (B, de)
-  return float((~((e.abs() / sd) <= MSCKF_FAR).all(dim=1)).double().mean())
+  return ~((e.abs() / sd) <= MSCKF_FAR).all(dim=1)
+
+
+def msckf_lost(torch, spec, bank_x, bank_P, truth):
+  """Share of the lanes msckf_lost_lanes counts lost."""
+  return float(msckf_lost_lanes(torch, spec, bank_x, bank_P,
+                                truth).double().mean())
 
 
 def msckf_healthy(torch, name, bank, truth):
@@ -1402,6 +1550,13 @@ def compare_msckf(torch, dev, gen, reps=10):
         gs.vo_bank_scan_reference, inputs(torch.float32), kw, shape, ops,
         checks=checks, reps=reps)
     rows.append(row)
+    # raw launches: T = 1 is an observe_frame call on the bank
+    x, P, zs32, eas32, dts32 = inputs(torch.float32)
+    raw = {n: timed_run(generic_launch(call.source(), call, x, P, zs32[:n],
+                                       dts32[:n], eas32[:n]),
+                        20 if n == 1 else 5)[0] for n in (T, 1)}
+    log(f"vo_bank_scan [{model.name} B={MSCKF_B}] raw launches: T={T} "
+        f"{raw[T]:.4f} ms, T=1 {raw[1]:.4f} ms")
     args64 = inputs(torch.float64)
     _, _, ref64 = kernel_vs_plain(
         "vo_bank_scan", "", "", spec, gs.vo_bank_scan,
@@ -1767,9 +1922,11 @@ def main():
     static = pool.submit(_build.build)
     live_spec = generic_models()[3]
     sources = generic_sources(live_spec) | msckf_sources() | vio_sources()
-    # the comparison phase's own variants: kernels 5 and 7 in double
+    # the comparison phase's own variants: kernels 5, 6 and 7 in double
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
-                   loc_epoch_call().source(torch.float64)}
+                   loc_epoch_call().source(torch.float64),
+                   "live run_mixed, float64 (kernel 6)":
+                   live_mixed_call().source(torch.float64)}
     for model in msckf_models():
       cmp_sources[f"{model.name} run_frames, float64 (kernel 7)"] = \
           msckf_call(model).source(torch.float64)
@@ -1833,9 +1990,8 @@ def main():
 
   live_states, generic_states, _, _ = states
   rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
-  rows += compare_generic(torch, dev, gens[1], generic_states,
-                          live_states["live_bank_scan"][2])
-  single_variants(torch, dev, gens[1], live_spec, generic_states)
+  rows += compare_generic(torch, dev, gens[1], generic_states, live_states)
+  kernel_variants(torch, dev, gens[1], live_spec, generic_states)
   rows += compare_msckf(torch, dev, gens[2])
   rows += compare_vio(torch, dev, gens[3])
   # no one PyTorch call computes a fused T-step filter scan: library_ms null

@@ -58,7 +58,8 @@ SIGNATURES = {
     "live_bank_scan_mixed_launch":
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # out (6 ints): warps, threads, shared memory bytes, blocks an SM
-    # holds, registers, local bytes of kernel 3
+    # holds, registers, local bytes of kernel 2 / kernel 3
+    "live_bank_scan_info": (_P,),
     "live_bank_scan_mixed_info": (_P,),
 }
 

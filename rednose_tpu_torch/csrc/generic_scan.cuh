@@ -26,47 +26,49 @@
 // in namespace rn_gen, the constants DX, DE, NP, NPS, NZROWS, NEAROWS and
 // ps_idx(i), and either gen_step(x, P, ld, z, ea, dt, ki, p, Q, R), one
 // predict and the step's updates of one filter (the global form), or, for
-// kernel 4 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES, NSCR, NVAL and
-// the role dispatchers gen_tile_*. The second include
-// (REDNOSE_GENERIC_SCAN_LOOPS) adds the scan loop, the __global__ kernel
-// and its C entry points under nvcc, or a host loop over the bank under a
-// host compiler: the same emitted text runs in both.
+// kernels 4 and 6 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES, NSCR,
+// NVAL and the role dispatchers gen_tile_*, which for kernel 6
+// (REDNOSE_GENERIC_SCAN_TILE_KINDS) also take the step's kind index. The
+// second include (REDNOSE_GENERIC_SCAN_LOOPS) adds the scan loop, the
+// __global__ kernel and its C entry points under nvcc, or a host loop over
+// the bank under a host compiler: the same emitted text runs in both.
 //
 // Layout, bank-minor: xs (DX, B), Ps (DE, DE, B), zs (T, NZROWS, B), eas
 // (T, NEAROWS, B), dts (T,), kind_idx (T,) int32, pss (T, NPS); the
 // params vector prm (NP,), Q (DE, DE) and the packed per-unit R are
 // run-time inputs, so a new value never needs a new build.
 //
-// Kernel 4's tile form (mode "single" whenever 32 filters' P, x and update
-// scratch fit in a block's shared memory, which every float32 variant the
-// port ships does; ops/entry_slab.py decides when it emits the source and
-// names the design in its header): a block of 32 filters (lane = filter)
-// and NROLES warps (role = warp) keeps P, x and the scratch in shared
-// memory for the whole T loop, and splits each step's phases over the
-// warps between barriers (see the tile section below). At B = 8192 that is
-// NROLES x the warps in flight of one thread a filter, every P access a
-// shared-memory access. Bound: operations (the live ECEF_POS variant
-// 0.04977 ms at B = 8192, T = 64, 67 TFLOP/s), against which redundant
-// work across roles (shared subexpressions of the predict that more than
-// one role needs are computed by each) and the serial update sub-phase
-// count.
+// The tile form (mode "single", kernel 4, and mode "mixed" without a
+// camera-frame unit, kernel 6, whenever 32 filters' P, x and update
+// scratch fit in a block's shared memory, which every such float32
+// variant the port ships does; ops/entry_slab.py decides when it emits the
+// source and names the design in its header): a block of 32 filters (lane
+// = filter) and NROLES warps (role = warp) keeps P, x and the scratch in
+// shared memory for the whole T loop, and splits each step's phases over
+// the warps between barriers (see the tile section below). At B = 8192
+// that is NROLES x the warps in flight of one thread a filter, every P
+// access a shared-memory access. Bound: operations (the live ECEF_POS
+// variant 0.04977 ms, the live 4-kind mixed variant 0.05562 ms at
+// B = 8192, T = 64, 67 TFLOP/s), against which redundant work across
+// roles (shared subexpressions of the predict that more than one role
+// needs are computed by each) and the serial update sub-phase count.
 //
-// The global form (modes "mixed", "epoch", "frame", and a "single" variant
-// whose tile does not fit: msckf_eskf's POSITION kind in double), kernel
-// 2's design (csrc/live_scan.cu): one thread per filter and the T loop
-// inside the kernel, so the state never leaves the card during a scan. x
-// is a thread-local array that the emitted code indexes with constants, so
-// it lives in registers. P stays in global memory, updated in place, read
-// and written at constant offsets; across a warp every access is one
-// coalesced 128-byte line. dts, kind_idx and the pss row are read once per
-// step. The emitted body is straight-line scalar code; what does not fit
-// in registers, nvcc spills to local memory (the ptxas report kept beside
-// each build says how much). Bound: the L2 traffic of P (at B = 8192 a
-// 22 x 22 bank is 15.9 MB, at B = 4096 a 36 x 36 MSCKF bank 21.2 MB,
-// resident in the 50 MB L2) and local-memory traffic of the spills; kernel
-// 7's augmented store reads nearly every old P entry before it writes
-// another, so its body holds most of P in registers or local memory.
-// Making it fast is later work.
+// The global form (modes "epoch" and "frame", a "mixed" variant with a
+// camera-frame unit, and a "single" or "mixed" variant whose tile does not
+// fit: msckf_eskf in double), kernel 2's first design: one thread per
+// filter and the T loop inside the kernel, so the state never leaves the
+// card during a scan. x is a thread-local array that the emitted code
+// indexes with constants, so it lives in registers. P stays in global
+// memory, updated in place, read and written at constant offsets; across a
+// warp every access is one coalesced 128-byte line. dts, kind_idx and the
+// pss row are read once per step. The emitted body is straight-line scalar
+// code; what does not fit in registers, nvcc spills to local memory (the
+// ptxas report kept beside each build says how much). Bound: the L2
+// traffic of P (at B = 8192 a 22 x 22 bank is 15.9 MB, at B = 4096 a
+// 36 x 36 MSCKF bank 21.2 MB, resident in the 50 MB L2) and local-memory
+// traffic of the spills; kernel 7's augmented store reads nearly every old
+// P entry before it writes another, so its body holds most of P in
+// registers or local memory. Making it fast is later work.
 //
 // Numerics: IEEE, no fast-math, in float or double as the bank's dtype
 // says (the wrappers pick the variant). P stays bitwise symmetric: each symmetric
@@ -154,26 +156,38 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 #else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
 #ifdef REDNOSE_GENERIC_SCAN_TILE
 
-// Kernel 4 in tile form (mode "single" when the tile fits): a block of 32
-// filters (lane = filter) and NROLES warps (role = warp). P, x and the
-// update's NSCR scratch values of its 32 filters stay in the block's
-// dynamic shared memory for the whole T loop, laid out [(value)][32] so a
-// warp's 32 lanes touch 32 consecutive words; they are loaded once,
-// coalesced, from the bank-minor arrays and stored once at the end. Each
-// step runs in phases between barriers: every role computes its share of
-// the predicted P (and role 0 the new x) into NVAL registers, barrier, every
-// role stores its share, barrier; role 0 computes the update's shared
-// values (gated gains, Joseph factor rows, dx) into the scratch, barrier;
-// every role computes its share of the updated P (role 0 the new x) from P
-// and the scratch, barrier, stores, barrier. A lane past the bank (the last
-// block of a ragged bank) computes on a copy of filter B - 1, reaches every
-// barrier and stores nothing. The emitted dispatchers gen_tile_* switch on
-// the role, which is uniform across a warp.
+// Kernels 4 and 6 in tile form (mode "single", and mode "mixed" without a
+// camera-frame unit, when the tile fits): a block of 32 filters (lane =
+// filter) and NROLES warps (role = warp). P, x and the update's NSCR
+// scratch values of its 32 filters stay in the block's dynamic shared
+// memory for the whole T loop, laid out [(value)][32] so a warp's 32 lanes
+// touch 32 consecutive words; they are loaded once, coalesced, from the
+// bank-minor arrays and stored once at the end. Each step runs in phases
+// between barriers: every role computes its share of the predicted P (and
+// role 0 the new x) into NVAL registers, barrier, every role stores its
+// share, barrier; role 0 computes the update's shared values (gated gains,
+// Joseph factor rows, dx) into the scratch, barrier; every role computes
+// its share of the updated P (role 0 the new x) from P and the scratch,
+// barrier, stores, barrier. A lane past the bank (the last block of a
+// ragged bank) computes on a copy of filter B - 1, reaches every barrier
+// and stores nothing. The emitted dispatchers gen_tile_* switch on the
+// role, which is uniform across a warp; a mixed variant's update
+// dispatchers (REDNOSE_GENERIC_SCAN_TILE_KINDS) switch first on the step's
+// kind index ki = kind_idx[t], read once a step and uniform across the
+// bank, so no warp diverges.
 
 namespace rn_gen {
 constexpr int TILE_LANES = 32;
 constexpr int TILE_VALS = DE * DE + DX + NSCR;
 }  // namespace rn_gen
+
+// the update dispatchers' leading argument: the step's kind index for a
+// mixed variant, none for a single one
+#ifdef REDNOSE_GENERIC_SCAN_TILE_KINDS
+#define RN_KI ki,
+#else
+#define RN_KI
+#endif
 
 #ifdef __CUDACC__
 
@@ -181,9 +195,10 @@ __global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
 rn_generic_tile_kernel(
     scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
     const scalar_t* __restrict__ zs, const scalar_t* __restrict__ eas,
-    const scalar_t* __restrict__ dts, const scalar_t* __restrict__ pss,
-    const scalar_t* __restrict__ prm, const scalar_t* __restrict__ Q,
-    const scalar_t* __restrict__ R, int T, int B) {
+    const scalar_t* __restrict__ dts, const int* __restrict__ kind_idx,
+    const scalar_t* __restrict__ pss, const scalar_t* __restrict__ prm,
+    const scalar_t* __restrict__ Q, const scalar_t* __restrict__ R, int T,
+    int B) {
   using namespace rn_gen;
   extern __shared__ __align__(16) unsigned char rn_tile[];
   scalar_t* Pt = reinterpret_cast<scalar_t*>(rn_tile);
@@ -209,16 +224,19 @@ rn_generic_tile_kernel(
     const scalar_t* z = zs + (size_t)t * NZROWS * B + bc;
     const scalar_t* ea =
         NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + bc : nullptr;
+#ifdef REDNOSE_GENERIC_SCAN_TILE_KINDS
+    const int ki = __ldg(kind_idx + t);
+#endif
     scalar_t v[NVAL];
     gen_tile_predict(role, x, P, ld, dt, p, Q, v);
     __syncthreads();
     gen_tile_predict_store(role, x, P, ld, v);
     __syncthreads();
-    if (role == 0) gen_tile_shared(x, P, ld, z, ea, (size_t)B, R, p, s);
+    if (role == 0) gen_tile_shared(RN_KI x, P, ld, z, ea, (size_t)B, R, p, s);
     __syncthreads();
-    gen_tile_update(role, x, P, ld, z, ea, (size_t)B, R, p, s, v);
+    gen_tile_update(RN_KI role, x, P, ld, z, ea, (size_t)B, R, p, s, v);
     __syncthreads();
-    gen_tile_update_store(role, x, P, ld, v);
+    gen_tile_update_store(RN_KI role, x, P, ld, v);
     __syncthreads();
   }
   if (b < B) {
@@ -238,7 +256,6 @@ extern "C" int rn_generic_scan_launch(void* xs, void* Ps, const void* zs,
                                       const void* prm, const void* Q,
                                       const void* R, int T, int B,
                                       void* stream) {
-  (void)kind_idx;
   cudaError_t e = cudaFuncSetAttribute(
       rn_generic_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       rn_tile_smem);
@@ -248,7 +265,8 @@ extern "C" int rn_generic_scan_launch(void* xs, void* Ps, const void* zs,
                            rn_tile_smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
       static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
-      static_cast<const scalar_t*>(dts), static_cast<const scalar_t*>(pss),
+      static_cast<const scalar_t*>(dts), static_cast<const int*>(kind_idx),
+      static_cast<const scalar_t*>(pss),
       static_cast<const scalar_t*>(prm), static_cast<const scalar_t*>(Q),
       static_cast<const scalar_t*>(R), T, B);
   return static_cast<int>(cudaGetLastError());
@@ -271,7 +289,6 @@ extern "C" int rn_generic_scan_host(void* xs_, void* Ps_, const void* zs_,
                                     const void* prm, const void* Q_,
                                     const void* R_, int T, int B) {
   using namespace rn_gen;
-  (void)kind_idx;
   scalar_t* xs = static_cast<scalar_t*>(xs_);
   scalar_t* Ps = static_cast<scalar_t*>(Ps_);
   const scalar_t* zs = static_cast<const scalar_t*>(zs_);
@@ -292,13 +309,19 @@ extern "C" int rn_generic_scan_host(void* xs_, void* Ps_, const void* zs_,
       const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
       const scalar_t* ea =
           NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+#ifdef REDNOSE_GENERIC_SCAN_TILE_KINDS
+      const int ki = static_cast<const int*>(kind_idx)[t];
+#else
+      (void)kind_idx;
+#endif
       for (int r = 0; r < NROLES; ++r)
         gen_tile_predict(r, x, P, 1, dts[t], p, Q, v[r]);
       for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
-      gen_tile_shared(x, P, 1, z, ea, (size_t)B, R, p, s);
+      gen_tile_shared(RN_KI x, P, 1, z, ea, (size_t)B, R, p, s);
       for (int r = 0; r < NROLES; ++r)
-        gen_tile_update(r, x, P, 1, z, ea, (size_t)B, R, p, s, v[r]);
-      for (int r = 0; r < NROLES; ++r) gen_tile_update_store(r, x, P, 1, v[r]);
+        gen_tile_update(RN_KI r, x, P, 1, z, ea, (size_t)B, R, p, s, v[r]);
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_update_store(RN_KI r, x, P, 1, v[r]);
     }
     for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
     for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = P[e];

@@ -1,12 +1,16 @@
-// Kernel 3's step (csrc/live_scan.cu, live_bank_scan_mixed_kernel): the
-// live block-sparse predict with diagonal Q, then the closed-form update
-// of one of the 8 live kinds (live_lane.LANE_KINDS), split into phases that
-// run one after another, with a barrier between two phases.
+// The step of kernels 2 and 3 (csrc/live_scan.cu, live_bank_scan_kernel
+// and live_bank_scan_mixed_kernel): the live block-sparse predict with
+// diagonal Q, then the closed-form update of one of the 8 live kinds
+// (live_lane.LANE_KINDS), split into phases that run one after another,
+// with a barrier between two phases. Kernel 2 updates the one kind
+// ECEF_POS every step, a compile-time constant; kernel 3 the step's kind
+// of a schedule. Both run the same step loop (scan, at the end).
 //
 // Every function here is __host__ __device__ and templated on the scalar
 // type: the card instantiates float, and the tests build this file with
-// the host C++ compiler as double (REDNOSE_LIVE_MIXED_HOST, the entry point
-// live_mixed_host at the end), which runs the same phases in barrier order.
+// the host C++ compiler as double (REDNOSE_LIVE_MIXED_HOST, the entry points
+// live_mixed_host and live_scan_host at the end), which runs the same phases
+// in barrier order.
 //
 // A filter's state is read through Lane<S>: element i at p[i * ld]. On the
 // card p points into a block's shared-memory tile, [(i * DE + j)][32] for
@@ -24,7 +28,8 @@
 //      the Joseph factor Tm = 0.5 S K^T - HP into the scratch, then the
 //      error injection and quaternion renorm of x;
 //   5. joseph (split): P += W + W^T, W = K Tm, over the 253 upper-triangle
-//      entries.
+//      entries; the next step's nominal overlaps it (it reads and writes
+//      only x and the coefficients, which the Joseph phase does not touch).
 // A phase writes P only at the entries it computes and reads P only at
 // those and at entries no phase beside it writes, so each entry is stored
 // as soon as it is computed. The gate decision, K and dx exist once per
@@ -47,9 +52,12 @@
 
 namespace live_mixed {
 
-// roles (warps) a block splits each step across; measured on the H100
-// among 1, 2, 4 and 8 (PERF.md)
+// roles (warps) a block splits each step across, kernel 3's (WARPS) and
+// kernel 2's (POS_WARPS); measured on the H100 among 1, 2, 4 and 8
+// (PERF.md): at 8 kernel 3 needs 213 registers a thread and fits one block
+// an SM, kernel 2 keeps 128 and two
 constexpr int WARPS = 4;
+constexpr int POS_WARPS = 8;
 
 constexpr int DX = 23;
 constexpr int DE = 22;
@@ -104,6 +112,25 @@ LM_HD float m_rsqrt(float a) {
 #endif
 }
 LM_HD double m_rsqrt(double a) { return 1.0 / sqrt(a); }
+
+// A read-only input on the card goes through the read-only cache (ldg), a
+// measurement row, read once, is streamed past it (ldcs)
+template <typename S>
+LM_HD S m_ldg(const S* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+template <typename S>
+LM_HD S m_ldcs(const S* p) {
+#ifdef __CUDA_ARCH__
+  return __ldcs(p);
+#else
+  return *p;
+#endif
+}
 
 // dz of a live lane kind, 0 for any other kind
 LM_HD int kind_dz(int kind) {
@@ -726,21 +753,158 @@ LM_HD void joseph_dz(int dz, int role, Lane<S> P, Lane<S> sc) {
 template <typename S>
 LM_HD void step_R(int ki, int t, const S* R_by_kind, const int* stream_flags,
                   const S* r_stream, S R[3][3]) {
-  const bool streamed = stream_flags[ki] != 0;
+  const bool streamed = m_ldg(stream_flags + ki) != 0;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      R[i][j] = streamed ? (i == j ? r_stream[t * 3 + i] : S(0))
-                         : R_by_kind[ki * 9 + i * 3 + j];
+      R[i][j] = streamed ? (i == j ? m_ldg(r_stream + t * 3 + i) : S(0))
+                         : m_ldg(R_by_kind + ki * 9 + i * 3 + j);
+}
+
+// ------------------------------------------------------------ the step loop
+
+// Who runs a phase. On the card (CardRoles) a thread is the role of its
+// warp, and a barrier ends each phase; on the host (HostRoles<W>) every
+// role of a split phase runs in turn, so the phases run in barrier order.
+struct CardRoles {
+  int role;
+  template <typename F>
+  LM_HD void all(F f) const { f(role); }
+  template <typename F>
+  LM_HD void one(int r, F f) const {
+    if (role == r) f();
+  }
+  LM_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+};
+
+template <int W>
+struct HostRoles {
+  template <typename F>
+  LM_HD void all(F f) const {
+    for (int r = 0; r < W; ++r) f(r);
+  }
+  template <typename F>
+  LM_HD void one(int, F f) const { f(); }
+  LM_HD void sync() const {}
+};
+
+// Kernel 2's inputs of filter b at step t: the ECEF_POS fix zs[t, :, b],
+// the one R and gate threshold.
+template <typename S>
+struct PosInput {
+  const S* zs;
+  const S* dts;
+  const S* R;
+  S thresh;
+  int B, b;
+  LM_HD S dt(int t) const { return m_ldg(dts + t); }
+  LM_HD void step(int t, S z[3], S Rt[3][3], S* th) const {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) z[r] = m_ldcs(zs + ((size_t)t * 3 + r) * B + b);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) Rt[i][j] = m_ldg(R + i * 3 + j);
+    *th = thresh;
+  }
+};
+
+// Kernel 3's inputs of filter b at step t: the kind kinds[kind_idx[t]],
+// its measurement row, its R (streamed or the kind's) and gate threshold.
+template <typename S>
+struct MixedInput {
+  const S* zs;
+  const S* dts;
+  const int* kind_idx;
+  const int* kinds;
+  const S* R_by_kind;
+  const int* stream_flags;
+  const S* gate_thresh;
+  const S* r_stream;
+  int B, b;
+  LM_HD S dt(int t) const { return m_ldg(dts + t); }
+  LM_HD int kind(int t) const { return m_ldg(kinds + m_ldg(kind_idx + t)); }
+  LM_HD void step(int t, S z[3], S R[3][3], S* th) const {
+    const int ki = m_ldg(kind_idx + t);
+    step_R(ki, t, R_by_kind, stream_flags, r_stream, R);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) z[r] = m_ldcs(zs + ((size_t)t * 3 + r) * B + b);
+    *th = m_ldg(gate_thresh + ki);
+  }
+};
+
+// KIND of scan for a schedule: each step's kind is read from the input
+constexpr int ANY_KIND = -1;
+
+// T steps of one filter (x, P and the scratch sc) through the five phases,
+// a barrier after each (roles.sync()). KIND is a live kind, every step's
+// (kernel 2: no switch, no step_R), or ANY_KIND, each step's from in.kind
+// (kernel 3: a switch that is uniform across the bank). The nominal
+// predict of step t + 1 runs on the last role beside step t's Joseph phase.
+template <typename S, int W, int KIND, typename Roles, typename In>
+LM_HD void scan(const Roles& roles, Lane<S> x, Lane<S> P, Lane<S> sc,
+                const S* q_diag, int T, bool gate, const In& in) {
+  constexpr int NOMINAL_ROLE = W - 1;
+  if (T > 0) roles.one(NOMINAL_ROLE, [&] { nominal(x, sc, in.dt(0)); });
+  roles.sync();
+  for (int t = 0; t < T; ++t) {
+    const S dt = in.dt(t);
+    roles.all([&](int r) { predict_m<S, W>(r, P, sc, dt); });
+    roles.sync();
+    roles.all([&](int r) { predict_p<S, W>(r, P, sc, q_diag, dt); });
+    roles.sync();
+    int kind = KIND;
+    if constexpr (KIND == ANY_KIND) kind = in.kind(t);
+    roles.one(0, [&] {
+      S z[3], R[3][3], thresh;
+      in.step(t, z, R, &thresh);
+      if constexpr (KIND == ANY_KIND)
+        innovate_kind(kind, x, P, sc, z, R, gate, thresh);
+      else
+        innovate<S, KIND>(x, P, sc, z, R, gate, thresh);
+    });
+    roles.sync();
+    roles.all([&](int r) {
+      if constexpr (KIND == ANY_KIND)
+        joseph_dz<S, W>(kind_dz(kind), r, P, sc);
+      else
+        joseph<S, Kind<KIND>::dz, W>(r, P, sc);
+      if (r == NOMINAL_ROLE && t + 1 < T) nominal(x, sc, in.dt(t + 1));
+    });
+    roles.sync();
+  }
 }
 
 }  // namespace live_mixed
 
 #if defined(REDNOSE_LIVE_MIXED_HOST) && !defined(__CUDACC__)
 
-// The host build (tests): filter by filter, the phases in barrier order
-// with the card's WARPS roles, float64, the kernel's argument layout.
+// The host builds (tests): filter by filter, the kernels' step loop with
+// each kernel's roles in barrier order, float64, each kernel's argument
+// layout.
+template <int W, int KIND, typename In>
+static void live_host_bank(double* xs, double* Ps, const double* q_diag,
+                           int T, int B, int gate, In in) {
+  using namespace live_mixed;
+  for (int b = 0; b < B; ++b) {
+    double xl[DX], Pl[DE * DE], sl[NSC];
+    for (int i = 0; i < DX; ++i) xl[i] = xs[(size_t)i * B + b];
+    for (int e = 0; e < DE * DE; ++e) Pl[e] = Ps[(size_t)e * B + b];
+    const Lane<double> x{xl, 1}, P{Pl, 1}, sc{sl, 1};
+    in.b = b;
+    scan<double, W, KIND>(HostRoles<W>{}, x, P, sc, q_diag, T, gate != 0,
+                          in);
+    for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = xl[i];
+    for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = Pl[e];
+  }
+}
+
+// kernel 3 (live_bank_scan_mixed_launch's arguments)
 extern "C" int live_mixed_host(double* xs, double* Ps, const double* zs,
                                const double* dts, const int* kind_idx,
                                const int* kinds, const double* R_by_kind,
@@ -749,28 +913,22 @@ extern "C" int live_mixed_host(double* xs, double* Ps, const double* zs,
                                const double* r_stream, const double* q_diag,
                                int T, int B, int gate) {
   using namespace live_mixed;
-  for (int b = 0; b < B; ++b) {
-    double xl[DX], Pl[DE * DE], sl[NSC];
-    for (int i = 0; i < DX; ++i) xl[i] = xs[(size_t)i * B + b];
-    for (int e = 0; e < DE * DE; ++e) Pl[e] = Ps[(size_t)e * B + b];
-    const Lane<double> x{xl, 1}, P{Pl, 1}, sc{sl, 1};
-    for (int t = 0; t < T; ++t) {
-      nominal(x, sc, dts[t]);
-      for (int r = 0; r < WARPS; ++r) predict_m<double, WARPS>(r, P, sc,
-                                                              dts[t]);
-      for (int r = 0; r < WARPS; ++r)
-        predict_p<double, WARPS>(r, P, sc, q_diag, dts[t]);
-      const int ki = kind_idx[t];
-      double R[3][3], z[3];
-      step_R(ki, t, R_by_kind, stream_flags, r_stream, R);
-      for (int k = 0; k < 3; ++k) z[k] = zs[((size_t)t * 3 + k) * B + b];
-      const int dz = innovate_kind(kinds[ki], x, P, sc, z, R, gate != 0,
-                                   gate_thresh[ki]);
-      for (int r = 0; r < WARPS; ++r) joseph_dz<double, WARPS>(dz, r, P, sc);
-    }
-    for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = xl[i];
-    for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = Pl[e];
-  }
+  live_host_bank<WARPS, ANY_KIND>(
+      xs, Ps, q_diag, T, B, gate,
+      MixedInput<double>{zs, dts, kind_idx, kinds, R_by_kind, stream_flags,
+                         gate_thresh, r_stream, B, 0});
+  return 0;
+}
+
+// kernel 2 (live_bank_scan_launch's arguments)
+extern "C" int live_scan_host(double* xs, double* Ps, const double* zs,
+                              const double* dts, const double* q_diag,
+                              const double* R, int T, int B, int gate,
+                              double gate_thresh) {
+  using namespace live_mixed;
+  live_host_bank<POS_WARPS, ECEF_POS>(
+      xs, Ps, q_diag, T, B, gate,
+      PosInput<double>{zs, dts, R, gate_thresh, B, 0});
   return 0;
 }
 

@@ -43,14 +43,17 @@ store of a location, its old value is loaded if a later expression still
 reads it; the nominal state is written back after every expression of
 the phase.
 
-Mode "single" (kernel 4) prints the tile form instead when its tile fits
-a block (tile_bytes): each phase split over TILE_ROLES role bodies that
-compute their share of p_out (role 0 also x_out) into constant-indexed
-values, and store functions the template calls after a barrier, so no
-role stores an entry another role still reads; the update's shared values
+Modes "single" (kernel 4) and "mixed" without a camera-frame unit
+(kernel 6) print the tile form instead when the tile fits a block
+(tile_bytes): each phase split over TILE_ROLES role bodies that compute
+their share of p_out (role 0 also x_out) into constant-indexed values,
+and store functions the template calls after a barrier, so no role
+stores an entry another role still reads; each update's shared values
 (Phase.shared: the gated gains, the Joseph factor rows, dx, and the gate
 decision in them) are printed once, into shared scratch (role_split,
-_tile_source). The other modes print the same text as before.
+_tile_source). A mixed tile prints that for every unit and dispatchers
+that switch on the step's kind index, then on the role. The other modes,
+and a mixed variant with a camera-frame unit, print the global form.
 """
 
 from __future__ import annotations
@@ -697,17 +700,19 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
   return lines
 
 
-# ------------------------------------------------- mode "single" as a tile
-# Kernel 4 keeps P, x and the update's shared values of TILE_LANES filters
-# in a block's shared memory for the whole T loop and splits each phase
-# over TILE_ROLES roles, one warp each (csrc/generic_scan.cuh,
+# ------------------------------------ modes "single" and "mixed" as a tile
+# Kernels 4 and 6 keep P, x and the update's shared values of TILE_LANES
+# filters in a block's shared memory for the whole T loop and split each
+# phase over TILE_ROLES roles, one warp each (csrc/generic_scan.cuh,
 # REDNOSE_GENERIC_SCAN_TILE): role r computes its share of the phase's new
 # P entries (and role 0 the new x) into constant-indexed values, and after
-# the template's barrier stores them. The update's shared values (the
-# gated gain rows, the Joseph factor rows and dx, with the gate decision
-# they carry) are printed once, in a function of their own that one role
-# runs into the shared scratch before the other roles read them there. A
-# variant whose tile exceeds what a block may use keeps the global form.
+# the template's barrier stores them. An update's shared values (the gated
+# gain rows, the Joseph factor rows and dx, with the gate decision they
+# carry) are printed once, in a function of their own that one role runs
+# into the shared scratch before the other roles read them there; a mixed
+# variant has one such function and one role set per unit, and its scratch
+# holds the largest unit's values. A variant whose tile exceeds what a
+# block may use keeps the global form.
 
 TILE_ROLES = 2           # W: measured among 1, 2, 4 and 8 (PERF.md)
 TILE_LANES = 32          # filters a block holds, one a lane
@@ -728,7 +733,8 @@ def shared_nodes(ph) -> list:
 
 def tile_bytes(spec, upd, scalar) -> int:
   """Shared memory of a block of the tile form: TILE_LANES filters x
-  (P, x, the update's scratch)."""
+  (P, x, the update's scratch); a mixed variant's is the largest of its
+  units'."""
   vals = spec.dim_err ** 2 + spec.dim_x + len(shared_nodes(upd))
   return vals * TILE_LANES * _SCALAR_BYTES[scalar]
 
@@ -771,11 +777,14 @@ def role_split(ph, n_roles, stop=frozenset()) -> list:
   return roles
 
 
+def _args(params):
+  """The argument names of a C parameter list."""
+  return [p.split()[-1].lstrip("*") for p in params]
+
+
 def _function(name, params, lines):
-  args = ", ".join(params)
-  names = [p.split()[-1].lstrip("*") for p in params]
-  return ([f"GEN_HD GEN_INLINE void {name}({args}) {{",
-           "  " + " ".join(f"(void){n};" for n in names)]
+  return ([f"GEN_HD GEN_INLINE void {name}({', '.join(params)}) {{",
+           "  " + " ".join(f"(void){n};" for n in _args(params))]
           + lines + ["}"])
 
 
@@ -810,7 +819,7 @@ def _role_functions(name, params, roles, dz, slots):
 
 def _dispatch(name, params, fn, n_roles):
   """name(int r, params): the switch over the roles' functions fn_r{r}."""
-  args = ", ".join(p.split()[-1].lstrip("*") for p in params)
+  args = ", ".join(_args(params))
   lines = ["  switch (r) {"]
   lines += [f"    case {r}: {fn(r)}({args}); break;" for r in range(n_roles)]
   lines += ["    default: break;", "  }"]
@@ -818,22 +827,45 @@ def _dispatch(name, params, fn, n_roles):
           *lines, "}"]
 
 
-def _tile_source(body, pred, upd, unit, dz) -> list:
-  """The lines after the header of a mode-'single' variant in tile form:
-  the role functions of the predict and the update, the update's shared
-  function and the dispatchers the template's tile loop calls."""
-  cuts = shared_nodes(upd)
-  slots = {e.id: k for k, e in enumerate(cuts)}
+def _kind_dispatch(name, params, cases):
+  """name(int ki, params): the switch over the units by the step's kind
+  index; cases[u] is unit u's call text."""
+  lines = ["  switch (ki) {"]
+  lines += [f"    case {u}: {c} break;" for u, c in enumerate(cases)]
+  lines += ["    default: break;", "  }"]
+  return ["", f"GEN_HD GEN_INLINE void {name}(int ki, {', '.join(params)}) {{",
+          *lines, "}"]
+
+
+def _tile_source(body, pred, units, mixed=False) -> list:
+  """The lines after the header of a variant in tile form: the role
+  functions of the predict and of each update unit, each unit's shared
+  function and the dispatchers the template's tile loop calls. units: (C
+  name, update Phase, dz, R offset) of each unit in order (a unit repeated
+  under another R prints once); mode 'single' has one, whose shared
+  function is gen_tile_shared itself. A mixed variant's update dispatchers
+  switch on the step's kind index, then on the role, and pass unit u its
+  R (R + its offset), as the global form's gen_step does."""
+  funcs = {}
+  for name, upd, dz, _ in units:
+    if name not in funcs:
+      cuts = shared_nodes(upd)
+      slots = {e.id: k for k, e in enumerate(cuts)}
+      funcs[name] = (upd, dz, cuts, slots,
+                     role_split(upd, TILE_ROLES, frozenset(slots)))
   pred_roles = role_split(pred, TILE_ROLES)
-  upd_roles = role_split(upd, TILE_ROLES, frozenset(slots))
-  nval = max([len(o) for o in pred_roles + upd_roles] + [1])
-  out = [f"// design: tile, {TILE_ROLES} roles: a block of {TILE_LANES} "
-         f"filters x {TILE_ROLES} warps keeps P, x and {len(cuts)} scratch "
-         "values a filter in shared memory"] + body + [
+  nscr = max(len(f[2]) for f in funcs.values())
+  nval = max([len(o) for o in pred_roles]
+             + [len(o) for f in funcs.values() for o in f[4]] + [1])
+  switched = (f", {len(units)} units switched on the step's kind"
+              if mixed else "")
+  out = [f"// design: tile, {TILE_ROLES} roles{switched}: a block of "
+         f"{TILE_LANES} filters x {TILE_ROLES} warps keeps P, x and {nscr} "
+         "scratch values a filter in shared memory"] + body + [
       "#define GEN_X(i) x[(size_t)(i) * ld]",
       "#define GEN_S(k) s[(size_t)(k) * ld]",
       f"constexpr int NROLES = {TILE_ROLES};",
-      f"constexpr int NSCR = {len(cuts)};",
+      f"constexpr int NSCR = {nscr};",
       f"constexpr int NVAL = {nval};",
   ]
   p_pred = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
@@ -844,24 +876,50 @@ def _tile_source(body, pred, upd, unit, dz) -> list:
   p_upd = p_in + ["const scalar_t* s"]
   p_store = ["scalar_t* x", "scalar_t* P", "size_t ld", "const scalar_t* v"]
   out += _role_functions("gen_predict", p_pred, pred_roles, 0, {})
-  pr = _Printer(dz, True)
-  for e in cuts:
-    pr.emit(e)
-  pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
-  out += ["", f"// {unit}: the shared values, once a filter",
-          *_function("gen_tile_shared", p_in + ["scalar_t* s"], pr.lines)]
-  out += _role_functions(unit, p_upd, upd_roles, dz, slots)
+  for name, (upd, dz, cuts, slots, roles) in funcs.items():
+    pr = _Printer(dz, True)
+    for e in cuts:
+      pr.emit(e)
+    pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
+    out += ["", f"// {name}: the shared values, once a filter",
+            *_function(f"{name}_shared" if mixed else "gen_tile_shared",
+                       p_in + ["scalar_t* s"], pr.lines)]
+    out += _role_functions(name, p_upd, roles, dz, slots)
+    if mixed:
+      out += _dispatch(f"{name}_update", p_upd + ["scalar_t* v"],
+                       lambda r, n=name: f"{n}_r{r}", TILE_ROLES)
+      out += _dispatch(f"{name}_update_store", p_store,
+                       lambda r, n=name: f"{n}_r{r}_store", TILE_ROLES)
   out += _dispatch("gen_tile_predict", p_pred + ["scalar_t* v"],
                    lambda r: f"gen_predict_r{r}", TILE_ROLES)
   out += _dispatch("gen_tile_predict_store", p_store,
                    lambda r: f"gen_predict_r{r}_store", TILE_ROLES)
-  out += _dispatch("gen_tile_update", p_upd + ["scalar_t* v"],
-                   lambda r: f"{unit}_r{r}", TILE_ROLES)
-  out += _dispatch("gen_tile_update_store", p_store,
-                   lambda r: f"{unit}_r{r}_store", TILE_ROLES)
+  if mixed:
+    def call(fn, params, u, role=False):
+      a = [f"R + {units[u][3]}" if v == "R" else v for v in _args(params)]
+      return f"{fn}({'r, ' if role else ''}{', '.join(a)});"
+
+    p_sh = p_in + ["scalar_t* s"]
+    out += _kind_dispatch("gen_tile_shared", p_sh, [
+        call(f"{n}_shared", p_sh, u) for u, (n, _, _, _) in enumerate(units)])
+    out += _kind_dispatch("gen_tile_update", ["int r"] + p_upd
+                          + ["scalar_t* v"], [
+        call(f"{n}_update", p_upd + ["scalar_t* v"], u, True)
+        for u, (n, _, _, _) in enumerate(units)])
+    out += _kind_dispatch("gen_tile_update_store", ["int r"] + p_store, [
+        f"{n}_update_store(r, {', '.join(_args(p_store))});"
+        for n, _, _, _ in units])
+  else:
+    name = units[0][0]
+    out += _dispatch("gen_tile_update", p_upd + ["scalar_t* v"],
+                     lambda r: f"{name}_r{r}", TILE_ROLES)
+    out += _dispatch("gen_tile_update_store", p_store,
+                     lambda r: f"{name}_r{r}_store", TILE_ROLES)
   out += ["", "}  // namespace rn_gen", "",
-          "#define REDNOSE_GENERIC_SCAN_TILE",
-          "#define REDNOSE_GENERIC_SCAN_LOOPS",
+          "#define REDNOSE_GENERIC_SCAN_TILE"]
+  if mixed:
+    out.append("#define REDNOSE_GENERIC_SCAN_TILE_KINDS")
+  out += ["#define REDNOSE_GENERIC_SCAN_LOOPS",
           '#include "generic_scan.cuh"', ""]
   return out
 
@@ -884,13 +942,15 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                 r_patterns=None) -> str:
   """C++ source of one kernel variant.
 
-  mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over the
-  units by the streamed kind index), 'epoch' (kernel 5: every unit in
-  order, one slot each) or 'frame' (kernel 7: the MSCKF camera frame of
-  one feature kind). units: tuple of (kind, gate) pairs. A unit of an
-  MSCKF feature kind is a camera frame (frame_phase: the projected update
-  and the window augment); mode 'frame' is one such unit, and mode 'mixed'
-  may hold them among its other units (kernel 6's camera-frame branch).
+  mode 'single' (kernel 4: one unit; the tile form where it fits), 'mixed'
+  (kernel 6: a switch over the units by the streamed kind index; the tile
+  form where it fits and no unit is a camera frame), 'epoch' (kernel 5:
+  every unit in order, one slot each) or 'frame' (kernel 7: the MSCKF
+  camera frame of one feature kind). units: tuple of (kind, gate) pairs.
+  A unit of an MSCKF feature kind is a camera frame (frame_phase: the
+  projected update and the window augment); mode 'frame' is one such
+  unit, and mode 'mixed' may hold them among its other units (kernel 6's
+  camera-frame branch).
   pnames: the names of the params vector, in order; ps_keys: the streamed
   ones. q_pattern: the (i, j), i <= j, entries of Q that are nonzero.
   scalar: the C type of every value, 'float' or 'double'. r_patterns:
@@ -963,14 +1023,20 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       "#define GEN_P(i, j) P[(size_t)((i) * DE + (j)) * ld]",
       "",
   ]
-  pred = upd = None
-  if mode == "single":
+  pred, phases = None, {}
+  if mode == "single" or (mode == "mixed" and not has_frame):
+    # the tile form when 32 filters' P, x and the largest unit's scratch
+    # fit a block
     pred = predict_phase(spec, structure, pnames, q_pattern)
-    upd = update_phase(spec, kinds[0], structure, pnames, units[0][1])
-    nbytes = tile_bytes(spec, upd, scalar)
+    for k, g in units:
+      if (k, g) not in phases:
+        phases[(k, g)] = update_phase(spec, k, structure, pnames, g)
+    nbytes = max(tile_bytes(spec, ph, scalar) for ph in phases.values())
     if nbytes <= TILE_SMEM_MAX:
       return "\n".join(head + _tile_source(
-          body, pred, upd, _unit_name(*units[0]), spec.obs[kinds[0]].dz))
+          body, pred, [(_unit_name(k, g), phases[(k, g)], spec.obs[k].dz, o)
+                       for (k, g), o in zip(units, r_off)],
+          mixed=mode == "mixed"))
     head.append(
         f"// design: global: the tile of {TILE_LANES} filters ({nbytes:,} B "
         f"in {scalar}) exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
@@ -1002,7 +1068,7 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
         "const scalar_t* p) {",
         "  (void)ea; (void)p; (void)R;",
     ]
-    ph = (upd if upd is not None
+    ph = (phases[(k, g)] if (k, g) in phases
           else frame_phase(spec, k, structure, pnames, g, rp) if f
           else update_phase(spec, k, structure, pnames, g))
     out += print_phase(ph, spec.obs[k].dz)

@@ -83,10 +83,11 @@ def r_pattern_of(R) -> object:
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
             r_patterns=None, scalar="float"):
-  """The variant's source. Outside mode 'single' the double source differs
-  from the float one only in its REDNOSE_SCALAR line, so such a variant is
-  emitted once, for float; a 'single' variant is emitted per scalar type,
-  since whether its tile fits in a block depends on it."""
+  """The variant's source. A variant of the global form only (modes
+  'epoch' and 'frame', and 'mixed' with a camera-frame unit) differs
+  between float and double only in its REDNOSE_SCALAR line, so it is
+  emitted once, for float; a 'single' or other 'mixed' variant is emitted
+  per scalar type, since whether its tile fits in a block depends on it."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
@@ -162,19 +163,26 @@ class KernelCall:
                        f"{dtype}")
     args = (self.spec, self.mode, self._units(), self.structure,
             self._pnames, self.ps_keys, self._q_pattern, self._r_patterns)
-    if self.mode == "single":
+    if self._may_tile():
       return _source(*args, scalar=_SCALARS[dtype])
     return _source(*args).replace("#define REDNOSE_SCALAR float",
                                   f"#define REDNOSE_SCALAR {_SCALARS[dtype]}",
                                   1)
 
+  def _may_tile(self) -> bool:
+    """Whether the emitter prints this variant as a tile when it fits: mode
+    'single', and mode 'mixed' without a camera-frame unit."""
+    return self.mode == "single" or (self.mode == "mixed"
+                                     and self._r_patterns is None)
+
   def counting_source(self) -> str:
     """The variant's phases printed whole, one function each (gen_predict,
     then the update or frame functions), for counting the operations of a
-    step: a 'single' call's tile form splits them into role functions that
-    recompute shared subexpressions, so it is printed as the epoch form of
-    its one unit, the same predict and update."""
-    if self.mode != "single":
+    step: the tile form splits them into role functions that recompute
+    shared subexpressions, so a 'single' or 'mixed' call that may tile is
+    printed as the epoch form of its units, the same predict and update
+    functions."""
+    if not self._may_tile():
       return self.source()
     return _source(self.spec, "epoch", self._units(), self.structure,
                    self._pnames, self.ps_keys, self._q_pattern)

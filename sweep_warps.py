@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
-"""Measure kernels 3 and 4 at W = 1, 2, 4 and 8 warps a block on one card.
+"""Measure kernels 2, 3, 4 and 6 at W = 1, 2, 4 and 8 warps a block on one
+card.
 
     python3 sweep_warps.py [--parent DIR]   # from the repository root
 
-W is a constant of each source: `WARPS` in csrc/live_mixed.cuh (kernel 3,
-LiveKalmanBank.run_mixed) and `TILE_ROLES` in ops/entry_slab.py (kernel 4,
-mode "single"). This script builds each kernel at each W, all nvcc
-processes at once: kernel 3 from a copy of csrc/ with the constant
-replaced, kernel 4 by emitting the live spec's ECEF_POS variant (gate on)
-with the emitter's constant set. It also builds the global form of the
-same kernel-4 variant (one thread a filter, P in global memory: the
-design before the tile) and, given --parent (a checkout of an earlier
-commit of this repository), that commit's csrc/live_scan.cu, so the
-earlier kernel 3 runs in the same call; the same --parent also times
-kernels 5, 6 and 7 built with that commit's csrc/generic_scan.cuh and
+W is a constant of each source: `POS_WARPS` and `WARPS` in
+csrc/live_mixed.cuh (kernels 2 and 3, LiveKalmanBank.run and run_mixed;
+each build sets both) and `TILE_ROLES` in
+ops/entry_slab.py (kernel 4, mode "single", and kernel 6, mode "mixed"
+without a camera-frame unit). This script builds each kernel at each W,
+all nvcc processes at once: kernels 2 and 3 from a copy of csrc/ with the
+constant replaced, kernels 4 and 6 by emitting the live spec's ECEF_POS
+variant (gate on) and its 4-kind mixed variant with the emitter's constant
+set. It also builds the global form of the same kernel-4 and kernel-6
+variants (one thread a filter, P in global memory: the design before the
+tile) and, given --parent (a checkout of an earlier commit of this
+repository), that commit's csrc/live_scan.cu, so the earlier kernels 2 and
+3 run in the same call; the same --parent also times kernels 4, 5, 7 and 6
+with camera frames built with that commit's csrc/generic_scan.cuh and
 with this one's, in turns (template_ab). Inputs are chip_smoke.py's:
-kernel 3 from the live bank after run_mixed over T = 1024 steps of the
-4-kind schedule (B = 8192, gate on, the camera-rotation kind streaming its
-R), kernel 4 from the bank after the ECEF_POS run. For each build it
-prints the time (CUDA events, mean of 5 launches after a warm-up) at
-T = 64 and T = 1, the largest difference from the plain version in
-standard deviations (utils/compare.py), ptxas (registers, stack, spill
-bytes), the runtime's blocks per SM and, for kernel 4, the emitted lines
-and nvcc seconds, and writes them all to build/sweep_warps/sweep_warps.json.
-Needs a CUDA card; imports nothing of JAX.
+kernels 3 and 6 from the live bank after run_mixed over T = 1024 steps of
+the 4-kind schedule (B = 8192; kernel 3 with the gate on and the
+camera-rotation kind streaming its R), kernels 2 and 4 from the bank after
+the ECEF_POS run (gate on). For each build it prints the time (CUDA
+events, mean of 5 launches after a warm-up) at T = 64 and T = 1, the
+largest difference from the plain version in standard deviations
+(utils/compare.py), ptxas (registers, stack, spill bytes), the runtime's
+blocks per SM and, for kernels 4 and 6, the emitted lines and nvcc
+seconds, and writes them all to build/sweep_warps/sweep_warps.json. Needs
+a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ REPS = 5
 
 def build_k3(name, csrc, warps=None):
   """nvcc of csrc/live_scan.cu (WARPS replaced when given) into its own
-  directory: (library path, ptxas lines of kernel 3, nvcc seconds)."""
+  directory: (library path, ptxas lines of kernels 3 and 2, nvcc
+  seconds)."""
   from rednose_tpu_torch import _build
 
   d = SWEEP_DIR / name
@@ -61,10 +67,12 @@ def build_k3(name, csrc, warps=None):
     shutil.copy(src, d / src.name)
   if warps is not None:
     hdr = d / "live_mixed.cuh"
-    text, n = re.subn(r"constexpr int WARPS = \d+;",
-                      f"constexpr int WARPS = {warps};", hdr.read_text())
-    if n != 1:
-      raise RuntimeError("live_mixed.cuh: no WARPS constant to replace")
+    text, n = re.subn(r"constexpr int (POS_)?WARPS = \d+;",
+                      lambda m: f"constexpr int {m.group(1) or ''}WARPS = "
+                      f"{warps};", hdr.read_text())
+    if n != 2:
+      raise RuntimeError("live_mixed.cuh: no WARPS and POS_WARPS constants "
+                         "to replace")
     hdr.write_text(text)
   t0 = time.perf_counter()
   proc = subprocess.run(
@@ -74,7 +82,9 @@ def build_k3(name, csrc, warps=None):
   secs = time.perf_counter() - t0
   if proc.returncode:
     raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
-  return d / "lib.so", kernel_ptxas(proc.stdout, "live_bank_scan_mixed"), secs
+  return d / "lib.so", {k: kernel_ptxas(proc.stdout, e) for k, e in (
+      ("kernel 3", "live_bank_scan_mixed_kernel"),
+      ("kernel 2", "live_bank_scan_kernel"))}, secs
 
 
 def kernel_ptxas(report, kernel):
@@ -94,22 +104,24 @@ def load_k3(lib_path):
 
   lib = ctypes.CDLL(str(lib_path))
   for name in ("live_bank_scan_launch", "live_bank_scan_mixed_launch",
-               "live_bank_scan_mixed_info"):
+               "live_bank_scan_info", "live_bank_scan_mixed_info"):
     if hasattr(lib, name):
       getattr(lib, name).argtypes = list(_build.SIGNATURES[name])
       getattr(lib, name).restype = ctypes.c_int
   return lib
 
 
-def k3_info(lib):
-  """Kernel 3's launch shape, None for a build without the entry point."""
-  if not hasattr(lib, "live_bank_scan_mixed_info"):
+def k3_info(lib, entry):
+  """Kernel 3's (or 2's) launch shape, None for a build without the entry
+  point."""
+  if not hasattr(lib, entry):
     return None
-  return cs.kernel3_info(lib)
+  return cs.hand_kernel_info(lib, entry)
 
 
 def k4_source(call_fn, roles=None, global_form=False):
-  """The kernel-4 source emitted with the emitter's constants set."""
+  """The source of a kernel-4 or kernel-6 call emitted with the emitter's
+  constants set."""
   from rednose_tpu_torch.ops import entry_slab, generic_scan as gs
 
   saved = entry_slab.TILE_ROLES, entry_slab.TILE_SMEM_MAX
@@ -148,12 +160,15 @@ def build_with_template(name, source, template):
 
 
 def template_ab(torch, dev, gen, states, parent_template):
-  """Kernels 5, 6 and 7 as chip_smoke.py compares them (loc epochs in
-  double, the live spec's 4-kind mixed schedule, msckf_eskf frames), each
-  emitted source built with this tree's template and with the parent's,
-  timed in turns (parent, this, this, parent; raw launches, mean of REPS
-  after a warm-up). Their emitted text is the same in both trees."""
+  """Kernels 4, 5, 7 and 6 with camera frames as chip_smoke.py compares
+  them (the live spec's ECEF_POS tile, gate on; loc epochs in double;
+  msckf_eskf frames; msckf_eskf's VIO schedule), each emitted source built
+  with this tree's template and with the parent's, timed in turns
+  (parent, this, this, parent; raw launches, mean of REPS after a
+  warm-up). Their emitted text is the same in both trees."""
   from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
 
   live_spec = cs.generic_models()[3]
   LocKalman = cs.generic_models()[1]
@@ -161,6 +176,17 @@ def template_ab(torch, dev, gen, states, parent_template):
   f32 = dict(dtype=torch.float32, device=dev)
   f64 = dict(dtype=torch.float64, device=dev)
   cases = {}
+  call4 = gs.KernelCall(
+      live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
+      R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
+      structure=sparsity.structure_for(live_spec, LiveKalman.initial_x))
+  x, P = states["live_bank_scan"][:2]
+  cases["kernel 4, live spec ECEF_POS, gate on"] = (
+      call4, call4.source(),
+      (x, P, (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
+              + 5.0 * torch.randn((cs.CMP_T, 3, cs.LIVE_B), generator=gen,
+                                  device=dev)).contiguous(),
+       torch.full((cs.CMP_T,), 0.01, **f32)), {})
   call5 = cs.loc_epoch_call()
   zs, eas = cs.loc_consistent_data(torch, dev, gen, cs.CMP_T,
                                    len(cs.loc_slots()))
@@ -173,28 +199,33 @@ def template_ab(torch, dev, gen, states, parent_template):
       (x, P, zs.transpose(-1, -2).contiguous(),
        torch.full((cs.CMP_T,), 0.1, **f64)),
       dict(eas=eas.transpose(-1, -2).contiguous()))
-  call6 = cs.generic_calls(live_spec)["live run_mixed (kernel 6)"]
-  kinds, kind_idx, zs_m = cs.mixed_schedule(torch, dev, gen, cs.CMP_T)
-  x_m, P_m, _ = states["live_bank_scan_mixed"]
-  cases["kernel 6, live spec, 4 kinds"] = (
-      call6, call6.source(),
-      (x_m, P_m, zs_m.permute(0, 2, 1).contiguous(),
-       torch.full((cs.CMP_T,), 0.01, **f32)),
-      dict(kind_idx=torch.as_tensor(kind_idx, dtype=torch.int32,
-                                    device=dev)))
   call7 = cs.msckf_call(ESKF)
   spec, _, _, R = cs.msckf_setup(ESKF)
   xs = cs.msckf_bank_x0(ESKF, cs.SEED + 3)
   zs7, eas7, _ = cs.msckf_frames(torch, dev, gen, ESKF, xs,
                                  cs.MSCKF_CMP_T, R)
+
+  def bank(xs):
+    return (torch.as_tensor(xs.T, **f32).contiguous(),
+            (cs.MSCKF_P0 * torch.eye(spec.dim_err, **f32))[:, :, None].repeat(
+                1, 1, cs.MSCKF_B))
+
   cases["kernel 7, msckf_eskf frames"] = (
       call7, call7.source(),
-      (torch.as_tensor(xs.T, **f32).contiguous(),
-       (cs.MSCKF_P0 * torch.eye(spec.dim_err, **f32))[:, :, None].repeat(
-           1, 1, cs.MSCKF_B),
-       zs7.transpose(1, 2).to(**f32).contiguous(),
+      (*bank(xs), zs7.transpose(1, 2).to(**f32).contiguous(),
        torch.full((cs.MSCKF_CMP_T,), cs.MSCKF_DT, **f32)),
       dict(eas=eas7.transpose(1, 2).to(**f32).contiguous()))
+  call6 = cs.vio_call(ESKF)
+  ki = cs.vio_kind_idx(cs.VIO_CMP_T)
+  xs = cs.msckf_bank_x0(ESKF, cs.SEED + 5)
+  zs6, eas6, _ = cs.msckf_frames(torch, dev, gen, ESKF, xs, cs.VIO_CMP_T, R,
+                                 frames=ki.astype(bool))
+  cases["kernel 6 with frames, msckf_eskf VIO schedule"] = (
+      call6, call6.source(),
+      (*bank(xs), zs6.transpose(1, 2).to(**f32).contiguous(),
+       torch.full((cs.VIO_CMP_T,), cs.MSCKF_DT, **f32)),
+      dict(eas=eas6.transpose(1, 2).to(**f32).contiguous(),
+           kind_idx=torch.as_tensor(ki, dtype=torch.int32, device=dev)))
   with ThreadPoolExecutor(2 * len(cases)) as pool:
     fns = {(name, which): pool.submit(
         build_with_template, f"ab_{i}_{which}", src,
@@ -220,8 +251,8 @@ def main():
 
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
-                  help="a checkout of an earlier commit: its kernel 3 runs "
-                       "beside these")
+                  help="a checkout of an earlier commit: its kernels 2 and "
+                       "3 run beside these")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -229,7 +260,7 @@ def main():
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
   from rednose_tpu_torch.ops import generic_scan as gs, live_scan, sparsity
-  from rednose_tpu_torch.utils.compare import live_sigma_err
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs, live_sigma_err
 
   torch.backends.cuda.matmul.allow_tf32 = False
   card = cs.card_line()
@@ -237,13 +268,21 @@ def main():
   live_spec = cs.generic_models()[3]
   R4 = LiveKalman.obs_noise[K.ECEF_POS]
   st = sparsity.structure_for(live_spec, LiveKalman.initial_x)
+  kinds6 = cs.mixed_kinds()
+  R6 = [LiveKalman.obs_noise[k] for k in kinds6]
 
   def k4_call():
     return gs.KernelCall(live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
                          R_list=(R4,), gate=True, structure=st)
 
-  k4_src = {f"W={w}": k4_source(k4_call, roles=w) for w in WS}
-  k4_src["global"] = k4_source(k4_call, global_form=True)
+  def k6_call():
+    return gs.KernelCall(live_spec, "mixed", kinds6, Q=LiveKalman.Q,
+                         R_list=R6, structure=st)
+
+  gen_src = {}
+  for kernel, fn in (("kernel 4", k4_call), ("kernel 6", k6_call)):
+    gen_src[kernel] = {f"W={w}": k4_source(fn, roles=w) for w in WS}
+    gen_src[kernel]["global"] = k4_source(fn, global_form=True)
   csrc = ROOT / "rednose_tpu_torch" / "csrc"
   jobs = {f"W={w}": (f"k3_w{w}", csrc, w) for w in WS}
   if args.parent is not None:
@@ -253,7 +292,8 @@ def main():
   with ThreadPoolExecutor(len(jobs) + 2) as pool:
     static = pool.submit(_build.build)
     k3_jobs = {k: pool.submit(build_k3, *v) for k, v in jobs.items()}
-    _build.build_generated_many(list(k4_src.values()))
+    _build.build_generated_many([src for v in gen_src.values()
+                                 for src in v.values()])
     static.result()
     k3_builds = {k: j.result() for k, j in k3_jobs.items()}
   cs.log(f"built in {time.perf_counter() - t0:.1f} s")
@@ -263,9 +303,10 @@ def main():
   gen.manual_seed(cs.SEED)
   states = cs.main_path(torch, dev, gen)
   f32 = dict(dtype=torch.float32, device=dev)
-  results = {"card": card, "kernel 3": {}, "kernel 4": {}}
+  results = {"card": card, "kernel 2": {}, "kernel 3": {}, "kernel 4": {},
+             "kernel 6": {}}
 
-  # kernel 3: chip_smoke's comparison inputs
+  # kernels 3 and 6: chip_smoke's comparison inputs of kernel 3
   x_m, P_m, q_diag = states["live_bank_scan_mixed"]
   kinds, kind_idx, zs_m = cs.mixed_schedule(torch, dev, gen, cs.CMP_T)
   R_by_kind = torch.stack([torch.as_tensor(LiveKalman.obs_noise[k], **f32)
@@ -279,52 +320,74 @@ def main():
   ref3 = live_scan.live_bank_scan_mixed_reference(
       x_m, P_m, zs3, dts, ki, kinds, R_by_kind, q_diag, gate=True,
       r_stream=r_stream, stream_kinds=stream_kinds)
-  for name, (path, ptx, secs) in k3_builds.items():
-    lib = load_k3(path)
-
-    def launch(T, lib=lib):
-      return cs.kernel3_launch(lib, x_m, P_m, zs3[:T], dts[:T], ki[:T],
-                               kinds, R_by_kind, q_diag, True, r_stream[:T],
-                               stream_kinds)
-
-    out = launch(cs.CMP_T)()
-    ms, _ = cs.timed_run(launch(cs.CMP_T), REPS)
-    ms1, _ = cs.timed_run(launch(1), REPS)
-    err = max(live_sigma_err(*out, *ref3))
-    info = k3_info(lib)
-    row = dict(ms_T64=ms, ms_T1=ms1, sigma_err=err, ptxas=ptx,
-               nvcc_s=secs, info=info)
-    results["kernel 3"][name] = row
-    cs.log(f"kernel 3 {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
-           f"{err:.4g} sigma from plain; ptxas {ptx}; runtime {info}; "
-           f"nvcc {secs:.1f} s")
-
-  # kernel 4 on the live spec, ECEF_POS, gate on
+  # kernels 2 and 4: chip_smoke's comparison inputs of kernel 2
   x, P = states["live_bank_scan"][:2]
   zs = (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
         + 5.0 * torch.randn((cs.CMP_T, 3, cs.LIVE_B), generator=gen,
                             device=dev)).contiguous()
-  call = k4_call()
+  R2 = torch.as_tensor(R4, **f32)
+  ref2 = live_scan.live_bank_scan_reference(x, P, zs, dts, q_diag, R2,
+                                            gate=True)
+  for name, (path, ptx, secs) in k3_builds.items():
+    lib = load_k3(path)
+
+    def launch3(T, lib=lib):
+      return cs.kernel3_launch(lib, x_m, P_m, zs3[:T], dts[:T], ki[:T],
+                               kinds, R_by_kind, q_diag, True, r_stream[:T],
+                               stream_kinds)
+
+    def launch2(T, lib=lib):
+      return cs.kernel2_launch(lib, x, P, zs[:T], dts[:T], q_diag, R2, True)
+
+    for kernel, launch, ref, entry in (
+        ("kernel 3", launch3, ref3, "live_bank_scan_mixed_info"),
+        ("kernel 2", launch2, ref2, "live_bank_scan_info")):
+      out = launch(cs.CMP_T)()
+      ms, _ = cs.timed_run(launch(cs.CMP_T), REPS)
+      ms1, _ = cs.timed_run(launch(1), REPS)
+      err = max(live_sigma_err(*out, *ref))
+      info = k3_info(lib, entry)
+      results[kernel][name] = dict(ms_T64=ms, ms_T1=ms1, sigma_err=err,
+                                   ptxas=ptx[kernel], nvcc_s=secs, info=info)
+      cs.log(f"{kernel} {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
+             f"{err:.4g} sigma from plain; ptxas {ptx[kernel]}; runtime "
+             f"{info}; nvcc {secs:.1f} s")
+
+  # kernel 4 on the live spec (ECEF_POS, gate on) and kernel 6 on its
+  # 4-kind cycle, each at every W and in the global form
+  call4, call6 = k4_call(), k6_call()
   ref4 = gs.generic_bank_scan_reference(x, P, zs, dts, spec=live_spec,
                                         kind=K.ECEF_POS, Q=LiveKalman.Q,
                                         R=R4, gate=True, structure=st)
-  for name, src in k4_src.items():
-    once = cs.generic_launch(src, call, x, P, zs, dts)
-    out = once()
-    ms, _ = cs.timed_run(cs.generic_launch(src, call, x, P, zs, dts), REPS)
-    ms1, _ = cs.timed_run(
-        cs.generic_launch(src, call, x, P, zs[:1], dts[:1]), REPS)
-    err = max(live_sigma_err(*out, *ref4))
-    report = _build.generated_ptxas(src)
-    ptx = kernel_ptxas(report, "rn_generic")
-    nvcc = [ln for ln in report.splitlines() if "nvcc wall" in ln]
-    info = _build.generated_info(src)
-    row = dict(ms_T64=ms, ms_T1=ms1, sigma_err=err, ptxas=ptx,
-               lines=len(src.splitlines()), nvcc=nvcc, info=info)
-    results["kernel 4"][name] = row
-    cs.log(f"kernel 4 {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
-           f"{err:.4g} sigma from plain; {row['lines']} lines; ptxas {ptx}; "
-           f"runtime {info}; {nvcc}")
+  ref6 = gs.generic_bank_scan_mixed_reference(
+      x_m, P_m, zs3, dts, ki, spec=live_spec, kinds=kinds6, Q=LiveKalman.Q,
+      R_list=R6, structure=st)
+  cases = {"kernel 4": (call4, (x, P, zs, dts), {}, ref4),
+           "kernel 6": (call6, (x_m, P_m, zs3, dts), {"kind_idx": ki},
+                        ref6)}
+  for kernel, (call, args_, kw, ref) in cases.items():
+    for name, src in gen_src[kernel].items():
+      xx, PP, zz, dd = args_
+
+      def launch(T, src=src):
+        return cs.generic_launch(src, call, xx, PP, zz[:T], dd[:T],
+                                 **{k: v[:T] for k, v in kw.items()})
+
+      out = launch(cs.CMP_T)()
+      ms, _ = cs.timed_run(launch(cs.CMP_T), REPS)
+      ms1, _ = cs.timed_run(launch(1), REPS)
+      err = float(torch.maximum(*lane_sigma_errs(live_spec, *out,
+                                                 *ref)).max())
+      report = _build.generated_ptxas(src)
+      ptx = kernel_ptxas(report, "rn_generic")
+      nvcc = [ln for ln in report.splitlines() if "nvcc wall" in ln]
+      info = _build.generated_info(src)
+      results[kernel][name] = dict(ms_T64=ms, ms_T1=ms1, sigma_err=err,
+                                   ptxas=ptx, lines=len(src.splitlines()),
+                                   nvcc=nvcc, info=info)
+      cs.log(f"{kernel} {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
+             f"{err:.4g} sigma from plain; {len(src.splitlines())} lines; "
+             f"ptxas {ptx}; runtime {info}; {nvcc}")
   if args.parent is not None:
     results["template A/B"] = template_ab(
         torch, dev, gen, states, args.parent / "rednose_tpu_torch" / "csrc" /

@@ -246,3 +246,99 @@ def test_kernel4_global_form_when_the_tile_does_not_fit(cuda_device):
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-10,
                                atol=1e-12)
   assert torch.equal(out[1], out[1].transpose(0, 1))
+
+
+def _mixed_live_call():
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+
+  spec = _live_spec()
+  kinds = (K.PHONE_GYRO, K.PHONE_ACCEL, K.CAMERA_ODO_ROTATION, K.ECEF_POS)
+  return generic_scan.KernelCall(
+      spec, "mixed", kinds, Q=LiveKalman.Q,
+      R_list=[LiveKalman.obs_noise[k] for k in kinds],
+      structure=sparsity.structure_for(spec, LiveKalman.initial_x))
+
+
+def _live_spec():
+  from rednose_tpu_torch.models.live import build_live_spec
+
+  return build_live_spec()
+
+
+@pytest.mark.cuda
+def test_kernel6_tile_ragged_bank_and_short_scans(cuda_device):
+  """Kernel 6's tile (the live spec's 4-kind mixed variant, float32) on a
+  bank that is not a multiple of 32 (B = 8192 + 5: the last block has 27
+  lanes past the bank, which reach every barrier and store nothing), at
+  T = 1 with each kind in turn, against the plain version; T = 0 launches
+  and counts nothing."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  call = _mixed_live_call()
+  spec = call.spec
+  assert _build.generated_info(call.source())["design"] == 1
+  x, P, zs, dts = _live_inputs(cuda_device, 1, 8192 + 5, 3)
+  h = [torch.func.vmap(lambda xx, k=k: spec.obs[k].h({}, xx, None))(
+      x.double().T) for k in call.kinds]
+  for u in range(len(call.kinds)):
+    zu = (h[u].T[None] + (0.5 if u == 3 else 0.05) * torch.randn_like(
+        h[u].T[None])).float().contiguous()
+    ki = torch.tensor([u], dtype=torch.int32, device=cuda_device)
+    count = generic_scan.generic_bank_scan_mixed.launches
+    out = generic_scan.generic_bank_scan_mixed(x, P, zu, dts, ki, call=call)
+    assert generic_scan.generic_bank_scan_mixed.launches == count + 1
+    ref = generic_scan.generic_bank_scan_mixed_reference(
+        x, P, zu, dts, ki, spec=spec, kinds=call.kinds, Q=call.Q,
+        R_list=call.R_list)
+    ex, ep = lane_sigma_errs(spec, *out, *ref)
+    assert float(torch.maximum(ex, ep).max()) < 1e-3
+    assert torch.equal(out[1], out[1].transpose(0, 1))
+    assert not torch.equal(out[1][:, :, -1], P[:, :, -1])   # the last lane
+  count = generic_scan.generic_bank_scan_mixed.launches
+  ki = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+  out = generic_scan.generic_bank_scan_mixed(x, P, zs[:0], dts[:0], ki,
+                                             call=call)
+  assert torch.equal(out[0], x) and torch.equal(out[1], P)
+  assert generic_scan.generic_bank_scan_mixed.launches == count
+
+
+@pytest.mark.cuda
+def test_kernel6_global_form_when_the_tile_does_not_fit(cuda_device):
+  """msckf_eskf's mixed variant without a camera frame (POSITION fixes)
+  in double: its tile (32 filters of a 36 x 36 P in double) exceeds what
+  a block may use, so the source keeps the global form; on a ragged bank
+  it agrees with the float64 plain version to rounding. The float
+  variant is a tile."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+
+  spec = MSCKFEskf.build_spec()
+  call = generic_scan.KernelCall(
+      spec, "mixed", (12,), Q=MSCKFEskf.Q, R_list=(MSCKFEskf.obs_noise[12],),
+      structure=sparsity.structure_for(spec, MSCKFEskf.initial_x))
+  assert "// design: global" in call.source(torch.float64)
+  assert _build.generated_info(call.source(torch.float64))["design"] == 0
+  assert _build.generated_info(call.source(torch.float32))["design"] == 1
+  rng = np.random.RandomState(4)
+  Bn, Tn = 4096 + 5, 2
+  x = np.tile(MSCKFEskf.initial_x, (Bn, 1)) + 0.02 * rng.randn(Bn, 41)
+  for idx in spec.quaternion_idxs:
+    x[:, idx:idx + 4] /= np.linalg.norm(x[:, idx:idx + 4], axis=1,
+                                        keepdims=True)
+  d64 = dict(dtype=torch.float64, device=cuda_device)
+  xt = torch.as_tensor(x.T.copy(), **d64)
+  Pt = (0.1 * torch.eye(36, **d64))[:, :, None].repeat(1, 1, Bn)
+  zs = torch.as_tensor(x.T[None, 0:3] + rng.randn(Tn, 3, Bn), **d64)
+  dts = torch.full((Tn,), 0.05, **d64)
+  ki = torch.zeros((Tn,), dtype=torch.int32, device=cuda_device)
+  count = generic_scan.generic_bank_scan_mixed.launches
+  out = generic_scan.generic_bank_scan_mixed(xt, Pt, zs, dts, ki, call=call)
+  assert generic_scan.generic_bank_scan_mixed.launches == count + 1
+  ref = generic_scan.generic_bank_scan_mixed_reference(
+      xt, Pt, zs, dts, ki, spec=spec, kinds=(12,), Q=MSCKFEskf.Q,
+      R_list=(MSCKFEskf.obs_noise[12],))
+  for a, b in zip(out, ref):
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-10,
+                               atol=1e-12)
+  assert torch.equal(out[1], out[1].transpose(0, 1))

@@ -10,8 +10,10 @@ each filter and step, every role's compute, then every role's store), is
 held at rtol 1e-9 against the JAX package's pallas_bank.generic_bank_scan
 in interpret mode (car with the params stream, loc observe) and the JAX
 lane path (the live spec's ECEF_POS, gate on and off), B = 16, T = 8.
-Variants of the other modes emit no role section. Skips the host builds,
-with the reason, where no C++ compiler is on PATH."""
+Variants of the other modes emit no role section, except mode "mixed"
+without a camera-frame unit (kernel 6), whose tile is held in
+tests/test_torch_generic_mixed_tile.py. Skips the host builds, with the
+reason, where no C++ compiler is on PATH."""
 
 import dataclasses
 
@@ -63,12 +65,29 @@ def _calls():
   }
 
 
-@pytest.mark.parametrize("name", ["live", "car", "loc", "msckf_eskf"])
+MIXED_KINDS = (K.PHONE_GYRO, K.PHONE_ACCEL, K.CAMERA_ODO_ROTATION, K.ECEF_POS)
+
+
+def _mixed_call():
+  """The live spec's 4-kind mixed variant (KalmanBank.run_mixed)."""
+  spec = live.build_live_spec()
+  return generic_scan.KernelCall(
+      spec, "mixed", MIXED_KINDS, Q=live.LiveKalman.Q,
+      R_list=[live.LiveKalman.obs_noise[k] for k in MIXED_KINDS],
+      structure=sparsity.structure_for(spec, live.LiveKalman.initial_x))
+
+
+@pytest.mark.parametrize("name", ["live", "car", "loc", "msckf_eskf"]
+                         + [f"live mixed unit {u}" for u in range(4)])
 def test_roles_partition_the_upper_triangle(name):
-  c = _calls()[name]
+  """For each single variant and each unit of the live 4-kind mixed
+  variant."""
+  mixed = name.startswith("live mixed")
+  c = _mixed_call() if mixed else _calls()[name]
+  u = int(name[-1]) if mixed else 0
   st = c.structure
   pred = entry_slab.predict_phase(c.spec, st, c._pnames, c._q_pattern)
-  kind, gate = c._units()[0]
+  kind, gate = c._units()[u]
   upd = entry_slab.update_phase(c.spec, kind, st, c._pnames, gate)
   cuts = frozenset(e.id for e in entry_slab.shared_nodes(upd))
   de = c.spec.dim_err
@@ -94,13 +113,22 @@ def test_roles_partition_the_upper_triangle(name):
   assert len(cuts) > 0
   src = c.source(torch.float32)
   assert "#define REDNOSE_GENERIC_SCAN_TILE" in src
-  assert f"constexpr int NSCR = {len(cuts)};" in src
+  if mixed:   # the scratch holds the largest unit's values
+    nscr = int(src.split("constexpr int NSCR = ")[1].split(";")[0])
+    assert nscr >= len(cuts)
+    assert f"void gen_update_k{kind}_shared(" in src
+  else:
+    assert f"constexpr int NSCR = {len(cuts)};" in src
 
 
 def test_other_modes_emit_no_role_section():
-  """Modes 'mixed' and 'epoch' of live, car, loc and msckf_eskf and mode
-  'frame' of msckf_eskf print the global form only."""
-  srcs = []
+  """Mode 'epoch' of live, car, loc and msckf_eskf, mode 'frame' of
+  msckf_eskf and mode 'mixed' with a camera-frame unit print the global
+  form only. A mode-'mixed' variant without one (live, car, loc,
+  msckf_eskf; float and double) prints one shared function and one role
+  set per unit and switches them on the step's kind, or, where its tile
+  does not fit (msckf_eskf in double), the global form, named."""
+  srcs, mixed = [], []
   for model, spec, kinds in (
       (live.LiveKalman, live.build_live_spec(), (K.PHONE_GYRO, K.ECEF_POS)),
       (car.CarKalman, car.CarKalman.build_spec(), (1, 2)),
@@ -109,18 +137,41 @@ def test_other_modes_emit_no_role_section():
       (MSCKFEskf, MSCKFEskf.build_spec(), (12,))):
     st = sparsity.structure_for(spec, model.initial_x)
     R = [model.obs_noise[k] for k in kinds]
-    srcs += [generic_scan.KernelCall(spec, mode, kinds, Q=model.Q, R_list=R,
-                                     structure=st).source(dt)
-             for mode in ("mixed", "epoch")
-             for dt in (torch.float32, torch.float64)]
+    for mode in ("mixed", "epoch"):
+      c = generic_scan.KernelCall(spec, mode, kinds, Q=model.Q, R_list=R,
+                                  structure=st)
+      for dt in (torch.float32, torch.float64):
+        (mixed if mode == "mixed" else srcs).append((c, dt, c.source(dt)))
   espec = MSCKFEskf.build_spec()
-  srcs.append(generic_scan.KernelCall(
+  est = sparsity.structure_for(espec, MSCKFEskf.initial_x)
+  srcs.append((None, None, generic_scan.KernelCall(
       espec, "frame", (16,), Q=MSCKFEskf.Q, R_list=(1e-4 * np.eye(8),),
-      structure=sparsity.structure_for(espec, MSCKFEskf.initial_x)).source())
-  for src in srcs:
+      structure=est).source()))
+  srcs += [(None, None, generic_scan.KernelCall(
+      espec, "mixed", (12, 16), Q=MSCKFEskf.Q,
+      R_list=(np.eye(3), 1e-4 * np.eye(8)), structure=est).source(dt))
+           for dt in (torch.float32, torch.float64)]
+  for _, _, src in srcs:
     assert "REDNOSE_GENERIC_SCAN_TILE" not in src
     assert "gen_tile_" not in src and "_r0(" not in src
     assert "// design:" not in src
+  for c, dt, src in mixed:
+    units = c._units()
+    if c.spec.name == "msckf_eskf" and dt == torch.float64:
+      assert "// design: global" in src and "gen_tile_" not in src
+      assert "GEN_INLINE void gen_step(" in src
+      continue
+    assert f"// design: tile, {entry_slab.TILE_ROLES} roles, {len(units)} " \
+        "units" in src
+    assert "#define REDNOSE_GENERIC_SCAN_TILE_KINDS" in src
+    assert "gen_step(" not in src
+    for k, g in units:
+      name = entry_slab._unit_name(k, g)
+      assert src.count(f"void {name}_shared(") == 1
+      for r in range(entry_slab.TILE_ROLES):
+        assert src.count(f"void {name}_r{r}(") == 1
+        assert src.count(f"void {name}_r{r}_store(") == 1
+    assert src.count("_shared(const scalar_t* x") == len(set(units))
   # the single variant that does not fit keeps the global form, named
   c = _calls()["msckf_eskf"]
   g = c.source(torch.float64)

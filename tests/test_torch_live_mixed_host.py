@@ -1,10 +1,12 @@
-"""Kernel 3's step arithmetic (csrc/live_mixed.cuh), run on the host: the
-header the card builds as float is compiled with the host C++ compiler as
-double (its live_mixed_host entry point, which runs the kernel's phases in
-barrier order with the kernel's number of roles) and held, float64, at
-rtol 1e-9, against the JAX package's live_lane.live_mixed_scan over all 8
-live lane kinds, with the gate off and on and one kind streaming its
-diagonal R. Skips, with the reason, where no C++ compiler is on PATH."""
+"""The step arithmetic of kernels 2 and 3 (csrc/live_mixed.cuh), run on the
+host: the header the card builds as float is compiled with the host C++
+compiler as double (its live_mixed_host and live_scan_host entry points,
+which run the kernels' step loop with the kernels' number of roles, the
+phases in barrier order) and held, float64, at rtol 1e-9, against the JAX
+package: kernel 3's against live_lane.live_mixed_scan over all 8 live lane
+kinds, with the gate off and on and one kind streaming its diagonal R;
+kernel 2's against live_lane.live_lane_scan (ECEF_POS every step), gate off
+and on. Skips, with the reason, where no C++ compiler is on PATH."""
 
 import ctypes
 import pathlib
@@ -36,8 +38,8 @@ def _needs_compiler():
                 "csrc/live_mixed.cuh")
 
 
-def _host():
-  """live_mixed_host, built once per session."""
+def _lib():
+  """The header's host build, once per test run."""
   if not _LIB:
     d = pathlib.Path(tempfile.mkdtemp(prefix="rn_live_mixed_host_"))
     lib = d / "liblive_mixed.so"
@@ -46,11 +48,16 @@ def _host():
          "-fPIC", "-DREDNOSE_LIVE_MIXED_HOST", "-o", str(lib),
          str(CSRC / "live_mixed.cuh")], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    fn = ctypes.CDLL(str(lib)).live_mixed_host
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    _LIB.append(fn)
+    _LIB.append(ctypes.CDLL(str(lib)))
   return _LIB[0]
+
+
+def _host():
+  """live_mixed_host (kernel 3's step loop)."""
+  fn = _lib().live_mixed_host
+  fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+  fn.restype = ctypes.c_int
+  return fn
 
 
 def _inputs(T, B, seed):
@@ -137,3 +144,42 @@ def test_live_mixed_host_matches_plain_torch():
   xh, Ph = _run_host(x, P, dts, kind_idx, zs, R_by_kind, r_stream, True)
   np.testing.assert_allclose(xh, np_(xt), rtol=1e-9, atol=1e-9)
   np.testing.assert_allclose(Ph, np_(Pt), rtol=1e-9, atol=1e-9)
+
+
+def _run_scan_host(x, P, dts, zs, R, gate):
+  """live_scan_host (kernel 2's step loop): x (B, 23), P (22, 22, B),
+  zs (T, B, 3), R (3, 3); returns the new (x (23, B), P)."""
+  fn = _lib().live_scan_host
+  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double]
+  fn.restype = ctypes.c_int
+  c = lambda a: np.ascontiguousarray(a, dtype=np.float64)  # noqa: E731
+  xs, Ps = c(x.T), c(P)
+  args = [xs, Ps, c(zs.transpose(0, 2, 1)), c(dts), c(np.diag(LiveKalman.Q)),
+          c(R)]
+  rc = fn(*[a.ctypes.data for a in args], len(dts), x.shape[0], int(gate),
+          live_lane.MAHA_THRESH_3D)
+  assert rc == 0
+  return xs, Ps
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_live_scan_host_matches_jax(gate):
+  """Kernel 2's step loop (ECEF_POS, the one R and threshold) over 16
+  steps of B = 13 lanes, against JAX live_lane_scan at rtol 1e-9; every
+  fourth lane's fixes are 20 m off, so with the gate on some gate."""
+  T, B = 16, 13
+  x, P, dts, _, _, _, _ = _inputs(T, B, 13)
+  rng = np.random.RandomState(14)
+  far = np.where(np.arange(B) % 4 == 0, 20.0, 0.5)[:, None]
+  zs = x[None, :, 0:3] + far * rng.randn(T, B, 3)
+  R = np.diag(0.5 + rng.rand(3))
+  xj, Pj = jll.live_lane_scan(
+      jnp.asarray(x), jnp.asarray(P), jnp.asarray(LiveKalman.Q),
+      jnp.asarray(dts), jnp.asarray(zs), jnp.asarray(R), gate=gate)
+  xh, Ph = _run_scan_host(x, P, dts, zs, R, gate)
+  np.testing.assert_allclose(xh, np.asarray(xj).T, rtol=1e-9, atol=1e-9)
+  np.testing.assert_allclose(Ph, np.asarray(Pj), rtol=1e-9, atol=1e-9)
+  np.testing.assert_array_equal(Ph, Ph.transpose(1, 0, 2))
+  if gate:   # the gate had work: the far lanes end elsewhere than ungated
+    xu, _ = _run_scan_host(x, P, dts, zs, R, False)
+    assert not np.allclose(xu[:, 0::4], xh[:, 0::4])

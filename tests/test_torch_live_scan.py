@@ -260,3 +260,35 @@ def test_kernel3_ragged_bank_and_short_scans(cuda_device):
       stream_kinds=(K.CAMERA_ODO_ROTATION,))
   assert torch.equal(out[0], x) and torch.equal(out[1], P)
   assert live_scan.live_bank_scan_mixed.launches == count
+
+
+@pytest.mark.cuda
+def test_kernel2_ragged_bank_and_short_scans(cuda_device):
+  """Kernel 2's tile of 32 filters on a bank that is not a multiple of 32
+  (B = 8192 + 5: the last block has 27 lanes past the bank, which reach
+  every barrier and store nothing), at T = 8 and T = 1 with the gate on,
+  against the plain version; T = 0 launches and counts nothing."""
+  dev = dict(dtype=torch.float32, device=cuda_device)
+  T, B = 8, 8192 + 5
+  x, P, dts, _, _, _, _ = _mixed_inputs(T, B, 10)
+  x, P = torch.as_tensor(x, **dev), torch.as_tensor(P, **dev)
+  gen = torch.Generator(device=cuda_device)
+  gen.manual_seed(10)
+  zs = (x[None, 0:3] + 0.5 * torch.randn((T, 3, B), generator=gen,
+                                         **dev)).contiguous()
+  q = torch.as_tensor(np.diag(LiveKalman.Q), **dev)
+  R = torch.as_tensor(np.diag([4.0, 5.0, 6.0]), **dev)
+  dts = torch.as_tensor(dts, **dev)
+  for n in (T, 1):
+    count = live_scan.live_bank_scan.launches
+    out_k = live_scan.live_bank_scan(x, P, zs[:n], dts[:n], q, R, gate=True)
+    assert live_scan.live_bank_scan.launches == count + 1
+    out_p = live_scan.live_bank_scan_reference(x, P, zs[:n], dts[:n], q, R,
+                                               gate=True)
+    assert max(live_sigma_err(*out_k, *out_p)) < 1e-3
+    assert torch.equal(out_k[1], out_k[1].transpose(0, 1))
+    assert not torch.equal(out_k[1][:, :, -1], P[:, :, -1])  # the last lane
+  count = live_scan.live_bank_scan.launches
+  out = live_scan.live_bank_scan(x, P, zs[:0], dts[:0], q, R, gate=True)
+  assert torch.equal(out[0], x) and torch.equal(out[1], P)
+  assert live_scan.live_bank_scan.launches == count
