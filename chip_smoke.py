@@ -58,17 +58,18 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      cross-check, the generic live kernels against the hand ones on the
      same inputs: kernel 4 (ECEF_POS, gate on) against kernel 2, kernel 6
      against kernel 3 with its gate off.
-     Kernels 2, 3, 4 and 6 keep P in shared memory (a tile of 32 filters,
-     the step split across warps): kernels 2 and 3's launch shapes as the
-     CUDA runtime reads them and their raw-launch times at T = 64 and
-     T = 1; for each mode-"single" and mode-"mixed" variant of the main
-     paths the design it took (tile or global), its warps, shared memory
-     a block, blocks an SM and its raw-launch time at T = 64 and T = 1
-     (every float32 single variant, and every float32 mixed variant
-     without a camera-frame unit, must be a tile), and msckf_eskf's
-     POSITION tile against its plain version; kernel 5's float32 bound on
-     loc and kernel 7's raw-launch time at T = 1 on msckf_eskf (an
-     observe_frame call).
+     Kernels 2, 3, 4, 6 and 7 keep P in shared memory (a tile of 32
+     filters, the step split across warps): kernels 2 and 3's launch
+     shapes as the CUDA runtime reads them and their raw-launch times at
+     T = 64 and T = 1; for each mode-"single", "mixed" and "frame"
+     variant of the main paths the design it took (tile or global), its
+     warps, shared memory a block, blocks an SM, registers, local bytes
+     and its raw-launch time at T = 64 and T = 1 (every float32 one must
+     be a tile), and msckf_eskf's POSITION tile against its plain
+     version; kernel 5's float32 bound on loc; and each camera-frame
+     variant's float32 tile (kernel 7 at T = 16 and T = 1, an
+     observe_frame call; kernel 6 with frames at T = 16) against its
+     global form on the same inputs (within GEN_TOL), both timed.
 Prints the build times and ptxas lines, the card's name and power limit,
 a JSON line of the kernels, and last `{"ok": true, "device": {...}}`. Any
 failure raises (non-zero exit). It needs a CUDA card and the repository;
@@ -1174,16 +1175,16 @@ def compare_generic(torch, dev, gen, states, hand_states, kernel_reps=5):
 
 
 def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
-  """Kernel 4's variants on the main paths (mode 'single') and kernel 6's
+  """Kernel 4's variants on the main paths (mode 'single'), kernel 6's
   (mode 'mixed': the live spec's 4-kind cycle, and both MSCKF models' VIO
-  schedule with camera frames): the design each took (tile or global),
-  its warps, shared memory a block, blocks an SM, registers and local
-  bytes as the CUDA runtime reads them, and its time (raw launches, CUDA
-  events) at T = CMP_T and T = 1, from the main path's car, live and live
-  mixed banks or a fresh bank (loc, msckf_eskf, the VIO banks) with data
-  of the main path's kind. Every float32 single variant, and every float32
-  mixed variant without a camera-frame unit, the smoke builds must be a
-  tile."""
+  schedule with camera frames) and kernel 7's (mode 'frame', both MSCKF
+  models): the design each took (tile or global), its warps, shared
+  memory a block, blocks an SM, registers and local bytes as the CUDA
+  runtime reads them, and its time (raw launches, CUDA events) at
+  T = CMP_T and T = 1, from the main path's car, live and live mixed banks
+  or a fresh bank (loc, msckf_eskf, the VIO and frame banks) with data of
+  the main path's kind. Every float32 variant of these modes the smoke
+  builds must be a tile."""
   from rednose_tpu_torch import _build
 
   CarKalman, LocKalman, _, _ = generic_models()
@@ -1244,6 +1245,19 @@ def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
         torch.full((T,), MSCKF_DT, **f32), eas_v.transpose(1, 2).to(
             **f32).contiguous(), None,
         torch.as_tensor(vio_ki, dtype=torch.int32, device=dev))
+  for model in msckf_models():
+    name = f"{model.name} run_frames (kernel 7)"
+    spec, _, _, R = msckf_setup(model)
+    xs = msckf_bank_x0(model, SEED + 9)
+    zs_f, eas_f, _ = msckf_frames(torch, dev, gen, model, xs, T, R)
+    calls[name] = msckf_call(model)
+    inputs[name] = (
+        torch.as_tensor(xs.T, **f32).contiguous(),
+        (MSCKF_P0 * torch.eye(spec.dim_err, **f32))[:, :, None].repeat(
+            1, 1, MSCKF_B),
+        zs_f.transpose(1, 2).to(**f32).contiguous(),
+        torch.full((T,), MSCKF_DT, **f32), eas_f.transpose(1, 2).to(
+            **f32).contiguous(), None, None)
   out = {}
   for name, (x, P, zs, dts, eas, pss, ki) in inputs.items():
     call = calls[name]
@@ -1263,8 +1277,7 @@ def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
         f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
         f"registers, {info['local_bytes']} B local a thread; raw launches "
         f"B={x.shape[-1]} T={T} {ms[T]:.4f} ms, T=1 {ms[1]:.4f} ms")
-    if "with frames" not in name:
-      require(info["design"] == 1, f"{name}: the float32 variant is a tile")
+    require(info["design"] == 1, f"{name}: the float32 variant is a tile")
   # msckf_eskf's POSITION tile (a 36 x 36 P, one block an SM) against its
   # plain version, as compare_generic holds the car and live variants
   from rednose_tpu_torch.ops import generic_scan as gs
@@ -1283,6 +1296,41 @@ def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
   require(all(ok for _, ok in checks),
           "msckf_eskf's POSITION tile agrees with its plain version")
   return out
+
+
+def is_tile(source):
+  """Whether an emitted source is the tile form (its design line)."""
+  return "\n// design: tile," in source
+
+
+def tile_vs_global(name, call, spec, args, kw, checks, tol=GEN_TOL):
+  """A camera-frame variant's tile against its global form (one thread a
+  filter, P in global memory: the design before the tile; the same
+  emitted phases) on the same inputs, each a fresh launch: passes when
+  every lane is within tol sigmas of the global form's result, which is
+  appended to checks. Both timed (raw launches, CUDA events) at the
+  inputs' T and at T = 1. Returns {form: (ms at T, ms at T = 1)}."""
+  x, P, zs, dts = args
+  T = dts.shape[0]
+  outs, ms = {}, {}
+  for form, src in (("tile", call.source(x.dtype)),
+                    ("global", call.source(x.dtype, tile=False))):
+    def launch(n, src=src):
+      return generic_launch(src, call, x, P, zs[:n], dts[:n],
+                            **{k: v[:n] for k, v in kw.items()})
+
+    outs[form] = launch(T)()
+    ms[form] = tuple(timed_run(launch(n), 20 if n == 1 else 5)[0]
+                     for n in (T, 1))
+  err = float(lane_errs(outs["tile"], outs["global"], spec).max())
+  ok = err <= tol
+  log(f"{name}: tile against its global form on the same {x.dtype} inputs "
+      f"{err:.4g} sigma (tolerance {tol}) -> {'ok' if ok else 'FAIL'}; "
+      f"raw launches T={T}: tile {ms['tile'][0]:.4f} ms, global "
+      f"{ms['global'][0]:.4f} ms; T=1: tile {ms['tile'][1]:.4f} ms, global "
+      f"{ms['global'][1]:.4f} ms")
+  checks.append((f"{name}: tile against its global form", ok))
+  return ms
 
 
 # ------------------------------------------------------------ MSCKF bank
@@ -1520,7 +1568,10 @@ def compare_msckf(torch, dev, gen, reps=10):
   both models: float32 within GEN_TOL sigma, the double build within
   MSCKF64_TOL sigma of the float64 plain version, and planted faults (a
   clone-block Q term, the isotropic R's diagonal, one landmark coordinate,
-  one dts entry; run-time values, no extra build) beyond MSCKF64_TOL."""
+  one dts entry; run-time values, no extra build) beyond MSCKF64_TOL; the
+  float32 tile (and a double one) against its global form on the same
+  inputs (tile_vs_global), both timed at T and at T = 1 (an
+  observe_frame call)."""
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.ops import generic_scan as gs
 
@@ -1531,7 +1582,7 @@ def compare_msckf(torch, dev, gen, reps=10):
     xs = msckf_bank_x0(model, SEED + 3)
     zs, eas, _ = msckf_frames(torch, dev, gen, model, xs, T, R)
     call = msckf_call(model)
-    ops = step_ops(call.source(), (MSCKF_KIND,)) * T * MSCKF_B
+    ops = step_ops(call.counting_source(), (MSCKF_KIND,)) * T * MSCKF_B
     shape = f"{model.name} B={MSCKF_B} T={T} gate on"
 
     def inputs(dtype, zs=zs, eas=eas, dts=np.full(T, MSCKF_DT)):
@@ -1550,18 +1601,21 @@ def compare_msckf(torch, dev, gen, reps=10):
         gs.vo_bank_scan_reference, inputs(torch.float32), kw, shape, ops,
         checks=checks, reps=reps)
     rows.append(row)
-    # raw launches: T = 1 is an observe_frame call on the bank
+    # raw launches, the tile against its global form: T = 1 is an
+    # observe_frame call on the bank
     x, P, zs32, eas32, dts32 = inputs(torch.float32)
-    raw = {n: timed_run(generic_launch(call.source(), call, x, P, zs32[:n],
-                                       dts32[:n], eas32[:n]),
-                        20 if n == 1 else 5)[0] for n in (T, 1)}
-    log(f"vo_bank_scan [{model.name} B={MSCKF_B}] raw launches: T={T} "
-        f"{raw[T]:.4f} ms, T=1 {raw[1]:.4f} ms")
+    tile_vs_global(f"vo_bank_scan [{model.name} B={MSCKF_B}]", call, spec,
+                   (x, P, zs32, dts32), dict(eas=eas32), checks)
     args64 = inputs(torch.float64)
     _, _, ref64 = kernel_vs_plain(
         "vo_bank_scan", "", "", spec, gs.vo_bank_scan,
         gs.vo_bank_scan_reference, args64, kw, shape + ", float64", ops,
         MSCKF64_TOL, checks=checks, reps=reps)
+    if is_tile(call.source(torch.float64)):
+      x, P, zs64, eas64, dts64 = args64
+      tile_vs_global(f"vo_bank_scan [{model.name} B={MSCKF_B}, float64]",
+                     call, spec, (x, P, zs64, dts64), dict(eas=eas64),
+                     checks, MSCKF64_TOL)
     builds = _build.generated_launcher.cache_info().currsize
     Qf = np.array(Q, dtype=np.float64)
     Qf[-1, -1] += 1e-4
@@ -1821,7 +1875,9 @@ def compare_vio(torch, dev, gen, reps=10):
   sigma, the double build within MSCKF64_TOL of the float64 plain version,
   and planted faults (a clone-block Q term, the feature R's diagonal x
   1.01, the position R's diagonal x 1.01, one landmark depth + 1 cm, one
-  dts entry x 1.01; run-time values, no extra build) beyond MSCKF64_TOL."""
+  dts entry x 1.01; run-time values, no extra build) beyond MSCKF64_TOL;
+  the float32 tile (and a double one) against its global form on the same
+  inputs (tile_vs_global)."""
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.ops import generic_scan as gs
 
@@ -1834,7 +1890,7 @@ def compare_vio(torch, dev, gen, reps=10):
     zs, eas, _ = msckf_frames(torch, dev, gen, model, xs, T, R,
                               frames=kind_idx.astype(bool))
     call = vio_call(model)
-    ops = step_ops(call.source(), kinds, "mixed") * T * MSCKF_B
+    ops = step_ops(call.counting_source(), kinds, "mixed") * T * MSCKF_B
     shape = (f"{model.name} B={MSCKF_B} T={T}, {T // 2} camera frames + "
              f"{T // 2} position fixes, gate on")
 
@@ -1857,15 +1913,24 @@ def compare_vio(torch, dev, gen, reps=10):
     def plain(*a, **k):
       return gs.generic_bank_scan_mixed_reference(*a[:5], eas=a[5], **k)
 
+    args32 = inputs(torch.float32)
     row, _, _ = kernel_vs_plain(
         "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
-        "rednose_tpu/ops/pallas_bank.py:250", spec, kernel, plain,
-        inputs(torch.float32), kw, shape, ops, checks=checks, reps=reps)
+        "rednose_tpu/ops/pallas_bank.py:250", spec, kernel, plain, args32,
+        kw, shape, ops, checks=checks, reps=reps)
     rows.append(row)
+    tile_vs_global(f"generic_bank_scan_mixed with frames [{model.name} "
+                   f"B={MSCKF_B}]", call, spec, args32[:4],
+                   dict(eas=args32[5], kind_idx=args32[4]), checks)
     args64 = inputs(torch.float64)
     _, _, ref64 = kernel_vs_plain(
         "generic_bank_scan_mixed", "", "", spec, kernel, plain, args64, kw,
         shape + ", float64", ops, MSCKF64_TOL, checks=checks, reps=reps)
+    if is_tile(call.source(torch.float64)):
+      tile_vs_global(f"generic_bank_scan_mixed with frames [{model.name} "
+                     f"B={MSCKF_B}, float64]", call, spec, args64[:4],
+                     dict(eas=args64[5], kind_idx=args64[4]), checks,
+                     MSCKF64_TOL)
     builds = _build.generated_launcher.cache_info().currsize
     Qf = np.array(Q, dtype=np.float64)
     Qf[-1, -1] += 1e-4
@@ -1922,16 +1987,23 @@ def main():
     static = pool.submit(_build.build)
     live_spec = generic_models()[3]
     sources = generic_sources(live_spec) | msckf_sources() | vio_sources()
-    # the comparison phase's own variants: kernels 5, 6 and 7 in double
+    # the comparison phase's own variants: kernels 5, 6 and 7 in double,
+    # and the camera-frame variants' global form (tile_vs_global)
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
                    loc_epoch_call().source(torch.float64),
                    "live run_mixed, float64 (kernel 6)":
                    live_mixed_call().source(torch.float64)}
     for model in msckf_models():
-      cmp_sources[f"{model.name} run_frames, float64 (kernel 7)"] = \
-          msckf_call(model).source(torch.float64)
-      cmp_sources[f"{model.name} run_mixed with frames, float64 "
-                  "(kernel 6)"] = vio_call(model).source(torch.float64)
+      for name, call in (("run_frames", msckf_call(model)),
+                         ("run_mixed with frames", vio_call(model))):
+        kernel = "kernel 7" if call.mode == "frame" else "kernel 6"
+        cmp_sources[f"{model.name} {name}, float64 ({kernel})"] = \
+            call.source(torch.float64)
+        cmp_sources[f"{model.name} {name}, global form ({kernel})"] = \
+            call.source(tile=False)
+        if is_tile(call.source(torch.float64)):
+          cmp_sources[f"{model.name} {name}, float64 global form "
+                      f"({kernel})"] = call.source(torch.float64, tile=False)
     t_emit = time.perf_counter() - t0
     _build.build_generated_many([*sources.values(), *cmp_sources.values()])
     lib = static.result()

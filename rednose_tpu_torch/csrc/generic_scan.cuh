@@ -26,8 +26,8 @@
 // in namespace rn_gen, the constants DX, DE, NP, NPS, NZROWS, NEAROWS and
 // ps_idx(i), and either gen_step(x, P, ld, z, ea, dt, ki, p, Q, R), one
 // predict and the step's updates of one filter (the global form), or, for
-// kernels 4 and 6 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES, NSCR,
-// NVAL and the role dispatchers gen_tile_*, which for kernel 6
+// kernels 4, 6 and 7 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES,
+// NSCR, NVAL and the role dispatchers gen_tile_*, which for kernel 6
 // (REDNOSE_GENERIC_SCAN_TILE_KINDS) also take the step's kind index. The
 // second include (REDNOSE_GENERIC_SCAN_LOOPS) adds the scan loop, the
 // __global__ kernel and its C entry points under nvcc, or a host loop over
@@ -38,24 +38,31 @@
 // params vector prm (NP,), Q (DE, DE) and the packed per-unit R are
 // run-time inputs, so a new value never needs a new build.
 //
-// The tile form (mode "single", kernel 4, and mode "mixed" without a
-// camera-frame unit, kernel 6, whenever 32 filters' P, x and update
-// scratch fit in a block's shared memory, which every such float32
-// variant the port ships does; ops/entry_slab.py decides when it emits the
-// source and names the design in its header): a block of 32 filters (lane
-// = filter) and NROLES warps (role = warp) keeps P, x and the scratch in
-// shared memory for the whole T loop, and splits each step's phases over
-// the warps between barriers (see the tile section below). At B = 8192
+// The tile form (mode "single", kernel 4, mode "mixed", kernel 6, and mode
+// "frame", kernel 7, whenever 32 filters' P, x and update scratch fit in a
+// block's shared memory, which every such float32 variant the port ships
+// does; ops/entry_slab.py decides when it emits the source and names the
+// design in its header): a block of 32 filters (lane = filter) and NROLES
+// warps (role = warp) keeps P, x and the scratch in shared memory for the
+// whole T loop, and splits each step's phases over the warps between
+// barriers (see the tile section below). NROLES is the variant's own: 2
+// without a camera frame, more with one (a camera frame's roles hold
+// ~DE * DE / (2 NROLES) values each until the barrier). At B = 8192
 // that is NROLES x the warps in flight of one thread a filter, every P
 // access a shared-memory access. Bound: operations (the live ECEF_POS
 // variant 0.04977 ms, the live 4-kind mixed variant 0.05562 ms at
 // B = 8192, T = 64, 67 TFLOP/s), against which redundant work across
 // roles (shared subexpressions of the predict that more than one role
-// needs are computed by each) and the serial update sub-phase count.
+// needs are computed by each) and the serial update sub-phase count. A
+// camera frame's sub-phase is most of its step, so it runs in stages
+// (below): one warp He's reflectors and the projected innovation, every
+// warp its columns of the projected H, then of HP, then its entries of S,
+// one warp S's Cholesky factor and the gate, every warp its columns of
+// K^T, the Joseph factor rows and dx.
 //
-// The global form (modes "epoch" and "frame", a "mixed" variant with a
-// camera-frame unit, and a "single" or "mixed" variant whose tile does not
-// fit: msckf_eskf in double), kernel 2's first design: one thread per
+// The global form (mode "epoch", and a "single", "mixed" or "frame"
+// variant whose tile does not fit: msckf_eskf in double), kernel 2's
+// first design: one thread per
 // filter and the T loop inside the kernel, so the state never leaves the
 // card during a scan. x is a thread-local array that the emitted code
 // indexes with constants, so it lives in registers. P stays in global
@@ -66,9 +73,10 @@
 // ptxas report kept beside each build says how much). Bound: the L2
 // traffic of P (at B = 8192 a 22 x 22 bank is 15.9 MB, at B = 4096 a
 // 36 x 36 MSCKF bank 21.2 MB, resident in the 50 MB L2) and local-memory
-// traffic of the spills; kernel 7's augmented store reads nearly every old
-// P entry before it writes another, so its body holds most of P in
-// registers or local memory. Making it fast is later work.
+// traffic of the spills; a camera frame's augmented store reads nearly
+// every old P entry before it writes another, so its body holds most of P
+// in registers or local memory (the tile form stores after a barrier
+// instead).
 //
 // Numerics: IEEE, no fast-math, in float or double as the bank's dtype
 // says (the wrappers pick the variant). P stays bitwise symmetric: each symmetric
@@ -84,7 +92,8 @@
 #include <stddef.h>
 
 // GEN_PHASE marks the phase functions of a variant with a camera frame
-// (the predict and each frame unit): on the card each is a call of its
+// (in the global form the predict and each frame unit, in the tile form
+// each frame unit's shared function): on the card each is a call of its
 // own, so ptxas allocates registers per phase (the msckf_eskf frame body
 // then builds in ~2/3 of the inlined time and runs no slower).
 #ifdef __CUDACC__
@@ -156,9 +165,9 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 #else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
 #ifdef REDNOSE_GENERIC_SCAN_TILE
 
-// Kernels 4 and 6 in tile form (mode "single", and mode "mixed" without a
-// camera-frame unit, when the tile fits): a block of 32 filters (lane =
-// filter) and NROLES warps (role = warp). P, x and the update's NSCR
+// Kernels 4, 6 and 7 in tile form (modes "single", "mixed" and "frame",
+// when the tile fits): a block of 32 filters (lane = filter) and NROLES
+// warps (role = warp). P, x and the update's NSCR
 // scratch values of its 32 filters stay in the block's dynamic shared
 // memory for the whole T loop, laid out [(value)][32] so a warp's 32 lanes
 // touch 32 consecutive words; they are loaded once, coalesced, from the
@@ -166,15 +175,20 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 // between barriers: every role computes its share of the predicted P (and
 // role 0 the new x) into NVAL registers, barrier, every role stores its
 // share, barrier; role 0 computes the update's shared values (gated gains,
-// Joseph factor rows, dx) into the scratch, barrier; every role computes
+// Joseph factor rows, dx) into the scratch (a camera frame: in stages,
+// REDNOSE_GENERIC_SCAN_TILE_STAGES), barrier; every role computes
 // its share of the updated P (role 0 the new x) from P and the scratch,
 // barrier, stores, barrier. A lane past the bank (the last block of a
 // ragged bank) computes on a copy of filter B - 1, reaches every barrier
-// and stores nothing. The emitted dispatchers gen_tile_* switch on the
-// role, which is uniform across a warp; a mixed variant's update
-// dispatchers (REDNOSE_GENERIC_SCAN_TILE_KINDS) switch first on the step's
-// kind index ki = kind_idx[t], read once a step and uniform across the
-// bank, so no warp diverges.
+// and stores nothing. A camera frame's update is the projected update and
+// the window roll: each role computes its share of the rolled P (new
+// (i, j) is the updated (old(i), old(j))) and role 0 the rolled x, all
+// from the old values and the scratch, and stores them after the barrier,
+// so the roll needs no copy of P. The emitted dispatchers gen_tile_*
+// switch on the role, which is uniform across a warp; a mixed variant's
+// update dispatchers (REDNOSE_GENERIC_SCAN_TILE_KINDS) switch first on the
+// step's kind index ki = kind_idx[t], read once a step and uniform across
+// the bank, so no warp diverges.
 
 namespace rn_gen {
 constexpr int TILE_LANES = 32;
@@ -185,9 +199,19 @@ constexpr int TILE_VALS = DE * DE + DX + NSCR;
 // mixed variant, none for a single one
 #ifdef REDNOSE_GENERIC_SCAN_TILE_KINDS
 #define RN_KI ki,
+#define RN_KI_ONLY ki
 #else
 #define RN_KI
+#define RN_KI_ONLY
 #endif
+
+// A variant with a camera frame (REDNOSE_GENERIC_SCAN_TILE_STAGES) computes
+// the update's shared values in gen_tile_nstages(ki) stages instead of one
+// role's gen_tile_shared: in each, every role runs gen_tile_stage (a
+// serial stage on role 0 alone, storing into the scratch as it goes; a
+// split stage on every role, its share into v), barrier, every role stores
+// its share (gen_tile_stage_store), barrier. A stage reads what earlier
+// stages stored; a slot is reused once no later stage reads its value.
 
 #ifdef __CUDACC__
 
@@ -232,8 +256,17 @@ rn_generic_tile_kernel(
     __syncthreads();
     gen_tile_predict_store(role, x, P, ld, v);
     __syncthreads();
+#ifdef REDNOSE_GENERIC_SCAN_TILE_STAGES
+    for (int g = 0; g < gen_tile_nstages(RN_KI_ONLY); ++g) {
+      gen_tile_stage(RN_KI g, role, x, P, ld, z, ea, (size_t)B, R, p, s, v);
+      __syncthreads();
+      gen_tile_stage_store(RN_KI g, role, s, ld, v);
+      __syncthreads();
+    }
+#else
     if (role == 0) gen_tile_shared(RN_KI x, P, ld, z, ea, (size_t)B, R, p, s);
     __syncthreads();
+#endif
     gen_tile_update(RN_KI role, x, P, ld, z, ea, (size_t)B, R, p, s, v);
     __syncthreads();
     gen_tile_update_store(RN_KI role, x, P, ld, v);
@@ -317,7 +350,17 @@ extern "C" int rn_generic_scan_host(void* xs_, void* Ps_, const void* zs_,
       for (int r = 0; r < NROLES; ++r)
         gen_tile_predict(r, x, P, 1, dts[t], p, Q, v[r]);
       for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
+#ifdef REDNOSE_GENERIC_SCAN_TILE_STAGES
+      for (int g = 0; g < gen_tile_nstages(RN_KI_ONLY); ++g) {
+        for (int r = 0; r < NROLES; ++r)
+          gen_tile_stage(RN_KI g, r, x, P, 1, z, ea, (size_t)B, R, p, s,
+                         v[r]);
+        for (int r = 0; r < NROLES; ++r)
+          gen_tile_stage_store(RN_KI g, r, s, 1, v[r]);
+      }
+#else
       gen_tile_shared(RN_KI x, P, 1, z, ea, (size_t)B, R, p, s);
+#endif
       for (int r = 0; r < NROLES; ++r)
         gen_tile_update(RN_KI r, x, P, 1, z, ea, (size_t)B, R, p, s, v[r]);
       for (int r = 0; r < NROLES; ++r)

@@ -43,17 +43,21 @@ store of a location, its old value is loaded if a later expression still
 reads it; the nominal state is written back after every expression of
 the phase.
 
-Modes "single" (kernel 4) and "mixed" without a camera-frame unit
-(kernel 6) print the tile form instead when the tile fits a block
-(tile_bytes): each phase split over TILE_ROLES role bodies that compute
-their share of p_out (role 0 also x_out) into constant-indexed values,
-and store functions the template calls after a barrier, so no role
-stores an entry another role still reads; each update's shared values
-(Phase.shared: the gated gains, the Joseph factor rows, dx, and the gate
-decision in them) are printed once, into shared scratch (role_split,
-_tile_source). A mixed tile prints that for every unit and dispatchers
-that switch on the step's kind index, then on the role. The other modes,
-and a mixed variant with a camera-frame unit, print the global form.
+Modes "single" (kernel 4), "mixed" (kernel 6) and "frame" (kernel 7)
+print the tile form instead when the tile fits a block (tile_bytes): each
+phase split over W role bodies (TILE_ROLES, or TILE_ROLES_FRAME for a
+variant with a camera-frame unit) that compute their share of p_out (role
+0 also x_out) into constant-indexed values, and store functions the
+template calls after a barrier, so no role stores an entry another role
+still reads; each update's shared values (Phase.shared: the gated gains,
+the Joseph factor rows, dx, and the gate decision in them) are printed
+once, into shared scratch (role_split, _tile_source); a camera frame's
+in stages, most of them split across the roles (stage_plan). Its window
+roll then costs nothing: each role computes its rolled entries from the
+old P and the scratch, and stores them after the barrier. A
+mixed tile prints that for every unit and dispatchers that switch on the
+step's kind index, then on the role. Mode "epoch", and a variant whose
+tile does not fit, print the global form.
 """
 
 from __future__ import annotations
@@ -146,14 +150,19 @@ class Phase:
   """One emitted function: its DAG, the new P entries (upper triangle, by
   location) and the new nominal state. An update's `shared` values (the
   gated gain rows, the Joseph factor rows and dx) are what every entry of
-  p_out and x_out reads from its innovation: mode "single" prints them
-  once per filter, into shared scratch (emit_source)."""
+  p_out and x_out reads from its innovation: the tile form prints them
+  once per filter, into shared scratch (emit_source). A camera frame's
+  `stages` split that work: (kind, groups of values) in order, "serial"
+  computed by one role, "split" across the roles a group at a time (a
+  column), each stage reading the values of earlier stages from the
+  scratch; the last stage's values are `shared`."""
 
   def __init__(self):
     self.dag = ExprDAG()
     self.p_out = {}
     self.x_out = []
     self.shared = []
+    self.stages = None
 
   def P(self, i, j):
     return self.dag.load("P", (min(i, j), max(i, j)))
@@ -323,6 +332,19 @@ def update_phase(spec: FilterSpec, kind: int, structure, pnames,
       ph.p_out[(a, b)] = d.add(ph.P(a, b), d.add(wab, wba))
   ph.shared = ([e for row in kt if row is not None for e in row]
                + [e for row in t_rows for e in row] + list(dxe))
+  # in a variant with a camera frame (stage_plan): one role the taps and
+  # the innovation, every role its columns of HP, one role S, its inverse
+  # and the gate, every role its columns of K^T, the Joseph factor rows
+  # and dx
+  rows = [row for row in kt if row is not None]
+  ph.stages = [
+      ("serial", [[taps[c][r] for c in cols for r in range(dz)] + y]),
+      ("split", [[hp(r, c) for r in range(dz)] for c in range(de)]),
+      ("serial", [[s[r][q] for r in range(dz) for q in range(r, dz)]
+                  + [e for row in siv for e in row]
+                  + ([rej] if gate else [])]),
+      ("split", [[row[c] for row in rows] + [t[c] for t in t_rows]
+                 + [dxe[c]] for c in range(de)])]
 
   dx_arr = structural.obj_array((de,))
   for c in range(de):
@@ -476,6 +498,7 @@ def frame_phase(spec: FilterSpec, kind: int, structure, pnames, gate: bool,
                   add=lambda a, b: _row_add(d, a, b))
         for r in range(dzp)]
   s = [[None] * dzp for _ in range(dzp)]
+  r_terms = []                     # R' = Q^T R Q's upper triangle
   if r_pattern != "iso":
     rset = set(r_pattern)
     Rm = [[d.load("R", (i, j)) if (min(i, j), max(i, j)) in rset else None
@@ -490,8 +513,9 @@ def frame_phase(spec: FilterSpec, kind: int, structure, pnames, gate: bool,
         if r == q:
           acc = d.add(acc, d.load("R", (0, 0)))
       else:
-        acc = d.add(acc, d.mul(0.5, d.add(Rp[me + r][me + q],
-                                          Rp[me + q][me + r])))
+        r_terms.append(d.mul(0.5, d.add(Rp[me + r][me + q],
+                                        Rp[me + q][me + r])))
+        acc = d.add(acc, r_terms[-1])
       s[r][q] = acc
 
   def S(i, j):
@@ -499,11 +523,12 @@ def frame_phase(spec: FilterSpec, kind: int, structure, pnames, gate: bool,
 
   L = _cholesky(d, S, dzp)
   kt = _cho_solve(d, L, HP)                                  # K^T rows
+  rej = []
   if gate:
     sy = _cho_solve(d, L, [[e] for e in yp])
     dist = _lsum(d, [d.mul(yp[i], sy[i][0]) for i in range(dzp)])
-    rej = d.binop("gt", dist, float(om.maha_thresh))
-    kt = [[d.where(rej, None, e) for e in row] for row in kt]
+    rej = [d.binop("gt", dist, float(om.maha_thresh))]
+    kt = [[d.where(rej[0], None, e) for e in row] for row in kt]
   dxe = [_lsum(d, [d.mul(kt[i][c], yp[i]) for i in range(dzp)])
          for c in range(de)]
   t_rows = [[d.sub(d.mul(0.5, _lsum(d, [d.mul(S(i, j), kt[j][c])
@@ -542,6 +567,25 @@ def frame_phase(spec: FilterSpec, kind: int, structure, pnames, gate: bool,
                                 [x, dx_arr] + prm)
   x_new = _normalize(d, list(x_new), spec.quaternion_idxs)
   ph.x_out = x_new[:d1] + x_new[d1 + d3:] + x_new[:d3]
+  # column by column: column c of kt and t_rows and dx[c] need only
+  # column c of HP, so each column is one group of the last stage below
+  ph.shared = [e for c in range(de)
+               for e in ([kt[i][c] for i in range(dzp)]
+                         + [t_rows[i][c] for i in range(dzp)] + [dxe[c]])]
+  # the tile computes the shared values in stages (stage_plan): one role
+  # He's reflectors, the projected innovation (and R' = Q^T R Q); every
+  # role its columns of the projected H, then its columns of HP, then its
+  # entries of S; one role S's Cholesky factor and the gate; every role its
+  # columns of K^T, the Joseph factor rows and dx
+  n = 2 * dzp + 1
+  ph.stages = [
+      ("serial", [[e for _, v, beta in refl for e in v + [beta]] + yp
+                  + r_terms]),
+      ("split", [[Hp[r][j] for r in range(dzp)] for j in range(len(cols))]),
+      ("split", [[HP[r][c] for r in range(dzp)] for c in range(de)]),
+      ("split", [[s[r][q]] for r in range(dzp) for q in range(r, dzp)]),
+      ("serial", [[e for col in L for e in col] + rej]),
+      ("split", [ph.shared[c * n:(c + 1) * n] for c in range(de)])]
   return ph
 
 
@@ -700,10 +744,10 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
   return lines
 
 
-# ------------------------------------ modes "single" and "mixed" as a tile
-# Kernels 4 and 6 keep P, x and the update's shared values of TILE_LANES
+# ---------------------------- modes "single", "mixed" and "frame" as a tile
+# Kernels 4, 6 and 7 keep P, x and the update's shared values of TILE_LANES
 # filters in a block's shared memory for the whole T loop and split each
-# phase over TILE_ROLES roles, one warp each (csrc/generic_scan.cuh,
+# phase over W roles, one warp each (csrc/generic_scan.cuh,
 # REDNOSE_GENERIC_SCAN_TILE): role r computes its share of the phase's new
 # P entries (and role 0 the new x) into constant-indexed values, and after
 # the template's barrier stores them. An update's shared values (the gated
@@ -715,27 +759,90 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
 # block may use keeps the global form.
 
 TILE_ROLES = 2           # W: measured among 1, 2, 4 and 8 (PERF.md)
+TILE_ROLES_FRAME = 8     # W of a variant with a camera-frame unit (PERF.md)
 TILE_LANES = 32          # filters a block holds, one a lane
 TILE_SMEM_MAX = 232_448  # shared memory bytes a block may use on the H100
 _SCALAR_BYTES = {"float": 4, "double": 8}
 
 
-def shared_nodes(ph) -> list:
-  """The update's shared values that need computing (no constant, no
-  plain load), each once, in order: the scratch slots."""
-  seen, out = set(), []
-  for e in ph.shared:
+def _computed(values, seen=None) -> list:
+  """The values that need computing (no constant, no plain load), each
+  once, in order, skipping the ids in seen (which it extends)."""
+  seen = set() if seen is None else seen
+  out = []
+  for e in values:
     if isinstance(e, Expr) and e.op != "load" and e.id not in seen:
       seen.add(e.id)
       out.append(e)
   return out
 
 
-def tile_bytes(spec, upd, scalar) -> int:
+def shared_nodes(ph) -> list:
+  """The update's shared values that need computing (no constant, no
+  plain load), each once, in order: the scratch slots."""
+  return _computed(ph.shared)
+
+
+def _frontier(roots, stop) -> set:
+  """The ids of stop that the roots read, not looking past them."""
+  out, seen = set(), set()
+  stack = [r for r in roots if isinstance(r, Expr)]
+  while stack:
+    e = stack.pop()
+    if e.id in seen:
+      continue
+    seen.add(e.id)
+    if e.id in stop:
+      out.add(e.id)
+    elif e.op != "load":
+      stack.extend(a for a in e.args if isinstance(a, Expr))
+  return out
+
+
+def stage_plan(upd, staged):
+  """(stages, slots, nscr): an update's shared values in the tile, as
+  stages [(kind, groups of values)] in order, "serial" (one role computes
+  and stores them) or "split" (every role computes its share, whole
+  groups, then, after a barrier, stores it), and the scratch slot of each
+  value by id. One serial stage of the shared values, or, in a variant
+  with a camera frame (staged), the unit's own stages (Phase.stages),
+  where a value takes the lowest slot whose value no later stage reads: a
+  serial stage's values after the stage that last reads the slot, a split
+  stage's from that stage on, since its roles store only after all have
+  read."""
+  if not staged or upd.stages is None:
+    cuts = shared_nodes(upd)
+    return [("serial", [cuts])], {e.id: k for k, e in enumerate(cuts)}, \
+        len(cuts)
+  seen = set()
+  stages = [(kind, [grp for grp in (_computed(g, seen) for g in groups)
+                    if grp]) for kind, groups in upd.stages]
+  stages = [st for st in stages if st[1]]     # e.g. HP of an H of ones
+  last, earlier = {}, set()
+  for g, (_, groups) in enumerate(stages):
+    vals = [e for grp in groups for e in grp]
+    for i in _frontier(vals, earlier):
+      last[i] = g
+    earlier |= {e.id for e in vals}
+  for e in shared_nodes(upd):                 # the update's roles read them
+    last[e.id] = len(stages)
+  slots, held = {}, []                        # held[k]: last reader of k
+  for g, (kind, groups) in enumerate(stages):
+    for e in (e for grp in groups for e in grp):
+      k = next((k for k, h in enumerate(held)
+                if h < g or (h == g and kind == "split")), len(held))
+      if k == len(held):
+        held.append(0)
+      held[k] = last.get(e.id, g)
+      slots[e.id] = k
+  return stages, slots, len(held)
+
+
+def tile_bytes(spec, upd, scalar, staged=False) -> int:
   """Shared memory of a block of the tile form: TILE_LANES filters x
-  (P, x, the update's scratch); a mixed variant's is the largest of its
-  units'."""
-  vals = spec.dim_err ** 2 + spec.dim_x + len(shared_nodes(upd))
+  (P, x, the update's scratch, in stages in a variant with a camera
+  frame); a mixed variant's is the largest of its units'."""
+  vals = spec.dim_err ** 2 + spec.dim_x + stage_plan(upd, staged)[2]
   return vals * TILE_LANES * _SCALAR_BYTES[scalar]
 
 
@@ -767,12 +874,18 @@ def role_split(ph, n_roles, stop=frozenset()) -> list:
     if not _unchanged(v, "x", (i,)):
       roles[0].append(("x", i, v))
       work[0] |= _needs(v, stop)
-  for ij, v in sorted(ph.p_out.items()):
-    if _unchanged(v, "P", ij):
-      continue
-    need = _needs(v, stop)
-    r = min(range(n_roles), key=lambda r: len(work[r] | need))
-    roles[r].append(("P", ij, v))
+  return _balance(roles, work, [[("P", ij, v)] for ij, v in
+                                sorted(ph.p_out.items())
+                                if not _unchanged(v, "P", ij)], stop)
+
+
+def _balance(roles, work, groups, stop):
+  """Each group of (array, index, value) outputs, whole, to the role whose
+  work ends least with it (role_split)."""
+  for grp in groups:
+    need = set().union(*(_needs(v, stop) for _, _, v in grp))
+    r = min(range(len(roles)), key=lambda r: len(work[r] | need))
+    roles[r].extend(grp)
     work[r] |= need
   return roles
 
@@ -782,16 +895,18 @@ def _args(params):
   return [p.split()[-1].lstrip("*") for p in params]
 
 
-def _function(name, params, lines):
-  return ([f"GEN_HD GEN_INLINE void {name}({', '.join(params)}) {{",
+def _function(name, params, lines, inline="GEN_INLINE"):
+  return ([f"GEN_HD {inline} void {name}({', '.join(params)}) {{",
            "  " + " ".join(f"(void){n};" for n in _args(params))]
           + lines + ["}"])
 
 
-def _role_functions(name, params, roles, dz, slots):
+def _role_functions(name, params, roles, dz, slots,
+                    stored=("scalar_t* x", "scalar_t* P", "size_t ld",
+                            "const scalar_t* v")):
   """Role r's compute function name_r{r} (its values into v) and store
   function name_r{r}_store (v into P and x, each P entry at (i, j) and
-  (j, i))."""
+  (j, i); a stage's values, array "s", into their scratch slots)."""
   out = []
   for r, outs in enumerate(roles):
     pr = _Printer(dz, True, slots)
@@ -805,15 +920,78 @@ def _role_functions(name, params, roles, dz, slots):
     for k, (arr, idx, _) in enumerate(outs):
       if arr == "x":
         store.append(f"  GEN_X({idx}) = v[{k}];")
+      elif arr == "s":
+        store.append(f"  GEN_S({idx}) = v[{k}];")
       else:
         i, j = idx
         store.append(f"  GEN_P({i}, {j}) = v[{k}];")
         if i != j:
           store.append(f"  GEN_P({j}, {i}) = v[{k}];")
-    out += ["", *_function(
-        f"{name}_r{r}_store",
-        ["scalar_t* x", "scalar_t* P", "size_t ld", "const scalar_t* v"],
-        store)]
+    out += ["", *_function(f"{name}_r{r}_store", list(stored), store)]
+  return out
+
+
+def _split_stages(stages, slots, n_roles):
+  """Each stage (stage_plan) with its roles: (kind, values, roles), roles
+  None for a serial stage, else the split of its groups, each role's up to
+  the values of earlier stages (which it reads from the scratch)."""
+  out, earlier = [], set()
+  for kind, groups in stages:
+    vals = [e for grp in groups for e in grp]
+    roles = None if kind == "serial" else _balance(
+        [[] for _ in range(n_roles)], [set() for _ in range(n_roles)],
+        [[("s", slots[e.id], e) for e in grp] for grp in groups],
+        frozenset(earlier))
+    out.append((kind, vals, roles))
+    earlier |= {e.id for e in vals}
+  return out
+
+
+def _stage_functions(name, p_in, stages, slots, n_roles, dz, frame):
+  """A unit's shared values in stages (_split_stages): a serial stage g's
+  function name_s{g} (one role, each value stored into its slot as soon
+  as it is computed; GEN_PHASE for a camera frame), a split stage's role
+  functions name_s{g}_r{r} and their stores; then name_stage(g, r, ...)
+  and name_stage_store(g, r, s, ld, v), the switches over the stages and
+  roles, and the stage count name_NSTAGES."""
+  out, cases, store_cases, earlier = [], [], [], {}
+  args = ", ".join(_args(p_in))
+  for g, (kind, vals, roles) in enumerate(stages):
+    fn = f"{name}_s{g}"
+    if kind == "serial":
+      pr = _Printer(dz, True, earlier)
+      for e in vals:
+        pr.emit(e)
+        pr.lines.append(f"  GEN_S({slots[e.id]}) = {pr.ref(e)};")
+      out += ["", *_function(fn, p_in + ["scalar_t* s"], pr.lines,
+                             "GEN_PHASE" if frame else "GEN_INLINE")]
+      cases.append(f"if (r == 0) {fn}({args}, s);")
+      store_cases.append("")
+    else:
+      out += _role_functions(fn, p_in + ["const scalar_t* s"], roles, dz,
+                             earlier, ("scalar_t* s", "size_t ld",
+                                       "const scalar_t* v"))
+      out += _dispatch(f"{fn}_roles", p_in + ["const scalar_t* s",
+                                              "scalar_t* v"],
+                       lambda r, fn=fn: f"{fn}_r{r}", n_roles)
+      out += _dispatch(f"{fn}_stores", ["scalar_t* s", "size_t ld",
+                                        "const scalar_t* v"],
+                       lambda r, fn=fn: f"{fn}_r{r}_store", n_roles)
+      cases.append(f"{fn}_roles(r, {args}, s, v);")
+      store_cases.append(f"{fn}_stores(r, s, ld, v);")
+    earlier |= {e.id: slots[e.id] for e in vals}
+  for fname, params, body in (
+      ("stage", p_in + ["scalar_t* s", "scalar_t* v"], cases),
+      ("stage_store", ["scalar_t* s", "size_t ld", "const scalar_t* v"],
+       store_cases)):
+    lines = ["  switch (g) {"]
+    lines += [f"    case {g}: {c} break;" if c else f"    case {g}: break;"
+              for g, c in enumerate(body)]
+    lines += ["    default: break;", "  }"]
+    out += ["", f"GEN_HD GEN_INLINE void {name}_{fname}(int g, int r, "
+            f"{', '.join(params)}) {{", "  (void)r; " + " ".join(
+                f"(void){n};" for n in _args(params)), *lines, "}"]
+  out.append(f"constexpr int {name}_NSTAGES = {len(stages)};")
   return out
 
 
@@ -837,34 +1015,42 @@ def _kind_dispatch(name, params, cases):
           *lines, "}"]
 
 
-def _tile_source(body, pred, units, mixed=False) -> list:
+def _tile_source(body, pred, units, n_roles, mixed=False,
+                 smem=None) -> list:
   """The lines after the header of a variant in tile form: the role
   functions of the predict and of each update unit, each unit's shared
-  function and the dispatchers the template's tile loop calls. units: (C
-  name, update Phase, dz, R offset) of each unit in order (a unit repeated
-  under another R prints once); mode 'single' has one, whose shared
-  function is gen_tile_shared itself. A mixed variant's update dispatchers
+  values and the dispatchers the template's tile loop calls, over n_roles
+  roles. units: (C name, update Phase, dz, R offset, camera frame) of each
+  unit in order (a unit repeated under the same R prints once); mode
+  'single' and mode 'frame' have one. Without a camera frame each unit's
+  shared values are one function that one role runs (mode 'single': it is
+  gen_tile_shared itself); with one, every unit's are stages
+  (stage_plan, _stage_functions). A mixed variant's update dispatchers
   switch on the step's kind index, then on the role, and pass unit u its
-  R (R + its offset), as the global form's gen_step does."""
+  R (R + its offset), as the global form's gen_step does. smem, when
+  given: the block's shared memory bytes, named in the design line."""
+  staged = any(u[4] for u in units)
   funcs = {}
-  for name, upd, dz, _ in units:
+  for name, upd, dz, _, frame in units:
     if name not in funcs:
-      cuts = shared_nodes(upd)
-      slots = {e.id: k for k, e in enumerate(cuts)}
-      funcs[name] = (upd, dz, cuts, slots,
-                     role_split(upd, TILE_ROLES, frozenset(slots)))
-  pred_roles = role_split(pred, TILE_ROLES)
-  nscr = max(len(f[2]) for f in funcs.values())
+      stages, slots, nscr = stage_plan(upd, staged)
+      funcs[name] = (dz, _split_stages(stages, slots, n_roles), slots, nscr,
+                     role_split(upd, n_roles, frozenset(slots)), frame)
+  pred_roles = role_split(pred, n_roles)
+  nscr = max(f[3] for f in funcs.values())
   nval = max([len(o) for o in pred_roles]
-             + [len(o) for f in funcs.values() for o in f[4]] + [1])
+             + [len(o) for f in funcs.values() for o in f[4]]
+             + [len(o) for f in funcs.values() for st in f[1] if st[2]
+                for o in st[2]] + [1])
   switched = (f", {len(units)} units switched on the step's kind"
               if mixed else "")
-  out = [f"// design: tile, {TILE_ROLES} roles{switched}: a block of "
-         f"{TILE_LANES} filters x {TILE_ROLES} warps keeps P, x and {nscr} "
-         "scratch values a filter in shared memory"] + body + [
+  size = f" ({smem:,} B a block)" if smem is not None else ""
+  out = [f"// design: tile, {n_roles} roles{switched}: a block of "
+         f"{TILE_LANES} filters x {n_roles} warps keeps P, x and {nscr} "
+         f"scratch values a filter in shared memory{size}"] + body + [
       "#define GEN_X(i) x[(size_t)(i) * ld]",
       "#define GEN_S(k) s[(size_t)(k) * ld]",
-      f"constexpr int NROLES = {TILE_ROLES};",
+      f"constexpr int NROLES = {n_roles};",
       f"constexpr int NSCR = {nscr};",
       f"constexpr int NVAL = {nval};",
   ]
@@ -875,50 +1061,85 @@ def _tile_source(body, pred, units, mixed=False) -> list:
           "const scalar_t* R", "const scalar_t* p"]
   p_upd = p_in + ["const scalar_t* s"]
   p_store = ["scalar_t* x", "scalar_t* P", "size_t ld", "const scalar_t* v"]
+  p_stage = p_in + ["scalar_t* s", "scalar_t* v"]
+  p_stage_store = ["scalar_t* s", "size_t ld", "const scalar_t* v"]
   out += _role_functions("gen_predict", p_pred, pred_roles, 0, {})
-  for name, (upd, dz, cuts, slots, roles) in funcs.items():
-    pr = _Printer(dz, True)
-    for e in cuts:
-      pr.emit(e)
-    pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
-    out += ["", f"// {name}: the shared values, once a filter",
-            *_function(f"{name}_shared" if mixed else "gen_tile_shared",
-                       p_in + ["scalar_t* s"], pr.lines)]
+  for name, (dz, stages, slots, _, roles, frame) in funcs.items():
+    if staged:
+      out += ["", f"// {name}: the shared values, once a filter, in stages",
+              *_stage_functions(name, p_in, stages, slots, n_roles, dz,
+                                frame)]
+    else:
+      cuts = stages[0][1]                     # its one serial stage
+      pr = _Printer(dz, True)
+      for e in cuts:
+        pr.emit(e)
+      pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
+      out += ["", f"// {name}: the shared values, once a filter",
+              *_function(f"{name}_shared" if mixed else "gen_tile_shared",
+                         p_in + ["scalar_t* s"], pr.lines)]
     out += _role_functions(name, p_upd, roles, dz, slots)
     if mixed:
       out += _dispatch(f"{name}_update", p_upd + ["scalar_t* v"],
-                       lambda r, n=name: f"{n}_r{r}", TILE_ROLES)
+                       lambda r, n=name: f"{n}_r{r}", n_roles)
       out += _dispatch(f"{name}_update_store", p_store,
-                       lambda r, n=name: f"{n}_r{r}_store", TILE_ROLES)
+                       lambda r, n=name: f"{n}_r{r}_store", n_roles)
   out += _dispatch("gen_tile_predict", p_pred + ["scalar_t* v"],
-                   lambda r: f"gen_predict_r{r}", TILE_ROLES)
+                   lambda r: f"gen_predict_r{r}", n_roles)
   out += _dispatch("gen_tile_predict_store", p_store,
-                   lambda r: f"gen_predict_r{r}_store", TILE_ROLES)
-  if mixed:
-    def call(fn, params, u, role=False):
-      a = [f"R + {units[u][3]}" if v == "R" else v for v in _args(params)]
-      return f"{fn}({'r, ' if role else ''}{', '.join(a)});"
+                   lambda r: f"gen_predict_r{r}_store", n_roles)
 
-    p_sh = p_in + ["scalar_t* s"]
-    out += _kind_dispatch("gen_tile_shared", p_sh, [
-        call(f"{n}_shared", p_sh, u) for u, (n, _, _, _) in enumerate(units)])
+  def call(fn, params, u, lead=""):
+    a = [f"R + {units[u][3]}" if v == "R" else v for v in _args(params)]
+    return f"{fn}({lead}{', '.join(a)});"
+
+  if mixed:
+    if staged:
+      out += ["", "GEN_HD GEN_INLINE int gen_tile_nstages(int ki) {",
+              "  switch (ki) {",
+              *[f"    case {u}: return {n[0]}_NSTAGES;"
+                for u, n in enumerate(units)],
+              "    default: return 0;", "  }", "}"]
+      out += _kind_dispatch("gen_tile_stage", ["int g", "int r"] + p_stage,
+                            [call(f"{n[0]}_stage", p_stage, u, "g, r, ")
+                             for u, n in enumerate(units)])
+      out += _kind_dispatch("gen_tile_stage_store", ["int g", "int r"]
+                            + p_stage_store, [
+          f"{n[0]}_stage_store(g, r, {', '.join(_args(p_stage_store))});"
+          for n in units])
+    else:
+      p_sh = p_in + ["scalar_t* s"]
+      out += _kind_dispatch("gen_tile_shared", p_sh, [
+          call(f"{u[0]}_shared", p_sh, i) for i, u in enumerate(units)])
     out += _kind_dispatch("gen_tile_update", ["int r"] + p_upd
                           + ["scalar_t* v"], [
-        call(f"{n}_update", p_upd + ["scalar_t* v"], u, True)
-        for u, (n, _, _, _) in enumerate(units)])
+        call(f"{u[0]}_update", p_upd + ["scalar_t* v"], i, "r, ")
+        for i, u in enumerate(units)])
     out += _kind_dispatch("gen_tile_update_store", ["int r"] + p_store, [
-        f"{n}_update_store(r, {', '.join(_args(p_store))});"
-        for n, _, _, _ in units])
+        f"{u[0]}_update_store(r, {', '.join(_args(p_store))});"
+        for u in units])
   else:
     name = units[0][0]
+    if staged:
+      out += ["", "GEN_HD GEN_INLINE int gen_tile_nstages() { return "
+              f"{name}_NSTAGES; }}",
+              "", "GEN_HD GEN_INLINE void gen_tile_stage(int g, int r, "
+              f"{', '.join(p_stage)}) {{",
+              f"  {call(f'{name}_stage', p_stage, 0, 'g, r, ')}", "}",
+              "", "GEN_HD GEN_INLINE void gen_tile_stage_store(int g, int r, "
+              f"{', '.join(p_stage_store)}) {{",
+              f"  {name}_stage_store(g, r, "
+              f"{', '.join(_args(p_stage_store))});", "}"]
     out += _dispatch("gen_tile_update", p_upd + ["scalar_t* v"],
-                     lambda r: f"{name}_r{r}", TILE_ROLES)
+                     lambda r: f"{name}_r{r}", n_roles)
     out += _dispatch("gen_tile_update_store", p_store,
-                     lambda r: f"{name}_r{r}_store", TILE_ROLES)
+                     lambda r: f"{name}_r{r}_store", n_roles)
   out += ["", "}  // namespace rn_gen", "",
           "#define REDNOSE_GENERIC_SCAN_TILE"]
   if mixed:
     out.append("#define REDNOSE_GENERIC_SCAN_TILE_KINDS")
+  if staged:
+    out.append("#define REDNOSE_GENERIC_SCAN_TILE_STAGES")
   out += ["#define REDNOSE_GENERIC_SCAN_LOOPS",
           '#include "generic_scan.cuh"', ""]
   return out
@@ -939,14 +1160,15 @@ def _r_text(r_pattern):
 
 def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                 ps_keys=(), q_pattern=(), scalar="float",
-                r_patterns=None) -> str:
+                r_patterns=None, tile=True) -> str:
   """C++ source of one kernel variant.
 
-  mode 'single' (kernel 4: one unit; the tile form where it fits), 'mixed'
-  (kernel 6: a switch over the units by the streamed kind index; the tile
-  form where it fits and no unit is a camera frame), 'epoch' (kernel 5:
-  every unit in order, one slot each) or 'frame' (kernel 7: the MSCKF
-  camera frame of one feature kind). units: tuple of (kind, gate) pairs.
+  mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over
+  the units by the streamed kind index), 'epoch' (kernel 5: every unit in
+  order, one slot each, always the global form) or 'frame' (kernel 7: the
+  MSCKF camera frame of one feature kind); all but 'epoch' print the tile
+  form where it fits (tile_bytes), over TILE_ROLES_FRAME roles when a unit
+  is a camera frame, else TILE_ROLES. units: tuple of (kind, gate) pairs.
   A unit of an MSCKF feature kind is a camera frame (frame_phase: the
   projected update and the window augment); mode 'frame' is one such
   unit, and mode 'mixed' may hold them among its other units (kernel 6's
@@ -955,7 +1177,9 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   ones. q_pattern: the (i, j), i <= j, entries of Q that are nonzero.
   scalar: the C type of every value, 'float' or 'double'. r_patterns:
   aligned with units, for a feature unit "iso" (R = s^2 I) or R's nonzero
-  (i, j), i <= j, and None for any other unit; None for no feature unit."""
+  (i, j), i <= j, and None for any other unit; None for no feature unit.
+  tile: False prints the global form of a variant that would tile, with
+  no design line (the whole phases, one function each)."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
   r_patterns = (tuple(r_patterns) if r_patterns is not None
@@ -1023,20 +1247,31 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       "#define GEN_P(i, j) P[(size_t)((i) * DE + (j)) * ld]",
       "",
   ]
+  # one function per distinct (kind, gate, R pattern); a second R pattern
+  # of the same feature kind and gate gets a suffix
+  names, done = [], {}
+  for (k, g), f, rp in zip(units, feature, r_patterns):
+    if (k, g, rp) not in done:
+      n = sum(1 for kk, gg, _ in done if (kk, gg) == (k, g))
+      done[(k, g, rp)] = _unit_name(k, g, f) + (f"_r{n}" if n else "")
+    names.append(done[(k, g, rp)])
   pred, phases = None, {}
-  if mode == "single" or (mode == "mixed" and not has_frame):
+  if tile and mode != "epoch":
     # the tile form when 32 filters' P, x and the largest unit's scratch
     # fit a block
     pred = predict_phase(spec, structure, pnames, q_pattern)
-    for k, g in units:
-      if (k, g) not in phases:
-        phases[(k, g)] = update_phase(spec, k, structure, pnames, g)
-    nbytes = max(tile_bytes(spec, ph, scalar) for ph in phases.values())
+    for (k, g), f, rp, name in zip(units, feature, r_patterns, names):
+      if name not in phases:
+        phases[name] = (frame_phase(spec, k, structure, pnames, g, rp) if f
+                        else update_phase(spec, k, structure, pnames, g))
+    nbytes = max(tile_bytes(spec, ph, scalar, has_frame)
+                 for ph in phases.values())
     if nbytes <= TILE_SMEM_MAX:
       return "\n".join(head + _tile_source(
-          body, pred, [(_unit_name(k, g), phases[(k, g)], spec.obs[k].dz, o)
-                       for (k, g), o in zip(units, r_off)],
-          mixed=mode == "mixed"))
+          body, pred, [(n, phases[n], spec.obs[k].dz, o, f) for n, (k, _), o, f
+                       in zip(names, units, r_off, feature)],
+          TILE_ROLES_FRAME if has_frame else TILE_ROLES,
+          mixed=mode == "mixed", smem=nbytes if has_frame else None))
     head.append(
         f"// design: global: the tile of {TILE_LANES} filters ({nbytes:,} B "
         f"in {scalar}) exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
@@ -1049,17 +1284,11 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   out += print_phase(pred if pred is not None
                      else predict_phase(spec, structure, pnames, q_pattern))
   out.append("}")
-  # one function per distinct (kind, gate, R pattern); a second R pattern
-  # of the same feature kind and gate gets a suffix
-  names, done = [], {}
-  for (k, g), f, rp in zip(units, feature, r_patterns):
-    if (k, g, rp) in done:
-      names.append(done[(k, g, rp)])
+  printed = set()
+  for (k, g), f, rp, name in zip(units, feature, r_patterns, names):
+    if name in printed:
       continue
-    n = sum(1 for kk, gg, _ in done if (kk, gg) == (k, g))
-    name = _unit_name(k, g, f) + (f"_r{n}" if n else "")
-    done[(k, g, rp)] = name
-    names.append(name)
+    printed.add(name)
     out += [
         "",
         f"GEN_HD {'GEN_PHASE' if f else 'GEN_INLINE'} void {name}("
@@ -1068,7 +1297,7 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
         "const scalar_t* p) {",
         "  (void)ea; (void)p; (void)R;",
     ]
-    ph = (phases[(k, g)] if (k, g) in phases
+    ph = (phases[name] if name in phases
           else frame_phase(spec, k, structure, pnames, g, rp) if f
           else update_phase(spec, k, structure, pnames, g))
     out += print_phase(ph, spec.obs[k].dz)

@@ -82,16 +82,16 @@ def r_pattern_of(R) -> object:
 
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
-            r_patterns=None, scalar="float"):
-  """The variant's source. A variant of the global form only (modes
-  'epoch' and 'frame', and 'mixed' with a camera-frame unit) differs
-  between float and double only in its REDNOSE_SCALAR line, so it is
-  emitted once, for float; a 'single' or other 'mixed' variant is emitted
-  per scalar type, since whether its tile fits in a block depends on it."""
+            r_patterns=None, scalar="float", tile=True):
+  """The variant's source. A variant printed in the global form only (mode
+  'epoch', or tile=False) differs between float and double only in its
+  REDNOSE_SCALAR line, so it is emitted once, for float; any other is
+  emitted per scalar type, since whether its tile fits in a block depends
+  on it."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
-      pnames, ps_keys, q_pattern, scalar, r_patterns)
+      pnames, ps_keys, q_pattern, scalar, r_patterns, tile)
 
 
 class KernelCall:
@@ -155,37 +155,28 @@ class KernelCall:
     return tuple((k, bool(self.gate) and spec.obs[k].maha_test)
                  for k in self.kinds)
 
-  def source(self, dtype=torch.float32) -> str:
-    """The emitted CUDA source of this variant for a bank of dtype;
-    _build.build_generated_many compiles several at once."""
+  def source(self, dtype=torch.float32, tile=True) -> str:
+    """The emitted CUDA source of this variant for a bank of dtype: the
+    tile form where it fits (not for mode 'epoch'), else the global form;
+    tile=False asks for the global form. _build.build_generated_many
+    compiles several at once."""
     if dtype not in _SCALARS:
       raise ValueError(f"the generic kernels take float32 or float64, not "
                        f"{dtype}")
     args = (self.spec, self.mode, self._units(), self.structure,
             self._pnames, self.ps_keys, self._q_pattern, self._r_patterns)
-    if self._may_tile():
+    if tile and self.mode != "epoch":
       return _source(*args, scalar=_SCALARS[dtype])
-    return _source(*args).replace("#define REDNOSE_SCALAR float",
-                                  f"#define REDNOSE_SCALAR {_SCALARS[dtype]}",
-                                  1)
-
-  def _may_tile(self) -> bool:
-    """Whether the emitter prints this variant as a tile when it fits: mode
-    'single', and mode 'mixed' without a camera-frame unit."""
-    return self.mode == "single" or (self.mode == "mixed"
-                                     and self._r_patterns is None)
+    return _source(*args, tile=False).replace(
+        "#define REDNOSE_SCALAR float",
+        f"#define REDNOSE_SCALAR {_SCALARS[dtype]}", 1)
 
   def counting_source(self) -> str:
     """The variant's phases printed whole, one function each (gen_predict,
     then the update or frame functions), for counting the operations of a
-    step: the tile form splits them into role functions that recompute
-    shared subexpressions, so a 'single' or 'mixed' call that may tile is
-    printed as the epoch form of its units, the same predict and update
-    functions."""
-    if not self._may_tile():
-      return self.source()
-    return _source(self.spec, "epoch", self._units(), self.structure,
-                   self._pnames, self.ps_keys, self._q_pattern)
+    step: the global form, since the tile form splits them into role
+    functions that recompute shared subexpressions."""
+    return self.source(tile=False)
 
   def values(self, dtype, device):
     """The run-time inputs on the device: the params vector (in the

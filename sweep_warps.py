@@ -1,34 +1,41 @@
 #!/usr/bin/env python3
-"""Measure kernels 2, 3, 4 and 6 at W = 1, 2, 4 and 8 warps a block on one
-card.
+"""Measure kernels 2, 3, 4 and 6 at W = 1, 2, 4 and 8 warps a block, and
+kernels 7 and 6 with camera frames at W = 4, 8 and 16, on one card.
 
-    python3 sweep_warps.py [--parent DIR]   # from the repository root
+    python3 sweep_warps.py [--parent DIR] [--frames-only]   # repo root
 
 W is a constant of each source: `POS_WARPS` and `WARPS` in
 csrc/live_mixed.cuh (kernels 2 and 3, LiveKalmanBank.run and run_mixed;
-each build sets both) and `TILE_ROLES` in
-ops/entry_slab.py (kernel 4, mode "single", and kernel 6, mode "mixed"
-without a camera-frame unit). This script builds each kernel at each W,
-all nvcc processes at once: kernels 2 and 3 from a copy of csrc/ with the
-constant replaced, kernels 4 and 6 by emitting the live spec's ECEF_POS
-variant (gate on) and its 4-kind mixed variant with the emitter's constant
-set. It also builds the global form of the same kernel-4 and kernel-6
-variants (one thread a filter, P in global memory: the design before the
-tile) and, given --parent (a checkout of an earlier commit of this
-repository), that commit's csrc/live_scan.cu, so the earlier kernels 2 and
-3 run in the same call; the same --parent also times kernels 4, 5, 7 and 6
-with camera frames built with that commit's csrc/generic_scan.cuh and
-with this one's, in turns (template_ab). Inputs are chip_smoke.py's:
-kernels 3 and 6 from the live bank after run_mixed over T = 1024 steps of
-the 4-kind schedule (B = 8192; kernel 3 with the gate on and the
-camera-rotation kind streaming its R), kernels 2 and 4 from the bank after
-the ECEF_POS run (gate on). For each build it prints the time (CUDA
-events, mean of 5 launches after a warm-up) at T = 64 and T = 1, the
-largest difference from the plain version in standard deviations
-(utils/compare.py), ptxas (registers, stack, spill bytes), the runtime's
-blocks per SM and, for kernels 4 and 6, the emitted lines and nvcc
-seconds, and writes them all to build/sweep_warps/sweep_warps.json. Needs
-a CUDA card; imports nothing of JAX.
+each build sets both), `TILE_ROLES` in ops/entry_slab.py (kernel 4, mode
+"single", and kernel 6, mode "mixed" without a camera-frame unit) and
+`TILE_ROLES_FRAME` (kernel 7, mode "frame", and kernel 6 with a
+camera-frame unit). This script builds each kernel at each W, all nvcc
+processes at once: kernels 2 and 3 from a copy of csrc/ with the constant
+replaced, kernels 4 and 6 by emitting the live spec's ECEF_POS variant
+(gate on) and its 4-kind mixed variant with the emitter's constant set,
+kernels 7 and 6 with frames by emitting both MSCKF models' frame and VIO
+variants likewise. It also builds the global form of each emitted
+variant (one thread a filter, P in global memory: the design before the
+tile), and of the camera-frame tiles at the shipped W two timing aids
+whose numbers are garbage: the tile without its innovation stages, and
+without its serial ones. Given --parent (a checkout of an earlier commit
+of this repository) it builds that commit's csrc/live_scan.cu, so the
+earlier kernels 2 and 3 run in the same call, and times kernels 4 and 5
+built with that commit's csrc/generic_scan.cuh and with this one's, in
+turns (template_ab). --frames-only skips kernels 2, 3, 4 and 6 on the
+live spec. Inputs are chip_smoke.py's: kernels 3 and 6 from the live bank
+after run_mixed over T = 1024 steps of the 4-kind schedule (B = 8192;
+kernel 3 with the gate on and the camera-rotation kind streaming its R),
+kernels 2 and 4 from the bank after the ECEF_POS run (gate on), kernels 7
+and 6 with frames from a fresh bank of B = 4096 on consistent frames
+(kernel 7 T = 16, kernel 6 the VIO schedule at T = 64). For each build it
+prints the time (CUDA events, mean of 5 launches after a warm-up) at that
+T and at T = 1, the largest difference from the plain version in
+standard deviations (utils/compare.py), ptxas (registers, stack, spill
+bytes), the runtime's blocks per SM and, for the emitted kernels, the
+emitted lines and nvcc seconds, and writes them all to
+build/sweep_warps/sweep_warps.json. Needs a CUDA card; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import chip_smoke as cs
 ROOT = pathlib.Path(__file__).resolve().parent
 SWEEP_DIR = ROOT / "build" / "sweep_warps"
 WS = (1, 2, 4, 8)
+FRAME_WS = (4, 8, 16)
 REPS = 5
 
 
@@ -119,22 +127,134 @@ def k3_info(lib, entry):
   return cs.hand_kernel_info(lib, entry)
 
 
-def k4_source(call_fn, roles=None, global_form=False):
-  """The source of a kernel-4 or kernel-6 call emitted with the emitter's
-  constants set."""
+def k4_source(call_fn, roles=None, global_form=False, **consts):
+  """The source of a kernel-4, 6 or 7 call emitted with the emitter's
+  constants set: roles into TILE_ROLES, consts (e.g. TILE_ROLES_FRAME) by
+  name, no shared memory for a tile with global_form."""
   from rednose_tpu_torch.ops import entry_slab, generic_scan as gs
 
-  saved = entry_slab.TILE_ROLES, entry_slab.TILE_SMEM_MAX
+  if roles is not None:
+    consts["TILE_ROLES"] = roles
+  if global_form:
+    consts["TILE_SMEM_MAX"] = 0
+  saved = {k: getattr(entry_slab, k) for k in consts}
   try:
-    if roles is not None:
-      entry_slab.TILE_ROLES = roles
-    if global_form:
-      entry_slab.TILE_SMEM_MAX = 0
+    for k, v in consts.items():
+      setattr(entry_slab, k, v)
     gs._source.cache_clear()
     return call_fn().source()
   finally:
-    entry_slab.TILE_ROLES, entry_slab.TILE_SMEM_MAX = saved
+    for k, v in saved.items():
+      setattr(entry_slab, k, v)
     gs._source.cache_clear()
+
+
+def without_stages(src, serial_only=False):
+  """A frame tile source that skips its camera frame's innovation stages
+  (serial_only: only the serial ones, whose GEN_PHASE functions then
+  return at once): the time of the rest of the step (its numbers are
+  garbage)."""
+  if serial_only:
+    out, n = re.subn(r"(GEN_HD GEN_PHASE void \w+\(.*scalar_t\* s\) \{\n)",
+                     r"\g<1>  return;\n", src)
+  else:
+    out, n = re.subn(r"(constexpr int gen_frame_\w+_NSTAGES = )\d+;",
+                     r"\g<1>0;", src)
+  if not n or out == src:
+    raise ValueError("no camera-frame stages in the source")
+  return out
+
+
+def frame_cases(torch, dev, gen):
+  """Kernel 7 (T = MSCKF_CMP_T) and kernel 6 with camera frames (the VIO
+  schedule, T = CMP_T) for both MSCKF models, on chip_smoke.py's
+  consistent frames from a fresh bank (P = P0 I): name -> (call, launch
+  args, launch keywords, the model's spec)."""
+  f32 = dict(dtype=torch.float32, device=dev)
+  cases = {}
+  for model in cs.msckf_models():
+    spec, _, _, R = cs.msckf_setup(model)
+
+    def bank(xs, spec=spec):
+      return (torch.as_tensor(xs.T, **f32).contiguous(),
+              (cs.MSCKF_P0 * torch.eye(spec.dim_err, **f32))[
+                  :, :, None].repeat(1, 1, cs.MSCKF_B))
+
+    T = cs.MSCKF_CMP_T
+    xs = cs.msckf_bank_x0(model, cs.SEED + 3)
+    zs, eas, _ = cs.msckf_frames(torch, dev, gen, model, xs, T, R)
+    cases[f"kernel 7, {model.name}"] = (
+        cs.msckf_call(model),
+        (*bank(xs), zs.transpose(1, 2).to(**f32).contiguous(),
+         torch.full((T,), cs.MSCKF_DT, **f32)),
+        dict(eas=eas.transpose(1, 2).to(**f32).contiguous()), spec)
+    T = cs.CMP_T
+    ki = cs.vio_kind_idx(T)
+    xs = cs.msckf_bank_x0(model, cs.SEED + 5)
+    zs, eas, _ = cs.msckf_frames(torch, dev, gen, model, xs, T, R,
+                                 frames=ki.astype(bool))
+    cases[f"kernel 6 with frames, {model.name}"] = (
+        cs.vio_call(model),
+        (*bank(xs), zs.transpose(1, 2).to(**f32).contiguous(),
+         torch.full((T,), cs.MSCKF_DT, **f32)),
+        dict(eas=eas.transpose(1, 2).to(**f32).contiguous(),
+             kind_idx=torch.as_tensor(ki, dtype=torch.int32, device=dev)),
+        spec)
+  return cases
+
+
+def frame_sources(cases):
+  """Each frame case's source at W = FRAME_WS, its global form and, at the
+  shipped W, the tile without its innovation stages or without its serial
+  ones."""
+  from rednose_tpu_torch.ops import entry_slab
+
+  w0 = entry_slab.TILE_ROLES_FRAME
+  out = {}
+  for name, (call, _, _, _) in cases.items():
+    srcs = {f"W={w}": k4_source(lambda c=call: c, TILE_ROLES_FRAME=w)
+            for w in FRAME_WS}
+    srcs["global"] = call.source(tile=False)
+    srcs[f"W={w0}, no innovation stages"] = without_stages(call.source())
+    srcs[f"W={w0}, no serial stages"] = without_stages(call.source(), True)
+    out[name] = srcs
+  return out
+
+
+def frame_sweep(torch, cases, sources):
+  """Time each frame build at the case's T and at T = 1 (raw launches),
+  its largest difference from the plain version in sigmas, ptxas and the
+  runtime's launch shape."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  results = {}
+  for name, (call, args, kw, spec) in cases.items():
+    x, P, zs, dts = args
+    T = dts.shape[0]
+    plain = gs._plain(call, x, P, zs, dts, kw["eas"], None,
+                      kw.get("kind_idx"))
+    results[name] = {}
+    for build, src in sources[name].items():
+      def launch(n, src=src):
+        return cs.generic_launch(src, call, x, P, zs[:n], dts[:n],
+                                 **{k: v[:n] for k, v in kw.items()})
+
+      out = launch(T)()
+      ms, _ = cs.timed_run(launch(T), REPS)
+      ms1, _ = cs.timed_run(launch(1), 20)
+      err = float(cs.lane_errs(out, plain, spec).max())
+      report = _build.generated_ptxas(src)
+      ptx = kernel_ptxas(report, "rn_generic")
+      nvcc = [ln for ln in report.splitlines() if "nvcc wall" in ln]
+      info = _build.generated_info(src)
+      results[name][build] = dict(T=T, ms=ms, ms_T1=ms1, sigma_err=err,
+                                  ptxas=ptx, lines=len(src.splitlines()),
+                                  nvcc=nvcc, info=info)
+      cs.log(f"{name} {build}: T={T} {ms:.4f} ms, T=1 {ms1:.4f} ms, "
+             f"{err:.4g} sigma from plain; {len(src.splitlines())} lines; "
+             f"ptxas {ptx}; runtime {info}; {nvcc}")
+  return results
 
 
 def build_with_template(name, source, template):
@@ -159,20 +279,19 @@ def build_with_template(name, source, template):
   return fn
 
 
-def template_ab(torch, dev, gen, states, parent_template):
-  """Kernels 4, 5, 7 and 6 with camera frames as chip_smoke.py compares
-  them (the live spec's ECEF_POS tile, gate on; loc epochs in double;
-  msckf_eskf frames; msckf_eskf's VIO schedule), each emitted source built
-  with this tree's template and with the parent's, timed in turns
-  (parent, this, this, parent; raw launches, mean of REPS after a
-  warm-up). Their emitted text is the same in both trees."""
+def template_ab(torch, dev, gen, parent_template):
+  """Kernels 4 and 5 as chip_smoke.py compares them (the live spec's
+  ECEF_POS tile, gate on, from the live x0 and P0; loc epochs in double),
+  each emitted source built with this tree's template and with the
+  parent's, timed in turns (parent, this, this, parent; raw launches, mean
+  of REPS after a warm-up). Their emitted text is the same in both
+  trees."""
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
   from rednose_tpu_torch.ops import generic_scan as gs, sparsity
 
   live_spec = cs.generic_models()[3]
   LocKalman = cs.generic_models()[1]
-  ESKF = cs.msckf_models()[1]
   f32 = dict(dtype=torch.float32, device=dev)
   f64 = dict(dtype=torch.float64, device=dev)
   cases = {}
@@ -180,7 +299,10 @@ def template_ab(torch, dev, gen, states, parent_template):
       live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
       R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
       structure=sparsity.structure_for(live_spec, LiveKalman.initial_x))
-  x, P = states["live_bank_scan"][:2]
+  x = torch.as_tensor(LiveKalman.initial_x, **f32)[:, None].repeat(
+      1, cs.LIVE_B)
+  P = torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f32)[
+      :, :, None].repeat(1, 1, cs.LIVE_B)
   cases["kernel 4, live spec ECEF_POS, gate on"] = (
       call4, call4.source(),
       (x, P, (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
@@ -199,33 +321,6 @@ def template_ab(torch, dev, gen, states, parent_template):
       (x, P, zs.transpose(-1, -2).contiguous(),
        torch.full((cs.CMP_T,), 0.1, **f64)),
       dict(eas=eas.transpose(-1, -2).contiguous()))
-  call7 = cs.msckf_call(ESKF)
-  spec, _, _, R = cs.msckf_setup(ESKF)
-  xs = cs.msckf_bank_x0(ESKF, cs.SEED + 3)
-  zs7, eas7, _ = cs.msckf_frames(torch, dev, gen, ESKF, xs,
-                                 cs.MSCKF_CMP_T, R)
-
-  def bank(xs):
-    return (torch.as_tensor(xs.T, **f32).contiguous(),
-            (cs.MSCKF_P0 * torch.eye(spec.dim_err, **f32))[:, :, None].repeat(
-                1, 1, cs.MSCKF_B))
-
-  cases["kernel 7, msckf_eskf frames"] = (
-      call7, call7.source(),
-      (*bank(xs), zs7.transpose(1, 2).to(**f32).contiguous(),
-       torch.full((cs.MSCKF_CMP_T,), cs.MSCKF_DT, **f32)),
-      dict(eas=eas7.transpose(1, 2).to(**f32).contiguous()))
-  call6 = cs.vio_call(ESKF)
-  ki = cs.vio_kind_idx(cs.VIO_CMP_T)
-  xs = cs.msckf_bank_x0(ESKF, cs.SEED + 5)
-  zs6, eas6, _ = cs.msckf_frames(torch, dev, gen, ESKF, xs, cs.VIO_CMP_T, R,
-                                 frames=ki.astype(bool))
-  cases["kernel 6 with frames, msckf_eskf VIO schedule"] = (
-      call6, call6.source(),
-      (*bank(xs), zs6.transpose(1, 2).to(**f32).contiguous(),
-       torch.full((cs.VIO_CMP_T,), cs.MSCKF_DT, **f32)),
-      dict(eas=eas6.transpose(1, 2).to(**f32).contiguous(),
-           kind_idx=torch.as_tensor(ki, dtype=torch.int32, device=dev)))
   with ThreadPoolExecutor(2 * len(cases)) as pool:
     fns = {(name, which): pool.submit(
         build_with_template, f"ab_{i}_{which}", src,
@@ -253,18 +348,52 @@ def main():
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 2 and "
                        "3 run beside these")
+  ap.add_argument("--frames-only", action="store_true",
+                  help="only kernel 7 and kernel 6 with camera frames (and "
+                       "the template A/B with --parent)")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
     return 1
   from rednose_tpu_torch import _build
-  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
-  from rednose_tpu_torch.ops import generic_scan as gs, live_scan, sparsity
-  from rednose_tpu_torch.utils.compare import lane_sigma_errs, live_sigma_err
 
   torch.backends.cuda.matmul.allow_tf32 = False
   card = cs.card_line()
   cs.log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+  dev = torch.device("cuda", 0)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(cs.SEED)
+  cases = frame_cases(torch, dev, gen)
+  t0 = time.perf_counter()
+  fsrc = frame_sources(cases)
+  cs.log(f"frame variants emitted in {time.perf_counter() - t0:.1f} s")
+  results = {"card": card}
+  if not args.frames_only:
+    results |= live_sweep(torch, args, fsrc)
+  else:
+    t0 = time.perf_counter()
+    _build.build_generated_many([s for v in fsrc.values()
+                                 for s in v.values()])
+    cs.log(f"built in {time.perf_counter() - t0:.1f} s")
+  results["frames"] = frame_sweep(torch, cases, fsrc)
+  if args.parent is not None:
+    results["template A/B"] = template_ab(
+        torch, dev, gen, args.parent / "rednose_tpu_torch" / "csrc" /
+        "generic_scan.cuh")
+  SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+  (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))
+  print(card)
+  return 0
+
+
+def live_sweep(torch, args, frame_srcs):
+  """Kernels 2, 3, 4 and 6 (the live spec) at every W, built in one go
+  with frame_srcs and, with args.parent, the parent's kernels 2 and 3."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs, live_scan, sparsity
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs, live_sigma_err
+
   live_spec = cs.generic_models()[3]
   R4 = LiveKalman.obs_noise[K.ECEF_POS]
   st = sparsity.structure_for(live_spec, LiveKalman.initial_x)
@@ -292,7 +421,7 @@ def main():
   with ThreadPoolExecutor(len(jobs) + 2) as pool:
     static = pool.submit(_build.build)
     k3_jobs = {k: pool.submit(build_k3, *v) for k, v in jobs.items()}
-    _build.build_generated_many([src for v in gen_src.values()
+    _build.build_generated_many([src for v in (gen_src | frame_srcs).values()
                                  for src in v.values()])
     static.result()
     k3_builds = {k: j.result() for k, j in k3_jobs.items()}
@@ -303,8 +432,7 @@ def main():
   gen.manual_seed(cs.SEED)
   states = cs.main_path(torch, dev, gen)
   f32 = dict(dtype=torch.float32, device=dev)
-  results = {"card": card, "kernel 2": {}, "kernel 3": {}, "kernel 4": {},
-             "kernel 6": {}}
+  results = {"kernel 2": {}, "kernel 3": {}, "kernel 4": {}, "kernel 6": {}}
 
   # kernels 3 and 6: chip_smoke's comparison inputs of kernel 3
   x_m, P_m, q_diag = states["live_bank_scan_mixed"]
@@ -388,13 +516,7 @@ def main():
       cs.log(f"{kernel} {name}: T=64 {ms:.4f} ms, T=1 {ms1:.4f} ms, "
              f"{err:.4g} sigma from plain; {len(src.splitlines())} lines; "
              f"ptxas {ptx}; runtime {info}; {nvcc}")
-  if args.parent is not None:
-    results["template A/B"] = template_ab(
-        torch, dev, gen, states, args.parent / "rednose_tpu_torch" / "csrc" /
-        "generic_scan.cuh")
-  (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))
-  print(card)
-  return 0
+  return results
 
 
 if __name__ == "__main__":

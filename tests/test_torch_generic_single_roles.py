@@ -122,12 +122,14 @@ def test_roles_partition_the_upper_triangle(name):
 
 
 def test_other_modes_emit_no_role_section():
-  """Mode 'epoch' of live, car, loc and msckf_eskf, mode 'frame' of
-  msckf_eskf and mode 'mixed' with a camera-frame unit print the global
-  form only. A mode-'mixed' variant without one (live, car, loc,
-  msckf_eskf; float and double) prints one shared function and one role
-  set per unit and switches them on the step's kind, or, where its tile
-  does not fit (msckf_eskf in double), the global form, named."""
+  """Mode 'epoch' of live, car, loc and msckf_eskf prints the global form
+  only. A mode-'mixed' variant without a camera-frame unit (live, car,
+  loc, msckf_eskf; float and double) prints one shared function and one
+  role set per unit and switches them on the step's kind, or, where its
+  tile does not fit (msckf_eskf in double), the global form, named.
+  msckf_eskf's mode 'frame' and mode 'mixed' with a camera-frame unit
+  print a tile of TILE_ROLES_FRAME roles in float and, in double, the
+  global form, named."""
   srcs, mixed = [], []
   for model, spec, kinds in (
       (live.LiveKalman, live.build_live_spec(), (K.PHONE_GYRO, K.ECEF_POS)),
@@ -144,13 +146,17 @@ def test_other_modes_emit_no_role_section():
         (mixed if mode == "mixed" else srcs).append((c, dt, c.source(dt)))
   espec = MSCKFEskf.build_spec()
   est = sparsity.structure_for(espec, MSCKFEskf.initial_x)
-  srcs.append((None, None, generic_scan.KernelCall(
+  for c in (generic_scan.KernelCall(
       espec, "frame", (16,), Q=MSCKFEskf.Q, R_list=(1e-4 * np.eye(8),),
-      structure=est).source()))
-  srcs += [(None, None, generic_scan.KernelCall(
+      structure=est), generic_scan.KernelCall(
       espec, "mixed", (12, 16), Q=MSCKFEskf.Q,
-      R_list=(np.eye(3), 1e-4 * np.eye(8)), structure=est).source(dt))
-           for dt in (torch.float32, torch.float64)]
+      R_list=(np.eye(3), 1e-4 * np.eye(8)), structure=est)):
+    f32, f64 = c.source(), c.source(torch.float64)
+    assert f"// design: tile, {entry_slab.TILE_ROLES_FRAME} roles" in f32
+    assert "(221,824 B a block)" in f32
+    assert f32.count("GEN_PHASE void ") == 2    # the frame's serial stages
+    assert "// design: global: the tile of 32 filters (443,648 B in " \
+        "double)" in f64 and "gen_tile_" not in f64
   for _, _, src in srcs:
     assert "REDNOSE_GENERIC_SCAN_TILE" not in src
     assert "gen_tile_" not in src and "_r0(" not in src

@@ -176,8 +176,9 @@ def test_frame_calls_and_variants():
     with pytest.raises(ValueError, match="run_mixed"):
       generic_scan.KernelCall(spec, mode, (KIND,), Q=Q, R_list=(R,))
   mixed = generic_scan.KernelCall(spec, "mixed", (12, KIND), Q=Q,
-                                  R_list=(np.eye(3), R)).source()
-  assert "GEN_PHASE void gen_frame_k16_g(" in mixed
+                                  R_list=(np.eye(3), R))
+  assert "GEN_PHASE void gen_frame_k16_g_s0(" in mixed.source()
+  assert "GEN_PHASE void gen_frame_k16_g(" in mixed.source(tile=False)
   with pytest.raises(ValueError, match="mode 'frame' takes an MSCKF"):
     generic_scan.KernelCall(spec, "frame", (12,), Q=Q, R_list=(np.eye(3),))
   with pytest.raises(ValueError, match="takes one kind"):
@@ -188,10 +189,11 @@ def test_frame_calls_and_variants():
                                  R_list=(r,)).source()
          for r in (R, 4.0 * R, R + np.diag(np.arange(8.0)))]
   assert src[0] == src[1] != src[2]
-  assert "gen_frame_k16_g(" in src[0]
+  assert "gen_frame_k16_g_r0(" in src[0]
   gated_off = generic_scan.KernelCall(spec, "frame", (KIND,), Q=Q,
-                                      R_list=(R,), gate=False).source()
-  assert "gen_frame_k16(" in gated_off
+                                      R_list=(R,), gate=False)
+  assert "gen_frame_k16_r0(" in gated_off.source()
+  assert "gen_frame_k16(" in gated_off.source(tile=False)
 
 
 def test_msckf_structure_keeps_G_in_the_main_block():

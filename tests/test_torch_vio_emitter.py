@@ -134,8 +134,8 @@ def test_two_feature_units_of_other_R_patterns():
   spec = tm.build_spec()
   src = generic_scan.KernelCall(spec, "mixed", kinds, Q=tm.Q,
                                 R_list=R_list).source()
-  assert "GEN_PHASE void gen_frame_k16_g(" in src
-  assert "GEN_PHASE void gen_frame_k16_g_r1(" in src
+  assert "GEN_PHASE void gen_frame_k16_g_s0(" in src
+  assert "GEN_PHASE void gen_frame_k16_g_r1_s0(" in src
   assert "R unit 1 iso; unit 2 [(0, 0), (0, 3)," in src
   _same(_host(tm, kinds, R_list, xs, P, zs, eas, kind_idx),
         _jax_lane(jm, kinds, R_list, xs, P, zs, eas, kind_idx))
@@ -143,8 +143,11 @@ def test_two_feature_units_of_other_R_patterns():
 
 def test_variants_without_a_feature_unit_have_no_frame_code():
   """Kernel 6 without a feature unit keeps every unit inline (no frame
-  unit, no GEN_PHASE call); with one, only the predict and the frame unit
-  are GEN_PHASE. A new R value of the same pattern is the same variant."""
+  unit, no GEN_PHASE call); with one, only the frame unit's serial stages
+  (the innovation, and S with its Cholesky factor and the gate) are
+  GEN_PHASE in the tile form, and only the predict and the frame unit in
+  the global form. A new R value of the same pattern is the same
+  variant."""
   live = build_live_spec()
   kinds = (LK.PHONE_GYRO, LK.ECEF_POS)
   no_frame = [
@@ -159,15 +162,21 @@ def test_variants_without_a_feature_unit_have_no_frame_code():
     assert "GEN_PHASE" not in src and "gen_frame" not in src
   tm = tvo.MSCKFVisualOdometry
   spec = tm.build_spec()
-  src = [generic_scan.KernelCall(spec, "mixed", KINDS, Q=tm.Q,
-                                 R_list=(np.eye(3), R)).source()
-         for R in (1e-4 * np.eye(8), 4e-4 * np.eye(8), _anisotropic(8),
-                   _anisotropic(8, 3.0))]
+  calls = [generic_scan.KernelCall(spec, "mixed", KINDS, Q=tm.Q,
+                                   R_list=(np.eye(3), R))
+           for R in (1e-4 * np.eye(8), 4e-4 * np.eye(8), _anisotropic(8),
+                     _anisotropic(8, 3.0))]
+  src = [c.source() for c in calls]
   assert src[0] == src[1] != src[2] == src[3]
   phases = [line for line in src[0].splitlines() if "GEN_PHASE" in line]
+  assert len(phases) == 2 and "gen_frame_k16_g_s0(" in phases[0] \
+      and "gen_frame_k16_g_s4(" in phases[1]
+  assert "GEN_INLINE void gen_update_k12_s0(" in src[0]
+  glob = calls[0].source(tile=False)
+  phases = [line for line in glob.splitlines() if "GEN_PHASE" in line]
   assert len(phases) == 2 and "gen_predict" in phases[0] \
       and "gen_frame_k16_g" in phases[1]
-  assert "GEN_INLINE void gen_update_k12(" in src[0]
+  assert "GEN_INLINE void gen_update_k12(" in glob
 
 
 @pytest.mark.parametrize("case", ["frame_without_pattern",
