@@ -42,7 +42,8 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      Every kernel of a path must have launched in it; the VIO path
      launches kernel 6 (its camera-frame branch) and no other.
   2. each kernel against its plain torch version on the card (kinematic at
-     B = 16384, T = 4096; the others at B = 8192, T = 64, kernel 7 at
+     B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
+     at B = 8192, T = 64, kernel 7 at
      B = 4096, T = 16, kernel 6 with camera frames at B = 4096, T = 16,
      from converged states or fresh banks with consistent data), the
      difference in standard deviations of the plain result
@@ -53,15 +54,19 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      MSCKF models (kernels 7 and 6) are also held in double, the float64
      build of the body against the float64 plain version, and planted
      faults must fail that limit; loc's and the live spec's float32
-     agreement there is printed; on the main path's loc data its share of
+     agreement there is printed; kernel 5 is held in float32 on loc at
+     local scale (LOC_LOCAL_M); on the main path's loc data its share of
      lanes over 100 m off is held against the plain version's. As a
      cross-check, the generic live kernels against the hand ones on the
      same inputs: kernel 4 (ECEF_POS, gate on) against kernel 2, kernel 6
      against kernel 3 with its gate off.
-     Kernels 2, 3, 4, 6 and 7 keep P in shared memory (a tile of 32
-     filters, the step split across warps): kernels 2 and 3's launch
-     shapes as the CUDA runtime reads them and their raw-launch times at
-     T = 64 and T = 1; for each mode-"single", "mixed" and "frame"
+     Kernel 1's launch shape as the CUDA runtime reads it (its ring of
+     chunks of zs in shared memory) and its raw-launch times at
+     T = 4096 and T = 1. Kernels 2-7 keep P in shared memory (a tile of
+     32 filters, the step split across warps): kernels 2 and 3's launch
+     shapes and their raw-launch times at T = 64 and T = 1; kernel 5's on
+     loc in float32 (its inputs staged a step ahead) beside its wrapped
+     time; for each mode-"single", "mixed" and "frame"
      variant of the main paths the design it took (tile or global), its
      warps, shared memory a block, blocks an SM, registers, local bytes
      and its raw-launch time at T = 64 and T = 1 (every float32 one must
@@ -89,6 +94,7 @@ import numpy as np
 
 SEED = 0
 KIN_B, KIN_T = 16384, 4096
+KIN_RAGGED = (16384 + 37, 1024 + 29)   # kernel 1 held at a ragged shape too
 LIVE_B, LIVE_T = 8192, 1024
 CMP_T = 64
 # generic bank (bench.py's car_params_stream, generic_epoch, generic_entry
@@ -123,6 +129,17 @@ CROSS_TOL = 1e-2
 # the float32 plain version's plus LOC_SHARE_SLACK, and the double
 # kernel's within LOC64_SHARE_DIFF of the float64 plain version's.
 LOC64_TOL = 1e-6
+# kernel 5 is held in float32 at GEN_TOL where float32 resolves a sigma: a
+# receiver at the origin, satellites LOC_LOCAL_M away (a range ulp 1.2e-4 m
+# against R's 2 m sigma), from a bank the float64 plain version converged
+# on such epochs. The measurements' noise is LOC_LOCAL_NOISE of R's sigma
+# and, in the compared epochs, slot 1 of every 16th lane is LOC_LOCAL_OFF m
+# off: no distance comes
+# near the gate's threshold, where two float32 programs (any two: the
+# kernel's FMAs, torch's separate operations) take a decision apart on
+# some of the 4M decisions and part that lane by a good part of a sigma,
+# and the gate rejects the far slot on every one.
+LOC_LOCAL_M, LOC_LOCAL_NOISE, LOC_LOCAL_OFF = 2.0e3, 0.3, 1.0e2
 # the live spec's generic kernels at ECEF scale likewise: from the generic
 # bank's state after its run_mixed (T = 512 from the 10-rad attitude
 # prior, attitude sigma median ~0.5 rad) two float32 programs part beyond
@@ -276,6 +293,29 @@ def kernel3_launch(lib, x, P, zs, dts, kind_idx, kinds, R_by_kind, q_diag,
   return launch
 
 
+def kernel1_launch(lib, state, zs, dts, rs, q, maha=True):
+  """A launch of kernel 1 from `lib` (kinematic_bank_scan_launch) into an
+  output made once, the arguments prepared once (see kernel3_launch).
+  Returns the zero-argument launch, which returns the output."""
+  import torch
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import kinematic_scan
+
+  out = torch.empty_like(state)
+  T, B = zs.shape
+  stream = torch.cuda.current_stream(state.device).cuda_stream
+
+  def launch():
+    _build.check(lib.kinematic_bank_scan_launch(
+        state.data_ptr(), out.data_ptr(), zs.data_ptr(), dts.data_ptr(),
+        rs.data_ptr(), q.data_ptr(), T, B, int(maha),
+        kinematic_scan.MAHA_THRESH_1D, stream), "kernel 1")
+    return out
+
+  return launch
+
+
 def hand_kernel_info(lib, entry):
   """The launch shape of kernel 2 (entry live_bank_scan_info) or kernel 3
   (live_bank_scan_mixed_info) as the CUDA runtime reads it
@@ -384,18 +424,18 @@ def bound(nbytes, ops, double=False):
                                      else "operations")
 
 
-def kinematic_inputs(torch, dev, gen):
+def kinematic_inputs(torch, dev, gen, B=KIN_B, T=KIN_T):
   from rednose_tpu_torch.models.kinematic import KinematicKalman
   from rednose_tpu_torch.ops import kinematic_scan
 
   x0 = torch.as_tensor(KinematicKalman.initial_x, dtype=torch.float32,
-                       device=dev).expand(KIN_B, 2)
+                       device=dev).expand(B, 2)
   P0 = torch.as_tensor(np.diag(KinematicKalman.initial_P_diag),
-                       dtype=torch.float32, device=dev).expand(KIN_B, 2, 2)
+                       dtype=torch.float32, device=dev).expand(B, 2, 2)
   state = kinematic_scan.pack_state(x0, P0).contiguous()
-  zs = 0.5 * torch.randn((KIN_T, KIN_B), generator=gen, device=dev)
-  dts = torch.full((KIN_T,), 0.01, device=dev)
-  rs = torch.full((KIN_T,), 0.1**2, device=dev)
+  zs = 0.5 * torch.randn((T, B), generator=gen, device=dev)
+  dts = torch.full((T,), 0.01, device=dev)
+  rs = torch.full((T,), 0.1**2, device=dev)
   Q = KinematicKalman.Q
   q = torch.tensor([Q[0, 0], Q[0, 1], Q[1, 1]], dtype=torch.float32,
                    device=dev)
@@ -577,13 +617,44 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
     return max(live_sigma_err(*a, *ref))
 
   ops = hand_kernel_ops(live_spec)
+  kin_args = kinematic_inputs(torch, dev, gen)
   rows = [compare(
       "kinematic_bank_scan", "rednose_tpu_torch/csrc/kinematic_scan.cu",
       "rednose_tpu/ops/pallas_step.py:69", kinematic_scan.kinematic_bank_scan,
-      kinematic_scan.kinematic_scan_reference,
-      kinematic_inputs(torch, dev, gen), dict(maha=True), kin_err, KIN_TOL,
-      10, f"B={KIN_B} T={KIN_T} gate on",
+      kinematic_scan.kinematic_scan_reference, kin_args, dict(maha=True),
+      kin_err, KIN_TOL, 10, f"B={KIN_B} T={KIN_T} gate on",
       ops["kinematic_bank_scan"] * KIN_B * KIN_T)]
+  # a ragged bank and a ragged last chunk (B not a multiple of the block's
+  # lanes nor of 4, T not a multiple of the ring's chunk), on data of its
+  # own generator (the later comparisons keep theirs): held, not reported.
+  # Measurements at 0.3 of R's sigma, every 16th lane's every 8th one in
+  # the second half (P converged) 50 sigma off: the gate rejects those and
+  # no distance comes near its threshold, where the float32 kernel and
+  # plain version take a decision apart on some of the 17M (on the main
+  # shape's data none is).
+  B, T = KIN_RAGGED
+  g = torch.Generator(device=dev)
+  g.manual_seed(SEED + 10)
+  state, zs, dts, rs, q = kinematic_inputs(torch, dev, g, B, T)
+  zs = 0.06 * zs
+  zs[T // 2::8, ::16] += 5.0
+  ragged = compare(
+      "kinematic_bank_scan", "", "", kinematic_scan.kinematic_bank_scan,
+      kinematic_scan.kinematic_scan_reference, (state, zs, dts, rs, q),
+      dict(maha=True), kin_err, KIN_TOL, 2, f"B={B} T={T} gate on, ragged",
+      ops["kinematic_bank_scan"] * B * T)
+  lib = _build.library()
+  state, zs, dts, rs, q = kin_args
+  raw = {T: timed_run(kernel1_launch(lib, state, zs[:T], dts[:T], rs[:T], q),
+                      20 if T == 1 else 10)[0] for T in (KIN_T, 1)}
+  shape = kinematic_scan.launch_shape()
+  log(f"kinematic_bank_scan design: a block of {shape['threads']} filters "
+      f"(a thread each), a ring of {shape['stages']} stages x "
+      f"{shape['chunk_steps']} steps, {shape['smem_bytes']} B of shared "
+      f"memory a block, {shape['blocks_per_sm']} blocks an SM, "
+      f"{shape['registers']} registers, {shape['local_bytes']} B local a "
+      f"thread; raw launches T={KIN_T} {raw[KIN_T]:.4f} ms, T=1 "
+      f"{raw[1]:.4f} ms")
 
   x0, P0, q_diag = live_states["live_bank_scan"]
   dts = torch.full((CMP_T,), 0.01, device=dev)
@@ -602,7 +673,6 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
       ops["live_bank_scan"] * LIVE_B * CMP_T))
   # the tiles' load and store weigh most at T = 1 (an observe call): raw
   # launches, so the wrapper's checks and copies are not in the time
-  lib = _build.library()
   raw = {T: timed_run(kernel2_launch(lib, x0, P0, zs[:T], dts[:T], q_diag, R,
                                      True), 20 if T == 1 else 5)[0]
          for T in (CMP_T, 1)}
@@ -639,7 +709,8 @@ def compare_kernels(torch, dev, gen, live_states, live_spec):
   log(tile_line("live_bank_scan_mixed",
                 hand_kernel_info(lib, "live_bank_scan_mixed_info"), raw))
 
-  bad = [r["name"] for r in rows if not r["ok"]]
+  bad = [r["name"] + " " + r["shape"] for r in rows + [ragged]
+         if not r["ok"]]
   require(not bad, f"kernels agree with their plain versions: {bad}")
   return rows
 
@@ -817,6 +888,50 @@ def loc_consistent_data(torch, dev, gen, T, K):
   noise = torch.randn(rho.shape, generator=gen, **f64)
   zs = torch.where(is_rho, rho + 2.0 * noise, rate + 0.05 * noise)
   return zs[..., None], torch.cat([sat, vel], dim=-1)
+
+
+def loc_local_data(torch, dev, gen, T, K, far=True):
+  """Epochs for a receiver at rest at the origin with a zero clock and
+  satellites LOC_LOCAL_M away in random directions moving at ~30 m/s:
+  ranges and range rates (float64) plus noise at LOC_LOCAL_NOISE of R's
+  sigma; with far, slot 1 of every 16th lane LOC_LOCAL_OFF m off, so the
+  gate of a converged bank rejects it: zs (T, K, B, 1), eas (T, K, B, 6)."""
+  f64 = dict(dtype=torch.float64, device=dev)
+  u = torch.randn((T, K, GEN_B, 3), generator=gen, **f64)
+  sat = LOC_LOCAL_M * u / torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+  vel = 30.0 * torch.randn((T, K, GEN_B, 3), generator=gen, **f64)
+  rho = torch.linalg.vector_norm(sat, dim=-1)
+  rate = ((sat / rho[..., None]) * vel).sum(dim=-1)
+  is_rho = (torch.arange(K, device=dev) < K // 2)[None, :, None]
+  noise = LOC_LOCAL_NOISE * torch.randn(rho.shape, generator=gen, **f64)
+  zs = torch.where(is_rho, rho + 2.0 * noise, rate + 0.05 * noise)
+  if far:
+    zs[:, 1, ::16] += LOC_LOCAL_OFF
+  return zs[..., None], torch.cat([sat, vel], dim=-1)
+
+
+def loc_local_case(torch, dev, gen):
+  """Kernel 5's call on loc at local scale (loc_local_data), bank-minor,
+  float64: a bank at the origin from loc's prior, converged by the plain
+  version over CMP_T epochs, and CMP_T new epochs: (x, P, zs, eas, dts)."""
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  LocKalman = generic_models()[1]
+  f64 = dict(dtype=torch.float64, device=dev)
+  call = loc_epoch_call()
+
+  def epochs(far):
+    zs, eas = loc_local_data(torch, dev, gen, CMP_T, len(call.kinds), far)
+    return (zs.transpose(-1, -2).contiguous(),
+            eas.transpose(-1, -2).contiguous())
+
+  x = torch.zeros((len(LocKalman.initial_x), GEN_B), **f64)
+  P = torch.as_tensor(np.diag(LocKalman.initial_P_diag), **f64)[
+      :, :, None].repeat(1, 1, GEN_B)
+  dts = torch.full((CMP_T,), 0.1, **f64)
+  zs, eas = epochs(False)   # from the prior the gate would let a far one in
+  x, P = gs._plain(call, x, P, zs, dts, eas, None)
+  return (x, P, *epochs(True), dts)
 
 
 def generic_main_path(torch, dev, gen):
@@ -1136,6 +1251,25 @@ def compare_generic(torch, dev, gen, states, hand_states, kernel_reps=5):
       f"kernel vs plain median lane {float(e.median()):.4g} sigma, max "
       f"{float(e.max()):.4g}; against float64: kernel median {ek:.4g}, "
       f"plain median {ep:.4g}")
+  # its launch shape and raw launches (no wrapper: no checks, no copies)
+  # on the same float32 inputs
+  call5 = loc_epoch_call()
+  src5 = call5.source(torch.float32)
+  raw = {n: timed_run(generic_launch(
+      src5, call5, args32[0], args32[1], args32[2][:n], args32[3][:n],
+      eas=kw32["eas"][:n]), 20 if n == 1 else 5)[0] for n in (CMP_T, 1)}
+  log(variant_line("generic_bank_scan_epoch [loc, float32]",
+                   _build.generated_info(src5), GEN_B, raw))
+
+  # held in float32 at local scale (see LOC_LOCAL_M)
+  x, P, zs, eas, dts = (a.float() for a in loc_local_case(torch, dev, gen))
+  run("generic_bank_scan_epoch", "", "", loc, gs.generic_bank_scan_epoch,
+      gs.generic_bank_scan_epoch_reference, (x, P, zs, dts),
+      dict(eas=eas, **kw),
+      f"loc B={GEN_B} T={CMP_T} epochs of 4 + 4 slots, float32, satellites "
+      f"{LOC_LOCAL_M:g} m away", call_ops(
+          "epoch", loc, slots, CMP_T, Q=LocKalman.Q, R_list=kw["R_list"],
+          structure=kw["structure"]))
 
   # the main path's loc steps again: the float32 kernel may lose at most
   # LOC_SHARE_RATIO times (+ LOC_SHARE_SLACK) the float32 plain version's
@@ -1271,12 +1405,7 @@ def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
 
     ms = {n: timed_run(launch(n), reps if n == 1 else 5)[0] for n in (T, 1)}
     out[name] = dict(info, ms=ms[T], ms_T1=ms[1])
-    log(f"{name}: design {'tile' if info['design'] else 'global'}, "
-        f"{info['warps']} warps a block of {info['threads']} threads, "
-        f"{info['smem_bytes']} B of shared memory a block, "
-        f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
-        f"registers, {info['local_bytes']} B local a thread; raw launches "
-        f"B={x.shape[-1]} T={T} {ms[T]:.4f} ms, T=1 {ms[1]:.4f} ms")
+    log(variant_line(name, info, x.shape[-1], ms))
     require(info["design"] == 1, f"{name}: the float32 variant is a tile")
   # msckf_eskf's POSITION tile (a 36 x 36 P, one block an SM) against its
   # plain version, as compare_generic holds the car and live variants
@@ -1296,6 +1425,18 @@ def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
   require(all(ok for _, ok in checks),
           "msckf_eskf's POSITION tile agrees with its plain version")
   return out
+
+
+def variant_line(name, info, B, ms):
+  """The log line of a generic variant's launch shape (generated_info) and
+  raw-launch times ms {T: ms}, at its T and at T = 1."""
+  T = max(ms)
+  return (f"{name}: design {'tile' if info['design'] else 'global'}, "
+          f"{info['warps']} warps a block of {info['threads']} threads, "
+          f"{info['smem_bytes']} B of shared memory a block, "
+          f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
+          f"registers, {info['local_bytes']} B local a thread; raw launches "
+          f"B={B} T={T} {ms[T]:.4f} ms, T=1 {ms[1]:.4f} ms")
 
 
 def is_tile(source):

@@ -58,9 +58,11 @@ SIGNATURES = {
     "live_bank_scan_mixed_launch":
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # out (6 ints): warps, threads, shared memory bytes, blocks an SM
-    # holds, registers, local bytes of kernel 2 / kernel 3
+    # holds, registers, local bytes of kernel 2 / kernel 3; kernel 1's
+    # (8 ints) adds the steps a ring stage holds and the stages
     "live_bank_scan_info": (_P,),
     "live_bank_scan_mixed_info": (_P,),
+    "kinematic_bank_scan_info": (_P,),
 }
 
 

@@ -26,9 +26,11 @@
 // in namespace rn_gen, the constants DX, DE, NP, NPS, NZROWS, NEAROWS and
 // ps_idx(i), and either gen_step(x, P, ld, z, ea, dt, ki, p, Q, R), one
 // predict and the step's updates of one filter (the global form), or, for
-// kernels 4, 6 and 7 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES,
-// NSCR, NVAL and the role dispatchers gen_tile_*, which for kernel 6
-// (REDNOSE_GENERIC_SCAN_TILE_KINDS) also take the step's kind index. The
+// kernels 4-7 in tile form (REDNOSE_GENERIC_SCAN_TILE), NROLES, NSCR, NVAL
+// and the role dispatchers gen_tile_*, which for kernel 6
+// (REDNOSE_GENERIC_SCAN_TILE_KINDS) also take the step's kind index, and
+// for kernel 5 (REDNOSE_GENERIC_SCAN_TILE_EPOCH) the slot's unit, with
+// NSLOTS and the slot table gen_slot(k). The
 // second include (REDNOSE_GENERIC_SCAN_LOOPS) adds the scan loop, the
 // __global__ kernel and its C entry points under nvcc, or a host loop over
 // the bank under a host compiler: the same emitted text runs in both.
@@ -38,11 +40,12 @@
 // params vector prm (NP,), Q (DE, DE) and the packed per-unit R are
 // run-time inputs, so a new value never needs a new build.
 //
-// The tile form (mode "single", kernel 4, mode "mixed", kernel 6, and mode
-// "frame", kernel 7, whenever 32 filters' P, x and update scratch fit in a
-// block's shared memory, which every such float32 variant the port ships
-// does; ops/entry_slab.py decides when it emits the source and names the
-// design in its header): a block of 32 filters (lane = filter) and NROLES
+// The tile form (mode "single", kernel 4, mode "epoch", kernel 5, mode
+// "mixed", kernel 6, and mode "frame", kernel 7, whenever 32 filters' P, x
+// and update scratch (and an epoch's staged inputs) fit in a block's shared
+// memory, which every such float32 variant the port ships does;
+// ops/entry_slab.py decides when it emits the source and names the design
+// in its header): a block of 32 filters (lane = filter) and NROLES
 // warps (role = warp) keeps P, x and the scratch in shared memory for the
 // whole T loop, and splits each step's phases over the warps between
 // barriers (see the tile section below). NROLES is the variant's own: 2
@@ -58,11 +61,14 @@
 // (below): one warp He's reflectors and the projected innovation, every
 // warp its columns of the projected H, then of HP, then its entries of S,
 // one warp S's Cholesky factor and the gate, every warp its columns of
-// K^T, the Joseph factor rows and dx.
+// K^T, the Joseph factor rows and dx. An epoch (kernel 5) is bound by the
+// bytes of its inputs (loc's 8 slots at B = 8192, T = 64 in float32:
+// 0.03764 ms), which it stages a step ahead; each slot's serial shared
+// function on one warp sets its pace (PERF.md).
 //
-// The global form (mode "epoch", and a "single", "mixed" or "frame"
-// variant whose tile does not fit: msckf_eskf in double), kernel 2's
-// first design: one thread per
+// The global form (a variant whose tile does not fit: msckf_eskf in
+// double; the design before the tile, which KernelCall.source(tile=False)
+// prints), kernel 2's first design: one thread per
 // filter and the T loop inside the kernel, so the state never leaves the
 // card during a scan. x is a thread-local array that the emitted code
 // indexes with constants, so it lives in registers. P stays in global
@@ -213,7 +219,238 @@ constexpr int TILE_VALS = DE * DE + DX + NSCR;
 // its share (gen_tile_stage_store), barrier. A stage reads what earlier
 // stages stored; a slot is reused once no later stage reads its value.
 
+#ifdef REDNOSE_GENERIC_SCAN_TILE_EPOCH
+
+// Kernel 5 in tile form (mode "epoch", when the tile fits): the tile loop
+// above with each step's slots in order, each step's inputs staged in
+// shared memory a step ahead. A step is the predict (every role computes,
+// barrier, stores, barrier), then for each slot k of the slot table
+// gen_slot(k): role 0 runs its unit's shared function into the scratch,
+// barrier, every role its share of the update, barrier, stores, barrier
+// (a loc slot's shared values are too few to split across the warps in
+// stages as a camera frame's: measured slower at every W; PERF.md).
+// The inputs do not depend on the state: at the top of step t the block
+// copies step t + 1's NZROWS + NEAROWS rows of its 32 filters into the
+// other half of a double buffer ([row][32] each) with cp.async, 16 B a
+// thread where every row of the block is whole and 16-B aligned (else one
+// value a thread, a lane past the bank copying filter B - 1), and waits
+// for step t's copies before the predict's barrier. The units read their
+// rows there (ld_in = 32) in place of 8 dependent global loads a step.
+
+namespace rn_gen {
+constexpr int IN_ROWS = NZROWS + NEAROWS;  // one step's staged input rows
+}  // namespace rn_gen
+
 #ifdef __CUDACC__
+
+__device__ __forceinline__ void rn_cp_async(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+}
+
+// Step t's input rows of the block's filters b0.. into in ([row][32]),
+// asynchronously; the caller commits the group.
+__device__ __forceinline__ void rn_stage_inputs(
+    scalar_t* in, const scalar_t* zs, const scalar_t* eas, int t, int B,
+    int b0, int tid, bool whole) {
+  using namespace rn_gen;
+  constexpr int NTHR = TILE_LANES * NROLES;
+  constexpr int V = 16 / (int)sizeof(scalar_t);  // values a 16-B copy moves
+  constexpr int PIECES = TILE_LANES / V;          // 16-B copies a row
+  const scalar_t* zt = zs + (size_t)t * NZROWS * B;
+  const scalar_t* et = NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B : zt;
+  if (whole) {
+    for (int c = tid; c < IN_ROWS * PIECES; c += NTHR) {
+      const int row = c / PIECES, col = (c % PIECES) * V;
+      const scalar_t* src = row < NZROWS ? zt + (size_t)row * B
+                                         : et + (size_t)(row - NZROWS) * B;
+      rn_cp_async(in + row * TILE_LANES + col, src + b0 + col, 16);
+    }
+  } else {
+    for (int c = tid; c < IN_ROWS * TILE_LANES; c += NTHR) {
+      const int row = c / TILE_LANES, b = min(b0 + c % TILE_LANES, B - 1);
+      const scalar_t* src = row < NZROWS ? zt + (size_t)row * B
+                                         : et + (size_t)(row - NZROWS) * B;
+      rn_cp_async(in + c, src + b, (int)sizeof(scalar_t));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
+rn_generic_epoch_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    const scalar_t* __restrict__ zs, const scalar_t* __restrict__ eas,
+    const scalar_t* __restrict__ dts, const scalar_t* __restrict__ pss,
+    const scalar_t* __restrict__ prm, const scalar_t* __restrict__ Q,
+    const scalar_t* __restrict__ R, int T, int B) {
+  using namespace rn_gen;
+  extern __shared__ __align__(16) unsigned char rn_tile[];
+  scalar_t* Pt = reinterpret_cast<scalar_t*>(rn_tile);
+  scalar_t* xt = Pt + DE * DE * TILE_LANES;
+  scalar_t* st = xt + DX * TILE_LANES;
+  scalar_t* in = st + NSCR * TILE_LANES;  // 2 x IN_ROWS x 32
+  const int lane = threadIdx.x, role = threadIdx.y;
+  const int tid = role * TILE_LANES + lane;
+  const int b0 = blockIdx.x * TILE_LANES, b = b0 + lane;
+  const int bc = b < B ? b : B - 1;
+  constexpr int V = 16 / (int)sizeof(scalar_t);
+  const bool whole =
+      b0 + TILE_LANES <= B && B % V == 0 &&
+      reinterpret_cast<size_t>(zs) % 16 == 0 &&
+      (NEAROWS == 0 || reinterpret_cast<size_t>(eas) % 16 == 0);
+  rn_stage_inputs(in, zs, eas, 0, B, b0, tid, whole);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int e = role; e < DE * DE; e += NROLES)
+    Pt[e * TILE_LANES + lane] = Ps[(size_t)e * B + bc];
+  for (int i = role; i < DX; i += NROLES)
+    xt[i * TILE_LANES + lane] = xs[(size_t)i * B + bc];
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  scalar_t* P = Pt + lane;
+  scalar_t* x = xt + lane;
+  scalar_t* s = st + lane;
+  const size_t ld = TILE_LANES;
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    // step t + 1's inputs into the other buffer while step t runs (an
+    // empty group at the last step, so step t's is always the second
+    // newest)
+    if (t + 1 < T)
+      rn_stage_inputs(in + ((t + 1) & 1) * IN_ROWS * TILE_LANES, zs, eas,
+                      t + 1, B, b0, tid, whole);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int i = 0; i < NPS; ++i) p[ps_idx(i)] = pss[(size_t)t * NPS + i];
+    const scalar_t dt = dts[t];
+    scalar_t v[NVAL];
+    gen_tile_predict(role, x, P, ld, dt, p, Q, v);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    gen_tile_predict_store(role, x, P, ld, v);
+    __syncthreads();
+    const scalar_t* zt = in + (t & 1) * IN_ROWS * TILE_LANES + lane;
+    // not unrolled: one copy of each unit's code, switched on the slot's
+    // unit (unrolled, loc's 8 slots are ~8 copies of a unit in every step,
+    // and instruction fetch set the pace: 1.3x slower in float32, 1.5x in
+    // double; PERF.md)
+#pragma unroll 1
+    for (int k = 0; k < NSLOTS; ++k) {
+      const GenSlot sl = gen_slot(k);
+      const scalar_t* z = zt + sl.zrow * TILE_LANES;
+      const scalar_t* ea = zt + (NZROWS + sl.earow) * TILE_LANES;
+      if (role == 0)
+        gen_tile_shared(sl.unit, x, P, ld, z, ea, ld, R + sl.roff, p, s);
+      __syncthreads();
+      gen_tile_update(sl.unit, role, x, P, ld, z, ea, ld, R + sl.roff, p, s,
+                      v);
+      __syncthreads();
+      gen_tile_update_store(sl.unit, role, x, P, ld, v);
+      __syncthreads();
+    }
+  }
+  if (b < B) {
+    for (int e = role; e < DE * DE; e += NROLES)
+      Ps[(size_t)e * B + b] = Pt[e * TILE_LANES + lane];
+    for (int i = role; i < DX; i += NROLES)
+      xs[(size_t)i * B + b] = xt[i * TILE_LANES + lane];
+  }
+}
+
+static const int rn_tile_smem =
+    (int)sizeof(scalar_t) * rn_gen::TILE_LANES *
+    (rn_gen::TILE_VALS + 2 * rn_gen::IN_ROWS);
+
+extern "C" int rn_generic_scan_launch(void* xs, void* Ps, const void* zs,
+                                      const void* eas, const void* dts,
+                                      const void* kind_idx, const void* pss,
+                                      const void* prm, const void* Q,
+                                      const void* R, int T, int B,
+                                      void* stream) {
+  (void)kind_idx;
+  cudaError_t e = cudaFuncSetAttribute(
+      rn_generic_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rn_tile_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + rn_gen::TILE_LANES - 1) / rn_gen::TILE_LANES;
+  rn_generic_epoch_kernel<<<blocks, dim3(rn_gen::TILE_LANES, rn_gen::NROLES),
+                            rn_tile_smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+      static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+      static_cast<const scalar_t*>(dts), static_cast<const scalar_t*>(pss),
+      static_cast<const scalar_t*>(prm), static_cast<const scalar_t*>(Q),
+      static_cast<const scalar_t*>(R), T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define RN_GEN_KERNEL rn_generic_epoch_kernel
+#define RN_GEN_DESIGN 1
+#define RN_GEN_ROLES rn_gen::NROLES
+#define RN_GEN_SMEM rn_tile_smem
+
+#else
+
+// The host build of the epoch tile (tests): filter by filter, a copy of its
+// P, x and scratch (ld = 1) and of each step's input rows (ld_in = 1), each
+// phase in barrier order, as the tile loop above.
+extern "C" int rn_generic_scan_host(void* xs_, void* Ps_, const void* zs_,
+                                    const void* eas_, const void* dts_,
+                                    const void* kind_idx, const void* pss_,
+                                    const void* prm, const void* Q_,
+                                    const void* R_, int T, int B) {
+  using namespace rn_gen;
+  (void)kind_idx;
+  scalar_t* xs = static_cast<scalar_t*>(xs_);
+  scalar_t* Ps = static_cast<scalar_t*>(Ps_);
+  const scalar_t* zs = static_cast<const scalar_t*>(zs_);
+  const scalar_t* eas = static_cast<const scalar_t*>(eas_);
+  const scalar_t* dts = static_cast<const scalar_t*>(dts_);
+  const scalar_t* pss = static_cast<const scalar_t*>(pss_);
+  const scalar_t* Q = static_cast<const scalar_t*>(Q_);
+  const scalar_t* R = static_cast<const scalar_t*>(R_);
+  for (int b = 0; b < B; ++b) {
+    scalar_t x[DX], P[DE * DE], s[NSCR > 0 ? NSCR : 1], in[IN_ROWS];
+    scalar_t v[NROLES][NVAL];
+    for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+    for (int e = 0; e < DE * DE; ++e) P[e] = Ps[(size_t)e * B + b];
+    scalar_t p[NP > 0 ? NP : 1];
+    for (int i = 0; i < NP; ++i) p[i] = static_cast<const scalar_t*>(prm)[i];
+    for (int t = 0; t < T; ++t) {
+      for (int r = 0; r < NZROWS; ++r)
+        in[r] = zs[((size_t)t * NZROWS + r) * B + b];
+      for (int r = 0; r < NEAROWS; ++r)
+        in[NZROWS + r] = eas[((size_t)t * NEAROWS + r) * B + b];
+      for (int i = 0; i < NPS; ++i) p[ps_idx(i)] = pss[(size_t)t * NPS + i];
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_predict(r, x, P, 1, dts[t], p, Q, v[r]);
+      for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
+      for (int k = 0; k < NSLOTS; ++k) {
+        const GenSlot sl = gen_slot(k);
+        const scalar_t* z = in + sl.zrow;
+        const scalar_t* ea = in + NZROWS + sl.earow;
+        gen_tile_shared(sl.unit, x, P, 1, z, ea, 1, R + sl.roff, p, s);
+        for (int r = 0; r < NROLES; ++r)
+          gen_tile_update(sl.unit, r, x, P, 1, z, ea, 1, R + sl.roff, p, s,
+                          v[r]);
+        for (int r = 0; r < NROLES; ++r)
+          gen_tile_update_store(sl.unit, r, x, P, 1, v[r]);
+      }
+    }
+    for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+    for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = P[e];
+  }
+  return 0;
+}
+
+#endif  // __CUDACC__
+#elif defined(__CUDACC__)
 
 __global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
 rn_generic_tile_kernel(
@@ -372,7 +609,7 @@ extern "C" int rn_generic_scan_host(void* xs_, void* Ps_, const void* zs_,
   return 0;
 }
 
-#endif  // __CUDACC__
+#endif  // REDNOSE_GENERIC_SCAN_TILE_EPOCH, __CUDACC__
 #else   // REDNOSE_GENERIC_SCAN_TILE
 
 

@@ -43,8 +43,9 @@ store of a location, its old value is loaded if a later expression still
 reads it; the nominal state is written back after every expression of
 the phase.
 
-Modes "single" (kernel 4), "mixed" (kernel 6) and "frame" (kernel 7)
-print the tile form instead when the tile fits a block (tile_bytes): each
+Modes "single" (kernel 4), "epoch" (kernel 5), "mixed" (kernel 6) and
+"frame" (kernel 7) print the tile form instead when the tile fits a block
+(tile_bytes; an epoch's adds its staged inputs, epoch_input_bytes): each
 phase split over W role bodies (TILE_ROLES, or TILE_ROLES_FRAME for a
 variant with a camera-frame unit) that compute their share of p_out (role
 0 also x_out) into constant-indexed values, and store functions the
@@ -56,8 +57,10 @@ in stages, most of them split across the roles (stage_plan). Its window
 roll then costs nothing: each role computes its rolled entries from the
 old P and the scratch, and stores them after the barrier. A
 mixed tile prints that for every unit and dispatchers that switch on the
-step's kind index, then on the role. Mode "epoch", and a variant whose
-tile does not fit, print the global form.
+step's kind index, then on the role; an epoch tile prints it once for
+each distinct unit of its slots, dispatchers that switch on the unit,
+and the slot table (each slot's unit, z and ea rows and R offset) its
+loop reads. A variant whose tile does not fit prints the global form.
 """
 
 from __future__ import annotations
@@ -744,8 +747,8 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
   return lines
 
 
-# ---------------------------- modes "single", "mixed" and "frame" as a tile
-# Kernels 4, 6 and 7 keep P, x and the update's shared values of TILE_LANES
+# ---------------------------------------------------------- a mode as a tile
+# Kernels 4-7 keep P, x and the update's shared values of TILE_LANES
 # filters in a block's shared memory for the whole T loop and split each
 # phase over W roles, one warp each (csrc/generic_scan.cuh,
 # REDNOSE_GENERIC_SCAN_TILE): role r computes its share of the phase's new
@@ -754,9 +757,9 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
 # gain rows, the Joseph factor rows and dx, with the gate decision they
 # carry) are printed once, in a function of their own that one role runs
 # into the shared scratch before the other roles read them there; a mixed
-# variant has one such function and one role set per unit, and its scratch
-# holds the largest unit's values. A variant whose tile exceeds what a
-# block may use keeps the global form.
+# variant (and an epoch's distinct units) has one such function and one
+# role set per unit, and its scratch holds the largest unit's values. A
+# variant whose tile exceeds what a block may use keeps the global form.
 
 TILE_ROLES = 2           # W: measured among 1, 2, 4 and 8 (PERF.md)
 TILE_ROLES_FRAME = 8     # W of a variant with a camera-frame unit (PERF.md)
@@ -841,9 +844,16 @@ def stage_plan(upd, staged):
 def tile_bytes(spec, upd, scalar, staged=False) -> int:
   """Shared memory of a block of the tile form: TILE_LANES filters x
   (P, x, the update's scratch, in stages in a variant with a camera
-  frame); a mixed variant's is the largest of its units'."""
+  frame); a mixed variant's is the largest of its units'; an epoch
+  variant's adds epoch_input_bytes."""
   vals = spec.dim_err ** 2 + spec.dim_x + stage_plan(upd, staged)[2]
   return vals * TILE_LANES * _SCALAR_BYTES[scalar]
+
+
+def epoch_input_bytes(nzrows, nearows, scalar) -> int:
+  """An epoch tile's staged inputs: two steps' z and ea rows of
+  TILE_LANES filters (the step that runs and the next, copied ahead)."""
+  return 2 * (nzrows + nearows) * TILE_LANES * _SCALAR_BYTES[scalar]
 
 
 def _needs(root, stop):
@@ -1005,18 +1015,19 @@ def _dispatch(name, params, fn, n_roles):
           *lines, "}"]
 
 
-def _kind_dispatch(name, params, cases):
+def _kind_dispatch(name, params, cases, var="ki"):
   """name(int ki, params): the switch over the units by the step's kind
-  index; cases[u] is unit u's call text."""
-  lines = ["  switch (ki) {"]
+  index (an epoch's: by the unit index var); cases[u] is unit u's call
+  text."""
+  lines = [f"  switch ({var}) {{"]
   lines += [f"    case {u}: {c} break;" for u, c in enumerate(cases)]
   lines += ["    default: break;", "  }"]
-  return ["", f"GEN_HD GEN_INLINE void {name}(int ki, {', '.join(params)}) {{",
-          *lines, "}"]
+  return ["", f"GEN_HD GEN_INLINE void {name}(int {var}, "
+          f"{', '.join(params)}) {{", *lines, "}"]
 
 
 def _tile_source(body, pred, units, n_roles, mixed=False,
-                 smem=None) -> list:
+                 smem=None, slot_table=None) -> list:
   """The lines after the header of a variant in tile form: the role
   functions of the predict and of each update unit, each unit's shared
   values and the dispatchers the template's tile loop calls, over n_roles
@@ -1027,9 +1038,15 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
   gen_tile_shared itself); with one, every unit's are stages
   (stage_plan, _stage_functions). A mixed variant's update dispatchers
   switch on the step's kind index, then on the role, and pass unit u its
-  R (R + its offset), as the global form's gen_step does. smem, when
-  given: the block's shared memory bytes, named in the design line."""
+  R (R + its offset), as the global form's gen_step does. An epoch
+  variant (slot_table given: (unit, z row, ea row, R offset) of each slot in
+  order; units its distinct units) prints the same per-unit functions,
+  dispatchers that switch on the unit index and pass their arguments
+  through, and the slot table gen_slot(k) from which the template's epoch
+  loop takes each slot's unit, rows and R. smem, when given: the block's
+  shared memory bytes, named in the design line."""
   staged = any(u[4] for u in units)
+  epoch = slot_table is not None
   funcs = {}
   for name, upd, dz, _, frame in units:
     if name not in funcs:
@@ -1044,6 +1061,10 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
                 for o in st[2]] + [1])
   switched = (f", {len(units)} units switched on the step's kind"
               if mixed else "")
+  if epoch:
+    switched = (f", {len(slot_table)} slots of {len(units)} "
+                f"unit{'s' if len(units) > 1 else ''}, each step's inputs "
+                "staged a step ahead")
   size = f" ({smem:,} B a block)" if smem is not None else ""
   out = [f"// design: tile, {n_roles} roles{switched}: a block of "
          f"{TILE_LANES} filters x {n_roles} warps keeps P, x and {nscr} "
@@ -1054,6 +1075,17 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
       f"constexpr int NSCR = {nscr};",
       f"constexpr int NVAL = {nval};",
   ]
+  if epoch:
+    out += [f"constexpr int NSLOTS = {len(slot_table)};",
+            "// the slot table: slot k runs unit `unit` (the dispatchers' "
+            "u) on the step's",
+            "// z rows from `zrow` and ea rows from `earow`, with R + roff",
+            "struct GenSlot { int unit, zrow, earow, roff; };",
+            "GEN_HD GEN_INLINE GenSlot gen_slot(int k) {",
+            "  switch (k) {",
+            *[f"    case {k}: return {{{u}, {zr}, {er}, {ro}}};"
+              for k, (u, zr, er, ro) in enumerate(slot_table)],
+            "    default: return {0, 0, 0, 0};", "  }", "}"]
   p_pred = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
             "const scalar_t dt", "const scalar_t* p", "const scalar_t* Q"]
   p_in = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
@@ -1076,10 +1108,11 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
         pr.emit(e)
       pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
       out += ["", f"// {name}: the shared values, once a filter",
-              *_function(f"{name}_shared" if mixed else "gen_tile_shared",
-                         p_in + ["scalar_t* s"], pr.lines)]
+              *_function(f"{name}_shared" if mixed or epoch
+                         else "gen_tile_shared", p_in + ["scalar_t* s"],
+                         pr.lines)]
     out += _role_functions(name, p_upd, roles, dz, slots)
-    if mixed:
+    if mixed or epoch:
       out += _dispatch(f"{name}_update", p_upd + ["scalar_t* v"],
                        lambda r, n=name: f"{n}_r{r}", n_roles)
       out += _dispatch(f"{name}_update_store", p_store,
@@ -1093,7 +1126,16 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
     a = [f"R + {units[u][3]}" if v == "R" else v for v in _args(params)]
     return f"{fn}({lead}{', '.join(a)});"
 
-  if mixed:
+  if epoch:
+    for fn, params, lead in (
+        ("shared", p_in + ["scalar_t* s"], ""),
+        ("update", p_upd + ["scalar_t* v"], "r, "),
+        ("update_store", p_store, "r, ")):
+      out += _kind_dispatch(
+          f"gen_tile_{fn}", ([] if not lead else ["int r"]) + params,
+          [f"{u[0]}_{fn}({lead}{', '.join(_args(params))});" for u in units],
+          "u")
+  elif mixed:
     if staged:
       out += ["", "GEN_HD GEN_INLINE int gen_tile_nstages(int ki) {",
               "  switch (ki) {",
@@ -1138,6 +1180,8 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
           "#define REDNOSE_GENERIC_SCAN_TILE"]
   if mixed:
     out.append("#define REDNOSE_GENERIC_SCAN_TILE_KINDS")
+  if epoch:
+    out.append("#define REDNOSE_GENERIC_SCAN_TILE_EPOCH")
   if staged:
     out.append("#define REDNOSE_GENERIC_SCAN_TILE_STAGES")
   out += ["#define REDNOSE_GENERIC_SCAN_LOOPS",
@@ -1165,10 +1209,10 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
 
   mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over
   the units by the streamed kind index), 'epoch' (kernel 5: every unit in
-  order, one slot each, always the global form) or 'frame' (kernel 7: the
-  MSCKF camera frame of one feature kind); all but 'epoch' print the tile
-  form where it fits (tile_bytes), over TILE_ROLES_FRAME roles when a unit
-  is a camera frame, else TILE_ROLES. units: tuple of (kind, gate) pairs.
+  order, one slot each) or 'frame' (kernel 7: the MSCKF camera frame of
+  one feature kind); each prints the tile form where it fits (tile_bytes),
+  over TILE_ROLES_FRAME roles when a unit is a camera frame, else
+  TILE_ROLES. units: tuple of (kind, gate) pairs.
   A unit of an MSCKF feature kind is a camera frame (frame_phase: the
   projected update and the window augment); mode 'frame' is one such
   unit, and mode 'mixed' may hold them among its other units (kernel 6's
@@ -1256,9 +1300,9 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       done[(k, g, rp)] = _unit_name(k, g, f) + (f"_r{n}" if n else "")
     names.append(done[(k, g, rp)])
   pred, phases = None, {}
-  if tile and mode != "epoch":
+  if tile:
     # the tile form when 32 filters' P, x and the largest unit's scratch
-    # fit a block
+    # (and an epoch's staged inputs) fit a block
     pred = predict_phase(spec, structure, pnames, q_pattern)
     for (k, g), f, rp, name in zip(units, feature, r_patterns, names):
       if name not in phases:
@@ -1266,7 +1310,18 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                         else update_phase(spec, k, structure, pnames, g))
     nbytes = max(tile_bytes(spec, ph, scalar, has_frame)
                  for ph in phases.values())
-    if nbytes <= TILE_SMEM_MAX:
+    if mode == "epoch":
+      nbytes += epoch_input_bytes(nzrows, nearows, scalar)
+    if nbytes <= TILE_SMEM_MAX and mode == "epoch":
+      # one unit per distinct (kind, gate), and the slots' table
+      dz_of = {n: spec.obs[k].dz for n, (k, _) in zip(names, units)}
+      distinct = list(phases)
+      return "\n".join(head + _tile_source(
+          body, pred, [(n, phases[n], dz_of[n], 0, False) for n in distinct],
+          TILE_ROLES, smem=nbytes,
+          slot_table=[(distinct.index(n), u * max_dz, u * max_ea, r_off[u])
+                      for u, n in enumerate(names)]))
+    elif nbytes <= TILE_SMEM_MAX:
       return "\n".join(head + _tile_source(
           body, pred, [(n, phases[n], spec.obs[k].dz, o, f) for n, (k, _), o, f
                        in zip(names, units, r_off, feature)],

@@ -83,11 +83,10 @@ def r_pattern_of(R) -> object:
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
             r_patterns=None, scalar="float", tile=True):
-  """The variant's source. A variant printed in the global form only (mode
-  'epoch', or tile=False) differs between float and double only in its
-  REDNOSE_SCALAR line, so it is emitted once, for float; any other is
-  emitted per scalar type, since whether its tile fits in a block depends
-  on it."""
+  """The variant's source. A variant printed in the global form (tile=False)
+  differs between float and double only in its REDNOSE_SCALAR line, so it
+  is emitted once, for float; the tile form is emitted per scalar type,
+  since whether its tile fits in a block depends on it."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
@@ -157,15 +156,14 @@ class KernelCall:
 
   def source(self, dtype=torch.float32, tile=True) -> str:
     """The emitted CUDA source of this variant for a bank of dtype: the
-    tile form where it fits (not for mode 'epoch'), else the global form;
-    tile=False asks for the global form. _build.build_generated_many
-    compiles several at once."""
+    tile form where it fits, else the global form; tile=False asks for the
+    global form. _build.build_generated_many compiles several at once."""
     if dtype not in _SCALARS:
       raise ValueError(f"the generic kernels take float32 or float64, not "
                        f"{dtype}")
     args = (self.spec, self.mode, self._units(), self.structure,
             self._pnames, self.ps_keys, self._q_pattern, self._r_patterns)
-    if tile and self.mode != "epoch":
+    if tile:
       return _source(*args, scalar=_SCALARS[dtype])
     return _source(*args, tile=False).replace(
         "#define REDNOSE_SCALAR float",

@@ -16,10 +16,13 @@ reshapes to (5, B) exactly (rednose_tpu_torch/interop.py).
 
 `kinematic_bank_scan` is the wrapper: for CPU tensors it runs
 `kinematic_scan_reference`, the plain torch loop; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises. `launch_shape` reads the kernel's launch
+shape from the CUDA runtime.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -112,3 +115,16 @@ def kinematic_bank_scan(state, zs, dts, rs, q, maha: bool = False,
 
 
 kinematic_bank_scan.launches = 0
+
+
+def launch_shape() -> dict:
+  """The kernel's launch shape as the CUDA runtime reads it (entry
+  kinematic_bank_scan_info): warps and threads a block (a thread a
+  filter), dynamic shared memory bytes, blocks an SM holds, registers and
+  local (stack) bytes a thread, the steps a ring stage holds and the ring's
+  stages (csrc/kinematic_scan.cu)."""
+  out = (ctypes.c_int * 8)()
+  _build.check(_build.library().kinematic_bank_scan_info(
+      ctypes.addressof(out)), "kinematic_bank_scan_info")
+  return dict(zip(("warps", "threads", "smem_bytes", "blocks_per_sm",
+                   "registers", "local_bytes", "chunk_steps", "stages"), out))

@@ -1,41 +1,54 @@
 #!/usr/bin/env python3
-"""Measure kernels 2, 3, 4 and 6 at W = 1, 2, 4 and 8 warps a block, and
-kernels 7 and 6 with camera frames at W = 4, 8 and 16, on one card.
+"""Measure the design constants of the port's tile kernels on one card:
+kernels 2, 3, 4, 5 and 6 at W = 1, 2, 4 and 8 warps a block, kernels 7
+and 6 with camera frames at W = 4, 8 and 16, and kernel 1's ring.
 
-    python3 sweep_warps.py [--parent DIR] [--frames-only]   # repo root
+    python3 sweep_warps.py [--parent DIR] [--parts PART ...]   # repo root
 
-W is a constant of each source: `POS_WARPS` and `WARPS` in
-csrc/live_mixed.cuh (kernels 2 and 3, LiveKalmanBank.run and run_mixed;
-each build sets both), `TILE_ROLES` in ops/entry_slab.py (kernel 4, mode
-"single", and kernel 6, mode "mixed" without a camera-frame unit) and
+PART is one of live (kernels 2, 3, 4 and 6 on the live spec), frames
+(kernel 7 and kernel 6 with camera frames), kinematic (kernel 1) and
+epoch (kernel 5); all four by default. W is a constant of each source:
+`POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
+LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
+ops/entry_slab.py (kernel 4, mode "single", kernel 5, mode "epoch", and
+kernel 6, mode "mixed" without a camera-frame unit) and
 `TILE_ROLES_FRAME` (kernel 7, mode "frame", and kernel 6 with a
-camera-frame unit). This script builds each kernel at each W, all nvcc
-processes at once: kernels 2 and 3 from a copy of csrc/ with the constant
-replaced, kernels 4 and 6 by emitting the live spec's ECEF_POS variant
-(gate on) and its 4-kind mixed variant with the emitter's constant set,
-kernels 7 and 6 with frames by emitting both MSCKF models' frame and VIO
-variants likewise. It also builds the global form of each emitted
-variant (one thread a filter, P in global memory: the design before the
-tile), and of the camera-frame tiles at the shipped W two timing aids
-whose numbers are garbage: the tile without its innovation stages, and
-without its serial ones. Given --parent (a checkout of an earlier commit
-of this repository) it builds that commit's csrc/live_scan.cu, so the
-earlier kernels 2 and 3 run in the same call, and times kernels 4 and 5
-built with that commit's csrc/generic_scan.cuh and with this one's, in
-turns (template_ab). --frames-only skips kernels 2, 3, 4 and 6 on the
-live spec. Inputs are chip_smoke.py's: kernels 3 and 6 from the live bank
-after run_mixed over T = 1024 steps of the 4-kind schedule (B = 8192;
-kernel 3 with the gate on and the camera-rotation kind streaming its R),
-kernels 2 and 4 from the bank after the ECEF_POS run (gate on), kernels 7
-and 6 with frames from a fresh bank of B = 4096 on consistent frames
-(kernel 7 T = 16, kernel 6 the VIO schedule at T = 64). For each build it
-prints the time (CUDA events, mean of 5 launches after a warm-up) at that
-T and at T = 1, the largest difference from the plain version in
-standard deviations (utils/compare.py), ptxas (registers, stack, spill
-bytes), the runtime's blocks per SM and, for the emitted kernels, the
-emitted lines and nvcc seconds, and writes them all to
-build/sweep_warps/sweep_warps.json. Needs a CUDA card; imports nothing of
-JAX.
+camera-frame unit). Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
+csrc/kinematic_scan.cu (filters a block, steps a ring stage, stages).
+This script builds each kernel at each value, nvcc processes in
+parallel: kernels 1, 2 and 3 from a copy of their source with the
+constant replaced, the generic kernels by emitting their variants with
+the emitter's constant set (the live spec's ECEF_POS variant, gate on,
+and its 4-kind mixed variant; loc's 8-slot epoch in float32 and double;
+both MSCKF models' frame and VIO variants). It also builds the global
+form of each emitted variant (one thread a filter, P in global memory:
+the design before the tile), kernel 5's tile with its slot loop the
+other way (unrolled), and the timing aids, whose numbers are garbage:
+kernel 1 with
+its loads taken out (its recurrence floor), kernel 5's float32 tile at
+W = 1 and the shipped W without its shared functions, its update roles
+or its predict, and, of the camera-frame tiles at the shipped W, the tile
+without its innovation stages, and without its serial ones. Given --parent (a
+checkout of an earlier commit of this repository) it builds that
+commit's csrc/live_scan.cu and csrc/kinematic_scan.cu, so its kernels 1,
+2 and 3 run in the same call (kernel 1 timed in turns with this one and
+its output held bitwise against it), builds kernel 5's global form with
+that commit's csrc/generic_scan.cuh and times it in turns with the tile,
+and times kernels 4, 6 and 7 built with that template and with this one,
+in turns (template_ab). Inputs are chip_smoke.py's: kernel 1 at
+B = 16384, T = 4096, gate on; kernels 3 and 6 from the live bank after
+run_mixed over T = 1024 steps of the 4-kind schedule (B = 8192; kernel 3
+with the gate on and the camera-rotation kind streaming its R), kernels 2
+and 4 from the bank after the ECEF_POS run (gate on), kernel 5 on loc's
+local-scale case (loc_local_case, B = 8192, T = 64), kernels 7 and 6
+with frames from a fresh bank of B = 4096 on consistent frames (kernel 7
+T = 16, kernel 6 the VIO schedule at T = 64). For each build it prints
+the time (CUDA events, mean of 5-10 launches after a warm-up) at that T
+and at T = 1, the largest difference from the plain version in standard
+deviations (utils/compare.py), ptxas (registers, stack, spill bytes), the
+runtime's blocks per SM and, for the emitted kernels, the emitted lines
+and nvcc seconds, and writes them all to build/sweep_warps/sweep_warps.json.
+Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ SWEEP_DIR = ROOT / "build" / "sweep_warps"
 WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
+PARTS = ("live", "frames", "kinematic", "epoch")
 
 
 def build_k3(name, csrc, warps=None):
@@ -127,10 +141,14 @@ def k3_info(lib, entry):
   return cs.hand_kernel_info(lib, entry)
 
 
-def k4_source(call_fn, roles=None, global_form=False, **consts):
-  """The source of a kernel-4, 6 or 7 call emitted with the emitter's
+def k4_source(call_fn, roles=None, global_form=False, dtype=None,
+              **consts):
+  """The source of a kernel-4, 5, 6 or 7 call emitted with the emitter's
   constants set: roles into TILE_ROLES, consts (e.g. TILE_ROLES_FRAME) by
-  name, no shared memory for a tile with global_form."""
+  name, no shared memory for a tile with global_form; for a bank of dtype
+  (float32 unless given)."""
+  import torch
+
   from rednose_tpu_torch.ops import entry_slab, generic_scan as gs
 
   if roles is not None:
@@ -142,7 +160,7 @@ def k4_source(call_fn, roles=None, global_form=False, **consts):
     for k, v in consts.items():
       setattr(entry_slab, k, v)
     gs._source.cache_clear()
-    return call_fn().source()
+    return call_fn().source(dtype or torch.float32)
   finally:
     for k, v in saved.items():
       setattr(entry_slab, k, v)
@@ -257,6 +275,266 @@ def frame_sweep(torch, cases, sources):
   return results
 
 
+# ---------------------------------------------------------------- kernel 1
+# LANES (filters a block), CHUNK (steps a ring stage) and STAGES (ring
+# stages) of csrc/kinematic_scan.cu; a configuration is swept when the
+# blocks an SM that B = 16384 gives fit the SM's 228 KB of shared memory
+K1_LANES, K1_CHUNKS, K1_STAGES = (32, 64, 128), (32, 64, 128), (2, 3, 4)
+SM_SMEM, SMS = 228 * 1024, 132
+
+
+def k1_configs():
+  """Every (LANES, CHUNK, STAGES) of the sweep that fits."""
+  out = []
+  for lanes in K1_LANES:
+    per_sm = -(-cs.KIN_B // lanes // SMS)
+    for chunk in K1_CHUNKS:
+      for stages in K1_STAGES:
+        smem = stages * (chunk * lanes + 2 * chunk) * 4
+        if per_sm * smem <= SM_SMEM and smem <= 232_448:
+          out.append((lanes, chunk, stages))
+  return out
+
+
+def recurrence_floor(text):
+  """Kernel 1 with its loads taken out: no copies into the ring, z a value
+  of the step index and dt, r the first step's, read once into registers:
+  the time of the step's dependent chain alone (a timing aid; its numbers
+  are garbage)."""
+  text, n = re.subn(r"(\n\s*)stage_chunk\(ring", r"\1if (0) stage_chunk(ring",
+                    text)
+  reads = {"const float q00 = q[0], q01 = q[1], q11 = q[2];":
+               "const float q00 = q[0], q01 = q[1], q11 = q[2];\n"
+               "  const float dt0 = __ldg(dts), r0 = __ldg(rs);",
+           "const float dt = dtr[j];": "const float dt = dt0;",
+           "const float r = rr[j];": "const float r = r0;",
+           "const float z = zr[j * LANES + tid];":
+               "const float z = (float)(j & 7);"}
+  if n != 2 or not all(k in text for k in reads):
+    raise RuntimeError("kinematic_scan.cu: no ring copies and reads to take "
+                       "out")
+  for k, v in reads.items():
+    text = text.replace(k, v)
+  return text
+
+
+def build_k1(name, source, consts=None, floor=False):
+  """nvcc of a kinematic_scan.cu (its LANES, CHUNK, STAGES replaced when
+  consts gives them; its loads taken out with floor) into a directory of
+  its own: (library, ptxas lines, nvcc seconds)."""
+  from rednose_tpu_torch import _build
+
+  d = SWEEP_DIR / name
+  shutil.rmtree(d, ignore_errors=True)
+  d.mkdir(parents=True)
+  text = source.read_text()
+  for k, v in (consts or {}).items():
+    text, n = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {v};",
+                      text)
+    if n != 1:
+      raise RuntimeError(f"kinematic_scan.cu: no constant {k}")
+  if floor:
+    text = recurrence_floor(text)
+  (d / "kinematic_scan.cu").write_text(text)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+       str(d / "kinematic_scan.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  secs = time.perf_counter() - t0
+  if proc.returncode:
+    raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
+  lib = ctypes.CDLL(str(d / "lib.so"))
+  for fn in ("kinematic_bank_scan_launch", "kinematic_bank_scan_info"):
+    if hasattr(lib, fn):
+      getattr(lib, fn).argtypes = list(_build.SIGNATURES[fn])
+      getattr(lib, fn).restype = ctypes.c_int
+  return lib, kernel_ptxas(proc.stdout, "kinematic_bank_scan_kernel"), secs
+
+
+def k1_info(lib):
+  if not hasattr(lib, "kinematic_bank_scan_info"):
+    return None
+  out = (ctypes.c_int * 8)()
+  from rednose_tpu_torch import _build
+  _build.check(lib.kinematic_bank_scan_info(ctypes.addressof(out)), "info")
+  return dict(zip(("warps", "threads", "smem_bytes", "blocks_per_sm",
+                   "registers", "local_bytes", "chunk_steps", "stages"), out))
+
+
+def k1_sweep(torch, dev, gen, parent=None):
+  """Kernel 1 at B = 16384, T = 4096, gate on (chip_smoke's inputs) at
+  every configuration of k1_configs, its recurrence floor at the shipped
+  one and, with parent (a checkout), the parent commit's kernel 1, timed in
+  turns with the shipped one (parent, this, this, parent) and its output
+  held bitwise against it. Raw launches, mean of 10 after a warm-up."""
+  from rednose_tpu_torch.ops import kinematic_scan
+  from rednose_tpu_torch.utils.compare import kinematic_sigma_err
+
+  src = ROOT / "rednose_tpu_torch" / "csrc" / "kinematic_scan.cu"
+  jobs = {f"L={lanes} C={chunk} S={stages}": (
+      f"k1_{lanes}_{chunk}_{stages}", src,
+      dict(LANES=lanes, CHUNK=chunk, STAGES=stages))
+      for lanes, chunk, stages in k1_configs()}
+  jobs["shipped"] = ("k1_shipped", src, None)
+  jobs["recurrence floor (timing aid)"] = ("k1_floor", src, None, True)
+  if parent is not None:
+    jobs["parent"] = ("k1_parent", parent / "rednose_tpu_torch" / "csrc" /
+                      "kinematic_scan.cu", None)
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(8) as pool:
+    builds = {k: pool.submit(build_k1, *v) for k, v in jobs.items()}
+    builds = {k: b.result() for k, b in builds.items()}
+  cs.log(f"kernel 1: {len(builds)} builds in {time.perf_counter() - t0:.1f} s")
+  args = cs.kinematic_inputs(torch, dev, gen)
+  ref = kinematic_scan.kinematic_scan_reference(*args, maha=True)
+
+  def launch(lib, T=cs.KIN_T):
+    state, zs, dts, rs, q = args
+    return cs.kernel1_launch(lib, state, zs[:T], dts[:T], rs[:T], q)
+
+  shipped = launch(builds["shipped"][0])().clone()
+  results = {}
+  for name, (lib, ptx, secs) in builds.items():
+    out = launch(lib)()
+    ms, _ = cs.timed_run(launch(lib), 10)
+    ms1, _ = cs.timed_run(launch(lib, 1), 20)
+    err = max(kinematic_sigma_err(out, ref))
+    same = bool(torch.equal(out, shipped))
+    results[name] = dict(ms=ms, ms_T1=ms1, sigma_err=err,
+                         bitwise_as_shipped=same, ptxas=ptx, nvcc_s=secs,
+                         info=k1_info(lib))
+    cs.log(f"kernel 1 {name}: T={cs.KIN_T} {ms:.4f} ms, T=1 {ms1:.4f} ms, "
+           f"{err:.4g} sigma from plain, bitwise as shipped {same}; ptxas "
+           f"{ptx}; runtime {results[name]['info']}; nvcc {secs:.1f} s")
+  if parent is not None:
+    times = {"parent": [], "this": []}
+    for which in ("parent", "this", "this", "parent"):
+      lib = builds["parent" if which == "parent" else "shipped"][0]
+      times[which].append(cs.timed_run(launch(lib), 10)[0])
+    results["A/B"] = times
+    cs.log(f"kernel 1 in turns: parent {times['parent']} ms, this "
+           f"{times['this']} ms; output bitwise as the parent's "
+           f"{results['parent']['bitwise_as_shipped']}")
+  return results
+
+
+# ---------------------------------------------------------------- kernel 5
+
+def without_phase(src, phase):
+  """An epoch tile source whose phase does nothing (a timing aid; its
+  numbers are garbage): "shared" each unit's shared function, "update"
+  each unit's role functions and their stores, "predict" the predict's
+  role functions and their stores."""
+  pattern = {"shared": r"gen_update_\w+_shared",
+             "update": r"gen_update_\w+_r\d+(?:_store)?",
+             "predict": r"gen_predict_r\d+(?:_store)?"}[phase]
+  out, n = re.subn(rf"(GEN_HD GEN_INLINE void {pattern}\(.*\) \{{\n)",
+                   r"\g<1>  return;\n", src)
+  if not n:
+    raise ValueError(f"no {phase} functions in the source")
+  return out
+
+
+SLOT_UNROLLED = "#pragma unroll\n    for (int k = 0; k < NSLOTS; ++k) {"
+SLOT_ROLLED = "#pragma unroll 1\n    for (int k = 0; k < NSLOTS; ++k) {"
+
+
+def toggle_slot_unroll(template):
+  """(text, what it is): the template with its epoch loop over the slots
+  unrolled if it is not, and not unrolled (one copy of each unit's code,
+  switched on the slot's unit at run time) if it is."""
+  if SLOT_UNROLLED in template:
+    return template.replace(SLOT_UNROLLED, SLOT_ROLLED), "not unrolled"
+  if SLOT_ROLLED in template:
+    return template.replace(SLOT_ROLLED, SLOT_UNROLLED), "unrolled"
+  raise RuntimeError("generic_scan.cuh: no epoch slot loop")
+
+
+def epoch_sweep(torch, dev, gen, parent_template=None):
+  """Kernel 5 on loc (8 slots) in float32 and double: the tile at W = WS
+  and at W = 1, 2, 4 with its slot loop the other way (unrolled), the
+  float32 tile at W = 1 and the shipped W without one of its phases
+  (timing aids), and its global form (the design before, built with the parent's
+  template when given), at T = CMP_T and T = 1 (raw launches) on
+  chip_smoke's local-scale case (a converged bank, B = 8192), each against
+  the plain version of its dtype in sigmas; the shipped tile and the
+  global form also timed in turns (global, tile, tile, global)."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import entry_slab, generic_scan as gs
+
+  call = cs.loc_epoch_call()
+  case64 = cs.loc_local_case(torch, dev, gen)
+  srcs = {}
+  for dt in (torch.float32, torch.float64):
+    for w in WS:
+      srcs[(dt, f"W={w}")] = k4_source(cs.loc_epoch_call, roles=w, dtype=dt)
+    srcs[(dt, "global")] = call.source(dt, tile=False)
+  for w in (1, entry_slab.TILE_ROLES):
+    for phase in ("shared", "update", "predict"):
+      srcs[(torch.float32, f"W={w} without its {phase} phase")] = \
+          without_phase(k4_source(cs.loc_epoch_call, roles=w), phase)
+  t0 = time.perf_counter()
+  _build.build_generated_many(list(srcs.values()))
+  fns = {k: _build.generated_launcher(v) for k, v in srcs.items()}
+  # the slot loop the other way (unrolled or not), this tree's template
+  other = SWEEP_DIR / "k5_template" / "generic_scan.cuh"
+  other.parent.mkdir(parents=True, exist_ok=True)
+  text, label = toggle_slot_unroll(_build.TEMPLATE.read_text())
+  other.write_text(text)
+  with ThreadPoolExecutor(8) as pool:
+    jobs = {}
+    for dt in (torch.float32, torch.float64):
+      for w in WS[:3]:
+        key = (dt, f"W={w}, slot loop {label}")
+        srcs[key] = srcs[(dt, f"W={w}")]
+        jobs[key] = pool.submit(build_with_template,
+                                f"k5_{len(jobs)}_other", srcs[key], other)
+    fns |= {k: j.result() for k, j in jobs.items()}
+  if parent_template is not None:
+    with ThreadPoolExecutor(2) as pool:
+      jobs = {dt: pool.submit(build_with_template, f"k5_global_parent_{i}",
+                              srcs[(dt, "global")], parent_template)
+              for i, dt in enumerate((torch.float32, torch.float64))}
+      for dt, j in jobs.items():
+        fns[(dt, "global")] = j.result()
+  cs.log(f"kernel 5: built in {time.perf_counter() - t0:.1f} s")
+  results = {}
+  for dt in (torch.float32, torch.float64):
+    x, P, zs, eas, dts = (a.to(dt) for a in case64)
+    ref = gs._plain(call, x, P, zs, dts, eas, None)
+    name = str(dt).split(".")[-1]
+
+    def launch(key, n=cs.CMP_T, x=x, P=P, zs=zs, eas=eas, dts=dts):
+      return cs.generic_launch(srcs[key], call, x, P, zs[:n], dts[:n],
+                               eas=eas[:n], fn=fns[key])
+
+    for key in [k for k in srcs if k[0] == dt]:
+      out = launch(key)()
+      ms, _ = cs.timed_run(launch(key), REPS)
+      ms1, _ = cs.timed_run(launch(key, 1), 20)
+      err = float(cs.lane_errs(out, ref, call.spec).max())
+      report = _build.generated_ptxas(srcs[key])
+      info = _build.generated_info(srcs[key])
+      results[f"{name} {key[1]}"] = dict(
+          ms=ms, ms_T1=ms1, sigma_err=err, info=info,
+          ptxas=kernel_ptxas(report, "rn_generic"),
+          lines=len(srcs[key].splitlines()),
+          nvcc=[ln for ln in report.splitlines() if "nvcc wall" in ln])
+      cs.log(f"kernel 5 {name} {key[1]}: T={cs.CMP_T} {ms:.4f} ms, T=1 "
+             f"{ms1:.4f} ms, {err:.4g} sigma from plain; "
+             f"{results[f'{name} {key[1]}']}")
+    tile = (dt, f"W={entry_slab.TILE_ROLES}")
+    times = {"global": [], "tile": []}
+    for which in ("global", "tile", "tile", "global"):
+      key = (dt, "global") if which == "global" else tile
+      times[which].append(cs.timed_run(launch(key), REPS)[0])
+    results[f"{name} in turns"] = times
+    cs.log(f"kernel 5 {name} in turns: global form {times['global']} ms, "
+           f"tile {times['tile']} ms")
+  return results
+
+
 def build_with_template(name, source, template):
   """nvcc of an emitted source beside the given template, in a directory
   of its own: its rn_generic_scan_launch."""
@@ -280,59 +558,53 @@ def build_with_template(name, source, template):
 
 
 def template_ab(torch, dev, gen, parent_template):
-  """Kernels 4 and 5 as chip_smoke.py compares them (the live spec's
-  ECEF_POS tile, gate on, from the live x0 and P0; loc epochs in double),
-  each emitted source built with this tree's template and with the
-  parent's, timed in turns (parent, this, this, parent; raw launches, mean
-  of REPS after a warm-up). Their emitted text is the same in both
-  trees."""
+  """Kernels 4, 6 and 7, whose emitted text is the same in both trees, each
+  built with this tree's template and with the parent's and timed in turns
+  (parent, this, this, parent; raw launches, mean of REPS after a warm-up):
+  kernel 4 on the live spec's ECEF_POS tile (gate on) and kernel 6 on its
+  4-kind cycle, both from the live x0 and P0 at B = 8192, T = 64; kernel 7
+  on msckf_vo's frame tile as frame_cases gives it."""
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
   from rednose_tpu_torch.ops import generic_scan as gs, sparsity
 
   live_spec = cs.generic_models()[3]
-  LocKalman = cs.generic_models()[1]
   f32 = dict(dtype=torch.float32, device=dev)
-  f64 = dict(dtype=torch.float64, device=dev)
-  cases = {}
-  call4 = gs.KernelCall(
-      live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
-      R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
-      structure=sparsity.structure_for(live_spec, LiveKalman.initial_x))
   x = torch.as_tensor(LiveKalman.initial_x, **f32)[:, None].repeat(
       1, cs.LIVE_B)
   P = torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f32)[
       :, :, None].repeat(1, 1, cs.LIVE_B)
-  cases["kernel 4, live spec ECEF_POS, gate on"] = (
-      call4, call4.source(),
-      (x, P, (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
-              + 5.0 * torch.randn((cs.CMP_T, 3, cs.LIVE_B), generator=gen,
-                                  device=dev)).contiguous(),
-       torch.full((cs.CMP_T,), 0.01, **f32)), {})
-  call5 = cs.loc_epoch_call()
-  zs, eas = cs.loc_consistent_data(torch, dev, gen, cs.CMP_T,
-                                   len(cs.loc_slots()))
-  x = torch.as_tensor(LocKalman.initial_x, **f64)[:, None].repeat(
-      1, cs.GEN_B)
-  P = torch.as_tensor(np.diag(LocKalman.initial_P_diag), **f64)[
-      :, :, None].repeat(1, 1, cs.GEN_B)
-  cases["kernel 5, loc epochs, float64"] = (
-      call5, call5.source(torch.float64),
-      (x, P, zs.transpose(-1, -2).contiguous(),
-       torch.full((cs.CMP_T,), 0.1, **f64)),
-      dict(eas=eas.transpose(-1, -2).contiguous()))
+  dts = torch.full((cs.CMP_T,), 0.01, **f32)
+  call4 = gs.KernelCall(
+      live_spec, "single", (K.ECEF_POS,), Q=LiveKalman.Q,
+      R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=True,
+      structure=sparsity.structure_for(live_spec, LiveKalman.initial_x))
+  _, kind_idx, zs_m = cs.mixed_schedule(torch, dev, gen, cs.CMP_T)
+  call6 = cs.live_mixed_call()
+  k7 = frame_cases(torch, dev, gen)["kernel 7, msckf_vo"]
+  cases = {
+      "kernel 4, live spec ECEF_POS, gate on": (
+          call4, (x, P, (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[
+              :, None] + 5.0 * torch.randn((cs.CMP_T, 3, cs.LIVE_B),
+                                           generator=gen, device=dev)
+                         ).contiguous(), dts), {}),
+      "kernel 6, live spec 4-kind cycle": (
+          call6, (x, P, zs_m.permute(0, 2, 1).contiguous(), dts),
+          dict(kind_idx=torch.as_tensor(kind_idx, dtype=torch.int32,
+                                        device=dev))),
+      "kernel 7, msckf_vo frames": k7[:3]}
   with ThreadPoolExecutor(2 * len(cases)) as pool:
     fns = {(name, which): pool.submit(
-        build_with_template, f"ab_{i}_{which}", src,
+        build_with_template, f"ab_{i}_{which}", call.source(),
         parent_template if which == "parent" else _build.TEMPLATE)
-           for i, (name, (_, src, _, _)) in enumerate(cases.items())
+           for i, (name, (call, _, _)) in enumerate(cases.items())
            for which in ("parent", "this")}
     fns = {k: f.result() for k, f in fns.items()}
   out = {}
-  for name, (call, src, args, kw) in cases.items():
+  for name, (call, args, kw) in cases.items():
     times = {"parent": [], "this": []}
     for which in ("parent", "this", "this", "parent"):
-      ms, _ = cs.timed_run(cs.generic_launch(src, call, *args, **kw,
+      ms, _ = cs.timed_run(cs.generic_launch(call.source(), call, *args, **kw,
                                              fn=fns[(name, which)]), REPS)
       times[which].append(ms)
     out[name] = {k: sum(v) / len(v) for k, v in times.items()}
@@ -348,9 +620,10 @@ def main():
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 2 and "
                        "3 run beside these")
-  ap.add_argument("--frames-only", action="store_true",
-                  help="only kernel 7 and kernel 6 with camera frames (and "
-                       "the template A/B with --parent)")
+  ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
+                  help="what to sweep (default all): kernels 2, 3, 4 and 6 "
+                       "on the live spec, kernel 7 and kernel 6 with camera "
+                       "frames, kernel 1, kernel 5")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -363,23 +636,30 @@ def main():
   dev = torch.device("cuda", 0)
   gen = torch.Generator(device=dev)
   gen.manual_seed(cs.SEED)
-  cases = frame_cases(torch, dev, gen)
-  t0 = time.perf_counter()
-  fsrc = frame_sources(cases)
-  cs.log(f"frame variants emitted in {time.perf_counter() - t0:.1f} s")
+  parent_template = None if args.parent is None else (
+      args.parent / "rednose_tpu_torch" / "csrc" / "generic_scan.cuh")
   results = {"card": card}
-  if not args.frames_only:
+  if "kinematic" in args.parts:
+    results["kernel 1"] = k1_sweep(torch, dev, gen, args.parent)
+  if "epoch" in args.parts:
+    results["kernel 5"] = epoch_sweep(torch, dev, gen, parent_template)
+  fsrc = {}
+  if "frames" in args.parts:
+    cases = frame_cases(torch, dev, gen)
+    t0 = time.perf_counter()
+    fsrc = frame_sources(cases)
+    cs.log(f"frame variants emitted in {time.perf_counter() - t0:.1f} s")
+  if "live" in args.parts:
     results |= live_sweep(torch, args, fsrc)
-  else:
+  elif fsrc:
     t0 = time.perf_counter()
     _build.build_generated_many([s for v in fsrc.values()
                                  for s in v.values()])
     cs.log(f"built in {time.perf_counter() - t0:.1f} s")
-  results["frames"] = frame_sweep(torch, cases, fsrc)
+  if fsrc:
+    results["frames"] = frame_sweep(torch, cases, fsrc)
   if args.parent is not None:
-    results["template A/B"] = template_ab(
-        torch, dev, gen, args.parent / "rednose_tpu_torch" / "csrc" /
-        "generic_scan.cuh")
+    results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))
   print(card)

@@ -156,6 +156,74 @@ def test_facade_launches_the_kernels(cuda_device):
   assert int(bank.diverged().sum()) == 0
 
 
+def _loc_local_epochs(rng, T, B, far):
+  """GNSS epochs of 4 pseudoranges + 4 rates for loc receivers at rest at
+  the origin (zero clock), satellites 2 km away moving at ~30 m/s, noise at
+  0.3 of R's sigma (no distance near the gate's threshold, where two
+  float32 programs take a decision apart); with far, slot 1 of every 16th
+  lane 100 m off (rejected by a converged bank's gate): zs (T, 8, 1, B),
+  eas (T, 8, 6, B)."""
+  u = rng.randn(T, 8, B, 3)
+  sat = 2e3 * u / np.linalg.norm(u, axis=-1, keepdims=True)
+  vel = 30.0 * rng.randn(T, 8, B, 3)
+  rho = np.linalg.norm(sat, axis=-1)
+  rate = np.sum(sat / rho[..., None] * vel, axis=-1)
+  noise = 0.3 * rng.randn(T, 8, B)
+  zs = np.where(np.arange(8)[None, :, None] < 4, rho + 2.0 * noise,
+                rate + 0.05 * noise)
+  if far:
+    zs[:, 1, ::16] += 100.0
+  return (np.ascontiguousarray(zs[:, :, None, :]),
+          np.ascontiguousarray(np.concatenate([sat, vel], -1).swapaxes(-1,
+                                                                       -2)))
+
+
+@pytest.mark.cuda
+def test_kernel5_tile_on_loc_ragged_bank(cuda_device):
+  """Kernel 5's tile on loc's 8-slot epoch at a ragged bank (B = 8192 + 5:
+  a last block of 5 filters, rows not 16-B aligned, so the inputs are
+  staged a value a thread), from a bank the float64 plain version
+  converged: float32 within 1e-3 sigma of the float32 plain version, the
+  double build within 1e-6 sigma of the float64 one (utils/compare.py)."""
+  from rednose_tpu_torch.models.loc import LocKalman
+  from rednose_tpu_torch.models.live import ObservationKind as K
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  spec, B, T = LocKalman.build_spec(), 8192 + 5, 16
+  slots = (K.PSEUDORANGE_GPS,) * 4 + (K.PSEUDORANGE_RATE_GPS,) * 4
+  kw = dict(spec=spec, slot_kinds=slots, Q=LocKalman.Q,
+            R_list=[LocKalman.obs_noise[k] for k in slots],
+            structure=sparsity.structure_for(spec, LocKalman.initial_x))
+  call = generic_scan.KernelCall(spec, "epoch", slots, Q=kw["Q"],
+                                 R_list=kw["R_list"],
+                                 structure=kw["structure"])
+  assert "// design: tile" in call.source(torch.float32)
+  assert "// design: tile" in call.source(torch.float64)
+  rng = np.random.RandomState(7)
+  f64 = dict(dtype=torch.float64, device=cuda_device)
+  x = torch.zeros((spec.dim_x, B), **f64)
+  P = torch.as_tensor(np.diag(LocKalman.initial_P_diag), **f64)[
+      :, :, None].repeat(1, 1, B)
+  dts = torch.full((T,), 0.1, **f64)
+  zs, eas = (torch.as_tensor(a, **f64) for a in _loc_local_epochs(
+      rng, 2 * T, B, False))
+  x, P = generic_scan.generic_bank_scan_epoch_reference(
+      x, P, zs, torch.full((2 * T,), 0.1, **f64), eas=eas, **kw)
+  zs, eas = (torch.as_tensor(a, **f64) for a in _loc_local_epochs(
+      rng, T, B, True))
+  for dtype, tol in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
+    args = tuple(a.to(dtype) for a in (x, P, zs, dts))
+    n = generic_scan.generic_bank_scan_epoch.launches
+    out = generic_scan.generic_bank_scan_epoch(*args, eas=eas.to(dtype), **kw)
+    assert generic_scan.generic_bank_scan_epoch.launches == n + 1
+    ref = generic_scan.generic_bank_scan_epoch_reference(
+        *args, eas=eas.to(dtype), **kw)
+    assert out[0].dtype == dtype and torch.isfinite(out[1]).all()
+    assert torch.equal(out[1], out[1].transpose(0, 1))
+    ex, ep = lane_sigma_errs(spec, *out, *ref)
+    assert float(torch.maximum(ex, ep).max()) <= tol, dtype
+
+
 def _live_inputs(dev, T, B, seed):
   """A live-spec bank near the model's x0 with a well-conditioned P and
   ECEF_POS fixes 0.5 m around each lane's position, float32 on dev."""

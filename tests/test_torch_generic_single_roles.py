@@ -122,8 +122,11 @@ def test_roles_partition_the_upper_triangle(name):
 
 
 def test_other_modes_emit_no_role_section():
-  """Mode 'epoch' of live, car, loc and msckf_eskf prints the global form
-  only. A mode-'mixed' variant without a camera-frame unit (live, car,
+  """Mode 'epoch' of live, car, loc and msckf_eskf (float and double)
+  prints its tile (kernel 5: one shared function and one role set per
+  unit, the slot table, no gen_step), or, where its tile does not fit
+  (msckf_eskf in double), the global form, named; its tile is held in
+  tests/test_torch_generic_epoch_tile.py. A mode-'mixed' variant without a camera-frame unit (live, car,
   loc, msckf_eskf; float and double) prints one shared function and one
   role set per unit and switches them on the step's kind, or, where its
   tile does not fit (msckf_eskf in double), the global form, named.
@@ -157,10 +160,22 @@ def test_other_modes_emit_no_role_section():
     assert f32.count("GEN_PHASE void ") == 2    # the frame's serial stages
     assert "// design: global: the tile of 32 filters (443,648 B in " \
         "double)" in f64 and "gen_tile_" not in f64
-  for _, _, src in srcs:
-    assert "REDNOSE_GENERIC_SCAN_TILE" not in src
-    assert "gen_tile_" not in src and "_r0(" not in src
-    assert "// design:" not in src
+  for c, dt, src in srcs:
+    if c.spec.name == "msckf_eskf" and dt == torch.float64:
+      assert "// design: global: the tile of 32 filters" in src
+      assert "REDNOSE_GENERIC_SCAN_TILE" not in src
+      assert "gen_tile_" not in src and "_r0(" not in src
+      assert "GEN_INLINE void gen_step(" in src
+      continue
+    assert f"// design: tile, {entry_slab.TILE_ROLES} roles, " \
+        f"{len(c.kinds)} slots of " in src
+    assert "#define REDNOSE_GENERIC_SCAN_TILE_EPOCH" in src
+    assert f"constexpr int NSLOTS = {len(c.kinds)};" in src
+    assert "gen_step(" not in src
+    for k, g in set(c._units()):
+      name = entry_slab._unit_name(k, g)
+      assert src.count(f"void {name}_shared(") == 1
+      assert src.count(f"void {name}_r0(") == 1
   for c, dt, src in mixed:
     units = c._units()
     if c.spec.name == "msckf_eskf" and dt == torch.float64:

@@ -134,6 +134,30 @@ def test_kernel_matches_plain(cuda_device):
     assert max(kinematic_sigma_err(out, ref)) < 1e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("maha", [False, True])
+def test_kernel_ragged_shapes_match_plain(cuda_device, maha):
+  """The kernel against its plain version where the ring's chunks and the
+  blocks are ragged: T of 1, a chunk less one, a chunk and one, three
+  chunks and five; B of 1, 33, a block and 7 (B not a multiple of 4: the
+  copies go a value a thread) and two blocks and 4 (whole blocks copied
+  16 B a thread, the last block a value a thread)."""
+  shape = kinematic_scan.launch_shape()
+  C, L = shape["chunk_steps"], shape["threads"]
+  dev = dict(dtype=torch.float32, device=cuda_device)
+  for T in (1, C - 1, C + 1, 3 * C + 5):
+    for B in (1, 33, L + 7, 2 * L + 4):
+      dts, zs, rs = _sim(T, B, 12, 3.0 if maha else 0.5)
+      x0, P0 = _x0P0(B)
+      state = kinematic_scan.pack_state(torch.as_tensor(x0, **dev),
+                                        torch.as_tensor(P0, **dev))
+      args = (state, torch.as_tensor(zs, **dev), torch.as_tensor(dts, **dev),
+              torch.as_tensor(rs, **dev), torch.as_tensor(QV, **dev))
+      out = kinematic_scan.kinematic_bank_scan(*args, maha=maha)
+      ref = kinematic_scan.kinematic_scan_reference(*args, maha=maha)
+      assert max(kinematic_sigma_err(out, ref)) < 1e-3, (T, B)
+
+
 def test_wrapper_refuses_non_cpu_non_cuda():
   """No silent fallback: a tensor on neither the CPU nor a CUDA card is
   refused instead of run through the plain version."""

@@ -118,16 +118,17 @@ def host_launcher(source):
 
 def run_host(mode, spec, kinds, x, P, zs, dts, *, Q, R_list, params=None,
              gate=None, structure=None, eas=None, pss=None, ps_keys=(),
-             kind_idx=None):
+             kind_idx=None, tile=True):
   """The emitted variant of a generic wrapper call, built and run on the
   host in float64: x (dim_x, B), P (de, de, B), zs / eas in the wrappers'
-  bank-minor layout, all CPU float64. Returns the new (x, P)."""
+  bank-minor layout, all CPU float64; tile=False runs its global form.
+  Returns the new (x, P)."""
   from rednose_tpu_torch.ops import generic_scan
 
   call = generic_scan.KernelCall(
       spec, mode, kinds, Q=Q, R_list=R_list, params=params, gate=gate,
       structure=structure, ps_keys=ps_keys)
-  source = call.source(torch.float64)
+  source = call.source(torch.float64, tile=tile)
   prm, Qd, R_flat = call.values(torch.float64, "cpu")
   c = lambda t, dt=torch.float64: None if t is None else \
       torch.as_tensor(t, dtype=dt).contiguous()  # noqa: E731
