@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from the repository (rednose_tpu_torch/
 _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each). Then:
-  1. four main paths, each with every kernel's launch count set to 0
+  1. five main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (P shrinks, a late observation rewinds and
@@ -38,9 +38,27 @@ csrc/generic_scan.cuh, one nvcc each). Then:
        camera frame (its landmarks from the store's triangulations) and
        position fix, for both MSCKF models, healthy as above; the
        single-filter VisualOdometryPipeline on MSCKFEskf(device="cuda")
-       over the scenario of tests/test_vo_pipeline.py.
+       over the scenario of tests/test_vo_pipeline.py;
+     - offline smoother and migration, all on the card: LiveKalmanBank
+       (batch=8192) with an off-diagonal Q (full_q), run_mixed over T = 512
+       steps of the 4-kind cycle, run over T = 512 ECEF_POS steps, 8
+       observe calls with one late, healthy as above; bench.py:363-400's
+       live log (ECEF_POS and NO_ROT in turn, dt 0.01, T = 8192, float32)
+       through runtime/scan.build_scan_stream for 64 lanes at once;
+       rts_smooth and rts_smooth_parallel on lane 0, the parallel result
+       against the float64 sequential one within 3x the float32
+       sequential's own error (tests/test_rts_live.py:131-152);
+       rts_smooth_parallel_bank over all 64 lanes, three of them held
+       against their lane smoothed alone; the cold T = 600 log of
+       tests/test_rts_live.py in float64, refine = 8 within 1e-6 of the
+       sequential smoother; the gains step of every lane through the
+       blocked lane Cholesky and through torch.linalg; the migrated
+       kinematic filter of examples/run_compat_migration.py
+       (compat.EKF_sym_pyx, float64) on the reference's goldens, then its
+       smoother.
      Every kernel of a path must have launched in it; the VIO path
-     launches kernel 6 (its camera-frame branch) and no other.
+     launches kernel 6 (its camera-frame branch) and no other, the
+     offline path kernels 4 and 6 and no other.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
      at B = 8192, T = 64, kernel 7 at
@@ -59,7 +77,13 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      lanes over 100 m off is held against the plain version's. As a
      cross-check, the generic live kernels against the hand ones on the
      same inputs: kernel 4 (ECEF_POS, gate on) against kernel 2, kernel 6
-     against kernel 3 with its gate off.
+     against kernel 3 with its gate off. The full-Q variants (kernel 4,
+     and kernel 6 over all 8 live lane kinds, on the main path's 4-kind
+     cycle and on an 8-kind one) and their gate-on variants, on data far
+     past the gate on every 16th lane, against their plain versions at
+     T = 64 from kernel 3's state, at GEN_TOL; kernel 6's full-Q variant
+     also in double, with planted faults (a unit left out, Q's
+     velocity-acceleration coupling dropped or halved).
      Kernel 1's launch shape as the CUDA runtime reads it (its ring of
      chunks of zs in shared memory) and its raw-launch times at
      T = 4096 and T = 1. Kernels 2-7 keep P in shared memory (a tile of
@@ -194,6 +218,31 @@ STORE_TRACKS, STORE_FEATS, STORE_K = 6000, 3000, 4
 STORE_COHORT, STORE_M, STORE_FRAMES = 750, 768, 32
 TRI_CONVERGED, TRI_TOL_M = 0.99, 0.01
 VIO_T, VIO_CMP_T = 64, 16
+# the offline smoother and migration path: LiveKalmanBank with a full Q
+# (full_q) at LIVE_B, run_mixed and run FQ_T steps; bench.py:363-400's
+# live log at its default T = RTS_T through runtime/scan for RTS_B lanes,
+# smoothed on lane 0 and as a bank (each of three lanes against its lane
+# alone within BANK_SMOOTH_TOL of each component's scale, float32); the
+# cold T = REFINE_T log of tests/test_rts_live.py in float64, refine =
+# REFINE within REFINE_TOL of the sequential smoother
+FQ_T = 512
+RTS_T, RTS_B = 8192, 64
+BANK_SMOOTH_TOL = 1e-4
+REFINE_T, REFINE, REFINE_TOL = 600, 8, 1e-6
+# the full-Q comparisons: the 8-kind cycle's lanes move at 1 m/s on each
+# axis (at standstill the speed's Jacobian is singular); the camera
+# translation, which has no default noise, takes CAM_TRANS_R. On the gate
+# on data the near lanes' measurements are each kind's h at the lane's
+# input state, without noise (noise drawn for one kind moves the state
+# that a tighter kind sees: a gyro draw of 0.3 of its sigma puts NO_ROT
+# ~12 of its sigmas off, and some lanes near its threshold), and the
+# ECEF_POS rows of every FAR_EVERY-th lane FAR_SIGMA sigmas off: no gate
+# decision is near its threshold
+CAM_TRANS_R = 0.1**2
+GATE_NOISE, FAR_EVERY, FAR_SIGMA = 0.0, 16, 100.0
+# the scan stream's predict with the spec's closed-form F against jacfwd
+# of its error dynamics, on the first F_LANE_T steps of path (b)'s lanes
+F_LANE_T = 128
 # the least time the card could take (peak rates from NVIDIA's H100 SXM
 # data sheet): operations over the peak rate of their type, compulsory
 # bytes over the memory rate
@@ -799,7 +848,7 @@ def generic_calls(live_spec):
       "live run, gate on (kernel 4)": call(
           LiveKalman, live_spec, "single", (K.ECEF_POS,), gate=True),
       "live run_mixed (kernel 6)": live_mixed_call(),
-  }
+  } | full_q_calls()
 
 
 def generic_sources(live_spec):
@@ -1358,11 +1407,21 @@ def kernel_variants(torch, dev, gen, live_spec, states, reps=20):
               (T, 3, MSCKF_B), generator=gen, **f32)).contiguous(),
           torch.full((T,), MSCKF_DT, **f32), None, None, None),
   }
-  _, kind_idx, zs_m = mixed_schedule(torch, dev, gen, T)
+  kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, T)
   inputs["live run_mixed (kernel 6)"] = (
       *states["live_mixed"], zs_m.permute(0, 2, 1).contiguous(),
       torch.full((T,), 0.01, **f32), None, None,
       torch.as_tensor(kind_idx, dtype=torch.int32, device=dev))
+  # the full-Q variants on the same banks and data (kernel 6's kind_idx
+  # into its 8 kinds)
+  from rednose_tpu_torch.runtime.live_bank import LIVE_KINDS
+
+  inputs["live full Q run (kernel 4)"] = inputs[
+      "live run, gate on (kernel 4)"]
+  inputs["live full Q run_mixed / observe (kernel 6)"] = (
+      *inputs["live run_mixed (kernel 6)"][:6],
+      torch.as_tensor([LIVE_KINDS.index(kinds[i]) for i in kind_idx],
+                      dtype=torch.int32, device=dev))
   vio_ki = vio_kind_idx(T)
   for model in msckf_models():
     name = f"{model.name} run_mixed with frames (kernel 6)"
@@ -2106,6 +2165,569 @@ def compare_vio(torch, dev, gen, reps=10):
   return rows
 
 
+# ------------------------------------------- offline smoother and migration
+
+def full_q():
+  """LiveKalman.Q with velocity noise 0.1^2 and a symmetric velocity-
+  acceleration coupling of 0.15 (correlation 0.5): that block positive
+  definite, Q positive semidefinite (LiveKalman.Q keeps no attitude
+  noise)."""
+  from rednose_tpu_torch.models.live import LiveKalman
+
+  Q = np.array(LiveKalman.Q)
+  Q[6:9, 6:9] += 0.1**2 * np.eye(3)
+  for i in range(3):
+    Q[6 + i, 16 + i] = Q[16 + i, 6 + i] = 0.15
+  idx = [*range(6, 9), *range(16, 19)]
+  require(np.linalg.eigvalsh(Q[np.ix_(idx, idx)]).min() > 0,
+          "the velocity-acceleration block of the full Q is definite")
+  require(np.linalg.eigvalsh(Q).min() >= -1e-12 * np.abs(Q).max(),
+          "the full Q is positive semidefinite")
+  return Q
+
+
+def full_q_calls():
+  """Kernels 4 and 6 on the live spec with full_q(), as LiveKalmanBank
+  makes them on the card: run (ECEF_POS, gate off) and run_mixed / observe
+  (every live lane kind, LIVE_KINDS, gate off)."""
+  from rednose_tpu_torch.models.live import (
+      LiveKalman,
+      ObservationKind as K,
+      build_live_spec,
+  )
+  from rednose_tpu_torch.ops import generic_scan as gs, live_lane, sparsity
+  from rednose_tpu_torch.runtime.live_bank import LIVE_KINDS
+
+  spec = build_live_spec()
+  st = sparsity.structure_for(spec, LiveKalman.initial_x)
+  R = [np.atleast_2d(LiveKalman.obs_noise.get(
+      k, np.eye(live_lane.LANE_KINDS[k][0]))) for k in LIVE_KINDS]
+  return {
+      "live full Q run (kernel 4)": gs.KernelCall(
+          spec, "single", (K.ECEF_POS,), Q=full_q(),
+          R_list=(LiveKalman.obs_noise[K.ECEF_POS],), gate=False,
+          structure=st),
+      "live full Q run_mixed / observe (kernel 6)": gs.KernelCall(
+          spec, "mixed", LIVE_KINDS, Q=full_q(), R_list=R, gate=False,
+          structure=st),
+  }
+
+
+def full_q_cmp_calls():
+  """The comparison phase's own full-Q variants, float32: the gate=True
+  ones LiveKalmanBank makes, kernel 4 with the gate on and kernel 6 on
+  gated_live_spec() over LIVE_KINDS."""
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+  from rednose_tpu_torch.runtime.live_bank import gated_live_spec
+
+  c4, c6 = full_q_calls().values()
+  gspec = gated_live_spec()
+  return {
+      "live full Q run, gate on (kernel 4)": gs.KernelCall(
+          c4.spec, "single", c4.kinds, Q=c4.Q, R_list=c4.R_list, gate=True,
+          structure=c4.structure),
+      "live full Q run_mixed, gate on (kernel 6)": gs.KernelCall(
+          gspec, "mixed", c6.kinds, Q=c6.Q, R_list=c6.R_list, gate=True,
+          structure=sparsity.structure_for(gspec, LiveKalman.initial_x)),
+  }
+
+
+def refine_log(torch, dev, gen):
+  """tests/test_rts_live.py's cold T = REFINE_T log, float64 on the card:
+  ECEF_POS, PHONE_GYRO (a time-varying angular-rate command) and NO_ROT
+  in turn, dt 0.01, noise from gen. Returns (spec, stacks, ts)."""
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+
+  f64 = dict(dtype=torch.float64, device=dev)
+  spec = LiveKalman.build_spec()
+  kinds = (K.ECEF_POS, K.PHONE_GYRO, K.NO_ROT)
+  scan_fn, _ = build_scan_stream(spec, kinds)
+  T = REFINE_T
+  ts = (1 + torch.arange(T, **f64)) * 0.01
+  ki = np.arange(T) % 3
+  kt = torch.as_tensor(ki, device=dev)
+  omega = torch.stack([0.4 * torch.sin(0.5 * ts), 0.3 * torch.cos(0.8 * ts),
+                       0.2 * torch.ones_like(ts)], dim=1)
+  zs = torch.zeros((T, 3), **f64)
+  zs = torch.where((kt == 0)[:, None], torch.as_tensor(
+      LiveKalman.initial_x[0:3], **f64) + torch.randn(
+          (T, 3), generator=gen, **f64), zs)
+  zs = torch.where((kt == 1)[:, None], omega + 0.01 * torch.randn(
+      (T, 3), generator=gen, **f64), zs)
+  Rs = torch.stack([torch.diag(torch.full((3,), v, **f64))
+                    for v in (25.0, 0.025**2, 0.25**2)])[kt]
+  _, stacks = scan_fn(
+      {}, torch.as_tensor(LiveKalman.initial_x, **f64),
+      torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f64),
+      torch.as_tensor(LiveKalman.Q, **f64), torch.full((T,), 0.01, **f64),
+      ki, zs, Rs, torch.zeros((T, 1), **f64))
+  return spec, stacks, ts
+
+
+class _MigratedKinematic:
+  """examples/run_compat_migration.py's filter on the port: the
+  reference's kinematic example (examples/kinematic_kf.py:36-81) as a
+  KalmanFilter subclass whose generate_code builds sympy dynamics and
+  calls gen_code, with only the import line changed."""
+
+  @staticmethod
+  def build(dev):
+    import sympy as sp
+
+    from rednose_tpu_torch.compat import EKF_sym_pyx, gen_code
+    from rednose_tpu_torch.models.kalman_filter import KalmanFilter
+
+    class MigratedKinematicKalman(KalmanFilter):
+      name = 'kinematic_migrated'
+      initial_x = np.array([0.5, 0.0])
+      initial_P_diag = np.array([1.0**2, 1.0**2])
+      Q = np.diag([0.1**2, 2.0**2])
+      obs_noise = {1: np.atleast_2d(0.1**2)}
+
+      @staticmethod
+      def generate_code(generated_dir):
+        state_sym = sp.MatrixSymbol('state', 2, 1)
+        state = sp.Matrix(state_sym)
+        dt = sp.Symbol('dt')
+        state_dot = sp.Matrix(np.zeros((2, 1)))
+        state_dot[0, 0] = state[1, 0]
+        gen_code(generated_dir, MigratedKinematicKalman.name,
+                 state + dt * state_dot, dt, state_sym,
+                 [[sp.Matrix([state[0, 0]]), 1, None]], 2, 2)
+
+      def __init__(self, generated_dir=None):
+        self.generate_code(generated_dir)
+        self.filter = EKF_sym_pyx(
+            generated_dir, self.name, self.Q, self.initial_x,
+            np.diag(self.initial_P_diag), 2, 2, device=dev)
+
+    return MigratedKinematicKalman()
+
+
+def offline_path(torch, dev, gen):
+  """Phase 1, offline smoother and migration, all on the card: (a) the
+  full-Q live bank; (b) a live log through the scan stream for RTS_B
+  lanes; (c) rts_smooth and rts_smooth_parallel on lane 0; (d) the bank
+  smoother over every lane; (e) float64 refinement; (f) the gains step
+  against torch.linalg; (g) the migration demo and its smoother."""
+  import dataclasses
+
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import lane_bank
+  from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+  from rednose_tpu_torch.smoothing import rts
+
+  f32 = dict(dtype=torch.float32, device=dev)
+
+  def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+  # (a) the live bank with an off-diagonal Q: kernels 6 and 4
+  bank = LiveKalmanBank(batch=LIVE_B, Q=full_q(), device=dev)
+  kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, FQ_T)
+  ms_m, _ = timed(lambda: bank.run_mixed(np.full(FQ_T, 0.01), kind_idx,
+                                         zs_m, kinds))
+  pos = torch.as_tensor(LiveKalman.initial_x[0:3], **f32)
+  zs = pos + 5.0 * torch.randn((FQ_T, LIVE_B, 3), generator=gen, device=dev)
+  ms_r, _ = timed(lambda: bank.run(np.full(FQ_T, 0.01), zs))
+  rng = np.random.RandomState(SEED + 5)
+  t_base = bank.t
+  for i in (1, 2, 3, 5, 6, 4, 7, 8):  # the 6th call arrives late
+    z = LiveKalman.initial_x[0:3] + rng.normal(0, 5.0, (LIVE_B, 3))
+    require(bank.observe(t_base + 0.01 * i, K.ECEF_POS, z) is not None,
+            f"full-Q observe {i} applied")
+  require(abs(bank.t - (t_base + 0.08)) < 1e-9, "full-Q bank time")
+  require(bank.observe(t_base - 5.0, K.ECEF_POS, z) is None,
+          "a too-old full-Q observation is dropped")
+  torch.cuda.synchronize()
+  require(bool(torch.isfinite(bank._x).all()
+               and torch.isfinite(bank._P).all()), "full-Q bank finite")
+  require(torch.equal(bank._P, bank._P.transpose(0, 1)),
+          "full-Q bank P symmetric")
+  require(int(bank.diverged().sum()) == 0, "full-Q bank: no diverged lane")
+  sd = torch.diagonal(bank._P, dim1=0, dim2=1)[:, 0:3].sqrt()
+  err = (bank._x[0:3] - pos[:, None]).abs().T
+  require(bool((err < 8.0 * sd + 5.0).all()),
+          "the full-Q bank keeps the position")
+  log(f"full-Q live bank B={LIVE_B}: run_mixed T={FQ_T} {ms_m:.3f} ms, run "
+      f"T={FQ_T} {ms_r:.3f} ms (host clock, first calls), 8 observe; "
+      f"position sigma {float(sd.mean()):.4g} m, max error "
+      f"{float(err.max()):.4g} m")
+
+  # (b) bench.py:363-400's live log (ECEF_POS and NO_ROT in turn, dt
+  # 0.01) through the scan stream, RTS_B lanes at once: lane 0 is the
+  # single log, the others other noise draws
+  spec = LiveKalman.build_spec()
+  scan_fn, _ = build_scan_stream(spec, (K.ECEF_POS, K.NO_ROT))
+  T, B = RTS_T, RTS_B
+  ki = np.arange(T) % 2
+  is_pos = torch.as_tensor(ki == 0, device=dev)
+  zs = torch.where(is_pos[:, None, None], pos + torch.randn(
+      (T, B, 3), generator=gen, device=dev), torch.zeros((), **f32))
+  Rs = torch.where(is_pos[:, None, None],
+                   torch.diag(torch.full((3,), 25.0, **f32)),
+                   torch.diag(torch.full((3,), 0.00025**2, **f32)))
+  Q32 = torch.as_tensor(LiveKalman.Q, **f32)
+  dts_t = torch.full((T,), 0.01, **f32)
+  eas = torch.zeros((T, 1), **f32)
+  lanes = vmap(lambda x, P, z: scan_fn({}, x, P, Q32, dts_t, ki, z, Rs, eas),
+               in_dims=(0, 0, 1))
+  x0 = torch.as_tensor(LiveKalman.initial_x, **f32).expand(B, -1)
+  P0 = torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f32).expand(
+      B, -1, -1)
+  ms_scan, (_, stacks) = timed(lambda: lanes(x0, P0, zs))
+  require(all(bool(torch.isfinite(a).all()) for a in stacks),
+          "the scan stream's stacks are finite")
+  log(f"scan stream (runtime/scan.build_scan_stream, vmapped): B={B} lanes "
+      f"x T={T} live steps, float32, {ms_scan:.1f} ms (host clock), "
+      f"{B * T / ms_scan * 1e3:.1f} filter-steps/s")
+  # the scan's predict takes the spec's closed-form F (F_lane); the same
+  # spec without it takes jacfwd of the error dynamics: both on the first
+  # F_LANE_T steps of the same lanes, in the order a b b a
+  ms_f, x_f = {"F_lane": [], "jacfwd": []}, {}
+  for label in ("F_lane", "jacfwd", "jacfwd", "F_lane"):
+    sp = spec if label == "F_lane" else dataclasses.replace(spec, F_lane=None)
+    fn, _ = build_scan_stream(sp, (K.ECEF_POS, K.NO_ROT))
+    ms, ((x_f[label], _), _) = timed(lambda: vmap(
+        lambda x, P, z: fn({}, x, P, Q32, dts_t[:F_LANE_T], ki[:F_LANE_T], z,
+                           Rs[:F_LANE_T], eas[:F_LANE_T]),
+        in_dims=(0, 0, 1))(x0, P0, zs[:F_LANE_T]))
+    ms_f[label].append(ms)
+  log(f"scan stream predict's F, B={B} x T={F_LANE_T} (host clock, a b b "
+      f"a): F_lane {ms_f['F_lane']} ms ("
+      f"{min(ms_f['F_lane']) / F_LANE_T:.3f} ms a step), jacfwd "
+      f"{ms_f['jacfwd']} ms ({min(ms_f['jacfwd']) / F_LANE_T:.3f} ms a "
+      f"step); final states differ by "
+      f"{float((x_f['F_lane'] - x_f['jacfwd']).abs().max()):.4g}")
+
+  # (c) lane 0 smoothed sequentially and in parallel; both against the
+  # float64 sequential smoother of the same stacks, scaled per component
+  # (tests/test_rts_live.py:131-152): the parallel one-shot's error at
+  # most 3x the float32 sequential smoother's own + 1e-6
+  t64 = (1 + np.arange(T)) * 0.01
+  t = torch.as_tensor(t64, **f32)
+  dts = torch.as_tensor(np.diff(t64), **f32)
+  lane0 = tuple(a[0] for a in stacks)
+  ms_seq, (xs_s, _) = timed(lambda: rts.rts_smooth(
+      spec, {}, *lane0, t, norm_quats=True, dts=dts))
+  ms_par, (xs_p, Ps_p) = timed(lambda: rts.rts_smooth_parallel(
+      spec, {}, *lane0, t, norm_quats=True, dts=dts))
+  ms_o, (oracle, _) = timed(lambda: rts.rts_smooth(
+      spec, {}, *(a.double() for a in lane0),
+      torch.as_tensor(t64, dtype=torch.float64, device=dev),
+      norm_quats=True))
+  scale = oracle.abs().amax(dim=0).clamp(min=1.0)
+  err_seq = float(((oracle - xs_s.double()).abs() / scale).max())
+  err_par = float(((oracle - xs_p.double()).abs() / scale).max())
+  require(bool(torch.isfinite(xs_p).all() and torch.isfinite(Ps_p).all()),
+          "lane 0's parallel smoothing finite")
+  require(err_par < 3.0 * err_seq + 1e-6,
+          f"parallel float32 within 3x the sequential's error: {err_par} "
+          f"vs {err_seq}")
+  log(f"smoother, lane 0 (T={T}, float32, norm_quats): rts_smooth "
+      f"{ms_seq:.1f} ms ({T / ms_seq * 1e3:.1f} smoothed steps/s), "
+      f"rts_smooth_parallel {ms_par:.1f} ms ({T / ms_par * 1e3:.1f} "
+      f"smoothed steps/s) (host clock, first calls); the float64 "
+      f"sequential oracle {ms_o:.1f} ms; scaled error against it: "
+      f"sequential {err_seq:.4g}, parallel {err_par:.4g} (bound "
+      f"{3.0 * err_seq + 1e-6:.4g})")
+
+  # (d) every lane smoothed in one call; three lanes held against
+  # rts_smooth_parallel of the lane alone
+  torch.cuda.reset_peak_memory_stats(dev)
+  ms_b, (xs_b, Ps_b) = timed(lambda: rts.rts_smooth_parallel_bank(
+      spec, {}, *stacks, t.expand(B, T), norm_quats=True,
+      dts=dts.expand(B, T - 1)))
+  peak = torch.cuda.max_memory_allocated(dev)
+  stack_bytes = sum(a.numel() * a.element_size() for a in stacks)
+  for lane in (0, B // 2, B - 1):
+    xl, Pl = rts.rts_smooth_parallel(spec, {}, *(a[lane] for a in stacks),
+                                     t, norm_quats=True, dts=dts)
+    ex = float(((xs_b[lane] - xl).abs()
+                / xl.abs().amax(dim=0).clamp(min=1.0)).max())
+    ep = float((Ps_b[lane] - Pl).abs().max() / Pl.abs().max())
+    log(f"bank smoother lane {lane} against rts_smooth_parallel alone: "
+        f"state {ex:.4g}, covariance {ep:.4g} (scaled; tolerance "
+        f"{BANK_SMOOTH_TOL})")
+    require(ex <= BANK_SMOOTH_TOL and ep <= BANK_SMOOTH_TOL,
+            f"bank smoother lane {lane} equals its lane alone")
+  log(f"bank smoother (rts_smooth_parallel_bank) B={B} x T={T}, float32: "
+      f"{ms_b:.1f} ms (host clock, first call), "
+      f"{B * T / ms_b * 1e3:.1f} smoothed steps/s; stacks "
+      f"{stack_bytes / 2**30:.2f} GiB, peak device memory "
+      f"{peak / 2**30:.2f} GiB")
+  del xs_b, Ps_b
+
+  # (e) float64 refinement on the card: the cold log, refine = 8 against
+  # the sequential smoother
+  spec, stacks64, ts = refine_log(torch, dev, gen)
+  q = stacks64[2][:, 3:7]
+  require(float((q.amax(dim=0) - q.amin(dim=0)).max()) > 0.3,
+          "the refinement log rotates")
+  xs_s, Ps_s = rts.rts_smooth(spec, {}, *stacks64, ts, norm_quats=True)
+  ms_ref, (xs_r, Ps_r) = timed(lambda: rts.rts_smooth_parallel(
+      spec, {}, *stacks64, ts, norm_quats=True, refine=REFINE))
+  _, (xs_0, _) = timed(lambda: rts.rts_smooth_parallel(
+      spec, {}, *stacks64, ts, norm_quats=True, refine=0))
+  dev_r = float((xs_s - xs_r).abs().max())
+  log(f"float64 refinement (T={REFINE_T} cold log): refine={REFINE} "
+      f"{ms_ref:.1f} ms, state deviation from sequential {dev_r:.4g} "
+      f"(tolerance {REFINE_TOL}), covariance "
+      f"{float((Ps_s - Ps_r).abs().max()):.4g}; one-shot "
+      f"{float((xs_s - xs_0).abs().max()):.4g}")
+  require(dev_r < REFINE_TOL, "refine = 8 converges to the sequential")
+
+  # (f) the gains step over every lane: solve P_{k+1|k} X = F_k P_k^T
+  # through the blocked lane Cholesky, and through torch.linalg on the
+  # same batch
+  spec = LiveKalman.build_spec()
+  xf, Pp, Pf = stacks[2], stacks[1], stacks[3]
+  N = B * (T - 1)
+  F = spec.F_lane({}, xf[:, :-1].reshape(N, -1).T,
+                  dts.repeat(B))                       # (22, 22, N)
+  Pk = Pf[:, :-1].reshape(N, 22, 22).permute(1, 2, 0)
+  Pk1 = Pp[:, 1:].reshape(N, 22, 22).permute(1, 2, 0).contiguous()
+  rhs = lane_bank._mm_t(F, Pk)
+  Pk1_b = Pk1.permute(2, 0, 1).contiguous()
+  rhs_b = rhs.permute(2, 0, 1).contiguous()
+  ms_g, X = timed_run(lambda: lane_bank.cho_solve_lane_blocked(
+      lane_bank.cholesky_lane_blocked(Pk1), rhs), 3)
+  ms_l, X_l = timed_run(lambda: torch.cholesky_solve(
+      rhs_b, torch.linalg.cholesky(Pk1_b)), 3)
+  gains_err = float((X.permute(2, 0, 1) - X_l).abs().max()
+                    / X_l.abs().max())
+  log(f"gains step, {N} systems of 22 (B={B} x T-1={T - 1}), float32: "
+      f"cholesky_lane_blocked + cho_solve_lane_blocked {ms_g:.3f} ms, "
+      f"torch.linalg.cholesky + torch.cholesky_solve {ms_l:.3f} ms (CUDA "
+      f"events, mean of 3); max difference {gains_err:.4g} of the largest "
+      "entry")
+  require(gains_err < 1e-3, "the blocked lane Cholesky solves the gains")
+  del X, X_l, rhs, rhs_b, F, Pk1, Pk1_b, stacks
+
+  # (g) the migration demo on the card, then its smoother
+  np.random.seed(0)
+  kf = _MigratedKinematic.build(dev)
+  ts_k = np.arange(0, 5, step=0.01)
+  x, estimates = 0.0, []
+  t0 = time.perf_counter()
+  for tk, v in zip(ts_k, np.sin(ts_k * 5)):
+    estimates.append(kf.predict_and_observe(tk, 1, [np.random.normal(x,
+                                                                     0.1)]))
+    x += v * 0.01
+  torch.cuda.synchronize()
+  ms_k = (time.perf_counter() - t0) * 1e3
+  require(kf.filter.x.is_cuda, "the migrated filter runs on the card")
+  require(abs(kf.x[0] - -0.010866289677966417) < 1e-7
+          and abs(kf.x[1] - -0.8553720537261753) < 1e-7,
+          f"the migrated filter hits the reference's goldens: {kf.x}")
+  ms_sm, smoothed = timed(lambda: kf.filter.rts_smooth(estimates))
+  xs_k = np.stack([s[0] for s in smoothed])
+  require(len(smoothed) == len(estimates) and np.isfinite(xs_k).all(),
+          "the migrated filter's smoother")
+  log(f"migration demo (compat.EKF_sym_pyx, sympy kinematic filter, "
+      f"float64 on the card): {len(ts_k)} observations {ms_k:.1f} ms, "
+      f"final x {kf.x.tolist()} (the reference's goldens to 1e-7); "
+      f"rts_smooth {ms_sm:.1f} ms")
+  return {}
+
+
+def full_q_data(torch, x, T, kinds, R_list, noise, gen, far_every=0,
+                dt=0.01):
+  """A schedule cycling through `kinds` (kind_idx t % len(kinds)) for the
+  bank state x (23, B), moved to a constant 1 m/s on each axis (angular
+  velocity and acceleration 0): each kind's z is its h at the lane's
+  state at that step (the position carried forward by the velocity; the
+  rest stays) plus `noise` of the kind's sigma (from R_list); on every
+  far_every-th lane the ECEF_POS rows sit FAR_SIGMA sigmas off. Returns
+  (x, kind_idx (T,) int32, zs (T, 3, B)), in x's dtype."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import (
+      ObservationKind as K,
+      build_live_spec,
+  )
+
+  spec = build_live_spec()
+  dev, B = x.device, x.shape[1]
+  x = x.clone()
+  x[7:10], x[10:13], x[17:20] = 1.0, 0.0, 0.0
+  xs = x.double().T
+  H = torch.zeros((len(kinds), B, 3), dtype=torch.float64, device=dev)
+  sig = torch.zeros((len(kinds), 3), dtype=torch.float64, device=dev)
+  for i, k in enumerate(kinds):
+    om = spec.obs[k]
+    H[i, :, :om.dz] = vmap(lambda xx: om.h({}, xx, None).reshape(-1))(xs)
+    sig[i, :om.dz] = torch.as_tensor(np.sqrt(np.diag(np.atleast_2d(
+        R_list[i]))), device=dev)
+  kind_idx = np.arange(T) % len(kinds)
+  ki = torch.as_tensor(kind_idx, device=dev)
+  zs = H[ki] + noise * sig[ki][:, None, :] * torch.randn(
+      (T, B, 3), generator=gen, device=dev, dtype=torch.float64)
+  i = kinds.index(K.ECEF_POS)
+  rows = ki == i
+  step = torch.arange(1, T + 1, dtype=torch.float64, device=dev)
+  zs[rows] += (dt * step[rows])[:, None, None] * xs[None, :, 7:10]
+  if far_every:
+    far = torch.arange(B, device=dev) % far_every == 0
+    zs[rows[:, None] & far[None, :]] += FAR_SIGMA * sig[i]
+  return (x, torch.as_tensor(kind_idx, dtype=torch.int32, device=dev),
+          zs.to(x.dtype).permute(0, 2, 1).contiguous())
+
+
+def compare_full_q(torch, dev, gen, hand_states, reps=5):
+  """Phase 2, the full-Q variants against their plain versions at T =
+  CMP_T from kernel 3's converged state, float32 at GEN_TOL (the live
+  spec rows' limit): kernel 4 and kernel 6 as the main path makes them
+  (kernel 6 on the main path's 4-kind cycle and on all 8 live kinds), and
+  their gate=True variants on data far past the gate on every FAR_EVERY-th
+  lane, where the gate must act. Then kernel 6 over the 8 kinds in double
+  at LIVE64_TOL, with planted faults (each unit left out: its R scaled by
+  1e12; Q's velocity-acceleration coupling dropped, scaled by 1e-9, or
+  halved; run-time values, the same build) that must exceed it."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime.live_bank import LIVE_KINDS
+
+  calls = full_q_calls()
+  c4 = calls["live full Q run (kernel 4)"]
+  c6 = calls["live full Q run_mixed / observe (kernel 6)"]
+  g4, g6 = full_q_cmp_calls().values()
+  live_spec = c4.spec
+  f32 = dict(dtype=torch.float32, device=dev)
+  dts = torch.full((CMP_T,), 0.01, **f32)
+  x, P = hand_states["live_bank_scan_mixed"][:2]
+  rows, checks = [], []
+  zs = (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[:, None]
+        + 5.0 * torch.randn((CMP_T, 3, GEN_B), generator=gen,
+                            device=dev)).contiguous()
+  kw4 = dict(spec=live_spec, kind=K.ECEF_POS, Q=c4.Q, R=c4.R_list[0],
+             gate=False, structure=c4.structure)
+  row, _, _ = kernel_vs_plain(
+      "generic_bank_scan", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:199", live_spec, gs.generic_bank_scan,
+      gs.generic_bank_scan_reference, (x, P, zs, dts), kw4,
+      f"live spec, full Q, B={GEN_B} T={CMP_T}, from kernel 3's state",
+      step_ops(c4.counting_source(), (K.ECEF_POS,)) * CMP_T * GEN_B,
+      checks=checks, reps=reps)
+  rows.append(row)
+  kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, CMP_T)
+  ki = torch.as_tensor([LIVE_KINDS.index(kinds[i]) for i in kind_idx],
+                       dtype=torch.int32, device=dev)
+  kw6 = dict(spec=live_spec, kinds=LIVE_KINDS, Q=c6.Q, R_list=c6.R_list,
+             gate=False, structure=c6.structure)
+  row, _, _ = kernel_vs_plain(
+      "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:250", live_spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      (x, P, zs_m.permute(0, 2, 1).contiguous(), dts, ki), kw6,
+      f"live spec, full Q, B={GEN_B} T={CMP_T}, 4 of its 8 kinds, from "
+      "kernel 3's state",
+      step_ops(c6.counting_source(), kinds, "mixed") * CMP_T * GEN_B,
+      checks=checks, reps=reps)
+  rows.append(row)
+
+  # every unit of the 8-kind variant: the camera translation with an
+  # explicit R, as run_mixed's R_by_kind gives it
+  R8 = [CAM_TRANS_R * np.eye(3) if k == K.CAMERA_ODO_TRANSLATION else R
+        for k, R in zip(LIVE_KINDS, c6.R_list)]
+  kw8 = kw6 | dict(R_list=R8)
+  x8, ki8, zs8 = full_q_data(torch, x, CMP_T, LIVE_KINDS, R8, 1.0, gen)
+  ops8 = step_ops(c6.counting_source(), LIVE_KINDS, "mixed") * CMP_T * GEN_B
+  row, _, _ = kernel_vs_plain(
+      "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:250", live_spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      (x8, P, zs8, dts, ki8), kw8,
+      f"live spec, full Q, B={GEN_B} T={CMP_T}, all 8 kinds, from kernel "
+      "3's state at 1 m/s", ops8, checks=checks, reps=reps)
+  rows.append(row)
+
+  # the gate=True variants: far lanes must come out of the gate other
+  # than out of the same plain version with the gate off
+  far = torch.arange(GEN_B, device=dev) % FAR_EVERY == 0
+  gated = (
+      ("generic_bank_scan", "rednose_tpu/ops/pallas_bank.py:199", g4,
+       gs.generic_bank_scan, gs.generic_bank_scan_reference,
+       (K.ECEF_POS,), dict(spec=g4.spec, kind=K.ECEF_POS, Q=g4.Q,
+                           R=g4.R_list[0], structure=g4.structure)),
+      ("generic_bank_scan_mixed", "rednose_tpu/ops/pallas_bank.py:250", g6,
+       gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+       LIVE_KINDS, dict(spec=g6.spec, kinds=LIVE_KINDS, Q=g6.Q, R_list=R8,
+                        structure=g6.structure)))
+  for name, replaces, call, kernel, plain, gkinds, kw in gated:
+    R_list = [kw["R"]] if "R" in kw else kw["R_list"]
+    xg, kig, zsg = full_q_data(torch, x, CMP_T, gkinds, R_list, GATE_NOISE,
+                               gen, far_every=FAR_EVERY)
+    args = (xg, P, zsg, dts) + ((kig,) if len(gkinds) > 1 else ())
+    mode = "mixed" if len(gkinds) > 1 else "single"
+    row, _, out_p = kernel_vs_plain(
+        name, "rednose_tpu_torch/csrc/generic_scan.cuh", replaces,
+        live_spec, kernel, plain, args, kw | dict(gate=True),
+        f"live spec, full Q, gate on, B={GEN_B} T={CMP_T}, {len(gkinds)} "
+        f"kind(s), ECEF_POS {FAR_SIGMA:g} sigma off on every "
+        f"{FAR_EVERY}th lane", step_ops(call.counting_source(), gkinds,
+                                         mode) * CMP_T * GEN_B,
+        checks=checks, reps=reps)
+    rows.append(row)
+    open_ = plain(*args, **(kw | dict(spec=live_spec, gate=False)))
+    moved = lane_errs(out_p, open_, live_spec)
+    ok = bool((moved[far] > 1.0).all()) and float(moved[~far].max()) <= \
+        GEN_TOL
+    log(f"{name} gate on [{len(gkinds)} kind(s)]: against the gate off, "
+        f"far lanes moved min {float(moved[far].min()):.4g} sigma (must "
+        f"exceed 1), near lanes max {float(moved[~far].max()):.4g} sigma "
+        f"(must stay within {GEN_TOL}: no near lane gated) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    checks.append((f"{name} gate on rejects the far lanes only", ok))
+
+  # kernel 6's full-Q variant in double over the 8 kinds, and planted
+  # faults beyond LIVE64_TOL with no extra build
+  x64, ki64, zs64 = full_q_data(torch, x.double(), CMP_T, LIVE_KINDS, R8,
+                                1.0, gen)
+  args64 = (x64, P.double(), zs64, dts.double(), ki64)
+  _, _, ref64 = kernel_vs_plain(
+      "generic_bank_scan_mixed", "", "", live_spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      args64, kw8, f"live spec, full Q, B={GEN_B} T={CMP_T}, all 8 kinds, "
+      "float64", ops8, tol=LIVE64_TOL, checks=checks, reps=reps)
+  builds = _build.generated_launcher.cache_info().currsize
+  faults = {}
+  for u, k in enumerate(LIVE_KINDS):
+    faults[f"unit {u} (kind {int(k)}) left out"] = kw8 | dict(
+        R_list=[R * (1e12 if j == u else 1.0) for j, R in enumerate(R8)])
+  for label, scale in (("dropped", 1e-9), ("halved", 0.5)):
+    Qf = full_q()
+    for i in range(3):
+      Qf[6 + i, 16 + i] = Qf[16 + i, 6 + i] = Qf[6 + i, 16 + i] * scale
+    faults[f"Q's velocity-acceleration coupling {label}"] = kw8 | dict(Q=Qf)
+  miss = {name: float(lane_errs(gs.generic_bank_scan_mixed(*args64, **kw),
+                                ref64, live_spec).max())
+          for name, kw in faults.items()}
+  least = min(miss, key=miss.get)
+  ok = (miss[least] > LIVE64_TOL
+        and _build.generated_launcher.cache_info().currsize == builds)
+  for name, m in miss.items():
+    log(f"  planted fault, {name}: {m:.4g} sigma")
+  log(f"generic_bank_scan_mixed planted faults [live spec, full Q, 8 kinds, "
+      f"float64]: {len(miss)} faults, the least visible ({least}) at "
+      f"{miss[least]:.4g} sigma, must exceed {LIVE64_TOL}, with no extra "
+      f"build -> {'ok' if ok else 'FAIL'}")
+  checks.append(("full-Q planted faults beyond the limit", ok))
+  require(all(ok for _, ok in checks),
+          f"the full-Q kernels agree with their plain versions: {checks}")
+  return rows
+
+
 def main():
   import torch
 
@@ -2133,7 +2755,12 @@ def main():
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
                    loc_epoch_call().source(torch.float64),
                    "live run_mixed, float64 (kernel 6)":
-                   live_mixed_call().source(torch.float64)}
+                   live_mixed_call().source(torch.float64),
+                   "live full Q run_mixed, float64 (kernel 6)":
+                   full_q_calls()["live full Q run_mixed / observe "
+                                  "(kernel 6)"].source(torch.float64)}
+    cmp_sources |= {name: c.source()
+                    for name, c in full_q_cmp_calls().items()}
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),
                          ("run_mixed with frames", vio_call(model))):
@@ -2162,7 +2789,7 @@ def main():
 
   dev = torch.device("cuda", 0)
   gens = []
-  for i in range(4):
+  for i in range(5):
     # each path draws from a generator of its own, so a path sees the same
     # data whether or not the others run
     gens.append(torch.Generator(device=dev))
@@ -2180,6 +2807,11 @@ def main():
       # the VIO path launches kernel 6 (camera-frame branch) and no other
       ("VIO", lambda: vio_main_path(torch, dev, gens[3]),
        (g.generic_bank_scan_mixed,)),
+      # the full-Q live bank runs kernels 4 and 6, never 2 and 3; the
+      # smoother and the front end run plain torch on the card
+      ("offline smoother and migration",
+       lambda: offline_path(torch, dev, gens[4]),
+       (g.generic_bank_scan, g.generic_bank_scan_mixed)),
   )
   wrappers = {w for _, _, ws in paths for w in ws}
   launches, states = {w.__name__: 0 for w in wrappers}, []
@@ -2191,19 +2823,20 @@ def main():
     log(f"{name} path launches: {counts}")
     require(all(counts[w.__name__] > 0 for w in expected),
             f"every kernel of the {name} path launched: {counts}")
-    if name == "VIO":
+    if name in ("VIO", "offline smoother and migration"):
       require(all(counts[w.__name__] == 0 for w in wrappers
                   if w not in expected),
-              f"the VIO path launched only its kernel: {counts}")
+              f"the {name} path launched only its kernels: {counts}")
     for w in wrappers:
       launches[w.__name__] += counts[w.__name__]
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
 
-  live_states, generic_states, _, _ = states
+  live_states, generic_states = states[:2]
   rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
   rows += compare_generic(torch, dev, gens[1], generic_states, live_states)
+  rows += compare_full_q(torch, dev, gens[4], live_states)
   kernel_variants(torch, dev, gens[1], live_spec, generic_states)
   rows += compare_msckf(torch, dev, gens[2])
   rows += compare_vio(torch, dev, gens[3])

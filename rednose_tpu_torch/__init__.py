@@ -1,8 +1,9 @@
 """rednose_tpu_torch: the PyTorch + CUDA port of rednose_tpu.
 
 The JAX package `rednose_tpu` is the reference; this package keeps its
-module tree (core/, ops/, runtime/, models/, utils/) so each module's
-counterpart sits at the same path. It imports torch and numpy, never jax.
+module tree (core/, ops/, runtime/, models/, msckf/, smoothing/,
+frontend/, helpers/, utils/, compat.py) so each module's counterpart sits
+at the same path. It imports torch and numpy, never jax.
 The hot bank paths run hand-written CUDA kernels (csrc/, built by
 _build.py at first use) on CUDA tensors, and their plain torch versions
 on CPU tensors.

@@ -62,6 +62,23 @@ class ObservationModel:
     return self.ea_dim > 0
 
 
+class ParamsRoutine:
+  """An extra routine that takes the engine's params as its first argument.
+
+  FilterEngine.get_extra_routine applies the engine's *current* params at
+  every call, so set_global updates reach it, as the reference's generated
+  routines read the live C globals (ekf_sym.py:109-113, 129-132). Plain
+  callables in extra_routines are returned as they are."""
+
+  __slots__ = ("fn",)
+
+  def __init__(self, fn):
+    self.fn = fn
+
+  def __call__(self, params, *args):
+    return self.fn(params, *args)
+
+
 def _default_err(params, x, dx):
   del params
   return x + dx
@@ -89,6 +106,11 @@ class FilterSpec:
   H_mod: Callable | None = None  # H_mod(params, x) -> (dim_x, dim_err)
   f_err: Callable | None = None  # error dynamics; F = d f_err / d dx at dx=0
   quaternion_idxs: Sequence[int] = ()
+
+  # optional closed-form lane-major F: F_lane(params, x (dim_x, *b), dt
+  # scalar or (*b)) -> (de, de, *b), equal to F; the smoother's gains pass
+  # takes it in place of a jacfwd per step
+  F_lane: Callable | None = None
 
   # MSCKF sliding-window dims (msckf_params, ekf_sym.py:57-66)
   dim_main: int | None = None

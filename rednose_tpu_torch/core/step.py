@@ -62,10 +62,13 @@ def _solve(a, b):
   return torch.linalg.solve(a, b)
 
 
-def predict(spec: FilterSpec, params, x, P, Q, dt, normalize: bool = True):
-  """x <- f(x, dt), P <- F P F^T (main block) + dt*Q (ekf_c.c:8-33)."""
+def predict(spec: FilterSpec, params, x, P, Q, dt, normalize: bool = True,
+            F=None):
+  """x <- f(x, dt), P <- F P F^T (main block) + dt*Q (ekf_c.c:8-33). F, when
+  given, is spec.F(params, x, dt) computed another way (a closed form)."""
   x_new = spec.f(params, x, dt)
-  F = spec.F(params, x, dt)
+  if F is None:
+    F = spec.F(params, x, dt)
   m = spec.dim_main_err
   if m == spec.dim_err:
     P_new = F @ P @ F.T

@@ -25,6 +25,7 @@ from rednose_tpu_torch.ops.quaternion import (
     euler_to_rot,
     quat_matrix_r,
     quat_to_rot,
+    skew,
 )
 from rednose_tpu_torch.registry import register
 from rednose_tpu_torch.runtime.driver import KalmanError
@@ -251,6 +252,43 @@ def _h_imu_frame(params, x, ea):
   return x[S.IMU_OFFSET]
 
 
+def _F_lane(params, x, dt):
+  """Closed-form F = I + dt*A on a slab x (23, *b) -> (22, 22, *b).
+
+  A is the error-dynamics Jacobian at dx = 0 (ekf_sym.py:76-80): five
+  nonzero 3x3 blocks, A[pos, vel] = I, A[att, att] = -skew(R w),
+  A[att, w] = R, A[vel, att] = -skew(R a), A[vel, acc] = R, with
+  R = quat_to_rot(q). Equal to jacfwd of _f_err (tests/test_torch_rts_live.py).
+  Assembled from blocks by concatenation: dt is a scalar or (*b)."""
+  del params
+  q, w, a = x[3:7], x[10:13], x[17:20]
+  b = tuple(x.shape[1:])
+  Rq = quat_to_rot(q)                                          # (3, 3, *b)
+
+  def rot(v):
+    return torch.stack([sum(Rq[i, j] * v[j] for j in range(3))
+                        for i in range(3)])
+
+  wd, ad = rot(w), rot(a)
+  kw = dict(dtype=x.dtype, device=x.device)
+
+  def z(r, c):
+    return torch.zeros((r, c) + b, **kw)
+
+  eye3 = torch.eye(3, **kw).reshape((3, 3) + (1,) * len(b)).expand(
+      (3, 3) + b)
+  n = DIM_STATE_ERR
+  A = torch.cat([
+      torch.cat([z(3, 6), eye3, z(3, n - 9)], dim=1),
+      torch.cat([z(3, 3), -skew(wd), z(3, 3), Rq, z(3, n - 12)], dim=1),
+      torch.cat([z(3, 3), -skew(ad), z(3, 10), Rq, z(3, n - 19)], dim=1),
+      z(n - 9, n),
+  ])
+  dt = torch.as_tensor(dt, **kw)
+  eye = torch.eye(n, **kw).reshape((n, n) + (1,) * len(b))
+  return eye + dt * A
+
+
 @functools.cache
 def build_live_spec() -> FilterSpec:
   """The live spec, one object per process: the generic kernels' emitted
@@ -279,6 +317,7 @@ def build_live_spec() -> FilterSpec:
       H_mod=_H_mod,
       f_err=_f_err,
       quaternion_idxs=(3,),
+      F_lane=_F_lane,
   )
 
 

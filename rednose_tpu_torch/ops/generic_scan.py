@@ -137,13 +137,37 @@ class KernelCall:
     self.Q = _host64(Q)
     self._q_pattern = entry_slab.q_pattern_of(self.Q)
     self.R_list = [_symmetric_R(spec, k, R) for k, R in zip(kinds, R_list)]
-    # a camera-frame unit's R variant key, None for every other unit;
-    # None for a call without a camera frame
-    rps = tuple(r_pattern_of(R) if spec.obs[k].is_feature else None
-                for k, R in zip(kinds, self.R_list))
-    self._r_patterns = rps if any(rp is not None for rp in rps) else None
+    self._r_patterns = self._r_patterns_of(self.R_list)
     self._pnames = tuple(sorted(set(self.params) | set(self.ps_keys)))
     self._values = {}
+
+  def _r_patterns_of(self, R_list):
+    """A camera-frame unit's R variant key, None for every other unit;
+    None for a call without a camera frame."""
+    rps = tuple(r_pattern_of(R) if self.spec.obs[k].is_feature else None
+                for k, R in zip(self.kinds, R_list))
+    return rps if any(rp is not None for rp in rps) else None
+
+  def set_R(self, R_list):
+    """New R values, one per kind or slot, for the same variant: the kept
+    device copies are rewritten in place, after any launch already queued
+    on the stream, so a caller whose R changes from call to call builds
+    and copies nothing else. A camera frame's R pattern picks its variant
+    and may not change."""
+    if len(R_list) != len(self.kinds):
+      raise ValueError(f"{len(R_list)} R for {len(self.kinds)} kinds / slots")
+    R_list = [_symmetric_R(self.spec, k, R)
+              for k, R in zip(self.kinds, R_list)]
+    if all(np.array_equal(a, b) for a, b in zip(R_list, self.R_list)):
+      return self
+    if self._r_patterns_of(R_list) != self._r_patterns:
+      raise ValueError("a camera frame's R pattern picks the variant: make "
+                       "a new KernelCall for it")
+    self.R_list = R_list
+    packed = np.concatenate([R.ravel() for R in R_list])
+    for _, _, R in self._values.values():
+      R.copy_(torch.as_tensor(packed, dtype=R.dtype))
+    return self
 
   def _units(self):
     spec = self.spec

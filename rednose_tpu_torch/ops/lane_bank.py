@@ -22,8 +22,8 @@ lane Cholesky; `augment_slab` clones the pose into the window.
 kernels 4, 6, 5 and 7 (ops/generic_scan.py): the wrappers run them for CPU
 tensors, and the tests and chip_smoke.py hold the kernels against them.
 Layout as in the JAX package: x (B, dim_x), P (de, de, B), zs (T, B, dz).
-The blocked Cholesky of the JAX package serves only its smoother and
-comes with the port's smoother.
+The blocked Cholesky (`cholesky_lane_blocked` / `cho_solve_lane_blocked`)
+serves the smoother's gains pass (smoothing/rts.py).
 
 Runtime params: a mapping of name -> float or 0-d tensor (the reference's
 global_vars, ekf_sym.py:129-132); with ps_keys / pss each step's params are
@@ -106,6 +106,90 @@ def cho_solve_lane(cols, B_):
       s = s - cols[i][k - i][None] * X[k]
     X[i] = s / cols[i][0][None]
   return torch.stack(X)
+
+
+def cholesky_lane_blocked(A, r: int = 8):
+  """Blocked right-looking Cholesky of SPD (d, d, B) lane-major matrices:
+  per r-wide panel an unrolled r x r diagonal factor, an r-step panel
+  substitution and one rank-r trailing update (_mm_t), so the chain of
+  dependent slab ops is about r/2 times shorter than cholesky_lane's.
+  Returns the dense lower factor (d, d, B) that cho_solve_lane_blocked
+  takes."""
+  d = A.shape[0]
+  S = A  # trailing submatrix, shrinking by r each panel
+  panels = []
+  for b0 in range(0, d, r):
+    rr = min(r, d - b0)
+    Ablk = S[:rr, :rr]
+    # Ld[j]: column j of the diagonal block's factor from the diagonal down
+    Ld = []
+    for j in range(rr):
+      s = Ablk[j:, j]
+      for k in range(j):
+        s = s - Ld[k][j - k:] * Ld[k][j - k][None]
+      diag = torch.sqrt(s[0])
+      Ld.append(torch.cat([diag[None], s[1:] / diag[None]])
+                if j + 1 < rr else diag[None])
+    # the panel below the diagonal block: solve Lp Ld^T = S[rr:, :rr]
+    Lp_cols = []
+    if rr < S.shape[0]:
+      Pn = S[rr:, :rr]
+      for j in range(rr):
+        s = Pn[:, j]
+        for k in range(j):
+          s = s - Lp_cols[k] * Ld[k][j - k][None]
+        Lp_cols.append(s / Ld[j][0][None])
+    dcol = torch.stack(
+        [torch.cat([torch.zeros((j,) + Ld[j].shape[1:], dtype=A.dtype,
+                                device=A.device), Ld[j]]) if j else Ld[0]
+         for j in range(rr)], dim=1)
+    if Lp_cols:
+      Lp = torch.stack(Lp_cols, dim=1)                      # (n, rr, B)
+      panel = torch.cat([dcol, Lp])
+      S = S[rr:, rr:] - _mm_t(Lp, Lp)                       # rank-r update
+    else:
+      panel = dcol
+    panels.append(torch.cat([torch.zeros((b0,) + panel.shape[1:],
+                                         dtype=A.dtype, device=A.device),
+                             panel]) if b0 else panel)
+  return torch.cat(panels, dim=1)
+
+
+def cho_solve_lane_blocked(L, B_, r: int = 8):
+  """Solve A X = B_ with A = L L^T from cholesky_lane_blocked; B_
+  (d, m, B). Blocked substitution: per panel one slab product (_mm) for
+  the cross-panel part and an unrolled r-step small substitution."""
+  d = L.shape[0]
+  Y_blocks = []                                   # forward: L Y = B_
+  for b0 in range(0, d, r):
+    rr = min(r, d - b0)
+    s = B_[b0:b0 + rr]
+    if Y_blocks:
+      s = s - _mm(L[b0:b0 + rr, :b0], torch.cat(Y_blocks))
+    rows = []
+    for i in range(rr):
+      si = s[i]
+      for k in range(i):
+        si = si - L[b0 + i, b0 + k][None] * rows[k]
+      rows.append(si / L[b0 + i, b0 + i][None])
+    Y_blocks.append(torch.stack(rows))
+  Y = torch.cat(Y_blocks)
+  X_blocks = []                                   # backward: L^T X = Y
+  for b0 in reversed(range(0, d, r)):
+    rr = min(r, d - b0)
+    s = Y[b0:b0 + rr]
+    if X_blocks:
+      # (L^T)[b0:b0+rr, b0+rr:] = L[b0+rr:, b0:b0+rr]^T
+      s = s - _mm(L[b0 + rr:, b0:b0 + rr].transpose(0, 1),
+                  torch.cat(X_blocks))
+    rows = [None] * rr
+    for i in reversed(range(rr)):
+      si = s[i]
+      for k in range(i + 1, rr):
+        si = si - L[b0 + k, b0 + i][None] * rows[k]
+      rows[i] = si / L[b0 + i, b0 + i][None]
+    X_blocks.insert(0, torch.stack(rows))
+  return torch.cat(X_blocks)
 
 
 def _householder_qt(He):

@@ -13,25 +13,51 @@ On a CUDA device `run` launches kernel 2 (ops/live_scan.live_bank_scan),
 and `run_mixed` and `observe` launch kernel 3
 (ops/live_scan.live_bank_scan_mixed; observe with T = 1); `run_epochs`
 launches the generic epoch kernel 5 on the live spec. On the CPU the
-same wrappers run their plain torch versions. The kernels carry Q as its
-diagonal: an off-diagonal Q raises on CUDA (the full-Q bank path comes
-with the generic lane bank, ROADMAP) and takes the plain full-Q slab path
-on the CPU. Time is kept on the host in float64; only dts reach the device.
+same wrappers run their plain torch versions. The hand kernels carry Q as
+its diagonal. With an off-diagonal Q, on CUDA `run` launches the generic
+kernel 4 (generic_scan.generic_bank_scan) and `run_mixed` and `observe`
+kernel 6 (generic_bank_scan_mixed) on the live spec, which take Q by its
+nonzero pattern; kernel 6's variant takes every live lane kind
+(LIVE_KINDS), so one build serves every schedule. Streamed R exists only
+in the hand kernels: with a full Q it raises on CUDA. On the CPU a full Q
+takes the plain full-Q slab path. Time is kept on the host in float64;
+only dts reach the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import logging
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from rednose_tpu_torch.models.live import LiveKalman, ObservationKind
-from rednose_tpu_torch.ops import live_lane, live_scan, sparsity
+from rednose_tpu_torch.models.live import (
+    LiveKalman,
+    ObservationKind,
+    build_live_spec,
+)
+from rednose_tpu_torch.ops import generic_scan, live_lane, live_scan, sparsity
 from rednose_tpu_torch.runtime.bank_facade import BankFacadeBase
 from rednose_tpu_torch.runtime.rewind import BankRewindRing
 from rednose_tpu_torch.utils.device import resolve_device
+
+
+# the kind set of the full-Q run_mixed / observe variant (kernel 6)
+LIVE_KINDS = tuple(live_lane.LANE_KINDS)
+
+
+@functools.cache
+def gated_live_spec():
+  """The live spec with every kind's Mahalanobis gate on: kernel 6 gates a
+  kind as its maha_test says, and the live bank's gate=True gates every
+  kind at chi2(0.95, dz), as the hand kernels do."""
+  spec = build_live_spec()
+  return dataclasses.replace(spec, name="live_gated", obs={
+      k: dataclasses.replace(om, maha_test=True)
+      for k, om in spec.obs.items()})
 
 
 def _pad3(R, dz):
@@ -61,10 +87,9 @@ class LiveKalmanBank(BankFacadeBase):
     self._quaternion_idxs = (3,)
     Q = np.asarray(LiveKalman.Q if Q is None else Q, dtype=np.float64)
     self._q_is_diag = bool(np.all(Q == np.diag(np.diag(Q))))
-    if not self._q_is_diag and self.device.type == "cuda":
-      raise ValueError(
-          "the live bank kernels support diagonal Q only (it is passed as "
-          "its diagonal); use device='cpu' for off-diagonal process noise")
+    # an off-diagonal Q on the card: the generic kernels 4 and 6
+    self._generic = not self._q_is_diag and self.device.type == "cuda"
+    self._calls = {}
     self.Q = self._tensor(Q)
     self._q_diag = self._tensor(np.diag(Q))
     x0 = self._tensor(x0)
@@ -98,6 +123,20 @@ class LiveKalmanBank(BankFacadeBase):
           "(no obs_noise default, live_kf.py:325-337); pass R_by_slot")
     return R
 
+  def _generic_call(self, mode, kinds, R_list, gate):
+    """Kernel 4's or 6's call for the full Q, made once per (mode, kinds,
+    gate) and kept, as KalmanBank keeps its calls: a repeated call builds
+    nothing, and a new R (a GNSS fix's own noise) rewrites only the kept
+    device copy of R (KernelCall.set_R)."""
+    key = (mode, kinds, gate)
+    call = self._calls.get(key)
+    if call is None:
+      spec = gated_live_spec() if gate and mode == "mixed" else self.spec
+      call = self._calls[key] = generic_scan.KernelCall(
+          spec, mode, kinds, Q=self.Q, R_list=R_list, gate=gate,
+          structure=sparsity.structure_for(spec, LiveKalman.initial_x))
+    return call.set_R(R_list)
+
   def _zs(self, zs):
     """(T, B, 3) measurements -> the kernels' (T, 3, B) on the device."""
     zs = torch.as_tensor(zs, dtype=self.dtype, device=self.device)
@@ -105,9 +144,30 @@ class LiveKalmanBank(BankFacadeBase):
       raise ValueError(f"zs {tuple(zs.shape)}, expected (T, {self.batch}, 3)")
     return zs.permute(0, 2, 1).contiguous()
 
-  def _scan_mixed(self, dts, kind_idx, zs, kinds, R_by_kind, gate, r_stream,
+  def _scan_mixed(self, dts, kind_idx, zs, kinds, R_stack, gate, r_stream,
                   stream_kinds):
-    args = (self._x, self._P, zs, dts, kind_idx, kinds, R_by_kind)
+    """One mixed scan: dts (T,) and kind_idx (T,) on the host, zs
+    (T, 3, B) on the device, R_stack (K, 3, 3) host, per kind of kinds."""
+    if self._generic:
+      if stream_kinds:
+        raise ValueError(
+            "streamed R (r_stream / stream_kinds) runs only in the live hand "
+            "kernels, which take a diagonal Q; with an off-diagonal Q on "
+            "CUDA pass each kind's R in R_by_kind")
+      R_list = []
+      for k in LIVE_KINDS:
+        dz = live_lane.LANE_KINDS[k][0]
+        R = (R_stack[kinds.index(k)] if k in kinds
+             else _pad3(LiveKalman.obs_noise.get(k, np.eye(dz)), dz))
+        R_list.append(np.ascontiguousarray(R[:dz, :dz]))
+      idx = np.array([LIVE_KINDS.index(k) for k in kinds])[kind_idx]
+      return generic_scan.generic_bank_scan_mixed(
+          self._x, self._P, zs, self._tensor(dts),
+          self._tensor(idx, torch.int32),
+          call=self._generic_call("mixed", LIVE_KINDS, R_list, bool(gate)))
+    args = (self._x, self._P, zs, self._tensor(dts),
+            self._tensor(kind_idx, torch.int32), kinds,
+            self._tensor(R_stack))
     if self._q_is_diag:
       return live_scan.live_bank_scan_mixed(
           *args, self._q_diag, gate=gate, r_stream=r_stream,
@@ -145,9 +205,8 @@ class LiveKalmanBank(BankFacadeBase):
     dt = max(float(t) - self.t, 0.0)
     dz = live_lane.LANE_KINDS[kind][0]
     self._x, self._P = self._scan_mixed(
-        self._tensor([dt]), self._tensor([0], torch.int32),
-        self._zs(z[None]), (kind,), self._tensor(_pad3(R, dz)[None]), gate,
-        None, ())
+        np.array([dt]), np.zeros(1, np.int64), self._zs(z[None]), (kind,),
+        _pad3(R, dz)[None], gate, None, ())
     self.t = float(t)
     self._ring.record(self.t, (self._x, self._P), (self.t, kind, z, R, gate))
 
@@ -161,6 +220,14 @@ class LiveKalmanBank(BankFacadeBase):
     R = (LiveKalman.obs_noise[ObservationKind.ECEF_POS] if R is None
          else np.asarray(R))
     if dts.shape[0] == 0:
+      return self
+    if self._generic:
+      self._x, self._P = generic_scan.generic_bank_scan(
+          self._x, self._P, self._zs(zs), self._tensor(dts),
+          call=self._generic_call("single", (ObservationKind.ECEF_POS,),
+                                  (np.asarray(R, np.float64),), bool(gate)))
+      self.t += float(dts.sum())
+      self._ring.clear()  # bulk runs are not observation-addressable
       return self
     args = (self._x, self._P, self._zs(zs), self._tensor(dts))
     if self._q_is_diag:
@@ -213,8 +280,7 @@ class LiveKalmanBank(BankFacadeBase):
     R_stack = np.stack([_pad3(R_by_kind[k], live_lane.LANE_KINDS[k][0])
                         for k in kinds])
     self._x, self._P = self._scan_mixed(
-        self._tensor(dts), self._tensor(kind_idx, torch.int32),
-        self._zs(zs), kinds, self._tensor(R_stack), gate,
+        dts, kind_idx, self._zs(zs), kinds, R_stack, gate,
         None if r_stream is None else self._tensor(r_stream), stream_kinds)
     self.t += float(dts.sum())
     self._ring.clear()  # bulk runs are not observation-addressable

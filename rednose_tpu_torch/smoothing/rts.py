@@ -1,0 +1,303 @@
+"""Rauch-Tung-Striebel smoothing: sequential and parallel-in-time.
+
+Port of rednose_tpu/smoothing/rts.py (the reference smoother,
+rednose/helpers/ekf_sym.py:651-690, is a sequential Python loop over the
+estimate list):
+
+  * `rts_smooth`, the sequential backward pass. It smooths the main
+    (non-augmented) state block, takes the smoothed delta through the
+    spec's inv_err / err, so it is right for an ESKF, and can renormalize
+    quaternions. The gains C_k depend only on the forward pass, so they
+    are computed for all k at once; the loop over k then carries only
+    the smoothed state and covariance. It seeds from the last POSTERIOR
+    by default; the reference seeds from the last PREDICTED state
+    (ekf_sym.py:658-663), which drops the final measurement:
+    `reference_seed=True` reproduces that.
+
+  * `rts_smooth_parallel`, the parallel-in-time form. The smoothed
+    correction obeys the affine backward recursion e_k = C_k (u_{k+1} +
+    e_{k+1}), a first-order linear recurrence, solved by a suffix scan of
+    affine maps in O(log T) depth (`_suffix_scan_lane`, a doubling scan on
+    the time axis). Exact for additive error states; for an ESKF the
+    recursion runs in the error tangent space, and Newton passes
+    (`refine`) converge it to the sequential answer.
+
+Both take the stacked arrays of a forward pass (runtime/scan.py) on any
+device; `smooth_estimates` adapts the engine's list of Estimates. The
+matrices of the parallel form are lane-major (d, d, T), as in the JAX
+package, and its gains go through the blocked lane Cholesky
+(ops/lane_bank.cholesky_lane_blocked).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.func import jacfwd, vmap
+
+from rednose_tpu_torch.core.spec import FilterSpec
+from rednose_tpu_torch.ops.lane_bank import (
+    _mm,
+    _mm_t,
+    cho_solve_lane_blocked,
+    cholesky_lane_blocked,
+)
+from rednose_tpu_torch.ops.quaternion import normalize_slices
+from rednose_tpu_torch.utils.device import resolve_device
+
+
+def _sym(P):
+  return 0.5 * (P + P.transpose(-1, -2))
+
+
+def _pad_block(M, de):
+  """(*, d2, d2) -> (*, de, de) with M in the top-left block."""
+  pad = de - M.shape[-1]
+  return torch.nn.functional.pad(M, (0, pad, 0, pad)) if pad else M
+
+
+def _dts(t, dts):
+  # only exact for float64 t: epoch-scale timestamps differenced in
+  # float32 quantize dt; callers with float32 states pass host deltas
+  return t[1:] - t[:-1] if dts is None else dts
+
+
+def _F_main(spec: FilterSpec, params, x, dts):
+  """F_k[:d2, :d2] for each row of x (T, dim_x), lane-major (d2, d2, T):
+  the spec's closed form where it ships one, else jacfwd per row."""
+  d2 = spec.dim_main_err
+  if spec.F_lane is not None:
+    return spec.F_lane(params, x.T, dts)[:d2, :d2]
+  return vmap(lambda xk, dt: spec.F(params, xk, dt)[:d2, :d2],
+              out_dims=2)(x, dts)
+
+
+def rts_smooth(spec: FilterSpec, params, x_pred, P_pred, x_post, P_post, t,
+               norm_quats: bool = False, dts=None,
+               reference_seed: bool = False):
+  """Sequential RTS backward pass.
+
+  Stacked forward-pass results, time-major: x_pred (T, dim_x) x_{k|k-1},
+  P_pred (T, de, de), x_post (T, dim_x) x_{k|k}, P_post (T, de, de), t
+  (T,) (or host-differenced dts (T-1,)). Returns (x_smooth, P_smooth) of
+  the same shapes. Only the main state block is smoothed; MSCKF clone
+  slots pass through (ekf_sym.py:677-686 slices [:d1] / [:d2]).
+  `reference_seed=True` seeds from the last predicted state, as the
+  reference does (ekf_sym.py:658-660); the returned tail is that seed."""
+  resolve_device(x_post.device)
+  d1, d2, de = spec.dim_main, spec.dim_main_err, spec.dim_err
+  T = x_post.shape[0]
+  if reference_seed:
+    x_next, P_next = x_pred[T - 1], P_pred[T - 1]
+  else:
+    x_next, P_next = x_post[T - 1], P_post[T - 1]
+  xs, Ps = [x_next], [P_next]
+  if T > 1:
+    # C_k = P_{k|k} F_k^T P_{k+1|k}^-1 for every k (ekf_sym.py:673-677):
+    # solve(P_{k+1|k}, F_k P_{k|k}^T)^T
+    F = _F_main(spec, params, x_post[:-1], _dts(t, dts)).permute(2, 0, 1)
+    C = torch.linalg.solve(
+        P_pred[1:, :d2, :d2],
+        F @ P_post[:-1, :d2, :d2].transpose(-1, -2)).transpose(-1, -2)
+  for k in range(T - 2, -1, -1):
+    Ck, x_k = C[k], x_post[k]
+    dx = spec.inv_err(params, x_pred[k + 1], x_next)
+    dx = torch.cat([Ck @ dx[:d2], dx[d2:]])
+    x_s = spec.err(params, x_k, dx)
+    x_s = torch.cat([x_s[:d1], x_k[d1:]])
+    if norm_quats:
+      x_s = normalize_slices(x_s, spec.quaternion_idxs)
+    M = Ck @ (P_next[:d2, :d2] - P_pred[k + 1, :d2, :d2]) @ Ck.T
+    P_s = _sym(P_post[k] + _pad_block(M, de))
+    xs.append(x_s)
+    Ps.append(P_s)
+    x_next, P_next = x_s, P_s
+  return torch.stack(xs[::-1]), torch.stack(Ps[::-1])
+
+
+def _affine_combine_lane(a, b):
+  """Combine of the backward affine recurrence, lane-major: elements
+  (A (d, d, K), b (d, 1, K), V (d, d, K)) are the maps
+    e_out = A e_in + b,   D_out = V + A D_in A^T.
+  `a` is the composition of LATER elements and `b` the EARLIER one, which
+  the backward recursion applies outermost, so `b` wraps `a`:
+    e = A_b (A_a e + b_a) + b_b."""
+  A_a, b_a, V_a = a
+  A_b, b_b, V_b = b
+  return (_mm(A_b, A_a), _mm(A_b, b_a) + b_b,
+          V_b + _mm_t(_mm(A_b, V_a), A_b))
+
+
+def _affine_combine_ab(a, b):
+  """(A, b)-only _affine_combine_lane, for the refinement passes (the
+  covariance suffix is exact on the first pass and not run again)."""
+  A_a, b_a = a
+  A_b, b_b = b
+  return _mm(A_b, A_a), _mm(A_b, b_a) + b_b
+
+
+def _suffix_scan_lane(A, b, V=None):
+  """Inclusive suffix combine of affine elements (A (d, d, T), b (d, 1, T)
+  [, V (d, d, T)]) along the time axis: out[k] = x[T-1] o ... o x[k], with
+  _affine_combine_lane's semantics (V=None: _affine_combine_ab).
+
+  A doubling scan: after the level of shift s, out[k] holds the
+  composition of x[k .. k+2s-1] (clipped at T-1), formed by combining
+  out[k+s] (later) into out[k] (earlier). ceil(log2 T) levels, each one
+  combine over the whole time axis; the JAX package chunks the scan
+  instead, because its strided lane gathers cost a relayout per level on
+  the TPU."""
+  elems = (A, b) if V is None else (A, b, V)
+  combine = _affine_combine_ab if V is None else _affine_combine_lane
+  T = A.shape[-1]
+  s = 1
+  while s < T:
+    head = combine(tuple(e[..., s:] for e in elems),
+                   tuple(e[..., :T - s] for e in elems))
+    elems = tuple(torch.cat([h, e[..., T - s:]], dim=-1)
+                  for h, e in zip(head, elems))
+    s *= 2
+  return elems
+
+
+def rts_smooth_parallel(spec: FilterSpec, params, x_pred, P_pred, x_post,
+                        P_post, t, norm_quats: bool = False, dts=None,
+                        refine: int | None = None):
+  """Parallel-in-time RTS by a suffix scan of affine maps (O(log T) depth).
+
+  With e_k = inv_err(x_{k|k}, x_{k|T}) and u_{k+1} = inv_err(x_{k+1|k},
+  x_{k+1|k+1}), the RTS recursion linearizes to e_k = C_k u_{k+1} +
+  C_k e_{k+1}, e_{T-1} = 0, and D_k = P_{k|T} - P_{k|k} obeys D_k =
+  C_k (P_{k+1|k+1} - P_{k+1|k}) C_k^T + C_k D_{k+1} C_k^T: both affine,
+  combined associatively. Exact for additive error states. For an ESKF
+  the mean recursion adds tangent-space corrections, first order in their
+  size; `refine` Newton passes re-linearize the exact recursion e_k =
+  C_k v(e_{k+1}), v(e) = inv_err(x_pred, inject(x_post, e)), around the
+  current iterate (J_v by jacfwd) and solve it again with an (A, b)-only
+  scan; the fixed point is the sequential recursion. Refinement needs
+  float64 (v cancels nearly equal states, which float32 at ECEF scale
+  cannot resolve). Default: 2 for ESKF specs in float64, else 0."""
+  resolve_device(x_post.device)
+  d1, d2, de = spec.dim_main, spec.dim_main_err, spec.dim_err
+  T = x_post.shape[0]
+  if T < 2:
+    return x_post.clone(), P_post.clone()
+  dts = _dts(t, dts)
+
+  # gains C_k = P_k F_k^T P_{k+1|k}^-1 for all k, lane-major (d2, d2, T-1):
+  # solve P_{k+1|k} X = F_k P_k^T by the blocked lane Cholesky, C = X^T
+  F = _F_main(spec, params, x_post[:-1], dts)
+  Pk = P_post[:-1, :d2, :d2].permute(1, 2, 0)
+  Pk1 = P_pred[1:, :d2, :d2].permute(1, 2, 0)
+  X = cho_solve_lane_blocked(cholesky_lane_blocked(Pk1), _mm_t(F, Pk))
+  C_l = X.transpose(0, 1)
+
+  u_l = vmap(lambda xp, xf: spec.inv_err(params, xp, xf)[:d2],
+             out_dims=1)(x_pred[1:], x_post[1:])             # (d2, T-1)
+  b_l = _mm(C_l, u_l[:, None])                               # (d2, 1, T-1)
+  dP_l = (P_post[1:, :d2, :d2] - P_pred[1:, :d2, :d2]).permute(1, 2, 0)
+  V_l = _mm_t(_mm(C_l, dP_l), C_l)
+  _, e_acc_l, D_acc_l = _suffix_scan_lane(C_l, b_l, V_l)
+  e_acc = e_acc_l[:, 0].T                                    # (T-1, d2)
+  D_acc = D_acc_l.permute(2, 0, 1)                           # (T-1, d2, d2)
+
+  def inject(x_k, e_k):
+    dx = torch.cat([e_k, e_k.new_zeros(de - d2)])
+    x_s = spec.err(params, x_k, dx)
+    x_s = torch.cat([x_s[:d1], x_k[d1:]])
+    if norm_quats:
+      x_s = normalize_slices(x_s, spec.quaternion_idxs)
+    return x_s
+
+  f64 = x_post.dtype == torch.float64
+  n_refine = (2 if (spec.is_eskf and f64) else 0) if refine is None \
+      else refine
+  for _ in range(n_refine if T > 2 else 0):
+    # the smoothed states at 1..T-1 from the current corrections
+    x_hat_next = torch.cat([vmap(inject)(x_post[1:-1], e_acc[1:]),
+                            x_post[T - 1:]])
+    v_l = vmap(lambda xp, xh: spec.inv_err(params, xp, xh)[:d2],
+               out_dims=1)(x_pred[1:], x_hat_next)           # (d2, T-1)
+    # ê_{k+1}: the current correction a step later (ê_{T-1} = 0)
+    e_shift = torch.cat([e_acc[1:], e_acc.new_zeros((1, d2))])
+    Jv = vmap(lambda xp, xpo, eh: jacfwd(
+        lambda e: spec.inv_err(params, xp, inject(xpo, e))[:d2])(eh),
+        out_dims=2)(x_pred[1:], x_post[1:], e_shift)          # (d2, d2, T-1)
+    A_ref = _mm(C_l, Jv)
+    Jv_e = torch.einsum('ijt,tj->it', Jv, e_shift)
+    b_ref = _mm(C_l, (v_l - Jv_e)[:, None])
+    _, e_acc_l = _suffix_scan_lane(A_ref, b_ref)
+    e_acc = e_acc_l[:, 0].T
+
+  xs = vmap(inject)(x_post[:-1], e_acc)
+  Ps = _sym(P_post[:-1] + _pad_block(D_acc, de))
+  return (torch.cat([xs, x_post[T - 1:]]),
+          torch.cat([Ps, P_post[T - 1:]]))
+
+
+def rts_smooth_parallel_bank(spec: FilterSpec, params, x_pred, P_pred,
+                             x_post, P_post, t, norm_quats: bool = False,
+                             dts=None, refine: int | None = None):
+  """rts_smooth_parallel over a BANK of trajectories: every argument gains
+  a leading bank axis B (x_* (B, T, dim_x), P_* (B, T, de, de), t (B, T),
+  dts (B, T-1)), and the smoother is vmapped over it."""
+  def one(xp, Pp, xf, Pf, tt, dd=None):
+    return rts_smooth_parallel(spec, params, xp, Pp, xf, Pf, tt,
+                               norm_quats=norm_quats, dts=dd, refine=refine)
+
+  args = (x_pred, P_pred, x_post, P_post, t)
+  return vmap(one)(*args) if dts is None else vmap(one)(*args, dts)
+
+
+def _as_tensor(a, dtype, device):
+  if torch.is_tensor(a):
+    return a.to(device=device, dtype=dtype)
+  return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
+                         device=device)
+
+
+def _host(a):
+  return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def smooth_estimates(spec: FilterSpec, params, estimates,
+                     norm_quats: bool = False, parallel: bool = False,
+                     dtype=None, refine: int | None = None,
+                     reference_seed: bool = False, device=None):
+  """Smooth a list of 9-tuple Estimates (the reference's
+  rts_smooth(estimates, norm_quats), ekf_sym.py:651).
+
+  Runs on `device` in `dtype` (default: those of the first estimate's
+  posterior state when it is a tensor, else the card and float64; a
+  missing card raises) and returns a list of smoothed (x, P) numpy pairs,
+  oldest first. Timestamps are differenced on the host in float64.
+  `reference_seed=True` (sequential only) reproduces the reference's
+  last-predicted-state boundary condition (see rts_smooth)."""
+  if len(estimates) <= 1:
+    return [(_host(e[1]).flatten(), _host(e[3])) for e in estimates]
+  first = estimates[0][1]
+  if dtype is None:
+    dtype = first.dtype if torch.is_tensor(first) else torch.float64
+  if device is None:
+    device = first.device if torch.is_tensor(first) else "cuda"
+  device = resolve_device(device)
+
+  def stack(i, flat):
+    rows = [_as_tensor(e[i], dtype, device) for e in estimates]
+    return torch.stack([r.reshape(-1) for r in rows] if flat else rows)
+
+  x_pred, x_post = stack(0, True), stack(1, True)
+  P_pred, P_post = stack(2, False), stack(3, False)
+  t64 = np.asarray([float(e[4]) for e in estimates], dtype=np.float64)
+  t = torch.as_tensor(t64, dtype=dtype, device=device)
+  dts = torch.as_tensor(t64[1:] - t64[:-1], dtype=dtype, device=device)
+  if parallel:
+    xs, Ps = rts_smooth_parallel(spec, params, x_pred, P_pred, x_post,
+                                 P_post, t, norm_quats=norm_quats, dts=dts,
+                                 refine=refine)
+  else:
+    xs, Ps = rts_smooth(spec, params, x_pred, P_pred, x_post, P_post, t,
+                        norm_quats=norm_quats, dts=dts,
+                        reference_seed=reference_seed)
+  xs, Ps = _host(xs), _host(Ps)
+  return [(xs[i], Ps[i]) for i in range(xs.shape[0])]

@@ -182,5 +182,11 @@ def test_filter_checkpoint_shared_with_jax(tmp_path):
 
 
 def test_rts_smooth_not_ported():
-  with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-    KinematicKalman(device="cpu").filter.rts_smooth([])
+  """rts_smooth is ported now (tests/test_torch_rts.py): on the engine's
+  device it returns one smoothed (x, P) numpy pair per estimate."""
+  kf = KinematicKalman(device="cpu")
+  assert kf.filter.rts_smooth([]) == []
+  ests = [kf.predict_and_observe(t, 1, [0.1 * t]) for t in (0.0, 0.01, 0.02)]
+  out = kf.filter.rts_smooth(ests)
+  assert len(out) == 3 and all(isinstance(x, np.ndarray) and x.shape == (2,)
+                               and P.shape == (2, 2) for x, P in out)

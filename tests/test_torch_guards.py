@@ -1,16 +1,21 @@
 """Guards of the port: it imports no JAX, and a device asked for is the
 device used (no silent CPU fallback)."""
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
+import sympy as sp
 import torch
 
+from rednose_tpu_torch import compat
 from rednose_tpu_torch.models.car import CarKalman
 from rednose_tpu_torch.models.kinematic import KinematicKalman
+from rednose_tpu_torch.models.live import LiveKalman
 from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
 from rednose_tpu_torch.msckf import feature_handler
 from rednose_tpu_torch.ops import generic_scan, lane_bank, live_scan
@@ -19,6 +24,7 @@ from rednose_tpu_torch.runtime.checkpoint import load_bank, save_bank
 from rednose_tpu_torch.runtime.generic_bank import KalmanBank
 from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
 from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
+from rednose_tpu_torch.smoothing import rts
 import torch_parity  # noqa: F401  (one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -44,8 +50,50 @@ def test_port_imports_no_jax():
   assert int(out.stdout.split()[-1]) >= 30   # every module was imported
 
 
+def _full_q():
+  Q = np.asarray(LiveKalman.Q).copy()
+  Q[0, 6] = Q[6, 0] = 1e-3
+  return Q
+
+
+def _compat_engine():
+  x = sp.MatrixSymbol("x", 2, 1)
+  dt = sp.Symbol("dt")
+  compat.gen_code(None, "guard_kinematic",
+                  sp.Matrix([x[0, 0] + dt * x[1, 0], x[1, 0]]), dt, x,
+                  [[sp.Matrix([x[0, 0]]), 1, None]], 2, 2)
+  return compat.EKF_sym(None, "guard_kinematic", np.eye(2), np.zeros(2),
+                        np.eye(2), 2, 2)
+
+
+def _smoothed_numpy(device=None):
+  """smooth_estimates on numpy 9-tuples (the reference's format) with no
+  device asked for: the tensor returned lies where the spec's dynamics
+  saw the state."""
+  spec = KinematicKalman(device="cpu").spec
+  seen = []
+
+  def f(params, x, dt):
+    seen.append(torch.empty(0, device=x.device))
+    return spec.f(params, x, dt)
+
+  est = [(np.zeros(2), np.full(2, 0.1 * k), np.eye(2), 0.5 * np.eye(2),
+          0.01 * k, 0, None, None, None) for k in range(3)]
+  out = rts.smooth_estimates(dataclasses.replace(spec, f=f, F_lane=None), {},
+                             est, device=device)
+  assert len(out) == 3 and np.isfinite(out[0][1]).all()
+  return types.SimpleNamespace(x=seen[0])
+
+
+def test_smoothed_numpy_runs_where_asked():
+  assert _smoothed_numpy(device="cpu").x.device.type == "cpu"
+
+
 @pytest.mark.parametrize("make", [
     lambda: LiveKalmanBank(batch=8, device="cuda"),
+    lambda: LiveKalmanBank(batch=8, Q=_full_q(), device="cuda"),
+    _compat_engine,
+    _smoothed_numpy,
     lambda: KinematicKalman(device="cuda"),
     lambda: KalmanBank(CarKalman, batch=8, device="cuda"),
     lambda: MSCKFBank(MSCKFEskf, batch=8),
@@ -53,7 +101,8 @@ def test_port_imports_no_jax():
 def test_cuda_request_never_runs_on_cpu(make):
   if torch.cuda.is_available():
     obj = make()
-    tensor = obj._x if hasattr(obj, "_x") else obj.filter.x
+    tensor = (obj._x if hasattr(obj, "_x") else
+              obj.filter.x if hasattr(obj, "filter") else obj.x)
     assert tensor.is_cuda
   else:
     with pytest.raises(RuntimeError, match="cuda"):

@@ -207,7 +207,13 @@ def test_bank_on_card_launches_kernels(cuda_device):
   assert live_scan.live_bank_scan_mixed.launches == n3 + 6
   assert max(live_sigma_err(gpu._x.cpu(), gpu._P.cpu(), cpu._x,
                             cpu._P)) < 1e-3
+  # an off-diagonal Q takes the generic kernels on the card
+  # (tests/test_torch_live_full_q.py); streamed R stays with the hand ones
   Q = np.asarray(LiveKalman.Q).copy()
   Q[0, 6] = Q[6, 0] = 1e-3
-  with pytest.raises(ValueError, match="diagonal Q"):
-    LiveKalmanBank(batch=B, Q=Q, device=cuda_device)
+  full = LiveKalmanBank(batch=B, Q=Q, device=cuda_device)
+  with pytest.raises(ValueError, match="streamed R"):
+    full.run_mixed(np.full(2, 0.01), np.zeros(2, np.int32),
+                   np.zeros((2, B, 3)), (K.CAMERA_ODO_TRANSLATION,),
+                   r_stream=np.ones((2, 3)),
+                   stream_kinds=(K.CAMERA_ODO_TRANSLATION,))
