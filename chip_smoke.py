@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from the repository (rednose_tpu_torch/
 _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
-csrc/generic_scan.cuh, one nvcc each). Then:
-  1. five main paths, each with every kernel's launch count set to 0
+csrc/generic_scan.cuh, one nvcc each, the examples' variants among
+them). Then:
+  1. seven main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (P shrinks, a late observation rewinds and
@@ -56,9 +57,23 @@ csrc/generic_scan.cuh, one nvcc each). Then:
        kinematic filter of examples/run_compat_migration.py
        (compat.EKF_sym_pyx, float64) on the reference's goldens, then its
        smoother.
+     - the full-Q live bank with streamed R: LiveKalmanBank(batch=8192)
+       with the off-diagonal Q in float64, run_mixed over T = 512 steps
+       of the 4-kind cycle with the camera rotation's variances streamed
+       (r_stream): the plain full-Q slab on the card (the JAX reference's
+       route), no kernel; held against the same call on the CPU on 64
+       lanes within 1e-6 sigma, healthy as above;
+     - the examples: each of the port's ten examples
+       (rednose_tpu_torch/examples) through its main(device="cuda") at its
+       own sizes, the counts zeroed before each and read after it, its
+       own asserts holding and its wall time printed: kernel 3 in
+       run_mixed_bank (B = 512, T = 256), kernel 6 in run_loc's bank_demo
+       (loc, B = 64, T = 16, float32), kernel 6 with frames and kernel 7
+       (4 observe_frame launches) in run_msckf_bank (msckf_eskf, B = 64,
+       float64), no kernel in the other seven.
      Every kernel of a path must have launched in it; the VIO path
      launches kernel 6 (its camera-frame branch) and no other, the
-     offline path kernels 4 and 6 and no other.
+     offline path kernels 4 and 6 and no other, the streamed-R path none.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
      at B = 8192, T = 64, kernel 7 at
@@ -98,7 +113,17 @@ csrc/generic_scan.cuh, one nvcc each). Then:
      version; kernel 5's float32 bound on loc; and each camera-frame
      variant's float32 tile (kernel 7 at T = 16 and T = 1, an
      observe_frame call; kernel 6 with frames at T = 16) against its
-     global form on the same inputs (within GEN_TOL), both timed.
+     global form on the same inputs (within GEN_TOL), both timed. The
+     examples' variants on each example's own data: kernel 6 on loc in
+     float64 (float32 printed) within LOC64_TOL, kernel 6 with frames and
+     kernel 7 at T = 1 on msckf_eskf in float64 within MSCKF64_TOL, each
+     timed wrapped and raw with its design.
+  3. a trace (utils/profiling.trace) around run_mixed_bank and 20
+     LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
+     kernel and the rednose/live/predict and update scopes in it; and
+     finite_or_nan_flag on a bank's state with no host sync inside it.
+  4. this run's kernel times written to build/chip_smoke_times.json and
+     rednose_tpu_torch/tools/flops_report run on them.
 Prints the build times and ptxas lines, the card's name and power limit,
 a JSON line of the kernels, and last `{"ok": true, "device": {...}}`. Any
 failure raises (non-zero exit). It needs a CUDA card and the repository;
@@ -109,7 +134,6 @@ of JAX.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
@@ -226,6 +250,9 @@ VIO_T, VIO_CMP_T = 64, 16
 # cold T = REFINE_T log of tests/test_rts_live.py in float64, refine =
 # REFINE within REFINE_TOL of the sequential smoother
 FQ_T = 512
+# the full-Q bank with streamed R (the plain full-Q slab on the card) is
+# held against the same call on the CPU on its first STREAM_CPU_B lanes
+STREAM_CPU_B = 64
 RTS_T, RTS_B = 8192, 64
 BANK_SMOOTH_TOL = 1e-4
 REFINE_T, REFINE, REFINE_TOL = 600, 8, 1e-6
@@ -414,37 +441,12 @@ def generic_launch(source, call, x, P, zs, dts, eas=None, pss=None,
   return launch
 
 
-def emitted_ops(source):
-  """Arithmetic operations of each function of an emitted source: every
-  SSA definition that is not a plain load of an input (x, P, dt, p, Q, z,
-  ea, R) is one operation (a product, a sum, a compare, a select, a
-  sqrt)."""
-  ops, name = {}, None
-  load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[)")
-  for line in source.splitlines():
-    m = re.match(r"GEN_HD GEN_(?:INLINE|PHASE) void (\w+)\(", line)
-    if m:
-      name = m.group(1)
-      ops[name] = 0
-    elif name and line.startswith("  const ") and not load.search(line):
-      ops[name] += 1
-  return ops
-
-
 def step_ops(source, kinds, mode="single"):
-  """Operations of one emitted step: the predict plus the update (or
-  camera frame) of each kind of an epoch, of the one kind of a single or
-  frame step, or on average over a mixed schedule that cycles through its
-  kinds evenly."""
-  ops = emitted_ops(source)
+  """Operations of one step of an emitted source: rednose_tpu_torch/utils/
+  profiling.step_ops (the port is imported only once a card is found)."""
+  from rednose_tpu_torch.utils import profiling
 
-  def unit(k):
-    return next(v for name, v in ops.items()
-                if re.fullmatch(rf"gen_(update|frame)_k{k}(_g)?", name))
-
-  units = sum(unit(k) for k in kinds)
-  return ops["gen_predict"] + (units / len(kinds) if mode == "mixed"
-                               else units)
+  return profiling.step_ops(source, kinds, mode)
 
 
 def io_bytes(items, itemsize):
@@ -2266,46 +2268,6 @@ def refine_log(torch, dev, gen):
   return spec, stacks, ts
 
 
-class _MigratedKinematic:
-  """examples/run_compat_migration.py's filter on the port: the
-  reference's kinematic example (examples/kinematic_kf.py:36-81) as a
-  KalmanFilter subclass whose generate_code builds sympy dynamics and
-  calls gen_code, with only the import line changed."""
-
-  @staticmethod
-  def build(dev):
-    import sympy as sp
-
-    from rednose_tpu_torch.compat import EKF_sym_pyx, gen_code
-    from rednose_tpu_torch.models.kalman_filter import KalmanFilter
-
-    class MigratedKinematicKalman(KalmanFilter):
-      name = 'kinematic_migrated'
-      initial_x = np.array([0.5, 0.0])
-      initial_P_diag = np.array([1.0**2, 1.0**2])
-      Q = np.diag([0.1**2, 2.0**2])
-      obs_noise = {1: np.atleast_2d(0.1**2)}
-
-      @staticmethod
-      def generate_code(generated_dir):
-        state_sym = sp.MatrixSymbol('state', 2, 1)
-        state = sp.Matrix(state_sym)
-        dt = sp.Symbol('dt')
-        state_dot = sp.Matrix(np.zeros((2, 1)))
-        state_dot[0, 0] = state[1, 0]
-        gen_code(generated_dir, MigratedKinematicKalman.name,
-                 state + dt * state_dot, dt, state_sym,
-                 [[sp.Matrix([state[0, 0]]), 1, None]], 2, 2)
-
-      def __init__(self, generated_dir=None):
-        self.generate_code(generated_dir)
-        self.filter = EKF_sym_pyx(
-            generated_dir, self.name, self.Q, self.initial_x,
-            np.diag(self.initial_P_diag), 2, 2, device=dev)
-
-    return MigratedKinematicKalman()
-
-
 def offline_path(torch, dev, gen):
   """Phase 1, offline smoother and migration, all on the card: (a) the
   full-Q live bank; (b) a live log through the scan stream for RTS_B
@@ -2514,8 +2476,12 @@ def offline_path(torch, dev, gen):
   del X, X_l, rhs, rhs_b, F, Pk1, Pk1_b, stacks
 
   # (g) the migration demo on the card, then its smoother
+  from rednose_tpu_torch.examples.run_compat_migration import (
+      MigratedKinematicKalman,
+  )
+
   np.random.seed(0)
-  kf = _MigratedKinematic.build(dev)
+  kf = MigratedKinematicKalman(device=dev)
   ts_k = np.arange(0, 5, step=0.01)
   x, estimates = 0.0, []
   t0 = time.perf_counter()
@@ -2728,6 +2694,391 @@ def compare_full_q(torch, dev, gen, hand_states, reps=5):
   return rows
 
 
+# ------------------------------------------------------------- examples
+
+# the port's ten examples (rednose_tpu_torch/examples), each at its own
+# sizes, and the launches each must make on the card: none in the seven
+# single-filter examples (run_loc's engine half among them) and in
+# run_bank (the plain runtime/bank); kernel 6 in run_loc's bank_demo;
+# kernel 3 in run_mixed_bank; kernel 6 with frames in run_msckf_bank's
+# run_mixed and kernel 7 in its observe_frame calls (2 in order, a late
+# one that replays the second: 2 launches, a too-old one dropped)
+EXAMPLES = {
+    "run_kinematic": {}, "run_live": {}, "run_car": {},
+    "run_loc": {"generic_bank_scan_mixed": 1},
+    "run_compat_migration": {}, "run_msckf": {}, "run_vo_pipeline": {},
+    "run_mixed_bank": {"live_bank_scan_mixed": 1},
+    "run_msckf_bank": {"generic_bank_scan_mixed": 1, "vo_bank_scan": 4},
+    "run_bank": {},
+}
+
+
+def example_calls(torch, dev):
+  """The generic calls of the bank examples, as their banks make them, with
+  the dtype each runs: run_loc's bank_demo (kernel 6 on loc, float32),
+  run_msckf_bank's run_mixed (kernel 6 with camera frames on msckf_eskf)
+  and observe_frame (kernel 7), float64."""
+  from rednose_tpu_torch.examples import run_loc, run_msckf_bank as mb
+  from rednose_tpu_torch.models.loc import LocKalman
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+  from rednose_tpu_torch.runtime.generic_bank import KalmanBank
+  from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
+
+  def defaults(bank, kinds):
+    return [bank._normalize_R(k, bank._default_R(k)) for k in kinds]
+
+  loc = KalmanBank(LocKalman, batch=run_loc.BANK_B, device=dev)
+  kinds = run_loc.bank_demo_data()[0]
+  _, xs, kinds_m, *_ = mb.data()
+  bank = MSCKFBank(MSCKFEskf, batch=mb.B, dtype=torch.float64, x0=xs,
+                   device=dev)
+  fk = (bank.feature_kind,)
+  return {
+      "run_loc bank_demo (kernel 6, loc)": (
+          loc._call("mixed", kinds, defaults(loc, kinds)), torch.float32),
+      "run_msckf_bank run_mixed (kernel 6 with frames)": (
+          bank._call("mixed", kinds_m, defaults(bank, kinds_m)),
+          torch.float64),
+      "run_msckf_bank observe_frame (kernel 7)": (
+          bank._call("frame", fk, defaults(bank, fk)), torch.float64),
+  }
+
+
+def examples_path(torch, dev, launches):
+  """Phase 1, the examples: each example's main(device="cuda"), the launch
+  counts set to 0 just before it and read just after it (added to
+  `launches`); its own asserts hold and it launches exactly its kernels
+  (EXAMPLES). Wall time on the host clock after a synchronise. Returns
+  {example: its numbers}."""
+  import importlib
+
+  from rednose_tpu_torch.examples import kernel_wrappers
+
+  wrappers = kernel_wrappers()
+  out = {}
+  for name, expected in EXAMPLES.items():
+    mod = importlib.import_module(f"rednose_tpu_torch.examples.{name}")
+    for w in wrappers:
+      w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out[name] = mod.main(device=str(dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {w.__name__: w.launches for w in wrappers if w.launches}
+    log(f"example {name}: {ms:.1f} ms (host clock, first call, after a "
+        f"synchronise), launches {counts}")
+    require(counts == expected,
+            f"example {name} launched {counts}, expected {expected}")
+    for w in wrappers:
+      launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
+  require(out["run_loc"]["launches"] == EXAMPLES["run_loc"],
+          "run_loc's engine half launched no kernel")
+  require(out["run_mixed_bank"]["launches"] == EXAMPLES["run_mixed_bank"]
+          and out["run_msckf_bank"]["launches"] == EXAMPLES["run_msckf_bank"],
+          "the bank examples report the kernels they launched")
+  return out
+
+
+def compare_examples(torch, dev, reps=10):
+  """Phase 2, the examples' variants against their plain versions, on each
+  example's own data and state, in sigmas (utils/compare.py), each timed
+  wrapped and raw (at the example's T and at T = 1) with its design:
+  kernel 6 on loc (run_loc's bank_demo, B = 64, T = 16): its float64
+  build against the float64 plain version within LOC64_TOL, the float32
+  agreement printed (loc in float32 at ECEF scale: see LOC64_TOL); kernel
+  6 with camera frames on msckf_eskf in float64 (run_msckf_bank's
+  run_mixed, B = 64, T = 24) within MSCKF64_TOL; kernel 7 in float64 at
+  T = 1 (its late observe_frame) from the plain version's state after that
+  run_mixed, within MSCKF64_TOL. Returns the rows."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.examples import run_loc, run_msckf_bank as mb
+  from rednose_tpu_torch.models.loc import LocKalman
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  calls = example_calls(torch, dev)
+  rows, checks = [], []
+
+  def mixed_kw(call, eas):
+    return dict(spec=call.spec, kinds=call.kinds, Q=call.Q,
+                R_list=call.R_list, structure=call.structure, eas=eas)
+
+  def bank0(model, xs, dtype):
+    d = dict(dtype=dtype, device=dev)
+    return (torch.as_tensor(xs.T, **d).contiguous(),
+            torch.as_tensor(np.diag(model.initial_P_diag), **d)[
+                :, :, None].repeat(1, 1, xs.shape[0]))
+
+  def raw(name, call, dtype, args, eas, ki):
+    x, P, zs, dts = args[:4]
+    src = call.source(dtype)
+
+    def launch(n):
+      return generic_launch(src, call, x, P, zs[:n], dts[:n], eas[:n],
+                            None, None if ki is None else ki[:n])
+
+    T = dts.shape[0]
+    ms = {n: timed_run(launch(n), 20 if n == 1 else 5)[0] for n in (T, 1)}
+    log(variant_line(name, _build.generated_info(src), x.shape[-1], ms))
+
+  # kernel 6 on loc: bank_demo's data from LocKalman's x0 and P0
+  name = "run_loc bank_demo (kernel 6, loc)"
+  call = calls[name][0]
+  kinds, kind_idx, zs, eas, _ = run_loc.bank_demo_data()
+  B, T = run_loc.BANK_B, run_loc.BANK_T
+  ki = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
+  ops = step_ops(call.counting_source(), kinds, "mixed") * T * B
+
+  def loc_args(dtype):
+    d = dict(dtype=dtype, device=dev)
+    x, P = bank0(LocKalman, np.tile(LocKalman.initial_x, (B, 1)), dtype)
+    return ((x, P, torch.as_tensor(zs, **d).transpose(1, 2).contiguous(),
+             torch.full((T,), 0.1, **d), ki),
+            torch.as_tensor(eas, **d).transpose(1, 2).contiguous())
+
+  (args32, eas32), (args64, eas64) = loc_args(torch.float32), \
+      loc_args(torch.float64)
+  row, _, _ = kernel_vs_plain(
+      "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:250", call.spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      args64, mixed_kw(call, eas64),
+      f"loc B={B} T={T} pseudorange / rate, bank_demo, float64", ops,
+      LOC64_TOL, checks=checks, reps=reps)
+  rows.append(row)
+  out_k = gs.generic_bank_scan_mixed(*args32, **mixed_kw(call, eas32))
+  out_p = gs.generic_bank_scan_mixed_reference(*args32,
+                                               **mixed_kw(call, eas32))
+  e = lane_errs(out_k, out_p, call.spec)
+  ms32, _ = timed_run(lambda: gs.generic_bank_scan_mixed(
+      *args32, **mixed_kw(call, eas32)), reps)
+  log(f"generic_bank_scan_mixed [loc B={B} T={T}, bank_demo, float32, the "
+      f"example's variant]: kernel {ms32:.4f} ms wrapped, vs plain max "
+      f"{float(e.max()):.4g} sigma, median {float(e.median()):.4g} "
+      "(printed, not held: float32 at ECEF scale)")
+  raw(name, call, torch.float32, args32, eas32, ki)
+  raw(name + ", float64", call, torch.float64, args64, eas64, ki)
+
+  # kernel 6 with frames on msckf_eskf, float64: run_msckf_bank's data
+  name = "run_msckf_bank run_mixed (kernel 6 with frames)"
+  call = calls[name][0]
+  _, xs, kinds, kind_idx, zs, eas, pos = mb.data()
+  T = kind_idx.shape[0]
+  f64 = dict(dtype=torch.float64, device=dev)
+  ki = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
+  eas_m = torch.as_tensor(eas, **f64).transpose(1, 2).contiguous()
+  args = (*bank0(MSCKFEskf, xs, torch.float64),
+          torch.as_tensor(zs, **f64).transpose(1, 2).contiguous(),
+          torch.full((T,), mb.DT, **f64), ki)
+  row, _, out_p = kernel_vs_plain(
+      "generic_bank_scan_mixed", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:250", call.spec,
+      gs.generic_bank_scan_mixed, gs.generic_bank_scan_mixed_reference,
+      args, mixed_kw(call, eas_m),
+      f"msckf_eskf B={mb.B} T={T} frames + fixes, run_msckf_bank, float64",
+      step_ops(call.counting_source(), kinds, "mixed") * T * mb.B,
+      MSCKF64_TOL, checks=checks, reps=reps)
+  rows.append(row)
+  raw(name, call, torch.float64, args, eas_m, ki)
+
+  # kernel 7 at T = 1 from there: the late frame
+  name = "run_msckf_bank observe_frame (kernel 7)"
+  call = calls[name][0]
+  spec = call.spec
+  z = torch.as_tensor(mb.frame_obs(spec, pos + 1.5 * mb.TRUTH_V * mb.DT),
+                      **f64)
+  zs7 = z[None, :, None].repeat(1, 1, mb.B)
+  eas7 = torch.as_tensor(mb.LANDMARK, **f64)[None, :, None].repeat(
+      1, 1, mb.B)
+  dts7 = torch.full((1,), 0.5 * mb.DT, **f64)
+  row, _, _ = kernel_vs_plain(
+      "vo_bank_scan", "rednose_tpu_torch/csrc/generic_scan.cuh",
+      "rednose_tpu/ops/pallas_bank.py:755", spec, gs.vo_bank_scan,
+      gs.vo_bank_scan_reference, (*out_p, zs7, eas7, dts7),
+      dict(spec=spec, kind=call.kinds[0], Q=call.Q, R=call.R_list[0],
+           structure=call.structure),
+      f"msckf_eskf B={mb.B} T=1 late frame, run_msckf_bank, float64",
+      step_ops(call.counting_source(), call.kinds) * mb.B, MSCKF64_TOL,
+      checks=checks, reps=20)
+  rows.append(row)
+  src = call.source(torch.float64)
+  x1, P1 = out_p
+  ms = timed_run(generic_launch(src, call, x1, P1, zs7, dts7, eas7), 20)[0]
+  log(variant_line(name, _build.generated_info(src), mb.B, {1: ms}).split(
+      "; raw launches")[0] + f"; raw launch B={mb.B} T=1 {ms:.4f} ms")
+  bad = [name for name, ok in checks if not ok]
+  require(not bad, f"the examples' variants agree with their plain "
+          f"versions: {bad}")
+
+  # kernel 3 at run_mixed_bank's shape, B = 512 (16 tiles on 132 SMs),
+  # from its bank's first state on its data: timed, not held (float32
+  # from the 10-rad attitude prior; see compare_kernels)
+  from rednose_tpu_torch.examples import run_mixed_bank as rb
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import live_scan
+  from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
+
+  bank = LiveKalmanBank(batch=rb.B, device=dev)
+  f32 = dict(dtype=torch.float32, device=dev)
+  kind_idx, zs = rb.data()
+  zs = torch.as_tensor(zs, **f32).permute(0, 2, 1).contiguous()
+  dts = torch.full((rb.T,), 0.01, **f32)
+  ki = torch.as_tensor(kind_idx, dtype=torch.int32, device=dev)
+  R = torch.stack([torch.as_tensor(LiveKalman.obs_noise[k], **f32)
+                   for k in rb.KINDS])
+  args = (bank._x, bank._P, zs, dts, ki, rb.KINDS, R, bank._q_diag)
+  ms, out = timed_run(lambda: live_scan.live_bank_scan_mixed(*args), reps)
+  raw = {n: timed_run(kernel3_launch(
+      _build.library(), bank._x, bank._P, zs[:n], dts[:n], ki[:n], rb.KINDS,
+      R, bank._q_diag), 20 if n == 1 else 5)[0] for n in (rb.T, 1)}
+  ops = hand_kernel_ops(bank.spec)["live_bank_scan_mixed"] * rb.B * rb.T
+  bound_ms, bound_by = bound(io_bytes([args, out], 4), ops)
+  log(f"live_bank_scan_mixed [run_mixed_bank B={rb.B} T={rb.T}, 4 kinds]: "
+      f"kernel {ms:.4f} ms wrapped, raw T={rb.T} {raw[rb.T]:.4f} ms, T=1 "
+      f"{raw[1]:.4f} ms; bound {bound_ms:.4g} ms ({bound_by})")
+  return rows
+
+
+def profiler_phase(torch, dev):
+  """utils/profiling on the card: a trace (CPU and CUDA activity) around
+  run_mixed_bank's main and 20 LiveKalman.predict_and_observe calls,
+  written into build/chip_smoke_trace and read back: kernel 3's CUDA
+  kernel and the live step's predict and update scopes (core/step.py)
+  must be in it. Then finite_or_nan_flag on a bank's state under CUDA's
+  sync debug mode set to raise: no host sync inside it."""
+  import glob
+  import shutil
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.examples import run_mixed_bank
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
+  from rednose_tpu_torch.utils import profiling
+
+  logdir = _build.BUILD_DIR.parent / "chip_smoke_trace"
+  shutil.rmtree(logdir, ignore_errors=True)
+  kf = LiveKalman(device=dev)
+  rng = np.random.RandomState(SEED + 11)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with profiling.trace(str(logdir)):
+    run_mixed_bank.main(device=str(dev))
+    for i in range(20):
+      kf.predict_and_observe(0.1 * (i + 1), K.ECEF_POS, [
+          LiveKalman.initial_x[0:3] + rng.normal(0, 1.0, 3)])
+    torch.cuda.synchronize()
+  ms = (time.perf_counter() - t0) * 1e3
+  files = glob.glob(str(logdir / "*.pt.trace.json"))
+  require(len(files) == 1, f"the profiler wrote one trace: {files}")
+  with open(files[0]) as f:
+    events = json.load(f)["traceEvents"]
+  names = {e.get("name", "") for e in events}
+  k3 = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+               and "live_bank_scan_mixed_kernel" in e.get("name", "")})
+  updates = sorted(n for n in names if n.startswith("rednose/live/update_"))
+  n_kernels = sum(e.get("cat") == "kernel" for e in events)
+  log(f"profiler trace ({ms:.1f} ms with the profiler on, host clock): "
+      f"{len(events)} events, {n_kernels} CUDA kernel events; kernel 3 "
+      f"{k3}; scopes rednose/live/predict "
+      f"{'rednose/live/predict' in names}, {updates}")
+  require(k3, "kernel 3's CUDA kernel is in the trace")
+  require("rednose/live/predict" in names and updates,
+          "the live step's predict and update scopes are in the trace")
+  bank = LiveKalmanBank(batch=run_mixed_bank.B, device=dev)
+  kind_idx, zs = run_mixed_bank.data()
+  bank.run_mixed(np.full(run_mixed_bank.T, 0.01), kind_idx, zs,
+                 run_mixed_bank.KINDS)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    flag = profiling.finite_or_nan_flag({"x": bank._x, "P": bank._P})
+  finally:
+    torch.cuda.set_sync_debug_mode("default")
+  require(flag.is_cuda and flag.shape == () and bool(flag),
+          "finite_or_nan_flag: a finite bank, flagged on the card")
+  log("finite_or_nan_flag on the bank state: True, a 0-d tensor on the "
+      "card, no host sync inside it (sync debug mode 'error')")
+
+
+def full_q_stream_path(torch, dev, gen):
+  """Phase 1, the full-Q live bank with streamed R: LiveKalmanBank(batch=
+  LIVE_B, Q=full_q()) in float64, run_mixed over FQ_T steps of the 4-kind
+  cycle with the camera rotation's per-step variances streamed (r_stream,
+  the noise each camera-odometry measurement carries): the plain full-Q
+  slab on the card, the JAX reference's own route, and no kernel. Held
+  against the same call on the CPU on the first STREAM_CPU_B lanes within
+  LIVE64_TOL sigma, and healthy as the offline path's bank."""
+  from rednose_tpu_torch.models.live import (
+      LiveKalman,
+      ObservationKind as K,
+      build_live_spec,
+  )
+  from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
+
+  kinds, kind_idx, zs = mixed_schedule(torch, dev, gen, FQ_T)
+  r_stream = ((0.05 + 0.01 * torch.rand((FQ_T, 3), generator=gen,
+                                        device=dev)) ** 2).double().cpu()
+  kw = dict(r_stream=r_stream.numpy(), stream_kinds=(K.CAMERA_ODO_ROTATION,))
+  dts = np.full(FQ_T, 0.01)
+  bank = LiveKalmanBank(batch=LIVE_B, Q=full_q(), dtype=torch.float64,
+                        device=dev)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  bank.run_mixed(dts, kind_idx, zs.double(), kinds, **kw)
+  torch.cuda.synchronize()
+  ms = (time.perf_counter() - t0) * 1e3
+  n = STREAM_CPU_B
+  cpu = LiveKalmanBank(batch=n, Q=full_q(), dtype=torch.float64,
+                       device="cpu")
+  cpu.run_mixed(dts, kind_idx, zs[:, :n].double().cpu(), kinds, **kw)
+  e = float(lane_errs((bank._x[:, :n].cpu(), bank._P[..., :n].cpu()),
+                      (cpu._x, cpu._P), build_live_spec()).max())
+  require(e <= LIVE64_TOL, f"the card's full-Q streamed-R bank agrees with "
+          f"the CPU's: {e:.4g} sigma")
+  require(bool(torch.isfinite(bank._x).all()
+               and torch.isfinite(bank._P).all()), "streamed-R bank finite")
+  require(torch.equal(bank._P, bank._P.transpose(0, 1)),
+          "streamed-R bank P symmetric")
+  require(int(bank.diverged().sum()) == 0,
+          "streamed-R bank: no diverged lane")
+  pos = torch.as_tensor(LiveKalman.initial_x[0:3], **dict(
+      dtype=torch.float64, device=dev))
+  sd = torch.diagonal(bank._P, dim1=0, dim2=1)[:, 0:3].sqrt()
+  err = (bank._x[0:3] - pos[:, None]).abs().T
+  require(bool((err < 8.0 * sd + 5.0).all()),
+          "the streamed-R bank keeps the position")
+  log(f"full-Q live bank with streamed R (camera rotation), B={LIVE_B}, "
+      f"float64: run_mixed T={FQ_T} {ms:.1f} ms (host clock, plain full-Q "
+      f"slab on the card); first {n} lanes against the CPU {e:.4g} sigma "
+      f"(tolerance {LIVE64_TOL}); position sigma {float(sd.mean()):.4g} m, "
+      f"max error {float(err.max()):.4g} m")
+  return {}
+
+
+def flops_report_phase(card, rows):
+  """Write this run's kernel times (every row: name, shape, wrapped ms,
+  plain ms, bound ms) to build/chip_smoke_times.json with the card's line,
+  and run tools/flops_report on them; its lines are logged."""
+  import pathlib
+
+  root = pathlib.Path(__file__).resolve().parent
+  path = root / "build" / "chip_smoke_times.json"
+  path.parent.mkdir(parents=True, exist_ok=True)
+  with open(path, "w") as f:
+    json.dump({"card": card, "rows": [
+        {k: r[k] for k in ("name", "shape", "ms", "plain_ms", "bound_ms")}
+        for r in rows]}, f, indent=1)
+  rep = subprocess.run(
+      [sys.executable, "-m", "rednose_tpu_torch.tools.flops_report",
+       "--times", str(path)], cwd=root, capture_output=True, text=True,
+      timeout=600)
+  for line in rep.stdout.splitlines():
+    log(f"  flops_report: {line}")
+  require(rep.returncode == 0 and "sustained on" in rep.stdout,
+          f"tools/flops_report ran on this run's times: {rep.stderr[-2000:]}")
+
+
 def main():
   import torch
 
@@ -2744,12 +3095,16 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
   card = card_line()
   log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+  dev = torch.device("cuda", 0)
   # every nvcc at once: csrc/*.cu in a thread, one per emitted variant
   t0 = time.perf_counter()
   with ThreadPoolExecutor(1) as pool:
     static = pool.submit(_build.build)
     live_spec = generic_models()[3]
-    sources = generic_sources(live_spec) | msckf_sources() | vio_sources()
+    ex_calls = example_calls(torch, dev)
+    sources = (generic_sources(live_spec) | msckf_sources() | vio_sources()
+               | {f"examples: {name}": call.source(dtype)
+                  for name, (call, dtype) in ex_calls.items()})
     # the comparison phase's own variants: kernels 5, 6 and 7 in double,
     # and the camera-frame variants' global form (tile_vs_global)
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
@@ -2761,6 +3116,8 @@ def main():
                                   "(kernel 6)"].source(torch.float64)}
     cmp_sources |= {name: c.source()
                     for name, c in full_q_cmp_calls().items()}
+    cmp_sources["examples: run_loc bank_demo, float64 (kernel 6, loc)"] = \
+        ex_calls["run_loc bank_demo (kernel 6, loc)"][0].source(torch.float64)
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),
                          ("run_mixed with frames", vio_call(model))):
@@ -2787,9 +3144,8 @@ def main():
       if "registers" in line or "spill" in line or "nvcc" in line:
         log(f"  ptxas, {name}: {line.strip()}")
 
-  dev = torch.device("cuda", 0)
   gens = []
-  for i in range(5):
+  for i in range(6):
     # each path draws from a generator of its own, so a path sees the same
     # data whether or not the others run
     gens.append(torch.Generator(device=dev))
@@ -2812,6 +3168,9 @@ def main():
       ("offline smoother and migration",
        lambda: offline_path(torch, dev, gens[4]),
        (g.generic_bank_scan, g.generic_bank_scan_mixed)),
+      # a full Q with streamed R runs the plain full-Q slab: no kernel
+      ("full-Q streamed R", lambda: full_q_stream_path(torch, dev, gens[5]),
+       ()),
   )
   wrappers = {w for _, _, ws in paths for w in ws}
   launches, states = {w.__name__: 0 for w in wrappers}, []
@@ -2823,12 +3182,15 @@ def main():
     log(f"{name} path launches: {counts}")
     require(all(counts[w.__name__] > 0 for w in expected),
             f"every kernel of the {name} path launched: {counts}")
-    if name in ("VIO", "offline smoother and migration"):
+    if name in ("VIO", "offline smoother and migration",
+                "full-Q streamed R"):
       require(all(counts[w.__name__] == 0 for w in wrappers
                   if w not in expected),
               f"the {name} path launched only its kernels: {counts}")
     for w in wrappers:
       launches[w.__name__] += counts[w.__name__]
+  # the sixth path: the ten examples, the counts zeroed around each
+  examples_path(torch, dev, launches)
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
@@ -2840,6 +3202,9 @@ def main():
   kernel_variants(torch, dev, gens[1], live_spec, generic_states)
   rows += compare_msckf(torch, dev, gens[2])
   rows += compare_vio(torch, dev, gens[3])
+  example_rows = compare_examples(torch, dev)
+  profiler_phase(torch, dev)
+  flops_report_phase(card, rows + example_rows)
   # no one PyTorch call computes a fused T-step filter scan: library_ms null
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -21,6 +21,7 @@ import torch
 from rednose_tpu_torch.core.spec import FilterSpec
 from rednose_tpu_torch.ops.quaternion import normalize_slices
 from rednose_tpu_torch.utils.chi2 import chi2_ppf
+from rednose_tpu_torch.utils.profiling import named_scope
 
 
 def _symmetrize(P):
@@ -66,6 +67,11 @@ def predict(spec: FilterSpec, params, x, P, Q, dt, normalize: bool = True,
             F=None):
   """x <- f(x, dt), P <- F P F^T (main block) + dt*Q (ekf_c.c:8-33). F, when
   given, is spec.F(params, x, dt) computed another way (a closed form)."""
+  with named_scope(f"rednose/{spec.name}/predict", x):
+    return _predict(spec, params, x, P, Q, dt, normalize, F)
+
+
+def _predict(spec, params, x, P, Q, dt, normalize, F):
   x_new = spec.f(params, x, dt)
   if F is None:
     F = spec.F(params, x, dt)
@@ -86,6 +92,11 @@ def predict(spec: FilterSpec, params, x, P, Q, dt, normalize: bool = True,
 def update(spec: FilterSpec, kind: int, params, x, P, z, R, ea,
            normalize: bool = True):
   """One measurement update; returns (x, P, y) (ekf_c.c:38-121)."""
+  with named_scope(f"rednose/{spec.name}/update_{kind}", x):
+    return _update(spec, kind, params, x, P, z, R, ea, normalize)
+
+
+def _update(spec, kind, params, x, P, z, R, ea, normalize):
   om = spec.obs[kind]
   h = om.h(params, x, ea)
   H = spec.H(kind, params, x, ea)

@@ -18,10 +18,13 @@ its diagonal. With an off-diagonal Q, on CUDA `run` launches the generic
 kernel 4 (generic_scan.generic_bank_scan) and `run_mixed` and `observe`
 kernel 6 (generic_bank_scan_mixed) on the live spec, which take Q by its
 nonzero pattern; kernel 6's variant takes every live lane kind
-(LIVE_KINDS), so one build serves every schedule. Streamed R exists only
-in the hand kernels: with a full Q it raises on CUDA. On the CPU a full Q
-takes the plain full-Q slab path. Time is kept on the host in float64;
-only dts reach the device.
+(LIVE_KINDS), so one build serves every schedule. Streamed R (r_stream /
+stream_kinds, the camera-odometry noise each measurement carries) exists
+only in the hand kernels: with a full Q such a schedule runs the plain
+full-Q slab (live_scan.live_bank_scan_mixed_reference) on the bank's
+device, the JAX reference's own route for any off-diagonal Q, and
+launches no kernel. On the CPU a full Q always takes that slab. Time is
+kept on the host in float64; only dts reach the device.
 """
 
 from __future__ import annotations
@@ -148,12 +151,7 @@ class LiveKalmanBank(BankFacadeBase):
                   stream_kinds):
     """One mixed scan: dts (T,) and kind_idx (T,) on the host, zs
     (T, 3, B) on the device, R_stack (K, 3, 3) host, per kind of kinds."""
-    if self._generic:
-      if stream_kinds:
-        raise ValueError(
-            "streamed R (r_stream / stream_kinds) runs only in the live hand "
-            "kernels, which take a diagonal Q; with an off-diagonal Q on "
-            "CUDA pass each kind's R in R_by_kind")
+    if self._generic and not stream_kinds:
       R_list = []
       for k in LIVE_KINDS:
         dz = live_lane.LANE_KINDS[k][0]
@@ -172,6 +170,7 @@ class LiveKalmanBank(BankFacadeBase):
       return live_scan.live_bank_scan_mixed(
           *args, self._q_diag, gate=gate, r_stream=r_stream,
           stream_kinds=stream_kinds)
+    # an off-diagonal Q on the CPU, or with streamed R on any device
     return live_scan.live_bank_scan_mixed_reference(
         *args, self.Q, gate=gate, r_stream=r_stream,
         stream_kinds=stream_kinds)

@@ -190,7 +190,9 @@ def test_off_diagonal_q_and_standstill_odometry():
 @pytest.mark.cuda
 def test_bank_on_card_launches_kernels(cuda_device):
   """On the card, run, run_mixed and observe go through kernels 2 and 3
-  and match the CPU bank (float32, in standard deviations)."""
+  and match the CPU bank (float32, in standard deviations); with an
+  off-diagonal Q a streamed-R schedule runs the plain full-Q slab on the
+  card, launches no kernel and matches the CPU bank (float64)."""
   from rednose_tpu_torch.ops import live_scan
   from rednose_tpu_torch.utils.compare import live_sigma_err
 
@@ -208,12 +210,23 @@ def test_bank_on_card_launches_kernels(cuda_device):
   assert max(live_sigma_err(gpu._x.cpu(), gpu._P.cpu(), cpu._x,
                             cpu._P)) < 1e-3
   # an off-diagonal Q takes the generic kernels on the card
-  # (tests/test_torch_live_full_q.py); streamed R stays with the hand ones
+  # (tests/test_torch_live_full_q.py); with streamed R, the plain full-Q
+  # slab, the JAX reference's route for an off-diagonal Q: no kernel
+  from rednose_tpu_torch.ops import generic_scan
+
   Q = np.asarray(LiveKalman.Q).copy()
   Q[0, 6] = Q[6, 0] = 1e-3
-  full = LiveKalmanBank(batch=B, Q=Q, device=cuda_device)
-  with pytest.raises(ValueError, match="streamed R"):
-    full.run_mixed(np.full(2, 0.01), np.zeros(2, np.int32),
-                   np.zeros((2, B, 3)), (K.CAMERA_ODO_TRANSLATION,),
-                   r_stream=np.ones((2, 3)),
+  wrappers = (live_scan.live_bank_scan_mixed,
+              generic_scan.generic_bank_scan_mixed)
+  before = [w.launches for w in wrappers]
+  rng = np.random.RandomState(7)
+  zs, r_stream = 0.05 * rng.randn(2, B, 3), rng.uniform(0.05, 0.3, (2, 3))**2
+  full = [LiveKalmanBank(batch=B, Q=Q, dtype=torch.float64, device=d)
+          for d in (cuda_device, "cpu")]
+  for bank in full:
+    bank.run_mixed(np.full(2, 0.01), np.zeros(2, np.int32), zs,
+                   (K.CAMERA_ODO_TRANSLATION,), r_stream=r_stream,
                    stream_kinds=(K.CAMERA_ODO_TRANSLATION,))
+  assert [w.launches for w in wrappers] == before
+  assert max(live_sigma_err(full[0]._x.cpu(), full[0]._P.cpu(), full[1]._x,
+                            full[1]._P)) < 1e-6

@@ -191,23 +191,69 @@ def test_bank_generic_route_equals_slab_route(gate):
           generic_scan.generic_bank_scan_mixed.launches) == (n4, n6)
 
 
+STREAM_KINDS = (K.CAMERA_ODO_TRANSLATION, K.CAMERA_ODO_ROTATION)
+STREAM_SCHEDULE = (K.PHONE_GYRO, K.CAMERA_ODO_TRANSLATION, K.ECEF_POS,
+                   K.CAMERA_ODO_ROTATION, K.ODOMETRIC_SPEED)
+
+
+def _streamed_schedule(seed, T=T):
+  """A schedule with both camera-odometry kinds, whose noise comes with
+  each measurement (r_stream, (T, 3) variances, live_kf.py:325-337): each
+  measurement the kind's h at x0 plus noise of its scale."""
+  rng = np.random.RandomState(seed)
+  spec = build_live_spec()
+  x0 = torch.as_tensor(_x0())
+  ki = np.arange(T) % len(STREAM_SCHEDULE)
+  zs = np.zeros((T, B, 3))
+  scale = {K.PHONE_GYRO: 0.01, K.CAMERA_ODO_TRANSLATION: 0.05,
+           K.ECEF_POS: 2.0, K.CAMERA_ODO_ROTATION: 0.02,
+           K.ODOMETRIC_SPEED: 0.1}
+  for i, k in enumerate(STREAM_SCHEDULE):
+    rows = ki == i
+    h = spec.obs[k].h({}, x0, None).numpy()
+    zs[rows, :, :_dz(k)] = h + scale[k] * rng.randn(rows.sum(), B, _dz(k))
+  r_stream = rng.uniform(0.02, 0.3, (T, 3))**2
+  return ki, zs, r_stream
+
+
 def test_streamed_kinds_refused_on_the_generic_route():
-  bank = LiveKalmanBank(batch=B, Q=full_q(), dtype=torch.float64,
+  """The generic route (the card's, `_generic = True`) no longer refuses
+  streamed R: a schedule with stream kinds runs the plain full-Q slab, the
+  JAX reference's own route for an off-diagonal Q, and agrees with
+  rednose_tpu's LiveKalmanBank(Q=full, use_pallas=False) in float64 on
+  run_mixed, then observe of both camera kinds with their own R and a
+  late observation; no generic kernel is asked for."""
+  bank = LiveKalmanBank(batch=B, x0=_x0(), Q=full_q(), dtype=torch.float64,
                         device="cpu")
   bank._generic = True
-  with pytest.raises(ValueError, match="streamed R"):
-    bank.run_mixed(np.full(3, 0.01), np.zeros(3, np.int32),
-                   np.zeros((3, B, 3)), (K.CAMERA_ODO_TRANSLATION,),
-                   r_stream=np.ones((3, 3)),
-                   stream_kinds=(K.CAMERA_ODO_TRANSLATION,))
+  jbank = _jax_bank(_x0())
+  ki, zs, r_stream = _streamed_schedule(10)
+  n6 = generic_scan.generic_bank_scan_mixed.launches
+  for b in (bank, jbank):
+    b.run_mixed(np.full(T, 0.01), ki, zs, STREAM_SCHEDULE,
+                r_stream=r_stream, stream_kinds=STREAM_KINDS)
+  _close_jax(bank._x, bank._P, jbank)
+  assert not bank._calls   # no kernel 6 variant was even made
+  rng = np.random.RandomState(11)
+  t0 = bank.t
+  for i in (1, 2, 4, 3):   # the last one is late: rewind and replay
+    k = STREAM_KINDS[i % 2]
+    z = zs[-1, 0, :3] + 0.01 * rng.randn(3)
+    R = np.diag(rng.uniform(0.02, 0.3, 3)**2)
+    for b in (bank, jbank):
+      assert b.observe(t0 + 0.01 * i, k, z, R=R) is not None
+  _close_jax(bank._x, bank._P, jbank)
+  assert bank.t == jbank.t
+  assert generic_scan.generic_bank_scan_mixed.launches == n6
 
 
 @pytest.mark.cuda
 def test_full_q_bank_on_card_launches_kernels_4_and_6(cuda_device):
   """On the card a full-Q bank runs kernel 4 on run and kernel 6 on
   run_mixed / observe, never the hand kernels, and matches the CPU bank on
-  the same route (its plain versions) in float64 to 1e-6 sigma; streamed
-  R raises."""
+  the same route (its plain versions) in float64 to 1e-6 sigma; a schedule
+  with streamed R runs the plain full-Q slab on the card and launches no
+  kernel."""
   gpu = LiveKalmanBank(batch=B, x0=_x0(), Q=full_q(), dtype=torch.float64,
                        device=cuda_device)
   cpu = LiveKalmanBank(batch=B, x0=_x0(), Q=full_q(), dtype=torch.float64,
@@ -229,11 +275,15 @@ def test_full_q_bank_on_card_launches_kernels_4_and_6(cuda_device):
   assert after[live_scan.live_bank_scan] == 0
   assert after[live_scan.live_bank_scan_mixed] == 0
   _close(gpu._x.cpu(), gpu._P.cpu(), cpu._x, cpu._P)
-  with pytest.raises(ValueError, match="streamed R"):
-    gpu.run_mixed(np.full(3, 0.01), np.zeros(3, np.int32),
-                  np.zeros((3, B, 3)), (K.CAMERA_ODO_TRANSLATION,),
-                  r_stream=np.ones((3, 3)),
-                  stream_kinds=(K.CAMERA_ODO_TRANSLATION,))
+  # streamed R: the plain full-Q slab on the card, no kernel launched
+  ki, zs, r_stream = _streamed_schedule(12, T=16)
+  n6 = generic_scan.generic_bank_scan_mixed.launches
+  for bank in (gpu, cpu):
+    bank.run_mixed(np.full(16, 0.01), ki, zs, STREAM_SCHEDULE,
+                   r_stream=r_stream, stream_kinds=STREAM_KINDS)
+  assert generic_scan.generic_bank_scan_mixed.launches == n6
+  assert gpu._x.device.type == "cuda"
+  _close(gpu._x.cpu(), gpu._P.cpu(), cpu._x, cpu._P)
 
 
 @pytest.mark.cuda
