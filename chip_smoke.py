@@ -8,11 +8,12 @@ _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each, the examples' variants among
 them). Then:
-  1. seven main paths, each with every kernel's launch count set to 0
+  1. eight main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
-       100-observation stream (P shrinks, a late observation rewinds and
-       replays, a too-old one returns None); the kinematic bank scan at
+       100-observation stream (the engine on the native rewind ring; P
+       shrinks, a late observation rewinds and replays, a too-old one
+       returns None); the kinematic bank scan at
        B = 16384, T = 4096 with the gate on; LiveKalmanBank(batch=8192):
        run_mixed over T = 1024 steps of the gyro / accel / camera rotation
        / position schedule, run over T = 1024 ECEF_POS steps, 8 observe
@@ -70,10 +71,26 @@ them). Then:
        run_mixed_bank (B = 512, T = 256), kernel 6 in run_loc's bank_demo
        (loc, B = 64, T = 16, float32), kernel 6 with frames and kernel 7
        (4 observe_frame launches) in run_msckf_bank (msckf_eskf, B = 64,
-       float64), no kernel in the other seven.
+       float64), no kernel in the other seven (run_bank on a mesh of one
+       rank, parallel/sharding);
+     - the sharded bank (parallel/sharding.py through the cases of
+       parallel/dryrun.py): sharded_run_bank (kinematic, B = 4096,
+       T = 500) with the staged RMSE on the 1-D and the multislice mesh,
+       jit_sharded_step, the lane bank, and kernels 2 (live, B = 8192,
+       T = 1024), 4 (live spec ECEF_POS gate on, B = 8192, T = 512; car
+       with its params stream, T = 1024), 6 (live 4-kind cycle, B = 8192,
+       T = 512; msckf_eskf VIO, B = 4096, T = 64), 5 (loc, B = 8192,
+       T = 512 x 8 slots, float32) and 7 (msckf_eskf, B = 4096, T = 64)
+       through their sharded wrappers, and the time-sharded smoother
+       (float64, T = 4096): (a) in this process on make_bank_mesh(), one
+       NCCL rank; (b) on SHARD_RANKS Gloo ranks spawned on the card, each
+       on its block of lanes, its launch counts and CUDA-event times sent
+       back. Each result, gathered, equals the unsharded launch bitwise;
+       the RMSE and the smoother within parallel/dryrun.py's tolerances.
      Every kernel of a path must have launched in it; the VIO path
      launches kernel 6 (its camera-frame branch) and no other, the
-     offline path kernels 4 and 6 and no other, the streamed-R path none.
+     offline path kernels 4 and 6 and no other, the streamed-R path none,
+     the sharded path kernels 2, 4, 5, 6 and 7 and no other.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
      at B = 8192, T = 64, kernel 7 at
@@ -522,10 +539,13 @@ def main_path(torch, dev, gen):
   from rednose_tpu_torch.models.kinematic import KinematicKalman
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
   from rednose_tpu_torch.ops import kinematic_scan
+  from rednose_tpu_torch.runtime import rewind
   from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
 
   rng = np.random.RandomState(SEED)
   kf = KinematicKalman(device=dev)
+  require(type(kf.filter.ring) is rewind.NativeRewindRing,
+          "the engine runs the native rewind ring")
   for t in np.arange(0, 1.0, 0.01):
     kf.predict_and_observe(t, 1, [rng.normal(0, 0.1)])
   require(np.all(np.diag(kf.P) < KinematicKalman.initial_P_diag),
@@ -2780,6 +2800,87 @@ def examples_path(torch, dev, launches):
   return out
 
 
+# the eighth path's ranks: two Gloo ranks sharing the one card (NCCL takes
+# one rank a device)
+SHARD_RANKS = 2
+
+
+def sharded_path(torch, dev, card, launches, sources):
+  """Phase 1, the sharded bank (parallel/sharding.py, the cases of
+  parallel/dryrun.py at its "full" widths): each case's unsharded call
+  first (the references, not counted), then the launch counts set to 0
+  and (a) one rank in this process on make_bank_mesh() (a one-rank
+  "cpu:gloo,cuda:nccl" group, as a user with one card gets it) and (b)
+  SHARD_RANKS Gloo ranks spawned on the card, each on its block of every
+  bank; each rank's counts come back with its results and are added to
+  `launches`. Every kernel case launches its kernel once a rank on B/n
+  lanes and, gathered, equals the unsharded launch bitwise; the RMSE
+  (1-D and multislice) and the time-sharded smoother within dryrun's
+  tolerances. The ranks load the prebuilt variants (dryrun.require_built)
+  and never build. Prints (a)'s and (b)'s wall times and each rank's
+  CUDA-event time for each kernel case, the ranks sharing the card."""
+  import torch.distributed as dist
+
+  from rednose_tpu_torch.examples import kernel_wrappers
+  from rednose_tpu_torch.parallel import dryrun, sharding
+
+  names = tuple(dryrun.CASES)
+  generic = [n for n in names if dryrun.CASES[n].inputs in (
+      "generic_live", "car", "mixed_live", "vio", "epoch", "vo")]
+  require({dryrun.kernel_call(n).source() for n in generic}
+          <= set(sources.values()),
+          "the sharded path's generic variants are among the prebuilt ones")
+  t0 = time.perf_counter()
+  refs = dryrun.unsharded_outputs("full", dev, names)
+  log(f"sharded path: the unsharded references in "
+      f"{time.perf_counter() - t0:.1f} s")
+  wrappers = kernel_wrappers()
+  for w in wrappers:
+    w.launches = 0
+  t0 = time.perf_counter()
+  mesh = sharding.make_bank_mesh()
+  res = dryrun.run_cases(mesh, sharding.make_multislice_mesh(1), "full",
+                         names, keep_outputs=True)
+  wall_a = time.perf_counter() - t0
+  counts = {w.__name__: w.launches for w in wrappers if w.launches}
+  dryrun.verify([dict(res, rank=0)], "full", refs, dev)
+  log(f"sharded path (a), one rank in this process ({dist.get_backend()}, "
+      f"mesh of {mesh.size()}): every case equal to the unsharded call, "
+      f"{wall_a:.1f} s (host clock); launches {counts}")
+  t0 = time.perf_counter()
+  results = dryrun.spawn_ranks(SHARD_RANKS, "cuda", "full", names)
+  wall_b = time.perf_counter() - t0
+  rows = dryrun.verify(results, "full", refs, dev)
+  require({r["device"] for r in results} == {"cuda:0"},
+          "both ranks ran on cuda:0")
+  for r in results:
+    for name in names:
+      for k, n in r[name]["counts"].items():
+        counts[k] = counts.get(k, 0) + n
+  for w in wrappers:
+    w.launches = counts.get(w.__name__, 0)
+    launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
+  log(f"sharded path (b), {SHARD_RANKS} Gloo ranks sharing the card "
+      f"({card}): spawn to results {wall_b:.1f} s (host clock; by rank, "
+      f"group, meshes and emission "
+      + " / ".join(f"{r['setup_s']:.1f}" for r in results)
+      + " s, inputs "
+      + " / ".join(f"{sum(r[n]['inputs_s'] for n in names):.1f}"
+                   for r in results)
+      + f" s); every case equal to the unsharded call; launches with "
+      f"(a)'s {counts}")
+  for row in rows:
+    errs = ", ".join(f"{k} {v:.3g}" for k, v in row["errs"].items() if v)
+    ms = ("" if row["ms"][0] is None else ", CUDA-event ms by rank "
+          + " / ".join(f"{m:.4f}" for m in row["ms"]))
+    log(f"  {row['case']}: {row['lanes']} of {row['batch']} lanes a rank"
+        f"{', ' + row['kernel'] + ' once a rank' if row['kernel'] else ''}"
+        f"{ms}, wall s by rank "
+        + " / ".join(f"{w:.3f}" for w in row["wall_s"])
+        + (f"; relative errors {errs}" if errs else "; exact"))
+  return counts
+
+
 def compare_examples(torch, dev, reps=10):
   """Phase 2, the examples' variants against their plain versions, on each
   example's own data and state, in sigmas (utils/compare.py), each timed
@@ -3189,8 +3290,19 @@ def main():
               f"the {name} path launched only its kernels: {counts}")
     for w in wrappers:
       launches[w.__name__] += counts[w.__name__]
-  # the sixth path: the ten examples, the counts zeroed around each
+  # the seventh path: the ten examples, the counts zeroed around each
   examples_path(torch, dev, launches)
+  # the eighth: the sharded bank, in this process and on two ranks
+  t0 = time.perf_counter()
+  counts = sharded_path(torch, dev, card, launches, sources)
+  expected = {live_scan.live_bank_scan, g.generic_bank_scan,
+              g.generic_bank_scan_epoch, g.generic_bank_scan_mixed,
+              g.vo_bank_scan}
+  require(set(counts) == {w.__name__ for w in expected},
+          f"the sharded path launched kernels 2, 4, 5, 6 and 7 and no "
+          f"other: {counts}")
+  log(f"sharded path: {time.perf_counter() - t0:.1f} s (host clock), "
+      f"{card}")
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")

@@ -1,11 +1,11 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its native ring.
 
-Two entry points. `library()`: all `csrc/*.cu` sources, compiled by nvcc
-at first use into one shared library with a plain C interface.
-`generated_launcher(source)`: one source emitted per spec variant by
-ops/entry_slab.py around the template csrc/generic_scan.cuh (the generic
-kernels 4-6), each in a directory of its own (see below). Both use the
-same flags:
+Two entry points for the kernels. `library()`: all `csrc/*.cu` sources,
+compiled by nvcc at first use into one shared library with a plain C
+interface. `generated_launcher(source)`: one source emitted per spec
+variant by ops/entry_slab.py around the template csrc/generic_scan.cuh
+(the generic kernels 4-7), each in a directory of its own (see below).
+Both use the same flags:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
        -Xcompiler -fPIC -Xptxas -v
@@ -18,6 +18,11 @@ It is loaded with ctypes; pointers and the CUDA stream pass as c_void_p.
 Every C entry point returns the launch's cudaGetLastError(); `check`
 raises on a non-zero code, and `check_tensor` refuses an argument the
 kernels do not take. Nothing here falls back to another path.
+
+`rewind_ring_type()`: the native rewind ring (csrc/rewind_ring.cc, a
+CPython extension), compiled by the host C++ compiler at first use into
+the same directory, keyed the same way, and loaded as the module
+rednose_tpu_torch.runtime._rewind_ring.
 """
 
 from __future__ import annotations
@@ -25,10 +30,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sys
+import sysconfig
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -160,6 +169,19 @@ def _nvcc_generated(d: pathlib.Path, tmp: pathlib.Path):
   return proc.returncode, proc.stdout, time.perf_counter() - t0
 
 
+def write_generated(d: pathlib.Path, source: str):
+  """Put the emitted source and a copy of the template into d, each written
+  to a name of this process's own and renamed into place, so a process
+  building the same variant beside this one never reads a half-written
+  file (both write the same text: the directory is keyed by it)."""
+  d.mkdir(parents=True, exist_ok=True)
+  tmp = f".{os.getpid()}.tmp"
+  (d / ("gen.cu" + tmp)).write_text(source)
+  os.replace(d / ("gen.cu" + tmp), d / "gen.cu")
+  shutil.copyfile(TEMPLATE, d / (TEMPLATE.name + tmp))
+  os.replace(d / (TEMPLATE.name + tmp), d / TEMPLATE.name)
+
+
 def build_generated_many(sources) -> list:
   """Compile every source not built yet, all nvcc processes at once (one
   each); returns the libraries' paths in order. Raises if one fails. Each
@@ -172,9 +194,7 @@ def build_generated_many(sources) -> list:
     libs.append(lib)
     if lib.exists() or lib in jobs:
       continue
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "gen.cu").write_text(src)
-    shutil.copyfile(TEMPLATE, d / TEMPLATE.name)
+    write_generated(d, src)
     jobs[lib] = d / f"libgen.{os.getpid()}.tmp.so"
   failed = []
   with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
@@ -234,3 +254,66 @@ def check_tensor(name: str, t, shape, dtype=torch.float32):
                      f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
   if tuple(t.shape) != tuple(shape):
     raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+# ------------------------------------------------------- the native ring
+# csrc/rewind_ring.cc is a CPython extension of the host, not a kernel:
+# the host C++ compiler builds it against this interpreter's headers.
+
+RING_SOURCE = CSRC / "rewind_ring.cc"
+RING_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+RING_MODULE = "rednose_tpu_torch.runtime._rewind_ring"
+
+
+def _cxx() -> str:
+  cxx = shutil.which("c++") or shutil.which("g++")
+  if cxx is None:
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH; the "
+                       "native rewind ring cannot be built")
+  return cxx
+
+
+def ring_path() -> pathlib.Path:
+  h = hashlib.sha256(" ".join(RING_FLAGS).encode())
+  h.update(sys.version.encode())
+  h.update(RING_SOURCE.read_bytes())
+  suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+  return BUILD_DIR / f"rewind_ring_{h.hexdigest()[:16]}{suffix}"
+
+
+def build_ring() -> pathlib.Path:
+  """Compile csrc/rewind_ring.cc unless the module for this source and
+  interpreter exists; written to a temporary name and renamed into
+  place. Raises if the compiler fails."""
+  lib = ring_path()
+  if lib.exists():
+    return lib
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so",
+                                   delete=False) as tmp:
+    tmp_path = tmp.name
+  try:
+    proc = subprocess.run(
+        [_cxx(), *RING_FLAGS, "-I", sysconfig.get_paths()["include"],
+         "-o", tmp_path, str(RING_SOURCE)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+      raise RuntimeError(f"the native rewind ring failed to build "
+                         f"({proc.returncode}):\n{proc.stdout}\n"
+                         f"{proc.stderr}")
+    os.replace(tmp_path, lib)
+  finally:
+    if os.path.exists(tmp_path):
+      os.unlink(tmp_path)
+  return lib
+
+
+@functools.lru_cache(maxsize=1)
+def rewind_ring_type() -> type:
+  """Build if needed, load once, and return the native RewindRing type."""
+  loader = importlib.machinery.ExtensionFileLoader(RING_MODULE,
+                                                   str(build_ring()))
+  module = importlib.util.module_from_spec(
+      importlib.util.spec_from_loader(RING_MODULE, loader))
+  loader.exec_module(module)
+  return module.RewindRing

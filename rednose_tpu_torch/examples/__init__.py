@@ -10,9 +10,10 @@ engine half, run_compat_migration, run_msckf, run_vo_pipeline) run plain
 torch, as the JAX package runs them in plain jnp. The bank examples run
 the kernels a user's bank takes on the card (run_mixed_bank kernel 3,
 run_loc's bank_demo kernel 6, run_msckf_bank kernels 6 and 7; run_bank
-the plain runtime/bank on one device) and print, where the JAX script
-prints `pallas=...`, the kernels they launched. Nothing falls back: on
-CUDA a kernel that does not build or launch raises.
+the plain runtime/bank sharded over the mesh, parallel/sharding) and
+print, where the JAX script prints `pallas=...`, the kernels they
+launched. Nothing falls back: on CUDA a kernel that does not build or
+launch raises.
 """
 
 from __future__ import annotations

@@ -89,3 +89,11 @@ def run_bank(spec: FilterSpec, kind: int, params, state: BankState, Q,
     ys.append(y)
   return state, torch.stack(ys)
 
+
+def bank_rmse(state: BankState, truth):
+  """Bank-wide state RMSE against a broadcast truth vector, over every lane
+  and state entry: the aggregate that parallel/sharding computes from
+  every rank's shard (sharded_bank_rmse)."""
+  truth = torch.as_tensor(np.asarray(truth), dtype=state.x.dtype,
+                          device=state.x.device)
+  return torch.sqrt(torch.mean((state.x - truth) ** 2))

@@ -25,7 +25,7 @@ import torch
 from rednose_tpu_torch.core import step as step_ops
 from rednose_tpu_torch.core.spec import FilterSpec, ParamsRoutine
 from rednose_tpu_torch.ops.quaternion import normalize_slices
-from rednose_tpu_torch.runtime.rewind import REWIND_TO_KEEP, RewindRing
+from rednose_tpu_torch.runtime import rewind
 from rednose_tpu_torch.utils.device import resolve_device
 
 
@@ -58,7 +58,7 @@ class FilterEngine:
       raise ValueError(f"state/covariance shapes do not fit spec {spec.name!r}")
     self.Q = self._tensor(Q)
     self.params = params if params is not None else dict(spec.default_params)
-    self.ring = RewindRing(REWIND_TO_KEEP)
+    self.ring = rewind.RewindRing(rewind.REWIND_TO_KEEP)
     self.init_state(x_initial, P_initial, None)
 
   def _tensor(self, a):

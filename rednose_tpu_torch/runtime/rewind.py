@@ -1,11 +1,15 @@
 """Rewind/replay checkpoint rings (host bookkeeping).
 
-Port of rednose_tpu/runtime/rewind.py: the pure-Python PyRewindRing (the
-reference's C++ engine checkpoint machinery, rednose/helpers/ekf_sym.cc:
-119-156) and the sparse-snapshot BankRewindRing. The JAX package's native
-`_rewind.cc` ring is not ported yet (ROADMAP); `RewindRing` is the Python
-ring. Torch tensors are snapshotted by reference: every path of the port
-replaces (x, P) with new tensors instead of writing into them.
+Port of rednose_tpu/runtime/rewind.py: the native ring `NativeRewindRing`
+(csrc/rewind_ring.cc, the port's copy of the JAX package's _rewind.cc,
+itself the reference's C++ engine checkpoint machinery,
+rednose/helpers/ekf_sym.cc:119-156), the API-identical pure-Python
+PyRewindRing, which is its test oracle, and the sparse-snapshot
+BankRewindRing. `RewindRing` is the native ring: the host C++ compiler
+builds it when it is first named (rednose_tpu_torch/_build.py), not when
+this module is imported, and a failed build raises. Torch tensors are
+snapshotted by reference: every path of the port replaces (x, P) with new
+tensors instead of writing into them.
 """
 
 from __future__ import annotations
@@ -190,4 +194,14 @@ class BankRewindRing:
     self._obs.clear()
 
 
-RewindRing = PyRewindRing
+# the port always has the native ring: a build that fails raises
+HAVE_NATIVE = True
+
+
+def __getattr__(name):
+  """NativeRewindRing and RewindRing, the same type: the native ring,
+  built by the host C++ compiler at first use and loaded once."""
+  if name in ("NativeRewindRing", "RewindRing"):
+    from rednose_tpu_torch import _build
+    return _build.rewind_ring_type()
+  raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

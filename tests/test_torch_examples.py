@@ -17,9 +17,10 @@ port's main(device="cpu") and holds:
 - every number of the JAX script's printed lines against the port's value
   of the same key, within half a unit of its last printed digit plus that
   number's tolerance; and the printed text between the numbers equal, but
-  for the port's route in place of JAX's `pallas=...` and its one device
-  in place of JAX's mesh of every device (run_bank; the port's sharded
-  bank is a later slice).
+  for the port's route in place of JAX's `pallas=...` and the device
+  count of run_bank's mesh: JAX's spans every device of the process (8
+  virtual CPUs), the port's every rank of its process group (one on the
+  CPU here, the ranks under torchrun).
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ NUMBER = re.compile(r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
 REL64 = (1e-6, 0.0)   # (rtol, atol) of a float64 number
 EXACT = None
 F32_EPS = float(np.finfo(np.float32).eps)
-# printed text that differs by design: the route for `pallas=...`, one
-# device for the JAX mesh's device count
+# printed text that differs by design: the route for `pallas=...`, the
+# port's mesh size for the JAX mesh's device count
 MASKS = ((re.compile(r"\((?:pallas=\w+|route: [^)]*)\)"), "(ROUTE)"),
          (re.compile(r"on \d+ device\(s\)"), "on N device(s)"))
 
@@ -265,10 +266,12 @@ def test_example_run_mixed_bank():
 
 
 def test_example_run_bank():
-  """float32 kinematic bank (both packages' float32 arrays): rmse, a sum
-  over 4096 lanes in another order, is held at 1e-5 relative (measured:
-  1.09e-07, about one float32 ulp); the JAX script's mesh spans every
-  device of the test process (8 virtual CPUs), the port's bank one."""
+  """float32 kinematic bank sharded over a mesh in both packages: rmse, a
+  sum over 4096 lanes in another order, is held at 1e-5 relative
+  (measured: 1.09e-07, about one float32 ulp); the JAX script's mesh
+  spans every device of the test process (8 virtual CPUs), the port's
+  every rank of its process group, here one (a one-rank group on the
+  CPU)."""
   got = hold("run_bank", Case(
       jax=lambda c: {"rmse": float(c["main"]["rmse"])},
       printed=(None, None, "rmse"),
