@@ -8,7 +8,7 @@ _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each, the examples' variants among
 them). Then:
-  1. eight main paths, each with every kernel's launch count set to 0
+  1. nine main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (the engine on the native rewind ring; P
@@ -86,11 +86,24 @@ them). Then:
        NCCL rank; (b) on SHARD_RANKS Gloo ranks spawned on the card, each
        on its block of lanes, its launch counts and CUDA-event times sent
        back. Each result, gathered, equals the unsharded launch bitwise;
-       the RMSE and the smoother within parallel/dryrun.py's tolerances.
+       the RMSE and the smoother within parallel/dryrun.py's tolerances;
+     - user specs (rednose_tpu_torch/models/user_specs.py, specs whose
+       ops the shipped models do not use): KalmanBank(spec=...) at
+       B = 8192 on the JAX package's random-spec family (seeds 2, 3, 9:
+       dims 7, 11, 14), run over T = 512 steps and 8 observe calls with
+       one late, and on the op battery (tanh, sigmoid, softplus, abs,
+       cumsum, flip, roll, mean, a remainder heading wrap; a range to a
+       per-lane anchor, a bearing through atan2, hypot and fmod, a
+       cross product), run_mixed over its three kinds and run_epochs of
+       4 ranges, a bearing and a cross, T = 512 each; on data
+       consistent with a truth simulated per lane; finite, P exactly
+       symmetric, no diverged lane, the battery's lanes tracking their
+       truth.
      Every kernel of a path must have launched in it; the VIO path
      launches kernel 6 (its camera-frame branch) and no other, the
      offline path kernels 4 and 6 and no other, the streamed-R path none,
-     the sharded path kernels 2, 4, 5, 6 and 7 and no other.
+     the sharded path kernels 2, 4, 5, 6 and 7 and no other, the
+     user-spec path kernels 4, 5 and 6 and no other.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
      at B = 8192, T = 64, kernel 7 at
@@ -134,7 +147,13 @@ them). Then:
      examples' variants on each example's own data: kernel 6 on loc in
      float64 (float32 printed) within LOC64_TOL, kernel 6 with frames and
      kernel 7 at T = 1 on msckf_eskf in float64 within MSCKF64_TOL, each
-     timed wrapped and raw with its design.
+     timed wrapped and raw with its design. The user-spec variants
+     (kernel 4 on each random spec, 6 and 5 on the battery) against their
+     plain versions at T = 64, the random specs' at USER_RAND_CMP_T
+     (compare_user_specs): float32 at GEN_TOL,
+     the double builds within USER64_TOL with planted faults beyond it;
+     each with its nvcc time, registers and spills, design and raw-launch
+     times at T = 64 and T = 1, and its bound.
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -150,6 +169,7 @@ of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -287,6 +307,38 @@ GATE_NOISE, FAR_EVERY, FAR_SIGMA = 0.0, 16, 100.0
 # the scan stream's predict with the spec's closed-form F against jacfwd
 # of its error dynamics, on the first F_LANE_T steps of path (b)'s lanes
 F_LANE_T = 128
+# the user-spec path: KalmanBank(spec=...) on specs a user writes
+# (rednose_tpu_torch/models/user_specs.py) at the generic cells' width
+# GEN_B: the JAX package's random-spec family at USER_RANDOM (seed, dim,
+# dz), run over USER_T steps then USER_OBS observe calls, one late; the
+# op battery, run_mixed over its three kinds then run_epochs of its six
+# slots, USER_T each; dt USER_DT, on data consistent with a truth
+# simulated per lane, each estimate starting a draw of P0 from its truth.
+# After each of the battery's runs at least USER_TRACK of the lanes must
+# be within USER_FAR sigmas of their truth in every component; the random
+# specs' share is printed, not held: their EKF is not consistent over
+# USER_T steps (a weakly observed nonlinear state, and with the gate on a
+# lane that drifts has every later measurement rejected), the plain
+# version's on the CPU in float64 alike. Kernels 4, 5 and 6 are held
+# against their plain versions at CMP_T, on a truth that starts at each
+# lane's estimate, measured with noise at USER_CMP_NOISE of R's sigma (no
+# gate decision near its threshold): float32 at GEN_TOL, the double
+# builds at USER64_TOL, and planted faults (Q dropped, a unit or a slot
+# left out: run-time values, the same builds) beyond it. The battery's
+# kernels are held from its bank's state after each run, over CMP_T
+# steps; the random specs' from their banks' prior, since their EKF does
+# not converge (after USER_T steps rand9's sigmas span 0.2 to 200 and two
+# float32 programs part by 0.0076 sigma on a lane, the double build by
+# 2e-11), over USER_RAND_CMP_T steps: their dynamics amplify rounding, so
+# rand9's float32 plain version parts from its float64 one by 1e-5 sigma
+# in 16 steps, 1e-4 in 32 and 2e-3 in 64 (on the CPU, B = 8192), and no
+# float32 program resolves GEN_TOL on every lane over 64.
+USER_RANDOM = ((2, 7, 3), (3, 11, 2), (9, 14, 2))
+USER_RAND_CMP_T = 32
+USER_T, USER_OBS, USER_DT = 512, 8, 0.05
+USER_FAR, USER_TRACK = 5.0, 0.99
+USER_CMP_NOISE = 0.3
+USER64_TOL = 1e-6
 # the least time the card could take (peak rates from NVIDIA's H100 SXM
 # data sheet): operations over the peak rate of their type, compulsory
 # bytes over the memory rate
@@ -1738,7 +1790,7 @@ def msckf_main_path(torch, dev, gen):
   """Phase 1, MSCKF bank: MSCKFBank as a user calls it."""
   from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
 
-  def healthy(name, bank, truth):
+  def healthy(name, bank, truth, held=True):
     return msckf_healthy(torch, name, bank, truth)
 
   for model in msckf_models():
@@ -3157,6 +3209,275 @@ def full_q_stream_path(torch, dev, gen):
   return {}
 
 
+# ------------------------------------------------------------- user specs
+
+@functools.lru_cache(maxsize=None)
+def user_setups():
+  """name -> (spec, x0, P_diag, Q, obs_noise) of each user spec the path
+  runs (one spec object each, so its variants are emitted once)."""
+  from rednose_tpu_torch.models import user_specs as us
+
+  out = {}
+  for seed, dim, dz in USER_RANDOM:
+    spec, x0, P_diag, Q, R = us.random_setup(seed, dim, dz)
+    out[spec.name] = (spec, x0, P_diag, Q, {1: R})
+  out["battery"] = (us.battery_spec(), us.BATTERY_X0, us.BATTERY_P_DIAG,
+                    us.BATTERY_Q, us.BATTERY_R)
+  return out
+
+
+def user_calls():
+  """name -> the KernelCall of each variant the user-spec path launches,
+  as KalmanBank makes it."""
+  from rednose_tpu_torch.models import user_specs as us
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  calls = {}
+  for name, (spec, x0, _, Q, noise) in user_setups().items():
+    st = sparsity.structure_for(spec, x0)
+    if name != "battery":
+      calls[f"{name} run / observe (kernel 4)"] = gs.KernelCall(
+          spec, "single", (1,), Q=Q, R_list=(noise[1],), structure=st)
+      continue
+    for label, mode, kinds in (
+        ("run_mixed (kernel 6)", "mixed", us.BATTERY_KINDS),
+        ("run_epochs (kernel 5)", "epoch", us.BATTERY_SLOTS)):
+      calls[f"battery {label}"] = gs.KernelCall(
+          spec, mode, kinds, Q=Q, R_list=[noise[k] for k in kinds],
+          structure=st)
+  return calls
+
+
+def user_anchored(torch, spec, kinds, xs, R, rng):
+  """Measurements (n, .., B, 3), rows padded, and anchors (n, .., B, 3)
+  of the battery's kinds[i] at states xs[i] (n, .., B, 8): a range to an
+  anchor about 50 m from the lane, no anchor for the others."""
+  from rednose_tpu_torch.models import user_specs as us
+
+  zs, eas = torch.zeros_like(xs[..., :3]), torch.zeros_like(xs[..., :3])
+  for k in set(kinds):
+    rows = [i for i, kk in enumerate(kinds) if kk == k]
+    ea = None
+    if k == us.RANGE:
+      ea = eas[rows] = xs[rows, ..., :3] + torch.as_tensor(
+          50.0 * rng.randn(*xs[rows].shape[:-1], 3), dtype=xs.dtype,
+          device=xs.device)
+    z = us.measure(spec, k, xs[rows], R[k], rng, ea)
+    zs[rows, ..., :z.shape[-1]] = z
+  return zs, eas
+
+
+def user_spec_path(torch, dev):
+  """Phase 1, user specs: KalmanBank(spec=...) as a user calls it, on the
+  random specs (run, observe) and the battery (run_mixed, run_epochs).
+  Returns, per variant of user_calls(), the bank's state after its run
+  and CMP_T steps of new consistent data for the comparison."""
+  from rednose_tpu_torch.models import user_specs as us
+  from rednose_tpu_torch.runtime.generic_bank import KalmanBank
+
+  rng = np.random.RandomState(SEED + 11)
+  B, T, dt = GEN_B, USER_T, USER_DT
+  f64 = dict(dtype=torch.float64, device=dev)
+  out = {}
+
+  def healthy(name, bank, truth, held=True):
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(bank._x).all()
+                 and torch.isfinite(bank._P).all()), f"{name} finite")
+    require(torch.equal(bank._P, bank._P.transpose(0, 1)),
+            f"{name} P symmetric")
+    require(int(bank.diverged().sum()) == 0, f"{name}: no diverged lane")
+    sd = torch.diagonal(bank._P, dim1=0, dim2=1).T.double().sqrt()
+    far = ((bank._x.double() - truth.T).abs() / sd).max(dim=0).values
+    share = float((far <= USER_FAR).double().mean())
+    log(f"  {name}: {share:.6f} of lanes within {USER_FAR} sigmas of their "
+        f"truth in every component (median lane's worst component "
+        f"{float(far.median()):.4g} sigmas)")
+    require(share >= USER_TRACK or not held,
+            f"{name}: at least {USER_TRACK} of the lanes track their truth")
+
+  def cmp_truth(spec, x, Q, n=CMP_T):
+    """n steps of a truth from each lane's estimate x (dim_x, B)."""
+    return us.simulate(spec, x.T.double(), Q, n, dt, rng, dev)[1:]
+
+  def quiet(R):
+    return {k: USER_CMP_NOISE**2 * np.asarray(r) for k, r in R.items()}
+
+  def timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+  calls = user_calls()
+  for name, (spec, x0, P_diag, Q, noise) in user_setups().items():
+    battery = name == "battery"
+    n = 2 * T if battery else T + USER_OBS
+    # the battery's truths start 2 m, 0.1 rad, 0.1 m/s and 0.01 rad/s
+    # apart: their headings stay off the wrap at 0 / 2 pi
+    spread = (np.r_[2.0 * np.ones(3), 0.1, 0.1, 0.01 * np.ones(3)]
+              if battery else 0.3)
+    truth0 = x0 + spread * rng.randn(B, spec.dim_x)
+    t0 = time.perf_counter()
+    truth = us.simulate(spec, truth0, Q, n, dt, rng, dev)
+    est0 = truth0 + np.sqrt(P_diag) * rng.randn(B, spec.dim_x)
+    bank = KalmanBank(spec=spec, x0=est0, P_diag=P_diag, Q=Q,
+                      obs_noise=noise, batch=B, device=dev)
+    prior = (bank._x, bank._P)   # the runs replace them, never write them
+    log(f"user spec {name} (dim {spec.dim_x}), B={B}: truth of {n} "
+        f"steps in {time.perf_counter() - t0:.1f} s (host clock)")
+    dts = np.full(T, dt)
+    if not battery:
+      R = noise[1]
+      zs = us.measure(spec, 1, truth[1:T + 1], R, rng)
+      ms = timed(lambda: bank.run(dts, zs, 1))
+      healthy(f"{name} after run", bank, truth[T], held=False)
+      t_base = bank.t
+      t1 = time.perf_counter()
+      for i in (1, 2, 3, 5, 6, 4, 7, 8):          # the 4th is late
+        z = us.measure(spec, 1, truth[T + i], R, rng).cpu().numpy()
+        require(bank.observe(t_base + dt * i, 1, z) is not None,
+                f"{name} observe {i} applied")
+      torch.cuda.synchronize()
+      ms_obs = (time.perf_counter() - t1) * 1e3
+      require(abs(bank.t - (t_base + USER_OBS * dt)) < 1e-9,
+              f"{name} bank time after observe")
+      require(bank.observe(t_base - 5.0, 1, z) is None,
+              f"{name}: a too-old observation is dropped")
+      healthy(f"{name} after observe", bank, truth[n], held=False)
+      log(f"user spec {name}: run T={T} {ms:.3f} ms, then {USER_OBS} "
+          f"observe calls {ms_obs:.3f} ms (host clock, first calls)")
+      zc = us.measure(spec, 1, cmp_truth(spec, prior[0], Q, USER_RAND_CMP_T),
+                      quiet(noise)[1], rng)
+      out[f"{name} run / observe (kernel 4)"] = dict(
+          x=prior[0], P=prior[1], zs=zc.transpose(1, 2).contiguous(),
+          eas=None, ki=None)
+      continue
+    kinds, slots = us.BATTERY_KINDS, us.BATTERY_SLOTS
+    ki = np.arange(T) % len(kinds)
+    sched = [kinds[i] for i in ki]
+    zs, eas = user_anchored(torch, spec, sched, truth[1:T + 1], noise, rng)
+    ms = timed(lambda: bank.run_mixed(dts, ki, zs, kinds, eas=eas))
+    healthy("battery after run_mixed", bank, truth[T])
+    x_mixed, P_mixed = bank._x, bank._P
+    zc, ec = user_anchored(torch, spec, [kinds[i % 3] for i in range(CMP_T)],
+                           cmp_truth(spec, x_mixed, Q), quiet(noise), rng)
+    out["battery run_mixed (kernel 6)"] = dict(
+        x=x_mixed, P=P_mixed, zs=zc.transpose(1, 2).contiguous(),
+        eas=ec.transpose(1, 2).contiguous(),
+        ki=torch.as_tensor(np.arange(CMP_T) % 3, dtype=torch.int32,
+                           device=dev))
+    # an epoch's slots along the first axis, then back behind time
+    ep = truth[None, T + 1:2 * T + 1].expand(len(slots), -1, -1, -1)
+    zs, eas = (a.transpose(0, 1) for a in user_anchored(
+        torch, spec, slots, ep, noise, rng))
+    ms_e = timed(lambda: bank.run_epochs(dts, zs, slots, eas=eas))
+    healthy("battery after run_epochs", bank, truth[2 * T])
+    log(f"user spec battery: run_mixed T={T} over kinds {kinds} {ms:.3f} "
+        f"ms, run_epochs T={T} of slots {slots} {ms_e:.3f} ms (host clock, "
+        f"first calls)")
+    ep = cmp_truth(spec, bank._x, Q)[None].expand(len(slots), -1, -1, -1)
+    zc, ec = (a.transpose(0, 1) for a in user_anchored(
+        torch, spec, slots, ep, quiet(noise), rng))
+    out["battery run_epochs (kernel 5)"] = dict(
+        x=bank._x, P=bank._P, zs=zc.transpose(-1, -2).contiguous(),
+        eas=ec.transpose(-1, -2).contiguous(), ki=None)
+    del truth
+  require(set(out) == set(calls), "every user-spec variant ran")
+  return out
+
+
+def compare_user_specs(torch, dev, states, reps=5):
+  """Phase 2, user specs: each variant of user_calls() against its plain
+  version from the main path's state on its new data (user_spec_path),
+  float32 at GEN_TOL and the double build at USER64_TOL, planted faults
+  beyond it with no extra build; its nvcc time, registers and spills, its
+  launch shape and raw-launch times at its T and at T = 1, and its
+  bound."""
+  import re
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  fns = {"single": (gs.generic_bank_scan, gs.generic_bank_scan_reference),
+         "mixed": (gs.generic_bank_scan_mixed,
+                   gs.generic_bank_scan_mixed_reference),
+         "epoch": (gs.generic_bank_scan_epoch,
+                   gs.generic_bank_scan_epoch_reference)}
+  checks = []
+  for name, call in user_calls().items():
+    st, spec, mode = states[name], call.spec, call.mode
+    kernel, plain = fns[mode]
+    kinds = {"single": "kind", "mixed": "kinds", "epoch": "slot_kinds"}[mode]
+    Rs = ({"R": call.R_list[0]} if mode == "single"
+          else {"R_list": call.R_list})
+
+    def kw_of(Q, R_kw, dtype):
+      kw = dict(spec=spec, Q=Q, structure=call.structure, **R_kw)
+      kw[kinds] = call.kinds[0] if mode == "single" else call.kinds
+      if st["eas"] is not None:
+        kw["eas"] = st["eas"].to(dtype)
+      return kw
+
+    T = st["zs"].shape[0]
+
+    def args_of(dtype):
+      dts = torch.full((T,), USER_DT, dtype=dtype, device=dev)
+      a = (st["x"].to(dtype), st["P"].to(dtype), st["zs"].to(dtype), dts)
+      return a if st["ki"] is None else a + (st["ki"],)
+
+    ops = step_ops(call.counting_source(), call.kinds, mode) * T * GEN_B
+    for dtype in (torch.float32, torch.float64):
+      src = call.source(dtype)
+      ptx = _build.generated_ptxas(src)
+      regs = re.findall(r"Used (\d+) registers", ptx)
+      spill = re.findall(r"(\d+) bytes spill stores", ptx)
+      wall = re.findall(r"nvcc wall time ([\d.]+) s", ptx)
+      log(f"user spec {name} [{str(dtype).split('.')[-1]}]: "
+          f"{len(src.splitlines())} emitted lines, nvcc {wall[-1]} s "
+          f"(beside the others), registers {regs}, spill stores {spill}")
+    args32 = args_of(torch.float32)
+    kernel_vs_plain(kernel.__name__, "", "", spec, kernel, plain, args32,
+                    kw_of(call.Q, Rs, torch.float32),
+                    f"user spec {name} B={GEN_B} T={T}, float32", ops,
+                    checks=checks, reps=reps)
+    src = call.source(torch.float32)
+    kw32 = kw_of(call.Q, Rs, torch.float32)
+    raw = {n: timed_run(generic_launch(
+        src, call, args32[0], args32[1], args32[2][:n], args32[3][:n],
+        eas=None if st["eas"] is None else kw32["eas"][:n],
+        kind_idx=None if st["ki"] is None else st["ki"][:n]),
+        20 if n == 1 else 5)[0] for n in (T, 1)}
+    log(variant_line(f"user spec {name}", _build.generated_info(src),
+                     GEN_B, raw))
+    args64 = args_of(torch.float64)
+    _, _, ref64 = kernel_vs_plain(
+        kernel.__name__, "", "", spec, kernel, plain, args64,
+        kw_of(call.Q, Rs, torch.float64),
+        f"user spec {name} B={GEN_B} T={T}, float64", ops,
+        tol=USER64_TOL, checks=checks, reps=reps)
+    builds = _build.generated_launcher.cache_info().currsize
+    faults = {"Q dropped": (call.Q * 1e-9, Rs)}
+    for u, k in enumerate(call.kinds):
+      Rf = [R * (1e12 if j == u else 1.0) for j, R in enumerate(call.R_list)]
+      faults[f"unit {u} (kind {k}) left out"] = (
+          call.Q, {"R": Rf[0]} if mode == "single" else {"R_list": Rf})
+    miss = {f: float(lane_errs(kernel(*args64, **kw_of(
+        Q, R_kw, torch.float64)), ref64, spec).max())
+            for f, (Q, R_kw) in faults.items()}
+    least = min(miss, key=miss.get)
+    ok = (miss[least] > USER64_TOL
+          and _build.generated_launcher.cache_info().currsize == builds)
+    log(f"{kernel.__name__} planted faults [user spec {name}, float64]: "
+        f"{len(miss)} faults, the least visible ({least}) at "
+        f"{miss[least]:.4g} sigma, must exceed {USER64_TOL}, with no extra "
+        f"build -> {'ok' if ok else 'FAIL'}")
+    checks.append((f"user spec {name} planted faults beyond the limit", ok))
+  bad = [name for name, ok in checks if not ok]
+  require(not bad, f"the user-spec kernels agree with their plain versions "
+                   f"and the planted faults show: {bad}")
+
+
 def flops_report_phase(card, rows):
   """Write this run's kernel times (every row: name, shape, wrapped ms,
   plain ms, bound ms) to build/chip_smoke_times.json with the card's line,
@@ -3203,9 +3524,12 @@ def main():
     static = pool.submit(_build.build)
     live_spec = generic_models()[3]
     ex_calls = example_calls(torch, dev)
+    u_calls = user_calls()
     sources = (generic_sources(live_spec) | msckf_sources() | vio_sources()
                | {f"examples: {name}": call.source(dtype)
-                  for name, (call, dtype) in ex_calls.items()})
+                  for name, (call, dtype) in ex_calls.items()}
+               | {f"user specs: {name}": call.source()
+                  for name, call in u_calls.items()})
     # the comparison phase's own variants: kernels 5, 6 and 7 in double,
     # and the camera-frame variants' global form (tile_vs_global)
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
@@ -3219,6 +3543,8 @@ def main():
                     for name, c in full_q_cmp_calls().items()}
     cmp_sources["examples: run_loc bank_demo, float64 (kernel 6, loc)"] = \
         ex_calls["run_loc bank_demo (kernel 6, loc)"][0].source(torch.float64)
+    cmp_sources |= {f"user specs: {name}, float64": call.source(torch.float64)
+                    for name, call in u_calls.items()}
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),
                          ("run_mixed with frames", vio_call(model))):
@@ -3303,6 +3629,23 @@ def main():
           f"other: {counts}")
   log(f"sharded path: {time.perf_counter() - t0:.1f} s (host clock), "
       f"{card}")
+  # the ninth: user specs (KalmanBank(spec=...)) on kernels 4, 5 and 6
+  t0 = time.perf_counter()
+  for w in wrappers:
+    w.launches = 0
+  user_states = user_spec_path(torch, dev)
+  counts = {w.__name__: w.launches for w in wrappers}
+  log(f"user-spec path launches: {counts}; "
+      f"{time.perf_counter() - t0:.1f} s (host clock)")
+  expected = {g.generic_bank_scan, g.generic_bank_scan_epoch,
+              g.generic_bank_scan_mixed}
+  require(all(counts[w.__name__] > 0 for w in expected)
+          and all(counts[w.__name__] == 0 for w in wrappers
+                  if w not in expected),
+          f"the user-spec path launched kernels 4, 5 and 6 and no other: "
+          f"{counts}")
+  for w in wrappers:
+    launches[w.__name__] += counts[w.__name__]
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
@@ -3314,6 +3657,7 @@ def main():
   kernel_variants(torch, dev, gens[1], live_spec, generic_states)
   rows += compare_msckf(torch, dev, gens[2])
   rows += compare_vio(torch, dev, gens[3])
+  compare_user_specs(torch, dev, user_states)
   example_rows = compare_examples(torch, dev)
   profiler_phase(torch, dev)
   flops_report_phase(card, rows + example_rows)

@@ -11,9 +11,11 @@ variant of the main paths (car, loc epochs and observe, the live spec's
 single and 4-kind mixed, both MSCKF models' frame and VIO mixed-with-
 frames variants, msckf_eskf's position fix), the mixed and epoch
 variants of live, car, loc and msckf_eskf that
-tests/test_torch_generic_single_roles.py emits and msckf_vo's dense
-mixed body with frames of tests/test_torch_vio_emitter.py, each in float
-and double. Runs on the CPU (emission needs no card); imports nothing of JAX.
+tests/test_torch_generic_single_roles.py emits, msckf_vo's dense
+mixed body with frames of tests/test_torch_vio_emitter.py, and the
+user-spec path's variants (the random specs' and the op battery's,
+models/user_specs.py), each in float and double. Runs on the CPU
+(emission needs no card); imports nothing of JAX.
 With --compare it prints, by mode, how many variants the two files share
 unchanged and names the ones that changed.
 """
@@ -57,6 +59,8 @@ def variants():
   calls["msckf_eskf frame, R = 1e-4 I"] = gs.KernelCall(
       espec, "frame", (16,), Q=MSCKFEskf.Q, R_list=(1e-4 * np.eye(8),),
       structure=sparsity.structure_for(espec, MSCKFEskf.initial_x))
+  calls |= {f"user spec {name}": call
+            for name, call in cs.user_calls().items()}
   vo = cs.msckf_models()[0]
   calls["msckf_vo mixed with frames, dense body"] = gs.KernelCall(
       vo.build_spec(), "mixed", (12, 16), Q=vo.Q,

@@ -155,6 +155,16 @@ GEN_HD GEN_INLINE float g_pow(float a, float b) { return powf(a, b); }
 GEN_HD GEN_INLINE double g_pow(double a, double b) { return pow(a, b); }
 GEN_HD GEN_INLINE float g_atan2(float a, float b) { return atan2f(a, b); }
 GEN_HD GEN_INLINE double g_atan2(double a, double b) { return atan2(a, b); }
+GEN_HD GEN_INLINE float g_fmod(float a, float b) { return fmodf(a, b); }
+GEN_HD GEN_INLINE double g_fmod(double a, double b) { return fmod(a, b); }
+GEN_HD GEN_INLINE float g_hypot(float a, float b) { return hypotf(a, b); }
+GEN_HD GEN_INLINE double g_hypot(double a, double b) { return hypot(a, b); }
+// floor-mod taking the divisor's sign, as torch.remainder computes it
+template <typename S>
+GEN_HD GEN_INLINE S g_remainder(S a, S b) {
+  const S m = g_fmod(a, b);
+  return (m != 0 && ((b < 0) != (m < 0))) ? m + b : m;
+}
 template <typename S>
 GEN_HD GEN_INLINE S g_sign(S a) { return (S)((a > 0) - (a < 0)); }
 // NaN-propagating, as torch.clamp / maximum / minimum

@@ -68,6 +68,22 @@ def _gn_step(to_c, poses, img_positions, param):
   return param - delta, torch.sum(delta * delta)
 
 
+def compute_pos(to_c, poses, img_positions):
+  """Triangulate one track: poses (K, 7), img_positions (K, 2). Returns
+  (ecef position (3,), converged 0-d bool): from the last observation
+  with inverse depth 0.1, Gauss-Newton steps until the squared step norm
+  is <= 1e-4, at most 30 (compute_pos.c:30-52)."""
+  to_c = torch.as_tensor(to_c, dtype=poses.dtype, device=poses.device)
+  param = torch.cat([img_positions[-1],
+                     torch.full((1,), 0.1, dtype=poses.dtype,
+                                device=poses.device)])
+  for _ in range(MAX_ITERS):
+    param, delta_sq = _gn_step(to_c, poses, img_positions, param)
+    if delta_sq <= STEP_TOL_SQ:
+      break
+  return feature_ecef(to_c, poses[-1], param), delta_sq <= STEP_TOL_SQ
+
+
 def compute_pos_batch(to_c, poses, img_positions):
   """Triangulate N tracks: poses (N, K, 7), img_positions (N, K, 2).
   Returns (ecef positions (N, 3), converged (N,) bool): each track starts

@@ -602,7 +602,8 @@ _FUNCS = {
     "expm1": "g_expm1", "log": "g_log", "log1p": "g_log1p",
     "abs": "g_abs", "sign": "g_sign", "erf": "g_erf", "floor": "g_floor",
     "ceil": "g_ceil", "pow": "g_pow", "max": "g_max", "min": "g_min",
-    "atan2": "g_atan2",
+    "atan2": "g_atan2", "fmod": "g_fmod", "remainder": "g_remainder",
+    "hypot": "g_hypot",
 }
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", "gt": ">",
           "lt": "<", "ge": ">=", "le": "<=", "eq": "==", "ne": "!=",

@@ -22,7 +22,10 @@ sympy_helpers.py:122-162). ops/entry_slab.py turns the DAG into CUDA C.
 
 Every aten op the interpreter meets needs a rule: an op without one raises
 and names it. There is no fallback that evaluates the real op, since the
-result must be C source.
+result must be C source. A graph that mutates a tensor (a vector norm's
+jvp divides in place and masks the zero-norm case with masked_fill_) is
+traced again functionalized, so the interpreter sees only pure ops; a
+graph without a mutation keeps its first trace.
 """
 
 from __future__ import annotations
@@ -86,7 +89,9 @@ _PY_UNARY = {
     "rsqrt": lambda a: 1.0 / math.sqrt(a),
 }
 _PY_BINARY = {
-    "max": max, "min": min, "atan2": math.atan2,
+    "max": max, "min": min, "atan2": math.atan2, "fmod": math.fmod,
+    # floor-mod taking the divisor's sign, as torch.remainder
+    "remainder": operator.mod, "hypot": math.hypot,
     "gt": operator.gt, "lt": operator.lt, "ge": operator.ge,
     "le": operator.le, "eq": operator.eq, "ne": operator.ne,
     "and": lambda a, b: bool(a) and bool(b),
@@ -197,12 +202,16 @@ class ExprDAG:
     return self.node("pow", x, y)
 
   def binop(self, name, x, y):
-    """max, min, atan2, comparisons, logical and/or: no structural shortcut
-    is safe, so zeros are materialized."""
+    """max, min, atan2, fmod, remainder, hypot, comparisons, logical
+    and/or: no structural shortcut is safe (fmod(0, 0) is NaN), so zeros
+    are materialized."""
     x = 0.0 if x is None else x
     y = 0.0 if y is None else y
     if _is_const(x) and _is_const(y):
-      return _PY_BINARY[name](x, y)
+      try:
+        return _PY_BINARY[name](x, y)
+      except (ValueError, ZeroDivisionError):
+        return math.nan
     return self.node(name, x, y)
 
   def where(self, c, a, b):
@@ -288,6 +297,35 @@ def _dim(d, ndim):
   return d + ndim if d < 0 else d
 
 
+def _arg(args, kw, i, name, default=None):
+  """Argument i of an aten call, positional or by keyword."""
+  return args[i] if len(args) > i else kw.get(name, default)
+
+
+def _sum(dag, x, dims, keep):
+  """Left-fold sum of x over dims (None or empty: every dim)."""
+  if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+    dims = tuple(range(x.ndim))
+  dims = tuple(_dim(a, x.ndim) for a in (dims if isinstance(
+      dims, (list, tuple)) else [dims]))
+  out_shape = tuple(s for i, s in enumerate(x.shape) if i not in dims)
+  out = obj_array(out_shape)
+  for oidx in np.ndindex(out_shape):
+    it = iter(oidx)
+    base = [0 if i in dims else next(it) for i in range(x.ndim)]
+    acc = None
+    for ridx in itertools.product(*[range(x.shape[a]) for a in dims]):
+      idx = list(base)
+      for a, v in zip(dims, ridx):
+        idx[a] = v
+      acc = dag.add(acc, x[tuple(idx)])
+    out[oidx] = acc
+  if keep:
+    for a in dims:
+      out = np.expand_dims(out, a)
+  return out
+
+
 def _contract(dag, a, b, out_shape, idx_fn, k):
   """Left-fold sum over the contracted index (the JAX dot order)."""
   out = obj_array(out_shape)
@@ -298,6 +336,19 @@ def _contract(dag, a, b, out_shape, idx_fn, k):
       acc = dag.add(acc, dag.mul(a[ia], b[ib]))
     out[oidx] = acc
   return out
+
+
+# ops that return their operand as it is
+_ALIASES = frozenset({"alias", "detach", "clone", "lift_fresh_copy",
+                      "contiguous", "view_of", "lift_fresh", "positive",
+                      "resolve_conj", "resolve_neg"})
+# shape ops; a functionalized graph writes the views among them, and
+# alias, as <name>_copy
+_SHAPE_OPS = frozenset({
+    "select", "slice", "cat", "concat", "stack", "unsqueeze", "squeeze",
+    "view", "reshape", "_unsafe_view", "_reshape_alias", "t", "numpy_T",
+    "permute", "transpose", "expand", "broadcast_to", "unbind", "flip",
+    "roll"})
 
 
 class Interpreter:
@@ -367,6 +418,12 @@ class Interpreter:
     if name == "unbind":
       dim = _dim(args[1] if len(args) > 1 else 0, x.ndim)
       return [_arr(np.take(x, i, axis=dim)) for i in range(x.shape[dim])]
+    if name == "flip":
+      return np.flip(x, tuple(_dim(a, x.ndim) for a in args[1]))
+    if name == "roll":
+      dims = _arg(args, kw, 2, "dims", [])
+      return np.roll(x, tuple(args[1]),
+                     tuple(_dim(a, x.ndim) for a in dims) if dims else None)
     raise AssertionError(name)
 
   def _reduce(self, name, args, kw):
@@ -383,30 +440,88 @@ class Interpreter:
       a, b = args
       return _contract(d, a, b, (a.shape[0], b.shape[1]),
                        lambda o, c: ((o[0], c), (c, o[1])), a.shape[1])
-    if name == "sum":
-      x = args[0]
-      dims = args[1] if len(args) > 1 else kw.get("dim")
-      keep = args[2] if len(args) > 2 else kw.get("keepdim", False)
-      if dims is None or (isinstance(dims, (list, tuple)) and not dims):
-        dims = tuple(range(x.ndim))
-      dims = tuple(_dim(a, x.ndim) for a in (dims if isinstance(
-          dims, (list, tuple)) else [dims]))
-      out_shape = tuple(s for i, s in enumerate(x.shape) if i not in dims)
-      out = obj_array(out_shape)
-      for oidx in np.ndindex(out_shape):
-        it = iter(oidx)
-        base = [0 if i in dims else next(it) for i in range(x.ndim)]
+    x = args[0]
+    if name in ("sum", "mean"):
+      dims = _arg(args, kw, 1, "dim")
+      keep = _arg(args, kw, 2, "keepdim", False)
+      out = _sum(d, x, dims, keep)
+      if name == "sum":
+        return out
+      n = x.size // max(out.size, 1)
+      return _ew(lambda e: d.div(e, float(n)), out)
+    if name == "linalg_vector_norm":
+      order = float(_arg(args, kw, 1, "ord", 2))
+      dims, keep = _arg(args, kw, 2, "dim"), _arg(args, kw, 3, "keepdim",
+                                                  False)
+      if order == 2.0:
+        return _ew(lambda e: d.unary("sqrt", e),
+                   _sum(d, _ew(lambda e: d.mul(e, e), x), dims, keep))
+      if order == 1.0:
+        return _sum(d, _ew(lambda e: d.unary("abs", e), x), dims, keep)
+      raise NotImplementedError(
+          f"structural interpreter: linalg_vector_norm of ord {order!r} "
+          "(ord 2 and 1 have rules)")
+    if name == "cumsum":
+      dim = _dim(_arg(args, kw, 1, "dim"), x.ndim)
+      out = obj_array(x.shape)
+      for idx in np.ndindex(x.shape[:dim] + x.shape[dim + 1:]):
         acc = None
-        for ridx in itertools.product(*[range(x.shape[a]) for a in dims]):
-          idx = list(base)
-          for a, v in zip(dims, ridx):
-            idx[a] = v
-          acc = d.add(acc, x[tuple(idx)])
-        out[oidx] = acc
-      if keep:
-        for a in dims:
-          out = np.expand_dims(out, a)
+        for i in range(x.shape[dim]):
+          full = idx[:dim] + (i,) + idx[dim:]
+          acc = d.add(acc, x[full])
+          out[full] = acc
       return out
+    raise AssertionError(name)
+
+  def _elementwise(self, name, args, kw):
+    """Activations and their jvp rules (aten's *_backward ops) as the
+    formulas aten evaluates, so a structural zero folds through them."""
+    d = self.dag
+    a = [_as_obj(v) for v in args[:2]]
+    if name == "sigmoid":
+      return _ew(lambda e: d.div(1.0, d.add(1.0, d.unary("exp", d.neg(e)))),
+                 a[0])
+    if name == "tanh_backward":      # g (1 - y^2)
+      return _ew(lambda g, y: d.mul(g, d.sub(1.0, d.mul(y, y))), *a)
+    if name == "sigmoid_backward":   # g (1 - y) y
+      return _ew(lambda g, y: d.mul(d.mul(g, d.sub(1.0, y)), y), *a)
+    if name == "softplus":   # x b > threshold ? x : log1p(exp(x b)) / b
+      beta = float(_arg(args, kw, 1, "beta", 1.0))
+      thr = float(_arg(args, kw, 2, "threshold", 20.0))
+
+      def softplus(x):
+        xb = d.mul(x, beta)
+        return d.where(d.binop("gt", xb, thr), x,
+                       d.div(d.unary("log1p", d.unary("exp", xb)), beta))
+      return _ew(softplus, a[0])
+    if name == "softplus_backward":  # x b > thr ? g : g z / (z + 1)
+      beta, thr = float(args[2]), float(args[3])
+
+      def softplus_backward(g, x):
+        xb = d.mul(x, beta)
+        z = d.unary("exp", xb)   # z = e^(x b)
+        return d.where(d.binop("gt", xb, thr), g,
+                       d.div(d.mul(g, z), d.add(z, 1.0)))
+      return _ew(softplus_backward, *a)
+    if name == "masked_fill":
+      return _ew(lambda x, m, v: d.where(m, v, x), a[0], a[1],
+                 _as_obj(_arg(args, kw, 2, "value")))
+    if name == "linalg_cross":       # aten's order: a1 b2 - a2 b1, ...
+      x, y = a
+      shape = np.broadcast_shapes(x.shape, y.shape)
+      dim = _dim(kw.get("dim", -1), len(shape))
+      if shape[dim] != 3:
+        raise NotImplementedError("structural interpreter: linalg_cross "
+                                  f"of dimension {shape[dim]}, not 3")
+      x = np.moveaxis(np.broadcast_to(x, shape), dim, -1)
+      y = np.moveaxis(np.broadcast_to(y, shape), dim, -1)
+      out = obj_array(x.shape)
+      for idx in np.ndindex(x.shape[:-1]):
+        u, v = x[idx], y[idx]
+        for i in range(3):
+          j, k = (i + 1) % 3, (i + 2) % 3
+          out[idx + (i,)] = d.sub(d.mul(u[j], v[k]), d.mul(u[k], v[j]))
+      return np.moveaxis(out, -1, dim)
     raise AssertionError(name)
 
   def _make(self, name, args, kw):
@@ -441,6 +556,8 @@ class Interpreter:
     d = self.dag
     name = target.overloadpacket.__name__ if hasattr(
         target, "overloadpacket") else getattr(target, "__name__", str(target))
+    if name.endswith("_copy") and name[:-5] in _SHAPE_OPS | _ALIASES:
+      name = name[:-5]   # a view, as a functionalized graph writes it
     if name == "rsub":  # rsub(a, b, alpha) = b - alpha a
       name, args = "sub", (args[1], args[0]) + tuple(args[2:])
     if name in ("add", "sub", "mul", "div", "pow"):
@@ -451,10 +568,16 @@ class Interpreter:
       return _ew(lambda e: d.div(1.0, e), args[0])
     if name == "square":
       return _ew(lambda e: d.mul(e, e), args[0])
+    if name == "sgn":
+      name = "sign"
     if name in _UNARY:
       return _ew(lambda e: d.unary(name, e), args[0])
+    if name in ("sigmoid", "tanh_backward", "sigmoid_backward", "softplus",
+                "softplus_backward", "masked_fill", "linalg_cross"):
+      return self._elementwise(name, args, kw)
     if name in ("maximum", "minimum", "atan2", "gt", "lt", "ge", "le", "eq",
-                "ne", "logical_and", "logical_or"):
+                "ne", "logical_and", "logical_or", "fmod", "remainder",
+                "hypot"):
       op = {"maximum": "max", "minimum": "min", "logical_and": "and",
             "logical_or": "or"}.get(name, name)
       return _ew(lambda a, b: d.binop(op, a, b), _as_obj(args[0]),
@@ -475,20 +598,16 @@ class Interpreter:
     if name == "where":
       return _ew(d.where, _as_obj(args[0]), _as_obj(args[1]),
                  _as_obj(args[2]))
-    if name in ("select", "slice", "cat", "concat", "stack", "unsqueeze",
-                "squeeze", "view", "reshape", "_unsafe_view",
-                "_reshape_alias", "t", "numpy_T", "permute", "transpose",
-                "expand", "broadcast_to", "unbind"):
+    if name in _SHAPE_OPS:
       return self._shape_op(name, args, kw)
-    if name in ("dot", "mv", "mm", "sum"):
+    if name in ("dot", "mv", "mm", "sum", "mean", "linalg_vector_norm",
+                "cumsum"):
       return self._reduce(name, args, kw)
     if name in ("zeros", "empty", "_efficientzerotensor", "new_zeros", "ones",
                 "new_ones", "full", "new_full", "zeros_like", "empty_like",
                 "ones_like", "full_like", "scalar_tensor", "eye"):
       return self._make(name, args, kw)
-    if name in ("alias", "detach", "clone", "lift_fresh_copy", "contiguous",
-                "view_of", "lift_fresh", "positive", "resolve_conj",
-                "resolve_neg"):
+    if name in _ALIASES:
       return args[0]
     if name in ("_to_copy", "to", "convert_element_type"):
       dtype = kw.get("dtype", args[1] if len(args) > 1 else None)
@@ -534,9 +653,20 @@ class Interpreter:
     raise AssertionError("graph without output")
 
 
+def _mutates(node):
+  schema = getattr(node.target, "_schema", None)
+  return node.op == "call_function" and bool(schema and schema.is_mutable)
+
+
 def trace(fn, *example_args):
-  """make_fx graph of fn at the example arguments' (logical) shapes."""
-  return make_fx(fn)(*example_args)
+  """make_fx graph of fn at the example arguments' (logical) shapes; a
+  graph with an in-place op is traced again functionalized (views then
+  arrive as <view>_copy ops)."""
+  gm = make_fx(fn)(*example_args)
+  if any(_mutates(n) for n in gm.graph.nodes):
+    gm = make_fx(torch.func.functionalize(
+        fn, remove="mutations_and_views"))(*example_args)
+  return gm
 
 
 def _examples(shapes, seed=0):

@@ -140,9 +140,36 @@ def _gnss_epoch():
           ("generic_bank_scan_epoch", "loc B="))
 
 
+def _battery_epoch():
+  """The user-spec battery (models/user_specs.py): one predict and an
+  epoch of 4 ranges, a bearing and a cross, one lane."""
+  from rednose_tpu_torch.models import user_specs as us
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  spec = us.battery_spec()
+  slots = us.BATTERY_SLOTS
+  kw = dict(spec=spec, slot_kinds=slots, Q=us.BATTERY_Q,
+            R_list=[us.BATTERY_R[k] for k in slots],
+            structure=sparsity.structure_for(spec, us.BATTERY_X0))
+  x = _t(us.BATTERY_X0)[:, None]
+  P = _t(np.diag(us.BATTERY_P_DIAG))[..., None]
+  zs = torch.ones((1, len(slots), 3, 1), **F32)
+  eas = torch.full((1, len(slots), 3, 1), 10.0, **F32)
+  dts = _t([0.05])
+
+  def epoch(x, P, zs, eas):
+    return gs.generic_bank_scan_epoch_reference(x, P, zs, dts, eas=eas, **kw)
+
+  call = gs.KernelCall(spec, "epoch", slots, Q=us.BATTERY_Q,
+                       R_list=kw["R_list"], structure=kw["structure"])
+  return ("user-spec battery epoch, 6 slots "
+          "(generic_bank_scan_epoch_reference)", epoch, (x, P, zs, eas),
+          step_ops(call.counting_source(), slots, "epoch"), None)
+
+
 def bodies():
   """[(name, fn, args, emitted operations a step, (kernel row name, shape
-  prefix) of the chip times, or None)] of the six bodies."""
+  prefix) of the chip times, or None)] of the seven bodies."""
   from rednose_tpu_torch.models.msckf_eskf import (
       MSCKFEskf,
       ObservationKind as EK,
@@ -158,7 +185,7 @@ def bodies():
                  1e-6 * np.eye(vo.dim_err), 0.02**2, "msckf_vo"),
           _frame(MSCKFEskf.build_spec(), int(EK.MSCKF_FEATURE),
                  MSCKFEskf.initial_x, MSCKFEskf.Q, 0.01**2, "msckf_eskf"),
-          _gnss_epoch()]
+          _gnss_epoch(), _battery_epoch()]
 
 
 def chip_time(times, key):

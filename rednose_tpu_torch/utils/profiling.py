@@ -112,15 +112,31 @@ def finite_or_nan_flag(tree):
 # The JAX counter's rule (rednose_tpu/utils/profiling.py), its primitive
 # names mapped to aten's: elementwise operations and comparisons count one
 # FLOP per output element, matrix products 2 * out * K, everything else
-# (data movement, reductions, views, copies) 0.
+# (data movement, reductions, views, copies) 0. An elementwise function
+# that aten dispatches whole (hypot, softplus, a jvp's tanh_backward)
+# counts one, as a primitive does; a composite counts the elementwise
+# arithmetic of its formula (_COMPOSITE_FLOPS).
 _ELEMENTWISE_FLOP_OPS = frozenset({
     "add", "sub", "rsub", "mul", "div", "remainder", "fmod", "neg",
     "maximum", "minimum", "max", "min", "pow", "exp", "log", "log1p",
     "expm1", "sqrt", "rsqrt", "reciprocal", "sin", "cos", "tan", "asin",
     "acos", "atan", "atan2", "sinh", "cosh", "tanh", "sigmoid", "erf",
     "erfc", "abs", "sign", "sgn", "floor", "ceil", "round", "nextafter",
-    "where", "clamp", "clamp_min", "clamp_max", "square",
+    "where", "clamp", "clamp_min", "clamp_max", "square", "hypot",
+    "softplus", "tanh_backward", "sigmoid_backward", "softplus_backward",
+    "masked_fill",
 })
+# composites: (args, out) -> FLOPs. A cross product is two products and a
+# difference per output element; a vector norm squares (or takes the abs
+# of) each input and takes a root per output, its sum a reduction (0); a
+# mean divides each output, its sum 0 too.
+_COMPOSITE_FLOPS = {
+    "linalg_cross": lambda args, out: 3 * _numel(out),
+    "linalg_vector_norm": lambda args, out: (
+        args[0].numel()
+        + (_numel(out) if len(args) < 2 or float(args[1]) != 1.0 else 0)),
+    "mean": lambda args, out: _numel(out),
+}
 _COMPARE_OPS = frozenset({"eq", "ne", "lt", "le", "gt", "ge"})
 # matrix products: the argument index of the left operand, whose last
 # dimension is the contracted one
@@ -143,6 +159,8 @@ def _op_flops(name, args, out) -> int:
     return 2 * _numel(out) * (lhs.shape[-1] if lhs.ndim else 1)
   if name in _ELEMENTWISE_FLOP_OPS or name in _COMPARE_OPS:
     return _numel(out)
+  if name in _COMPOSITE_FLOPS:
+    return _COMPOSITE_FLOPS[name](args, out)
   return 0
 
 
@@ -174,9 +192,11 @@ def torch_flops(fn, *args, **kwargs) -> int:
   movement 0. The ops are counted as they run (a TorchDispatchMode), so a
   Python loop of T steps counts T bodies, as a JAX scan of length T does;
   JAX's while_loop counts one body whatever its trip count, where eager
-  code counts the trips it took. An op that aten dispatches whole, such as
-  a vector norm, counts 0 here, where JAX lowers it to counted primitives,
-  so the two counts part by such ops."""
+  code counts the trips it took. An elementwise function that aten
+  dispatches whole counts one FLOP per output element, and a composite
+  (a cross product, a vector norm, a mean) the arithmetic of its formula,
+  where JAX counts the primitives it lowers them to, so the two counts
+  part by such ops."""
   with _CostCounter() as c:
     fn(*args, **kwargs)
   return c.flops

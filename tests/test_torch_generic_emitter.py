@@ -392,15 +392,21 @@ def test_kernel_call_emits_one_variant_per_dtype():
 
 
 def test_op_without_rule_raises_and_names_it():
-  """The interpreter has no fallback: an aten op without a rule raises."""
+  """The interpreter has no fallback: an aten op without a rule raises,
+  and so does a vector norm of an order without one."""
   spec = _const_row_spec()
 
-  def h(params, x, ea):
+  def h_prod(params, x, ea):
     del params, ea
-    return torch.linalg.vector_norm(x)[None]
+    return torch.prod(x)[None]
 
-  bad = dataclasses.replace(
-      spec, obs={5: ObservationModel(kind=5, h=h, dz=1)})
-  with pytest.raises(NotImplementedError, match="linalg_vector_norm"):
-    entry_slab.emit_source(bad, "single", ((5, False),),
-                           sparsity.dense_structure(bad), (), (), ())
+  def h_norm3(params, x, ea):
+    del params, ea
+    return torch.linalg.vector_norm(x, ord=3)[None]
+
+  for h, name in ((h_prod, "prod"), (h_norm3, "linalg_vector_norm")):
+    bad = dataclasses.replace(
+        spec, obs={5: ObservationModel(kind=5, h=h, dz=1)})
+    with pytest.raises(NotImplementedError, match=name):
+      entry_slab.emit_source(bad, "single", ((5, False),),
+                             sparsity.dense_structure(bad), (), (), ())

@@ -148,6 +148,31 @@ def test_triangulation_matches_jax():
                              atol=1e-10)
 
 
+def test_single_track_compute_pos_matches_jax():
+  """compute_pos, exported by the msckf package as the JAX package's is,
+  on a converging track and on the noise track: the same converged flag
+  as JAX's compute_pos and as the batch on that track, and where it
+  converged the same position."""
+  from rednose_tpu import msckf as jmsckf
+  from rednose_tpu_torch import msckf as tmsckf
+
+  poses, obs = _eskf_tracks(np.random.RandomState(2), 2)
+  for i in (1, 0):
+    jpos, jok = jmsckf.compute_pos(jnp.eye(3), jnp.asarray(poses[i]),
+                                   jnp.asarray(obs[i]))
+    tpos, tok = tmsckf.compute_pos(torch.eye(3, dtype=torch.float64),
+                                   t64(poses[i]), t64(obs[i]))
+    bpos, bok = tmsckf.compute_pos_batch(torch.eye(3, dtype=torch.float64),
+                                         t64(poses[i:i + 1]),
+                                         t64(obs[i:i + 1]))
+    assert bool(tok) == bool(jok) == bool(bok[0])
+    assert bool(tok) or i == 0
+    if bool(tok):
+      np.testing.assert_allclose(np_(tpos), np.asarray(jpos), rtol=1e-8,
+                                 atol=1e-10)
+      np.testing.assert_allclose(np_(tpos), np_(bpos[0]), rtol=1e-12)
+
+
 def test_extra_routine_and_window():
   """get_extra_routine returns the spec's triangulator; an empty camera
   frame still predicts and augments (the window keeps the cadence)."""

@@ -152,7 +152,7 @@ def test_trace_writes_the_step_scopes(tmp_path):
 
 
 def test_flops_report(tmp_path):
-  """tools/flops_report: the six bodies, each with FLOPs, bytes and the
+  """tools/flops_report: the seven bodies, each with FLOPs, bytes and the
   emitted body's operations; the hand live step's FLOPs are the ones
   test_flops_match_jaxpr_flops holds (float32 here); the sustained-rate
   lines read chip_smoke.py's times JSON and nothing else."""
@@ -163,9 +163,56 @@ def test_flops_report(tmp_path):
       {"name": "live_bank_scan", "shape": "B=8192 T=64 gate on",
        "ms": 0.5}]}))
   rows = flops_report.main(["--times", str(times)])
-  assert len(rows) == 6
+  assert len(rows) == 7
   assert all(f > 0 and b > 0 and o > 0 for _, f, b, o, _ in rows)
   assert rows[0][1] == 9214
   rate, row = rows[0][4]
   assert rate == 8192 * 64 / 0.5e-3 and row["name"] == "live_bank_scan"
   assert all(r[4] is None for r in rows[1:])
+
+
+def test_user_spec_ops_are_counted():
+  """The ops the emitter takes beyond the shipped models count in both
+  counters: torch_flops by the rule (an elementwise function one FLOP an
+  output element, a cross product 3, a vector norm its squares and root,
+  a mean its division, cumsum / flip / roll 0, as data movement and
+  reductions), on a 4-vector through user_specs.OPS (each op's output
+  times ones where it is a scalar: 4 more); and step_ops on the battery's
+  epoch variant, kernel 5's body, counts every emitted definition that is
+  not a load, the fmod, remainder and hypot calls among them."""
+  import re
+
+  from rednose_tpu_torch.models import user_specs as us
+  from rednose_tpu_torch.ops import generic_scan as gs, sparsity
+
+  x = torch.as_tensor(us.OP_X0)
+  expected = {"tanh": 4, "sigmoid": 4, "softplus": 4, "abs": 4,
+              "norm": 3 + 1 + 4, "cross": 9, "remainder": 4, "fmod": 4,
+              "hypot": 4, "cumsum": 0, "flip": 0, "roll": 0,
+              "mean": 1 + 4}
+  assert {n: profiling.torch_flops(op, x) for n, op in us.OPS.items()} \
+      == expected
+  # the jvp's aten ops count as one elementwise function each
+  t = torch.ones(4, dtype=torch.float64)
+  for name, n in (("tanh", 8), ("sigmoid", 8), ("softplus", 8)):
+    assert profiling.torch_flops(
+        lambda v: torch.func.jvp(us.OPS[name], (v,), (t,)), x) == n, name
+
+  spec = us.battery_spec()
+  slots = us.BATTERY_SLOTS
+  src = gs.KernelCall(
+      spec, "epoch", slots, Q=us.BATTERY_Q,
+      R_list=[us.BATTERY_R[k] for k in slots],
+      structure=sparsity.structure_for(spec, us.BATTERY_X0)
+  ).counting_source()
+  ops = profiling.emitted_ops(src)
+  load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[)")
+  defs = [ln for ln in src.splitlines()
+          if re.match(r"  const (scalar_t|bool) ", ln)
+          and not load.search(ln)]
+  assert sum(ops.values()) == len(defs)
+  for fn in ("g_fmod", "g_remainder", "g_hypot", "g_tanh", "g_exp"):
+    assert any(fn + "(" in ln for ln in defs), fn
+  assert profiling.step_ops(src, slots, "epoch") == ops["gen_predict"] + sum(
+      next(v for k, v in ops.items() if re.fullmatch(
+          rf"gen_update_k{int(s)}(_g)?", k)) for s in slots)
