@@ -36,7 +36,7 @@ them). Then:
      - VIO: the track store at the reference's design point (6000 tracks x
        3000 features, float64 on the card) over 32 frames of the JAX
        bench's synthetic tracker, each harvest, merge and triangulation
-       checked; MSCKFBank.run_mixed at B = 4096 over 64 steps alternating
+       (kernel 8, one launch a frame) checked; MSCKFBank.run_mixed at B = 4096 over 64 steps alternating
        camera frame (its landmarks from the store's triangulations) and
        position fix, for both MSCKF models, healthy as above; the
        single-filter VisualOdometryPipeline on MSCKFEskf(device="cuda")
@@ -46,14 +46,17 @@ them). Then:
        steps of the 4-kind cycle, run over T = 512 ECEF_POS steps, 8
        observe calls with one late, healthy as above; bench.py:363-400's
        live log (ECEF_POS and NO_ROT in turn, dt 0.01, T = 8192, float32)
-       through runtime/scan.build_scan_stream for 64 lanes at once;
+       through runtime/scan.build_scan_stream for 64 lanes at once (kernel
+       9, one launch; the plain scan's predict with F_lane and jacfwd
+       timed on its first F_LANE_T steps);
        rts_smooth and rts_smooth_parallel on lane 0, the parallel result
        against the float64 sequential one within 3x the float32
        sequential's own error (tests/test_rts_live.py:131-152);
        rts_smooth_parallel_bank over all 64 lanes, three of them held
        against their lane smoothed alone; the cold T = 600 log of
        tests/test_rts_live.py in float64, refine = 8 within 1e-6 of the
-       sequential smoother; the gains step of every lane through the
+       sequential smoother (the log itself through kernel 9, float64);
+       the gains step of every lane through the
        blocked lane Cholesky and through torch.linalg; the migrated
        kinematic filter of examples/run_compat_migration.py
        (compat.EKF_sym_pyx, float64) on the reference's goldens, then its
@@ -99,9 +102,10 @@ them). Then:
        consistent with a truth simulated per lane; finite, P exactly
        symmetric, no diverged lane, the battery's lanes tracking their
        truth.
-     Every kernel of a path must have launched in it; the VIO path
-     launches kernel 6 (its camera-frame branch) and no other, the
-     offline path kernels 4 and 6 and no other, the streamed-R path none,
+     Every kernel of a path must have launched in it, and no main path
+     may run the plain version of kernel 8 or 9; the VIO path launches
+     kernels 6 (its camera-frame branch) and 8 and no other, the offline
+     path kernels 4, 6 and 9 and no other, the streamed-R path none,
      the sharded path kernels 2, 4, 5, 6 and 7 and no other, the
      user-spec path kernels 4, 5 and 6 and no other.
   2. each kernel against its plain torch version on the card (kinematic at
@@ -153,7 +157,14 @@ them). Then:
      (compare_user_specs): float32 at GEN_TOL,
      the double builds within USER64_TOL with planted faults beyond it;
      each with its nvcc time, registers and spills, design and raw-launch
-     times at T = 64 and T = 1, and its bound.
+     times at T = 64 and T = 1, and its bound. Kernel 8 against its
+     plain version on the VIO store's first and last frames (float64,
+     TRI64_TOL_M: all 768 rows against the plain version on the host, the
+     harvested ones against it on the card too), the iteration counts
+     that differ printed; kernel 9 against its plain version on the offline log's 64
+     lanes over SCAN_CMP_T steps: float64 from the prior within
+     SCAN64_TOL sigmas with planted faults beyond it, float32 from a
+     converged state within GEN_TOL; both timed with their bounds.
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -278,6 +289,18 @@ MSCKF_V = (1.0, 0.5, 0.2)
 STORE_TRACKS, STORE_FEATS, STORE_K = 6000, 3000, 4
 STORE_COHORT, STORE_M, STORE_FRAMES = 750, 768, 32
 TRI_CONVERGED, TRI_TOL_M = 0.99, 0.01
+# kernel 8 (each frame's triangulation) against its plain version on the
+# store's first and last frames (compare_triangulation: all STORE_M rows,
+# the padding's sentinel rows included, against the plain version on the
+# host; the harvested rows against it on the card too): converged flags
+# and non-finite entries equal, and the float64 positions of the tracks
+# both converge in as many Gauss-Newton iterations within TRI64_TOL_M. A
+# track whose last step lands next to the threshold may take one
+# iteration more in one program: at most TRI_ITER_SHARE of the rows may
+# be such, each printed, and where both converge their positions are held
+# within TRI_TOL_M (one more step near the threshold moves a track by up
+# to about the path's own landmark tolerance)
+TRI64_TOL_M, TRI_ITER_SHARE = 1e-8, 0.01
 VIO_T, VIO_CMP_T = 64, 16
 # the offline smoother and migration path: LiveKalmanBank with a full Q
 # (full_q) at LIVE_B, run_mixed and run FQ_T steps; bench.py:363-400's
@@ -291,6 +314,13 @@ FQ_T = 512
 # held against the same call on the CPU on its first STREAM_CPU_B lanes
 STREAM_CPU_B = 64
 RTS_T, RTS_B = 8192, 64
+# kernel 9 (the log scan) against its plain version on RTS_B lanes of the
+# same live log over SCAN_CMP_T steps: float64 from the prior within
+# SCAN64_TOL sigmas, with planted faults (run-time values, the same build)
+# beyond it; float32 from the state the float64 kernel reaches in
+# SCAN_WARM steps, within GEN_TOL (from the 10-rad prior two float32
+# programs part by whole sigmas)
+SCAN_CMP_T, SCAN_WARM, SCAN64_TOL = 256, 2048, 1e-6
 BANK_SMOOTH_TOL = 1e-4
 REFINE_T, REFINE, REFINE_TOL = 600, 8, 1e-6
 # the full-Q comparisons: the 8-kind cycle's lanes move at 1 m/s on each
@@ -305,8 +335,11 @@ REFINE_T, REFINE, REFINE_TOL = 600, 8, 1e-6
 CAM_TRANS_R = 0.1**2
 GATE_NOISE, FAR_EVERY, FAR_SIGMA = 0.0, 16, 100.0
 # the scan stream's predict with the spec's closed-form F against jacfwd
-# of its error dynamics, on the first F_LANE_T steps of path (b)'s lanes
+# of its error dynamics, on the first F_LANE_T steps of path (b)'s lanes,
+# in the order F_LANE_ORDER: the only runs of kernel 9's plain version on
+# a main path
 F_LANE_T = 128
+F_LANE_ORDER = ("F_lane", "jacfwd", "jacfwd", "F_lane")
 # the user-spec path: KalmanBank(spec=...) on specs a user writes
 # (rednose_tpu_torch/models/user_specs.py) at the generic cells' width
 # GEN_B: the JAX package's random-spec family at USER_RANDOM (seed, dim,
@@ -1968,13 +2001,14 @@ def vio_store_path(torch, dev):
   """The VIO path's store at the reference design point, float64 on the
   card: per frame harvest_complete -> reset_seen -> empty_slots ->
   merge_features -> compute_pos_batch of the harvested tracks over the
-  tracker's camera path (bench.py:653-664). Every frame: exactly
-  STORE_COHORT tracks harvested, none dropped, STORE_FEATS live after the
-  merge, at least TRI_CONVERGED of the triangulations converged and those
-  within TRI_TOL_M of their landmark. Returns (positions (STORE_FRAMES,
-  STORE_COHORT, 3) of each frame's harvested tracks in slot order, a
-  track that did not converge at the bench's fallback (1, 2, 11), and the
-  tracker's poses)."""
+  tracker's camera path (bench.py:653-664), kernel 8, one launch a frame.
+  Every frame: exactly STORE_COHORT tracks harvested, none dropped,
+  STORE_FEATS live after the merge, at least TRI_CONVERGED of the
+  triangulations converged and those within TRI_TOL_M of their landmark.
+  Returns (positions (STORE_FRAMES, STORE_COHORT, 3) of each frame's
+  harvested tracks in slot order, a track that did not converge at the
+  bench's fallback (1, 2, 11), the tracker's poses, and the first and
+  last frames' triangulation inputs for compare_triangulation)."""
   from rednose_tpu_torch.msckf import feature_handler as fh
   from rednose_tpu_torch.msckf.triangulation import compute_pos_batch
 
@@ -1988,7 +2022,7 @@ def vio_store_path(torch, dev):
   poses_m = torch.as_tensor(poses, **f64).expand(M, K, 7)
   to_c = torch.eye(3, **f64)
   fallback = torch.tensor([1.0, 2.0, 11.0], **f64)
-  positions, secs, worst, conv_min = [], [], 0.0, 1.0
+  positions, secs, worst, conv_min, cases = [], [], 0.0, 1.0, {}
   torch.cuda.synchronize()
   for t in range(STORE_FRAMES):
     t0 = time.perf_counter()
@@ -1998,9 +2032,14 @@ def vio_store_path(torch, dev):
     tracks, dropped = fh.merge_features(tracks, feats[t], empty)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    n = compute_pos_batch.launches
     pos, ok = compute_pos_batch(to_c, poses_m, uv)
     torch.cuda.synchronize()
     secs.append((t1 - t0, time.perf_counter() - t1))
+    require(compute_pos_batch.launches == n + 1,
+            f"store frame {t}: the triangulation launched kernel 8 once")
+    if t in (0, STORE_FRAMES - 1):
+      cases[f"frame {t}"] = (to_c, poses_m, uv, idxs < STORE_TRACKS)
     real = idxs < STORE_TRACKS
     n_harvest = int(real.sum())
     live = int((tracks[:, 0, fh.H_COUNT] > 0).sum())
@@ -2021,13 +2060,103 @@ def vio_store_path(torch, dev):
   legs = np.array(secs[1:]) * 1e3          # (frames, [store, triangulate])
   log(f"VIO store {STORE_TRACKS} tracks x {STORE_FEATS} features, K={K}, "
       f"float64: {STORE_FRAMES} frames of harvest + merge + triangulation "
-      f"of {cohort} tracks, host clock per frame: first "
+      f"(kernel 8) of {cohort} tracks, host clock per frame: first "
       f"{sum(secs[0]) * 1e3:.3f} ms, mean of the others "
       f"{legs.sum(axis=1).mean():.3f} ms (store legs {legs[:, 0].mean():.3f}"
       f" ms, triangulation {legs[:, 1].mean():.3f} ms), max "
       f"{legs.sum(axis=1).max():.3f} ms; least converged share "
       f"{conv_min:.6f}, worst converged landmark error {worst:.4g} m")
-  return torch.stack(positions), poses
+  return torch.stack(positions), poses, cases
+
+
+def compare_triangulation(torch, cases, reps=20):
+  """Phase 2, kernel 8 against its plain version on the VIO store's first
+  and last frames, all STORE_M rows. The plain version on the host, the
+  reference semantics of the CPU tests (where the kernel's host build
+  equals it): converged flags equal, non-finite entries where it has
+  them, and the float64 positions of the tracks both converge in as many
+  iterations within TRI64_TOL_M, on every row. The plain version on the
+  card: the same on the harvested rows. On the padding rows (u = v = 0 in
+  every frame) the first step takes rho to 0 exactly in the kernel and
+  the host's plain version, which report NaN; the card's plain version
+  (cuBLAS products) lands next to 0, as JAX's does, and reports a point
+  ~1e32 m away as converged: printed, not held. The tracks whose
+  iteration counts differ (at most TRI_ITER_SHARE of the rows held) are
+  printed and, where both converge, held within TRI_TOL_M. The kernel
+  timed with CUDA events (mean of reps launches), the plain version on
+  the card one run; the bound from the closed form's operations at the
+  iterations run (float64 peak) or the bytes of poses (their storage), uv
+  and the outputs. Returns the last frame's row."""
+  from rednose_tpu_torch.msckf import triangulation as tri
+
+  row = None
+  for label, (to_c, poses, uv, real) in cases.items():
+    kp, kc, ki = tri._launch(to_c, poses, uv)
+    plain_ms, (gp, gc, gi) = timed_run(
+        lambda: tri._reference_iters(to_c, poses, uv), 1)
+    hp, hc, hi = (a.to(kp.device) for a in tri._reference_iters(
+        to_c.cpu(), poses.cpu(), uv.cpu()))
+    ms, _ = timed_run(lambda: tri._launch(to_c, poses, uv), reps)
+
+    def held(pp, pc, pi, rows):
+      """(flags equal, non-finite equal, max position error of the tracks
+      both converge in as many iterations, their number, rows whose
+      iteration counts differ, max position error of those both converge
+      in) on `rows`."""
+      same = (ki == pi) & rows
+      both, apart = kc & pc & same, kc & pc & ~same & rows
+      errs = [float((kp - pp)[m].abs().max()) if bool(m.any()) else 0.0
+              for m in (both, apart)]
+      return (bool(torch.equal(kc[rows], pc[rows])),
+              bool(torch.equal(kp[rows].isfinite(), pp[rows].isfinite())),
+              errs[0], int(both.sum()), (~same & rows).nonzero().flatten(),
+              errs[1])
+
+    everywhere = torch.ones_like(real)
+    h_flags, h_fin, h_err, h_n, h_diff, h_apart = held(hp, hc, hi,
+                                                       everywhere)
+    g_flags, g_fin, g_err, g_n, g_diff, g_apart = held(gp, gc, gi, real)
+    n_apart = max(len(h_diff) / len(real), len(g_diff) / int(real.sum()))
+    pad = ~real
+    n_iter = int(ki.sum())
+    ops = tri.flops_per_iteration(poses.shape[1]) * n_iter
+    nbytes = (poses.untyped_storage().nbytes() + io_bytes([uv, to_c], 8)
+              + io_bytes([kp, kc, ki], 8))
+    bound_ms, bound_by = bound(nbytes, ops, double=True)
+    log(f"compute_pos_batch [VIO store {label}, M={poses.shape[0]} "
+        f"K={poses.shape[1]}, float64]: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (on the card), bound {bound_ms:.4g} ms "
+        f"({bound_by}; {n_iter} Gauss-Newton iterations, {ops:,} "
+        f"operations); against the plain version on the host, all "
+        f"{poses.shape[0]} rows: flags equal {h_flags} ({int(kc.sum())} "
+        f"converged), non-finite equal {h_fin}, max |kernel - plain| "
+        f"{h_err:.4g} m over {h_n} tracks; on the card, the "
+        f"{int(real.sum())} harvested rows: flags equal {g_flags}, "
+        f"non-finite equal {g_fin}, {g_err:.4g} m over {g_n} tracks "
+        f"(tolerance {TRI64_TOL_M} m); iteration counts differ on "
+        f"{len(h_diff)} / {len(g_diff)} tracks (at most {TRI_ITER_SHARE} "
+        f"of the rows) {[(int(i), int(ki[i]), int(hi[i])) for i in h_diff]}"
+        f", max |kernel - plain| there {h_apart:.4g} / {g_apart:.4g} m "
+        f"(tolerance {TRI_TOL_M} m); the "
+        f"{int(pad.sum())} padding rows: kernel {int(kc[pad].sum())} "
+        f"converged, {int(kp[pad].isnan().any(dim=1).sum())} NaN; plain on "
+        f"the host {int(hc[pad].sum())} converged, "
+        f"{int(hp[pad].isnan().any(dim=1).sum())} NaN; plain on the card "
+        f"{int(gc[pad].sum())} converged, largest |p| "
+        f"{float(gp[pad].norm(dim=1).max()) if bool(pad.any()) else 0:.4g} m")
+    require(h_flags and h_fin and h_err <= TRI64_TOL_M and g_flags and g_fin
+            and g_err <= TRI64_TOL_M and n_apart <= TRI_ITER_SHARE
+            and max(h_apart, g_apart) <= TRI_TOL_M,
+            f"kernel 8 holds against its plain version on {label}")
+    row = dict(
+        name="compute_pos_batch", route="cuda",
+        source="rednose_tpu_torch/csrc/triangulate.cu",
+        replaces="rednose_tpu/msckf/triangulation.py:106 compute_pos_batch "
+                 "(an XLA program, jit of a vmapped while_loop; not Pallas)",
+        max_abs_err=max(h_err, g_err), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"M={poses.shape[0]} K={poses.shape[1]} float64, {label}")
+  return [row]
 
 
 def vio_frames_of(torch, store):
@@ -2036,7 +2165,7 @@ def vio_frames_of(torch, store):
   the store's frame-f track l mod STORE_COHORT, taken relative to the
   tracker camera's last pose: (STORE_FRAMES, MSCKF_B, 3), in the camera
   frame."""
-  positions, poses = store
+  positions, poses, _ = store
   last = torch.as_tensor(poses[-1, :3], dtype=positions.dtype,
                          device=positions.device)
   lanes = torch.arange(MSCKF_B, device=positions.device) % STORE_COHORT
@@ -2072,14 +2201,17 @@ def vio_sources():
 
 
 def vio_main_path(torch, dev, gen):
-  """Phase 1, VIO: the track store at the design point, MSCKFBank.run_mixed
-  with camera frames (kernel 6's camera-frame branch) for both models on
-  the store's landmarks, and the single-filter pipeline."""
+  """Phase 1, VIO: the track store at the design point (its triangulations
+  on kernel 8), MSCKFBank.run_mixed with camera frames (kernel 6's
+  camera-frame branch) for both models on the store's landmarks, and the
+  single-filter pipeline (its triangulations on kernel 8). Returns the
+  store's triangulation inputs for compare_triangulation."""
   from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
   from rednose_tpu_torch.msckf.pipeline import VisualOdometryPipeline
   from rednose_tpu_torch.runtime.msckf_bank import MSCKFBank
 
-  aheads = vio_frames_of(torch, vio_store_path(torch, dev))
+  store = vio_store_path(torch, dev)
+  aheads = vio_frames_of(torch, store)
   kinds, kind_idx = (MSCKF_POS, MSCKF_KIND), vio_kind_idx(VIO_T)
   for model in msckf_models():
     spec, _, Q, R = msckf_setup(model)
@@ -2139,6 +2271,7 @@ def vio_main_path(torch, dev, gen):
       f"(blind {tr_blind:.6g}), position error {err:.4g} m, "
       f"{secs / (3 * K) * 1e3:.3f} ms a frame with its blind twin's "
       "(host clock)")
+  return store[2]
 
 
 def compare_vio(torch, dev, gen, reps=10):
@@ -2316,8 +2449,9 @@ def refine_log(torch, dev, gen):
 
   f64 = dict(dtype=torch.float64, device=dev)
   spec = LiveKalman.build_spec()
-  kinds = (K.ECEF_POS, K.PHONE_GYRO, K.NO_ROT)
-  scan_fn, _ = build_scan_stream(spec, kinds)
+  require((K.ECEF_POS, K.PHONE_GYRO, K.NO_ROT) == REFINE_KINDS,
+          "REFINE_KINDS are the refinement log's kinds")
+  scan_fn, _ = build_scan_stream(spec, REFINE_KINDS)
   T = REFINE_T
   ts = (1 + torch.arange(T, **f64)) * 0.01
   ki = np.arange(T) % 3
@@ -2340,6 +2474,52 @@ def refine_log(torch, dev, gen):
   return spec, stacks, ts
 
 
+SCAN_KINDS = (12, 9)   # the live ECEF_POS and NO_ROT kinds
+REFINE_KINDS = (12, 4, 9)   # refine_log's ECEF_POS, PHONE_GYRO, NO_ROT
+
+
+def scan_log(torch, dev, gen, T, B, dtype):
+  """bench.py:363-400's live log for B lanes at once, in dtype on the card:
+  ECEF_POS (every even step, R = 25 I, the start position plus noise of
+  1 m a lane) and NO_ROT (every odd step, R = 0.00025^2 I, z = 0) with dt
+  0.01, from the live prior. Returns (x0 (B, 23), P0 (B, 22, 22), Q, dts,
+  kind_idx (numpy), zs (T, B, 3), Rs (T, 3, 3), eas (T, 1))."""
+  from rednose_tpu_torch.models.live import LiveKalman
+
+  f = dict(dtype=dtype, device=dev)
+  ki = np.arange(T) % 2
+  is_pos = torch.as_tensor(ki == 0, device=dev)
+  pos = torch.as_tensor(LiveKalman.initial_x[0:3], **f)
+  zs = torch.where(is_pos[:, None, None], pos + torch.randn(
+      (T, B, 3), generator=gen, device=dev, dtype=dtype),
+      torch.zeros((), **f))
+  Rs = torch.where(is_pos[:, None, None],
+                   torch.diag(torch.full((3,), 25.0, **f)),
+                   torch.diag(torch.full((3,), 0.00025**2, **f)))
+  x0 = torch.as_tensor(LiveKalman.initial_x, **f).expand(B, -1)
+  P0 = torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f).expand(
+      B, -1, -1)
+  return (x0, P0, torch.as_tensor(LiveKalman.Q, **f),
+          torch.full((T,), 0.01, **f), ki, zs, Rs, torch.zeros((T, 1), **f))
+
+
+def stream_calls():
+  """Kernel 9's variants of the offline path, by name, each with the dtype
+  the path runs it in: the live log's two kinds (float32) and the cold
+  refinement log's three (refine_log, float64), the model's Q pattern."""
+  import torch
+
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  spec = LiveKalman.build_spec()
+  return {name: (gs.KernelCall(spec, "stream", kinds, Q=LiveKalman.Q), dtype)
+          for name, kinds, dtype in (
+              ("live log scan (kernel 9)", SCAN_KINDS, torch.float32),
+              ("refinement log scan (kernel 9), float64", REFINE_KINDS,
+               torch.float64))}
+
+
 def offline_path(torch, dev, gen):
   """Phase 1, offline smoother and migration, all on the card: (a) the
   full-Q live bank; (b) a live log through the scan stream for RTS_B
@@ -2351,9 +2531,12 @@ def offline_path(torch, dev, gen):
   from torch.func import vmap
 
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
-  from rednose_tpu_torch.ops import lane_bank
+  from rednose_tpu_torch.ops import generic_scan as gs, lane_bank
   from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
-  from rednose_tpu_torch.runtime.scan import build_scan_stream
+  from rednose_tpu_torch.runtime.scan import (
+      build_scan_stream,
+      build_scan_stream_reference,
+  )
   from rednose_tpu_torch.smoothing import rts
 
   f32 = dict(dtype=torch.float32, device=dev)
@@ -2398,46 +2581,39 @@ def offline_path(torch, dev, gen):
       f"{float(err.max()):.4g} m")
 
   # (b) bench.py:363-400's live log (ECEF_POS and NO_ROT in turn, dt
-  # 0.01) through the scan stream, RTS_B lanes at once: lane 0 is the
-  # single log, the others other noise draws
+  # 0.01) through the scan stream, RTS_B lanes at once (lane 0 is the
+  # single log, the others other noise draws): kernel 9, one launch
   spec = LiveKalman.build_spec()
-  scan_fn, _ = build_scan_stream(spec, (K.ECEF_POS, K.NO_ROT))
+  scan_fn, _ = build_scan_stream(spec, SCAN_KINDS)
   T, B = RTS_T, RTS_B
-  ki = np.arange(T) % 2
-  is_pos = torch.as_tensor(ki == 0, device=dev)
-  zs = torch.where(is_pos[:, None, None], pos + torch.randn(
-      (T, B, 3), generator=gen, device=dev), torch.zeros((), **f32))
-  Rs = torch.where(is_pos[:, None, None],
-                   torch.diag(torch.full((3,), 25.0, **f32)),
-                   torch.diag(torch.full((3,), 0.00025**2, **f32)))
-  Q32 = torch.as_tensor(LiveKalman.Q, **f32)
-  dts_t = torch.full((T,), 0.01, **f32)
-  eas = torch.zeros((T, 1), **f32)
+  x0, P0, Q32, dts_t, ki, zs, Rs, eas = scan_log(torch, dev, gen, T, B,
+                                                  torch.float32)
   lanes = vmap(lambda x, P, z: scan_fn({}, x, P, Q32, dts_t, ki, z, Rs, eas),
                in_dims=(0, 0, 1))
-  x0 = torch.as_tensor(LiveKalman.initial_x, **f32).expand(B, -1)
-  P0 = torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f32).expand(
-      B, -1, -1)
+  n = gs.stream_bank_scan.launches
   ms_scan, (_, stacks) = timed(lambda: lanes(x0, P0, zs))
+  require(gs.stream_bank_scan.launches == n + 1,
+          "the scan stream launched kernel 9 once for every lane")
   require(all(bool(torch.isfinite(a).all()) for a in stacks),
           "the scan stream's stacks are finite")
-  log(f"scan stream (runtime/scan.build_scan_stream, vmapped): B={B} lanes "
-      f"x T={T} live steps, float32, {ms_scan:.1f} ms (host clock), "
+  log(f"scan stream (runtime/scan.build_scan_stream, vmapped, kernel 9): "
+      f"B={B} lanes x T={T} live steps, float32, {ms_scan:.1f} ms (host "
+      f"clock, first call, with its build's load), "
       f"{B * T / ms_scan * 1e3:.1f} filter-steps/s")
-  # the scan's predict takes the spec's closed-form F (F_lane); the same
-  # spec without it takes jacfwd of the error dynamics: both on the first
-  # F_LANE_T steps of the same lanes, in the order a b b a
+  # the plain scan's predict takes the spec's closed-form F (F_lane); the
+  # same spec without it takes jacfwd of the error dynamics: both on the
+  # first F_LANE_T steps of the same lanes, in the order a b b a
   ms_f, x_f = {"F_lane": [], "jacfwd": []}, {}
-  for label in ("F_lane", "jacfwd", "jacfwd", "F_lane"):
+  for label in F_LANE_ORDER:
     sp = spec if label == "F_lane" else dataclasses.replace(spec, F_lane=None)
-    fn, _ = build_scan_stream(sp, (K.ECEF_POS, K.NO_ROT))
+    fn, _ = build_scan_stream_reference(sp, SCAN_KINDS)
     ms, ((x_f[label], _), _) = timed(lambda: vmap(
         lambda x, P, z: fn({}, x, P, Q32, dts_t[:F_LANE_T], ki[:F_LANE_T], z,
                            Rs[:F_LANE_T], eas[:F_LANE_T]),
         in_dims=(0, 0, 1))(x0, P0, zs[:F_LANE_T]))
     ms_f[label].append(ms)
-  log(f"scan stream predict's F, B={B} x T={F_LANE_T} (host clock, a b b "
-      f"a): F_lane {ms_f['F_lane']} ms ("
+  log(f"plain scan stream predict's F, B={B} x T={F_LANE_T} (host clock, "
+      f"a b b a): F_lane {ms_f['F_lane']} ms ("
       f"{min(ms_f['F_lane']) / F_LANE_T:.3f} ms a step), jacfwd "
       f"{ms_f['jacfwd']} ms ({min(ms_f['jacfwd']) / F_LANE_T:.3f} ms a "
       f"step); final states differ by "
@@ -2576,6 +2752,103 @@ def offline_path(torch, dev, gen):
       f"final x {kf.x.tolist()} (the reference's goldens to 1e-7); "
       f"rts_smooth {ms_sm:.1f} ms")
   return {}
+
+
+def compare_scan(torch, dev, gen, reps=5):
+  """Phase 2, kernel 9 (the log scan) against its plain version
+  (build_scan_stream_reference) on RTS_B lanes of the offline path's live
+  log over SCAN_CMP_T steps, both vmapped over the lanes, every stacked
+  predicted and posterior state and the final one compared in sigmas of
+  the plain result (utils/compare.py): float64 from the prior within
+  SCAN64_TOL, and planted faults (Q's largest diagonal entry halved, Rs
+  scaled by 1.01, Rs shifted by one step, which turns the lanes NaN:
+  run-time values, the same build) beyond it;
+  float32 from the state the float64 kernel reaches in SCAN_WARM steps,
+  within GEN_TOL, timed (the kernel the mean of reps calls, CUDA events;
+  the plain version one run). The bound: the emitted operations of a step
+  (global form, the log's two kinds in turn) at the float32 peak, or the
+  bytes of the inputs and of the stacks. Returns its row."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.runtime.scan import (
+      build_scan_stream,
+      build_scan_stream_reference,
+  )
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  spec = LiveKalman.build_spec()
+  kernel, _ = build_scan_stream(spec, SCAN_KINDS)
+  plain, _ = build_scan_stream_reference(spec, SCAN_KINDS)
+  T, B = SCAN_CMP_T, RTS_B
+
+  def run(fn, x0, P0, Q, dts, ki, zs, Rs, eas):
+    return vmap(lambda x, P, z: fn({}, x, P, Q, dts, ki, z, Rs, eas),
+                in_dims=(0, 0, 1))(x0, P0, zs)
+
+  def err(out, ref):
+    """max over lanes, steps and the final state, in sigmas of ref; a
+    non-finite difference counts as infinitely far."""
+    (x, P), (xp, Pp, xq, Pq) = out
+    (rx, rP), (rxp, rPp, rxq, rPq) = ref
+    worst = 0.0
+    for a, b, c, d in ((x[:, None], P[:, None], rx[:, None], rP[:, None]),
+                       (xp, Pp, rxp, rPp), (xq, Pq, rxq, rPq)):
+      n = a.shape[0] * a.shape[1]
+      e = torch.maximum(*lane_sigma_errs(
+          spec, a.reshape(n, -1).T, b.reshape(n, 22, 22).permute(1, 2, 0),
+          c.reshape(n, -1).T, d.reshape(n, 22, 22).permute(1, 2, 0)))
+      worst = max(worst, float(torch.nan_to_num(e, nan=float("inf")).max()))
+    return worst
+
+  log64 = scan_log(torch, dev, gen, SCAN_WARM + T, B, torch.float64)
+  x0, P0, Q, dts, ki, zs, Rs, eas = log64
+  head = (x0, P0, Q, dts[:T], ki[:T], zs[:T], Rs[:T], eas[:T])
+  ref64 = run(plain, *head)
+  e64 = err(run(kernel, *head), ref64)
+  Qf = Q.clone()
+  i = int(torch.diagonal(Qf).argmax())
+  Qf[i, i] *= 0.5
+  faults = {f"Q[{i},{i}] halved": run(kernel, x0, P0, Qf, *head[3:]),
+            "Rs x 1.01": run(kernel, *head[:6], 1.01 * Rs[:T], eas[:T]),
+            "Rs shifted by one step": run(
+                kernel, *head[:6], torch.roll(Rs[:T], 1, 0), eas[:T])}
+  fault_err = {name: err(out, ref64) for name, out in faults.items()}
+  log(f"stream_bank_scan [live log B={B} T={T}, float64 from the prior]: "
+      f"{e64:.4g} sigma (tolerance {SCAN64_TOL}); planted faults "
+      + ", ".join(f"{k} {v:.4g}" for k, v in fault_err.items())
+      + f" sigma, each must exceed {SCAN64_TOL}, with no extra build")
+  require(e64 <= SCAN64_TOL and min(fault_err.values()) > SCAN64_TOL,
+          "kernel 9 holds in float64 and the planted faults fail")
+  # float32 from the state the float64 kernel reaches in SCAN_WARM steps
+  (xw, Pw), _ = run(kernel, x0, P0, Q, dts[:SCAN_WARM], ki[:SCAN_WARM],
+                    zs[:SCAN_WARM], Rs[:SCAN_WARM], eas[:SCAN_WARM])
+  tail = [a[SCAN_WARM:].float() if torch.is_tensor(a) else a[SCAN_WARM:]
+          for a in (dts, ki, zs, Rs, eas)]
+  case = (xw.float(), Pw.float(), Q.float(), *tail)
+  ms, out32 = timed_run(lambda: run(kernel, *case), reps)
+  plain_ms, ref32 = timed_run(lambda: run(plain, *case), 1)
+  e32 = err(out32, ref32)
+  call = stream_calls()["live log scan (kernel 9)"][0]
+  ops = step_ops(call.counting_source(), SCAN_KINDS, "mixed") * T * B
+  nbytes = io_bytes([case, out32], 4)
+  bound_ms, bound_by = bound(nbytes, ops)
+  log(f"stream_bank_scan [live log B={B} T={T}, float32 from the float64 "
+      f"kernel's state after {SCAN_WARM} steps]: kernel {ms:.4f} ms, plain "
+      f"{plain_ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}; "
+      f"{ops / (T * B):,.0f} emitted operations a step); {e32:.4g} sigma "
+      f"(tolerance {GEN_TOL}) -> {'ok' if e32 <= GEN_TOL else 'FAIL'}")
+  require(e32 <= GEN_TOL, "kernel 9 holds in float32 from a converged state")
+  return [dict(
+      name="stream_bank_scan", route="cuda",
+      source="rednose_tpu_torch/csrc/generic_scan.cuh",
+      replaces="rednose_tpu/runtime/scan.py:90 scan_fn (an XLA program, jit "
+               "of one lax.scan with a lax.switch; not Pallas)",
+      max_abs_err=max(float((a - b).abs().max()) for a, b in zip(
+          (out32[0][0], out32[0][1], *out32[1]),
+          (ref32[0][0], ref32[0][1], *ref32[1]))),
+      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+      shape=f"live log B={B} T={T}, float32")]
 
 
 def full_q_data(torch, x, T, kinds, R_list, noise, gen, far_every=0,
@@ -2778,7 +3051,8 @@ def compare_full_q(torch, dev, gen, hand_states, reps=5):
 EXAMPLES = {
     "run_kinematic": {}, "run_live": {}, "run_car": {},
     "run_loc": {"generic_bank_scan_mixed": 1},
-    "run_compat_migration": {}, "run_msckf": {}, "run_vo_pipeline": {},
+    "run_compat_migration": {}, "run_msckf": {"compute_pos_batch": 20},
+    "run_vo_pipeline": {"compute_pos_batch": 3},
     "run_mixed_bank": {"live_bank_scan_mixed": 1},
     "run_msckf_bank": {"generic_bank_scan_mixed": 1, "vo_bank_scan": 4},
     "run_bank": {},
@@ -3511,7 +3785,9 @@ def main():
   from concurrent.futures import ThreadPoolExecutor
 
   from rednose_tpu_torch import _build
+  from rednose_tpu_torch.msckf import triangulation
   from rednose_tpu_torch.ops import generic_scan, kinematic_scan, live_scan
+  from rednose_tpu_torch.runtime import scan
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -3529,7 +3805,9 @@ def main():
                | {f"examples: {name}": call.source(dtype)
                   for name, (call, dtype) in ex_calls.items()}
                | {f"user specs: {name}": call.source()
-                  for name, call in u_calls.items()})
+                  for name, call in u_calls.items()}
+               | {name: call.source(dtype)
+                  for name, (call, dtype) in stream_calls().items()})
     # the comparison phase's own variants: kernels 5, 6 and 7 in double,
     # and the camera-frame variants' global form (tile_vs_global)
     cmp_sources = {"loc run_epochs, float64 (kernel 5)":
@@ -3545,6 +3823,8 @@ def main():
         ex_calls["run_loc bank_demo (kernel 6, loc)"][0].source(torch.float64)
     cmp_sources |= {f"user specs: {name}, float64": call.source(torch.float64)
                     for name, call in u_calls.items()}
+    cmp_sources["live log scan (kernel 9), float64"] = stream_calls()[
+        "live log scan (kernel 9)"][0].source(torch.float64)
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),
                          ("run_mixed with frames", vio_call(model))):
@@ -3587,20 +3867,29 @@ def main():
         g.generic_bank_scan_mixed)),
       ("MSCKF bank", lambda: msckf_main_path(torch, dev, gens[2]),
        (g.vo_bank_scan, g.generic_bank_scan)),
-      # the VIO path launches kernel 6 (camera-frame branch) and no other
+      # the VIO path launches kernel 6 (camera-frame branch) and kernel 8
+      # (the store's and the pipeline's triangulations) and no other
       ("VIO", lambda: vio_main_path(torch, dev, gens[3]),
-       (g.generic_bank_scan_mixed,)),
-      # the full-Q live bank runs kernels 4 and 6, never 2 and 3; the
-      # smoother and the front end run plain torch on the card
+       (g.generic_bank_scan_mixed, triangulation.compute_pos_batch)),
+      # the full-Q live bank runs kernels 4 and 6, never 2 and 3; the log
+      # scan kernel 9; the smoother and the front end run plain torch on
+      # the card
       ("offline smoother and migration",
        lambda: offline_path(torch, dev, gens[4]),
-       (g.generic_bank_scan, g.generic_bank_scan_mixed)),
+       (g.generic_bank_scan, g.generic_bank_scan_mixed,
+        g.stream_bank_scan)),
       # a full Q with streamed R runs the plain full-Q slab: no kernel
       ("full-Q streamed R", lambda: full_q_stream_path(torch, dev, gens[5]),
        ()),
   )
   wrappers = {w for _, _, ws in paths for w in ws}
   launches, states = {w.__name__: 0 for w in wrappers}, []
+  # the plain versions of kernels 8 and 9: on the main paths only the
+  # offline path's F_lane / jacfwd timing runs the plain scan
+  plains = {triangulation.compute_pos_batch_reference: 0,
+            scan.build_scan_stream_reference: len(F_LANE_ORDER)}
+  for p in plains:
+    p.launches = 0
   for name, drive, expected in paths:
     for w in wrappers:
       w.launches = 0
@@ -3649,6 +3938,12 @@ def main():
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
+  plain_runs = {p.__name__: p.launches for p in plains}
+  log(f"plain versions of kernels 8 and 9 run on the main paths: "
+      f"{plain_runs}")
+  require(all(p.launches == n for p, n in plains.items()),
+          f"no main path ran the plain version of kernel 8 or 9 (the plain "
+          f"scan only in the F_lane timing): {plain_runs}")
 
   live_states, generic_states = states[:2]
   rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
@@ -3657,11 +3952,14 @@ def main():
   kernel_variants(torch, dev, gens[1], live_spec, generic_states)
   rows += compare_msckf(torch, dev, gens[2])
   rows += compare_vio(torch, dev, gens[3])
+  rows += compare_triangulation(torch, states[3])
+  rows += compare_scan(torch, dev, gens[4])
   compare_user_specs(torch, dev, user_states)
   example_rows = compare_examples(torch, dev)
   profiler_phase(torch, dev)
   flops_report_phase(card, rows + example_rows)
-  # no one PyTorch call computes a fused T-step filter scan: library_ms null
+  # no one PyTorch call computes a fused T-step filter scan or a batch of
+  # Gauss-Newton triangulations: library_ms null
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}
       | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],

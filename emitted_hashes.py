@@ -14,10 +14,12 @@ variants of live, car, loc and msckf_eskf that
 tests/test_torch_generic_single_roles.py emits, msckf_vo's dense
 mixed body with frames of tests/test_torch_vio_emitter.py, and the
 user-spec path's variants (the random specs' and the op battery's,
-models/user_specs.py), each in float and double. Runs on the CPU
+models/user_specs.py), and kernel 9's log-scan variants (mode "stream",
+chip_smoke.stream_calls), each in float and double. Runs on the CPU
 (emission needs no card); imports nothing of JAX.
 With --compare it prints, by mode, how many variants the two files share
-unchanged and names the ones that changed.
+unchanged, and names the ones that changed, are new in the second file
+or are gone from it.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ def variants():
   calls["msckf_vo mixed with frames, dense body"] = gs.KernelCall(
       vo.build_spec(), "mixed", (12, 16), Q=vo.Q,
       R_list=(np.eye(3), 1e-4 * np.eye(8)))
+  calls |= {name: call for name, (call, _) in cs.stream_calls().items()}
   return calls
 
 
@@ -81,15 +84,21 @@ def hashes():
 
 
 def compare(a, b):
+  """By mode, the variants both files hold unchanged or changed, and those
+  only the second (new) or only the first (gone) holds, each named."""
   modes = {}
   for key in sorted(set(a) | set(b)):
     mode = key.rsplit("[", 1)[1].split(",")[0]
-    same = a.get(key) == b.get(key)
-    modes.setdefault(mode, [0, 0])[0 if same else 1] += 1
-    if not same:
-      print(f"changed: {key}")
-  for mode, (same, changed) in sorted(modes.items()):
-    print(f"mode {mode}: {same} unchanged, {changed} changed")
+    state = ("new" if key not in a else "gone" if key not in b
+             else "unchanged" if a[key] == b[key] else "changed")
+    counts = modes.setdefault(mode, dict.fromkeys(
+        ("unchanged", "changed", "new", "gone"), 0))
+    counts[state] += 1
+    if state != "unchanged":
+      print(f"{state}: {key}")
+  for mode, counts in sorted(modes.items()):
+    print(f"mode {mode}: " + ", ".join(f"{n} {state}"
+                                       for state, n in counts.items()))
 
 
 def main():

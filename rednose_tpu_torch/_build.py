@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels and its native ring.
 
-Two entry points for the kernels. `library()`: all `csrc/*.cu` sources,
-compiled by nvcc at first use into one shared library with a plain C
-interface. `generated_launcher(source)`: one source emitted per spec
-variant by ops/entry_slab.py around the template csrc/generic_scan.cuh
-(the generic kernels 4-7), each in a directory of its own (see below).
+Two entry points for the kernels. `library()`: all `csrc/*.cu` sources
+(kernels 1-3 and kernel 8, csrc/triangulate.cu), compiled by nvcc at first
+use into one shared library with a plain C interface.
+`generated_launcher(source)`: one source emitted per spec variant by
+ops/entry_slab.py around the template csrc/generic_scan.cuh (the generic
+kernels 4-7 and kernel 9, the log scan), each in a directory of its own
+(see below).
 Both use the same flags:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -53,6 +55,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point in csrc/: name -> argtypes (all return
 # int, the cudaError_t of the launch)
 SIGNATURES = {
@@ -72,6 +75,10 @@ SIGNATURES = {
     "live_bank_scan_info": (_P,),
     "live_bank_scan_mixed_info": (_P,),
     "kinematic_bank_scan_info": (_P,),
+    # to_c, poses, its 3 strides, uv, its 3 strides, pos, conv, iters, N,
+    # K, is_double, stream (kernel 8, csrc/triangulate.cu)
+    "triangulate_launch":
+        (_P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -149,8 +156,12 @@ def library() -> ctypes.CDLL:
 
 GEN_DIR = BUILD_DIR / "gen"
 TEMPLATE = CSRC / "generic_scan.cuh"
-# xs, Ps, zs, eas, dts, kind_idx, pss, prm, Q, R, T, B, stream
-GEN_ARGTYPES = (_P,) * 10 + (_I, _I, _P)
+# C entry of each emitted source -> argtypes (all return the launch's
+# cudaError_t): kernels 4-7 take xs, Ps, zs, eas, dts, kind_idx, pss, prm,
+# Q, R, T, B, stream; kernel 9 (mode "stream") xs, Ps, zs, eas, dts,
+# kind_idx, Rs, prm, Q, xp, Pp, xq, Pq, T, B, stream
+GEN_ENTRIES = {"rn_generic_scan_launch": (_P,) * 10 + (_I, _I, _P),
+               "rn_generic_stream_launch": (_P,) * 13 + (_I, _I, _P)}
 
 
 def generated_dir(source: str) -> pathlib.Path:
@@ -215,11 +226,15 @@ def build_generated_many(sources) -> list:
 
 @functools.lru_cache(maxsize=None)
 def generated_launcher(source: str):
-  """Build if needed, load, and return the C entry rn_generic_scan_launch
-  of one emitted source."""
+  """Build if needed, load, and return the C entry (GEN_ENTRIES) of one
+  emitted source: rn_generic_stream_launch for mode "stream", whose
+  source defines REDNOSE_GENERIC_SCAN_STREAM, else rn_generic_scan_launch."""
+  entry = ("rn_generic_stream_launch"
+           if "#define REDNOSE_GENERIC_SCAN_STREAM" in source
+           else "rn_generic_scan_launch")
   lib = ctypes.CDLL(str(build_generated_many([source])[0]))
-  fn = lib.rn_generic_scan_launch
-  fn.argtypes = list(GEN_ARGTYPES)
+  fn = getattr(lib, entry)
+  fn.argtypes = list(GEN_ENTRIES[entry])
   fn.restype = ctypes.c_int
   return fn
 

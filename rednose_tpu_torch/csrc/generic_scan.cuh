@@ -1,5 +1,7 @@
 // Kernels 4, 5, 6 and 7: fused T-step scans of a bank of ANY filter spec,
-// around a step body emitted per spec by rednose_tpu_torch/ops/entry_slab.py.
+// around a step body emitted per spec by rednose_tpu_torch/ops/entry_slab.py;
+// and kernel 9, the offline log scan (mode "stream", its own section
+// below, REDNOSE_GENERIC_SCAN_STREAM).
 //
 // Kernel 4 (emitted mode "single") replaces the Pallas TPU kernel
 // rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan):
@@ -179,7 +181,134 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 
 #endif  // REDNOSE_GENERIC_SCAN_PRELUDE
 #else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
-#ifdef REDNOSE_GENERIC_SCAN_TILE
+#if defined(REDNOSE_GENERIC_SCAN_STREAM)
+
+// Kernel 9 (emitted mode "stream"): the offline log scan. It replaces
+// rednose_tpu/runtime/scan.py:scan_fn, an XLA program and not a Pallas
+// kernel: jax.jit of one lax.scan over the log with a lax.switch over the
+// observation kinds. Wrappers and plain versions:
+// rednose_tpu_torch/ops/generic_scan.py (stream_bank_scan) and
+// rednose_tpu_torch/runtime/scan.py (scan_fn, vmapped over lanes). Each
+// step t of each lane: the emitted predict with dts[t]; x and P stored
+// into the stacks xp[t], Pp[t]; the emitted update of the kind kind_idx[t]
+// (gen_stream_update, gated as the kind's maha_test says) with z = zs[t]
+// and R the leading dz x dz block of Rs[t], a NZROWS x NZROWS matrix
+// shared by the bank (its padded slots carry PAD_R, no information, and
+// the padded rows of y and H are zero, so the block is the whole update);
+// x and P stored into xq[t], Pq[t].
+//
+// Layout, bank-minor: xs (DX, B), Ps (DE, DE, B), updated in place; zs
+// (T, NZROWS, B), eas (T, NEAROWS, B), dts (T,), kind_idx (T,) int32, Rs
+// (T, NZROWS, NZROWS); the stacks xp, xq (T, DX, B) and Pp, Pq (T, DE, DE,
+// B), so a warp's 32 lanes store 32 consecutive values of every entry.
+// Design: the global form of the other modes, one thread a lane and the T
+// loop inside the kernel, x in registers, P in global memory (L1 / L2);
+// 32 threads a block. A log is a few dozen lanes (64 in the offline path),
+// so at most a few warps run and each step's serial chain of emitted
+// operations sets the pace (bound: those operations at the card's peak
+// rate, or the stacks' bytes at its memory rate, whichever is larger).
+
+namespace rn_gen {
+
+GEN_HD GEN_INLINE void stream_store(int t, int b, int B, const scalar_t* x,
+                                    const scalar_t* P, scalar_t* xo,
+                                    scalar_t* Po) {
+  for (int i = 0; i < DX; ++i) xo[((size_t)t * DX + i) * B + b] = x[i];
+  for (int e = 0; e < DE * DE; ++e)
+    Po[((size_t)t * DE * DE + e) * B + b] = P[(size_t)e * B];
+}
+
+// One lane b through all T steps of the log.
+GEN_HD GEN_INLINE void stream_filter(
+    int b, int B, int T, scalar_t* xs, scalar_t* Ps, const scalar_t* zs,
+    const scalar_t* eas, const scalar_t* dts, const int* kind_idx,
+    const scalar_t* Rs, const scalar_t* prm, const scalar_t* Q,
+    scalar_t* xp, scalar_t* Pp, scalar_t* xq, scalar_t* Pq) {
+  scalar_t x[DX];
+  for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+  scalar_t* P = Ps + b;
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  for (int t = 0; t < T; ++t) {
+    gen_predict(x, P, (size_t)B, dts[t], p, Q);
+    stream_store(t, b, B, x, P, xp, Pp);
+    const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
+    const scalar_t* ea =
+        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+    gen_stream_update(x, P, (size_t)B, z, ea, (size_t)B, kind_idx[t],
+                      Rs + (size_t)t * NZROWS * NZROWS, p);
+    stream_store(t, b, B, x, P, xq, Pq);
+  }
+  for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+}
+
+}  // namespace rn_gen
+
+#ifdef __CUDACC__
+
+__global__ void rn_generic_stream_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    const scalar_t* __restrict__ zs, const scalar_t* __restrict__ eas,
+    const scalar_t* __restrict__ dts, const int* __restrict__ kind_idx,
+    const scalar_t* __restrict__ Rs, const scalar_t* __restrict__ prm,
+    const scalar_t* __restrict__ Q, scalar_t* __restrict__ xp,
+    scalar_t* __restrict__ Pp, scalar_t* __restrict__ xq,
+    scalar_t* __restrict__ Pq, int T, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B)
+    rn_gen::stream_filter(b, B, T, xs, Ps, zs, eas, dts, kind_idx, Rs, prm, Q,
+                          xp, Pp, xq, Pq);
+}
+
+extern "C" int rn_generic_stream_launch(void* xs, void* Ps, const void* zs,
+                                        const void* eas, const void* dts,
+                                        const void* kind_idx, const void* Rs,
+                                        const void* prm, const void* Q,
+                                        void* xp, void* Pp, void* xq,
+                                        void* Pq, int T, int B,
+                                        void* stream) {
+  const int threads = 32;
+  const int blocks = (B + threads - 1) / threads;
+  rn_generic_stream_kernel<<<blocks, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+      static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+      static_cast<const scalar_t*>(dts), static_cast<const int*>(kind_idx),
+      static_cast<const scalar_t*>(Rs), static_cast<const scalar_t*>(prm),
+      static_cast<const scalar_t*>(Q), static_cast<scalar_t*>(xp),
+      static_cast<scalar_t*>(Pp), static_cast<scalar_t*>(xq),
+      static_cast<scalar_t*>(Pq), T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define RN_GEN_KERNEL rn_generic_stream_kernel
+#define RN_GEN_DESIGN 0
+#define RN_GEN_ROLES 1
+#define RN_GEN_SMEM 0
+
+#else
+
+// The host build (tests): the same emitted body, lane by lane.
+extern "C" int rn_generic_stream_host(void* xs, void* Ps, const void* zs,
+                                      const void* eas, const void* dts,
+                                      const void* kind_idx, const void* Rs,
+                                      const void* prm, const void* Q,
+                                      void* xp, void* Pp, void* xq, void* Pq,
+                                      int T, int B) {
+  for (int b = 0; b < B; ++b)
+    rn_gen::stream_filter(
+        b, B, T, static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+        static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+        static_cast<const scalar_t*>(dts), static_cast<const int*>(kind_idx),
+        static_cast<const scalar_t*>(Rs), static_cast<const scalar_t*>(prm),
+        static_cast<const scalar_t*>(Q), static_cast<scalar_t*>(xp),
+        static_cast<scalar_t*>(Pp), static_cast<scalar_t*>(xq),
+        static_cast<scalar_t*>(Pq));
+  return 0;
+}
+
+#endif  // __CUDACC__
+#elif defined(REDNOSE_GENERIC_SCAN_TILE)
 
 // Kernels 4, 6 and 7 in tile form (modes "single", "mixed" and "frame",
 // when the tile fits): a block of 32 filters (lane = filter) and NROLES
@@ -708,7 +837,7 @@ extern "C" int rn_generic_scan_host(void* xs, void* Ps, const void* zs,
 }
 
 #endif  // __CUDACC__
-#endif  // REDNOSE_GENERIC_SCAN_TILE
+#endif  // REDNOSE_GENERIC_SCAN_STREAM, REDNOSE_GENERIC_SCAN_TILE
 
 #ifdef __CUDACC__
 // The variant's launch shape as the runtime reads it: out[0] the design (1

@@ -96,8 +96,9 @@ def window_poses(x):
 def frame_update(kf, t, tracks_img, kind, triangulate, poses):
   """The camera-frame flow shared by the MSCKF facades: triangulate every
   complete track (tracks_img (n, N_AUGMENT, 2), row k seen from clone k,
-  oldest first) from the window `poses`, apply the projected feature
-  update of the tracks that converged, then augment. With no usable track
+  oldest first) from the window `poses` on the filter's device (kernel 8
+  on the card), apply the projected feature update of the tracks that
+  converged, then augment. With no usable track
   the filter still predicts to t and augments, so the window keeps the
   camera cadence (otherwise every later track is matched against stale
   clones)."""
@@ -109,7 +110,8 @@ def frame_update(kf, t, tracks_img, kind, triangulate, poses):
                      f"(n, {N_AUGMENT}, 2)")
   n = tracks_img.shape[0]
   if n:
-    t64 = dict(dtype=torch.float64)
+    # on the filter's device: kernel 8 triangulates on the card
+    t64 = dict(dtype=torch.float64, device=kf.filter.device)
     poses_b = torch.as_tensor(poses, **t64).expand(n, *poses.shape)
     pos, ok = triangulate(torch.eye(3, **t64), poses_b,
                           torch.as_tensor(tracks_img, **t64))

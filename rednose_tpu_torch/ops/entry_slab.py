@@ -61,6 +61,11 @@ step's kind index, then on the role; an epoch tile prints it once for
 each distinct unit of its slots, dispatchers that switch on the unit,
 and the slot table (each slot's unit, z and ea rows and R offset) its
 loop reads. A variant whose tile does not fit prints the global form.
+
+Mode "stream" (kernel 9, the offline log scan of runtime/scan.py) prints
+the global form only: the predict, one update function per kind reading
+the leading dz x dz block of the step's streamed max_dz x max_dz R, and a
+switch over them by the step's kind index.
 """
 
 from __future__ import annotations
@@ -1192,7 +1197,7 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
 
 # ----------------------------------------------------------- variant source
 
-MODES = ("single", "mixed", "epoch", "frame")
+MODES = ("single", "mixed", "epoch", "frame", "stream")
 
 
 def _unit_name(kind, gate, frame=False):
@@ -1213,7 +1218,13 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   order, one slot each) or 'frame' (kernel 7: the MSCKF camera frame of
   one feature kind); each prints the tile form where it fits (tile_bytes),
   over TILE_ROLES_FRAME roles when a unit is a camera frame, else
-  TILE_ROLES. units: tuple of (kind, gate) pairs.
+  TILE_ROLES. Mode 'stream' (kernel 9, the offline log scan) prints the
+  global form only: the predict, each unit reading its R as the leading
+  dz x dz block of the step's streamed max_dz x max_dz R, and a switch
+  over the units by the kind index (gen_stream_update), which the
+  template's REDNOSE_GENERIC_SCAN_STREAM section calls between its stores
+  of each step's predicted and posterior state. units: tuple of (kind,
+  gate) pairs.
   A unit of an MSCKF feature kind is a camera frame (frame_phase: the
   projected update and the window augment); mode 'frame' is one such
   unit, and mode 'mixed' may hold them among its other units (kernel 6's
@@ -1236,7 +1247,7 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                      f"for it: units {units}, r_patterns {r_patterns}")
   if mode == "frame" and (len(units) != 1 or not feature[0]):
     raise ValueError(f"mode 'frame' takes one feature unit, got {units}")
-  if mode in ("single", "epoch") and any(feature):
+  if mode in ("single", "epoch", "stream") and any(feature):
     raise ValueError(f"mode {mode!r} takes no MSCKF feature kind: a camera "
                      "frame runs in mode 'frame' or 'mixed'")
   if scalar not in ("float", "double"):
@@ -1301,7 +1312,12 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       done[(k, g, rp)] = _unit_name(k, g, f) + (f"_r{n}" if n else "")
     names.append(done[(k, g, rp)])
   pred, phases = None, {}
-  if tile:
+  stream = mode == "stream"
+  if stream:
+    head.append(
+        "// design: global: one thread a lane, P in global memory; each "
+        "step's x and P stored after the predict and after the update")
+  if tile and not stream:
     # the tile form when 32 filters' P, x and the largest unit's scratch
     # (and an epoch's staged inputs) fit a block
     pred = predict_phase(spec, structure, pnames, q_pattern)
@@ -1356,8 +1372,23 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     ph = (phases[name] if name in phases
           else frame_phase(spec, k, structure, pnames, g, rp) if f
           else update_phase(spec, k, structure, pnames, g))
-    out += print_phase(ph, spec.obs[k].dz)
+    # a streamed R is the step's max_dz x max_dz matrix: its leading block
+    out += print_phase(ph, max_dz if stream else spec.obs[k].dz)
     out.append("}")
+  if stream:
+    out += [
+        "",
+        "GEN_HD GEN_INLINE void gen_stream_update(scalar_t* x, scalar_t* P, "
+        "size_t ld, const scalar_t* z, const scalar_t* ea, size_t ld_in, "
+        "int ki, const scalar_t* R, const scalar_t* p) {",
+        "  switch (ki) {"]
+    out += [f"    case {u}: {names[u]}(x, P, ld, z, ea, ld_in, R, p); break;"
+            for u in range(len(units))]
+    out += ["    default: break;", "  }", "}", "", "}  // namespace rn_gen",
+            "", "#define REDNOSE_GENERIC_SCAN_STREAM",
+            "#define REDNOSE_GENERIC_SCAN_LOOPS",
+            '#include "generic_scan.cuh"', ""]
+    return "\n".join(out)
   out += [
       "",
       "GEN_HD GEN_INLINE void gen_step(scalar_t* x, scalar_t* P, size_t ld, "

@@ -1,4 +1,5 @@
-"""Fused T-step scans of a bank of ANY filter spec (kernels 4, 5, 6, 7).
+"""Fused T-step scans of a bank of ANY filter spec (kernels 4, 5, 6, 7,
+and kernel 9, the offline log scan).
 
 `generic_bank_scan` replaces the Pallas TPU kernel
 rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan),
@@ -31,7 +32,17 @@ keyword arguments; KalmanBank keeps its calls, so the checks, the
 emission lookup and the copies of params, Q and R to the device run once
 per call it keeps.
 
-Every wrapper returns new (x, P) and never writes its inputs. For CPU
+`stream_bank_scan` (kernel 9, emitted mode "stream") replaces the JAX
+package's log scan, rednose_tpu/runtime/scan.py:scan_fn, an XLA program
+(jax.jit of one lax.scan with a lax.switch over the kinds), not a Pallas
+kernel: T steps of a recorded log, each a predict and the update of the
+step's kind with that step's R, every step's predicted and posterior
+state kept (the smoother's inputs). It is the launcher behind the
+wrapper runtime/scan.build_scan_stream's scan_fn, which takes CPU
+tensors to its plain loop (build_scan_stream_reference) and gives this
+launcher copies of x and P to advance in place.
+
+Every other wrapper returns new (x, P) and never writes its inputs. For CPU
 tensors it runs the plain version (ops/lane_bank.py); for CUDA tensors
 (float32, or float64 for a variant built in double; contiguous) it copies
 x and P once and launches the kernel, which updates the copies in place,
@@ -95,16 +106,17 @@ def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
 
 class KernelCall:
   """One generic call, checked once: the spec, the mode ('single' /
-  'mixed' / 'epoch' / 'frame'), the kind, kind set or slot kinds, the
-  gate, the structure (None: the dense body) and the streamed param keys,
-  with Q, one R per kind or slot and the params. An MSCKF feature kind is
-  a camera frame: mode 'frame' takes one, mode 'mixed' takes them among
-  other kinds, and 'single' and 'epoch' refuse them. Refuses an unknown
+  'mixed' / 'epoch' / 'frame' / 'stream'), the kind, kind set or slot
+  kinds, the gate, the structure (None: the dense body) and the streamed
+  param keys, with Q, one R per kind or slot (none in mode 'stream', whose
+  R comes with each step) and the params. An MSCKF feature kind is a
+  camera frame: mode 'frame' takes one, mode 'mixed' takes them among
+  other kinds, and the other modes refuse them. Refuses an unknown
   kind, anything but a feature kind in mode 'frame', an asymmetric Q or R
   and a wrong number of R. The emitted source and the device copies of
   the values are made at first use and kept."""
 
-  def __init__(self, spec: FilterSpec, mode: str, kinds, *, Q, R_list,
+  def __init__(self, spec: FilterSpec, mode: str, kinds, *, Q, R_list=(),
                params=None, gate: bool | None = None, structure=None,
                ps_keys=()):
     if not isinstance(spec, FilterSpec):
@@ -126,11 +138,16 @@ class KernelCall:
       if mode == "frame" and not spec.obs[k].is_feature:
         raise ValueError(f"mode 'frame' takes an MSCKF feature kind, not "
                          f"kind {k}")
-    if len(R_list) != len(kinds):
+    if mode == "stream":
+      if len(R_list) or gate is False or ps_keys:
+        raise ValueError("mode 'stream' streams R per step (Rs), gates as "
+                         "each kind's maha_test says and streams no params")
+    elif len(R_list) != len(kinds):
       raise ValueError(f"{len(R_list)} R for {len(kinds)} kinds / slots")
     self.spec, self.mode, self.kinds = spec, mode, kinds
     self.params = dict(spec.default_params if params is None else params)
-    self.gate = (True if gate is None and mode in ("mixed", "epoch")
+    self.gate = (True if gate is None and mode in ("mixed", "epoch",
+                                                   "stream")
                  else gate)
     self.structure = structure
     self.ps_keys = tuple(ps_keys)
@@ -430,3 +447,65 @@ def vo_bank_scan(x, P, zs, eas, dts, *, spec: FilterSpec | None = None,
 
 
 vo_bank_scan.launches = 0
+
+
+# ------------------------------------------------------ kernel 9: the log scan
+
+def stream_bank_scan(call: KernelCall, x, P, zs, dts, kind_idx, Rs, eas,
+                     prm, Q):
+  """Kernel 9: T steps of a recorded log over a B-wide bank of CUDA
+  tensors, each a predict with dts[t], then the update of
+  call.kinds[kind_idx[t]] with zs[t] and the step's noise Rs[t], gated as
+  the kind's maha_test says (core/step.update); every step's predicted and
+  posterior state kept.
+
+  call a 'stream' KernelCall (the variant: its Q pattern and param names);
+  x (dim_x, B) and P (de, de, B), advanced in place to the final state;
+  zs (T, max_dz, B) rows padded, dts (T,), kind_idx (T,) int32, Rs (T,
+  max_dz, max_dz) shared by the bank and padded as runtime/scan.pad_log
+  pads it (the kernel reads each kind's leading dz x dz block), eas (T,
+  max_ea_len, B) for extra-args kinds, else None; prm the params in the
+  call's order (sorted names; one zero for none) and Q (de, de), run-time
+  values of the call's pattern. Returns (x_preds (T, dim_x, B), P_preds
+  (T, de, de, B), x_posts, P_posts). Its caller is runtime/scan's scan_fn
+  (through the custom op rednose::scan_stream), which runs the plain loop
+  for CPU tensors; a CPU tensor here raises."""
+  if call.mode != "stream":
+    raise ValueError(f"a {call.mode!r} call given to the 'stream' scan")
+  spec, kinds = call.spec, call.kinds
+  T, B = dts.shape[0], x.shape[-1]
+  max_dz = max(spec.obs[k].dz for k in kinds)
+  max_ea = max(spec.obs[k].ea_len for k in kinds)
+  dx, de = spec.dim_x, spec.dim_err
+  dtype = x.dtype if x.dtype in _SCALARS else torch.float32
+  _build.check_tensor("x", x, (dx, B), dtype)
+  _build.check_tensor("P", P, (de, de, B), dtype)
+  _build.check_tensor("zs", zs, (T, max_dz, B), dtype)
+  _build.check_tensor("dts", dts, (T,), dtype)
+  _build.check_tensor("kind_idx", kind_idx, (T,), torch.int32)
+  _build.check_tensor("Rs", Rs, (T, max_dz, max_dz), dtype)
+  _build.check_tensor("prm", prm, (max(len(call._pnames), 1),), dtype)
+  _build.check_tensor("Q", Q, (de, de), dtype)
+  if (eas is None) != (max_ea == 0):
+    raise ValueError(f"kinds {kinds}: pass eas iff a kind takes extra args")
+  if eas is not None:
+    _build.check_tensor("eas", eas, (T, max_ea, B), dtype)
+  if T and not 0 <= int(kind_idx.min()) <= int(kind_idx.max()) < len(kinds):
+    raise ValueError(f"kind_idx outside [0, {len(kinds)})")
+  xp, xq = (x.new_empty((T, dx, B)) for _ in range(2))
+  Pp, Pq = (x.new_empty((T, de, de, B)) for _ in range(2))
+  if T == 0:
+    return xp, Pp, xq, Pq
+  fn = _build.generated_launcher(call.source(dtype))
+  code = fn(x.data_ptr(), P.data_ptr(), zs.data_ptr(),
+            None if eas is None else eas.data_ptr(), dts.data_ptr(),
+            kind_idx.data_ptr(), Rs.data_ptr(), prm.data_ptr(),
+            Q.data_ptr(), xp.data_ptr(), Pp.data_ptr(), xq.data_ptr(),
+            Pq.data_ptr(), T, B,
+            torch.cuda.current_stream(x.device).cuda_stream)
+  _build.check(code, "stream_bank_scan")
+  stream_bank_scan.launches += 1
+  return xp, Pp, xq, Pq
+
+
+stream_bank_scan.launches = 0

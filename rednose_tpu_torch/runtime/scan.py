@@ -2,9 +2,13 @@
 
 Port of rednose_tpu/runtime/scan.py. The host driver (runtime/driver.py)
 takes one observation at a time, with its rewind bookkeeping; this module
-runs a whole recorded, time-ordered log through core/step.py in one loop
-over time and keeps every step's (predicted, posterior) pair: the
-smoother's inputs (smoothing/rts.py).
+runs a whole recorded, time-ordered log and keeps every step's
+(predicted, posterior) pair: the smoother's inputs (smoothing/rts.py). On
+the card that is one launch of kernel 9 (ops/generic_scan.stream_bank_scan,
+the JAX package's jitted lax.scan ported), for one log or, under
+torch.func.vmap, a bank of them; on the host, and in
+build_scan_stream_reference on any device, one loop over time through
+core/step.py.
 
 Measurements of different sizes are padded to the largest dz; a padded
 slot gets variance PAD_R, so it carries no information (the reference's
@@ -12,12 +16,12 @@ soft-nulling trick for Mahalanobis rejection, ekf_c.c:92). The padded rows
 of H are exactly zero, so with PAD_R on the diagonal the padded slots
 change neither the gain nor the covariance.
 
-The kind dispatch is a host-side index into the per-kind branches: the
-kind index stays on the host, and no step waits on the device for it. A
-spec that ships a closed-form F (FilterSpec.F_lane, equal to jacfwd of its
-dynamics) predicts with it: on an H100 the live spec's step, vmapped over
-64 lanes, takes about half the time it takes with jacfwd (chip_smoke.py
-times both).
+In the plain loop the kind dispatch is a host-side index into the
+per-kind branches: the kind index stays on the host, and no step waits on
+the device for it. A spec that ships a closed-form F (FilterSpec.F_lane,
+equal to jacfwd of its dynamics) predicts with it: on an H100 the live
+spec's plain step, vmapped over 64 lanes, takes about half the time it
+takes with jacfwd (chip_smoke.py times both).
 """
 
 from __future__ import annotations
@@ -77,16 +81,40 @@ def build_scan_stream(spec: FilterSpec, kinds: Sequence[int]):
     zs (T, max_dz) padded measurements,
     Rs (T, max_dz, max_dz) padded noise (PAD_R on the padded slots),
     eas (T, max_ea) padded extra args.
-  kind_index maps each kind to its index."""
+  kind_index maps each kind to its index.
+
+  On CPU tensors scan_fn runs the plain loop (build_scan_stream_reference).
+  On CUDA tensors it launches kernel 9 (ops/generic_scan.stream_bank_scan)
+  once for the whole log: the step's predict and the kind's update
+  emitted for the spec, each step's R read as the kind's leading dz x dz
+  block of Rs[t]. Under torch.func.vmap over x, P and zs (a bank of logs
+  that share dts, kind_idx, Rs and eas) it is one launch for the whole
+  bank; batching any other argument raises on the card, naming it, and so
+  does an input that requires grad (autograd runs through
+  build_scan_stream_reference). A float32 or float64 log, kinds that are
+  not MSCKF feature kinds, dz <= 3."""
   return _build_scan_stream_cached(spec, tuple(int(k) for k in kinds))
 
 
+def build_scan_stream_reference(spec: FilterSpec, kinds: Sequence[int]):
+  """(scan_fn, kind_index) of the plain loop over T (core/step.py's
+  predict and padded update, one Python iteration a step), on any device:
+  build_scan_stream's plain version, which autograd runs through. Its
+  `.launches` counts the runs of such a scan_fn, on any device (one for a
+  vmapped bank of logs)."""
+  return _build_reference_cached(spec, tuple(int(k) for k in kinds))
+
+
+build_scan_stream_reference.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
-def _build_scan_stream_cached(spec: FilterSpec, kinds: tuple):
+def _build_reference_cached(spec: FilterSpec, kinds: tuple):
   max_dz = max(spec.obs[k].dz for k in kinds)
   branches = tuple((_padded_spec(spec, k, max_dz), k) for k in kinds)
 
   def scan_fn(params, x, P, Q, dts, kind_idx, zs, Rs, eas):
+    build_scan_stream_reference.launches += 1
     ki = np.asarray(kind_idx.cpu() if torch.is_tensor(kind_idx)
                     else kind_idx).tolist()
     outs = ([], [], [], [])
@@ -104,6 +132,135 @@ def _build_scan_stream_cached(spec: FilterSpec, kinds: tuple):
     return (x, P), tuple(torch.stack(out) for out in outs)
 
   return scan_fn, {k: i for i, k in enumerate(kinds)}
+
+
+# build_scan_stream's calls of the kernel: (spec, kinds, param names) of
+# each handle that the custom op rednose::scan_stream takes
+_HANDLES: list = []
+
+
+@functools.lru_cache(maxsize=None)
+def _handle(spec: FilterSpec, kinds: tuple, pnames: tuple) -> int:
+  _HANDLES.append((spec, kinds, pnames))
+  return len(_HANDLES) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_call(handle: int, q_pattern: tuple):
+  """The 'stream' KernelCall of a handle and a Q pattern, made once: the
+  variant only (Q's values and the params' come with each call)."""
+  from rednose_tpu_torch.ops import generic_scan
+
+  spec, kinds, pnames = _HANDLES[handle]
+  Q = np.zeros((spec.dim_err, spec.dim_err))
+  for i, j in q_pattern:
+    Q[i, j] = Q[j, i] = 1.0
+  return generic_scan.KernelCall(spec, "stream", kinds, Q=Q,
+                                 params=dict.fromkeys(pnames, 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_scan_stream_cached(spec: FilterSpec, kinds: tuple):
+  plain, kind_index = _build_reference_cached(spec, kinds)
+
+  def scan_fn(params, x, P, Q, dts, kind_idx, zs, Rs, eas):
+    if x.device.type == "cpu":
+      return plain(params, x, P, Q, dts, kind_idx, zs, Rs, eas)
+    return _kernel_scan(spec, kinds, params, x, P, Q, dts, kind_idx, zs, Rs,
+                        eas)
+
+  return scan_fn, kind_index
+
+
+def _kernel_scan(spec, kinds, params, x, P, Q, dts, kind_idx, zs, Rs, eas):
+  """scan_fn through kernel 9 (the custom op rednose::scan_stream, which
+  launches ops/generic_scan.stream_bank_scan), on the device of x."""
+  values = [v for v in (x, P, Q, dts, zs, Rs, eas, *params.values())
+            if torch.is_tensor(v)]
+  if torch.is_grad_enabled() and any(v.requires_grad for v in values):
+    raise RuntimeError(
+        "scan_fn on the card runs kernel 9, which has no backward: an input "
+        "requires grad; take runtime.scan.build_scan_stream_reference, the "
+        "plain loop that autograd runs through")
+  dev, dtype = x.device, x.dtype
+  as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+  pnames = tuple(sorted(params))
+  prm = (torch.stack([as_dev(params[k]) for k in pnames]) if pnames
+         else torch.zeros(1, dtype=dtype, device=dev))
+  ki = torch.as_tensor(kind_idx, device=dev).to(torch.int32)
+  out = torch.ops.rednose.scan_stream(
+      x[None], as_dev(P)[None], as_dev(zs)[:, None], as_dev(dts), ki,
+      as_dev(Rs), as_dev(eas), as_dev(Q), prm, _handle(spec, kinds, pnames))
+  x_, P_, xp, Pp, xq, Pq = (a[0] for a in out)
+  return (x_, P_), (xp, Pp, xq, Pq)
+
+
+def _bank_copy(a, *dims):
+  """A contiguous copy of a permuted view, also where the view is already
+  contiguous (kernel 9 advances its x and P in place)."""
+  return a.permute(*dims).clone(memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("rednose::scan_stream", mutates_args=())
+def _scan_stream_op(x: torch.Tensor, P: torch.Tensor, zs: torch.Tensor,
+                    dts: torch.Tensor, kind_idx: torch.Tensor,
+                    Rs: torch.Tensor, eas: torch.Tensor, Q: torch.Tensor,
+                    prm: torch.Tensor, handle: int) -> tuple[
+                        torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Kernel 9 over B lanes in scan_fn's layout: x (B, dim_x), P (B, de,
+  de), zs (T, B, max_dz); the rest shared by the lanes. Returns (x, P,
+  x_preds (B, T, dim_x), P_preds (B, T, de, de), x_posts, P_posts): the
+  kernel's bank-minor stacks, transposed by one copy each."""
+  from rednose_tpu_torch.ops import entry_slab, generic_scan
+
+  spec, kinds, _ = _HANDLES[handle]
+  call = _kernel_call(handle, entry_slab.q_pattern_of(
+      Q.detach().cpu().double().numpy()))
+  T, B = dts.shape[0], x.shape[0]
+  max_ea = max(spec.obs[k].ea_len for k in kinds)
+  eas_b = (None if max_ea == 0 else
+           eas[:, :max_ea, None].expand(T, max_ea, B).contiguous())
+  xk, Pk = _bank_copy(x, 1, 0), _bank_copy(P, 1, 2, 0)
+  xp, Pp, xq, Pq = generic_scan.stream_bank_scan(
+      call, xk, Pk, zs.transpose(1, 2).contiguous(), dts.contiguous(),
+      kind_idx.contiguous(), Rs.contiguous(), eas_b, prm.contiguous(),
+      Q.contiguous())
+  return (xk.T.contiguous(), Pk.permute(2, 0, 1).contiguous(),
+          xp.permute(2, 0, 1).contiguous(),
+          Pp.permute(3, 0, 1, 2).contiguous(),
+          xq.permute(2, 0, 1).contiguous(),
+          Pq.permute(3, 0, 1, 2).contiguous())
+
+
+def _scan_stream_vmap(info, in_dims, x, P, zs, dts, kind_idx, Rs, eas, Q,
+                      prm, handle):
+  """vmap of rednose::scan_stream over x, P and zs: the lanes of every
+  vmapped log side by side in one call, so one launch; an argument that
+  the logs do not share raises, naming it."""
+  names = ("dts", "kind_idx", "Rs", "eas", "Q", "params")
+  for name, d in zip(names, in_dims[3:9]):
+    if d is not None:
+      raise ValueError(
+          f"scan_fn on the card takes a bank of logs that differ in x, P "
+          f"and zs only: {name} is batched (vmap "
+          "build_scan_stream_reference's scan_fn instead)")
+  n = info.batch_size
+
+  def lanes(a, d, at):
+    """a with the vmapped axis moved before its lane axis `at` and merged
+    with it (a log's lanes stay together)."""
+    a = (a.movedim(d, at) if d is not None
+         else a.unsqueeze(at).expand(*a.shape[:at], n, *a.shape[at:]))
+    return a.flatten(at, at + 1)
+
+  out = torch.ops.rednose.scan_stream(
+      lanes(x, in_dims[0], 0), lanes(P, in_dims[1], 0),
+      lanes(zs, in_dims[2], 1), dts, kind_idx, Rs, eas, Q, prm, handle)
+  return tuple(a.unflatten(0, (n, -1)) for a in out), (0,) * 6
+
+
+_scan_stream_op.register_vmap(_scan_stream_vmap)
 
 
 def pad_log(spec: FilterSpec, kinds: Sequence[int], log, t0: float = 0.0,

@@ -552,7 +552,7 @@ def build_with_template(name, source, template):
   if proc.returncode:
     raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
   fn = ctypes.CDLL(str(d / "libgen.so")).rn_generic_scan_launch
-  fn.argtypes = list(_build.GEN_ARGTYPES)
+  fn.argtypes = list(_build.GEN_ENTRIES["rn_generic_scan_launch"])
   fn.restype = ctypes.c_int
   return fn
 
