@@ -47,15 +47,19 @@ them). Then:
        observe calls with one late, healthy as above; bench.py:363-400's
        live log (ECEF_POS and NO_ROT in turn, dt 0.01, T = 8192, float32)
        through runtime/scan.build_scan_stream for 64 lanes at once (kernel
-       9, one launch; the plain scan's predict with F_lane and jacfwd
-       timed on its first F_LANE_T steps);
+       9 in tile form, one launch, then once more timed with CUDA events;
+       the plain scan's predict with F_lane and jacfwd timed on its first
+       F_LANE_T steps);
        rts_smooth and rts_smooth_parallel on lane 0, the parallel result
        against the float64 sequential one within 3x the float32
        sequential's own error (tests/test_rts_live.py:131-152);
        rts_smooth_parallel_bank over all 64 lanes, three of them held
        against their lane smoothed alone; the cold T = 600 log of
        tests/test_rts_live.py in float64, refine = 8 within 1e-6 of the
-       sequential smoother (the log itself through kernel 9, float64);
+       sequential smoother (the log itself through kernel 9, float64;
+       both offline variants of kernel 9 must be the tile, design 1, at
+       TILE_ROLES_STREAM warps, each printed with its registers, stack
+       and spills);
        the gains step of every lane through the
        blocked lane Cholesky and through torch.linalg; the migrated
        kinematic filter of examples/run_compat_migration.py
@@ -161,10 +165,12 @@ them). Then:
      plain version on the VIO store's first and last frames (float64,
      TRI64_TOL_M: all 768 rows against the plain version on the host, the
      harvested ones against it on the card too), the iteration counts
-     that differ printed; kernel 9 against its plain version on the offline log's 64
-     lanes over SCAN_CMP_T steps: float64 from the prior within
-     SCAN64_TOL sigmas with planted faults beyond it, float32 from a
-     converged state within GEN_TOL; both timed with their bounds.
+     that differ printed; kernel 9's tile against its plain version and
+     its global form on the offline log's 64 lanes over SCAN_CMP_T
+     steps: float64 from the prior within SCAN64_TOL sigmas (also on 1
+     and SCAN_RAGGED_B lanes) with planted faults beyond it, float32
+     from a converged state within GEN_TOL; timed with its bound, and
+     both forms as raw launches in turns at SCAN_CMP_T and RTS_T.
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -314,13 +320,15 @@ FQ_T = 512
 # held against the same call on the CPU on its first STREAM_CPU_B lanes
 STREAM_CPU_B = 64
 RTS_T, RTS_B = 8192, 64
-# kernel 9 (the log scan) against its plain version on RTS_B lanes of the
-# same live log over SCAN_CMP_T steps: float64 from the prior within
-# SCAN64_TOL sigmas, with planted faults (run-time values, the same build)
-# beyond it; float32 from the state the float64 kernel reaches in
-# SCAN_WARM steps, within GEN_TOL (from the 10-rad prior two float32
-# programs part by whole sigmas)
+# kernel 9 (the log scan) against its plain version and its global form
+# on RTS_B lanes of the same live log over SCAN_CMP_T steps: float64 from
+# the prior within SCAN64_TOL sigmas (also on 1 and SCAN_RAGGED_B lanes),
+# with planted faults (run-time values, the same build) beyond it;
+# float32 from the state the float64 kernel reaches in SCAN_WARM steps,
+# within GEN_TOL (from the 10-rad prior two float32 programs part by
+# whole sigmas)
 SCAN_CMP_T, SCAN_WARM, SCAN64_TOL = 256, 2048, 1e-6
+SCAN_RAGGED_B = 37   # kernel 9 also held on the first 37 lanes (2 blocks)
 BANK_SMOOTH_TOL = 1e-4
 REFINE_T, REFINE, REFINE_TOL = 600, 8, 1e-6
 # the full-Q comparisons: the 8-kind cycle's lanes move at 1 m/s on each
@@ -2440,19 +2448,18 @@ def full_q_cmp_calls():
   }
 
 
-def refine_log(torch, dev, gen):
-  """tests/test_rts_live.py's cold T = REFINE_T log, float64 on the card:
-  ECEF_POS, PHONE_GYRO (a time-varying angular-rate command) and NO_ROT
-  in turn, dt 0.01, noise from gen. Returns (spec, stacks, ts)."""
+def refine_inputs(torch, dev, gen, T=REFINE_T):
+  """tests/test_rts_live.py's cold log of T steps (REFINE_T on the offline
+  path), float64 on the card: ECEF_POS, PHONE_GYRO (a time-varying
+  angular-rate command) and NO_ROT in turn, dt 0.01, noise from gen.
+  Returns (spec, scan_fn's arguments after the params: x0 (dim_x,), P0,
+  Q, dts, kind_idx (numpy), zs (T, 3), Rs (T, 3, 3), eas (T, 1); ts)."""
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
-  from rednose_tpu_torch.runtime.scan import build_scan_stream
 
   f64 = dict(dtype=torch.float64, device=dev)
   spec = LiveKalman.build_spec()
   require((K.ECEF_POS, K.PHONE_GYRO, K.NO_ROT) == REFINE_KINDS,
           "REFINE_KINDS are the refinement log's kinds")
-  scan_fn, _ = build_scan_stream(spec, REFINE_KINDS)
-  T = REFINE_T
   ts = (1 + torch.arange(T, **f64)) * 0.01
   ki = np.arange(T) % 3
   kt = torch.as_tensor(ki, device=dev)
@@ -2466,11 +2473,21 @@ def refine_log(torch, dev, gen):
       (T, 3), generator=gen, **f64), zs)
   Rs = torch.stack([torch.diag(torch.full((3,), v, **f64))
                     for v in (25.0, 0.025**2, 0.25**2)])[kt]
-  _, stacks = scan_fn(
-      {}, torch.as_tensor(LiveKalman.initial_x, **f64),
-      torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f64),
-      torch.as_tensor(LiveKalman.Q, **f64), torch.full((T,), 0.01, **f64),
-      ki, zs, Rs, torch.zeros((T, 1), **f64))
+  return spec, (torch.as_tensor(LiveKalman.initial_x, **f64),
+                torch.as_tensor(np.diag(LiveKalman.initial_P_diag), **f64),
+                torch.as_tensor(LiveKalman.Q, **f64),
+                torch.full((T,), 0.01, **f64), ki, zs, Rs,
+                torch.zeros((T, 1), **f64)), ts
+
+
+def refine_log(torch, dev, gen):
+  """The cold log of refine_inputs through the scan stream (kernel 9).
+  Returns (spec, stacks, ts)."""
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+
+  spec, args, ts = refine_inputs(torch, dev, gen)
+  scan_fn, _ = build_scan_stream(spec, REFINE_KINDS)
+  _, stacks = scan_fn({}, *args)
   return spec, stacks, ts
 
 
@@ -2520,6 +2537,64 @@ def stream_calls():
                torch.float64))}
 
 
+def stream_launch(source, call, x, P, zs, dts, kind_idx, Rs, eas=None,
+                  fn=None):
+  """A launch of the build of an emitted stream `source` (its
+  rn_generic_stream_launch, or fn, another build's) with call's params and
+  Q, on copies of the bank-minor x (dim_x, B) and P (de, de, B) made once
+  and stacks allocated once, zs (T, max_dz, B), kind_idx numpy or int32,
+  no checks between launches. Returns the zero-argument launch, which
+  returns (x, P, x_preds, P_preds, x_posts, P_posts), bank-minor."""
+  import torch
+
+  from rednose_tpu_torch import _build
+
+  fn = fn or _build.generated_launcher(source)
+  spec, dev, dtype = call.spec, x.device, x.dtype
+  prm = torch.as_tensor([float(call.params[k]) for k in call._pnames]
+                        or [0.0], dtype=dtype, device=dev)
+  Q = torch.as_tensor(call.Q, dtype=dtype, device=dev)
+  ki = torch.as_tensor(kind_idx, device=dev).to(torch.int32)
+  x, P = x.clone(), P.clone()
+  T, B = dts.shape[0], x.shape[-1]
+  xp, xq = (x.new_empty((T, spec.dim_x, B)) for _ in range(2))
+  Pp, Pq = (x.new_empty((T, spec.dim_err, spec.dim_err, B))
+            for _ in range(2))
+  stream = torch.cuda.current_stream(dev).cuda_stream
+
+  def launch():
+    _build.check(fn(x.data_ptr(), P.data_ptr(), zs.data_ptr(),
+                    None if eas is None else eas.data_ptr(), dts.data_ptr(),
+                    ki.data_ptr(), Rs.data_ptr(), prm.data_ptr(),
+                    Q.data_ptr(), xp.data_ptr(), Pp.data_ptr(),
+                    xq.data_ptr(), Pq.data_ptr(), T, B, stream), "kernel 9")
+    return x, P, xp, Pp, xq, Pq
+
+  return launch
+
+
+def stream_err(spec, out, ref):
+  """The largest difference of a kernel 9 result from ref, both bank-minor
+  (x, P, x_preds, P_preds, x_posts, P_posts), over the final state and
+  every step's predicted and posterior state, in sigmas of ref
+  (utils/compare.py); a non-finite difference counts as infinitely far."""
+  import torch
+
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  de, worst = spec.dim_err, 0.0
+  pairs = [(out[0], out[1], ref[0], ref[1])]
+  for s in (2, 4):
+    pairs.append(tuple(
+        a.permute(1, 0, 2).reshape(spec.dim_x, -1) if a.dim() == 3
+        else a.permute(1, 2, 0, 3).reshape(de, de, -1)
+        for a in (out[s], out[s + 1], ref[s], ref[s + 1])))
+  for pair in pairs:
+    e = torch.maximum(*lane_sigma_errs(spec, *pair))
+    worst = max(worst, float(torch.nan_to_num(e, nan=float("inf")).max()))
+  return worst
+
+
 def offline_path(torch, dev, gen):
   """Phase 1, offline smoother and migration, all on the card: (a) the
   full-Q live bank; (b) a live log through the scan stream for RTS_B
@@ -2530,8 +2605,9 @@ def offline_path(torch, dev, gen):
 
   from torch.func import vmap
 
+  from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
-  from rednose_tpu_torch.ops import generic_scan as gs, lane_bank
+  from rednose_tpu_torch.ops import entry_slab, generic_scan as gs, lane_bank
   from rednose_tpu_torch.runtime.live_bank import LiveKalmanBank
   from rednose_tpu_torch.runtime.scan import (
       build_scan_stream,
@@ -2596,10 +2672,20 @@ def offline_path(torch, dev, gen):
           "the scan stream launched kernel 9 once for every lane")
   require(all(bool(torch.isfinite(a).all()) for a in stacks),
           "the scan stream's stacks are finite")
+  # the same log again, timed with CUDA events (the first call's host
+  # clock includes the build's load)
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  lanes(x0, P0, zs)
+  end.record()
+  torch.cuda.synchronize()
+  ms_events = start.elapsed_time(end)
   log(f"scan stream (runtime/scan.build_scan_stream, vmapped, kernel 9): "
       f"B={B} lanes x T={T} live steps, float32, {ms_scan:.1f} ms (host "
       f"clock, first call, with its build's load), "
-      f"{B * T / ms_scan * 1e3:.1f} filter-steps/s")
+      f"{B * T / ms_scan * 1e3:.1f} filter-steps/s; again {ms_events:.1f} "
+      f"ms (CUDA events), {ms_events / T * 1e3:.3f} us a step, "
+      f"{B * T / ms_events * 1e3:.1f} filter-steps/s")
   # the plain scan's predict takes the spec's closed-form F (F_lane); the
   # same spec without it takes jacfwd of the error dynamics: both on the
   # first F_LANE_T steps of the same lanes, in the order a b b a
@@ -2695,6 +2781,21 @@ def offline_path(torch, dev, gen):
       f"{float((Ps_s - Ps_r).abs().max()):.4g}; one-shot "
       f"{float((xs_s - xs_0).abs().max()):.4g}")
   require(dev_r < REFINE_TOL, "refine = 8 converges to the sequential")
+  # both offline launches of kernel 9 ran its tile (design 1)
+  for name, (call, dtype) in stream_calls().items():
+    src = call.source(dtype)
+    info = _build.generated_info(src)
+    spills = [ln.split("info    :")[-1].strip() for ln in
+              _build.generated_ptxas(src).splitlines() if "spill" in ln]
+    log(f"{name}, {str(dtype).split('.')[-1]}: design "
+        f"{'tile' if info['design'] else 'global'}, W={info['warps']} "
+        f"warps, {info['smem_bytes']} B of shared memory a block, "
+        f"{info['blocks_per_sm']} blocks an SM, {info['registers']} "
+        f"registers, {info['local_bytes']} B of stack a thread; ptxas "
+        f"{spills}")
+    require(info["design"] == 1
+            and info["warps"] == entry_slab.TILE_ROLES_STREAM,
+            f"{name} runs the tile at W = TILE_ROLES_STREAM: {info}")
 
   # (f) the gains step over every lane: solve P_{k+1|k} X = F_k P_k^T
   # through the blocked lane Cholesky, and through torch.linalg on the
@@ -2755,19 +2856,25 @@ def offline_path(torch, dev, gen):
 
 
 def compare_scan(torch, dev, gen, reps=5):
-  """Phase 2, kernel 9 (the log scan) against its plain version
-  (build_scan_stream_reference) on RTS_B lanes of the offline path's live
-  log over SCAN_CMP_T steps, both vmapped over the lanes, every stacked
-  predicted and posterior state and the final one compared in sigmas of
-  the plain result (utils/compare.py): float64 from the prior within
-  SCAN64_TOL, and planted faults (Q's largest diagonal entry halved, Rs
+  """Phase 2, kernel 9 (the log scan, in tile form) against its plain
+  version (build_scan_stream_reference) and against its global form (one
+  thread a lane, P in global memory: the design before the tile, the same
+  emitted phases) on RTS_B lanes of the offline path's live log over
+  SCAN_CMP_T steps, scan_fn vmapped over the lanes, every stacked
+  predicted and posterior state and the final one compared in sigmas
+  (stream_err): float64 from the prior within SCAN64_TOL, also on the
+  first lane alone and on the first SCAN_RAGGED_B (a ragged second
+  block), and planted faults (Q's largest diagonal entry halved, Rs
   scaled by 1.01, Rs shifted by one step, which turns the lanes NaN:
-  run-time values, the same build) beyond it;
-  float32 from the state the float64 kernel reaches in SCAN_WARM steps,
-  within GEN_TOL, timed (the kernel the mean of reps calls, CUDA events;
-  the plain version one run). The bound: the emitted operations of a step
-  (global form, the log's two kinds in turn) at the float32 peak, or the
-  bytes of the inputs and of the stacks. Returns its row."""
+  run-time values, the same build) beyond it; float32 from the state the
+  float64 kernel reaches in SCAN_WARM steps, within GEN_TOL, timed (the
+  kernel the mean of reps calls, CUDA events; the plain version one run);
+  the tile against its global form within the same limits. Both forms
+  also as raw launches in turns (global, tile, tile, global) at
+  SCAN_CMP_T and at RTS_T (a float32 log from the prior). The bound: the
+  emitted operations of a step (global form, the log's two kinds in
+  turn) at the float32 peak, or the bytes of the inputs and of the
+  stacks. Returns its row."""
   from torch.func import vmap
 
   from rednose_tpu_torch.models.live import LiveKalman
@@ -2775,37 +2882,42 @@ def compare_scan(torch, dev, gen, reps=5):
       build_scan_stream,
       build_scan_stream_reference,
   )
-  from rednose_tpu_torch.utils.compare import lane_sigma_errs
 
   spec = LiveKalman.build_spec()
   kernel, _ = build_scan_stream(spec, SCAN_KINDS)
   plain, _ = build_scan_stream_reference(spec, SCAN_KINDS)
+  call = stream_calls()["live log scan (kernel 9)"][0]
   T, B = SCAN_CMP_T, RTS_B
 
   def run(fn, x0, P0, Q, dts, ki, zs, Rs, eas):
-    return vmap(lambda x, P, z: fn({}, x, P, Q, dts, ki, z, Rs, eas),
-                in_dims=(0, 0, 1))(x0, P0, zs)
+    """scan_fn vmapped over the lanes, its result bank-minor."""
+    (x, P), (xp, Pp, xq, Pq) = vmap(
+        lambda x, P, z: fn({}, x, P, Q, dts, ki, z, Rs, eas),
+        in_dims=(0, 0, 1))(x0, P0, zs)
+    return (x.T, P.permute(1, 2, 0), xp.permute(1, 2, 0),
+            Pp.permute(1, 2, 3, 0), xq.permute(1, 2, 0),
+            Pq.permute(1, 2, 3, 0))
 
-  def err(out, ref):
-    """max over lanes, steps and the final state, in sigmas of ref; a
-    non-finite difference counts as infinitely far."""
-    (x, P), (xp, Pp, xq, Pq) = out
-    (rx, rP), (rxp, rPp, rxq, rPq) = ref
-    worst = 0.0
-    for a, b, c, d in ((x[:, None], P[:, None], rx[:, None], rP[:, None]),
-                       (xp, Pp, rxp, rPp), (xq, Pq, rxq, rPq)):
-      n = a.shape[0] * a.shape[1]
-      e = torch.maximum(*lane_sigma_errs(
-          spec, a.reshape(n, -1).T, b.reshape(n, 22, 22).permute(1, 2, 0),
-          c.reshape(n, -1).T, d.reshape(n, 22, 22).permute(1, 2, 0)))
-      worst = max(worst, float(torch.nan_to_num(e, nan=float("inf")).max()))
-    return worst
+  def raw(form, x0, P0, Q, dts, ki, zs, Rs, eas):
+    """A raw launch of the tile or the global form on the same inputs."""
+    return stream_launch(
+        call.source(x0.dtype, tile=form == "tile"), call,
+        x0.T.contiguous(), P0.permute(1, 2, 0).contiguous(),
+        zs.transpose(1, 2).contiguous(), dts, ki, Rs)
+
+  def err(out, ref, lanes=None):
+    """stream_err of out from ref (on its first `lanes` lanes)."""
+    return stream_err(spec, out, ref if lanes is None
+                      else tuple(a[..., :lanes] for a in ref))
 
   log64 = scan_log(torch, dev, gen, SCAN_WARM + T, B, torch.float64)
   x0, P0, Q, dts, ki, zs, Rs, eas = log64
   head = (x0, P0, Q, dts[:T], ki[:T], zs[:T], Rs[:T], eas[:T])
   ref64 = run(plain, *head)
-  e64 = err(run(kernel, *head), ref64)
+  out64 = run(kernel, *head)
+  e64, g64 = err(out64, ref64), err(out64, raw("global", *head)())
+  e_lanes = {b: err(run(kernel, x0[:b], P0[:b], *head[2:5], zs[:T, :b],
+                        *head[6:]), ref64, b) for b in (1, SCAN_RAGGED_B)}
   Qf = Q.clone()
   i = int(torch.diagonal(Qf).argmax())
   Qf[i, i] *= 0.5
@@ -2815,38 +2927,58 @@ def compare_scan(torch, dev, gen, reps=5):
                 kernel, *head[:6], torch.roll(Rs[:T], 1, 0), eas[:T])}
   fault_err = {name: err(out, ref64) for name, out in faults.items()}
   log(f"stream_bank_scan [live log B={B} T={T}, float64 from the prior]: "
-      f"{e64:.4g} sigma (tolerance {SCAN64_TOL}); planted faults "
+      f"{e64:.4g} sigma (tolerance {SCAN64_TOL}); "
+      + ", ".join(f"first {b} lane{'s' if b > 1 else ''} {e:.4g}"
+                  for b, e in e_lanes.items())
+      + f"; against its global form {g64:.4g} sigma; planted faults "
       + ", ".join(f"{k} {v:.4g}" for k, v in fault_err.items())
       + f" sigma, each must exceed {SCAN64_TOL}, with no extra build")
-  require(e64 <= SCAN64_TOL and min(fault_err.values()) > SCAN64_TOL,
-          "kernel 9 holds in float64 and the planted faults fail")
+  require(max(e64, g64, *e_lanes.values()) <= SCAN64_TOL
+          and min(fault_err.values()) > SCAN64_TOL,
+          "kernel 9 holds in float64 at B = 1, SCAN_RAGGED_B and RTS_B, "
+          "against its global form, and the planted faults fail")
   # float32 from the state the float64 kernel reaches in SCAN_WARM steps
-  (xw, Pw), _ = run(kernel, x0, P0, Q, dts[:SCAN_WARM], ki[:SCAN_WARM],
-                    zs[:SCAN_WARM], Rs[:SCAN_WARM], eas[:SCAN_WARM])
+  xw, Pw = run(kernel, x0, P0, Q, dts[:SCAN_WARM], ki[:SCAN_WARM],
+               zs[:SCAN_WARM], Rs[:SCAN_WARM], eas[:SCAN_WARM])[:2]
   tail = [a[SCAN_WARM:].float() if torch.is_tensor(a) else a[SCAN_WARM:]
           for a in (dts, ki, zs, Rs, eas)]
-  case = (xw.float(), Pw.float(), Q.float(), *tail)
+  case = (xw.T.float(), Pw.permute(2, 0, 1).float(), Q.float(), *tail)
   ms, out32 = timed_run(lambda: run(kernel, *case), reps)
   plain_ms, ref32 = timed_run(lambda: run(plain, *case), 1)
   e32 = err(out32, ref32)
-  call = stream_calls()["live log scan (kernel 9)"][0]
+  g32 = err(out32, raw("global", *case)())
   ops = step_ops(call.counting_source(), SCAN_KINDS, "mixed") * T * B
   nbytes = io_bytes([case, out32], 4)
   bound_ms, bound_by = bound(nbytes, ops)
   log(f"stream_bank_scan [live log B={B} T={T}, float32 from the float64 "
       f"kernel's state after {SCAN_WARM} steps]: kernel {ms:.4f} ms, plain "
       f"{plain_ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}; "
-      f"{ops / (T * B):,.0f} emitted operations a step); {e32:.4g} sigma "
-      f"(tolerance {GEN_TOL}) -> {'ok' if e32 <= GEN_TOL else 'FAIL'}")
-  require(e32 <= GEN_TOL, "kernel 9 holds in float32 from a converged state")
+      f"{ops / (T * B):,.0f} emitted operations a step); {e32:.4g} sigma, "
+      f"against its global form {g32:.4g} sigma (tolerance {GEN_TOL}) -> "
+      f"{'ok' if max(e32, g32) <= GEN_TOL else 'FAIL'}")
+  require(max(e32, g32) <= GEN_TOL, "kernel 9 holds in float32 from a "
+          "converged state, against the plain version and its global form")
+  # both forms as raw launches, in turns, at T and at RTS_T from the prior
+  long = scan_log(torch, dev, gen, RTS_T, B, torch.float32)
+  turns = {}
+  for n, args, k in ((T, case, reps), (RTS_T, long, 1)):
+    launches = {form: raw(form, *args) for form in ("global", "tile")}
+    turns[n] = {"global": [], "tile": []}
+    for form in ("global", "tile", "tile", "global"):
+      turns[n][form].append(timed_run(launches[form], k)[0])
+    del launches
+  log(f"stream_bank_scan raw launches in turns (global, tile, tile, "
+      f"global), B={B}, float32: " + "; ".join(
+          f"T={n}: global form {t['global']} ms, tile {t['tile']} ms "
+          f"({min(t['tile']) / n * 1e3:.3f} us a step)"
+          for n, t in turns.items()))
   return [dict(
       name="stream_bank_scan", route="cuda",
       source="rednose_tpu_torch/csrc/generic_scan.cuh",
       replaces="rednose_tpu/runtime/scan.py:90 scan_fn (an XLA program, jit "
                "of one lax.scan with a lax.switch; not Pallas)",
-      max_abs_err=max(float((a - b).abs().max()) for a, b in zip(
-          (out32[0][0], out32[0][1], *out32[1]),
-          (ref32[0][0], ref32[0][1], *ref32[1]))),
+      max_abs_err=max(float((a - b).abs().max())
+                      for a, b in zip(out32, ref32)),
       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
       shape=f"live log B={B} T={T}, float32")]
 
@@ -3823,8 +3955,13 @@ def main():
         ex_calls["run_loc bank_demo (kernel 6, loc)"][0].source(torch.float64)
     cmp_sources |= {f"user specs: {name}, float64": call.source(torch.float64)
                     for name, call in u_calls.items()}
-    cmp_sources["live log scan (kernel 9), float64"] = stream_calls()[
-        "live log scan (kernel 9)"][0].source(torch.float64)
+    live_log_call = stream_calls()["live log scan (kernel 9)"][0]
+    cmp_sources["live log scan (kernel 9), float64"] = live_log_call.source(
+        torch.float64)
+    for dtype in (torch.float32, torch.float64):
+      cmp_sources[f"live log scan (kernel 9), "
+                  f"{str(dtype).split('.')[-1]} global form"] = \
+          live_log_call.source(dtype, tile=False)
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),
                          ("run_mixed with frames", vio_call(model))):

@@ -181,7 +181,7 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 
 #endif  // REDNOSE_GENERIC_SCAN_PRELUDE
 #else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
-#if defined(REDNOSE_GENERIC_SCAN_STREAM)
+#if defined(REDNOSE_GENERIC_SCAN_STREAM) && !defined(REDNOSE_GENERIC_SCAN_TILE)
 
 // Kernel 9 (emitted mode "stream"): the offline log scan. It replaces
 // rednose_tpu/runtime/scan.py:scan_fn, an XLA program and not a Pallas
@@ -201,12 +201,26 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 // (T, NZROWS, B), eas (T, NEAROWS, B), dts (T,), kind_idx (T,) int32, Rs
 // (T, NZROWS, NZROWS); the stacks xp, xq (T, DX, B) and Pp, Pq (T, DE, DE,
 // B), so a warp's 32 lanes store 32 consecutive values of every entry.
-// Design: the global form of the other modes, one thread a lane and the T
-// loop inside the kernel, x in registers, P in global memory (L1 / L2);
-// 32 threads a block. A log is a few dozen lanes (64 in the offline path),
-// so at most a few warps run and each step's serial chain of emitted
-// operations sets the pace (bound: those operations at the card's peak
-// rate, or the stacks' bytes at its memory rate, whichever is larger).
+// A log is a few dozen lanes (64 in the offline path, 1 in the float64
+// refinement), so one block of 32 lanes runs on each of one or two SMs
+// and a step's latency, not the card's rate, sets the pace. Bound: the
+// stacks' bytes at the card's memory rate (4,056 B a lane-step in float32:
+// 0.635 ms for 64 x 8192), or the emitted operations at its peak rate.
+// Two floors lie above it: the stacks leaving through two SMs (the
+// stores alone, 2.3 us a step at 64 lanes: PERF.md) and one warp's
+// serial share of the update.
+// Design: the tile form (the REDNOSE_GENERIC_SCAN_STREAM tile section
+// below; every variant the port ships): 32 lanes x W warps
+// (entry_slab.TILE_ROLES_STREAM, 8, measured among 2-32: PERF.md) keep P,
+// x and the scratch in shared memory and split each step over the warps;
+// the inputs are staged a step ahead; the predicted state leaves the tile
+// while one warp computes the update's shared values, the posterior while
+// the next step's predict computes, as TMA tensor stores issued by one
+// thread where the stacks' rows are 16-B aligned (a value a thread
+// elsewhere, as at B = 1). The global form below (a variant whose tile
+// does not fit; KernelCall.source(tile=False), the design before): one
+// thread a lane and the T loop inside the kernel, x in registers, P in
+// global memory (L1 / L2); 32 threads a block.
 
 namespace rn_gen {
 
@@ -358,23 +372,10 @@ constexpr int TILE_VALS = DE * DE + DX + NSCR;
 // its share (gen_tile_stage_store), barrier. A stage reads what earlier
 // stages stored; a slot is reused once no later stage reads its value.
 
-#ifdef REDNOSE_GENERIC_SCAN_TILE_EPOCH
+#if defined(REDNOSE_GENERIC_SCAN_TILE_EPOCH) || defined(REDNOSE_GENERIC_SCAN_STREAM)
 
-// Kernel 5 in tile form (mode "epoch", when the tile fits): the tile loop
-// above with each step's slots in order, each step's inputs staged in
-// shared memory a step ahead. A step is the predict (every role computes,
-// barrier, stores, barrier), then for each slot k of the slot table
-// gen_slot(k): role 0 runs its unit's shared function into the scratch,
-// barrier, every role its share of the update, barrier, stores, barrier
-// (a loc slot's shared values are too few to split across the warps in
-// stages as a camera frame's: measured slower at every W; PERF.md).
-// The inputs do not depend on the state: at the top of step t the block
-// copies step t + 1's NZROWS + NEAROWS rows of its 32 filters into the
-// other half of a double buffer ([row][32] each) with cp.async, 16 B a
-// thread where every row of the block is whole and 16-B aligned (else one
-// value a thread, a lane past the bank copying filter B - 1), and waits
-// for step t's copies before the predict's barrier. The units read their
-// rows there (ld_in = 32) in place of 8 dependent global loads a step.
+// The inputs of kernels 5 and 9, staged in shared memory a step ahead
+// (the tile sections below).
 
 namespace rn_gen {
 constexpr int IN_ROWS = NZROWS + NEAROWS;  // one step's staged input rows
@@ -423,6 +424,407 @@ __device__ __forceinline__ void rn_stage_inputs(
     }
   }
 }
+
+#endif  // __CUDACC__
+#endif  // REDNOSE_GENERIC_SCAN_TILE_EPOCH, REDNOSE_GENERIC_SCAN_STREAM
+
+#if defined(REDNOSE_GENERIC_SCAN_STREAM)
+
+// Kernel 9 in tile form (mode "stream", when its tile fits: every variant
+// the port ships; see the kernel 9 section at the top for what a step
+// computes and what bounds it). A block of 32 lanes x NROLES warps keeps
+// P, x and the update's scratch in shared memory for the whole T loop, the
+// tile loop above with the kinds switched on the step's kind index (read
+// once a step from the staged inputs, uniform across the bank, so no warp
+// diverges). A step:
+// - inputs: at the top of step t the block copies step t + 1's z and ea
+//   rows ([row][32]), its R (the step's NZROWS x NZROWS Rs[t]; each unit
+//   reads its leading dz x dz block), dts[t + 1] and kind_idx[t + 1] into
+//   the other half of a double buffer with cp.async; it waits for them
+//   before the update's barrier, so they have the whole step to land;
+// - predict: every role computes its share into registers, barrier,
+//   stores it to the tile, barrier;
+// - predicted stacks: xp[t] and Pp[t] leave the tile while role 0
+//   computes the update's shared values (gen_tile_shared); neither writes
+//   what the other reads, so the barrier after the shared function is the
+//   only one;
+// - update: every role its share, barrier, stores, barrier;
+// - posterior stacks: xq[t] and Pq[t] leave the tile while the next step's
+//   predict computes, which only reads the tile until its own barrier.
+// A stack's rows of a step are the tile's rows as they lie, [value][32].
+// Where the stacks' rows are 16-B aligned (B a multiple of 16 /
+// sizeof(scalar_t)), one thread issues them as two TMA tensor stores a
+// stack and waits for the TMA to have read the tile (wait_group.read)
+// before the barrier after which the tile is next written; every thread
+// fences its tile writes to the TMA (fence.proxy.async) before the barrier
+// ahead of the stores. Elsewhere (the refinement log's B = 1) the threads
+// store them a value each (rn_stream_store): the predicted state every
+// warp but role 0's, the posterior every warp. A lane past the bank
+// computes on a copy of lane B - 1, reaches every barrier and stores
+// nothing.
+
+namespace rn_gen {
+constexpr int IN_R = NZROWS * NZROWS;     // one step's staged R
+constexpr int STACK_ROWS = DE * DE + DX;  // a stack's rows a step: P, then x
+static_assert(NROLES > 1, "the predicted state leaves the tile from the "
+              "warps other than role 0's");
+}  // namespace rn_gen
+
+#ifdef __CUDACC__
+
+#include <cuda.h>  // CUtensorMap
+
+// The block's tile rows (P's entries, then x's) of its nb lanes in the
+// bank (nb = min(32, B - b0)) into step t's rows of the stacks xo (T, DX,
+// B) and Po (T, DE, DE, B), a value a thread, the threads c0, c0 + nc, ...
+// taking the (row, lane) pairs c = e * nb + l in turn: the stores where
+// the stacks' rows are not 16-B aligned (TMA's rule). A warp stores one
+// row of 32 lanes, or at B = 1 the one lane's 32 consecutive rows, a
+// coalesced line either way.
+__device__ __forceinline__ void rn_stream_store(
+    const scalar_t* tile, scalar_t* xo, scalar_t* Po, int t, int B, int b0,
+    int nb, int c0, int nc) {
+  using namespace rn_gen;
+  for (int c = c0; c < STACK_ROWS * nb; c += nc) {
+    const int e = nb == TILE_LANES ? c / TILE_LANES : c / nb;
+    const int l = c - e * nb;
+    const scalar_t v = tile[e * TILE_LANES + l];
+    if (e < DE * DE)
+      Po[((size_t)t * DE * DE + e) * B + b0 + l] = v;
+    else
+      xo[((size_t)t * DX + e - DE * DE) * B + b0 + l] = v;
+  }
+}
+
+// Step t's rows of the tile (P's DE x DE, then x's DX) into the stacks
+// with two TMA tensor stores issued by one thread, bulk group committed:
+// tP views Po (T, DE, DE, B) as (B, DE, T * DE), tx views xo (T, DX, B) as
+// (B, DX, T), each box 32 lanes x one step's rows, the tile's [value][32]
+// rows as they lie; the hardware clips a ragged block's lanes past B. The
+// caller waits (wait_group.read) before the tile is next written.
+__device__ __forceinline__ void rn_stream_store_tma(const CUtensorMap* tx,
+                                                    const CUtensorMap* tP,
+                                                    const scalar_t* tile,
+                                                    int t, int b0) {
+  using namespace rn_gen;
+  const unsigned sP = static_cast<unsigned>(__cvta_generic_to_shared(tile));
+  const unsigned sx = static_cast<unsigned>(
+      __cvta_generic_to_shared(tile + DE * DE * TILE_LANES));
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(tP), "r"(b0), "r"(0),
+      "r"(t * DE), "r"(sP) : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(tx), "r"(b0), "r"(0), "r"(t),
+      "r"(sx) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Step t's inputs into buffer half h: the z and ea rows (rn_stage_inputs),
+// R, dt and the kind index; the caller commits the group.
+__device__ __forceinline__ void rn_stream_stage(
+    scalar_t* in, scalar_t* rin, scalar_t* dtin, int* kin, const scalar_t* zs,
+    const scalar_t* eas, const scalar_t* Rs, const scalar_t* dts,
+    const int* kind_idx, int t, int h, int B, int b0, int tid, bool whole) {
+  using namespace rn_gen;
+  constexpr int NTHR = TILE_LANES * NROLES;
+  rn_stage_inputs(in + h * IN_ROWS * TILE_LANES, zs, eas, t, B, b0, tid,
+                  whole);
+  for (int c = tid; c < IN_R; c += NTHR)
+    rn_cp_async(rin + h * IN_R + c, Rs + (size_t)t * IN_R + c,
+                (int)sizeof(scalar_t));
+  if (tid == NTHR - 1) {
+    rn_cp_async(dtin + h, dts + t, (int)sizeof(scalar_t));
+    rn_cp_async(kin + h, kind_idx + t, 4);
+  }
+}
+
+__global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
+rn_generic_stream_tile_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    const scalar_t* __restrict__ zs, const scalar_t* __restrict__ eas,
+    const scalar_t* __restrict__ dts, const int* __restrict__ kind_idx,
+    const scalar_t* __restrict__ Rs, const scalar_t* __restrict__ prm,
+    const scalar_t* __restrict__ Q, scalar_t* __restrict__ xp,
+    scalar_t* __restrict__ Pp, scalar_t* __restrict__ xq,
+    scalar_t* __restrict__ Pq, const __grid_constant__ CUtensorMap tm_xp,
+    const __grid_constant__ CUtensorMap tm_Pp,
+    const __grid_constant__ CUtensorMap tm_xq,
+    const __grid_constant__ CUtensorMap tm_Pq, int tma, int T, int B) {
+  using namespace rn_gen;
+  // a TMA box's rows start 128-B aligned: the tile's rows of 32 lanes
+  extern __shared__ __align__(128) unsigned char rn_tile[];
+  scalar_t* Pt = reinterpret_cast<scalar_t*>(rn_tile);
+  scalar_t* xt = Pt + DE * DE * TILE_LANES;
+  scalar_t* st = xt + DX * TILE_LANES;
+  scalar_t* in = st + NSCR * TILE_LANES;          // 2 x IN_ROWS x 32
+  scalar_t* rin = in + 2 * IN_ROWS * TILE_LANES;  // 2 x IN_R
+  scalar_t* dtin = rin + 2 * IN_R;                // 2
+  int* kin = reinterpret_cast<int*>(dtin + 2);    // 2, in 2 values' room
+  const int lane = threadIdx.x, role = threadIdx.y;
+  const int tid = role * TILE_LANES + lane;
+  const int b0 = blockIdx.x * TILE_LANES, b = b0 + lane;
+  const int bc = b < B ? b : B - 1;
+  const int nb = min(TILE_LANES, B - b0);  // the block's lanes in the bank
+  // the thread that issues the TMA stores: lane 0 of the last warp (its
+  // warp stays clear of role 0's shared function)
+  const bool issuer = tma && tid == TILE_LANES * (NROLES - 1);
+  constexpr int V = 16 / (int)sizeof(scalar_t);
+  const bool whole =
+      b0 + TILE_LANES <= B && B % V == 0 &&
+      reinterpret_cast<size_t>(zs) % 16 == 0 &&
+      (NEAROWS == 0 || reinterpret_cast<size_t>(eas) % 16 == 0);
+  rn_stream_stage(in, rin, dtin, kin, zs, eas, Rs, dts, kind_idx, 0, 0, B, b0,
+                  tid, whole);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int e = role; e < DE * DE; e += NROLES)
+    Pt[e * TILE_LANES + lane] = Ps[(size_t)e * B + bc];
+  for (int i = role; i < DX; i += NROLES)
+    xt[i * TILE_LANES + lane] = xs[(size_t)i * B + bc];
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  scalar_t* P = Pt + lane;
+  scalar_t* x = xt + lane;
+  scalar_t* s = st + lane;
+  const size_t ld = TILE_LANES;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const int h = t & 1;
+    if (t + 1 < T)
+      rn_stream_stage(in, rin, dtin, kin, zs, eas, Rs, dts, kind_idx, t + 1,
+                      h ^ 1, B, b0, tid, whole);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const scalar_t dt = dtin[h];
+    const int ki = kin[h];
+    const scalar_t* z = in + h * IN_ROWS * TILE_LANES + lane;
+    const scalar_t* ea = z + NZROWS * TILE_LANES;
+    const scalar_t* R = rin + h * IN_R;
+    scalar_t v[NVAL];
+    gen_tile_predict(role, x, P, ld, dt, p, Q, v);
+    // the last step's posterior store has read the tile
+    if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncthreads();
+    gen_tile_predict_store(role, x, P, ld, v);
+    // this thread's tile writes, seen by the TMA (async proxy)
+    if (tma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (role == 0) gen_tile_shared(ki, x, P, ld, z, ea, ld, R, p, s);
+    if (tma) {
+      if (issuer) rn_stream_store_tma(&tm_xp, &tm_Pp, Pt, t, b0);
+    } else if (role > 0) {
+      rn_stream_store(Pt, xp, Pp, t, B, b0, nb, tid - TILE_LANES,
+                      TILE_LANES * (NROLES - 1));
+    }
+    __syncthreads();
+    gen_tile_update(ki, role, x, P, ld, z, ea, ld, R, p, s, v);
+    if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    gen_tile_update_store(ki, role, x, P, ld, v);
+    if (tma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tma) {
+      if (issuer) rn_stream_store_tma(&tm_xq, &tm_Pq, Pt, t, b0);
+    } else {
+      rn_stream_store(Pt, xq, Pq, t, B, b0, nb, tid, TILE_LANES * NROLES);
+    }
+  }
+  // the last stores done before the block's shared memory goes
+  if (issuer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (b < B) {
+    for (int e = role; e < DE * DE; e += NROLES)
+      Ps[(size_t)e * B + b] = Pt[e * TILE_LANES + lane];
+    for (int i = role; i < DX; i += NROLES)
+      xs[(size_t)i * B + b] = xt[i * TILE_LANES + lane];
+  }
+}
+
+static const int rn_tile_smem =
+    (int)sizeof(scalar_t) *
+    (rn_gen::TILE_LANES * rn_gen::TILE_VALS +
+     2 * (rn_gen::IN_ROWS * rn_gen::TILE_LANES + rn_gen::IN_R + 2));
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda)
+typedef CUresult (*rn_encode_tiled_t)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static rn_encode_tiled_t rn_encode_tiled() {
+  static rn_encode_tiled_t fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<rn_encode_tiled_t>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a stack (T, n1, n2, B) of values bank-minor, as (B, n2,
+// T * n1) with a box of 32 lanes x n2 x n1: one step's rows (a P stack: n1
+// = n2 = DE; an x stack: n1 = 1, n2 = DX).
+static int rn_stack_map(CUtensorMap* m, void* base, int T, int n1, int n2,
+                        int B) {
+  rn_encode_tiled_t encode = rn_encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)n2,
+                              (cuuint64_t)T * n1};
+  const cuuint64_t strides[2] = {(cuuint64_t)B * sizeof(scalar_t),
+                                 (cuuint64_t)n2 * B * sizeof(scalar_t)};
+  const cuuint32_t box[3] = {(cuuint32_t)rn_gen::TILE_LANES, (cuuint32_t)n2,
+                             (cuuint32_t)n1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      m, sizeof(scalar_t) == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, base, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int rn_generic_stream_launch(void* xs, void* Ps, const void* zs,
+                                        const void* eas, const void* dts,
+                                        const void* kind_idx, const void* Rs,
+                                        const void* prm, const void* Q,
+                                        void* xp, void* Pp, void* xq,
+                                        void* Pq, int T, int B,
+                                        void* stream) {
+  using rn_gen::DE;
+  using rn_gen::DX;
+  cudaError_t e = cudaFuncSetAttribute(
+      rn_generic_stream_tile_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, rn_tile_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // TMA stores where every stack row is 16-B aligned (the tensor map's
+  // rule): B a multiple of 16 / sizeof(scalar_t), aligned stacks; a map
+  // takes no empty log
+  const bool tma =
+      T > 0 && (B * sizeof(scalar_t)) % 16 == 0 &&
+      ((reinterpret_cast<size_t>(xp) | reinterpret_cast<size_t>(Pp) |
+        reinterpret_cast<size_t>(xq) | reinterpret_cast<size_t>(Pq)) %
+       16) == 0;
+  CUtensorMap maps[4] = {};  // xp, Pp, xq, Pq
+  if (tma) {
+    void* stacks[4] = {xp, Pp, xq, Pq};
+    for (int k = 0; k < 4; ++k) {
+      const int code = rn_stack_map(&maps[k], stacks[k], T, k % 2 ? DE : 1,
+                                    k % 2 ? DE : DX, B);
+      if (code != 0) return code;
+    }
+  }
+  const int blocks = (B + rn_gen::TILE_LANES - 1) / rn_gen::TILE_LANES;
+  rn_generic_stream_tile_kernel<<<blocks,
+                                  dim3(rn_gen::TILE_LANES, rn_gen::NROLES),
+                                  rn_tile_smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+      static_cast<const scalar_t*>(zs), static_cast<const scalar_t*>(eas),
+      static_cast<const scalar_t*>(dts), static_cast<const int*>(kind_idx),
+      static_cast<const scalar_t*>(Rs), static_cast<const scalar_t*>(prm),
+      static_cast<const scalar_t*>(Q), static_cast<scalar_t*>(xp),
+      static_cast<scalar_t*>(Pp), static_cast<scalar_t*>(xq),
+      static_cast<scalar_t*>(Pq), maps[0], maps[1], maps[2], maps[3],
+      tma ? 1 : 0, T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define RN_GEN_KERNEL rn_generic_stream_tile_kernel
+#define RN_GEN_DESIGN 1
+#define RN_GEN_ROLES rn_gen::NROLES
+#define RN_GEN_SMEM rn_tile_smem
+
+#else
+
+// The host build of the log-scan tile (tests): lane by lane, a copy of its
+// P, x and scratch (ld = 1) and of each step's input rows (ld_in = 1),
+// each phase in barrier order, as the tile loop above; the stacks stored
+// after the predict and after the update.
+extern "C" int rn_generic_stream_host(void* xs_, void* Ps_, const void* zs_,
+                                      const void* eas_, const void* dts_,
+                                      const void* kind_idx_, const void* Rs_,
+                                      const void* prm, const void* Q_,
+                                      void* xp_, void* Pp_, void* xq_,
+                                      void* Pq_, int T, int B) {
+  using namespace rn_gen;
+  scalar_t* xs = static_cast<scalar_t*>(xs_);
+  scalar_t* Ps = static_cast<scalar_t*>(Ps_);
+  const scalar_t* zs = static_cast<const scalar_t*>(zs_);
+  const scalar_t* eas = static_cast<const scalar_t*>(eas_);
+  const scalar_t* dts = static_cast<const scalar_t*>(dts_);
+  const int* kind_idx = static_cast<const int*>(kind_idx_);
+  const scalar_t* Rs = static_cast<const scalar_t*>(Rs_);
+  const scalar_t* Q = static_cast<const scalar_t*>(Q_);
+  scalar_t* stacks[2][2] = {{static_cast<scalar_t*>(xp_),
+                             static_cast<scalar_t*>(Pp_)},
+                            {static_cast<scalar_t*>(xq_),
+                             static_cast<scalar_t*>(Pq_)}};
+  for (int b = 0; b < B; ++b) {
+    scalar_t x[DX], P[DE * DE], s[NSCR > 0 ? NSCR : 1], in[IN_ROWS];
+    scalar_t v[NROLES][NVAL];
+    for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+    for (int e = 0; e < DE * DE; ++e) P[e] = Ps[(size_t)e * B + b];
+    scalar_t p[NP > 0 ? NP : 1];
+    for (int i = 0; i < NP; ++i) p[i] = static_cast<const scalar_t*>(prm)[i];
+    auto store = [&](int t, scalar_t* const* xo_Po) {
+      for (int e = 0; e < DE * DE; ++e)
+        xo_Po[1][((size_t)t * DE * DE + e) * B + b] = P[e];
+      for (int i = 0; i < DX; ++i)
+        xo_Po[0][((size_t)t * DX + i) * B + b] = x[i];
+    };
+    for (int t = 0; t < T; ++t) {
+      const int ki = kind_idx[t];
+      for (int r = 0; r < NZROWS; ++r)
+        in[r] = zs[((size_t)t * NZROWS + r) * B + b];
+      for (int r = 0; r < NEAROWS; ++r)
+        in[NZROWS + r] = eas[((size_t)t * NEAROWS + r) * B + b];
+      const scalar_t* R = Rs + (size_t)t * IN_R;
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_predict(r, x, P, 1, dts[t], p, Q, v[r]);
+      for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
+      store(t, stacks[0]);
+      gen_tile_shared(ki, x, P, 1, in, in + NZROWS, 1, R, p, s);
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_update(ki, r, x, P, 1, in, in + NZROWS, 1, R, p, s, v[r]);
+      for (int r = 0; r < NROLES; ++r)
+        gen_tile_update_store(ki, r, x, P, 1, v[r]);
+      store(t, stacks[1]);
+    }
+    for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+    for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = P[e];
+  }
+  return 0;
+}
+
+#endif  // __CUDACC__
+
+#elif defined(REDNOSE_GENERIC_SCAN_TILE_EPOCH)
+
+// Kernel 5 in tile form (mode "epoch", when the tile fits): the tile loop
+// above with each step's slots in order, each step's inputs staged in
+// shared memory a step ahead. A step is the predict (every role computes,
+// barrier, stores, barrier), then for each slot k of the slot table
+// gen_slot(k): role 0 runs its unit's shared function into the scratch,
+// barrier, every role its share of the update, barrier, stores, barrier
+// (a loc slot's shared values are too few to split across the warps in
+// stages as a camera frame's: measured slower at every W; PERF.md).
+// The inputs do not depend on the state: at the top of step t the block
+// copies step t + 1's NZROWS + NEAROWS rows of its 32 filters into the
+// other half of a double buffer ([row][32] each) with cp.async, 16 B a
+// thread where every row of the block is whole and 16-B aligned (else one
+// value a thread, a lane past the bank copying filter B - 1), and waits
+// for step t's copies before the predict's barrier. The units read their
+// rows there (ld_in = 32) in place of 8 dependent global loads a step.
+
+#ifdef __CUDACC__
 
 __global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
 rn_generic_epoch_kernel(

@@ -769,6 +769,7 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
 
 TILE_ROLES = 2           # W: measured among 1, 2, 4 and 8 (PERF.md)
 TILE_ROLES_FRAME = 8     # W of a variant with a camera-frame unit (PERF.md)
+TILE_ROLES_STREAM = 8    # W of a log-scan variant (mode "stream", PERF.md)
 TILE_LANES = 32          # filters a block holds, one a lane
 TILE_SMEM_MAX = 232_448  # shared memory bytes a block may use on the H100
 _SCALAR_BYTES = {"float": 4, "double": 8}
@@ -860,6 +861,15 @@ def epoch_input_bytes(nzrows, nearows, scalar) -> int:
   """An epoch tile's staged inputs: two steps' z and ea rows of
   TILE_LANES filters (the step that runs and the next, copied ahead)."""
   return 2 * (nzrows + nearows) * TILE_LANES * _SCALAR_BYTES[scalar]
+
+
+def stream_input_bytes(nzrows, nearows, scalar) -> int:
+  """A log-scan tile's staged inputs, two steps' worth (the step that runs
+  and the next, copied ahead): the z and ea rows of TILE_LANES filters,
+  the step's nzrows x nzrows R, its dt and its kind index (in a value's
+  slot)."""
+  return 2 * ((nzrows + nearows) * TILE_LANES + nzrows ** 2 + 2) * \
+      _SCALAR_BYTES[scalar]
 
 
 def _needs(root, stop):
@@ -1033,7 +1043,7 @@ def _kind_dispatch(name, params, cases, var="ki"):
 
 
 def _tile_source(body, pred, units, n_roles, mixed=False,
-                 smem=None, slot_table=None) -> list:
+                 smem=None, slot_table=None, stream=False) -> list:
   """The lines after the header of a variant in tile form: the role
   functions of the predict and of each update unit, each unit's shared
   values and the dispatchers the template's tile loop calls, over n_roles
@@ -1049,8 +1059,11 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
   order; units its distinct units) prints the same per-unit functions,
   dispatchers that switch on the unit index and pass their arguments
   through, and the slot table gen_slot(k) from which the template's epoch
-  loop takes each slot's unit, rows and R. smem, when given: the block's
-  shared memory bytes, named in the design line."""
+  loop takes each slot's unit, rows and R. A log-scan variant (stream:
+  mode 'stream', mixed, each unit's R the leading block of the step's
+  staged R, offset 0) prints a mixed variant's functions for the
+  template's REDNOSE_GENERIC_SCAN_STREAM tile loop. smem, when given: the
+  block's shared memory bytes, named in the design line."""
   staged = any(u[4] for u in units)
   epoch = slot_table is not None
   funcs = {}
@@ -1067,6 +1080,10 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
                 for o in st[2]] + [1])
   switched = (f", {len(units)} units switched on the step's kind"
               if mixed else "")
+  if stream:
+    switched += (", each step's inputs staged a step ahead and its x and P "
+                 "stored from the tile after the predict and after the "
+                 "update")
   if epoch:
     switched = (f", {len(slot_table)} slots of {len(units)} "
                 f"unit{'s' if len(units) > 1 else ''}, each step's inputs "
@@ -1190,6 +1207,8 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
     out.append("#define REDNOSE_GENERIC_SCAN_TILE_EPOCH")
   if staged:
     out.append("#define REDNOSE_GENERIC_SCAN_TILE_STAGES")
+  if stream:
+    out.append("#define REDNOSE_GENERIC_SCAN_STREAM")
   out += ["#define REDNOSE_GENERIC_SCAN_LOOPS",
           '#include "generic_scan.cuh"', ""]
   return out
@@ -1218,13 +1237,14 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   order, one slot each) or 'frame' (kernel 7: the MSCKF camera frame of
   one feature kind); each prints the tile form where it fits (tile_bytes),
   over TILE_ROLES_FRAME roles when a unit is a camera frame, else
-  TILE_ROLES. Mode 'stream' (kernel 9, the offline log scan) prints the
-  global form only: the predict, each unit reading its R as the leading
-  dz x dz block of the step's streamed max_dz x max_dz R, and a switch
-  over the units by the kind index (gen_stream_update), which the
-  template's REDNOSE_GENERIC_SCAN_STREAM section calls between its stores
-  of each step's predicted and posterior state. units: tuple of (kind,
-  gate) pairs.
+  TILE_ROLES. Mode 'stream' (kernel 9, the offline log scan): each unit
+  reads its R as the leading dz x dz block of the step's streamed
+  max_dz x max_dz R; the tile form (its tile and two steps' staged inputs,
+  stream_input_bytes, fit) is a mixed variant's role functions over
+  TILE_ROLES_STREAM roles, the global form the predict and a switch over
+  the units by the kind index (gen_stream_update); the template's
+  REDNOSE_GENERIC_SCAN_STREAM sections store each step's predicted and
+  posterior state between them. units: tuple of (kind, gate) pairs.
   A unit of an MSCKF feature kind is a camera frame (frame_phase: the
   projected update and the window augment); mode 'frame' is one such
   unit, and mode 'mixed' may hold them among its other units (kernel 6's
@@ -1313,13 +1333,13 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     names.append(done[(k, g, rp)])
   pred, phases = None, {}
   stream = mode == "stream"
-  if stream:
-    head.append(
-        "// design: global: one thread a lane, P in global memory; each "
-        "step's x and P stored after the predict and after the update")
-  if tile and not stream:
+  stored = ("one thread a lane, P in global memory; each step's x and P "
+            "stored after the predict and after the update")
+  if stream and not tile:
+    head.append(f"// design: global: {stored}")
+  if tile:
     # the tile form when 32 filters' P, x and the largest unit's scratch
-    # (and an epoch's staged inputs) fit a block
+    # (and an epoch's or a log's staged inputs) fit a block
     pred = predict_phase(spec, structure, pnames, q_pattern)
     for (k, g), f, rp, name in zip(units, feature, r_patterns, names):
       if name not in phases:
@@ -1329,6 +1349,8 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                  for ph in phases.values())
     if mode == "epoch":
       nbytes += epoch_input_bytes(nzrows, nearows, scalar)
+    if stream:
+      nbytes += stream_input_bytes(nzrows, nearows, scalar)
     if nbytes <= TILE_SMEM_MAX and mode == "epoch":
       # one unit per distinct (kind, gate), and the slots' table
       dz_of = {n: spec.obs[k].dz for n, (k, _) in zip(names, units)}
@@ -1338,6 +1360,11 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
           TILE_ROLES, smem=nbytes,
           slot_table=[(distinct.index(n), u * max_dz, u * max_ea, r_off[u])
                       for u, n in enumerate(names)]))
+    elif nbytes <= TILE_SMEM_MAX and stream:
+      # every unit reads the step's staged max_dz x max_dz R
+      return "\n".join(head + _tile_source(
+          body, pred, [(n, phases[n], max_dz, 0, False) for n in names],
+          TILE_ROLES_STREAM, mixed=True, smem=nbytes, stream=True))
     elif nbytes <= TILE_SMEM_MAX:
       return "\n".join(head + _tile_source(
           body, pred, [(n, phases[n], spec.obs[k].dz, o, f) for n, (k, _), o, f
@@ -1347,7 +1374,8 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     head.append(
         f"// design: global: the tile of {TILE_LANES} filters ({nbytes:,} B "
         f"in {scalar}) exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
-        "one thread a filter and P in global memory")
+        + (stored if stream else "one thread a filter and P in global "
+           "memory"))
   out = head + body + [
       f"GEN_HD {inline} void gen_predict(scalar_t* x, scalar_t* P, "
       "size_t ld, const scalar_t dt, const scalar_t* p, const scalar_t* Q) {",

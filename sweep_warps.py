@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Measure the design constants of the port's tile kernels on one card:
 kernels 2, 3, 4, 5 and 6 at W = 1, 2, 4 and 8 warps a block, kernels 7
-and 6 with camera frames at W = 4, 8 and 16, and kernel 1's ring.
+and 6 with camera frames at W = 4, 8 and 16, kernel 9 (the log scan) at
+W = 2, 4, 8, 16 and 32, and kernel 1's ring.
 
     python3 sweep_warps.py [--parent DIR] [--parts PART ...]   # repo root
 
 PART is one of live (kernels 2, 3, 4 and 6 on the live spec), frames
-(kernel 7 and kernel 6 with camera frames), kinematic (kernel 1) and
-epoch (kernel 5); all four by default. W is a constant of each source:
+(kernel 7 and kernel 6 with camera frames), kinematic (kernel 1), epoch
+(kernel 5) and stream (kernel 9: chip_smoke.stream_calls' float32 live
+log at B = 64 and float64 refinement log at B = 1, each timed at
+T = 256 and T = 8192 beside its global form, its per-lane-store form
+and three timing aids: without its stack stores, without its shared
+functions, its stack stores only; stream_sweep); all five by default. W is a constant of each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
 ops/entry_slab.py (kernel 4, mode "single", kernel 5, mode "epoch", and
 kernel 6, mode "mixed" without a camera-frame unit) and
 `TILE_ROLES_FRAME` (kernel 7, mode "frame", and kernel 6 with a
-camera-frame unit). Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
+camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream").
+Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
 csrc/kinematic_scan.cu (filters a block, steps a ring stage, stages).
 This script builds each kernel at each value, nvcc processes in
 parallel: kernels 1, 2 and 3 from a copy of their source with the
@@ -73,7 +79,9 @@ SWEEP_DIR = ROOT / "build" / "sweep_warps"
 WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
-PARTS = ("live", "frames", "kinematic", "epoch")
+PARTS = ("live", "frames", "kinematic", "epoch", "stream")
+STREAM_WS = (2, 4, 8, 16, 32)
+STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
 
 def build_k3(name, csrc, warps=None):
@@ -535,9 +543,10 @@ def epoch_sweep(torch, dev, gen, parent_template=None):
   return results
 
 
-def build_with_template(name, source, template):
+def build_with_template(name, source, template,
+                        entry="rn_generic_scan_launch"):
   """nvcc of an emitted source beside the given template, in a directory
-  of its own: its rn_generic_scan_launch."""
+  of its own: its C entry (rn_generic_scan_launch unless named)."""
   from rednose_tpu_torch import _build
 
   d = SWEEP_DIR / name
@@ -551,19 +560,195 @@ def build_with_template(name, source, template):
       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
   if proc.returncode:
     raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
-  fn = ctypes.CDLL(str(d / "libgen.so")).rn_generic_scan_launch
-  fn.argtypes = list(_build.GEN_ENTRIES["rn_generic_scan_launch"])
+  fn = getattr(ctypes.CDLL(str(d / "libgen.so")), entry)
+  fn.argtypes = list(_build.GEN_ENTRIES[entry])
   fn.restype = ctypes.c_int
   return fn
 
 
+# ---------------------------------------------------------------- kernel 9
+
+def without_stack_stores(template):
+  """The template with its log-scan tile's stack stores taken out
+  (rn_stream_store and rn_stream_store_tma return at once): a timing aid,
+  its stacks garbage."""
+  out, n = re.subn(
+      r"(__device__ __forceinline__ void rn_stream_store(?:_tma)?\("
+      r"[^)]*\) \{\n)", r"\g<1>  return;\n", template)
+  if n != 2:
+    raise RuntimeError("generic_scan.cuh: no rn_stream_store and "
+                       "rn_stream_store_tma to take out")
+  return out
+
+
+def per_lane_stores(template):
+  """The template with its log-scan tile's TMA stores turned off, so every
+  lane stores its own values of the stacks' rows (the stores of a bank
+  whose rows TMA cannot take): the design before the TMA stores."""
+  old = "  const bool tma =\n"
+  if old not in template:
+    raise RuntimeError("generic_scan.cuh: no TMA condition in the launcher")
+  return template.replace(old, "  const bool tma = false &&\n", 1)
+
+
+def stream_cases(torch, dev, gen):
+  """Kernel 9's two variants as the offline path runs them (chip_smoke.
+  stream_calls), each with its inputs for max(STREAM_TS) steps in the
+  bank-minor layout and its plain version's result on the first T_cmp:
+  name -> (call, dtype, (x, P, zs, dts, kind_idx, Rs), T_cmp, reference,
+  tolerance). The live log in float32 for RTS_B lanes from the state the
+  shipped float64 tile reaches in SCAN_WARM steps from the prior (T_cmp =
+  SCAN_CMP_T, within GEN_TOL); the cold refinement log in float64 for one
+  lane from the prior (T_cmp = REFINE_T, within SCAN64_TOL)."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.runtime.scan import build_scan_stream_reference
+
+  T = max(STREAM_TS)
+  calls = cs.stream_calls()
+  live, live_dt = calls["live log scan (kernel 9)"]
+  ref_call, ref_dt = calls["refinement log scan (kernel 9), float64"]
+  x0, P0, Q, dts, ki, zs, Rs, _ = cs.scan_log(
+      torch, dev, gen, cs.SCAN_WARM + T, cs.RTS_B, torch.float64)
+  bank = (x0.T.contiguous(), P0.permute(1, 2, 0).contiguous())
+  zb = zs.transpose(1, 2).contiguous()
+  W = cs.SCAN_WARM
+  xw, Pw = cs.stream_launch(live.source(torch.float64), live, *bank,
+                            zb[:W], dts[:W], ki[:W], Rs[:W])()[:2]
+  f = lambda a: a.to(live_dt).contiguous()  # noqa: E731
+  live_args = (f(xw), f(Pw), f(zb[W:]), f(dts[W:]), ki[W:], f(Rs[W:]))
+  spec, args, _ = cs.refine_inputs(torch, dev, gen, T)
+  x, P, _, dts_r, ki_r, zs_r, Rs_r, _ = args
+  ref_args = (x[:, None].contiguous(), P[:, :, None].contiguous(),
+              zs_r[:, :, None].contiguous(), dts_r, ki_r, Rs_r)
+  out = {}
+  for (name, (call, dt)), a, T_cmp, tol in zip(
+      calls.items(), (live_args, ref_args), (cs.SCAN_CMP_T, cs.REFINE_T),
+      (cs.GEN_TOL, cs.SCAN64_TOL)):
+    plain, _ = build_scan_stream_reference(call.spec, call.kinds)
+    xb, Pb, zz, dd, kk, RR = a
+    Qd = torch.as_tensor(call.Q, dtype=dt, device=dev)
+    eas = torch.zeros((T_cmp, 1), dtype=dt, device=dev)
+    (xo, Po), (xp, Pp, xq, Pq) = vmap(
+        lambda xl, Pl, zl: plain({}, xl, Pl, Qd, dd[:T_cmp], kk[:T_cmp], zl,
+                                 RR[:T_cmp], eas),
+        in_dims=(1, 2, 2))(xb, Pb, zz[:T_cmp])
+    ref = (xo.T, Po.permute(1, 2, 0), xp.permute(1, 2, 0),
+           Pp.permute(1, 2, 3, 0), xq.permute(1, 2, 0),
+           Pq.permute(1, 2, 3, 0))
+    out[name] = (call, dt, a, T_cmp, ref, tol)
+  return out
+
+
+def stream_sweep(torch, dev, gen):
+  """Kernel 9 (chip_smoke.stream_calls: the live log in float32 at
+  B = 64, the refinement log in float64 at B = 1) in tile form at W =
+  STREAM_WS, in its global form (the design before) and, at the shipped
+  W, with every lane storing its own stack values in place of the TMA
+  stores (per_lane_stores; the refinement log's B = 1 takes no TMA
+  either way), with three timing aids at the shipped W whose outputs are
+  garbage: the tile without its stack stores, without its shared
+  functions (role 0's serial part of the update), and with its stack
+  stores only (every emitted phase returns at once: the floor that the
+  stores of two blocks set). Each build against the plain version on stream_cases'
+  inputs, then timed (raw launches, CUDA events, after a warm-up) at each
+  T of STREAM_TS; the shipped tile and the global form also in turns
+  (global, tile, tile, global) at the largest T."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import entry_slab
+
+  w0 = entry_slab.TILE_ROLES_STREAM
+  calls = cs.stream_calls()
+  srcs = {}
+  for name, (call, dt) in calls.items():
+    srcs[name] = {f"W={w}": k4_source(lambda c=call: c, dtype=dt,
+                                      TILE_ROLES_STREAM=w)
+                  for w in STREAM_WS}
+    srcs[name]["global"] = call.source(dt, tile=False)
+    srcs[name][f"W={w0} without its shared functions"] = without_phase(
+        call.source(dt), "shared")
+    only = call.source(dt)
+    for phase in ("shared", "update", "predict"):
+      only = without_phase(only, phase)
+    srcs[name][f"W={w0}, its stack stores only"] = only
+  templates = {}
+  for label, edit in ((f"W={w0} without its stack stores",
+                       without_stack_stores),
+                      (f"W={w0} with per-lane stack stores", per_lane_stores)):
+    templates[label] = SWEEP_DIR / f"k9_{edit.__name__}" / "generic_scan.cuh"
+    templates[label].parent.mkdir(parents=True, exist_ok=True)
+    templates[label].write_text(edit(_build.TEMPLATE.read_text()))
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(2 * len(calls)) as pool:
+    jobs = {(name, label): pool.submit(
+        build_with_template, f"k9_{i}_{j}", call.source(dt), path,
+        "rn_generic_stream_launch")
+            for i, (name, (call, dt)) in enumerate(calls.items())
+            for j, (label, path) in enumerate(templates.items())}
+    # the live log's float64 tile too: stream_cases warms the state with it
+    _build.build_generated_many(
+        [s for v in srcs.values() for s in v.values()]
+        + [calls["live log scan (kernel 9)"][0].source(torch.float64)])
+    fns = {name: {b: _build.generated_launcher(s) for b, s in v.items()}
+           for name, v in srcs.items()}
+    for (name, label), j in jobs.items():
+      fns[name][label] = j.result()
+      srcs[name][label] = None
+  cs.log(f"kernel 9: built in {time.perf_counter() - t0:.1f} s")
+  cases = stream_cases(torch, dev, gen)
+  results = {}
+  for name, (call, dt, args, T_cmp, ref, tol) in cases.items():
+    x, P, zs, dts, ki, Rs = args
+
+    def launch(build, n):
+      return cs.stream_launch(srcs[name][build] or "", call, x, P, zs[:n],
+                              dts[:n], ki[:n], Rs[:n], fn=fns[name][build])
+
+    key = f"{name}, B={x.shape[-1]}"
+    results[key] = {}
+    for build in srcs[name]:
+      err = cs.stream_err(call.spec, launch(build, T_cmp)(), ref)
+      torch.cuda.synchronize()
+      row = dict(sigma_err=err, ms={})
+      for n in STREAM_TS:
+        row["ms"][n] = cs.timed_run(launch(build, n), REPS if n < 4096
+                                    else 3)[0]
+      if srcs[name][build] is not None:
+        report = _build.generated_ptxas(srcs[name][build])
+        row |= dict(ptxas=kernel_ptxas(report, "rn_generic"),
+                    lines=len(srcs[name][build].splitlines()),
+                    nvcc=[ln for ln in report.splitlines()
+                          if "nvcc wall" in ln],
+                    info=_build.generated_info(srcs[name][build]))
+      results[key][build] = row
+      aid = "without" in build or "only" in build   # its output garbage
+      verdict = "" if aid else ", ok" if err <= tol else ", FAIL"
+      cs.log(f"kernel 9 {key} {build}: " + ", ".join(
+          f"T={n} {ms:.4f} ms ({ms / n * 1e3:.3f} us a step)"
+          for n, ms in row["ms"].items())
+          + f"; {err:.4g} sigma from plain at T={T_cmp} (tolerance {tol}"
+          f"{verdict}); " + str({k: v for k, v in row.items()
+                                 if k not in ("ms", "sigma_err")}))
+    times = {"global": [], "tile": []}
+    for which in ("global", "tile", "tile", "global"):
+      build = "global" if which == "global" else f"W={w0}"
+      times[which].append(cs.timed_run(launch(build, max(STREAM_TS)),
+                                       3)[0])
+    results[key]["in turns"] = times
+    cs.log(f"kernel 9 {key} in turns at T={max(STREAM_TS)}: global form "
+           f"{times['global']} ms, tile W={w0} {times['tile']} ms")
+  return results
+
+
 def template_ab(torch, dev, gen, parent_template):
-  """Kernels 4, 6 and 7, whose emitted text is the same in both trees, each
-  built with this tree's template and with the parent's and timed in turns
-  (parent, this, this, parent; raw launches, mean of REPS after a warm-up):
-  kernel 4 on the live spec's ECEF_POS tile (gate on) and kernel 6 on its
-  4-kind cycle, both from the live x0 and P0 at B = 8192, T = 64; kernel 7
-  on msckf_vo's frame tile as frame_cases gives it."""
+  """Kernels 4, 5, 6 and 7, whose emitted text is the same in both trees,
+  each built with this tree's template and with the parent's and timed in
+  turns (parent, this, this, parent; raw launches, mean of REPS after a
+  warm-up): kernel 4 on the live spec's ECEF_POS tile (gate on) and kernel
+  6 on its 4-kind cycle, both from the live x0 and P0 at B = 8192,
+  T = 64; kernel 7 on msckf_vo's frame tile as frame_cases gives it;
+  kernel 5 on loc's float32 epoch tile on chip_smoke's local-scale case
+  (B = 8192, T = 64)."""
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
   from rednose_tpu_torch.ops import generic_scan as gs, sparsity
@@ -582,6 +767,8 @@ def template_ab(torch, dev, gen, parent_template):
   _, kind_idx, zs_m = cs.mixed_schedule(torch, dev, gen, cs.CMP_T)
   call6 = cs.live_mixed_call()
   k7 = frame_cases(torch, dev, gen)["kernel 7, msckf_vo"]
+  x5, P5, zs5, eas5, dts5 = (a.to(torch.float32)
+                             for a in cs.loc_local_case(torch, dev, gen))
   cases = {
       "kernel 4, live spec ECEF_POS, gate on": (
           call4, (x, P, (torch.as_tensor(LiveKalman.initial_x[0:3], **f32)[
@@ -592,7 +779,9 @@ def template_ab(torch, dev, gen, parent_template):
           call6, (x, P, zs_m.permute(0, 2, 1).contiguous(), dts),
           dict(kind_idx=torch.as_tensor(kind_idx, dtype=torch.int32,
                                         device=dev))),
-      "kernel 7, msckf_vo frames": k7[:3]}
+      "kernel 7, msckf_vo frames": k7[:3],
+      "kernel 5, loc 8-slot epoch, float32": (
+          cs.loc_epoch_call(), (x5, P5, zs5, dts5), dict(eas=eas5))}
   with ThreadPoolExecutor(2 * len(cases)) as pool:
     fns = {(name, which): pool.submit(
         build_with_template, f"ab_{i}_{which}", call.source(),
@@ -623,7 +812,7 @@ def main():
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
-                       "frames, kernel 1, kernel 5")
+                       "frames, kernel 1, kernel 5, kernel 9")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -658,6 +847,8 @@ def main():
     cs.log(f"built in {time.perf_counter() - t0:.1f} s")
   if fsrc:
     results["frames"] = frame_sweep(torch, cases, fsrc)
+  if "stream" in args.parts:
+    results["kernel 9"] = stream_sweep(torch, dev, gen)
   if args.parent is not None:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)

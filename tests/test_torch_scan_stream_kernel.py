@@ -2,9 +2,11 @@
 csrc/generic_scan.cuh's REDNOSE_GENERIC_SCAN_STREAM section; wrappers
 ops/generic_scan.stream_bank_scan and runtime/scan.build_scan_stream).
 
-On the CPU the stream variant's emitted text is built with the host C++
-compiler as double (entry rn_generic_stream_host, the kernel's own loop
-lane by lane) and held, float64, against the JAX package's
+On the CPU the stream variant's emitted text in the global form (one
+thread a lane; tests/test_torch_scan_stream_tile.py holds the tile form
+the port ships) is built with the host C++ compiler as double (entry
+rn_generic_stream_host, the kernel's own loop lane by lane) and held,
+float64, against the JAX package's
 build_scan_stream (one jitted lax.scan, vmapped over the lanes) and the
 port's plain scan_fn on the same padded logs: the live spec's ECEF_POS /
 NO_ROT log, the same with every kind's gate on and every fourth lane's
@@ -98,12 +100,13 @@ def host_stream(source):
   return _LIBS[source]
 
 
-def run_host(spec, kinds, Q, x0, P0, dts, ki, zs, Rs):
-  """The stream variant's host build on lanes x0 (B, dim_x), P0 (B, de,
-  de), zs (T, B, max_dz), the rest shared: (x, P, x_preds, P_preds,
-  x_posts, P_posts) in the wrapper's bank-minor layout."""
+def run_host(spec, kinds, Q, x0, P0, dts, ki, zs, Rs, tile=False):
+  """The stream variant's host build (its global form, or with tile its
+  tile form) on lanes x0 (B, dim_x), P0 (B, de, de), zs (T, B, max_dz),
+  the rest shared: (x, P, x_preds, P_preds, x_posts, P_posts) in the
+  wrapper's bank-minor layout."""
   call = generic_scan.KernelCall(spec, "stream", kinds, Q=Q)
-  fn = host_stream(call.source(torch.float64))
+  fn = host_stream(call.source(torch.float64, tile=tile))
   c = lambda a, dt=np.float64: np.ascontiguousarray(a, dtype=dt)  # noqa
   prm = c([float(call.params[k]) for k in call._pnames] or [0.0])
   T, B = len(dts), x0.shape[0]
@@ -270,9 +273,11 @@ def test_stream_variant_refuses_what_it_does_not_take():
                             Q=MSCKFEskf.Q).source()
   call = generic_scan.KernelCall(spec, "stream", (K.ECEF_POS, K.NO_ROT),
                                  Q=LiveKalman.Q)
-  src = call.source()
+  src, glob = call.source(), call.source(tile=False)
   assert "#define REDNOSE_GENERIC_SCAN_STREAM" in src
-  assert "gen_stream_update" in src and "gen_step" not in src
+  assert "#define REDNOSE_GENERIC_SCAN_STREAM" in glob
+  assert "gen_tile_shared" in src and "gen_step" not in src
+  assert "gen_stream_update" in glob and "gen_step" not in glob
   # the launcher takes CUDA tensors only: no plain fallback behind it
   _, _, x0, P0, Q, dts, ki, zs, Rs, _ = _op_case(B=2, T=3)
   with pytest.raises(ValueError, match="CUDA"):
