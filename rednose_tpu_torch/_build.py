@@ -79,6 +79,11 @@ SIGNATURES = {
     # K, is_double, stream (kernel 8, csrc/triangulate.cu)
     "triangulate_launch":
         (_P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _P),
+    # N, K, stream: an empty kernel on kernel 8's grid (the launch floor)
+    "triangulate_floor_launch": (_I, _I, _P),
+    # K, is_double, out (5 ints): threads a block, shared bytes, blocks an
+    # SM holds, registers, local bytes
+    "triangulate_info": (_I, _I, _P),
 }
 
 

@@ -17,9 +17,11 @@ step is a least-squares solve by QR (the same solution as the reference's
 normal equations, without squaring the condition number).
 
 On CUDA tensors `compute_pos_batch` and `compute_pos` launch kernel 8
-(csrc/triangulate.cu: one thread a track, the Jacobian in closed form, a
-Householder QR), which replaces the JAX package's jitted vmap of a
-per-track while_loop; `compute_pos_batch.launches` counts its launches.
+(csrc/triangulate.cu: a thread a track, K a template parameter, a
+stride-0 pose window set up once a block in shared memory, the Jacobian in
+closed form, a Householder QR), which replaces the JAX package's jitted
+vmap of a per-track while_loop; `compute_pos_batch.launches` counts its
+launches.
 On CPU tensors they run the plain version, `compute_pos_batch_reference`:
 one loop of at most 30 iterations over the tracks still active, a track
 that has converged keeping its parameters (one host sync an iteration;
@@ -27,6 +29,8 @@ its `.launches` counts its runs, on any device).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 from torch.func import jacfwd, vmap
@@ -142,8 +146,10 @@ def _launch(to_c, poses, img_positions):
     raise ValueError("img_positions must share the poses' device and dtype")
   if not 1 <= K <= MAX_K:
     raise ValueError(f"kernel 8 takes 1 to {MAX_K} frames a track, got {K}")
-  to_c = torch.as_tensor(to_c, dtype=poses.dtype,
-                         device=poses.device).contiguous()
+  if not (isinstance(to_c, torch.Tensor) and to_c.dtype == poses.dtype
+          and to_c.device == poses.device and to_c.is_contiguous()):
+    to_c = torch.as_tensor(to_c, dtype=poses.dtype,
+                           device=poses.device).contiguous()
   if tuple(to_c.shape) != (3, 3):
     raise ValueError(f"to_c {tuple(to_c.shape)}, expected (3, 3)")
   pos = torch.empty((N, 3), dtype=poses.dtype, device=poses.device)
@@ -160,6 +166,18 @@ def _launch(to_c, poses, img_positions):
   _build.check(code, "triangulate_launch")
   compute_pos_batch.launches += 1
   return pos, conv, iters
+
+
+def launch_shape(K: int, dtype=torch.float64) -> dict:
+  """Kernel 8's launch shape for K frames a track as the CUDA runtime reads
+  it (entry triangulate_info): threads a block, static shared bytes,
+  blocks an SM holds, registers and local (stack) bytes a thread."""
+  out = (ctypes.c_int * 5)()
+  _build.check(_build.library().triangulate_info(
+      K, int(dtype == torch.float64), ctypes.addressof(out)),
+      "triangulate_info")
+  return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                   "local_bytes"), out))
 
 
 def compute_pos_batch(to_c, poses, img_positions):

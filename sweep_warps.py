@@ -2,7 +2,7 @@
 """Measure the design constants of the port's tile kernels on one card:
 kernels 2, 3, 4, 5 and 6 at W = 1, 2, 4 and 8 warps a block, kernels 7
 and 6 with camera frames at W = 4, 8 and 16, kernel 9 (the log scan) at
-W = 2, 4, 8, 16 and 32, and kernel 1's ring.
+W = 2, 4, 8, 16 and 32, kernel 1's ring, and kernel 8's block size.
 
     python3 sweep_warps.py [--parent DIR] [--parts PART ...]   # repo root
 
@@ -12,13 +12,19 @@ PART is one of live (kernels 2, 3, 4 and 6 on the live spec), frames
 log at B = 64 and float64 refinement log at B = 1, each timed at
 T = 256 and T = 8192 beside its global form, its per-lane-store form
 and three timing aids: without its stack stores, without its shared
-functions, its stack stores only; stream_sweep); all five by default. W is a constant of each source:
+functions, its stack stores only; stream_sweep) and triangulate (kernel
+8 on the VIO store's frames 0 and 31 and on the long-tail batch at three
+block sizes, a stride-0 window also as its contiguous copy, beside its
+launch floor; with --parent the parent's kernel and wrapper in turns:
+tri_sweep); all six by default. W is a constant of
+each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
 ops/entry_slab.py (kernel 4, mode "single", kernel 5, mode "epoch", and
 kernel 6, mode "mixed" without a camera-frame unit) and
 `TILE_ROLES_FRAME` (kernel 7, mode "frame", and kernel 6 with a
-camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream").
+camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream");
+kernel 8's `BLOCK_THREADS` in csrc/triangulate.cu.
 Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
 csrc/kinematic_scan.cu (filters a block, steps a ring stage, stages).
 This script builds each kernel at each value, nvcc processes in
@@ -65,6 +71,7 @@ import json
 import pathlib
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -79,7 +86,7 @@ SWEEP_DIR = ROOT / "build" / "sweep_warps"
 WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
-PARTS = ("live", "frames", "kinematic", "epoch", "stream")
+PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate")
 STREAM_WS = (2, 4, 8, 16, 32)
 STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
@@ -740,6 +747,246 @@ def stream_sweep(torch, dev, gen):
   return results
 
 
+# ---------------------------------------------------------------- kernel 8
+TRI_SRC = ROOT / "rednose_tpu_torch" / "csrc" / "triangulate.cu"
+TRI_CONSTS = ("BLOCK_THREADS",)
+TRI_BLOCKS = (32, 64, 128)
+# the wrapper's A/B, run in a fresh process in each tree: compute_pos_batch
+# as the VIO path calls it on each case of the file argv[1], host clock
+# after a synchronize (ms a call), and its host time a call queued behind
+# a sleep; prints one JSON line
+TRI_WRAP_SCRIPT = """
+import json, sys, time, torch
+from rednose_tpu_torch.msckf import triangulation as tri
+out = {}
+for label, (to_c, poses, uv) in torch.load(sys.argv[1]).items():
+  to_c, poses, uv = to_c.cuda(), poses.cuda(), uv.cuda()
+  if poses.dim() == 2:
+    poses = poses.expand(uv.shape[0], -1, -1)
+  f = lambda: tri.compute_pos_batch(to_c, poses, uv)
+  f(); torch.cuda.synchronize()
+  ts = []
+  for _ in range(100):
+    t0 = time.perf_counter(); f(); torch.cuda.synchronize()
+    ts.append((time.perf_counter() - t0) * 1e3)
+  torch.cuda._sleep(200_000_000)
+  t0 = time.perf_counter()
+  for _ in range(200):
+    f()
+  host = (time.perf_counter() - t0) * 1e3 / 200
+  torch.cuda.synchronize()
+  out[label] = dict(wrapped=sum(ts) / len(ts), wrapped_min=min(ts),
+                    wrapped_max=max(ts), host=host)
+print(json.dumps(out))
+"""
+
+
+def tri_source(consts=None, source=TRI_SRC):
+  """csrc/triangulate.cu with its design constants replaced."""
+  text = source.read_text()
+  for k, v in (consts or {}).items():
+    text, n = re.subn(rf"constexpr int {k} = \w+;",
+                      f"constexpr int {k} = {v};", text)
+    if n != 1:
+      raise RuntimeError(f"triangulate.cu: no constant {k}")
+  return text
+
+
+def tri_shipped():
+  """The shipped design constants of csrc/triangulate.cu."""
+  text = TRI_SRC.read_text()
+  return {k: re.search(rf"constexpr int {k} = (\w+);", text).group(1)
+          for k in TRI_CONSTS}
+
+
+def build_tri(name, text):
+  """nvcc of one triangulate.cu text into its own directory: (library,
+  ptxas lines of the float and double kernels at K = 4 and 8, nvcc
+  seconds). The parent's kernel is not templated on K: its lines are
+  those of its one kernel a type."""
+  from rednose_tpu_torch import _build
+
+  d = SWEEP_DIR / name
+  shutil.rmtree(d, ignore_errors=True)
+  d.mkdir(parents=True)
+  (d / "triangulate.cu").write_text(text)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+       str(d / "triangulate.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  secs = time.perf_counter() - t0
+  if proc.returncode:
+    raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
+  lib = ctypes.CDLL(str(d / "lib.so"))
+  for fn in ("triangulate_launch", "triangulate_floor_launch",
+             "triangulate_info"):
+    if hasattr(lib, fn):
+      getattr(lib, fn).argtypes = list(_build.SIGNATURES[fn])
+      getattr(lib, fn).restype = ctypes.c_int
+  ptx = {}
+  for t, tn in (("d", "double"), ("f", "float")):
+    for K in (4, 8):
+      lines = kernel_ptxas(proc.stdout, f"triangulate_kernelI{t}Li{K}E")
+      ptx[f"{tn} K={K}"] = lines or kernel_ptxas(
+          proc.stdout, f"triangulate_kernelI{t}E")
+  return lib, ptx, secs
+
+
+def tri_info(lib, K):
+  if not hasattr(lib, "triangulate_info"):
+    return None
+  out = (ctypes.c_int * 5)()
+  from rednose_tpu_torch import _build
+  _build.check(lib.triangulate_info(K, 1, ctypes.addressof(out)), "info")
+  return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                   "local_bytes"), out))
+
+
+def tri_sweep(torch, dev, parent=None):
+  """Kernel 8 on the VIO store's frames 0 and 31 (768 rows, K = 4,
+  float64, the stride-0 window) and on the long-tail batch
+  (chip_smoke.tri_tail_case: 768 tracks of the CPU tests' family at
+  K = 8): the shipped build, on a stride-0 window also given its
+  contiguous copy (each track sets up its own frames, not the block once);
+  the other BLOCK_THREADS of TRI_BLOCKS; and, with parent (a checkout),
+  the parent commit's kernel. Each run's outputs held bitwise against the
+  shipped build's (and the parent's), then timed raw on the device
+  (chip_smoke.queued_ms: launches queued behind a sleep, mean and spread
+  over its batches), with its launch floor (an empty kernel on its grid)
+  and the largest iteration count; ptxas of the float and double kernels
+  at K = 4 and 8. Then, in turns (parent, this, this, parent), the
+  parent's kernel and the shipped one raw, and the two trees' wrappers
+  twice over (compute_pos_batch as the VIO path calls it, host clock
+  after a synchronize; TRI_WRAP_SCRIPT in a fresh process in each tree);
+  and the wrapper's steps one at a time (host us a call)."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.msckf import triangulation as tri
+
+  shipped = tri_shipped()
+  jobs = {"shipped": tri_source()}
+  for block in TRI_BLOCKS:
+    if str(block) != shipped["BLOCK_THREADS"]:
+      jobs[f"block={block}"] = tri_source({"BLOCK_THREADS": block})
+  if parent is not None:
+    jobs["parent"] = tri_source(
+        source=parent / "rednose_tpu_torch" / "csrc" / "triangulate.cu")
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(len(jobs) + 2) as pool:
+    static = pool.submit(_build.build)
+    parent_static = None if parent is None else pool.submit(
+        subprocess.run, [sys.executable, "-c", "from rednose_tpu_torch "
+                         "import _build; _build.build()"], cwd=parent,
+        check=True)
+    builds = {k: pool.submit(build_tri, f"k8_{i}", v)
+              for i, (k, v) in enumerate(jobs.items())}
+    builds = {k: b.result() for k, b in builds.items()}
+    static.result()
+    if parent_static is not None:
+      parent_static.result()
+  cs.log(f"kernel 8: {len(builds)} builds in {time.perf_counter() - t0:.1f}"
+         f" s; shipped {shipped}")
+  _, _, store_cases = cs.vio_store_path(torch, dev)
+  cases = {k: v[:3] for k, v in store_cases.items()}
+  cases["long-tail batch"] = cs.tri_tail_case(torch, dev)
+  results = {"shipped": shipped}
+  for label, (to_c, poses, uv) in cases.items():
+    N, K = poses.shape[:2]
+    ref = [a.clone() for a in cs.kernel8_launch(builds["shipped"][0], to_c,
+                                                poses, uv)()]
+    par = None if parent is None else [
+        a.clone() for a in cs.kernel8_launch(builds["parent"][0], to_c,
+                                             poses, uv)()]
+
+    def bits(out, other):
+      return other is not None and all(
+          torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+          for a, b in zip(out, other))
+
+    results[label] = {}
+    runs = [(name, b, poses) for name, b in builds.items()]
+    if poses.stride(0) == 0:
+      runs.insert(1, ("shipped, per-track setup (contiguous copy)",
+                      builds["shipped"], poses.contiguous()))
+    for name, (lib, ptx, secs), pp in runs:
+      launch = cs.kernel8_launch(lib, to_c, pp, uv)
+      out = launch()
+      raw = cs.queued_ms(launch)
+      floor_lib = lib if hasattr(lib, "triangulate_floor_launch") else \
+          builds["block=64"][0]    # the parent's grid: 64 tracks a block
+      floor = cs.queued_ms(cs.kernel8_floor(floor_lib, N, K))
+      row = dict(raw=raw[:3], floor=floor[:3], queued=raw[4] and floor[4],
+                 bitwise_shipped=bits(out, ref),
+                 bitwise_parent=bits(out, par), max_iters=int(out[2].max()),
+                 iterations=int(out[2].sum()), ptxas=ptx, nvcc_s=secs,
+                 info=tri_info(lib, K))
+      results[label][name] = row
+      cs.log(f"kernel 8 {label} (N={N} K={K}) {name}: raw {raw[0]:.5f} ms "
+             f"({raw[1]:.5f}-{raw[2]:.5f}), floor {floor[0]:.5f} ms "
+             f"({floor[1]:.5f}-{floor[2]:.5f}), queued {row['queued']}; "
+             f"bitwise as shipped {row['bitwise_shipped']}, as the parent "
+             f"{row['bitwise_parent']}; iterations {row['iterations']}, "
+             f"largest {row['max_iters']}; ptxas {ptx}; runtime "
+             f"{row['info']}; nvcc {secs:.1f} s")
+    if parent is not None:
+      times = {"parent": [], "this": []}
+      for which in ("parent", "this", "this", "parent"):
+        lib = builds["parent" if which == "parent" else "shipped"][0]
+        times[which].append(cs.queued_ms(cs.kernel8_launch(
+            lib, to_c, poses, uv))[0])
+      results[label]["in turns"] = times
+      cs.log(f"kernel 8 {label} raw in turns: parent {times['parent']} ms, "
+             f"this {times['this']} ms")
+  # the wrappers, each tree's in a fresh process, in turns
+  SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+  path = SWEEP_DIR / "k8_cases.pt"
+  torch.save({label: (to_c.cpu(), poses[0].cpu() if poses.stride(0) == 0
+                      else poses.cpu(), uv.cpu())
+              for label, (to_c, poses, uv) in cases.items()}, path)
+  trees = {"this": ROOT} | ({} if parent is None else {"parent": parent})
+  wrapped = {which: [] for which in trees}
+  for which in (("parent", "this", "this", "parent") * 2 if parent is not None
+                else ("this", "this")):
+    proc = subprocess.run([sys.executable, "-c", TRI_WRAP_SCRIPT, str(path)],
+                          cwd=trees[which], capture_output=True, text=True,
+                          check=True)
+    wrapped[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+  results["wrapped in turns"] = wrapped
+  for label in cases:
+    cs.log(f"kernel 8 {label} wrapped in turns (host clock ms a call after "
+           f"a synchronize; the wrapper's host ms a call): " + "; ".join(
+               f"{which} " + ", ".join(
+                   f"{r[label]['wrapped']:.5f} ({r[label]['wrapped_min']:.5f}"
+                   f"-{r[label]['wrapped_max']:.5f}), host "
+                   f"{r[label]['host']:.5f}" for r in runs)
+               + " (host median "
+               f"{statistics.median(r[label]['host'] for r in runs):.5f})"
+               for which, runs in wrapped.items()))
+  # the wrapper's steps, one at a time (host us a call, the card busy)
+  to_c, poses, uv = cases[f"frame {cs.STORE_FRAMES - 1}"]
+  N = poses.shape[0]
+  steps = {
+      "checks and to_c as it is (this wrapper)": lambda: tri._launch(
+          to_c, poses, uv),
+      "raw ctypes launch": cs.kernel8_launch(_build.library(), to_c, poses,
+                                             uv),
+      "torch.as_tensor(to_c).contiguous()": lambda: torch.as_tensor(
+          to_c, dtype=poses.dtype, device=poses.device).contiguous(),
+      "three torch.empty": lambda: (
+          torch.empty((N, 3), dtype=poses.dtype, device=dev),
+          torch.empty((N,), dtype=torch.bool, device=dev),
+          torch.empty((N,), dtype=torch.int32, device=dev)),
+      "torch.cuda.current_stream(dev).cuda_stream": lambda:
+          torch.cuda.current_stream(dev).cuda_stream,
+  }
+  results["wrapper steps us"] = {}
+  for name, fn in steps.items():
+    us = cs.queued_ms(fn, reps=200, batches=3)[3] * 1e3
+    results["wrapper steps us"][name] = us
+    cs.log(f"kernel 8 wrapper step, {name}: {us:.2f} us a call (host)")
+  return results
+
+
 def template_ab(torch, dev, gen, parent_template):
   """Kernels 4, 5, 6 and 7, whose emitted text is the same in both trees,
   each built with this tree's template and with the parent's and timed in
@@ -807,12 +1054,12 @@ def main():
 
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
-                  help="a checkout of an earlier commit: its kernels 2 and "
-                       "3 run beside these")
+                  help="a checkout of an earlier commit: its kernels 1, "
+                       "2, 3 and 8 run beside these")
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
-                       "frames, kernel 1, kernel 5, kernel 9")
+                       "frames, kernel 1, kernel 5, kernel 9, kernel 8")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -849,7 +1096,9 @@ def main():
     results["frames"] = frame_sweep(torch, cases, fsrc)
   if "stream" in args.parts:
     results["kernel 9"] = stream_sweep(torch, dev, gen)
-  if args.parent is not None:
+  if "triangulate" in args.parts:
+    results["kernel 8"] = tri_sweep(torch, dev, args.parent)
+  if args.parent is not None and set(args.parts) - {"triangulate"}:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))

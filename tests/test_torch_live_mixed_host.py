@@ -91,7 +91,10 @@ def _run_host(x, P, dts, kind_idx, zs, R_by_kind, r_stream, gate):
   for i, k in enumerate(ALL_KINDS):
     dz = live_lane.LANE_KINDS[k][0]
     R[i, :dz, :dz] = R_by_kind[k]
-  c = lambda a, dt=np.float64: np.ascontiguousarray(a, dtype=dt)  # noqa
+  # copies: the host build writes x and P in place, and the caller's P
+  # may still be read by a JAX call dispatched before (jnp.asarray of a
+  # numpy array on the CPU reads it asynchronously)
+  c = lambda a, dt=np.float64: np.array(a, dtype=dt, order="C")  # noqa
   xs, Ps = c(x.T), c(P)
   args = [xs, Ps, c(zs.transpose(0, 2, 1)), c(dts), c(kind_idx, np.int32),
           c(ALL_KINDS, np.int32), c(R),
@@ -152,8 +155,8 @@ def _run_scan_host(x, P, dts, zs, R, gate):
   fn = _lib().live_scan_host
   fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double]
   fn.restype = ctypes.c_int
-  c = lambda a: np.ascontiguousarray(a, dtype=np.float64)  # noqa: E731
-  xs, Ps = c(x.T), c(P)
+  c = lambda a: np.array(a, dtype=np.float64, order="C")  # noqa: E731
+  xs, Ps = c(x.T), c(P)   # copies, as in _run_host
   args = [xs, Ps, c(zs.transpose(0, 2, 1)), c(dts), c(np.diag(LiveKalman.Q)),
           c(R)]
   rc = fn(*[a.ctypes.data for a in args], len(dts), x.shape[0], int(gate),

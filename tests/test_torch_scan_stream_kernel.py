@@ -107,7 +107,11 @@ def run_host(spec, kinds, Q, x0, P0, dts, ki, zs, Rs, tile=False):
   wrapper's bank-minor layout."""
   call = generic_scan.KernelCall(spec, "stream", kinds, Q=Q)
   fn = host_stream(call.source(torch.float64, tile=tile))
-  c = lambda a, dt=np.float64: np.ascontiguousarray(a, dtype=dt)  # noqa
+  # copies: the host build writes x and P in place, and at B = 1 the
+  # transposes of x0 and P0 are contiguous views of the caller's arrays,
+  # which a JAX call dispatched before may still be reading (jnp.asarray
+  # of a numpy array on the CPU reads it asynchronously)
+  c = lambda a, dt=np.float64: np.array(a, dtype=dt, order="C")  # noqa
   prm = c([float(call.params[k]) for k in call._pnames] or [0.0])
   T, B = len(dts), x0.shape[0]
   x, P = c(x0.T), c(np.transpose(P0, (1, 2, 0)))

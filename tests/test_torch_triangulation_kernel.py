@@ -11,7 +11,13 @@ sentinel rows (no observation: u = v = 0 in every frame) and rows of
 noise among them, and with the camera at rest (no parallax: the inverse
 depth is unobservable and no track converges, in any of the three
 programs); float32 against the plain version in float32; a stride-0 pose
-window. Skips, with the reason, where no C++ compiler is on PATH.
+window (set up once, as the kernel's blocks do) against the same poses
+read a track at a time, bitwise; the dispatch on K at its ends (K = 1:
+two rows for three unknowns, every track NaN and unconverged; K = MAX_K
+against JAX and the plain version); the long-tail batch (768 tracks at
+K = 8, a few in a hundred running all 30 iterations, the batch
+chip_smoke.py holds on the card). Skips, with the reason, where no C++
+compiler is on PATH.
 
 Tolerances, float64: converged flags equal; where the host build and the
 plain version take the same number of Gauss-Newton iterations, positions
@@ -28,9 +34,11 @@ the threshold can converge in one float32 program and not in the other:
 where both converge in as many iterations.
 
 Card-only cases (marked cuda) launch kernel 8 against its plain version
-on the card; this file imports JAX only in a try (the card's machine has
-none): `python -m pytest tests/test_torch_triangulation_kernel.py -m cuda
---noconftest`."""
+on the card, and against the host build bit for bit on a store-like
+window and on the long-tail batch (skipped, with the reason, where no
+host C++ compiler is on PATH); this file imports JAX only in a try (the
+card's machine has none): `python -m pytest
+tests/test_torch_triangulation_kernel.py -m cuda --noconftest`."""
 
 import ctypes
 import pathlib
@@ -57,6 +65,9 @@ TO_C = {"identity": np.eye(3),
                             [1.0, 0.0, 0.0]])}
 RTOL64, RTOL32 = 1e-9, 1e-4
 ITER_SHARE = 0.05
+# the long-tail batch, tracks(0, TAIL_N, TAIL_K), and the tolerance of its
+# slowly converging tracks (below)
+TAIL_N, TAIL_K, TAIL_RTOL64 = 768, 8, 1e-6
 _LIB = []
 
 
@@ -248,6 +259,122 @@ def test_host_build_reads_a_stride_0_window():
                     tri.MAX_K + 1, 1) != 0
 
 
+def store_like(n=768, pad=18, K=4, seed=0):
+  """The VIO store's triangulation inputs in kind: one window of K
+  identity attitudes on a camera moving in the x-y plane (chip_smoke.
+  cohort_tracker's), expanded over n tracks with stride 0; exact
+  projections of landmarks ~10 m ahead, the last `pad` rows padding
+  (u = v = 0 in every frame)."""
+  rng = np.random.RandomState(seed)
+  window = np.zeros((K, 7))
+  window[:, 0] = 0.2 * np.arange(K)
+  window[:, 1] = -0.1 * np.arange(K)
+  window[:, 3] = 1.0
+  land = np.array([1.0, 2.0, 10.0]) + np.concatenate(
+      [0.5 * rng.randn(n, 2), 1.0 + 0.2 * rng.randn(n, 1)], axis=1)
+  rel = land[:, None, :] - window[None, :, :3]
+  uv = rel[..., :2] / rel[..., 2:3]
+  uv[n - pad:] = 0.0
+  return np.broadcast_to(window, (n, K, 7)), uv
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", ["store", "K=2", "K=8", "K=16"])
+def test_host_build_shared_window_equals_per_track(case, dtype):
+  """A stride-0 pose window, set up once (A_k, p_k and M, as a block of
+  the kernel sets it up in shared memory), against the same window copied
+  to every track and set up a track at a time: bitwise, on the store-like
+  window with its padding rows (in float64, the VIO store's type, NaN and
+  unconverged in both, every other row converged) and on random windows
+  of K = 2, 8 and MAX_K."""
+  if case == "store":
+    window, uv = store_like(n=64, pad=6)
+  else:
+    K = int(case[2:])
+    poses, uv = tracks(70 + K, 24, K)
+    window = np.broadcast_to(poses[2:3], poses.shape)
+  assert window.strides[0] == 0
+  a = host(np.eye(3), window, uv, dtype)
+  b = host(np.eye(3), np.ascontiguousarray(window), uv, dtype)
+  for u, v in zip(a, b):
+    np.testing.assert_array_equal(u, v)
+  if case == "store" and dtype == np.float64:
+    assert np.isnan(a[0][-6:]).all() and not a[1][-6:].any()
+    assert a[1][:-6].all()
+
+
+def test_host_build_at_k_1_is_nan_and_unconverged():
+  """K = 1, the dispatch's first case: two rows for three unknowns. The
+  QR's third row is zero, so every step and position is NaN and no track
+  converges, after one iteration; the plain version refuses the
+  non-square triangular solve."""
+  poses, uv = tracks(80, 12, 2)
+  poses, uv = poses[:, 1:], uv[:, 1:]
+  hp, hc, hi = host(np.eye(3), poses, uv)
+  assert np.isnan(hp).all() and not hc.any() and (hi == 1).all()
+  with pytest.raises(RuntimeError):
+    _plain(np.eye(3), poses, uv)
+
+
+def test_host_build_at_max_k_matches_jax_and_plain():
+  """K = MAX_K, the dispatch's last case, float64, camera moving: flags
+  equal to JAX's and the plain version's, positions within 1e-9 where the
+  iteration counts agree (most real tracks converge: over 16 frames of
+  random attitudes a few run all 30 iterations), and the sentinel's and
+  the noise row's non-finite entries where the plain version's are."""
+  K = tri.MAX_K
+  poses, uv = tracks(10 + K, 40, K)
+  hp, hc, hi = host(np.eye(3), poses, uv)
+  jp, jc = (np.asarray(a) for a in jtri.compute_pos_batch(
+      jnp.eye(3), jnp.asarray(poses), jnp.asarray(uv)))
+  tp, tc, ti = _plain(np.eye(3), poses, uv)
+  np.testing.assert_array_equal(hc, jc)
+  np.testing.assert_array_equal(hc, tc)
+  assert hc[2:].mean() > 0.8
+  same = hi == ti
+  assert (~same).mean() <= ITER_SHARE
+  ok = hc & same
+  assert _close(hp[ok], jp[ok], RTOL64).all()
+  assert _close(hp[ok], tp[ok], RTOL64).all()
+  np.testing.assert_array_equal(np.isfinite(hp[:2]), np.isfinite(tp[:2]))
+
+
+def test_host_build_long_tail_batch():
+  """The long-tail batch (768 tracks at K = 8, float64): some tracks run
+  all 30 iterations. Flags equal to JAX's and the plain version's on
+  every row. Apart, on at most ITER_SHARE of the rows: those whose
+  iteration counts differ from the plain version's (2 here), and those
+  neither program converges that are NaN in one only (a track that never
+  converges has no position: after 30 iterations the two roundings can
+  leave it finite in one and NaN in the other, 1 row here). Every other
+  row's non-finite entries equal the plain version's. Where the counts
+  agree and the track converges, positions within 1e-9 of JAX's and the
+  plain version's, or within TAIL_RTOL64 for a track that converged in
+  more than 10 iterations (two here: one at 20 parts from the plain
+  version by 1.2e-7 m and from JAX by 2.5e-7 m, the three roundings
+  of a slow chain); rows apart within 1e-4 where both converge."""
+  poses, uv = tracks(0, TAIL_N, TAIL_K)
+  hp, hc, hi = host(np.eye(3), poses, uv)
+  jp, jc = (np.asarray(a) for a in jtri.compute_pos_batch(
+      jnp.eye(3), jnp.asarray(poses), jnp.asarray(uv)))
+  tp, tc, ti = _plain(np.eye(3), poses, uv)
+  assert (hi == tri.MAX_ITERS).sum() >= 5
+  np.testing.assert_array_equal(hc, jc)
+  np.testing.assert_array_equal(hc, tc)
+  finite = np.isfinite(hp).all(axis=1) == np.isfinite(tp).all(axis=1)
+  apart = (hi != ti) | (~hc & ~finite)
+  assert apart.mean() <= ITER_SHARE, \
+      f"{int(apart.sum())} of {len(apart)} tracks part"
+  np.testing.assert_array_equal(np.isfinite(hp[~apart]),
+                                np.isfinite(tp[~apart]))
+  ok = hc & ~apart
+  rtol = np.where(hi > 10, TAIL_RTOL64, RTOL64)[ok, None]
+  for ref in (jp, tp):
+    assert _close(hp[ok], ref[ok], rtol).all()
+  assert _close(hp[hc], jp[hc], RTOL32).all()
+  assert _close(hp[hc], tp[hc], RTOL32).all()
+
+
 def test_cpu_tensors_take_the_plain_version():
   """On CPU tensors compute_pos_batch and compute_pos (a batch of one)
   run the plain version and launch nothing."""
@@ -332,3 +459,28 @@ def test_kernel8_refuses_what_it_does_not_take(cuda_device):
                     device=cuda_device)
   with pytest.raises(ValueError):
     tri.compute_pos_batch(to_c, big, big[..., :2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["store", "long tail"])
+def test_kernel8_equals_host_build_on_the_card(cuda_device, case, dtype):
+  """Kernel 8 on the card against its host build, bit for bit (positions,
+  NaN where the host build has NaN, flags and iteration counts): the
+  store-like window (stride 0, set up once a block; and its contiguous
+  copy, set up a track at a time) with its padding rows, and the
+  long-tail batch (768 tracks at K = 8, some at 30 iterations)."""
+  if case == "store":
+    poses, uv = store_like()
+  else:
+    poses, uv = tracks(0, TAIL_N, TAIL_K)
+  npdt = np.float64 if dtype == torch.float64 else np.float32
+  want = host(np.eye(3), np.ascontiguousarray(poses), uv, npdt)
+  t = lambda a: torch.as_tensor(np.ascontiguousarray(a, npdt),  # noqa: E731
+                                device=cuda_device)
+  p = t(poses[:1]).expand(poses.shape) if case == "store" else t(poses)
+  for pp in (p, p.contiguous()):
+    got = [a.cpu().numpy() for a in tri._launch(t(np.eye(3)), pp, t(uv))]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
