@@ -8,7 +8,7 @@ _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each, the examples' variants among
 them). Then:
-  1. nine main paths, each with every kernel's launch count set to 0
+  1. ten main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (the engine on the native rewind ring; P
@@ -105,7 +105,13 @@ them). Then:
        4 ranges, a bearing and a cross, T = 512 each; on data
        consistent with a truth simulated per lane; finite, P exactly
        symmetric, no diverged lane, the battery's lanes tracking their
-       truth.
+       truth;
+     - the gradient through the log: the offline path's live log (64
+       lanes x T = 8192, float32) through runtime/scan's scan_fn vmapped
+       over the lanes, torch.autograd.grad of the innovation NLL of its
+       predicted stacks w.r.t. Q, Rs, x0, P0 and zs: kernel 9 once and
+       kernel 10 (the backward, csrc/stream_adjoint.cuh) once, no other;
+       the gradients finite and nonzero, no gate flip.
      Every kernel of a path must have launched in it, and no main path
      may run the plain version of kernel 8 or 9; the VIO path launches
      kernels 6 (its camera-frame branch) and 8 and no other, the offline
@@ -174,6 +180,16 @@ them). Then:
      and SCAN_RAGGED_B lanes) with planted faults beyond it, float32
      from a converged state within GEN_TOL; timed with its bound, and
      both forms as raw launches in turns at SCAN_CMP_T and RTS_T.
+     Kernel 10 against autograd through the plain version on the same
+     64 lanes over SCAN_CMP_T steps (compare_scan_grad): float64 from
+     the prior within GRAD64_TOL of each gradient's largest entry, with
+     planted faults beyond it, float32 from a converged state within
+     GRAD32_TOL with the same faults beyond it, the gated live spec's
+     log with outliers in both types (steps rejected), no gate flip on
+     any; timed wrapped and raw at SCAN_CMP_T and
+     RTS_T with its bound, and the plain backward. The maximum-likelihood
+     tuning of tests/test_differentiable.py through kernels 9 and 10
+     (ml_tuning: T = 800, 200 momentum steps from two starts, float64).
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -191,6 +207,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -398,6 +415,33 @@ USER_T, USER_OBS, USER_DT = 512, 8, 0.05
 USER_FAR, USER_TRACK = 5.0, 0.99
 USER_CMP_NOISE = 0.3
 USER64_TOL = 1e-6
+# the tenth path, the gradient through the log: scan_fn vmapped over the
+# offline path's live log (RTS_B lanes x RTS_T steps, float32,
+# SCAN_KINDS), the loss the innovation NLL of its predicted stacks summed
+# over the lanes (innovation_nll), its gradients w.r.t. Q, Rs, x0, P0 and
+# zs: one launch of kernel 9 and one of kernel 10 (the backward) and no
+# run of the plain version. Kernel 10 against autograd through the plain
+# version (compare_scan_grad) on RTS_B lanes x SCAN_CMP_T steps of the same
+# log, the loss a random weighting of all six outputs: float64 from the
+# prior within GRAD64_TOL of each gradient's largest entry (the double
+# limit of the forward, SCAN64_TOL), with planted faults beyond it;
+# float32 from the state the float64 kernel reaches in SCAN_WARM steps
+# within GRAD32_TOL (measured 3.5e-6 on the card, H100 80GB HBM3 700 W;
+# 1e-2 before that reading), with the same planted faults beyond it; the
+# gated live spec's log from that state, every GRAD_FAR-th lane's
+# positions GRAD_FAR_M off, in both types at their limits: some steps
+# rejected, and no step whose gate decision, recomputed by kernel 10,
+# differs from the forward's
+GRAD64_TOL = SCAN64_TOL
+GRAD32_TOL = 1e-4
+GRAD_FAR, GRAD_FAR_M = 4, 100.0
+# the maximum-likelihood tuning of tests/test_differentiable.py through
+# kernels 9 and 10 (ml_tuning): the kinematic filter's innovation NLL over
+# ML_T steps, ML_STEPS momentum steps (lr 2, momentum 0.9) from
+# log q = log 1e-4 and log 1e4 in float64; both estimates within ML_RATIO
+# of each other in log, and within ML_BAND of the ML optimum 0.2
+ML_T, ML_STEPS = 800, 200
+ML_RATIO, ML_BAND = 0.05, (0.6, 1.6)
 # the least time the card could take (peak rates from NVIDIA's H100 SXM
 # data sheet): operations over the peak rate of their type, compulsory
 # bytes over the memory rate
@@ -592,6 +636,35 @@ def io_bytes(items, itemsize):
     elif isinstance(a, (list, tuple)):
       n += io_bytes(a, itemsize)
   return n
+
+
+def adjoint_bytes(call, kind_idx, B, itemsize):
+  """Kernel 10's compulsory bytes on a log of kinds kind_idx (numpy) for
+  B lanes: read once, x0, P0's upper entries, each step's z rows and extra
+  args of its kind, the upper entries of each step's R block, dts,
+  kind_idx (int32), the params, Q's pattern entries (upper), the stacks
+  it recomputes from (every predicted x and P, P's upper entries; the
+  posterior ones of steps 0 .. T-2, and of a gated log the diagonal of
+  the last posterior P, which holds the decision) and the six outputs'
+  cotangents (full matrices); written once, the gradients at the size of
+  the function's outputs: x0's, P0's, Q's and each R block's upper
+  entries, each step's z rows and extra args a lane, dts' and the
+  params' (the shared inputs' once, not per lane)."""
+  spec, T = call.spec, len(kind_idx)
+  dx, de = spec.dim_x, spec.dim_err
+  up = de * (de + 1) // 2
+  obs = [spec.obs[call.kinds[int(k)]] for k in kind_idx]
+  sz = sum(o.dz for o in obs)
+  se = sum(o.ea_len for o in obs)
+  sr = sum(o.dz * (o.dz + 1) // 2 for o in obs)
+  q = int(np.count_nonzero(np.triu(np.asarray(call.Q))))
+  n_prm = len(call._pnames)
+  gated = T > 0 and any(spec.obs[k].maha_test for k in call.kinds)
+  lane_in = (dx + up + sz + se + T * (dx + up) + max(T - 1, 0) * (dx + up)
+             + (de if gated else 0) + (1 + 2 * T) * (dx + de * de))
+  lane_out = dx + up + sz + se
+  shared = T + sr + n_prm + q + sr + T + up + n_prm
+  return (B * (lane_in + lane_out) + shared) * itemsize + 4 * T
 
 
 def bound(nbytes, ops, double=False):
@@ -2812,6 +2885,164 @@ def stream_err(spec, out, ref):
   return worst
 
 
+def adjoint_calls():
+  """Kernel 10's variants (mode "stream_adjoint") and the kernel 9
+  variants that its comparisons add, by name, each with the dtype it runs
+  in: the live log's adjoint in float32 (the tenth path) and float64
+  (compare_scan_grad), the gated live spec's scan and adjoint in both
+  (compare_scan_grad), the kinematic log's scan and adjoint in float64
+  (ml_tuning, Q = diag(0.1^2, q))."""
+  import torch
+
+  from rednose_tpu_torch.models.kinematic import (
+      KinematicKalman,
+      ObservationKind as KK,
+  )
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime.live_bank import gated_live_spec
+
+  live, kin = LiveKalman.build_spec(), KinematicKalman.build_spec()
+  q_kin = np.diag([0.1**2, 1.0])
+  calls = {
+      "live log adjoint (kernel 10)": (gs.KernelCall(
+          live, "stream_adjoint", SCAN_KINDS, Q=LiveKalman.Q), torch.float32),
+      "live log adjoint (kernel 10), float64": (gs.KernelCall(
+          live, "stream_adjoint", SCAN_KINDS, Q=LiveKalman.Q), torch.float64),
+      "ML tuning log scan (kernel 9), float64": (gs.KernelCall(
+          kin, "stream", (KK.POSITION,), Q=q_kin), torch.float64),
+      "ML tuning log adjoint (kernel 10), float64": (gs.KernelCall(
+          kin, "stream_adjoint", (KK.POSITION,), Q=q_kin), torch.float64)}
+  for mode, kernel in (("stream", "scan (kernel 9)"),
+                       ("stream_adjoint", "adjoint (kernel 10)")):
+    for dtype in (torch.float32, torch.float64):
+      calls[f"gated live log {kernel}, {str(dtype).split('.')[-1]}"] = (
+          gs.KernelCall(gated_live_spec(), mode, SCAN_KINDS, Q=LiveKalman.Q),
+          dtype)
+  return calls
+
+
+def adjoint_launch(source, call, x0, P0, zs, dts, kind_idx, Rs, stacks,
+                   cots, fn=None):
+  """A launch of the build of an emitted adjoint `source` (its
+  rn_generic_stream_adjoint_launch) with call's params and Q, on kernel
+  9's bank-minor inputs (x0 (dim_x, B), P0 (de, de, B), zs (T, max_dz, B)),
+  its stacks (xp, Pp, xq, Pq) and the cotangents (gx, gP, gxp, gPp, gxq,
+  gPq), its outputs allocated once, no checks between launches (a kind
+  without extra args). Returns the zero-argument launch, which returns
+  the outputs."""
+  import torch
+
+  from rednose_tpu_torch import _build
+
+  fn = fn or _build.generated_launcher(source)
+  spec, dev, dtype = call.spec, x0.device, x0.dtype
+  prm = torch.as_tensor([float(call.params[k]) for k in call._pnames]
+                        or [0.0], dtype=dtype, device=dev)
+  Q = torch.as_tensor(call.Q, dtype=dtype, device=dev)
+  ki = torch.as_tensor(kind_idx, device=dev).to(torch.int32)
+  T, B = dts.shape[0], x0.shape[-1]
+  nz, dx, de = zs.shape[1], spec.dim_x, spec.dim_err
+  new = x0.new_empty
+  outs = (new((dx, B)), new((de, de, B)), new((T, nz, B)),
+          new((T, nz, nz, B)), new((T, B)), new((de, de, B)),
+          new((prm.shape[0], B)), torch.zeros(B, dtype=torch.int32,
+                                              device=dev))
+  stream = torch.cuda.current_stream(dev).cuda_stream
+
+  def launch():
+    args = (x0, P0, zs, None, dts, ki, Rs, prm, Q, *stacks, *cots,
+            *outs[:5], None, *outs[5:])
+    _build.check(fn(*(None if a is None else a.data_ptr() for a in args),
+                    T, B, stream), "kernel 10")
+    return outs
+
+  return launch
+
+
+def innovation_nll(torch, spec, kinds, ki, xp, Pp, zs, Rs, eas):
+  """The innovation negative log-likelihood of a log's predicted stacks,
+  summed over the lanes and the steps: 0.5 (log det S + y^T S^-1 y) with
+  y = z - h(x_pred) and S = H P_pred H^T + R, each step's kind's h and H
+  (as core/step.py takes them: H through H_mod for an error-state spec)
+  on its dz leading rows of zs and block of Rs. xp (B, T, dx), Pp (B, T,
+  de, de), zs (T, B, max_dz), Rs (T, max_dz, max_dz), eas (T, max_ea)."""
+  from torch.func import vmap
+
+  total = 0.0
+  for u, k in enumerate(kinds):
+    om = spec.obs[k]
+    idx = torch.as_tensor(np.nonzero(np.asarray(ki) == u)[0],
+                          device=xp.device)
+
+    def h_and_H(x, ea, k=k, om=om):
+      ea = ea[:max(om.ea_len, 1)]
+      H = spec.H(k, {}, x, ea)
+      if spec.is_eskf:
+        H = H @ spec.H_mod_at({}, x)
+      return om.h({}, x, ea).reshape(-1), H
+
+    h, H = vmap(vmap(h_and_H), in_dims=(0, None))(xp[:, idx], eas[idx])
+    S = H @ Pp[:, idx] @ H.transpose(-1, -2) + Rs[idx, :om.dz, :om.dz]
+    y = zs[idx, :, :om.dz].transpose(0, 1) - h
+    L = torch.linalg.cholesky(S)
+    w = torch.linalg.solve_triangular(L, y[..., None], upper=False)
+    total = total + 0.5 * (
+        2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum()
+        + (w ** 2).sum())
+  return total
+
+
+def grad_path(torch, dev, gen):
+  """Phase 1, the tenth path: the gradient through the offline log. The
+  offline path's live log (scan_log: RTS_B lanes x RTS_T steps, float32)
+  through runtime/scan.build_scan_stream's scan_fn vmapped over the lanes,
+  the innovation NLL of its predicted stacks (innovation_nll) summed over
+  the lanes, and torch.autograd.grad of it w.r.t. Q, Rs, x0, P0 and zs:
+  kernel 9 once, kernel 10 once (the backward of the custom op), the
+  plain loop never (the caller checks the counts). The gradients finite
+  and nonzero, no gate flip; host-clock times after a synchronise."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+
+  spec = LiveKalman.build_spec()
+  scan_fn, _ = build_scan_stream(spec, SCAN_KINDS)
+  T, B = RTS_T, RTS_B
+  x0, P0, Q, dts, ki, zs, Rs, eas = scan_log(torch, dev, gen, T, B,
+                                              torch.float32)
+  ins = [a.clone().requires_grad_() for a in (Q, Rs, x0, P0, zs)]
+  Qg, Rg, xg, Pg, zg = ins
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, (xp, Pp, _, _) = vmap(
+      lambda x, P, z: scan_fn({}, x, P, Qg, dts, ki, z, Rg, eas),
+      in_dims=(0, 0, 1))(xg, Pg, zg)
+  nll = innovation_nll(torch, spec, SCAN_KINDS, ki, xp, Pp, zg, Rg, eas)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  grads = torch.autograd.grad(nll, ins)
+  torch.cuda.synchronize()
+  t2 = time.perf_counter()
+  flips = int(gs.stream_bank_scan_adjoint.gate_flips.sum())
+  require(bool(torch.isfinite(nll)), f"the log's NLL is finite: {nll}")
+  require(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+              for g in grads), "the gradients through the log are finite "
+          "and nonzero")
+  require(flips == 0, f"kernel 10 followed every gate decision of kernel "
+          f"9 without a flip: {flips}")
+  log(f"gradient through the log (scan_fn vmapped, B={B} x T={T} live steps, "
+      f"float32): NLL {float(nll.detach()):.6g}; forward + NLL "
+      f"{(t1 - t0) * 1e3:.1f} ms, backward (kernel 10 and the NLL's) {(t2 - t1) * 1e3:.1f} ms "
+      f"(host clock, first call, with the build's load); largest gradient "
+      + ", ".join(f"{n} {float(g.abs().max()):.4g}" for n, g in zip(
+          ("Q", "Rs", "x0", "P0", "zs"), grads))
+      + f"; gate flips {flips}")
+  return {}
+
+
 def offline_path(torch, dev, gen):
   """Phase 1, offline smoother and migration, all on the card: (a) the
   full-Q live bank; (b) a live log through the scan stream for RTS_B
@@ -3198,6 +3429,304 @@ def compare_scan(torch, dev, gen, reps=5):
                       for a, b in zip(out32, ref32)),
       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
       shape=f"live log B={B} T={T}, float32")]
+
+
+def compare_scan_grad(torch, dev, gen, reps=3):
+  """Phase 2, kernel 10 (the log scan's adjoint, the backward of scan_fn's
+  custom op) against autograd through its plain version
+  (build_scan_stream_reference) on RTS_B lanes of the offline path's live
+  log over SCAN_CMP_T steps, scan_fn vmapped over the lanes, the loss a
+  random weighting of all six outputs, the gradients of x0, P0, Q, dts, zs
+  and Rs (P0's, Q's and Rs's symmetric parts) each in relative error (the
+  largest difference over the plain gradient's largest entry): float64
+  from the prior within GRAD64_TOL, and planted faults (Rs x 1.01, Q's
+  largest diagonal entry halved: the kernel's gradient at other inputs)
+  beyond it; float32 from the state the float64 kernel 9 reaches in
+  SCAN_WARM steps within GRAD32_TOL, the same faults beyond it; the gated
+  live spec's log from that state, every GRAD_FAR-th lane's positions
+  GRAD_FAR_M off, float64 and float32 within their limits, with steps
+  rejected by the forward; no gate flip on any log. Timed: the backward
+  (host clock after a synchronise, one run each, the plain one the row's
+  plain time); kernel 10 alone wrapped (stream_bank_scan_adjoint, CUDA
+  events, mean of reps) and raw (adjoint_launch) at SCAN_CMP_T and RTS_T
+  (a float32 log from the prior, kernel 9's stacks, random cotangents).
+  The bound: the adjoint's emitted operations a step (the log's two kinds
+  in turn) at the float32 peak, or the compulsory bytes (adjoint_bytes).
+  Each variant's registers,
+  stack and spills. Returns its row."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime.live_bank import gated_live_spec
+  from rednose_tpu_torch.runtime.scan import (
+      build_scan_stream,
+      build_scan_stream_reference,
+  )
+
+  spec = LiveKalman.build_spec()
+  kernel, _ = build_scan_stream(spec, SCAN_KINDS)
+  plain, _ = build_scan_stream_reference(spec, SCAN_KINDS)
+  gkernel, _ = build_scan_stream(gated_live_spec(), SCAN_KINDS)
+  gplain, _ = build_scan_stream_reference(gated_live_spec(), SCAN_KINDS)
+  calls = adjoint_calls()
+  call = calls["live log adjoint (kernel 10)"][0]
+  T, B, dx, de = SCAN_CMP_T, RTS_B, spec.dim_x, spec.dim_err
+  names = ("x0", "P0", "Q", "dts", "zs", "Rs")
+
+  def grads(fn, W, x0, P0, Q, dts, ki, zs, Rs, eas):
+    """(gradients by names, backward ms, rejected lane-steps): autograd
+    through fn vmapped over the lanes, the loss W's weighting of the six
+    outputs; a step is rejected where P's diagonal leaves the update as
+    predicted."""
+    ins = [a.detach().clone().requires_grad_()
+           for a in (x0, P0, Q, dts, zs, Rs)]
+    X0, PP0, QQ, DT, ZS, RR = ins
+    (x, P), st = vmap(lambda xl, Pl, zl: fn({}, xl, Pl, QQ, DT, ki, zl, RR,
+                                            eas),
+                      in_dims=(0, 0, 1))(X0, PP0, ZS)
+    loss = sum((o * w).sum() for o, w in zip((x, P, *st), W))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = list(torch.autograd.grad(loss, ins))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for i in (1, 2, 5):
+      g[i] = g[i] + g[i].transpose(-1, -2)
+    diag = lambda a: torch.diagonal(a.detach(), dim1=-2, dim2=-1)  # noqa: E731
+    rejected = int((diag(st[1]) == diag(st[3])).all(-1).sum())
+    return dict(zip(names, g)), ms, rejected
+
+  def rel(a, b):
+    return {n: float(((a[n] - b[n]).abs().max() / b[n].abs().max())
+                     .nan_to_num(nan=float("inf"))) for n in names}
+
+  def weights(dtype):
+    return [torch.randn(s, generator=gen, device=dev, dtype=dtype) for s in (
+        (B, dx), (B, de, de), (B, T, dx), (B, T, de, de), (B, T, dx),
+        (B, T, de, de))]
+
+  def flips():
+    return int(gs.stream_bank_scan_adjoint.gate_flips.sum())
+
+  def planted(W, args, ref):
+    """The largest relative error against ref of kernel 10's gradients at
+    planted faults of args: Rs x 1.01, Q's largest diagonal entry
+    halved."""
+    Qf = args[2].clone()
+    i = int(torch.diagonal(Qf).argmax())
+    Qf[i, i] *= 0.5
+    runs = {"Rs x 1.01": (*args[:6], 1.01 * args[6], args[7]),
+            f"Q[{i},{i}] halved": (*args[:2], Qf, *args[3:])}
+    return {k: max(rel(grads(kernel, W, *a)[0], ref).values())
+            for k, a in runs.items()}
+
+  def said(errs):
+    return ", ".join(f"{n} {e:.4g}" for n, e in errs.items())
+
+  log64 = scan_log(torch, dev, gen, SCAN_WARM + T, B, torch.float64)
+  x0, P0, Q, dts, ki, zs, Rs, eas = log64
+  head = (x0, P0, Q, dts[:T], ki[:T], zs[:T], Rs[:T], eas[:T])
+  W64 = weights(torch.float64)
+  g64, _, _ = grads(kernel, W64, *head)
+  f64 = flips()
+  r64, plain64_ms, _ = grads(plain, W64, *head)
+  e64 = rel(g64, r64)
+  fault_err = planted(W64, head, r64)
+  log(f"kernel 10 [live log B={B} T={T}, float64 from the prior]: relative "
+      f"error {said(e64)} (tolerance {GRAD64_TOL}); gate flips {f64}; "
+      f"planted faults {said(fault_err)}, each must exceed {GRAD64_TOL}, "
+      "with no extra build")
+  require(max(e64.values()) <= GRAD64_TOL and f64 == 0
+          and min(fault_err.values()) > GRAD64_TOL,
+          "kernel 10 holds in float64 against autograd through the plain "
+          "version, without a gate flip, and the planted faults fail")
+  # float32 from the state the float64 kernel 9 reaches in SCAN_WARM steps
+  with torch.no_grad():
+    (xw, Pw), _ = vmap(lambda xl, Pl, zl: kernel(
+        {}, xl, Pl, Q, dts[:SCAN_WARM], ki[:SCAN_WARM], zl, Rs[:SCAN_WARM],
+        eas[:SCAN_WARM]), in_dims=(0, 0, 1))(x0, P0, zs[:SCAN_WARM])
+  tail = [a[SCAN_WARM:].float() if torch.is_tensor(a) else a[SCAN_WARM:]
+          for a in (dts, ki, zs, Rs, eas)]
+  case = (xw.float(), Pw.float(), Q.float(), *tail)
+  W32 = [w.float() for w in W64]
+  g32, kernel_bw_ms, _ = grads(kernel, W32, *case)
+  f32 = flips()
+  r32, plain_ms, _ = grads(plain, W32, *case)
+  e32 = rel(g32, r32)
+  fault32 = planted(W32, case, r32)
+  log(f"kernel 10 [live log B={B} T={T}, float32 from the float64 kernel's "
+      f"state after {SCAN_WARM} steps]: relative error {said(e32)} "
+      f"(tolerance {GRAD32_TOL}); gate flips {f32}; planted faults "
+      f"{said(fault32)}, each must exceed {GRAD32_TOL}; backward "
+      f"{kernel_bw_ms:.1f} ms through kernel 10, {plain_ms:.1f} ms through "
+      "the plain version (host clock, one run each)")
+  require(max(e32.values()) <= GRAD32_TOL and f32 == 0
+          and min(fault32.values()) > GRAD32_TOL,
+          "kernel 10 holds in float32 from a converged state, and the "
+          "planted faults fail")
+  # the gated live spec from the same state, outliers on every
+  # GRAD_FAR-th lane: the gate rejects their positions
+  far = zs[SCAN_WARM:].clone()
+  far[0::2, ::GRAD_FAR] += GRAD_FAR_M
+  for dtype, W, tol in ((torch.float64, W64, GRAD64_TOL),
+                        (torch.float32, W32, GRAD32_TOL)):
+    args = [a.to(dtype) if torch.is_tensor(a) else a for a in (
+        xw, Pw, Q, dts[SCAN_WARM:], ki[SCAN_WARM:], far, Rs[SCAN_WARM:],
+        eas[SCAN_WARM:])]
+    g, _, rejected = grads(gkernel, W, *args)
+    fg = flips()
+    r, _, rejected_plain = grads(gplain, W, *args)
+    e = rel(g, r)
+    log(f"kernel 10 [gated live log B={B} T={T}, "
+        f"{str(dtype).split('.')[-1]} from the float64 kernel's state after "
+        f"{SCAN_WARM} steps, every {GRAD_FAR}th lane's positions "
+        f"{GRAD_FAR_M} m off]: relative error {said(e)} (tolerance {tol}); "
+        f"rejected lane-steps {rejected} (the plain version {rejected_plain}"
+        f"); gate flips {fg}")
+    require(max(e.values()) <= tol and fg == 0 and rejected > 0,
+            "kernel 10 follows the forward's gate decisions: steps rejected, "
+            "no flip, gradients within the limit")
+
+  # kernel 10 alone, wrapped and raw, at T and at RTS_T from the prior
+  def bank_case(args):
+    """Kernel 9's stacks of args (scan_fn's layout) and random cotangents,
+    all bank-minor: (x0, P0, zs, dts, ki, Rs, stacks, cotangents)."""
+    x0_, P0_, _, dts_, ki_, zs_, Rs_, _ = args
+    x0b, P0b = x0_.T.contiguous(), P0_.permute(1, 2, 0).contiguous()
+    zsb = zs_.transpose(1, 2).contiguous()
+    stacks = stream_launch(fwd_call.source(torch.float32), fwd_call, x0b,
+                           P0b, zsb, dts_, ki_, Rs_)()[2:]
+    cots = [torch.randn(a.shape, generator=gen, device=dev)
+            for a in (x0b, P0b, *stacks)]
+    return x0b, P0b, zsb, dts_, ki_, Rs_, stacks, cots
+
+  fwd_call = stream_calls()["live log scan (kernel 9)"][0]
+  long = scan_log(torch, dev, gen, RTS_T, B, torch.float32)
+  src = call.source(torch.float32)
+  times, shapes = {}, {}
+  for n, args in ((T, case), (RTS_T, long)):
+    x0b, P0b, zsb, dts_, ki_, Rs_, stacks, cots = bank_case(args)
+    ki32 = torch.as_tensor(ki_, device=dev).to(torch.int32)
+    prm = torch.zeros(1, device=dev)
+    Qd = torch.as_tensor(call.Q, dtype=torch.float32, device=dev)
+    k = reps if n == T else 2
+    wrapped, out = timed_run(lambda: gs.stream_bank_scan_adjoint(
+        call, x0b, P0b, zsb, dts_, ki32, Rs_, None, prm, Qd, *stacks,
+        *cots), k)
+    raw, _ = timed_run(adjoint_launch(src, call, x0b, P0b, zsb, dts_, ki_,
+                                      Rs_, stacks, cots), k)
+    times[n] = (wrapped, raw)
+    shapes[n] = adjoint_bytes(call, np.asarray(ki_), B, 4)
+    del stacks, cots, out
+  ops_step = step_ops(call.counting_source(), SCAN_KINDS, "mixed")
+  bounds = {n: bound(shapes[n], ops_step * n * B) for n in times}
+  bound_ms, bound_by = bounds[T]
+  for name, (c, dtype) in calls.items():
+    s = c.source(dtype)
+    info = _build.generated_info(s)
+    spills = [ln.split("info    :")[-1].strip() for ln in
+              _build.generated_ptxas(s).splitlines()
+              if "spill" in ln or "nvcc" in ln]
+    log(f"{name}, {str(dtype).split('.')[-1]}: design "
+        f"{'tile' if info['design'] else 'global'}, {info['threads']} threads "
+        f"a block, {info['blocks_per_sm']} blocks an SM, {info['registers']} "
+        f"registers, {info['local_bytes']} B of stack a thread; "
+        f"{len(s.splitlines())} lines; ptxas {spills}")
+  log(f"stream_bank_scan_adjoint (kernel 10) [live log B={B}, float32]: "
+      + "; ".join(f"T={n}: wrapped {w:.4f} ms, raw {r:.4f} ms (CUDA events), "
+                  f"{r / n * 1e3:.3f} us a step, bound {bounds[n][0]:.4g} ms "
+                  f"({bounds[n][1]})" for n, (w, r) in times.items())
+      + f"; {ops_step:,.0f} emitted operations a step; plain version "
+      f"(autograd through build_scan_stream_reference, T={T}) {plain_ms:.1f} "
+      "ms")
+  return [dict(
+      name="stream_bank_scan_adjoint", route="cuda",
+      source="rednose_tpu_torch/csrc/stream_adjoint.cuh",
+      replaces="jax.grad of rednose_tpu/runtime/scan.py:90 scan_fn (XLA's "
+               "transpose of the lax.scan; not Pallas)",
+      max_abs_err=max(float((g32[n] - r32[n]).abs().max()) for n in names),
+      ms=times[T][0], plain_ms=plain_ms, bound_ms=bound_ms,
+      bound_by=bound_by, shape=f"live log B={B} T={T}, float32")]
+
+
+def ml_sim(T, q_true, seed):
+  """tests/test_differentiable._sim: a 1-D constant-velocity truth with
+  velocity noise q_true * 0.01 a step, measured with noise 0.1. Returns
+  the measurements."""
+  rng = np.random.default_rng(seed)
+  xs, v, x = np.zeros((T,)), 0.0, 0.0
+  for k in range(T):
+    v += rng.normal(0, q_true * 0.01)
+    x += v * 0.01
+    xs[k] = x
+  return xs + rng.normal(0, 0.1, T)
+
+
+def ml_tuning(torch, dev):
+  """Phase 2, the maximum-likelihood tuning of tests/test_differentiable.py
+  on the card through kernels 9 and 10: the kinematic filter's innovation
+  NLL (mean over ML_T steps, from scan_fn's predicted stacks) under
+  Q = diag(0.1^2, exp(log q)), ML_STEPS momentum steps from log 1e-4 and
+  log 1e4, float64; each gradient one launch of kernel 9 and one of
+  kernel 10. Both estimates within ML_RATIO of each other in log and
+  within ML_BAND of the ML optimum 0.2."""
+  from rednose_tpu_torch.models.kinematic import (
+      KinematicKalman,
+      ObservationKind as KK,
+  )
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime.scan import (
+      build_scan_stream,
+      build_scan_stream_reference,
+  )
+
+  f = dict(dtype=torch.float64, device=dev)
+  z = torch.as_tensor(ml_sim(ML_T, 2.0, 1), **f)
+  fn, _ = build_scan_stream(KinematicKalman.build_spec(), (KK.POSITION,))
+  x0 = torch.as_tensor(KinematicKalman.initial_x, **f)
+  P0 = torch.as_tensor(np.diag(KinematicKalman.initial_P_diag), **f)
+  dts, ki = torch.full((ML_T,), 0.01, **f), np.zeros(ML_T, np.int32)
+  Rs, eas = torch.full((ML_T, 1, 1), 0.1**2, **f), torch.zeros((ML_T, 1), **f)
+
+  def nll_grad(log_q):
+    lq = log_q.clone().requires_grad_()
+    Q = torch.diag(torch.stack([torch.full((), 0.1**2, **f), torch.exp(lq)]))
+    _, (xp, Pp, _, _) = fn({}, x0, P0, Q, dts, ki, z[:, None], Rs, eas)
+    S = Pp[:, 0, 0] + 0.1**2
+    nll = (0.5 * (torch.log(S) + (z - xp[:, 0]) ** 2 / S)).mean()
+    return torch.autograd.grad(nll, lq)[0]
+
+  def fit(log_q0, lr=2.0, momentum=0.9):
+    log_q, m = torch.tensor(log_q0, **f), torch.zeros((), **f)
+    for _ in range(ML_STEPS):
+      m = momentum * m + nll_grad(log_q)
+      log_q = log_q - lr * m
+    return float(torch.exp(0.5 * log_q))
+
+  n9, n10 = gs.stream_bank_scan.launches, gs.stream_bank_scan_adjoint.launches
+  r = build_scan_stream_reference.launches
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  est_lo, est_hi = fit(np.log(1e-4)), fit(np.log(1e4))
+  secs = time.perf_counter() - t0
+  k9, k10 = (gs.stream_bank_scan.launches - n9,
+             gs.stream_bank_scan_adjoint.launches - n10)
+  truth = 2.0 * 0.01 / np.sqrt(0.01)
+  log(f"ML noise tuning (kinematic, T={ML_T}, {ML_STEPS} momentum steps from "
+      f"q = 1e-4 and 1e4, float64): estimates {est_lo:.6g} and {est_hi:.6g} "
+      f"(ML optimum {truth:.4g}; log-ratio {abs(np.log(est_lo / est_hi)):.4g},"
+      f" limit {ML_RATIO}); kernel 9 {k9} launches, kernel 10 {k10}; "
+      f"{secs:.1f} s (host clock), {secs / (2 * ML_STEPS) * 1e3:.2f} ms a "
+      "gradient")
+  require(k9 == k10 == 2 * ML_STEPS
+          and build_scan_stream_reference.launches == r,
+          "each gradient of the ML tuning is one launch of kernel 9 and one "
+          "of kernel 10, and no run of the plain version")
+  require(abs(np.log(est_lo / est_hi)) < ML_RATIO
+          and ML_BAND[0] * truth < est_lo < ML_BAND[1] * truth,
+          f"the ML tuning recovers q from both starts: {est_lo}, {est_hi}")
 
 
 def full_q_data(torch, x, T, kinds, R_list, noise, gen, far_every=0,
@@ -4143,29 +4672,53 @@ def main():
   card = card_line()
   log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
   dev = torch.device("cuda", 0)
-  # every nvcc at once: csrc/*.cu in a thread, one per emitted variant
+  # csrc/*.cu in a thread; each emitted variant's nvcc starts once its
+  # source is emitted, at most NVCC_JOBS at once, so that the emitting
+  # thread keeps a core of its own; kernel 10's first (its nvcc is the
+  # longest)
   t0 = time.perf_counter()
-  with ThreadPoolExecutor(1) as pool:
+  nvcc_jobs = max(1, (os.cpu_count() or 2) - 1)
+  with ThreadPoolExecutor(1) as pool, ThreadPoolExecutor(nvcc_jobs) as nvcc:
     static = pool.submit(_build.build)
+    started = {}
+
+    def start(group):
+      """Start nvcc on each source of group (name -> source) not started
+      yet; returns group."""
+      for src in group.values():
+        if src not in started:
+          started[src] = nvcc.submit(_build.build_generated_many, [src])
+      return group
+
+    # kernel 10: the tenth path's variant; the comparison's and the ML
+    # tuning's below
+    adj = adjoint_calls()
+    path_adjoint = "live log adjoint (kernel 10)"
+    adj_sources = start({name: call.source(dtype)
+                         for name, (call, dtype) in adj.items()})
     live_spec = generic_models()[3]
     ex_calls = example_calls(torch, dev)
     u_calls = user_calls()
-    sources = (generic_sources(live_spec) | msckf_sources() | vio_sources()
-               | {f"examples: {name}": call.source(dtype)
-                  for name, (call, dtype) in ex_calls.items()}
-               | {f"user specs: {name}": call.source()
-                  for name, call in u_calls.items()}
-               | {name: call.source(dtype)
-                  for name, (call, dtype) in stream_calls().items()})
+    sources = (start(generic_sources(live_spec)) | start(msckf_sources())
+               | start(vio_sources())
+               | start({f"examples: {name}": call.source(dtype)
+                        for name, (call, dtype) in ex_calls.items()})
+               | start({f"user specs: {name}": call.source()
+                        for name, call in u_calls.items()})
+               | start({name: call.source(dtype)
+                        for name, (call, dtype) in stream_calls().items()}))
+    sources[path_adjoint] = adj_sources[path_adjoint]
     # the comparison phase's own variants: kernels 5, 6 and 7 in double,
     # and the camera-frame variants' global form (tile_vs_global)
-    cmp_sources = {"loc run_epochs, float64 (kernel 5)":
-                   loc_epoch_call().source(torch.float64),
-                   "live run_mixed, float64 (kernel 6)":
-                   live_mixed_call().source(torch.float64),
-                   "live full Q run_mixed, float64 (kernel 6)":
-                   full_q_calls()["live full Q run_mixed / observe "
-                                  "(kernel 6)"].source(torch.float64)}
+    cmp_sources = {name: src for name, src in adj_sources.items()
+                   if name != path_adjoint}
+    cmp_sources |= {"loc run_epochs, float64 (kernel 5)":
+                    loc_epoch_call().source(torch.float64),
+                    "live run_mixed, float64 (kernel 6)":
+                    live_mixed_call().source(torch.float64),
+                    "live full Q run_mixed, float64 (kernel 6)":
+                    full_q_calls()["live full Q run_mixed / observe "
+                                   "(kernel 6)"].source(torch.float64)}
     cmp_sources |= {name: c.source()
                     for name, c in full_q_cmp_calls().items()}
     cmp_sources["examples: run_loc bank_demo, float64 (kernel 6, loc)"] = \
@@ -4179,6 +4732,7 @@ def main():
       cmp_sources[f"live log scan (kernel 9), "
                   f"{str(dtype).split('.')[-1]} global form"] = \
           live_log_call.source(dtype, tile=False)
+    start(cmp_sources)
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),
                          ("run_mixed with frames", vio_call(model))):
@@ -4190,8 +4744,10 @@ def main():
         if is_tile(call.source(torch.float64)):
           cmp_sources[f"{model.name} {name}, float64 global form "
                       f"({kernel})"] = call.source(torch.float64, tile=False)
+        start(cmp_sources)
     t_emit = time.perf_counter() - t0
-    _build.build_generated_many([*sources.values(), *cmp_sources.values()])
+    for build in started.values():
+      build.result()
     lib = static.result()
   log(f"kernels built in {time.perf_counter() - t0:.1f} s (emitting the "
       f"{len(sources) + len(cmp_sources)} generic variants took "
@@ -4206,7 +4762,7 @@ def main():
         log(f"  ptxas, {name}: {line.strip()}")
 
   gens = []
-  for i in range(6):
+  for i in range(7):
     # each path draws from a generator of its own, so a path sees the same
     # data whether or not the others run
     gens.append(torch.Generator(device=dev))
@@ -4236,7 +4792,9 @@ def main():
       ("full-Q streamed R", lambda: full_q_stream_path(torch, dev, gens[5]),
        ()),
   )
-  wrappers = {w for _, _, ws in paths for w in ws}
+  # kernel 10 runs on the tenth path only
+  wrappers = {w for _, _, ws in paths for w in ws} | {
+      g.stream_bank_scan_adjoint}
   launches, states = {w.__name__: 0 for w in wrappers}, []
   # the plain versions of kernels 8 and 9: on the main paths only the
   # offline path's F_lane / jacfwd timing runs the plain scan
@@ -4289,6 +4847,20 @@ def main():
           f"{counts}")
   for w in wrappers:
     launches[w.__name__] += counts[w.__name__]
+  # the tenth: the gradient through the offline log, kernels 9 and 10
+  t0 = time.perf_counter()
+  for w in wrappers:
+    w.launches = 0
+  grad_path(torch, dev, gens[6])
+  counts = {w.__name__: w.launches for w in wrappers}
+  log(f"gradient path launches: {counts}; "
+      f"{time.perf_counter() - t0:.1f} s (host clock)")
+  expected = {g.stream_bank_scan: 1, g.stream_bank_scan_adjoint: 1}
+  require(all(counts[w.__name__] == expected.get(w, 0) for w in wrappers),
+          f"the gradient path launched kernel 9 once, kernel 10 once and no "
+          f"other: {counts}")
+  for w in wrappers:
+    launches[w.__name__] += counts[w.__name__]
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
@@ -4308,6 +4880,8 @@ def main():
   rows += compare_vio(torch, dev, gens[3])
   rows += compare_triangulation(torch, states[3])
   rows += compare_scan(torch, dev, gens[4])
+  rows += compare_scan_grad(torch, dev, gens[6])
+  ml_tuning(torch, dev)
   compare_user_specs(torch, dev, user_states)
   example_rows = compare_examples(torch, dev)
   profiler_phase(torch, dev)

@@ -14,8 +14,10 @@ variants of live, car, loc and msckf_eskf that
 tests/test_torch_generic_single_roles.py emits, msckf_vo's dense
 mixed body with frames of tests/test_torch_vio_emitter.py, and the
 user-spec path's variants (the random specs' and the op battery's,
-models/user_specs.py), and kernel 9's log-scan variants (mode "stream",
-chip_smoke.stream_calls), each in float and double. Runs on the CPU
+models/user_specs.py), kernel 9's log-scan variants (mode "stream",
+chip_smoke.stream_calls) and kernel 10's adjoint variants with the ML
+tuning's log scan (mode "stream_adjoint", chip_smoke.adjoint_calls), each
+in float and double. Runs on the CPU
 (emission needs no card); imports nothing of JAX.
 With --compare it prints, by mode, how many variants the two files share
 unchanged, and names the ones that changed, are new in the second file
@@ -68,6 +70,7 @@ def variants():
       vo.build_spec(), "mixed", (12, 16), Q=vo.Q,
       R_list=(np.eye(3), 1e-4 * np.eye(8)))
   calls |= {name: call for name, (call, _) in cs.stream_calls().items()}
+  calls |= {name: call for name, (call, _) in cs.adjoint_calls().items()}
   return calls
 
 

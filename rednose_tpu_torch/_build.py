@@ -5,8 +5,9 @@ Two entry points for the kernels. `library()`: all `csrc/*.cu` sources
 use into one shared library with a plain C interface.
 `generated_launcher(source)`: one source emitted per spec variant by
 ops/entry_slab.py around the template csrc/generic_scan.cuh (the generic
-kernels 4-7 and kernel 9, the log scan), each in a directory of its own
-(see below).
+kernels 4-7 and kernel 9, the log scan; kernel 10, the log scan's
+adjoint, by ops/adjoint.py around csrc/stream_adjoint.cuh too), each in a
+directory of its own (see below).
 Both use the same flags:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -88,9 +89,10 @@ SIGNATURES = {
 
 
 def _sources():
-  # the generic kernels' template is compiled with each emitted source
+  # the generic kernels' templates are compiled with each emitted source
   return sorted(CSRC.glob("*.cu")) + sorted(
-      s for s in CSRC.glob("*.cuh") if s.name != TEMPLATE.name)
+      s for s in CSRC.glob("*.cuh") if s.name not in (TEMPLATE.name,
+                                                      ADJOINT.name))
 
 
 def _nvcc() -> str:
@@ -161,17 +163,32 @@ def library() -> ctypes.CDLL:
 
 GEN_DIR = BUILD_DIR / "gen"
 TEMPLATE = CSRC / "generic_scan.cuh"
+# kernel 10's loop, which an emitted adjoint source includes after the
+# template's prelude
+ADJOINT = CSRC / "stream_adjoint.cuh"
 # C entry of each emitted source -> argtypes (all return the launch's
 # cudaError_t): kernels 4-7 take xs, Ps, zs, eas, dts, kind_idx, pss, prm,
 # Q, R, T, B, stream; kernel 9 (mode "stream") xs, Ps, zs, eas, dts,
-# kind_idx, Rs, prm, Q, xp, Pp, xq, Pq, T, B, stream
+# kind_idx, Rs, prm, Q, xp, Pp, xq, Pq, T, B, stream; kernel 10 (mode
+# "stream_adjoint") x0, P0, zs, eas, dts, kind_idx, Rs, prm, Q, xp, Pp, xq,
+# Pq, gx, gP, gxp, gPp, gxq, gPq, dx0, dP0, dzs, dRs, ddts, deas, dQ, dprm,
+# flips, T, B, stream
 GEN_ENTRIES = {"rn_generic_scan_launch": (_P,) * 10 + (_I, _I, _P),
-               "rn_generic_stream_launch": (_P,) * 13 + (_I, _I, _P)}
+               "rn_generic_stream_launch": (_P,) * 13 + (_I, _I, _P),
+               "rn_generic_stream_adjoint_launch": (_P,) * 28 + (_I, _I, _P)}
+
+
+def _headers(source: str) -> list:
+  """The templates an emitted source is compiled with: generic_scan.cuh,
+  and stream_adjoint.cuh where the source includes it."""
+  return [TEMPLATE] + ([ADJOINT] if f'#include "{ADJOINT.name}"' in source
+                       else [])
 
 
 def generated_dir(source: str) -> pathlib.Path:
   h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-  h.update(TEMPLATE.read_bytes())
+  for header in _headers(source):
+    h.update(header.read_bytes())
   h.update(source.encode())
   return GEN_DIR / f"gen_{h.hexdigest()[:16]}"
 
@@ -186,7 +203,7 @@ def _nvcc_generated(d: pathlib.Path, tmp: pathlib.Path):
 
 
 def write_generated(d: pathlib.Path, source: str):
-  """Put the emitted source and a copy of the template into d, each written
+  """Put the emitted source and a copy of its templates into d, each written
   to a name of this process's own and renamed into place, so a process
   building the same variant beside this one never reads a half-written
   file (both write the same text: the directory is keyed by it)."""
@@ -194,8 +211,9 @@ def write_generated(d: pathlib.Path, source: str):
   tmp = f".{os.getpid()}.tmp"
   (d / ("gen.cu" + tmp)).write_text(source)
   os.replace(d / ("gen.cu" + tmp), d / "gen.cu")
-  shutil.copyfile(TEMPLATE, d / (TEMPLATE.name + tmp))
-  os.replace(d / (TEMPLATE.name + tmp), d / TEMPLATE.name)
+  for header in _headers(source):
+    shutil.copyfile(header, d / (header.name + tmp))
+    os.replace(d / (header.name + tmp), d / header.name)
 
 
 def build_generated_many(sources) -> list:
@@ -232,9 +250,13 @@ def build_generated_many(sources) -> list:
 @functools.lru_cache(maxsize=None)
 def generated_launcher(source: str):
   """Build if needed, load, and return the C entry (GEN_ENTRIES) of one
-  emitted source: rn_generic_stream_launch for mode "stream", whose
-  source defines REDNOSE_GENERIC_SCAN_STREAM, else rn_generic_scan_launch."""
-  entry = ("rn_generic_stream_launch"
+  emitted source: rn_generic_stream_adjoint_launch for mode
+  "stream_adjoint" (its source defines REDNOSE_GENERIC_STREAM_ADJOINT),
+  rn_generic_stream_launch for mode "stream" (REDNOSE_GENERIC_SCAN_STREAM),
+  else rn_generic_scan_launch."""
+  entry = ("rn_generic_stream_adjoint_launch"
+           if "#define REDNOSE_GENERIC_STREAM_ADJOINT" in source
+           else "rn_generic_stream_launch"
            if "#define REDNOSE_GENERIC_SCAN_STREAM" in source
            else "rn_generic_scan_launch")
   lib = ctypes.CDLL(str(build_generated_many([source])[0]))

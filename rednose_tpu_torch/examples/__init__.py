@@ -30,7 +30,8 @@ def kernel_wrappers():
           live_scan.live_bank_scan_mixed, generic_scan.generic_bank_scan,
           generic_scan.generic_bank_scan_epoch,
           generic_scan.generic_bank_scan_mixed, generic_scan.vo_bank_scan,
-          triangulation.compute_pos_batch, generic_scan.stream_bank_scan)
+          triangulation.compute_pos_batch, generic_scan.stream_bank_scan,
+          generic_scan.stream_bank_scan_adjoint)
 
 
 def launch_counts() -> dict:

@@ -66,6 +66,8 @@ Mode "stream" (kernel 9, the offline log scan of runtime/scan.py) prints
 the global form only: the predict, one update function per kind reading
 the leading dz x dz block of the step's streamed max_dz x max_dz R, and a
 switch over them by the step's kind index.
+Mode "stream_adjoint" (kernel 10, the adjoint of kernel 9) is the reverse
+mode of these DAGs, ops/adjoint.py.
 """
 
 from __future__ import annotations
@@ -171,6 +173,7 @@ class Phase:
     self.x_out = []
     self.shared = []
     self.stages = None
+    self.gate = None
 
   def P(self, i, j):
     return self.dag.load("P", (min(i, j), max(i, j)))
@@ -269,8 +272,11 @@ def predict_phase(spec: FilterSpec, structure, pnames, q_pattern) -> Phase:
 
 
 def update_phase(spec: FilterSpec, kind: int, structure, pnames,
-                 gate: bool) -> Phase:
-  """entry_update_slab as a DAG (see the module docstring)."""
+                 gate: bool, stored_gate: bool = False) -> Phase:
+  """entry_update_slab as a DAG (see the module docstring). stored_gate
+  (the adjoint's form, ops/adjoint.py): a gated kind gates on the leaf
+  'rej', a decision given with the inputs, and the decision recomputed
+  from them is Phase.gate."""
   om = spec.obs[kind]
   if om.is_feature:
     raise ValueError(f"kind {kind} is an MSCKF feature kind: its update is "
@@ -320,6 +326,9 @@ def update_phase(spec: FilterSpec, kind: int, structure, pnames,
     dist = _lsum(d, [d.mul(d.mul(y[i], siv[i][j]), y[j])
                      for i in range(dz) for j in range(dz)])
     rej = d.binop("gt", dist, float(om.maha_thresh))
+    if stored_gate:
+      ph.gate, rej = rej, d.load("rej")
+      rej.is_bool = True
     kt = [None if row is None else [d.where(rej, None, e) for e in row]
           for row in kt]
   dxe = [_lsum(d, [d.mul(kt[i][c], y[i]) for i in range(dz)
@@ -1216,7 +1225,7 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
 
 # ----------------------------------------------------------- variant source
 
-MODES = ("single", "mixed", "epoch", "frame", "stream")
+MODES = ("single", "mixed", "epoch", "frame", "stream", "stream_adjoint")
 
 
 def _unit_name(kind, gate, frame=False):
@@ -1255,9 +1264,16 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   aligned with units, for a feature unit "iso" (R = s^2 I) or R's nonzero
   (i, j), i <= j, and None for any other unit; None for no feature unit.
   tile: False prints the global form of a variant that would tile, with
-  no design line (the whole phases, one function each)."""
+  no design line (the whole phases, one function each). Mode
+  'stream_adjoint' (kernel 10, the adjoint of mode 'stream') is printed by
+  ops/adjoint.emit_source, in the global form only."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
+  if mode == "stream_adjoint":
+    from rednose_tpu_torch.ops import adjoint
+
+    return adjoint.emit_source(spec, units, structure, pnames, q_pattern,
+                               scalar)
   r_patterns = (tuple(r_patterns) if r_patterns is not None
                 else (None,) * len(units))
   feature = [spec.obs[k].is_feature for k, _ in units]

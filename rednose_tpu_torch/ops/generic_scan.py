@@ -1,5 +1,5 @@
 """Fused T-step scans of a bank of ANY filter spec (kernels 4, 5, 6, 7,
-and kernel 9, the offline log scan).
+kernel 9, the offline log scan, and kernel 10, its adjoint).
 
 `generic_bank_scan` replaces the Pallas TPU kernel
 rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan),
@@ -41,6 +41,12 @@ state kept (the smoother's inputs). It is the launcher behind the
 wrapper runtime/scan.build_scan_stream's scan_fn, which takes CPU
 tensors to its plain loop (build_scan_stream_reference) and gives this
 launcher copies of x and P to advance in place.
+`stream_bank_scan_adjoint` (kernel 10, emitted mode "stream_adjoint",
+ops/adjoint.py around csrc/stream_adjoint.cuh) replaces jax.grad of that
+scan_fn (XLA's transpose of the lax.scan): the log backwards, each step's
+update and predict recomputed from kernel 9's stacks, the cotangents of
+every floating input out. Its caller is the autograd rule of scan_fn's
+custom op.
 
 Every other wrapper returns new (x, P) and never writes its inputs. For CPU
 tensors it runs the plain version (ops/lane_bank.py); for CUDA tensors
@@ -106,10 +112,12 @@ def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
 
 class KernelCall:
   """One generic call, checked once: the spec, the mode ('single' /
-  'mixed' / 'epoch' / 'frame' / 'stream'), the kind, kind set or slot
+  'mixed' / 'epoch' / 'frame' / 'stream' / 'stream_adjoint', kernel 9's
+  adjoint, keyed as 'stream' is), the kind, kind set or slot
   kinds, the gate, the structure (None: the dense body) and the streamed
-  param keys, with Q, one R per kind or slot (none in mode 'stream', whose
-  R comes with each step) and the params. An MSCKF feature kind is a
+  param keys, with Q, one R per kind or slot (none in modes 'stream' and
+  'stream_adjoint', whose R comes with each step) and the params. An
+  MSCKF feature kind is a
   camera frame: mode 'frame' takes one, mode 'mixed' takes them among
   other kinds, and the other modes refuse them. Refuses an unknown
   kind, anything but a feature kind in mode 'frame', an asymmetric Q or R
@@ -138,17 +146,16 @@ class KernelCall:
       if mode == "frame" and not spec.obs[k].is_feature:
         raise ValueError(f"mode 'frame' takes an MSCKF feature kind, not "
                          f"kind {k}")
-    if mode == "stream":
+    if mode in ("stream", "stream_adjoint"):
       if len(R_list) or gate is False or ps_keys:
-        raise ValueError("mode 'stream' streams R per step (Rs), gates as "
+        raise ValueError(f"mode {mode!r} streams R per step (Rs), gates as "
                          "each kind's maha_test says and streams no params")
     elif len(R_list) != len(kinds):
       raise ValueError(f"{len(R_list)} R for {len(kinds)} kinds / slots")
     self.spec, self.mode, self.kinds = spec, mode, kinds
     self.params = dict(spec.default_params if params is None else params)
-    self.gate = (True if gate is None and mode in ("mixed", "epoch",
-                                                   "stream")
-                 else gate)
+    self.gate = (True if gate is None and mode in (
+        "mixed", "epoch", "stream", "stream_adjoint") else gate)
     self.structure = structure
     self.ps_keys = tuple(ps_keys)
     self.Q = _host64(Q)
@@ -509,3 +516,81 @@ def stream_bank_scan(call: KernelCall, x, P, zs, dts, kind_idx, Rs, eas,
 
 
 stream_bank_scan.launches = 0
+
+
+# ------------------------------------------- kernel 10: the log scan's adjoint
+
+def stream_bank_scan_adjoint(call: KernelCall, x0, P0, zs, dts, kind_idx,
+                             Rs, eas, prm, Q, xp, Pp, xq, Pq, gx, gP, gxp,
+                             gPp, gxq, gPq):
+  """Kernel 10: the adjoint of stream_bank_scan over a B-wide bank of CUDA
+  tensors, one launch: from kernel 9's inputs and stacks, in its layout
+  (x0 (dim_x, B) and P0 (de, de, B) the state before the log, xp, xq
+  (T, dim_x, B), Pp, Pq (T, de, de, B)), and the cotangents of its
+  outputs (gx, gP of the final state, gxp, gPp, gxq, gPq of the stacks,
+  full matrices, in the same layouts), the cotangents of its inputs, per
+  lane: (dx0 (dim_x, B), dP0 (de, de, B), dzs (T, max_dz, B), dRs (T,
+  max_dz, max_dz, B), ddts (T, B), deas (T, max_ea_len, B) or None,
+  dQ (de, de, B), dprm (len(prm), B)). dP0, dQ and dRs hold the
+  cotangents of the upper entries the kernel reads (a full-matrix one
+  G_ij + G_ji off the diagonal; lower entries 0, and dRs 0 off each
+  kind's block): (A + A^T) / 2 is the gradient in the symmetric
+  convention. dQ is dense, every entry dt times the predicted P's
+  cotangent, summed over the steps.
+
+  call a 'stream_adjoint' KernelCall (keyed as the forward's 'stream'
+  call). The adjoint follows the forward's gate decisions, read from the
+  stacks; `.gate_flips` keeps the last launch's per-lane count (B,) int32
+  of steps whose decision, recomputed from the stored predicted state,
+  differs. Its caller is the autograd rule of runtime/scan's custom op
+  rednose::scan_stream (the op rednose::scan_stream_backward); a CPU
+  tensor here raises."""
+  if call.mode != "stream_adjoint":
+    raise ValueError(f"a {call.mode!r} call given to the 'stream_adjoint' "
+                     "scan")
+  spec, kinds = call.spec, call.kinds
+  T, B = dts.shape[0], x0.shape[-1]
+  max_dz = max(spec.obs[k].dz for k in kinds)
+  max_ea = max(spec.obs[k].ea_len for k in kinds)
+  dx, de = spec.dim_x, spec.dim_err
+  dtype = x0.dtype if x0.dtype in _SCALARS else torch.float32
+  for name, t, shape in (
+      ("x0", x0, (dx, B)), ("P0", P0, (de, de, B)),
+      ("zs", zs, (T, max_dz, B)), ("dts", dts, (T,)),
+      ("Rs", Rs, (T, max_dz, max_dz)),
+      ("prm", prm, (max(len(call._pnames), 1),)), ("Q", Q, (de, de)),
+      ("xp", xp, (T, dx, B)), ("Pp", Pp, (T, de, de, B)),
+      ("xq", xq, (T, dx, B)), ("Pq", Pq, (T, de, de, B)),
+      ("gx", gx, (dx, B)), ("gP", gP, (de, de, B)),
+      ("gxp", gxp, (T, dx, B)), ("gPp", gPp, (T, de, de, B)),
+      ("gxq", gxq, (T, dx, B)), ("gPq", gPq, (T, de, de, B))):
+    _build.check_tensor(name, t, shape, dtype)
+  _build.check_tensor("kind_idx", kind_idx, (T,), torch.int32)
+  if (eas is None) != (max_ea == 0):
+    raise ValueError(f"kinds {kinds}: pass eas iff a kind takes extra args")
+  if eas is not None:
+    _build.check_tensor("eas", eas, (T, max_ea, B), dtype)
+  if T and not 0 <= int(kind_idx.min()) <= int(kind_idx.max()) < len(kinds):
+    raise ValueError(f"kind_idx outside [0, {len(kinds)})")
+  new = x0.new_empty
+  out = (new((dx, B)), new((de, de, B)), new((T, max_dz, B)),
+         new((T, max_dz, max_dz, B)), new((T, B)),
+         new((T, max_ea, B)) if max_ea else None, new((de, de, B)),
+         # the kernel writes the params' rows; a call without params
+         # passes one placeholder, whose cotangent stays 0
+         x0.new_zeros((prm.shape[0], B)))
+  flips = torch.zeros(B, dtype=torch.int32, device=x0.device)
+  fn = _build.generated_launcher(call.source(dtype))
+  ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  code = fn(*(ptr(a) for a in (x0, P0, zs, eas, dts, kind_idx, Rs, prm, Q,
+                               xp, Pp, xq, Pq, gx, gP, gxp, gPp, gxq, gPq,
+                               *out, flips)),
+            T, B, torch.cuda.current_stream(x0.device).cuda_stream)
+  _build.check(code, "stream_bank_scan_adjoint")
+  stream_bank_scan_adjoint.launches += 1
+  stream_bank_scan_adjoint.gate_flips = flips
+  return out
+
+
+stream_bank_scan_adjoint.launches = 0
+stream_bank_scan_adjoint.gate_flips = None

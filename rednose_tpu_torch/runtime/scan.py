@@ -10,6 +10,24 @@ torch.func.vmap, a bank of them; on the host, and in
 build_scan_stream_reference on any device, one loop over time through
 core/step.py.
 
+Gradients: on the host autograd runs through the plain loop; on the card
+the custom op's autograd rule is one launch of kernel 10
+(ops/generic_scan.stream_bank_scan_adjoint, the adjoint of kernel 9's
+emitted arithmetic, ops/adjoint.py) for the whole bank, through the op
+rednose::scan_stream_backward. It gives the cotangents of x, P, Q, dts,
+zs, Rs, eas and the params. It follows the forward's gate decisions, read
+from the stacks, and warns (RuntimeWarning) where its recomputed decision
+differs (ops/generic_scan.stream_bank_scan_adjoint.gate_flips). P, Q and
+R are read as symmetric matrices (P's and Q's upper entries, R's upper
+entries of each kind's leading block), so their gradients are symmetric:
+a_ij / 2 on (i, j) and (j, i) for the upper entry's cotangent a_ij,
+which on symmetric directions equals jax.grad's. Q's is dense (dt times
+the predicted P's cotangent, on every entry, off Q's pattern too); R's
+is 0 off each kind's block and on the padded slots. Higher-order
+gradients (create_graph=True, a gradient of the backward) and forward
+mode (torch.func.jvp, forward-mode AD) raise, naming what is missing; so
+do torch.func.grad and its relatives (use torch.autograd.grad).
+
 Measurements of different sizes are padded to the largest dz; a padded
 slot gets variance PAD_R, so it carries no information (the reference's
 soft-nulling trick for Mahalanobis rejection, ekf_c.c:92). The padded rows
@@ -28,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -89,10 +108,13 @@ def build_scan_stream(spec: FilterSpec, kinds: Sequence[int]):
   emitted for the spec, each step's R read as the kind's leading dz x dz
   block of Rs[t]. Under torch.func.vmap over x, P and zs (a bank of logs
   that share dts, kind_idx, Rs and eas) it is one launch for the whole
-  bank; batching any other argument raises on the card, naming it, and so
-  does an input that requires grad (autograd runs through
-  build_scan_stream_reference). A float32 or float64 log, kinds that are
-  not MSCKF feature kinds, dz <= 3."""
+  bank; batching any other argument raises on the card, naming it. On the
+  card, torch.autograd's backward through scan_fn is one launch of kernel
+  10 (ops/generic_scan.stream_bank_scan_adjoint) for the whole bank, the
+  shared inputs' gradients summed over every lane of every log; gradients
+  of P, Q and Rs are symmetric (see the module docstring). Higher-order
+  gradients and forward mode raise on the card. A float32 or float64 log,
+  kinds that are not MSCKF feature kinds, dz <= 3."""
   return _build_scan_stream_cached(spec, tuple(int(k) for k in kinds))
 
 
@@ -146,16 +168,17 @@ def _handle(spec: FilterSpec, kinds: tuple, pnames: tuple) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_call(handle: int, q_pattern: tuple):
-  """The 'stream' KernelCall of a handle and a Q pattern, made once: the
-  variant only (Q's values and the params' come with each call)."""
+def _kernel_call(handle: int, q_pattern: tuple, mode: str = "stream"):
+  """The 'stream' KernelCall (kernel 9), or with mode 'stream_adjoint'
+  kernel 10's, of a handle and a Q pattern, made once: the variant only
+  (Q's values and the params' come with each call)."""
   from rednose_tpu_torch.ops import generic_scan
 
   spec, kinds, pnames = _HANDLES[handle]
   Q = np.zeros((spec.dim_err, spec.dim_err))
   for i, j in q_pattern:
     Q[i, j] = Q[j, i] = 1.0
-  return generic_scan.KernelCall(spec, "stream", kinds, Q=Q,
+  return generic_scan.KernelCall(spec, mode, kinds, Q=Q,
                                  params=dict.fromkeys(pnames, 0.0))
 
 
@@ -175,13 +198,8 @@ def _build_scan_stream_cached(spec: FilterSpec, kinds: tuple):
 def _kernel_scan(spec, kinds, params, x, P, Q, dts, kind_idx, zs, Rs, eas):
   """scan_fn through kernel 9 (the custom op rednose::scan_stream, which
   launches ops/generic_scan.stream_bank_scan), on the device of x."""
-  values = [v for v in (x, P, Q, dts, zs, Rs, eas, *params.values())
-            if torch.is_tensor(v)]
-  if torch.is_grad_enabled() and any(v.requires_grad for v in values):
-    raise RuntimeError(
-        "scan_fn on the card runs kernel 9, which has no backward: an input "
-        "requires grad; take runtime.scan.build_scan_stream_reference, the "
-        "plain loop that autograd runs through")
+  _refuse_forward_mode([v for v in (x, P, Q, dts, zs, Rs, eas,
+                                    *params.values()) if torch.is_tensor(v)])
   dev, dtype = x.device, x.dtype
   as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
   pnames = tuple(sorted(params))
@@ -261,6 +279,131 @@ def _scan_stream_vmap(info, in_dims, x, P, zs, dts, kind_idx, Rs, eas, Q,
 
 
 _scan_stream_op.register_vmap(_scan_stream_vmap)
+
+
+def _refuse_forward_mode(values):
+  """Forward mode through kernel 9 is not ported (it would need kernel 9's
+  tangent scan): raise, naming it, under torch.func.jvp or with a dual
+  tensor of torch.autograd.forward_ad; the other torch.func transforms but
+  vmap reach the op as an autograd.Function they cannot run, so raise
+  there too, naming torch.autograd.grad."""
+  from torch._C._functorch import TransformType, get_interpreter_stack
+  from torch.autograd import forward_ad
+
+  keys = {i.key() for i in get_interpreter_stack() or ()}
+  if TransformType.Jvp in keys or any(
+      forward_ad.unpack_dual(v).tangent is not None for v in values):
+    raise NotImplementedError(
+        "scan_fn on the card: forward mode (torch.func.jvp, forward-mode AD) "
+        "through kernel 9 is not ported; reverse mode is (torch.autograd."
+        "grad / backward run kernel 10), or run "
+        "build_scan_stream_reference's plain loop")
+  if keys - {TransformType.Vmap}:
+    raise NotImplementedError(
+        "scan_fn on the card runs under torch.func.vmap only: for its "
+        "gradient call torch.autograd.grad / backward (kernel 10), not "
+        "torch.func.grad or jacrev")
+
+
+def _setup_backward(ctx, inputs, output):
+  x, P, zs, dts, kind_idx, Rs, eas, Q, prm, handle = inputs
+  ctx.handle = handle
+  ctx.save_for_backward(x, P, zs, dts, kind_idx, Rs, eas, Q, prm,
+                        *output[2:])
+
+
+def _scan_stream_backward(ctx, gx, gP, gxp, gPp, gxq, gPq):
+  """Autograd rule of rednose::scan_stream: kernel 10 once, through the op
+  rednose::scan_stream_backward, whatever the bank's size."""
+  if torch.is_grad_enabled():
+    raise NotImplementedError(
+        "scan_fn on the card: higher-order gradients (create_graph=True) "
+        "through kernel 10 are not ported; run build_scan_stream_reference's "
+        "plain loop for them")
+  saved = ctx.saved_tensors
+  outs = saved[9:]                           # xp, Pp, xq, Pq
+  full = (saved[0], saved[1]) + outs
+  grads = [torch.zeros_like(like) if g is None else g
+           for g, like in zip((gx, gP, gxp, gPp, gxq, gPq), full)]
+  dx, dP, dzs, ddts, dRs, deas, dQ, dprm = \
+      torch.ops.rednose.scan_stream_backward(*saved, *grads, ctx.handle)
+  return dx, dP, dzs, ddts, None, dRs, deas, dQ, dprm, None
+
+
+_scan_stream_op.register_autograd(_scan_stream_backward,
+                                  setup_context=_setup_backward)
+
+
+def _sym(a):
+  """(A + A^T) / 2 of a matrix of upper-entry cotangents (lower entries
+  0): the gradient in the symmetric convention."""
+  return (a + a.transpose(-1, -2)) / 2
+
+
+@torch.library.custom_op("rednose::scan_stream_backward", mutates_args=())
+def _scan_stream_backward_op(
+    x: torch.Tensor, P: torch.Tensor, zs: torch.Tensor, dts: torch.Tensor,
+    kind_idx: torch.Tensor, Rs: torch.Tensor, eas: torch.Tensor,
+    Q: torch.Tensor, prm: torch.Tensor, xp: torch.Tensor, Pp: torch.Tensor,
+    xq: torch.Tensor, Pq: torch.Tensor, gx: torch.Tensor, gP: torch.Tensor,
+    gxp: torch.Tensor, gPp: torch.Tensor, gxq: torch.Tensor,
+    gPq: torch.Tensor, handle: int) -> tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Kernel 10 for rednose::scan_stream's inputs (x, P, zs, dts, kind_idx,
+  Rs, eas, Q, prm in its layout), its stacks (xp, Pp, xq, Pq) and the
+  cotangents of its six outputs: one launch of
+  ops/generic_scan.stream_bank_scan_adjoint on bank-minor copies, the
+  shared inputs' per-lane cotangents summed over the lanes, P's, Q's and
+  R's symmetrized; a RuntimeWarning where a lane-step's recomputed gate
+  decision differs from the forward's. Returns the gradients of (x, P,
+  zs, dts, Rs, eas, Q, prm)."""
+  from rednose_tpu_torch.ops import entry_slab, generic_scan
+
+  spec, kinds, _ = _HANDLES[handle]
+  call = _kernel_call(handle, entry_slab.q_pattern_of(
+      Q.detach().cpu().double().numpy()), "stream_adjoint")
+  T, B = dts.shape[0], x.shape[0]
+  max_ea = max(spec.obs[k].ea_len for k in kinds)
+  eas_b = (None if max_ea == 0 else
+           eas[:, :max_ea, None].expand(T, max_ea, B).contiguous())
+  bm = lambda a: a.permute(*range(1, a.dim()), 0).contiguous()  # noqa: E731
+  dx0, dP0, dzs, dRs, ddts, deas, dQ, dprm = \
+      generic_scan.stream_bank_scan_adjoint(
+          call, bm(x), bm(P), zs.transpose(1, 2).contiguous(),
+          dts.contiguous(), kind_idx.contiguous(), Rs.contiguous(), eas_b,
+          prm.contiguous(), Q.contiguous(), bm(xp), bm(Pp), bm(xq), bm(Pq),
+          bm(gx), bm(gP), bm(gxp), bm(gPp), bm(gxq), bm(gPq))
+  flips = generic_scan.stream_bank_scan_adjoint.gate_flips
+  g_eas = torch.zeros_like(eas)
+  if deas is not None:
+    g_eas[:, :max_ea] = deas.sum(-1)
+  out = (dx0.T.contiguous(), _sym(dP0.permute(2, 0, 1)).contiguous(),
+         dzs.transpose(1, 2).contiguous(), ddts.sum(-1),
+         _sym(dRs.sum(-1)), g_eas, _sym(dQ.sum(-1)), dprm.sum(-1))
+  # read once the reductions are queued: the backward's one wait
+  n = int(flips.sum())
+  if n:
+    warnings.warn(
+        f"scan_fn on the card: at {n} lane-steps kernel 10 recomputed a gate "
+        "decision that differs from the forward's, which it read from the "
+        "stacks (a step is rejected where every diagonal entry of the "
+        "posterior P equals the predicted one) and followed; if an accepted "
+        "update's change to P rounded away there, its share of the gradient "
+        "is missing (build_scan_stream_reference's plain loop decides "
+        "each step once)", RuntimeWarning, stacklevel=2)
+  return out
+
+
+def _refuse_second_order(ctx, *grads):
+  raise NotImplementedError(
+      "scan_fn on the card: a gradient of kernel 10 (the backward of "
+      "rednose::scan_stream) is not ported; run "
+      "build_scan_stream_reference's plain loop for higher-order gradients")
+
+
+_scan_stream_backward_op.register_autograd(
+    _refuse_second_order, setup_context=lambda ctx, inputs, output: None)
 
 
 def pad_log(spec: FilterSpec, kinds: Sequence[int], log, t0: float = 0.0,

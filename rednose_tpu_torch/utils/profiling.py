@@ -215,11 +215,13 @@ def cost_report(fn, *args, **kwargs) -> dict:
 
 def emitted_ops(source: str) -> dict:
   """Arithmetic operations of each function of an emitted kernel source
-  (ops/entry_slab.py): every SSA definition that is not a plain load of an
-  input (x, P, dt, p, Q, z, ea, R) is one operation (a product, a sum, a
-  compare, a select, a sqrt)."""
+  (ops/entry_slab.py, ops/adjoint.py): every SSA definition that is not a
+  plain load of an input (x, P, dt, p, Q, z, ea, R; in an adjoint also the
+  incoming cotangents lx, GEN_L and the gate decision rej) is one
+  operation (a product, a sum, a compare, a select, a sqrt)."""
   ops, name = {}, None
-  load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[)")
+  load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[|lx\[|"
+                    r"GEN_L\(|rej;)")
   for line in source.splitlines():
     m = re.match(r"GEN_HD GEN_(?:INLINE|PHASE) void (\w+)\(", line)
     if m:
@@ -235,13 +237,15 @@ def step_ops(source: str, kinds, mode: str = "single") -> float:
   generic_scan.KernelCall.counting_source()): the predict plus the update
   (or camera frame) of each kind of an epoch, of the one kind of a single
   or frame step, or on average over a mixed schedule that cycles through
-  its kinds evenly."""
+  its kinds evenly. An adjoint source (mode "stream_adjoint") counts its
+  adjoint phases, gen_adj_predict and gen_adj_update_k<kind>."""
   ops = emitted_ops(source)
+  pre = "gen_adj_" if "gen_adj_predict" in ops else "gen_"
 
   def unit(k):
     return next(v for name, v in ops.items()
-                if re.fullmatch(rf"gen_(update|frame)_k{int(k)}(_g)?", name))
+                if re.fullmatch(rf"{pre}(update|frame)_k{int(k)}(_g)?", name))
 
   units = sum(unit(k) for k in kinds)
-  return ops["gen_predict"] + (units / len(kinds) if mode == "mixed"
-                               else units)
+  return ops[f"{pre}predict"] + (units / len(kinds) if mode == "mixed"
+                                 else units)

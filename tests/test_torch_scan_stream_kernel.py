@@ -24,14 +24,17 @@ The card's route through the custom op rednose::scan_stream and its vmap
 rule runs here on CPU tensors too, with a stand-in for the launcher
 stream_bank_scan (the plain scan in the launcher's bank-minor layout):
 under vmap over x, P and zs it equals the plain scan_fn bitwise; a
-batched Rs and an input that requires grad raise; the public scan_fn on
-CPU tensors runs the plain loop and launches nothing, and the launcher
-refuses CPU tensors.
+batched Rs raises, and so does a higher-order gradient (create_graph=True;
+tests/test_torch_scan_stream_grad.py holds the backward, kernel 10); the
+public scan_fn on CPU tensors runs the plain loop and launches nothing,
+and the launcher refuses CPU tensors.
 
-Card-only cases (marked cuda) launch kernel 9 against the plain version;
-this file imports JAX only in a try (the card's machine has none):
-`python -m pytest tests/test_torch_scan_stream_kernel.py -m cuda
---noconftest`."""
+Card-only cases (marked cuda) launch kernel 9 against the plain version,
+and kernel 10 (the backward) against autograd through the plain version;
+the maximum-likelihood tuning of tests/test_differentiable.py runs on the
+card through kernels 9 and 10. This file imports JAX only in a try (the
+card's machine has none): `python -m pytest
+tests/test_torch_scan_stream_kernel.py -m cuda --noconftest`."""
 
 import ctypes
 import dataclasses
@@ -355,8 +358,9 @@ def test_card_route_runs_on_cpu_tensors_and_vmaps():
 
 def test_card_route_refuses_batched_shared_inputs_and_grad():
   """On the card's route a batched Rs, dts or kind_idx (or eas, Q, a
-  param) raises, naming it, and so does an input that requires grad, naming the plain
-  loop; the public scan_fn on CPU tensors runs the plain loop (autograd
+  param) raises, naming it, and so does a higher-order gradient
+  (create_graph=True through kernel 10, the backward, before it launches);
+  the public scan_fn on CPU tensors runs the plain loop (autograd
   through it) and launches nothing."""
   spec, kinds, x0, P0, Q, dts, ki, zs, Rs, eas = _op_case()
   with pytest.raises(ValueError, match="Rs is batched"):
@@ -372,9 +376,17 @@ def test_card_route_refuses_batched_shared_inputs_and_grad():
         spec, kinds, {}, x, P0[0], Q, dts, k, zs[:, 0], Rs, eas),
         in_dims=(0, 0))(x0, torch.as_tensor(ki).expand(4, -1))
   xg = x0[0].clone().requires_grad_()
-  with pytest.raises(RuntimeError, match="build_scan_stream_reference"):
-    scan._kernel_scan(spec, kinds, {}, xg, P0[0], Q, dts, ki, zs[:, 0], Rs,
-                      eas)
+  real = generic_scan.stream_bank_scan
+  generic_scan.stream_bank_scan = _stand_in([])
+  try:
+    (x, _), _ = scan._kernel_scan(spec, kinds, {}, xg, P0[0], Q, dts, ki,
+                                  zs[:, 0], Rs, eas)
+  finally:
+    generic_scan.stream_bank_scan = real
+  n = generic_scan.stream_bank_scan_adjoint.launches
+  with pytest.raises(NotImplementedError, match="create_graph"):
+    torch.autograd.grad(x.sum(), xg, create_graph=True)
+  assert generic_scan.stream_bank_scan_adjoint.launches == n
   fn, _ = scan.build_scan_stream(spec, kinds)
   n = generic_scan.stream_bank_scan.launches
   r = scan.build_scan_stream_reference.launches
@@ -419,7 +431,9 @@ def test_kernel9_matches_plain_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel9_refuses_on_the_card(cuda_device):
-  """On the card a batched Rs and an input that requires grad raise."""
+  """On the card a batched Rs raises, and so do a higher-order gradient
+  (create_graph=True) and forward mode (torch.func.jvp), each naming what
+  is not ported; a first-order gradient runs kernel 10."""
   spec, kinds, x0, P0, Q, dts, ki, zs, Rs, eas = _op_case()
   d = lambda a: a.to(cuda_device)  # noqa: E731
   fn, _ = scan.build_scan_stream(spec, kinds)
@@ -427,6 +441,187 @@ def test_kernel9_refuses_on_the_card(cuda_device):
     vmap(lambda x, P, z, R: fn({}, x, P, d(Q), d(dts), ki, z, R, d(eas)),
          in_dims=(0, 0, 1, 0))(d(x0), d(P0), d(zs),
                                d(Rs).expand(4, -1, -1, -1))
-  with pytest.raises(RuntimeError, match="build_scan_stream_reference"):
-    fn({}, d(x0[0]).requires_grad_(), d(P0[0]), d(Q), d(dts), ki,
-       d(zs[:, 0]), d(Rs), d(eas))
+  xg = d(x0[0]).requires_grad_()
+
+  def run(x):
+    return fn({}, x, d(P0[0]), d(Q), d(dts), ki, d(zs[:, 0]), d(Rs),
+              d(eas))
+
+  (x, _), _ = run(xg)
+  with pytest.raises(NotImplementedError, match="create_graph"):
+    torch.autograd.grad(x.sum(), xg, create_graph=True)
+  with pytest.raises(NotImplementedError, match="forward mode"):
+    torch.func.jvp(lambda v: run(v)[0][0], (d(x0[0]),),
+                   (torch.ones_like(d(x0[0])),))
+  n = generic_scan.stream_bank_scan_adjoint.launches
+  (x, _), _ = run(xg)
+  (g,) = torch.autograd.grad(x.sum(), xg)
+  torch.cuda.synchronize()
+  assert generic_scan.stream_bank_scan_adjoint.launches == n + 1
+  assert bool(torch.isfinite(g).all())
+
+
+def _grads_on_the_card(fn, spec, kinds, case, W, dev):
+  """Autograd through fn (a scan_fn) vmapped over a bank of logs on the
+  card, the loss the weighting W of its six outputs: the gradients of x0,
+  P0, Q, dts, zs, Rs (P0's, Q's and Rs's symmetric parts), on the host."""
+  _, _, x0, P0, Q, dts, ki, zs, Rs, eas = case
+  ins = [a.to(dev).requires_grad_() for a in (x0, P0, Q, dts, zs, Rs)]
+  X0, PP0, QQ, DT, ZS, RR = ins
+  (x, P), st = vmap(lambda xl, Pl, zl: fn({}, xl, Pl, QQ, DT, ki, zl, RR,
+                                          eas.to(dev)),
+                    in_dims=(0, 0, 1))(X0, PP0, ZS)
+  loss = sum((o * w.to(dev)).sum() for o, w in zip((x, P, *st), W))
+  g = [a.cpu() for a in torch.autograd.grad(loss, ins)]
+  for i in (1, 2, 5):
+    g[i] = g[i] + g[i].transpose(-1, -2)
+  return g
+
+
+@pytest.mark.cuda
+def test_kernel10_matches_plain_on_the_card(cuda_device):
+  """Autograd through scan_fn vmapped over 16 live logs on the card: one
+  launch of kernel 9 and one of kernel 10, no run of the plain version;
+  every gradient (x0, P0, Q, dts, zs, Rs; symmetric parts of P0, Q and
+  Rs) within 1e-6 of its largest entry of autograd through the plain
+  version on the card (float64 from the prior; the smoke's double limit,
+  SCAN64_TOL)."""
+  case = _op_case(B=16, T=32)
+  spec, kinds = case[:2]
+  rng = np.random.RandomState(12)
+  B, T, dx, de = 16, 32, spec.dim_x, spec.dim_err
+  W = [torch.as_tensor(rng.randn(*s)) for s in (
+      (B, dx), (B, de, de), (B, T, dx), (B, T, de, de), (B, T, dx),
+      (B, T, de, de))]
+  fn, _ = scan.build_scan_stream(spec, kinds)
+  plain, _ = scan.build_scan_stream_reference(spec, kinds)
+  n9 = generic_scan.stream_bank_scan.launches
+  n10 = generic_scan.stream_bank_scan_adjoint.launches
+  r = scan.build_scan_stream_reference.launches
+  got = _grads_on_the_card(fn, spec, kinds, case, W, cuda_device)
+  torch.cuda.synchronize()
+  assert generic_scan.stream_bank_scan.launches == n9 + 1
+  assert generic_scan.stream_bank_scan_adjoint.launches == n10 + 1
+  assert scan.build_scan_stream_reference.launches == r
+  assert int(generic_scan.stream_bank_scan_adjoint.gate_flips.sum()) == 0
+  ref = _grads_on_the_card(plain, spec, kinds, case, W, cuda_device)
+  for a, b in zip(got, ref):
+    assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+
+
+# kernel 10 against autograd through the plain version on the card in
+# float32 from a converged state, relative to each gradient's largest
+# entry (chip_smoke.py's GRAD32_TOL)
+GRAD32_TOL = 1e-4
+CARD_WARM = 256   # steps of kernel 9 (float64) before the gated window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel10_follows_the_gate_on_the_card(cuda_device, dtype):
+  """The gated live spec (every kind's gate on) on 16 live logs from the
+  state kernel 9 reaches in CARD_WARM steps (float64), every fourth
+  lane's positions then 100 m off: the forward rejects some steps (P's
+  diagonal left as predicted), kernel 10 recomputes no other decision
+  (gate_flips 0), and its gradients hold against autograd through the
+  plain version on the card, within 1e-6 (float64) or GRAD32_TOL
+  (float32) of each gradient's largest entry."""
+  dev = cuda_device
+  spec, kinds = gated_live_spec(), (K.ECEF_POS, K.NO_ROT)
+  B, T = 16, 32
+  x0, P0, dts, ki, zs, Rs, eas = live_log(kinds, CARD_WARM + T, B, seed=8)
+  f = dict(dtype=torch.float64, device=dev)
+  t = lambda a: torch.as_tensor(a, **f)  # noqa: E731
+  fn, _ = scan.build_scan_stream(spec, kinds)
+  plain, _ = scan.build_scan_stream_reference(spec, kinds)
+  w = slice(None, CARD_WARM)
+  with torch.no_grad():
+    (xw, Pw), _ = vmap(lambda xl, Pl, zl: fn(
+        {}, xl, Pl, t(LiveKalman.Q), t(dts[w]), ki[w], zl, t(Rs[w]),
+        t(eas[w])), in_dims=(0, 0, 1))(t(x0), t(P0), t(zs[w]))
+  far = zs[CARD_WARM:].copy()
+  far[::2, ::4] += 100.0
+  c = lambda a: torch.as_tensor(a).to(dtype)  # noqa: E731
+  case = (spec, kinds, c(xw.cpu()), c(Pw.cpu()), c(LiveKalman.Q),
+          c(dts[CARD_WARM:]), ki[CARD_WARM:], c(far), c(Rs[CARD_WARM:]),
+          c(eas[CARD_WARM:]))
+  rng = np.random.RandomState(13)
+  dx, de = spec.dim_x, spec.dim_err
+  W = [c(rng.randn(*s)) for s in (
+      (B, dx), (B, de, de), (B, T, dx), (B, T, de, de), (B, T, dx),
+      (B, T, de, de))]
+  got = _grads_on_the_card(fn, spec, kinds, case, W, dev)
+  torch.cuda.synchronize()
+  assert int(generic_scan.stream_bank_scan_adjoint.gate_flips.sum()) == 0
+  with torch.no_grad():
+    _, (_, Pp, _, Pq) = vmap(lambda xl, Pl, zl: fn(
+        {}, xl, Pl, *(a.to(dev) for a in case[4:6]), case[6], zl,
+        *(a.to(dev) for a in case[8:])), in_dims=(0, 0, 1))(
+        case[2].to(dev), case[3].to(dev), case[7].to(dev))
+  rejected = (torch.diagonal(Pp, dim1=-2, dim2=-1)
+              == torch.diagonal(Pq, dim1=-2, dim2=-1)).all(-1)
+  assert int(rejected.sum()) > 0
+  ref = _grads_on_the_card(plain, spec, kinds, case, W, dev)
+  tol = 1e-6 if dtype == torch.float64 else GRAD32_TOL
+  for a, b in zip(got, ref):
+    assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+def _sim(T, q_true=2.0, seed=0):
+  """tests/test_differentiable._sim (that file imports JAX): a 1-D
+  constant-velocity truth with velocity noise q_true * 0.01 a step, and
+  its positions measured with noise 0.1."""
+  rng = np.random.default_rng(seed)
+  xs, v, x = np.zeros((T,)), 0.0, 0.0
+  for k in range(T):
+    v += rng.normal(0, q_true * 0.01)
+    x += v * 0.01
+    xs[k] = x
+  return xs, xs + rng.normal(0, 0.1, T)
+
+
+@pytest.mark.cuda
+def test_ml_noise_tuning_on_the_card(cuda_device):
+  """tests/test_differentiable.py::test_ml_noise_tuning_recovers_process_
+  noise through the offline log scan on the card: the innovation NLL of
+  the kinematic filter over T = 800 steps, from its predicted stacks;
+  200 momentum steps from log q = log 1e-4 and log 1e4, each gradient one
+  launch of kernel 9 and one of kernel 10 (float64). Both starts find the
+  same optimum (log-ratio < 0.05), within 0.6-1.6 of the ML optimum 0.2."""
+  dev = cuda_device
+  _, zs = _sim(800, q_true=2.0, seed=1)
+  spec = KinematicKalman.build_spec()
+  fn, _ = scan.build_scan_stream(spec, (KK.POSITION,))
+  f = dict(dtype=torch.float64, device=dev)
+  T = len(zs)
+  x0 = torch.as_tensor(KinematicKalman.initial_x, **f)
+  P0 = torch.as_tensor(np.diag(KinematicKalman.initial_P_diag), **f)
+  z = torch.as_tensor(zs, **f)
+  dts, ki = torch.full((T,), 0.01, **f), np.zeros(T, np.int32)
+  Rs = torch.full((T, 1, 1), 0.1**2, **f)
+  eas = torch.zeros((T, 1), **f)
+
+  def nll_grad(log_q):
+    lq = log_q.clone().requires_grad_()
+    Q = torch.diag(torch.stack([torch.full((), 0.1**2, **f), torch.exp(lq)]))
+    _, (xp, Pp, _, _) = fn({}, x0, P0, Q, dts, ki, z[:, None], Rs, eas)
+    S = Pp[:, 0, 0] + 0.1**2
+    nll = (0.5 * (torch.log(S) + (z - xp[:, 0]) ** 2 / S)).mean()
+    (g,) = torch.autograd.grad(nll, lq)
+    return g
+
+  def fit(log_q0, steps=200, lr=2.0, momentum=0.9):
+    log_q, m = torch.tensor(log_q0, **f), torch.zeros((), **f)
+    for _ in range(steps):
+      m = momentum * m + nll_grad(log_q)
+      log_q = log_q - lr * m
+    return float(torch.exp(0.5 * log_q))
+
+  n9 = generic_scan.stream_bank_scan.launches
+  n10 = generic_scan.stream_bank_scan_adjoint.launches
+  est_lo, est_hi = fit(np.log(1e-4)), fit(np.log(1e4))
+  assert generic_scan.stream_bank_scan.launches == n9 + 400
+  assert generic_scan.stream_bank_scan_adjoint.launches == n10 + 400
+  assert abs(np.log(est_lo / est_hi)) < 0.05, (est_lo, est_hi)
+  truth = 2.0 * 0.01 / np.sqrt(0.01)
+  assert 0.6 * truth < est_lo < 1.6 * truth, (est_lo, truth)
