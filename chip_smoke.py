@@ -110,7 +110,8 @@ them). Then:
        lanes x T = 8192, float32) through runtime/scan's scan_fn vmapped
        over the lanes, torch.autograd.grad of the innovation NLL of its
        predicted stacks w.r.t. Q, Rs, x0, P0 and zs: kernel 9 once and
-       kernel 10 (the backward, csrc/stream_adjoint.cuh) once, no other;
+       kernel 10 (the backward, csrc/stream_adjoint.cuh, in tile form)
+       once, no other, the four cotangents the NLL does not read absent;
        the gradients finite and nonzero, no gate flip.
      Every kernel of a path must have launched in it, and no main path
      may run the plain version of kernel 8 or 9; the VIO path launches
@@ -186,8 +187,12 @@ them). Then:
      planted faults beyond it, float32 from a converged state within
      GRAD32_TOL with the same faults beyond it, the gated live spec's
      log with outliers in both types (steps rejected), no gate flip on
-     any; timed wrapped and raw at SCAN_CMP_T and
-     RTS_T with its bound, and the plain backward. The maximum-likelihood
+     any; each adjoint variant's design (every float32 one a tile), W,
+     shared memory, registers and stack; the tile timed wrapped and raw at
+     SCAN_CMP_T and RTS_T with its bound, its global form raw in turns
+     with it at SCAN_CMP_T, and the plain backward; the tenth path's
+     backward split (backward_split: the NLL's own backward, the backward
+     op, its bank-minor copies and kernel 10 raw). The maximum-likelihood
      tuning of tests/test_differentiable.py through kernels 9 and 10
      (ml_tuning: T = 800, 200 momentum steps from two starts, float64).
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
@@ -638,18 +643,22 @@ def io_bytes(items, itemsize):
   return n
 
 
-def adjoint_bytes(call, kind_idx, B, itemsize):
+COTANGENTS = ("gx", "gP", "gxp", "gPp", "gxq", "gPq")
+
+
+def adjoint_bytes(call, kind_idx, B, itemsize, cotangents=COTANGENTS):
   """Kernel 10's compulsory bytes on a log of kinds kind_idx (numpy) for
   B lanes: read once, x0, P0's upper entries, each step's z rows and extra
   args of its kind, the upper entries of each step's R block, dts,
   kind_idx (int32), the params, Q's pattern entries (upper), the stacks
   it recomputes from (every predicted x and P, P's upper entries; the
   posterior ones of steps 0 .. T-2, and of a gated log the diagonal of
-  the last posterior P, which holds the decision) and the six outputs'
-  cotangents (full matrices); written once, the gradients at the size of
-  the function's outputs: x0's, P0's, Q's and each R block's upper
-  entries, each step's z rows and extra args a lane, dts' and the
-  params' (the shared inputs' once, not per lane)."""
+  the last posterior P, which holds the decision) and the cotangents
+  given (full matrices; by name, COTANGENTS: an absent one is not read);
+  written once, the gradients at the size of the function's outputs:
+  x0's, P0's, Q's and each R block's upper entries, each step's z rows
+  and extra args a lane, dts' and the params' (the shared inputs' once,
+  not per lane)."""
   spec, T = call.spec, len(kind_idx)
   dx, de = spec.dim_x, spec.dim_err
   up = de * (de + 1) // 2
@@ -660,8 +669,10 @@ def adjoint_bytes(call, kind_idx, B, itemsize):
   q = int(np.count_nonzero(np.triu(np.asarray(call.Q))))
   n_prm = len(call._pnames)
   gated = T > 0 and any(spec.obs[k].maha_test for k in call.kinds)
+  size = {"gx": dx, "gP": de * de, "gxp": T * dx, "gPp": T * de * de,
+          "gxq": T * dx, "gPq": T * de * de}
   lane_in = (dx + up + sz + se + T * (dx + up) + max(T - 1, 0) * (dx + up)
-             + (de if gated else 0) + (1 + 2 * T) * (dx + de * de))
+             + (de if gated else 0) + sum(size[c] for c in cotangents))
   lane_out = dx + up + sz + se
   shared = T + sr + n_prm + q + sr + T + up + n_prm
   return (B * (lane_in + lane_out) + shared) * itemsize + 4 * T
@@ -3043,6 +3054,71 @@ def grad_path(torch, dev, gen):
   return {}
 
 
+def backward_split(torch, dev, log_args):
+  """Where the tenth path's backward goes (phase 2, so that its launches
+  leave the path's counts alone): on a log of its shape (scan_log's
+  args), the whole backward as the path runs it, the NLL's own backward to
+  the stacks it reads (x_preds, P_preds), the op rednose::scan_stream_
+  backward on those two cotangents (the other four absent), and inside
+  it the bank-minor copies and kernel 10 raw on the same inputs; host
+  clock after a synchronise, the copies and the kernel CUDA events.
+  Returns the times (ms) by name."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.runtime import scan
+
+  spec = LiveKalman.build_spec()
+  scan_fn, _ = scan.build_scan_stream(spec, SCAN_KINDS)
+  call = adjoint_calls()["live log adjoint (kernel 10)"][0]
+  x0, P0, Q, dts, ki, zs, Rs, eas = log_args
+  ins = [a.clone().requires_grad_() for a in (Q, Rs, x0, P0, zs)]
+  Qg, Rg, xg, Pg, zg = ins
+  _, (xp, Pp, xq, Pq) = vmap(
+      lambda x, P, z: scan_fn({}, x, P, Qg, dts, ki, z, Rg, eas),
+      in_dims=(0, 0, 1))(xg, Pg, zg)
+  nll = innovation_nll(torch, spec, SCAN_KINDS, ki, xp, Pp, zg, Rg, eas)
+
+  def clock(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+  out = {}
+  out["backward"], _ = clock(lambda: torch.autograd.grad(
+      nll, ins, retain_graph=True))
+  out["NLL backward"], (gxp, gPp) = clock(lambda: torch.autograd.grad(
+      nll, [xp, Pp], retain_graph=True))
+  ki32 = torch.as_tensor(ki, device=dev).to(torch.int32)
+  prm = torch.zeros(1, device=dev)
+  d = [a.detach() for a in (xg, Pg, zg, Rg, Qg, xp, Pp, xq, Pq)]
+  args = (d[0], d[1], d[2], dts, ki32, d[3], eas, d[4], prm, *d[5:], None,
+          None, gxp, gPp, None, None, scan._handle(spec, SCAN_KINDS, ()))
+  clock(lambda: torch.ops.rednose.scan_stream_backward(*args))   # warm
+  out["backward op"], _ = clock(
+      lambda: torch.ops.rednose.scan_stream_backward(*args))
+
+  def bm(a):
+    return a.permute(*range(1, a.dim()), 0).contiguous()
+
+  out["bank-minor copies"], copies = timed_run(lambda: (
+      [bm(a) for a in (d[0], d[1], d[5], d[6], d[7], d[8], gxp, gPp)]
+      + [d[2].transpose(1, 2).contiguous()]), 1)
+  x0b, P0b, xpb, Ppb, xqb, Pqb, gxpb, gPpb, zsb = copies
+  out["kernel 10 raw"], _ = timed_run(adjoint_launch(
+      call.source(torch.float32), call, x0b, P0b, zsb, dts, ki, d[3],
+      (xpb, Ppb, xqb, Pqb), (None, None, gxpb, gPpb, None, None)), 2)
+  out["op's rest"] = (out["backward op"] - out["bank-minor copies"]
+                      - out["kernel 10 raw"])
+  out["outside the op"] = (out["backward"] - out["NLL backward"]
+                           - out["backward op"])
+  out["bound"] = bound(adjoint_bytes(call, np.asarray(ki), x0.shape[0], 4,
+                                     ("gxp", "gPp")), 0)[0]
+  return out
+
+
 def offline_path(torch, dev, gen):
   """Phase 1, offline smoother and migration, all on the card: (a) the
   full-Q live bank; (b) a live log through the scan stream for RTS_B
@@ -3449,11 +3525,14 @@ def compare_scan_grad(torch, dev, gen, reps=3):
   (host clock after a synchronise, one run each, the plain one the row's
   plain time); kernel 10 alone wrapped (stream_bank_scan_adjoint, CUDA
   events, mean of reps) and raw (adjoint_launch) at SCAN_CMP_T and RTS_T
-  (a float32 log from the prior, kernel 9's stacks, random cotangents).
-  The bound: the adjoint's emitted operations a step (the log's two kinds
-  in turn) at the float32 peak, or the compulsory bytes (adjoint_bytes).
-  Each variant's registers,
-  stack and spills. Returns its row."""
+  (a float32 log from the prior, kernel 9's stacks, random cotangents),
+  its global form raw in turns with the tile (global, tile, tile,
+  global) at SCAN_CMP_T; the tenth path's backward split on the RTS_T
+  log (backward_split). The bound: the adjoint's emitted operations a
+  step (the log's two kinds in turn) at the float32 peak, or the
+  compulsory bytes (adjoint_bytes). Each variant's design, W, shared
+  memory, registers, stack and spills (the float32 variants must be
+  tiles). Returns its row."""
   from torch.func import vmap
 
   from rednose_tpu_torch import _build
@@ -3589,7 +3668,8 @@ def compare_scan_grad(torch, dev, gen, reps=3):
             "kernel 10 follows the forward's gate decisions: steps rejected, "
             "no flip, gradients within the limit")
 
-  # kernel 10 alone, wrapped and raw, at T and at RTS_T from the prior
+  # kernel 10 alone, wrapped and raw, at T and at RTS_T from the prior;
+  # its global form (the design before) raw at T in turns with the tile
   def bank_case(args):
     """Kernel 9's stacks of args (scan_fn's layout) and random cotangents,
     all bank-minor: (x0, P0, zs, dts, ki, Rs, stacks, cotangents)."""
@@ -3605,7 +3685,8 @@ def compare_scan_grad(torch, dev, gen, reps=3):
   fwd_call = stream_calls()["live log scan (kernel 9)"][0]
   long = scan_log(torch, dev, gen, RTS_T, B, torch.float32)
   src = call.source(torch.float32)
-  times, shapes = {}, {}
+  glob = call.source(torch.float32, tile=False)
+  times, shapes, turns = {}, {}, {"global": [], "tile": []}
   for n, args in ((T, case), (RTS_T, long)):
     x0b, P0b, zsb, dts_, ki_, Rs_, stacks, cots = bank_case(args)
     ki32 = torch.as_tensor(ki_, device=dev).to(torch.int32)
@@ -3615,11 +3696,25 @@ def compare_scan_grad(torch, dev, gen, reps=3):
     wrapped, out = timed_run(lambda: gs.stream_bank_scan_adjoint(
         call, x0b, P0b, zsb, dts_, ki32, Rs_, None, prm, Qd, *stacks,
         *cots), k)
-    raw, _ = timed_run(adjoint_launch(src, call, x0b, P0b, zsb, dts_, ki_,
-                                      Rs_, stacks, cots), k)
+    tile = adjoint_launch(src, call, x0b, P0b, zsb, dts_, ki_, Rs_, stacks,
+                          cots)
+    raw, _ = timed_run(tile, k)
+    if n == T:
+      old = adjoint_launch(glob, call, x0b, P0b, zsb, dts_, ki_, Rs_,
+                           stacks, cots)
+      for which in ("global", "tile", "tile", "global"):
+        turns[which].append(timed_run(old if which == "global" else tile,
+                                      k)[0])
     times[n] = (wrapped, raw)
     shapes[n] = adjoint_bytes(call, np.asarray(ki_), B, 4)
     del stacks, cots, out
+  split = backward_split(torch, dev, long)
+  log(f"the tenth path's backward split [live log B={B} T={RTS_T}, "
+      "float32; host clock after a synchronise, the copies and kernel 10 "
+      "CUDA events]: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                   split.items())
+      + " (the bound: kernel 10's compulsory bytes with the two cotangents "
+      "the NLL gives)")
   ops_step = step_ops(call.counting_source(), SCAN_KINDS, "mixed")
   bounds = {n: bound(shapes[n], ops_step * n * B) for n in times}
   bound_ms, bound_by = bounds[T]
@@ -3630,17 +3725,26 @@ def compare_scan_grad(torch, dev, gen, reps=3):
               _build.generated_ptxas(s).splitlines()
               if "spill" in ln or "nvcc" in ln]
     log(f"{name}, {str(dtype).split('.')[-1]}: design "
-        f"{'tile' if info['design'] else 'global'}, {info['threads']} threads "
-        f"a block, {info['blocks_per_sm']} blocks an SM, {info['registers']} "
-        f"registers, {info['local_bytes']} B of stack a thread; "
-        f"{len(s.splitlines())} lines; ptxas {spills}")
-  log(f"stream_bank_scan_adjoint (kernel 10) [live log B={B}, float32]: "
+        f"{'tile' if info['design'] else 'global'}, W = {info['warps']} "
+        f"({info['threads']} threads a block), {info['smem_bytes']:,} B of "
+        f"shared memory, {info['blocks_per_sm']} blocks an SM, "
+        f"{info['registers']} registers, {info['local_bytes']} B of stack a "
+        f"thread; {len(s.splitlines())} lines; ptxas {spills}")
+    if not info["design"] and c.mode == "stream_adjoint":
+      log(f"  {name}: {s.splitlines()[3][3:]}")
+    require(info["design"] == 1 and info["warps"] > 1
+            or dtype == torch.float64,
+            f"{name}: every float32 variant of kernels 9 and 10 is a tile "
+            f"of more than one warp: {info}")
+  log(f"stream_bank_scan_adjoint (kernel 10, tile W="
+      f"{_build.generated_info(src)['warps']}) [live log B={B}, float32]: "
       + "; ".join(f"T={n}: wrapped {w:.4f} ms, raw {r:.4f} ms (CUDA events), "
                   f"{r / n * 1e3:.3f} us a step, bound {bounds[n][0]:.4g} ms "
                   f"({bounds[n][1]})" for n, (w, r) in times.items())
-      + f"; {ops_step:,.0f} emitted operations a step; plain version "
-      f"(autograd through build_scan_stream_reference, T={T}) {plain_ms:.1f} "
-      "ms")
+      + f"; in turns at T={T}, raw: global form {turns['global']} ms, tile "
+      f"{turns['tile']} ms; {ops_step:,.0f} emitted operations a step; plain "
+      f"version (autograd through build_scan_stream_reference, T={T}) "
+      f"{plain_ms:.1f} ms")
   return [dict(
       name="stream_bank_scan_adjoint", route="cuda",
       source="rednose_tpu_torch/csrc/stream_adjoint.cuh",
@@ -4732,6 +4836,8 @@ def main():
       cmp_sources[f"live log scan (kernel 9), "
                   f"{str(dtype).split('.')[-1]} global form"] = \
           live_log_call.source(dtype, tile=False)
+    cmp_sources["live log adjoint (kernel 10), float32 global form"] = \
+        adj[path_adjoint][0].source(torch.float32, tile=False)
     start(cmp_sources)
     for model in msckf_models():
       for name, call in (("run_frames", msckf_call(model)),

@@ -67,7 +67,8 @@ the global form only: the predict, one update function per kind reading
 the leading dz x dz block of the step's streamed max_dz x max_dz R, and a
 switch over them by the step's kind index.
 Mode "stream_adjoint" (kernel 10, the adjoint of kernel 9) is the reverse
-mode of these DAGs, ops/adjoint.py.
+mode of these DAGs, ops/adjoint.py, in tile form where its tile fits
+(adjoint_tile_bytes, TILE_ROLES_ADJOINT warps).
 """
 
 from __future__ import annotations
@@ -779,6 +780,7 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
 TILE_ROLES = 2           # W: measured among 1, 2, 4 and 8 (PERF.md)
 TILE_ROLES_FRAME = 8     # W of a variant with a camera-frame unit (PERF.md)
 TILE_ROLES_STREAM = 8    # W of a log-scan variant (mode "stream", PERF.md)
+TILE_ROLES_ADJOINT = 8   # W of its adjoint (mode "stream_adjoint", PERF.md)
 TILE_LANES = 32          # filters a block holds, one a lane
 TILE_SMEM_MAX = 232_448  # shared memory bytes a block may use on the H100
 _SCALAR_BYTES = {"float": 4, "double": 8}
@@ -879,6 +881,21 @@ def stream_input_bytes(nzrows, nearows, scalar) -> int:
   slot)."""
   return 2 * ((nzrows + nearows) * TILE_LANES + nzrows ** 2 + 2) * \
       _SCALAR_BYTES[scalar]
+
+
+def adjoint_tile_bytes(spec, nscr, nzrows, nearows, scalar) -> int:
+  """Shared memory of a block of kernel 10's tile (csrc/stream_adjoint.cuh):
+  TILE_LANES lanes x (the upper entries of P's cotangent L and of Q's
+  gQ, lx, the update's inputs of a step (its stacked P's upper entries,
+  x, z and ea rows), the predict's (P's upper entries, x), the diagonal
+  of the posterior P that holds the forward's gate decision, nscr
+  scratch values), and a block's step R, dt, kind index, flip counts and
+  row table (each int in a value's room)."""
+  de, dx = spec.dim_err, spec.dim_x
+  up = de * (de + 1) // 2
+  lane = 2 * up + dx + (up + dx + nzrows + nearows) + (up + dx) + de + nscr
+  block = nzrows ** 2 + 2 + TILE_LANES + up
+  return (lane * TILE_LANES + block) * _SCALAR_BYTES[scalar]
 
 
 def _needs(root, stop):
@@ -1266,14 +1283,15 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   tile: False prints the global form of a variant that would tile, with
   no design line (the whole phases, one function each). Mode
   'stream_adjoint' (kernel 10, the adjoint of mode 'stream') is printed by
-  ops/adjoint.emit_source, in the global form only."""
+  ops/adjoint.emit_source: the tile form where its tile fits a block
+  (adjoint_tile_bytes), else, or with tile=False, the global form."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
   if mode == "stream_adjoint":
     from rednose_tpu_torch.ops import adjoint
 
     return adjoint.emit_source(spec, units, structure, pnames, q_pattern,
-                               scalar)
+                               scalar, tile)
   r_patterns = (tuple(r_patterns) if r_patterns is not None
                 else (None,) * len(units))
   feature = [spec.obs[k].is_feature for k, _ in units]

@@ -45,8 +45,9 @@ launcher copies of x and P to advance in place.
 ops/adjoint.py around csrc/stream_adjoint.cuh) replaces jax.grad of that
 scan_fn (XLA's transpose of the lax.scan): the log backwards, each step's
 update and predict recomputed from kernel 9's stacks, the cotangents of
-every floating input out. Its caller is the autograd rule of scan_fn's
-custom op.
+every floating input out; a tile of 32 lanes x W warps whose adjoint
+phases run in stages split across the warps, where the tile fits. Its
+caller is the autograd rule of scan_fn's custom op.
 
 Every other wrapper returns new (x, P) and never writes its inputs. For CPU
 tensors it runs the plain version (ops/lane_bank.py); for CUDA tensors
@@ -528,8 +529,9 @@ def stream_bank_scan_adjoint(call: KernelCall, x0, P0, zs, dts, kind_idx,
   (x0 (dim_x, B) and P0 (de, de, B) the state before the log, xp, xq
   (T, dim_x, B), Pp, Pq (T, de, de, B)), and the cotangents of its
   outputs (gx, gP of the final state, gxp, gPp, gxq, gPq of the stacks,
-  full matrices, in the same layouts), the cotangents of its inputs, per
-  lane: (dx0 (dim_x, B), dP0 (de, de, B), dzs (T, max_dz, B), dRs (T,
+  full matrices, in the same layouts; None for an output whose cotangent
+  is zero, which the kernel does not read), the cotangents of its inputs,
+  per lane: (dx0 (dim_x, B), dP0 (de, de, B), dzs (T, max_dz, B), dRs (T,
   max_dz, max_dz, B), ddts (T, B), deas (T, max_ea_len, B) or None,
   dQ (de, de, B), dprm (len(prm), B)). dP0, dQ and dRs hold the
   cotangents of the upper entries the kernel reads (a full-matrix one
@@ -564,7 +566,8 @@ def stream_bank_scan_adjoint(call: KernelCall, x0, P0, zs, dts, kind_idx,
       ("gx", gx, (dx, B)), ("gP", gP, (de, de, B)),
       ("gxp", gxp, (T, dx, B)), ("gPp", gPp, (T, de, de, B)),
       ("gxq", gxq, (T, dx, B)), ("gPq", gPq, (T, de, de, B))):
-    _build.check_tensor(name, t, shape, dtype)
+    if t is not None or not name.startswith("g"):
+      _build.check_tensor(name, t, shape, dtype)
   _build.check_tensor("kind_idx", kind_idx, (T,), torch.int32)
   if (eas is None) != (max_ea == 0):
     raise ValueError(f"kinds {kinds}: pass eas iff a kind takes extra args")

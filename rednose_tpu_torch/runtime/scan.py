@@ -13,8 +13,10 @@ core/step.py.
 Gradients: on the host autograd runs through the plain loop; on the card
 the custom op's autograd rule is one launch of kernel 10
 (ops/generic_scan.stream_bank_scan_adjoint, the adjoint of kernel 9's
-emitted arithmetic, ops/adjoint.py) for the whole bank, through the op
-rednose::scan_stream_backward. It gives the cotangents of x, P, Q, dts,
+emitted arithmetic, ops/adjoint.py, in tile form where its tile fits a
+block) for the whole bank, through the op rednose::scan_stream_backward;
+an output the loss does not read passes no cotangent (None), and the
+kernel skips it. It gives the cotangents of x, P, Q, dts,
 zs, Rs, eas and the params. It follows the forward's gate decisions, read
 from the stacks, and warns (RuntimeWarning) where its recomputed decision
 differs (ops/generic_scan.stream_bank_scan_adjoint.gate_flips). P, Q and
@@ -308,6 +310,8 @@ def _refuse_forward_mode(values):
 def _setup_backward(ctx, inputs, output):
   x, P, zs, dts, kind_idx, Rs, eas, Q, prm, handle = inputs
   ctx.handle = handle
+  # an output the loss does not read reaches the backward as None
+  ctx.set_materialize_grads(False)
   ctx.save_for_backward(x, P, zs, dts, kind_idx, Rs, eas, Q, prm,
                         *output[2:])
 
@@ -320,13 +324,9 @@ def _scan_stream_backward(ctx, gx, gP, gxp, gPp, gxq, gPq):
         "scan_fn on the card: higher-order gradients (create_graph=True) "
         "through kernel 10 are not ported; run build_scan_stream_reference's "
         "plain loop for them")
-  saved = ctx.saved_tensors
-  outs = saved[9:]                           # xp, Pp, xq, Pq
-  full = (saved[0], saved[1]) + outs
-  grads = [torch.zeros_like(like) if g is None else g
-           for g, like in zip((gx, gP, gxp, gPp, gxq, gPq), full)]
   dx, dP, dzs, ddts, dRs, deas, dQ, dprm = \
-      torch.ops.rednose.scan_stream_backward(*saved, *grads, ctx.handle)
+      torch.ops.rednose.scan_stream_backward(
+          *ctx.saved_tensors, gx, gP, gxp, gPp, gxq, gPq, ctx.handle)
   return dx, dP, dzs, ddts, None, dRs, deas, dQ, dprm, None
 
 
@@ -345,14 +345,16 @@ def _scan_stream_backward_op(
     x: torch.Tensor, P: torch.Tensor, zs: torch.Tensor, dts: torch.Tensor,
     kind_idx: torch.Tensor, Rs: torch.Tensor, eas: torch.Tensor,
     Q: torch.Tensor, prm: torch.Tensor, xp: torch.Tensor, Pp: torch.Tensor,
-    xq: torch.Tensor, Pq: torch.Tensor, gx: torch.Tensor, gP: torch.Tensor,
-    gxp: torch.Tensor, gPp: torch.Tensor, gxq: torch.Tensor,
-    gPq: torch.Tensor, handle: int) -> tuple[
+    xq: torch.Tensor, Pq: torch.Tensor, gx: torch.Tensor | None,
+    gP: torch.Tensor | None, gxp: torch.Tensor | None,
+    gPp: torch.Tensor | None, gxq: torch.Tensor | None,
+    gPq: torch.Tensor | None, handle: int) -> tuple[
         torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
         torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """Kernel 10 for rednose::scan_stream's inputs (x, P, zs, dts, kind_idx,
   Rs, eas, Q, prm in its layout), its stacks (xp, Pp, xq, Pq) and the
-  cotangents of its six outputs: one launch of
+  cotangents of its six outputs (None for an output the loss does not
+  read, which the kernel skips): one launch of
   ops/generic_scan.stream_bank_scan_adjoint on bank-minor copies, the
   shared inputs' per-lane cotangents summed over the lanes, P's, Q's and
   R's symmetrized; a RuntimeWarning where a lane-step's recomputed gate
@@ -367,7 +369,12 @@ def _scan_stream_backward_op(
   max_ea = max(spec.obs[k].ea_len for k in kinds)
   eas_b = (None if max_ea == 0 else
            eas[:, :max_ea, None].expand(T, max_ea, B).contiguous())
-  bm = lambda a: a.permute(*range(1, a.dim()), 0).contiguous()  # noqa: E731
+  def bm(a):
+    """a bank-minor copy (the lanes last), None for an absent one"""
+    if a is None:
+      return None
+    return a.permute(*range(1, a.dim()), 0).contiguous()
+
   dx0, dP0, dzs, dRs, ddts, deas, dQ, dprm = \
       generic_scan.stream_bank_scan_adjoint(
           call, bm(x), bm(P), zs.transpose(1, 2).contiguous(),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Measure the design constants of the port's tile kernels on one card:
 kernels 2, 3, 4, 5 and 6 at W = 1, 2, 4 and 8 warps a block, kernels 7
-and 6 with camera frames at W = 4, 8 and 16, kernel 9 (the log scan) at
-W = 2, 4, 8, 16 and 32, kernel 1's ring, and kernel 8's block size.
+and 6 with camera frames at W = 4, 8 and 16, kernel 9 (the log scan) and
+kernel 10 (its adjoint) at W = 2, 4, 8, 16 and 32, kernel 1's ring, and
+kernel 8's block size.
 
     python3 sweep_warps.py [--parent DIR] [--parts PART ...]   # repo root
 
@@ -16,14 +17,18 @@ functions, its stack stores only; stream_sweep) and triangulate (kernel
 8 on the VIO store's frames 0 and 31 and on the long-tail batch at three
 block sizes, a stride-0 window also as its contiguous copy, beside its
 launch floor; with --parent the parent's kernel and wrapper in turns:
-tri_sweep); all six by default. W is a constant of
+tri_sweep) and adjoint (kernel 10: chip_smoke.adjoint_calls' float32
+live log adjoint at B = 64, T = 256 and 8192, at each W beside its
+global form and timing aids; with --parent the parent's kernel 10 in
+turns: adjoint_sweep); all seven by default. W is a constant of
 each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
 ops/entry_slab.py (kernel 4, mode "single", kernel 5, mode "epoch", and
 kernel 6, mode "mixed" without a camera-frame unit) and
 `TILE_ROLES_FRAME` (kernel 7, mode "frame", and kernel 6 with a
-camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream");
+camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream"),
+`TILE_ROLES_ADJOINT` (kernel 10, mode "stream_adjoint");
 kernel 8's `BLOCK_THREADS` in csrc/triangulate.cu.
 Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
 csrc/kinematic_scan.cu (filters a block, steps a ring stage, stages).
@@ -86,7 +91,8 @@ SWEEP_DIR = ROOT / "build" / "sweep_warps"
 WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
-PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate")
+PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate",
+         "adjoint")
 STREAM_WS = (2, 4, 8, 16, 32)
 STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
@@ -747,6 +753,213 @@ def stream_sweep(torch, dev, gen):
   return results
 
 
+# --------------------------------------------------------------- kernel 10
+
+ADJOINT_WS = (2, 4, 8, 16, 32)
+ADJOINT_TS = (256, 8192)     # the smoke's hold and the tenth path's T
+ADJ_FUNCS = {"stages": r"gen_adjt_\w+_s\d+_r\d+",
+             "outputs": r"gen_adjt_\w+_f_r\d+",
+             "stores": r"gen_adjt_\w+_w_r\d+"}
+
+
+def adjoint_without(src, parts):
+  """A kernel 10 tile source whose emitted functions of the given parts
+  return at once (a timing aid; its numbers are garbage): "stages" each
+  stage's role functions (the cut values), "outputs" each role's outputs,
+  "stores" each role's stores."""
+  out = src
+  for part in parts:
+    out, n = re.subn(rf"(GEN_HD GEN_INLINE void {ADJ_FUNCS[part]}\(.*\) "
+                     r"\{\n)", r"\g<1>  return;\n", out)
+    if not n:
+      raise ValueError(f"no {part} functions in the source")
+  return out
+
+
+def without_adjoint_loads(header):
+  """csrc/stream_adjoint.cuh with its tile's staged copies taken out
+  (rn_adj_stage returns at once: each phase recomputes from the first
+  step's state): a timing aid, its numbers garbage."""
+  old = "    int B, int b0, int tid, bool whole) {\n"
+  if header.count(old) != 1:
+    raise RuntimeError("stream_adjoint.cuh: no rn_adj_stage to take out")
+  return header.replace(old, old + "  return;\n")
+
+
+def sass_instructions(lib):
+  """The SASS instructions of a built library (cuobjdump -sass), or None
+  where the toolkit has no cuobjdump: the code a launch may fetch."""
+  from rednose_tpu_torch import _build
+
+  tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+  if not tool.exists():
+    return None
+  out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                       text=True).stdout
+  return len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", out, re.M))
+
+
+def build_adjoint(name, source, csrc):
+  """nvcc of an emitted adjoint source beside the templates of the csrc
+  directory given (generic_scan.cuh and stream_adjoint.cuh), in a
+  directory of its own: its rn_generic_stream_adjoint_launch."""
+  from rednose_tpu_torch import _build
+
+  d = SWEEP_DIR / name
+  shutil.rmtree(d, ignore_errors=True)
+  d.mkdir(parents=True)
+  (d / "gen.cu").write_text(source)
+  for h in ("generic_scan.cuh", "stream_adjoint.cuh"):
+    shutil.copy(pathlib.Path(csrc) / h, d / h)
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
+       str(d / "libgen.so"), str(d / "gen.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  if proc.returncode:
+    raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
+  (d / "libgen.ptxas.txt").write_text(proc.stdout)
+  entry = "rn_generic_stream_adjoint_launch"
+  fn = getattr(ctypes.CDLL(str(d / "libgen.so")), entry)
+  fn.argtypes = list(_build.GEN_ENTRIES[entry])
+  fn.restype = ctypes.c_int
+  return fn, kernel_ptxas(proc.stdout, "rn_generic_stream_adjoint")
+
+
+PARENT_ADJOINT = """
+import sys
+import torch
+import chip_smoke as cs
+call = cs.adjoint_calls()["live log adjoint (kernel 10)"][0]
+open(sys.argv[1], "w").write(call.source(torch.float32))
+"""
+
+
+def adjoint_sweep(torch, dev, gen, parent=None):
+  """Kernel 10 (chip_smoke.adjoint_calls' live log adjoint in float32,
+  the tenth path's variant) in tile form at W = ADJOINT_WS and in its
+  global form (the design before), with timing aids at the shipped W whose
+  outputs are garbage: without the staged copies of the stacks (each
+  phase recomputes from the first step's state), the cut stages only (no
+  outputs, no stores), the outputs and stores only (no stages), the
+  stores only, and nothing but the loop's barriers and copies. Each build
+  on chip_smoke's inputs (the live log for RTS_B lanes from the prior,
+  kernel 9's stacks, random cotangents), held against the global form at
+  T = 256 (the largest relative difference over the outputs; not the
+  aids), then timed (raw launches, CUDA events, after a warm-up) at each
+  T of ADJOINT_TS (the global form at T = 256 only: ~2.1 s a launch at
+  T = 8192). With parent (a checkout of the parent commit), the parent's
+  kernel 10 (its emitter run in a subprocess there, built with its
+  templates) in turns with the shipped tile (parent, tile, tile, parent)
+  at T = 256. Each emitted build's SASS instruction count (cuobjdump,
+  where the toolkit has it): the code a step fetches."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import entry_slab
+
+  w0 = entry_slab.TILE_ROLES_ADJOINT
+  call = cs.adjoint_calls()["live log adjoint (kernel 10)"][0]
+  fwd = cs.stream_calls()["live log scan (kernel 9)"][0]
+  t0 = time.perf_counter()
+  srcs = {f"W={w}": k4_source(lambda: call, dtype=torch.float32,
+                              TILE_ROLES_ADJOINT=w) for w in ADJOINT_WS}
+  srcs["global"] = call.source(torch.float32, tile=False)
+  tile = srcs[f"W={w0}"]
+  aids = {f"W={w0}, the cut stages only": ("outputs", "stores"),
+          f"W={w0}, outputs and stores only": ("stages",),
+          f"W={w0}, stores only": ("stages", "outputs"),
+          f"W={w0}, barriers and copies only": ("stages", "outputs",
+                                                "stores")}
+  for label, parts in aids.items():
+    srcs[label] = adjoint_without(tile, parts)
+  cs.log(f"kernel 10: emitted in {time.perf_counter() - t0:.1f} s: "
+         + ", ".join(f"{k} {len(v.splitlines())} lines"
+                     for k, v in srcs.items()))
+  csrc = ROOT / "rednose_tpu_torch" / "csrc"
+  noload = SWEEP_DIR / "k10_noload"
+  noload.mkdir(parents=True, exist_ok=True)
+  shutil.copy(csrc / "generic_scan.cuh", noload / "generic_scan.cuh")
+  (noload / "stream_adjoint.cuh").write_text(
+      without_adjoint_loads((csrc / "stream_adjoint.cuh").read_text()))
+  extra = {f"W={w0} without the staged copies": (tile, noload),
+           f"W={w0}, barriers only": (srcs[f"W={w0}, barriers and copies "
+                                           "only"], noload)}
+  if parent is not None:
+    out = SWEEP_DIR / "k10_parent.cu"
+    SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([sys.executable, "-c", PARENT_ADJOINT, str(out)],
+                   cwd=parent, check=True)
+    extra["parent"] = (out.read_text(),
+                       pathlib.Path(parent) / "rednose_tpu_torch" / "csrc")
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(len(extra)) as pool:
+    jobs = {k: pool.submit(build_adjoint, f"k10_{i}", src, d)
+            for i, (k, (src, d)) in enumerate(extra.items())}
+    _build.build_generated_many(list(srcs.values())
+                                + [fwd.source(torch.float32)])
+    fns = {k: _build.generated_launcher(v) for k, v in srcs.items()}
+    reports = {k: kernel_ptxas(_build.generated_ptxas(v), "rn_generic")
+               for k, v in srcs.items()}
+    for k, j in jobs.items():
+      fns[k], reports[k] = j.result()
+  cs.log(f"kernel 10: built in {time.perf_counter() - t0:.1f} s")
+  x0, P0, _, dts, ki, zs, Rs, _ = cs.scan_log(
+      torch, dev, gen, max(ADJOINT_TS), cs.RTS_B, torch.float32)
+  x0b, P0b = x0.T.contiguous(), P0.permute(1, 2, 0).contiguous()
+  zsb = zs.transpose(1, 2).contiguous()
+  cases = {}
+  for n in ADJOINT_TS:
+    stacks = cs.stream_launch(fwd.source(torch.float32), fwd, x0b, P0b,
+                              zsb[:n], dts[:n], ki[:n], Rs[:n])()[2:]
+    cots = [torch.randn(a.shape, generator=gen, device=dev)
+            for a in (x0b, P0b, *stacks)]
+    cases[n] = (stacks, cots)
+
+  def launch(build, n):
+    stacks, cots = cases[n]
+    return cs.adjoint_launch(srcs.get(build, ""), call, x0b, P0b, zsb[:n],
+                             dts[:n], ki[:n], Rs[:n], stacks, cots,
+                             fn=fns[build])
+
+  n0 = min(ADJOINT_TS)
+  ref = [o.double() for o in launch("global", n0)()[:7]]
+  results = {}
+  for build in fns:
+    row = {"ms": {}, "ptxas": reports[build]}
+    if build in srcs:
+      row["info"] = _build.generated_info(srcs[build])
+      row["lines"] = len(srcs[build].splitlines())
+      row["sass"] = sass_instructions(
+          _build.generated_dir(srcs[build]) / "libgen.so")
+    aid = "only" in build or "without" in build
+    if not aid:
+      got = launch(build, n0)()[:7]
+      row["rel_err"] = max(
+          float((g.double() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+          for g, r in zip(got[:6], ref[:6]))
+    for n in ADJOINT_TS:
+      if n > n0 and build in ("global", "parent"):
+        continue
+      ms, _ = cs.timed_run(launch(build, n), REPS if n == n0 else 2)
+      row["ms"][n] = ms
+    results[build] = row
+    cs.log(f"kernel 10 {build}: " + ", ".join(
+        f"T={n} {ms:.4f} ms ({ms / n * 1e3:.3f} us a step)"
+        for n, ms in row["ms"].items())
+        + (f"; {row['rel_err']:.3g} from the global form at T={n0}"
+           if "rel_err" in row else " (aid: output garbage)")
+        + f"; {row.get('info', '')} ptxas {row['ptxas']}; "
+        f"{row.get('sass')} SASS instructions")
+  if parent is not None:
+    times = {"parent": [], "tile": []}
+    for which in ("parent", "tile", "tile", "parent"):
+      times[which].append(cs.timed_run(
+          launch("parent" if which == "parent" else f"W={w0}", n0),
+          REPS)[0])
+    results["in turns"] = times
+    cs.log(f"kernel 10 in turns at T={n0}: parent {times['parent']} ms, "
+           f"tile W={w0} {times['tile']} ms")
+  return results
+
+
 # ---------------------------------------------------------------- kernel 8
 TRI_SRC = ROOT / "rednose_tpu_torch" / "csrc" / "triangulate.cu"
 TRI_CONSTS = ("BLOCK_THREADS",)
@@ -1055,11 +1268,12 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 1, "
-                       "2, 3 and 8 run beside these")
+                       "2, 3, 8 and 10 run beside these")
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
-                       "frames, kernel 1, kernel 5, kernel 9, kernel 8")
+                       "frames, kernel 1, kernel 5, kernel 9, kernel 8, "
+                       "kernel 10")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -1098,7 +1312,10 @@ def main():
     results["kernel 9"] = stream_sweep(torch, dev, gen)
   if "triangulate" in args.parts:
     results["kernel 8"] = tri_sweep(torch, dev, args.parent)
-  if args.parent is not None and set(args.parts) - {"triangulate"}:
+  if "adjoint" in args.parts:
+    results["kernel 10"] = adjoint_sweep(torch, dev, gen, args.parent)
+  if args.parent is not None and set(args.parts) - {"triangulate",
+                                                    "adjoint"}:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))

@@ -20,7 +20,11 @@ gradients those of x0, P0, Q, dts, zs, Rs, eas and the params.
 (a) autograd through the port's scan_fn on CPU tensors (the plain loop)
 equals jax.grad to rtol 1e-8. (b) kernel 10's host build (the emitted
 adjoint built by the host C++ compiler as double, entry
-rn_generic_stream_adjoint_host, on the plain loop's stacks) matches
+rn_generic_stream_adjoint_host, on the plain loop's stacks; the design
+the card builds in double: the tile form for the kinematic, car and
+battery logs, whose tile fits a block, the global form for the live
+ones; tests/test_torch_scan_stream_adjoint_tile.py holds both forms of
+every log) matches
 jax.grad and the plain loop within ADJ_TOL of each gradient's largest
 entry. (c) the card's route (the custom op rednose::scan_stream, its vmap
 rule and its autograd rule, the op rednose::scan_stream_backward) on CPU
@@ -289,9 +293,10 @@ def _adjoint_call(spec, kinds, Q, params):
 _LIBS = {}
 
 
-def host_adjoint(call):
-  """rn_generic_stream_adjoint_host of a 'stream_adjoint' call, built once
-  as double (every family's at once, in parallel, at the first call)."""
+def host_adjoint(call, source=None):
+  """rn_generic_stream_adjoint_host of a 'stream_adjoint' call (or of the
+  source given), built once as double (every family's at once, in
+  parallel, at the first call)."""
   if host_compiler() is None:
     pytest.skip("no host C++ compiler (g++ / c++) on PATH to build the "
                 "emitted adjoint")
@@ -301,17 +306,18 @@ def host_adjoint(call):
     srcs = list(dict.fromkeys(c.source(torch.float64) for c in calls))
     with ThreadPoolExecutor(len(srcs)) as pool:
       _LIBS.update(zip(srcs, pool.map(_build, srcs)))
-  src = call.source(torch.float64)
+  src = call.source(torch.float64) if source is None else source
   if src not in _LIBS:
     _LIBS[src] = _build(src)
   return _LIBS[src]
 
 
 def launch_host(call, x0, P0, zs, dts, kind_idx, Rs, eas, prm, Q, xp, Pp,
-                xq, Pq, gx, gP, gxp, gPp, gxq, gPq):
+                xq, Pq, gx, gP, gxp, gPp, gxq, gPq, source=None):
   """ops/generic_scan.stream_bank_scan_adjoint's work on CPU tensors
-  (float64, the launcher's layouts) through the host build: the
-  launcher's outputs, and the per-lane gate-flip counts."""
+  (float64, the launcher's layouts) through the host build (of the call's
+  float64 source, or of the source given): the launcher's outputs, and the
+  per-lane gate-flip counts."""
   spec, kinds = call.spec, call.kinds
   T, B = dts.shape[0], x0.shape[-1]
   max_dz = max(spec.obs[k].dz for k in kinds)
@@ -327,8 +333,8 @@ def launch_host(call, x0, P0, zs, dts, kind_idx, Rs, eas, prm, Q, xp, Pp,
          for a in (x0, P0, zs, eas, dts, kind_idx.to(torch.int32), Rs, prm,
                    Q, xp, Pp, xq, Pq, gx, gP, gxp, gPp, gxq, gPq)]
   ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-  assert host_adjoint(call)(*(ptr(a) for a in (*ins, *out, flips)),
-                            T, B) == 0
+  assert host_adjoint(call, source)(*(ptr(a) for a in (*ins, *out, flips)),
+                                    T, B) == 0
   return out, flips
 
 
@@ -336,10 +342,11 @@ def _sym(a):
   return (a + np.swapaxes(a, -1, -2)) / 2
 
 
-def kernel_grads(name):
-  """Kernel 10's host build on the plain loop's stacks of the family's
-  log: the gradients by NAMES (the launcher's per-lane outputs summed over
-  the lanes and symmetrized, as the custom op's backward does) and the
+def kernel_grads(name, source=None):
+  """Kernel 10's host build (of the family's float64 source, or of the
+  source given) on the plain loop's stacks of the family's log: the
+  gradients by NAMES (the launcher's per-lane outputs summed over the
+  lanes and symmetrized, as the custom op's backward does) and the
   gate-flip count."""
   spec, _, kinds, Q, params, log = family(name)
   x0, P0, dts, ki, zs, Rs, eas = log
@@ -357,7 +364,7 @@ def kernel_grads(name):
   (dx0, dP0, dzs, dRs, ddts, deas, dQ, dprm), flips = launch_host(
       call, bm(x0), bm(P0), t(zs).transpose(1, 2), t(dts),
       torch.as_tensor(ki), t(Rs), eas_b, prm, t(Q), *(bm(o) for o in outs[2:]),
-      *(bm(w) for w in W))
+      *(bm(w) for w in W), source=source)
   g_eas = np.zeros_like(eas)
   if deas is not None:
     g_eas[:, :max_ea] = deas.sum(-1).numpy()
