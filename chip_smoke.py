@@ -50,12 +50,15 @@ them). Then:
        9 in tile form, one launch, then once more timed with CUDA events;
        the plain scan's predict with F_lane and jacfwd timed on its first
        F_LANE_T steps);
-       rts_smooth and rts_smooth_parallel on lane 0, the parallel result
-       against the float64 sequential one within 3x the float32
-       sequential's own error (tests/test_rts_live.py:131-152);
-       rts_smooth_parallel_bank over all 64 lanes, three of them held
-       against their lane smoothed alone; the cold T = 600 log of
-       tests/test_rts_live.py in float64, refine = 8 within 1e-6 of the
+       rts_smooth (kernels 11 and 12) and rts_smooth_parallel (kernels
+       11, 13 and 14) on lane 0, the parallel result against the float64
+       sequential one within 3x the float32 sequential's own error
+       (tests/test_rts_live.py:131-152), each again timed with CUDA
+       events; rts_smooth_parallel_bank over all 64 lanes (one launch of
+       each of kernels 11, 13 and 14), three of them held against their
+       lane smoothed alone; the cold T = 600 log of
+       tests/test_rts_live.py in float64, refine = 8 (kernel 11's refine
+       variant and kernel 13 once a pass) within 1e-6 of the
        sequential smoother (the log itself through kernel 9, float64;
        both offline variants of kernel 9 must be the tile, design 1, at
        TILE_ROLES_STREAM warps, each printed with its registers, stack
@@ -64,7 +67,9 @@ them). Then:
        blocked lane Cholesky and through torch.linalg; the migrated
        kinematic filter of examples/run_compat_migration.py
        (compat.EKF_sym_pyx, float64) on the reference's goldens, then its
-       smoother.
+       smoother (kernels 11 and 12). No main path runs the smoothers'
+       plain versions (rts_smooth_reference and
+       rts_smooth_parallel_reference count their runs).
      - the full-Q live bank with streamed R: LiveKalmanBank(batch=8192)
        with the off-diagonal Q in float64, run_mixed over T = 512 steps
        of the 4-kind cycle with the camera rotation's variances streamed
@@ -78,8 +83,9 @@ them). Then:
        run_mixed_bank (B = 512, T = 256), kernel 6 in run_loc's bank_demo
        (loc, B = 64, T = 16, float32), kernel 6 with frames and kernel 7
        (4 observe_frame launches) in run_msckf_bank (msckf_eskf, B = 64,
-       float64), no kernel in the other seven (run_bank on a mesh of one
-       rank, parallel/sharding);
+       float64), kernels 11, 13 and 14 in run_live's parallel smoother
+       (float64, refine 2: 3, 3 and 1 launches), no kernel in the other
+       six (run_bank on a mesh of one rank, parallel/sharding);
      - the sharded bank (parallel/sharding.py through the cases of
        parallel/dryrun.py): sharded_run_bank (kinematic, B = 4096,
        T = 500) with the staged RMSE on the 1-D and the multislice mesh,
@@ -89,7 +95,7 @@ them). Then:
        T = 512; msckf_eskf VIO, B = 4096, T = 64), 5 (loc, B = 8192,
        T = 512 x 8 slots, float32) and 7 (msckf_eskf, B = 4096, T = 64)
        through their sharded wrappers, and the time-sharded smoother
-       (float64, T = 4096): (a) in this process on make_bank_mesh(), one
+       (float64, T = 4096; kernels 11, 13 and 14 on each rank's block): (a) in this process on make_bank_mesh(), one
        NCCL rank; (b) on SHARD_RANKS Gloo ranks spawned on the card, each
        on its block of lanes, its launch counts and CUDA-event times sent
        back. Each result, gathered, equals the unsharded launch bitwise;
@@ -116,9 +122,9 @@ them). Then:
      Every kernel of a path must have launched in it, and no main path
      may run the plain version of kernel 8 or 9; the VIO path launches
      kernels 6 (its camera-frame branch) and 8 and no other, the offline
-     path kernels 4, 6 and 9 and no other, the streamed-R path none,
-     the sharded path kernels 2, 4, 5, 6 and 7 and no other, the
-     user-spec path kernels 4, 5 and 6 and no other.
+     path kernels 4, 6, 9 and 11-14 and no other, the streamed-R path
+     none, the sharded path kernels 2, 4, 5, 6, 7, 11, 13 and 14 and no
+     other, the user-spec path kernels 4, 5 and 6 and no other.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
      at B = 8192, T = 64, kernel 7 at
@@ -195,6 +201,19 @@ them). Then:
      op, its bank-minor copies and kernel 10 raw). The maximum-likelihood
      tuning of tests/test_differentiable.py through kernels 9 and 10
      (ml_tuning: T = 800, 200 momentum steps from two starts, float64).
+     Kernels 11-14, the smoother, against their plain versions on a live
+     log of the offline path's shape (compare_smoother: 64 lanes x
+     T = 8192 through kernel 9): kernel 11's gains and elements, kernel
+     13's scan of them and kernel 14's inject on every lane, kernel 12
+     on lane 0 (its plain version a Python loop over T) and on the
+     bank; float64 within SMOOTH64_TOL, float32 within SMOOTH32_RATIO x
+     the float32 plain version's own error against the float64 one +
+     SMOOTH32_SLACK; kernels 11, 13 and 14 also on the first
+     SMOOTH_RAGGED_B lanes; kernel 11's refine variant and kernel 13's
+     (A, b) scan on the cold T = 600 log in float64; each timed wrapped
+     and raw with CUDA events, with its launch shape, its plain version's
+     time and its bound, and kernel 11's solve beside
+     torch.linalg.cholesky + torch.cholesky_solve.
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -371,6 +390,14 @@ SCAN_CMP_T, SCAN_WARM, SCAN64_TOL = 256, 2048, 1e-6
 SCAN_RAGGED_B = 37   # kernel 9 also held on the first 37 lanes (2 blocks)
 BANK_SMOOTH_TOL = 1e-4
 REFINE_T, REFINE, REFINE_TOL = 600, 8, 1e-6
+# kernels 11-14 against their plain versions (compare_smoother): float64
+# within SMOOTH64_TOL of each output's scale, float32 within
+# SMOOTH32_RATIO x the float32 plain version's error against the float64
+# plain version + SMOOTH32_SLACK; kernels 11, 13 and 14 also on the first
+# SMOOTH_RAGGED_B lanes
+SMOOTH64_TOL = 1e-9
+SMOOTH32_RATIO, SMOOTH32_SLACK = 3.0, 1e-6
+SMOOTH_RAGGED_B = 37
 # the full-Q comparisons: the 8-kind cycle's lanes move at 1 m/s on each
 # axis (at standstill the speed's Jacobian is singular); the camera
 # translation, which has no default noise, takes CAM_TRANS_R. On the gate
@@ -2821,6 +2848,33 @@ def scan_log(torch, dev, gen, T, B, dtype):
           torch.full((T,), 0.01, **f), ki, zs, Rs, torch.zeros((T, 1), **f))
 
 
+def smoother_sources(dev):
+  """name -> source of the smoother's kernels the main paths run: kernels
+  11, 12 and 14 emitted for the live spec (the offline path, run_live),
+  the kinematic spec (the sharded smoother) and the migrated sympy
+  kinematic filter (its engine's params' names), and kernel 13 for their
+  main blocks (22 and 2)."""
+  from rednose_tpu_torch.examples.run_compat_migration import (
+      MigratedKinematicKalman,
+  )
+  from rednose_tpu_torch.models.kinematic import KinematicKalman
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  migrated = MigratedKinematicKalman(device=dev).filter
+  out = {}
+  for name, spec, pnames in (
+      ("live", LiveKalman.build_spec(), ()),
+      ("kinematic", KinematicKalman.build_spec(), ()),
+      ("migrated kinematic", migrated.spec,
+       ss.pnames_of(migrated.params))):
+    out[f"{name} smoother (kernels 11, 12, 14)"] = ss.smooth_source(spec,
+                                                                    pnames)
+    out[f"{name} suffix scan (kernel 13, d2 = {spec.dim_main_err})"] = \
+        ss.affine_source(spec.dim_main_err)
+  return out
+
+
 def stream_calls():
   """Kernel 9's variants of the offline path, by name, each with the dtype
   the path runs it in: the live log's two kinds (float32) and the cold
@@ -3148,6 +3202,16 @@ def offline_path(torch, dev, gen):
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
 
+  def event_ms(fn):
+    """CUDA-event ms of one more call of fn (the first call's host clock
+    includes a build's load)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
   # (a) the live bank with an off-diagonal Q: kernels 6 and 4
   bank = LiveKalmanBank(batch=LIVE_B, Q=full_q(), device=dev)
   kinds, kind_idx, zs_m = mixed_schedule(torch, dev, gen, FQ_T)
@@ -3237,10 +3301,13 @@ def offline_path(torch, dev, gen):
   t = torch.as_tensor(t64, **f32)
   dts = torch.as_tensor(np.diff(t64), **f32)
   lane0 = tuple(a[0] for a in stacks)
-  ms_seq, (xs_s, _) = timed(lambda: rts.rts_smooth(
-      spec, {}, *lane0, t, norm_quats=True, dts=dts))
-  ms_par, (xs_p, Ps_p) = timed(lambda: rts.rts_smooth_parallel(
-      spec, {}, *lane0, t, norm_quats=True, dts=dts))
+  seq = lambda: rts.rts_smooth(spec, {}, *lane0, t,  # noqa: E731
+                                norm_quats=True, dts=dts)
+  par = lambda: rts.rts_smooth_parallel(  # noqa: E731
+      spec, {}, *lane0, t, norm_quats=True, dts=dts)
+  ms_seq, (xs_s, _) = timed(seq)
+  ms_par, (xs_p, Ps_p) = timed(par)
+  ev_seq, ev_par = event_ms(seq), event_ms(par)
   ms_o, (oracle, _) = timed(lambda: rts.rts_smooth(
       spec, {}, *(a.double() for a in lane0),
       torch.as_tensor(t64, dtype=torch.float64, device=dev),
@@ -3256,7 +3323,8 @@ def offline_path(torch, dev, gen):
   log(f"smoother, lane 0 (T={T}, float32, norm_quats): rts_smooth "
       f"{ms_seq:.1f} ms ({T / ms_seq * 1e3:.1f} smoothed steps/s), "
       f"rts_smooth_parallel {ms_par:.1f} ms ({T / ms_par * 1e3:.1f} "
-      f"smoothed steps/s) (host clock, first calls); the float64 "
+      f"smoothed steps/s) (host clock, first calls); again {ev_seq:.3f} "
+      f"and {ev_par:.3f} ms (CUDA events); the float64 "
       f"sequential oracle {ms_o:.1f} ms; scaled error against it: "
       f"sequential {err_seq:.4g}, parallel {err_par:.4g} (bound "
       f"{3.0 * err_seq + 1e-6:.4g})")
@@ -3264,10 +3332,12 @@ def offline_path(torch, dev, gen):
   # (d) every lane smoothed in one call; three lanes held against
   # rts_smooth_parallel of the lane alone
   torch.cuda.reset_peak_memory_stats(dev)
-  ms_b, (xs_b, Ps_b) = timed(lambda: rts.rts_smooth_parallel_bank(
+  bank_fn = lambda: rts.rts_smooth_parallel_bank(  # noqa: E731
       spec, {}, *stacks, t.expand(B, T), norm_quats=True,
-      dts=dts.expand(B, T - 1)))
+      dts=dts.expand(B, T - 1))
+  ms_b, (xs_b, Ps_b) = timed(bank_fn)
   peak = torch.cuda.max_memory_allocated(dev)
+  ev_b = event_ms(bank_fn)
   stack_bytes = sum(a.numel() * a.element_size() for a in stacks)
   for lane in (0, B // 2, B - 1):
     xl, Pl = rts.rts_smooth_parallel(spec, {}, *(a[lane] for a in stacks),
@@ -3282,7 +3352,8 @@ def offline_path(torch, dev, gen):
             f"bank smoother lane {lane} equals its lane alone")
   log(f"bank smoother (rts_smooth_parallel_bank) B={B} x T={T}, float32: "
       f"{ms_b:.1f} ms (host clock, first call), "
-      f"{B * T / ms_b * 1e3:.1f} smoothed steps/s; stacks "
+      f"{B * T / ms_b * 1e3:.1f} smoothed steps/s; again {ev_b:.3f} ms "
+      f"(CUDA events), {B * T / ev_b * 1e3:.1f} smoothed steps/s; stacks "
       f"{stack_bytes / 2**30:.2f} GiB, peak device memory "
       f"{peak / 2**30:.2f} GiB")
   del xs_b, Ps_b
@@ -3294,13 +3365,19 @@ def offline_path(torch, dev, gen):
   require(float((q.amax(dim=0) - q.amin(dim=0)).max()) > 0.3,
           "the refinement log rotates")
   xs_s, Ps_s = rts.rts_smooth(spec, {}, *stacks64, ts, norm_quats=True)
-  ms_ref, (xs_r, Ps_r) = timed(lambda: rts.rts_smooth_parallel(
-      spec, {}, *stacks64, ts, norm_quats=True, refine=REFINE))
+  ref_fn = lambda: rts.rts_smooth_parallel(  # noqa: E731
+      spec, {}, *stacks64, ts, norm_quats=True, refine=REFINE)
+  ms_ref, (xs_r, Ps_r) = timed(ref_fn)
+  ev_ref = event_ms(ref_fn)
+  ev_seq64 = event_ms(lambda: rts.rts_smooth(spec, {}, *stacks64, ts,
+                                             norm_quats=True))
   _, (xs_0, _) = timed(lambda: rts.rts_smooth_parallel(
       spec, {}, *stacks64, ts, norm_quats=True, refine=0))
   dev_r = float((xs_s - xs_r).abs().max())
   log(f"float64 refinement (T={REFINE_T} cold log): refine={REFINE} "
-      f"{ms_ref:.1f} ms, state deviation from sequential {dev_r:.4g} "
+      f"{ms_ref:.1f} ms (host clock, first call; again {ev_ref:.3f} ms, "
+      f"CUDA events; the sequential smoother {ev_seq64:.3f} ms), state "
+      f"deviation from sequential {dev_r:.4g} "
       f"(tolerance {REFINE_TOL}), covariance "
       f"{float((Ps_s - Ps_r).abs().max()):.4g}; one-shot "
       f"{float((xs_s - xs_0).abs().max()):.4g}")
@@ -3755,6 +3832,273 @@ def compare_scan_grad(torch, dev, gen, reps=3):
       bound_by=bound_by, shape=f"live log B={B} T={T}, float32")]
 
 
+SMOOTH_SRC = "rednose_tpu_torch/csrc/smooth.cuh"
+AFFINE_SRC = "rednose_tpu_torch/csrc/affine_scan.cu"
+SMOOTH_REPLACES = {
+    "smooth_gains": "rednose_tpu/smoothing/rts.py:49",
+    "smooth_backward": "rednose_tpu/smoothing/rts.py:121",
+    "affine_suffix_scan": "rednose_tpu/smoothing/rts.py:157",
+    "smooth_inject": "rednose_tpu/smoothing/rts.py:358",
+}
+
+
+def rel_err(a, ref):
+  """max |a - ref| over ref's largest |entry| (float64)."""
+  return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def comp_err(a, ref):
+  """max |a - ref| over each component's scale: its largest |entry| over
+  the leading axes (lanes, time), at least 1 (float64)."""
+  scale = ref.abs().flatten(0, -2).amax(0).clamp(min=1.0)
+  return float(((a.double() - ref).abs() / scale).max())
+
+
+def hold_smoother(name, shape, errs, outs):
+  """Hold one kernel's outputs (name -> (kernel f32, plain f32, kernel
+  f64, plain f64, error function)): float64 within SMOOTH64_TOL of the
+  plain float64 one; float32 within SMOOTH32_RATIO x the plain float32's
+  error against the plain float64 + SMOOTH32_SLACK. Returns the largest
+  float32 |kernel - plain|."""
+  worst = 0.0
+  for out, (k32, p32, k64, p64, err) in outs.items():
+    e64, ek, ep = err(k64, p64), err(k32, p64), err(p32, p64)
+    worst = max(worst, float((k32 - p32).abs().max()))
+    ok = e64 <= SMOOTH64_TOL and ek <= SMOOTH32_RATIO * ep + SMOOTH32_SLACK
+    log(f"{name} [{shape}] {out}: float64 kernel {e64:.3g} (tolerance "
+        f"{SMOOTH64_TOL}); float32 kernel {ek:.4g}, plain {ep:.4g} against "
+        f"the float64 plain version (bound {SMOOTH32_RATIO * ep + SMOOTH32_SLACK:.4g}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    errs.append((f"{name} {out}", ok))
+  return worst
+
+
+def compare_smoother(torch, dev, gen, reps=5):
+  """Phase 2, kernels 11-14 (ops/smooth_scan.py) against their plain
+  versions on the card, on a live log of the offline path's shape
+  (RTS_B lanes x RTS_T steps, float32, through kernel 9; its float64
+  copy for the float64 builds and the oracle): kernel 11's gains and
+  elements, kernel 13's scan of them and kernel 14's inject on every
+  lane; kernel 12 on lane 0 (the main path's rts_smooth; its plain
+  version is a Python loop over T) and on the bank; kernels 11, 13 and
+  14 on the first SMOOTH_RAGGED_B lanes (bitwise those lanes of the
+  whole bank); kernel 11's refine variant and kernel 13's (A, b) scan on
+  the cold REFINE_T log in float64. Each timed wrapped and raw (its C
+  entry on preallocated outputs) with CUDA events, with its launch shape
+  and bound. Returns one row a kernel, at the main path's shape."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import smooth_scan as ss
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+  from rednose_tpu_torch.utils import profiling
+
+  spec = LiveKalman.build_spec()
+  T, B, d2, dx = RTS_T, RTS_B, spec.dim_main_err, spec.dim_x
+  n, N = T - 1, RTS_B * (RTS_T - 1)
+  f32, f64 = torch.float32, torch.float64
+  x0, P0, Q32, dts_t, ki, zs, Rs, eas = scan_log(torch, dev, gen, T, B, f32)
+  scan_fn, _ = build_scan_stream(spec, SCAN_KINDS)
+  _, stacks = vmap(lambda x, P, z: scan_fn({}, x, P, Q32, dts_t, ki, z, Rs,
+                                           eas), in_dims=(0, 0, 1))(x0, P0,
+                                                                    zs)
+  st = {f32: [a.contiguous() for a in stacks]}
+  st[f64] = [a.double() for a in st[f32]]
+  dts = {f32: torch.full((B, n), 0.01, dtype=f32, device=dev)}
+  dts[f64] = dts[f32].double()
+  del stacks
+  src = ss.smooth_source(spec, ())
+  lib = _build.generated_library(src)
+  alib = _build.generated_library(ss.affine_source(d2))
+  ops = profiling.emitted_ops(src)
+  stream = torch.cuda.current_stream().cuda_stream
+  prm = {dt: torch.zeros(1, dtype=dt, device=dev) for dt in st}
+  checks, rows = [], []
+  card = card_line()
+  for dt in (f32, f64):
+    for kern, info in ss.smooth_info(spec, (), dt).items():
+      log(f"  smoother kernel {kern}, {str(dt).split('.')[-1]}: {info}")
+    for kern, info in ss.affine_info(d2, dt).items():
+      log(f"  suffix scan pass {kern}, {str(dt).split('.')[-1]}: {info}")
+
+  def row(name, shape, ms, raw_ms, plain_ms, nbytes, flops, err,
+          library_ms=None, double=False):
+    bound_ms, bound_by = bound(nbytes, flops, double)
+    log(f"{name} [{shape}]: kernel {ms:.4f} ms wrapped, {raw_ms:.4f} ms raw, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}), "
+        f"{card}")
+    return dict(name=name, route="cuda",
+                source=AFFINE_SRC if name == "affine_suffix_scan"
+                else SMOOTH_SRC, replaces=SMOOTH_REPLACES[name],
+                max_abs_err=err, ms=ms, raw_ms=raw_ms, plain_ms=plain_ms,
+                shape=shape, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+  # kernel 11: gains and elements of every lane
+  k11, p11 = {}, {}
+  for dt in (f32, f64):
+    args = (spec, {}, *st[dt], dts[dt])
+    ms, k11[dt] = timed_run(lambda: ss.smooth_gains(*args), reps)
+    plain_ms, p11[dt] = timed_run(lambda: ss.smooth_gains_reference(*args),
+                                  1)
+    if dt == f32:
+      ms11, plain11 = ms, plain_ms
+  C, b, V = k11[f32]
+  raw = lambda: lib.rn_smooth_gains_launch(  # noqa: E731
+      *(a.data_ptr() for a in (*st[f32], dts[f32], prm[f32], C, b, V)), B,
+      T, 0, stream)
+  raw11, _ = timed_run(raw, reps)
+  # the solve alone through torch.linalg, on the same systems
+  Pk1 = st[f32][1][:, 1:].reshape(N, d2, d2).contiguous()
+  rhs = torch.randn((N, d2, d2), generator=gen, device=dev)
+  lib_ms, _ = timed_run(lambda: torch.cholesky_solve(
+      rhs, torch.linalg.cholesky(Pk1)), 3)
+  log(f"kernel 11's solve alone, {N} systems of {d2}: torch.linalg.cholesky "
+      f"+ torch.cholesky_solve {lib_ms:.3f} ms (CUDA events), {card}")
+  del Pk1, rhs
+  worst = hold_smoother("smooth_gains", f"B={B} T={T}", checks, {
+      out: (k11[f32][i], p11[f32][i], k11[f64][i], p11[f64][i], rel_err)
+      for i, out in enumerate(("C", "b", "V"))})
+  fma = 4 * d2**3 + d2**3 / 6 + d2**2
+  rows.append(row("smooth_gains", f"B={B} T={T} gains and elements", ms11,
+                  raw11, plain11, io_bytes([st[f32], dts[f32], k11[f32]], 4),
+                  N * (2 * fma + ops["gen_sm_F"] + ops["gen_sm_inv_err"]),
+                  worst))
+
+  # kernel 13: the suffix scan of kernel 11's elements (each type's own)
+  k13, p13 = {}, {}
+  for dt in (f32, f64):
+    el = k11[dt]
+    ms, k13[dt] = timed_run(lambda: ss.affine_suffix_scan(*el), reps)
+    plain_ms, p13[dt] = timed_run(
+        lambda: ss.affine_suffix_scan_reference(*el), 1)
+    if dt == f32:
+      ms13, plain13 = ms, plain_ms
+  _, e32, D32 = k13[f32]
+  nc = -(-n // ss.AFFINE_CHUNK)
+  scratch = [torch.empty((B, nc, 2 * d2 * d2 + d2), device=dev)
+             for _ in range(2)]
+  raw = lambda: alib.rn_affine_scan_launch(  # noqa: E731
+      C.data_ptr(), b.data_ptr(), V.data_ptr(), None, e32.data_ptr(),
+      D32.data_ptr(), *(a.data_ptr() for a in scratch), B, n,
+      ss.AFFINE_CHUNK, 0, stream)
+  raw13, _ = timed_run(raw, reps)
+  # the elements' scan takes each type's own kernel 11 output: hold both
+  # types on the float64 plain version of the float32 elements too
+  p13_64 = ss.affine_suffix_scan_reference(*(a.double() for a in k11[f32]))
+  worst = hold_smoother("affine_suffix_scan", f"B={B} T={T}", checks, {
+      "e": (e32, p13[f32][1], k13[f64][1], p13[f64][1], rel_err),
+      "D": (D32, p13[f32][2], k13[f64][2], p13[f64][2], rel_err)})
+  ek = rel_err(e32, p13_64[1])
+  ep = rel_err(p13[f32][1], p13_64[1])
+  log(f"affine_suffix_scan float32 on the float32 elements: e {ek:.4g} "
+      f"against the float64 plain scan of the same elements (plain float32 "
+      f"{ep:.4g})")
+  del scratch, p13_64
+  fma13 = 5 * d2**3 + 2 * d2**2 + 3 * d2**3 / ss.AFFINE_CHUNK
+  rows.append(row("affine_suffix_scan", f"B={B} T={T} (C, b, V)", ms13,
+                  raw13, plain13, io_bytes([k11[f32], e32, D32], 4),
+                  2 * fma13 * N, worst))
+
+  # kernel 14: the inject from kernel 13's corrections (each type's own)
+  k14, p14 = {}, {}
+  for dt in (f32, f64):
+    _, e, D = k13[dt]
+    args = (spec, {}, st[dt][2], st[dt][3], e, D)
+    ms, k14[dt] = timed_run(lambda: ss.smooth_inject(*args, norm_quats=True),
+                            reps)
+    plain_ms, p14[dt] = timed_run(
+        lambda: ss.smooth_inject_reference(*args, norm_quats=True), 1)
+    if dt == f32:
+      ms14, plain14 = ms, plain_ms
+  xs32, Ps32 = k14[f32]
+  raw = lambda: lib.rn_smooth_inject_launch(  # noqa: E731
+      st[f32][2].data_ptr(), st[f32][3].data_ptr(), e32.data_ptr(),
+      D32.data_ptr(), prm[f32].data_ptr(), xs32.data_ptr(), Ps32.data_ptr(),
+      B, T, n, 1, 0, stream)
+  raw14, _ = timed_run(raw, reps)
+  worst = hold_smoother("smooth_inject", f"B={B} T={T}", checks, {
+      "x": (xs32, p14[f32][0], k14[f64][0], p14[f64][0], comp_err),
+      "P": (Ps32, p14[f32][1], k14[f64][1], p14[f64][1], rel_err)})
+  rows.append(row("smooth_inject", f"B={B} T={T}", ms14, raw14, plain14,
+                  io_bytes([st[f32][2], st[f32][3], e32, D32, k14[f32]], 4),
+                  B * T * (ops["gen_sm_inject_n1"] + 2 * 22 * 22), worst))
+
+  # the first SMOOTH_RAGGED_B lanes: kernels 11, 13 and 14 bitwise the
+  # whole bank's lanes
+  R = SMOOTH_RAGGED_B
+  rg = [a[:R].contiguous() for a in st[f32]]
+  g_r = ss.smooth_gains(spec, {}, *rg, dts[f32][:R].contiguous())
+  s_r = ss.affine_suffix_scan(*g_r)
+  i_r = ss.smooth_inject(spec, {}, rg[2], rg[3], s_r[1], s_r[2],
+                         norm_quats=True)
+  same = all(torch.equal(a, full[:R]) for a, full in zip(
+      (*g_r, s_r[1], s_r[2], *i_r), (C, b, V, e32, D32, xs32, Ps32)))
+  log(f"kernels 11, 13, 14 on the first {R} lanes: bitwise the bank's "
+      f"-> {'ok' if same else 'FAIL'}")
+  checks.append((f"kernels 11, 13, 14 on {R} lanes", same))
+  del rg, g_r, s_r, i_r, k14, p14, k13, p13
+
+  # kernel 12: lane 0 alone (rts_smooth's shape), and the whole bank
+  k12, p12 = {}, {}
+  for dt in (f32, f64):
+    lane = [a[:1].contiguous() for a in st[dt]]
+    Cl = k11[dt][0][:1].contiguous()
+    args = (spec, {}, *lane, Cl)
+    ms, k12[dt] = timed_run(lambda: ss.smooth_backward(
+        *args, norm_quats=True), reps)
+    plain_ms, p12[dt] = timed_run(lambda: ss.smooth_backward_reference(
+        *args, norm_quats=True), 1)
+    if dt == f32:
+      ms12, plain12, lane32, C32 = ms, plain_ms, lane, Cl
+  xs1, Ps1 = k12[f32]
+  raw = lambda: lib.rn_smooth_backward_launch(  # noqa: E731
+      *(a.data_ptr() for a in (*lane32, C32, prm[f32], xs1, Ps1)), 1, T, 1,
+      0, 0, stream)
+  raw12, _ = timed_run(raw, reps)
+  worst = hold_smoother("smooth_backward", f"B=1 T={T}", checks, {
+      "x": (k12[f32][0], p12[f32][0], k12[f64][0], p12[f64][0], comp_err),
+      "P": (k12[f32][1], p12[f32][1], k12[f64][1], p12[f64][1], rel_err)})
+  bank_ms, (xb, Pb) = timed_run(lambda: ss.smooth_backward(
+      spec, {}, *st[f32], C, norm_quats=True), 2)
+  same = torch.equal(xb[:1], xs1) and torch.equal(Pb[:1], Ps1)
+  log(f"smooth_backward [B={B} T={T}]: {bank_ms:.4f} ms wrapped (CUDA "
+      f"events), lane 0 bitwise lane 0 alone -> {'ok' if same else 'FAIL'}")
+  checks.append(("smooth_backward bank lane 0", same))
+  fma12 = 2 * d2**3 + d2**2
+  rows.append(row("smooth_backward", f"B=1 T={T}", ms12, raw12, plain12,
+                  io_bytes([lane32, C32, xs1, Ps1], 4),
+                  n * (2 * fma12 + ops["gen_sm_inv_err"]
+                       + ops["gen_sm_inject_n1"]), worst))
+  del k11, p11, k12, p12, xb, Pb
+
+  # kernel 11's refine variant and kernel 13's (A, b) scan: the cold
+  # REFINE_T log in float64, at the corrections of its one-shot pass
+  rspec, stacks64, ts = refine_log(torch, dev, gen)
+  rs = [a[None].contiguous() for a in stacks64]
+  rd = (ts[1:] - ts[:-1])[None].contiguous()
+  Cr, br, Vr = ss.smooth_gains(rspec, {}, *rs, rd)
+  _, er, _ = ss.affine_suffix_scan(Cr, br, Vr)
+  args = (rspec, {}, rs[0], None, rs[2], None, None)
+  kw = dict(C=Cr, e=er, norm_quats=True)
+  ms_r, (Ak, bk) = timed_run(lambda: ss.smooth_gains(*args, **kw), reps)
+  plain_r, (Ap, bp) = timed_run(lambda: ss.smooth_gains_reference(*args,
+                                                                  **kw), 1)
+  ms_s, (_, ek, _) = timed_run(lambda: ss.affine_suffix_scan(Ak, bk), reps)
+  _, ep, _ = ss.affine_suffix_scan_reference(Ap, bp)
+  errs = {"A": rel_err(Ak, Ap), "b": rel_err(bk, bp), "e": rel_err(ek, ep)}
+  ok = max(errs.values()) <= SMOOTH64_TOL
+  log(f"smooth_gains refine variant [B=1 T={REFINE_T}, float64]: "
+      f"{ms_r:.4f} ms wrapped, plain {plain_r:.4f} ms; affine_suffix_scan "
+      f"(A, b) {ms_s:.4f} ms; errors {errs} (tolerance {SMOOTH64_TOL}) -> "
+      f"{'ok' if ok else 'FAIL'}")
+  checks.append(("smooth_gains refine variant, float64", ok))
+  failed = [name for name, ok in checks if not ok]
+  require(not failed, f"kernels 11-14 against their plain versions: {failed}")
+  return rows
+
+
 def ml_sim(T, q_true, seed):
   """tests/test_differentiable._sim: a 1-D constant-velocity truth with
   velocity noise q_true * 0.01 a step, measured with noise 0.1. Returns
@@ -4031,7 +4375,10 @@ def compare_full_q(torch, dev, gen, hand_states, reps=5):
 # run_mixed and kernel 7 in its observe_frame calls (2 in order, a late
 # one that replays the second: 2 launches, a too-old one dropped)
 EXAMPLES = {
-    "run_kinematic": {}, "run_live": {}, "run_car": {},
+    "run_kinematic": {},
+    "run_live": {"smooth_gains": 3, "affine_suffix_scan": 3,
+                 "smooth_inject": 1},
+    "run_car": {},
     "run_loc": {"generic_bank_scan_mixed": 1},
     "run_compat_migration": {}, "run_msckf": {"compute_pos_batch": 20},
     "run_vo_pipeline": {"compute_pos_batch": 3},
@@ -4768,8 +5115,14 @@ def main():
 
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.msckf import triangulation
-  from rednose_tpu_torch.ops import generic_scan, kinematic_scan, live_scan
+  from rednose_tpu_torch.ops import (
+      generic_scan,
+      kinematic_scan,
+      live_scan,
+      smooth_scan,
+  )
   from rednose_tpu_torch.runtime import scan
+  from rednose_tpu_torch.smoothing import rts
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -4812,6 +5165,8 @@ def main():
                | start({name: call.source(dtype)
                         for name, (call, dtype) in stream_calls().items()}))
     sources[path_adjoint] = adj_sources[path_adjoint]
+    # kernels 11-14 (a source may serve two names: kernel 13 of d2 = 2)
+    smooth_srcs = start(smoother_sources(dev))
     # the comparison phase's own variants: kernels 5, 6 and 7 in double,
     # and the camera-frame variants' global form (tile_vs_global)
     cmp_sources = {name: src for name, src in adj_sources.items()
@@ -4856,12 +5211,13 @@ def main():
       build.result()
     lib = static.result()
   log(f"kernels built in {time.perf_counter() - t0:.1f} s (emitting the "
-      f"{len(sources) + len(cmp_sources)} generic variants took "
+      f"{len(sources) + len(cmp_sources)} generic variants and "
+      f"{len(set(smooth_srcs.values()))} smoother sources took "
       f"{t_emit:.1f} s): {lib.name}")
   for line in _build.ptxas_report().splitlines():
     if "registers" in line or "spill" in line or "Compiling" in line:
       log(f"  ptxas: {line.strip()}")
-  for name, src in (sources | cmp_sources).items():
+  for name, src in (sources | cmp_sources | smooth_srcs).items():
     log(f"  emitted, {name}: {len(src.splitlines())} lines")
     for line in _build.generated_ptxas(src).splitlines():
       if "registers" in line or "spill" in line or "nvcc" in line:
@@ -4873,7 +5229,7 @@ def main():
     # data whether or not the others run
     gens.append(torch.Generator(device=dev))
     gens[-1].manual_seed(SEED + i)
-  k, g = kinematic_scan, generic_scan
+  k, g, sm = kinematic_scan, generic_scan, smooth_scan
   paths = (
       ("kinematic and live", lambda: main_path(torch, dev, gens[0]),
        (k.kinematic_bank_scan, live_scan.live_bank_scan,
@@ -4888,12 +5244,12 @@ def main():
       ("VIO", lambda: vio_main_path(torch, dev, gens[3]),
        (g.generic_bank_scan_mixed, triangulation.compute_pos_batch)),
       # the full-Q live bank runs kernels 4 and 6, never 2 and 3; the log
-      # scan kernel 9; the smoother and the front end run plain torch on
-      # the card
+      # scan kernel 9; the smoothers kernels 11-14
       ("offline smoother and migration",
        lambda: offline_path(torch, dev, gens[4]),
        (g.generic_bank_scan, g.generic_bank_scan_mixed,
-        g.stream_bank_scan)),
+        g.stream_bank_scan, sm.smooth_gains, sm.smooth_backward,
+        sm.affine_suffix_scan, sm.smooth_inject)),
       # a full Q with streamed R runs the plain full-Q slab: no kernel
       ("full-Q streamed R", lambda: full_q_stream_path(torch, dev, gens[5]),
        ()),
@@ -4901,11 +5257,16 @@ def main():
   # kernel 10 runs on the tenth path only
   wrappers = {w for _, _, ws in paths for w in ws} | {
       g.stream_bank_scan_adjoint}
+  smoother_wrappers = (sm.smooth_gains, sm.smooth_backward,
+                       sm.affine_suffix_scan, sm.smooth_inject)
   launches, states = {w.__name__: 0 for w in wrappers}, []
-  # the plain versions of kernels 8 and 9: on the main paths only the
-  # offline path's F_lane / jacfwd timing runs the plain scan
+  # the plain versions of kernels 8, 9 and of the smoothers (11-14): on
+  # the main paths only the offline path's F_lane / jacfwd timing runs the
+  # plain scan
   plains = {triangulation.compute_pos_batch_reference: 0,
-            scan.build_scan_stream_reference: len(F_LANE_ORDER)}
+            scan.build_scan_stream_reference: len(F_LANE_ORDER),
+            rts.rts_smooth_reference: 0,
+            rts.rts_smooth_parallel_reference: 0}
   for p in plains:
     p.launches = 0
   for name, drive, expected in paths:
@@ -4930,10 +5291,11 @@ def main():
   counts = sharded_path(torch, dev, card, launches, sources)
   expected = {live_scan.live_bank_scan, g.generic_bank_scan,
               g.generic_bank_scan_epoch, g.generic_bank_scan_mixed,
-              g.vo_bank_scan}
+              g.vo_bank_scan, sm.smooth_gains, sm.affine_suffix_scan,
+              sm.smooth_inject}
   require(set(counts) == {w.__name__ for w in expected},
-          f"the sharded path launched kernels 2, 4, 5, 6 and 7 and no "
-          f"other: {counts}")
+          f"the sharded path launched kernels 2, 4, 5, 6, 7, 11, 13 and 14 "
+          f"and no other: {counts}")
   log(f"sharded path: {time.perf_counter() - t0:.1f} s (host clock), "
       f"{card}")
   # the ninth: user specs (KalmanBank(spec=...)) on kernels 4, 5 and 6
@@ -4970,12 +5332,18 @@ def main():
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
+  require(_build.generated_library.cache_info().currsize
+          == len(set(smooth_srcs.values())),
+          "the main paths loaded exactly the prebuilt smoother sources")
   plain_runs = {p.__name__: p.launches for p in plains}
-  log(f"plain versions of kernels 8 and 9 run on the main paths: "
+  log(f"plain versions of kernels 8, 9 and 11-14 run on the main paths: "
       f"{plain_runs}")
   require(all(p.launches == n for p, n in plains.items()),
-          f"no main path ran the plain version of kernel 8 or 9 (the plain "
-          f"scan only in the F_lane timing): {plain_runs}")
+          f"no main path ran the plain version of kernel 8, 9 or the "
+          f"smoothers (the plain scan only in the F_lane timing): "
+          f"{plain_runs}")
+  require(all(launches[w.__name__] > 0 for w in smoother_wrappers),
+          f"the main paths launched kernels 11-14: {launches}")
 
   live_states, generic_states = states[:2]
   rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
@@ -4987,18 +5355,20 @@ def main():
   rows += compare_triangulation(torch, states[3])
   rows += compare_scan(torch, dev, gens[4])
   rows += compare_scan_grad(torch, dev, gens[6])
+  rows += compare_smoother(torch, dev, gens[4])
   ml_tuning(torch, dev)
   compare_user_specs(torch, dev, user_states)
   example_rows = compare_examples(torch, dev)
   profiler_phase(torch, dev)
   flops_report_phase(card, rows + example_rows)
-  # no one PyTorch call computes a fused T-step filter scan or a batch of
-  # Gauss-Newton triangulations: library_ms null
+  # no one PyTorch call computes a fused T-step filter scan, a batch of
+  # Gauss-Newton triangulations or a smoother's step: library_ms null
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}
       | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None} for r in rows]}))
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+      for r in rows]}))
   print(card_line())
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,9 @@ user-spec path's variants (the random specs' and the op battery's,
 models/user_specs.py), kernel 9's log-scan variants (mode "stream",
 chip_smoke.stream_calls) and kernel 10's adjoint variants with the ML
 tuning's log scan (mode "stream_adjoint", chip_smoke.adjoint_calls), each
-in float and double. Runs on the CPU
+in float and double, and the smoother's sources (mode "smooth": kernels
+11, 12 and 14 of the live, kinematic and msckf_eskf specs, kernel 13 of
+their main blocks; one source serves both types). Runs on the CPU
 (emission needs no card); imports nothing of JAX.
 With --compare it prints, by mode, how many variants the two files share
 unchanged, and names the ones that changed, are new in the second file
@@ -74,6 +76,28 @@ def variants():
   return calls
 
 
+def smooth_variants():
+  """name -> source of the smoother's kernels (mode "smooth", one source
+  for float and double: kernels 11, 12 and 14 of the live, kinematic and
+  msckf_eskf specs, kernel 13 of their main blocks), where the tree has
+  them."""
+  try:
+    from rednose_tpu_torch.ops import smooth_scan as ss
+  except ImportError:
+    return {}
+  from rednose_tpu_torch.models.kinematic import KinematicKalman
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+
+  out = {}
+  for model in (LiveKalman, KinematicKalman, MSCKFEskf):
+    spec = model.build_spec()
+    out[f"{spec.name} smoother"] = ss.smooth_source(spec, ())
+    out[f"suffix scan d2 = {spec.dim_main_err}"] = ss.affine_source(
+        spec.dim_main_err)
+  return out
+
+
 def hashes():
   import torch
 
@@ -83,6 +107,10 @@ def hashes():
       key = f"{name} [{call.mode}, {str(dtype).split('.')[-1]}]"
       out[key] = hashlib.sha256(call.source(dtype).encode()).hexdigest()
       print(f"{out[key][:16]}  {key}", flush=True)
+  for name, src in smooth_variants().items():
+    key = f"{name} [smooth, float and double]"
+    out[key] = hashlib.sha256(src.encode()).hexdigest()
+    print(f"{out[key][:16]}  {key}", flush=True)
   return out
 
 

@@ -7,7 +7,10 @@ use into one shared library with a plain C interface.
 ops/entry_slab.py around the template csrc/generic_scan.cuh (the generic
 kernels 4-7 and kernel 9, the log scan; kernel 10, the log scan's
 adjoint, by ops/adjoint.py around csrc/stream_adjoint.cuh too), each in a
-directory of its own (see below).
+directory of its own (see below). `generated_library(source)`: the same
+for the smoother's sources (ops/smooth_scan.py): kernels 11, 12 and 14
+emitted per spec around csrc/smooth.cuh, and kernel 13
+(csrc/affine_scan.cu) through a one-line source per size.
 Both use the same flags:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -89,10 +92,11 @@ SIGNATURES = {
 
 
 def _sources():
-  # the generic kernels' templates are compiled with each emitted source
-  return sorted(CSRC.glob("*.cu")) + sorted(
-      s for s in CSRC.glob("*.cuh") if s.name not in (TEMPLATE.name,
-                                                      ADJOINT.name))
+  # the generic kernels' templates are compiled with each emitted source,
+  # kernel 13 with its one-line source per size
+  emitted = (TEMPLATE.name, ADJOINT.name, SMOOTH.name, AFFINE.name)
+  return sorted(s for s in CSRC.glob("*.cu") if s.name not in emitted) + \
+      sorted(s for s in CSRC.glob("*.cuh") if s.name not in emitted)
 
 
 def _nvcc() -> str:
@@ -166,6 +170,11 @@ TEMPLATE = CSRC / "generic_scan.cuh"
 # kernel 10's loop, which an emitted adjoint source includes after the
 # template's prelude
 ADJOINT = CSRC / "stream_adjoint.cuh"
+# kernels 11, 12 and 14 (the smoother), which an emitted smooth source
+# includes after the spec's functions; kernel 13, which a one-line source
+# per size includes (ops/smooth_scan.py)
+SMOOTH = CSRC / "smooth.cuh"
+AFFINE = CSRC / "affine_scan.cu"
 # C entry of each emitted source -> argtypes (all return the launch's
 # cudaError_t): kernels 4-7 take xs, Ps, zs, eas, dts, kind_idx, pss, prm,
 # Q, R, T, B, stream; kernel 9 (mode "stream") xs, Ps, zs, eas, dts,
@@ -180,9 +189,10 @@ GEN_ENTRIES = {"rn_generic_scan_launch": (_P,) * 10 + (_I, _I, _P),
 
 def _headers(source: str) -> list:
   """The templates an emitted source is compiled with: generic_scan.cuh,
-  and stream_adjoint.cuh where the source includes it."""
-  return [TEMPLATE] + ([ADJOINT] if f'#include "{ADJOINT.name}"' in source
-                       else [])
+  and stream_adjoint.cuh, smooth.cuh or affine_scan.cu where the source
+  includes it."""
+  return [TEMPLATE] + [h for h in (ADJOINT, SMOOTH, AFFINE)
+                       if f'#include "{h.name}"' in source]
 
 
 def generated_dir(source: str) -> pathlib.Path:
@@ -264,6 +274,39 @@ def generated_launcher(source: str):
   fn.argtypes = list(GEN_ENTRIES[entry])
   fn.restype = ctypes.c_int
   return fn
+
+
+# C entries of the smoother's sources (all return the launch's
+# cudaError_t): kernel 11 xp, Pp, xq, Pq, dts, p, C, b, V, B, T,
+# is_double, stream; its refine variant xp, xq, C, e, ne, p, A, b, B, T,
+# norm, is_double, stream; kernel 12 xp, Pp, xq, Pq, C, p, xs, Ps, B, T,
+# norm, ref_seed, is_double, stream; kernel 14 xq, Pq, e, D, p, xs, Ps, B,
+# T, n, norm, is_double, stream (csrc/smooth.cuh); kernel 13 A, b, V, Ao,
+# bo, Vo, tot, excl, N, n, chunk, is_double, stream (csrc/affine_scan.cu);
+# the info entries (kernel or pass, is_double, out (5 ints))
+SMOOTH_ENTRIES = {
+    "rn_smooth_gains_launch": (_P,) * 9 + (_I,) * 3 + (_P,),
+    "rn_smooth_refine_launch": (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 4
+                               + (_P,),
+    "rn_smooth_backward_launch": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "rn_smooth_inject_launch": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "rn_smooth_info": (_I, _I, _P),
+    "rn_affine_scan_launch": (_P,) * 8 + (_I,) * 4 + (_P,),
+    "rn_affine_scan_info": (_I, _I, _P),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def generated_library(source: str) -> ctypes.CDLL:
+  """Build if needed and load a smoother source (kernels 11, 12 and 14 of
+  a spec, or kernel 13 of a size), its SMOOTH_ENTRIES declared."""
+  lib = ctypes.CDLL(str(build_generated_many([source])[0]))
+  for name, argtypes in SMOOTH_ENTRIES.items():
+    fn = getattr(lib, name, None)
+    if fn is not None:
+      fn.argtypes = list(argtypes)
+      fn.restype = ctypes.c_int
+  return lib
 
 
 def generated_info(source: str) -> dict:

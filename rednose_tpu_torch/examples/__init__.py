@@ -24,14 +24,21 @@ import argparse
 def kernel_wrappers():
   """Every kernel wrapper of the port (each counts its launches)."""
   from rednose_tpu_torch.msckf import triangulation
-  from rednose_tpu_torch.ops import generic_scan, kinematic_scan, live_scan
+  from rednose_tpu_torch.ops import (
+      generic_scan,
+      kinematic_scan,
+      live_scan,
+      smooth_scan,
+  )
 
   return (kinematic_scan.kinematic_bank_scan, live_scan.live_bank_scan,
           live_scan.live_bank_scan_mixed, generic_scan.generic_bank_scan,
           generic_scan.generic_bank_scan_epoch,
           generic_scan.generic_bank_scan_mixed, generic_scan.vo_bank_scan,
           triangulation.compute_pos_batch, generic_scan.stream_bank_scan,
-          generic_scan.stream_bank_scan_adjoint)
+          generic_scan.stream_bank_scan_adjoint, smooth_scan.smooth_gains,
+          smooth_scan.smooth_backward, smooth_scan.affine_suffix_scan,
+          smooth_scan.smooth_inject)
 
 
 def launch_counts() -> dict:

@@ -69,6 +69,9 @@ switch over them by the step's kind index.
 Mode "stream_adjoint" (kernel 10, the adjoint of kernel 9) is the reverse
 mode of these DAGs, ops/adjoint.py, in tile form where its tile fits
 (adjoint_tile_bytes, TILE_ROLES_ADJOINT warps).
+Mode "smooth" (kernels 11, 12 and 14, the offline RTS smoother,
+smooth_source) prints only the spec's error-state functions the smoother
+needs, as templates over the scalar type, for csrc/smooth.cuh.
 """
 
 from __future__ import annotations
@@ -1242,7 +1245,8 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
 
 # ----------------------------------------------------------- variant source
 
-MODES = ("single", "mixed", "epoch", "frame", "stream", "stream_adjoint")
+MODES = ("single", "mixed", "epoch", "frame", "stream", "stream_adjoint",
+         "smooth")
 
 
 def _unit_name(kind, gate, frame=False):
@@ -1284,9 +1288,13 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   no design line (the whole phases, one function each). Mode
   'stream_adjoint' (kernel 10, the adjoint of mode 'stream') is printed by
   ops/adjoint.emit_source: the tile form where its tile fits a block
-  (adjoint_tile_bytes), else, or with tile=False, the global form."""
+  (adjoint_tile_bytes), else, or with tile=False, the global form. Mode
+  'smooth' (kernels 11, 12 and 14) is smooth_source(spec, pnames); the
+  other arguments are not read."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
+  if mode == "smooth":
+    return smooth_source(spec, pnames)
   if mode == "stream_adjoint":
     from rednose_tpu_torch.ops import adjoint
 
@@ -1479,6 +1487,171 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
           "#define REDNOSE_GENERIC_SCAN_LOOPS",
           '#include "generic_scan.cuh"', ""]
   return "\n".join(out)
+
+
+# ------------------------------------------------------- mode "smooth"
+# Kernels 11, 12 and 14, the offline RTS smoother (csrc/smooth.cuh), take
+# from the spec only its error-state algebra: F's main block, inv_err, the
+# injection of a correction and, for the refinement, the Jacobian of
+# v(e) = inv_err(x_pred, inject(x_post, e)). Each is one function here,
+# printed as a template over the scalar type (one build serves float and
+# double); the dense algebra around them (the gains' Cholesky, the
+# products) is hand-written in the template, shared across a warp or a
+# block.
+
+class _SmoothPrinter(_Printer):
+  """_Printer whose leaves are the smoother functions' arguments: each
+  array read as name[i], dt as itself."""
+
+  def _load(self, a):
+    name, idx = a
+    return name if name == "dt" else f"{name}[{idx[0]}]"
+
+
+def _smooth_function(name, params, outs, prologue=""):
+  """One template function: SSA definitions of `outs` ((array, values)
+  pairs, each value an Expr, a constant or None for 0) and their stores."""
+  pr = _SmoothPrinter(0)
+  for _, values in outs:
+    for v in values:
+      pr.emit(v)
+  lines = ["template <typename scalar_t>",
+           f"GEN_HD GEN_PHASE void {name}({params}) {{{prologue}"]
+  lines += pr.lines
+  for arr, values in outs:
+    lines += [f"  {arr}[{i}] = {pr.ref(v)};" for i, v in enumerate(values)]
+  lines.append("}")
+  return lines
+
+
+def _smooth_inject(spec, params, x, dx, norm):
+  """err(x, dx) on the main block, x's clone slots kept, quaternions
+  renormalized if norm: the smoother's injection (smoothing/rts.py)."""
+  import torch
+
+  from rednose_tpu_torch.ops.quaternion import normalize_slices
+
+  d1 = spec.dim_main
+  x_s = spec.err(params, x, dx)
+  x_s = x_s if d1 == spec.dim_x else torch.cat([x_s[:d1], x[d1:]])
+  return normalize_slices(x_s, spec.quaternion_idxs) if norm else x_s
+
+
+def smooth_source(spec: FilterSpec, pnames) -> str:
+  """C++ source of the smoother's kernels 11, 12 and 14 for one spec
+  (mode "smooth"): in namespace rn_gen the constants DX, DE, D1 (the main
+  state), D2 (its error block) and NP, and the template functions
+
+    gen_sm_F(x, dt, p, F)           F = d f_err / d dx at dx = 0 (d f / d x
+                                    for an additive spec), its main block
+                                    row-major (D2 x D2), from the
+                                    structural interpreter's taps as
+                                    predict_phase takes G's;
+    gen_sm_inv_err(xa, xb, p, out)  inv_err(xa, xb), DE entries;
+    gen_sm_inject_n{0,1}(x, dx, p, out)
+                                    err(x, dx) on the main state, x's
+                                    clone slots kept, quaternions
+                                    renormalized (n1) or not (n0);
+    gen_sm_refine_n{0,1}(xp, xq, e, p, v, J)
+                                    v = inv_err(xp, inject(xq, [e, 0]))
+                                    [:D2] and J = dv/de (row-major, D2 x
+                                    D2), taps of the composition;
+
+  then csrc/smooth.cuh, the kernels and their C entries. pnames: the
+  params vector's names, in order. The text depends on the spec and
+  pnames only."""
+  import torch
+
+  d = ExprDAG()
+  de, dx, d2 = spec.dim_err, spec.dim_x, spec.dim_main_err
+  np_ = len(pnames)
+
+  def prm_of(dag):
+    return [_scalar(dag.load("p", (i,))) for i in range(np_)]
+
+  def params_of(pv):
+    return dict(zip(pnames, pv))
+
+  funcs = []
+  # F's main block
+  if spec.f_err is not None:
+    def fe(xx, dtt, *rest):
+      return spec.f_err(params_of(rest[:-1]), xx, rest[-1], dtt)
+  else:
+    def fe(xx, dtt, *rest):
+      return spec.f(params_of(rest[:-1]), xx + rest[-1], dtt)
+  x = structural.load_array(d, "x", (dx,))
+  _, taps = structural.run_entry_taps(
+      d, fe, [(dx,), ()] + [()] * np_, [x, _scalar(d.load("dt"))]
+      + prm_of(d), de, range(d2))
+  F = [taps[k][i] for i in range(d2) for k in range(d2)]
+  funcs += _smooth_function(
+      "gen_sm_F", "const scalar_t* x, const scalar_t dt, const scalar_t* p, "
+      "scalar_t* F", [("F", F)], "\n  (void)x; (void)dt; (void)p;")
+
+  d = ExprDAG()
+  xa = structural.load_array(d, "xa", (dx,))
+  xb = structural.load_array(d, "xb", (dx,))
+  out = structural.run_primal(
+      d, lambda a, b, *pv: spec.inv_err(params_of(pv), a, b),
+      [(dx,), (dx,)] + [()] * np_, [xa, xb] + prm_of(d))
+  funcs += [""] + _smooth_function(
+      "gen_sm_inv_err", "const scalar_t* xa, const scalar_t* xb, "
+      "const scalar_t* p, scalar_t* out", [("out", list(out))],
+      "\n  (void)xa; (void)xb; (void)p;")
+
+  for norm in (0, 1):
+    d = ExprDAG()
+    x = structural.load_array(d, "x", (dx,))
+    dxa = structural.load_array(d, "dx", (de,))
+    out = structural.run_primal(
+        d, lambda xx, dd, *pv: _smooth_inject(spec, params_of(pv), xx, dd,
+                                              norm),
+        [(dx,), (de,)] + [()] * np_, [x, dxa] + prm_of(d))
+    funcs += [""] + _smooth_function(
+        f"gen_sm_inject_n{norm}", "const scalar_t* x, const scalar_t* dx, "
+        "const scalar_t* p, scalar_t* out", [("out", list(out))],
+        "\n  (void)x; (void)dx; (void)p;")
+
+  for norm in (0, 1):
+    d = ExprDAG()
+    xp = structural.load_array(d, "xp", (dx,))
+    xq = structural.load_array(d, "xq", (dx,))
+    e = structural.load_array(d, "e", (d2,))
+
+    def v_of(xpp, xqq, ee, *rest, norm=norm):
+      params = params_of(rest[:-1])
+      ev = ee + rest[-1]
+      dxx = ev if de == d2 else torch.cat([ev, ev.new_zeros(de - d2)])
+      return spec.inv_err(params, xpp,
+                          _smooth_inject(spec, params, xqq, dxx, norm))[:d2]
+
+    v, taps = structural.run_entry_taps(
+        d, v_of, [(dx,), (dx,), (d2,)] + [()] * np_, [xp, xq, e]
+        + prm_of(d), d2, range(d2))
+    J = [taps[j][i] for i in range(d2) for j in range(d2)]
+    funcs += [""] + _smooth_function(
+        f"gen_sm_refine_n{norm}", "const scalar_t* xp, const scalar_t* xq, "
+        "const scalar_t* e, const scalar_t* p, scalar_t* v, scalar_t* J",
+        [("v", list(v)), ("J", J)],
+        "\n  (void)xp; (void)xq; (void)e; (void)p;")
+
+  head = [
+      "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
+      f"// spec {spec.name!r}, mode smooth, params {list(pnames)}.",
+      '#include "generic_scan.cuh"',
+      "",
+      "namespace rn_gen {",
+      "",
+      f"constexpr int DX = {dx};",
+      f"constexpr int DE = {de};",
+      f"constexpr int D1 = {spec.dim_main};",
+      f"constexpr int D2 = {d2};",
+      f"constexpr int NP = {np_};",
+      "",
+  ]
+  return "\n".join(head + funcs + [
+      "", "}  // namespace rn_gen", "", '#include "smooth.cuh"', ""])
 
 
 def q_pattern_of(Q) -> tuple:

@@ -47,7 +47,13 @@ import torch.multiprocessing as mp
 
 from rednose_tpu_torch import _build
 from rednose_tpu_torch.examples import launch_counts, launched_since
-from rednose_tpu_torch.ops import generic_scan, lane_bank, live_scan, sparsity
+from rednose_tpu_torch.ops import (
+    generic_scan,
+    lane_bank,
+    live_scan,
+    smooth_scan,
+    sparsity,
+)
 from rednose_tpu_torch.parallel import sharding
 from rednose_tpu_torch.runtime import bank as bank_ops
 from rednose_tpu_torch.smoothing import rts
@@ -532,6 +538,8 @@ class Case:
   sharded: object
   unsharded: object
   kernel: object = None       # the wrapper launched once on the card
+  # or, for a case of several kernels, (wrapper name, launches) a rank
+  card_counts: tuple = ()
   tols: tuple = ()            # (output, relative tolerance); others exact
   dtype: torch.dtype | None = None   # None: the size's
 
@@ -558,9 +566,13 @@ CASES = {
     "epoch": Case("epoch", 8, *_generic("epoch"),
                   generic_scan.generic_bank_scan_epoch),
     "vo": Case("vo", 9, *_generic("vo"), generic_scan.vo_bank_scan),
+    # kernels 11 (gains and elements, and 2 refine passes), 13 and 14
     "smoother": Case("smoother", 0, _smoother_sharded, _smoother_unsharded,
                      tols=(("x", SMOOTH_TOL), ("P", SMOOTH_TOL)),
-                     dtype=torch.float64),
+                     dtype=torch.float64,
+                     card_counts=(("smooth_gains", 3),
+                                  ("affine_suffix_scan", 3),
+                                  ("smooth_inject", 1))),
 }
 
 
@@ -590,6 +602,13 @@ def require_built(names, size_name):
       d = _build.generated_dir(kernel_call(name).source(dtype))
       if not (d / "libgen.so").exists():
         missing.append(f"{name}: {d.name}")
+    if name == "smoother":
+      spec = _models()["kin"].build_spec()
+      for src in (smooth_scan.smooth_source(spec, ()),
+                  smooth_scan.affine_source(spec.dim_main_err)):
+        d = _build.generated_dir(src)
+        if not (d / "libgen.so").exists():
+          missing.append(f"{name}: {d.name}")
   if missing:
     raise RuntimeError(f"kernels not built before the ranks started: "
                        f"{missing}")
@@ -717,7 +736,8 @@ def verify(results: list, size_name: str, refs: dict, device) -> list:
   rows = []
   for name, ref in refs.items():
     case = CASES[name]
-    want = {case.kernel.__name__: 1} if cuda and case.kernel else {}
+    want = ({} if not cuda else dict(case.card_counts) if case.card_counts
+            else {case.kernel.__name__: 1} if case.kernel else {})
     B = results[0][name]["batch"]
     for r in results:
       if r[name]["counts"] != want:

@@ -50,26 +50,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.func import jacfwd, vmap
-
 from rednose_tpu_torch.core.spec import FilterSpec
-from rednose_tpu_torch.ops import generic_scan, live_scan
-from rednose_tpu_torch.ops.lane_bank import (
-    _mm,
-    _mm_t,
-    cho_solve_lane_blocked,
-    cholesky_lane_blocked,
-)
-from rednose_tpu_torch.ops.quaternion import normalize_slices
+from rednose_tpu_torch.ops import generic_scan, live_scan, smooth_scan
 from rednose_tpu_torch.runtime import bank as bank_ops
 from rednose_tpu_torch.smoothing.rts import (
     _affine_combine_ab,
     _affine_combine_lane,
     _dts,
-    _F_main,
-    _pad_block,
-    _suffix_scan_lane,
-    _sym,
 )
 from rednose_tpu_torch.utils.device import resolve_device
 
@@ -366,15 +353,25 @@ def _carry(mesh, totals, combine):
 def _block_scan(mesh, elems):
   """Suffix scan of this rank's affine elements (A, b[, V]), lane-major on
   the time axis, continued across the blocks of the later ranks: the
-  block scanned locally, the totals all-gathered, the later blocks'
-  totals composed into a carry and the carry applied to the block."""
+  block scanned locally (kernel 13, ops/smooth_scan.affine_suffix_scan,
+  on the card; its plain version on the host), the totals all-gathered,
+  the later blocks' totals composed into a carry and the carry applied to
+  the block."""
   combine = _affine_combine_lane if len(elems) == 3 else _affine_combine_ab
-  out = _suffix_scan_lane(*elems)
+  bank = [e.permute(2, 0, 1)[None].contiguous() for e in elems]
+  A, b, V = smooth_scan.affine_suffix_scan(bank[0], bank[1][..., 0],
+                                           *bank[2:], want_A=True)
+  out = (_lane(A), _lane(b[..., None])) + (() if V is None else (_lane(V),))
   carry = _carry(mesh, tuple(e[..., :1] for e in out), combine)
   if carry is None:
     return out
   K = elems[0].shape[-1]
   return combine(tuple(c.expand(*c.shape[:-1], K) for c in carry), out)
+
+
+def _lane(a):
+  """One lane of the kernels' layout (1, K, m, n) -> lane-major (m, n, K)."""
+  return a[0].permute(1, 2, 0)
 
 
 def sharded_rts_smooth_parallel(mesh: DeviceMesh, spec: FilterSpec, params,
@@ -389,18 +386,20 @@ def sharded_rts_smooth_parallel(mesh: DeviceMesh, spec: FilterSpec, params,
   block boundary needs no halo exchange.
 
   Each rank forms the affine elements (C_k, C_k u_{k+1}, V_k) of its
-  rows, the last rank's final row the zero map (e_{T-1} = 0), scans them
-  locally, all-gathers the block totals, composes the later blocks'
-  totals into a carry and applies it to its block (_block_scan). Each
-  Newton pass of `refine` needs the corrections a row later: the
-  corrections of every block are all-gathered (T x d2 values), then the
-  (A, b) elements are formed and scanned the same way. The result equals
-  the unsharded rts_smooth_parallel up to the rounding of the other
-  association."""
+  rows (kernel 11 on the card, ops/smooth_scan.smooth_gains; its plain
+  version on the host), the last rank's final row the zero map (e_{T-1}
+  = 0), scans them locally, all-gathers the block totals, composes the
+  later blocks' totals into a carry and applies it to its block
+  (_block_scan). Each Newton pass of `refine` needs the corrections a
+  row later: the corrections of every block are all-gathered (T x d2
+  values), then the (A, b) elements are formed (kernel 11's refine
+  variant) and scanned the same way. The rows are injected by kernel 14
+  (smooth_inject). The result equals the unsharded rts_smooth_parallel up
+  to the rounding of the other association."""
   x_pred, P_pred, x_post, P_post, t = (
       _replicated(mesh, a) for a in (x_pred, P_pred, x_post, P_post, t))
   resolve_device(x_post.device)
-  d1, d2, de = spec.dim_main, spec.dim_main_err, spec.dim_err
+  d2 = spec.dim_main_err
   T = x_post.shape[0]
   rows = BankSharding(mesh, mesh.mesh_dim_names).lanes(T)
   lo, hi = rows.start, rows.stop
@@ -414,53 +413,37 @@ def sharded_rts_smooth_parallel(mesh: DeviceMesh, spec: FilterSpec, params,
     return torch.cat([e, e.new_zeros(e.shape[:-1] + (pad,))], dim=-1) \
         if pad else e
 
-  F = _F_main(spec, params, x_post[lo:k_hi], dts[lo:k_hi])
-  Pk = P_post[lo:k_hi, :d2, :d2].permute(1, 2, 0)
-  Pk1 = P_pred[lo + 1:k_hi + 1, :d2, :d2].permute(1, 2, 0)
-  X = cho_solve_lane_blocked(cholesky_lane_blocked(Pk1), _mm_t(F, Pk))
-  C_l = X.transpose(0, 1)
-  nxt = slice(lo + 1, k_hi + 1)
-  u_l = vmap(lambda xp, xf: spec.inv_err(params, xp, xf)[:d2],
-             out_dims=1)(x_pred[nxt], x_post[nxt])
-  dP_l = (P_post[nxt, :d2, :d2] - P_pred[nxt, :d2, :d2]).permute(1, 2, 0)
-  _, e_l, D_l = _block_scan(mesh, (
-      zero_pad(C_l), zero_pad(_mm(C_l, u_l[:, None])),
-      zero_pad(_mm_t(_mm(C_l, dP_l), C_l))))
-  e_acc = e_l[:, 0].T                                      # (T/n, d2)
+  def one(a):
+    return a[None].contiguous()
 
-  def inject(x_k, e_k):
-    dx = torch.cat([e_k, e_k.new_zeros(de - d2)])
-    x_s = spec.err(params, x_k, dx)
-    x_s = torch.cat([x_s[:d1], x_k[d1:]])
-    if norm_quats:
-      x_s = normalize_slices(x_s, spec.quaternion_idxs)
-    return x_s
+  win = slice(lo, k_hi + 1)      # the rows the block's elements read
+  xw_pred, xw_post = one(x_pred[win]), one(x_post[win])
+  C, b, V = smooth_scan.smooth_gains(
+      spec, params, xw_pred, one(P_pred[win]), xw_post, one(P_post[win]),
+      one(dts[lo:k_hi].to(x_post.dtype)))
+  _, e_l, D_l = _block_scan(mesh, (zero_pad(_lane(C)),
+                                   zero_pad(_lane(b[..., None])),
+                                   zero_pad(_lane(V))))
+  e_acc = e_l[:, 0].T                                      # (T/n, d2)
 
   f64 = x_post.dtype == torch.float64
   n_refine = (2 if (spec.is_eskf and f64) else 0) if refine is None \
       else refine
   for _ in range(n_refine if T > 2 else 0):
+    # every block's corrections; element k reads the one of row k + 1
     e_all = gather_bank(mesh, e_acc, 0)                    # (T, d2)
-    # the current correction a row later, and the smoothed state there
-    e_next = e_all[nxt]
-    x_hat_next = torch.cat(
-        [vmap(inject)(x_post[lo + 1:min(k_hi + 1, T - 1)],
-                      e_all[lo + 1:min(k_hi + 1, T - 1)]),
-         x_post[T - 1:] if k_hi == T - 1 else x_post[:0]])
-    v_l = vmap(lambda xp, xh: spec.inv_err(params, xp, xh)[:d2],
-               out_dims=1)(x_pred[nxt], x_hat_next)
-    Jv = vmap(lambda xp, xpo, eh: jacfwd(
-        lambda e: spec.inv_err(params, xp, inject(xpo, e))[:d2])(eh),
-        out_dims=2)(x_pred[nxt], x_post[nxt], e_next)
-    Jv_e = torch.einsum('ijt,tj->it', Jv, e_next)
-    _, e_l = _block_scan(mesh, (zero_pad(_mm(C_l, Jv)),
-                                zero_pad(_mm(C_l, (v_l - Jv_e)[:, None]))))
+    A, b = smooth_scan.smooth_gains(spec, params, xw_pred, None, xw_post,
+                                    None, None, C=C, e=one(e_all[lo:]),
+                                    norm_quats=norm_quats)
+    _, e_l = _block_scan(mesh, (zero_pad(_lane(A)),
+                                zero_pad(_lane(b[..., None]))))
     e_acc = e_l[:, 0].T
 
-  xs = vmap(inject)(x_post[lo:k_hi], e_acc[:k_hi - lo])
-  Ps = _sym(P_post[lo:k_hi] + _pad_block(D_l.permute(2, 0, 1)[:k_hi - lo],
-                                         de))
-  return torch.cat([xs, x_post[k_hi:hi]]), torch.cat([Ps, P_post[k_hi:hi]])
+  xs, Ps = smooth_scan.smooth_inject(
+      spec, params, one(x_post[lo:hi]), one(P_post[lo:hi]),
+      one(e_acc[:k_hi - lo]), one(D_l.permute(2, 0, 1)[:k_hi - lo]),
+      norm_quats=norm_quats)
+  return xs[0], Ps[0]
 
 
 # ------------------------------------------------------- multi-slice meshes

@@ -23,19 +23,38 @@ estimate list):
     (`refine`) converge it to the sequential answer.
 
 Both take the stacked arrays of a forward pass (runtime/scan.py) on any
-device; `smooth_estimates` adapts the engine's list of Estimates. The
-matrices of the parallel form are lane-major (d, d, T), as in the JAX
-package, and its gains go through the blocked lane Cholesky
+device; `smooth_estimates` adapts the engine's list of Estimates.
+
+On CUDA tensors each runs the smoother's kernels (ops/smooth_scan.py, the
+JAX package's jitted smoother, _jit_rts, ported): `rts_smooth` one launch
+of kernel 11 (the gains) and one of kernel 12 (the backward pass);
+`rts_smooth_parallel` kernel 11 (gains and elements), kernel 13 (the
+suffix scan) and kernel 14 (the inject), and for each refine pass kernel
+11's refine variant and kernel 13 again; `rts_smooth_parallel_bank` the
+same launches for the whole bank. Each goes through a custom op
+(rednose::rts_smooth, rednose::rts_smooth_parallel) whose vmap rule
+merges the vmapped axis into the op's lanes, so torch.func.vmap of either
+is one launch of each kernel too. The number of launches never depends on
+T. Gradients through the card route are not ported (the smoother's
+adjoint): an input that requires grad, and torch.func's grad, jacrev and
+jvp, raise there, naming it. On CPU tensors each runs its plain version,
+`rts_smooth_reference` / `rts_smooth_parallel_reference` (the bodies
+below; their `.launches` count their runs), which autograd runs through.
+The matrices of the plain parallel form are lane-major (d, d, T), as in
+the JAX package, and its gains go through the blocked lane Cholesky
 (ops/lane_bank.cholesky_lane_blocked).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
 from rednose_tpu_torch.core.spec import FilterSpec
+from rednose_tpu_torch.ops import smooth_scan
 from rednose_tpu_torch.ops.lane_bank import (
     _mm,
     _mm_t,
@@ -83,15 +102,45 @@ def rts_smooth(spec: FilterSpec, params, x_pred, P_pred, x_post, P_post, t,
   the same shapes. Only the main state block is smoothed; MSCKF clone
   slots pass through (ekf_sym.py:677-686 slices [:d1] / [:d2]).
   `reference_seed=True` seeds from the last predicted state, as the
-  reference does (ekf_sym.py:658-660); the returned tail is that seed."""
+  reference does (ekf_sym.py:658-660); the returned tail is that seed.
+  CUDA tensors: kernels 11 and 12, once each (see the module docstring);
+  CPU tensors: rts_smooth_reference."""
+  if x_post.device.type == "cpu":
+    return rts_smooth_reference(spec, params, x_pred, P_pred, x_post,
+                                P_post, t, norm_quats=norm_quats, dts=dts,
+                                reference_seed=reference_seed)
+  return _card_rts_smooth(spec, params, x_pred, P_pred, x_post, P_post, t,
+                          norm_quats, dts, reference_seed)
+
+
+def _card_rts_smooth(spec, params, x_pred, P_pred, x_post, P_post, t,
+                     norm_quats, dts, reference_seed):
+  """rts_smooth through rednose::rts_smooth (kernels 11 and 12), on the
+  device of x_post."""
+  _refuse_grad(spec, (x_pred, P_pred, x_post, P_post, t, dts,
+                      *params.values()))
+  if x_post.shape[0] < 1:
+    raise ValueError("rts_smooth: a log of no step")
+  h, prm = _handle_of(spec, params, x_post)
+  xs, Ps = torch.ops.rednose.rts_smooth(
+      x_pred[None], P_pred[None], x_post[None], P_post[None],
+      _dts(t, dts)[None].to(x_post.dtype), prm, h, bool(norm_quats),
+      bool(reference_seed))
+  return xs[0], Ps[0]
+
+
+def rts_smooth_reference(spec: FilterSpec, params, x_pred, P_pred, x_post,
+                         P_post, t, norm_quats: bool = False, dts=None,
+                         reference_seed: bool = False):
+  """rts_smooth's plain version, on any device: the gains by
+  torch.linalg.solve for every k at once (ekf_sym.py:673-677), then one
+  Python iteration a step (_backward_pass). `.launches` counts its
+  runs."""
+  rts_smooth_reference.launches += 1
   resolve_device(x_post.device)
-  d1, d2, de = spec.dim_main, spec.dim_main_err, spec.dim_err
+  d2 = spec.dim_main_err
   T = x_post.shape[0]
-  if reference_seed:
-    x_next, P_next = x_pred[T - 1], P_pred[T - 1]
-  else:
-    x_next, P_next = x_post[T - 1], P_post[T - 1]
-  xs, Ps = [x_next], [P_next]
+  C = x_post.new_zeros((0, d2, d2))
   if T > 1:
     # C_k = P_{k|k} F_k^T P_{k+1|k}^-1 for every k (ekf_sym.py:673-677):
     # solve(P_{k+1|k}, F_k P_{k|k}^T)^T
@@ -99,6 +148,25 @@ def rts_smooth(spec: FilterSpec, params, x_pred, P_pred, x_post, P_post, t,
     C = torch.linalg.solve(
         P_pred[1:, :d2, :d2],
         F @ P_post[:-1, :d2, :d2].transpose(-1, -2)).transpose(-1, -2)
+  return _backward_pass(spec, params, x_pred, P_pred, x_post, P_post, C,
+                        norm_quats, reference_seed)
+
+
+rts_smooth_reference.launches = 0
+
+
+def _backward_pass(spec, params, x_pred, P_pred, x_post, P_post, C,
+                   norm_quats, reference_seed):
+  """The backward loop over k = T-2 .. 0 from the gains C (T-1, d2, d2):
+  one Python iteration a step, carrying the smoothed state and
+  covariance (kernel 12's plain version)."""
+  d1, d2, de = spec.dim_main, spec.dim_main_err, spec.dim_err
+  T = x_post.shape[0]
+  if reference_seed:
+    x_next, P_next = x_pred[T - 1], P_pred[T - 1]
+  else:
+    x_next, P_next = x_post[T - 1], P_post[T - 1]
+  xs, Ps = [x_next], [P_next]
   for k in range(T - 2, -1, -1):
     Ck, x_k = C[k], x_post[k]
     dx = spec.inv_err(params, x_pred[k + 1], x_next)
@@ -163,7 +231,49 @@ def _suffix_scan_lane(A, b, V=None):
 def rts_smooth_parallel(spec: FilterSpec, params, x_pred, P_pred, x_post,
                         P_post, t, norm_quats: bool = False, dts=None,
                         refine: int | None = None):
-  """Parallel-in-time RTS by a suffix scan of affine maps (O(log T) depth).
+  """Parallel-in-time RTS by a suffix scan of affine maps
+  (rts_smooth_parallel_reference says how). CUDA tensors: kernel 11, 13
+  and 14 once each, and kernel 11's refine variant and kernel 13 once
+  more for each refine pass (see the module docstring); CPU tensors:
+  rts_smooth_parallel_reference."""
+  if x_post.device.type == "cpu":
+    return rts_smooth_parallel_reference(
+        spec, params, x_pred, P_pred, x_post, P_post, t,
+        norm_quats=norm_quats, dts=dts, refine=refine)
+  xs, Ps = _card_rts_smooth_parallel(
+      spec, params, x_pred[None], P_pred[None], x_post[None], P_post[None],
+      _dts(t, dts)[None], norm_quats, refine)
+  return xs[0], Ps[0]
+
+
+def _card_rts_smooth_parallel(spec, params, x_pred, P_pred, x_post, P_post,
+                              dts, norm_quats, refine):
+  """The parallel smoother of a bank (B, T, ...; dts (B, T-1)) through
+  rednose::rts_smooth_parallel (kernels 11, 13 and 14), on the device of
+  x_post."""
+  _refuse_grad(spec, (x_pred, P_pred, x_post, P_post, dts,
+                      *params.values()))
+  if x_post.shape[1] < 2:
+    return x_post.clone(), P_post.clone()
+  h, prm = _handle_of(spec, params, x_post)
+  return torch.ops.rednose.rts_smooth_parallel(
+      x_pred, P_pred, x_post, P_post, dts.to(x_post.dtype), prm, h,
+      bool(norm_quats), _n_refine(spec, x_post, refine))
+
+
+def _n_refine(spec, x_post, refine):
+  """The Newton passes: `refine`, by default 2 for an ESKF spec in float64
+  and 0 otherwise; none for T <= 2."""
+  f64 = x_post.dtype == torch.float64
+  n = (2 if (spec.is_eskf and f64) else 0) if refine is None else refine
+  return n if x_post.shape[-2] > 2 else 0
+
+
+def rts_smooth_parallel_reference(spec: FilterSpec, params, x_pred, P_pred,
+                                  x_post, P_post, t, norm_quats: bool = False,
+                                  dts=None, refine: int | None = None):
+  """rts_smooth_parallel's plain version, on any device. `.launches`
+  counts its runs.
 
   With e_k = inv_err(x_{k|k}, x_{k|T}) and u_{k+1} = inv_err(x_{k+1|k},
   x_{k+1|k+1}), the RTS recursion linearizes to e_k = C_k u_{k+1} +
@@ -177,6 +287,7 @@ def rts_smooth_parallel(spec: FilterSpec, params, x_pred, P_pred, x_post,
   scan; the fixed point is the sequential recursion. Refinement needs
   float64 (v cancels nearly equal states, which float32 at ECEF scale
   cannot resolve). Default: 2 for ESKF specs in float64, else 0."""
+  rts_smooth_parallel_reference.launches += 1
   resolve_device(x_post.device)
   d1, d2, de = spec.dim_main, spec.dim_main_err, spec.dim_err
   T = x_post.shape[0]
@@ -209,10 +320,7 @@ def rts_smooth_parallel(spec: FilterSpec, params, x_pred, P_pred, x_post,
       x_s = normalize_slices(x_s, spec.quaternion_idxs)
     return x_s
 
-  f64 = x_post.dtype == torch.float64
-  n_refine = (2 if (spec.is_eskf and f64) else 0) if refine is None \
-      else refine
-  for _ in range(n_refine if T > 2 else 0):
+  for _ in range(_n_refine(spec, x_post, refine)):
     # the smoothed states at 1..T-1 from the current corrections
     x_hat_next = torch.cat([vmap(inject)(x_post[1:-1], e_acc[1:]),
                             x_post[T - 1:]])
@@ -235,18 +343,156 @@ def rts_smooth_parallel(spec: FilterSpec, params, x_pred, P_pred, x_post,
           torch.cat([Ps, P_post[T - 1:]]))
 
 
+rts_smooth_parallel_reference.launches = 0
+
+
 def rts_smooth_parallel_bank(spec: FilterSpec, params, x_pred, P_pred,
                              x_post, P_post, t, norm_quats: bool = False,
                              dts=None, refine: int | None = None):
   """rts_smooth_parallel over a BANK of trajectories: every argument gains
   a leading bank axis B (x_* (B, T, dim_x), P_* (B, T, de, de), t (B, T),
-  dts (B, T-1)), and the smoother is vmapped over it."""
+  dts (B, T-1)). CUDA tensors: one launch of each kernel for the whole
+  bank (rts_smooth_parallel's launches); CPU tensors: the plain version
+  vmapped over the bank."""
+  if x_post.device.type != "cpu":
+    return _card_rts_smooth_parallel(
+        spec, params, x_pred, P_pred, x_post, P_post,
+        t[..., 1:] - t[..., :-1] if dts is None else dts, norm_quats, refine)
+
   def one(xp, Pp, xf, Pf, tt, dd=None):
-    return rts_smooth_parallel(spec, params, xp, Pp, xf, Pf, tt,
-                               norm_quats=norm_quats, dts=dd, refine=refine)
+    return rts_smooth_parallel_reference(spec, params, xp, Pp, xf, Pf, tt,
+                                         norm_quats=norm_quats, dts=dd,
+                                         refine=refine)
 
   args = (x_pred, P_pred, x_post, P_post, t)
   return vmap(one)(*args) if dts is None else vmap(one)(*args, dts)
+
+
+# ------------------------------------------------- the card route (11-14)
+# The smoother's custom ops take the bank layout (B lanes; dts (B, T-1))
+# and a handle to (spec, the params' names); the params' values come as a
+# vector. Their vmap rules merge a vmapped axis into the lanes.
+
+_HANDLES: list = []
+
+
+@functools.lru_cache(maxsize=None)
+def _handle(spec: FilterSpec, pnames: tuple) -> int:
+  _HANDLES.append((spec, pnames))
+  return len(_HANDLES) - 1
+
+
+def _handle_of(spec, params, x):
+  """(handle, params vector on x's device) of a card call."""
+  resolve_device(x.device)
+  pnames = smooth_scan.pnames_of(params)
+  return (_handle(spec, pnames),
+          smooth_scan._prm(params, pnames, x.dtype, x.device))
+
+
+def _refuse_grad(spec, values):
+  """The smoother's adjoint (gradients through kernels 11-14) is not
+  ported: raise, naming it, for an input that requires grad, a dual
+  tensor of forward-mode AD and under torch.func's transforms other than
+  vmap; never return a silently detached result."""
+  from torch._C._functorch import TransformType, get_interpreter_stack
+  from torch.autograd import forward_ad
+
+  tensors = [v for v in values if torch.is_tensor(v)]
+  keys = {i.key() for i in get_interpreter_stack() or ()}
+  if (keys - {TransformType.Vmap}
+      or (torch.is_grad_enabled() and any(v.requires_grad for v in tensors))
+      or any(forward_ad.unpack_dual(v).tangent is not None
+             for v in tensors)):
+    raise NotImplementedError(
+        f"RTS smoother of spec {spec.name!r} on the card: gradients through "
+        "kernels 11-14 need the smoother's adjoint, which is not ported; "
+        "smooth CPU tensors (the plain version, which autograd runs "
+        "through) or detach the inputs")
+
+
+@torch.library.custom_op("rednose::rts_smooth", mutates_args=())
+def _rts_smooth_op(x_pred: torch.Tensor, P_pred: torch.Tensor,
+                   x_post: torch.Tensor, P_post: torch.Tensor,
+                   dts: torch.Tensor, prm: torch.Tensor, handle: int,
+                   norm_quats: bool, reference_seed: bool) -> tuple[
+                       torch.Tensor, torch.Tensor]:
+  """Kernels 11 (gains) and 12 over B lanes: x_* (B, T, dim_x), P_* (B,
+  T, de, de), dts (B, T-1). Returns (x_smooth, P_smooth)."""
+  spec, pnames = _HANDLES[handle]
+  params = dict(zip(pnames, prm))
+  x_pred, P_pred, x_post, P_post, dts = (
+      a.contiguous() for a in (x_pred, P_pred, x_post, P_post, dts))
+  C = smooth_scan.smooth_gains(spec, params, x_pred, P_pred, x_post,
+                               P_post, dts, elements=False)
+  return smooth_scan.smooth_backward(spec, params, x_pred, P_pred, x_post,
+                                     P_post, C, norm_quats=norm_quats,
+                                     reference_seed=reference_seed)
+
+
+@torch.library.custom_op("rednose::rts_smooth_parallel", mutates_args=())
+def _rts_smooth_parallel_op(x_pred: torch.Tensor, P_pred: torch.Tensor,
+                            x_post: torch.Tensor, P_post: torch.Tensor,
+                            dts: torch.Tensor, prm: torch.Tensor,
+                            handle: int, norm_quats: bool,
+                            refine: int) -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
+  """Kernels 11, 13 and 14 over B lanes (rts_smooth_parallel's math):
+  the gains and elements, the suffix scan of (C, b, V), `refine` Newton
+  passes (kernel 11's refine variant, then kernel 13 on (A, b)), the
+  inject. Layouts as rednose::rts_smooth's."""
+  spec, pnames = _HANDLES[handle]
+  params = dict(zip(pnames, prm))
+  x_pred, P_pred, x_post, P_post, dts = (
+      a.contiguous() for a in (x_pred, P_pred, x_post, P_post, dts))
+  C, b, V = smooth_scan.smooth_gains(spec, params, x_pred, P_pred, x_post,
+                                     P_post, dts)
+  _, e, D = smooth_scan.affine_suffix_scan(C, b, V)
+  for _ in range(refine):
+    A_r, b_r = smooth_scan.smooth_gains(spec, params, x_pred, None, x_post,
+                                        None, None, C=C, e=e,
+                                        norm_quats=norm_quats)
+    _, e, _ = smooth_scan.affine_suffix_scan(A_r, b_r)
+  return smooth_scan.smooth_inject(spec, params, x_post, P_post, e, D,
+                                   norm_quats=norm_quats)
+
+
+def _smooth_vmap(op, info, in_dims, x_pred, P_pred, x_post, P_post, dts,
+                 prm, handle, norm_quats, flag):
+  """vmap of a smoother op: the vmapped logs' lanes side by side in one
+  call, so one launch of each kernel; batched params raise."""
+  if in_dims[5] is not None:
+    raise ValueError("the smoother on the card takes params shared by the "
+                     "vmapped logs: vmap the plain version for batched "
+                     "params")
+  n = info.batch_size
+
+  def lanes(a, d):
+    a = (a.movedim(d, 0) if d is not None
+         else a.unsqueeze(0).expand(n, *a.shape))
+    return a.flatten(0, 1)
+
+  out = op(*(lanes(a, d) for a, d in zip(
+      (x_pred, P_pred, x_post, P_post, dts), in_dims[:5])), prm, handle,
+      norm_quats, flag)
+  return tuple(a.unflatten(0, (n, -1)) for a in out), (0, 0)
+
+
+_rts_smooth_op.register_vmap(
+    functools.partial(_smooth_vmap, torch.ops.rednose.rts_smooth))
+_rts_smooth_parallel_op.register_vmap(
+    functools.partial(_smooth_vmap, torch.ops.rednose.rts_smooth_parallel))
+
+
+def _no_adjoint(ctx, *grads):
+  raise NotImplementedError(
+      "RTS smoother on the card: the smoother's adjoint (gradients through "
+      "kernels 11-14) is not ported; smooth CPU tensors for gradients")
+
+
+for _op in (_rts_smooth_op, _rts_smooth_parallel_op):
+  _op.register_autograd(_no_adjoint,
+                        setup_context=lambda ctx, inputs, output: None)
 
 
 def _as_tensor(a, dtype, device):

@@ -217,11 +217,12 @@ def emitted_ops(source: str) -> dict:
   """Arithmetic operations of each function of an emitted kernel source
   (ops/entry_slab.py, ops/adjoint.py): every SSA definition that is not a
   plain load of an input (x, P, dt, p, Q, z, ea, R; in an adjoint also the
-  incoming cotangents lx, GEN_L and the gate decision rej) is one
-  operation (a product, a sum, a compare, a select, a sqrt)."""
+  incoming cotangents lx, GEN_L and the gate decision rej; in the
+  smoother's functions xa, xb, dx, xp, xq and e) is one operation (a
+  product, a sum, a compare, a select, a sqrt)."""
   ops, name = {}, None
   load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[|lx\[|"
-                    r"GEN_L\(|rej;)")
+                    r"GEN_L\(|rej;|xa\[|xb\[|dx\[|xp\[|xq\[|e\[)")
   for line in source.splitlines():
     m = re.match(r"GEN_HD GEN_(?:INLINE|PHASE) void (\w+)\(", line)
     if m:

@@ -1,0 +1,663 @@
+"""Kernels 11-14, the offline RTS smoother on the card
+(rednose_tpu_torch/ops/smooth_scan.py: the gains, elements and refine
+elements, kernel 11; the sequential backward pass, kernel 12; the suffix
+scan of affine maps, kernel 13; the inject, kernel 14), and their route
+behind smoothing/rts.py.
+
+On the CPU each kernel's source is built with the host C++ compiler (the
+emitted mode "smooth" source of a spec around csrc/smooth.cuh, entries
+rn_smooth_*_host; csrc/affine_scan.cu for a size, rn_affine_scan_host):
+the kernels' own item, lane and block functions, one thread each. Held
+against the JAX package (rednose_tpu/smoothing/rts.py: rts_smooth,
+rts_smooth_parallel with refine 0 and 2, _smoother_gain,
+_suffix_scan_lane with and without V) on the same seeded inputs, for the
+live spec (a warm ECEF_POS / NO_ROT log through the port's plain scan),
+the kinematic spec (its POSITION log) and msckf_eskf (random stacks with
+four clones, which pass through): float64 within 1e-9 of each
+component's scale; float32 with its error against the float64 oracle at
+most 3x the plain float32 smoother's own, plus 1e-6.
+
+The card route (the custom ops rednose::rts_smooth and
+rednose::rts_smooth_parallel) runs here on CPU tensors with the
+launchers replaced by stand-ins that call the host builds and count: a
+vmapped bank and rts_smooth_parallel_bank are one launch of each kernel,
+and an input that requires grad, or torch.func.grad, raises, naming the
+smoother's adjoint.
+
+Card-only cases (marked cuda) hold each kernel against its plain version
+on the card, float32 and float64, and on 37 lanes. This file imports JAX
+only in a try (the card's machine has none): `python -m pytest
+tests/test_torch_smooth_kernels.py -m cuda --noconftest`."""
+
+import ctypes
+import functools
+import pathlib
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+from torch.func import vmap
+
+try:  # the card's machine has no JAX; only the cuda tests run there
+  import jax
+  import jax.numpy as jnp
+  from rednose_tpu.models.kinematic import KinematicKalman as JKinematic
+  from rednose_tpu.models.live import LiveKalman as JLive
+  from rednose_tpu.models.msckf_eskf import MSCKFEskf as JMSCKF
+  from rednose_tpu.smoothing import rts as jrts
+except ImportError:
+  jax = jnp = JKinematic = JLive = JMSCKF = jrts = None
+from rednose_tpu_torch.models.kinematic import (
+    KinematicKalman,
+    ObservationKind as KK,
+)
+from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+from rednose_tpu_torch.ops import smooth_scan
+from rednose_tpu_torch.runtime import scan
+from rednose_tpu_torch.smoothing import rts
+from torch_parity import cuda_device, host_compiler  # noqa: F401
+
+CSRC = pathlib.Path(rts.__file__).resolve().parents[1] / "csrc"
+FAMILIES = ("live", "kinematic", "msckf")
+TOL64 = 1e-9
+T_LOG, B_LOG = 12, 2
+# kernel 13's host chunk: small, so that the logs here take all three passes
+HOST_CHUNK = 4
+
+
+# ------------------------------------------------------------ the inputs
+
+def _scan_stacks(spec, kinds, Q, x0, P0, dts, ki, zs, Rs, keep):
+  """The plain scan's stacks of B lanes (float64), the last `keep` steps:
+  (x_pred, P_pred, x_post, P_post) each (B, keep, ...)."""
+  fn, _ = scan.build_scan_stream_reference(spec, kinds)
+  t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa
+  eas = torch.zeros((len(dts), 1), dtype=torch.float64)
+  _, st = vmap(lambda x, P, z: fn({}, x, P, t(Q), t(dts), ki, z, t(Rs), eas),
+               in_dims=(0, 0, 1))(t(x0), t(P0), t(zs))
+  return tuple(a[:, -keep:].numpy() for a in st)
+
+
+def _spd(rng, n, B, T, scale):
+  A = rng.randn(B, T, n, n)
+  return scale * (A @ np.swapaxes(A, -1, -2) / n + 0.5 * np.eye(n))
+
+
+@functools.lru_cache(maxsize=None)
+def family(name):
+  """(spec, JAX spec, stacks (x_pred, P_pred, x_post, P_post) each (B, T,
+  ...), dts (B, T - 1)), float64 numpy."""
+  if name == "live":
+    from test_torch_scan_stream_kernel import live_log
+
+    kinds = (K.ECEF_POS, K.NO_ROT)
+    x0, P0, dts, ki, zs, Rs, _ = live_log(kinds, 64, B_LOG, 11)
+    stacks = _scan_stacks(LiveKalman.build_spec(), kinds, LiveKalman.Q, x0,
+                          P0, dts, ki, zs, Rs, T_LOG)
+    return (LiveKalman.build_spec(), JLive.build_spec() if JLive else None,
+            stacks, np.tile(dts[-T_LOG + 1:], (B_LOG, 1)))
+  if name == "kinematic":
+    rng = np.random.RandomState(4)
+    T0 = 48
+    dts = 0.005 + 0.01 * rng.rand(T0)
+    x0 = np.tile(KinematicKalman.initial_x, (B_LOG, 1))
+    P0 = np.tile(np.diag(KinematicKalman.initial_P_diag), (B_LOG, 1, 1))
+    stacks = _scan_stacks(
+        KinematicKalman.build_spec(), (KK.POSITION,), KinematicKalman.Q, x0,
+        P0, dts, np.zeros(T0, np.int32), 0.3 * rng.randn(T0, B_LOG, 1),
+        np.tile(KinematicKalman.obs_noise[KK.POSITION], (T0, 1, 1)), T_LOG)
+    return (KinematicKalman.build_spec(),
+            JKinematic.build_spec() if JKinematic else None, stacks,
+            np.tile(dts[-T_LOG + 1:], (B_LOG, 1)))
+  # msckf_eskf: random stacks around its x0, four clones
+  spec = MSCKFEskf.build_spec()
+  rng = np.random.RandomState(7)
+  T, B, dx, de = T_LOG, B_LOG, spec.dim_x, spec.dim_err
+  x0 = np.asarray(MSCKFEskf.initial_x, np.float64)
+  xs = []
+  for _ in range(2):
+    x = x0 + 0.1 * rng.randn(B, T, dx)
+    for q in spec.quaternion_idxs:
+      x[..., q:q + 4] /= np.linalg.norm(x[..., q:q + 4], axis=-1,
+                                        keepdims=True)
+    xs.append(x)
+  P_post = _spd(rng, de, B, T, 0.01)
+  P_pred = P_post + _spd(rng, de, B, T, 0.005)
+  return (spec, JMSCKF.build_spec() if JMSCKF else None,
+          (xs[0], P_pred, xs[1], P_post), 0.01 + 0.01 * rng.rand(B, T - 1))
+
+
+def _t(a, dtype=torch.float64):
+  return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+
+
+def _ts(dts):
+  """Timestamps whose differences are dts (B, T - 1): (B, T)."""
+  return np.concatenate([np.zeros((dts.shape[0], 1)),
+                         np.cumsum(dts, axis=1)], axis=1)
+
+
+# ------------------------------------------------------- the host builds
+
+_LIBS = {}
+_HOST_ENTRIES = {
+    "rn_smooth_gains_host": (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 3,
+    "rn_smooth_refine_host": (ctypes.c_void_p,) * 4 + (ctypes.c_int,)
+                             + (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4,
+    "rn_smooth_backward_host": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5,
+    "rn_smooth_inject_host": (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5,
+    "rn_affine_scan_host": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4,
+}
+
+
+def _compile(source):
+  d = pathlib.Path(tempfile.mkdtemp(prefix="rn_smooth_host_"))
+  (d / "gen.cu").write_text(source)
+  proc = subprocess.run(
+      [host_compiler(), "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
+       "-I", str(CSRC), "-o", str(d / "lib.so"), str(d / "gen.cu")],
+      capture_output=True, text=True)
+  assert proc.returncode == 0, proc.stderr[-4000:]
+  lib = ctypes.CDLL(str(d / "lib.so"))
+  for name, argtypes in _HOST_ENTRIES.items():
+    fn = getattr(lib, name, None)
+    if fn is not None:
+      fn.argtypes = list(argtypes)
+      fn.restype = ctypes.c_int
+  return lib
+
+
+def host_lib(source):
+  """The host build of a smoother source (every family's at once, in
+  parallel, at the first call)."""
+  if host_compiler() is None:
+    pytest.skip("no host C++ compiler (g++ / c++) on PATH to build the "
+                "smoother's kernels")
+  if not _LIBS:
+    specs = [family(f)[0] for f in FAMILIES]
+    srcs = [smooth_scan.smooth_source(s, ()) for s in specs] + [
+        smooth_scan.affine_source(s.dim_main_err) for s in specs]
+    with ThreadPoolExecutor(len(srcs)) as pool:
+      _LIBS.update(zip(srcs, pool.map(_compile, srcs)))
+  if source not in _LIBS:
+    _LIBS[source] = _compile(source)
+  return _LIBS[source]
+
+
+def _p(t):
+  return None if t is None else t.data_ptr()
+
+
+class Host:
+  """The four launchers on CPU tensors through the host builds, in the
+  launchers' signatures, counting their calls."""
+
+  def __init__(self):
+    self.counts = dict.fromkeys(("smooth_gains", "smooth_backward",
+                                 "affine_suffix_scan", "smooth_inject"), 0)
+    self.lanes = []
+
+  def _lib(self, spec, params):
+    return host_lib(smooth_scan.smooth_source(
+        spec, smooth_scan.pnames_of(params)))
+
+  def _prm(self, params, x):
+    return smooth_scan._prm(params, smooth_scan.pnames_of(params), x.dtype,
+                            x.device)
+
+  def smooth_gains(self, spec, params, x_pred, P_pred, x_post, P_post, dts,
+                   *, elements=True, C=None, e=None, norm_quats=False):
+    self.counts["smooth_gains"] += 1
+    B, T = x_post.shape[:2]
+    self.lanes.append(B)
+    n, d2, dbl = T - 1, spec.dim_main_err, x_post.dtype == torch.float64
+    lib, prm = self._lib(spec, params), self._prm(params, x_post)
+    new = x_post.new_zeros
+    if C is None:
+      out = (new((B, n, d2, d2)), new((B, n, d2)), new((B, n, d2, d2)))
+      out = out if elements else out[:1]
+      assert lib.rn_smooth_gains_host(
+          _p(x_pred), _p(P_pred), _p(x_post), _p(P_post), _p(dts), _p(prm),
+          *(_p(a) for a in (out + (None, None))[:3]), B, T, dbl) == 0
+      return out if elements else out[0]
+    A, b = new((B, n, d2, d2)), new((B, n, d2))
+    assert lib.rn_smooth_refine_host(
+        _p(x_pred), _p(x_post), _p(C), _p(e), e.shape[1], _p(prm), _p(A),
+        _p(b), B, T, bool(norm_quats), dbl) == 0
+    return A, b
+
+  def smooth_backward(self, spec, params, x_pred, P_pred, x_post, P_post, C,
+                      *, norm_quats=False, reference_seed=False):
+    self.counts["smooth_backward"] += 1
+    B, T = x_post.shape[:2]
+    self.lanes.append(B)
+    xs, Ps = torch.zeros_like(x_post), torch.zeros_like(P_post)
+    assert self._lib(spec, params).rn_smooth_backward_host(
+        _p(x_pred), _p(P_pred), _p(x_post), _p(P_post), _p(C),
+        _p(self._prm(params, x_post)), _p(xs), _p(Ps), B, T,
+        bool(norm_quats), bool(reference_seed),
+        x_post.dtype == torch.float64) == 0
+    return xs, Ps
+
+  def affine_suffix_scan(self, A, b, V=None, *, want_A=False,
+                         chunk=HOST_CHUNK):
+    self.counts["affine_suffix_scan"] += 1
+    N, n, d = A.shape[:3]
+    self.lanes.append(N)
+    new = A.new_zeros
+    Ao = new((N, n, d, d)) if want_A else None
+    bo, Vo = new((N, n, d)), None if V is None else new((N, n, d, d))
+    nc = -(-n // chunk)
+    tot, excl = new((N, nc, 2 * d * d + d)), new((N, nc, 2 * d * d + d))
+    assert host_lib(smooth_scan.affine_source(d)).rn_affine_scan_host(
+        _p(A), _p(b), _p(V), _p(Ao), _p(bo), _p(Vo), _p(tot), _p(excl), N,
+        n, chunk, A.dtype == torch.float64) == 0
+    return Ao, bo, Vo
+
+  def smooth_inject(self, spec, params, x_post, P_post, e, D, *,
+                    norm_quats=False):
+    self.counts["smooth_inject"] += 1
+    B, T = x_post.shape[:2]
+    self.lanes.append(B)
+    xs, Ps = torch.zeros_like(x_post), torch.zeros_like(P_post)
+    assert self._lib(spec, params).rn_smooth_inject_host(
+        _p(x_post), _p(P_post), _p(e), _p(D),
+        _p(self._prm(params, x_post)), _p(xs), _p(Ps), B, T, e.shape[1],
+        bool(norm_quats), x_post.dtype == torch.float64) == 0
+    return xs, Ps
+
+
+def _route(monkeypatch):
+  """The card route's launchers replaced by the host builds: returns the
+  Host whose counts they keep."""
+  host = Host()
+  for name in host.counts:
+    monkeypatch.setattr(smooth_scan, name, getattr(host, name))
+  return host
+
+
+def host_sequential(name, dtype=torch.float64, reference_seed=False):
+  """Kernels 11 and 12 (host builds) on the family's stacks."""
+  spec, _, st, dts = family(name)
+  h = Host()
+  a = [_t(s, dtype) for s in st]
+  C = h.smooth_gains(spec, {}, *a, _t(dts, dtype), elements=False)
+  return h.smooth_backward(spec, {}, *a, C, norm_quats=True,
+                           reference_seed=reference_seed)
+
+
+def host_parallel(name, refine, dtype=torch.float64):
+  """Kernels 11, 13 and 14 (host builds) on the family's stacks, with
+  `refine` Newton passes."""
+  spec, _, st, dts = family(name)
+  h = Host()
+  xp, Pp, xq, Pq = (_t(s, dtype) for s in st)
+  C, b, V = h.smooth_gains(spec, {}, xp, Pp, xq, Pq, _t(dts, dtype))
+  _, e, D = h.affine_suffix_scan(C, b, V)
+  for _ in range(refine):
+    A, br = h.smooth_gains(spec, {}, xp, None, xq, None, None, C=C, e=e,
+                           norm_quats=True)
+    _, e, _ = h.affine_suffix_scan(A, br)
+  return h.smooth_inject(spec, {}, xq, Pq, e, D, norm_quats=True)
+
+
+# ------------------------------------------------------------ the JAX side
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX (the oracle)")
+
+
+def jax_smooth(name, parallel, refine=0, reference_seed=False):
+  """JAX's rts_smooth / rts_smooth_parallel, float64, jitted and vmapped
+  over the lanes (each once)."""
+  return _jax_smooth(name, parallel, refine, reference_seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_smooth(name, parallel, refine, reference_seed):
+  _, jspec, st, dts = family(name)
+  if parallel:
+    def one(xp, Pp, xq, Pq, t, d):
+      return jrts.rts_smooth_parallel(jspec, {}, xp, Pp, xq, Pq, t,
+                                      norm_quats=True, dts=d, refine=refine)
+  else:
+    def one(xp, Pp, xq, Pq, t, d):
+      return jrts.rts_smooth(jspec, {}, xp, Pp, xq, Pq, t, norm_quats=True,
+                             dts=d, reference_seed=reference_seed)
+  x, P = jax.jit(jax.vmap(one))(*(jnp.asarray(a) for a in (
+      *st, _ts(dts), dts)))
+  return np.asarray(x), np.asarray(P)
+
+
+def scaled_err(a, b):
+  """max |a - b| over each component's scale (its largest |b| over time,
+  at least 1), over the lanes."""
+  a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+  scale = np.maximum(np.abs(b).max(axis=-2, keepdims=True), 1.0)
+  return float((np.abs(a - b) / scale).max())
+
+
+def cov_err(a, b):
+  a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+  return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_x64():
+  if jax is None:
+    yield
+    return
+  prev = jax.config.read("jax_enable_x64")
+  jax.config.update("jax_enable_x64", True)
+  yield
+  jax.config.update("jax_enable_x64", prev)
+
+
+# ------------------------------------------------------------------ tests
+
+@needs_jax
+@pytest.mark.parametrize("name", FAMILIES)
+def test_gains_and_elements_match_jax(name):
+  """Kernel 11 (host build): the gains against JAX's _smoother_gain and
+  the elements b = C u, V = C dP C^T formed from them in JAX, float64,
+  within TOL64 of each one's largest entry."""
+  spec, jspec, st, dts = family(name)
+  xp, Pp, xq, Pq = st
+  d2 = spec.dim_main_err
+  C, b, V = (a.numpy() for a in Host().smooth_gains(
+      spec, {}, *(_t(s) for s in st), _t(dts)))
+  gain = jax.jit(jax.vmap(jax.vmap(lambda x, P, P1, dt: jrts._smoother_gain(
+      jspec, {}, x, P, P1, dt))))
+  Cj = np.asarray(gain(xq[:, :-1], Pq[:, :-1], Pp[:, 1:], dts))
+  u = np.asarray(jax.jit(jax.vmap(jax.vmap(
+      lambda a, c: jspec.inv_err({}, a, c))))(xp[:, 1:], xq[:, 1:]))[..., :d2]
+  dP = Pq[:, 1:, :d2, :d2] - Pp[:, 1:, :d2, :d2]
+  bj = np.einsum("btij,btj->bti", Cj, u)
+  Vj = Cj @ dP @ np.swapaxes(Cj, -1, -2)
+  for got, want in ((C, Cj), (b, bj), (V, Vj)):
+    assert cov_err(got, want) <= TOL64
+
+
+@needs_jax
+@pytest.mark.parametrize("reference_seed", [False, True])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_sequential_matches_jax(name, reference_seed):
+  """Kernels 11 and 12 (host builds) against JAX's rts_smooth, float64,
+  norm_quats: states within TOL64 of each component's scale, covariances
+  of the largest entry; msckf_eskf's clone slots pass through bitwise."""
+  xs, Ps = host_sequential(name, reference_seed=reference_seed)
+  xj, Pj = jax_smooth(name, False, reference_seed=reference_seed)
+  assert scaled_err(xs.numpy(), xj) <= TOL64
+  assert cov_err(Ps.numpy(), Pj) <= TOL64
+  spec, _, st, _ = family(name)
+  d1 = spec.dim_main
+  if d1 < spec.dim_x and not reference_seed:
+    clones = [q for q in spec.quaternion_idxs if q >= d1]
+    keep = [i for i in range(d1, spec.dim_x)
+            if not any(q <= i < q + 4 for q in clones)]
+    np.testing.assert_array_equal(xs.numpy()[..., keep], st[2][..., keep])
+
+
+@needs_jax
+@pytest.mark.parametrize("name,refine", [("live", 0), ("live", 2),
+                                         ("kinematic", 0), ("kinematic", 2),
+                                         ("msckf", 0)])
+def test_parallel_matches_jax(name, refine):
+  """Kernels 11, 13 and 14, with refine Newton passes through kernel 11's
+  refine variant and kernel 13 (host builds, kernel 13 in chunks of
+  HOST_CHUNK), against JAX's rts_smooth_parallel, float64, norm_quats,
+  within TOL64."""
+  xs, Ps = host_parallel(name, refine)
+  xj, Pj = jax_smooth(name, True, refine=refine)
+  assert scaled_err(xs.numpy(), xj) <= TOL64
+  assert cov_err(Ps.numpy(), Pj) <= TOL64
+
+
+def test_parallel_refine_matches_plain_msckf():
+  """msckf_eskf's refine passes (host builds) against the port's plain
+  rts_smooth_parallel_reference with refine = 2, float64, within TOL64
+  (JAX's side of the refine variant: test_parallel_matches_jax)."""
+  spec, _, st, dts = family("msckf")
+  xs, Ps = host_parallel("msckf", 2)
+  ts = _t(_ts(dts))
+  for i in range(B_LOG):
+    xr, Pr = rts.rts_smooth_parallel_reference(
+        spec, {}, *(_t(s[i]) for s in st), ts[i], norm_quats=True,
+        dts=_t(dts[i]), refine=2)
+    assert scaled_err(xs[i].numpy(), xr.numpy()) <= TOL64
+    assert cov_err(Ps[i].numpy(), Pr.numpy()) <= TOL64
+
+
+@needs_jax
+@pytest.mark.parametrize("want_A", [False, True])
+@pytest.mark.parametrize("with_V", [True, False])
+def test_suffix_scan_matches_jax(with_V, want_A):
+  """Kernel 13 (host build, chunks of HOST_CHUNK: all three passes, a
+  ragged last chunk) against JAX's _suffix_scan_lane (jitted, vmapped over
+  the lanes) on 3 lanes of 37 random contracting 6 x 6 elements, float64:
+  out b, V and A within TOL64 of each one's largest entry."""
+  (A, b, V), out = _scan_case(with_V)
+  Ao, bo, Vo = Host().affine_suffix_scan(_t(A), _t(b),
+                                         None if V is None else _t(V),
+                                         want_A=want_A)
+  assert cov_err(bo.numpy(), out[1][..., 0]) <= TOL64
+  if with_V:
+    assert cov_err(Vo.numpy(), out[2]) <= TOL64
+  if want_A:
+    assert cov_err(Ao.numpy(), out[0]) <= TOL64
+  else:
+    assert Ao is None
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_case(with_V):
+  """Random elements (A, b, V or None), each (3, 37, ...), and JAX's
+  suffix scan of them in the same layout."""
+  rng = np.random.RandomState(5)
+  N, n, d = 3, 37, 6
+  A = 0.9 * rng.randn(N, n, d, d) / np.sqrt(d)
+  b = rng.randn(N, n, d)
+  V = _spd(rng, d, N, n, 1.0) if with_V else None
+  lm = lambda a: jnp.moveaxis(a, 1, -1)  # noqa: E731
+  elems = (lm(A), lm(b[:, :, :, None])) + (() if V is None else (lm(V),))
+  out = jax.jit(jax.vmap(jrts._suffix_scan_lane))(*elems)
+  return (A, b, V), [np.moveaxis(np.asarray(a), -1, 1) for a in out]
+
+
+def test_suffix_scan_matches_plain_doubling_scan():
+  """Kernel 13 (host build) against its plain version
+  (affine_suffix_scan_reference, the port's doubling scan) on the same
+  elements, with V and A, float64 within TOL64: one chunk and three."""
+  rng = np.random.RandomState(6)
+  N, d = 2, 5
+  for n in (5, 23):
+    A = _t(0.9 * rng.randn(N, n, d, d) / np.sqrt(d))
+    b, V = _t(rng.randn(N, n, d)), _t(_spd(rng, d, N, n, 1.0))
+    got = Host().affine_suffix_scan(A, b, V, want_A=True)
+    want = smooth_scan.affine_suffix_scan_reference(A, b, V, want_A=True)
+    for g, w in zip(got, want):
+      assert cov_err(g.numpy(), w.numpy()) <= TOL64
+
+
+@needs_jax
+@pytest.mark.parametrize("name", ("live", "kinematic"))
+def test_float32_within_the_plain_smoothers_error(name):
+  """Float32: the host builds' sequential and one-shot parallel smoothers
+  against the float64 oracle (JAX's float64 smoother) at most 3x the
+  plain float32 smoother's own error (the port's plain versions in
+  float32) + 1e-6, in each component's scale."""
+  spec, _, st, dts = family(name)
+  ts32 = _t(_ts(dts), torch.float32)
+  a32 = [_t(s, torch.float32) for s in st]
+  for parallel in (False, True):
+    oracle, _ = jax_smooth(name, parallel)
+    if parallel:
+      got, _ = host_parallel(name, 0, torch.float32)
+      plain = [rts.rts_smooth_parallel_reference(
+          spec, {}, *(a[i] for a in a32), ts32[i], norm_quats=True,
+          dts=_t(dts[i], torch.float32))[0] for i in range(B_LOG)]
+    else:
+      got, _ = host_sequential(name, torch.float32)
+      plain = [rts.rts_smooth_reference(
+          spec, {}, *(a[i] for a in a32), ts32[i], norm_quats=True,
+          dts=_t(dts[i], torch.float32))[0] for i in range(B_LOG)]
+    err_plain = scaled_err(torch.stack(plain).numpy(), oracle)
+    err = scaled_err(got.numpy(), oracle)
+    assert err <= 3.0 * err_plain + 1e-6, (parallel, err, err_plain)
+
+
+def test_emitted_functions_match_the_spec():
+  """The emitted functions one by one (kernel 14 with e = 0 copies
+  nothing but re-injects; kernel 11's refine variant at e = 0 on an
+  additive spec is C itself): msckf_eskf's inject of a random
+  correction against the spec's err, clones kept, float64 within 1e-12
+  of each component's scale."""
+  spec, _, st, dts = family("msckf")
+  xq, Pq = _t(st[2]), _t(st[3])
+  rng = np.random.RandomState(9)
+  B, T, d2 = xq.shape[0], xq.shape[1], spec.dim_main_err
+  e = _t(0.01 * rng.randn(B, T - 1, d2))
+  D = _t(_spd(rng, d2, B, T - 1, 0.001))
+  xs, Ps = Host().smooth_inject(spec, {}, xq, Pq, e, D, norm_quats=True)
+  xr, Pr = smooth_scan.smooth_inject_reference(spec, {}, xq, Pq, e, D,
+                                               norm_quats=True)
+  assert scaled_err(xs.numpy(), xr.numpy()) <= 1e-12
+  assert cov_err(Ps.numpy(), Pr.numpy()) <= 1e-12
+  np.testing.assert_array_equal(xs[:, -1].numpy(), xq[:, -1].numpy())
+  np.testing.assert_array_equal(Ps[:, -1].numpy(), Pq[:, -1].numpy())
+  np.testing.assert_array_equal(Ps.numpy(), np.swapaxes(Ps.numpy(), -1, -2))
+  kspec, _, kst, kdts = family("kinematic")
+  a = [_t(s) for s in kst]
+  h = Host()
+  C = h.smooth_gains(kspec, {}, *a, _t(kdts), elements=False)
+  A, b = h.smooth_gains(kspec, {}, a[0], None, a[2], None, None, C=C,
+                        e=torch.zeros(B, 1, kspec.dim_main_err))
+  assert cov_err(A.numpy(), C.numpy()) <= 1e-12
+
+
+def test_card_route_is_one_launch_of_each_kernel(monkeypatch):
+  """The card route on CPU tensors (the launchers replaced by the host
+  builds): torch.func.vmap of rts_smooth's card route over a bank of
+  B_LOG logs is one launch of kernels 11 and 12; rts_smooth_parallel_bank's
+  one of kernels 11, 13 and 14, and with refine = 2 three of 11 and 13,
+  whatever T; each equals the plain version lane by lane (float64, within
+  TOL64)."""
+  host = _route(monkeypatch)
+  spec, _, st, dts = family("live")
+  a = [_t(s) for s in st]
+  t = _t(_ts(dts))
+  d = _t(dts)
+  xs, Ps = vmap(lambda xp, Pp, xq, Pq, tt, dd: rts._card_rts_smooth(
+      spec, {}, xp, Pp, xq, Pq, tt, True, dd, False))(*a, t, d)
+  assert host.counts == {"smooth_gains": 1, "smooth_backward": 1,
+                         "affine_suffix_scan": 0, "smooth_inject": 0}
+  assert host.lanes == [B_LOG, B_LOG]
+  for i in range(B_LOG):
+    xr, Pr = rts.rts_smooth_reference(spec, {}, *(v[i] for v in a), t[i],
+                                      norm_quats=True, dts=d[i])
+    assert scaled_err(xs[i].numpy(), xr.numpy()) <= TOL64
+    assert cov_err(Ps[i].numpy(), Pr.numpy()) <= TOL64
+  for refine, n in ((0, 1), (2, 3)):
+    for k in host.counts:
+      host.counts[k] = 0
+    xs, Ps = rts._card_rts_smooth_parallel(spec, {}, *a, d, True, refine)
+    assert host.counts == {"smooth_gains": n, "smooth_backward": 0,
+                           "affine_suffix_scan": n, "smooth_inject": 1}
+    for i in range(B_LOG):
+      xr, Pr = rts.rts_smooth_parallel_reference(
+          spec, {}, *(v[i] for v in a), t[i], norm_quats=True, dts=d[i],
+          refine=refine)
+      assert scaled_err(xs[i].numpy(), xr.numpy()) <= TOL64
+      assert cov_err(Ps[i].numpy(), Pr.numpy()) <= TOL64
+
+
+def test_card_route_refuses_gradients(monkeypatch):
+  """The card route raises, naming the smoother's adjoint, on an input
+  that requires grad and under torch.func.grad, and launches nothing."""
+  host = _route(monkeypatch)
+  spec, _, st, dts = family("kinematic")
+  a = [_t(s)[0] for s in st]
+  t, d = _t(_ts(dts))[0], _t(dts)[0]
+  xq = a[2].clone().requires_grad_()
+  with pytest.raises(NotImplementedError, match="adjoint"):
+    rts._card_rts_smooth(spec, {}, a[0], a[1], xq, a[3], t, False, d, False)
+  with pytest.raises(NotImplementedError, match="adjoint"):
+    rts._card_rts_smooth_parallel(spec, {}, a[0][None], a[1][None],
+                                  xq[None], a[3][None], d[None], False, 0)
+  with pytest.raises(NotImplementedError, match="adjoint"):
+    torch.func.grad(lambda x: rts._card_rts_smooth(
+        spec, {}, a[0], a[1], x, a[3], t, False, d, False)[0].sum())(a[2])
+  assert not any(host.counts.values())
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+  """On CPU tensors the public entry points run the plain versions and no
+  launcher: rts_smooth's and rts_smooth_parallel's .launches count them."""
+  host = _route(monkeypatch)
+  spec, _, st, dts = family("kinematic")
+  a = [_t(s)[0] for s in st]
+  t = _t(_ts(dts))[0]
+  n_seq = rts.rts_smooth_reference.launches
+  n_par = rts.rts_smooth_parallel_reference.launches
+  rts.rts_smooth(spec, {}, *a, t)
+  rts.rts_smooth_parallel(spec, {}, *a, t)
+  assert rts.rts_smooth_reference.launches == n_seq + 1
+  assert rts.rts_smooth_parallel_reference.launches == n_par + 1
+  assert not any(host.counts.values())
+
+
+# -------------------------------------------------------- card-only cases
+
+def _card_case(name, dtype, lanes, dev):
+  spec, _, st, dts = family(name)
+  reps = -(-lanes // st[0].shape[0])
+  cat = lambda s: np.concatenate([s] * reps)[:lanes]  # noqa: E731
+  return spec, [_t(cat(s), dtype).to(dev) for s in st], \
+      _t(cat(dts), dtype).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_kernels_on_card_match_plain(cuda_device, name, dtype, lanes):
+  """Kernels 11 (gains, elements, refine), 12, 13 and 14 on the card
+  against their plain versions on the same card inputs: float64 within
+  TOL64, float32 within 1e-3 of each output's largest entry (gains of
+  conditioned covariances; the plain versions solve by the same
+  Cholesky)."""
+  spec, a, d = _card_case(name, dtype, lanes, cuda_device)
+  tol = TOL64 if dtype == torch.float64 else 1e-3
+  ss = smooth_scan
+  n0 = {w: getattr(ss, w).launches for w in (
+      "smooth_gains", "smooth_backward", "affine_suffix_scan",
+      "smooth_inject")}
+  C, b, V = ss.smooth_gains(spec, {}, *a, d)
+  Cr, br, Vr = ss.smooth_gains_reference(spec, {}, *a, d)
+  for g, w in ((C, Cr), (b, br), (V, Vr)):
+    assert cov_err(g.cpu(), w.cpu()) <= tol
+  xs, Ps = ss.smooth_backward(spec, {}, *a, C, norm_quats=True)
+  xr, Pr = ss.smooth_backward_reference(spec, {}, *a, C, norm_quats=True)
+  assert scaled_err(xs.cpu(), xr.cpu()) <= tol
+  assert cov_err(Ps.cpu(), Pr.cpu()) <= tol
+  _, e, D = ss.affine_suffix_scan(C, b, V)
+  _, er, Dr = ss.affine_suffix_scan_reference(C, b, V)
+  assert cov_err(e.cpu(), er.cpu()) <= tol
+  assert cov_err(D.cpu(), Dr.cpu()) <= tol
+  A, br2 = ss.smooth_gains(spec, {}, a[0], None, a[2], None, None, C=C,
+                           e=e, norm_quats=True)
+  Ar, br2r = ss.smooth_gains_reference(spec, {}, a[0], None, a[2], None,
+                                       None, C=C, e=e, norm_quats=True)
+  assert cov_err(A.cpu(), Ar.cpu()) <= tol
+  assert cov_err(br2.cpu(), br2r.cpu()) <= tol
+  xs, Ps = ss.smooth_inject(spec, {}, a[2], a[3], e, D, norm_quats=True)
+  xr, Pr = ss.smooth_inject_reference(spec, {}, a[2], a[3], e, D,
+                                      norm_quats=True)
+  assert scaled_err(xs.cpu(), xr.cpu()) <= tol
+  assert cov_err(Ps.cpu(), Pr.cpu()) <= tol
+  assert {w: getattr(ss, w).launches - n for w, n in n0.items()} == {
+      "smooth_gains": 2, "smooth_backward": 1, "affine_suffix_scan": 1,
+      "smooth_inject": 1}
