@@ -213,7 +213,11 @@ them). Then:
      (A, b) scan on the cold T = 600 log in float64; each timed wrapped
      and raw with CUDA events, with its launch shape, its plain version's
      time and its bound, and kernel 11's solve beside
-     torch.linalg.cholesky + torch.cholesky_solve.
+     torch.linalg.cholesky + torch.cholesky_solve; kernels 11 and 12 also
+     raw in float64 (bitwise their wrapped runs), with their designs
+     (smooth_info, ptxas) beside their first design's raw times, and
+     kernel 12's chain floor reckoned from its code (a note beside its
+     bound).
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -3842,6 +3846,40 @@ SMOOTH_REPLACES = {
 }
 
 
+# the raw times of kernels 11 and 12's first design at the offline
+# path's shapes (float32, H100 80GB HBM3, 700 W; PERF.md)
+FIRST_DESIGN_RAW = {"smooth_gains": 9.4266, "smooth_backward": 31.7297}
+# kernel 12's chain floor (a note): the latency of a dependent float32 FMA
+# and of a named barrier among the covariance warps, in SM cycles
+FMA_CYCLES, BARRIER_CYCLES = 4, 20
+
+
+def sm_clock_mhz():
+  """The card's largest SM clock (nvidia-smi), MHz."""
+  out = subprocess.run(
+      ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+       "nounits"], capture_output=True, text=True, check=True)
+  return float(out.stdout.strip().splitlines()[0])
+
+
+def smooth_design(info):
+  """One line of a smoother kernel's smooth_info entry."""
+  return ", ".join(f"{k} {v}" for k, v in info.items())
+
+
+def kernel_ptxas(report, kernel):
+  """The ptxas -v lines (registers, stack, spills) of the entry functions
+  whose names hold `kernel`."""
+  lines, keep = [], False
+  for line in report.splitlines():
+    if "Compiling entry function" in line:
+      keep = kernel in line
+    elif keep and ("registers" in line or "spill" in line
+                   or "stack" in line):
+      lines.append(line.split("info    :")[-1].strip())
+  return lines
+
+
 def rel_err(a, ref):
   """max |a - ref| over ref's largest |entry| (float64)."""
   return float((a.double() - ref).abs().max() / ref.abs().max())
@@ -3916,6 +3954,7 @@ def compare_smoother(torch, dev, gen, reps=5):
   prm = {dt: torch.zeros(1, dtype=dt, device=dev) for dt in st}
   checks, rows = [], []
   card = card_line()
+  ptxas = _build.generated_ptxas(src)
   for dt in (f32, f64):
     for kern, info in ss.smooth_info(spec, (), dt).items():
       log(f"  smoother kernel {kern}, {str(dt).split('.')[-1]}: {info}")
@@ -3936,10 +3975,11 @@ def compare_smoother(torch, dev, gen, reps=5):
                 library_ms=library_ms)
 
   # kernel 11: gains and elements of every lane
-  k11, p11 = {}, {}
+  k11, p11, wrapped = {}, {}, {}
   for dt in (f32, f64):
     args = (spec, {}, *st[dt], dts[dt])
     ms, k11[dt] = timed_run(lambda: ss.smooth_gains(*args), reps)
+    wrapped[11, dt] = ms
     plain_ms, p11[dt] = timed_run(lambda: ss.smooth_gains_reference(*args),
                                   1)
     if dt == f32:
@@ -3949,6 +3989,20 @@ def compare_smoother(torch, dev, gen, reps=5):
       *(a.data_ptr() for a in (*st[f32], dts[f32], prm[f32], C, b, V)), B,
       T, 0, stream)
   raw11, _ = timed_run(raw, reps)
+  C64, b64, V64 = (torch.empty_like(a) for a in k11[f64])
+  raw11_64, _ = timed_run(lambda: lib.rn_smooth_gains_launch(
+      *(a.data_ptr() for a in (*st[f64], dts[f64], prm[f64], C64, b64,
+                               V64)), B, T, 1, stream), reps)
+  same = all(torch.equal(a, r) for a, r in zip((C64, b64, V64), k11[f64]))
+  checks.append(("smooth_gains raw float64 launch bitwise the wrapped",
+                 same))
+  log(f"smooth_gains (kernel 11) [B={B} T={T}]: raw {raw11:.4f} ms float32, "
+      f"{raw11_64:.4f} ms float64 [first design: "
+      f"{FIRST_DESIGN_RAW['smooth_gains']} ms "
+      f"float32]; wrapped {wrapped[11, f32]:.4f} / {wrapped[11, f64]:.4f} "
+      f"ms; design {smooth_design(ss.smooth_info(spec, (), f32)['gains'])}"
+      f"; ptxas {kernel_ptxas(ptxas, 'gains_kernel')}")
+  del C64, b64, V64
   # the solve alone through torch.linalg, on the same systems
   Pk1 = st[f32][1][:, 1:].reshape(N, d2, d2).contiguous()
   rhs = torch.randn((N, d2, d2), generator=gen, device=dev)
@@ -3963,7 +4017,8 @@ def compare_smoother(torch, dev, gen, reps=5):
   fma = 4 * d2**3 + d2**3 / 6 + d2**2
   rows.append(row("smooth_gains", f"B={B} T={T} gains and elements", ms11,
                   raw11, plain11, io_bytes([st[f32], dts[f32], k11[f32]], 4),
-                  N * (2 * fma + ops["gen_sm_F"] + ops["gen_sm_inv_err"]),
+                  N * (2 * fma + ops["gen_sm_F_part"]
+                       + ops["gen_sm_inv_err"]),
                   worst))
 
   # kernel 13: the suffix scan of kernel 11's elements (each type's own)
@@ -4048,6 +4103,7 @@ def compare_smoother(torch, dev, gen, reps=5):
     args = (spec, {}, *lane, Cl)
     ms, k12[dt] = timed_run(lambda: ss.smooth_backward(
         *args, norm_quats=True), reps)
+    wrapped[12, dt] = ms
     plain_ms, p12[dt] = timed_run(lambda: ss.smooth_backward_reference(
         *args, norm_quats=True), 1)
     if dt == f32:
@@ -4057,6 +4113,30 @@ def compare_smoother(torch, dev, gen, reps=5):
       *(a.data_ptr() for a in (*lane32, C32, prm[f32], xs1, Ps1)), 1, T, 1,
       0, 0, stream)
   raw12, _ = timed_run(raw, reps)
+  lane64 = [a[:1].contiguous() for a in st[f64]]
+  C64 = k11[f64][0][:1].contiguous()
+  xs64, Ps64 = (torch.empty_like(a) for a in k12[f64])
+  raw12_64, _ = timed_run(lambda: lib.rn_smooth_backward_launch(
+      *(a.data_ptr() for a in (*lane64, C64, prm[f64], xs64, Ps64)), 1, T, 1,
+      0, 1, stream), reps)
+  checks.append(("smooth_backward raw float64 launch bitwise the wrapped",
+                 torch.equal(xs64, k12[f64][0])
+                 and torch.equal(Ps64, k12[f64][1])))
+  info12 = ss.smooth_info(spec, (), f32)["backward"]
+  floor_cyc = 2 * d2 * FMA_CYCLES + 2 * BARRIER_CYCLES
+  clock = sm_clock_mhz()
+  floor_ms = n * floor_cyc / (clock * 1e3)
+  log(f"smooth_backward (kernel 12) [B=1 T={T}]: raw {raw12:.4f} ms float32 "
+      f"({raw12 / n * 1e3:.4f} us a step), {raw12_64:.4f} ms float64 [first "
+      f"design: {FIRST_DESIGN_RAW['smooth_backward']} ms float32]; wrapped "
+      f"{wrapped[12, f32]:.4f} / {wrapped[12, f64]:.4f} ms; design "
+      f"{smooth_design(info12)}; ptxas "
+      f"{kernel_ptxas(ptxas, 'backward_kernel')}"
+      f"; chain floor {floor_ms:.4f} ms (note, not the bound: the covariance "
+      f"chain's 2 x {d2} dependent FMAs at {FMA_CYCLES} cycles and its 2 "
+      f"barriers at ~{BARRIER_CYCLES} cycles a step, {floor_cyc} cycles at "
+      f"the {clock:.0f} MHz SM clock)")
+  del lane64, C64, xs64, Ps64
   worst = hold_smoother("smooth_backward", f"B=1 T={T}", checks, {
       "x": (k12[f32][0], p12[f32][0], k12[f64][0], p12[f64][0], comp_err),
       "P": (k12[f32][1], p12[f32][1], k12[f64][1], p12[f64][1], rel_err)})

@@ -1524,6 +1524,41 @@ def _smooth_function(name, params, outs, prologue=""):
   return lines
 
 
+# parts a split function of mode "smooth" prints (kernel 11 runs part r on
+# warp r % its warps, for all the block's items at once)
+SMOOTH_PARTS = 4
+
+
+def _smooth_parts(name, params, outs, prologue=""):
+  """One template function over `part` (0 .. SMOOTH_PARTS - 1): `outs`
+  ((array, [(index text, value)]) pairs) split by output entry, each whole
+  to the part whose work (its nodes and its stores) ends least with it,
+  as role_split hands outputs to roles; a part computes the
+  subexpressions its entries need, by the same operations as
+  _smooth_function would."""
+  parts = [[] for _ in range(SMOOTH_PARTS)]
+  work = [set() for _ in range(SMOOTH_PARTS)]
+  for arr, values in outs:
+    for idx, v in values:
+      need = _needs(v, frozenset())
+      r = min(range(SMOOTH_PARTS),
+              key=lambda r: len(work[r] | need) + len(parts[r]))
+      parts[r].append((arr, idx, v))
+      work[r] |= need
+  lines = ["template <typename scalar_t>",
+           f"GEN_HD GEN_PHASE void {name}({params}, int part) {{{prologue}",
+           "  switch (part) {"]
+  for r, part in enumerate(parts):
+    pr = _SmoothPrinter(0)
+    for _, _, v in part:
+      pr.emit(v)
+    lines += [f"  case {r}: {{"] + ["  " + ln for ln in pr.lines]
+    lines += [f"    {arr}[{idx}] = {pr.ref(v)};" for arr, idx, v in part]
+    lines += ["    break;", "  }"]
+  lines += ["  default: break;", "  }", "}"]
+  return lines
+
+
 def _smooth_inject(spec, params, x, dx, norm):
   """err(x, dx) on the main block, x's clone slots kept, quaternions
   renormalized if norm: the smoother's injection (smoothing/rts.py)."""
@@ -1542,20 +1577,24 @@ def smooth_source(spec: FilterSpec, pnames) -> str:
   (mode "smooth"): in namespace rn_gen the constants DX, DE, D1 (the main
   state), D2 (its error block) and NP, and the template functions
 
-    gen_sm_F(x, dt, p, F)           F = d f_err / d dx at dx = 0 (d f / d x
+    gen_sm_F_part(x, dt, p, F, ld, part)
+                                    F = d f_err / d dx at dx = 0 (d f / d x
                                     for an additive spec), its main block
-                                    row-major (D2 x D2), from the
-                                    structural interpreter's taps as
-                                    predict_phase takes G's;
+                                    (D2 x D2, row i at F + i * ld), from
+                                    the structural interpreter's taps as
+                                    predict_phase takes G's; part r of
+                                    SM_PARTS computes its share of the
+                                    entries (_smooth_parts);
     gen_sm_inv_err(xa, xb, p, out)  inv_err(xa, xb), DE entries;
     gen_sm_inject_n{0,1}(x, dx, p, out)
                                     err(x, dx) on the main state, x's
                                     clone slots kept, quaternions
                                     renormalized (n1) or not (n0);
-    gen_sm_refine_n{0,1}(xp, xq, e, p, v, J)
+    gen_sm_refine_n{0,1}_part(xp, xq, e, p, v, J, ld, part)
                                     v = inv_err(xp, inject(xq, [e, 0]))
-                                    [:D2] and J = dv/de (row-major, D2 x
-                                    D2), taps of the composition;
+                                    [:D2] and J = dv/de (D2 x D2, row i at
+                                    J + i * ld), taps of the composition,
+                                    split over SM_PARTS parts as F;
 
   then csrc/smooth.cuh, the kernels and their C entries. pnames: the
   params vector's names, in order. The text depends on the spec and
@@ -1584,10 +1623,12 @@ def smooth_source(spec: FilterSpec, pnames) -> str:
   _, taps = structural.run_entry_taps(
       d, fe, [(dx,), ()] + [()] * np_, [x, _scalar(d.load("dt"))]
       + prm_of(d), de, range(d2))
-  F = [taps[k][i] for i in range(d2) for k in range(d2)]
-  funcs += _smooth_function(
-      "gen_sm_F", "const scalar_t* x, const scalar_t dt, const scalar_t* p, "
-      "scalar_t* F", [("F", F)], "\n  (void)x; (void)dt; (void)p;")
+  F = [(f"{i} * ld + {k}", taps[k][i]) for i in range(d2)
+       for k in range(d2)]
+  funcs += _smooth_parts(
+      "gen_sm_F_part", "const scalar_t* x, const scalar_t dt, "
+      "const scalar_t* p, scalar_t* F, int ld", [("F", F)],
+      "\n  (void)x; (void)dt; (void)p; (void)ld;")
 
   d = ExprDAG()
   xa = structural.load_array(d, "xa", (dx,))
@@ -1629,12 +1670,14 @@ def smooth_source(spec: FilterSpec, pnames) -> str:
     v, taps = structural.run_entry_taps(
         d, v_of, [(dx,), (dx,), (d2,)] + [()] * np_, [xp, xq, e]
         + prm_of(d), d2, range(d2))
-    J = [taps[j][i] for i in range(d2) for j in range(d2)]
-    funcs += [""] + _smooth_function(
-        f"gen_sm_refine_n{norm}", "const scalar_t* xp, const scalar_t* xq, "
-        "const scalar_t* e, const scalar_t* p, scalar_t* v, scalar_t* J",
-        [("v", list(v)), ("J", J)],
-        "\n  (void)xp; (void)xq; (void)e; (void)p;")
+    J = [(f"{i} * ld + {j}", taps[j][i]) for i in range(d2)
+         for j in range(d2)]
+    funcs += [""] + _smooth_parts(
+        f"gen_sm_refine_n{norm}_part", "const scalar_t* xp, "
+        "const scalar_t* xq, const scalar_t* e, const scalar_t* p, "
+        "scalar_t* v, scalar_t* J, int ld",
+        [("v", list(enumerate(v))), ("J", J)],
+        "\n  (void)xp; (void)xq; (void)e; (void)p; (void)ld;")
 
   head = [
       "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
@@ -1648,6 +1691,7 @@ def smooth_source(spec: FilterSpec, pnames) -> str:
       f"constexpr int D1 = {spec.dim_main};",
       f"constexpr int D2 = {d2};",
       f"constexpr int NP = {np_};",
+      f"constexpr int SM_PARTS = {SMOOTH_PARTS};",
       "",
   ]
   return "\n".join(head + funcs + [

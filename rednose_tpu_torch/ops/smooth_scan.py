@@ -220,7 +220,8 @@ def smooth_backward(spec: FilterSpec, params, x_pred, P_pred, x_post,
                     P_post, C, *, norm_quats: bool = False,
                     reference_seed: bool = False):
   """Kernel 12: the sequential RTS backward pass of B logs from kernel
-  11's gains C (B, T - 1, d2, d2); one block a lane. Returns (x_smooth
+  11's gains C (B, T - 1, d2, d2); one block a lane (an IO warp, a state
+  warp, csrc/smooth.cuh's SM_COV_WARPS covariance warps). Returns (x_smooth
   (B, T, dim_x), P_smooth (B, T, de, de)); reference_seed seeds from the
   last predicted state (smoothing/rts.rts_smooth)."""
   if x_post.device.type == "cpu":
@@ -377,24 +378,37 @@ def smooth_inject_reference(spec: FilterSpec, params, x_post, P_post, e, D,
 
 _INFO_KEYS = ("threads", "smem_bytes", "blocks_per_sm", "registers",
               "local_bytes")
+# each kernel's design constants, after the launch shape
+# (csrc/smooth.cuh, rn_smooth_info)
+_DESIGN_KEYS = {
+    "gains": ("items_per_block", "tile", "F_parts", "row_stride"),
+    "refine": ("items_per_block", "tile", "F_parts", "row_stride"),
+    "backward": ("cov_warps", "ring_stages", "tile_M1", "tile_M"),
+    "inject": ("rows_per_block",),
+}
 
 
-def _info(fn, *args):
+def _info(fn, *args, keys=_INFO_KEYS):
   import ctypes
 
-  out = (ctypes.c_int * 5)()
+  out = (ctypes.c_int * 9)()
   _build.check(fn(*args, ctypes.addressof(out)), fn.__name__)
-  return dict(zip(_INFO_KEYS, out))
+  return dict(zip(keys, out))
 
 
 def smooth_info(spec: FilterSpec, pnames=(), dtype=torch.float32) -> dict:
   """The launch shape of kernels 11 (and its refine variant), 12 and 14
-  for a spec, as the CUDA runtime reads it: {kernel: {threads,
-  smem_bytes, blocks_per_sm, registers, local_bytes}}."""
+  for a spec, as the CUDA runtime reads it, with each one's design
+  constants: {kernel: {threads, smem_bytes, blocks_per_sm, registers,
+  local_bytes, ...}} (_DESIGN_KEYS: kernel 11's items a block, register
+  tile, F's parts and row stride; kernel 12's covariance warps, ring
+  stages and the tiles of its two products; kernel 14's rows a block)."""
   lib = _build.generated_library(smooth_source(spec, tuple(pnames)))
   dbl = dtype == torch.float64
-  return {name: _info(lib.rn_smooth_info, i, dbl) for i, name in enumerate(
-      ("gains", "refine", "backward", "inject"))}
+  return {name: _info(lib.rn_smooth_info, i, dbl,
+                      keys=_INFO_KEYS + _DESIGN_KEYS[name])
+          for i, name in enumerate(("gains", "refine", "backward",
+                                    "inject"))}
 
 
 def affine_info(d: int, dtype=torch.float32) -> dict:

@@ -219,8 +219,10 @@ def emitted_ops(source: str) -> dict:
   plain load of an input (x, P, dt, p, Q, z, ea, R; in an adjoint also the
   incoming cotangents lx, GEN_L and the gate decision rej; in the
   smoother's functions xa, xb, dx, xp, xq and e) is one operation (a
-  product, a sum, a compare, a select, a sqrt)."""
-  ops, name = {}, None
+  product, a sum, a compare, a select, a sqrt). A function split into
+  parts (mode "smooth", gen_sm_*_part) counts each node once, however
+  many parts compute it: the operations of the whole function."""
+  ops, name, parts = {}, None, {}
   load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[|lx\[|"
                     r"GEN_L\(|rej;|xa\[|xb\[|dx\[|xp\[|xq\[|e\[)")
   for line in source.splitlines():
@@ -230,7 +232,10 @@ def emitted_ops(source: str) -> dict:
       ops[name] = 0
     elif name and line.startswith("  const ") and not load.search(line):
       ops[name] += 1
-  return ops
+    elif (name and name.endswith("_part") and line.startswith("    const ")
+          and not load.search(line)):
+      parts.setdefault(name, set()).add(line.split("=")[0].split()[-1])
+  return ops | {k: len(v) for k, v in parts.items()}
 
 
 def step_ops(source: str, kinds, mode: str = "single") -> float:

@@ -20,7 +20,14 @@ launch floor; with --parent the parent's kernel and wrapper in turns:
 tri_sweep) and adjoint (kernel 10: chip_smoke.adjoint_calls' float32
 live log adjoint at B = 64, T = 256 and 8192, at each W beside its
 global form and timing aids; with --parent the parent's kernel 10 in
-turns: adjoint_sweep); all seven by default. W is a constant of
+turns: adjoint_sweep) and smooth (kernels 11 and 12, the smoother's gains
+and sequential pass, on chip_smoke.compare_smoother's 64 x 8192 live log:
+kernel 12 at 2-16 covariance warps, 2-8 ring stages and its products'
+tiles, kernel 11 at register tiles 2-4 and 4 or 8 items a block, with F
+whole as the parent's, the timing aids of each and
+the split they give; with --parent the parent's kernels 11 and 12 and its
+kernel 11's aids, in turns, held bitwise: smooth_sweep); all eight by
+default. W is a constant of
 each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
@@ -29,7 +36,8 @@ kernel 6, mode "mixed" without a camera-frame unit) and
 `TILE_ROLES_FRAME` (kernel 7, mode "frame", and kernel 6 with a
 camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream"),
 `TILE_ROLES_ADJOINT` (kernel 10, mode "stream_adjoint");
-kernel 8's `BLOCK_THREADS` in csrc/triangulate.cu.
+kernel 8's `BLOCK_THREADS` in csrc/triangulate.cu; kernels 11 and 12's
+`RN_SM_*` in csrc/smooth.cuh.
 Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
 csrc/kinematic_scan.cu (filters a block, steps a ring stage, stages).
 This script builds each kernel at each value, nvcc processes in
@@ -92,7 +100,7 @@ WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
 PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate",
-         "adjoint")
+         "adjoint", "smooth")
 STREAM_WS = (2, 4, 8, 16, 32)
 STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
@@ -130,16 +138,7 @@ def build_k3(name, csrc, warps=None):
       ("kernel 2", "live_bank_scan_kernel"))}, secs
 
 
-def kernel_ptxas(report, kernel):
-  """The ptxas -v lines of the entry function whose name holds `kernel`."""
-  lines, keep = [], False
-  for line in report.splitlines():
-    if "Compiling entry function" in line:
-      keep = kernel in line
-    elif keep and ("registers" in line or "spill" in line
-                   or "stack" in line):
-      lines.append(line.split("info    :")[-1].strip())
-  return lines
+kernel_ptxas = cs.kernel_ptxas
 
 
 def load_k3(lib_path):
@@ -960,6 +959,327 @@ def adjoint_sweep(torch, dev, gen, parent=None):
   return results
 
 
+# ------------------------------------------------------------ kernels 11-12
+SMOOTH_WS = (2, 4, 8, 16)      # kernel 12's covariance warps
+SMOOTH_STAGES = (2, 4, 8)      # its ring's stages
+SMOOTH_TILES = (2, 3, 4)       # kernel 11's register tiles
+SMOOTH_GAINS_WS = (4, 8)       # kernel 11's items a block
+# kernel 12's (covariance warps, M1's tile, M's pair tile) beyond the
+# least tiles that fit
+SMOOTH_COV_TILES = ((8, 2, 1), (8, 2, 2), (8, 3, 2), (8, 3, 3), (4, 3, 2),
+                    (4, 3, 3))
+
+# timing aids (csrc/smooth.cuh RN_SM_AID bits; outputs garbage)
+SMOOTH_AIDS_11 = {"F and u precomputed": 1, "factor and solve only": 1 | 2,
+                  "products only": 1 | 4, "loads and stores only": 1 | 2 | 4}
+SMOOTH_AIDS_12 = {"without the state chain": 8,
+                  "without the covariance chain": 16,
+                  "without the ring (direct loads)": 32,
+                  "ring and rows only": 8 | 16}
+# the parent's kernel 11 aids, its smooth.cuh patched as RN_SM_AID would
+_LOOP = "    for (int k = 0; k < D2; ++k) s += "
+PARENT_AID_CUTS = {
+    1: ["  if (tid == 0) rn_gen::gen_sm_F<S>(xq0, dt, p, F);\n",
+        "  if (tid == 0) rn_gen::gen_sm_inv_err<S>(xp1, xq1, p, u);\n"],
+    2: [_LOOP + "F[i * D2 + k] * Pk[j * D2 + k];\n",
+        _LOOP + "X[k * D2 + i] * u[k];\n",
+        _LOOP + "X[k * D2 + i] * F[k * D2 + j];\n",
+        _LOOP + "Pk[i * D2 + k] * X[k * D2 + j];\n"],
+    4: ["  cholesky<S, BLOCK>(L, diag, tid, nt);"
+        "   // syncs first: X is complete\n"
+        "  cho_solve<S>(L, diag, X, tid, nt);\n"],
+}
+PARENT_SMOOTH = """
+import sys
+from rednose_tpu_torch.models.live import LiveKalman
+from rednose_tpu_torch.ops import smooth_scan
+open(sys.argv[1], "w").write(smooth_scan.smooth_source(
+    LiveKalman.build_spec(), ()))
+"""
+
+
+def smooth_variant(src, **consts):
+  """The live smoother's source with csrc/smooth.cuh's design constants
+  (RN_SM_COV_WARPS, RN_SM_BACK_STAGES, RN_SM_TILE, RN_SM_GAINS_WARPS,
+  RN_SM_AID) set by #defines ahead of it."""
+  return "".join(f"#define RN_SM_{k} {v}\n" for k, v in consts.items()) + src
+
+
+def parent_smooth_header(csrc, aid):
+  """The parent's csrc/smooth.cuh with the cuts of aid's bits
+  (PARENT_AID_CUTS) taken out: the factor's cut keeps a __syncwarp."""
+  text = (pathlib.Path(csrc) / "smooth.cuh").read_text()
+  for bit, cuts in PARENT_AID_CUTS.items():
+    if aid & bit:
+      for cut in cuts:
+        if text.count(cut) != 1:
+          raise RuntimeError(f"parent smooth.cuh: no {cut!r} to cut")
+        text = text.replace(cut, "  sync_<BLOCK>();\n" if bit == 4 else "")
+  return text
+
+
+def build_smooth(name, source, csrc, header=None):
+  """nvcc of a smoother source beside the csrc directory's
+  generic_scan.cuh and smooth.cuh (or the header text given), in a
+  directory of its own: the library, its SMOOTH_ENTRIES declared, and its
+  ptxas report."""
+  from rednose_tpu_torch import _build
+
+  d = SWEEP_DIR / name
+  shutil.rmtree(d, ignore_errors=True)
+  d.mkdir(parents=True)
+  (d / "gen.cu").write_text(source)
+  shutil.copy(pathlib.Path(csrc) / "generic_scan.cuh", d / "generic_scan.cuh")
+  (d / "smooth.cuh").write_text(header if header is not None else (
+      pathlib.Path(csrc) / "smooth.cuh").read_text())
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
+       str(d / "libgen.so"), str(d / "gen.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  if proc.returncode:
+    raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}")
+  lib = ctypes.CDLL(str(d / "libgen.so"))
+  for entry, argtypes in _build.SMOOTH_ENTRIES.items():
+    fn = getattr(lib, entry, None)
+    if fn is not None:
+      fn.argtypes = list(argtypes)
+      fn.restype = ctypes.c_int
+  return lib, proc.stdout
+
+
+def with_whole_F(src, parent_src):
+  """A shipped smoother source whose kernel 11 takes F from the parent's
+  whole gen_sm_F (its stores moved to the row stride D2 | 1), defined as
+  gen_sm_F_whole (RN_SM_F_WHOLE): F's parts against the whole function,
+  operation for operation."""
+  d2 = int(re.search(r"constexpr int D2 = (\d+);", src).group(1))
+  ld = d2 | 1
+  m = re.search(r"template <typename scalar_t>\nGEN_HD GEN_PHASE void "
+                r"gen_sm_F\(.*?\n\}\n", parent_src, re.S)
+  fn = m.group(0).replace("void gen_sm_F(", "void gen_sm_F_whole(")
+  def moved(q):
+    i, k = divmod(int(q.group(1)), d2)
+    return f"  F[{i * ld + k}] ="
+
+  fn = re.sub(r"  F\[(\d+)\] =", moved, fn)
+  return "#define RN_SM_F_WHOLE 1\n" + src.replace(
+      "}  // namespace rn_gen", fn + "\n}  // namespace rn_gen", 1)
+
+
+def smooth_info_of(lib, which, double):
+  out = (ctypes.c_int * 9)()
+  rc = lib.rn_smooth_info(which, int(double), ctypes.addressof(out))
+  return list(out) if rc == 0 else f"cudaError {rc}"
+
+
+def smooth_stacks(torch, dev, gen):
+  """chip_smoke.compare_smoother's inputs: the live log of RTS_B lanes x
+  RTS_T steps through kernel 9 in float32 (and its float64 copy): {dtype:
+  (x_pred, P_pred, x_post, P_post, dts)}."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+
+  T, B = cs.RTS_T, cs.RTS_B
+  x0, P0, Q, dts_t, ki, zs, Rs, eas = cs.scan_log(torch, dev, gen, T, B,
+                                                  torch.float32)
+  scan_fn, _ = build_scan_stream(LiveKalman.build_spec(), cs.SCAN_KINDS)
+  _, stacks = vmap(lambda x, P, z: scan_fn({}, x, P, Q, dts_t, ki, z, Rs,
+                                           eas), in_dims=(0, 0, 1))(x0, P0,
+                                                                    zs)
+  f32 = [a.contiguous() for a in stacks] + [
+      torch.full((B, T - 1), 0.01, device=dev)]
+  return {torch.float32: f32, torch.float64: [a.double() for a in f32]}
+
+
+def smooth_sweep(torch, dev, gen, parent=None):
+  """Kernels 11 and 12 of the live spec (the offline path's smoother)
+  on chip_smoke.compare_smoother's log (RTS_B x RTS_T, float32; float64
+  for the shipped design and the parent): kernel 12 on lane 0 at
+  SMOOTH_WS covariance warps, SMOOTH_STAGES stages and SMOOTH_COV_TILES
+  tiles (the shipped design otherwise), and on the bank; kernel 11 (gains
+  and elements on the whole bank) at SMOOTH_TILES tiles and
+  SMOOTH_GAINS_WS items a block; the timing aids SMOOTH_AIDS_11 and
+  SMOOTH_AIDS_12 at the shipped design, whose outputs are garbage, and
+  the split they give. With parent (a checkout of the parent commit): its
+  kernels 11 and 12 (its emitter run in a subprocess there, built with
+  its templates), its kernel 11's aids and the shipped kernel 11 with the
+  parent's whole F (with_whole_F); each build's kernel 11 float32 outputs
+  held bitwise against the parent's, and the shipped build timed in turns
+  with the parent (parent, shipped, shipped, parent) in both types, held
+  bitwise. Raw launches of the C entries on preallocated outputs, CUDA
+  events after a warm-up."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  spec = LiveKalman.build_spec()
+  base = ss.smooth_source(spec, ())
+  csrc = ROOT / "rednose_tpu_torch" / "csrc"
+  srcs = {"shipped": base}
+  for w in SMOOTH_WS:
+    srcs[f"cov warps {w}"] = smooth_variant(base, COV_WARPS=w)
+  for n in SMOOTH_STAGES:
+    srcs[f"stages {n}"] = smooth_variant(base, BACK_STAGES=n)
+  for t in SMOOTH_TILES:
+    srcs[f"tile {t}"] = smooth_variant(base, TILE=t)
+  for w in SMOOTH_GAINS_WS:
+    srcs[f"gains warps {w}"] = smooth_variant(base, GAINS_WARPS=w)
+  for w, t1, t2 in SMOOTH_COV_TILES:
+    srcs[f"cov warps {w}, tiles {t1} / {t2}"] = smooth_variant(
+        base, COV_WARPS=w, COV_T1=t1, COV_T2=t2)
+  for label, aid in (SMOOTH_AIDS_11 | SMOOTH_AIDS_12).items():
+    srcs[label] = smooth_variant(base, AID=aid)
+  extra = {}
+  if parent is not None:
+    out = SWEEP_DIR / "smooth_parent.cu"
+    SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([sys.executable, "-c", PARENT_SMOOTH, str(out)],
+                   cwd=parent, check=True)
+    pcsrc = pathlib.Path(parent) / "rednose_tpu_torch" / "csrc"
+    extra["parent"] = (out.read_text(), pcsrc, None)
+    srcs["whole F (the parent's)"] = with_whole_F(base, out.read_text())
+    for label, aid in SMOOTH_AIDS_11.items():
+      extra[f"parent, {label}"] = (out.read_text(), pcsrc,
+                                   parent_smooth_header(pcsrc, aid))
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(max(len(extra), 1)) as pool:
+    jobs = {k: pool.submit(build_smooth, f"sm_{i}", src, d, hdr)
+            for i, (k, (src, d, hdr)) in enumerate(extra.items())}
+    _build.build_generated_many(list(srcs.values()))
+    libs = {k: _build.generated_library(v) for k, v in srcs.items()}
+    reports = {k: _build.generated_ptxas(v) for k, v in srcs.items()}
+    for k, j in jobs.items():
+      libs[k], reports[k] = j.result()
+  cs.log(f"smoother: {len(libs)} builds in {time.perf_counter() - t0:.1f} s")
+  st = smooth_stacks(torch, dev, gen)
+  B, T, d2 = cs.RTS_B, cs.RTS_T, spec.dim_main_err
+  n = T - 1
+  stream = torch.cuda.current_stream().cuda_stream
+  outs = {}
+
+  def gains(lib, dt, key=None):
+    xp, Pp, xq, Pq, dts = st[dt]
+    if key is not None:     # one set of outputs a key at a time
+      outs.pop(key, None)
+    C, b, V = (xp.new_empty(s) for s in ((B, n, d2, d2), (B, n, d2),
+                                         (B, n, d2, d2)))
+    prm = torch.zeros(1, dtype=dt, device=dev)
+    if key is not None:
+      outs[key] = (C, b, V)
+    return lambda: _build.check(lib.rn_smooth_gains_launch(
+        *(a.data_ptr() for a in (xp, Pp, xq, Pq, dts, prm, C, b, V)), B, T,
+        int(dt == torch.float64), stream), "gains")
+
+  def backward(lib, dt, lanes, key=None):
+    xp, Pp, xq, Pq, _ = (a[:lanes].contiguous() for a in st[dt])
+    C = outs[("C", dt)][:lanes].contiguous()
+    xs, Ps = torch.empty_like(xq), torch.empty_like(Pq)
+    prm = torch.zeros(1, dtype=dt, device=dev)
+    if key is not None:
+      outs[key] = (xs, Ps)
+    return lambda: _build.check(lib.rn_smooth_backward_launch(
+        *(a.data_ptr() for a in (xp, Pp, xq, Pq, C, prm, xs, Ps)), lanes, T,
+        1, 0, int(dt == torch.float64), stream), "backward")
+
+  f32, f64 = torch.float32, torch.float64
+  for dt in (f32, f64):   # the shipped gains, the input of every kernel 12
+    gains(libs["shipped"], dt, ("ship11", dt))()
+    outs[("C", dt)] = outs.pop(("ship11", dt))[0]
+  torch.cuda.synchronize()
+  results = {}
+  if parent is not None:    # the parent's kernel 11 float32 outputs, kept
+    gains(libs["parent"], f32, "parent 11")()
+
+  def bitwise_parent(key):
+    """kernel 11 float32 outputs of key bitwise the parent's (None
+    without a parent); drops them."""
+    got = outs.pop(key, None)
+    if parent is None or got is None:
+      return None
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(got, outs["parent 11"]))
+
+  for label, lib in libs.items():
+    row = {"ptxas": kernel_ptxas(reports[label], "gains_kernel")
+           + kernel_ptxas(reports[label], "backward_kernel")}
+    row["info"] = {k: smooth_info_of(lib, i, False)
+                   for i, k in ((0, "gains"), (2, "backward"))}
+    aid12 = label in SMOOTH_AIDS_12
+    aid11 = any(label.endswith(k) for k in SMOOTH_AIDS_11)
+    if not aid12:
+      row["gains_ms"] = cs.timed_run(gains(lib, f32, (label, 11)), REPS)[0]
+      if not aid11:
+        row["gains_bitwise_parent"] = bitwise_parent((label, 11))
+      outs.pop((label, 11), None)
+    if not aid11:
+      row["backward_ms"] = cs.timed_run(backward(lib, f32, 1), REPS)[0]
+    results[label] = row
+    cs.log(f"smoother {label}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in row.items() if k.endswith("_ms"))
+        + f"; kernel 11 float32 bitwise the parent's: "
+        f"{row.get('gains_bitwise_parent')}; info {row['info']}; ptxas "
+        f"{row['ptxas']}")
+  outs.pop("parent 11", None)
+  ship = results["shipped"]
+  ship["backward_bank_ms"] = cs.timed_run(
+      backward(libs["shipped"], f32, B), 2)[0]
+  for dt in (f64,):
+    ship["gains_ms_double"] = cs.timed_run(gains(libs["shipped"], dt), REPS)[0]
+    ship["backward_ms_double"] = cs.timed_run(
+        backward(libs["shipped"], dt, 1, ("ship12", dt)), REPS)[0]
+  split11 = {"spec functions": ship["gains_ms"]
+             - results["F and u precomputed"]["gains_ms"],
+             "products": results["F and u precomputed"]["gains_ms"]
+             - results["factor and solve only"]["gains_ms"],
+             "factor and solve": results["F and u precomputed"]["gains_ms"]
+             - results["products only"]["gains_ms"],
+             "loads and stores": results["loads and stores only"]["gains_ms"]}
+  split12 = {k: results[k]["backward_ms"] for k in SMOOTH_AIDS_12}
+  results["split 11"], results["split 12"] = split11, split12
+  cs.log(f"kernel 11 split (shipped, ms): {split11}")
+  cs.log(f"kernel 12 aids (shipped, B=1, ms): {split12}; shipped "
+         f"{ship['backward_ms']:.4f} ms ({ship['backward_ms'] / n * 1e3:.4f} "
+         f"us a step), bank {ship['backward_bank_ms']:.4f} ms")
+  if parent is not None:
+    plib = libs["parent"]
+    p11 = {k: results[f"parent, {k}"]["gains_ms"] for k in SMOOTH_AIDS_11}
+    full = results["parent"]["gains_ms"]
+    results["parent split 11"] = {
+        "spec functions": full - p11["F and u precomputed"],
+        "products": p11["F and u precomputed"] - p11["factor and solve only"],
+        "factor and solve": p11["F and u precomputed"]
+        - p11["products only"],
+        "loads and stores": p11["loads and stores only"]}
+    cs.log(f"kernel 11 split (parent, ms): {results['parent split 11']}")
+    turns = {}
+    for dt in (f32, f64):
+      name = str(dt).split(".")[-1]
+      for kern, mk in (
+          (11, lambda lib, k: gains(lib, dt, k)),
+          (12, lambda lib, k: backward(lib, dt, 1, k))):
+        times = {"parent": [], "shipped": []}
+        for which in ("parent", "shipped", "shipped", "parent"):
+          times[which].append(cs.timed_run(
+              mk(libs[which], (which, kern, dt)), REPS)[0])
+        a, b = outs.pop(("parent", kern, dt)), outs.pop(("shipped", kern, dt))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        del a, b
+        turns[f"kernel {kern} {name}"] = dict(times=times, bitwise=same,
+                                             max_abs_diff=diff)
+        cs.log(f"kernel {kern} {name} in turns: parent {times['parent']} "
+               f"ms, shipped {times['shipped']} ms; bitwise the parent's: "
+               f"{same} (largest |difference| {diff:.3g})")
+    results["in turns"] = turns
+    results["parent info"] = {
+        dt: {k: smooth_info_of(plib, i, dt == "float64")
+             for i, k in ((0, "gains"), (2, "backward"))}
+        for dt in ("float32", "float64")}
+  return results
+
+
 # ---------------------------------------------------------------- kernel 8
 TRI_SRC = ROOT / "rednose_tpu_torch" / "csrc" / "triangulate.cu"
 TRI_CONSTS = ("BLOCK_THREADS",)
@@ -1268,12 +1588,12 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 1, "
-                       "2, 3, 8 and 10 run beside these")
+                       "2, 3, 8, 10, 11 and 12 run beside these")
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
                        "frames, kernel 1, kernel 5, kernel 9, kernel 8, "
-                       "kernel 10")
+                       "kernel 10, kernels 11 and 12")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -1314,8 +1634,10 @@ def main():
     results["kernel 8"] = tri_sweep(torch, dev, args.parent)
   if "adjoint" in args.parts:
     results["kernel 10"] = adjoint_sweep(torch, dev, gen, args.parent)
+  if "smooth" in args.parts:
+    results["kernels 11-12"] = smooth_sweep(torch, dev, gen, args.parent)
   if args.parent is not None and set(args.parts) - {"triangulate",
-                                                    "adjoint"}:
+                                                    "adjoint", "smooth"}:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))

@@ -7,7 +7,9 @@ behind smoothing/rts.py.
 On the CPU each kernel's source is built with the host C++ compiler (the
 emitted mode "smooth" source of a spec around csrc/smooth.cuh, entries
 rn_smooth_*_host; csrc/affine_scan.cu for a size, rn_affine_scan_host):
-the kernels' own item, lane and block functions, one thread each. Held
+the kernels' own item, lane and block functions, one thread each
+(kernel 12's roles a step in order: its ring's stage as a plain copy,
+the state chain, the covariance chain, the rows out). Held
 against the JAX package (rednose_tpu/smoothing/rts.py: rts_smooth,
 rts_smooth_parallel with refine 0 and 2, _smoother_gain,
 _suffix_scan_lane with and without V) on the same seeded inputs, for the
@@ -15,7 +17,10 @@ live spec (a warm ECEF_POS / NO_ROT log through the port's plain scan),
 the kinematic spec (its POSITION log) and msckf_eskf (random stacks with
 four clones, which pass through): float64 within 1e-9 of each
 component's scale; float32 with its error against the float64 oracle at
-most 3x the plain float32 smoother's own, plus 1e-6.
+most 3x the plain float32 smoother's own, plus 1e-6. Also: logs of T =
+1, 2 and 7 steps (7: not a multiple of kernel 12's ring), msckf_eskf's
+clone rows through kernel 12 bitwise, and kernel 11's host build bitwise
+what its first design's per-entry sum order gives (PARENT_GAINS).
 
 The card route (the custom ops rednose::rts_smooth and
 rednose::rts_smooth_parallel) runs here on CPU tensors with the
@@ -25,7 +30,9 @@ and an input that requires grad, or torch.func.grad, raises, naming the
 smoother's adjoint.
 
 Card-only cases (marked cuda) hold each kernel against its plain version
-on the card, float32 and float64, and on 37 lanes. This file imports JAX
+on the card, float32 and float64, on 1, 2, 37 and 64 lanes, and kernels
+11 and 12 on logs of 1, 2 and 7 steps, each lane of kernel 12 bitwise
+that lane alone. This file imports JAX
 only in a try (the card's machine has none): `python -m pytest
 tests/test_torch_smooth_kernels.py -m cuda --noconftest`."""
 
@@ -129,6 +136,12 @@ def family(name):
   P_pred = P_post + _spd(rng, de, B, T, 0.005)
   return (spec, JMSCKF.build_spec() if JMSCKF else None,
           (xs[0], P_pred, xs[1], P_post), 0.01 + 0.01 * rng.rand(B, T - 1))
+
+
+def family_T(name, T):
+  """family(name) cut to its last T steps (T <= T_LOG)."""
+  spec, jspec, st, dts = family(name)
+  return spec, jspec, tuple(a[:, -T:] for a in st), dts[:, T_LOG - T:]
 
 
 def _t(a, dtype=torch.float64):
@@ -280,9 +293,10 @@ def _route(monkeypatch):
   return host
 
 
-def host_sequential(name, dtype=torch.float64, reference_seed=False):
-  """Kernels 11 and 12 (host builds) on the family's stacks."""
-  spec, _, st, dts = family(name)
+def host_sequential(name, dtype=torch.float64, reference_seed=False,
+                    T=T_LOG):
+  """Kernels 11 and 12 (host builds) on the family's last T steps."""
+  spec, _, st, dts = family_T(name, T)
   h = Host()
   a = [_t(s, dtype) for s in st]
   C = h.smooth_gains(spec, {}, *a, _t(dts, dtype), elements=False)
@@ -290,10 +304,10 @@ def host_sequential(name, dtype=torch.float64, reference_seed=False):
                            reference_seed=reference_seed)
 
 
-def host_parallel(name, refine, dtype=torch.float64):
-  """Kernels 11, 13 and 14 (host builds) on the family's stacks, with
-  `refine` Newton passes."""
-  spec, _, st, dts = family(name)
+def host_parallel(name, refine, dtype=torch.float64, T=T_LOG):
+  """Kernels 11, 13 and 14 (host builds) on the family's last T steps,
+  with `refine` Newton passes."""
+  spec, _, st, dts = family_T(name, T)
   h = Host()
   xp, Pp, xq, Pq = (_t(s, dtype) for s in st)
   C, b, V = h.smooth_gains(spec, {}, xp, Pp, xq, Pq, _t(dts, dtype))
@@ -310,15 +324,15 @@ def host_parallel(name, refine, dtype=torch.float64):
 needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX (the oracle)")
 
 
-def jax_smooth(name, parallel, refine=0, reference_seed=False):
+def jax_smooth(name, parallel, refine=0, reference_seed=False, T=T_LOG):
   """JAX's rts_smooth / rts_smooth_parallel, float64, jitted and vmapped
-  over the lanes (each once)."""
-  return _jax_smooth(name, parallel, refine, reference_seed)
+  over the lanes (each once), on the family's last T steps."""
+  return _jax_smooth(name, parallel, refine, reference_seed, T)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_smooth(name, parallel, refine, reference_seed):
-  _, jspec, st, dts = family(name)
+def _jax_smooth(name, parallel, refine, reference_seed, T):
+  _, jspec, st, dts = family_T(name, T)
   if parallel:
     def one(xp, Pp, xq, Pq, t, d):
       return jrts.rts_smooth_parallel(jspec, {}, xp, Pp, xq, Pq, t,
@@ -429,6 +443,171 @@ def test_parallel_refine_matches_plain_msckf():
         dts=_t(dts[i]), refine=2)
     assert scaled_err(xs[i].numpy(), xr.numpy()) <= TOL64
     assert cov_err(Ps[i].numpy(), Pr.numpy()) <= TOL64
+
+
+@needs_jax
+@pytest.mark.parametrize("T", [1, 2, 7])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_short_and_ragged_logs_match_jax(name, T):
+  """Kernels 11 and 12 (host builds) on the family's last T steps against
+  JAX's rts_smooth, float64 within TOL64: T = 1 (the seed row alone), T =
+  2 (one step) and T = 7 (six steps, not a multiple of kernel 12's ring
+  of SM_BACK_STAGES = 4); and kernels 11, 13 and 14 against
+  rts_smooth_parallel at T = 2 and 7."""
+  xs, Ps = host_sequential(name, T=T)
+  xj, Pj = jax_smooth(name, False, T=T)
+  assert xs.shape[1] == T
+  assert scaled_err(xs.numpy(), xj) <= TOL64
+  assert cov_err(Ps.numpy(), Pj) <= TOL64
+  if T > 1:
+    xs, Ps = host_parallel(name, 0, T=T)
+    xj, Pj = jax_smooth(name, True, T=T)
+    assert scaled_err(xs.numpy(), xj) <= TOL64
+    assert cov_err(Ps.numpy(), Pj) <= TOL64
+
+
+def test_clone_rows_pass_through():
+  """msckf_eskf (four clones past its 12-entry main block): kernel 12's
+  host build keeps x_{k|k}'s clone slots bitwise, and P_s past the main
+  block is sym(P_{k|k}) there bitwise, at T = 7 and T_LOG."""
+  spec, _, _, _ = family("msckf")
+  d1, d2 = spec.dim_main, spec.dim_main_err
+  clones = [q for q in spec.quaternion_idxs if q >= d1]
+  keep = [i for i in range(d1, spec.dim_x)
+          if not any(q <= i < q + 4 for q in clones)]
+  for T in (7, T_LOG):
+    _, _, st, _ = family_T("msckf", T)
+    xs, Ps = (a.numpy() for a in host_sequential("msckf", T=T))
+    np.testing.assert_array_equal(xs[..., keep], st[2][..., keep])
+    sym = 0.5 * (st[3] + np.swapaxes(st[3], -1, -2))
+    np.testing.assert_array_equal(Ps[:, :-1, d2:, :], sym[:, :-1, d2:, :])
+    np.testing.assert_array_equal(Ps[:, :-1, :, d2:], sym[:, :-1, :, d2:])
+    np.testing.assert_array_equal(Ps[:, -1], st[3][:, -1])
+
+
+# kernel 11's first design's item (one warp an item, matrices at row
+# stride D2, each product entry one sum in ascending k), around an
+# emitted source's F parts: the parent algorithm's order, for the bitwise
+# case below
+PARENT_GAINS = r"""
+namespace rn_parent {
+using namespace rn_gen;
+template <typename S>
+void gains_item(const S* xq0, const S* Pq0, const S* xp1, const S* Pp1,
+                const S* xq1, const S* Pq1, S dt, const S* p, S* C, S* b,
+                S* V, S* sm) {
+  S* L = sm;
+  S* F = L + D2 * D2;
+  S* Pk = F + D2 * D2;
+  S* X = Pk + D2 * D2;
+  S* diag = X + D2 * D2;
+  S* u = diag + D2;
+  for (int r = 0; r < SM_PARTS; ++r) gen_sm_F_part<S>(xq0, dt, p, F, D2, r);
+  for (int e = 0; e < D2 * D2; ++e) {
+    const int i = e / D2, j = e % D2;
+    L[e] = Pp1[i * DE + j];
+    Pk[e] = Pq0[i * DE + j];
+  }
+  for (int e = 0; e < D2 * D2; ++e) {
+    const int i = e / D2, j = e % D2;
+    S s = 0;
+    for (int k = 0; k < D2; ++k) s += F[i * D2 + k] * Pk[j * D2 + k];
+    X[e] = s;
+  }
+  for (int j = 0; j < D2; ++j) {
+    for (int i = j; i < D2; ++i) {
+      S s = L[i * D2 + j];
+      for (int k = 0; k < j; ++k) s -= L[i * D2 + k] * L[j * D2 + k];
+      L[i * D2 + j] = s;
+    }
+    const S d = g_sqrt(L[j * D2 + j]);
+    for (int i = j + 1; i < D2; ++i) L[i * D2 + j] /= d;
+    diag[j] = d;
+  }
+  for (int c = 0; c < D2; ++c) {
+    for (int i = 0; i < D2; ++i) {
+      S s = X[i * D2 + c];
+      for (int k = 0; k < i; ++k) s -= L[i * D2 + k] * X[k * D2 + c];
+      X[i * D2 + c] = s / diag[i];
+    }
+    for (int i = D2 - 1; i >= 0; --i) {
+      S s = X[i * D2 + c];
+      for (int k = i + 1; k < D2; ++k) s -= L[k * D2 + i] * X[k * D2 + c];
+      X[i * D2 + c] = s / diag[i];
+    }
+  }
+  for (int e = 0; e < D2 * D2; ++e) C[e] = X[(e % D2) * D2 + e / D2];
+  gen_sm_inv_err<S>(xp1, xq1, p, u);
+  for (int e = 0; e < D2 * D2; ++e) {
+    const int i = e / D2, j = e % D2;
+    F[e] = Pq1[i * DE + j] - Pp1[i * DE + j];
+  }
+  for (int i = 0; i < D2; ++i) {
+    S s = 0;
+    for (int k = 0; k < D2; ++k) s += X[k * D2 + i] * u[k];
+    b[i] = s;
+  }
+  for (int e = 0; e < D2 * D2; ++e) {
+    const int i = e / D2, j = e % D2;
+    S s = 0;
+    for (int k = 0; k < D2; ++k) s += X[k * D2 + i] * F[k * D2 + j];
+    Pk[e] = s;
+  }
+  for (int e = 0; e < D2 * D2; ++e) {
+    const int i = e / D2, j = e % D2;
+    S s = 0;
+    for (int k = 0; k < D2; ++k) s += Pk[i * D2 + k] * X[k * D2 + j];
+    V[e] = s;
+  }
+}
+}  // namespace rn_parent
+
+extern "C" int rn_parent_gains(const double* xp, const double* Pp,
+                               const double* xq, const double* Pq,
+                               const double* dts, const double* p, double* C,
+                               double* b, double* V, int B, int T) {
+  const long long n = T - 1;
+  static double sm[4 * rn_gen::D2 * rn_gen::D2 + rn_gen::D2 + rn_gen::DE];
+  const size_t rx = rn_gen::DX, rp = (size_t)rn_gen::DE * rn_gen::DE;
+  const size_t rc = (size_t)rn_gen::D2 * rn_gen::D2;
+  for (long long it = 0; it < (long long)B * n; ++it) {
+    const size_t r0 = (size_t)((it / n) * T + it % n), r1 = r0 + 1;
+    rn_parent::gains_item<double>(xq + r0 * rx, Pq + r0 * rp, xp + r1 * rx,
+                                  Pp + r1 * rp, xq + r1 * rx, Pq + r1 * rp,
+                                  dts[it], p, C + it * rc, b + it * rn_gen::D2,
+                                  V + it * rc, sm);
+  }
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_gains_bitwise_the_parent_order(name):
+  """Kernel 11's host build (register tiles, row stride LD, F in parts)
+  gives bitwise what its first design's order gives (PARENT_GAINS: the
+  same F parts, each entry's sum in ascending k at row stride D2) on the
+  family's stacks in float64, the kinematic spec's D2 = 2 in one tile;
+  and it holds against smooth_gains_reference within 1e-12 of each
+  output's largest entry."""
+  spec, _, st, dts = family(name)
+  a = [_t(x) for x in st] + [_t(dts)]
+  got = Host().smooth_gains(spec, {}, *a)
+  src = smooth_scan.smooth_source(spec, ()) + PARENT_GAINS
+  lib = host_lib(src)
+  B, T, d2 = st[0].shape[0], st[0].shape[1], spec.dim_main_err
+  want = (torch.zeros(B, T - 1, d2, d2), torch.zeros(B, T - 1, d2),
+          torch.zeros(B, T - 1, d2, d2))
+  want = tuple(w.double() for w in want)
+  prm = torch.zeros(1, dtype=torch.float64)
+  fn = lib.rn_parent_gains
+  fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+  assert fn(*(_p(x) for x in (*a, prm, *want)), B, T) == 0
+  for g, w in zip(got, want):
+    np.testing.assert_array_equal(g.numpy(), w.numpy())
+  ref = smooth_scan.smooth_gains_reference(spec, {}, *a)
+  for g, r in zip(got, ref):
+    assert cov_err(g.numpy(), r.numpy()) <= 1e-12
 
 
 @needs_jax
@@ -611,8 +790,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
 # -------------------------------------------------------- card-only cases
 
-def _card_case(name, dtype, lanes, dev):
-  spec, _, st, dts = family(name)
+def _card_case(name, dtype, lanes, dev, T=T_LOG):
+  spec, _, st, dts = family_T(name, T)
   reps = -(-lanes // st[0].shape[0])
   cat = lambda s: np.concatenate([s] * reps)[:lanes]  # noqa: E731
   return spec, [_t(cat(s), dtype).to(dev) for s in st], \
@@ -620,7 +799,7 @@ def _card_case(name, dtype, lanes, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [2, 37])
+@pytest.mark.parametrize("lanes", [1, 2, 37, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", FAMILIES)
 def test_kernels_on_card_match_plain(cuda_device, name, dtype, lanes):
@@ -661,3 +840,32 @@ def test_kernels_on_card_match_plain(cuda_device, name, dtype, lanes):
   assert {w: getattr(ss, w).launches - n for w, n in n0.items()} == {
       "smooth_gains": 2, "smooth_backward": 1, "affine_suffix_scan": 1,
       "smooth_inject": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_short_logs_on_card_match_plain(cuda_device, name, dtype, T):
+  """Kernels 11 and 12 on the card on the family's last T steps (T = 1:
+  no gain, the seed row; T = 7: six steps against kernel 12's ring of 4
+  stages) for 37 lanes against their plain versions, at
+  test_kernels_on_card_match_plain's tolerances; kernel 12's lanes each
+  bitwise that lane alone."""
+  spec, a, d = _card_case(name, dtype, 37, cuda_device, T)
+  tol = TOL64 if dtype == torch.float64 else 1e-3
+  ss = smooth_scan
+  C = ss.smooth_gains(spec, {}, *a, d, elements=False)
+  assert C.shape == (37, T - 1, spec.dim_main_err, spec.dim_main_err)
+  if T > 1:
+    Cr = ss.smooth_gains_reference(spec, {}, *a, d, elements=False)
+    assert cov_err(C.cpu(), Cr.cpu()) <= tol
+  xs, Ps = ss.smooth_backward(spec, {}, *a, C, norm_quats=True)
+  xr, Pr = ss.smooth_backward_reference(spec, {}, *a, C, norm_quats=True)
+  assert scaled_err(xs.cpu(), xr.cpu()) <= tol
+  assert cov_err(Ps.cpu(), Pr.cpu()) <= tol
+  for i in (0, 36):
+    one = [v[i:i + 1].contiguous() for v in a]
+    x1, P1 = ss.smooth_backward(spec, {}, *one, C[i:i + 1].contiguous(),
+                                norm_quats=True)
+    assert torch.equal(x1, xs[i:i + 1]) and torch.equal(P1, Ps[i:i + 1])
