@@ -213,11 +213,12 @@ them). Then:
      (A, b) scan on the cold T = 600 log in float64; each timed wrapped
      and raw with CUDA events, with its launch shape, its plain version's
      time and its bound, and kernel 11's solve beside
-     torch.linalg.cholesky + torch.cholesky_solve; kernels 11 and 12 also
-     raw in float64 (bitwise their wrapped runs), with their designs
-     (smooth_info, ptxas) beside their first design's raw times, and
-     kernel 12's chain floor reckoned from its code (a note beside its
-     bound).
+     torch.linalg.cholesky + torch.cholesky_solve; kernels 11, 12 and 13
+     also raw in float64 (bitwise their wrapped runs), with their designs
+     (smooth_info, affine_info, ptxas) beside their first design's raw
+     times, kernel 13's three passes timed apart (affine_split) and its
+     (A, b) scan raw, and kernel 12's chain floor reckoned from its code
+     (a note beside its bound).
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -3846,9 +3847,28 @@ SMOOTH_REPLACES = {
 }
 
 
-# the raw times of kernels 11 and 12's first design at the offline
+# the raw times of kernels 11, 12 and 13's first design at the offline
 # path's shapes (float32, H100 80GB HBM3, 700 W; PERF.md)
-FIRST_DESIGN_RAW = {"smooth_gains": 9.4266, "smooth_backward": 31.7297}
+FIRST_DESIGN_RAW = {"smooth_gains": 9.4266, "smooth_backward": 31.7297,
+                    "affine_suffix_scan": 7.6434}
+AFFINE_PASSES = ("totals", "carry", "apply")
+
+
+def affine_split(torch, lib, args, reps):
+  """Kernel 13's passes timed apart: each pass's entry
+  (rn_affine_scan_pass) launched reps times in a row between CUDA events,
+  after one run of all three (args: rn_affine_scan_launch's, stream
+  last). Returns {pass: ms}."""
+  from rednose_tpu_torch import _build
+
+  _build.check(lib.rn_affine_scan_launch(*args), "affine_suffix_scan")
+  out = {}
+  for i, name in enumerate(AFFINE_PASSES):
+    out[name], _ = timed_run(lambda: _build.check(
+        lib.rn_affine_scan_pass(i, *args), "affine_suffix_scan"), reps)
+  return out
+
+
 # kernel 12's chain floor (a note): the latency of a dependent float32 FMA
 # and of a named barrier among the covariance warps, in SM cycles
 FMA_CYCLES, BARRIER_CYCLES = 4, 20
@@ -4026,19 +4046,41 @@ def compare_smoother(torch, dev, gen, reps=5):
   for dt in (f32, f64):
     el = k11[dt]
     ms, k13[dt] = timed_run(lambda: ss.affine_suffix_scan(*el), reps)
+    wrapped[13, dt] = ms
     plain_ms, p13[dt] = timed_run(
         lambda: ss.affine_suffix_scan_reference(*el), 1)
     if dt == f32:
       ms13, plain13 = ms, plain_ms
   _, e32, D32 = k13[f32]
   nc = -(-n // ss.AFFINE_CHUNK)
-  scratch = [torch.empty((B, nc, 2 * d2 * d2 + d2), device=dev)
-             for _ in range(2)]
-  raw = lambda: alib.rn_affine_scan_launch(  # noqa: E731
-      C.data_ptr(), b.data_ptr(), V.data_ptr(), None, e32.data_ptr(),
-      D32.data_ptr(), *(a.data_ptr() for a in scratch), B, n,
-      ss.AFFINE_CHUNK, 0, stream)
-  raw13, _ = timed_run(raw, reps)
+  raw13, split13 = {}, {}
+  for dt in (f32, f64):
+    e_o, D_o = (torch.empty_like(a) for a in k13[dt][1:])
+    scratch = [torch.empty((B, nc, 2 * d2 * d2 + d2), dtype=dt, device=dev)
+               for _ in range(2)]
+    args = (*(a.data_ptr() for a in k11[dt]), None, e_o.data_ptr(),
+            D_o.data_ptr(), *(a.data_ptr() for a in scratch), B, n,
+            ss.AFFINE_CHUNK, int(dt == f64), stream)
+    raw13[dt], _ = timed_run(lambda: _build.check(
+        alib.rn_affine_scan_launch(*args), "affine_suffix_scan"), reps)
+    split13[dt] = affine_split(torch, alib, args, reps)
+    torch.cuda.synchronize()
+    checks.append((f"affine_suffix_scan raw {str(dt).split('.')[-1]} launch "
+                   f"bitwise the wrapped", torch.equal(e_o, k13[dt][1])
+                   and torch.equal(D_o, k13[dt][2])))
+    del e_o, D_o, scratch
+  aptx = _build.generated_ptxas(ss.affine_source(d2))
+  log(f"affine_suffix_scan (kernel 13) [B={B} T={T} (C, b, V)]: raw "
+      f"{raw13[f32]:.4f} ms float32, {raw13[f64]:.4f} ms float64 [first "
+      f"design: {FIRST_DESIGN_RAW['affine_suffix_scan']} ms float32]; "
+      f"wrapped {wrapped[13, f32]:.4f} / {wrapped[13, f64]:.4f} ms; passes "
+      f"(ms, each launched alone) float32 "
+      f"{ {k: round(v, 4) for k, v in split13[f32].items()} }, float64 "
+      f"{ {k: round(v, 4) for k, v in split13[f64].items()} }; design "
+      f"{smooth_design(ss.affine_info(d2, f32)['apply'])}; ptxas "
+      + "; ".join(f"{p} {kernel_ptxas(aptx, p + '_kernel')}"
+                  for p in AFFINE_PASSES) + f"; {card}")
+  raw13 = raw13[f32]
   # the elements' scan takes each type's own kernel 11 output: hold both
   # types on the float64 plain version of the float32 elements too
   p13_64 = ss.affine_suffix_scan_reference(*(a.double() for a in k11[f32]))
@@ -4050,7 +4092,7 @@ def compare_smoother(torch, dev, gen, reps=5):
   log(f"affine_suffix_scan float32 on the float32 elements: e {ek:.4g} "
       f"against the float64 plain scan of the same elements (plain float32 "
       f"{ep:.4g})")
-  del scratch, p13_64
+  del p13_64
   fma13 = 5 * d2**3 + 2 * d2**2 + 3 * d2**3 / ss.AFFINE_CHUNK
   rows.append(row("affine_suffix_scan", f"B={B} T={T} (C, b, V)", ms13,
                   raw13, plain13, io_bytes([k11[f32], e32, D32], 4),
@@ -4167,12 +4209,27 @@ def compare_smoother(torch, dev, gen, reps=5):
                                                                   **kw), 1)
   ms_s, (_, ek, _) = timed_run(lambda: ss.affine_suffix_scan(Ak, bk), reps)
   _, ep, _ = ss.affine_suffix_scan_reference(Ap, bp)
+  nr, dr = Ak.shape[1], Ak.shape[-1]
+  rlib = _build.generated_library(ss.affine_source(dr))
+  e_o = torch.empty_like(ek)
+  scratch = [Ak.new_empty((1, -(-nr // ss.AFFINE_CHUNK), 2 * dr * dr + dr))
+             for _ in range(2)]
+  args = (Ak.data_ptr(), bk.data_ptr(), None, None, e_o.data_ptr(), None,
+          *(a.data_ptr() for a in scratch), 1, nr, ss.AFFINE_CHUNK, 1,
+          stream)
+  raw_s, _ = timed_run(lambda: _build.check(
+      rlib.rn_affine_scan_launch(*args), "affine_suffix_scan"), reps)
+  split_s = affine_split(torch, rlib, args, reps)
+  torch.cuda.synchronize()
+  checks.append(("affine_suffix_scan (A, b) raw launch bitwise the wrapped",
+                 torch.equal(e_o, ek)))
   errs = {"A": rel_err(Ak, Ap), "b": rel_err(bk, bp), "e": rel_err(ek, ep)}
   ok = max(errs.values()) <= SMOOTH64_TOL
   log(f"smooth_gains refine variant [B=1 T={REFINE_T}, float64]: "
       f"{ms_r:.4f} ms wrapped, plain {plain_r:.4f} ms; affine_suffix_scan "
-      f"(A, b) {ms_s:.4f} ms; errors {errs} (tolerance {SMOOTH64_TOL}) -> "
-      f"{'ok' if ok else 'FAIL'}")
+      f"(A, b) {ms_s:.4f} ms wrapped, {raw_s:.4f} ms raw, passes "
+      f"{ {k: round(v, 4) for k, v in split_s.items()} } ms; errors {errs} "
+      f"(tolerance {SMOOTH64_TOL}) -> {'ok' if ok else 'FAIL'}")
   checks.append(("smooth_gains refine variant, float64", ok))
   failed = [name for name, ok in checks if not ok]
   require(not failed, f"kernels 11-14 against their plain versions: {failed}")

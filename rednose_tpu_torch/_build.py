@@ -282,8 +282,9 @@ def generated_launcher(source: str):
 # norm, is_double, stream; kernel 12 xp, Pp, xq, Pq, C, p, xs, Ps, B, T,
 # norm, ref_seed, is_double, stream; kernel 14 xq, Pq, e, D, p, xs, Ps, B,
 # T, n, norm, is_double, stream (csrc/smooth.cuh); kernel 13 A, b, V, Ao,
-# bo, Vo, tot, excl, N, n, chunk, is_double, stream (csrc/affine_scan.cu);
-# the info entries (kernel or pass, is_double, out (5 ints))
+# bo, Vo, tot, excl, N, n, chunk, is_double, stream (csrc/affine_scan.cu),
+# and one of its passes (the pass first, then the same); the info entries
+# (kernel or pass, is_double, out (9 ints))
 SMOOTH_ENTRIES = {
     "rn_smooth_gains_launch": (_P,) * 9 + (_I,) * 3 + (_P,),
     "rn_smooth_refine_launch": (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 4
@@ -292,6 +293,7 @@ SMOOTH_ENTRIES = {
     "rn_smooth_inject_launch": (_P,) * 7 + (_I,) * 5 + (_P,),
     "rn_smooth_info": (_I, _I, _P),
     "rn_affine_scan_launch": (_P,) * 8 + (_I,) * 4 + (_P,),
+    "rn_affine_scan_pass": (_I,) + (_P,) * 8 + (_I,) * 4 + (_P,),
     "rn_affine_scan_info": (_I, _I, _P),
 }
 

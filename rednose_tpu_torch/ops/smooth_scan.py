@@ -19,8 +19,11 @@ smoothing/rts.py strings together on the card:
     backward pass from kernel 11's gains, a chain over k for each lane;
     replaces the reverse lax.scan's body (:95-121).
   * kernel 13, `affine_suffix_scan` (csrc/affine_scan.cu): the inclusive
-    suffix combine of affine maps (A, b[, V]) along time; replaces
-    _suffix_scan_lane (:157) and the associative_scan (:351).
+    suffix combine of affine maps (A, b[, V]) along time, three passes over
+    chunks of AFFINE_CHUNK (totals, carry, apply), a warp or a few a chunk,
+    each thread a register tile of the products, the elements staged ahead
+    by cp.async; replaces _suffix_scan_lane (:157) and the associative_scan
+    (:351).
   * kernel 14, `smooth_inject` (csrc/smooth.cuh): x_s = inject(x_{k|k},
     [e_k, 0]), P_s = sym(P_{k|k} + pad(D_k)), the rows past the elements
     copied; replaces the parallel form's inject and covariance add
@@ -56,7 +59,8 @@ from rednose_tpu_torch.core.spec import FilterSpec
 from rednose_tpu_torch.ops import entry_slab
 
 _SCALARS = (torch.float32, torch.float64)
-# elements a chunk of kernel 13's three passes (csrc/affine_scan.cu)
+# elements a chunk of kernel 13's three passes (csrc/affine_scan.cu); the
+# chunking sets the order of the combines, so another chunk is not bitwise
 AFFINE_CHUNK = 64
 
 
@@ -386,6 +390,8 @@ _DESIGN_KEYS = {
     "backward": ("cov_warps", "ring_stages", "tile_M1", "tile_M"),
     "inject": ("rows_per_block",),
 }
+# kernel 13's design constants a pass (csrc/affine_scan.cu, RN_AF_*)
+_AFFINE_KEYS = ("ring_stages", "tile_rows", "row_split", "tile_cols")
 
 
 def _info(fn, *args, keys=_INFO_KEYS):
@@ -411,9 +417,12 @@ def smooth_info(spec: FilterSpec, pnames=(), dtype=torch.float32) -> dict:
                                     "inject"))}
 
 
-def affine_info(d: int, dtype=torch.float32) -> dict:
-  """Kernel 13's three passes' launch shapes for d x d elements."""
-  lib = _build.generated_library(affine_source(d))
+def affine_info(d: int, dtype=torch.float32, source=None) -> dict:
+  """Kernel 13's three passes' launch shapes for d x d elements (or of the
+  given build of it), each with its design: ring stages, a tile's rows,
+  threads a row, a tile's columns."""
+  lib = _build.generated_library(source or affine_source(d))
   dbl = dtype == torch.float64
-  return {name: _info(lib.rn_affine_scan_info, i, dbl)
+  return {name: _info(lib.rn_affine_scan_info, i, dbl,
+                      keys=_INFO_KEYS + _AFFINE_KEYS)
           for i, name in enumerate(("totals", "carry", "apply"))}

@@ -26,8 +26,12 @@ kernel 12 at 2-16 covariance warps, 2-8 ring stages and its products'
 tiles, kernel 11 at register tiles 2-4 and 4 or 8 items a block, with F
 whole as the parent's, the timing aids of each and
 the split they give; with --parent the parent's kernels 11 and 12 and its
-kernel 11's aids, in turns, held bitwise: smooth_sweep); all eight by
-default. W is a constant of
+kernel 11's aids, in turns, held bitwise: smooth_sweep) and affine (kernel
+13, the parallel smoother's suffix scan, on compare_smoother's elements:
+ring stages 2-4, the products' tiles, fused or apart, the launch
+bounds, chunks of 32-256, the timing aids, each pass timed apart; with
+--parent the parent's kernel 13 split apart and in turns, held bitwise:
+affine_sweep); all nine by default. W is a constant of
 each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
@@ -37,7 +41,8 @@ kernel 6, mode "mixed" without a camera-frame unit) and
 camera-frame unit), `TILE_ROLES_STREAM` (kernel 9, mode "stream"),
 `TILE_ROLES_ADJOINT` (kernel 10, mode "stream_adjoint");
 kernel 8's `BLOCK_THREADS` in csrc/triangulate.cu; kernels 11 and 12's
-`RN_SM_*` in csrc/smooth.cuh.
+`RN_SM_*` in csrc/smooth.cuh; kernel 13's `RN_AF_*` in
+csrc/affine_scan.cu.
 Kernel 1's are `LANES`, `CHUNK` and `STAGES` in
 csrc/kinematic_scan.cu (filters a block, steps a ring stage, stages).
 This script builds each kernel at each value, nvcc processes in
@@ -100,7 +105,7 @@ WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
 PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate",
-         "adjoint", "smooth")
+         "adjoint", "smooth", "affine")
 STREAM_WS = (2, 4, 8, 16, 32)
 STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
@@ -1280,6 +1285,264 @@ def smooth_sweep(torch, dev, gen, parent=None):
   return results
 
 
+# ---------------------------------------------------------------- kernel 13
+AFFINE_STAGES = (2, 3, 4)    # ring stages (RN_AF_STAGES)
+# tiles (rows, threads a row) of passes 1 and 3 in float (RN_AF_ROWS,
+# RN_AF_SPLIT) and in double (RN_AF_ROWS64, RN_AF_SPLIT64), and of pass 2
+# (RN_AF_CROWS, RN_AF_CSPLIT), the shipped ones first; each tile's first
+# two products fused or apart (RN_AF_FUSE, RN_AF_FUSE64, RN_AF_CFUSE)
+AFFINE_TILES = ((3, 4), (1, 1), (2, 2), (3, 3), (4, 5), (2, 4))
+AFFINE_TILES64 = ((1, 4), (3, 4), (2, 4), (1, 8), (1, 1))
+AFFINE_CARRY_TILES = ((1, 11), (3, 4), (1, 4), (1, 8), (2, 8), (1, 16))
+AFFINE_CHUNKS = (32, 64, 128, 256)
+# blocks an SM passes 1 and 3 are fit to (RN_AF_MINB; the double ones to
+# half as many, RN_AF_MINB64)
+AFFINE_MINB = (1, 10, 16)
+# timing aids (csrc/affine_scan.cu RN_AF_AID bits; outputs garbage)
+AFFINE_AIDS = {"products only (no copies, no stores)": 1 | 4,
+               "copies only (no products, no stores)": 2 | 4,
+               "copies and stores (no products)": 2,
+               "without the stores": 4}
+# a pass entry for a parent's kernel 13 that has none (the first design's
+# affine_scan.cu): its three kernels launched one at a time, as
+# rn_affine_scan_pass
+PARENT_AFFINE_PASS = """
+template <typename S>
+static int rn_parent_pass(int pass, const void* A, const void* b,
+                          const void* V, void* Ao, void* bo, void* Vo,
+                          void* tot, void* excl, int N, int n, int chunk,
+                          cudaStream_t st) {
+  using namespace rn_affine;
+  const size_t smem = sizeof(S) * SMEM;
+  const int nc = (n + chunk - 1) / chunk;
+  if (pass == 0 && nc > 1)
+    totals_kernel<S><<<dim3(nc, N), AFFINE_THREADS, smem, st>>>(
+        (const S*)A, (const S*)b, (const S*)V, (S*)tot, n, chunk, nc);
+  if (pass == 1 && nc > 1)
+    carry_kernel<S><<<N, AFFINE_THREADS, smem, st>>>(
+        (const S*)tot, (S*)excl, V != nullptr, nc);
+  if (pass == 2)
+    apply_kernel<S><<<dim3(nc, N), AFFINE_THREADS, smem, st>>>(
+        (const S*)A, (const S*)b, (const S*)V,
+        nc > 1 ? (const S*)excl : nullptr, (S*)Ao, (S*)bo, (S*)Vo, n, chunk,
+        nc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rn_affine_scan_pass(int pass, const void* A, const void* b,
+                                   const void* V, void* Ao, void* bo,
+                                   void* Vo, void* tot, void* excl, int N,
+                                   int n, int chunk, int is_double,
+                                   void* stream) {
+  auto st = (cudaStream_t)stream;
+  return is_double ? rn_parent_pass<double>(pass, A, b, V, Ao, bo, Vo, tot,
+                                            excl, N, n, chunk, st)
+                   : rn_parent_pass<float>(pass, A, b, V, Ao, bo, Vo, tot,
+                                           excl, N, n, chunk, st);
+}
+"""
+
+
+def affine_variant(d, **consts):
+  """Kernel 13's source for d x d elements with csrc/affine_scan.cu's
+  design constants (RN_AF_STAGES, the tiles' RN_AF_ROWS / SPLIT / FUSE,
+  RN_AF_MINB, RN_AF_AID) set by #defines ahead of it."""
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  return "".join(f"#define RN_AF_{k} {v}\n" for k, v in consts.items()) + \
+      ss.affine_source(d)
+
+
+def build_affine_parent(parent, d):
+  """nvcc of the parent's csrc/affine_scan.cu for d x d elements with
+  PARENT_AFFINE_PASS where it has no pass entry of its own, in a
+  directory of its own: (library with SMOOTH_ENTRIES declared, ptxas
+  report)."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  dst = SWEEP_DIR / "affine_parent"
+  shutil.rmtree(dst, ignore_errors=True)
+  dst.mkdir(parents=True)
+  text = (pathlib.Path(parent) / "rednose_tpu_torch" / "csrc"
+          / "affine_scan.cu").read_text()
+  (dst / "affine_scan.cu").write_text(text)
+  (dst / "gen.cu").write_text(ss.affine_source(d) + (
+      "" if "rn_affine_scan_pass" in text else PARENT_AFFINE_PASS))
+  proc = subprocess.run(
+      [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(dst), "-o",
+       str(dst / "libgen.so"), str(dst / "gen.cu")],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  if proc.returncode:
+    raise RuntimeError(f"parent kernel 13: nvcc failed:\n{proc.stdout}")
+  lib = ctypes.CDLL(str(dst / "libgen.so"))
+  for entry, argtypes in _build.SMOOTH_ENTRIES.items():
+    fn = getattr(lib, entry, None)
+    if fn is not None:
+      fn.argtypes = list(argtypes)
+      fn.restype = ctypes.c_int
+  return lib, proc.stdout
+
+
+def affine_cases(torch, dev, gen):
+  """Kernel 13's inputs as chip_smoke.compare_smoother gives them: the
+  shipped kernel 11's (C, b, V) of the 64 x 8192 live log in float32 and
+  float64 ({dtype: (C, b, V)}), and the refine variant's (A, b) of the
+  T = 600 cold log in float64."""
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  spec = LiveKalman.build_spec()
+  st = smooth_stacks(torch, dev, gen)
+  cbv = {dt: ss.smooth_gains(spec, {}, *a) for dt, a in st.items()}
+  del st
+  rspec, stacks64, ts = cs.refine_log(torch, dev, gen)
+  rs = [a[None].contiguous() for a in stacks64]
+  rd = (ts[1:] - ts[:-1])[None].contiguous()
+  Cr, br, Vr = ss.smooth_gains(rspec, {}, *rs, rd)
+  _, er, _ = ss.affine_suffix_scan(Cr, br, Vr)
+  ab = ss.smooth_gains(rspec, {}, rs[0], None, rs[2], None, None, C=Cr,
+                       e=er, norm_quats=True)
+  torch.cuda.synchronize()
+  return cbv, ab
+
+
+def affine_sweep(torch, dev, gen, parent=None):
+  """Kernel 13 on chip_smoke.compare_smoother's elements (affine_cases):
+  the shipped design and every candidate (ring stages AFFINE_STAGES, the
+  tiles AFFINE_TILES, AFFINE_TILES64 and AFFINE_CARRY_TILES, the first two
+  products fused or apart, the launch bounds' blocks an SM) and the
+  timing aids AFFINE_AIDS at the shipped design, each raw on the 64 x 8192
+  (C, b, V) in float32 and float64 and on the T = 600 (A, b) in float64,
+  its passes timed apart (chip_smoke.affine_split), with its launch shape
+  and ptxas and its outputs held bitwise against the shipped build's; the
+  shipped build at AFFINE_CHUNKS chunks (not bitwise: the chunks set the
+  order of the combines). With parent (a checkout of the
+  parent commit): its kernel 13 (its own affine_scan.cu, with a pass
+  entry) split apart too, and in turns with the shipped build (parent,
+  shipped, shipped, parent) on the three inputs, held bitwise. Raw
+  launches of the C entries on preallocated outputs, CUDA events after a
+  warm-up."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  d = 22
+  srcs = {"shipped": ss.affine_source(d)}
+  for k in AFFINE_STAGES:
+    srcs[f"stages {k}"] = affine_variant(d, STAGES=k)
+  for r, sp in AFFINE_TILES:
+    srcs[f"float tile {r} x 1/{sp}"] = affine_variant(d, ROWS=r, SPLIT=sp)
+  for r, sp in AFFINE_TILES64:
+    srcs[f"double tile {r} x 1/{sp}"] = affine_variant(d, ROWS64=r,
+                                                        SPLIT64=sp)
+  for r, sp in AFFINE_CARRY_TILES:
+    srcs[f"carry tile {r} x 1/{sp}"] = affine_variant(d, CROWS=r,
+                                                       CSPLIT=sp)
+  # the first two products in one loop or apart, against the shipped
+  # choice of each tile
+  srcs["float products fused"] = affine_variant(d, FUSE=1)
+  srcs["double products apart"] = affine_variant(d, FUSE64=0)
+  srcs["carry products apart"] = affine_variant(d, CFUSE=0)
+  for k in AFFINE_MINB:
+    srcs[f"float fit to {k} blocks an SM"] = affine_variant(d, MINB=k)
+    srcs[f"double fit to {max(k // 2, 1)} blocks an SM"] = affine_variant(
+        d, MINB64=max(k // 2, 1))
+  for label, aid in AFFINE_AIDS.items():
+    srcs[label] = affine_variant(d, AID=aid)
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(1) as pool:
+    pj = None if parent is None else pool.submit(build_affine_parent,
+                                                 parent, d)
+    _build.build_generated_many(list(srcs.values()))
+    libs = {k: _build.generated_library(v) for k, v in srcs.items()}
+    reports = {k: _build.generated_ptxas(v) for k, v in srcs.items()}
+    if pj is not None:
+      libs["parent"], reports["parent"] = pj.result()
+  cs.log(f"kernel 13: {len(libs)} builds in {time.perf_counter() - t0:.1f} s")
+  cbv, ab = affine_cases(torch, dev, gen)
+  f32, f64 = torch.float32, torch.float64
+  stream = torch.cuda.current_stream().cuda_stream
+
+  def args_of(el, chunk=ss.AFFINE_CHUNK):
+    """(rn_affine_scan_launch's arguments, its outputs) on el (A, b[,
+    V]), outputs and scratch preallocated."""
+    A, b = el[0], el[1]
+    V = el[2] if len(el) > 2 else None
+    N, n = A.shape[:2]
+    outs = (torch.empty_like(b), None if V is None else torch.empty_like(V))
+    nc = -(-n // chunk)
+    scratch = [A.new_empty((N, nc, 2 * d * d + d)) for _ in range(2)]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return (ptr(A), ptr(b), ptr(V), None, ptr(outs[0]), ptr(outs[1]),
+            *(t.data_ptr() for t in scratch), N, n, chunk,
+            int(A.dtype == f64), stream), (outs, scratch)
+
+  def raw(lib, args):
+    return cs.timed_run(lambda: _build.check(
+        lib.rn_affine_scan_launch(*args), "affine_suffix_scan"), REPS)[0]
+
+  def same(a, b):
+    return all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+
+  results = {}
+  cases = {"float32": cbv[f32], "float64": cbv[f64], "(A, b) float64": ab}
+  ship_out = {}
+  for case, el in cases.items():
+    args, (ship_out[case], _) = args_of(el)
+    raw(libs["shipped"], args)
+  for label, lib in libs.items():
+    row = {}
+    for case, el in cases.items():
+      args, (outs, _) = args_of(el)
+      row[case] = {"raw_ms": raw(lib, args),
+                   "passes_ms": cs.affine_split(torch, lib, args, REPS)}
+      torch.cuda.synchronize()
+      if label not in AFFINE_AIDS:
+        row[case]["bitwise_shipped"] = same(outs, ship_out[case])
+      del outs
+    if label != "parent":
+      row["info"] = {str(dt).split(".")[-1]: {
+          k: list(v.values()) for k, v in ss.affine_info(
+              d, dt, srcs[label]).items()} for dt in (f32, f64)}
+    row["ptxas"] = {p: kernel_ptxas(reports[label], p + "_kernel")
+                    for p in cs.AFFINE_PASSES}
+    results[label] = row
+    cs.log(f"kernel 13 {label}: " + "; ".join(
+        f"{case} raw {r['raw_ms']:.4f} ms, passes "
+        f"{ {k: round(v, 4) for k, v in r['passes_ms'].items()} }, bitwise "
+        f"the shipped build {r.get('bitwise_shipped')}"
+        for case, r in row.items() if case in cases)
+        + f"; info {row.get('info')}; ptxas {row['ptxas']}")
+  ship = results["shipped"]
+  for chunk in AFFINE_CHUNKS:
+    args, _ = args_of(cbv[f32], chunk)
+    ship[f"chunk {chunk}"] = dict(
+        raw_ms=raw(libs["shipped"], args),
+        passes_ms=cs.affine_split(torch, libs["shipped"], args, REPS))
+    cs.log(f"kernel 13 shipped, chunk {chunk}: {ship[f'chunk {chunk}']}")
+  if parent is not None:
+    turns = {}
+    for label, el in (("(C, b, V) float32", cbv[f32]),
+                      ("(C, b, V) float64", cbv[f64]),
+                      ("(A, b) T=600 float64", ab)):
+      times, outs = {"parent": [], "shipped": []}, {}
+      for which in ("parent", "shipped", "shipped", "parent"):
+        args, (o, _) = args_of(el)
+        times[which].append(raw(libs[which], args))
+        outs[which] = o
+      torch.cuda.synchronize()
+      bits = same(outs["parent"], outs["shipped"])
+      diff = max(float((x - y).abs().max()) for x, y in zip(
+          outs["parent"], outs["shipped"]) if x is not None)
+      turns[label] = dict(times=times, bitwise=bits, max_abs_diff=diff)
+      cs.log(f"kernel 13 {label} in turns: parent {times['parent']} ms, "
+             f"shipped {times['shipped']} ms; bitwise the parent's: {bits} "
+             f"(largest |difference| {diff:.3g})")
+      del outs
+    results["in turns"] = turns
+  return results
+
+
 # ---------------------------------------------------------------- kernel 8
 TRI_SRC = ROOT / "rednose_tpu_torch" / "csrc" / "triangulate.cu"
 TRI_CONSTS = ("BLOCK_THREADS",)
@@ -1588,12 +1851,12 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 1, "
-                       "2, 3, 8, 10, 11 and 12 run beside these")
+                       "2, 3, 8, 10, 11, 12 and 13 run beside these")
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
                        "frames, kernel 1, kernel 5, kernel 9, kernel 8, "
-                       "kernel 10, kernels 11 and 12")
+                       "kernel 10, kernels 11 and 12, kernel 13")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -1636,8 +1899,11 @@ def main():
     results["kernel 10"] = adjoint_sweep(torch, dev, gen, args.parent)
   if "smooth" in args.parts:
     results["kernels 11-12"] = smooth_sweep(torch, dev, gen, args.parent)
+  if "affine" in args.parts:
+    results["kernel 13"] = affine_sweep(torch, dev, gen, args.parent)
   if args.parent is not None and set(args.parts) - {"triangulate",
-                                                    "adjoint", "smooth"}:
+                                                    "adjoint", "smooth",
+                                                    "affine"}:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))

@@ -19,8 +19,11 @@ four clones, which pass through): float64 within 1e-9 of each
 component's scale; float32 with its error against the float64 oracle at
 most 3x the plain float32 smoother's own, plus 1e-6. Also: logs of T =
 1, 2 and 7 steps (7: not a multiple of kernel 12's ring), msckf_eskf's
-clone rows through kernel 12 bitwise, and kernel 11's host build bitwise
-what its first design's per-entry sum order gives (PARENT_GAINS).
+clone rows through kernel 12 bitwise, kernel 13 against JAX's
+_suffix_scan_lane at each main-block size D = 2, 5, 6, 22 and n from one
+element to three chunks and a ragged fourth, and kernels 11 and 13's host
+builds bitwise what their first designs' per-entry sum orders give
+(PARENT_GAINS, PARENT_AFFINE).
 
 The card route (the custom ops rednose::rts_smooth and
 rednose::rts_smooth_parallel) runs here on CPU tensors with the
@@ -30,9 +33,11 @@ and an input that requires grad, or torch.func.grad, raises, naming the
 smoother's adjoint.
 
 Card-only cases (marked cuda) hold each kernel against its plain version
-on the card, float32 and float64, on 1, 2, 37 and 64 lanes, and kernels
-11 and 12 on logs of 1, 2 and 7 steps, each lane of kernel 12 bitwise
-that lane alone. This file imports JAX
+on the card, float32 and float64, on 1, 2, 37 and 64 lanes, kernels 11
+and 12 on logs of 1, 2 and 7 steps, each lane of kernel 12 bitwise that
+lane alone, and kernel 13 at each D and n of its CPU cases (in chunks of
+AFFINE_CHUNK), with and without V and out A, its float64 raw launches
+bitwise the wrapped call. This file imports JAX
 only in a try (the card's machine has none): `python -m pytest
 tests/test_torch_smooth_kernels.py -m cuda --noconftest`."""
 
@@ -63,6 +68,7 @@ from rednose_tpu_torch.models.kinematic import (
 )
 from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
 from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+from rednose_tpu_torch import _build
 from rednose_tpu_torch.ops import smooth_scan
 from rednose_tpu_torch.runtime import scan
 from rednose_tpu_torch.smoothing import rts
@@ -646,6 +652,233 @@ def _scan_case(with_V):
   return (A, b, V), [np.moveaxis(np.asarray(a), -1, 1) for a in out]
 
 
+# the D and n cases of kernel 13: the main blocks of the kinematic (2) and
+# car (5) specs, a 6, the live spec's 22; n = 1, a chunk less one, one
+# chunk, one more, three and a ragged fourth (in chunks of `chunk`)
+SCAN_DS = (2, 5, 6, 22)
+
+
+def scan_ns(chunk):
+  return (1, chunk - 1, chunk, chunk + 1, 3 * chunk + 5)
+
+
+def _scan_elems(d, n, with_V, dtype=np.float64, chunk=HOST_CHUNK, seed=0):
+  """The last n of max(scan_ns(chunk)) random contracting elements (A, b,
+  V or None) of 3 lanes, numpy."""
+  rng = np.random.RandomState(seed + 101 * d)
+  N, m = 3, scan_ns(chunk)[-1]
+  A = (0.9 * rng.randn(N, m, d, d) / np.sqrt(d)).astype(dtype)
+  b = rng.randn(N, m, d).astype(dtype)
+  V = _spd(rng, d, N, m, 1.0).astype(dtype) if with_V else None
+  return tuple(None if a is None else np.ascontiguousarray(a[:, m - n:])
+               for a in (A, b, V))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scan(d, with_V):
+  """JAX's _suffix_scan_lane, jitted and vmapped over the lanes, of all
+  the elements _scan_elems(d, n, with_V) cuts from, in the (N, n, ...)
+  layout: the scan of the last n is the last n of it."""
+  A, b, V = _scan_elems(d, scan_ns(HOST_CHUNK)[-1], with_V)
+  lm = lambda a: jnp.moveaxis(a, 1, -1)  # noqa: E731
+  elems = (lm(A), lm(b[:, :, :, None])) + (() if V is None else (lm(V),))
+  out = jax.jit(jax.vmap(jrts._suffix_scan_lane))(*elems)
+  return [np.moveaxis(np.asarray(a), -1, 1) for a in out]
+
+
+@needs_jax
+@pytest.mark.parametrize("want_A", [False, True])
+@pytest.mark.parametrize("with_V", [True, False])
+@pytest.mark.parametrize("n", scan_ns(HOST_CHUNK))
+@pytest.mark.parametrize("d", SCAN_DS)
+def test_suffix_scan_sizes_match_jax(d, n, with_V, want_A):
+  """Kernel 13's host build (chunks of HOST_CHUNK: n = 1 one chunk, a
+  chunk less one, one whole chunk, one more element, three chunks and a
+  ragged fourth) against JAX's _suffix_scan_lane (jitted, vmapped over 3
+  lanes) at each main-block size, with V and without, out A asked for or
+  not; float64, each output within TOL64 of its largest entry."""
+  A, b, V = _scan_elems(d, n, with_V)
+  want = [a[:, a.shape[1] - n:] for a in _jax_scan(d, with_V)]
+  Ao, bo, Vo = Host().affine_suffix_scan(
+      _t(A), _t(b), None if V is None else _t(V), want_A=want_A)
+  assert cov_err(bo.numpy(), want[1][..., 0]) <= TOL64
+  if with_V:
+    assert cov_err(Vo.numpy(), want[2]) <= TOL64
+  else:
+    assert Vo is None
+  if want_A:
+    assert cov_err(Ao.numpy(), want[0]) <= TOL64
+  else:
+    assert Ao is None
+
+
+# kernel 13's first design (a thread an output entry, its sum in
+# ascending l with b_k / V_k added after it, the three passes over
+# chunks), one thread: the parent order, for the bitwise case below
+PARENT_AFFINE = r"""
+namespace rn_parent {
+constexpr int D = RN_AFFINE_D;
+constexpr size_t TOT = 2 * D * D + D;
+template <typename S>
+struct State {
+  S sm[5 * D * D + 2 * D];
+  S *Ak = sm, *Ap = sm + D * D, *An = sm + 2 * D * D, *Vp = sm + 3 * D * D,
+    *M = sm + 4 * D * D, *bp = sm + 5 * D * D, *bn = sm + 5 * D * D + D;
+  void load(const S* A0, const S* b0, const S* V0) {
+    for (int q = 0; q < D * D; ++q) {
+      Ap[q] = A0 ? A0[q] : (S)(q / D == q % D);
+      Vp[q] = V0 ? V0[q] : (S)0;
+    }
+    for (int i = 0; i < D; ++i) bp[i] = b0 ? b0[i] : (S)0;
+  }
+  void store(S* A0, S* b0, S* V0) const {
+    for (int q = 0; q < D * D; ++q) {
+      A0[q] = Ap[q];
+      if (V0) V0[q] = Vp[q];
+    }
+    for (int i = 0; i < D; ++i) b0[i] = bp[i];
+  }
+  void apply(const S* Ag, const S* bg, const S* Vg, bool want_A, S* Ao,
+             S* bo, S* Vo) {
+    for (int q = 0; q < D * D; ++q) Ak[q] = Ag[q];
+    for (int i = 0; i < D; ++i) {
+      S s = 0;
+      for (int j = 0; j < D; ++j) s += Ak[i * D + j] * bp[j];
+      s += bg[i];
+      bn[i] = s;
+      if (bo) bo[i] = s;
+    }
+    for (int q = 0; q < D * D; ++q) {
+      const int i = q / D, j = q % D;
+      if (want_A) {
+        S s = 0;
+        for (int l = 0; l < D; ++l) s += Ak[i * D + l] * Ap[l * D + j];
+        An[q] = s;
+        if (Ao) Ao[q] = s;
+      }
+      if (Vg) {
+        S s = 0;
+        for (int l = 0; l < D; ++l) s += Ak[i * D + l] * Vp[l * D + j];
+        M[q] = s;
+      }
+    }
+    if (Vg)
+      for (int q = 0; q < D * D; ++q) {
+        const int i = q / D, j = q % D;
+        S s = 0;
+        for (int l = 0; l < D; ++l) s += M[i * D + l] * Ak[j * D + l];
+        s += Vg[q];
+        Vp[q] = s;
+        if (Vo) Vo[q] = s;
+      }
+    S* t = bp; bp = bn; bn = t;
+    if (want_A) { t = Ap; Ap = An; An = t; }
+  }
+};
+
+template <typename S>
+void scan(const S* A, const S* b, const S* V, S* Ao, S* bo, S* Vo, S* tot,
+          S* excl, int N, int n, int chunk) {
+  const int nc = (n + chunk - 1) / chunk;
+  State<S> st;
+  for (int l = 0; l < N && nc > 1; ++l) {
+    for (int c = 0; c < nc; ++c) {
+      st.load(nullptr, nullptr, nullptr);
+      const int lo = c * chunk, hi = lo + chunk < n ? lo + chunk : n;
+      for (int k = hi - 1; k >= lo; --k) {
+        const size_t e = (size_t)l * n + k;
+        st.apply(A + e * D * D, b + e * D, V ? V + e * D * D : nullptr, true,
+                 nullptr, nullptr, nullptr);
+      }
+      S* t = tot + ((size_t)l * nc + c) * TOT;
+      st.store(t, t + D * D, V ? t + D * D + D : nullptr);
+    }
+    st.load(nullptr, nullptr, nullptr);
+    for (int c = nc - 1; c >= 0; --c) {
+      S* x = excl + ((size_t)l * nc + c) * TOT;
+      st.store(x, x + D * D, V ? x + D * D + D : nullptr);
+      if (c == 0) break;
+      const S* t = tot + ((size_t)l * nc + c) * TOT;
+      st.apply(t, t + D * D, V ? t + D * D + D : nullptr, true, nullptr,
+               nullptr, nullptr);
+    }
+  }
+  for (int l = 0; l < N; ++l)
+    for (int c = 0; c < nc; ++c) {
+      const S* x = excl + ((size_t)l * nc + c) * TOT;
+      if (nc > 1) st.load(x, x + D * D, V ? x + D * D + D : nullptr);
+      else st.load(nullptr, nullptr, nullptr);
+      const int lo = c * chunk, hi = lo + chunk < n ? lo + chunk : n;
+      for (int k = hi - 1; k >= lo; --k) {
+        const size_t e = (size_t)l * n + k;
+        st.apply(A + e * D * D, b + e * D, V ? V + e * D * D : nullptr,
+                 Ao != nullptr, Ao ? Ao + e * D * D : nullptr, bo + e * D,
+                 V ? Vo + e * D * D : nullptr);
+      }
+    }
+}
+}  // namespace rn_parent
+
+extern "C" int rn_parent_affine(const void* A, const void* b, const void* V,
+                                void* Ao, void* bo, void* Vo, void* tot,
+                                void* excl, int N, int n, int chunk,
+                                int is_double) {
+  if (is_double)
+    rn_parent::scan<double>((const double*)A, (const double*)b,
+                            (const double*)V, (double*)Ao, (double*)bo,
+                            (double*)Vo, (double*)tot, (double*)excl, N, n,
+                            chunk);
+  else
+    rn_parent::scan<float>((const float*)A, (const float*)b, (const float*)V,
+                           (float*)Ao, (float*)bo, (float*)Vo, (float*)tot,
+                           (float*)excl, N, n, chunk);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", SCAN_DS)
+def test_suffix_scan_bitwise_the_parent_order(d, dtype):
+  """Kernel 13's host build (register tiles, the elements staged in a
+  ring, the state in shared memory as in global memory) gives bitwise what
+  its first design's order gives (PARENT_AFFINE: a thread an entry, each
+  sum in ascending l, b_k / V_k added after it) at each main-block size
+  and n of test_suffix_scan_sizes_match_jax, with V and without, out A
+  asked for or not, in float64 and float32; and it holds against
+  affine_suffix_scan_reference within 1e-12 (float64)."""
+  lib = host_lib(smooth_scan.affine_source(d) + PARENT_AFFINE)
+  fn = lib.rn_parent_affine
+  fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+  fn.restype = ctypes.c_int
+  np_dt = np.float64 if dtype == torch.float64 else np.float32
+  for n in scan_ns(HOST_CHUNK):
+    for with_V in (True, False):
+      A, b, V = (None if a is None else _t(a, dtype)
+                 for a in _scan_elems(d, n, with_V, np_dt, seed=7))
+      N = A.shape[0]
+      got = Host().affine_suffix_scan(A, b, V, want_A=True)
+      want = (torch.zeros_like(A), torch.zeros_like(b),
+              None if V is None else torch.zeros_like(V))
+      nc = -(-n // HOST_CHUNK)
+      scratch = [A.new_zeros((N, nc, 2 * d * d + d)) for _ in range(2)]
+      assert fn(*(_p(a) for a in (A, b, V, *want, *scratch)), N, n,
+                HOST_CHUNK, dtype == torch.float64) == 0
+      for g, w in zip(got, want):
+        if w is None:
+          assert g is None
+          continue
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+      # out A not asked for: b and V as before, bitwise
+      got_b = Host().affine_suffix_scan(A, b, V)
+      np.testing.assert_array_equal(got_b[1].numpy(), want[1].numpy())
+      if dtype == torch.float64:
+        ref = smooth_scan.affine_suffix_scan_reference(A, b, V, want_A=True)
+        for g, r in zip(got, ref):
+          if r is not None:
+            assert cov_err(g.numpy(), r.numpy()) <= 1e-12
+
+
 def test_suffix_scan_matches_plain_doubling_scan():
   """Kernel 13 (host build) against its plain version
   (affine_suffix_scan_reference, the port's doubling scan) on the same
@@ -869,3 +1102,47 @@ def test_short_logs_on_card_match_plain(cuda_device, name, dtype, T):
     x1, P1 = ss.smooth_backward(spec, {}, *one, C[i:i + 1].contiguous(),
                                 norm_quats=True)
     assert torch.equal(x1, xs[i:i + 1]) and torch.equal(P1, Ps[i:i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", SCAN_DS)
+def test_suffix_scan_on_card_matches_plain(cuda_device, d, dtype):
+  """Kernel 13 on the card at each main-block size and n of
+  scan_ns(AFFINE_CHUNK) (one chunk, a ragged last one, three passes), 3
+  lanes, with V and without, out A asked for (the sharded smoother's
+  carry) or not, against affine_suffix_scan_reference on the same card
+  inputs: float64 within TOL64, float32 within 1e-4 of each output's
+  largest entry (two float32 programs that associate the combines
+  differently); float64 raw launches (rn_affine_scan_launch on
+  preallocated outputs) bitwise the wrapped call."""
+  ss = smooth_scan
+  tol = TOL64 if dtype == torch.float64 else 1e-4
+  np_dt = np.float64 if dtype == torch.float64 else np.float32
+  lib = _build.generated_library(ss.affine_source(d))
+  stream = torch.cuda.current_stream(cuda_device).cuda_stream
+  for n in scan_ns(ss.AFFINE_CHUNK):
+    for with_V in (True, False):
+      A, b, V = (None if a is None else _t(a, dtype).to(cuda_device)
+                 for a in _scan_elems(d, n, with_V, np_dt, ss.AFFINE_CHUNK))
+      for want_A in (False, True):
+        n0 = ss.affine_suffix_scan.launches
+        got = ss.affine_suffix_scan(A, b, V, want_A=want_A)
+        assert ss.affine_suffix_scan.launches == n0 + 1
+        ref = ss.affine_suffix_scan_reference(A, b, V, want_A=want_A)
+        for g, r in zip(got, ref):
+          assert (g is None) == (r is None)
+          if r is not None:
+            assert cov_err(g.cpu(), r.cpu()) <= tol, (n, with_V, want_A)
+        if dtype != torch.float64:
+          continue
+        N = A.shape[0]
+        raw = [None if g is None else torch.empty_like(g) for g in got]
+        nc = -(-n // ss.AFFINE_CHUNK)
+        scratch = [A.new_empty((N, nc, 2 * d * d + d)) for _ in range(2)]
+        _build.check(lib.rn_affine_scan_launch(
+            *(_p(a) for a in (A, b, V, *raw, *scratch)), N, n,
+            ss.AFFINE_CHUNK, 1, stream), "affine_suffix_scan")
+        torch.cuda.synchronize()
+        for g, r in zip(got, raw):
+          assert g is None or torch.equal(g, r)
