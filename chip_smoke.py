@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from the repository (rednose_tpu_torch/
 _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each, the examples' variants among
-them). Then:
-  1. ten main paths, each with every kernel's launch count set to 0
+them; emitted by EMIT_WORKERS spawned processes, emit_in_workers). Then:
+  1. twelve main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (the engine on the native rewind ring; P
@@ -84,11 +84,12 @@ them). Then:
        (loc, B = 64, T = 16, float32), kernel 6 with frames and kernel 7
        (4 observe_frame launches) in run_msckf_bank (msckf_eskf, B = 64,
        float64), kernels 11, 13 and 14 in run_live's parallel smoother
-       (float64, refine 2: 3, 3 and 1 launches), no kernel in the other
-       six (run_bank on a mesh of one rank, parallel/sharding);
+       (float64, refine 2: 3, 3 and 1 launches), kernel 15 once in
+       run_bank (B = 4096, T = 500 on a mesh of one rank,
+       parallel/sharding), no kernel in the other five;
      - the sharded bank (parallel/sharding.py through the cases of
        parallel/dryrun.py): sharded_run_bank (kinematic, B = 4096,
-       T = 500) with the staged RMSE on the 1-D and the multislice mesh,
+       T = 500; kernel 15) with the staged RMSE on the 1-D and the multislice mesh,
        jit_sharded_step, the lane bank, and kernels 2 (live, B = 8192,
        T = 1024), 4 (live spec ECEF_POS gate on, B = 8192, T = 512; car
        with its params stream, T = 1024), 6 (live 4-kind cycle, B = 8192,
@@ -118,13 +119,24 @@ them). Then:
        predicted stacks w.r.t. Q, Rs, x0, P0 and zs: kernel 9 once and
        kernel 10 (the backward, csrc/stream_adjoint.cuh, in tile form)
        once, no other, the four cotangents the NLL does not read absent;
-       the gradients finite and nonzero, no gate flip.
+       the gradients finite and nonzero, no gate flip;
+     - run_bank (runtime/bank.run_bank, kernel 15, once a call): the
+       kinematic bank at B = 16384, T = 4096 (kernel 1's shape, float32)
+       with R by lane and again shared, the two bitwise equal and held
+       against kernel 1 on the same bank within GEN_TOL sigma; the car
+       bank at B = 8192, T = 1024 with its params; finite, P exactly
+       symmetric;
+     - the gradient through run_bank on the example's bank (kinematic,
+       B = 4096, T = 500, float32) of mean(ys^2) and a seeded weighting
+       of the final x and P w.r.t. Q, Rs, x0 and zs: kernel 15 and the
+       lane forms of kernels 9 and 10 once each, no other.
      Every kernel of a path must have launched in it, and no main path
-     may run the plain version of kernel 8 or 9; the VIO path launches
-     kernels 6 (its camera-frame branch) and 8 and no other, the offline
-     path kernels 4, 6, 9 and 11-14 and no other, the streamed-R path
-     none, the sharded path kernels 2, 4, 5, 6, 7, 11, 13 and 14 and no
-     other, the user-spec path kernels 4, 5 and 6 and no other.
+     may run the plain version of kernel 8, 9 or 15; the VIO path
+     launches kernels 6 (its camera-frame branch) and 8 and no other,
+     the offline path kernels 4, 6, 9 and 11-14 and no other, the
+     streamed-R path none, the sharded path kernels 2, 4, 5, 6, 7, 11,
+     13, 14 and 15 and no other, the user-spec path kernels 4, 5 and 6
+     and no other.
   2. each kernel against its plain torch version on the card (kinematic at
      B = 16384, T = 4096, and at a ragged shape, KIN_RAGGED; the others
      at B = 8192, T = 64, kernel 7 at
@@ -218,7 +230,16 @@ them). Then:
      (smooth_info, affine_info, ptxas) beside their first design's raw
      times, kernel 13's three passes timed apart (affine_split) and its
      (A, b) scan raw, and kernel 12's chain floor reckoned from its code
-     (a note beside its bound).
+     (a note beside its bound). Kernel 15 against its plain version
+     (compare_bank: kinematic B = 16384 and car B = 8192, T = 64, R by
+     lane, float32 within GEN_TOL sigma and float64 within BANK64_TOL,
+     one lane's R x 1.01 planted beyond it; wrapped and raw at T = 64
+     and T = 1, run_bank whole, the plain version, the bound) and the
+     gradient through run_bank against autograd through
+     run_bank_reference on the card (compare_bank_grad: float64 within
+     BANK_GRAD64_TOL, float32 within BANK_GRAD32_RATIO x the plain
+     float32's own error + BANK_GRAD32_SLACK; the two lane forms timed
+     with their bounds).
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -3837,6 +3858,528 @@ def compare_scan_grad(torch, dev, gen, reps=3):
       bound_by=bound_by, shape=f"live log B={B} T={T}, float32")]
 
 
+# ------------------------------------------- run_bank: kernel 15 and its
+# gradient through kernels 9 and 10's lane forms
+
+# the run_bank path: the kinematic bank at kernel 1's width (KIN_B x
+# KIN_T) with R by lane and shared, the car bank at the generic width
+BANK_CAR_T = 1024
+# the gradient: the bank example's width (examples/run_bank.py)
+BANK_GRAD_B, BANK_GRAD_T = 4096, 500
+BANK_CMP_T = 64
+# kernel 15 against its plain version (bank_run_scan_reference) in
+# float64, in sigmas of the plain result: the emitted factored algebra
+# against the plain dense one (measured ~1e-13 on the host build); the
+# planted fault (one lane's R x 1.01) moves that lane by ~1e-3 sigma
+BANK64_TOL = 1e-6
+# the gradient through kernel 15 (kernels 9 and 10's lane forms) against
+# autograd through run_bank_reference on the card, relative to each
+# gradient's largest entry: float64 within BANK_GRAD64_TOL; float32 within
+# BANK_GRAD32_RATIO x the plain float32 gradient's own error against the
+# plain float64 one + BANK_GRAD32_SLACK
+BANK_GRAD64_TOL = 1e-9
+BANK_GRAD32_RATIO, BANK_GRAD32_SLACK = 3.0, 1e-6
+BANK_REPLACES = "rednose_tpu/runtime/bank.py:116 jit_run_bank (an XLA " \
+                "program, jit of one lax.scan; not Pallas)"
+BANK_LANE9_REPLACES = "rednose_tpu/runtime/bank.py:111 the lax.scan's " \
+                      "forward, recomputed for jax.grad of jit_run_bank " \
+                      "(XLA's linearization; not Pallas)"
+BANK_LANE10_REPLACES = "jax.grad of rednose_tpu/runtime/bank.py:116 " \
+                       "jit_run_bank (XLA's transpose of the lax.scan; not " \
+                       "Pallas)"
+
+
+def bank_models():
+  from rednose_tpu_torch.models.car import CarKalman, ObservationKind as CK
+  from rednose_tpu_torch.models.kinematic import (
+      KinematicKalman,
+      ObservationKind as KK,
+  )
+
+  return (("kinematic", KinematicKalman, KK.POSITION, {}),
+          ("car", CarKalman, CK.YAW_RATE,
+           dict(CarKalman.build_spec().default_params)))
+
+
+def bank_calls():
+  """Kernel 15's variants and its gradient's lane forms of kernels 9 and
+  10, by name, each with (call, dtype, on a main path): the calls
+  runtime/bank makes (runtime/scan._kernel_call: the model's Q pattern,
+  its params' names), kinematic and car in float32 (the run_bank path,
+  the example, the sharded bank, the gradient) and float64 (phase 2)."""
+  import torch
+
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  out = {}
+  for name, model, kind, params in bank_models():
+    for dtype in (torch.float32, torch.float64):
+      suffix = "" if dtype == torch.float32 else ", float64"
+      out[f"{name} run_bank (kernel 15){suffix}"] = (gs.KernelCall(
+          model.build_spec(), "bank", (kind,), Q=model.Q, params=params),
+          dtype, dtype == torch.float32)
+  _, model, kind, _ = bank_models()[0]
+  for mode, kernel in (("stream", "kernel 9"), ("stream_adjoint",
+                                                "kernel 10")):
+    for dtype in (torch.float32, torch.float64):
+      suffix = "" if dtype == torch.float32 else ", float64"
+      out[f"kinematic run_bank gradient ({kernel} lane form){suffix}"] = (
+          gs.KernelCall(model.build_spec(), mode, (kind,), Q=model.Q,
+                        lanes=True), dtype, dtype == torch.float32)
+  return out
+
+
+def bank_inputs(torch, dev, gen, model, kind, B, T, dtype, lane_R=True,
+                noise=1.0):
+  """A bank at the model's prior (t = 0) and T steps of data: the kind's
+  measurement of the prior's state plus noise of `noise` x R's scale (the
+  kinematic path's 5, as kernel 1's inputs, kinematic_inputs), dt = 0.01,
+  R the model's noise by lane (T, B, dz, dz) or shared (T, dz, dz).
+  Returns (state, Q, dts, zs, Rs)."""
+  from rednose_tpu_torch.runtime import bank
+
+  spec = model.build_spec()
+  R0 = torch.as_tensor(np.asarray(model.obs_noise[kind]), dtype=dtype,
+                       device=dev)
+  dz = R0.shape[0]
+  x0 = torch.as_tensor(model.initial_x, dtype=torch.float64)
+  h0 = spec.obs[kind].h(spec.default_params, x0, None).to(dev, dtype)
+  zs = h0 + noise * R0.diagonal().sqrt() * torch.randn(
+      (T, B, dz), generator=gen, device=dev).to(dtype)
+  Rs = (R0.expand(T, B, dz, dz).contiguous() if lane_R
+        else R0.expand(T, dz, dz).contiguous())
+  state = bank.init_bank(spec, model.initial_x, np.diag(model.initial_P_diag),
+                         B, dtype=dtype, device=dev)
+  return (state, torch.as_tensor(model.Q, dtype=dtype, device=dev),
+          torch.full((T,), 0.01, dtype=dtype, device=dev), zs, Rs)
+
+
+def bank_healthy(torch, name, final, ys, T, B):
+  require(bool(torch.isfinite(final.x).all() and torch.isfinite(final.P).all()
+               and torch.isfinite(ys).all()), f"{name}: finite")
+  require(ys.shape[:2] == (T, B), f"{name}: ys (T, B, dz)")
+  require(torch.equal(final.P, final.P.transpose(1, 2)),
+          f"{name}: P symmetric")
+  require(bool((torch.diagonal(final.P, dim1=1, dim2=2) > 0).all()),
+          f"{name}: P's diagonal positive")
+
+
+def bank_path(torch, dev, gen):
+  """Phase 1, the eleventh path: runtime/bank.run_bank as a user calls it
+  (kernel 15 once a call, the caller checks the counts): the kinematic
+  bank at kernel 1's width (KIN_B x KIN_T, float32) with R by lane, then
+  with R shared (T, dz, dz), and the car bank (GEN_B x BANK_CAR_T) with
+  its params. Returns what the comparison after the counts needs: the
+  kinematic inputs and both results."""
+  from rednose_tpu_torch.runtime import bank
+
+  (kin, km, kk, _), (_, cm, ck, cparams) = bank_models()
+  out = {}
+  state, Q, dts, zs, Rs = bank_inputs(torch, dev, gen, km, kk, KIN_B, KIN_T,
+                                      torch.float32, noise=5.0)
+  for form, R in (("lane", Rs), ("shared", Rs[:, 0])):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, ys = bank.run_bank(km.build_spec(), kk, {}, state, Q, dts, zs, R)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    bank_healthy(torch, f"kinematic run_bank, R {form}", final, ys, KIN_T,
+                 KIN_B)
+    require(bool((final.t.double() - dts.double().sum()).abs().max()
+                 < 1e-3), "kinematic run_bank: t advanced by the steps")
+    out[form] = (final, ys)
+    log(f"run_bank [kinematic B={KIN_B} T={KIN_T}, float32, R {form}]: "
+        f"{ms:.1f} ms (host clock, first call, after a synchronise)")
+  out["inputs"] = (state, Q, dts, zs, Rs)
+  cstate, cQ, cdts, czs, cRs = bank_inputs(torch, dev, gen, cm, ck, GEN_B,
+                                           BANK_CAR_T, torch.float32,
+                                           lane_R=False)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  final, ys = bank.run_bank(cm.build_spec(), ck, cparams, cstate, cQ, cdts,
+                            czs, cRs)
+  torch.cuda.synchronize()
+  bank_healthy(torch, "car run_bank", final, ys, BANK_CAR_T, GEN_B)
+  log(f"run_bank [car B={GEN_B} T={BANK_CAR_T}, float32, its params, R "
+      f"shared]: {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock, "
+      "first call)")
+  out["car"] = final
+  return out
+
+
+def hold_bank_path(torch, out, reps=5):
+  """After the path's counts: the kinematic run_bank with R by lane equal
+  to the one with R shared bitwise (the same values through a lane
+  stride of 0), and both against kernel 1 on the same bank within
+  GEN_TOL sigmas (utils/compare.py; kernel 1 ungated, as the kinematic
+  spec's POSITION is). Kernel 15 timed raw at this width (R by lane and
+  shared, CUDA events) beside kernel 1's raw launch, with both bounds
+  (the compulsory bytes: kernel 15 zs, R and ys at 4 B a lane-step by
+  lane, zs and ys shared)."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import kinematic_scan
+  from rednose_tpu_torch.utils.compare import kinematic_sigma_err
+
+  (fl, yl), (fs, ys_) = out["lane"], out["shared"]
+  require(torch.equal(fl.x, fs.x) and torch.equal(fl.P, fs.P)
+          and torch.equal(yl, ys_) and torch.equal(fl.t, fs.t),
+          "run_bank with R by lane equals R shared bitwise")
+  state, Q, dts, zs, Rs = out["inputs"]
+  q = torch.tensor([Q[0, 0], Q[0, 1], Q[1, 1]], dtype=torch.float32,
+                   device=Q.device)
+  k1 = kinematic_scan.kinematic_bank_scan(
+      kinematic_scan.pack_state(state.x, state.P).contiguous(),
+      zs[..., 0].contiguous(), dts, Rs[:, 0, 0, 0].contiguous(), q,
+      maha=False)
+  ex, ep = kinematic_sigma_err(kinematic_scan.pack_state(fl.x, fl.P), k1)
+  log(f"run_bank (kernel 15) against kernel 1 [kinematic B={KIN_B} "
+      f"T={KIN_T}, float32, ungated]: state {ex:.3g}, covariance {ep:.3g} "
+      f"sigma (tolerance {GEN_TOL}); R by lane bitwise R shared")
+  require(max(ex, ep) <= GEN_TOL, f"kernel 15 agrees with kernel 1: "
+          f"{ex}, {ep}")
+  call = bank_calls()["kinematic run_bank (kernel 15)"][0]
+  lay = (state.x.T.contiguous(), state.P.permute(1, 2, 0).contiguous(),
+         state.t, zs.permute(0, 2, 1).contiguous(), dts)
+  prm = torch.zeros(1, device=Q.device)
+  times = {}
+  for form, R in (("by lane", Rs.permute(0, 2, 3, 1).contiguous()),
+                  ("shared", Rs[:, 0].contiguous())):
+    launch = bank_launch(call.source(), call, *lay, R, prm, Q)
+    bound_ms, _ = bound(io_bytes([lay[3], R, lay[3]], 4), 0)
+    times[form] = (timed_run(launch, reps)[0], bound_ms)
+  k1 = kernel1_launch(_build.library(),
+                      kinematic_scan.pack_state(state.x, state.P).contiguous(),
+                      zs[..., 0].contiguous(), dts,
+                      Rs[:, 0, 0, 0].contiguous(), q, maha=False)
+  log(f"bank_run_scan (kernel 15) raw [kinematic B={KIN_B} T={KIN_T}, "
+      "float32]: " + "; ".join(f"R {f} {ms:.4f} ms (bound {b:.4g} ms, "
+                               "bytes)" for f, (ms, b) in times.items())
+      + f"; kernel 1 raw (ungated) {timed_run(k1, reps)[0]:.4f} ms; CUDA "
+      "events")
+
+
+def bank_grad_inputs(torch, dev, dtype, seed=SEED):
+  """The gradient's bank: examples/run_bank.py's (B = BANK_GRAD_B, T =
+  BANK_GRAD_T, zs N(0, 0.5), R = 0.01 by lane) in dtype, and a seeded
+  weighting of the final x and P."""
+  from rednose_tpu_torch.models.kinematic import KinematicKalman
+  from rednose_tpu_torch.runtime import bank
+
+  rng = np.random.RandomState(seed)
+  T, B, m = BANK_GRAD_T, BANK_GRAD_B, KinematicKalman
+  t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+  state = bank.init_bank(m.build_spec(), m.initial_x, np.diag(m.initial_P_diag),
+                         B, dtype=dtype, device=dev)
+  return (state, t(m.Q), t(np.full(T, 0.01)), t(rng.normal(0, 0.5, (T, B, 1))),
+          t(np.full((T, B, 1, 1), 0.01)), t(rng.randn(B, 2)),
+          t(rng.randn(B, 2, 2)))
+
+
+def bank_grad(torch, run, state, Q, dts, zs, Rs, wx, wP):
+  """The gradient of mean(ys**2) + sum(x wx) + sum(P wP) through `run`
+  (run_bank or run_bank_reference) w.r.t. Q, Rs, x0 and zs: (gradients,
+  forward ms, backward ms), host clock after a synchronise."""
+  from rednose_tpu_torch.models.kinematic import (
+      KinematicKalman,
+      ObservationKind as KK,
+  )
+  from rednose_tpu_torch.runtime import bank
+
+  ins = [a.clone().requires_grad_() for a in (Q, Rs, state.x, zs)]
+  Qg, Rg, xg, zg = ins
+  st = bank.BankState(x=xg, P=state.P, t=state.t)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  final, ys = run(KinematicKalman.build_spec(), KK.POSITION, {}, st, Qg, dts,
+                  zg, Rg)
+  loss = (ys ** 2).mean() + (final.x * wx).sum() + (final.P * wP).sum()
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  g = torch.autograd.grad(loss, ins)
+  torch.cuda.synchronize()
+  return g, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+GRAD_NAMES = ("Q", "Rs", "x0", "zs")
+
+
+def bank_grad_path(torch, dev):
+  """Phase 1, the twelfth path: the gradient through run_bank on the
+  example's bank (bank_grad_inputs, float32) w.r.t. Q, Rs, x0 and zs:
+  kernel 15 once, kernels 9 and 10's lane forms once each (the caller
+  checks the counts). The gradients finite and nonzero; host-clock
+  times. Returns them."""
+  from rednose_tpu_torch.runtime import bank
+
+  args = bank_grad_inputs(torch, dev, torch.float32)
+  g, fwd, bwd = bank_grad(torch, bank.run_bank, *args)
+  require(all(bool(torch.isfinite(a).all()) and bool(a.abs().max() > 0)
+              for a in g), "the gradients through run_bank are finite and "
+          "nonzero")
+  log(f"gradient through run_bank [kinematic B={BANK_GRAD_B} "
+      f"T={BANK_GRAD_T}, float32]: forward {fwd:.1f} ms, backward {bwd:.1f} "
+      "ms (host clock, first call); largest gradient "
+      + ", ".join(f"{n} {float(a.abs().max()):.4g}"
+                  for n, a in zip(GRAD_NAMES, g)))
+  return g
+
+
+def bank_launch(source, call, x, P, t, zs, dts, Rs, prm, Q, eas=None):
+  """A raw launch of kernel 15's build of `source` on copies of x, P and t
+  made once and ys allocated once, no checks between launches. Returns
+  the zero-argument launch, which returns (x, P, t, ys)."""
+  import torch
+
+  from rednose_tpu_torch import _build
+
+  fn = _build.generated_launcher(source)
+  x, P, t = x.clone(), P.clone(), t.clone()
+  T, B = dts.shape[0], x.shape[-1]
+  ys = x.new_empty((T, zs.shape[1], B))
+  stream = torch.cuda.current_stream(x.device).cuda_stream
+
+  def launch():
+    _build.check(fn(x.data_ptr(), P.data_ptr(), t.data_ptr(), zs.data_ptr(),
+                    None if eas is None else eas.data_ptr(), dts.data_ptr(),
+                    Rs.data_ptr(), int(Rs.dim() == 4), prm.data_ptr(),
+                    Q.data_ptr(), ys.data_ptr(), T, B, stream), "kernel 15")
+    return x, P, t, ys
+
+  return launch
+
+
+def bank_errs(torch, spec, out, ref):
+  """(state, covariance, innovation) errors of kernel 15's (x, P, t, ys)
+  against the plain version's, bank-minor, in sigmas: x and P in the
+  plain result's (utils/compare.py), each step's innovations in their
+  spread over the plain version's lanes (the innovation's own sigma,
+  sqrt(H P H^T + R), on a bank of independent lanes); t must be
+  bitwise."""
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  ex, ep = lane_sigma_errs(spec, out[0], out[1], ref[0], ref[1])
+  sd = ref[3].double().std(dim=-1, keepdim=True)
+  ey = float(((out[3] - ref[3]).double().abs() / sd).max())
+  require(torch.equal(out[2], ref[2]), "kernel 15's t bitwise the plain "
+          "version's")
+  nan = lambda v: float(torch.nan_to_num(v, nan=float("inf")).max())  # noqa
+  return nan(ex), nan(ep), ey
+
+
+def compare_bank(torch, dev, gen, car_state, reps=10):
+  """Phase 2, kernel 15 against its plain version (bank_run_scan_reference,
+  the loop of core/step in the wrapper's layout) on the same inputs,
+  BANK_CMP_T steps of consistent data (noise at R's scale), R by lane:
+  kinematic at KIN_B from the prior, car at GEN_B (its params) from the
+  run_bank path's converged car bank (car_state; from the prior two
+  float32 programs part at its gate); float32 within GEN_TOL sigmas
+  (state, covariance, and the innovations in their spread over the
+  lanes), float64 within
+  BANK64_TOL, t bitwise; a planted fault (one lane's R x 1.01) beyond
+  BANK64_TOL. Timed with CUDA events: the wrapper (bank_run_scan) and raw
+  launches (bank_launch) at BANK_CMP_T and T = 1, run_bank whole (its
+  layout copies), and the plain version once; the bound from the emitted
+  operations a step (utils/profiling.step_ops at the float32 peak) or the
+  compulsory bytes (zs, R by lane, ys, x, P and t once). Each variant's
+  design, warps, shared memory, registers and stack. Returns the
+  kinematic float32 row."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime import bank
+
+  calls = bank_calls()
+  rows, failed = [], []
+  for (name, model, kind, params), B in zip(bank_models(), (KIN_B, GEN_B)):
+    spec = model.build_spec()
+    for dtype in (torch.float32, torch.float64):
+      dname = str(dtype).split(".")[-1]
+      call = calls[f"{name} run_bank (kernel 15)"
+                   + ("" if dtype == torch.float32 else ", float64")][0]
+      src = call.source(dtype)
+      info = _build.generated_info(src)
+      state, Q, dts, zs, Rs = bank_inputs(torch, dev, gen, model, kind, B,
+                                          BANK_CMP_T, dtype)
+      if name == "car":
+        state = bank.BankState(x=car_state.x.to(dtype),
+                               P=car_state.P.to(dtype),
+                               t=car_state.t.to(dtype))
+      prm = torch.as_tensor([float(params[k]) for k in call._pnames]
+                            or [0.0], dtype=dtype, device=dev)
+      lay = (state.x.T.contiguous(), state.P.permute(1, 2, 0).contiguous(),
+             state.t.clone(), zs.permute(0, 2, 1).contiguous(), dts,
+             Rs.permute(0, 2, 3, 1).contiguous(), None, prm, Q)
+
+      def kernel(lay=lay, call=call):
+        x, P, t, *rest = lay
+        return gs.bank_run_scan(call, x.clone(), P.clone(), t.clone(), *rest)
+
+      ms, out = timed_run(kernel, reps)
+      plain_ms, ref = timed_run(lambda: gs.bank_run_scan_reference(call, *lay),
+                                1)
+      ex, ep, ey = bank_errs(torch, spec, out, ref)
+      tol = GEN_TOL if dtype == torch.float32 else BANK64_TOL
+      ok = max(ex, ep, ey) <= tol
+      if not ok:
+        failed.append(f"{name} {dname}")
+      raw = {}
+      for n in (BANK_CMP_T, 1):
+        launch = bank_launch(src, call, lay[0], lay[1], lay[2], lay[3][:n],
+                             dts[:n], lay[5][:n], prm, Q)
+        raw[n] = timed_run(launch, reps)[0]
+      whole_ms = timed_run(lambda: bank.run_bank(
+          spec, kind, params, state, Q, dts, zs, Rs), reps)[0]
+      ops = step_ops(call.counting_source(), (kind,), "bank") * B * BANK_CMP_T
+      nbytes = io_bytes([lay[3], lay[5], lay[0], lay[1], lay[2], out],
+                        dtype.itemsize)
+      bound_ms, bound_by = bound(nbytes, ops, dtype == torch.float64)
+      log(f"bank_run_scan (kernel 15, {'tile' if info['design'] else 'global'}"
+          f" W={info['warps']}, {info['smem_bytes']:,} B shared, "
+          f"{info['registers']} registers, {info['local_bytes']} B stack) "
+          f"[{name} B={B} T={BANK_CMP_T}, {dname}, R by lane]: wrapped "
+          f"{ms:.4f} ms, raw {raw[BANK_CMP_T]:.4f} ms, raw at T=1 "
+          f"{raw[1]:.4f} ms (CUDA events), run_bank whole {whole_ms:.4f} ms; "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4g} ms ({bound_by}, "
+          f"{ops / (B * BANK_CMP_T):,.0f} emitted operations a lane-step); "
+          f"state {ex:.3g}, covariance {ep:.3g}, innovations {ey:.3g} sigma "
+          f"(tolerance {tol}) -> {'ok' if ok else 'FAIL'}")
+      if dtype == torch.float64:
+        # the planted fault: one lane's R x 1.01 must fail the limit
+        Rf = lay[5].clone()
+        Rf[..., B // 3] *= 1.01
+        bad = gs.bank_run_scan(call, lay[0].clone(), lay[1].clone(),
+                               lay[2].clone(), lay[3], dts, Rf, None, prm, Q)
+        e = max(bank_errs(torch, spec, bad, ref))
+        log(f"  planted fault [{name}, float64]: one lane's R x 1.01 -> "
+            f"{e:.3g} sigma")
+        require(e > BANK64_TOL, f"the planted fault fails kernel 15's "
+                f"float64 limit ({name}): {e}")
+      if name == "kinematic" and dtype == torch.float32:
+        rows.append(dict(
+            name="bank_run_scan", route="cuda",
+            source="rednose_tpu_torch/csrc/generic_scan.cuh",
+            replaces=BANK_REPLACES,
+            max_abs_err=max(float((a - b).abs().max())
+                            for a, b in zip(out, ref)),
+            ms=raw[BANK_CMP_T], plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
+            shape=f"kinematic B={B} T={BANK_CMP_T}, float32"))
+  require(not failed, f"kernel 15 against its plain version: {failed}")
+  return rows
+
+
+def compare_bank_grad(torch, dev, g32, reps=3):
+  """Phase 2, the gradient through run_bank (kernels 9 and 10's lane
+  forms) against autograd through run_bank_reference on the card, on the
+  gradient path's bank: float64 within BANK_GRAD64_TOL of each gradient's
+  largest entry (relative error); float32 (the path's gradients, g32)
+  within BANK_GRAD32_RATIO x the plain float32 gradient's own error
+  against the plain float64 one + BANK_GRAD32_SLACK. The lane forms
+  timed through their wrappers (CUDA events, mean of reps) on the
+  float32 bank, kernel 9's
+  lane form against the plain stacks (bank_run_scan_reference's states,
+  in sigmas), with their bounds: operations a step (their emitted
+  sources) at the float32 peak, or compulsory bytes (kernel 9: its
+  inputs and stacks; kernel 10: adjoint_bytes with the final state's
+  and the innovations' cotangents, R by lane). Returns their rows."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.ops import generic_scan as gs
+  from rednose_tpu_torch.runtime import bank
+  from rednose_tpu_torch.utils.compare import lane_sigma_errs
+
+  calls = bank_calls()
+  out = {}
+  for dtype in (torch.float64, torch.float32):
+    args = bank_grad_inputs(torch, dev, dtype)
+    out[dtype] = bank_grad(torch, bank.run_bank_reference, *args)
+  k64, _, bwd64 = bank_grad(torch, bank.run_bank,
+                            *bank_grad_inputs(torch, dev, torch.float64))
+  p64, p32 = out[torch.float64][0], out[torch.float32][0]
+  rel = lambda a, b: float((a.double() - b.double()).abs().max()  # noqa
+                           / b.double().abs().max())
+  e64 = {n: rel(a, b) for n, a, b in zip(GRAD_NAMES, k64, p64)}
+  e32 = {n: rel(a, b) for n, a, b in zip(GRAD_NAMES, g32, p64)}
+  own = {n: rel(a, b) for n, a, b in zip(GRAD_NAMES, p32, p64)}
+  lim = {n: BANK_GRAD32_RATIO * own[n] + BANK_GRAD32_SLACK for n in own}
+  fmt = lambda d: ", ".join(f"{n} {v:.3g}" for n, v in d.items())  # noqa
+  log(f"gradient through run_bank against autograd through "
+      f"run_bank_reference [kinematic B={BANK_GRAD_B} T={BANK_GRAD_T}]: "
+      f"float64 {fmt(e64)} (tolerance {BANK_GRAD64_TOL}); float32 "
+      f"{fmt(e32)} against the plain float32's own {fmt(own)}; plain "
+      f"backward {out[torch.float32][2]:.1f} ms (float32) / "
+      f"{out[torch.float64][2]:.1f} ms (float64), kernels' {bwd64:.1f} ms "
+      "(float64), host clock")
+  require(max(e64.values()) <= BANK_GRAD64_TOL,
+          f"the float64 gradient through run_bank: {e64}")
+  require(all(e32[n] <= lim[n] for n in e32),
+          f"the float32 gradient through run_bank: {e32}, limits {lim}")
+  # the lane forms alone, raw, on the float32 bank
+  state, Q, dts, zs, Rs, wx, wP = bank_grad_inputs(torch, dev, torch.float32)
+  T, B = BANK_GRAD_T, BANK_GRAD_B
+  c9 = calls["kinematic run_bank gradient (kernel 9 lane form)"][0]
+  c10 = calls["kinematic run_bank gradient (kernel 10 lane form)"][0]
+  spec = c9.spec
+  x0, P0 = state.x.T.contiguous(), state.P.permute(1, 2, 0).contiguous()
+  zk, Rk = zs.permute(0, 2, 1).contiguous(), Rs.permute(0, 2, 3, 1).contiguous()
+  ki = torch.zeros(T, dtype=torch.int32, device=dev)
+  prm = torch.zeros(1, dtype=torch.float32, device=dev)
+
+  def lane9():
+    return gs.stream_bank_scan_lanes(c9, x0.clone(), P0.clone(), zk, dts, ki,
+                                     Rk, None, prm, Q)
+
+  ms9, stacks = timed_run(lane9, reps)
+  ref = gs.bank_run_scan_reference(
+      calls["kinematic run_bank (kernel 15)"][0], x0, P0, state.t, zk, dts,
+      Rk, None, prm, Q)
+  e9 = max(float(v.max()) for v in lane_sigma_errs(
+      spec, stacks[2][-1], stacks[3][-1], ref[0], ref[1]))
+  abs9 = max(float((a - b).abs().max()) for a, b in zip(
+      (stacks[2][-1], stacks[3][-1]), ref[:2]))
+  abs10 = max(float((a - b).abs().max()) for a, b in zip(g32, p32))
+  gys = torch.randn((T, 1, B), device=dev)
+  gx, gP = wx.T.contiguous(), wP.permute(1, 2, 0).contiguous()
+
+  def lane10():
+    return gs.stream_bank_scan_adjoint_lanes(
+        c10, x0, P0, zk, dts, ki, Rk, None, prm, Q, *stacks, gx, gP, None,
+        None, None, None, gys)
+
+  ms10, _ = timed_run(lane10, reps)
+  b9 = io_bytes([x0, P0, zk, dts, Rk, stacks], 4)
+  # adjoint_bytes reads R's entry (dz = 1) and writes its gradient once a
+  # step; the lane form does both once a lane-step
+  b10 = (adjoint_bytes(c10, np.zeros(T, int), B, 4, ("gx", "gP"))
+         + io_bytes([gys], 4) + 2 * (B - 1) * T * 4)
+  rows = []
+  for fn, name, c, ms, nbytes, err, err_abs, replaces, plain_ms in (
+      ("stream_bank_scan_lanes", "kernel 9 lane form", c9, ms9, b9, e9,
+       abs9, BANK_LANE9_REPLACES, out[torch.float32][1]),
+      ("stream_bank_scan_adjoint_lanes", "kernel 10 lane form", c10, ms10,
+       b10, max(e32.values()), abs10, BANK_LANE10_REPLACES,
+       out[torch.float32][2])):
+    info = _build.generated_info(c.source(torch.float32))
+    ops = step_ops(c.counting_source(), (1,), "single") * B * T
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"{fn} ({name}, global, {info['registers']} registers, "
+        f"{info['local_bytes']} B stack) [kinematic B={B} T={T}, float32]: "
+        f"wrapped {ms:.4f} ms (CUDA events), bound {bound_ms:.4g} ms "
+        f"({bound_by}); "
+        + (f"final state against the plain version {err:.3g} sigma"
+           if fn == "stream_bank_scan_lanes"
+           else f"largest relative gradient error {err:.3g}"))
+    rows.append(dict(
+        name=fn, route="cuda", source=(
+            "rednose_tpu_torch/csrc/generic_scan.cuh"
+            if fn == "stream_bank_scan_lanes"
+            else "rednose_tpu_torch/csrc/stream_adjoint.cuh"),
+        replaces=replaces, max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"kinematic B={B} T={T}, float32"))
+  require(e9 <= GEN_TOL, f"kernel 9's lane form against the plain states: "
+          f"{e9}")
+  return rows
+
+
 SMOOTH_SRC = "rednose_tpu_torch/csrc/smooth.cuh"
 AFFINE_SRC = "rednose_tpu_torch/csrc/affine_scan.cu"
 SMOOTH_REPLACES = {
@@ -4521,7 +5064,7 @@ EXAMPLES = {
     "run_vo_pipeline": {"compute_pos_batch": 3},
     "run_mixed_bank": {"live_bank_scan_mixed": 1},
     "run_msckf_bank": {"generic_bank_scan_mixed": 1, "vo_bank_scan": 4},
-    "run_bank": {},
+    "run_bank": {"bank_run_scan": 1},
 }
 
 
@@ -4620,7 +5163,7 @@ def sharded_path(torch, dev, card, launches, sources):
   generic = [n for n in names if dryrun.CASES[n].inputs in (
       "generic_live", "car", "mixed_live", "vio", "epoch", "vo")]
   require({dryrun.kernel_call(n).source() for n in generic}
-          <= set(sources.values()),
+          | {dryrun.bank_call().source()} <= set(sources.values()),
           "the sharded path's generic variants are among the prebuilt ones")
   t0 = time.perf_counter()
   refs = dryrun.unsharded_outputs("full", dev, names)
@@ -4640,7 +5183,8 @@ def sharded_path(torch, dev, card, launches, sources):
       f"mesh of {mesh.size()}): every case equal to the unsharded call, "
       f"{wall_a:.1f} s (host clock); launches {counts}")
   t0 = time.perf_counter()
-  results = dryrun.spawn_ranks(SHARD_RANKS, "cuda", "full", names)
+  results = dryrun.spawn_ranks(SHARD_RANKS, "cuda", "full", names,
+                               sources=dryrun.case_sources(names, "full"))
   wall_b = time.perf_counter() - t0
   rows = dryrun.verify(results, "full", refs, dev)
   require({r["device"] for r in results} == {"cuda:0"},
@@ -4654,7 +5198,7 @@ def sharded_path(torch, dev, card, launches, sources):
     launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
   log(f"sharded path (b), {SHARD_RANKS} Gloo ranks sharing the card "
       f"({card}): spawn to results {wall_b:.1f} s (host clock; by rank, "
-      f"group, meshes and emission "
+      f"group and meshes, the emission handed in, "
       + " / ".join(f"{r['setup_s']:.1f}" for r in results)
       + " s, inputs "
       + " / ".join(f"{sum(r[n]['inputs_s'] for n in names):.1f}"
@@ -5241,6 +5785,122 @@ def flops_report_phase(card, rows):
           f"tools/flops_report ran on this run's times: {rep.stderr[-2000:]}")
 
 
+# ------------------------------------------------ emitting the variants
+# Every generic variant the smoke builds is emitted (ops/entry_slab.py,
+# ops/adjoint.py: pure Python, ~1-10 s each) by EMIT_WORKERS spawned
+# processes, each rebuilding the calls by name (smoke_variants) and
+# returning the source text, which this process primes into
+# generic_scan's source cache (KernelCall.prime); nvcc starts on each as
+# it arrives.
+EMIT_WORKERS = 4
+
+
+def smoke_variants(torch, dev):
+  """name -> (call, dtype, tile, on a main path) of every generic variant
+  the smoke builds: the main paths' (their loads are checked against
+  these) and the comparisons' own."""
+  out = {}
+
+  def add(group, main, tile=True):
+    for name, (call, dtype) in group.items():
+      out[name] = (call, dtype, tile, main)
+
+  f32, f64 = torch.float32, torch.float64
+  adj = adjoint_calls()
+  path_adjoint = "live log adjoint (kernel 10)"
+  add({path_adjoint: adj[path_adjoint]}, True)
+  live_spec = generic_models()[3]
+  add({n: (c, f32) for n, c in generic_calls(live_spec).items()}, True)
+  VO, ESKF = msckf_models()
+  add({"msckf_vo run_frames (kernel 7)": (msckf_call(VO), f32),
+       "msckf_eskf run_frames (kernel 7)": (msckf_call(ESKF), f32),
+       "msckf_eskf observe POSITION (kernel 4)": (msckf_position_call(),
+                                                  f32)}, True)
+  add({f"{m.name} run_mixed with frames (kernel 6)": (vio_call(m), f32)
+       for m in msckf_models()}, True)
+  ex_calls = example_calls(torch, dev)
+  add({f"examples: {n}": v for n, v in ex_calls.items()}, True)
+  u_calls = user_calls()
+  add({f"user specs: {n}": (c, f32) for n, c in u_calls.items()}, True)
+  add(stream_calls(), True)
+  bank = bank_calls()
+  add({n: (c, d) for n, (c, d, main) in bank.items() if main}, True)
+  # the comparisons' own
+  add({n: v for n, v in adj.items() if n != path_adjoint}, False)
+  add({"loc run_epochs, float64 (kernel 5)": (loc_epoch_call(), f64),
+       "live run_mixed, float64 (kernel 6)": (live_mixed_call(), f64),
+       "live full Q run_mixed, float64 (kernel 6)": (full_q_calls()[
+           "live full Q run_mixed / observe (kernel 6)"], f64)}, False)
+  add({n: (c, f32) for n, c in full_q_cmp_calls().items()}, False)
+  add({"examples: run_loc bank_demo, float64 (kernel 6, loc)": (
+      ex_calls["run_loc bank_demo (kernel 6, loc)"][0], f64)}, False)
+  add({f"user specs: {n}, float64": (c, f64) for n, c in u_calls.items()},
+      False)
+  live_log_call = stream_calls()["live log scan (kernel 9)"][0]
+  add({"live log scan (kernel 9), float64": (live_log_call, f64)}, False)
+  for dtype in (f32, f64):
+    add({f"live log scan (kernel 9), {str(dtype).split('.')[-1]} global "
+         "form": (live_log_call, dtype)}, False, tile=False)
+  add({"live log adjoint (kernel 10), float32 global form": (
+      adj[path_adjoint][0], f32)}, False, tile=False)
+  for model in msckf_models():
+    for name, call in (("run_frames", msckf_call(model)),
+                       ("run_mixed with frames", vio_call(model))):
+      kernel = "kernel 7" if call.mode == "frame" else "kernel 6"
+      add({f"{model.name} {name}, float64 ({kernel})": (call, f64)}, False)
+      add({f"{model.name} {name}, global form ({kernel})": (call, f32),
+           f"{model.name} {name}, float64 global form ({kernel})":
+               (call, f64)}, False, tile=False)
+  add({n: (c, d) for n, (c, d, main) in bank.items() if not main}, False)
+  return out
+
+
+def variant_key(call, dtype, tile):
+  """The text of a variant's cache key (KernelCall._key, the spec by its
+  name), the same in every process that builds the call."""
+  return repr((call.spec.name,) + call._key(dtype, tile)[1:])
+
+
+@functools.lru_cache(maxsize=1)
+def _worker_variants():
+  import torch
+
+  torch.set_num_threads(1)
+  return smoke_variants(torch, torch.device("cpu"))
+
+
+def emit_variant(name):
+  """In an emitting worker: (source, variant_key) of one variant."""
+  call, dtype, tile, _ = _worker_variants()[name]
+  return call.source(dtype, tile), variant_key(call, dtype, tile)
+
+
+def emit_in_workers(variants, on_source, meanwhile,
+                    workers=EMIT_WORKERS):
+  """Emit every variant in `workers` spawned processes, the largest (the
+  full-Q, MSCKF and adjoint variants) queued first; run meanwhile() here
+  while they work, then call on_source(name, source) as each arrives,
+  primed into its call here. Returns meanwhile()'s result."""
+  import multiprocessing as mp
+  from concurrent.futures import ProcessPoolExecutor, as_completed
+
+  heavy = ("full Q", "msckf", "adjoint", "run_mixed")
+  order = sorted(variants, key=lambda n: not any(h in n for h in heavy))
+  with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) as pool:
+    futs = {pool.submit(emit_variant, name): name for name in order}
+    out = meanwhile()
+    for fut in as_completed(futs):
+      name = futs[fut]
+      text, key = fut.result()
+      call, dtype, tile, _ = variants[name]
+      require(key == variant_key(call, dtype, tile),
+              f"the worker emitted the variant {name} that this process "
+              f"names: {key}")
+      call.prime(text, dtype, tile)
+      on_source(name, text)
+  return out
+
+
 def main():
   import torch
 
@@ -5258,7 +5918,7 @@ def main():
       live_scan,
       smooth_scan,
   )
-  from rednose_tpu_torch.runtime import scan
+  from rednose_tpu_torch.runtime import bank, scan
   from rednose_tpu_torch.smoothing import rts
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -5266,91 +5926,46 @@ def main():
   card = card_line()
   log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
   dev = torch.device("cuda", 0)
-  # csrc/*.cu in a thread; each emitted variant's nvcc starts once its
-  # source is emitted, at most NVCC_JOBS at once, so that the emitting
-  # thread keeps a core of its own; kernel 10's first (its nvcc is the
-  # longest)
+  # csrc/*.cu in a thread; the generic variants emitted by EMIT_WORKERS
+  # processes (emit_in_workers), each variant's nvcc started as its source
+  # arrives, at most NVCC_JOBS at once; the smoother's sources emitted
+  # here meanwhile
   t0 = time.perf_counter()
   nvcc_jobs = max(1, (os.cpu_count() or 2) - 1)
+  variants = smoke_variants(torch, dev)
+  live_spec = generic_models()[3]
   with ThreadPoolExecutor(1) as pool, ThreadPoolExecutor(nvcc_jobs) as nvcc:
     static = pool.submit(_build.build)
     started = {}
 
-    def start(group):
-      """Start nvcc on each source of group (name -> source) not started
-      yet; returns group."""
-      for src in group.values():
-        if src not in started:
-          started[src] = nvcc.submit(_build.build_generated_many, [src])
-      return group
+    def start(src):
+      if src not in started:
+        started[src] = nvcc.submit(_build.build_generated_many, [src])
 
-    # kernel 10: the tenth path's variant; the comparison's and the ML
-    # tuning's below
-    adj = adjoint_calls()
-    path_adjoint = "live log adjoint (kernel 10)"
-    adj_sources = start({name: call.source(dtype)
-                         for name, (call, dtype) in adj.items()})
-    live_spec = generic_models()[3]
-    ex_calls = example_calls(torch, dev)
-    u_calls = user_calls()
-    sources = (start(generic_sources(live_spec)) | start(msckf_sources())
-               | start(vio_sources())
-               | start({f"examples: {name}": call.source(dtype)
-                        for name, (call, dtype) in ex_calls.items()})
-               | start({f"user specs: {name}": call.source()
-                        for name, call in u_calls.items()})
-               | start({name: call.source(dtype)
-                        for name, (call, dtype) in stream_calls().items()}))
-    sources[path_adjoint] = adj_sources[path_adjoint]
-    # kernels 11-14 (a source may serve two names: kernel 13 of d2 = 2)
-    smooth_srcs = start(smoother_sources(dev))
-    # the comparison phase's own variants: kernels 5, 6 and 7 in double,
-    # and the camera-frame variants' global form (tile_vs_global)
-    cmp_sources = {name: src for name, src in adj_sources.items()
-                   if name != path_adjoint}
-    cmp_sources |= {"loc run_epochs, float64 (kernel 5)":
-                    loc_epoch_call().source(torch.float64),
-                    "live run_mixed, float64 (kernel 6)":
-                    live_mixed_call().source(torch.float64),
-                    "live full Q run_mixed, float64 (kernel 6)":
-                    full_q_calls()["live full Q run_mixed / observe "
-                                   "(kernel 6)"].source(torch.float64)}
-    cmp_sources |= {name: c.source()
-                    for name, c in full_q_cmp_calls().items()}
-    cmp_sources["examples: run_loc bank_demo, float64 (kernel 6, loc)"] = \
-        ex_calls["run_loc bank_demo (kernel 6, loc)"][0].source(torch.float64)
-    cmp_sources |= {f"user specs: {name}, float64": call.source(torch.float64)
-                    for name, call in u_calls.items()}
-    live_log_call = stream_calls()["live log scan (kernel 9)"][0]
-    cmp_sources["live log scan (kernel 9), float64"] = live_log_call.source(
-        torch.float64)
-    for dtype in (torch.float32, torch.float64):
-      cmp_sources[f"live log scan (kernel 9), "
-                  f"{str(dtype).split('.')[-1]} global form"] = \
-          live_log_call.source(dtype, tile=False)
-    cmp_sources["live log adjoint (kernel 10), float32 global form"] = \
-        adj[path_adjoint][0].source(torch.float32, tile=False)
-    start(cmp_sources)
-    for model in msckf_models():
-      for name, call in (("run_frames", msckf_call(model)),
-                         ("run_mixed with frames", vio_call(model))):
-        kernel = "kernel 7" if call.mode == "frame" else "kernel 6"
-        cmp_sources[f"{model.name} {name}, float64 ({kernel})"] = \
-            call.source(torch.float64)
-        cmp_sources[f"{model.name} {name}, global form ({kernel})"] = \
-            call.source(tile=False)
-        if is_tile(call.source(torch.float64)):
-          cmp_sources[f"{model.name} {name}, float64 global form "
-                      f"({kernel})"] = call.source(torch.float64, tile=False)
-        start(cmp_sources)
+    texts = {}
+
+    def on_source(name, text):
+      texts[name] = text
+      start(text)
+
+    def smoother():
+      # kernels 11-14 (a source may serve two names: kernel 13 of d2 = 2)
+      srcs = smoother_sources(dev)
+      for src in srcs.values():
+        start(src)
+      return srcs
+
+    smooth_srcs = emit_in_workers(variants, on_source, smoother)
     t_emit = time.perf_counter() - t0
+    sources = {n: texts[n] for n, v in variants.items() if v[3]}
+    cmp_sources = {n: texts[n] for n, v in variants.items() if not v[3]}
     for build in started.values():
       build.result()
     lib = static.result()
   log(f"kernels built in {time.perf_counter() - t0:.1f} s (emitting the "
-      f"{len(sources) + len(cmp_sources)} generic variants and "
-      f"{len(set(smooth_srcs.values()))} smoother sources took "
-      f"{t_emit:.1f} s): {lib.name}")
+      f"{len(sources) + len(cmp_sources)} generic variants in "
+      f"{EMIT_WORKERS} processes and {len(set(smooth_srcs.values()))} "
+      f"smoother sources here took {t_emit:.1f} s of it): {lib.name}")
   for line in _build.ptxas_report().splitlines():
     if "registers" in line or "spill" in line or "Compiling" in line:
       log(f"  ptxas: {line.strip()}")
@@ -5361,7 +5976,7 @@ def main():
         log(f"  ptxas, {name}: {line.strip()}")
 
   gens = []
-  for i in range(7):
+  for i in range(8):
     # each path draws from a generator of its own, so a path sees the same
     # data whether or not the others run
     gens.append(torch.Generator(device=dev))
@@ -5391,9 +6006,13 @@ def main():
       ("full-Q streamed R", lambda: full_q_stream_path(torch, dev, gens[5]),
        ()),
   )
-  # kernel 10 runs on the tenth path only
+  # kernel 10 runs on the tenth path only, kernel 15 and the lane forms on
+  # the eleventh and twelfth (and kernel 15 in the run_bank example and
+  # the sharded bank)
+  bank_wrappers = (g.bank_run_scan, g.stream_bank_scan_lanes,
+                   g.stream_bank_scan_adjoint_lanes)
   wrappers = {w for _, _, ws in paths for w in ws} | {
-      g.stream_bank_scan_adjoint}
+      g.stream_bank_scan_adjoint, *bank_wrappers}
   smoother_wrappers = (sm.smooth_gains, sm.smooth_backward,
                        sm.affine_suffix_scan, sm.smooth_inject)
   launches, states = {w.__name__: 0 for w in wrappers}, []
@@ -5403,7 +6022,8 @@ def main():
   plains = {triangulation.compute_pos_batch_reference: 0,
             scan.build_scan_stream_reference: len(F_LANE_ORDER),
             rts.rts_smooth_reference: 0,
-            rts.rts_smooth_parallel_reference: 0}
+            rts.rts_smooth_parallel_reference: 0,
+            bank.run_bank_reference: 0}
   for p in plains:
     p.launches = 0
   for name, drive, expected in paths:
@@ -5429,10 +6049,10 @@ def main():
   expected = {live_scan.live_bank_scan, g.generic_bank_scan,
               g.generic_bank_scan_epoch, g.generic_bank_scan_mixed,
               g.vo_bank_scan, sm.smooth_gains, sm.affine_suffix_scan,
-              sm.smooth_inject}
+              sm.smooth_inject, g.bank_run_scan}
   require(set(counts) == {w.__name__ for w in expected},
-          f"the sharded path launched kernels 2, 4, 5, 6, 7, 11, 13 and 14 "
-          f"and no other: {counts}")
+          f"the sharded path launched kernels 2, 4, 5, 6, 7, 11, 13, 14 and "
+          f"15 and no other: {counts}")
   log(f"sharded path: {time.perf_counter() - t0:.1f} s (host clock), "
       f"{card}")
   # the ninth: user specs (KalmanBank(spec=...)) on kernels 4, 5 and 6
@@ -5466,6 +6086,30 @@ def main():
           f"other: {counts}")
   for w in wrappers:
     launches[w.__name__] += counts[w.__name__]
+  # the eleventh: run_bank, kernel 15 once a call; the twelfth: the
+  # gradient through it, kernel 15 and the lane forms of kernels 9 and 10
+  # once each
+  bank_paths = (
+      ("run_bank", lambda: bank_path(torch, dev, gens[7]),
+       {g.bank_run_scan: 3}),
+      ("run_bank gradient", lambda: bank_grad_path(torch, dev),
+       {w: 1 for w in bank_wrappers}))
+  bank_out = {}
+  for name, drive, expected in bank_paths:
+    t0 = time.perf_counter()
+    for w in wrappers:
+      w.launches = 0
+    bank_out[name] = drive()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"{name} path launches: {counts}; "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    require(all(counts[w.__name__] == expected.get(w, 0) for w in wrappers),
+            f"the {name} path launched "
+            + ", ".join(f"{w.__name__} x{n}" for w, n in expected.items())
+            + f" and no other: {counts}")
+    for w in wrappers:
+      launches[w.__name__] += counts[w.__name__]
+  hold_bank_path(torch, bank_out["run_bank"])
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
@@ -5473,12 +6117,12 @@ def main():
           == len(set(smooth_srcs.values())),
           "the main paths loaded exactly the prebuilt smoother sources")
   plain_runs = {p.__name__: p.launches for p in plains}
-  log(f"plain versions of kernels 8, 9 and 11-14 run on the main paths: "
+  log(f"plain versions of kernels 8, 9, 11-14 and 15 run on the main paths: "
       f"{plain_runs}")
   require(all(p.launches == n for p, n in plains.items()),
-          f"no main path ran the plain version of kernel 8, 9 or the "
-          f"smoothers (the plain scan only in the F_lane timing): "
-          f"{plain_runs}")
+          f"no main path ran the plain version of kernel 8, 9, the "
+          f"smoothers or run_bank (the plain scan only in the F_lane "
+          f"timing): {plain_runs}")
   require(all(launches[w.__name__] > 0 for w in smoother_wrappers),
           f"the main paths launched kernels 11-14: {launches}")
 
@@ -5492,6 +6136,8 @@ def main():
   rows += compare_triangulation(torch, states[3])
   rows += compare_scan(torch, dev, gens[4])
   rows += compare_scan_grad(torch, dev, gens[6])
+  rows += compare_bank(torch, dev, gens[7], bank_out["run_bank"]["car"])
+  rows += compare_bank_grad(torch, dev, bank_out["run_bank gradient"])
   rows += compare_smoother(torch, dev, gens[4])
   ml_tuning(torch, dev)
   compare_user_specs(torch, dev, user_states)

@@ -16,8 +16,10 @@ mixed body with frames of tests/test_torch_vio_emitter.py, and the
 user-spec path's variants (the random specs' and the op battery's,
 models/user_specs.py), kernel 9's log-scan variants (mode "stream",
 chip_smoke.stream_calls) and kernel 10's adjoint variants with the ML
-tuning's log scan (mode "stream_adjoint", chip_smoke.adjoint_calls), each
-in float and double, and the smoother's sources (mode "smooth": kernels
+tuning's log scan (mode "stream_adjoint", chip_smoke.adjoint_calls), kernel 15's
+run_bank variants and kernels 9 and 10's lane forms (mode "bank",
+chip_smoke.bank_calls, where the tree has them), each in float and
+double, and the smoother's sources (mode "smooth": kernels
 11, 12 and 14 of the live, kinematic and msckf_eskf specs, kernel 13 of
 their main blocks; one source serves both types). Runs on the CPU
 (emission needs no card); imports nothing of JAX.
@@ -73,6 +75,8 @@ def variants():
       R_list=(np.eye(3), 1e-4 * np.eye(8)))
   calls |= {name: call for name, (call, _) in cs.stream_calls().items()}
   calls |= {name: call for name, (call, _) in cs.adjoint_calls().items()}
+  if hasattr(cs, "bank_calls"):
+    calls |= {name: call for name, (call, _, _) in cs.bank_calls().items()}
   return calls
 
 

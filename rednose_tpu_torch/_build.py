@@ -5,8 +5,9 @@ Two entry points for the kernels. `library()`: all `csrc/*.cu` sources
 use into one shared library with a plain C interface.
 `generated_launcher(source)`: one source emitted per spec variant by
 ops/entry_slab.py around the template csrc/generic_scan.cuh (the generic
-kernels 4-7 and kernel 9, the log scan; kernel 10, the log scan's
-adjoint, by ops/adjoint.py around csrc/stream_adjoint.cuh too), each in a
+kernels 4-7, kernel 9, the log scan, and kernel 15, run_bank's bank scan;
+kernel 10, the log scan's adjoint, by ops/adjoint.py around
+csrc/stream_adjoint.cuh too), each in a
 directory of its own (see below). `generated_library(source)`: the same
 for the smoother's sources (ops/smooth_scan.py): kernels 11, 12 and 14
 emitted per spec around csrc/smooth.cuh, and kernel 13
@@ -181,10 +182,16 @@ AFFINE = CSRC / "affine_scan.cu"
 # kind_idx, Rs, prm, Q, xp, Pp, xq, Pq, T, B, stream; kernel 10 (mode
 # "stream_adjoint") x0, P0, zs, eas, dts, kind_idx, Rs, prm, Q, xp, Pp, xq,
 # Pq, gx, gP, gxp, gPp, gxq, gPq, dx0, dP0, dzs, dRs, ddts, deas, dQ, dprm,
-# flips, T, B, stream
+# flips, T, B, stream, and its lane form the same with gys before T;
+# kernel 15 (mode "bank") xs, Ps, ts, zs, eas, dts, Rs, r_lane, prm, Q, ys,
+# T, B, stream
 GEN_ENTRIES = {"rn_generic_scan_launch": (_P,) * 10 + (_I, _I, _P),
                "rn_generic_stream_launch": (_P,) * 13 + (_I, _I, _P),
-               "rn_generic_stream_adjoint_launch": (_P,) * 28 + (_I, _I, _P)}
+               "rn_generic_stream_adjoint_launch": (_P,) * 28 + (_I, _I, _P),
+               "rn_generic_stream_adjoint_lane_launch":
+                   (_P,) * 29 + (_I, _I, _P),
+               "rn_generic_bank_launch": (_P,) * 7 + (_I,) + (_P,) * 3
+                                         + (_I, _I, _P)}
 
 
 def _headers(source: str) -> list:
@@ -260,11 +267,17 @@ def build_generated_many(sources) -> list:
 @functools.lru_cache(maxsize=None)
 def generated_launcher(source: str):
   """Build if needed, load, and return the C entry (GEN_ENTRIES) of one
-  emitted source: rn_generic_stream_adjoint_launch for mode
-  "stream_adjoint" (its source defines REDNOSE_GENERIC_STREAM_ADJOINT),
-  rn_generic_stream_launch for mode "stream" (REDNOSE_GENERIC_SCAN_STREAM),
-  else rn_generic_scan_launch."""
-  entry = ("rn_generic_stream_adjoint_launch"
+  emitted source: rn_generic_bank_launch for mode "bank" (its source
+  defines REDNOSE_GENERIC_SCAN_BANK), rn_generic_stream_adjoint_lane_launch
+  for the lane form of mode "stream_adjoint" (REDNOSE_STREAM_ADJOINT_LANE),
+  rn_generic_stream_adjoint_launch for mode "stream_adjoint"
+  (REDNOSE_GENERIC_STREAM_ADJOINT), rn_generic_stream_launch for mode
+  "stream" (REDNOSE_GENERIC_SCAN_STREAM), else rn_generic_scan_launch."""
+  entry = ("rn_generic_bank_launch"
+           if "#define REDNOSE_GENERIC_SCAN_BANK" in source
+           else "rn_generic_stream_adjoint_lane_launch"
+           if "#define REDNOSE_STREAM_ADJOINT_LANE" in source
+           else "rn_generic_stream_adjoint_launch"
            if "#define REDNOSE_GENERIC_STREAM_ADJOINT" in source
            else "rn_generic_stream_launch"
            if "#define REDNOSE_GENERIC_SCAN_STREAM" in source

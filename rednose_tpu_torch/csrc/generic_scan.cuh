@@ -1,7 +1,9 @@
 // Kernels 4, 5, 6 and 7: fused T-step scans of a bank of ANY filter spec,
 // around a step body emitted per spec by rednose_tpu_torch/ops/entry_slab.py;
-// and kernel 9, the offline log scan (mode "stream", its own section
-// below, REDNOSE_GENERIC_SCAN_STREAM).
+// kernel 9, the offline log scan (mode "stream", its own section below,
+// REDNOSE_GENERIC_SCAN_STREAM, and its lane form, REDNOSE_STREAM_LANE_R);
+// and kernel 15, run_bank's bank scan (mode "bank",
+// REDNOSE_GENERIC_SCAN_BANK, the first section below).
 //
 // Kernel 4 (emitted mode "single") replaces the Pallas TPU kernel
 // rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan):
@@ -181,7 +183,275 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 
 #endif  // REDNOSE_GENERIC_SCAN_PRELUDE
 #else   // REDNOSE_GENERIC_SCAN_LOOPS: after the emitted rn_gen definitions
-#if defined(REDNOSE_GENERIC_SCAN_STREAM) && !defined(REDNOSE_GENERIC_SCAN_TILE)
+#if defined(REDNOSE_GENERIC_SCAN_BANK)
+
+// Kernel 15 (emitted mode "bank"): the bank scan of runtime/bank.run_bank.
+// It replaces rednose_tpu/runtime/bank.py:jit_run_bank, an XLA program and
+// not a Pallas kernel: jax.jit of one lax.scan over T steps of the
+// vmapped predict + update of one kind. Wrappers and plain versions:
+// rednose_tpu_torch/ops/generic_scan.py (bank_run_scan,
+// bank_run_scan_reference) and the custom op rednose::run_bank
+// (rednose_tpu_torch/runtime/bank.py). Each step t of each lane: the
+// emitted predict with dts[t] and Q; the emitted update of the kind
+// (gated as its maha_test says) with z = zs[t] and R step t's dz x dz
+// noise of the lane; the innovations z - h(x_pred) stored into ys[t];
+// t += dts[t] in the state's type (one add a step, as the plain loop's
+// state.t + dt).
+//
+// Layout, bank-minor: xs (DX, B), Ps (DE, DE, B), ts (B,), updated in
+// place; zs (T, NZROWS, B), eas (T, NEAROWS, B), dts (T,); Rs either
+// (T, NZROWS, NZROWS, B), read by lane (r_lane 1), or (T, NZROWS,
+// NZROWS), one R a step that every lane reads (r_lane 0: a lane stride of
+// 0, so a shared R costs no copy); the emitted update reads entry k of R
+// at R[k * ld_r], ld_r = B or 1. ys (T, NZROWS, B).
+// Design: mode "single"'s (kernel 4), the tile form where 32 filters' P,
+// x and scratch fit a block (every variant the port ships), else the
+// global form. Tile: 32 lanes x NROLES warps keep P, x and the scratch
+// in shared memory for the whole T loop; each step the predict's roles,
+// then one warp the update's shared values (gains, Joseph factor rows,
+// dx, and the innovations, which another warp copies from the scratch
+// into ys), then the update's roles. Global: one thread a lane, x in
+// registers, P in global memory. Bound: the bytes of zs, R (by lane) and
+// ys, or the emitted operations at the card's peak rate. Nothing is
+// staged ahead, so each step waits on its z and R loads; kernel 1 hides
+// them behind a cp.async ring of zs (PERF.md times both).
+
+namespace rn_gen {
+
+// step t's R of lane b: a (T, NZROWS, NZROWS, B) stack by lane, or one R a
+// step shared by the lanes (r_lane 0)
+GEN_HD GEN_INLINE const scalar_t* bank_R(const scalar_t* Rs, int t, int b,
+                                         int B, int r_lane) {
+  return r_lane ? Rs + (size_t)t * NZROWS * NZROWS * B + b
+                : Rs + (size_t)t * NZROWS * NZROWS;
+}
+
+}  // namespace rn_gen
+
+#define RN_BANK_PARAMS                                                       \
+  void *xs, void *Ps, void *ts, const void *zs, const void *eas,             \
+      const void *dts, const void *Rs, int r_lane, const void *prm,          \
+      const void *Q, void *ys, int T, int B
+#define RN_BANK_ARGS                                                         \
+  static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),                    \
+      static_cast<scalar_t*>(ts), static_cast<const scalar_t*>(zs),          \
+      static_cast<const scalar_t*>(eas), static_cast<const scalar_t*>(dts),  \
+      static_cast<const scalar_t*>(Rs), r_lane,                              \
+      static_cast<const scalar_t*>(prm), static_cast<const scalar_t*>(Q),    \
+      static_cast<scalar_t*>(ys)
+
+#ifdef REDNOSE_GENERIC_SCAN_TILE
+
+namespace rn_gen {
+constexpr int TILE_LANES = 32;
+constexpr int TILE_VALS = DE * DE + DX + NSCR;
+}  // namespace rn_gen
+
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
+rn_generic_bank_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    scalar_t* __restrict__ ts, const scalar_t* __restrict__ zs,
+    const scalar_t* __restrict__ eas, const scalar_t* __restrict__ dts,
+    const scalar_t* __restrict__ Rs, int r_lane,
+    const scalar_t* __restrict__ prm, const scalar_t* __restrict__ Q,
+    scalar_t* __restrict__ ys, int T, int B) {
+  using namespace rn_gen;
+  extern __shared__ __align__(16) unsigned char rn_tile[];
+  scalar_t* Pt = reinterpret_cast<scalar_t*>(rn_tile);
+  scalar_t* xt = Pt + DE * DE * TILE_LANES;
+  scalar_t* st = xt + DX * TILE_LANES;
+  const int lane = threadIdx.x, role = threadIdx.y;
+  const int b = blockIdx.x * TILE_LANES + lane;
+  const int bc = b < B ? b : B - 1;
+  for (int e = role; e < DE * DE; e += NROLES)
+    Pt[e * TILE_LANES + lane] = Ps[(size_t)e * B + bc];
+  for (int i = role; i < DX; i += NROLES)
+    xt[i * TILE_LANES + lane] = xs[(size_t)i * B + bc];
+  scalar_t tl = ts[bc];
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  scalar_t* P = Pt + lane;
+  scalar_t* x = xt + lane;
+  scalar_t* s = st + lane;
+  const size_t ld = TILE_LANES;
+  const size_t ld_r = r_lane ? (size_t)B : 1;
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const scalar_t dt = dts[t];
+    const scalar_t* z = zs + (size_t)t * NZROWS * B + bc;
+    const scalar_t* ea =
+        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + bc : nullptr;
+    const scalar_t* R = bank_R(Rs, t, bc, B, r_lane);
+    scalar_t v[NVAL];
+    gen_tile_predict(role, x, P, ld, dt, p, Q, v);
+    __syncthreads();
+    gen_tile_predict_store(role, x, P, ld, v);
+    __syncthreads();
+    if (role == 0) gen_tile_shared(x, P, ld, z, ea, (size_t)B, R, ld_r, p, s);
+    __syncthreads();
+    // the innovations leave from the scratch while the roles compute
+    if (role == NROLES - 1 && b < B)
+      gen_tile_y(x, P, ld, z, ea, (size_t)B, R, ld_r, p, s,
+                 ys + (size_t)t * NZROWS * B + b, (size_t)B);
+    gen_tile_update(role, x, P, ld, z, ea, (size_t)B, R, ld_r, p, s, v);
+    __syncthreads();
+    gen_tile_update_store(role, x, P, ld, v);
+    __syncthreads();
+    tl = tl + dt;
+  }
+  if (b < B) {
+    for (int e = role; e < DE * DE; e += NROLES)
+      Ps[(size_t)e * B + b] = Pt[e * TILE_LANES + lane];
+    for (int i = role; i < DX; i += NROLES)
+      xs[(size_t)i * B + b] = xt[i * TILE_LANES + lane];
+    if (role == 0) ts[b] = tl;
+  }
+}
+
+static const int rn_tile_smem =
+    (int)sizeof(scalar_t) * rn_gen::TILE_LANES * rn_gen::TILE_VALS;
+
+extern "C" int rn_generic_bank_launch(RN_BANK_PARAMS, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      rn_generic_bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rn_tile_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + rn_gen::TILE_LANES - 1) / rn_gen::TILE_LANES;
+  rn_generic_bank_kernel<<<blocks, dim3(rn_gen::TILE_LANES, rn_gen::NROLES),
+                           rn_tile_smem, static_cast<cudaStream_t>(stream)>>>(
+      RN_BANK_ARGS, T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define RN_GEN_KERNEL rn_generic_bank_kernel
+#define RN_GEN_DESIGN 1
+#define RN_GEN_ROLES rn_gen::NROLES
+#define RN_GEN_SMEM rn_tile_smem
+
+#else
+
+// The host build of the tile form (tests): lane by lane, a copy of its P,
+// x and scratch (ld = 1), each phase in barrier order.
+namespace rn_gen {
+
+GEN_HD GEN_INLINE void bank_tile_filter(
+    int b, int B, int T, scalar_t* xs, scalar_t* Ps, scalar_t* ts,
+    const scalar_t* zs, const scalar_t* eas, const scalar_t* dts,
+    const scalar_t* Rs, int r_lane, const scalar_t* prm, const scalar_t* Q,
+    scalar_t* ys) {
+  scalar_t x[DX], P[DE * DE], s[NSCR > 0 ? NSCR : 1];
+  scalar_t v[NROLES][NVAL];
+  for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+  for (int e = 0; e < DE * DE; ++e) P[e] = Ps[(size_t)e * B + b];
+  scalar_t tl = ts[b];
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  const size_t ld_r = r_lane ? (size_t)B : 1;
+  for (int t = 0; t < T; ++t) {
+    const scalar_t dt = dts[t];
+    const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
+    const scalar_t* ea =
+        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+    const scalar_t* R = bank_R(Rs, t, b, B, r_lane);
+    for (int r = 0; r < NROLES; ++r) gen_tile_predict(r, x, P, 1, dt, p, Q, v[r]);
+    for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
+    gen_tile_shared(x, P, 1, z, ea, (size_t)B, R, ld_r, p, s);
+    gen_tile_y(x, P, 1, z, ea, (size_t)B, R, ld_r, p, s,
+               ys + (size_t)t * NZROWS * B + b, (size_t)B);
+    for (int r = 0; r < NROLES; ++r)
+      gen_tile_update(r, x, P, 1, z, ea, (size_t)B, R, ld_r, p, s, v[r]);
+    for (int r = 0; r < NROLES; ++r) gen_tile_update_store(r, x, P, 1, v[r]);
+    tl = tl + dt;
+  }
+  for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+  for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = P[e];
+  ts[b] = tl;
+}
+
+}  // namespace rn_gen
+
+extern "C" int rn_generic_bank_host(RN_BANK_PARAMS) {
+  for (int b = 0; b < B; ++b) rn_gen::bank_tile_filter(b, B, T, RN_BANK_ARGS);
+  return 0;
+}
+
+#endif  // __CUDACC__
+#else   // REDNOSE_GENERIC_SCAN_TILE: the global form
+
+namespace rn_gen {
+
+// One lane b through all T steps: x in registers, P in global memory.
+GEN_HD GEN_INLINE void bank_filter(
+    int b, int B, int T, scalar_t* xs, scalar_t* Ps, scalar_t* ts,
+    const scalar_t* zs, const scalar_t* eas, const scalar_t* dts,
+    const scalar_t* Rs, int r_lane, const scalar_t* prm, const scalar_t* Q,
+    scalar_t* ys) {
+  scalar_t x[DX];
+  for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
+  scalar_t* P = Ps + b;
+  scalar_t tl = ts[b];
+  scalar_t p[NP > 0 ? NP : 1];
+  for (int i = 0; i < NP; ++i) p[i] = prm[i];
+  const size_t ld_r = r_lane ? (size_t)B : 1;
+  for (int t = 0; t < T; ++t) {
+    const scalar_t dt = dts[t];
+    gen_predict(x, P, (size_t)B, dt, p, Q);
+    const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
+    const scalar_t* ea =
+        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+    gen_bank_update(x, P, (size_t)B, z, ea, (size_t)B,
+                    bank_R(Rs, t, b, B, r_lane), ld_r, p,
+                    ys + (size_t)t * NZROWS * B + b);
+    tl = tl + dt;
+  }
+  for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
+  ts[b] = tl;
+}
+
+}  // namespace rn_gen
+
+#ifdef __CUDACC__
+
+__global__ void rn_generic_bank_kernel(
+    scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
+    scalar_t* __restrict__ ts, const scalar_t* __restrict__ zs,
+    const scalar_t* __restrict__ eas, const scalar_t* __restrict__ dts,
+    const scalar_t* __restrict__ Rs, int r_lane,
+    const scalar_t* __restrict__ prm, const scalar_t* __restrict__ Q,
+    scalar_t* __restrict__ ys, int T, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B)
+    rn_gen::bank_filter(b, B, T, xs, Ps, ts, zs, eas, dts, Rs, r_lane, prm, Q,
+                        ys);
+}
+
+extern "C" int rn_generic_bank_launch(RN_BANK_PARAMS, void* stream) {
+  const int threads = 32;
+  const int blocks = (B + threads - 1) / threads;
+  rn_generic_bank_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(RN_BANK_ARGS,
+                                                               T, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define RN_GEN_KERNEL rn_generic_bank_kernel
+#define RN_GEN_DESIGN 0
+#define RN_GEN_ROLES 1
+#define RN_GEN_SMEM 0
+
+#else
+
+// The host build (tests): the same emitted body, lane by lane.
+extern "C" int rn_generic_bank_host(RN_BANK_PARAMS) {
+  for (int b = 0; b < B; ++b) rn_gen::bank_filter(b, B, T, RN_BANK_ARGS);
+  return 0;
+}
+
+#endif  // __CUDACC__
+#endif  // REDNOSE_GENERIC_SCAN_TILE
+#elif defined(REDNOSE_GENERIC_SCAN_STREAM) && !defined(REDNOSE_GENERIC_SCAN_TILE)
 
 // Kernel 9 (emitted mode "stream"): the offline log scan. It replaces
 // rednose_tpu/runtime/scan.py:scan_fn, an XLA program and not a Pallas
@@ -249,8 +519,14 @@ GEN_HD GEN_INLINE void stream_filter(
     const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
     const scalar_t* ea =
         NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
+#ifdef REDNOSE_STREAM_LANE_R
+    // the lane form: Rs (T, NZROWS, NZROWS, B), R by lane
+    gen_stream_update(x, P, (size_t)B, z, ea, (size_t)B, kind_idx[t],
+                      Rs + (size_t)t * NZROWS * NZROWS * B + b, (size_t)B, p);
+#else
     gen_stream_update(x, P, (size_t)B, z, ea, (size_t)B, kind_idx[t],
                       Rs + (size_t)t * NZROWS * NZROWS, p);
+#endif
     stream_store(t, b, B, x, P, xq, Pq);
   }
   for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
@@ -1239,7 +1515,7 @@ extern "C" int rn_generic_scan_host(void* xs, void* Ps, const void* zs,
 }
 
 #endif  // __CUDACC__
-#endif  // REDNOSE_GENERIC_SCAN_STREAM, REDNOSE_GENERIC_SCAN_TILE
+#endif  // REDNOSE_GENERIC_SCAN_BANK, _STREAM, _TILE
 
 #ifdef __CUDACC__
 // The variant's launch shape as the runtime reads it: out[0] the design (1

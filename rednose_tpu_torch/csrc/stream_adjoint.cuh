@@ -82,6 +82,13 @@
 //
 // An absent cotangent (a null gx, gP, gxp, gPp, gxq or gPq: an output
 // that the loss does not read) is read as zeros, in both designs.
+//
+// The lane form (REDNOSE_STREAM_ADJOINT_LANE, the global form only; the
+// backward of runtime/bank.run_bank, after kernel 9's lane form
+// recomputed the stacks): Rs (T, NZROWS, NZROWS, B) by lane, and one more
+// incoming cotangent, gys (T, NZROWS, B), that of each step's innovations
+// z - h(x_pred), which the emitted update adjoint seeds on its y (a null
+// gys: none); entries rn_generic_stream_adjoint_lane_launch / _host.
 
 #ifndef REDNOSE_GENERIC_STREAM_ADJOINT
 #error "csrc/stream_adjoint.cuh is included by an emitted adjoint source"
@@ -104,6 +111,10 @@ GEN_HD GEN_INLINE const scalar_t* rn_at(const scalar_t* base, size_t off) {
       cast_in(gPq), cast_out(dx0), cast_out(dP0), cast_out(dzs),             \
       cast_out(dRs), cast_out(ddts), cast_out(deas), cast_out(dQ),           \
       cast_out(dprm), static_cast<int*>(flips)
+// the entry's own void* parameters passed through unchanged
+#define RN_ADJ_ARGS_V                                                        \
+  x0, P0, zs, eas, dts, kind_idx, Rs, prm, Q, xp, Pp, xq, Pq, gx, gP, gxp,   \
+      gPp, gxq, gPq, dx0, dP0, dzs, dRs, ddts, deas, dQ, dprm, flips
 #define RN_ADJ_IN(a) static_cast<const scalar_t*>(a)
 #define RN_ADJ_OUT(a) static_cast<scalar_t*>(a)
 #define RN_ADJ_PARAMS                                                        \
@@ -595,7 +606,7 @@ GEN_HD GEN_INLINE void adjoint_filter(
     const scalar_t* gP, const scalar_t* gxp, const scalar_t* gPp,
     const scalar_t* gxq, const scalar_t* gPq, scalar_t* dx0, scalar_t* dP0,
     scalar_t* dzs, scalar_t* dRs, scalar_t* ddts, scalar_t* deas,
-    scalar_t* dQ, scalar_t* dprm, int* flips) {
+    scalar_t* dQ, scalar_t* dprm, int* flips, const scalar_t* gys) {
   const size_t ld = (size_t)B;
   const size_t XS = DX, PS = (size_t)DE * DE;  // a step's values a lane
   scalar_t p[NP > 0 ? NP : 1];
@@ -606,6 +617,14 @@ GEN_HD GEN_INLINE void adjoint_filter(
   scalar_t x[DX], lx[DX];
   scalar_t* L = dP0 + b;
   scalar_t* gQ = dQ + b;
+#ifdef REDNOSE_STREAM_ADJOINT_LANE
+  // the lane form sums Q's cotangent, dt L, over a lane's steps in
+  // double and stores it once: a bank's lanes' sums cancel (65-165 fold
+  // on the smoke's kinematic bank), so a float32 lane's rounding over 500
+  // steps (~1e-6 of it) came out ~1e-4 of the bank's sum
+  double gq[DE * DE];
+  for (int e = 0; e < DE * DE; ++e) gq[e] = 0;
+#endif
   for (int i = 0; i < DX; ++i) lx[i] = 0;
   for (size_t e = 0; e < PS; ++e) {
     L[e * ld] = 0;
@@ -634,9 +653,19 @@ GEN_HD GEN_INLINE void adjoint_filter(
     const scalar_t* ea =
         NEAROWS > 0 ? eas + (size_t)t * NEAROWS * ld + b : nullptr;
     bool rec = rej;
+#ifdef REDNOSE_STREAM_ADJOINT_LANE
+    // the lane form: Rs (T, NZROWS, NZROWS, B) by lane, and the
+    // innovations' cotangent gys (T, NZROWS, B) seeded on the update's y
+    gen_adj_update(kind_idx[t], x, Ppt, ld, zs + (size_t)t * NZROWS * ld + b,
+                   ea, ld, Rs + (size_t)t * NZROWS * NZROWS * ld + b, ld, p,
+                   rej, rn_at(gys, (size_t)t * NZROWS * ld + b), lx, L, ld,
+                   gz, gea, gR, dprm + b, ld, &rec);
+#else
+    (void)gys;
     gen_adj_update(kind_idx[t], x, Ppt, ld, zs + (size_t)t * NZROWS * ld + b,
                    ea, ld, Rs + (size_t)t * NZROWS * NZROWS, p, rej, lx, L,
                    ld, gz, gea, gR, dprm + b, ld, &rec);
+#endif
     nflip += rec != rej;
     adj_enter(lx, L, ld, rn_at(gxp, t * XS * ld + b),
               rn_at(gPp, t * PS * ld + b));
@@ -644,7 +673,11 @@ GEN_HD GEN_INLINE void adjoint_filter(
     const scalar_t dt = dts[t];
     for (int i = 0; i < DE; ++i)
       for (int j = i; j < DE; ++j)
+#ifdef REDNOSE_STREAM_ADJOINT_LANE
+        gq[i * DE + j] += (double)dt * (double)L[(size_t)(i * DE + j) * ld];
+#else
         gQ[(size_t)(i * DE + j) * ld] += dt * L[(size_t)(i * DE + j) * ld];
+#endif
     // the predict of step t, from the state before it
     const scalar_t* xs = t > 0 ? xq + (t - 1) * XS * ld + b : x0 + b;
     const scalar_t* Ps = t > 0 ? Pq + (t - 1) * PS * ld + b : P0 + b;
@@ -653,6 +686,9 @@ GEN_HD GEN_INLINE void adjoint_filter(
                     dprm + b, ld);
   }
   for (int i = 0; i < DX; ++i) dx0[(size_t)i * ld + b] = lx[i];
+#ifdef REDNOSE_STREAM_ADJOINT_LANE
+  for (int e = 0; e < DE * DE; ++e) gQ[(size_t)e * ld] = (scalar_t)gq[e];
+#endif
   flips[b] = nflip;
 }
 
@@ -675,23 +711,39 @@ __global__ void rn_generic_stream_adjoint_kernel(
     scalar_t* __restrict__ dP0, scalar_t* __restrict__ dzs,
     scalar_t* __restrict__ dRs, scalar_t* __restrict__ ddts,
     scalar_t* __restrict__ deas, scalar_t* __restrict__ dQ,
-    scalar_t* __restrict__ dprm, int* __restrict__ flips, int T, int B) {
+    scalar_t* __restrict__ dprm, int* __restrict__ flips,
+    const scalar_t* __restrict__ gys, int T, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b < B)
     rn_gen::adjoint_filter(b, B, T, x0, P0, zs, eas, dts, kind_idx, Rs, prm,
                            Q, xp, Pp, xq, Pq, gx, gP, gxp, gPp, gxq, gPq, dx0,
-                           dP0, dzs, dRs, ddts, deas, dQ, dprm, flips);
+                           dP0, dzs, dRs, ddts, deas, dQ, dprm, flips, gys);
 }
 
-extern "C" int rn_generic_stream_adjoint_launch(RN_ADJ_PARAMS, int T, int B,
-                                                void* stream) {
+static int rn_adjoint_launch(RN_ADJ_PARAMS, const void* gys, int T, int B,
+                             void* stream) {
   const int threads = 32;
   const int blocks = (B + threads - 1) / threads;
   rn_generic_stream_adjoint_kernel<<<blocks, threads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
-      RN_ADJ_ARGS(RN_ADJ_IN, RN_ADJ_OUT), T, B);
+      RN_ADJ_ARGS(RN_ADJ_IN, RN_ADJ_OUT), RN_ADJ_IN(gys), T, B);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef REDNOSE_STREAM_ADJOINT_LANE
+// the lane form: gys (T, NZROWS, B), or null for no cotangent of the
+// innovations
+extern "C" int rn_generic_stream_adjoint_lane_launch(RN_ADJ_PARAMS,
+                                                     const void* gys, int T,
+                                                     int B, void* stream) {
+  return rn_adjoint_launch(RN_ADJ_ARGS_V, gys, T, B, stream);
+}
+#else
+extern "C" int rn_generic_stream_adjoint_launch(RN_ADJ_PARAMS, int T, int B,
+                                                void* stream) {
+  return rn_adjoint_launch(RN_ADJ_ARGS_V, nullptr, T, B, stream);
+}
+#endif
 
 // The launch shape as the runtime reads it (generic_scan.cuh's
 // rn_generic_scan_info: design 0, the global form, one warp a block).
@@ -716,11 +768,23 @@ extern "C" int rn_generic_scan_info(int* out) {
 #else
 
 // The host build (tests): the same emitted adjoint, lane by lane.
-extern "C" int rn_generic_stream_adjoint_host(RN_ADJ_PARAMS, int T, int B) {
+#ifdef REDNOSE_STREAM_ADJOINT_LANE
+extern "C" int rn_generic_stream_adjoint_lane_host(RN_ADJ_PARAMS,
+                                                   const void* gys, int T,
+                                                   int B) {
   for (int b = 0; b < B; ++b)
-    rn_gen::adjoint_filter(b, B, T, RN_ADJ_ARGS(RN_ADJ_IN, RN_ADJ_OUT));
+    rn_gen::adjoint_filter(b, B, T, RN_ADJ_ARGS(RN_ADJ_IN, RN_ADJ_OUT),
+                           RN_ADJ_IN(gys));
   return 0;
 }
+#else
+extern "C" int rn_generic_stream_adjoint_host(RN_ADJ_PARAMS, int T, int B) {
+  for (int b = 0; b < B; ++b)
+    rn_gen::adjoint_filter(b, B, T, RN_ADJ_ARGS(RN_ADJ_IN, RN_ADJ_OUT),
+                           nullptr);
+  return 0;
+}
+#endif
 
 #endif  // __CUDACC__
 #endif  // REDNOSE_ADJOINT_TILE

@@ -10,8 +10,8 @@ engine half, run_compat_migration, run_msckf, run_vo_pipeline) run plain
 torch, as the JAX package runs them in plain jnp. The bank examples run
 the kernels a user's bank takes on the card (run_mixed_bank kernel 3,
 run_loc's bank_demo kernel 6, run_msckf_bank kernels 6 and 7; run_bank
-the plain runtime/bank sharded over the mesh, parallel/sharding) and
-print, where the JAX script prints `pallas=...`, the kernels they
+runtime/bank.run_bank, kernel 15, sharded over the mesh,
+parallel/sharding) and print, where the JAX script prints `pallas=...`, the kernels they
 launched. Nothing falls back: on CUDA a kernel that does not build or
 launch raises.
 """
@@ -38,7 +38,9 @@ def kernel_wrappers():
           triangulation.compute_pos_batch, generic_scan.stream_bank_scan,
           generic_scan.stream_bank_scan_adjoint, smooth_scan.smooth_gains,
           smooth_scan.smooth_backward, smooth_scan.affine_suffix_scan,
-          smooth_scan.smooth_inject)
+          smooth_scan.smooth_inject, generic_scan.bank_run_scan,
+          generic_scan.stream_bank_scan_lanes,
+          generic_scan.stream_bank_scan_adjoint_lanes)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,8 @@
 """Filter-bank demo: 4096 independent kinematic EKFs stepped together by
-the bank oracle (runtime/bank: the per-filter step vmapped over the bank),
-sharded over every rank of the mesh (parallel/sharding), then the bank
-RMSE against the truth as a collective. Port of examples/run_bank.py.
+runtime/bank.run_bank (on the card one launch of kernel 15 for the T
+steps, on the host the per-filter step vmapped over the bank), sharded
+over every rank of the mesh (parallel/sharding), then the bank RMSE
+against the truth as a collective. Port of examples/run_bank.py.
 One process is a mesh of one rank; under torchrun each rank runs its
 block of the bank on its own card:
 

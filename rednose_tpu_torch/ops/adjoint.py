@@ -234,17 +234,22 @@ def predict_adjoint(spec: FilterSpec, structure, pnames, q_pattern):
 
 
 def update_adjoint(spec: FilterSpec, kind: int, structure, pnames,
-                   gate: bool):
+                   gate: bool, seed_y: bool = False):
   """The adjoint of entry_slab.update_phase of `kind`, gated on the
   forward's decision (the leaf rej) where the kind gates: the cotangents
   of the predicted x and P (over the incoming ones), of z and ea
   (written), of R's upper entries within the kind's dz x dz block
   (written) and of the params (accumulated); and, for a gated kind, the
-  decision recomputed from the inputs (target rec)."""
+  decision recomputed from the inputs (target rec). seed_y (kernel 10's
+  lane form, the adjoint of runtime/bank.run_bank): the innovations
+  y = z - h(x) take the incoming cotangent gy (leaves gy) as seeds too."""
   om = spec.obs[kind]
   ph = entry_slab.update_phase(spec, kind, structure, pnames, gate,
                                stored_gate=True)
-  adj = backward(ph.dag, _seeds(ph),
+  seeds = _seeds(ph)
+  if seed_y:
+    seeds += [(v, ph.dag.load("gy", (r,))) for r, v in enumerate(ph.y)]
+  adj = backward(ph.dag, seeds,
                  lambda a: a[0] in ("x", "P", "z", "R", "ea", "p"))
   out = AdjointPhase(ph.dag)
   out.stores = ([("gz", r, adj.get(("z", (r,)))) for r in range(om.dz)]
@@ -263,13 +268,16 @@ def update_adjoint(spec: FilterSpec, kind: int, structure, pnames,
 
 class _AdjointPrinter(entry_slab._Printer):
   """entry_slab's SSA printer, reading the incoming cotangents (gx from
-  lx, gP through GEN_L) and the forward's gate decision rej."""
+  lx, gP through GEN_L, the lane form's gy through GEN_GY) and the
+  forward's gate decision rej."""
 
   def _load(self, a):
     if a[0] == "gx":
       return f"lx[{a[1][0]}]"
     if a[0] == "gP":
       return f"GEN_L({a[1][0]}, {a[1][1]})"
+    if a[0] == "gy":
+      return f"GEN_GY({a[1][0]})"
     if a[0] == "rej":
       return "rej"
     return super()._load(a)
@@ -295,12 +303,13 @@ def _store_text(target, idx, val):
   raise AssertionError(target)
 
 
-def print_adjoint(ph: AdjointPhase, dz: int) -> list:
+def print_adjoint(ph: AdjointPhase, dz: int, lane: bool = False) -> list:
   """Statements of one adjoint phase: SSA definitions in dependency order,
   each store as soon as its value exists; a store over an incoming
   cotangent (lx, GEN_L) first loads the old value if the DAG reads it, so
-  every later expression reads the value from before the store."""
-  pr = _AdjointPrinter(dz)
+  every later expression reads the value from before the store. lane: R
+  read by lane (entry_slab._Printer's lane_r)."""
+  pr = _AdjointPrinter(dz, lane_r=lane)
   incoming = {("lx", e.args[1][0]) if e.args[0] == "gx"
               else ("L", e.args[1]): e
               for e in ph.dag.nodes
@@ -326,6 +335,9 @@ P_UPDATE = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
             "scalar_t* lx", "scalar_t* L", "size_t ldl", "scalar_t* gz",
             "scalar_t* gea", "scalar_t* gR", "scalar_t* gp", "size_t ldg",
             "bool* rec"]
+# kernel 10's lane form (R and the innovations' cotangent gy by lane)
+P_UPDATE_LANE = (P_UPDATE[:7] + ["size_t ld_r"] + P_UPDATE[7:9]
+                 + ["const scalar_t* gy"] + P_UPDATE[9:])
 
 # ------------------------------------------------------------ the tile form
 # Kernel 10 in tile form (csrc/stream_adjoint.cuh, REDNOSE_ADJOINT_TILE): a
@@ -718,7 +730,7 @@ def _plan_note(name, plan):
 
 
 def emit_source(spec: FilterSpec, units, structure, pnames, q_pattern=(),
-                scalar="float", tile=True) -> str:
+                scalar="float", tile=True, lane=False) -> str:
   """C++ source of kernel 10's variant for a log of units ((kind, gate)
   pairs, kernel 9's 'stream' units), around csrc/stream_adjoint.cuh (the
   loop over t = T-1 ... 0, the kernel and its entry points).
@@ -729,7 +741,11 @@ def emit_source(spec: FilterSpec, units, structure, pnames, q_pattern=(),
   and the switches over the units by the step's kind index. The global
   form (tile=False, or a tile that does not fit): gen_adj_predict, one
   gen_adj_update_k<kind>[_g] a unit and the switch gen_adj_update over
-  them, every phase a call of its own on the card (GEN_PHASE)."""
+  them, every phase a call of its own on the card (GEN_PHASE). lane (the
+  lane form, the backward of runtime/bank.run_bank): the global form with
+  R read by lane (R[k * ld_r]) and each update's innovations seeded with
+  their cotangent gy (GEN_GY, a lane's row of gys, or 0 where the
+  launcher passes none)."""
   if scalar not in ("float", "double"):
     raise ValueError(f"scalar {scalar!r} is not 'float' or 'double'")
   kinds = [k for k, _ in units]
@@ -763,9 +779,12 @@ def emit_source(spec: FilterSpec, units, structure, pnames, q_pattern=(),
   upds = {}
   for (k, g), name in zip(units, names):
     if name not in upds:
-      upds[name] = (update_adjoint(spec, k, structure, pnames, g),
+      upds[name] = (update_adjoint(spec, k, structure, pnames, g, lane),
                     spec.obs[k])
-  if not tile:
+  if lane:
+    head.append("// design: global (lane form: R and the innovations' "
+                f"cotangent by lane): {stored}")
+  elif not tile:
     head.append(f"// design: global: {stored}")
   else:
     w = entry_slab.TILE_ROLES_ADJOINT
@@ -785,23 +804,26 @@ def emit_source(spec: FilterSpec, units, structure, pnames, q_pattern=(),
         f"// design: global: the tile of {entry_slab.TILE_LANES} lanes "
         f"({nbytes:,} B in {scalar}) exceeds the "
         f"{entry_slab.TILE_SMEM_MAX:,} B a block may use, so {stored}")
+  p_update = P_UPDATE_LANE if lane else P_UPDATE
   out = head + body + [
       "#define GEN_P(i, j) P[(size_t)((i) * DE + (j)) * ld]",
       "#define GEN_L(i, j) L[(size_t)((i) * DE + (j)) * ldl]",
-      "",
-  ]
+  ] + (["#define GEN_GY(r) (gy == nullptr ? (scalar_t)0 "
+        ": gy[(size_t)(r) * ld_in])"] if lane else []) + [""]
   out += entry_slab._function("gen_adj_predict", P_PREDICT, print_adjoint(
       pred, 0), "GEN_PHASE")
   for name, (ph, _) in upds.items():
-    out += [""] + entry_slab._function(name, P_UPDATE, print_adjoint(
-        ph, max_dz), "GEN_PHASE")
-  args = ", ".join(entry_slab._args(P_UPDATE))
+    out += [""] + entry_slab._function(name, p_update, print_adjoint(
+        ph, max_dz, lane), "GEN_PHASE")
+  args = ", ".join(entry_slab._args(p_update))
   out += ["", "GEN_HD GEN_INLINE void gen_adj_update(int ki, "
-          f"{', '.join(P_UPDATE)}) {{", "  switch (ki) {"]
+          f"{', '.join(p_update)}) {{", "  switch (ki) {"]
   out += [f"    case {u}: {n}({args}); break;" for u, n in enumerate(names)]
   out += ["    default: break;", "  }", "}", "", "}  // namespace rn_gen", "",
-          "#define REDNOSE_GENERIC_STREAM_ADJOINT",
-          '#include "stream_adjoint.cuh"', ""]
+          "#define REDNOSE_GENERIC_STREAM_ADJOINT"]
+  if lane:
+    out.append("#define REDNOSE_STREAM_ADJOINT_LANE")
+  out += ['#include "stream_adjoint.cuh"', ""]
   return "\n".join(out)
 
 

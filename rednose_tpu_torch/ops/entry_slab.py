@@ -68,7 +68,13 @@ the leading dz x dz block of the step's streamed max_dz x max_dz R, and a
 switch over them by the step's kind index.
 Mode "stream_adjoint" (kernel 10, the adjoint of kernel 9) is the reverse
 mode of these DAGs, ops/adjoint.py, in tile form where its tile fits
-(adjoint_tile_bytes, TILE_ROLES_ADJOINT warps).
+(adjoint_tile_bytes, TILE_ROLES_ADJOINT warps). Their lane forms (lane_r:
+each lane's R, and for the adjoint the innovations' cotangent, read by
+lane) are the global form only: the backward of mode "bank".
+Mode "bank" (kernel 15, runtime/bank.run_bank) is mode "single"'s step
+reading R through a run-time lane stride and storing each step's
+innovations: in tile form they are scratch values after the update's
+shared ones, copied out by gen_tile_y.
 Mode "smooth" (kernels 11, 12 and 14, the offline RTS smoother,
 smooth_source) prints only the spec's error-state functions the smoother
 needs, as templates over the scalar type, for csrc/smooth.cuh.
@@ -178,6 +184,7 @@ class Phase:
     self.shared = []
     self.stages = None
     self.gate = None
+    self.y = None
 
   def P(self, i, j):
     return self.dag.load("P", (min(i, j), max(i, j)))
@@ -303,6 +310,7 @@ def update_phase(spec: FilterSpec, kind: int, structure, pnames,
   h, taps = structural.run_entry_taps(d, fh, shapes, [x, ea] + prm, de, cols)
   z = ph.inputs("z", (dz,))
   y = [d.sub(z[r], h[r]) for r in range(dz)]
+  ph.y = y
 
   P_rows = {c: [ph.P(c, j) for j in range(de)] for c in cols}
   hp_rows = [_tree_sum(d, [_ent_mul(d, taps[c][r], P_rows[c]) for c in cols],
@@ -697,11 +705,14 @@ class _Printer:
   """SSA statements of one emitted function: each node a `const`
   definition after its operands. x reads as x[i], or in the tile form
   (tile=True) through GEN_X; a node of `slots` (tile form) is read from
-  its scratch slot through GEN_S instead of computed."""
+  its scratch slot through GEN_S instead of computed. With lane_r (the
+  modes that read R by lane: "bank", and the lane forms of "stream" and
+  "stream_adjoint") entry k of the dz x dz R is R[k * ld_r], ld_r a
+  run-time stride (the bank's width, or 1 for an R the lanes share)."""
 
-  def __init__(self, dz, tile=False, slots=None):
+  def __init__(self, dz, tile=False, slots=None, lane_r=False):
     self.lines, self.names, self.dz = [], {}, dz
-    self.tile, self.slots = tile, slots or {}
+    self.tile, self.slots, self.lane_r = tile, slots or {}, lane_r
 
   def ref(self, v):
     if v is None:
@@ -713,6 +724,8 @@ class _Printer:
   def _load(self, a):
     if self.tile and a[0] == "x":
       return f"GEN_X({a[1][0]})"
+    if self.lane_r and a[0] == "R":
+      return f"R[(size_t){a[1][0] * self.dz + a[1][1]} * ld_r]"
     return _load_text(a[0], a[1], self.dz)
 
   def emit(self, root):
@@ -736,11 +749,14 @@ class _Printer:
           stack.append((a, False))
 
 
-def print_phase(ph: Phase, dz: int = 0) -> list:
+def print_phase(ph: Phase, dz: int = 0, lane_r: bool = False,
+                y_out: bool = False) -> list:
   """Statements of one phase: SSA definitions in dependency order, P
   stores as soon as their value exists (after the old value is loaded if
-  anything still reads it), x stores last."""
-  pr = _Printer(dz)
+  anything still reads it), x stores last. lane_r: R read by lane
+  (_Printer); y_out: an update's innovations stored into y (row r at
+  y[r * ld_in]) before x."""
+  pr = _Printer(dz, lane_r=lane_r)
   lines, ref, emit = pr.lines, pr.ref, pr.emit
 
   roots = list(ph.p_out.values()) + list(ph.x_out)
@@ -761,6 +777,11 @@ def print_phase(ph: Phase, dz: int = 0) -> list:
              if not _unchanged(v, "x", (i,))]
   for _, v in changed:
     emit(v)
+  if y_out:
+    for v in ph.y:
+      emit(v)
+    lines += [f"  y[(size_t){r} * ld_in] = {ref(v)};"
+              for r, v in enumerate(ph.y)]
   for i, v in changed:
     lines.append(f"  x[{i}] = {ref(v)};")
   return lines
@@ -958,13 +979,13 @@ def _function(name, params, lines, inline="GEN_INLINE"):
 
 def _role_functions(name, params, roles, dz, slots,
                     stored=("scalar_t* x", "scalar_t* P", "size_t ld",
-                            "const scalar_t* v")):
+                            "const scalar_t* v"), lane_r=False):
   """Role r's compute function name_r{r} (its values into v) and store
   function name_r{r}_store (v into P and x, each P entry at (i, j) and
   (j, i); a stage's values, array "s", into their scratch slots)."""
   out = []
   for r, outs in enumerate(roles):
-    pr = _Printer(dz, True, slots)
+    pr = _Printer(dz, True, slots, lane_r)
     for _, _, v in outs:
       pr.emit(v)
     pr.lines += [f"  v[{k}] = {pr.ref(v)};" for k, (_, _, v) in
@@ -1072,7 +1093,8 @@ def _kind_dispatch(name, params, cases, var="ki"):
 
 
 def _tile_source(body, pred, units, n_roles, mixed=False,
-                 smem=None, slot_table=None, stream=False) -> list:
+                 smem=None, slot_table=None, stream=False,
+                 bank=False) -> list:
   """The lines after the header of a variant in tile form: the role
   functions of the predict and of each update unit, each unit's shared
   values and the dispatchers the template's tile loop calls, over n_roles
@@ -1091,8 +1113,13 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
   loop takes each slot's unit, rows and R. A log-scan variant (stream:
   mode 'stream', mixed, each unit's R the leading block of the step's
   staged R, offset 0) prints a mixed variant's functions for the
-  template's REDNOSE_GENERIC_SCAN_STREAM tile loop. smem, when given: the
-  block's shared memory bytes, named in the design line."""
+  template's REDNOSE_GENERIC_SCAN_STREAM tile loop. A bank-scan variant
+  (bank: mode 'bank', one unit whose shared values end with its
+  innovations) reads R through a run-time stride ld_r (R by lane, or
+  shared by the lanes) and prints gen_tile_y, the innovations from the
+  scratch into y, for the template's REDNOSE_GENERIC_SCAN_BANK tile
+  loop. smem, when given: the block's shared memory bytes, named in the
+  design line."""
   staged = any(u[4] for u in units)
   epoch = slot_table is not None
   funcs = {}
@@ -1113,6 +1140,9 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
     switched += (", each step's inputs staged a step ahead and its x and P "
                  "stored from the tile after the predict and after the "
                  "update")
+  if bank:
+    switched = (", R read by lane or shared through a run-time stride, "
+                "each step's innovations stored from the scratch")
   if epoch:
     switched = (f", {len(slot_table)} slots of {len(units)} "
                 f"unit{'s' if len(units) > 1 else ''}, each step's inputs "
@@ -1142,7 +1172,8 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
             "const scalar_t dt", "const scalar_t* p", "const scalar_t* Q"]
   p_in = ["const scalar_t* x", "const scalar_t* P", "size_t ld",
           "const scalar_t* z", "const scalar_t* ea", "size_t ld_in",
-          "const scalar_t* R", "const scalar_t* p"]
+          "const scalar_t* R", *(["size_t ld_r"] if bank else []),
+          "const scalar_t* p"]
   p_upd = p_in + ["const scalar_t* s"]
   p_store = ["scalar_t* x", "scalar_t* P", "size_t ld", "const scalar_t* v"]
   p_stage = p_in + ["scalar_t* s", "scalar_t* v"]
@@ -1155,7 +1186,7 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
                                 frame)]
     else:
       cuts = stages[0][1]                     # its one serial stage
-      pr = _Printer(dz, True)
+      pr = _Printer(dz, True, lane_r=bank)
       for e in cuts:
         pr.emit(e)
       pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
@@ -1163,7 +1194,7 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
               *_function(f"{name}_shared" if mixed or epoch
                          else "gen_tile_shared", p_in + ["scalar_t* s"],
                          pr.lines)]
-    out += _role_functions(name, p_upd, roles, dz, slots)
+    out += _role_functions(name, p_upd, roles, dz, slots, lane_r=bank)
     if mixed or epoch:
       out += _dispatch(f"{name}_update", p_upd + ["scalar_t* v"],
                        lambda r, n=name: f"{n}_r{r}", n_roles)
@@ -1228,6 +1259,16 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
                      lambda r: f"{name}_r{r}", n_roles)
     out += _dispatch("gen_tile_update_store", p_store,
                      lambda r: f"{name}_r{r}_store", n_roles)
+    if bank:
+      # the innovations, each read from its scratch slot
+      upd, slots = units[0][1], funcs[name][2]
+      pr = _Printer(units[0][2], True, slots, True)
+      for v in upd.y:
+        pr.emit(v)
+      pr.lines += [f"  y[(size_t){r} * ld_y] = {pr.ref(v)};"
+                   for r, v in enumerate(upd.y)]
+      out += ["", *_function("gen_tile_y", p_in + [
+          "const scalar_t* s", "scalar_t* y", "size_t ld_y"], pr.lines)]
   out += ["", "}  // namespace rn_gen", "",
           "#define REDNOSE_GENERIC_SCAN_TILE"]
   if mixed:
@@ -1238,6 +1279,8 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
     out.append("#define REDNOSE_GENERIC_SCAN_TILE_STAGES")
   if stream:
     out.append("#define REDNOSE_GENERIC_SCAN_STREAM")
+  if bank:
+    out.append("#define REDNOSE_GENERIC_SCAN_BANK")
   out += ["#define REDNOSE_GENERIC_SCAN_LOOPS",
           '#include "generic_scan.cuh"', ""]
   return out
@@ -1246,7 +1289,7 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
 # ----------------------------------------------------------- variant source
 
 MODES = ("single", "mixed", "epoch", "frame", "stream", "stream_adjoint",
-         "smooth")
+         "smooth", "bank")
 
 
 def _unit_name(kind, gate, frame=False):
@@ -1259,7 +1302,7 @@ def _r_text(r_pattern):
 
 def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                 ps_keys=(), q_pattern=(), scalar="float",
-                r_patterns=None, tile=True) -> str:
+                r_patterns=None, tile=True, lane_r=False) -> str:
   """C++ source of one kernel variant.
 
   mode 'single' (kernel 4: one unit), 'mixed' (kernel 6: a switch over
@@ -1290,7 +1333,17 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   ops/adjoint.emit_source: the tile form where its tile fits a block
   (adjoint_tile_bytes), else, or with tile=False, the global form. Mode
   'smooth' (kernels 11, 12 and 14) is smooth_source(spec, pnames); the
-  other arguments are not read."""
+  other arguments are not read.
+  Mode 'bank' (kernel 15, runtime/bank.run_bank): mode 'single''s step,
+  each step's R read by lane through a run-time stride (R[k * ld_r]: ld_r
+  the bank's width for R by lane, 1 for an R the lanes share) and each
+  step's innovations z - h(x_pred) stored (y); the tile form where it
+  fits, over TILE_ROLES roles, its innovations in the scratch after the
+  shared values (gen_tile_y), else the global form (gen_bank_update).
+  lane_r (modes 'stream' and 'stream_adjoint', kernels 9 and 10's lane
+  forms): R by lane (Rs (T, max_dz, max_dz, B), ld_r the bank's width),
+  and for 'stream_adjoint' the innovations' cotangent gy by lane; the
+  global form only."""
   if mode not in MODES:
     raise ValueError(f"mode {mode!r} not in {MODES}")
   if mode == "smooth":
@@ -1299,7 +1352,7 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     from rednose_tpu_torch.ops import adjoint
 
     return adjoint.emit_source(spec, units, structure, pnames, q_pattern,
-                               scalar, tile)
+                               scalar, tile, lane=lane_r)
   r_patterns = (tuple(r_patterns) if r_patterns is not None
                 else (None,) * len(units))
   feature = [spec.obs[k].is_feature for k, _ in units]
@@ -1309,9 +1362,16 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
                      f"for it: units {units}, r_patterns {r_patterns}")
   if mode == "frame" and (len(units) != 1 or not feature[0]):
     raise ValueError(f"mode 'frame' takes one feature unit, got {units}")
-  if mode in ("single", "epoch", "stream") and any(feature):
+  if mode in ("single", "epoch", "stream", "bank") and any(feature):
     raise ValueError(f"mode {mode!r} takes no MSCKF feature kind: a camera "
                      "frame runs in mode 'frame' or 'mixed'")
+  bank = mode == "bank"
+  if bank and len(units) != 1:
+    raise ValueError(f"mode 'bank' takes one unit, got {units}")
+  if lane_r and mode != "stream":
+    raise ValueError(f"lane_r is a form of mode 'stream' (mode 'bank' "
+                     f"reads R by lane always), not of mode {mode!r}")
+  tile = tile and not lane_r
   if scalar not in ("float", "double"):
     raise ValueError(f"scalar {scalar!r} is not 'float' or 'double'")
   kinds = [k for k, _ in units]
@@ -1378,7 +1438,12 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   stored = ("one thread a lane, P in global memory; each step's x and P "
             "stored after the predict and after the update")
   if stream and not tile:
-    head.append(f"// design: global: {stored}")
+    lane = " (lane form: R by lane)" if lane_r else ""
+    head.append(f"// design: global{lane}: {stored}")
+  lane_note = ("one thread a filter and P in global memory, R read through "
+               "a run-time lane stride, each step's innovations stored")
+  if bank and not tile:
+    head.append(f"// design: global: {lane_note}")
   if tile:
     # the tile form when 32 filters' P, x and the largest unit's scratch
     # (and an epoch's or a log's staged inputs) fit a block
@@ -1387,6 +1452,8 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       if name not in phases:
         phases[name] = (frame_phase(spec, k, structure, pnames, g, rp) if f
                         else update_phase(spec, k, structure, pnames, g))
+        if bank:                      # the innovations in the scratch too
+          phases[name].shared = phases[name].shared + list(phases[name].y)
     nbytes = max(tile_bytes(spec, ph, scalar, has_frame)
                  for ph in phases.values())
     if mode == "epoch":
@@ -1412,12 +1479,13 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
           body, pred, [(n, phases[n], spec.obs[k].dz, o, f) for n, (k, _), o, f
                        in zip(names, units, r_off, feature)],
           TILE_ROLES_FRAME if has_frame else TILE_ROLES,
-          mixed=mode == "mixed", smem=nbytes if has_frame else None))
+          mixed=mode == "mixed", smem=nbytes if has_frame else None,
+          bank=bank))
     head.append(
         f"// design: global: the tile of {TILE_LANES} filters ({nbytes:,} B "
         f"in {scalar}) exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
-        + (stored if stream else "one thread a filter and P in global "
-           "memory"))
+        + (stored if stream else lane_note if bank
+           else "one thread a filter and P in global memory"))
   out = head + body + [
       f"GEN_HD {inline} void gen_predict(scalar_t* x, scalar_t* P, "
       "size_t ld, const scalar_t dt, const scalar_t* p, const scalar_t* Q) {",
@@ -1431,31 +1499,48 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
     if name in printed:
       continue
     printed.add(name)
+    r_arg = ("const scalar_t* R, size_t ld_r" if lane_r or bank
+             else "const scalar_t* R")
     out += [
         "",
         f"GEN_HD {'GEN_PHASE' if f else 'GEN_INLINE'} void {name}("
         "scalar_t* x, scalar_t* P, size_t ld, const scalar_t* z, "
-        "const scalar_t* ea, size_t ld_in, const scalar_t* R, "
-        "const scalar_t* p) {",
-        "  (void)ea; (void)p; (void)R;",
+        f"const scalar_t* ea, size_t ld_in, {r_arg}, "
+        f"const scalar_t* p{', scalar_t* y' if bank else ''}) {{",
+        "  (void)ea; (void)p; (void)R;" + (" (void)ld_r;" if lane_r or bank
+                                            else ""),
     ]
     ph = (phases[name] if name in phases
           else frame_phase(spec, k, structure, pnames, g, rp) if f
           else update_phase(spec, k, structure, pnames, g))
     # a streamed R is the step's max_dz x max_dz matrix: its leading block
-    out += print_phase(ph, max_dz if stream else spec.obs[k].dz)
+    out += print_phase(ph, max_dz if stream else spec.obs[k].dz,
+                       lane_r=lane_r or bank, y_out=bank)
     out.append("}")
   if stream:
+    r_arg, r_val = (("const scalar_t* R, size_t ld_r", "R, ld_r") if lane_r
+                    else ("const scalar_t* R", "R"))
     out += [
         "",
         "GEN_HD GEN_INLINE void gen_stream_update(scalar_t* x, scalar_t* P, "
         "size_t ld, const scalar_t* z, const scalar_t* ea, size_t ld_in, "
-        "int ki, const scalar_t* R, const scalar_t* p) {",
+        f"int ki, {r_arg}, const scalar_t* p) {{",
         "  switch (ki) {"]
-    out += [f"    case {u}: {names[u]}(x, P, ld, z, ea, ld_in, R, p); break;"
-            for u in range(len(units))]
+    out += [f"    case {u}: {names[u]}(x, P, ld, z, ea, ld_in, {r_val}, p); "
+            "break;" for u in range(len(units))]
     out += ["    default: break;", "  }", "}", "", "}  // namespace rn_gen",
-            "", "#define REDNOSE_GENERIC_SCAN_STREAM",
+            ""] + (["#define REDNOSE_STREAM_LANE_R"] if lane_r else []) + [
+                "#define REDNOSE_GENERIC_SCAN_STREAM",
+                "#define REDNOSE_GENERIC_SCAN_LOOPS",
+                '#include "generic_scan.cuh"', ""]
+    return "\n".join(out)
+  if bank:
+    params = ("scalar_t* x, scalar_t* P, size_t ld, const scalar_t* z, "
+              "const scalar_t* ea, size_t ld_in, const scalar_t* R, "
+              "size_t ld_r, const scalar_t* p, scalar_t* y")
+    out += ["", f"GEN_HD GEN_INLINE void gen_bank_update({params}) {{",
+            f"  {names[0]}(x, P, ld, z, ea, ld_in, R, ld_r, p, y);", "}", "",
+            "}  // namespace rn_gen", "", "#define REDNOSE_GENERIC_SCAN_BANK",
             "#define REDNOSE_GENERIC_SCAN_LOOPS",
             '#include "generic_scan.cuh"', ""]
     return "\n".join(out)

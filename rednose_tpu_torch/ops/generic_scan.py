@@ -1,5 +1,6 @@
 """Fused T-step scans of a bank of ANY filter spec (kernels 4, 5, 6, 7,
-kernel 9, the offline log scan, and kernel 10, its adjoint).
+kernel 9, the offline log scan, kernel 10, its adjoint, and kernel 15,
+runtime/bank's run_bank).
 
 `generic_bank_scan` replaces the Pallas TPU kernel
 rednose_tpu/ops/pallas_bank.py:_kernel (launched by generic_bank_scan),
@@ -48,6 +49,14 @@ update and predict recomputed from kernel 9's stacks, the cotangents of
 every floating input out; a tile of 32 lanes x W warps whose adjoint
 phases run in stages split across the warps, where the tile fits. Its
 caller is the autograd rule of scan_fn's custom op.
+`bank_run_scan` (kernel 15, emitted mode "bank") replaces the JAX
+package's rednose_tpu/runtime/bank.py:jit_run_bank, an XLA program (jit of
+one lax.scan over the vmapped step): T steps of one kind, each lane's R
+read through a run-time lane stride (0 for an R the lanes share), every
+step's innovations kept, each lane's t advanced. Its caller is
+runtime/bank.run_bank's custom op; its gradient runs kernels 9 and 10's
+lane forms (`stream_bank_scan_lanes`, `stream_bank_scan_adjoint_lanes`:
+R, and the innovations' cotangent, by lane).
 
 Every other wrapper returns new (x, P) and never writes its inputs. For CPU
 tensors it runs the plain version (ops/lane_bank.py); for CUDA tensors
@@ -100,25 +109,35 @@ def r_pattern_of(R) -> object:
 
 @functools.lru_cache(maxsize=None)
 def _source(spec, mode, units, structure, pnames, ps_keys, q_pattern,
-            r_patterns=None, scalar="float", tile=True):
+            r_patterns=None, scalar="float", tile=True, lanes=False):
   """The variant's source. A variant printed in the global form (tile=False)
   differs between float and double only in its REDNOSE_SCALAR line, so it
   is emitted once, for float; the tile form is emitted per scalar type,
-  since whether its tile fits in a block depends on it."""
+  since whether its tile fits in a block depends on it. lanes: the lane
+  form of modes 'stream' and 'stream_adjoint' (global only, per scalar
+  type)."""
   return entry_slab.emit_source(
       spec, mode, units,
       structure if structure is not None else sparsity.dense_structure(spec),
-      pnames, ps_keys, q_pattern, scalar, r_patterns, tile)
+      pnames, ps_keys, q_pattern, scalar, r_patterns, tile, lanes)
+
+
+# sources emitted elsewhere (another process) and handed in by
+# KernelCall.prime, by the key KernelCall.source looks them up under
+_PRIMED: dict = {}
 
 
 class KernelCall:
   """One generic call, checked once: the spec, the mode ('single' /
   'mixed' / 'epoch' / 'frame' / 'stream' / 'stream_adjoint', kernel 9's
-  adjoint, keyed as 'stream' is), the kind, kind set or slot
-  kinds, the gate, the structure (None: the dense body) and the streamed
-  param keys, with Q, one R per kind or slot (none in modes 'stream' and
-  'stream_adjoint', whose R comes with each step) and the params. An
-  MSCKF feature kind is a
+  adjoint, keyed as 'stream' is / 'bank', kernel 15), the kind, kind set
+  or slot kinds, the gate, the structure (None: the dense body) and the
+  streamed param keys, with Q, one R per kind or slot (none in modes
+  'stream', 'stream_adjoint' and 'bank', whose R comes with each step)
+  and the params. lanes: the lane form of modes 'stream' and
+  'stream_adjoint' (kernels 9 and 10 reading Rs (T, max_dz, max_dz, B)
+  by lane; kernel 10's also the innovations' cotangent), the backward of
+  mode 'bank'. An MSCKF feature kind is a
   camera frame: mode 'frame' takes one, mode 'mixed' takes them among
   other kinds, and the other modes refuse them. Refuses an unknown
   kind, anything but a feature kind in mode 'frame', an asymmetric Q or R
@@ -127,13 +146,13 @@ class KernelCall:
 
   def __init__(self, spec: FilterSpec, mode: str, kinds, *, Q, R_list=(),
                params=None, gate: bool | None = None, structure=None,
-               ps_keys=()):
+               ps_keys=(), lanes: bool = False):
     if not isinstance(spec, FilterSpec):
       raise TypeError(f"not a FilterSpec: {spec!r}")
     if mode not in entry_slab.MODES:
       raise ValueError(f"mode {mode!r} not in {entry_slab.MODES}")
     kinds = tuple(int(k) for k in kinds)
-    if mode in ("single", "frame") and len(kinds) != 1:
+    if mode in ("single", "frame", "bank") and len(kinds) != 1:
       raise ValueError(f"mode {mode!r} takes one kind, got {kinds}")
     for k in kinds:
       if k not in spec.obs:
@@ -147,13 +166,17 @@ class KernelCall:
       if mode == "frame" and not spec.obs[k].is_feature:
         raise ValueError(f"mode 'frame' takes an MSCKF feature kind, not "
                          f"kind {k}")
-    if mode in ("stream", "stream_adjoint"):
+    if mode in ("stream", "stream_adjoint", "bank"):
       if len(R_list) or gate is False or ps_keys:
         raise ValueError(f"mode {mode!r} streams R per step (Rs), gates as "
                          "each kind's maha_test says and streams no params")
     elif len(R_list) != len(kinds):
       raise ValueError(f"{len(R_list)} R for {len(kinds)} kinds / slots")
+    if lanes and mode not in ("stream", "stream_adjoint"):
+      raise ValueError(f"lanes is a form of modes 'stream' and "
+                       f"'stream_adjoint', not of mode {mode!r}")
     self.spec, self.mode, self.kinds = spec, mode, kinds
+    self.lanes = bool(lanes)
     self.params = dict(spec.default_params if params is None else params)
     self.gate = (True if gate is None and mode in (
         "mixed", "epoch", "stream", "stream_adjoint") else gate)
@@ -196,7 +219,7 @@ class KernelCall:
 
   def _units(self):
     spec = self.spec
-    if self.mode in ("single", "frame"):
+    if self.mode in ("single", "frame", "bank"):
       k = self.kinds[0]
       return ((k, spec.obs[k].maha_test if self.gate is None
                else bool(self.gate)),)
@@ -206,17 +229,36 @@ class KernelCall:
   def source(self, dtype=torch.float32, tile=True) -> str:
     """The emitted CUDA source of this variant for a bank of dtype: the
     tile form where it fits, else the global form; tile=False asks for the
-    global form. _build.build_generated_many compiles several at once."""
-    if dtype not in _SCALARS:
-      raise ValueError(f"the generic kernels take float32 or float64, not "
-                       f"{dtype}")
+    global form (the lane form is the global form always). A source
+    handed in by prime is returned as it is. _build.build_generated_many
+    compiles several at once."""
+    primed = _PRIMED.get(self._key(dtype, tile))
+    if primed is not None:
+      return primed
     args = (self.spec, self.mode, self._units(), self.structure,
             self._pnames, self.ps_keys, self._q_pattern, self._r_patterns)
+    if self.lanes:
+      return _source(*args, scalar=_SCALARS[dtype], tile=False, lanes=True)
     if tile:
       return _source(*args, scalar=_SCALARS[dtype])
     return _source(*args, tile=False).replace(
         "#define REDNOSE_SCALAR float",
         f"#define REDNOSE_SCALAR {_SCALARS[dtype]}", 1)
+
+  def _key(self, dtype, tile):
+    if dtype not in _SCALARS:
+      raise ValueError(f"the generic kernels take float32 or float64, not "
+                       f"{dtype}")
+    return (self.spec, self.mode, self._units(), self.structure,
+            self._pnames, self.ps_keys, self._q_pattern, self._r_patterns,
+            _SCALARS[dtype], bool(tile) and not self.lanes, self.lanes)
+
+  def prime(self, text: str, dtype=torch.float32, tile=True):
+    """Hand in this variant's source, emitted elsewhere (chip_smoke.py
+    emits its variants in worker processes): source(dtype, tile) returns
+    it from then on, in this process."""
+    _PRIMED[self._key(dtype, tile)] = text
+    return self
 
   def counting_source(self) -> str:
     """The variant's phases printed whole, one function each (gen_predict,
@@ -478,8 +520,38 @@ def stream_bank_scan(call: KernelCall, x, P, zs, dts, kind_idx, Rs, eas,
   (T, de, de, B), x_posts, P_posts). Its caller is runtime/scan's scan_fn
   (through the custom op rednose::scan_stream), which runs the plain loop
   for CPU tensors; a CPU tensor here raises."""
+  return _stream_scan(stream_bank_scan, call, x, P, zs, dts, kind_idx, Rs,
+                      eas, prm, Q)
+
+
+def stream_bank_scan_lanes(call: KernelCall, x, P, zs, dts, kind_idx, Rs,
+                           eas, prm, Q):
+  """Kernel 9's lane form: stream_bank_scan with each lane's own noise,
+  Rs (T, max_dz, max_dz, B) (the kernel reads each kind's leading block
+  of the lane's), for a 'stream' KernelCall made with lanes=True; the
+  global form, one thread a lane. Its caller is the backward of
+  runtime/bank's custom op rednose::run_bank, which recomputes the
+  stacks with it for kernel 10's lane form; a CPU tensor here raises."""
+  return _stream_scan(stream_bank_scan_lanes, call, x, P, zs, dts, kind_idx,
+                      Rs, eas, prm, Q)
+
+
+def _rs_shape(call, T, max_dz, B):
+  """Rs as a stream launcher takes it: shared, or by lane (lane form)."""
+  return (T, max_dz, max_dz) + ((B,) if call.lanes else ())
+
+
+def _lanes_of(call, wrapper, lane_wrapper):
+  """Refuse a call whose form (lanes or not) is not the wrapper's."""
+  if call.lanes != (wrapper is lane_wrapper):
+    raise ValueError(f"{wrapper.__name__} takes a KernelCall made with "
+                     f"lanes={wrapper is lane_wrapper}")
+
+
+def _stream_scan(wrapper, call, x, P, zs, dts, kind_idx, Rs, eas, prm, Q):
   if call.mode != "stream":
     raise ValueError(f"a {call.mode!r} call given to the 'stream' scan")
+  _lanes_of(call, wrapper, stream_bank_scan_lanes)
   spec, kinds = call.spec, call.kinds
   T, B = dts.shape[0], x.shape[-1]
   max_dz = max(spec.obs[k].dz for k in kinds)
@@ -491,7 +563,7 @@ def stream_bank_scan(call: KernelCall, x, P, zs, dts, kind_idx, Rs, eas,
   _build.check_tensor("zs", zs, (T, max_dz, B), dtype)
   _build.check_tensor("dts", dts, (T,), dtype)
   _build.check_tensor("kind_idx", kind_idx, (T,), torch.int32)
-  _build.check_tensor("Rs", Rs, (T, max_dz, max_dz), dtype)
+  _build.check_tensor("Rs", Rs, _rs_shape(call, T, max_dz, B), dtype)
   _build.check_tensor("prm", prm, (max(len(call._pnames), 1),), dtype)
   _build.check_tensor("Q", Q, (de, de), dtype)
   if (eas is None) != (max_ea == 0):
@@ -511,12 +583,13 @@ def stream_bank_scan(call: KernelCall, x, P, zs, dts, kind_idx, Rs, eas,
             Q.data_ptr(), xp.data_ptr(), Pp.data_ptr(), xq.data_ptr(),
             Pq.data_ptr(), T, B,
             torch.cuda.current_stream(x.device).cuda_stream)
-  _build.check(code, "stream_bank_scan")
-  stream_bank_scan.launches += 1
+  _build.check(code, wrapper.__name__)
+  wrapper.launches += 1
   return xp, Pp, xq, Pq
 
 
 stream_bank_scan.launches = 0
+stream_bank_scan_lanes.launches = 0
 
 
 # ------------------------------------------- kernel 10: the log scan's adjoint
@@ -547,9 +620,33 @@ def stream_bank_scan_adjoint(call: KernelCall, x0, P0, zs, dts, kind_idx,
   differs. Its caller is the autograd rule of runtime/scan's custom op
   rednose::scan_stream (the op rednose::scan_stream_backward); a CPU
   tensor here raises."""
+  return _stream_adjoint(stream_bank_scan_adjoint, call, x0, P0, zs, dts,
+                         kind_idx, Rs, eas, prm, Q, xp, Pp, xq, Pq, gx, gP,
+                         gxp, gPp, gxq, gPq)
+
+
+def stream_bank_scan_adjoint_lanes(call: KernelCall, x0, P0, zs, dts,
+                                   kind_idx, Rs, eas, prm, Q, xp, Pp, xq, Pq,
+                                   gx, gP, gxp, gPp, gxq, gPq, gys):
+  """Kernel 10's lane form: stream_bank_scan_adjoint of
+  stream_bank_scan_lanes (Rs (T, max_dz, max_dz, B) by lane, dRs per lane
+  as always), for a 'stream_adjoint' KernelCall made with lanes=True,
+  with one more incoming cotangent: gys (T, max_dz, B), that of each
+  step's innovations z - h(x_pred), seeded on the update's y (None: no
+  cotangent, the kernel reads none). The global form, one thread a lane.
+  Its caller is the backward of runtime/bank's custom op
+  rednose::run_bank; a CPU tensor here raises."""
+  return _stream_adjoint(stream_bank_scan_adjoint_lanes, call, x0, P0, zs,
+                         dts, kind_idx, Rs, eas, prm, Q, xp, Pp, xq, Pq, gx,
+                         gP, gxp, gPp, gxq, gPq, gys)
+
+
+def _stream_adjoint(wrapper, call, x0, P0, zs, dts, kind_idx, Rs, eas, prm,
+                    Q, xp, Pp, xq, Pq, gx, gP, gxp, gPp, gxq, gPq, gys=None):
   if call.mode != "stream_adjoint":
     raise ValueError(f"a {call.mode!r} call given to the 'stream_adjoint' "
                      "scan")
+  _lanes_of(call, wrapper, stream_bank_scan_adjoint_lanes)
   spec, kinds = call.spec, call.kinds
   T, B = dts.shape[0], x0.shape[-1]
   max_dz = max(spec.obs[k].dz for k in kinds)
@@ -559,13 +656,14 @@ def stream_bank_scan_adjoint(call: KernelCall, x0, P0, zs, dts, kind_idx,
   for name, t, shape in (
       ("x0", x0, (dx, B)), ("P0", P0, (de, de, B)),
       ("zs", zs, (T, max_dz, B)), ("dts", dts, (T,)),
-      ("Rs", Rs, (T, max_dz, max_dz)),
+      ("Rs", Rs, _rs_shape(call, T, max_dz, B)),
       ("prm", prm, (max(len(call._pnames), 1),)), ("Q", Q, (de, de)),
       ("xp", xp, (T, dx, B)), ("Pp", Pp, (T, de, de, B)),
       ("xq", xq, (T, dx, B)), ("Pq", Pq, (T, de, de, B)),
       ("gx", gx, (dx, B)), ("gP", gP, (de, de, B)),
       ("gxp", gxp, (T, dx, B)), ("gPp", gPp, (T, de, de, B)),
-      ("gxq", gxq, (T, dx, B)), ("gPq", gPq, (T, de, de, B))):
+      ("gxq", gxq, (T, dx, B)), ("gPq", gPq, (T, de, de, B)),
+      ("gys", gys, (T, max_dz, B))):
     if t is not None or not name.startswith("g"):
       _build.check_tensor(name, t, shape, dtype)
   _build.check_tensor("kind_idx", kind_idx, (T,), torch.int32)
@@ -585,15 +683,115 @@ def stream_bank_scan_adjoint(call: KernelCall, x0, P0, zs, dts, kind_idx,
   flips = torch.zeros(B, dtype=torch.int32, device=x0.device)
   fn = _build.generated_launcher(call.source(dtype))
   ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+  lane = (ptr(gys),) if call.lanes else ()
   code = fn(*(ptr(a) for a in (x0, P0, zs, eas, dts, kind_idx, Rs, prm, Q,
                                xp, Pp, xq, Pq, gx, gP, gxp, gPp, gxq, gPq,
-                               *out, flips)),
+                               *out, flips)), *lane,
             T, B, torch.cuda.current_stream(x0.device).cuda_stream)
-  _build.check(code, "stream_bank_scan_adjoint")
-  stream_bank_scan_adjoint.launches += 1
-  stream_bank_scan_adjoint.gate_flips = flips
+  _build.check(code, wrapper.__name__)
+  wrapper.launches += 1
+  wrapper.gate_flips = flips
   return out
 
 
 stream_bank_scan_adjoint.launches = 0
 stream_bank_scan_adjoint.gate_flips = None
+stream_bank_scan_adjoint_lanes.launches = 0
+stream_bank_scan_adjoint_lanes.gate_flips = None
+
+
+# -------------------------------------------------- kernel 15: the bank scan
+
+def _bank_checks(call, x, P, t, zs, dts, Rs, eas, prm, Q):
+  """Refuse what kernel 15 does not take; returns (T, B, dz, dtype)."""
+  if call.mode != "bank":
+    raise ValueError(f"a {call.mode!r} call given to the 'bank' scan")
+  spec, om = call.spec, call.spec.obs[call.kinds[0]]
+  T, B, dz = dts.shape[0], x.shape[-1], om.dz
+  dtype = x.dtype if x.dtype in _SCALARS else torch.float32
+  _build.check_tensor("x", x, (spec.dim_x, B), dtype)
+  _build.check_tensor("P", P, (spec.dim_err, spec.dim_err, B), dtype)
+  _build.check_tensor("t", t, (B,), dtype)
+  _build.check_tensor("zs", zs, (T, dz, B), dtype)
+  _build.check_tensor("dts", dts, (T,), dtype)
+  _build.check_tensor("Rs", Rs, (T, dz, dz) + ((B,) if Rs.dim() == 4
+                                                 else ()), dtype)
+  _build.check_tensor("prm", prm, (max(len(call._pnames), 1),), dtype)
+  _build.check_tensor("Q", Q, (spec.dim_err, spec.dim_err), dtype)
+  if (eas is None) != (om.ea_len == 0):
+    raise ValueError(f"kind {call.kinds[0]}: pass eas iff it takes extra "
+                     "args")
+  if eas is not None:
+    _build.check_tensor("eas", eas, (T, om.ea_len, B), dtype)
+  return T, B, dz, dtype
+
+
+def bank_run_scan(call: KernelCall, x, P, t, zs, dts, Rs, eas, prm, Q):
+  """Kernel 15: T steps of one kind over a B-wide bank of CUDA tensors,
+  each a predict with dts[t], then the update of call's kind with zs[t]
+  and the lane's noise of step t, gated as the kind's maha_test says
+  (core/step.update), the innovations z - h(x_pred) kept, and each lane's
+  t advanced by dts[t] (one add a step, in the state's dtype): one launch.
+
+  call a 'bank' KernelCall (the variant: its Q pattern and param names);
+  x (dim_x, B), P (de, de, B) and t (B,), advanced in place to the final
+  state; zs (T, dz, B), dts (T,), Rs (T, dz, dz, B) by lane or (T, dz,
+  dz) shared by the lanes (read with a lane stride of 0: no copy), eas
+  (T, ea_len, B) for an extra-args kind, else None; prm the params in the
+  call's order (sorted names; one zero for none) and Q (de, de), run-time
+  values of the call's pattern. Returns (x, P, t, ys (T, dz, B)). Its
+  caller is runtime/bank.run_bank (through the custom op
+  rednose::run_bank), which runs the plain loop for CPU tensors; a CPU
+  tensor here raises."""
+  T, B, dz, dtype = _bank_checks(call, x, P, t, zs, dts, Rs, eas, prm, Q)
+  ys = x.new_empty((T, dz, B))
+  if T == 0:
+    return x, P, t, ys
+  fn = _build.generated_launcher(call.source(dtype))
+  code = fn(x.data_ptr(), P.data_ptr(), t.data_ptr(), zs.data_ptr(),
+            None if eas is None else eas.data_ptr(), dts.data_ptr(),
+            Rs.data_ptr(), int(Rs.dim() == 4), prm.data_ptr(), Q.data_ptr(),
+            ys.data_ptr(), T, B,
+            torch.cuda.current_stream(x.device).cuda_stream)
+  _build.check(code, "bank_run_scan")
+  bank_run_scan.launches += 1
+  return x, P, t, ys
+
+
+bank_run_scan.launches = 0
+
+
+def bank_run_scan_reference(call: KernelCall, x, P, t, zs, dts, Rs, eas,
+                            prm, Q):
+  """Plain torch version of kernel 15 in the wrapper's layout, on any
+  device: the loop over T of core/step.py's predict and update vmapped
+  over the lanes (runtime/bank.run_bank_reference's step). Returns new
+  (x, P, t, ys (T, dz, B)); its inputs are not written."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.core import step as step_ops
+
+  if call.mode != "bank":
+    raise ValueError(f"a {call.mode!r} call given to the 'bank' scan")
+  spec, kind = call.spec, call.kinds[0]
+  om = spec.obs[kind]
+  T, B, dz = dts.shape[0], x.shape[-1], om.dz
+  params = dict(zip(call._pnames, prm.unbind()))
+  Rb = (Rs.permute(0, 3, 1, 2) if Rs.dim() == 4
+        else Rs[:, None].expand(T, B, dz, dz))
+  ea = (eas.permute(0, 2, 1) if eas is not None
+        else x.new_zeros((T, B, 1)))
+
+  def one(x, P, dt, z, R, e):
+    xp, Pp = step_ops.predict(spec, params, x, P, Q, dt)
+    return step_ops.update(spec, kind, params, xp, Pp, z, R, e)
+
+  xs, Ps, ys = x.T, P.permute(2, 0, 1), []
+  for k in range(T):
+    xs, Ps, y = vmap(one, in_dims=(0, 0, None, 0, 0, 0))(
+        xs, Ps, dts[k], zs[k].T, Rb[k], ea[k])
+    t = t + dts[k]
+    ys.append(y.T)
+  ys = torch.stack(ys) if ys else x.new_zeros((0, dz, B))
+  return (xs.T.contiguous(), Ps.permute(1, 2, 0).contiguous(), t,
+          ys.contiguous())

@@ -3,8 +3,8 @@
 Port of __graft_entry__.py's dryrun_multichip (:66-420): every sharded
 path of parallel/sharding.py on a mesh of n ranks, each held against the
 unsharded call on the same inputs: the bank step (on the 1-D and the 2-D
-mesh), sharded_run_bank with the staged RMSE (1-D and multislice), the
-lane bank, kernel 2 (the fused live scan, on the 1-D and the 2-D mesh),
+mesh), sharded_run_bank (kernel 15, runtime/bank.run_bank, on the card)
+with the staged RMSE (1-D and multislice), the lane bank, kernel 2 (the fused live scan, on the 1-D and the 2-D mesh),
 kernel 4 (the live spec's ECEF_POS with the gate on; car with its params
 stream), kernel 6 (the live spec's 4-kind cycle; msckf_eskf's VIO
 schedule, camera frames among position fixes), kernel 5 (loc's GNSS
@@ -55,7 +55,7 @@ from rednose_tpu_torch.ops import (
     sparsity,
 )
 from rednose_tpu_torch.parallel import sharding
-from rednose_tpu_torch.runtime import bank as bank_ops
+from rednose_tpu_torch.runtime import bank as bank_ops, scan
 from rednose_tpu_torch.smoothing import rts
 
 # the RMSE: two sums of the same squares in another grouping, float64
@@ -127,6 +127,15 @@ YAW_RATE = 1
 PS_KEYS = ("u", "steer_angle_deg")
 ESKF_POS, ESKF_FEATURE = 12, 16
 FEATURE_R = 0.01**2
+
+
+@functools.lru_cache(maxsize=None)
+def bank_call() -> generic_scan.KernelCall:
+  """Kernel 15's call of the "bank" case, as runtime/bank.run_bank makes
+  it for the kinematic bank (its Q pattern, no params)."""
+  m = _models()["kin"]
+  return scan._kernel_call(scan._handle(m.build_spec(), (POSITION,), ()),
+                           scan._q_pattern(torch.as_tensor(m.Q)), "bank")
 
 
 @functools.lru_cache(maxsize=None)
@@ -550,7 +559,7 @@ CASES = {
                     functools.partial(_step_sharded, two_d=True),
                     _step_unsharded),
     "bank": Case("bank", 0, _bank_sharded, _bank_unsharded,
-                 tols=(("rmse64", RMSE_TOL), ("rmse_2d64", RMSE_TOL))),
+                 generic_scan.bank_run_scan, tols=(("rmse64", RMSE_TOL), ("rmse_2d64", RMSE_TOL))),
     "lane": Case("lane", 2, _lane_sharded, _lane_unsharded),
     "live": Case("live", 3, _live_sharded, _live_unsharded,
                  live_scan.live_bank_scan),
@@ -591,15 +600,33 @@ def _inputs_on(name, size_name, device):
                   CASES[name].dtype or size.dtype, device)
 
 
+_GENERIC = ("generic_live", "car", "mixed_live", "vio", "epoch", "vo")
+
+
+def _case_call(name):
+  """The KernelCall of a case whose kernel is emitted (kernel 15 for
+  "bank", the generic kernels' cases), or None."""
+  if name == "bank":
+    return bank_call()
+  return kernel_call(name) if CASES[name].inputs in _GENERIC else None
+
+
+def case_sources(names, size_name) -> dict:
+  """name -> the emitted source of each case's kernel at the size's dtype,
+  for spawn_ranks to hand to the ranks (each would emit it again)."""
+  dtype = SIZES[size_name].dtype
+  return {n: _case_call(n).source(dtype) for n in names
+          if _case_call(n) is not None}
+
+
 def require_built(names, size_name):
   """Raise unless every kernel the cases launch on the card is built: the
   ranks load what the parent built and never run a compiler."""
   dtype = SIZES[size_name].dtype
   missing = [] if _build.library_path().exists() else ["csrc/*.cu"]
   for name in names:
-    if CASES[name].inputs in ("generic_live", "car", "mixed_live", "vio",
-                              "epoch", "vo"):
-      d = _build.generated_dir(kernel_call(name).source(dtype))
+    if _case_call(name) is not None:
+      d = _build.generated_dir(_case_call(name).source(dtype))
       if not (d / "libgen.so").exists():
         missing.append(f"{name}: {d.name}")
     if name == "smoother":
@@ -658,10 +685,13 @@ def multislice_rows(n: int) -> int:
   return 2 if n >= 4 and n % 2 == 0 else 1
 
 
-def _rank_main(rank, n, workdir, device, size_name, names):
+def _rank_main(rank, n, workdir, device, size_name, names, sources=None):
   t0 = time.perf_counter()
   dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
                           rank=rank, world_size=n)
+  dtype = SIZES[size_name].dtype
+  for name, text in (sources or {}).items():
+    _case_call(name).prime(text, dtype)
   try:
     if device == "cpu":
       torch.set_num_threads(1)
@@ -674,7 +704,7 @@ def _rank_main(rank, n, workdir, device, size_name, names):
     res = run_cases(mesh, mesh2, size_name, names, keep_outputs=rank == 0,
                     timing=cuda)
     res["rank"] = rank
-    res["setup_s"] = setup_s     # the group, the meshes, the emission
+    res["setup_s"] = setup_s     # the group, the meshes, any emission
     res["device"] = str(sharding.mesh_device(mesh))
     torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
   finally:
@@ -682,15 +712,16 @@ def _rank_main(rank, n, workdir, device, size_name, names):
 
 
 def spawn_ranks(n: int, device="cuda", size_name: str = "small",
-                names=None, workdir=None) -> list:
+                names=None, workdir=None, sources=None) -> list:
   """Spawn n Gloo ranks (a file store in workdir, else a temporary
   directory), each running every case of `names` (default all) through
   run_cases; returns each rank's record, rank 0's with the gathered
-  outputs. A rank that fails raises here."""
+  outputs. sources (case_sources): the cases' emitted kernels, which the
+  ranks take instead of emitting them. A rank that fails raises here."""
   names = tuple(CASES) if names is None else tuple(names)
   with tempfile.TemporaryDirectory(dir=workdir) as d:
-    mp.spawn(_rank_main, args=(n, d, device, size_name, names), nprocs=n,
-             join=True)
+    mp.spawn(_rank_main, args=(n, d, device, size_name, names, sources),
+             nprocs=n, join=True)
     return [torch.load(pathlib.Path(d) / f"rank{r}.pt", weights_only=True)
             for r in range(n)]
 

@@ -199,14 +199,16 @@ def gather_bank(mesh: DeviceMesh, t, dim: int):
   return torch.cat([parts[r] for r in mesh.mesh.flatten().tolist()], dim=dim)
 
 
-# ------------------------------------------------------------ the bank oracle
+# ------------------------------------------------- run_bank (kernel 15)
 
 def sharded_run_bank(spec: FilterSpec, kind: int, mesh: DeviceMesh, params,
                      state: bank_ops.BankState, Q, dts, zs, Rs, eas=None):
-  """runtime/bank.run_bank on this rank's lanes: zs (T, B, dz) and eas
-  (T, B, ea) whole-bank, Rs (T, B, dz, dz) whole-bank or (T, dz, dz)
-  replicated; dts, Q and params replicated. Returns (this rank's final
-  BankState, its ys (T, B/n, dz)). No collective."""
+  """runtime/bank.run_bank on this rank's lanes (on the card one launch
+  of kernel 15 on B/n lanes; gathered, bitwise the unsharded launch,
+  since a lane's arithmetic does not depend on its block): zs (T, B, dz)
+  and eas (T, B, ea) whole-bank, Rs (T, B, dz, dz) whole-bank or (T, dz,
+  dz) replicated; dts, Q and params replicated. Returns (this rank's
+  final BankState, its ys (T, B/n, dz)). No collective."""
   sh, B = bank_sharding(mesh), zs.shape[1]
   Rs = sh.local(Rs, 1, B) if Rs.ndim == 4 else _replicated(mesh, Rs)
   return bank_ops.run_bank(spec, kind, params, _local_state(sh, state, B),

@@ -158,8 +158,9 @@ def _build_reference_cached(spec: FilterSpec, kinds: tuple):
   return scan_fn, {k: i for i, k in enumerate(kinds)}
 
 
-# build_scan_stream's calls of the kernel: (spec, kinds, param names) of
-# each handle that the custom op rednose::scan_stream takes
+# the calls of the kernel that build_scan_stream (and runtime/bank's
+# run_bank) make: (spec, kinds, param names) of each handle that the
+# custom ops rednose::scan_stream and rednose::run_bank take
 _HANDLES: list = []
 
 
@@ -170,10 +171,13 @@ def _handle(spec: FilterSpec, kinds: tuple, pnames: tuple) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_call(handle: int, q_pattern: tuple, mode: str = "stream"):
+def _kernel_call(handle: int, q_pattern: tuple, mode: str = "stream",
+                 lanes: bool = False):
   """The 'stream' KernelCall (kernel 9), or with mode 'stream_adjoint'
-  kernel 10's, of a handle and a Q pattern, made once: the variant only
-  (Q's values and the params' come with each call)."""
+  kernel 10's, or with mode 'bank' kernel 15's (runtime/bank), of a
+  handle and a Q pattern, made once: the variant only (Q's values and
+  the params' come with each call); lanes: kernels 9 and 10's lane
+  forms."""
   from rednose_tpu_torch.ops import generic_scan
 
   spec, kinds, pnames = _HANDLES[handle]
@@ -181,7 +185,15 @@ def _kernel_call(handle: int, q_pattern: tuple, mode: str = "stream"):
   for i, j in q_pattern:
     Q[i, j] = Q[j, i] = 1.0
   return generic_scan.KernelCall(spec, mode, kinds, Q=Q,
-                                 params=dict.fromkeys(pnames, 0.0))
+                                 params=dict.fromkeys(pnames, 0.0),
+                                 lanes=lanes)
+
+
+def _q_pattern(Q):
+  """The pattern of a device Q (one small host copy)."""
+  from rednose_tpu_torch.ops import entry_slab
+
+  return entry_slab.q_pattern_of(Q.detach().cpu().double().numpy())
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,11 +244,10 @@ def _scan_stream_op(x: torch.Tensor, P: torch.Tensor, zs: torch.Tensor,
   de), zs (T, B, max_dz); the rest shared by the lanes. Returns (x, P,
   x_preds (B, T, dim_x), P_preds (B, T, de, de), x_posts, P_posts): the
   kernel's bank-minor stacks, transposed by one copy each."""
-  from rednose_tpu_torch.ops import entry_slab, generic_scan
+  from rednose_tpu_torch.ops import generic_scan
 
   spec, kinds, _ = _HANDLES[handle]
-  call = _kernel_call(handle, entry_slab.q_pattern_of(
-      Q.detach().cpu().double().numpy()))
+  call = _kernel_call(handle, _q_pattern(Q))
   T, B = dts.shape[0], x.shape[0]
   max_ea = max(spec.obs[k].ea_len for k in kinds)
   eas_b = (None if max_ea == 0 else
@@ -360,11 +371,10 @@ def _scan_stream_backward_op(
   R's symmetrized; a RuntimeWarning where a lane-step's recomputed gate
   decision differs from the forward's. Returns the gradients of (x, P,
   zs, dts, Rs, eas, Q, prm)."""
-  from rednose_tpu_torch.ops import entry_slab, generic_scan
+  from rednose_tpu_torch.ops import generic_scan
 
   spec, kinds, _ = _HANDLES[handle]
-  call = _kernel_call(handle, entry_slab.q_pattern_of(
-      Q.detach().cpu().double().numpy()), "stream_adjoint")
+  call = _kernel_call(handle, _q_pattern(Q), "stream_adjoint")
   T, B = dts.shape[0], x.shape[0]
   max_ea = max(spec.obs[k].ea_len for k in kinds)
   eas_b = (None if max_ea == 0 else

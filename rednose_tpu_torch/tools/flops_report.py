@@ -167,9 +167,35 @@ def _battery_epoch():
           step_ops(call.counting_source(), slots, "epoch"), None)
 
 
+def _kinematic_bank():
+  """runtime/bank.run_bank's step on the kinematic bank: one predict and
+  a POSITION update of one lane (kernel 15's plain version)."""
+  from rednose_tpu_torch.models.kinematic import (
+      KinematicKalman,
+      ObservationKind as KK,
+  )
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  m = KinematicKalman
+  call = gs.KernelCall(m.build_spec(), "bank", (int(KK.POSITION),), Q=m.Q)
+  x = _t(m.initial_x)[:, None]
+  P = _t(np.diag(m.initial_P_diag))[..., None]
+  Q, R = _t(m.Q), _t(m.obs_noise[KK.POSITION])[..., None]
+  dts, t = _t([0.01]), torch.zeros(1, **F32)
+
+  def step(x, P, zs):
+    return gs.bank_run_scan_reference(call, x, P, t, zs, dts, R[None], None,
+                                      torch.zeros(1, **F32), Q)
+
+  return ("kinematic run_bank step (bank_run_scan_reference)", step,
+          (x, P, torch.ones((1, 1, 1), **F32)),
+          step_ops(call.counting_source(), call.kinds, "bank"),
+          ("bank_run_scan", "kinematic B="))
+
+
 def bodies():
   """[(name, fn, args, emitted operations a step, (kernel row name, shape
-  prefix) of the chip times, or None)] of the seven bodies."""
+  prefix) of the chip times, or None)] of the eight bodies."""
   from rednose_tpu_torch.models.msckf_eskf import (
       MSCKFEskf,
       ObservationKind as EK,
@@ -185,7 +211,7 @@ def bodies():
                  1e-6 * np.eye(vo.dim_err), 0.02**2, "msckf_vo"),
           _frame(MSCKFEskf.build_spec(), int(EK.MSCKF_FEATURE),
                  MSCKFEskf.initial_x, MSCKFEskf.Q, 0.01**2, "msckf_eskf"),
-          _gnss_epoch(), _battery_epoch()]
+          _gnss_epoch(), _battery_epoch(), _kinematic_bank()]
 
 
 def chip_time(times, key):

@@ -241,9 +241,9 @@ def emitted_ops(source: str) -> dict:
 def step_ops(source: str, kinds, mode: str = "single") -> float:
   """Operations of one step of an emitted source (its global form,
   generic_scan.KernelCall.counting_source()): the predict plus the update
-  (or camera frame) of each kind of an epoch, of the one kind of a single
-  or frame step, or on average over a mixed schedule that cycles through
-  its kinds evenly. An adjoint source (mode "stream_adjoint") counts its
+  (or camera frame) of each kind of an epoch, of the one kind of a single,
+  bank (kernel 15) or frame step, or on average over a mixed schedule
+  that cycles through its kinds evenly. An adjoint source (mode "stream_adjoint") counts its
   adjoint phases, gen_adj_predict and gen_adj_update_k<kind>."""
   ops = emitted_ops(source)
   pre = "gen_adj_" if "gen_adj_predict" in ops else "gen_"

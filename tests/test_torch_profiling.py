@@ -152,7 +152,7 @@ def test_trace_writes_the_step_scopes(tmp_path):
 
 
 def test_flops_report(tmp_path):
-  """tools/flops_report: the seven bodies, each with FLOPs, bytes and the
+  """tools/flops_report: the eight bodies, each with FLOPs, bytes and the
   emitted body's operations; the hand live step's FLOPs are the ones
   test_flops_match_jaxpr_flops holds (float32 here); the sustained-rate
   lines read chip_smoke.py's times JSON and nothing else."""
@@ -163,7 +163,7 @@ def test_flops_report(tmp_path):
       {"name": "live_bank_scan", "shape": "B=8192 T=64 gate on",
        "ms": 0.5}]}))
   rows = flops_report.main(["--times", str(times)])
-  assert len(rows) == 7
+  assert len(rows) == 8
   assert all(f > 0 and b > 0 and o > 0 for _, f, b, o, _ in rows)
   assert rows[0][1] == 9214
   rate, row = rows[0][4]
