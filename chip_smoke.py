@@ -234,7 +234,10 @@ them; emitted by EMIT_WORKERS spawned processes, emit_in_workers). Then:
      (compare_bank: kinematic B = 16384 and car B = 8192, T = 64, R by
      lane, float32 within GEN_TOL sigma and float64 within BANK64_TOL,
      one lane's R x 1.01 planted beyond it; wrapped and raw at T = 64
-     and T = 1, run_bank whole, the plain version, the bound) and the
+     and T = 1, run_bank whole, the plain version, the bound; and on a
+     ragged bank of BANK_RAGGED_B lanes at T = 2 x the ring's steps a
+     stage + 3 and T = 1, R by lane and shared, bitwise each other:
+     compare_bank_ragged) and the
      gradient through run_bank against autograd through
      run_bank_reference on the card (compare_bank_grad: float64 within
      BANK_GRAD64_TOL, float32 within BANK_GRAD32_RATIO x the plain
@@ -3867,6 +3870,10 @@ BANK_CAR_T = 1024
 # the gradient: the bank example's width (examples/run_bank.py)
 BANK_GRAD_B, BANK_GRAD_T = 4096, 500
 BANK_CMP_T = 64
+# kernel 15 on a ragged bank (not a multiple of 32 lanes: the last block
+# copies its rows a value a thread) at T = 2 x its ring's steps a stage + 3
+# (every stage reused, a ragged last chunk) and at T = 1
+BANK_RAGGED_B = 1000
 # kernel 15 against its plain version (bank_run_scan_reference) in
 # float64, in sigmas of the plain result: the emitted factored algebra
 # against the plain dense one (measured ~1e-13 on the host build); the
@@ -4015,9 +4022,11 @@ def hold_bank_path(torch, out, reps=5):
   spec's POSITION is). Kernel 15 timed raw at this width (R by lane and
   shared, CUDA events) beside kernel 1's raw launch, with both bounds
   (the compulsory bytes: kernel 15 zs, R and ys at 4 B a lane-step by
-  lane, zs and ys shared)."""
+  lane, zs and ys shared), and run_bank whole (its op's layout copies,
+  host clock after a synchronise) beside the raw launch."""
   from rednose_tpu_torch import _build
   from rednose_tpu_torch.ops import kinematic_scan
+  from rednose_tpu_torch.runtime import bank
   from rednose_tpu_torch.utils.compare import kinematic_sigma_err
 
   (fl, yl), (fs, ys_) = out["lane"], out["shared"]
@@ -4056,6 +4065,23 @@ def hold_bank_path(torch, out, reps=5):
                                "bytes)" for f, (ms, b) in times.items())
       + f"; kernel 1 raw (ungated) {timed_run(k1, reps)[0]:.4f} ms; CUDA "
       "events")
+  # run_bank whole (the custom op: its layout copies in and out, the host
+  # read of Q) beside the raw launch: the wrapper's share
+  whole = {}
+  spec = bank_models()[0][1].build_spec()
+  for form, R in (("by lane", Rs), ("shared", Rs[:, 0])):
+    bank.run_bank(spec, bank_models()[0][2], {}, state, Q, dts, zs, R)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+      bank.run_bank(spec, bank_models()[0][2], {}, state, Q, dts, zs, R)
+    torch.cuda.synchronize()
+    whole[form] = (time.perf_counter() - t0) * 1e3 / reps
+  log(f"run_bank whole [kinematic B={KIN_B} T={KIN_T}, float32]: "
+      + "; ".join(f"R {f} {ms:.4f} ms (host clock after a synchronise, "
+                  f"mean of {reps}; raw {times[f][0]:.4f} ms, the wrapper's "
+                  f"share {1 - times[f][0] / ms:.1%})"
+                  for f, ms in whole.items()))
 
 
 def bank_grad_inputs(torch, dev, dtype, seed=SEED):
@@ -4263,8 +4289,80 @@ def compare_bank(torch, dev, gen, car_state, reps=10):
             ms=raw[BANK_CMP_T], plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by,
             shape=f"kinematic B={B} T={BANK_CMP_T}, float32"))
+  failed += compare_bank_ragged(torch, dev, gen, car_state)
   require(not failed, f"kernel 15 against its plain version: {failed}")
   return rows
+
+
+def bank_chunk(source):
+  """The steps a ring stage of a kernel 15 tile source holds."""
+  return int(source.split("constexpr int BANK_CHUNK = ")[1].split(";")[0])
+
+
+def compare_bank_ragged(torch, dev, gen, car_state):
+  """Phase 2, kernel 15 on a ragged bank (BANK_RAGGED_B lanes: the last
+  block's rows copied a value a thread, the others 16 B a thread) at
+  T = 2 x its variant's steps a stage + 3 and at T = 1, kinematic from
+  the prior and car from the run_bank path's converged bank, float32 and
+  float64, R by lane and shared (its wrapper, bank_run_scan), against
+  the plain version with R by lane: float32 within GEN_TOL sigmas,
+  float64 within BANK64_TOL, t bitwise, R shared bitwise R by lane; in
+  float64 one lane's R x 1.01 beyond BANK64_TOL. Returns the cases that
+  failed."""
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  calls, failed, B = bank_calls(), [], BANK_RAGGED_B
+  for name, model, kind, params in bank_models():
+    spec = model.build_spec()
+    for dtype in (torch.float32, torch.float64):
+      dname = str(dtype).split(".")[-1]
+      call = calls[f"{name} run_bank (kernel 15)"
+                   + ("" if dtype == torch.float32 else ", float64")][0]
+      T = 2 * bank_chunk(call.source(dtype)) + 3
+      state, Q, dts, zs, Rs = bank_inputs(torch, dev, gen, model, kind, B, T,
+                                          dtype)
+      x, P, t = (state.x.T.contiguous(),
+                 state.P.permute(1, 2, 0).contiguous(), state.t)
+      if name == "car":
+        x = car_state.x[:B].T.to(dtype).contiguous()
+        P = car_state.P[:B].permute(1, 2, 0).to(dtype).contiguous()
+        t = car_state.t[:B].to(dtype).contiguous()
+      prm = torch.as_tensor([float(params[k]) for k in call._pnames]
+                            or [0.0], dtype=dtype, device=dev)
+      zb, Rl = zs.permute(0, 2, 1).contiguous(), Rs.permute(0, 2, 3, 1)
+      tol = GEN_TOL if dtype == torch.float32 else BANK64_TOL
+      for n in (T, 1):
+        Rn = Rl[:n].contiguous()
+        ref = gs.bank_run_scan_reference(call, x, P, t, zb[:n], dts[:n], Rn,
+                                         None, prm, Q)
+        outs, errs = {}, {}
+        for form, R in (("by lane", Rn), ("shared", Rs[:n, 0].contiguous())):
+          outs[form] = gs.bank_run_scan(call, x.clone(), P.clone(), t.clone(),
+                                        zb[:n], dts[:n], R, None, prm, Q)
+          errs[form] = bank_errs(torch, spec, outs[form], ref)
+        same = all(torch.equal(a, b) for a, b in zip(outs["by lane"],
+                                                      outs["shared"]))
+        ok = same and max(max(e) for e in errs.values()) <= tol
+        if not ok:
+          failed.append(f"{name} {dname} ragged B={B} T={n}")
+        log(f"bank_run_scan (kernel 15) [{name} B={B} (ragged) T={n}, "
+            f"{dname}]: " + "; ".join(
+                f"R {f} state {e[0]:.3g}, covariance {e[1]:.3g}, "
+                f"innovations {e[2]:.3g} sigma" for f, e in errs.items())
+            + f" (tolerance {tol}); R by lane "
+            f"{'bitwise' if same else 'NOT bitwise'} R shared -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if dtype == torch.float64:
+          Rf = Rn.clone()
+          Rf[..., B // 3] *= 1.01
+          e = max(bank_errs(torch, spec, gs.bank_run_scan(
+              call, x.clone(), P.clone(), t.clone(), zb[:n], dts[:n], Rf,
+              None, prm, Q), ref))
+          log(f"  planted fault [{name}, float64, ragged, T={n}]: one lane's "
+              f"R x 1.01 -> {e:.3g} sigma")
+          require(e > BANK64_TOL, f"the planted fault fails kernel 15's "
+                  f"float64 limit ({name}, ragged, T={n}): {e}")
+  return failed
 
 
 def compare_bank_grad(torch, dev, g32, reps=3):

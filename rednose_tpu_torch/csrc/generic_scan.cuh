@@ -203,18 +203,46 @@ GEN_HD GEN_INLINE S g_min(S a, S b) {
 // (T, NZROWS, NZROWS, B), read by lane (r_lane 1), or (T, NZROWS,
 // NZROWS), one R a step that every lane reads (r_lane 0: a lane stride of
 // 0, so a shared R costs no copy); the emitted update reads entry k of R
-// at R[k * ld_r], ld_r = B or 1. ys (T, NZROWS, B).
-// Design: mode "single"'s (kernel 4), the tile form where 32 filters' P,
-// x and scratch fit a block (every variant the port ships), else the
-// global form. Tile: 32 lanes x NROLES warps keep P, x and the scratch
-// in shared memory for the whole T loop; each step the predict's roles,
-// then one warp the update's shared values (gains, Joseph factor rows,
-// dx, and the innovations, which another warp copies from the scratch
-// into ys), then the update's roles. Global: one thread a lane, x in
-// registers, P in global memory. Bound: the bytes of zs, R (by lane) and
-// ys, or the emitted operations at the card's peak rate. Nothing is
-// staged ahead, so each step waits on its z and R loads; kernel 1 hides
-// them behind a cp.async ring of zs (PERF.md times both).
+// at R[k * ld_r]. ys (T, NZROWS, B).
+//
+// Design: the tile form where a block's state and a ring of its inputs
+// fit (every variant the port ships; ops/entry_slab.bank_design sizes
+// both and names them in the source's design line), else the global form.
+// Tile: a block of 32 lanes streams its inputs through a ring of
+// BANK_STAGES stages in shared memory, each BANK_CHUNK steps of the
+// block's z and ea rows and, R by lane, its R rows ([step][row][32]; R
+// shared: the steps' NZROWS x NZROWS values once for the block), and the
+// steps' dts. Before the block computes chunk k it issues the cp.async
+// copies of chunk k + BANK_STAGES - 1 (16 B a thread where the block's 32
+// lanes are whole and 16-B aligned, else a value a thread, a lane past the
+// bank copying lane B - 1) and waits once, at the chunk's start, for chunk
+// k's (wait_group), so no step waits on a global load. A run shorter than
+// BANK_CHUNK stages its T steps only, in one stage. A chunk's step loop is
+// unrolled BANK_UNROLL steps, so a step's ring loads issue ahead of the
+// steps before it, off their chain. The emitter sizes the ring and the
+// unroll (the step's operations) and picks the warps a block (NROLES) from
+// the lane's size (sweep_warps.py --parts bank measured each; PERF.md):
+// - one warp (BANK_REGS): the lane's P, x and scratch are thread-local
+//   arrays that the emitted code indexes with constants (ld = 1), so they
+//   live in registers as kernel 1's state does, and every phase of a lane
+//   runs in its own thread: a step has no barrier at all. A __syncwarp at
+//   a chunk's start frees the stage the next copies fill, and one after
+//   the wait makes the other lanes' copies visible.
+// - NROLES >= 2: mode "single"'s tile (kernel 4): P, x and the scratch in
+//   shared memory for the whole T loop, each step the predict's roles,
+//   then one warp the update's shared values, then the update's roles,
+//   between barriers.
+// Either way the update computes the innovations into the scratch, and
+// gen_tile_y stores them into ys from there, off the step's chain.
+// Global: one thread a lane, x in registers, P in global memory, each
+// step's inputs read from global memory.
+// Bound: the bytes of zs, R (by lane) and ys, or the emitted operations at
+// the card's peak rate; and T times the step's dependent chain (predict,
+// gain, gate, Joseph: for the kinematic spec kernel 1's recurrence floor).
+// RN_BANK_AID bits (timing aids of sweep_warps.py, outputs garbage): 1
+// runs no step's compute (each step stores its z rows as ys and adds dt:
+// the ring and the stores alone), 2 copies only the first chunk of each
+// stage, which every later chunk reuses (the compute alone, on real data).
 
 namespace rn_gen {
 
@@ -242,138 +270,394 @@ GEN_HD GEN_INLINE const scalar_t* bank_R(const scalar_t* Rs, int t, int b,
 
 #ifdef REDNOSE_GENERIC_SCAN_TILE
 
+#ifndef RN_BANK_AID
+#define RN_BANK_AID 0
+#endif
+
 namespace rn_gen {
 constexpr int TILE_LANES = 32;
 constexpr int TILE_VALS = DE * DE + DX + NSCR;
+constexpr bool BANK_REGS = NROLES == 1;   // the lane's state in registers
+constexpr int BANK_NR = NZROWS * NZROWS;  // a step's R entries
+
+// The ring's layout for R by lane (RL 1) or shared (RL 0): a stage of
+// `chunk` steps holds ROWS rows of TILE_LANES values a step (z, ea, and R
+// by lane), then SHARED R values a step, then a dt a step; its size is
+// rounded up to 16 B, so every stage starts 16-B aligned.
+template <int RL>
+struct BankRing {
+  static constexpr int ROWS = NZROWS + NEAROWS + (RL ? BANK_NR : 0);
+  static constexpr int SHARED = RL ? 0 : BANK_NR;
+  static constexpr int V = 16 / (int)sizeof(scalar_t);  // values in 16 B
+  GEN_HD static constexpr int stage_vals(int chunk) {
+    return (chunk * (ROWS * TILE_LANES + SHARED + 1) + V - 1) / V * V;
+  }
+  // the steps a stage holds and the stages of a run of T steps: no more
+  // than the run has
+  GEN_HD static constexpr int chunk(int T) {
+    return T < BANK_CHUNK ? T : BANK_CHUNK;
+  }
+  GEN_HD static constexpr int stages(int T) {
+    return (T + chunk(T) - 1) / chunk(T) < BANK_STAGES
+               ? (T + chunk(T) - 1) / chunk(T)
+               : BANK_STAGES;
+  }
+  // a block's shared memory for a run of T steps: the tile (NROLES >= 2)
+  // and the ring
+  GEN_HD static constexpr int smem(int T) {
+    return (int)sizeof(scalar_t) *
+           ((BANK_REGS ? 0 : TILE_LANES * TILE_VALS) +
+            stages(T) * stage_vals(chunk(T)));
+  }
+};
+
+// A copy of n values (16 B, or one value) into the ring: cp.async on the
+// card (the caller commits the group), a plain copy on the host.
+GEN_HD GEN_INLINE void bank_copy(scalar_t* dst, const scalar_t* src, int n) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (n * (int)sizeof(scalar_t) == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if (sizeof(scalar_t) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+#else
+  for (int i = 0; i < n; ++i) dst[i] = src[i];
+#endif
+}
+
+GEN_HD GEN_INLINE bool bank_aligned(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// whether the block of lanes b0 .. b0 + 31 copies its rows 16 B at a time:
+// all 32 lanes in the bank, every row 16-B aligned
+template <int RL>
+GEN_HD GEN_INLINE bool bank_whole(const scalar_t* zs, const scalar_t* eas,
+                                  const scalar_t* Rs, int B, int b0) {
+  return b0 + TILE_LANES <= B && B % BankRing<RL>::V == 0 &&
+         bank_aligned(zs) && (NEAROWS == 0 || bank_aligned(eas)) &&
+         (!RL || bank_aligned(Rs));
+}
+
+// Steps t0 .. t0 + n - 1 of the block's lanes b0 .. into the stage st of
+// `chunk` steps, the copies c = tid, tid + nthr, ... of this thread: row
+// by row (z, then ea, then R by lane), each step's row of the block's 32
+// lanes from its source row, whose rows a step apart lie `step` apart.
+template <int RL>
+GEN_HD GEN_INLINE void bank_stage(scalar_t* st, int chunk,
+                                  const scalar_t* zs, const scalar_t* eas,
+                                  const scalar_t* Rs, const scalar_t* dts,
+                                  int t0, int n, int B, int b0, int tid,
+                                  int nthr, bool whole) {
+  using Ring = BankRing<RL>;
+  constexpr int ROWS = Ring::ROWS, V = Ring::V, PIECES = TILE_LANES / V;
+  for (int r = 0; r < ROWS; ++r) {
+    const bool zr = r < NZROWS, er = !zr && r < NZROWS + NEAROWS;
+    const size_t step = (size_t)(zr ? NZROWS : er ? NEAROWS : BANK_NR) * B;
+    const scalar_t* src =
+        (zr ? zs + (size_t)r * B
+            : er ? eas + (size_t)(r - NZROWS) * B
+                 : Rs + (size_t)(r - NZROWS - NEAROWS) * B) +
+        (size_t)t0 * step;
+    scalar_t* dst = st + r * TILE_LANES;
+    if (whole) {
+      for (int c = tid; c < n * PIECES; c += nthr) {
+        const int j = c / PIECES, col = (c - j * PIECES) * V;
+        bank_copy(dst + j * ROWS * TILE_LANES + col, src + j * step + b0 + col,
+                  V);
+      }
+    } else {
+      for (int c = tid; c < n * TILE_LANES; c += nthr) {
+        const int j = c / TILE_LANES, l = c - j * TILE_LANES;
+        bank_copy(dst + j * ROWS * TILE_LANES + l,
+                  src + j * step + (b0 + l < B ? b0 + l : B - 1), 1);
+      }
+    }
+  }
+  scalar_t* rsh = st + chunk * Ring::ROWS * TILE_LANES;
+  if (!RL)
+    for (int c = tid; c < n * BANK_NR; c += nthr)
+      bank_copy(rsh + c, Rs + (size_t)t0 * BANK_NR + c, 1);
+  scalar_t* dtr = rsh + chunk * Ring::SHARED;
+  for (int c = tid; c < n; c += nthr) bank_copy(dtr + c, dts + t0 + c, 1);
+}
+
 }  // namespace rn_gen
 
 #ifdef __CUDACC__
 
+// Every thread of the block at once: a warp's (one warp) or the block's.
+__device__ __forceinline__ void rn_bank_sync() {
+  if (rn_gen::BANK_REGS)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// The barriers inside a step: none with one warp (each lane's phases run
+// in its own thread).
+__device__ __forceinline__ void rn_bank_step_sync() {
+  if (!rn_gen::BANK_REGS) __syncthreads();
+}
+
+template <int RL>
 __global__ void __launch_bounds__(rn_gen::TILE_LANES * rn_gen::NROLES)
 rn_generic_bank_kernel(
     scalar_t* __restrict__ xs, scalar_t* __restrict__ Ps,
     scalar_t* __restrict__ ts, const scalar_t* __restrict__ zs,
     const scalar_t* __restrict__ eas, const scalar_t* __restrict__ dts,
-    const scalar_t* __restrict__ Rs, int r_lane,
-    const scalar_t* __restrict__ prm, const scalar_t* __restrict__ Q,
-    scalar_t* __restrict__ ys, int T, int B) {
+    const scalar_t* __restrict__ Rs, const scalar_t* __restrict__ prm,
+    const scalar_t* __restrict__ Q, scalar_t* __restrict__ ys, int T,
+    int B) {
   using namespace rn_gen;
+  using Ring = BankRing<RL>;
+  constexpr int NTHR = TILE_LANES * NROLES;
   extern __shared__ __align__(16) unsigned char rn_tile[];
-  scalar_t* Pt = reinterpret_cast<scalar_t*>(rn_tile);
-  scalar_t* xt = Pt + DE * DE * TILE_LANES;
-  scalar_t* st = xt + DX * TILE_LANES;
-  const int lane = threadIdx.x, role = threadIdx.y;
-  const int b = blockIdx.x * TILE_LANES + lane;
+  scalar_t* tile = reinterpret_cast<scalar_t*>(rn_tile);
+  scalar_t* ring = tile + (BANK_REGS ? 0 : TILE_LANES * TILE_VALS);
+  // one warp: role 0, a constant, so the dispatchers fold away
+  const int lane = threadIdx.x, role = BANK_REGS ? 0 : threadIdx.y;
+  const int tid = role * TILE_LANES + lane;
+  const int b0 = blockIdx.x * TILE_LANES, b = b0 + lane;
   const int bc = b < B ? b : B - 1;
+  const int chunk = Ring::chunk(T), nst = Ring::stages(T);
+  const int nchunks = (T + chunk - 1) / chunk;
+  const int sv = Ring::stage_vals(chunk);
+  const bool whole = bank_whole<RL>(zs, eas, Rs, B, b0);
+  // chunk k into its stage, asynchronously (the caller commits the group)
+  auto stage_of = [&](int k) {
+    if (k < nchunks && (!(RN_BANK_AID & 2) || k < nst))
+      bank_stage<RL>(ring + (k % nst) * sv, chunk, zs, eas, Rs, dts,
+                     k * chunk, T - k * chunk < chunk ? T - k * chunk : chunk,
+                     B, b0, tid, NTHR, whole);
+  };
+  // the first BANK_STAGES - 1 chunks, one group each (empty past the end)
+  for (int k = 0; k < BANK_STAGES - 1; ++k) {
+    stage_of(k);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // the lane's state: registers with one warp, else the block's tile
+  scalar_t xr[DX], Pr[DE * DE], sr[NSCR > 0 ? NSCR : 1];
+  scalar_t* x = BANK_REGS ? xr : tile + DE * DE * TILE_LANES + lane;
+  scalar_t* P = BANK_REGS ? Pr : tile + lane;
+  scalar_t* s = BANK_REGS ? sr : tile + (DE * DE + DX) * TILE_LANES + lane;
+  constexpr size_t ld = BANK_REGS ? 1 : TILE_LANES;
+  // (one warp: every entry, at constant indices, so into registers)
+#pragma unroll
   for (int e = role; e < DE * DE; e += NROLES)
-    Pt[e * TILE_LANES + lane] = Ps[(size_t)e * B + bc];
-  for (int i = role; i < DX; i += NROLES)
-    xt[i * TILE_LANES + lane] = xs[(size_t)i * B + bc];
+    P[e * ld] = Ps[(size_t)e * B + bc];
+#pragma unroll
+  for (int i = role; i < DX; i += NROLES) x[i * ld] = xs[(size_t)i * B + bc];
   scalar_t tl = ts[bc];
   scalar_t p[NP > 0 ? NP : 1];
   for (int i = 0; i < NP; ++i) p[i] = prm[i];
-  scalar_t* P = Pt + lane;
-  scalar_t* x = xt + lane;
-  scalar_t* s = st + lane;
-  const size_t ld = TILE_LANES;
-  const size_t ld_r = r_lane ? (size_t)B : 1;
-  __syncthreads();
-  for (int t = 0; t < T; ++t) {
-    const scalar_t dt = dts[t];
-    const scalar_t* z = zs + (size_t)t * NZROWS * B + bc;
-    const scalar_t* ea =
-        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + bc : nullptr;
-    const scalar_t* R = bank_R(Rs, t, bc, B, r_lane);
-    scalar_t v[NVAL];
-    gen_tile_predict(role, x, P, ld, dt, p, Q, v);
-    __syncthreads();
-    gen_tile_predict_store(role, x, P, ld, v);
-    __syncthreads();
-    if (role == 0) gen_tile_shared(x, P, ld, z, ea, (size_t)B, R, ld_r, p, s);
-    __syncthreads();
-    // the innovations leave from the scratch while the roles compute
-    if (role == NROLES - 1 && b < B)
-      gen_tile_y(x, P, ld, z, ea, (size_t)B, R, ld_r, p, s,
-                 ys + (size_t)t * NZROWS * B + b, (size_t)B);
-    gen_tile_update(role, x, P, ld, z, ea, (size_t)B, R, ld_r, p, s, v);
-    __syncthreads();
-    gen_tile_update_store(role, x, P, ld, v);
-    __syncthreads();
-    tl = tl + dt;
+  constexpr size_t ld_in = TILE_LANES;
+  constexpr size_t ld_r = RL ? TILE_LANES : 1;
+  // the chunk loop's steps unrolled (the emitter's BANK_UNROLL, or
+  // RN_BANK_UNROLL where defined: sweep_warps.py), so a step's ring loads
+  // (dt, z, R) issue ahead, off the steps' dependent chain
+#ifdef RN_BANK_UNROLL
+  constexpr int RN_BANK_UNROLL_N = RN_BANK_UNROLL;
+#else
+  constexpr int RN_BANK_UNROLL_N = BANK_UNROLL;
+#endif
+  for (int k = 0; k < nchunks; ++k) {
+    // chunk k + BANK_STAGES - 1 into the stage chunk k - 1 used, once
+    // every thread is done with it; then wait for chunk k (all groups but
+    // the BANK_STAGES - 1 newest) and see every thread's copies
+    rn_bank_sync();
+    stage_of(k + BANK_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(BANK_STAGES - 1)
+                 : "memory");
+    rn_bank_sync();
+    const scalar_t* st = ring + (k % nst) * sv;
+    const scalar_t* rsh = st + chunk * Ring::ROWS * TILE_LANES;
+    const scalar_t* dtr = rsh + chunk * Ring::SHARED;
+    const int t0 = k * chunk, n = T - t0 < chunk ? T - t0 : chunk;
+#pragma unroll RN_BANK_UNROLL_N
+    for (int j = 0; j < n; ++j) {
+      const scalar_t dt = dtr[j];
+      const scalar_t* z = st + j * Ring::ROWS * TILE_LANES + lane;
+      const scalar_t* ea = z + NZROWS * TILE_LANES;
+      const scalar_t* R = RL ? ea + NEAROWS * TILE_LANES : rsh + j * BANK_NR;
+      scalar_t* y = ys + (size_t)(t0 + j) * NZROWS * B + b;
+      if (RN_BANK_AID & 1) {
+        if (role == 0 && b < B)
+          for (int r = 0; r < NZROWS; ++r) y[(size_t)r * B] = z[r * ld_in];
+      } else {
+        scalar_t v[NVAL];
+        gen_tile_predict(role, x, P, ld, dt, p, Q, v);
+        rn_bank_step_sync();
+        gen_tile_predict_store(role, x, P, ld, v);
+        rn_bank_step_sync();
+        if (role == 0) gen_tile_shared(x, P, ld, z, ea, ld_in, R, ld_r, p, s);
+        rn_bank_step_sync();
+        // the innovations leave from the scratch while the roles compute
+        if (role == NROLES - 1 && b < B)
+          gen_tile_y(x, P, ld, z, ea, ld_in, R, ld_r, p, s, y, (size_t)B);
+        gen_tile_update(role, x, P, ld, z, ea, ld_in, R, ld_r, p, s, v);
+        rn_bank_step_sync();
+        gen_tile_update_store(role, x, P, ld, v);
+        rn_bank_step_sync();
+      }
+      tl = tl + dt;
+    }
   }
   if (b < B) {
+#pragma unroll
     for (int e = role; e < DE * DE; e += NROLES)
-      Ps[(size_t)e * B + b] = Pt[e * TILE_LANES + lane];
-    for (int i = role; i < DX; i += NROLES)
-      xs[(size_t)i * B + b] = xt[i * TILE_LANES + lane];
+      Ps[(size_t)e * B + b] = P[e * ld];
+#pragma unroll
+    for (int i = role; i < DX; i += NROLES) xs[(size_t)i * B + b] = x[i * ld];
     if (role == 0) ts[b] = tl;
   }
 }
 
-static const int rn_tile_smem =
-    (int)sizeof(scalar_t) * rn_gen::TILE_LANES * rn_gen::TILE_VALS;
-
-extern "C" int rn_generic_bank_launch(RN_BANK_PARAMS, void* stream) {
+template <int RL>
+static int rn_bank_launch(RN_BANK_PARAMS, void* stream) {
+  const int smem = rn_gen::BankRing<RL>::smem(T);
   cudaError_t e = cudaFuncSetAttribute(
-      rn_generic_bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      rn_tile_smem);
+      rn_generic_bank_kernel<RL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (B + rn_gen::TILE_LANES - 1) / rn_gen::TILE_LANES;
-  rn_generic_bank_kernel<<<blocks, dim3(rn_gen::TILE_LANES, rn_gen::NROLES),
-                           rn_tile_smem, static_cast<cudaStream_t>(stream)>>>(
-      RN_BANK_ARGS, T, B);
+  rn_generic_bank_kernel<RL>
+      <<<blocks, dim3(rn_gen::TILE_LANES, rn_gen::NROLES), smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+          static_cast<scalar_t*>(ts), static_cast<const scalar_t*>(zs),
+          static_cast<const scalar_t*>(eas),
+          static_cast<const scalar_t*>(dts), static_cast<const scalar_t*>(Rs),
+          static_cast<const scalar_t*>(prm), static_cast<const scalar_t*>(Q),
+          static_cast<scalar_t*>(ys), T, B);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define RN_GEN_KERNEL rn_generic_bank_kernel
+extern "C" int rn_generic_bank_launch(RN_BANK_PARAMS, void* stream) {
+  return r_lane ? rn_bank_launch<1>(xs, Ps, ts, zs, eas, dts, Rs, r_lane,
+                                    prm, Q, ys, T, B, stream)
+                : rn_bank_launch<0>(xs, Ps, ts, zs, eas, dts, Rs, r_lane,
+                                    prm, Q, ys, T, B, stream);
+}
+
+// the launch shape the info entry reads: R by lane with a full ring
+static const int rn_tile_smem =
+    rn_gen::BankRing<1>::smem(rn_gen::BANK_CHUNK * rn_gen::BANK_STAGES);
+
+#define RN_GEN_KERNEL rn_generic_bank_kernel<1>
 #define RN_GEN_DESIGN 1
 #define RN_GEN_ROLES rn_gen::NROLES
 #define RN_GEN_SMEM rn_tile_smem
 
 #else
 
-// The host build of the tile form (tests): lane by lane, a copy of its P,
-// x and scratch (ld = 1), each phase in barrier order.
+#include <stdlib.h>
+
+// The host build of the tile form (tests): a block of 32 lanes at a time,
+// its tile laid out as the card's ([value][32], ld = 32) and its inputs
+// staged through the same ring by the same copies (every thread's, in
+// turn, in the card's order), each step's phases lane by lane in barrier
+// order. One warp or more: the same arithmetic, so the same bits.
 namespace rn_gen {
 
-GEN_HD GEN_INLINE void bank_tile_filter(
-    int b, int B, int T, scalar_t* xs, scalar_t* Ps, scalar_t* ts,
-    const scalar_t* zs, const scalar_t* eas, const scalar_t* dts,
-    const scalar_t* Rs, int r_lane, const scalar_t* prm, const scalar_t* Q,
-    scalar_t* ys) {
-  scalar_t x[DX], P[DE * DE], s[NSCR > 0 ? NSCR : 1];
-  scalar_t v[NROLES][NVAL];
-  for (int i = 0; i < DX; ++i) x[i] = xs[(size_t)i * B + b];
-  for (int e = 0; e < DE * DE; ++e) P[e] = Ps[(size_t)e * B + b];
-  scalar_t tl = ts[b];
+template <int RL>
+void bank_tile_host(scalar_t* xs, scalar_t* Ps, scalar_t* ts,
+                    const scalar_t* zs, const scalar_t* eas,
+                    const scalar_t* dts, const scalar_t* Rs, const scalar_t* prm,
+                    const scalar_t* Q, scalar_t* ys, int T, int B) {
+  using Ring = BankRing<RL>;
+  constexpr int NTHR = TILE_LANES * NROLES;
+  const int chunk = Ring::chunk(T), nst = Ring::stages(T);
+  const int nchunks = (T + chunk - 1) / chunk;
+  const int sv = Ring::stage_vals(chunk);
+  scalar_t* tile = static_cast<scalar_t*>(
+      malloc(sizeof(scalar_t) * TILE_LANES * TILE_VALS));
+  scalar_t* ring =
+      static_cast<scalar_t*>(malloc(sizeof(scalar_t) * nst * sv));
   scalar_t p[NP > 0 ? NP : 1];
   for (int i = 0; i < NP; ++i) p[i] = prm[i];
-  const size_t ld_r = r_lane ? (size_t)B : 1;
-  for (int t = 0; t < T; ++t) {
-    const scalar_t dt = dts[t];
-    const scalar_t* z = zs + (size_t)t * NZROWS * B + b;
-    const scalar_t* ea =
-        NEAROWS > 0 ? eas + (size_t)t * NEAROWS * B + b : nullptr;
-    const scalar_t* R = bank_R(Rs, t, b, B, r_lane);
-    for (int r = 0; r < NROLES; ++r) gen_tile_predict(r, x, P, 1, dt, p, Q, v[r]);
-    for (int r = 0; r < NROLES; ++r) gen_tile_predict_store(r, x, P, 1, v[r]);
-    gen_tile_shared(x, P, 1, z, ea, (size_t)B, R, ld_r, p, s);
-    gen_tile_y(x, P, 1, z, ea, (size_t)B, R, ld_r, p, s,
-               ys + (size_t)t * NZROWS * B + b, (size_t)B);
-    for (int r = 0; r < NROLES; ++r)
-      gen_tile_update(r, x, P, 1, z, ea, (size_t)B, R, ld_r, p, s, v[r]);
-    for (int r = 0; r < NROLES; ++r) gen_tile_update_store(r, x, P, 1, v[r]);
-    tl = tl + dt;
+  auto stage = [&](int k, int b0, bool whole) {
+    for (int tid = 0; tid < NTHR; ++tid)
+      bank_stage<RL>(ring + (k % nst) * sv, chunk, zs, eas, Rs, dts,
+                     k * chunk, T - k * chunk < chunk ? T - k * chunk : chunk,
+                     B, b0, tid, NTHR, whole);
+  };
+  for (int b0 = 0; b0 < B; b0 += TILE_LANES) {
+    const bool whole = bank_whole<RL>(zs, eas, Rs, B, b0);
+    scalar_t tl[TILE_LANES];
+    for (int l = 0; l < TILE_LANES; ++l) {
+      const int bc = b0 + l < B ? b0 + l : B - 1;
+      for (int e = 0; e < DE * DE; ++e)
+        tile[e * TILE_LANES + l] = Ps[(size_t)e * B + bc];
+      for (int i = 0; i < DX; ++i)
+        tile[(DE * DE + i) * TILE_LANES + l] = xs[(size_t)i * B + bc];
+      tl[l] = ts[bc];
+    }
+    for (int k = 0; k < BANK_STAGES - 1 && k < nchunks; ++k)
+      stage(k, b0, whole);
+    for (int k = 0; k < nchunks; ++k) {
+      if (k + BANK_STAGES - 1 < nchunks) stage(k + BANK_STAGES - 1, b0, whole);
+      const scalar_t* st = ring + (k % nst) * sv;
+      const scalar_t* rsh = st + chunk * Ring::ROWS * TILE_LANES;
+      const scalar_t* dtr = rsh + chunk * Ring::SHARED;
+      const int t0 = k * chunk, n = T - t0 < chunk ? T - t0 : chunk;
+      for (int j = 0; j < n; ++j) {
+        const scalar_t dt = dtr[j];
+        for (int l = 0; l < TILE_LANES; ++l) {
+          scalar_t* P = tile + l;
+          scalar_t* x = tile + DE * DE * TILE_LANES + l;
+          scalar_t* s = tile + (DE * DE + DX) * TILE_LANES + l;
+          const size_t ld = TILE_LANES, ld_in = TILE_LANES;
+          const size_t ld_r = RL ? TILE_LANES : 1;
+          const scalar_t* z = st + j * Ring::ROWS * TILE_LANES + l;
+          const scalar_t* ea = z + NZROWS * TILE_LANES;
+          const scalar_t* R =
+              RL ? ea + NEAROWS * TILE_LANES : rsh + j * BANK_NR;
+          scalar_t v[NROLES][NVAL];
+          for (int r = 0; r < NROLES; ++r)
+            gen_tile_predict(r, x, P, ld, dt, p, Q, v[r]);
+          for (int r = 0; r < NROLES; ++r)
+            gen_tile_predict_store(r, x, P, ld, v[r]);
+          gen_tile_shared(x, P, ld, z, ea, ld_in, R, ld_r, p, s);
+          if (b0 + l < B)
+            gen_tile_y(x, P, ld, z, ea, ld_in, R, ld_r, p, s,
+                       ys + (size_t)(t0 + j) * NZROWS * B + b0 + l, (size_t)B);
+          for (int r = 0; r < NROLES; ++r)
+            gen_tile_update(r, x, P, ld, z, ea, ld_in, R, ld_r, p, s, v[r]);
+          for (int r = 0; r < NROLES; ++r)
+            gen_tile_update_store(r, x, P, ld, v[r]);
+          tl[l] = tl[l] + dt;
+        }
+      }
+    }
+    for (int l = 0; l < TILE_LANES && b0 + l < B; ++l) {
+      for (int e = 0; e < DE * DE; ++e)
+        Ps[(size_t)e * B + b0 + l] = tile[e * TILE_LANES + l];
+      for (int i = 0; i < DX; ++i)
+        xs[(size_t)i * B + b0 + l] = tile[(DE * DE + i) * TILE_LANES + l];
+      ts[b0 + l] = tl[l];
+    }
   }
-  for (int i = 0; i < DX; ++i) xs[(size_t)i * B + b] = x[i];
-  for (int e = 0; e < DE * DE; ++e) Ps[(size_t)e * B + b] = P[e];
-  ts[b] = tl;
+  free(ring);
+  free(tile);
 }
 
 }  // namespace rn_gen
 
 extern "C" int rn_generic_bank_host(RN_BANK_PARAMS) {
-  for (int b = 0; b < B; ++b) rn_gen::bank_tile_filter(b, B, T, RN_BANK_ARGS);
+  if (T == 0) return 0;
+  auto run = r_lane ? rn_gen::bank_tile_host<1> : rn_gen::bank_tile_host<0>;
+  run(static_cast<scalar_t*>(xs), static_cast<scalar_t*>(Ps),
+      static_cast<scalar_t*>(ts), static_cast<const scalar_t*>(zs),
+      static_cast<const scalar_t*>(eas), static_cast<const scalar_t*>(dts),
+      static_cast<const scalar_t*>(Rs), static_cast<const scalar_t*>(prm),
+      static_cast<const scalar_t*>(Q), static_cast<scalar_t*>(ys), T, B);
   return 0;
 }
 

@@ -74,7 +74,9 @@ lane) are the global form only: the backward of mode "bank".
 Mode "bank" (kernel 15, runtime/bank.run_bank) is mode "single"'s step
 reading R through a run-time lane stride and storing each step's
 innovations: in tile form they are scratch values after the update's
-shared ones, copied out by gen_tile_y.
+shared ones, copied out by gen_tile_y; its tile takes one warp, the
+lane's state in registers, where the lane is small (bank_design), and
+names the ring its inputs are staged through.
 Mode "smooth" (kernels 11, 12 and 14, the offline RTS smoother,
 smooth_source) prints only the spec's error-state functions the smoother
 needs, as templates over the scalar type, for csrc/smooth.cuh.
@@ -808,6 +810,22 @@ TILE_ROLES_ADJOINT = 8   # W of its adjoint (mode "stream_adjoint", PERF.md)
 TILE_LANES = 32          # filters a block holds, one a lane
 TILE_SMEM_MAX = 232_448  # shared memory bytes a block may use on the H100
 _SCALAR_BYTES = {"float": 4, "double": 8}
+# Kernel 15 (mode "bank"): one warp a block, the lane's state in registers,
+# where a lane holds no more than BANK_ONE_WARP_VALS values (P, x and the
+# update's scratch), else TILE_ROLES warps and the tile in shared memory
+# (measured on the kinematic, car and battery specs, PERF.md); its inputs
+# staged through a ring of BANK_STAGES stages of BANK_CHUNK steps, fewer
+# steps a stage where a block's tile and ring would pass BANK_SMEM_TARGET:
+# 4 blocks an SM, so all 512 blocks of a 16384-lane bank are resident at
+# once (sweep_warps.py --parts bank, PERF.md).
+# Its chunk loop unrolls the most steps (a power of two, up to 8) whose
+# emitted operations stay within BANK_UNROLL_OPS: the ring loads of later
+# steps then issue off the chain (kinematic 8, car 4).
+BANK_ONE_WARP_VALS = 128
+BANK_CHUNK = 64
+BANK_STAGES = 2
+BANK_SMEM_TARGET = 57_344
+BANK_UNROLL_OPS = 1536
 
 
 def _computed(values, seen=None) -> list:
@@ -890,6 +908,47 @@ def tile_bytes(spec, upd, scalar, staged=False) -> int:
   variant's adds epoch_input_bytes."""
   vals = spec.dim_err ** 2 + spec.dim_x + stage_plan(upd, staged)[2]
   return vals * TILE_LANES * _SCALAR_BYTES[scalar]
+
+
+def bank_ring_bytes(nzrows, nearows, chunk, scalar) -> int:
+  """Shared memory of kernel 15's ring, R by lane: BANK_STAGES stages of
+  chunk steps, each step TILE_LANES lanes' z, ea and R rows and its dt, a
+  stage rounded up to 16 B (csrc/generic_scan.cuh BankRing)."""
+  size = _SCALAR_BYTES[scalar]
+  per = 16 // size
+  vals = chunk * ((nzrows + nearows + nzrows ** 2) * TILE_LANES + 1)
+  return BANK_STAGES * -(-vals // per) * per * size
+
+
+def bank_design(vals, nzrows, nearows, scalar):
+  """(warps, steps a ring stage, shared bytes a block) of kernel 15's tile
+  for a lane of vals values (P, x and the update's scratch): one warp with
+  the state in registers up to BANK_ONE_WARP_VALS, else TILE_ROLES warps
+  and the tile in shared memory; BANK_CHUNK steps a stage, halved while
+  tile and ring pass BANK_SMEM_TARGET, down to one. None where even a ring
+  of one step a stage does not fit a block (TILE_SMEM_MAX): the global
+  form."""
+  roles = 1 if vals <= BANK_ONE_WARP_VALS else TILE_ROLES
+  tile = 0 if roles == 1 else vals * TILE_LANES * _SCALAR_BYTES[scalar]
+  chunk = BANK_CHUNK
+  while chunk > 1 and (tile + bank_ring_bytes(nzrows, nearows, chunk, scalar)
+                       > BANK_SMEM_TARGET):
+    chunk //= 2
+  smem = tile + bank_ring_bytes(nzrows, nearows, chunk, scalar)
+  return (roles, chunk, smem) if smem <= TILE_SMEM_MAX else None
+
+
+def bank_unroll(pred, upd) -> int:
+  """The steps kernel 15's chunk loop unrolls: the most, a power of two up
+  to 8, whose operations (the nodes of the predict and of the update, its
+  shared values and innovations with it) stay within BANK_UNROLL_OPS."""
+  ops = sum(len(set().union(*(_needs(v, frozenset()) for v in vals)))
+            for vals in ([*pred.x_out, *pred.p_out.values()],
+                         [*upd.x_out, *upd.p_out.values(), *upd.shared]))
+  unroll = 1
+  while unroll < 8 and 2 * unroll * ops <= BANK_UNROLL_OPS:
+    unroll *= 2
+  return unroll
 
 
 def epoch_input_bytes(nzrows, nearows, scalar) -> int:
@@ -1094,7 +1153,7 @@ def _kind_dispatch(name, params, cases, var="ki"):
 
 def _tile_source(body, pred, units, n_roles, mixed=False,
                  smem=None, slot_table=None, stream=False,
-                 bank=False) -> list:
+                 bank=None) -> list:
   """The lines after the header of a variant in tile form: the role
   functions of the predict and of each update unit, each unit's shared
   values and the dispatchers the template's tile loop calls, over n_roles
@@ -1115,11 +1174,12 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
   staged R, offset 0) prints a mixed variant's functions for the
   template's REDNOSE_GENERIC_SCAN_STREAM tile loop. A bank-scan variant
   (bank: mode 'bank', one unit whose shared values end with its
-  innovations) reads R through a run-time stride ld_r (R by lane, or
-  shared by the lanes) and prints gen_tile_y, the innovations from the
-  scratch into y, for the template's REDNOSE_GENERIC_SCAN_BANK tile
-  loop. smem, when given: the block's shared memory bytes, named in the
-  design line."""
+  innovations; bank_design's (warps, steps a ring stage, shared bytes),
+  n_roles its warps) reads R through a run-time stride ld_r (R by lane,
+  or shared by the lanes), prints gen_tile_y, the innovations from the
+  scratch into y, and its ring's BANK_CHUNK and BANK_STAGES, for the
+  template's REDNOSE_GENERIC_SCAN_BANK tile loop. smem, when given: the
+  block's shared memory bytes, named in the design line."""
   staged = any(u[4] for u in units)
   epoch = slot_table is not None
   funcs = {}
@@ -1141,22 +1201,36 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
                  "stored from the tile after the predict and after the "
                  "update")
   if bank:
+    unroll = bank_unroll(pred, units[0][1])
+    ring = (f"its inputs staged through a ring of {BANK_STAGES} stages x "
+            f"{bank[1]} step{'s' if bank[1] > 1 else ''} ({bank[2]:,} B a block "
+            f"with R by lane), "
+            + (f"{unroll} steps unrolled" if unroll > 1 else "no step unrolled"))
     switched = (", R read by lane or shared through a run-time stride, "
-                "each step's innovations stored from the scratch")
+                "each step's innovations stored from the scratch, " + ring)
   if epoch:
     switched = (f", {len(slot_table)} slots of {len(units)} "
                 f"unit{'s' if len(units) > 1 else ''}, each step's inputs "
                 "staged a step ahead")
   size = f" ({smem:,} B a block)" if smem is not None else ""
-  out = [f"// design: tile, {n_roles} roles{switched}: a block of "
-         f"{TILE_LANES} filters x {n_roles} warps keeps P, x and {nscr} "
-         f"scratch values a filter in shared memory{size}"] + body + [
+  design = (f"// design: tile, {n_roles} roles{switched}: a block of "
+            f"{TILE_LANES} filters x {n_roles} warps keeps P, x and {nscr} "
+            f"scratch values a filter in shared memory{size}")
+  if bank and n_roles == 1:
+    design = (f"// design: tile, 1 role{switched}: a block of {TILE_LANES} "
+              f"filters x 1 warp, each filter's P, x and {nscr} scratch "
+              "values in its thread's registers, no barrier in a step")
+  out = [design] + body + [
       "#define GEN_X(i) x[(size_t)(i) * ld]",
       "#define GEN_S(k) s[(size_t)(k) * ld]",
       f"constexpr int NROLES = {n_roles};",
       f"constexpr int NSCR = {nscr};",
       f"constexpr int NVAL = {nval};",
   ]
+  if bank:
+    out += [f"constexpr int BANK_CHUNK = {bank[1]};  // steps a ring stage",
+            f"constexpr int BANK_STAGES = {BANK_STAGES};  // ring stages",
+            f"constexpr int BANK_UNROLL = {unroll};  // steps unrolled"]
   if epoch:
     out += [f"constexpr int NSLOTS = {len(slot_table)};",
             "// the slot table: slot k runs unit `unit` (the dispatchers' "
@@ -1186,7 +1260,7 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
                                 frame)]
     else:
       cuts = stages[0][1]                     # its one serial stage
-      pr = _Printer(dz, True, lane_r=bank)
+      pr = _Printer(dz, True, lane_r=bank is not None)
       for e in cuts:
         pr.emit(e)
       pr.lines += [f"  GEN_S({k}) = {pr.ref(e)};" for k, e in enumerate(cuts)]
@@ -1194,7 +1268,8 @@ def _tile_source(body, pred, units, n_roles, mixed=False,
               *_function(f"{name}_shared" if mixed or epoch
                          else "gen_tile_shared", p_in + ["scalar_t* s"],
                          pr.lines)]
-    out += _role_functions(name, p_upd, roles, dz, slots, lane_r=bank)
+    out += _role_functions(name, p_upd, roles, dz, slots,
+                           lane_r=bank is not None)
     if mixed or epoch:
       out += _dispatch(f"{name}_update", p_upd + ["scalar_t* v"],
                        lambda r, n=name: f"{n}_r{r}", n_roles)
@@ -1338,7 +1413,9 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
   each step's R read by lane through a run-time stride (R[k * ld_r]: ld_r
   the bank's width for R by lane, 1 for an R the lanes share) and each
   step's innovations z - h(x_pred) stored (y); the tile form where it
-  fits, over TILE_ROLES roles, its innovations in the scratch after the
+  and a ring of its inputs fit (bank_design: one warp, the lane's state
+  in registers, for a small spec, else TILE_ROLES warps; the ring's steps
+  a stage in the design line), its innovations in the scratch after the
   shared values (gen_tile_y), else the global form (gen_bank_update).
   lane_r (modes 'stream' and 'stream_adjoint', kernels 9 and 10's lane
   forms): R by lane (Rs (T, max_dz, max_dz, B), ld_r the bank's width),
@@ -1460,7 +1537,17 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
       nbytes += epoch_input_bytes(nzrows, nearows, scalar)
     if stream:
       nbytes += stream_input_bytes(nzrows, nearows, scalar)
-    if nbytes <= TILE_SMEM_MAX and mode == "epoch":
+    design = bank and bank_design(
+        nbytes // (TILE_LANES * _SCALAR_BYTES[scalar]), nzrows, nearows,
+        scalar)
+    if bank and design:
+      (name, ph), = phases.items()
+      return "\n".join(head + _tile_source(
+          body, pred, [(name, ph, max_dz, 0, False)], design[0],
+          bank=design))
+    elif bank:
+      nbytes += bank_ring_bytes(nzrows, nearows, 1, scalar)
+    elif nbytes <= TILE_SMEM_MAX and mode == "epoch":
       # one unit per distinct (kind, gate), and the slots' table
       dz_of = {n: spec.obs[k].dz for n, (k, _) in zip(names, units)}
       distinct = list(phases)
@@ -1479,11 +1566,11 @@ def emit_source(spec: FilterSpec, mode: str, units, structure, pnames,
           body, pred, [(n, phases[n], spec.obs[k].dz, o, f) for n, (k, _), o, f
                        in zip(names, units, r_off, feature)],
           TILE_ROLES_FRAME if has_frame else TILE_ROLES,
-          mixed=mode == "mixed", smem=nbytes if has_frame else None,
-          bank=bank))
+          mixed=mode == "mixed", smem=nbytes if has_frame else None))
     head.append(
         f"// design: global: the tile of {TILE_LANES} filters ({nbytes:,} B "
-        f"in {scalar}) exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
+        f"in {scalar}{' with a ring of one step a stage' if bank else ''}) "
+        f"exceeds the {TILE_SMEM_MAX:,} B a block may use, so "
         + (stored if stream else lane_note if bank
            else "one thread a filter and P in global memory"))
   out = head + body + [

@@ -2,8 +2,8 @@
 """Measure the design constants of the port's tile kernels on one card:
 kernels 2, 3, 4, 5 and 6 at W = 1, 2, 4 and 8 warps a block, kernels 7
 and 6 with camera frames at W = 4, 8 and 16, kernel 9 (the log scan) and
-kernel 10 (its adjoint) at W = 2, 4, 8, 16 and 32, kernel 1's ring, and
-kernel 8's block size.
+kernel 10 (its adjoint) at W = 2, 4, 8, 16 and 32, kernel 1's ring,
+kernel 8's block size, and kernel 15's ring, warps and unroll.
 
     python3 sweep_warps.py [--parent DIR] [--parts PART ...]   # repo root
 
@@ -31,7 +31,11 @@ kernel 11's aids, in turns, held bitwise: smooth_sweep) and affine (kernel
 ring stages 2-4, the products' tiles, fused or apart, the launch
 bounds, chunks of 32-256, the timing aids, each pass timed apart; with
 --parent the parent's kernel 13 split apart and in turns, held bitwise:
-affine_sweep); all nine by default. W is a constant of
+affine_sweep) and bank (kernel 15, run_bank's bank scan: its ring's
+steps a stage x stages x W on the kinematic 16384 x 4096 bank, W = 1
+and 2 on the car, op battery and live specs, the chunk loop's unroll,
+the timing aids; with --parent the parent's kernel 15 in turns:
+bank_sweep); all ten by default. W is a constant of
 each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
@@ -105,7 +109,7 @@ WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
 PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate",
-         "adjoint", "smooth", "affine")
+         "adjoint", "smooth", "affine", "bank")
 STREAM_WS = (2, 4, 8, 16, 32)
 STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
@@ -1845,18 +1849,292 @@ def template_ab(torch, dev, gen, parent_template):
   return out
 
 
+# ---------------------------------------------------------------- kernel 15
+
+BANK_GRID = {"chunk": (16, 32, 64, 128), "stages": (2, 3, 4), "W": (1, 2)}
+BANK_UNROLLS = (1, 2, 4, 8)   # steps the chunk loop unrolls
+# one warp (the lane's state in registers) or TILE_ROLES warps, whatever
+# the lane's size
+BANK_FORCE_W = {1: 10 ** 9, 2: 0}
+PARENT_BANK = """
+import sys
+import torch
+import chip_smoke as cs
+calls = cs.bank_calls()
+for name, out in zip(("kinematic", "car"), sys.argv[1:]):
+  open(out, "w").write(
+      calls[name + " run_bank (kernel 15)"][0].source(torch.float32))
+"""
+
+
+def bank_source(call, dtype, w=None, chunk=None, stages=None, aid=0,
+                unroll=None):
+  """Kernel 15's source of a call emitted with the emitter's constants set:
+  W (1 or 2, else the emitter's choice), steps a ring stage and stages
+  (the ring not cut to BANK_SMEM_TARGET when given), a timing aid's
+  RN_BANK_AID bits and the steps its chunk loop unrolls (RN_BANK_UNROLL;
+  csrc/generic_scan.cuh)."""
+  from rednose_tpu_torch.ops import entry_slab
+
+  consts = {}
+  if w is not None:
+    consts["BANK_ONE_WARP_VALS"] = BANK_FORCE_W[w]
+  if chunk is not None:
+    consts |= dict(BANK_CHUNK=chunk, BANK_SMEM_TARGET=entry_slab.TILE_SMEM_MAX)
+  if stages is not None:
+    consts["BANK_STAGES"] = stages
+  src = k4_source(lambda: call, dtype=dtype, **consts)
+  if unroll is not None:
+    src = f"#define RN_BANK_UNROLL {unroll}\n" + src
+  return f"#define RN_BANK_AID {aid}\n" + src if aid else src
+
+
+def bank_fn_launch(fn, x, P, t, zs, dts, Rs, prm, Q, eas=None):
+  """chip_smoke.bank_launch of a loaded entry (a parent's build)."""
+  import torch
+
+  x, P, t = x.clone(), P.clone(), t.clone()
+  T, B = dts.shape[0], x.shape[-1]
+  ys = x.new_empty((T, zs.shape[1], B))
+  stream = torch.cuda.current_stream(x.device).cuda_stream
+
+  def launch():
+    from rednose_tpu_torch import _build
+
+    _build.check(fn(x.data_ptr(), P.data_ptr(), t.data_ptr(), zs.data_ptr(),
+                    None if eas is None else eas.data_ptr(), dts.data_ptr(),
+                    Rs.data_ptr(), int(Rs.dim() == 4), prm.data_ptr(),
+                    Q.data_ptr(), ys.data_ptr(), T, B, stream), "kernel 15")
+    return x, P, t, ys
+
+  return launch
+
+
+def bank_cases(torch, dev, gen):
+  """Kernel 15's timed shapes in its wrapper's layout, float32: the
+  kinematic bank at kernel 1's width (KIN_B x KIN_T, R by lane and
+  shared) and at T = 64 and 1, the car bank (GEN_B, its params) at
+  T = 64, 1024 and 1, the live spec's ECEF_POS (B = GEN_B, T = 64, from
+  the prior), the op battery's RANGE (B = GEN_B, T = 64, its anchors as
+  extra args), and the example's 4096 x 500 (the gradient's bank, R by
+  lane). Each: (spec name, x, P, t, zs, dts, Rs, prm, Q,
+  eas)."""
+  from rednose_tpu_torch.models import user_specs as us
+
+  (_, km, kk, _), (_, cm, ck, cparams) = cs.bank_models()
+  f32 = torch.float32
+
+  def lay(state, Q, dts, zs, Rs, prm=None, eas=None):
+    R = Rs.permute(0, 2, 3, 1).contiguous() if Rs.dim() == 4 else Rs
+    return (state.x.T.contiguous(), state.P.permute(1, 2, 0).contiguous(),
+            state.t.clone(), zs.permute(0, 2, 1).contiguous(), dts, R,
+            torch.zeros(1, device=dev) if prm is None else prm, Q, eas)
+
+  state, Q, dts, zs, Rs = cs.bank_inputs(torch, dev, gen, km, kk, cs.KIN_B,
+                                         cs.KIN_T, f32, noise=5.0)
+  kin = lay(state, Q, dts, zs, Rs)
+  cases = {f"kinematic {cs.KIN_B}x{cs.KIN_T} R by lane": ("kinematic",
+                                                         *kin)}
+  cases[f"kinematic {cs.KIN_B}x{cs.KIN_T} R shared"] = (
+      "kinematic", *kin[:5], Rs[:, 0].contiguous(), *kin[6:])
+  for n in (64, 1):
+    cases[f"kinematic {cs.KIN_B}x{n}"] = (
+        "kinematic", *kin[:3], kin[3][:n], kin[4][:n], kin[5][:n], *kin[6:])
+  cstate, cQ, cdts, czs, cRs = cs.bank_inputs(torch, dev, gen, cm, ck,
+                                              cs.GEN_B, cs.BANK_CAR_T, f32)
+  cprm = torch.as_tensor([float(cparams[k]) for k in sorted(cparams)],
+                         dtype=f32, device=dev)
+  car = lay(cstate, cQ, cdts, czs, cRs, cprm)
+  for n in (64, cs.BANK_CAR_T, 1):
+    cases[f"car {cs.GEN_B}x{n}"] = (
+        "car", *car[:3], car[3][:n], car[4][:n], car[5][:n], *car[6:])
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+
+  lstate, lQ, ldts, lzs, lRs = cs.bank_inputs(torch, dev, gen, LiveKalman,
+                                              K.ECEF_POS, cs.GEN_B, cs.CMP_T,
+                                              f32)
+  cases[f"live {cs.GEN_B}x{cs.CMP_T}"] = ("live",
+                                          *lay(lstate, lQ, ldts, lzs, lRs))
+  gstate, gQ, gdts, gzs, gRs = cs.bank_grad_inputs(torch, dev, f32)[:5]
+  cases[f"example {cs.BANK_GRAD_B}x{cs.BANK_GRAD_T}"] = (
+      "kinematic", *lay(gstate, gQ, gdts, gzs, gRs))
+  spec, rng = us.battery_spec(), np.random.RandomState(cs.SEED)
+  B, T = cs.GEN_B, cs.CMP_T
+  x0 = us.BATTERY_X0 + np.concatenate(
+      [2.0 * rng.randn(B, 3), 0.1 * rng.randn(B, 5)], axis=1)
+  truth = us.simulate(spec, x0, us.BATTERY_Q, T, 0.05, rng)
+  eas = truth[1:, :, :3].numpy() + 50.0 * rng.randn(T, B, 3)
+  bz = us.measure(spec, us.RANGE, truth[1:], us.BATTERY_R[us.RANGE], rng,
+                  torch.as_tensor(eas)).numpy()
+  t32 = lambda a: torch.as_tensor(  # noqa: E731
+      np.ascontiguousarray(a), dtype=f32, device=dev)
+  R0 = np.asarray(us.BATTERY_R[us.RANGE])
+  cases[f"battery {B}x{T}"] = (
+      "battery", t32(x0.T), t32(np.tile(np.diag(us.BATTERY_P_DIAG)[..., None],
+                                        (1, 1, B))),
+      torch.zeros(B, dtype=f32, device=dev), t32(bz.transpose(0, 2, 1)),
+      t32(np.full(T, 0.05)),
+      t32(np.broadcast_to(R0[None, :, :, None], (T,) + R0.shape + (B,))),
+      torch.zeros(1, device=dev), t32(us.BATTERY_Q),
+      t32(eas.transpose(0, 2, 1)))
+  return cases
+
+
+def bank_sweep(torch, dev, gen, parent=None):
+  """Kernel 15 (run_bank's bank scan) at each point of BANK_GRID (steps a
+  ring stage x stages x W) on the kinematic 16384 x 4096 bank, R by lane
+  and shared, each point with its shared bytes, registers, blocks an SM
+  and waves; the car, the op battery and the live spec at W = 1 and 2
+  (the shipped ring), which set entry_slab.BANK_ONE_WARP_VALS; the
+  kinematic and car variants at each unroll of BANK_UNROLLS
+  (entry_slab.BANK_UNROLL_OPS); the shipped variants on every case of
+  bank_cases; the timing aids (RN_BANK_AID: the ring and ys stores
+  without the compute, the compute on each stage's first chunk, copied
+  once) of the shipped kinematic variant. Each build (not the aids)
+  held against the plain version
+  (bank_run_scan_reference) at T = 64 in sigmas (chip_smoke.bank_errs),
+  and the shipped W = 1 and W = 2 against each other. With parent (a
+  checkout of the parent commit), the parent's kernel 15 (its emitter
+  run there, built with its template) in turns with the shipped one on
+  every kinematic and car case (parent, this, this, parent). Raw
+  launches, CUDA events, REPS after a warm-up (4 x REPS at T <= 64)."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models import user_specs as us
+  from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
+  from rednose_tpu_torch.ops import generic_scan as gs
+
+  f32 = torch.float32
+  calls = {n: cs.bank_calls()[f"{n} run_bank (kernel 15)"][0]
+           for n in ("kinematic", "car")}
+  calls["battery"] = gs.KernelCall(us.battery_spec(), "bank", (us.RANGE,),
+                                   Q=us.BATTERY_Q)
+  calls["live"] = gs.KernelCall(LiveKalman.build_spec(), "bank",
+                                (K.ECEF_POS,), Q=LiveKalman.Q)
+  t0 = time.perf_counter()
+  srcs = {}
+  for n, call in calls.items():
+    srcs[(n, "shipped")] = call.source(f32)
+    for w in BANK_GRID["W"]:
+      srcs[(n, f"W={w}")] = bank_source(call, f32, w)
+  for c in BANK_GRID["chunk"]:
+    for s in BANK_GRID["stages"]:
+      for w in BANK_GRID["W"]:
+        srcs[("kinematic", f"W={w} {s}x{c}")] = bank_source(
+            calls["kinematic"], f32, w, c, s)
+  for n in ("kinematic", "car"):
+    for u in BANK_UNROLLS:
+      srcs[(n, f"unroll {u}")] = bank_source(calls[n], f32, unroll=u)
+
+  aids = {"ring and ys stores only": 1, "compute only": 2}
+  for label, bits in aids.items():
+    srcs[("kinematic", label)] = bank_source(calls["kinematic"], f32,
+                                             aid=bits)
+  fns = {}
+  if parent is not None:
+    outs = [SWEEP_DIR / f"k15_parent_{n}.cu" for n in ("kinematic", "car")]
+    SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([sys.executable, "-c", PARENT_BANK, *map(str, outs)],
+                   cwd=parent, check=True)
+    template = (pathlib.Path(parent) / "rednose_tpu_torch" / "csrc"
+                / "generic_scan.cuh")
+    with ThreadPoolExecutor(2) as pool:
+      jobs = {n: pool.submit(build_with_template, f"k15_parent_{n}",
+                             o.read_text(), template,
+                             "rn_generic_bank_launch")
+              for n, o in zip(("kinematic", "car"), outs)}
+      _build.build_generated_many(list(srcs.values()))
+      for n, j in jobs.items():
+        fns[(n, "parent")] = j.result()
+  else:
+    _build.build_generated_many(list(srcs.values()))
+  for k, src in srcs.items():
+    fns[k] = _build.generated_launcher(src)
+  cs.log(f"kernel 15: {len(fns)} builds in {time.perf_counter() - t0:.1f} s")
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  cases = bank_cases(torch, dev, gen)
+  ref_case = {n: next(k for k, c in cases.items() if c[0] == n
+                      and c[4].shape[0] == cs.CMP_T)
+              for n in calls}
+  refs = {}
+  for n, k in ref_case.items():
+    lay = cases[k][1:]
+    refs[n] = gs.bank_run_scan_reference(calls[n], *lay[:6], lay[8],
+                                         lay[6], lay[7])
+  results = {}
+
+  def launch(key, case):
+    c = cases[case][1:]
+    return bank_fn_launch(fns[key], *c[:6], c[6], c[7], c[8])
+
+  def info_of(key):
+    if key not in srcs:
+      return {}
+    info = _build.generated_info(srcs[key])
+    blocks = -(-cs.KIN_B // 32)
+    info["waves at B=16384"] = -(-blocks // max(info["blocks_per_sm"] * sms,
+                                                1))
+    info["ptxas"] = kernel_ptxas(_build.generated_ptxas(srcs[key]),
+                                 "rn_generic")
+    info["design line"] = next(ln for ln in srcs[key].splitlines()
+                               if "// design" in ln)
+    return info
+
+  big = [k for k in cases if k.startswith(f"kinematic {cs.KIN_B}x"
+                                          f"{cs.KIN_T}")]
+  for key in fns:
+    n, label = key
+    row = {"info": info_of(key), "ms": {}}
+    if "only" not in label:
+      out = launch(key, ref_case[n])()
+      row["sigma"] = cs.bank_errs(torch, calls[n].spec, out, refs[n])
+    which = big if n == "kinematic" and " " in label else [
+        k for k, c in cases.items() if c[0] == n]
+    for case in which:
+      short = cases[case][5].shape[0] <= cs.CMP_T
+      row["ms"][case] = cs.timed_run(launch(key, case),
+                                     4 * REPS if short else REPS)[0]
+    results[f"{n} {label}"] = row
+    cs.log(f"kernel 15 {n} {label}: " + ", ".join(
+        f"{c} {ms:.4f} ms" for c, ms in row["ms"].items())
+        + (f"; {row['sigma']} sigma from plain at T={cs.CMP_T}"
+           if "sigma" in row else " (aid: outputs garbage)")
+        + f"; {row['info']}")
+  for n in ("kinematic", "car"):
+    a = launch((n, "W=1"), ref_case[n])()
+    b = launch((n, "W=2"), ref_case[n])()
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    results[f"{n} W=1 bitwise W=2"] = same
+    cs.log(f"kernel 15 {n}: W=1 {'bitwise' if same else 'not bitwise'} "
+           f"W=2 at T={cs.CMP_T}; largest difference "
+           f"{max(float((u - v).abs().max()) for u, v in zip(a, b)):.3g}")
+  if parent is not None:
+    for case, c in cases.items():
+      if c[0] not in ("kinematic", "car"):
+        continue
+      times = {"parent": [], "this": []}
+      for which in ("parent", "this", "this", "parent"):
+        key = (c[0], "parent" if which == "parent" else "shipped")
+        short = c[5].shape[0] <= cs.CMP_T
+        times[which].append(cs.timed_run(launch(key, case),
+                                         4 * REPS if short else REPS)[0])
+      results[f"in turns {case}"] = times
+      cs.log(f"kernel 15 in turns [{case}]: parent {times['parent']} ms, "
+             f"this {times['this']} ms")
+  return results
+
+
 def main():
   import torch
 
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 1, "
-                       "2, 3, 8, 10, 11, 12 and 13 run beside these")
+                       "2, 3, 8, 10, 11, 12, 13 and 15 run beside these")
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
                        "frames, kernel 1, kernel 5, kernel 9, kernel 8, "
-                       "kernel 10, kernels 11 and 12, kernel 13")
+                       "kernel 10, kernels 11 and 12, kernel 13, kernel 15")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -1901,9 +2179,11 @@ def main():
     results["kernels 11-12"] = smooth_sweep(torch, dev, gen, args.parent)
   if "affine" in args.parts:
     results["kernel 13"] = affine_sweep(torch, dev, gen, args.parent)
+  if "bank" in args.parts:
+    results["kernel 15"] = bank_sweep(torch, dev, gen, args.parent)
   if args.parent is not None and set(args.parts) - {"triangulate",
                                                     "adjoint", "smooth",
-                                                    "affine"}:
+                                                    "affine", "bank"}:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))

@@ -57,7 +57,7 @@ from rednose_tpu_torch.models import user_specs as us
 from rednose_tpu_torch.models.car import CarKalman
 from rednose_tpu_torch.models.kinematic import KinematicKalman
 from rednose_tpu_torch.models.live import LiveKalman, ObservationKind as K
-from rednose_tpu_torch.ops import generic_scan
+from rednose_tpu_torch.ops import entry_slab, generic_scan
 from rednose_tpu_torch.parallel import dryrun, sharding
 from rednose_tpu_torch.runtime import bank, scan
 from rednose_tpu_torch.runtime.live_bank import gated_live_spec
@@ -74,6 +74,11 @@ BANK_TOL = 1e-9
 # largest entry (tests/test_torch_scan_stream_grad.py's ADJ_TOL)
 ADJ_TOL = 1e-7
 WARM = 32
+# kernel 15's ring on the host: a whole block of 32 lanes (16-B copies in
+# float64, B even) and a ragged one, over more than two ring stages' steps
+# (BANK_CHUNK steps a stage at most) and a ragged last chunk
+RING_B = 38
+RING_T = 2 * entry_slab.BANK_CHUNK + 3
 FAMILIES = ("kinematic", "car", "live_gated", "battery")
 R_FORMS = ("lane", "shared")
 GRADS = ("x0", "P0", "t0", "Q", "dts", "zs", "Rs", "eas", "params")
@@ -95,13 +100,16 @@ def _noise(rng, R0, T, B, form):
 
 
 @functools.lru_cache(maxsize=None)
-def family(name, form):
+def family(name, form, ring=False):
   """(spec, JAX spec or None, kind, Q, params, inputs): inputs x0 (B, dx),
   P0 (B, de, de), t0 (B,), dts (T,), zs (T, B, dz), Rs (by lane or
-  shared), eas (T, B, ea_len) or None; numpy float64."""
-  rng = np.random.RandomState(FAMILIES.index(name) + 10 * R_FORMS.index(form))
+  shared), eas (T, B, ea_len) or None; numpy float64. ring (kinematic and
+  car): RING_B lanes x RING_T steps instead, a whole block and a ragged
+  one through every stage of kernel 15's ring twice over."""
+  rng = np.random.RandomState(FAMILIES.index(name) + 10 * R_FORMS.index(form)
+                              + 100 * ring)
   if name == "kinematic":
-    T, B, m = 32, 6, KinematicKalman
+    (T, B), m = (RING_T, RING_B) if ring else (32, 6), KinematicKalman
     x0 = m.initial_x + 0.1 * rng.randn(B, 2)
     P0 = np.tile(np.diag(m.initial_P_diag), (B, 1, 1))
     inp = dict(x0=x0, P0=P0, dts=0.005 + 0.01 * rng.rand(T),
@@ -110,7 +118,7 @@ def family(name, form):
     out = (m.build_spec(), JKinematic and JKinematic.build_spec(), 1, m.Q,
            {})
   elif name == "car":
-    T, B, m = 24, 4, CarKalman
+    (T, B), m = (RING_T, RING_B) if ring else (24, 4), CarKalman
     kind = 1                                    # YAW_RATE, gated
     zs = 0.05 * rng.randn(T, B, 1)
     zs[::2, ::4] += 3.0
@@ -172,8 +180,8 @@ def _loss(outs, W):
   return sum((o * f64(w)).sum() for o, w in zip(outs, W))
 
 
-def run_plain(name, form):
-  spec, _, kind, Q, params, inp = family(name, form)
+def run_plain(name, form, ring=False):
+  spec, _, kind, Q, params, inp = family(name, form, ring)
   state = bank.BankState(x=f64(inp["x0"]), P=f64(inp["P0"]),
                          t=f64(inp["t0"]))
   final, ys = bank.run_bank_reference(
@@ -183,17 +191,17 @@ def run_plain(name, form):
   return [a.numpy() for a in (final.x, final.P, final.t, ys)]
 
 
-def _jax_args(name, form):
-  spec, jspec, kind, Q, params, inp = family(name, form)
+def _jax_args(name, form, ring=False):
+  spec, jspec, kind, Q, params, inp = family(name, form, ring)
   a = jnp.asarray
   return jspec, kind, params, [a(inp[k]) for k in ("x0", "P0", "t0")], \
       a(Q), a(inp["dts"]), a(inp["zs"]), a(inp["Rs"]), \
       None if inp["eas"] is None else a(inp["eas"])
 
 
-def run_jax(name, form):
+def run_jax(name, form, ring=False):
   jspec, kind, params, (x0, P0, t0), Q, dts, zs, Rs, eas = \
-      _jax_args(name, form)
+      _jax_args(name, form, ring)
   final, ys = jbank.jit_run_bank(jspec, kind)(
       {k: jnp.asarray(v) for k, v in params.items()},
       jbank.BankState(x=x0, P=P0, t=t0), Q, dts, zs, Rs, eas)
@@ -296,13 +304,17 @@ def _ptr(a):
   return None if a is None else ctypes.c_void_p(a.data_ptr())
 
 
-def host_bank(call, x, P, t, zs, dts, Rs, eas, prm, Q, tile=True):
+def host_bank(call, x, P, t, zs, dts, Rs, eas, prm, Q, tile=True, src=None):
   """ops/generic_scan.bank_run_scan's work on CPU float64 tensors through
-  kernel 15's host build (tile=False: its global form's): x, P, t
-  advanced in place; returns (x, P, t, ys)."""
+  kernel 15's host build (tile=False: its global form's; src: the build
+  of that source text instead): x, P, t advanced in place; returns (x, P,
+  t, ys)."""
   T, B = dts.shape[0], x.shape[-1]
   ys = x.new_zeros((T, call.spec.obs[call.kinds[0]].dz, B))
-  fn = host_lib(call, tile).rn_generic_bank_host
+  if src is not None and src not in _LIBS:
+    _LIBS[src] = _build(src)
+  lib = host_lib(call, tile) if src is None else _LIBS[src]
+  fn = lib.rn_generic_bank_host
   assert fn(_ptr(x), _ptr(P), _ptr(t), _ptr(zs), _ptr(eas), _ptr(dts),
             _ptr(Rs), ctypes.c_int(int(Rs.dim() == 4)), _ptr(prm), _ptr(Q),
             _ptr(ys), ctypes.c_int(T), ctypes.c_int(B)) == 0
@@ -350,6 +362,35 @@ def _rel(a, b):
       np.abs(a).max(initial=0.0))
 
 
+def host_run(name, form, tile=True, src=None, ring=False):
+  """A family's inputs through kernel 15's host build (host_bank), in the
+  plain loop's layout: numpy (x (B, dx), P (B, de, de), t (B,), ys (T, B,
+  dz))."""
+  spec, _, kind, Q, params, inp = family(name, form, ring)
+  lanes_last = lambda a: f64(a).permute(*range(1, a.ndim), 0).contiguous()  # noqa
+  Rs = (f64(inp["Rs"]) if form == "shared"
+        else f64(inp["Rs"]).permute(0, 2, 3, 1).contiguous())
+  x, P, t, ys = host_bank(
+      _calls(name)[0], lanes_last(inp["x0"]), lanes_last(inp["P0"]),
+      f64(inp["t0"]).clone(), f64(inp["zs"]).permute(0, 2, 1).contiguous(),
+      f64(inp["dts"]), Rs,
+      None if inp["eas"] is None
+      else f64(inp["eas"]).permute(0, 2, 1).contiguous(),
+      f64([params[k] for k in sorted(params)] or [0.0]), f64(Q), tile, src)
+  return [x.T.numpy(), P.permute(2, 0, 1).numpy(), t.numpy(),
+          ys.permute(0, 2, 1).numpy()]
+
+
+def _held(got, ref):
+  """got (x, P, t, ys) against ref within BANK_TOL of each output's
+  largest entry, t bitwise (one add a step in both)."""
+  errs = {k: _rel(a, b) for k, a, b in zip(("x", "P", "ys"),
+                                           got[:2] + got[3:],
+                                           ref[:2] + ref[3:])}
+  assert max(errs.values()) <= BANK_TOL, errs
+  np.testing.assert_array_equal(got[2], ref[2])
+
+
 @pytest.mark.parametrize("tile", (True, False), ids=("tile", "global"))
 @pytest.mark.parametrize("form", R_FORMS)
 @pytest.mark.parametrize("name", FAMILIES)
@@ -358,26 +399,96 @@ def test_kernel15_host_build_matches_plain(name, form, tile):
   form (a spec whose tile does not fit), against the plain loop on ys,
   x, P and t, within BANK_TOL of each output's largest entry; t bitwise
   (one add a step in both)."""
-  spec, _, kind, Q, params, inp = family(name, form)
   call = _calls(name)[0]
   design = "tile" if tile else "global"
   assert f"// design: {design}" in call.source(torch.float64, tile)
-  lanes_last = lambda a: f64(a).permute(*range(1, a.ndim), 0).contiguous()  # noqa
-  Rs = (f64(inp["Rs"]) if form == "shared"
-        else f64(inp["Rs"]).permute(0, 2, 3, 1).contiguous())
-  x, P, t, ys = host_bank(
-      call, lanes_last(inp["x0"]), lanes_last(inp["P0"]),
-      f64(inp["t0"]).clone(), f64(inp["zs"]).permute(0, 2, 1).contiguous(),
-      f64(inp["dts"]), Rs,
-      None if inp["eas"] is None
-      else f64(inp["eas"]).permute(0, 2, 1).contiguous(),
-      f64([params[k] for k in sorted(params)] or [0.0]), f64(Q), tile)
-  px, pP, pt, pys = run_plain(name, form)
-  errs = {"x": _rel(x.T.numpy(), px), "P": _rel(P.permute(2, 0, 1).numpy(),
-                                                pP),
-          "ys": _rel(ys.permute(0, 2, 1).numpy(), pys)}
-  assert max(errs.values()) <= BANK_TOL, errs
-  np.testing.assert_array_equal(t.numpy(), pt)
+  _held(host_run(name, form, tile), run_plain(name, form))
+
+
+def _bank_source(call, monkeypatch, **consts):
+  """Kernel 15's float64 source emitted with entry_slab's constants set."""
+  with monkeypatch.context() as m:
+    for k, v in consts.items():
+      m.setattr(entry_slab, k, v)
+    generic_scan._source.cache_clear()
+    src = call.source(torch.float64)
+  generic_scan._source.cache_clear()
+  return src
+
+
+def _design(src):
+  return next(ln for ln in src.splitlines() if ln.startswith("// design"))
+
+
+@pytest.mark.parametrize("ring", (False, True), ids=("family", "ring"))
+@pytest.mark.parametrize("form", R_FORMS)
+@pytest.mark.parametrize("name", ("kinematic", "car"))
+def test_kernel15_one_warp_bitwise_two_warps(name, form, ring, monkeypatch):
+  """(b) Kernel 15's tile at one warp (the lane's state in registers on
+  the card) and at TILE_ROLES warps (the tile in shared memory), each
+  built for the host in float64: the same x, P, t and ys bitwise, and
+  both against the JAX package's jit_run_bank within BANK_TOL, t bitwise.
+  ring: RING_B lanes (a whole block, 16-B copies, and a ragged one) over
+  RING_T steps (the ring's stages reused, a ragged last chunk)."""
+  call = _calls(name)[0]
+  srcs = {w: _bank_source(call, monkeypatch, BANK_ONE_WARP_VALS=v)
+          for w, v in ((1, 10 ** 9), (entry_slab.TILE_ROLES, 0))}
+  for w, src in srcs.items():
+    assert f"tile, {w} role{'s' if w > 1 else ''}," in _design(src)
+  one, two = (host_run(name, form, src=src, ring=ring)
+              for src in srcs.values())
+  for a, b in zip(one, two):
+    np.testing.assert_array_equal(a, b)
+  _held(one, run_jax(name, form, ring))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_kernel15_design_line_names_warps_and_ring(name):
+  """(b) Each kernel 15 variant's design line names its warps and its
+  ring (entry_slab.bank_design: BANK_STAGES stages of the steps that fit
+  BANK_SMEM_TARGET), in float and double; the kinematic spec takes one
+  warp, the live spec (a lane past BANK_ONE_WARP_VALS) TILE_ROLES."""
+  call = _calls(name)[0]
+  for dtype, scalar in ((torch.float32, "float"), (torch.float64, "double")):
+    src = call.source(dtype)
+    roles = int(src.split("constexpr int NROLES = ")[1].split(";")[0])
+    chunk = int(src.split("constexpr int BANK_CHUNK = ")[1].split(";")[0])
+    line = _design(src)
+    assert line.startswith(f"// design: tile, {roles} role"), line
+    assert (f"a ring of {entry_slab.BANK_STAGES} stages x {chunk} step"
+            in line), line
+    nz = call.spec.obs[call.kinds[0]].dz
+    ea = call.spec.obs[call.kinds[0]].ea_len
+    vals = int(src.split("constexpr int NSCR = ")[1].split(";")[0]) + \
+        call.spec.dim_err ** 2 + call.spec.dim_x
+    assert entry_slab.bank_design(vals, nz, ea, scalar)[:2] == (roles, chunk)
+    assert (roles == 1) == (vals <= entry_slab.BANK_ONE_WARP_VALS)
+    if name == "kinematic":
+      assert roles == 1 and "no barrier in a step" in line
+    if name == "live_gated":
+      assert roles == entry_slab.TILE_ROLES
+
+
+@pytest.mark.parametrize("limit", ("smaller ring", "global"))
+def test_kernel15_ring_past_the_limit(limit, monkeypatch):
+  """(b) A kernel 15 variant whose tile and ring pass the block's target
+  stages fewer steps (down to one a stage), and one that passes
+  TILE_SMEM_MAX even with one step a stage emits the global form; the
+  design line says which, emission never raises, and the host build of
+  either still equals the plain loop (the smaller ring reused over many
+  more chunks)."""
+  call = _calls("kinematic")[0]
+  if limit == "smaller ring":
+    target = entry_slab.bank_ring_bytes(1, 0, 4, "double")
+    src = _bank_source(call, monkeypatch, BANK_SMEM_TARGET=target)
+    assert "a ring of 2 stages x 4 steps" in _design(src), _design(src)
+  else:
+    src = _bank_source(call, monkeypatch, TILE_SMEM_MAX=16)
+    assert _design(src).startswith("// design: global: the tile"), \
+        _design(src)
+    assert "#define REDNOSE_GENERIC_SCAN_TILE" not in src
+  _held(host_run("kinematic", "lane", src=src, ring=True),
+        run_plain("kinematic", "lane", ring=True))
 
 
 # ---------------------------------------------- the card's route, on the CPU
