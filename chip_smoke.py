@@ -8,7 +8,7 @@ _build.py): csrc/*.cu, and, in parallel, one emitted source per generic
 kernel variant the run uses (ops/entry_slab.py around
 csrc/generic_scan.cuh, one nvcc each, the examples' variants among
 them; emitted by EMIT_WORKERS spawned processes, emit_in_workers). Then:
-  1. twelve main paths, each with every kernel's launch count set to 0
+  1. thirteen main paths, each with every kernel's launch count set to 0
      just before it and read just after it:
      - kinematic and live: KinematicKalman(device="cuda") on a
        100-observation stream (the engine on the native rewind ring; P
@@ -129,9 +129,18 @@ them; emitted by EMIT_WORKERS spawned processes, emit_in_workers). Then:
      - the gradient through run_bank on the example's bank (kinematic,
        B = 4096, T = 500, float32) of mean(ys^2) and a seeded weighting
        of the final x and P w.r.t. Q, Rs, x0 and zs: kernel 15 and the
-       lane forms of kernels 9 and 10 once each, no other.
+       lane forms of kernels 9 and 10 once each, no other;
+     - tuning through a smoothed log: the offline path's live log (64
+       lanes x T = 8192, float32) through scan_fn vmapped over the lanes,
+       rts_smooth_parallel_bank over the bank and rts_smooth on lane 0, a
+       seeded weighting of the smoothed x and P, and torch.autograd.grad
+       of it w.r.t. Q, Rs, x0, P0 and zs: kernel 9 once, 11 twice, 12,
+       13 and 14 once, then the backward: the smoother's adjoints 14',
+       13', 12' once and 11' twice, and kernel 10 once, no other; the
+       gradients finite and nonzero.
      Every kernel of a path must have launched in it, and no main path
-     may run the plain version of kernel 8, 9 or 15; the VIO path
+     may run the plain version of kernel 8, 9, 15, the smoothers or
+     their adjoints; the VIO path
      launches kernels 6 (its camera-frame branch) and 8 and no other,
      the offline path kernels 4, 6, 9 and 11-14 and no other, the
      streamed-R path none, the sharded path kernels 2, 4, 5, 6, 7, 11,
@@ -242,7 +251,17 @@ them; emitted by EMIT_WORKERS spawned processes, emit_in_workers). Then:
      run_bank_reference on the card (compare_bank_grad: float64 within
      BANK_GRAD64_TOL, float32 within BANK_GRAD32_RATIO x the plain
      float32's own error + BANK_GRAD32_SLACK; the two lane forms timed
-     with their bounds).
+     with their bounds). The smoother's adjoints (compare_smooth_grad,
+     kernels 11'-14') against their plain versions (torch.func.vjp of the
+     forward's) on 8 lanes x T = 600 of the thirteenth path's log and of
+     seeded kinematic and msckf_eskf stacks, float64 within
+     SMOOTH_GRAD64_TOL and float32 within SMOOTH_GRAD32_RATIO x the plain
+     float32's own error and within SMOOTH_GRAD32_TOL of the plain
+     float32 on the same inputs, each adjoint and the whole backward
+     (both smoothers, against autograd through the plain versions); each
+     timed wrapped and raw at the path's shapes with its plain version's
+     time, and held there against that plain run within
+     SMOOTH_GRAD32_TOL, with its launch shape, ptxas lines and bound.
   3. a trace (utils/profiling.trace) around run_mixed_bank and 20
      LiveKalman.predict_and_observe calls, read back: kernel 3's CUDA
      kernel and the rednose/live/predict and update scopes in it; and
@@ -503,6 +522,46 @@ GRAD_FAR, GRAD_FAR_M = 4, 100.0
 # of each other in log, and within ML_BAND of the ML optimum 0.2
 ML_T, ML_STEPS = 800, 200
 ML_RATIO, ML_BAND = 0.05, (0.6, 1.6)
+# the thirteenth path, tuning through a smoothed log (smoothed_grad_path):
+# the offline path's live log (RTS_B lanes x RTS_T steps, float32) through
+# scan_fn vmapped over the lanes (kernel 9), rts_smooth_parallel_bank over
+# the bank (kernels 11, 13 and 14; float32's default refine 0) and
+# rts_smooth on lane 0 (kernels 11 and 12), the loss a seeded weighting of
+# the smoothed x and P, and torch.autograd.grad of it w.r.t. Q, Rs, x0, P0
+# and zs: one backward of 14', 13', 12', 11' (the bank's and lane 0's) and
+# kernel 10. The adjoints against their plain versions
+# (compare_smooth_grad) on SMOOTH_GRAD_B lanes x SMOOTH_GRAD_T steps of
+# the path's log (its last steps), of kinematic and of msckf_eskf stacks
+# (random, seeded: x around the model's x0, P positive definite; its clone
+# slots make d2 < de): float64 within SMOOTH_GRAD64_TOL of each
+# gradient's largest entry; float32 within SMOOTH_GRAD32_RATIO x the
+# plain float32 version's own error against the plain float64 one, and
+# within SMOOTH_GRAD32_TOL of the plain float32 version on the same inputs
+# (covariances by G + G^T: the kernels read one triangle where the plain
+# versions read every entry); the whole backward (both smoothers) against
+# autograd through the plain versions the same way. At the path's shapes
+# (64 x 8192 float32; 12' and 11''s gains on lane 0) each adjoint against
+# its plain float32 version on the same inputs within SMOOTH_GRAD32_TOL.
+# The ratio alone is loose where float32 itself is (on the live log the
+# plain float32's dts and P gradients are 0.58 and 0.076 of their largest
+# entry off float64); the same-input bound is not:
+# its readings on an H100 (PERF.md, the smoother adjoints' findings) lie
+# an order or more below it, and a zeroed gradient or a P gradient 1% off
+# fails it
+SMOOTH_GRAD_B, SMOOTH_GRAD_T = 8, 600
+SMOOTH_GRAD64_TOL = 1e-9
+SMOOTH_GRAD32_RATIO = 4.0
+SMOOTH_GRAD32_TOL = 2e-3
+SMOOTH_ADJ_SRC = "rednose_tpu_torch/csrc/smooth_adjoint.cuh"
+# the forward line each adjoint transposes (jax.grad through _jit_rts,
+# rednose_tpu/smoothing/rts.py:404)
+SMOOTH_ADJ_REPLACES = {
+    "smooth_gains_adjoint": "rednose_tpu/smoothing/rts.py:49",
+    "smooth_backward_adjoint": "rednose_tpu/smoothing/rts.py:121",
+    "affine_suffix_scan_adjoint": "rednose_tpu/smoothing/rts.py:157",
+    "smooth_inject_adjoint": "rednose_tpu/smoothing/rts.py:358",
+}
+
 # the least time the card could take (peak rates from NVIDIA's H100 SXM
 # data sheet): operations over the peak rate of their type, compulsory
 # bytes over the memory rate
@@ -2899,9 +2958,31 @@ def smoother_sources(dev):
        ss.pnames_of(migrated.params))):
     out[f"{name} smoother (kernels 11, 12, 14)"] = ss.smooth_source(spec,
                                                                     pnames)
-    out[f"{name} suffix scan (kernel 13, d2 = {spec.dim_main_err})"] = \
-        ss.affine_source(spec.dim_main_err)
+    out[f"{name} suffix scan (kernels 13, 13', d2 = "
+        f"{spec.dim_main_err})"] = ss.affine_source(spec.dim_main_err)
+  # the thirteenth path's adjoints of the live spec
+  out["live smoother adjoint (kernels 11', 12', 14')"] = \
+      ss.smooth_adjoint_source(LiveKalman.build_spec(), ())
   return out
+
+
+def smoother_cmp_sources():
+  """name -> source of the smoother's kernels that only the comparisons
+  run (compare_smooth_grad): the kinematic spec's adjoints, msckf_eskf's
+  kernels and adjoints and kernels 13 and 13' of its main block."""
+  from rednose_tpu_torch.models.kinematic import KinematicKalman
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  kin, eskf = KinematicKalman.build_spec(), MSCKFEskf.build_spec()
+  return {
+      "kinematic smoother adjoint (kernels 11', 12', 14')":
+          ss.smooth_adjoint_source(kin, ()),
+      "msckf_eskf smoother (kernels 11, 12, 14)": ss.smooth_source(eskf, ()),
+      "msckf_eskf smoother adjoint (kernels 11', 12', 14')":
+          ss.smooth_adjoint_source(eskf, ()),
+      f"msckf_eskf suffix scan (kernels 13, 13', d2 = "
+      f"{eskf.dim_main_err})": ss.affine_source(eskf.dim_main_err)}
 
 
 def stream_calls():
@@ -4877,6 +4958,441 @@ def compare_smoother(torch, dev, gen, reps=5):
   return rows
 
 
+def smoothed_grad_path(torch, dev, gen):
+  """Phase 1, the thirteenth path: tuning through a smoothed log. The
+  offline path's live log (scan_log: RTS_B lanes x RTS_T steps, float32)
+  through runtime/scan.build_scan_stream's scan_fn vmapped over the lanes
+  (kernel 9), rts_smooth_parallel_bank over the bank (kernels 11, 13 and
+  14) and rts_smooth on lane 0 (kernels 11 and 12), the loss a seeded
+  weighting of both smoothed x and P, and torch.autograd.grad of it
+  w.r.t. Q, Rs, x0, P0 and zs: one backward of kernels 14', 13', 12', 11'
+  (twice) and 10 (the caller checks the counts). The gradients finite and
+  nonzero; host-clock times after a synchronise. Returns the log's stacks
+  (detached) and the smoother's timestamps for compare_smooth_grad."""
+  from torch.func import vmap
+
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.runtime.scan import build_scan_stream
+  from rednose_tpu_torch.smoothing import rts
+
+  spec = LiveKalman.build_spec()
+  scan_fn, _ = build_scan_stream(spec, SCAN_KINDS)
+  T, B = RTS_T, RTS_B
+  f32 = dict(dtype=torch.float32, device=dev)
+  x0, P0, Q, dts, ki, zs, Rs, eas = scan_log(torch, dev, gen, T, B,
+                                              torch.float32)
+  ins = [a.clone().requires_grad_() for a in (Q, Rs, x0, P0, zs)]
+  Qg, Rg, xg, Pg, zg = ins
+  t64 = (1 + np.arange(T)) * 0.01
+  t = torch.as_tensor(t64, **f32)
+  sdts = torch.as_tensor(np.diff(t64), **f32)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, stacks = vmap(
+      lambda x, P, z: scan_fn({}, x, P, Qg, dts, ki, z, Rg, eas),
+      in_dims=(0, 0, 1))(xg, Pg, zg)
+  xb, Pb = rts.rts_smooth_parallel_bank(spec, {}, *stacks, t.expand(B, T),
+                                        norm_quats=True,
+                                        dts=sdts.expand(B, T - 1))
+  x0s, P0s = rts.rts_smooth(spec, {}, *(a[0] for a in stacks), t,
+                            norm_quats=True, dts=sdts)
+  outs = (xb, Pb, x0s, P0s)
+  W = [torch.randn(o.shape, generator=gen, **f32) for o in outs]
+  loss = sum((o * w).sum() for o, w in zip(outs, W))
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  grads = torch.autograd.grad(loss, ins)
+  torch.cuda.synchronize()
+  t2 = time.perf_counter()
+  require(bool(torch.isfinite(loss)), f"the smoothed log's loss is finite: "
+          f"{loss}")
+  require(all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+              for g in grads), "the gradients through the smoothed log are "
+          "finite and nonzero")
+  log(f"gradient through the smoothed log (scan_fn vmapped, then "
+      f"rts_smooth_parallel_bank and rts_smooth on lane 0; B={B} x T={T} "
+      f"live steps, float32): loss {float(loss.detach()):.6g}; forward "
+      f"{(t1 - t0) * 1e3:.1f} ms, backward (kernels 14', 13', 12', 11' x2, "
+      f"10) {(t2 - t1) * 1e3:.1f} ms (host clock, first call, with the "
+      f"builds' load); largest gradient " + ", ".join(
+          f"{n} {float(g.abs().max()):.4g}" for n, g in zip(
+              ("Q", "Rs", "x0", "P0", "zs"), grads)))
+  return {"stacks": [a.detach() for a in stacks], "dts": sdts,
+          "backward_ms": (t2 - t1) * 1e3}
+
+
+def one_ms(fn):
+  """(CUDA-event ms of one call, its output): for a plain version, run
+  once."""
+  import torch
+
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  out = fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end), out
+
+
+def _sym_err(a, ref):
+  """rel_err, a square matrix (a covariance's gradient) by its symmetric
+  part A + A^T (the kernels read one triangle, the plain versions every
+  entry: the two agree on symmetric directions); a reference that is 0
+  (x_pred's gradient through the gains alone) absolutely."""
+  if a.dim() >= 2 and a.shape[-1] == a.shape[-2] and a.shape[-1] > 1:
+    a, ref = a + a.transpose(-1, -2), ref + ref.transpose(-1, -2)
+  if not bool(ref.abs().max() > 0):   # a gradient that is 0: absolutely
+    return float(a.double().abs().max())
+  return rel_err(a, ref)
+
+
+def random_stacks(torch, dev, model, B, T, seed):
+  """(spec, stacks (x_pred, P_pred, x_post, P_post), dts (B, T - 1)),
+  float64 on the card: x around the model's x0 (quaternions normalized),
+  P positive definite (tests/test_torch_smooth_kernels.py's msckf
+  family)."""
+  spec = model.build_spec()
+  rng = np.random.RandomState(seed)
+  x0 = np.asarray(model.initial_x, np.float64)
+  xs = []
+  for _ in range(2):
+    x = x0 + 0.1 * rng.randn(B, T, spec.dim_x)
+    for q in spec.quaternion_idxs:
+      x[..., q:q + 4] /= np.linalg.norm(x[..., q:q + 4], axis=-1,
+                                        keepdims=True)
+    xs.append(x)
+
+  def spd(scale):
+    A = rng.randn(B, T, spec.dim_err, spec.dim_err)
+    return scale * (A @ np.swapaxes(A, -1, -2) / spec.dim_err
+                    + 0.5 * np.eye(spec.dim_err))
+
+  Pq = spd(0.01)
+  Pp = Pq + spd(0.005)
+  t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa
+  return spec, [t(a).contiguous() for a in (xs[0], Pp, xs[1], Pq)], \
+      t(0.01 + 0.01 * rng.rand(B, T - 1)).contiguous()
+
+
+def adjoint_cases(torch, ss, spec, st, dts, gen):
+  """name -> (kernel call, plain call) of each adjoint on these stacks
+  and their forward (each type's own), the cotangents seeded (drawn in
+  float64, then cast, so both types take the same values)."""
+  C, b, V = ss.smooth_gains(spec, {}, *st, dts)
+  _, e, D = ss.affine_suffix_scan(C, b, V)
+  xs, Ps = ss.smooth_backward(spec, {}, *st, C, norm_quats=True)
+  g64 = torch.Generator(device=st[0].device)
+  g64.manual_seed(int(torch.randint(1 << 30, (1,), generator=gen,
+                                    device=st[0].device)))
+
+  def r(like):
+    return torch.randn(like.shape, generator=g64, device=like.device,
+                       dtype=torch.float64).to(like.dtype)
+
+  gC, gb, gV, gx, gP = r(C), r(b), r(V), r(st[0]), r(st[1])
+  out = {}
+  for name, args, kw in (
+      ("smooth_gains_adjoint (gains)", (spec, {}, *st, dts, C),
+       dict(gC=gC)),
+      ("smooth_gains_adjoint (elements)", (spec, {}, *st, dts, C),
+       dict(gC=gC, gb=gb, gV=gV, e=e, D=D)),
+      ("smooth_backward_adjoint", (spec, {}, *st, C, xs, Ps, gx, gP),
+       dict(norm_quats=True)),
+      ("affine_suffix_scan_adjoint", (C, gb, gV), {}),
+      ("smooth_inject_adjoint", (spec, {}, st[2], st[3], e, D, gx, gP),
+       dict(norm_quats=True))):
+    key = name.split()[0]
+    out[name] = (functools.partial(getattr(ss, key), *args, **kw),
+                 functools.partial(getattr(ss, key + "_reference"), *args,
+                                   **kw))
+  return out
+
+
+def route_grads(torch, rts, spec, st, dts, plain):
+  """The whole backward: rts_smooth_parallel_bank over the lanes and
+  rts_smooth on lane 0 (the card's route, or with plain their plain
+  versions lane by lane), a seeded weighting of all four outputs, the
+  gradients of the stacks and dts."""
+  ins = [a.clone().requires_grad_() for a in (*st, dts)]
+  B, T = st[0].shape[:2]
+  t = torch.zeros(T, dtype=st[0].dtype, device=st[0].device)
+  if plain:
+    lanes = [rts.rts_smooth_parallel_reference(
+        spec, {}, *(a[i] for a in ins[:4]), t, norm_quats=True,
+        dts=ins[4][i], refine=0) for i in range(B)]
+    outs = (torch.stack([o[0] for o in lanes]),
+            torch.stack([o[1] for o in lanes]))
+    outs += rts.rts_smooth_reference(spec, {}, *(a[0] for a in ins[:4]), t,
+                                     norm_quats=True, dts=ins[4][0])
+  else:
+    outs = rts.rts_smooth_parallel_bank(spec, {}, *ins[:4], t.expand(B, T),
+                                        norm_quats=True, dts=ins[4],
+                                        refine=0)
+    outs += rts.rts_smooth(spec, {}, *(a[0] for a in ins[:4]), t,
+                           norm_quats=True, dts=ins[4][0])
+  g = torch.Generator(device=st[0].device)
+  g.manual_seed(SEED + 24)
+  W = [torch.randn(o.shape, generator=g, device=o.device,
+                   dtype=torch.float64).to(o.dtype) for o in outs]
+  return torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, W)),
+                             ins)
+
+
+def compare_smooth_grad(torch, dev, gen, path, reps=3):
+  """Phase 2, the smoother's adjoints (kernels 11'-14', ops/smooth_scan.py)
+  against their plain versions (torch.func.vjp of the forward's plain
+  versions) on the card, SMOOTH_GRAD_B lanes x SMOOTH_GRAD_T steps of the
+  thirteenth path's live log (its last steps) and of seeded kinematic and
+  msckf_eskf stacks, float64 and float32 (the float64 copy of the float32
+  log): each adjoint on each type's own forward, and the whole backward
+  (the bank's parallel smoother and lane 0's sequential one) against
+  autograd through the plain versions; float64 within SMOOTH_GRAD64_TOL,
+  float32 within SMOOTH_GRAD32_RATIO x the plain float32's own error
+  against the plain float64 and within SMOOTH_GRAD32_TOL of the plain
+  float32 on the same inputs. Then each adjoint timed wrapped and raw with
+  CUDA events at the path's shapes (the 64 x 8192 float32 log: 11' on the
+  bank's elements and on lane 0's gains, 12' on lane 0, 13' and 14' on
+  the bank), its plain version once and held against it within
+  SMOOTH_GRAD32_TOL; its launch shape, ptxas lines and bound. Returns one
+  row an adjoint."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.kinematic import KinematicKalman
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.models.msckf_eskf import MSCKFEskf
+  from rednose_tpu_torch.ops import smooth_scan as ss
+  from rednose_tpu_torch.smoothing import rts
+  from rednose_tpu_torch.utils import profiling
+
+  f32, f64 = torch.float32, torch.float64
+  Bc, Tc = SMOOTH_GRAD_B, SMOOTH_GRAD_T
+  card = card_line()
+  live = LiveKalman.build_spec()
+  cases = {"live": (live, [a[:Bc, -Tc:].double().contiguous()
+                           for a in path["stacks"]],
+                    path["dts"][-Tc + 1:].double().expand(Bc, -1)
+                    .contiguous())}
+  for name, model, seed in (("kinematic", KinematicKalman, 3),
+                            ("msckf_eskf", MSCKFEskf, 4)):
+    cases[name] = random_stacks(torch, dev, model, Bc, Tc, seed)
+  checks, abs_err = [], {}
+  # covariances by their symmetric parts, for the kernels line
+  sym = lambda a: a + a.transpose(-1, -2) if (  # noqa: E731
+      a.dim() >= 2 and a.shape[-1] == a.shape[-2]) else a
+
+  def same_input(key, kern, plain):
+    """The float32 kernel's outputs against the plain float32 version's
+    on the same inputs: each output's error (_sym_err), the largest
+    |kernel - plain| kept for the kernels line."""
+    pairs = [(a, b) for a, b in zip(kern, plain)
+             if a is not None and a.numel()]
+    abs_err[key] = max(abs_err.get(key, 0.0), max(
+        float((sym(a) - sym(b)).abs().max()) for a, b in pairs))
+    return [_sym_err(a, b) for a, b in pairs]
+
+  for name, (spec, st64, d64) in cases.items():
+    st = {f64: st64, f32: [a.float() for a in st64]}
+    d = {f64: d64, f32: d64.float()}
+    seed = int(torch.randint(1 << 30, (1,), generator=gen, device=dev))
+    res = {}
+    for dt in (f64, f32):
+      g = torch.Generator(device=dev)
+      g.manual_seed(seed)
+      calls = adjoint_cases(torch, ss, spec, st[dt], d[dt], g)
+      res[dt] = {k: (kern(), plain()) for k, (kern, plain) in calls.items()}
+      res[dt]["whole backward"] = (
+          route_grads(torch, rts, spec, st[dt], d[dt], False),
+          route_grads(torch, rts, spec, st[dt], d[dt], True))
+    for k in res[f64]:
+      k64, p64 = res[f64][k]
+      k32, p32 = res[f32][k]
+      pairs = [(a, b, c, e) for a, b, c, e in zip(k64, p64, k32, p32)
+               if a is not None and a.numel()]
+      e64 = max(_sym_err(a, b) for a, b, _, _ in pairs)
+      ek = [_sym_err(c, b) for _, b, c, _ in pairs]
+      ep = [_sym_err(e, b) for _, b, _, e in pairs]
+      e32 = same_input(k.split()[0], [c for _, _, c, _ in pairs],
+                       [e for _, _, _, e in pairs])
+      ok = e64 <= SMOOTH_GRAD64_TOL and all(
+          x <= SMOOTH_GRAD32_RATIO * y for x, y in zip(ek, ep)) and max(
+              e32) <= SMOOTH_GRAD32_TOL
+      log(f"{k} [{name} B={Bc} T={Tc}]: float64 kernel {e64:.3g} (tolerance "
+          f"{SMOOTH_GRAD64_TOL}); float32 kernel "
+          f"{[round(x, 9) for x in ek]} against the float64 plain, plain "
+          f"float32 {[round(y, 9) for y in ep]} (limit "
+          f"{SMOOTH_GRAD32_RATIO} x); float32 kernel against the plain "
+          f"float32 {[float(f'{x:.4g}') for x in e32]} (tolerance "
+          f"{SMOOTH_GRAD32_TOL}) -> {'ok' if ok else 'FAIL'}")
+      checks.append((f"{k} {name}", ok))
+    del res
+  failed = [n for n, ok in checks if not ok]
+  require(not failed, f"kernels 11'-14' against their plain versions: "
+          f"{failed}")
+
+  # the path's shapes: the 64 x 8192 float32 log
+  spec, d2, de, dx = live, live.dim_main_err, live.dim_err, live.dim_x
+  st = path["stacks"]
+  B, T = st[0].shape[:2]
+  n, N = T - 1, B * (T - 1)
+  dts = path["dts"].expand(B, -1).contiguous()
+  src = ss.smooth_adjoint_source(spec, ())
+  lib = _build.generated_library(src)
+  alib = _build.generated_library(ss.affine_source(d2))
+  ops = profiling.emitted_ops(src)
+  ptxas = _build.generated_ptxas(src)
+  aptx = _build.generated_ptxas(ss.affine_source(d2))
+  stream = torch.cuda.current_stream().cuda_stream
+  prm = torch.zeros(1, dtype=f32, device=dev)
+  for dt in (f32, f64):
+    for kern, info in ss.smooth_adjoint_info(spec, (), dt).items():
+      log(f"  smoother adjoint {kern}, {str(dt).split('.')[-1]}: {info}")
+    for kern, info in ss.affine_info(d2, dt).items():
+      if "adjoint" in kern:
+        log(f"  suffix scan adjoint pass {kern}, "
+            f"{str(dt).split('.')[-1]}: {info}")
+  for kern in ("gains_adjoint_kernel", "backward_adjoint_kernel",
+               "inject_adjoint_kernel"):
+    log(f"  ptxas {kern}: {kernel_ptxas(ptxas, kern)}")
+  for kern in ("totals_rev_kernel", "apply_rev_kernel"):
+    log(f"  ptxas {kern}: {kernel_ptxas(aptx, kern)}")
+  C, b, V = ss.smooth_gains(spec, {}, *st, dts)
+  _, e, D = ss.affine_suffix_scan(C, b, V)
+  lane = [a[:1].contiguous() for a in st]
+  C1 = ss.smooth_gains(spec, {}, *lane, dts[:1].contiguous(),
+                       elements=False)
+  xs1, Ps1 = ss.smooth_backward(spec, {}, *lane, C1, norm_quats=True)
+  r = lambda like: torch.randn(like.shape, generator=gen,  # noqa: E731
+                               device=dev, dtype=f32)
+  gx, gP = r(st[0]), r(st[1])
+  gx1, gP1, gC1 = gx[:1].contiguous(), gP[:1].contiguous(), r(C1)
+  lam, Lam = ss.affine_suffix_scan_adjoint(C, e, D)
+  z = torch.zeros
+  sq = d2 * d2
+  rows = []
+
+  def held(name, shape, kern, plain):
+    """The timed float32 kernel against its timed plain version at the
+    path's shapes."""
+    errs = same_input(name, kern, plain)
+    ok = max(errs) <= SMOOTH_GRAD32_TOL
+    log(f"{name} [{shape}, float32]: kernel against the plain version "
+        f"{[float(f'{x:.4g}') for x in errs]} (tolerance "
+        f"{SMOOTH_GRAD32_TOL}) -> {'ok' if ok else 'FAIL'}")
+    checks.append((f"{name} at {shape}", ok))
+
+  def row(name, shape, ms, raw_ms, plain_ms, nbytes, flops):
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"{name} [{shape}]: kernel {ms:.4f} ms wrapped, {raw_ms:.4f} ms raw, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}), "
+        f"{card}")
+    rows.append(dict(
+        name=name, route="cuda", source=AFFINE_SRC
+        if name == "affine_suffix_scan_adjoint" else SMOOTH_ADJ_SRC,
+        replaces=SMOOTH_ADJ_REPLACES[name], max_abs_err=abs_err[name], ms=ms,
+        raw_ms=raw_ms, plain_ms=plain_ms, shape=shape, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+  # 14' on the bank
+  args = (spec, {}, st[2], st[3], e, D, gx, gP)
+  ms, out = timed_run(lambda: ss.smooth_inject_adjoint(
+      *args, norm_quats=True), reps)
+  plain_ms, pout = one_ms(lambda: ss.smooth_inject_adjoint_reference(
+      *args, norm_quats=True))
+  held("smooth_inject_adjoint", f"B={B} T={T}", out, pout)
+  o14 = [z((B, T, dx), device=dev), z((B, T, de, de), device=dev),
+         z((B, n, d2), device=dev), z((B, n, d2, d2), device=dev),
+         z((B, T, 1), device=dev)]
+  raw, _ = timed_run(lambda: _build.check(lib.rn_smooth_inject_adjoint_launch(
+      *(a.data_ptr() for a in (st[2], e, gx, gP, prm, *o14)), B, T, n, 1, 0,
+      stream), "smooth_inject_adjoint"), reps)
+  require(torch.equal(o14[0], out[0]) and torch.equal(o14[1], out[1]),
+          "14' raw launch bitwise the wrapped")
+  row("smooth_inject_adjoint", f"B={B} T={T}", ms, raw, plain_ms,
+      4 * (B * T * (3 * dx + 2 * de * de) + B * n * (2 * d2 + sq)),
+      2 * B * T * (ops["gen_sm_inject_vjp_n1"] + 2 * de * de))
+  del o14, out, pout
+  # 13' on the bank's (C, ge, gD)
+  ms, out = timed_run(lambda: ss.affine_suffix_scan_adjoint(C, e, D), reps)
+  plain_ms, pout = one_ms(lambda: ss.affine_suffix_scan_adjoint_reference(
+      C, e, D))
+  held("affine_suffix_scan_adjoint", f"B={B} T={T}", out, pout)
+  del out, pout
+  nc = -(-n // ss.AFFINE_CHUNK)
+  lo, Lo = torch.empty_like(lam), torch.empty_like(Lam)
+  scratch = [torch.empty((B, nc, 2 * sq + d2), device=dev) for _ in range(2)]
+  raw, _ = timed_run(lambda: _build.check(alib.rn_affine_scan_adjoint_launch(
+      C.data_ptr(), e.data_ptr(), D.data_ptr(), lo.data_ptr(), Lo.data_ptr(),
+      *(a.data_ptr() for a in scratch), B, n, ss.AFFINE_CHUNK, 0, stream),
+      "affine_suffix_scan_adjoint"), reps)
+  require(torch.equal(lo, lam) and torch.equal(Lo, Lam),
+          "13' raw launch bitwise the wrapped")
+  fma13 = 5 * d2**3 + 2 * d2**2 + 3 * d2**3 / ss.AFFINE_CHUNK
+  row("affine_suffix_scan_adjoint", f"B={B} T={T} (C, ge, gD)", ms, raw,
+      plain_ms, 4 * N * (2 * sq + d2 + sq + d2), 2 * fma13 * N)
+  del lo, Lo, scratch
+  # 11' on the bank's elements (the parallel form), and on lane 0's gains
+  args = (spec, {}, *st, dts, C)
+  kw = dict(gb=lam, gV=Lam, e=e, D=D)
+  ms, out = timed_run(lambda: ss.smooth_gains_adjoint(*args, **kw), reps)
+  plain_ms, pout = one_ms(lambda: ss.smooth_gains_adjoint_reference(
+      *args, **kw))
+  held("smooth_gains_adjoint", f"B={B} T={T} elements", out, pout)
+  o11 = [z((B, n, dx), device=dev), z((B, n, d2, d2), device=dev),
+         z((B, n, d2, d2), device=dev), z((B, n), device=dev),
+         z((B, n, 1), device=dev), z((B, n, dx), device=dev),
+         z((B, n, dx), device=dev), z((B, n, d2, d2), device=dev)]
+  raw, _ = timed_run(lambda: _build.check(lib.rn_smooth_gains_adjoint_launch(
+      *(None if a is None else a.data_ptr() for a in (
+          *st, dts, prm, C, None, lam, Lam, e, D, *o11)), B, T, 0, stream),
+      "smooth_gains_adjoint"), reps)
+  require(torch.equal(o11[3], out[4]), "11' raw launch bitwise the wrapped")
+  fma11 = 7 * d2**3 + d2**3 / 6 + 4 * sq
+  row("smooth_gains_adjoint", f"B={B} T={T} elements", ms, raw, plain_ms,
+      4 * (B * T * 4 * dx + B * T * 4 * sq + 2 * B * n
+           + N * (2 * d2 + 3 * sq)),
+      N * (2 * fma11 + ops["gen_sm_F_part"] + ops["gen_sm_F_vjp"]
+           + ops["gen_sm_inv_err"] + ops["gen_sm_inv_err_vjp"]))
+  del o11, out, pout
+  args1 = (spec, {}, *lane, dts[:1].contiguous(), C1)
+  ms1, out = timed_run(lambda: ss.smooth_gains_adjoint(*args1, gC=gC1), reps)
+  plain1, pout = one_ms(lambda: ss.smooth_gains_adjoint_reference(
+      *args1, gC=gC1))
+  held("smooth_gains_adjoint", f"B=1 T={T} gains", out, pout)
+  log(f"smooth_gains_adjoint (kernel 11', the gains) [B=1 T={T}]: "
+      f"{ms1:.4f} ms wrapped, plain {plain1:.4f} ms, {card}")
+  # 12' on lane 0
+  args = (spec, {}, *lane, C1, xs1, Ps1, gx1, gP1)
+  ms, out = timed_run(lambda: ss.smooth_backward_adjoint(
+      *args, norm_quats=True), 1)
+  plain_ms, pout = one_ms(lambda: ss.smooth_backward_adjoint_reference(
+      *args, norm_quats=True))
+  held("smooth_backward_adjoint", f"B=1 T={T}", out, pout)
+  o12 = [z((1, T, dx), device=dev), z((1, T, de, de), device=dev),
+         z((1, T, dx), device=dev), z((1, T, de, de), device=dev),
+         z((1, n, d2, d2), device=dev), z((1, n, 1), device=dev)]
+  raw, _ = timed_run(lambda: _build.check(
+      lib.rn_smooth_backward_adjoint_launch(
+          *(a.data_ptr() for a in (*lane, C1, prm, xs1, Ps1, gx1, gP1,
+                                   *o12)), 1, T, 1, 0, 0, stream),
+      "smooth_backward_adjoint"), 1)
+  require(torch.equal(o12[4], out[4]), "12' raw launch bitwise the wrapped")
+  fma12 = 4 * d2**3 + 3 * sq
+  row("smooth_backward_adjoint", f"B=1 T={T}", ms, raw, plain_ms,
+      4 * (T * (6 * dx + 3 * sq + 2 * de * de) + 2 * n * sq),
+      n * (2 * fma12 + ops["gen_sm_inv_err"] + ops["gen_sm_inject_vjp_n1"]
+           + ops["gen_sm_inv_err_vjp"]))
+  log(f"the smoother's adjoints at the thirteenth path's shapes: 14' + 13' "
+      f"+ 11' (bank) + 11' (lane 0) + 12' = "
+      f"{sum(r_['ms'] for r_ in rows) + ms1:.2f} ms wrapped against the "
+      f"path's whole backward {path['backward_ms']:.1f} ms (host clock), "
+      f"{card}")
+  failed = [n for n, ok in checks if not ok]
+  require(not failed, f"kernels 11'-14' against their plain versions at the "
+          f"path's shapes: {failed}")
+  return rows
+
+
 def ml_sim(T, q_true, seed):
   """tests/test_differentiable._sim: a 1-D constant-velocity truth with
   velocity noise q_true * 0.01 a step, measured with noise 0.1. Returns
@@ -6002,6 +6518,7 @@ def emit_in_workers(variants, on_source, meanwhile,
 def main():
   import torch
 
+  t_start = time.perf_counter()
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
           file=sys.stderr)
@@ -6046,10 +6563,16 @@ def main():
       texts[name] = text
       start(text)
 
+    cmp_smooth = {}
+
     def smoother():
-      # kernels 11-14 (a source may serve two names: kernel 13 of d2 = 2)
+      # kernels 11-14 and 11'-14' (a source may serve two names: kernel 13
+      # of d2 = 2); the comparisons' own after the main paths'
       srcs = smoother_sources(dev)
       for src in srcs.values():
+        start(src)
+      cmp_smooth.update(smoother_cmp_sources())
+      for src in cmp_smooth.values():
         start(src)
       return srcs
 
@@ -6067,7 +6590,8 @@ def main():
   for line in _build.ptxas_report().splitlines():
     if "registers" in line or "spill" in line or "Compiling" in line:
       log(f"  ptxas: {line.strip()}")
-  for name, src in (sources | cmp_sources | smooth_srcs).items():
+  for name, src in (sources | cmp_sources | smooth_srcs
+                    | cmp_smooth).items():
     log(f"  emitted, {name}: {len(src.splitlines())} lines")
     for line in _build.generated_ptxas(src).splitlines():
       if "registers" in line or "spill" in line or "nvcc" in line:
@@ -6109,8 +6633,11 @@ def main():
   # the sharded bank)
   bank_wrappers = (g.bank_run_scan, g.stream_bank_scan_lanes,
                    g.stream_bank_scan_adjoint_lanes)
+  # kernels 11'-14' (the smoother's adjoint) on the thirteenth path only
+  smooth_adjoints = (sm.smooth_gains_adjoint, sm.smooth_backward_adjoint,
+                     sm.affine_suffix_scan_adjoint, sm.smooth_inject_adjoint)
   wrappers = {w for _, _, ws in paths for w in ws} | {
-      g.stream_bank_scan_adjoint, *bank_wrappers}
+      g.stream_bank_scan_adjoint, *bank_wrappers, *smooth_adjoints}
   smoother_wrappers = (sm.smooth_gains, sm.smooth_backward,
                        sm.affine_suffix_scan, sm.smooth_inject)
   launches, states = {w.__name__: 0 for w in wrappers}, []
@@ -6121,7 +6648,9 @@ def main():
             scan.build_scan_stream_reference: len(F_LANE_ORDER),
             rts.rts_smooth_reference: 0,
             rts.rts_smooth_parallel_reference: 0,
-            bank.run_bank_reference: 0}
+            bank.run_bank_reference: 0,
+            **{getattr(sm, w.__name__ + "_reference"): 0
+               for w in smooth_adjoints}}
   for p in plains:
     p.launches = 0
   for name, drive, expected in paths:
@@ -6208,6 +6737,26 @@ def main():
     for w in wrappers:
       launches[w.__name__] += counts[w.__name__]
   hold_bank_path(torch, bank_out["run_bank"])
+  # the thirteenth: tuning through a smoothed log, kernels 9, 11-14, their
+  # adjoints 11'-14' and kernel 10, each launch counted
+  t0 = time.perf_counter()
+  for w in wrappers:
+    w.launches = 0
+  smoothed = smoothed_grad_path(torch, dev, gens[4])
+  counts = {w.__name__: w.launches for w in wrappers}
+  log(f"smoothed-log gradient path launches: {counts}; "
+      f"{time.perf_counter() - t0:.1f} s (host clock)")
+  expected = {g.stream_bank_scan: 1, g.stream_bank_scan_adjoint: 1,
+              sm.smooth_gains: 2, sm.smooth_backward: 1,
+              sm.affine_suffix_scan: 1, sm.smooth_inject: 1,
+              sm.smooth_gains_adjoint: 2, sm.smooth_backward_adjoint: 1,
+              sm.affine_suffix_scan_adjoint: 1, sm.smooth_inject_adjoint: 1}
+  require(all(counts[w.__name__] == expected.get(w, 0) for w in wrappers),
+          "the smoothed-log gradient path launched "
+          + ", ".join(f"{w.__name__} x{n}" for w, n in expected.items())
+          + f" and no other: {counts}")
+  for w in wrappers:
+    launches[w.__name__] += counts[w.__name__]
   require(_build.generated_launcher.cache_info().currsize
           == len(set(sources.values())),
           "the main paths loaded exactly the prebuilt generic variants")
@@ -6215,35 +6764,51 @@ def main():
           == len(set(smooth_srcs.values())),
           "the main paths loaded exactly the prebuilt smoother sources")
   plain_runs = {p.__name__: p.launches for p in plains}
-  log(f"plain versions of kernels 8, 9, 11-14 and 15 run on the main paths: "
-      f"{plain_runs}")
+  log(f"plain versions of kernels 8, 9, 11-14, 11'-14' and 15 run on the "
+      f"main paths: {plain_runs}")
   require(all(p.launches == n for p, n in plains.items()),
           f"no main path ran the plain version of kernel 8, 9, the "
-          f"smoothers or run_bank (the plain scan only in the F_lane "
-          f"timing): {plain_runs}")
+          f"smoothers, their adjoints or run_bank (the plain scan only in "
+          f"the F_lane timing): {plain_runs}")
   require(all(launches[w.__name__] > 0 for w in smoother_wrappers),
           f"the main paths launched kernels 11-14: {launches}")
 
+  log(f"phase 1 (the builds and the main paths) ended at "
+      f"{time.perf_counter() - t_start:.1f} s")
   live_states, generic_states = states[:2]
-  rows = compare_kernels(torch, dev, gens[0], live_states, live_spec)
-  rows += compare_generic(torch, dev, gens[1], generic_states, live_states)
-  rows += compare_full_q(torch, dev, gens[4], live_states)
-  kernel_variants(torch, dev, gens[1], live_spec, generic_states)
-  rows += compare_msckf(torch, dev, gens[2])
-  rows += compare_vio(torch, dev, gens[3])
-  rows += compare_triangulation(torch, states[3])
-  rows += compare_scan(torch, dev, gens[4])
-  rows += compare_scan_grad(torch, dev, gens[6])
-  rows += compare_bank(torch, dev, gens[7], bank_out["run_bank"]["car"])
-  rows += compare_bank_grad(torch, dev, bank_out["run_bank gradient"])
-  rows += compare_smoother(torch, dev, gens[4])
-  ml_tuning(torch, dev)
-  compare_user_specs(torch, dev, user_states)
-  example_rows = compare_examples(torch, dev)
-  profiler_phase(torch, dev)
+
+  def phase(fn, *args):
+    """fn(*args), its host-clock seconds logged (phase 2's budget)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase 2, {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out if out is not None else []
+
+  rows = phase(compare_kernels, torch, dev, gens[0], live_states, live_spec)
+  rows += phase(compare_generic, torch, dev, gens[1], generic_states,
+                live_states)
+  rows += phase(compare_full_q, torch, dev, gens[4], live_states)
+  phase(kernel_variants, torch, dev, gens[1], live_spec, generic_states)
+  rows += phase(compare_msckf, torch, dev, gens[2])
+  rows += phase(compare_vio, torch, dev, gens[3])
+  rows += phase(compare_triangulation, torch, states[3])
+  rows += phase(compare_scan, torch, dev, gens[4])
+  rows += phase(compare_scan_grad, torch, dev, gens[6])
+  rows += phase(compare_bank, torch, dev, gens[7],
+                bank_out["run_bank"]["car"])
+  rows += phase(compare_bank_grad, torch, dev, bank_out["run_bank gradient"])
+  rows += phase(compare_smoother, torch, dev, gens[4])
+  rows += phase(compare_smooth_grad, torch, dev, gens[4], smoothed)
+  del smoothed
+  phase(ml_tuning, torch, dev)
+  phase(compare_user_specs, torch, dev, user_states)
+  example_rows = phase(compare_examples, torch, dev)
+  phase(profiler_phase, torch, dev)
   flops_report_phase(card, rows + example_rows)
   # no one PyTorch call computes a fused T-step filter scan, a batch of
   # Gauss-Newton triangulations or a smoother's step: library_ms null
+  log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (of the "
+      f"1,200 s the run may take), {card}")
   print(json.dumps({"kernels": [
       {k: r[k] for k in ("name", "route", "source", "replaces")}
       | {"launches": launches[r["name"]], "max_abs_err": r["max_abs_err"],

@@ -21,7 +21,8 @@ run_bank variants and kernels 9 and 10's lane forms (mode "bank",
 chip_smoke.bank_calls, where the tree has them), each in float and
 double, and the smoother's sources (mode "smooth": kernels
 11, 12 and 14 of the live, kinematic and msckf_eskf specs, kernel 13 of
-their main blocks; one source serves both types). Runs on the CPU
+their main blocks; mode "smooth_adjoint": their adjoints; one source
+serves both types). Runs on the CPU
 (emission needs no card); imports nothing of JAX.
 With --compare it prints, by mode, how many variants the two files share
 unchanged, and names the ones that changed, are new in the second file
@@ -83,8 +84,8 @@ def variants():
 def smooth_variants():
   """name -> source of the smoother's kernels (mode "smooth", one source
   for float and double: kernels 11, 12 and 14 of the live, kinematic and
-  msckf_eskf specs, kernel 13 of their main blocks), where the tree has
-  them."""
+  msckf_eskf specs, kernel 13 of their main blocks; mode "smooth_adjoint":
+  their adjoints 11', 12' and 14'), where the tree has them."""
   try:
     from rednose_tpu_torch.ops import smooth_scan as ss
   except ImportError:
@@ -99,6 +100,9 @@ def smooth_variants():
     out[f"{spec.name} smoother"] = ss.smooth_source(spec, ())
     out[f"suffix scan d2 = {spec.dim_main_err}"] = ss.affine_source(
         spec.dim_main_err)
+    if hasattr(ss, "smooth_adjoint_source"):
+      out[f"{spec.name} smoother adjoint"] = ss.smooth_adjoint_source(
+          spec, ())
   return out
 
 
@@ -112,7 +116,8 @@ def hashes():
       out[key] = hashlib.sha256(call.source(dtype).encode()).hexdigest()
       print(f"{out[key][:16]}  {key}", flush=True)
   for name, src in smooth_variants().items():
-    key = f"{name} [smooth, float and double]"
+    mode = "smooth_adjoint" if name.endswith("adjoint") else "smooth"
+    key = f"{name} [{mode}, float and double]"
     out[key] = hashlib.sha256(src.encode()).hexdigest()
     print(f"{out[key][:16]}  {key}", flush=True)
   return out

@@ -10,8 +10,10 @@ kernel 10, the log scan's adjoint, by ops/adjoint.py around
 csrc/stream_adjoint.cuh too), each in a
 directory of its own (see below). `generated_library(source)`: the same
 for the smoother's sources (ops/smooth_scan.py): kernels 11, 12 and 14
-emitted per spec around csrc/smooth.cuh, and kernel 13
-(csrc/affine_scan.cu) through a one-line source per size.
+emitted per spec around csrc/smooth.cuh, their adjoints 11', 12' and 14'
+(emitted mode "smooth_adjoint" around csrc/smooth_adjoint.cuh), and
+kernels 13 and 13' (csrc/affine_scan.cu) through a one-line source per
+size.
 Both use the same flags:
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -95,7 +97,8 @@ SIGNATURES = {
 def _sources():
   # the generic kernels' templates are compiled with each emitted source,
   # kernel 13 with its one-line source per size
-  emitted = (TEMPLATE.name, ADJOINT.name, SMOOTH.name, AFFINE.name)
+  emitted = (TEMPLATE.name, ADJOINT.name, SMOOTH.name, SMOOTH_ADJOINT.name,
+             AFFINE.name)
   return sorted(s for s in CSRC.glob("*.cu") if s.name not in emitted) + \
       sorted(s for s in CSRC.glob("*.cuh") if s.name not in emitted)
 
@@ -176,6 +179,9 @@ ADJOINT = CSRC / "stream_adjoint.cuh"
 # per size includes (ops/smooth_scan.py)
 SMOOTH = CSRC / "smooth.cuh"
 AFFINE = CSRC / "affine_scan.cu"
+# kernels 11', 12' and 14' (the smoother's adjoint), which an emitted
+# mode "smooth_adjoint" source includes after smooth.cuh's helpers
+SMOOTH_ADJOINT = CSRC / "smooth_adjoint.cuh"
 # C entry of each emitted source -> argtypes (all return the launch's
 # cudaError_t): kernels 4-7 take xs, Ps, zs, eas, dts, kind_idx, pss, prm,
 # Q, R, T, B, stream; kernel 9 (mode "stream") xs, Ps, zs, eas, dts,
@@ -196,9 +202,9 @@ GEN_ENTRIES = {"rn_generic_scan_launch": (_P,) * 10 + (_I, _I, _P),
 
 def _headers(source: str) -> list:
   """The templates an emitted source is compiled with: generic_scan.cuh,
-  and stream_adjoint.cuh, smooth.cuh or affine_scan.cu where the source
-  includes it."""
-  return [TEMPLATE] + [h for h in (ADJOINT, SMOOTH, AFFINE)
+  and stream_adjoint.cuh, smooth.cuh, smooth_adjoint.cuh or affine_scan.cu
+  where the source includes it."""
+  return [TEMPLATE] + [h for h in (ADJOINT, SMOOTH, SMOOTH_ADJOINT, AFFINE)
                        if f'#include "{h.name}"' in source]
 
 
@@ -296,8 +302,15 @@ def generated_launcher(source: str):
 # norm, ref_seed, is_double, stream; kernel 14 xq, Pq, e, D, p, xs, Ps, B,
 # T, n, norm, is_double, stream (csrc/smooth.cuh); kernel 13 A, b, V, Ao,
 # bo, Vo, tot, excl, N, n, chunk, is_double, stream (csrc/affine_scan.cu),
-# and one of its passes (the pass first, then the same); the info entries
-# (kernel or pass, is_double, out (9 ints))
+# and one of its passes (the pass first, then the same); the adjoints
+# (csrc/smooth_adjoint.cuh): kernel 11' xp, Pp, xq, Pq, dts, p, C, gC, lam,
+# Lam, e, D, gxq0, gPq0, gPp1, gdts, gp, gxp1, gxq1, gPq1, B, T, is_double,
+# stream; kernel 12' xp, Pp, xq, Pq, C, p, xs, Ps, gxs, gPs, gxp, gPp, gxq,
+# gPq, gC, gp, B, T, norm, ref_seed, is_double, stream; kernel 14' xq, e,
+# gxs, gPs, p, gxq, gPq, ge, gD, gp, B, T, n, norm, is_double, stream;
+# kernel 13' (csrc/affine_scan.cu) A, gb, gV, lam, Lam, tot, excl, N, n,
+# chunk, is_double, stream; the info entries (kernel or pass, is_double,
+# out (9 ints))
 SMOOTH_ENTRIES = {
     "rn_smooth_gains_launch": (_P,) * 9 + (_I,) * 3 + (_P,),
     "rn_smooth_refine_launch": (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 4
@@ -305,6 +318,11 @@ SMOOTH_ENTRIES = {
     "rn_smooth_backward_launch": (_P,) * 8 + (_I,) * 5 + (_P,),
     "rn_smooth_inject_launch": (_P,) * 7 + (_I,) * 5 + (_P,),
     "rn_smooth_info": (_I, _I, _P),
+    "rn_smooth_gains_adjoint_launch": (_P,) * 20 + (_I,) * 3 + (_P,),
+    "rn_smooth_backward_adjoint_launch": (_P,) * 16 + (_I,) * 5 + (_P,),
+    "rn_smooth_inject_adjoint_launch": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "rn_smooth_adjoint_info": (_I, _I, _P),
+    "rn_affine_scan_adjoint_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
     "rn_affine_scan_launch": (_P,) * 8 + (_I,) * 4 + (_P,),
     "rn_affine_scan_pass": (_I,) + (_P,) * 8 + (_I,) * 4 + (_P,),
     "rn_affine_scan_info": (_I, _I, _P),
@@ -314,7 +332,8 @@ SMOOTH_ENTRIES = {
 @functools.lru_cache(maxsize=None)
 def generated_library(source: str) -> ctypes.CDLL:
   """Build if needed and load a smoother source (kernels 11, 12 and 14 of
-  a spec, or kernel 13 of a size), its SMOOTH_ENTRIES declared."""
+  a spec, their adjoints 11', 12' and 14', or kernels 13 and 13' of a
+  size), its SMOOTH_ENTRIES declared."""
   lib = ctypes.CDLL(str(build_generated_many([source])[0]))
   for name, argtypes in SMOOTH_ENTRIES.items():
     fn = getattr(lib, name, None)

@@ -59,6 +59,14 @@
 // Numerics: every output entry is one multiply-add chain in ascending l,
 // with b_k / V_k added after the chain, as in the first design, so the
 // tiles change no rounding: bitwise the first design in float and double.
+//
+// Kernel 13' (entry rn_affine_scan_adjoint_launch; ops/smooth_scan.py
+// affine_suffix_scan_adjoint) is the adjoint of this scan, the backward of
+// jax.grad through the same suffix scans: the same three passes, their
+// block functions instantiated with REV (the elements read in reversed
+// time, each A from the element a step back and transposed as its rows
+// are loaded), below. Kernel 13's own instantiations (REV false) are
+// unchanged: bitwise the parent.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -283,13 +291,22 @@ AF_HD inline void ld_row(const S* src, S* dst) {
 // (right: V), and V_k + M A_k^T by its transpose A_k M^T (right: M^T), so
 // entry (i, j) of the new V is the chain over l of A_k[j][l] M[i][l].
 
-// a tile's rows of A_k into ak
-template <typename S, typename T>
+// a tile's rows of A_k into ak (REV, kernel 13''s transposed form: the
+// stage holds A_k^T, so a row is a column of it)
+template <typename S, typename T, bool REV = false>
 AF_HD inline void load_ak(const S* st, int i0, S (&ak)[T::TR][D + 4]) {
   using L = Lay<S, T>;
-  AF_UNROLL
-  for (int a = 0; a < T::TR; ++a)
-    ld_row<S, D, L::ROWV>(st + L::SA + min_(i0 + a, D - 1) * D, ak[a]);
+  if constexpr (REV) {
+    AF_UNROLL
+    for (int a = 0; a < T::TR; ++a)
+      AF_UNROLL
+      for (int l = 0; l < D; ++l)
+        ak[a][l] = st[L::SA + l * D + min_(i0 + a, D - 1)];
+  } else {
+    AF_UNROLL
+    for (int a = 0; a < T::TR; ++a)
+      ld_row<S, D, L::ROWV>(st + L::SA + min_(i0 + a, D - 1) * D, ak[a]);
+  }
 }
 
 // acc[a][q] = sum_l ak[a][l] R[l][c0 + q], each a chain in ascending l (R
@@ -339,14 +356,14 @@ AF_HD inline void product2(const S (&ak)[T::TR][D + 4], const S* R1,
 
 // phase a of tile v: its rows of A_k A and A_k b + b_k, its entries of M
 // (into M^T)
-template <typename S, typename T>
+template <typename S, typename T, bool REV = false>
 AF_HD inline void phase_a(int v, const S* st, const S* Ap, const S* bp,
                           const S* Vp, S* An, S* bn, S* MT, bool do_A,
                           bool do_V, S (&ak)[T::TR][D + 4]) {
   using L = Lay<S, T>;
   constexpr int TR = T::TR, CW = T::CW;
   const int i0 = v % T::GROUPS * TR, c0 = v / T::GROUPS * CW;
-  load_ak<S, T>(st, i0, ak);
+  load_ak<S, T, REV>(st, i0, ak);
   S acc[TR][CW + 4], accm[TR][CW + 4];
   const bool fused = T::FUSE && do_A && do_V;
   if (fused) product2<S, T, L::SEG>(ak, Ap, Vp, c0, acc, accm);
@@ -380,13 +397,13 @@ AF_HD inline void phase_a(int v, const S* st, const S* Ap, const S* bp,
 
 // phase b of tile v: its entries of V_k + M A_k^T, in place in V: entry
 // (c0 + q, i0 + a), the chain of A_k's row i0 + a against M's row c0 + q
-template <typename S, typename T>
+template <typename S, typename T, bool REV = false>
 AF_HD inline void phase_b(int v, const S* st, const S* MT, S* Vn,
                           S (&ak)[T::TR][D + 4]) {
   using L = Lay<S, T>;
   constexpr int TR = T::TR, CW = T::CW;
   const int i0 = v % T::GROUPS * TR, c0 = v / T::GROUPS * CW;
-  if (!AKREG) load_ak<S, T>(st, i0, ak);
+  if (!AKREG) load_ak<S, T, REV>(st, i0, ak);
   S acc[TR][CW + 4];
   product<S, T, L::LDT, L::SEGT>(ak, MT, c0, acc);
   AF_UNROLL
@@ -401,7 +418,7 @@ AF_HD inline void phase_b(int v, const S* st, const S* MT, S* Vn,
 
 // one combine of stage st into the state (A and b from buffer cur into
 // cur ^ 1); ends with the threads apart (the next sync_ orders them)
-template <typename S, typename T>
+template <typename S, typename T, bool REV = false>
 AF_HD inline void combine(const S* st, S* sm, int cur, bool do_A, bool do_V,
                           int tid, int nt) {
   using L = Lay<S, T>;
@@ -413,10 +430,11 @@ AF_HD inline void combine(const S* st, S* sm, int cur, bool do_A, bool do_V,
   S* MT = sm + L::T0;
   S ak[T::TR][D + 4];
   for (int v = tid; v < T::VT; v += nt)
-    phase_a<S, T>(v, st, Ap, bp, Vs, An, bn, MT, do_A, do_V, ak);
+    phase_a<S, T, REV>(v, st, Ap, bp, Vs, An, bn, MT, do_A, do_V, ak);
   if (!do_V) return;
   sync_<T>();   // every read of V and every write of M^T done
-  for (int v = tid; v < T::VT; v += nt) phase_b<S, T>(v, st, MT, Vs, ak);
+  for (int v = tid; v < T::VT; v += nt)
+    phase_b<S, T, REV>(v, st, MT, Vs, ak);
 }
 
 // ---------------------------------------------------- copies and chains
@@ -487,16 +505,23 @@ __device__ __forceinline__ void copy_async(S* s, const S* g, int n, bool vec,
 
 // element x into stage st: cp.async on the card (completes at a later
 // wait), a plain copy on the host; W: bytes a copy of A and V, WBB of b
-template <typename S, typename T, int W, int WBB>
+// (REV: an element without A, kernel 13''s last, takes A = 0 by plain
+// stores)
+template <typename S, typename T, int W, int WBB, bool REV = false>
 AF_HD inline void fill(S* st, Map<S> x, bool vec, int tid, int nt) {
   using L = Lay<S, T>;
   if (AID & 1) return;
+  const bool zero_a = REV && x.A == nullptr;
+  if constexpr (REV) {
+    if (zero_a)
+      for (int q = tid; q < D * D; q += nt) st[L::SA + q] = 0;
+  }
 #ifdef __CUDA_ARCH__
-  copy_async<S, W>(st + L::SA, x.A, D * D, vec, tid, nt);
+  if (!zero_a) copy_async<S, W>(st + L::SA, x.A, D * D, vec, tid, nt);
   if (x.V) copy_async<S, W>(st + L::SV, x.V, D * D, vec, tid, nt);
   copy_async<S, WBB>(st + L::SB, x.b, D, vec, tid, nt);
 #else
-  copy<S, W>(x.A, st + L::SA, D * D, true, vec, tid, nt);
+  if (!zero_a) copy<S, W>(x.A, st + L::SA, D * D, true, vec, tid, nt);
   if (x.V) copy<S, W>(x.V, st + L::SV, D * D, true, vec, tid, nt);
   copy<S, WBB>(x.b, st + L::SB, D, true, vec, tid, nt);
 #endif
@@ -546,22 +571,36 @@ AF_HD inline void load_map(S* sm, Map<S> x, bool vec, int tid, int nt) {
   sync_<T>();
 }
 
-// The chain of a block: elements x(t) = step(x0, t, dxA, dxb), t < cnt,
+// element t of a chain: step(x0, t, dxA, dxb), and with REV (kernel 13''s
+// transposed form) its A the one a step back, x0.A + (t - 1) dxA, none
+// (A = 0) for t = 0 where zero_first
+template <typename S, bool REV>
+AF_HD inline Map<S> elem(Map<S> x0, int t, ptrdiff_t dxA, ptrdiff_t dxb,
+                         bool zero_first) {
+  Map<S> x = step<S>(x0, t, dxA, dxb);
+  if constexpr (REV)
+    x.A = t == 0 && zero_first ? nullptr : x0.A + (ptrdiff_t)(t - 1) * dxA;
+  return x;
+}
+
+// The chain of a block: elements x(t) = elem(x0, t, ...), t < cnt,
 // applied in order to the state (A, b in buffer cur); after element t its
 // map goes to step(o0, t, doA, dob) where o0.b is given. Elements are
 // staged NS - 1 ahead. W / WBB: bytes a copy of the elements' and the
 // outputs' matrices / b. Returns the buffer that holds the result.
-template <typename S, typename T, int W, int WBB>
+template <typename S, typename T, int W, int WBB, bool REV = false>
 AF_HD int chain(S* sm, int cur, Map<S> x0, ptrdiff_t dxA, ptrdiff_t dxb,
                 int cnt, Map<S> o0, ptrdiff_t doA, ptrdiff_t dob,
-                bool do_A, bool vec, int tid, int nt) {
+                bool do_A, bool vec, int tid, int nt,
+                bool zero_first = false) {
   using L = Lay<S, T>;
   const bool do_V = x0.V != nullptr;
   S* ring = sm + L::STATE;
   for (int s = 0; s < NS - 1; ++s) {
     if (s < cnt)
-      fill<S, T, W, WBB>(ring + s * L::STAGE, step<S>(x0, s, dxA, dxb), vec,
-                         tid, nt);
+      fill<S, T, W, WBB, REV>(ring + s * L::STAGE,
+                              elem<S, REV>(x0, s, dxA, dxb, zero_first), vec,
+                              tid, nt);
     commit_();
   }
   for (int t = 0; t < cnt; ++t) {
@@ -572,12 +611,13 @@ AF_HD int chain(S* sm, int cur, Map<S> x0, ptrdiff_t dxA, ptrdiff_t dxb,
                               tid, nt);
     const int nx = t + NS - 1;   // into the stage combine t - 1 read
     if (nx < cnt)
-      fill<S, T, W, WBB>(ring + (nx % NS) * L::STAGE,
-                         step<S>(x0, nx, dxA, dxb), vec, tid, nt);
+      fill<S, T, W, WBB, REV>(ring + (nx % NS) * L::STAGE,
+                              elem<S, REV>(x0, nx, dxA, dxb, zero_first),
+                              vec, tid, nt);
     commit_();
     if (!(AID & 2))
-      combine<S, T>(ring + (t % NS) * L::STAGE, sm, cur, do_A, do_V, tid,
-                    nt);
+      combine<S, T, REV>(ring + (t % NS) * L::STAGE, sm, cur, do_A, do_V,
+                         tid, nt);
     cur ^= 1;   // A (where composed) and b now in the other buffer
   }
   sync_<T>();
@@ -651,6 +691,61 @@ AF_HD void apply_block(const S* A, const S* b, const S* V, const S* excl,
                             Ao != nullptr, vec, tid, nt);
 }
 
+// ------------------------------------------- kernel 13': the adjoint
+//
+// The adjoint of the scan e_k = b_k + A_k e_{k+1}, D_k = V_k + A_k D_{k+1}
+// A_k^T (k < n, e_n = D_n = 0) from the cotangents gb (of e) and gV (of
+// D): lambda_k = gb_k + A_{k-1}^T lambda_{k-1}, Lambda_k = gV_k +
+// A_{k-1}^T Lambda_{k-1} A_{k-1} (k = 0 ... n-1), the cotangents of b and
+// V. It is the same suffix scan over reversed time, k' = n - 1 - k, of the
+// elements (A_{k-1}^T, gb_k, gV_k) (A_{-1} = 0): each chunk's elements are
+// read in place, their A from the element a step back and transposed as
+// it is loaded (load_ak's REV), so nothing is copied on the host. The
+// carry pass is pass 2 as it is (it composes the chunks' totals, which are
+// maps like any other); the outputs lambda and Lambda land at the rows of
+// their b and V. A (N, n, D, D), gb, lam (N, n, D), gV, Lam (N, n, D, D).
+
+// pass 1 of the adjoint: reversed chunk c of lane l composed into tot
+template <typename S, typename T>
+AF_HD void totals_rev_block(const S* A, const S* b, const S* V, S* tot,
+                            int n, int chunk, int nc, int c, int l, bool vec,
+                            S* sm, int tid, int nt) {
+  load_map<S, T>(sm, Map<S>{nullptr, nullptr, nullptr}, vec, tid, nt);
+  const int lo = c * chunk, hi = lo + chunk < n ? lo + chunk : n;
+  const int o0 = n - hi;           // the row of the chain's first element
+  const size_t e = (size_t)l * n + o0;
+  const Map<S> x0{const_cast<S*>(A) + e * D * D, const_cast<S*>(b) + e * D,
+                  V ? const_cast<S*>(V) + e * D * D : nullptr};
+  const int cur = chain<S, T, Lay<S, T>::WM, Lay<S, T>::WB, true>(
+      sm, 0, x0, (ptrdiff_t)(D * D), (ptrdiff_t)D, hi - lo,
+      Map<S>{nullptr, nullptr, nullptr}, 0, 0, true, vec, tid, nt, o0 == 0);
+  S* t = tot + ((size_t)l * nc + c) * TOT;
+  store_map<S, T, Lay<S, T>::WT, Lay<S, T>::WT>(
+      sm, cur, Map<S>{t, t + D * D, V ? t + D * D + D : nullptr}, vec, tid,
+      nt);
+}
+
+// pass 3 of the adjoint: reversed chunk c of lane l from its carry
+template <typename S, typename T>
+AF_HD void apply_rev_block(const S* A, const S* b, const S* V,
+                           const S* excl, S* bo, S* Vo, int n, int chunk,
+                           int nc, int c, int l, bool vec, S* sm, int tid,
+                           int nt) {
+  S* x = excl ? const_cast<S*>(excl) + ((size_t)l * nc + c) * TOT : nullptr;
+  load_map<S, T>(sm, x ? Map<S>{nullptr, x + D * D,
+                                V ? x + D * D + D : nullptr}
+                       : Map<S>{nullptr, nullptr, nullptr}, vec, tid, nt);
+  const int lo = c * chunk, hi = lo + chunk < n ? lo + chunk : n;
+  const int o0 = n - hi;
+  const size_t e = (size_t)l * n + o0;
+  const Map<S> x0{const_cast<S*>(A) + e * D * D, const_cast<S*>(b) + e * D,
+                  V ? const_cast<S*>(V) + e * D * D : nullptr};
+  const Map<S> out{nullptr, bo + e * D, V ? Vo + e * D * D : nullptr};
+  chain<S, T, Lay<S, T>::WM, Lay<S, T>::WB, true>(
+      sm, 0, x0, (ptrdiff_t)(D * D), (ptrdiff_t)D, hi - lo, out,
+      (ptrdiff_t)(D * D), (ptrdiff_t)D, false, vec, tid, nt, o0 == 0);
+}
+
 }  // namespace rn_affine
 
 #ifdef __CUDACC__
@@ -692,6 +787,32 @@ __global__ void __launch_bounds__(ChunkTile<S>::T::THREADS,
   apply_block<S, T>(A, b, V, excl, Ao, bo, Vo, n, chunk, nc, blockIdx.x,
                     blockIdx.y, vec != 0, reinterpret_cast<S*>(smem_),
                     threadIdx.x, T::THREADS);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(ChunkTile<S>::T::THREADS,
+                                  ChunkTile<S>::MINB)
+    totals_rev_kernel(const S* __restrict__ A, const S* __restrict__ b,
+                      const S* __restrict__ V, S* tot, int n, int chunk,
+                      int nc, int vec) {
+  using T = typename ChunkTile<S>::T;
+  extern __shared__ __align__(16) unsigned char smem_[];
+  totals_rev_block<S, T>(A, b, V, tot, n, chunk, nc, blockIdx.x, blockIdx.y,
+                         vec != 0, reinterpret_cast<S*>(smem_), threadIdx.x,
+                         T::THREADS);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(ChunkTile<S>::T::THREADS,
+                                  ChunkTile<S>::MINB)
+    apply_rev_kernel(const S* __restrict__ A, const S* __restrict__ b,
+                     const S* __restrict__ V, const S* excl, S* bo, S* Vo,
+                     int n, int chunk, int nc, int vec) {
+  using T = typename ChunkTile<S>::T;
+  extern __shared__ __align__(16) unsigned char smem_[];
+  apply_rev_block<S, T>(A, b, V, excl, bo, Vo, n, chunk, nc, blockIdx.x,
+                        blockIdx.y, vec != 0, reinterpret_cast<S*>(smem_),
+                        threadIdx.x, T::THREADS);
 }
 
 template <typename K>
@@ -747,6 +868,34 @@ int launch(int pass, const void* A, const void* b, const void* V, void* Ao,
   return (int)cudaGetLastError();
 }
 
+// kernel 13': pass 1 (totals_rev), 2 (the carry, as kernel 13's) and 3
+// (apply_rev); pass -1 all three in order (1 and 2 only where n > chunk)
+template <typename S>
+int launch_adjoint(int pass, const void* A, const void* gb, const void* gV,
+                   void* lam, void* Lam, void* tot, void* excl, int N, int n,
+                   int chunk, cudaStream_t st) {
+  constexpr int threads = ChunkTile<S>::T::THREADS;
+  const int nc = (n + chunk - 1) / chunk;
+  const int vec = aligned({A, gb, gV, lam, Lam, tot, excl});
+  cudaError_t err = allow_smem(totals_rev_kernel<S>, chunk_smem<S>());
+  if (err == cudaSuccess) err = allow_smem(carry_kernel<S>, carry_smem<S>());
+  if (err == cudaSuccess) err = allow_smem(apply_rev_kernel<S>,
+                                           chunk_smem<S>());
+  if (err != cudaSuccess) return (int)err;
+  if (nc > 1 && (pass == -1 || pass == 0))
+    totals_rev_kernel<S><<<dim3(nc, N), threads, chunk_smem<S>(), st>>>(
+        (const S*)A, (const S*)gb, (const S*)gV, (S*)tot, n, chunk, nc, vec);
+  if (nc > 1 && (pass == -1 || pass == 1))
+    carry_kernel<S><<<N, CarryTile::THREADS, carry_smem<S>(), st>>>(
+        (const S*)tot, (S*)excl, gV != nullptr, nc, vec);
+  if (pass == -1 || pass == 2)
+    apply_rev_kernel<S><<<dim3(nc, N), threads, chunk_smem<S>(), st>>>(
+        (const S*)A, (const S*)gb, (const S*)gV,
+        nc > 1 ? (const S*)excl : nullptr, (S*)lam, (S*)Lam, n, chunk, nc,
+        vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename K>
 int kernel_info(K kernel, size_t smem, int* out) {
   cudaFuncAttributes attr;
@@ -769,6 +918,10 @@ int info(int pass, int* out) {
   return pass == 0   ? kernel_info<T>(totals_kernel<S>, chunk_smem<S>(), out)
          : pass == 1 ? kernel_info<CarryTile>(carry_kernel<S>,
                                               carry_smem<S>(), out)
+         : pass == 3 ? kernel_info<T>(totals_rev_kernel<S>, chunk_smem<S>(),
+                                      out)
+         : pass == 4 ? kernel_info<T>(apply_rev_kernel<S>, chunk_smem<S>(),
+                                      out)
                      : kernel_info<T>(apply_kernel<S>, chunk_smem<S>(), out);
 }
 
@@ -804,10 +957,26 @@ extern "C" int rn_affine_scan_pass(int pass, const void* A, const void* b,
                                               excl, N, n, chunk, st);
 }
 
-// out (9 ints) of pass 0 (totals), 1 (carry) or 2 (apply): threads a
-// block, dynamic shared bytes, blocks an SM holds, registers, local bytes;
-// then the design: ring stages, a tile's rows, threads a row, a tile's
-// columns
+// Kernel 13': A (the forward's elements), gb and gV (null: the (A, b)
+// scan's adjoint), the outputs lam, Lam (with gV); tot and excl scratch as
+// rn_affine_scan_launch's. Three launches on the stream (one where n <=
+// chunk); returns cudaGetLastError().
+extern "C" int rn_affine_scan_adjoint_launch(const void* A, const void* gb,
+                                             const void* gV, void* lam,
+                                             void* Lam, void* tot, void* excl,
+                                             int N, int n, int chunk,
+                                             int is_double, void* stream) {
+  auto st = (cudaStream_t)stream;
+  return is_double ? rn_affine::launch_adjoint<double>(
+                         -1, A, gb, gV, lam, Lam, tot, excl, N, n, chunk, st)
+                   : rn_affine::launch_adjoint<float>(
+                         -1, A, gb, gV, lam, Lam, tot, excl, N, n, chunk, st);
+}
+
+// out (9 ints) of pass 0 (totals), 1 (carry), 2 (apply), 3 (kernel 13''s
+// totals) or 4 (its apply): threads a block, dynamic shared bytes, blocks
+// an SM holds, registers, local bytes; then the design: ring stages, a
+// tile's rows, threads a row, a tile's columns
 extern "C" int rn_affine_scan_info(int pass, int is_double, int* out) {
   return is_double ? rn_affine::info<double>(pass, out)
                    : rn_affine::info<float>(pass, out);
@@ -840,7 +1009,45 @@ int host(const S* A, const S* b, const S* V, S* Ao, S* bo, S* Vo, S* tot,
   return 0;
 }
 
+template <typename S>
+int host_adjoint(const S* A, const S* gb, const S* gV, S* lam, S* Lam,
+                 S* tot, S* excl, int N, int n, int chunk) {
+  using T = typename ChunkTile<S>::T;
+  const int nc = (n + chunk - 1) / chunk;
+  S* sm = (S*)malloc(sizeof(S) * max_(Lay<S, T>::TOTAL,
+                                      Lay<S, CarryTile>::TOTAL));
+  if (nc > 1) {
+    for (int l = 0; l < N; ++l)
+      for (int c = 0; c < nc; ++c)
+        totals_rev_block<S, T>(A, gb, gV, tot, n, chunk, nc, c, l, false, sm,
+                               0, 1);
+    for (int l = 0; l < N; ++l)
+      carry_block<S, CarryTile>(tot, excl, gV != nullptr, nc, l, false, sm,
+                                0, 1);
+  }
+  for (int l = 0; l < N; ++l)
+    for (int c = 0; c < nc; ++c)
+      apply_rev_block<S, T>(A, gb, gV, nc > 1 ? excl : nullptr, lam, Lam, n,
+                            chunk, nc, c, l, false, sm, 0, 1);
+  free(sm);
+  return 0;
+}
+
 }  // namespace rn_affine
+
+extern "C" int rn_affine_scan_adjoint_host(const void* A, const void* gb,
+                                           const void* gV, void* lam,
+                                           void* Lam, void* tot, void* excl,
+                                           int N, int n, int chunk,
+                                           int is_double) {
+  if (is_double)
+    return rn_affine::host_adjoint<double>(
+        (const double*)A, (const double*)gb, (const double*)gV, (double*)lam,
+        (double*)Lam, (double*)tot, (double*)excl, N, n, chunk);
+  return rn_affine::host_adjoint<float>(
+      (const float*)A, (const float*)gb, (const float*)gV, (float*)lam,
+      (float*)Lam, (float*)tot, (float*)excl, N, n, chunk);
+}
 
 extern "C" int rn_affine_scan_host(const void* A, const void* b,
                                    const void* V, void* Ao, void* bo,

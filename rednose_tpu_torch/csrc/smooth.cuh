@@ -585,6 +585,10 @@ GEN_HD GEN_INLINE void back_fill_plain(S* g, const S* xp, const S* Pp,
 
 }  // namespace rn_sm
 
+// RN_SM_HELPERS_ONLY (csrc/smooth_adjoint.cuh's sources): the helpers
+// above without kernels 11, 12 and 14 and their entries
+#ifndef RN_SM_HELPERS_ONLY
+
 #ifdef __CUDACC__
 
 namespace rn_sm {
@@ -1239,3 +1243,5 @@ extern "C" int rn_smooth_inject_host(const void* xq, const void* Pq,
 }
 
 #endif  // __CUDACC__
+
+#endif  // RN_SM_HELPERS_ONLY

@@ -891,3 +891,84 @@ def _adjoint_tile_source(body, plans, names, max_dz, nscr, nbytes, n_roles):
           "#define REDNOSE_ADJOINT_TILE",
           '#include "stream_adjoint.cuh"', ""]
   return out
+
+
+# ------------------------------------------------ mode "smooth_adjoint"
+# Kernels 11', 12' and 14', the smoother's adjoint (csrc/smooth_adjoint.cuh):
+# the VJPs of mode "smooth"'s functions, each by backward() over the very
+# DAG entry_slab prints the function from, so each VJP is the one of the
+# function the forward kernels compute.
+
+def _vjp_function(name, params, dag, outs_of, seeds, leaves):
+  """A template function of mode "smooth_adjoint": backward() of `dag`
+  from `seeds` [(root, seed)], storing the adjoint of each leaf of
+  `leaves` [(array, [leaf args])] (0 where none reaches it)."""
+  names = {a[0] for _, args in leaves for a in args}
+  adj = backward(dag, seeds, lambda a: a[0] in names)
+  outs = [(arr, [adj.get(a) for a in args]) for arr, args in leaves]
+  voids = " ".join(f"(void){p.split()[-1].lstrip('*')};"
+                   for p in params.split(", "))
+  return entry_slab._smooth_function(name, params, outs, "\n  " + voids)
+
+
+def smooth_vjp_functions(spec: FilterSpec, pnames) -> list:
+  """The lines of mode "smooth_adjoint"'s VJPs in namespace rn_gen:
+
+    gen_sm_F_vjp(x, dt, p, gF, ld, gx, gdt, gp)
+                                    gF (D2 x D2, row i at gF + i * ld) the
+                                    cotangent of F's main block
+                                    (gen_sm_F_part's): gx (DX), gdt[0] and
+                                    gp (NP), second derivatives of f;
+    gen_sm_inv_err_vjp(xa, xb, p, g, gxa, gxb, gp)
+                                    g (DE) the cotangent of inv_err(xa, xb):
+                                    gxa, gxb (DX), gp;
+    gen_sm_inject_vjp_n{0,1}(x, dx, p, g, gx, gdx, gp)
+                                    g (DX) the cotangent of inject(x, dx)
+                                    (gen_sm_inject_n{0,1}'s): gx (DX), gdx
+                                    (DE), gp; the renormalization's
+                                    adjoint in n1."""
+  de, dx, np_ = spec.dim_err, spec.dim_x, len(pnames)
+  xs = [("x", (i,)) for i in range(dx)]
+  ps = [("p", (j,)) for j in range(np_)]
+  funcs = []
+  d, F = entry_slab.smooth_F_dag(spec, pnames)
+  funcs += _vjp_function(
+      "gen_sm_F_vjp", "const scalar_t* x, const scalar_t dt, "
+      "const scalar_t* p, const scalar_t* gF, int ld, scalar_t* gx, "
+      "scalar_t* gdt, scalar_t* gp", d, F,
+      [(v, d.load("gF", (idx,))) for idx, v in F],
+      [("gx", xs), ("gdt", [("dt", ())]), ("gp", ps)])
+  d, out = entry_slab.smooth_inv_err_dag(spec, pnames)
+  funcs += [""] + _vjp_function(
+      "gen_sm_inv_err_vjp", "const scalar_t* xa, const scalar_t* xb, "
+      "const scalar_t* p, const scalar_t* g, scalar_t* gxa, scalar_t* gxb, "
+      "scalar_t* gp", d, out,
+      [(v, d.load("g", (i,))) for i, v in enumerate(out)],
+      [("gxa", [("xa", (i,)) for i in range(dx)]),
+       ("gxb", [("xb", (i,)) for i in range(dx)]), ("gp", ps)])
+  for norm in (0, 1):
+    d, out = entry_slab.smooth_inject_dag(spec, pnames, norm)
+    funcs += [""] + _vjp_function(
+        f"gen_sm_inject_vjp_n{norm}", "const scalar_t* x, "
+        "const scalar_t* dx, const scalar_t* p, const scalar_t* g, "
+        "scalar_t* gx, scalar_t* gdx, scalar_t* gp", d, out,
+        [(v, d.load("g", (i,))) for i, v in enumerate(out)],
+        [("gx", xs), ("gdx", [("dx", (i,)) for i in range(de)]),
+         ("gp", ps)])
+  return funcs
+
+
+def smooth_adjoint_source(spec: FilterSpec, pnames) -> str:
+  """C++ source of the smoother's adjoint kernels 11', 12' and 14' for one
+  spec (emitted mode "smooth_adjoint"): mode "smooth"'s constants and
+  functions (entry_slab.smooth_head, smooth_functions: the forward values
+  the adjoint recomputes), smooth_vjp_functions, then csrc/smooth.cuh's
+  helpers (RN_SM_HELPERS_ONLY: none of kernels 11, 12 and 14) and
+  csrc/smooth_adjoint.cuh, the kernels and their C entries. A source of
+  its own, so every mode "smooth" text stays as it was."""
+  return "\n".join(
+      entry_slab.smooth_head(spec, pnames, "smooth_adjoint")
+      + entry_slab.smooth_functions(spec, pnames) + [""]
+      + smooth_vjp_functions(spec, pnames)
+      + ["", "}  // namespace rn_gen", "", "#define RN_SM_HELPERS_ONLY",
+         '#include "smooth.cuh"', '#include "smooth_adjoint.cuh"', ""])

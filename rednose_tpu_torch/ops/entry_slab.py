@@ -1744,10 +1744,90 @@ def _smooth_inject(spec, params, x, dx, norm):
   return normalize_slices(x_s, spec.quaternion_idxs) if norm else x_s
 
 
-def smooth_source(spec: FilterSpec, pnames) -> str:
-  """C++ source of the smoother's kernels 11, 12 and 14 for one spec
-  (mode "smooth"): in namespace rn_gen the constants DX, DE, D1 (the main
-  state), D2 (its error block) and NP, and the template functions
+def _smooth_prm(dag, pnames):
+  return [_scalar(dag.load("p", (i,))) for i in range(len(pnames))]
+
+
+def smooth_F_dag(spec: FilterSpec, pnames):
+  """(dag, F): the taps of F's main block, F = d f_err / d dx at dx = 0
+  (d f / d x for an additive spec) from the structural interpreter, as
+  predict_phase takes G's; F a list of (index text "i * ld + k", entry)
+  over the D2 x D2 block. Leaves: x (DX), dt, p (NP)."""
+  d = ExprDAG()
+  de, dx, d2 = spec.dim_err, spec.dim_x, spec.dim_main_err
+
+  def params_of(pv):
+    return dict(zip(pnames, pv))
+
+  if spec.f_err is not None:
+    def fe(xx, dtt, *rest):
+      return spec.f_err(params_of(rest[:-1]), xx, rest[-1], dtt)
+  else:
+    def fe(xx, dtt, *rest):
+      return spec.f(params_of(rest[:-1]), xx + rest[-1], dtt)
+  x = structural.load_array(d, "x", (dx,))
+  _, taps = structural.run_entry_taps(
+      d, fe, [(dx,), ()] + [()] * len(pnames), [x, _scalar(d.load("dt"))]
+      + _smooth_prm(d, pnames), de, range(d2))
+  return d, [(f"{i} * ld + {k}", taps[k][i]) for i in range(d2)
+             for k in range(d2)]
+
+
+def smooth_inv_err_dag(spec: FilterSpec, pnames):
+  """(dag, out): inv_err(xa, xb) (DE entries). Leaves: xa, xb (DX), p."""
+  d = ExprDAG()
+  dx = spec.dim_x
+  xa = structural.load_array(d, "xa", (dx,))
+  xb = structural.load_array(d, "xb", (dx,))
+  out = structural.run_primal(
+      d, lambda a, b, *pv: spec.inv_err(dict(zip(pnames, pv)), a, b),
+      [(dx,), (dx,)] + [()] * len(pnames), [xa, xb] + _smooth_prm(d, pnames))
+  return d, out
+
+
+def smooth_inject_dag(spec: FilterSpec, pnames, norm):
+  """(dag, out): inject(x, dx) (DX entries, _smooth_inject), quaternions
+  renormalized where norm. Leaves: x (DX), dx (DE), p."""
+  d = ExprDAG()
+  de, dx = spec.dim_err, spec.dim_x
+  x = structural.load_array(d, "x", (dx,))
+  dxa = structural.load_array(d, "dx", (de,))
+  out = structural.run_primal(
+      d, lambda xx, dd, *pv: _smooth_inject(spec, dict(zip(pnames, pv)), xx,
+                                            dd, norm),
+      [(dx,), (de,)] + [()] * len(pnames), [x, dxa] + _smooth_prm(d, pnames))
+  return d, out
+
+
+def _smooth_refine_dag(spec: FilterSpec, pnames, norm):
+  """(v, J) of the refine taps: v = inv_err(xp, inject(xq, [e, 0]))[:D2],
+  J = dv/de as (index text, entry) pairs."""
+  import torch
+
+  d = ExprDAG()
+  de, dx, d2 = spec.dim_err, spec.dim_x, spec.dim_main_err
+  xp = structural.load_array(d, "xp", (dx,))
+  xq = structural.load_array(d, "xq", (dx,))
+  e = structural.load_array(d, "e", (d2,))
+
+  def v_of(xpp, xqq, ee, *rest):
+    params = dict(zip(pnames, rest[:-1]))
+    ev = ee + rest[-1]
+    dxx = ev if de == d2 else torch.cat([ev, ev.new_zeros(de - d2)])
+    return spec.inv_err(params, xpp,
+                        _smooth_inject(spec, params, xqq, dxx, norm))[:d2]
+
+  v, taps = structural.run_entry_taps(
+      d, v_of, [(dx,), (dx,), (d2,)] + [()] * len(pnames), [xp, xq, e]
+      + _smooth_prm(d, pnames), d2, range(d2))
+  return v, [(f"{i} * ld + {j}", taps[j][i]) for i in range(d2)
+             for j in range(d2)]
+
+
+def smooth_functions(spec: FilterSpec, pnames) -> list:
+  """The lines of mode "smooth"'s template functions in namespace rn_gen
+  (after smooth_head's constants DX, DE, D1 (the main state), D2 (its
+  error block) and NP):
 
     gen_sm_F_part(x, dt, p, F, ld, part)
                                     F = d f_err / d dx at dx = 0 (d f / d x
@@ -1768,108 +1848,68 @@ def smooth_source(spec: FilterSpec, pnames) -> str:
                                     J + i * ld), taps of the composition,
                                     split over SM_PARTS parts as F;
 
-  then csrc/smooth.cuh, the kernels and their C entries. pnames: the
-  params vector's names, in order. The text depends on the spec and
-  pnames only."""
-  import torch
-
-  d = ExprDAG()
-  de, dx, d2 = spec.dim_err, spec.dim_x, spec.dim_main_err
-  np_ = len(pnames)
-
-  def prm_of(dag):
-    return [_scalar(dag.load("p", (i,))) for i in range(np_)]
-
-  def params_of(pv):
-    return dict(zip(pnames, pv))
-
+  Each is printed from a DAG of its own (smooth_F_dag, smooth_inv_err_dag,
+  smooth_inject_dag; the refine taps'), each built afresh."""
   funcs = []
-  # F's main block
-  if spec.f_err is not None:
-    def fe(xx, dtt, *rest):
-      return spec.f_err(params_of(rest[:-1]), xx, rest[-1], dtt)
-  else:
-    def fe(xx, dtt, *rest):
-      return spec.f(params_of(rest[:-1]), xx + rest[-1], dtt)
-  x = structural.load_array(d, "x", (dx,))
-  _, taps = structural.run_entry_taps(
-      d, fe, [(dx,), ()] + [()] * np_, [x, _scalar(d.load("dt"))]
-      + prm_of(d), de, range(d2))
-  F = [(f"{i} * ld + {k}", taps[k][i]) for i in range(d2)
-       for k in range(d2)]
+  _, F = smooth_F_dag(spec, pnames)
   funcs += _smooth_parts(
       "gen_sm_F_part", "const scalar_t* x, const scalar_t dt, "
       "const scalar_t* p, scalar_t* F, int ld", [("F", F)],
       "\n  (void)x; (void)dt; (void)p; (void)ld;")
 
-  d = ExprDAG()
-  xa = structural.load_array(d, "xa", (dx,))
-  xb = structural.load_array(d, "xb", (dx,))
-  out = structural.run_primal(
-      d, lambda a, b, *pv: spec.inv_err(params_of(pv), a, b),
-      [(dx,), (dx,)] + [()] * np_, [xa, xb] + prm_of(d))
+  _, out = smooth_inv_err_dag(spec, pnames)
   funcs += [""] + _smooth_function(
       "gen_sm_inv_err", "const scalar_t* xa, const scalar_t* xb, "
       "const scalar_t* p, scalar_t* out", [("out", list(out))],
       "\n  (void)xa; (void)xb; (void)p;")
 
   for norm in (0, 1):
-    d = ExprDAG()
-    x = structural.load_array(d, "x", (dx,))
-    dxa = structural.load_array(d, "dx", (de,))
-    out = structural.run_primal(
-        d, lambda xx, dd, *pv: _smooth_inject(spec, params_of(pv), xx, dd,
-                                              norm),
-        [(dx,), (de,)] + [()] * np_, [x, dxa] + prm_of(d))
+    _, out = smooth_inject_dag(spec, pnames, norm)
     funcs += [""] + _smooth_function(
         f"gen_sm_inject_n{norm}", "const scalar_t* x, const scalar_t* dx, "
         "const scalar_t* p, scalar_t* out", [("out", list(out))],
         "\n  (void)x; (void)dx; (void)p;")
 
   for norm in (0, 1):
-    d = ExprDAG()
-    xp = structural.load_array(d, "xp", (dx,))
-    xq = structural.load_array(d, "xq", (dx,))
-    e = structural.load_array(d, "e", (d2,))
-
-    def v_of(xpp, xqq, ee, *rest, norm=norm):
-      params = params_of(rest[:-1])
-      ev = ee + rest[-1]
-      dxx = ev if de == d2 else torch.cat([ev, ev.new_zeros(de - d2)])
-      return spec.inv_err(params, xpp,
-                          _smooth_inject(spec, params, xqq, dxx, norm))[:d2]
-
-    v, taps = structural.run_entry_taps(
-        d, v_of, [(dx,), (dx,), (d2,)] + [()] * np_, [xp, xq, e]
-        + prm_of(d), d2, range(d2))
-    J = [(f"{i} * ld + {j}", taps[j][i]) for i in range(d2)
-         for j in range(d2)]
+    v, J = _smooth_refine_dag(spec, pnames, norm)
     funcs += [""] + _smooth_parts(
         f"gen_sm_refine_n{norm}_part", "const scalar_t* xp, "
         "const scalar_t* xq, const scalar_t* e, const scalar_t* p, "
         "scalar_t* v, scalar_t* J, int ld",
         [("v", list(enumerate(v))), ("J", J)],
         "\n  (void)xp; (void)xq; (void)e; (void)p; (void)ld;")
+  return funcs
 
-  head = [
+
+def smooth_head(spec: FilterSpec, pnames, mode="smooth") -> list:
+  """The emitted smoother source's first lines: its constants in
+  namespace rn_gen, the namespace left open."""
+  return [
       "// Generated by rednose_tpu_torch/ops/entry_slab.py: do not edit.",
-      f"// spec {spec.name!r}, mode smooth, params {list(pnames)}.",
+      f"// spec {spec.name!r}, mode {mode}, params {list(pnames)}.",
       '#include "generic_scan.cuh"',
       "",
       "namespace rn_gen {",
       "",
-      f"constexpr int DX = {dx};",
-      f"constexpr int DE = {de};",
+      f"constexpr int DX = {spec.dim_x};",
+      f"constexpr int DE = {spec.dim_err};",
       f"constexpr int D1 = {spec.dim_main};",
-      f"constexpr int D2 = {d2};",
-      f"constexpr int NP = {np_};",
+      f"constexpr int D2 = {spec.dim_main_err};",
+      f"constexpr int NP = {len(pnames)};",
       f"constexpr int SM_PARTS = {SMOOTH_PARTS};",
       "",
   ]
-  return "\n".join(head + funcs + [
-      "", "}  // namespace rn_gen", "", '#include "smooth.cuh"', ""])
 
 
+def smooth_source(spec: FilterSpec, pnames) -> str:
+  """C++ source of the smoother's kernels 11, 12 and 14 for one spec
+  (mode "smooth"): smooth_head's constants, smooth_functions' template
+  functions, then csrc/smooth.cuh, the kernels and their C entries.
+  pnames: the params vector's names, in order. The text depends on the
+  spec and pnames only."""
+  return "\n".join(smooth_head(spec, pnames) + smooth_functions(spec, pnames)
+                   + ["", "}  // namespace rn_gen", "",
+                      '#include "smooth.cuh"', ""])
 def q_pattern_of(Q) -> tuple:
   """The (i, j), i <= j, nonzero entries of a symmetric Q (host array)."""
   Q = np.asarray(Q, dtype=np.float64)

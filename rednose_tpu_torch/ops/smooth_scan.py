@@ -29,10 +29,32 @@ smoothing/rts.py strings together on the card:
     copied; replaces the parallel form's inject and covariance add
     (:358-364, :395-397).
 
+and their adjoints, the backward of jax.grad through _jit_rts, which
+smoothing/rts.py's autograd rules string together:
+
+  * kernel 11', `smooth_gains_adjoint` (csrc/smooth_adjoint.cuh): the
+    cotangents of kernel 11's inputs (x_{k|k}, P_{k|k}, P_{k+1|k} and in
+    the parallel form x_{k+1|k}, x_{k+1|k+1}, P_{k+1|k+1}; dt_k, the
+    params) from those of C (and of b, V: kernel 13''s lambda, Lambda,
+    with the scan's share of C's); it refactors P_{k+1|k} and solves once
+    more; F's cotangent goes through the emitted VJP of F (second
+    derivatives of f).
+  * kernel 12', `smooth_backward_adjoint` (csrc/smooth_adjoint.cuh): kernel
+    12's chain run forward in time, a block a lane, carrying x_s[k]'s and
+    P_s[k]'s total cotangents; gives C's to 11'.
+  * kernel 13', `affine_suffix_scan_adjoint` (csrc/affine_scan.cu):
+    lambda_k = gb_k + A_{k-1}^T lambda_{k-1}, Lambda_k = gV_k + A_{k-1}^T
+    Lambda_{k-1} A_{k-1}: kernel 13's passes on the transposed maps over
+    reversed time, read in place.
+  * kernel 14', `smooth_inject_adjoint` (csrc/smooth_adjoint.cuh): the
+    inject's VJP (emitted) and the covariance add's, a warp a row.
+
 The spec enters kernels 11, 12 and 14 only through its error-state
 functions, emitted per spec and params names by ops/entry_slab.py (mode
-"smooth"), one build for float32 and float64; kernel 13 is built once per
-main-block size. Both build at first use (rednose_tpu_torch/_build.py).
+"smooth"), one build for float32 and float64; their adjoints through
+those functions and their VJPs (ops/adjoint.py, mode "smooth_adjoint", a
+source of its own); kernels 13 and 13' are built once per main-block
+size. All build at first use (rednose_tpu_torch/_build.py).
 
 Layout, lane-major with time next, every matrix row-major (the stacks
 runtime/scan.py's op returns): x_pred, x_post (B, T, dim_x); P_pred,
@@ -40,8 +62,9 @@ P_post (B, T, de, de); dts (B, T - 1); elements (B, T - 1, d2, d2) and
 (B, T - 1, d2) for d2 = spec.dim_main_err.
 
 Each wrapper runs its plain version (`*_reference`, plain torch in the
-same layouts) for CPU tensors and launches its kernel for CUDA tensors
-(contiguous, float32 or float64), or raises; nothing falls back.
+same layouts; an adjoint's is the VJP of the forward's plain version)
+for CPU tensors and launches its kernel for CUDA tensors (contiguous,
+float32 or float64), or raises; nothing falls back.
 `.launches` counts the launches (kernel 13's three passes are one call of
 its entry). `*_info` read the launch shape: threads, shared memory,
 blocks an SM, registers and stack.
@@ -378,6 +401,349 @@ def smooth_inject_reference(spec: FilterSpec, params, x_post, P_post, e, D,
           torch.cat([Ps, P_post[:, n:]], dim=1))
 
 
+# ------------------------------------------- the adjoints: 11' to 14'
+# Each takes the forward's inputs and the outputs it saved, and the
+# cotangents of its outputs (None: 0), and returns the cotangents of its
+# inputs: covariances as full matrices of the entries the kernel reads
+# (the gains' Cholesky reads one triangle; smoothing/rts.py symmetrizes
+# the totals), the params' per lane (B, NP), summed over the steps in
+# float64.
+
+@functools.lru_cache(maxsize=None)
+def smooth_adjoint_source(spec: FilterSpec, pnames: tuple) -> str:
+  """The emitted source of kernels 11', 12' and 14' (mode
+  "smooth_adjoint") for a spec and its params' names."""
+  from rednose_tpu_torch.ops import adjoint
+
+  return adjoint.smooth_adjoint_source(spec, tuple(pnames))
+
+
+def _zeros_or(t, like):
+  return torch.zeros_like(like) if t is None else t
+
+
+def _shares(gp, np_):
+  """(B, n, NPP) per-step shares of the params' cotangent -> (B, NP),
+  summed in float64."""
+  return gp[..., :np_].double().sum(1)
+
+
+def _vjp(fn, primals, cotangents):
+  """The VJP of fn at primals for its outputs' cotangents (torch.func.vjp:
+  it also runs inside a custom op's backward, below the autograd key); an
+  input no output reads gets 0."""
+  _, vjp = torch.func.vjp(fn, *primals)
+  return vjp(tuple(cotangents))
+
+
+def _lanes_vjp(fn, primals, cotangents, np_):
+  """The VJP of fn (every primal and cotangent (B, ...), the params vector
+  shared, last in primals): the cotangents, the params' (B, NP) a lane in
+  float64 (lane by lane where the spec takes params, else one VJP of the
+  whole bank)."""
+  if np_ == 0:
+    return _vjp(fn, primals, cotangents)[:-1] + (
+        primals[0].new_zeros((primals[0].shape[0], 0), dtype=torch.float64),)
+  outs = []
+  for i in range(primals[0].shape[0]):
+    one = tuple(a[i:i + 1] for a in primals[:-1]) + (primals[-1],)
+    outs.append(_vjp(fn, one, tuple(c[i:i + 1] for c in cotangents)))
+  return tuple(torch.cat([o[j] for o in outs])
+               for j in range(len(primals) - 1)) + (
+      torch.stack([o[-1][:np_].double() for o in outs]),)
+
+
+def _params_fn(params, x):
+  """(pnames, the params vector (one 0 for none), the names' dict of a
+  vector) for a plain version's VJP."""
+  pnames = pnames_of(params)
+  prm = _prm(params, pnames, x.dtype, x.device).detach()
+  return pnames, prm, lambda pv: dict(zip(pnames, pv))
+
+
+def smooth_gains_adjoint(spec: FilterSpec, params, x_pred, P_pred, x_post,
+                         P_post, dts, C, *, gC=None, gb=None, gV=None,
+                         e=None, D=None):
+  """Kernel 11': the cotangents of kernel 11's inputs from those of its
+  outputs. Gains only (gb None): gC (B, T - 1, d2, d2) of C. The parallel
+  form: gb, gV the cotangents of b and V (kernel 13''s lambda and
+  Lambda), e and D (B, T - 1, ...) the forward scan's outputs, whose
+  share lambda_k e_{k+1}^T + Lambda_k C_k (D_{k+1} + D_{k+1}^T) it adds
+  to gC (gC None: 0). Returns (g x_pred, g P_pred, g x_post, g P_post
+  (B, T, ...), g dts (B, T - 1), g params (B, NP) float64)."""
+  if x_post.device.type == "cpu":
+    return smooth_gains_adjoint_reference(
+        spec, params, x_pred, P_pred, x_post, P_post, dts, C, gC=gC, gb=gb,
+        gV=gV, e=e, D=D)
+  dtype = _dtype(x_post)
+  B, T = x_post.shape[:2]
+  n, d2, de, dx = T - 1, spec.dim_main_err, spec.dim_err, spec.dim_x
+  par = gb is not None
+  chk = _build.check_tensor
+  for name, t, shape in (
+      ("x_pred", x_pred, (B, T, dx)), ("x_post", x_post, (B, T, dx)),
+      ("P_pred", P_pred, (B, T, de, de)), ("P_post", P_post, (B, T, de, de)),
+      ("dts", dts, (B, n)), ("C", C, (B, n, d2, d2)),
+      ("gC", gC, (B, n, d2, d2)), ("gb", gb, (B, n, d2)),
+      ("gV", gV, (B, n, d2, d2)), ("e", e, (B, n, d2)),
+      ("D", D, (B, n, d2, d2))):
+    if t is not None:
+      chk(name, t, shape, dtype)
+  if par and (gV is None or e is None or D is None):
+    raise ValueError("smooth_gains_adjoint: the parallel form takes gb, gV, "
+                     "e and D")
+  pnames = pnames_of(params)
+  np_, npp = len(pnames), max(len(pnames), 1)
+  prm = _prm(params, pnames, dtype, x_post.device)
+  lib = _build.generated_library(smooth_adjoint_source(spec, pnames))
+  new = x_post.new_zeros
+  gxq0, gPq0, gPp1 = new((B, n, dx)), new((B, n, d2, d2)), new((B, n, d2, d2))
+  gdts, gp = new((B, n)), new((B, n, npp))
+  gxp1, gxq1, gPq1 = ((new((B, n, dx)), new((B, n, dx)),
+                       new((B, n, d2, d2))) if par else (None,) * 3)
+  if B * n:
+    _build.check(lib.rn_smooth_gains_adjoint_launch(
+        *(_ptr(a) for a in (x_pred, P_pred, x_post, P_post, dts, prm, C, gC,
+                            gb, gV, e, D, gxq0, gPq0, gPp1, gdts, gp, gxp1,
+                            gxq1, gPq1)), B, T, dtype == torch.float64,
+        _stream(x_post)), "smooth_gains_adjoint")
+    smooth_gains_adjoint.launches += 1
+  g_xp, g_xq = new((B, T, dx)), new((B, T, dx))
+  g_Pp, g_Pq = new((B, T, de, de)), new((B, T, de, de))
+  g_xq[:, :-1] += gxq0
+  g_Pq[:, :-1, :d2, :d2] += gPq0
+  g_Pp[:, 1:, :d2, :d2] += gPp1
+  if par:
+    g_xp[:, 1:] += gxp1
+    g_xq[:, 1:] += gxq1
+    g_Pq[:, 1:, :d2, :d2] += gPq1
+  return g_xp, g_Pp, g_xq, g_Pq, gdts, _shares(gp, np_)
+
+
+smooth_gains_adjoint.launches = 0
+
+
+def _scan_share(C, gb, gV, e, D):
+  """The suffix scan's share of C's cotangent: the VJP of A -> (A e_{k+1},
+  A D_{k+1} A^T) at (gb, gV), e_n = D_n = 0."""
+  e1 = torch.cat([e[:, 1:], torch.zeros_like(e[:, :1])], dim=1)
+  D1 = torch.cat([D[:, 1:], torch.zeros_like(D[:, :1])], dim=1)
+  return _vjp(lambda A: ((A @ e1[..., None])[..., 0],
+                         A @ D1 @ A.transpose(-1, -2)), (C,), (gb, gV))[0]
+
+
+def smooth_gains_adjoint_reference(spec: FilterSpec, params, x_pred, P_pred,
+                                   x_post, P_post, dts, C, *, gC=None,
+                                   gb=None, gV=None, e=None, D=None):
+  """Plain torch version of kernel 11' (smooth_gains_adjoint's arguments
+  and results), on any device: the VJP (_vjp) of smooth_gains_reference
+  (lane by lane where the spec takes params), the scan's share the VJP
+  of its one-step combine. `.launches` counts its runs (as the other
+  adjoints' plain versions')."""
+  _, prm, named = _params_fn(params, x_post)
+  par = gb is not None
+  gC = _zeros_or(gC, C)
+  if par:
+    gC = gC + _scan_share(C, gb, gV, e, D)
+
+  def fn(xp, Pp, xq, Pq, dd, pv):
+    out = smooth_gains_reference(spec, named(pv), xp, Pp, xq, Pq, dd,
+                                 elements=par)
+    return out if par else (out,)
+
+  smooth_gains_adjoint_reference.launches += 1
+  return _lanes_vjp(fn, (x_pred, P_pred, x_post, P_post, dts, prm),
+                    (gC, gb, gV) if par else (gC,), len(params))
+
+
+smooth_gains_adjoint_reference.launches = 0
+
+
+def smooth_backward_adjoint(spec: FilterSpec, params, x_pred, P_pred, x_post,
+                            P_post, C, xs, Ps, gxs, gPs, *,
+                            norm_quats: bool = False,
+                            reference_seed: bool = False):
+  """Kernel 12': the cotangents of kernel 12's inputs from those of its
+  outputs x_smooth (gxs) and P_smooth (gPs), either None for 0; xs, Ps
+  the forward's outputs. A chain over k forward in time, a block a lane.
+  Returns (g x_pred, g P_pred, g x_post, g P_post (B, T, ...), g C (B,
+  T - 1, d2, d2), g params (B, NP) float64)."""
+  if x_post.device.type == "cpu":
+    return smooth_backward_adjoint_reference(
+        spec, params, x_pred, P_pred, x_post, P_post, C, xs, Ps, gxs, gPs,
+        norm_quats=norm_quats, reference_seed=reference_seed)
+  dtype = _dtype(x_post)
+  B, T = x_post.shape[:2]
+  d2, de, dx = spec.dim_main_err, spec.dim_err, spec.dim_x
+  if T < 1:
+    raise ValueError("smooth_backward_adjoint: a log of no step")
+  for name, t, shape in (("x_pred", x_pred, (B, T, dx)),
+                         ("x_post", x_post, (B, T, dx)),
+                         ("P_pred", P_pred, (B, T, de, de)),
+                         ("P_post", P_post, (B, T, de, de)),
+                         ("C", C, (B, T - 1, d2, d2)),
+                         ("xs", xs, (B, T, dx)), ("Ps", Ps, (B, T, de, de)),
+                         ("gxs", gxs, (B, T, dx)),
+                         ("gPs", gPs, (B, T, de, de))):
+    if t is not None:
+      _build.check_tensor(name, t, shape, dtype)
+  pnames = pnames_of(params)
+  prm = _prm(params, pnames, dtype, x_post.device)
+  lib = _build.generated_library(smooth_adjoint_source(spec, pnames))
+  new = x_post.new_zeros
+  g_xp, g_xq = new((B, T, dx)), new((B, T, dx))
+  g_Pp, g_Pq = new((B, T, de, de)), new((B, T, de, de))
+  g_C, gp = new((B, T - 1, d2, d2)), new((B, T - 1, max(len(pnames), 1)))
+  if B:
+    _build.check(lib.rn_smooth_backward_adjoint_launch(
+        *(_ptr(a) for a in (x_pred, P_pred, x_post, P_post, C, prm, xs, Ps,
+                            gxs, gPs, g_xp, g_Pp, g_xq, g_Pq, g_C, gp)),
+        B, T, bool(norm_quats), bool(reference_seed),
+        dtype == torch.float64, _stream(x_post)), "smooth_backward_adjoint")
+    smooth_backward_adjoint.launches += 1
+  return g_xp, g_Pp, g_xq, g_Pq, g_C, _shares(gp, len(pnames))
+
+
+smooth_backward_adjoint.launches = 0
+
+
+def smooth_backward_adjoint_reference(spec: FilterSpec, params, x_pred,
+                                      P_pred, x_post, P_post, C, xs, Ps, gxs,
+                                      gPs, *, norm_quats: bool = False,
+                                      reference_seed: bool = False):
+  """Plain torch version of kernel 12', on any device: the VJP (_vjp) of
+  kernel 12's backward loop (smoothing/rts.py's), vmapped over the lanes
+  (xs and Ps unused)."""
+  from rednose_tpu_torch.smoothing.rts import _backward_pass
+
+  _, prm, named = _params_fn(params, x_post)
+
+  def fn(xp, Pp, xq, Pq, CC, pv):
+    return vmap(lambda *a: _backward_pass(spec, named(pv), *a, norm_quats,
+                                          reference_seed))(xp, Pp, xq, Pq, CC)
+
+  smooth_backward_adjoint_reference.launches += 1
+  return _lanes_vjp(fn, (x_pred, P_pred, x_post, P_post, C, prm),
+                    (_zeros_or(gxs, x_post), _zeros_or(gPs, P_post)),
+                    len(params))
+
+
+smooth_backward_adjoint_reference.launches = 0
+
+
+def affine_suffix_scan_adjoint(A, gb, gV=None):
+  """Kernel 13': the cotangents (lambda, Lambda) of the elements' b and V
+  of affine_suffix_scan(A, b, V) from those of its outputs b_out (gb (N,
+  n, d)) and V_out (gV (N, n, d, d); None: the (A, b) scan, Lambda None):
+  lambda_k = gb_k + A_{k-1}^T lambda_{k-1}, Lambda_k = gV_k + A_{k-1}^T
+  Lambda_{k-1} A_{k-1}, kernel 13 on the transposed maps backward in time
+  (csrc/affine_scan.cu, entry rn_affine_scan_adjoint_launch; three passes,
+  one entry call, counted once). A's cotangent is kernel 11''s to form."""
+  if A.device.type == "cpu":
+    return affine_suffix_scan_adjoint_reference(A, gb, gV)
+  dtype = _dtype(A)
+  N, n, d = A.shape[:3]
+  _build.check_tensor("A", A, (N, n, d, d), dtype)
+  _build.check_tensor("gb", gb, (N, n, d), dtype)
+  if gV is not None:
+    _build.check_tensor("gV", gV, (N, n, d, d), dtype)
+  new = A.new_empty
+  lam = new((N, n, d))
+  Lam = None if gV is None else new((N, n, d, d))
+  nc = -(-n // AFFINE_CHUNK)
+  if N * n:
+    tot = new((N, nc, 2 * d * d + d)) if nc > 1 else None
+    excl = new((N, nc, 2 * d * d + d)) if nc > 1 else None
+    lib = _build.generated_library(affine_source(d))
+    _build.check(lib.rn_affine_scan_adjoint_launch(
+        A.data_ptr(), gb.data_ptr(), _ptr(gV), lam.data_ptr(), _ptr(Lam),
+        _ptr(tot), _ptr(excl), N, n, AFFINE_CHUNK, dtype == torch.float64,
+        _stream(A)), "affine_suffix_scan_adjoint")
+    affine_suffix_scan_adjoint.launches += 1
+  return lam, Lam
+
+
+affine_suffix_scan_adjoint.launches = 0
+
+
+def affine_suffix_scan_adjoint_reference(A, gb, gV=None):
+  """Plain torch version of kernel 13', on any device: the VJP (_vjp) of
+  affine_suffix_scan_reference with respect to b and V (linear in them:
+  taken at 0)."""
+  def fn(b, V=None):
+    _, bo, Vo = affine_suffix_scan_reference(A, b, V)
+    return (bo,) if V is None else (bo, Vo)
+
+  prim = (torch.zeros_like(gb),) + (() if gV is None
+                                     else (torch.zeros_like(gV),))
+  g = _vjp(fn, prim, (gb,) if gV is None else (gb, gV))
+  affine_suffix_scan_adjoint_reference.launches += 1
+  return g[0], (None if gV is None else g[1])
+
+
+affine_suffix_scan_adjoint_reference.launches = 0
+
+
+def smooth_inject_adjoint(spec: FilterSpec, params, x_post, P_post, e, D,
+                          gxs, gPs, *, norm_quats: bool = False):
+  """Kernel 14': the cotangents of kernel 14's inputs from those of its
+  outputs (gxs, gPs (B, T, ...); either None for 0), a warp a row.
+  Returns (g x_post, g P_post (B, T, ...), g e (B, n, d2), g D (B, n, d2,
+  d2), g params (B, NP) float64)."""
+  if x_post.device.type == "cpu":
+    return smooth_inject_adjoint_reference(spec, params, x_post, P_post, e,
+                                           D, gxs, gPs, norm_quats=norm_quats)
+  dtype = _dtype(x_post)
+  B, T = x_post.shape[:2]
+  n, d2, de, dx = e.shape[1], spec.dim_main_err, spec.dim_err, spec.dim_x
+  if n > T:
+    raise ValueError(f"smooth_inject_adjoint: {n} corrections for {T} rows")
+  for name, t, shape in (("x_post", x_post, (B, T, dx)),
+                         ("P_post", P_post, (B, T, de, de)),
+                         ("e", e, (B, n, d2)), ("D", D, (B, n, d2, d2)),
+                         ("gxs", gxs, (B, T, dx)),
+                         ("gPs", gPs, (B, T, de, de))):
+    if t is not None:
+      _build.check_tensor(name, t, shape, dtype)
+  pnames = pnames_of(params)
+  prm = _prm(params, pnames, dtype, x_post.device)
+  lib = _build.generated_library(smooth_adjoint_source(spec, pnames))
+  new = x_post.new_empty
+  g_xq, g_Pq = new((B, T, dx)), new((B, T, de, de))
+  ge, gD = new((B, n, d2)), new((B, n, d2, d2))
+  gp = new((B, T, max(len(pnames), 1)))
+  if B * T:
+    _build.check(lib.rn_smooth_inject_adjoint_launch(
+        *(_ptr(a) for a in (x_post, e, gxs, gPs, prm, g_xq, g_Pq, ge, gD,
+                            gp)), B, T, n, bool(norm_quats),
+        dtype == torch.float64, _stream(x_post)), "smooth_inject_adjoint")
+    smooth_inject_adjoint.launches += 1
+  return g_xq, g_Pq, ge, gD, _shares(gp, len(pnames))
+
+
+smooth_inject_adjoint.launches = 0
+
+
+def smooth_inject_adjoint_reference(spec: FilterSpec, params, x_post, P_post,
+                                    e, D, gxs, gPs, *,
+                                    norm_quats: bool = False):
+  """Plain torch version of kernel 14', on any device: the VJP (_vjp) of
+  smooth_inject_reference."""
+  _, prm, named = _params_fn(params, x_post)
+
+  def fn(xq, Pq, ee, DD, pv):
+    return smooth_inject_reference(spec, named(pv), xq, Pq, ee, DD,
+                                   norm_quats=norm_quats)
+
+  smooth_inject_adjoint_reference.launches += 1
+  return _lanes_vjp(fn, (x_post, P_post, e, D, prm),
+                    (_zeros_or(gxs, x_post), _zeros_or(gPs, P_post)),
+                    len(params))
+
+
+smooth_inject_adjoint_reference.launches = 0
+
+
 # ------------------------------------------------------------ launch shapes
 
 _INFO_KEYS = ("threads", "smem_bytes", "blocks_per_sm", "registers",
@@ -420,9 +786,35 @@ def smooth_info(spec: FilterSpec, pnames=(), dtype=torch.float32) -> dict:
 def affine_info(d: int, dtype=torch.float32, source=None) -> dict:
   """Kernel 13's three passes' launch shapes for d x d elements (or of the
   given build of it), each with its design: ring stages, a tile's rows,
-  threads a row, a tile's columns."""
+  threads a row, a tile's columns; and kernel 13''s own passes 1 and 3
+  ("totals_adjoint", "apply_adjoint"; its pass 2 is kernel 13's carry),
+  not of a given build (a parent's has none)."""
   lib = _build.generated_library(source or affine_source(d))
   dbl = dtype == torch.float64
+  passes = ("totals", "carry", "apply", "totals_adjoint", "apply_adjoint")
   return {name: _info(lib.rn_affine_scan_info, i, dbl,
                       keys=_INFO_KEYS + _AFFINE_KEYS)
-          for i, name in enumerate(("totals", "carry", "apply"))}
+          for i, name in enumerate(passes)
+          if source is None or i < 3}
+
+
+# the adjoints' design constants (csrc/smooth_adjoint.cuh,
+# rn_smooth_adjoint_info)
+_ADJOINT_KEYS = {
+    "gains_adjoint": ("items_per_block", "tile"),
+    "backward_adjoint": ("warps", "tile"),
+    "inject_adjoint": ("rows_per_block",),
+}
+
+
+def smooth_adjoint_info(spec: FilterSpec, pnames=(),
+                        dtype=torch.float32) -> dict:
+  """The launch shape of kernels 11', 12' and 14' for a spec, as the CUDA
+  runtime reads it, with each one's design: {kernel: {threads,
+  smem_bytes, blocks_per_sm, registers, local_bytes, ...}}; kernel 13''s
+  passes are affine_info's "totals_adjoint" and "apply_adjoint"."""
+  lib = _build.generated_library(smooth_adjoint_source(spec, tuple(pnames)))
+  dbl = dtype == torch.float64
+  return {name: _info(lib.rn_smooth_adjoint_info, i, dbl,
+                      keys=_INFO_KEYS + keys)
+          for i, (name, keys) in enumerate(_ADJOINT_KEYS.items())}

@@ -376,6 +376,29 @@ def _lane(a):
   return a[0].permute(1, 2, 0)
 
 
+def _on_card(t) -> bool:
+  """Whether the smoother's wrappers launch kernels for this tensor (they
+  run their plain versions on the host)."""
+  return t.device.type != "cpu"
+
+
+def _refuse_sharded_grad(spec, values):
+  """rts._refuse_grad's test, for the sharded smoother's adjoint."""
+  from rednose_tpu_torch.smoothing import rts
+
+  where = f"sharded RTS smoother of spec {spec.name!r} on the card"
+  missing = ("gradients need the sharded smoother's adjoint, which is not "
+             "ported; smooth CPU tensors (the plain versions, which autograd "
+             "runs through), call the unsharded rts_smooth_parallel "
+             "(refine=0), or detach the inputs")
+  try:
+    rts._refuse_transforms(where, values)
+  except NotImplementedError as err:
+    raise NotImplementedError(f"{where}: {missing}") from err
+  if rts._grad_wanted(values):
+    raise NotImplementedError(f"{where}: {missing}")
+
+
 def sharded_rts_smooth_parallel(mesh: DeviceMesh, spec: FilterSpec, params,
                                 x_pred, P_pred, x_post, P_post, t,
                                 norm_quats: bool = False, dts=None,
@@ -397,7 +420,16 @@ def sharded_rts_smooth_parallel(mesh: DeviceMesh, spec: FilterSpec, params,
   values), then the (A, b) elements are formed (kernel 11's refine
   variant) and scanned the same way. The rows are injected by kernel 14
   (smooth_inject). The result equals the unsharded rts_smooth_parallel up
-  to the rounding of the other association."""
+  to the rounding of the other association.
+
+  Gradients: on the card it raises for an input that requires grad, and
+  under torch.func's transforms other than vmap, naming the sharded
+  smoother's adjoint, which is not ported (kernels 11-14 write into new
+  tensors, so the result would come back silently detached); on the host
+  the plain versions keep their autograd."""
+  if _on_card(x_post):
+    _refuse_sharded_grad(spec, (x_pred, P_pred, x_post, P_post, t, dts,
+                                *params.values()))
   x_pred, P_pred, x_post, P_post, t = (
       _replicated(mesh, a) for a in (x_pred, P_pred, x_post, P_post, t))
   resolve_device(x_post.device)

@@ -35,9 +35,25 @@ same launches for the whole bank. Each goes through a custom op
 (rednose::rts_smooth, rednose::rts_smooth_parallel) whose vmap rule
 merges the vmapped axis into the op's lanes, so torch.func.vmap of either
 is one launch of each kernel too. The number of launches never depends on
-T. Gradients through the card route are not ported (the smoother's
-adjoint): an input that requires grad, and torch.func's grad, jacrev and
-jvp, raise there, naming it. On CPU tensors each runs its plain version,
+T.
+
+Gradients on the card: each op's autograd rule is a backward op of its
+own (rednose::rts_smooth_backward, rednose::rts_smooth_parallel_backward)
+that runs the smoother's adjoint kernels (ops/smooth_scan.py), each once
+a backward whatever the bank's size: kernel 12' then 11' for rts_smooth;
+14', 13' then 11' for rts_smooth_parallel and rts_smooth_parallel_bank.
+They give the cotangents of x_pred, P_pred, x_post, P_post, dts (of t
+where dts is None, through its difference) and the params; chained after
+runtime/scan's scan_fn, one backward runs them and then kernel 10. The
+ops keep C (and the parallel form's e and D) as outputs of their own, so
+the backward launches no forward kernel again. P's gradients are
+symmetric ((G + G^T) / 2 of the entries the kernels read: the gains'
+Cholesky reads one triangle), which on symmetric directions equals
+jax.grad's. Not ported, and raising by name on the card: the refine
+passes' adjoint (refine > 0 with an input that requires grad), higher
+order (create_graph=True), forward mode (torch.func.jvp, dual tensors)
+and torch.func's grad and jacrev (call torch.autograd.grad). On CPU
+tensors each runs its plain version,
 `rts_smooth_reference` / `rts_smooth_parallel_reference` (the bodies
 below; their `.launches` count their runs), which autograd runs through.
 The matrices of the plain parallel form are lane-major (d, d, T), as in
@@ -115,14 +131,14 @@ def rts_smooth(spec: FilterSpec, params, x_pred, P_pred, x_post, P_post, t,
 
 def _card_rts_smooth(spec, params, x_pred, P_pred, x_post, P_post, t,
                      norm_quats, dts, reference_seed):
-  """rts_smooth through rednose::rts_smooth (kernels 11 and 12), on the
-  device of x_post."""
+  """rts_smooth through rednose::rts_smooth (kernels 11 and 12; in the
+  backward 12' and 11'), on the device of x_post."""
   _refuse_grad(spec, (x_pred, P_pred, x_post, P_post, t, dts,
                       *params.values()))
   if x_post.shape[0] < 1:
     raise ValueError("rts_smooth: a log of no step")
   h, prm = _handle_of(spec, params, x_post)
-  xs, Ps = torch.ops.rednose.rts_smooth(
+  xs, Ps, _ = torch.ops.rednose.rts_smooth(
       x_pred[None], P_pred[None], x_post[None], P_post[None],
       _dts(t, dts)[None].to(x_post.dtype), prm, h, bool(norm_quats),
       bool(reference_seed))
@@ -249,16 +265,17 @@ def rts_smooth_parallel(spec: FilterSpec, params, x_pred, P_pred, x_post,
 def _card_rts_smooth_parallel(spec, params, x_pred, P_pred, x_post, P_post,
                               dts, norm_quats, refine):
   """The parallel smoother of a bank (B, T, ...; dts (B, T-1)) through
-  rednose::rts_smooth_parallel (kernels 11, 13 and 14), on the device of
-  x_post."""
+  rednose::rts_smooth_parallel (kernels 11, 13 and 14; in the backward
+  14', 13' and 11'), on the device of x_post."""
+  n_refine = _n_refine(spec, x_post, refine)
   _refuse_grad(spec, (x_pred, P_pred, x_post, P_post, dts,
-                      *params.values()))
+                      *params.values()), n_refine)
   if x_post.shape[1] < 2:
     return x_post.clone(), P_post.clone()
   h, prm = _handle_of(spec, params, x_post)
   return torch.ops.rednose.rts_smooth_parallel(
       x_pred, P_pred, x_post, P_post, dts.to(x_post.dtype), prm, h,
-      bool(norm_quats), _n_refine(spec, x_post, refine))
+      bool(norm_quats), n_refine)[:2]
 
 
 def _n_refine(spec, x_post, refine):
@@ -390,25 +407,50 @@ def _handle_of(spec, params, x):
           smooth_scan._prm(params, pnames, x.dtype, x.device))
 
 
-def _refuse_grad(spec, values):
-  """The smoother's adjoint (gradients through kernels 11-14) is not
-  ported: raise, naming it, for an input that requires grad, a dual
-  tensor of forward-mode AD and under torch.func's transforms other than
-  vmap; never return a silently detached result."""
+def _grad_wanted(values) -> bool:
+  """Whether autograd records through a call on these values."""
+  return torch.is_grad_enabled() and any(
+      torch.is_tensor(v) and v.requires_grad for v in values)
+
+
+def _refuse_transforms(where, values):
+  """Raise, naming what is missing, under forward mode (torch.func.jvp, a
+  dual tensor of torch.autograd.forward_ad) and under torch.func's
+  transforms other than vmap (grad, jacrev: the custom ops' autograd rule
+  is an autograd.Function they cannot run)."""
   from torch._C._functorch import TransformType, get_interpreter_stack
   from torch.autograd import forward_ad
 
   tensors = [v for v in values if torch.is_tensor(v)]
   keys = {i.key() for i in get_interpreter_stack() or ()}
-  if (keys - {TransformType.Vmap}
-      or (torch.is_grad_enabled() and any(v.requires_grad for v in tensors))
-      or any(forward_ad.unpack_dual(v).tangent is not None
-             for v in tensors)):
+  if TransformType.Jvp in keys or any(
+      forward_ad.unpack_dual(v).tangent is not None for v in tensors):
     raise NotImplementedError(
-        f"RTS smoother of spec {spec.name!r} on the card: gradients through "
-        "kernels 11-14 need the smoother's adjoint, which is not ported; "
-        "smooth CPU tensors (the plain version, which autograd runs "
-        "through) or detach the inputs")
+        f"{where}: forward mode (torch.func.jvp, forward-mode AD) through "
+        "kernels 11-14 is not ported; reverse mode is (torch.autograd.grad "
+        "/ backward run the smoother's adjoint, kernels 11'-14'), or smooth "
+        "CPU tensors (the plain version)")
+  if keys - {TransformType.Vmap}:
+    raise NotImplementedError(
+        f"{where} runs under torch.func.vmap only: for its gradient call "
+        "torch.autograd.grad / backward (the smoother's adjoint, kernels "
+        "11'-14'), not torch.func.grad or jacrev")
+
+
+def _refuse_grad(spec, values, refine=0):
+  """What of the smoother's gradients on the card is not ported raises,
+  naming it, and never returns a silently detached result: forward mode
+  and torch.func's transforms but vmap (_refuse_transforms), and the
+  refine passes' adjoint (refine > 0 with an input that requires grad)."""
+  where = f"RTS smoother of spec {spec.name!r} on the card"
+  _refuse_transforms(where, values)
+  if refine and _grad_wanted(values):
+    raise NotImplementedError(
+        f"{where}: gradients through refine = {refine} Newton passes need "
+        "the refine passes' adjoint (kernel 11's refine variant and kernel "
+        "13 on (A, b)), which is not ported; pass refine=0 (the adjoint of "
+        "the one-shot parallel smoother runs on the card), smooth "
+        "sequentially, or smooth CPU tensors")
 
 
 @torch.library.custom_op("rednose::rts_smooth", mutates_args=())
@@ -416,18 +458,19 @@ def _rts_smooth_op(x_pred: torch.Tensor, P_pred: torch.Tensor,
                    x_post: torch.Tensor, P_post: torch.Tensor,
                    dts: torch.Tensor, prm: torch.Tensor, handle: int,
                    norm_quats: bool, reference_seed: bool) -> tuple[
-                       torch.Tensor, torch.Tensor]:
+                       torch.Tensor, torch.Tensor, torch.Tensor]:
   """Kernels 11 (gains) and 12 over B lanes: x_* (B, T, dim_x), P_* (B,
-  T, de, de), dts (B, T-1). Returns (x_smooth, P_smooth)."""
+  T, de, de), dts (B, T-1). Returns (x_smooth, P_smooth, C): the gains
+  kept for the backward."""
   spec, pnames = _HANDLES[handle]
   params = dict(zip(pnames, prm))
   x_pred, P_pred, x_post, P_post, dts = (
       a.contiguous() for a in (x_pred, P_pred, x_post, P_post, dts))
   C = smooth_scan.smooth_gains(spec, params, x_pred, P_pred, x_post,
                                P_post, dts, elements=False)
-  return smooth_scan.smooth_backward(spec, params, x_pred, P_pred, x_post,
-                                     P_post, C, norm_quats=norm_quats,
-                                     reference_seed=reference_seed)
+  return smooth_scan.smooth_backward(
+      spec, params, x_pred, P_pred, x_post, P_post, C,
+      norm_quats=norm_quats, reference_seed=reference_seed) + (C,)
 
 
 @torch.library.custom_op("rednose::rts_smooth_parallel", mutates_args=())
@@ -435,12 +478,14 @@ def _rts_smooth_parallel_op(x_pred: torch.Tensor, P_pred: torch.Tensor,
                             x_post: torch.Tensor, P_post: torch.Tensor,
                             dts: torch.Tensor, prm: torch.Tensor,
                             handle: int, norm_quats: bool,
-                            refine: int) -> tuple[torch.Tensor,
-                                                  torch.Tensor]:
+                            refine: int) -> tuple[
+                                torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor]:
   """Kernels 11, 13 and 14 over B lanes (rts_smooth_parallel's math):
   the gains and elements, the suffix scan of (C, b, V), `refine` Newton
   passes (kernel 11's refine variant, then kernel 13 on (A, b)), the
-  inject. Layouts as rednose::rts_smooth's."""
+  inject. Layouts as rednose::rts_smooth's. Returns (x_smooth, P_smooth,
+  C, e, D): the gains and the corrections kept for the backward."""
   spec, pnames = _HANDLES[handle]
   params = dict(zip(pnames, prm))
   x_pred, P_pred, x_post, P_post, dts = (
@@ -454,7 +499,7 @@ def _rts_smooth_parallel_op(x_pred: torch.Tensor, P_pred: torch.Tensor,
                                         norm_quats=norm_quats)
     _, e, _ = smooth_scan.affine_suffix_scan(A_r, b_r)
   return smooth_scan.smooth_inject(spec, params, x_post, P_post, e, D,
-                                   norm_quats=norm_quats)
+                                   norm_quats=norm_quats) + (C, e, D)
 
 
 def _smooth_vmap(op, info, in_dims, x_pred, P_pred, x_post, P_post, dts,
@@ -475,7 +520,7 @@ def _smooth_vmap(op, info, in_dims, x_pred, P_pred, x_post, P_post, dts,
   out = op(*(lanes(a, d) for a, d in zip(
       (x_pred, P_pred, x_post, P_post, dts), in_dims[:5])), prm, handle,
       norm_quats, flag)
-  return tuple(a.unflatten(0, (n, -1)) for a in out), (0, 0)
+  return tuple(a.unflatten(0, (n, -1)) for a in out), (0,) * len(out)
 
 
 _rts_smooth_op.register_vmap(
@@ -484,14 +529,171 @@ _rts_smooth_parallel_op.register_vmap(
     functools.partial(_smooth_vmap, torch.ops.rednose.rts_smooth_parallel))
 
 
-def _no_adjoint(ctx, *grads):
+def _setup_smooth(ctx, inputs, output):
+  x_pred, P_pred, x_post, P_post, dts, prm, handle, norm_quats, flag = inputs
+  ctx.handle, ctx.norm_quats, ctx.flag = handle, norm_quats, flag
+  # an output the loss does not read reaches the backward as None
+  ctx.set_materialize_grads(False)
+  ctx.save_for_backward(x_pred, P_pred, x_post, P_post, dts, prm, *output)
+
+
+def _refuse_second_order():
+  if torch.is_grad_enabled():
+    raise NotImplementedError(
+        "RTS smoother on the card: higher-order gradients (create_graph="
+        "True) through the smoother's adjoint (kernels 11'-14') are not "
+        "ported; smooth CPU tensors (the plain version) for them")
+
+
+def _prm_grad(g, prm):
+  """The params' cotangent (B, NP) a lane, float64 -> prm's gradient (0
+  for a spec without params: prm is one dummy 0)."""
+  if g.shape[-1] != prm.shape[0]:
+    return torch.zeros_like(prm)
+  return g.sum(0).to(prm.dtype)
+
+
+def _rts_smooth_backward(ctx, gxs, gPs, gC):
+  """Autograd rule of rednose::rts_smooth: rednose::rts_smooth_backward
+  (kernels 12' and 11', once each, whatever the bank's size)."""
+  _refuse_second_order()
+  x_pred, P_pred, x_post, P_post, dts, prm, xs, Ps, C = ctx.saved_tensors
+  g = torch.ops.rednose.rts_smooth_backward(
+      x_pred, P_pred, x_post, P_post, dts, prm, C, xs, Ps, gxs, gPs, gC,
+      ctx.handle, ctx.norm_quats, ctx.flag)
+  return g[:5] + (_prm_grad(g[5], prm), None, None, None)
+
+
+def _rts_smooth_parallel_backward(ctx, gxs, gPs, gC, ge, gD):
+  """Autograd rule of rednose::rts_smooth_parallel (refine 0):
+  rednose::rts_smooth_parallel_backward (kernels 14', 13' and 11', once
+  each, whatever the bank's size)."""
+  _refuse_second_order()
+  if ctx.flag:
+    raise NotImplementedError(
+        "RTS smoother on the card: the refine passes' adjoint is not "
+        "ported")
+  x_pred, P_pred, x_post, P_post, dts, prm, _, _, C, e, D = ctx.saved_tensors
+  g = torch.ops.rednose.rts_smooth_parallel_backward(
+      x_pred, P_pred, x_post, P_post, dts, prm, C, e, D, gxs, gPs, gC, ge,
+      gD, ctx.handle, ctx.norm_quats)
+  return g[:5] + (_prm_grad(g[5], prm), None, None, None)
+
+
+_rts_smooth_op.register_autograd(_rts_smooth_backward,
+                                 setup_context=_setup_smooth)
+_rts_smooth_parallel_op.register_autograd(_rts_smooth_parallel_backward,
+                                          setup_context=_setup_smooth)
+
+
+def _sym_grad(*gs):
+  """The sum of covariance cotangents, symmetrized: (G + G^T) / 2."""
+  total = sum(gs)
+  return _sym(total).contiguous()
+
+
+def _add(a, b):
+  return a if b is None else a + b
+
+
+@torch.library.custom_op("rednose::rts_smooth_backward", mutates_args=())
+def _rts_smooth_backward_op(
+    x_pred: torch.Tensor, P_pred: torch.Tensor, x_post: torch.Tensor,
+    P_post: torch.Tensor, dts: torch.Tensor, prm: torch.Tensor,
+    C: torch.Tensor, xs: torch.Tensor, Ps: torch.Tensor,
+    gxs: torch.Tensor | None, gPs: torch.Tensor | None,
+    gC: torch.Tensor | None, handle: int, norm_quats: bool,
+    reference_seed: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Kernels 12' and 11' for rednose::rts_smooth's inputs (its layout),
+  its outputs (xs, Ps, C) and their cotangents (None: 0): 12' (the chain
+  over k) gives C's cotangent, which 11' takes back through the gains.
+  Returns the gradients of (x_pred, P_pred, x_post, P_post, dts) and the
+  params' a lane (B, NP), float64; P's symmetrized."""
+  spec, pnames = _HANDLES[handle]
+  params = dict(zip(pnames, prm))
+  args = tuple(a.contiguous() for a in (x_pred, P_pred, x_post, P_post))
+  gxs, gPs = (None if a is None else a.contiguous() for a in (gxs, gPs))
+  b_xp, b_Pp, b_xq, b_Pq, b_C, b_p = smooth_scan.smooth_backward_adjoint(
+      spec, params, *args, C, xs, Ps, gxs, gPs, norm_quats=norm_quats,
+      reference_seed=reference_seed)
+  g_xp, g_Pp, g_xq, g_Pq, g_dts, g_p = smooth_scan.smooth_gains_adjoint(
+      spec, params, *args, dts.contiguous(), C,
+      gC=_add(b_C, gC).contiguous())
+  return (g_xp + b_xp, _sym_grad(g_Pp, b_Pp), g_xq + b_xq,
+          _sym_grad(g_Pq, b_Pq), g_dts, g_p + b_p)
+
+
+@torch.library.custom_op("rednose::rts_smooth_parallel_backward",
+                         mutates_args=())
+def _rts_smooth_parallel_backward_op(
+    x_pred: torch.Tensor, P_pred: torch.Tensor, x_post: torch.Tensor,
+    P_post: torch.Tensor, dts: torch.Tensor, prm: torch.Tensor,
+    C: torch.Tensor, e: torch.Tensor, D: torch.Tensor,
+    gxs: torch.Tensor | None, gPs: torch.Tensor | None,
+    gC: torch.Tensor | None, ge: torch.Tensor | None,
+    gD: torch.Tensor | None, handle: int, norm_quats: bool) -> tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+        torch.Tensor, torch.Tensor]:
+  """Kernels 14', 13' and 11' for rednose::rts_smooth_parallel's inputs,
+  its kept outputs (C, e, D; refine 0) and the cotangents of its outputs
+  (None: 0): 14' gives e's and D's (plus theirs), 13' the elements' b's
+  and V's (lambda, Lambda), 11' takes them back through the elements and
+  the gains with the scan's share of C's. Returns as
+  rednose::rts_smooth_backward's."""
+  spec, pnames = _HANDLES[handle]
+  params = dict(zip(pnames, prm))
+  args = tuple(a.contiguous() for a in (x_pred, P_pred, x_post, P_post))
+  gxs, gPs = (None if a is None else a.contiguous() for a in (gxs, gPs))
+  i_xq, i_Pq, i_e, i_D, i_p = smooth_scan.smooth_inject_adjoint(
+      spec, params, args[2], args[3], e, D, gxs, gPs, norm_quats=norm_quats)
+  lam, Lam = smooth_scan.affine_suffix_scan_adjoint(
+      C, _add(i_e, ge).contiguous(), _add(i_D, gD).contiguous())
+  g_xp, g_Pp, g_xq, g_Pq, g_dts, g_p = smooth_scan.smooth_gains_adjoint(
+      spec, params, *args, dts.contiguous(), C,
+      gC=None if gC is None else gC.contiguous(), gb=lam, gV=Lam, e=e, D=D)
+  return (g_xp, _sym_grad(g_Pp), g_xq + i_xq, _sym_grad(g_Pq, i_Pq), g_dts,
+          g_p + i_p)
+
+
+def _backward_vmap(op, info, in_dims, *args):
+  """vmap of a backward op: the vmapped logs' lanes side by side in one
+  call (one launch of each adjoint); each log's params' cotangent its own
+  lanes' (the op gives them a lane); batched params raise."""
+  n_t = len(args) - 3   # the tensors, then handle and the two flags
+  if in_dims[5] is not None:
+    raise ValueError("the smoother's backward on the card takes params "
+                     "shared by the vmapped logs")
+  n = info.batch_size
+
+  def lanes(i, a, d):
+    if a is None or i == 5:   # an absent cotangent; the params
+      return a
+    a = (a.movedim(d, 0) if d is not None
+         else a.unsqueeze(0).expand(n, *a.shape))
+    return a.flatten(0, 1)
+
+  out = op(*(lanes(i, a, d) for i, (a, d) in enumerate(
+      zip(args[:n_t], in_dims[:n_t]))), *args[n_t:])
+  return tuple(a.unflatten(0, (n, -1)) for a in out), (0,) * len(out)
+
+
+_rts_smooth_backward_op.register_vmap(
+    functools.partial(_backward_vmap, torch.ops.rednose.rts_smooth_backward))
+_rts_smooth_parallel_backward_op.register_vmap(
+    functools.partial(_backward_vmap,
+                      torch.ops.rednose.rts_smooth_parallel_backward))
+
+
+def _no_second_order(ctx, *grads):
   raise NotImplementedError(
-      "RTS smoother on the card: the smoother's adjoint (gradients through "
-      "kernels 11-14) is not ported; smooth CPU tensors for gradients")
+      "RTS smoother on the card: a gradient of the smoother's adjoint "
+      "(kernels 11'-14') is not ported; smooth CPU tensors for "
+      "higher-order gradients")
 
 
-for _op in (_rts_smooth_op, _rts_smooth_parallel_op):
-  _op.register_autograd(_no_adjoint,
+for _op in (_rts_smooth_backward_op, _rts_smooth_parallel_backward_op):
+  _op.register_autograd(_no_second_order,
                         setup_context=lambda ctx, inputs, output: None)
 
 

@@ -218,13 +218,15 @@ def emitted_ops(source: str) -> dict:
   (ops/entry_slab.py, ops/adjoint.py): every SSA definition that is not a
   plain load of an input (x, P, dt, p, Q, z, ea, R; in an adjoint also the
   incoming cotangents lx, GEN_L and the gate decision rej; in the
-  smoother's functions xa, xb, dx, xp, xq and e) is one operation (a
+  smoother's functions xa, xb, dx, xp, xq and e, and in their VJPs the
+  cotangents gF and g) is one operation (a
   product, a sum, a compare, a select, a sqrt). A function split into
   parts (mode "smooth", gen_sm_*_part) counts each node once, however
   many parts compute it: the operations of the whole function."""
   ops, name, parts = {}, None, {}
   load = re.compile(r"= (x\[|GEN_P\(|dt;|p\[|Q\[|z\[|ea\[|R\[|lx\[|"
-                    r"GEN_L\(|rej;|xa\[|xb\[|dx\[|xp\[|xq\[|e\[)")
+                    r"GEN_L\(|rej;|xa\[|xb\[|dx\[|xp\[|xq\[|e\[|gF\[|"
+                    r"g\[)")
   for line in source.splitlines():
     m = re.match(r"GEN_HD GEN_(?:INLINE|PHASE) void (\w+)\(", line)
     if m:

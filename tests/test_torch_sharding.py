@@ -378,6 +378,42 @@ def test_time_sharded_smoother(ranks, unsharded):
   assert {r["smoother"]["lanes"] for r in ranks} == {256 // N_RANKS}
 
 
+def test_time_sharded_smoother_refuses_gradients_on_the_card(monkeypatch):
+  """On the card's route (sharding._on_card stood in to say so, every
+  smoother launcher a counting stand-in) sharded_rts_smooth_parallel
+  raises NotImplementedError naming the sharded smoother's adjoint for an
+  input that requires grad, and under torch.func.grad, before any
+  launch or collective (the mesh is never read)."""
+  from rednose_tpu_torch.models.kinematic import KinematicKalman as KK
+  from rednose_tpu_torch.ops import smooth_scan
+  from rednose_tpu_torch.parallel import sharding
+
+  calls = []
+
+  def stand_in(*args, **kw):
+    calls.append(1)
+    raise RuntimeError("stand-in launcher reached")
+
+  for name in ("smooth_gains", "affine_suffix_scan", "smooth_inject"):
+    monkeypatch.setattr(smooth_scan, name, stand_in)
+  monkeypatch.setattr(sharding, "_on_card", lambda t: True)
+  spec = KK.build_spec()
+  T, de = 6, spec.dim_err
+  rng = np.random.RandomState(0)
+  x = torch.as_tensor(rng.randn(T, spec.dim_x))
+  P = torch.as_tensor(np.tile(np.eye(de), (T, 1, 1)))
+  t = torch.arange(T, dtype=torch.float64)
+  xg = x.clone().requires_grad_()
+  with pytest.raises(NotImplementedError,
+                     match="the sharded smoother's adjoint"):
+    sharding.sharded_rts_smooth_parallel(None, spec, {}, x, P, xg, P, t)
+  with pytest.raises(NotImplementedError,
+                     match="the sharded smoother's adjoint"):
+    torch.func.grad(lambda v: sharding.sharded_rts_smooth_parallel(
+        None, spec, {}, x, P, v, P, t)[0].sum())(x)
+  assert calls == []
+
+
 def test_dryrun_multichip_cpu(tmp_path, capsys):
   """dryrun_multichip(4, "cpu") end to end: spawns its own 4 ranks and
   holds every case against the unsharded call in this process."""

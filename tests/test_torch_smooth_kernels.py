@@ -29,8 +29,9 @@ The card route (the custom ops rednose::rts_smooth and
 rednose::rts_smooth_parallel) runs here on CPU tensors with the
 launchers replaced by stand-ins that call the host builds and count: a
 vmapped bank and rts_smooth_parallel_bank are one launch of each kernel,
-and an input that requires grad, or torch.func.grad, raises, naming the
-smoother's adjoint.
+and what of the gradients is not ported raises by name (refine > 0 with
+an input that requires grad, torch.func.grad, torch.func.jvp,
+create_graph=True; the adjoint itself: tests/test_torch_smooth_grad.py).
 
 Card-only cases (marked cuda) hold each kernel against its plain version
 on the card, float32 and float64, on 1, 2, 37 and 64 lanes, kernels 11
@@ -987,22 +988,35 @@ def test_card_route_is_one_launch_of_each_kernel(monkeypatch):
 
 
 def test_card_route_refuses_gradients(monkeypatch):
-  """The card route raises, naming the smoother's adjoint, on an input
-  that requires grad and under torch.func.grad, and launches nothing."""
+  """The card route raises, naming what of the smoother's gradients is not
+  ported, where its adjoint (kernels 11'-14') does not reach: refine > 0
+  with an input that requires grad (the refine passes' adjoint) and
+  torch.func.grad, launching nothing; torch.func.jvp (forward mode),
+  launching nothing; and create_graph=True (higher order), after the
+  forward and before any adjoint."""
   host = _route(monkeypatch)
   spec, _, st, dts = family("kinematic")
   a = [_t(s)[0] for s in st]
   t, d = _t(_ts(dts))[0], _t(dts)[0]
   xq = a[2].clone().requires_grad_()
-  with pytest.raises(NotImplementedError, match="adjoint"):
-    rts._card_rts_smooth(spec, {}, a[0], a[1], xq, a[3], t, False, d, False)
-  with pytest.raises(NotImplementedError, match="adjoint"):
+  with pytest.raises(NotImplementedError, match="refine passes' adjoint"):
     rts._card_rts_smooth_parallel(spec, {}, a[0][None], a[1][None],
-                                  xq[None], a[3][None], d[None], False, 0)
-  with pytest.raises(NotImplementedError, match="adjoint"):
+                                  xq[None], a[3][None], d[None], False, 2)
+  with pytest.raises(NotImplementedError, match="torch.autograd.grad"):
     torch.func.grad(lambda x: rts._card_rts_smooth(
         spec, {}, a[0], a[1], x, a[3], t, False, d, False)[0].sum())(a[2])
+  with pytest.raises(NotImplementedError, match="forward mode"):
+    torch.func.jvp(lambda x: rts._card_rts_smooth(
+        spec, {}, a[0], a[1], x, a[3], t, False, d, False)[0], (a[2],),
+        (torch.ones_like(a[2]),))
   assert not any(host.counts.values())
+  adjoints = ("smooth_gains_adjoint", "smooth_backward_adjoint")
+  for name in adjoints:
+    monkeypatch.setattr(smooth_scan, name, lambda *args, **kw: 1 / 0)
+  xs, _ = rts._card_rts_smooth(spec, {}, a[0], a[1], xq, a[3], t, False, d,
+                               False)
+  with pytest.raises(NotImplementedError, match="create_graph"):
+    torch.autograd.grad(xs.sum(), xq, create_graph=True)
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
