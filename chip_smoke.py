@@ -5251,7 +5251,8 @@ def compare_smooth_grad(torch, dev, gen, path, reps=3):
       if "adjoint" in kern:
         log(f"  suffix scan adjoint pass {kern}, "
             f"{str(dt).split('.')[-1]}: {info}")
-  for kern in ("gains_adjoint_kernel", "backward_adjoint_kernel",
+  for kern in ("gains_adjoint_kernel", "backward_adjoint_pre_kernel",
+               "backward_adjoint_chain_kernel", "backward_adjoint_post_kernel",
                "inject_adjoint_kernel"):
     log(f"  ptxas {kern}: {kernel_ptxas(ptxas, kern)}")
   for kern in ("totals_rev_kernel", "apply_rev_kernel"):
@@ -5370,7 +5371,8 @@ def compare_smooth_grad(torch, dev, gen, path, reps=3):
   held("smooth_backward_adjoint", f"B=1 T={T}", out, pout)
   o12 = [z((1, T, dx), device=dev), z((1, T, de, de), device=dev),
          z((1, T, dx), device=dev), z((1, T, de, de), device=dev),
-         z((1, n, d2, d2), device=dev), z((1, n, 1), device=dev)]
+         z((1, n, d2, d2), device=dev), z((1, n, 1), device=dev),
+         ss.backward_adjoint_scratch(spec, (), 1, T, f32, dev)]
   raw, _ = timed_run(lambda: _build.check(
       lib.rn_smooth_backward_adjoint_launch(
           *(a.data_ptr() for a in (*lane, C1, prm, xs1, Ps1, gx1, gP1,

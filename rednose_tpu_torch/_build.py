@@ -306,7 +306,8 @@ def generated_launcher(source: str):
 # (csrc/smooth_adjoint.cuh): kernel 11' xp, Pp, xq, Pq, dts, p, C, gC, lam,
 # Lam, e, D, gxq0, gPq0, gPp1, gdts, gp, gxp1, gxq1, gPq1, B, T, is_double,
 # stream; kernel 12' xp, Pp, xq, Pq, C, p, xs, Ps, gxs, gPs, gxp, gPp, gxq,
-# gPq, gC, gp, B, T, norm, ref_seed, is_double, stream; kernel 14' xq, e,
+# gPq, gC, gp, work, B, T, norm, ref_seed, is_double, stream, and its
+# scratch's size (B, T, is_double, out: the scalars); kernel 14' xq, e,
 # gxs, gPs, p, gxq, gPq, ge, gD, gp, B, T, n, norm, is_double, stream;
 # kernel 13' (csrc/affine_scan.cu) A, gb, gV, lam, Lam, tot, excl, N, n,
 # chunk, is_double, stream; the info entries (kernel or pass, is_double,
@@ -319,7 +320,8 @@ SMOOTH_ENTRIES = {
     "rn_smooth_inject_launch": (_P,) * 7 + (_I,) * 5 + (_P,),
     "rn_smooth_info": (_I, _I, _P),
     "rn_smooth_gains_adjoint_launch": (_P,) * 20 + (_I,) * 3 + (_P,),
-    "rn_smooth_backward_adjoint_launch": (_P,) * 16 + (_I,) * 5 + (_P,),
+    "rn_smooth_backward_adjoint_launch": (_P,) * 17 + (_I,) * 5 + (_P,),
+    "rn_smooth_backward_adjoint_work": (_I, _I, _I, _P),
     "rn_smooth_inject_adjoint_launch": (_P,) * 10 + (_I,) * 5 + (_P,),
     "rn_smooth_adjoint_info": (_I, _I, _P),
     "rn_affine_scan_adjoint_launch": (_P,) * 7 + (_I,) * 4 + (_P,),

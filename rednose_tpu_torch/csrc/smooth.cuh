@@ -585,6 +585,108 @@ GEN_HD GEN_INLINE void back_fill_plain(S* g, const S* xp, const S* Pp,
 
 }  // namespace rn_sm
 
+#ifdef __CUDACC__
+
+namespace rn_sm {
+
+// the ring's primitives: mbarriers in shared memory, cp.async into it
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar,
+                                         unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared.b64 st, [%0];\n}" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// arrives once every cp.async this thread issued before has landed
+__device__ __forceinline__ void bar_arrive_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned ok = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!ok);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+}
+
+// n scalars from global src to shared dst over a warp: 16-byte copies
+// where both ends and the length allow, else a scalar each
+template <typename S>
+__device__ __forceinline__ void copy_async(S* dst, const S* src, int n,
+                                           int lane) {
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15) == 0 && (n * sizeof(S)) % 16 == 0) {
+    const int m = (int)(n * sizeof(S) / 16);
+    for (int c = lane; c < m; c += 32)
+      cp_async<16>(reinterpret_cast<char*>(dst) + 16 * c,
+                   reinterpret_cast<const char*>(src) + 16 * c);
+  } else {
+    for (int i = lane; i < n; i += 32)
+      cp_async<(int)sizeof(S)>(dst + i, src + i);
+  }
+}
+
+// N scalars from shared src to global dst over a warp, every load ahead
+// of every store: 16 bytes a copy where both ends allow, else a scalar
+template <typename S, int N>
+__device__ __forceinline__ void rows_out(S* dst, const S* src, int lane) {
+  constexpr int V = N * (int)sizeof(S) % 16 == 0 ? N * (int)sizeof(S) / 16
+                                                 : 0;
+  if (V && ((reinterpret_cast<uintptr_t>(dst) |
+             reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    constexpr int PL = V ? (V + 31) / 32 : 1;
+    int4 v[PL];
+    SM_UNROLL
+    for (int q = 0; q < PL; ++q)
+      if (lane + 32 * q < V)
+        v[q] = reinterpret_cast<const int4*>(src)[lane + 32 * q];
+    SM_UNROLL
+    for (int q = 0; q < PL; ++q)
+      if (lane + 32 * q < V)
+        reinterpret_cast<int4*>(dst)[lane + 32 * q] = v[q];
+  } else {
+    constexpr int PL = (N + 31) / 32;
+    S v[PL];
+    SM_UNROLL
+    for (int q = 0; q < PL; ++q)
+      if (lane + 32 * q < N) v[q] = src[lane + 32 * q];
+    SM_UNROLL
+    for (int q = 0; q < PL; ++q)
+      if (lane + 32 * q < N) dst[lane + 32 * q] = v[q];
+  }
+}
+
+}  // namespace rn_sm
+
+#endif  // __CUDACC__
+
 // RN_SM_HELPERS_ONLY (csrc/smooth_adjoint.cuh's sources): the helpers
 // above without kernels 11, 12 and 14 and their entries
 #ifndef RN_SM_HELPERS_ONLY
@@ -679,70 +781,6 @@ __global__ void inject_kernel(const S* __restrict__ xq,
                         32);
 }
 
-// the ring's primitives: mbarriers in shared memory, cp.async into it
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return (unsigned)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void bar_init(unsigned long long* bar,
-                                         unsigned count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared.b64 st, [%0];\n}" ::"r"(
-          smem_u32(bar))
-      : "memory");
-}
-
-// arrives once every cp.async this thread issued before has landed
-__device__ __forceinline__ void bar_arrive_copies(unsigned long long* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(unsigned long long* bar,
-                                         unsigned parity) {
-  unsigned ok = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(ok)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!ok);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "n"(N)
-               : "memory");
-}
-
-// n scalars from global src to shared dst over a warp: 16-byte copies
-// where both ends and the length allow, else a scalar each
-template <typename S>
-__device__ __forceinline__ void copy_async(S* dst, const S* src, int n,
-                                           int lane) {
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15) == 0 && (n * sizeof(S)) % 16 == 0) {
-    const int m = (int)(n * sizeof(S) / 16);
-    for (int c = lane; c < m; c += 32)
-      cp_async<16>(reinterpret_cast<char*>(dst) + 16 * c,
-                   reinterpret_cast<const char*>(src) + 16 * c);
-  } else {
-    for (int i = lane; i < n; i += 32)
-      cp_async<(int)sizeof(S)>(dst + i, src + i);
-  }
-}
-
 // the IO warp's copies of step k's inputs into stage g
 template <typename S>
 __device__ __forceinline__ void back_fill(S* g, const S* xp, const S* Pp,
@@ -760,36 +798,6 @@ __device__ __forceinline__ void back_fill(S* g, const S* xp, const S* Pp,
   copy_async<S>(g + Back<S>::P, Pq + k * rp, DE * DE, lane);
   copy_async<S>(g + Back<S>::XP, xp + (k + 1) * rx, DX, lane);
   copy_async<S>(g + Back<S>::XQ, xq + k * rx, DX, lane);
-}
-
-// N scalars from shared src to global dst over a warp, every load ahead
-// of every store: 16 bytes a copy where both ends allow, else a scalar
-template <typename S, int N>
-__device__ __forceinline__ void rows_out(S* dst, const S* src, int lane) {
-  constexpr int V = N * (int)sizeof(S) % 16 == 0 ? N * (int)sizeof(S) / 16
-                                                 : 0;
-  if (V && ((reinterpret_cast<uintptr_t>(dst) |
-             reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
-    constexpr int PL = V ? (V + 31) / 32 : 1;
-    int4 v[PL];
-    SM_UNROLL
-    for (int q = 0; q < PL; ++q)
-      if (lane + 32 * q < V)
-        v[q] = reinterpret_cast<const int4*>(src)[lane + 32 * q];
-    SM_UNROLL
-    for (int q = 0; q < PL; ++q)
-      if (lane + 32 * q < V)
-        reinterpret_cast<int4*>(dst)[lane + 32 * q] = v[q];
-  } else {
-    constexpr int PL = (N + 31) / 32;
-    S v[PL];
-    SM_UNROLL
-    for (int q = 0; q < PL; ++q)
-      if (lane + 32 * q < N) v[q] = src[lane + 32 * q];
-    SM_UNROLL
-    for (int q = 0; q < PL; ++q)
-      if (lane + 32 * q < N) dst[lane + 32 * q] = v[q];
-  }
 }
 
 __device__ __forceinline__ void cov_barrier(int id) {

@@ -911,6 +911,32 @@ def _vjp_function(name, params, dag, outs_of, seeds, leaves):
   return entry_slab._smooth_function(name, params, outs, "\n  " + voids)
 
 
+def _vjp_parts(name, params, dag, part_seeds, leaves):
+  """A template function of mode "smooth_adjoint" over `part` (0 ..
+  len(part_seeds) - 1): part r is backward() of `dag` from the seeds
+  part_seeds[r], storing the adjoint of each leaf of `leaves` as
+  _vjp_function does. The parts' stores summed are the VJP from all the
+  seeds (it is linear in them)."""
+  names = {a[0] for _, args in leaves for a in args}
+  voids = " ".join(f"(void){p.split()[-1].lstrip('*')};"
+                   for p in params.split(", "))
+  lines = ["template <typename scalar_t>",
+           f"GEN_HD GEN_PHASE void {name}({params}, int part) {{",
+           "  " + voids, "  switch (part) {"]
+  for r, seeds in enumerate(part_seeds):
+    adj = backward(dag, seeds, lambda a: a[0] in names)
+    outs = [(arr, [adj.get(a) for a in args]) for arr, args in leaves]
+    pr = entry_slab._SmoothPrinter(0)
+    for _, values in outs:
+      for v in values:
+        pr.emit(v)
+    lines += [f"  case {r}: {{"] + ["  " + ln for ln in pr.lines]
+    lines += [f"    {arr}[{i}] = {pr.ref(v)};" for arr, values in outs
+              for i, v in enumerate(values)]
+    lines += ["    break;", "  }"]
+  return lines + ["  default: break;", "  }", "}"]
+
+
 def smooth_vjp_functions(spec: FilterSpec, pnames) -> list:
   """The lines of mode "smooth_adjoint"'s VJPs in namespace rn_gen:
 
@@ -918,43 +944,67 @@ def smooth_vjp_functions(spec: FilterSpec, pnames) -> list:
                                     gF (D2 x D2, row i at gF + i * ld) the
                                     cotangent of F's main block
                                     (gen_sm_F_part's): gx (DX), gdt[0] and
-                                    gp (NP), second derivatives of f;
+                                    gp (NP), second derivatives of f (the
+                                    parts' reference);
+    gen_sm_F_vjp_part(x, dt, p, gF, ld, gx, gdt, gp, part)
+                                    the same from the entries of gF that
+                                    part r of gen_sm_F_part computes
+                                    (entry_slab.smooth_split): summed over
+                                    the SM_PARTS parts, gen_sm_F_vjp;
     gen_sm_inv_err_vjp(xa, xb, p, g, gxa, gxb, gp)
                                     g (DE) the cotangent of inv_err(xa, xb):
                                     gxa, gxb (DX), gp;
+    gen_sm_inv_err_vjp_xb(xa, xb, p, g, gxb)
+                                    its gxb alone (the DAG pruned to it);
     gen_sm_inject_vjp_n{0,1}(x, dx, p, g, gx, gdx, gp)
                                     g (DX) the cotangent of inject(x, dx)
                                     (gen_sm_inject_n{0,1}'s): gx (DX), gdx
                                     (DE), gp; the renormalization's
-                                    adjoint in n1."""
+                                    adjoint in n1;
+    gen_sm_inject_vjp_dx_n{0,1}(x, dx, p, g, gdx)
+                                    its gdx alone.
+
+  The pruned ones carry kernel 12''s state chain: the columns of its step
+  map (csrc/smooth_adjoint.cuh, pass before the chain)."""
   de, dx, np_ = spec.dim_err, spec.dim_x, len(pnames)
   xs = [("x", (i,)) for i in range(dx)]
   ps = [("p", (j,)) for j in range(np_)]
   funcs = []
+  F_params = ("const scalar_t* x, const scalar_t dt, const scalar_t* p, "
+              "const scalar_t* gF, int ld, scalar_t* gx, scalar_t* gdt, "
+              "scalar_t* gp")
+  F_leaves = [("gx", xs), ("gdt", [("dt", ())]), ("gp", ps)]
   d, F = entry_slab.smooth_F_dag(spec, pnames)
   funcs += _vjp_function(
-      "gen_sm_F_vjp", "const scalar_t* x, const scalar_t dt, "
-      "const scalar_t* p, const scalar_t* gF, int ld, scalar_t* gx, "
-      "scalar_t* gdt, scalar_t* gp", d, F,
-      [(v, d.load("gF", (idx,))) for idx, v in F],
-      [("gx", xs), ("gdt", [("dt", ())]), ("gp", ps)])
-  d, out = entry_slab.smooth_inv_err_dag(spec, pnames)
-  funcs += [""] + _vjp_function(
-      "gen_sm_inv_err_vjp", "const scalar_t* xa, const scalar_t* xb, "
-      "const scalar_t* p, const scalar_t* g, scalar_t* gxa, scalar_t* gxb, "
-      "scalar_t* gp", d, out,
-      [(v, d.load("g", (i,))) for i, v in enumerate(out)],
-      [("gxa", [("xa", (i,)) for i in range(dx)]),
-       ("gxb", [("xb", (i,)) for i in range(dx)]), ("gp", ps)])
-  for norm in (0, 1):
-    d, out = entry_slab.smooth_inject_dag(spec, pnames, norm)
+      "gen_sm_F_vjp", F_params, d, F,
+      [(v, d.load("gF", (idx,))) for idx, v in F], F_leaves)
+  d, F = entry_slab.smooth_F_dag(spec, pnames)
+  funcs += [""] + _vjp_parts(
+      "gen_sm_F_vjp_part", F_params, d,
+      [[(v, d.load("gF", (idx,))) for _, idx, v in part]
+       for part in entry_slab.smooth_split([("F", F)])], F_leaves)
+  xa = [("xa", (i,)) for i in range(dx)]
+  xb = [("xb", (i,)) for i in range(dx)]
+  for name, leaves in (("gen_sm_inv_err_vjp",
+                        [("gxa", xa), ("gxb", xb), ("gp", ps)]),
+                       ("gen_sm_inv_err_vjp_xb", [("gxb", xb)])):
+    d, out = entry_slab.smooth_inv_err_dag(spec, pnames)
     funcs += [""] + _vjp_function(
-        f"gen_sm_inject_vjp_n{norm}", "const scalar_t* x, "
-        "const scalar_t* dx, const scalar_t* p, const scalar_t* g, "
-        "scalar_t* gx, scalar_t* gdx, scalar_t* gp", d, out,
-        [(v, d.load("g", (i,))) for i, v in enumerate(out)],
-        [("gx", xs), ("gdx", [("dx", (i,)) for i in range(de)]),
-         ("gp", ps)])
+        name, "const scalar_t* xa, const scalar_t* xb, const scalar_t* p, "
+        "const scalar_t* g, " + ", ".join(
+            f"scalar_t* {arr}" for arr, _ in leaves), d, out,
+        [(v, d.load("g", (i,))) for i, v in enumerate(out)], leaves)
+  gdx = [("dx", (i,)) for i in range(de)]
+  for norm in (0, 1):
+    for name, leaves in ((f"gen_sm_inject_vjp_n{norm}",
+                          [("gx", xs), ("gdx", gdx), ("gp", ps)]),
+                         (f"gen_sm_inject_vjp_dx_n{norm}", [("gdx", gdx)])):
+      d, out = entry_slab.smooth_inject_dag(spec, pnames, norm)
+      funcs += [""] + _vjp_function(
+          name, "const scalar_t* x, const scalar_t* dx, const scalar_t* p, "
+          "const scalar_t* g, " + ", ".join(
+              f"scalar_t* {arr}" for arr, _ in leaves), d, out,
+          [(v, d.load("g", (i,))) for i, v in enumerate(out)], leaves)
   return funcs
 
 

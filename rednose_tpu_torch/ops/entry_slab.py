@@ -1701,13 +1701,11 @@ def _smooth_function(name, params, outs, prologue=""):
 SMOOTH_PARTS = 4
 
 
-def _smooth_parts(name, params, outs, prologue=""):
-  """One template function over `part` (0 .. SMOOTH_PARTS - 1): `outs`
-  ((array, [(index text, value)]) pairs) split by output entry, each whole
-  to the part whose work (its nodes and its stores) ends least with it,
-  as role_split hands outputs to roles; a part computes the
-  subexpressions its entries need, by the same operations as
-  _smooth_function would."""
+def smooth_split(outs):
+  """`outs` ((array, [(index text, value)]) pairs) split into SMOOTH_PARTS
+  lists of (array, index text, value), each entry whole to the part whose
+  work (its nodes and its stores) ends least with it, as role_split hands
+  outputs to roles."""
   parts = [[] for _ in range(SMOOTH_PARTS)]
   work = [set() for _ in range(SMOOTH_PARTS)]
   for arr, values in outs:
@@ -1717,6 +1715,15 @@ def _smooth_parts(name, params, outs, prologue=""):
               key=lambda r: len(work[r] | need) + len(parts[r]))
       parts[r].append((arr, idx, v))
       work[r] |= need
+  return parts
+
+
+def _smooth_parts(name, params, outs, prologue=""):
+  """One template function over `part` (0 .. SMOOTH_PARTS - 1): `outs`
+  ((array, [(index text, value)]) pairs) split by output entry
+  (smooth_split); a part computes the subexpressions its entries need, by
+  the same operations as _smooth_function would."""
+  parts = smooth_split(outs)
   lines = ["template <typename scalar_t>",
            f"GEN_HD GEN_PHASE void {name}({params}, int part) {{{prologue}",
            "  switch (part) {"]

@@ -40,8 +40,11 @@ smoothing/rts.py's autograd rules string together:
     more; F's cotangent goes through the emitted VJP of F (second
     derivatives of f).
   * kernel 12', `smooth_backward_adjoint` (csrc/smooth_adjoint.cuh): kernel
-    12's chain run forward in time, a block a lane, carrying x_s[k]'s and
-    P_s[k]'s total cotangents; gives C's to 11'.
+    12's chain run forward in time, carrying x_s[k]'s and P_s[k]'s total
+    cotangents; gives C's to 11'. Three kernels of one call: each step's
+    state map A_k in a pass before (every SM), the two chains (a block a
+    lane: A_k's matvec and kernel 12's two products a step, fed by a
+    staged ring), the rest of each step in a pass after.
   * kernel 13', `affine_suffix_scan_adjoint` (csrc/affine_scan.cu):
     lambda_k = gb_k + A_{k-1}^T lambda_{k-1}, Lambda_k = gV_k + A_{k-1}^T
     Lambda_{k-1} A_{k-1}: kernel 13's passes on the transposed maps over
@@ -565,8 +568,9 @@ def smooth_backward_adjoint(spec: FilterSpec, params, x_pred, P_pred, x_post,
                             reference_seed: bool = False):
   """Kernel 12': the cotangents of kernel 12's inputs from those of its
   outputs x_smooth (gxs) and P_smooth (gPs), either None for 0; xs, Ps
-  the forward's outputs. A chain over k forward in time, a block a lane.
-  Returns (g x_pred, g P_pred, g x_post, g P_post (B, T, ...), g C (B,
+  the forward's outputs. A chain over k forward in time, a block a lane,
+  between a pass before and a pass after over every step (one call, its
+  scratch from backward_adjoint_scratch). Returns (g x_pred, g P_pred, g x_post, g P_post (B, T, ...), g C (B,
   T - 1, d2, d2), g params (B, NP) float64)."""
   if x_post.device.type == "cpu":
     return smooth_backward_adjoint_reference(
@@ -595,9 +599,11 @@ def smooth_backward_adjoint(spec: FilterSpec, params, x_pred, P_pred, x_post,
   g_Pp, g_Pq = new((B, T, de, de)), new((B, T, de, de))
   g_C, gp = new((B, T - 1, d2, d2)), new((B, T - 1, max(len(pnames), 1)))
   if B:
+    work = backward_adjoint_scratch(spec, pnames, B, T, dtype, x_post.device)
     _build.check(lib.rn_smooth_backward_adjoint_launch(
         *(_ptr(a) for a in (x_pred, P_pred, x_post, P_post, C, prm, xs, Ps,
-                            gxs, gPs, g_xp, g_Pp, g_xq, g_Pq, g_C, gp)),
+                            gxs, gPs, g_xp, g_Pp, g_xq, g_Pq, g_C, gp,
+                            work)),
         B, T, bool(norm_quats), bool(reference_seed),
         dtype == torch.float64, _stream(x_post)), "smooth_backward_adjoint")
     smooth_backward_adjoint.launches += 1
@@ -605,6 +611,23 @@ def smooth_backward_adjoint(spec: FilterSpec, params, x_pred, P_pred, x_post,
 
 
 smooth_backward_adjoint.launches = 0
+
+
+def backward_adjoint_scratch(spec: FilterSpec, pnames, B: int, T: int,
+                             dtype, device, lib=None):
+  """Kernel 12''s scratch for B lanes of T steps: each step's state map
+  and each row's x_s total (csrc/smooth_adjoint.cuh,
+  rn_smooth_backward_adjoint_work), uninitialized. lib: the build to ask
+  (default the spec's)."""
+  import ctypes
+
+  lib = lib or _build.generated_library(smooth_adjoint_source(
+      spec, tuple(pnames)))
+  out = ctypes.c_longlong()
+  _build.check(lib.rn_smooth_backward_adjoint_work(
+      B, T, dtype == torch.float64, ctypes.addressof(out)),
+      "rn_smooth_backward_adjoint_work")
+  return torch.empty(out.value, dtype=dtype, device=device)
 
 
 def smooth_backward_adjoint_reference(spec: FilterSpec, params, x_pred,
@@ -799,11 +822,15 @@ def affine_info(d: int, dtype=torch.float32, source=None) -> dict:
 
 
 # the adjoints' design constants (csrc/smooth_adjoint.cuh,
-# rn_smooth_adjoint_info)
+# rn_smooth_adjoint_info); "backward_adjoint" is 12''s chain, "_pre" and
+# "_post" its passes before and after
 _ADJOINT_KEYS = {
-    "gains_adjoint": ("items_per_block", "tile"),
-    "backward_adjoint": ("warps", "tile"),
+    "gains_adjoint": ("items_per_block", "tile", "aux_warps",
+                      "factor_in_registers"),
+    "backward_adjoint": ("cov_warps", "ring_stages", "tile_W2", "tile_CP"),
     "inject_adjoint": ("rows_per_block",),
+    "backward_adjoint_pre": ("items_per_block", "state_map_staged"),
+    "backward_adjoint_post": ("rows_per_block", "tile"),
 }
 
 

@@ -35,7 +35,12 @@ affine_sweep) and bank (kernel 15, run_bank's bank scan: its ring's
 steps a stage x stages x W on the kinematic 16384 x 4096 bank, W = 1
 and 2 on the car, op battery and live specs, the chunk loop's unroll,
 the timing aids; with --parent the parent's kernel 15 in turns:
-bank_sweep); all ten by default. W is a constant of
+bank_sweep) and smooth_adjoint (kernels 11' and 12', the smoother's
+adjoint, on the thirteenth path's shapes: 12' on lane 0 at T = 8192, 11'
+on the 64 x 8192 bank's elements, float32 and float64, with the timing
+aids and 12''s passes apart; with --parent the parent's kernels, its
+aids (its smooth_adjoint.cuh cut) and both in turns, held against each
+other: smooth_adjoint_sweep); all eleven by default. W is a constant of
 each source:
 `POS_WARPS` and `WARPS` in csrc/live_mixed.cuh (kernels 2 and 3,
 LiveKalmanBank.run and run_mixed; each build sets both), `TILE_ROLES` in
@@ -109,7 +114,7 @@ WS = (1, 2, 4, 8)
 FRAME_WS = (4, 8, 16)
 REPS = 5
 PARTS = ("live", "frames", "kinematic", "epoch", "stream", "triangulate",
-         "adjoint", "smooth", "affine", "bank")
+         "adjoint", "smooth", "affine", "bank", "smooth_adjoint")
 STREAM_WS = (2, 4, 8, 16, 32)
 STREAM_TS = (256, 8192)   # the wrapped hold's T and the offline path's
 
@@ -1027,11 +1032,11 @@ def parent_smooth_header(csrc, aid):
   return text
 
 
-def build_smooth(name, source, csrc, header=None):
+def build_smooth(name, source, csrc, header=None, adjoint_header=None):
   """nvcc of a smoother source beside the csrc directory's
-  generic_scan.cuh and smooth.cuh (or the header text given), in a
-  directory of its own: the library, its SMOOTH_ENTRIES declared, and its
-  ptxas report."""
+  generic_scan.cuh, smooth.cuh (or the header text given) and
+  smooth_adjoint.cuh (or adjoint_header), in a directory of its own: the
+  library, its SMOOTH_ENTRIES declared, and its ptxas report."""
   from rednose_tpu_torch import _build
 
   d = SWEEP_DIR / name
@@ -1041,6 +1046,10 @@ def build_smooth(name, source, csrc, header=None):
   shutil.copy(pathlib.Path(csrc) / "generic_scan.cuh", d / "generic_scan.cuh")
   (d / "smooth.cuh").write_text(header if header is not None else (
       pathlib.Path(csrc) / "smooth.cuh").read_text())
+  adj = pathlib.Path(csrc) / "smooth_adjoint.cuh"
+  if adjoint_header is not None or adj.exists():
+    (d / adj.name).write_text(adjoint_header if adjoint_header is not None
+                              else adj.read_text())
   proc = subprocess.run(
       [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
        str(d / "libgen.so"), str(d / "gen.cu")],
@@ -1147,11 +1156,16 @@ def smooth_sweep(torch, dev, gen, parent=None):
     subprocess.run([sys.executable, "-c", PARENT_SMOOTH, str(out)],
                    cwd=parent, check=True)
     pcsrc = pathlib.Path(parent) / "rednose_tpu_torch" / "csrc"
-    extra["parent"] = (out.read_text(), pcsrc, None)
-    srcs["whole F (the parent's)"] = with_whole_F(base, out.read_text())
+    psrc = out.read_text()
+    extra["parent"] = (psrc, pcsrc, None)
+    if "void gen_sm_F(" in psrc:    # a parent with F whole (first design)
+      srcs["whole F (the parent's)"] = with_whole_F(base, psrc)
+    # a parent with RN_SM_AID (the redesign and later) builds its aids so
+    own_aids = "RN_SM_AID" in (pcsrc / "smooth.cuh").read_text()
     for label, aid in SMOOTH_AIDS_11.items():
-      extra[f"parent, {label}"] = (out.read_text(), pcsrc,
-                                   parent_smooth_header(pcsrc, aid))
+      extra[f"parent, {label}"] = (
+          (smooth_variant(psrc, AID=aid), pcsrc, None) if own_aids
+          else (psrc, pcsrc, parent_smooth_header(pcsrc, aid)))
   t0 = time.perf_counter()
   with ThreadPoolExecutor(max(len(extra), 1)) as pool:
     jobs = {k: pool.submit(build_smooth, f"sm_{i}", src, d, hdr)
@@ -1287,6 +1301,244 @@ def smooth_sweep(torch, dev, gen, parent=None):
              for i, k in ((0, "gains"), (2, "backward"))}
         for dt in ("float32", "float64")}
   return results
+
+
+# ---------------------------------------------------------- kernels 11', 12'
+# timing aids (csrc/smooth_adjoint.cuh RN_SMA_AID bits; outputs garbage);
+# the parent's the same cuts made in its smooth_adjoint.cuh
+# (SMA_PARENT_CUTS)
+SMA_AIDS = {"12' without the state chain": 1,
+            "12' without the covariance chain": 2,
+            "12' without the emitted VJPs": 4,
+            "12' loads and stores only": 1 | 2 | 4 | 8,
+            "11' without F's VJP": 16,
+            "11' without the factor and solve": 32,
+            "11' without the products": 64}
+# this tree's alone: kernel 12' a pass at a time (RN_SMA_AID bits 128,
+# 256, 512 leave out the pass before the chain, the chain, the pass
+# after it), 11' with the factor and solve over shared memory (1024)
+SMA_THIS = {"12' chain and pass after (no pass before)": 128,
+            "12' passes before and after (no chain)": 256,
+            "12' pass before and chain (no pass after)": 512,
+            "11' with smooth.cuh's factor and solve": 1024}
+SMA_AIDS_12, SMA_AIDS_11 = 1 | 2 | 4 | 8 | 128 | 256 | 512, 16 | 32 | 64 | 1024
+# the parent's (the first design's) statements each aid cuts, by
+# prefixing "if (0) "
+SMA_PARENT_CUTS = {
+    1: ["ba_state<S>(a, k, norm != 0, sm, tid, 32);"],
+    2: ["ba_cov<S, BA_TILE>(sm, tid - 32, BA_COV);"],
+    4: ["rn_gen::gen_sm_inv_err<S>(xp1, xs1, a.p, dx);",
+        "inject_vjp<S>(norm, a.xq + (size_t)k * DX, dxp,",
+        "rn_gen::gen_sm_inv_err_vjp<S>(xp1, xs1, a.p, gdx2,"],
+    16: ["rn_gen::gen_sm_F_vjp<S>(a.xq + r0 * DX,"],
+    32: ["rn_sm::cholesky<S, NL>(L, sm + GA::DIAG, tid);",
+          "rn_sm::cho_solve<S, NL>(L, sm + GA::DIAG, W1, tid);"],
+    64: ["rn_sm::mm_tiles<S, SM_TILE>("],
+}
+PARENT_SMOOTH_ADJOINT = """
+import sys
+from rednose_tpu_torch.models.live import LiveKalman
+from rednose_tpu_torch.ops import smooth_scan
+open(sys.argv[1], "w").write(smooth_scan.smooth_adjoint_source(
+    LiveKalman.build_spec(), ()))
+"""
+# kernel 12''s C entry in the parent: no scratch pointer
+_VP, _VI = ctypes.c_void_p, ctypes.c_int
+PARENT_BACK_ADJ_ARGS = (_VP,) * 16 + (_VI,) * 5 + (_VP,)
+
+
+def parent_sma_header(csrc, aid):
+  """The parent's csrc/smooth_adjoint.cuh with the statements of aid's
+  bits (SMA_PARENT_CUTS) made dead."""
+  text = (pathlib.Path(csrc) / "smooth_adjoint.cuh").read_text()
+  for bit, cuts in SMA_PARENT_CUTS.items():
+    if aid & bit:
+      for cut in cuts:
+        if cut not in text:
+          raise RuntimeError(f"parent smooth_adjoint.cuh: no {cut!r}")
+        text = text.replace(cut, "if (0) " + cut)
+  return text
+
+
+def sma_inputs(torch, dev, gen):
+  """Kernels 11' and 12''s inputs on the thirteenth path's shapes, from
+  smooth_stacks' live log through this tree's kernels 11-13 and 13' in
+  each type: {dtype: dict(bank (the 64 x 8192 stacks, dts, C, lam, Lam,
+  e, D: 11''s parallel form, as chip_smoke.compare_smooth_grad times
+  it), lane (lane 0's stacks, its gains C1, kernel 12's xs1, Ps1 and the
+  seeded cotangents gx1, gP1: 12''s))}."""
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  spec = LiveKalman.build_spec()
+  out = {}
+  for dt, st in smooth_stacks(torch, dev, gen).items():
+    xp, Pp, xq, Pq, dts = st
+    C, b, V = ss.smooth_gains(spec, {}, xp, Pp, xq, Pq, dts)
+    _, e, D = ss.affine_suffix_scan(C, b, V)
+    lam, Lam = ss.affine_suffix_scan_adjoint(C, e, D)
+    del b, V
+    lane = [a[:1].contiguous() for a in (xp, Pp, xq, Pq)]
+    C1 = ss.smooth_gains(spec, {}, *lane, dts[:1].contiguous(),
+                         elements=False)
+    xs1, Ps1 = ss.smooth_backward(spec, {}, *lane, C1, norm_quats=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(cs.SEED + 25)
+    gx1, gP1 = (torch.randn(a.shape, generator=g, device=dev,
+                            dtype=torch.float64).to(dt)
+                for a in lane[:2])
+    out[dt] = dict(bank=(xp, Pp, xq, Pq, dts, C, lam, Lam, e, D),
+                   lane=(*lane, C1, xs1, Ps1, gx1, gP1))
+  return out
+
+
+def smooth_adjoint_sweep(torch, dev, gen, parent=None):
+  """Kernels 11' and 12' of the live spec on the thirteenth path's shapes
+  (sma_inputs): 12' on lane 0 (B = 1, T = 8192), 11' on the bank's
+  elements (64 x 8192, the parallel form), float32 and float64; this
+  tree's timing aids SMA_AIDS and SMA_THIS, and with parent (a
+  checkout of the parent commit) its kernels (its emitter run in a
+  subprocess there, built with its templates) and its aids (its
+  smooth_adjoint.cuh cut, SMA_PARENT_CUTS); then parent and this tree in
+  turns (parent, this, this, parent) in both types, this tree's outputs
+  held against the parent's (float64 within SMA_TOL64 and float32 within
+  chip_smoke.SMOOTH_GRAD32_TOL of each output's largest entry, the
+  covariances' by their symmetric parts). Raw launches of the C entries
+  on preallocated outputs, CUDA events after a warm-up."""
+  from rednose_tpu_torch import _build
+  from rednose_tpu_torch.models.live import LiveKalman
+  from rednose_tpu_torch.ops import smooth_scan as ss
+
+  spec = LiveKalman.build_spec()
+  base = ss.smooth_adjoint_source(spec, ())
+  csrc = ROOT / "rednose_tpu_torch" / "csrc"
+  srcs = {"this": base}
+  if "RN_SMA_AID" in (csrc / "smooth_adjoint.cuh").read_text():
+    for label, aid in (SMA_AIDS | SMA_THIS).items():
+      srcs[label] = f"#define RN_SMA_AID {aid}\n" + base
+  extra = {}
+  if parent is not None:
+    out = SWEEP_DIR / "smooth_adjoint_parent.cu"
+    SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([sys.executable, "-c", PARENT_SMOOTH_ADJOINT, str(out)],
+                   cwd=parent, check=True)
+    pcsrc = pathlib.Path(parent) / "rednose_tpu_torch" / "csrc"
+    extra["parent"] = (out.read_text(), pcsrc, None)
+    for label, aid in SMA_AIDS.items():
+      extra[f"parent, {label}"] = (out.read_text(), pcsrc,
+                                   parent_sma_header(pcsrc, aid))
+  t0 = time.perf_counter()
+  with ThreadPoolExecutor(max(len(extra), 1)) as pool:
+    jobs = {k: pool.submit(build_smooth, f"sma_{i}", src, d, None, hdr)
+            for i, (k, (src, d, hdr)) in enumerate(extra.items())}
+    _build.build_generated_many(list(srcs.values()))
+    libs = {k: _build.generated_library(v) for k, v in srcs.items()}
+    reports = {k: _build.generated_ptxas(v) for k, v in srcs.items()}
+    for k, j in jobs.items():
+      libs[k], reports[k] = j.result()
+      libs[k].rn_smooth_backward_adjoint_launch.argtypes = list(
+          PARENT_BACK_ADJ_ARGS)
+  cs.log(f"smoother's adjoint: {len(libs)} builds in "
+         f"{time.perf_counter() - t0:.1f} s")
+  ins = sma_inputs(torch, dev, gen)
+  B, T = ins[torch.float32]["bank"][0].shape[:2]
+  n, d2, de, dx = T - 1, spec.dim_main_err, spec.dim_err, spec.dim_x
+  stream = torch.cuda.current_stream().cuda_stream
+
+  def gains(lib, dt):
+    """(launch, outputs) of 11' on the bank's elements, outputs zeroed."""
+    xp, Pp, xq, Pq, dts, C, lam, Lam, e, D = ins[dt]["bank"]
+    z = lambda *s: torch.zeros(s, dtype=dt, device=dev)  # noqa: E731
+    o = [z(B, n, dx), z(B, n, d2, d2), z(B, n, d2, d2), z(B, n), z(B, n, 1),
+         z(B, n, dx), z(B, n, dx), z(B, n, d2, d2)]
+    prm = z(1)
+    return (lambda: _build.check(lib.rn_smooth_gains_adjoint_launch(
+        *(None if a is None else a.data_ptr() for a in (
+            xp, Pp, xq, Pq, dts, prm, C, None, lam, Lam, e, D, *o)), B, T,
+        int(dt == torch.float64), stream), "11'")), o
+
+  def backward(lib, dt, scratch):
+    """(launch, outputs) of 12' on lane 0, outputs zeroed."""
+    xp, Pp, xq, Pq, C1, xs1, Ps1, gx1, gP1 = ins[dt]["lane"]
+    o = [torch.zeros_like(a) for a in (xp, Pp, xq, Pq, C1)] + [
+        torch.zeros((1, n, 1), dtype=dt, device=dev)]
+    prm = torch.zeros(1, dtype=dt, device=dev)
+    s = ([ss.backward_adjoint_scratch(spec, (), 1, T, dt, dev, lib=lib)]
+         if scratch else [])
+    return (lambda: _build.check(lib.rn_smooth_backward_adjoint_launch(
+        *(a.data_ptr() for a in (xp, Pp, xq, Pq, C1, prm, xs1, Ps1, gx1,
+                                 gP1, *o, *s)), 1, T, 1, 0,
+        int(dt == torch.float64), stream), "12'")), o
+
+  def timed(label, kern, dt, reps=REPS):
+    lib = libs[label]
+    fn, _ = (gains(lib, dt) if kern == 11 else
+             backward(lib, dt, label not in extra))
+    return cs.timed_run(fn, reps)[0]
+
+  results = {}
+  f32, f64 = torch.float32, torch.float64
+  for label in libs:
+    row = {"ptxas": {k: kernel_ptxas(reports[label], k) for k in (
+        "gains_adjoint", "backward_adjoint")}}
+    aid = (SMA_AIDS | SMA_THIS).get(label.split("parent, ")[-1], 0)
+    if not aid or aid & SMA_AIDS_12:
+      row["backward_ms"] = timed(label, 12, f32)
+    if not aid or aid & SMA_AIDS_11:
+      row["gains_ms"] = timed(label, 11, f32)
+    if label in ("this", "parent"):
+      row["backward_ms_double"] = timed(label, 12, f64)
+      row["gains_ms_double"] = timed(label, 11, f64)
+      row["info"] = {dt: _sma_info(libs[label], dt == "float64",
+                                   label in extra)
+                     for dt in ("float32", "float64")}
+    results[label] = row
+    cs.log(f"smoother's adjoint {label}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in row.items() if k.endswith(
+            ("_ms", "_double"))) + f"; info {row.get('info')}; ptxas "
+        f"{row['ptxas']}")
+  if parent is not None:
+    turns = {}
+    for dt in (f32, f64):
+      name = str(dt).split(".")[-1]
+      for kern in (11, 12):
+        times = {"parent": [], "this": []}
+        for which in ("parent", "this", "this", "parent"):
+          times[which].append(timed(which, kern, dt))
+        outs = {}
+        for which in ("parent", "this"):
+          fn, o = (gains(libs[which], dt) if kern == 11 else
+                   backward(libs[which], dt, which == "this"))
+          fn()
+          torch.cuda.synchronize()
+          outs[which] = o
+        errs = [cs._sym_err(a, b.double()) for a, b in zip(
+            outs["this"], outs["parent"])]
+        tol = SMA_TOL64 if dt == f64 else cs.SMOOTH_GRAD32_TOL
+        turns[f"kernel {kern}' {name}"] = dict(
+            times=times, errs=errs, ok=max(errs) <= tol)
+        cs.log(f"kernel {kern}' {name} in turns: parent {times['parent']} "
+               f"ms, this {times['this']} ms; this against the parent "
+               f"{[float(f'{x:.3g}') for x in errs]} (tolerance {tol}) -> "
+               f"{'ok' if max(errs) <= tol else 'FAIL'}")
+        del outs
+    results["in turns"] = turns
+  return results
+
+
+# float64 outputs of this tree's 11' and 12' against the parent's
+SMA_TOL64 = 1e-12
+
+
+def _sma_info(lib, double, parent):
+  """rn_smooth_adjoint_info of each kernel (the parent's: 11', 12', 14')."""
+  out = (ctypes.c_int * 9)()
+  res = {}
+  names = ("11'", "12' chain", "14'", "12' pass before", "12' pass after")
+  for i, k in enumerate(names[:3] if parent else names):
+    rc = lib.rn_smooth_adjoint_info(i, int(double), ctypes.addressof(out))
+    res[k] = list(out) if rc == 0 else f"cudaError {rc}"
+  return res
 
 
 # ---------------------------------------------------------------- kernel 13
@@ -2129,12 +2381,14 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--parent", type=pathlib.Path, default=None,
                   help="a checkout of an earlier commit: its kernels 1, "
-                       "2, 3, 8, 10, 11, 12, 13 and 15 run beside these")
+                       "2, 3, 8, 10, 11, 12, 13, 15, 11' and 12' run "
+                       "beside these")
   ap.add_argument("--parts", nargs="+", default=list(PARTS), choices=PARTS,
                   help="what to sweep (default all): kernels 2, 3, 4 and 6 "
                        "on the live spec, kernel 7 and kernel 6 with camera "
                        "frames, kernel 1, kernel 5, kernel 9, kernel 8, "
-                       "kernel 10, kernels 11 and 12, kernel 13, kernel 15")
+                       "kernel 10, kernels 11 and 12, kernel 13, kernel "
+                       "15, kernels 11' and 12'")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("sweep_warps: no CUDA device", file=sys.stderr)
@@ -2181,9 +2435,12 @@ def main():
     results["kernel 13"] = affine_sweep(torch, dev, gen, args.parent)
   if "bank" in args.parts:
     results["kernel 15"] = bank_sweep(torch, dev, gen, args.parent)
-  if args.parent is not None and set(args.parts) - {"triangulate",
-                                                    "adjoint", "smooth",
-                                                    "affine", "bank"}:
+  if "smooth_adjoint" in args.parts:
+    results["kernels 11'-12'"] = smooth_adjoint_sweep(torch, dev, gen,
+                                                      args.parent)
+  if args.parent is not None and set(args.parts) - {
+      "triangulate", "adjoint", "smooth", "affine", "bank",
+      "smooth_adjoint"}:
     results["template A/B"] = template_ab(torch, dev, gen, parent_template)
   SWEEP_DIR.mkdir(parents=True, exist_ok=True)
   (SWEEP_DIR / "sweep_warps.json").write_text(json.dumps(results, indent=1))

@@ -244,8 +244,13 @@ def port_grads(name, form, reference_seed, norm, route=False):
 _ENTRIES = {
     "rn_smooth_gains_adjoint_host": (ctypes.c_void_p,) * 20
                                     + (ctypes.c_int,) * 3,
-    "rn_smooth_backward_adjoint_host": (ctypes.c_void_p,) * 16
+    "rn_smooth_backward_adjoint_host": (ctypes.c_void_p,) * 17
                                        + (ctypes.c_int,) * 5,
+    "rn_smooth_backward_adjoint_work": (ctypes.c_int,) * 3
+                                       + (ctypes.c_void_p,),
+    "rn_smooth_adjoint_parts_host": (ctypes.c_void_p,) + (ctypes.c_double,)
+                                    + (ctypes.c_void_p,) * 8
+                                    + (ctypes.c_int, ctypes.c_void_p),
     "rn_smooth_inject_adjoint_host": (ctypes.c_void_p,) * 10
                                      + (ctypes.c_int,) * 5,
     "rn_affine_scan_adjoint_host": (ctypes.c_void_p,) * 7
@@ -321,9 +326,13 @@ class HostAdjoint(Host):
          torch.zeros_like(x_post), torch.zeros_like(P_post),
          torch.zeros_like(C), new((B, T - 1, max(np_, 1)))]
     prm = self._prm(params, x_post)
-    assert self._alib(spec, params).rn_smooth_backward_adjoint_host(
+    lib = self._alib(spec, params)
+    work = smooth_scan.backward_adjoint_scratch(
+        spec, smooth_scan.pnames_of(params), B, T, x_post.dtype, "cpu",
+        lib=lib)
+    assert lib.rn_smooth_backward_adjoint_host(
         *(_p(a) for a in (x_pred, P_pred, x_post, P_post, C, prm, xs, Ps,
-                          gxs, gPs, *o)),
+                          gxs, gPs, *o, work)),
         B, T, bool(norm_quats), bool(reference_seed), 1) == 0
     return tuple(o[:5]) + (o[5][..., :np_].sum(1),)
 

@@ -38,7 +38,8 @@ on the card, float32 and float64, on 1, 2, 37 and 64 lanes, kernels 11
 and 12 on logs of 1, 2 and 7 steps, each lane of kernel 12 bitwise that
 lane alone, and kernel 13 at each D and n of its CPU cases (in chunks of
 AFFINE_CHUNK), with and without V and out A, its float64 raw launches
-bitwise the wrapped call. This file imports JAX
+bitwise the wrapped call; the adjoints 12' and 11' on the logs of 1, 2
+and 7 steps (fewer steps than 12''s ring has stages, and more). This file imports JAX
 only in a try (the card's machine has none): `python -m pytest
 tests/test_torch_smooth_kernels.py -m cuda --noconftest`."""
 
@@ -1160,3 +1161,64 @@ def test_suffix_scan_on_card_matches_plain(cuda_device, d, dtype):
         torch.cuda.synchronize()
         for g, r in zip(got, raw):
           assert g is None or torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_short_logs_adjoints_on_card_match_plain(cuda_device, name, dtype, T):
+  """Kernels 12' and 11' (gains and parallel forms) on the card on the
+  family's last T steps for 37 lanes (T = 1: the seed row alone; T = 2
+  and 7: fewer steps than 12''s ring has stages, and more) against their
+  plain versions on the same inputs, seeded cotangents: float64 within
+  TOL64, float32 within 2e-3 of each output's largest entry (the
+  covariances' by their symmetric parts, the kernels reading one
+  triangle); an output whose largest entry is within that tolerance of
+  the call's largest gradient (0 but for rounding: C's at T = 2 from the
+  reference seed, where x_s[1] = x_pred[1]) within it of that gradient,
+  absolutely; one launch of 12' a call."""
+  spec, a, d = _card_case(name, dtype, 37, cuda_device, T)
+  tol = TOL64 if dtype == torch.float64 else 2e-3
+  ss = smooth_scan
+  g = torch.Generator(device=cuda_device)
+  g.manual_seed(25)
+  r = lambda like: torch.randn(like.shape, generator=g,  # noqa: E731
+                               device=cuda_device, dtype=dtype)
+
+  def held(kern, plain):
+    pairs = []
+    for k, p in zip(kern, plain):
+      if k is None or not k.numel():
+        continue
+      k, p = k.double().cpu(), p.double().cpu()
+      if k.dim() >= 2 and k.shape[-1] == k.shape[-2]:
+        k, p = k + k.transpose(-1, -2), p + p.transpose(-1, -2)
+      pairs.append((k, p))
+    big = max(float(p.abs().max()) for _, p in pairs)
+    for k, p in pairs:
+      if float(p.abs().max()) > tol * big:
+        assert cov_err(k, p) <= tol
+      else:
+        assert float((k - p).abs().max()) <= tol * big
+
+  C = ss.smooth_gains(spec, {}, *a, d, elements=False)
+  gx, gP = r(a[0]), r(a[1])
+  n0 = ss.smooth_backward_adjoint.launches
+  for ref_seed in (False, True):
+    kw = dict(norm_quats=True, reference_seed=ref_seed)
+    xs, Ps = ss.smooth_backward(spec, {}, *a, C, **kw)
+    args = (spec, {}, *a, C, xs, Ps, gx, gP)
+    held(ss.smooth_backward_adjoint(*args, **kw),
+         ss.smooth_backward_adjoint_reference(*args, **kw))
+  assert ss.smooth_backward_adjoint.launches == n0 + 2
+  if T == 1:
+    return
+  gC = r(C)
+  held(ss.smooth_gains_adjoint(spec, {}, *a, d, C, gC=gC),
+       ss.smooth_gains_adjoint_reference(spec, {}, *a, d, C, gC=gC))
+  C, b, V = ss.smooth_gains(spec, {}, *a, d)
+  _, e, D = ss.affine_suffix_scan(C, b, V)
+  kw = dict(gC=r(C), gb=r(b), gV=r(V), e=e, D=D)
+  held(ss.smooth_gains_adjoint(spec, {}, *a, d, C, **kw),
+       ss.smooth_gains_adjoint_reference(spec, {}, *a, d, C, **kw))
